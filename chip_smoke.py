@@ -1,0 +1,524 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA engine (`siddhi_tpu_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a host with one CUDA card, `nvcc` (PATH or
+/usr/local/cuda) and the PyTorch build for CUDA. It exits non-zero on any
+failure, and before printing any result when there is no CUDA device or no
+engine next to it. Phases, each printed as it ends:
+  1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
+     build of every kernel in siddhi_tpu_torch/csrc/ (one nvcc per source);
+  2. each kernel against its plain PyTorch version on the card, at the main
+     path's shapes (B=32768, W=50) and ragged ones, one batch at a time from
+     the same inputs and state; times from CUDA events;
+  3. verify cases filter_num, len_window_avg, len_window_minmax on the card
+     against the frozen CPU rows of VERIFY.json;
+  4. the main path at full width: BASELINE.json config 1 (filter + length(50)
+     window + avg) and the same app with min/max added, at @app:batch 32768,
+     2,000,000 events each through send_columns; every kernel's launch count
+     over those runs must be > 0, and the first 4 batches' rows must match the
+     same run on device="cpu".
+The line before the last is the JSON kernel table; the last line is
+{"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --profile
+
+instead builds the kernels and prints where one full-width main-path batch
+spends its time: host stages, and device time by kernel from torch.profiler.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+RTOL = 2e-4  # bench.py:_rows_match
+MAIN_BATCH, MAIN_W, MAIN_EVENTS = 32768, 50, 2_000_000
+
+# the 8-symbol stock feed of bench.py:_make_stock_data
+SYMBOLS = ["WSO2", "IBM", "GOOG", "MSFT", "ORCL", "AAPL", "AMZN", "NVDA"]
+
+MAIN_APP = """
+@app:batch(size='{batch}')
+define stream StockStream (symbol string, price float, volume long);
+@info(name='q')
+from StockStream[price > 50]#window.length({w})
+select symbol, avg(price) as ap{extra}
+insert into Out;
+"""
+MINMAX = ", min(price) as mn, max(price) as mx"
+
+VERIFY_HEAD = (
+    "@app:batch(size='32')\n"
+    "define stream S (symbol string, price float, volume long);\n"
+)
+VERIFY_CASES = {
+    "filter_num": VERIFY_HEAD + "@info(name='q') from S[price > 50 and volume < 800] select symbol, price insert into Out;",
+    "len_window_avg": VERIFY_HEAD + "@info(name='q') from S#window.length(7) select symbol, avg(price) as ap, sum(volume) as tv insert into Out;",
+    "len_window_minmax": VERIFY_HEAD + "@info(name='q') from S#window.length(5) select min(price) as mn, max(price) as mx insert into Out;",
+}
+
+
+def rows_match(a, b, tol=RTOL):
+    """bench.py:_rows_match: floats within a relative tol (floor 1.0)."""
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(rows_match(x, y, tol) for x, y in zip(a, b))
+    if isinstance(a, float):
+        if b == 0:
+            return abs(a) < tol
+        return abs(a - b) <= tol * max(1.0, abs(a), abs(b))
+    return a == b
+
+
+def stock_data(n: int, seed: int = 7) -> dict:
+    """bench.py:_make_stock_data: pre-interned symbol ids 1..8."""
+    rng = np.random.default_rng(seed)
+    return {
+        "ts": np.arange(n, dtype=np.int64) + 1_700_000_000_000,
+        "symbol": rng.integers(1, 9, size=n).astype(np.int32),
+        "price": rng.uniform(0.0, 100.0, size=n).astype(np.float32),
+        "volume": rng.integers(1, 1000, size=n).astype(np.int64),
+    }
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Mean wall time per call on the device, from CUDA events (after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def flat(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in flat(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in flat(v)]
+    return [tree]
+
+
+def max_abs_err(torch, got, want) -> float:
+    """Largest |got - want| over a tree of tensors; raises on any mismatch
+    of shape or dtype, or of value beyond the stated tolerance (floats:
+    relative 2e-4 of the largest running magnitude so far, floor 1.0 — the
+    sums are taken in another order; everything else: exact)."""
+    err = 0.0
+    for g, w in zip(flat(got), flat(want), strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"shape/dtype {g.dtype}{list(g.shape)} vs {w.dtype}{list(w.shape)}")
+        if g.dtype.is_floating_point:
+            gn, wn = g.double().cpu().numpy(), w.double().cpu().numpy()
+            if not np.array_equal(np.isnan(gn), np.isnan(wn)):
+                raise AssertionError("NaN positions differ")
+            ok = ~np.isnan(gn)
+            d = np.abs(gn - wn)[ok].reshape(-1)
+            scale = np.maximum.accumulate(np.maximum(np.abs(gn), np.abs(wn))[ok].reshape(-1))
+            if d.size and not np.all(d <= RTOL * np.maximum(1.0, scale)):
+                raise AssertionError(f"float mismatch, max abs {d.max()}")
+            err = max(err, float(d.max()) if d.size else 0.0)
+        elif not torch.equal(g, w):
+            raise AssertionError("integer/bool mismatch")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def kernel_phase(torch, dev) -> dict:
+    from siddhi_tpu_torch.core.aggregators import window_extreme, window_extreme_ref
+    from siddhi_tpu_torch.core.event import EventBatch, StreamSchema
+    from siddhi_tpu_torch.core.types import AttrType
+    from siddhi_tpu_torch.core.windows import (
+        SlidingWindow,
+        length_window_step,
+        length_window_step_ref,
+    )
+    from siddhi_tpu_torch.ops.prefix import running_sum, running_sum_ref
+
+    schema = StreamSchema("S", [("symbol", AttrType.STRING), ("price", AttrType.FLOAT),
+                                ("volume", AttrType.LONG)])
+    rng = np.random.default_rng(2024)
+    res = {k: {"max_abs_err": 0.0} for k in ("length_window_step", "running_sum",
+                                               "window_extreme")}
+
+    def batch_of(b, ragged):
+        d = stock_data(b, seed=int(rng.integers(1 << 30)))
+        valid = d["price"] > 50  # the main path's filter
+        kind = np.zeros(b, np.int8)
+        if ragged:
+            valid &= np.arange(b) < rng.integers(b // 2, b + 1)
+            kind[rng.random(b) < 0.05] = 2  # TIMER rows pass through untouched
+        return EventBatch(
+            ts=torch.from_numpy(d["ts"]).to(dev), kind=torch.from_numpy(kind).to(dev),
+            valid=torch.from_numpy(valid).to(dev),
+            cols={n: torch.from_numpy(d[n]).to(dev) for n in ("symbol", "price", "volume")},
+        )
+
+    main = {}
+    for b, w, ragged, steps in ((MAIN_BATCH, MAIN_W, False, 3), (33, 5, True, 4),
+                                (4097, MAIN_W, True, 3)):
+        state = SlidingWindow(schema, "S", w, dev).init_state()
+        for step in range(steps):
+            batch = batch_of(b, ragged)
+            got = length_window_step(state, batch, w)
+            want = length_window_step_ref(state, batch, w)
+            torch.cuda.synchronize()
+            out_g, out_w = got[0], want[0]
+            tree_g = [out_g.ts, out_g.kind, out_g.valid, out_g.cols, got[1], got[2], got[3]]
+            tree_w = [out_w.ts, out_w.kind, out_w.valid, out_w.cols, want[1], want[2], want[3]]
+            res["length_window_step"]["max_abs_err"] = max(
+                res["length_window_step"]["max_abs_err"], max_abs_err(torch, tree_g, tree_w))
+            # K2 on this step's signed contributions (the avg's sum and count)
+            sign = (out_w.valid & (out_w.kind == 0)).to(torch.float32) - (
+                out_w.valid & (out_w.kind == 1)).to(torch.float32)
+            contrib = torch.where(sign != 0, out_w.cols["price"] * sign, 0.0)
+            reset = torch.zeros_like(out_w.valid)
+            if ragged:
+                reset = torch.from_numpy(rng.random(2 * b) < 0.02).to(dev)
+            base = torch.full((), float(rng.uniform(0, 500)), device=dev)
+            cases = [(contrib, base), (sign.to(torch.int64), base.to(torch.int64))]
+            for c, bs in cases:
+                g = running_sum(c, reset, bs)
+                r = running_sum_ref(c, reset, bs)
+                res["running_sum"]["max_abs_err"] = max(
+                    res["running_sum"]["max_abs_err"], max_abs_err(torch, list(g), list(r)))
+            # K3 over this step's window elements
+            vals = torch.cat([state["cols"]["price"], batch.cols["price"]])
+            for is_min in (True, False):
+                g = window_extreme(vals, want[1], want[2], 2 * b, is_min, AttrType.FLOAT)
+                r = window_extreme_ref(vals, want[1], want[2], 2 * b, is_min, AttrType.FLOAT)
+                res["window_extreme"]["max_abs_err"] = max(
+                    res["window_extreme"]["max_abs_err"], max_abs_err(torch, g, r))
+            if b == MAIN_BATCH and step == steps - 1:
+                main = dict(state=state, batch=batch, want=want, contrib=contrib,
+                            reset=reset, base=base, vals=vals)
+            state = want[3]
+        print(f"kernel check B={b} W={w} ragged={ragged}: ok", flush=True)
+
+    # times at the main path's shapes (B=32768, W=50: 2B = 65536 flow rows)
+    m = main
+    b, w = MAIN_BATCH, MAIN_W
+    k1 = res["length_window_step"]
+    k1["ms"] = time_ms(torch, lambda: length_window_step(m["state"], m["batch"], w), 50)
+    k1["plain_ms"] = time_ms(torch, lambda: length_window_step_ref(m["state"], m["batch"], w), 20)
+    k1["library_ms"] = None
+    col_bytes = sum(t.element_size() for t in m["batch"].cols.values())
+    k1_bytes = (b * (8 + 1 + 1 + col_bytes) + w * (col_bytes + 24) + 8  # in: batch, ring
+                + 2 * b * (8 + 1 + 1 + col_bytes) + (w + b) * 8  # out rows, birth/death
+                + w * (col_bytes + 24) + 8)  # new ring
+    k1["bound_ms"], k1["bound_by"] = k1_bytes / MEM_BYTES_PER_S * 1e3, "bytes"
+
+    k2 = res["running_sum"]
+    c, rs, bs = m["contrib"], m["reset"], m["base"]
+    k2["ms"] = time_ms(torch, lambda: running_sum(c, rs, bs), 100)
+    k2["plain_ms"] = time_ms(torch, lambda: running_sum_ref(c, rs, bs), 100)
+    k2["library_ms"] = time_ms(torch, lambda: torch.cumsum(c, 0), 100)
+    n = c.shape[0]
+    k2_bytes, k2_ops = n * (4 + 1) + n * 4 + 8, n
+    k2["bound_ms"], k2["bound_by"] = max(
+        (k2_bytes / MEM_BYTES_PER_S * 1e3, "bytes"), (k2_ops / FP32_OPS_PER_S * 1e3, "operations"))
+
+    k3 = res["window_extreme"]
+    birth, death, vals = m["want"][1], m["want"][2], m["vals"]
+    k3["ms"] = time_ms(torch, lambda: window_extreme(vals, birth, death, 2 * b, True,
+                                                     AttrType.FLOAT), 10)
+    k3["plain_ms"] = time_ms(torch, lambda: window_extreme_ref(vals, birth, death, 2 * b, True,
+                                                               AttrType.FLOAT), 3)
+    k3["library_ms"] = None
+    # data-dependent work: one comparison per (row, element alive at that row)
+    alive = (torch.clamp(torch.minimum(death.long(), torch.tensor(2 * b, device=dev)), min=0)
+             - torch.clamp(birth.long(), min=0)).clamp(min=0).sum().item()
+    k3_bytes = vals.numel() * (4 + 4 + 4) + 2 * b * 4
+    k3["bound_ms"], k3["bound_by"] = max(
+        (k3_bytes / MEM_BYTES_PER_S * 1e3, "bytes"), (alive / FP32_OPS_PER_S * 1e3, "operations"))
+    for name, r in res.items():
+        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={r['library_ms']} "
+              f"max_abs_err={r['max_abs_err']}", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 3: verify cases against VERIFY.json
+# ---------------------------------------------------------------------------
+
+
+def verify_phase(dev) -> None:
+    from siddhi_tpu_torch import SiddhiManager
+
+    with open(os.path.join(ROOT, "VERIFY.json")) as f:
+        frozen = json.load(f)["cpu"]
+    # the 96-event feed of bench.py:_leg_verify
+    rng = np.random.default_rng(99)
+    ts = np.arange(96, dtype=np.int64) * 7 + 1_700_000_000_000
+    rows = [
+        (["WSO2", "IBM", "GOOG", "MSFT"][int(rng.integers(0, 4))],
+         float(np.round(rng.uniform(0.0, 100.0), 3)), int(rng.integers(1, 1000)))
+        for _ in range(96)
+    ]
+    for case, ql in VERIFY_CASES.items():
+        mgr = SiddhiManager(device=dev)
+        rt = mgr.create_siddhi_app_runtime(ql)
+        got = []
+        rt.add_callback("q", lambda t, ins, rem, _g=got: _g.extend(
+            [["+"] + list(e.data) for e in (ins or [])]
+            + [["-"] + list(e.data) for e in (rem or [])]))
+        rt.start()
+        h = rt.get_input_handler("S")
+        for i, r in enumerate(rows):
+            h.send(r, timestamp=int(ts[i]))
+        rt.shutdown()
+        if not rows_match(got, frozen[case]):
+            raise AssertionError(f"verify case {case}: rows differ from VERIFY.json")
+        print(f"verify {case}: {len(got)} rows match VERIFY.json", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path at full width
+# ---------------------------------------------------------------------------
+
+
+def run_app(dev, extra: str, data: dict, n_events: int, stride: int, keep_first: int):
+    """Drive one app through send_columns; returns (delivered row count,
+    rows delivered during the first `keep_first` events, seconds)."""
+    import torch
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(MAIN_APP.format(batch=MAIN_BATCH, w=MAIN_W, extra=extra))
+    for s in SYMBOLS:
+        mgr.interner.intern(s)
+    count = [0]
+    first: list = []
+    keep = [True]
+
+    def on_rows(t, ins, rem):
+        count[0] += len(ins or [])
+        if keep[0]:
+            first.extend(tuple(e.data) for e in ins or [])
+
+    rt.add_callback("q", on_rows)
+    rt.start()
+    h = rt.get_input_handler("StockStream")
+    cols = ("symbol", "price", "volume")
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sent = 0
+    while sent < n_events:
+        end = min(sent + (keep_first if sent == 0 else stride), n_events)
+        h.send_columns(data["ts"][sent:end], {k: data[k][sent:end] for k in cols}, now=0)
+        keep[0] = False
+        sent = end
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rt.shutdown()
+    mgr.shutdown()
+    return count[0], first, dt
+
+
+def main_path_phase(torch) -> dict:
+    from siddhi_tpu_torch import kernels
+
+    data = stock_data(MAIN_EVENTS, seed=7)
+    first_n = 4 * MAIN_BATCH
+    stride = 8 * MAIN_BATCH
+    # warm-up on a short prefix (allocator, first launches), not counted
+    run_app("cuda", MINMAX, data, 2 * MAIN_BATCH, stride, MAIN_BATCH)
+    kernels.launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for name, extra in (("filter_window_avg", ""), ("filter_window_minmax", MINMAX)):
+        n_rows, first, dt = run_app("cuda", extra, data, MAIN_EVENTS, stride, first_n)
+        out[name] = {"events": MAIN_EVENTS, "rows": n_rows, "seconds": dt,
+                     "events_per_s": MAIN_EVENTS / dt, "first": first}
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    for name, r in out.items():
+        _n, cpu_first, _dt = run_app("cpu", MINMAX if "minmax" in name else "", data,
+                                     first_n, first_n, first_n)
+        if not cpu_first or not rows_match(r.pop("first"), cpu_first):
+            raise AssertionError(f"{name}: first 4 batches differ from device='cpu'")
+        print(f"main path {name}: {r['events']} events, {r['rows']} rows delivered, "
+              f"{r['seconds']:.3f} s, {r['events_per_s']:.1f} events/s; first 4 batches "
+              "match device='cpu'", flush=True)
+    print(f"main path launches {json.dumps(launches)}; peak device memory "
+          f"{peak} bytes", flush=True)
+    for k in ("length_window_step", "running_sum", "window_extreme"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the main path")
+    return {"apps": out, "launches": launches, "peak_bytes": peak}
+
+
+def profile_phase(torch) -> dict:
+    """Where one full-width main-path batch spends its time (B=32768, W=50,
+    the min/max app): host stages timed around torch.cuda.synchronize(),
+    torch.profiler's device time by kernel over 4 batches, then cProfile's
+    host time by function over the real send_columns loop (16 batches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    b = MAIN_BATCH
+    data = stock_data(16 * b, seed=7)
+    mgr = SiddhiManager()
+    rt = mgr.create_siddhi_app_runtime(MAIN_APP.format(batch=b, w=MAIN_W, extra=MINMAX))
+    for s in SYMBOLS:
+        mgr.interner.intern(s)
+    rows = [0]
+    rt.add_callback("q", lambda t, ins, rem: rows.__setitem__(0, rows[0] + len(ins or [])))
+    rt.start()
+    j, qr = rt.junctions["StockStream"], rt.queries["q"]
+    encode, decode = j.schema.packed_codec(b, j.device)
+    cols = ("symbol", "price", "volume")
+    stages = {"encode": 0.0, "h2d_and_step": 0.0, "d2h_decode_deliver": 0.0}
+
+    def one(i, timed):
+        lo, hi = i * b, (i + 1) * b
+        t0 = time.perf_counter()
+        buf = encode(data["ts"][lo:hi], {k: data[k][lo:hi] for k in cols}, b)
+        t1 = time.perf_counter()
+        out = qr.receive(decode(buf, b), 0)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        qr.route_output(out, 0, rt._decode)
+        t3 = time.perf_counter()
+        if timed:
+            stages["encode"] += t1 - t0
+            stages["h2d_and_step"] += t2 - t1
+            stages["d2h_decode_deliver"] += t3 - t2
+
+    for i in range(2):
+        one(i, False)
+    n_timed = 8
+    for i in range(2, 2 + n_timed):
+        one(i, True)
+    per_batch_ms = {k: v / n_timed * 1e3 for k, v in stages.items()}
+    print(f"profile: host stages per batch (ms, synchronized): {json.dumps(per_batch_ms)}",
+          flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(10, 14):
+            one(i, False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels_by_name = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if dev_us > 0:
+            kernels_by_name.append((e.key, e.count, dev_us / 1e3))
+    kernels_by_name.sort(key=lambda k: -k[2])
+    busy_ms = sum(k[2] for k in kernels_by_name)
+    print(f"profile: 4 batches, wall {wall * 1e3:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({busy_ms / (wall * 1e3):.4f} of wall)", flush=True)
+    for name, count, ms in kernels_by_name[:15]:
+        print(f"profile:   {ms:10.3f} ms  x{count:<5d} {name[:90]}", flush=True)
+    rt.shutdown()
+
+    # the host side of the real loop: send_columns over 16 batches, unsynchronized
+    import cProfile
+    import pstats
+
+    data = stock_data(16 * b, seed=7)
+    prof_host = cProfile.Profile()
+    prof_host.enable()
+    t0 = time.perf_counter()
+    run_app("cuda", MINMAX, data, 16 * b, 8 * b, 8 * b)
+    loop_s = time.perf_counter() - t0
+    prof_host.disable()
+    stats = pstats.Stats(prof_host)
+    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:20]  # by own time
+    print(f"profile: send_columns loop, 16 batches: {loop_s * 1e3 / 16:.3f} ms/batch "
+          "(incl. app build); top host functions by own time:", flush=True)
+    by_func = []
+    for (file, line, fn), (_cc, ncalls, tottime, cumtime, _callers) in top:
+        where = f"{os.path.basename(file)}:{line}({fn})"
+        by_func.append((where, ncalls, tottime * 1e3, cumtime * 1e3))
+        print(f"profile:   {tottime * 1e3:9.2f} ms own {cumtime * 1e3:9.2f} ms cum "
+              f"x{ncalls:<7d} {where}", flush=True)
+    return {"host_stage_ms_per_batch": per_batch_ms, "wall_ms_4_batches": wall * 1e3,
+            "device_busy_ms_4_batches": busy_ms, "by_kernel": kernels_by_name,
+            "loop_ms_per_batch": loop_s * 1e3 / 16, "host_by_function": by_func}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from siddhi_tpu_torch import kernels
+
+    card = card_line()
+    print(card, flush=True)
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
+          f"{torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
+    build_s = kernels.build_all()
+    print(f"kernel build: {build_s:.2f} s for {', '.join(kernels.SOURCES)}", flush=True)
+    if "--profile" in sys.argv[1:]:
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "profile.json"), "w") as f:
+            json.dump({"card": card, **profile_phase(torch)}, f, indent=1)
+        return 0
+
+    res = kernel_phase(torch, "cuda")
+    verify_phase("cuda")
+    main = main_path_phase(torch)
+
+    src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
+                                  "siddhi_tpu/core/windows.py:352"),
+           "running_sum": ("siddhi_tpu_torch/csrc/running_sum.cu",
+                           "siddhi_tpu/ops/prefix.py:51"),
+           "window_extreme": ("siddhi_tpu_torch/csrc/window_extreme.cu",
+                              "siddhi_tpu/core/aggregators.py:191")}
+    table = [
+        {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
+         "launches": main["launches"].get(k, 0), "max_abs_err": r["max_abs_err"],
+         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        for k, r in res.items()
+    ]
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump({"card": card, "build_s": build_s, "kernels": table,
+                   "main_path": main["apps"], "peak_bytes": main["peak_bytes"]}, f, indent=1)
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": table}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

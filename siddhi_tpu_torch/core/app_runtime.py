@@ -1,0 +1,281 @@
+"""SiddhiAppRuntime: app assembly and lifecycle.
+
+Reference: core/SiddhiAppRuntime.java:88-696 + util/parser/SiddhiAppParser.java —
+holds junction/query maps, wires receivers into junctions, start/shutdown
+ordering, callback registration. Here "parse" is compile: each query becomes a
+step that launches device work on the app's device; junctions are host fan-out
+points between steps.
+
+Ported so far: stream definitions, `@app:name`, `@app:batch`, `@app:playback`,
+and single-stream queries (filter, length window, projection with
+sum/count/avg/min/max) inserting into streams or delivering to callbacks.
+Everything else raises `SiddhiAppCreationError("... not ported yet")`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import operator
+import threading
+from typing import Callable
+
+import numpy as np
+import torch
+
+from siddhi_tpu_torch.core.errors import DefinitionNotExistError, SiddhiAppCreationError
+from siddhi_tpu_torch.core.event import (
+    Event,
+    EventBatch,
+    KIND_CURRENT,
+    KIND_EXPIRED,
+    StreamSchema,
+)
+from siddhi_tpu_torch.core.query_runtime import QueryRuntime
+from siddhi_tpu_torch.core.stream_junction import (
+    InputHandler,
+    StreamJunction,
+    system_clock_ms,
+)
+from siddhi_tpu_torch.query_api.annotation import find_annotation
+from siddhi_tpu_torch.query_api.execution import (
+    InsertIntoStream,
+    OutputEventsFor,
+    Query,
+    ReturnStream,
+    SingleInputStream,
+    assign_execution_ids,
+)
+from siddhi_tpu_torch.query_api.siddhi_app import SiddhiApp
+
+DEFAULT_BATCH = 64
+
+_PORTED_APP_ANNOTATIONS = {"app:name", "app", "name", "app:description", "app:batch",
+                           "app:playback"}
+_UNPORTED_STREAM_ANNOTATIONS = {"onerror", "source", "sink", "async"}
+
+
+def _not_ported(what: str) -> SiddhiAppCreationError:
+    return SiddhiAppCreationError(f"{what} is not ported yet")
+
+
+class SiddhiAppRuntime:
+    def __init__(self, app: SiddhiApp, manager) -> None:
+        self.app = app
+        self.manager = manager
+        self.device = manager.device
+        self.interner = manager.interner
+        self.name = app.name
+        self.clock = system_clock_ms
+
+        for a in app.annotations:
+            if a.name.lower() not in _PORTED_APP_ANNOTATIONS:
+                raise _not_ported(f"@{a.name}")
+        for kind, defs in (
+            ("table", app.table_definitions),
+            ("window", app.window_definitions),
+            ("trigger", app.trigger_definitions),
+            ("function", app.function_definitions),
+            ("aggregation", app.aggregation_definitions),
+        ):
+            if defs:
+                raise _not_ported(f"define {kind}")
+
+        # @app:playback(idle.time, increment): event-time clock
+        # (reference: SiddhiAppParser.java:166-212)
+        self._playback_clock = None
+        pb = find_annotation(app.annotations, "app:playback")
+        if pb is not None:
+            from siddhi_tpu_torch.compiler.siddhi_compiler import SiddhiCompiler
+            from siddhi_tpu_torch.core.timestamp import EventTimeClock
+
+            idle = pb.element("idle.time")
+            inc = pb.element("increment")
+            self._playback_clock = EventTimeClock(
+                idle_ms=SiddhiCompiler.parse_time_constant(idle) if idle else None,
+                increment_ms=SiddhiCompiler.parse_time_constant(inc) if inc else None,
+            )
+            self.clock = self._playback_clock.now
+
+        self.stream_schemas: dict[str, StreamSchema] = {}
+        self.junctions: dict[str, StreamJunction] = {}
+        self.queries: dict[str, QueryRuntime] = {}
+        batch_ann = find_annotation(app.annotations, "app:batch")
+        self.batch_size = (
+            int(batch_ann.element("size", str(DEFAULT_BATCH))) if batch_ann else DEFAULT_BATCH
+        )
+        # one app-level processing lock: receive+route for every query runs
+        # under it, so timer/input threads deliver outputs in state-step order
+        self._process_lock = threading.RLock()
+
+        for sid, d in app.stream_definitions.items():
+            for a in d.annotations:
+                if a.name.lower() in _UNPORTED_STREAM_ANNOTATIONS:
+                    raise _not_ported(f"@{a.name} on stream '{sid}'")
+            self.stream_schemas[sid] = StreamSchema(
+                sid, [(a.name, a.type) for a in d.attributes]
+            )
+        for ent in assign_execution_ids(app):
+            if ent[0] != "query":
+                raise _not_ported("partition")
+            _kind, qid, q = ent
+            self._add_query(qid, q)
+
+    # ---- assembly --------------------------------------------------------
+
+    def _junction(self, stream_id: str) -> StreamJunction:
+        j = self.junctions.get(stream_id)
+        if j is None:
+            schema = self.stream_schemas.get(stream_id)
+            if schema is None:
+                raise DefinitionNotExistError(f"stream '{stream_id}' is not defined")
+            j = StreamJunction(schema, self.interner, self.batch_size, self.device)
+            self.junctions[stream_id] = j
+        return j
+
+    def _wire_insert(self, qr: QueryRuntime) -> None:
+        """Route a query's output batches into its insert-into junction
+        (reference: SiddhiAppRuntimeBuilder.addQuery:170-231 output wiring)."""
+        out = qr.query.output_stream
+        if isinstance(out, ReturnStream):
+            return
+        if not isinstance(out, InsertIntoStream) or out.is_fault:
+            raise _not_ported(f"output '{type(out).__name__}'")
+        target = out.target
+        existing = self.stream_schemas.get(target)
+        inferred = qr.out_schema
+        if existing is None:
+            self.stream_schemas[target] = inferred
+            existing = inferred
+        elif [t for _, t in existing.attrs] != [t for _, t in inferred.attrs]:
+            raise SiddhiAppCreationError(
+                f"insert into '{target}': selector output {inferred.attrs} "
+                f"does not match defined stream {existing.attrs}"
+            )
+        target_junction = self._junction(target)
+        transform = _make_insert_transform(out.output_events)
+        dst_names = existing.attr_names
+
+        def publish(out_batch: EventBatch, now: int, _t=target_junction) -> None:
+            if not _t.subscribers and not _t.stream_callbacks:
+                return  # nobody downstream: skip the transform
+            b = transform(out_batch)
+            # positional rename onto the target stream's attribute names
+            b = dataclasses.replace(b, cols=dict(zip(dst_names, b.cols.values())))
+            _t.publish_batch(b, now)
+
+        qr.publish_fn = publish
+
+    def _add_query(self, qid: str, query: Query) -> None:
+        if qid in self.queries:
+            raise SiddhiAppCreationError(f"duplicate query name '{qid}'")
+        stream = query.input_stream
+        if not isinstance(stream, SingleInputStream):
+            raise _not_ported(f"{type(stream).__name__} query")
+        in_schema = self.stream_schemas.get(stream.stream_id)
+        if in_schema is None:
+            raise DefinitionNotExistError(
+                f"query '{qid}': stream '{stream.stream_id}' is not defined"
+            )
+        qr = QueryRuntime(query, qid, in_schema, self.interner, self.device)
+        self.queries[qid] = qr
+        self._wire_insert(qr)
+
+        def receive(batch: EventBatch, now: int, _qr=qr) -> None:
+            with self._process_lock:
+                out_batch = _qr.receive(batch, now)
+                _qr.route_output(out_batch, now, self._decode)
+
+        self._junction(stream.stream_id).subscribe(receive)
+
+    def _decode(self, schema: StreamSchema, batch: EventBatch):
+        return schema.from_batch(batch, self.interner)
+
+    # ---- public API (reference: SiddhiAppRuntime callbacks/handlers) -----
+
+    def get_input_handler(self, stream_id: str):
+        h = InputHandler(self._junction(stream_id), lambda: self.clock())
+        if self._playback_clock is not None:
+            h = _PlaybackInputHandler(h, self._playback_clock)
+        return h
+
+    input_handler = get_input_handler
+
+    def add_callback(self, name: str, callback: Callable) -> None:
+        """Stream callback `cb(events: list[Event])` or query callback
+        `cb(timestamp, in_events, removed_events)` — dispatched by target:
+        stream name vs @info query name (reference: addCallback overloads).
+        """
+        if name in self.queries:
+            # all-C construction: namedtuple's own __new__ is Python code and
+            # costs several times more per event than tuple.__new__
+            mk = functools.partial(tuple.__new__, Event)
+            ts_data = operator.itemgetter(0, 2)
+
+            def qcb(ts, ins, removed, _cb=callback):
+                _cb(
+                    ts,
+                    list(map(mk, map(ts_data, ins))) if ins else None,
+                    list(map(mk, map(ts_data, removed))) if removed else None,
+                )
+
+            self.queries[name].query_callbacks.append(qcb)
+            return
+        if name in self.stream_schemas:
+            self._junction(name).add_stream_callback(
+                lambda rows, _cb=callback: _cb([Event(t, d) for t, d in rows])
+            )
+            return
+        raise DefinitionNotExistError(f"no stream or query named '{name}'")
+
+    def start(self) -> None:
+        if self._playback_clock is not None:
+            self._playback_clock.start_heartbeat()
+
+    def shutdown(self) -> None:
+        if self._playback_clock is not None:
+            self._playback_clock.stop()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+class _PlaybackInputHandler:
+    """Advances the playback clock to each event's timestamp before dispatch
+    (reference: EventTimeBasedMillisTimestampGenerator wiring)."""
+
+    def __init__(self, inner: InputHandler, clock):
+        self._inner = inner
+        self._pb = clock
+
+    def send(self, data, timestamp=None):
+        if timestamp is not None:
+            self._pb.advance(timestamp)
+        self._inner.send(data, timestamp)
+
+    def send_many(self, rows, timestamps=None):
+        if timestamps:
+            self._pb.advance(max(timestamps))
+        self._inner.send_many(rows, timestamps)
+
+    def send_columns(self, timestamps, cols, now=None):
+        if len(timestamps):
+            self._pb.advance(int(np.max(timestamps)))
+        self._inner.send_columns(timestamps, cols, now)
+
+
+def _make_insert_transform(output_events: OutputEventsFor):
+    def t(batch: EventBatch) -> EventBatch:
+        if output_events is OutputEventsFor.CURRENT:
+            keep = batch.kind == KIND_CURRENT
+        elif output_events is OutputEventsFor.EXPIRED:
+            keep = batch.kind == KIND_EXPIRED
+        else:
+            keep = torch.ones_like(batch.valid)
+        return EventBatch(
+            ts=batch.ts,
+            kind=torch.zeros_like(batch.kind),  # inserted events become CURRENT
+            valid=batch.valid & keep,
+            cols=batch.cols,
+        )
+
+    return t

@@ -1,0 +1,116 @@
+// Windowed min/max over the lazy membership lanes, for Hopper (sm_90a).
+//
+// Replaces the windowed branch of siddhi_tpu/core/aggregators.py
+// ExtremeAggregator.apply together with the membership matrix it reduces
+// (siddhi_tpu/core/windows.py:401-418, `member[p, e] = present[e] &
+// birth[e] <= p < death[e]`). The JAX form materialises [rows, elements]
+// and reduces it; here the matrix is never built: output row p reduces
+// vals[e] over the elements with birth[e] <= p < death[e] (absent elements
+// carry death = -1), starting from the identity (+inf/-inf, or the integer
+// extreme as ops/prefix.py extreme_identity), and an empty window (result
+// == identity) becomes the null sentinel. NaN propagates as in jnp.min/max.
+// Design: one thread per output row, 256 rows per block; the element lanes
+// stream through shared memory in tiles of 1024, every thread of a warp
+// reading the same element (a broadcast).
+// Cost: O(rows * elements) = O(2B * (W + B)) membership tests, about 2.1e9
+// at B = 32768, W = 50 — bound by those tests, not by bytes (the lanes are
+// well under 1 MB). Under a length window only about W elements are alive
+// at any row and alive elements form a narrow band in birth order, so an
+// O(B * W) form that visits only the band is the way to make it fast.
+
+#include <cstdint>
+#include <climits>
+#include <cmath>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTileElems = 1024;
+
+template <typename T> struct Limits;
+template <> struct Limits<float> {
+  __device__ static float hi() { return INFINITY; }
+  __device__ static float lo() { return -INFINITY; }
+  __device__ static bool nan(float v) { return isnan(v); }
+  __device__ static float from_bits(long long b) { return __int_as_float((int)b); }
+};
+template <> struct Limits<int32_t> {
+  __device__ static int32_t hi() { return INT_MAX; }
+  __device__ static int32_t lo() { return INT_MIN; }
+  __device__ static bool nan(int32_t) { return false; }
+  __device__ static int32_t from_bits(long long b) { return (int32_t)b; }
+};
+template <> struct Limits<int64_t> {
+  __device__ static int64_t hi() { return LLONG_MAX; }
+  __device__ static int64_t lo() { return LLONG_MIN; }
+  __device__ static bool nan(int64_t) { return false; }
+  __device__ static int64_t from_bits(long long b) { return (int64_t)b; }
+};
+
+template <typename T>
+__global__ void window_extreme_kernel(const T* vals, const int32_t* birth,
+                                      const int32_t* death, T* out, int n_rows,
+                                      int n_elems, int is_min, long long null_bits) {
+  __shared__ T s_val[kTileElems];
+  __shared__ int32_t s_birth[kTileElems];
+  __shared__ int32_t s_death[kTileElems];
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const T ident = is_min ? Limits<T>::hi() : Limits<T>::lo();
+  T red = ident;
+  for (int e0 = 0; e0 < n_elems; e0 += kTileElems) {
+    const int m = min(kTileElems, n_elems - e0);
+    for (int k = threadIdx.x; k < m; k += blockDim.x) {
+      s_val[k] = vals[e0 + k];
+      s_birth[k] = birth[e0 + k];
+      s_death[k] = death[e0 + k];
+    }
+    __syncthreads();
+    if (p < n_rows) {
+      for (int k = 0; k < m; ++k) {
+        if (s_birth[k] <= p && p < s_death[k]) {
+          const T v = s_val[k];
+          const bool take = Limits<T>::nan(v) || (is_min ? v < red : v > red);
+          if (take && !Limits<T>::nan(red)) red = v;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (p < n_rows) out[p] = red == ident ? Limits<T>::from_bits(null_bits) : red;
+}
+
+template <typename T>
+int window_extreme(const T* vals, const int32_t* birth, const int32_t* death, T* out,
+                   int n_rows, int n_elems, int is_min, long long null_bits,
+                   cudaStream_t stream) {
+  window_extreme_kernel<T><<<(n_rows + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      vals, birth, death, out, n_rows, n_elems, is_min, null_bits);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// null_bits: the null sentinel's bit pattern in the low bits (float: as int32)
+int window_extreme_f32(const float* vals, const int32_t* birth, const int32_t* death,
+                       float* out, int n_rows, int n_elems, int is_min,
+                       long long null_bits, cudaStream_t stream) {
+  return window_extreme<float>(vals, birth, death, out, n_rows, n_elems, is_min,
+                               null_bits, stream);
+}
+int window_extreme_i32(const int32_t* vals, const int32_t* birth, const int32_t* death,
+                       int32_t* out, int n_rows, int n_elems, int is_min,
+                       long long null_bits, cudaStream_t stream) {
+  return window_extreme<int32_t>(vals, birth, death, out, n_rows, n_elems, is_min,
+                                 null_bits, stream);
+}
+int window_extreme_i64(const int64_t* vals, const int32_t* birth, const int32_t* death,
+                       int64_t* out, int n_rows, int n_elems, int is_min,
+                       long long null_bits, cudaStream_t stream) {
+  return window_extreme<int64_t>(vals, birth, death, out, n_rows, n_elems, is_min,
+                                 null_bits, stream);
+}
+
+}  // extern "C"

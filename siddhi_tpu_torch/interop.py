@@ -1,0 +1,52 @@
+"""Carry query state and interned strings in and out of the engine as numpy.
+
+A query's state is a tree of dicts and lists whose leaves are arrays, in the
+layout `{"chain": {"cols": {...}, "ts", "wts", "seq", "total"},
+"sel": {"aggs": [...]}}` for a length-window query. The JAX engine
+(`siddhi_tpu`) keeps the same layout, so a state taken there as numpy maps
+onto this engine leaf for leaf with dtype and shape unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from siddhi_tpu_torch.core.types import InternTable
+
+
+def state_from_numpy(tree: Any, device) -> Any:
+    """numpy tree -> the same tree of torch tensors on `device` (exact copy)."""
+    if isinstance(tree, dict):
+        return {k: state_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(state_from_numpy(v, device) for v in tree)
+    arr = np.array(tree, copy=True)  # owns its memory, writable
+    return torch.from_numpy(arr).to(device)
+
+
+def state_to_numpy(tree: Any) -> Any:
+    """Tree of torch tensors -> the same tree of numpy arrays on the host."""
+    if isinstance(tree, dict):
+        return {k: state_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(state_to_numpy(v) for v in tree)
+    return tree.detach().cpu().numpy()
+
+
+def interned_values(interner: InternTable) -> list:
+    """The id table: element i is the value interned as id i (0 = null)."""
+    return [interner.lookup(i) for i in range(len(interner))]
+
+
+def load_interned(interner: InternTable, values: Sequence) -> None:
+    """Intern `values` (an id table, element 0 = null) so each keeps its id.
+    The interner must hold no ids beyond those it shares with `values`."""
+    for i, v in enumerate(values[1:], start=1):
+        got = interner.intern(v)
+        if got != i:
+            raise ValueError(
+                f"interned value {v!r} has id {got} here but {i} in the table"
+            )

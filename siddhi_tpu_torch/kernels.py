@@ -1,0 +1,141 @@
+"""Build, load and count the hand-written CUDA kernels of `csrc/`.
+
+Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers) and is
+compiled at first use with `nvcc` for Hopper (`sm_90a`) into a shared library
+under `_build/`, named by a hash of its source so an edited kernel is rebuilt.
+`build_all()` starts one `nvcc` per source, all at once. The libraries are
+loaded with `ctypes`; every pointer and the stream travel as `c_void_p`, and
+each entry point returns its `cudaError_t`, which `check()` turns into an
+exception.
+
+`launches` counts, per kernel wrapper, the calls that launched the kernel on
+the card (plain-version calls on CPU tensors do not count).
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD = Path(__file__).parent / "_build"
+SOURCES = ("length_window", "running_sum", "window_extreme")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+LL = ctypes.c_longlong
+_GATHER = [P, P, P, P, I, I, P]
+_RUNNING_SUM = [P] * 7 + [I, P]
+_EXTREME = [P, P, P, P, I, I, I, LL, P]
+# C entry points: name -> (source, argtypes). The last argument is the stream.
+SIGNATURES = {
+    "lw_prepare": ("length_window", [P] * 5 + [I, I] + [P] * 12 + [P]),
+    "lw_gather_1": ("length_window", _GATHER),
+    "lw_gather_4": ("length_window", _GATHER),
+    "lw_gather_8": ("length_window", _GATHER),
+    "running_sum_f32": ("running_sum", _RUNNING_SUM),
+    "running_sum_i64": ("running_sum", _RUNNING_SUM),
+    "window_extreme_f32": ("window_extreme", _EXTREME),
+    "window_extreme_i32": ("window_extreme", _EXTREME),
+    "window_extreme_i64": ("window_extreme", _EXTREME),
+}
+
+launches: collections.Counter = collections.Counter()
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+    return str(path)
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD / f"lib{name}-{digest}.so"
+
+
+def build_all() -> float:
+    """Compile every source whose library is missing, one `nvcc` process per
+    source, all started together. Returns the wall seconds spent."""
+    t0 = time.perf_counter()
+    BUILD.mkdir(exist_ok=True)
+    procs = []
+    for name in SOURCES:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [
+            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+            str(CSRC / f"{name}.cu"),
+        ]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def _library(source: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            path = _lib_path(source)
+            if not path.exists():
+                build_all()
+            lib = ctypes.CDLL(str(path))
+            for fn, (src, argtypes) in SIGNATURES.items():
+                if src == source:
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = I
+            _libs[source] = lib
+        return lib
+
+
+def function(name: str):
+    """The ctypes entry point `name` (building its library at first use)."""
+    return getattr(_library(SIGNATURES[name][0]), name)
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed: cudaError_t {err}")
+
+
+def require_cuda(what: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on the card and is contiguous."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: expected CUDA tensors, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: expected contiguous tensors")

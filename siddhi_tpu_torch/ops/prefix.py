@@ -1,0 +1,98 @@
+"""Reset-aware running (prefix) reductions over a batch.
+
+The reference updates aggregator state one event at a time, emitting the running
+value after each event and zeroing state on RESET events
+(reference: query/selector/attribute/aggregator/*.java — add/remove on
+CURRENT/EXPIRED, reset on RESET). Batched, the per-event running values become
+prefix reductions with reset barriers.
+
+`running_sum` is a hand-written CUDA kernel on the card (csrc/running_sum.cu);
+`running_sum_ref` is its plain PyTorch version, which the wrapper takes only
+for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from siddhi_tpu_torch import kernels
+
+# rows per scan tile of csrc/running_sum.cu (kTile)
+_SCAN_TILE = 32768
+
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running sum in the input's dtype."""
+    return torch.cumsum(x, 0, dtype=x.dtype)
+
+
+def last_reset_index(reset: torch.Tensor) -> torch.Tensor:
+    """For each position i, the largest j <= i with reset[j], else -1. [B] int32."""
+    idx = torch.arange(reset.shape[-1], dtype=torch.int32, device=reset.device)
+    marked = torch.where(reset, idx, torch.full_like(idx, -1))
+    return torch.cummax(marked, 0).values
+
+
+def running_sum_ref(
+    contrib: torch.Tensor, reset: torch.Tensor, base: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `running_sum`:
+    run_i = csum_i - csum[last_reset_i] (+ base before the first reset)."""
+    csum = cumsum(contrib)
+    lr = last_reset_index(reset)
+    zero = torch.zeros((), dtype=csum.dtype, device=csum.device)
+    at_lr = torch.where(lr >= 0, csum[lr.clamp(min=0).long()], zero)
+    run = csum - at_lr + torch.where(lr < 0, base, zero)
+    return run, run[-1]
+
+
+def running_sum(
+    contrib: torch.Tensor, reset: torch.Tensor, base: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Running sum after each event with reset barriers.
+
+    contrib: [B] float32 or int64 signed contributions (0 for invalid rows)
+    reset:   [B] bool reset-event marks (a reset row's own contrib is dropped)
+    base:    0-d carried sum from prior batches, same dtype
+    returns: ([B] running values, 0-d new carry), both on contrib's device
+    """
+    if contrib.device.type == "cpu":
+        return running_sum_ref(contrib, reset, base)
+    kernels.require_cuda("running_sum", contrib, reset, base)
+    n = contrib.shape[0]
+    suffix = {torch.float32: "f32", torch.int64: "i64"}.get(contrib.dtype)
+    if (
+        suffix is None
+        or contrib.dim() != 1
+        or n == 0
+        or reset.shape != contrib.shape
+        or reset.dtype != torch.bool
+        or base.shape != ()
+        or base.dtype != contrib.dtype
+    ):
+        raise ValueError(
+            "running_sum takes [n] float32/int64 contrib, [n] bool reset and a "
+            f"0-d base of the same dtype; got {contrib.dtype}{list(contrib.shape)}, "
+            f"{reset.dtype}{list(reset.shape)}, {base.dtype}{list(base.shape)}"
+        )
+    tiles = -(-n // _SCAN_TILE)
+    run = torch.empty_like(contrib)
+    carry = torch.empty_like(base)
+    agg_v = torch.empty(tiles, dtype=contrib.dtype, device=contrib.device)
+    agg_f = torch.empty(tiles, dtype=torch.int32, device=contrib.device)
+    err = kernels.function(f"running_sum_{suffix}")(
+        contrib.data_ptr(), reset.data_ptr(), base.data_ptr(), run.data_ptr(),
+        carry.data_ptr(), agg_v.data_ptr(), agg_f.data_ptr(), n, kernels.stream(),
+    )
+    kernels.check(err, "running_sum")
+    kernels.launches["running_sum"] += 1
+    return run, carry
+
+
+def extreme_identity(dtype: torch.dtype, is_min: bool) -> torch.Tensor:
+    """0-d identity of min (+inf / int max) or max (-inf / int min)."""
+    if dtype.is_floating_point:
+        return torch.tensor(np.inf if is_min else -np.inf, dtype=dtype)
+    info = torch.iinfo(dtype)
+    return torch.tensor(info.max if is_min else info.min, dtype=dtype)
