@@ -10,22 +10,28 @@ engine next to it. Phases, each printed as it ends:
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
      build of every kernel in siddhi_tpu_torch/csrc/ (one nvcc per source);
   2. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes (B=32768, W=50) and ragged ones, one batch at a time from
-     the same inputs and state; times from CUDA events;
+     path's shapes (B=32768, W=50; the fused path's K=8 and K=32 chunks for
+     the wire decode and the deliver pack) and ragged ones, from the same
+     inputs and state; times from CUDA events;
   3. verify cases filter_num, len_window_avg, len_window_minmax on the card
      against the frozen CPU rows of VERIFY.json;
   4. the main path at full width: BASELINE.json config 1 (filter + length(50)
      window + avg) and the same app with min/max added, at @app:batch 32768,
-     2,000,000 events each through send_columns; every kernel's launch count
-     over those runs must be > 0, and the first 4 batches' rows must match the
-     same run on device="cpu".
+     2,000,000 events each through send_columns in calls of 8 batches (the
+     first of 4), which take the fused ingest path (K=8 chunks; K=4 first);
+     every kernel's launch count over those runs must be > 0, the first 4
+     batches' rows must match the same run on device="cpu", and the first 20
+     batches' rows must match the per-batch form (fused engines detached),
+     whose events/s is printed beside the fused form's.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-instead builds the kernels and prints where one full-width main-path batch
-spends its time: host stages, and device time by kernel from torch.profiler.
+instead builds the kernels and prints where the time goes on the main path:
+for one per-batch batch and for one fused K=8 chunk, the host stages timed
+around torch.cuda.synchronize(), and device time by kernel from
+torch.profiler over 4 batches / 4 chunks.
 """
 
 from __future__ import annotations
@@ -263,6 +269,155 @@ def kernel_phase(torch, dev) -> dict:
     return res
 
 
+def same_bits(torch, got, want) -> float:
+    """Exact check of a tree of tensors (floats bit for bit, NaN fills
+    included); raises on any difference, else returns 0.0."""
+    for g, w in zip(flat(got), flat(want), strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"shape/dtype {g.dtype}{list(g.shape)} vs {w.dtype}{list(w.shape)}")
+        if g.dtype != torch.bool:
+            g, w = g.contiguous().view(torch.uint8), w.contiguous().view(torch.uint8)
+        if not torch.equal(g, w):
+            raise AssertionError("bitwise mismatch")
+    return 0.0
+
+
+def encode_chunk(torch, dev, schema, keep, enc, chunks):
+    """Encode micro-batches with the wire codec the fused path uses; returns
+    (plan, wire [K, nb], counts [K], bases [K]) on the card."""
+    encode, decode, nb = schema.wire_codec(chunks[0][2], keep, enc)
+    K = len(chunks)
+    wire = np.zeros((K, nb), np.uint8)
+    counts = np.zeros(K, np.int32)
+    bases = np.zeros(K, np.int64)
+    for k, (ts, cols, _cap, n) in enumerate(chunks):
+        if n:
+            _buf, bases[k] = encode(ts, cols, n, out=wire[k])
+        counts[k] = n
+    return decode.plan, *(torch.from_numpy(x).to(dev) for x in (wire, counts, bases))
+
+
+def fused_kernel_phase(torch, dev) -> dict:
+    """K4 (wire decode) and K5 (deliver pack) against their plain versions,
+    exactly: at the main path's shapes (the quickstart wire, B=32768, K=8 as
+    the main path's calls give it and K=32 as a full chunk; K5 over 2B=65536
+    step rows with the avg app's 16-byte rows) and ragged ones (K=3, 2B+5
+    events over B=33, a wide int64 lane after a 2-byte lane, dict, delta and
+    bitpack sections; an ALL-events pack with 17-byte rows)."""
+    from siddhi_tpu_torch.core.event import StreamSchema
+    from siddhi_tpu_torch.core.ingest import deliver_pack, deliver_pack_ref
+    from siddhi_tpu_torch.core.types import AttrType
+    from siddhi_tpu_torch.core.wire import choose_encodings, wire_decode, wire_decode_ref
+
+    res = {"wire_decode": {"max_abs_err": 0.0}, "deliver_pack": {"max_abs_err": 0.0}}
+    b = MAIN_BATCH
+    stock = StreamSchema("StockStream", [("symbol", AttrType.STRING),
+                                         ("price", AttrType.FLOAT), ("volume", AttrType.LONG)])
+    keep = frozenset({"symbol", "price"})  # the quickstart apps never read volume
+    data = stock_data(32 * b, seed=11)
+    cols = ("symbol", "price", "volume")
+    enc = choose_encodings(stock, keep, None, True, data["ts"][:b],
+                           {k: data[k][:b] for k in cols})
+    main = {}
+    for K in (8, 32):
+        chunks = [(data["ts"][k * b:(k + 1) * b], {c: data[c][k * b:(k + 1) * b] for c in cols},
+                   b, b) for k in range(K)]
+        plan, wire, counts, bases = encode_chunk(torch, dev, stock, keep, enc, chunks)
+        got = wire_decode(wire, counts, bases, plan)
+        torch.cuda.synchronize()
+        res["wire_decode"]["max_abs_err"] = same_bits(
+            torch, list(got), list(wire_decode_ref(wire, counts, bases, plan)))
+        main[K] = (plan, wire, counts, bases)
+        print(f"kernel check wire_decode K={K} B={b} wire {plan.row_bytes // b} B/row "
+              f"{ {k: str(v) for k, v in enc.items()} }: ok", flush=True)
+    # the same shapes with int16 timestamp diffs, as a burstier feed samples
+    enc16 = dict(enc, __tsd__=np.dtype(np.int16))
+    chunks = [(data["ts"][k * b:(k + 1) * b], {c: data[c][k * b:(k + 1) * b] for c in cols},
+               b, b) for k in range(8)]
+    plan, wire, counts, bases = encode_chunk(torch, dev, stock, keep, enc16, chunks)
+    got = wire_decode(wire, counts, bases, plan)
+    torch.cuda.synchronize()
+    same_bits(torch, list(got), list(wire_decode_ref(wire, counts, bases, plan)))
+    print(f"kernel check wire_decode K=8 B={b} wire {plan.row_bytes // b} B/row "
+          "(int16 ts diffs, int16 symbol): ok", flush=True)
+    rng = np.random.default_rng(5)
+    ragged = StreamSchema("R", [("sym", AttrType.STRING), ("n", AttrType.INT),
+                                ("vol", AttrType.LONG), ("seq", AttrType.LONG),
+                                ("flag", AttrType.BOOL), ("price", AttrType.FLOAT)])
+    r_enc = {"sym": ("dict", np.dtype(np.uint8), 8), "n": ("narrow", np.dtype(np.int16)),
+             "seq": ("delta", np.dtype(np.int16)), "flag": ("bitpack",)}
+
+    def r_batch(cap, n):
+        ts = np.cumsum(rng.integers(0, 20, cap)).astype(np.int64) + 1_700_000_000_000
+        return (ts, {"sym": rng.integers(1, 9, cap).astype(np.int32),
+                     "n": rng.integers(-3000, 3000, cap).astype(np.int32),
+                     "vol": rng.integers(-2**40, 2**40, cap).astype(np.int64),
+                     "seq": np.cumsum(rng.integers(-500, 500, cap)) + 10**12,
+                     "flag": rng.integers(0, 2, cap).astype(bool),
+                     "price": rng.uniform(0, 100, cap).astype(np.float32)}, cap, n)
+
+    for tsd in (np.dtype(np.int8), np.dtype(np.int32)):
+        for keep_r in (None, frozenset({"sym", "vol", "flag"})):
+            enc_r = dict(r_enc, __tsd__=tsd)
+            plan, wire, counts, bases = encode_chunk(
+                torch, dev, ragged, keep_r, enc_r, [r_batch(33, 33), r_batch(33, 33), r_batch(33, 5)])
+            got = wire_decode(wire, counts, bases, plan)
+            torch.cuda.synchronize()
+            same_bits(torch, list(got), list(wire_decode_ref(wire, counts, bases, plan)))
+    print("kernel check wire_decode K=3 B=33 ragged (dict, narrow int16 then wide int64, "
+          "delta, bitpack, dropped lanes): ok", flush=True)
+
+    def pack_case(K, R, p, dtypes):
+        dv = torch.from_numpy(rng.random((K, R)) < p).to(dev)
+        lanes = []
+        for dt in dtypes:
+            if dt == np.float32:
+                a = rng.uniform(0, 100, (K, R)).astype(dt)
+            else:
+                a = rng.integers(-100, 1 << 30, (K, R)).astype(dt)
+            lanes.append(torch.from_numpy(a).to(dev))
+        got = deliver_pack(dv, lanes)
+        torch.cuda.synchronize()
+        same_bits(torch, got, deliver_pack_ref(dv, lanes))
+        return dv, lanes
+
+    avg_row = (np.float32, np.int32, np.int64)  # c.ap, c.symbol, ts: 16 B
+    packs = {K: pack_case(K, 2 * b, 0.25, avg_row) for K in (8, 32)}
+    pack_case(3, 2 * 33 + 5, 0.5, (np.float32, np.int32, np.int8, np.int64))  # ALL: 17 B
+    pack_case(2, 5000, 0.0, avg_row)
+    print(f"kernel check deliver_pack K=8,32 R={2 * b} W=16 and K=3 R=71 W=17: ok", flush=True)
+
+    k4 = res["wire_decode"]
+    for K in (8, 32):
+        plan, wire, counts, bases = main[K]
+        ms = time_ms(torch, lambda: wire_decode(wire, counts, bases, plan), 50)
+        plain = time_ms(torch, lambda: wire_decode_ref(wire, counts, bases, plan), 10)
+        out_row = 8 + 1 + 1 + sum(np.dtype(d).itemsize for d in ("int32", "float32", "int64"))
+        nbytes = K * (12 + plan.row_bytes) + K * b * out_row
+        k4[f"K{K}"] = {"ms": ms, "plain_ms": plain, "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3}
+    k4.update(k4["K8"], bound_by="bytes", library_ms=None)
+
+    k5 = res["deliver_pack"]
+    for K in (8, 32):
+        dv, lanes = packs[K]
+        ms = time_ms(torch, lambda: deliver_pack(dv, lanes), 50)
+        plain = time_ms(torch, lambda: deliver_pack_ref(dv, lanes), 10)
+        W = 16
+        kept = int(dv.sum().item())
+        nbytes = dv.numel() * (1 + W) + (-(-4 * K // W) + kept) * W
+        k5[f"K{K}"] = {"ms": ms, "plain_ms": plain, "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3,
+                       "kept_rows": kept}
+    k5.update({k: v for k, v in k5["K8"].items() if k != "kept_rows"}, bound_by="bytes",
+              library_ms=None)
+    for name in ("wire_decode", "deliver_pack"):
+        r = res[name]
+        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} (bytes) library_ms=None (K=8; K=32: "
+              f"ms={r['K32']['ms']:.4f} plain_ms={r['K32']['plain_ms']:.4f} "
+              f"bound_ms={r['K32']['bound_ms']:.6f}) max_abs_err=0.0", flush=True)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 3: verify cases against VERIFY.json
 # ---------------------------------------------------------------------------
@@ -303,9 +458,13 @@ def verify_phase(dev) -> None:
 # ---------------------------------------------------------------------------
 
 
-def run_app(dev, extra: str, data: dict, n_events: int, stride: int, keep_first: int):
-    """Drive one app through send_columns; returns (delivered row count,
-    rows delivered during the first `keep_first` events, seconds)."""
+def run_app(dev, extra: str, data: dict, n_events: int, stride: int, first_call: int,
+            fused: bool = True, keep_calls: int = 1):
+    """Drive one app through send_columns, in calls of `first_call` events
+    and then `stride`; with fused=False the fused engines are detached, so
+    every call takes the per-batch path. Returns (delivered row count, rows
+    delivered by each of the first `keep_calls` calls, seconds, the fused
+    engine's counters or None)."""
     import torch
 
     from siddhi_tpu_torch import SiddhiManager
@@ -315,16 +474,20 @@ def run_app(dev, extra: str, data: dict, n_events: int, stride: int, keep_first:
     for s in SYMBOLS:
         mgr.interner.intern(s)
     count = [0]
-    first: list = []
-    keep = [True]
+    kept: list = []
 
     def on_rows(t, ins, rem):
         count[0] += len(ins or [])
-        if keep[0]:
-            first.extend(tuple(e.data) for e in ins or [])
+        if len(kept) <= keep_calls:
+            kept[-1].extend(tuple(e.data) for e in ins or [])
 
     rt.add_callback("q", on_rows)
     rt.start()
+    j = rt.junctions["StockStream"]
+    if not fused:
+        j.fused_ingest = None
+    elif j.fused_ingest is None:
+        raise AssertionError("no fused ingest engine on StockStream")
     h = rt.get_input_handler("StockStream")
     cols = ("symbol", "price", "volume")
     if dev != "cpu":
@@ -332,48 +495,82 @@ def run_app(dev, extra: str, data: dict, n_events: int, stride: int, keep_first:
     t0 = time.perf_counter()
     sent = 0
     while sent < n_events:
-        end = min(sent + (keep_first if sent == 0 else stride), n_events)
+        end = min(sent + (first_call if sent == 0 else stride), n_events)
+        kept.append([])
         h.send_columns(data["ts"][sent:end], {k: data[k][sent:end] for k in cols}, now=0)
-        keep[0] = False
         sent = end
     if dev != "cpu":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    fi = j.fused_ingest
+    info = fi.describe_state() if fi is not None else None
     rt.shutdown()
     mgr.shutdown()
-    return count[0], first, dt
+    return count[0], kept[:keep_calls], dt, info
+
+
+FUSED_KERNELS = ("length_window_step", "running_sum", "window_extreme", "wire_decode",
+                 "deliver_pack")
 
 
 def main_path_phase(torch) -> dict:
     from siddhi_tpu_torch import kernels
 
+    b = MAIN_BATCH
     data = stock_data(MAIN_EVENTS, seed=7)
-    first_n = 4 * MAIN_BATCH
-    stride = 8 * MAIN_BATCH
-    # warm-up on a short prefix (allocator, first launches), not counted
-    run_app("cuda", MINMAX, data, 2 * MAIN_BATCH, stride, MAIN_BATCH)
+    first_n, stride = 4 * b, 8 * b
+    prefix_calls, prefix_events = 3, 20 * b  # calls of 4, 8 and 8 batches
+    # warm-up on a short prefix (allocator, pinned pool, drain worker, first
+    # launches), two fused calls of 2 batches; not counted
+    run_app("cuda", MINMAX, data, 4 * b, 2 * b, 2 * b)
     kernels.launches.clear()
     torch.cuda.reset_peak_memory_stats()
-    out = {}
+    out, prefixes = {}, {}
     for name, extra in (("filter_window_avg", ""), ("filter_window_minmax", MINMAX)):
-        n_rows, first, dt = run_app("cuda", extra, data, MAIN_EVENTS, stride, first_n)
+        n_rows, kept, dt, info = run_app("cuda", extra, data, MAIN_EVENTS, stride, first_n,
+                                         keep_calls=prefix_calls)
+        prefixes[name] = kept
         out[name] = {"events": MAIN_EVENTS, "rows": n_rows, "seconds": dt,
-                     "events_per_s": MAIN_EVENTS / dt, "first": first}
+                     "events_per_s": MAIN_EVENTS / dt, "chunks": info["chunks"],
+                     "batches": info["batches"], "chunk_K": "4 (first call), then 8",
+                     "wire": info["wire"]}
+        # every call of at least 2 batches takes the fused path; the short
+        # last call (33,920 events) takes the per-batch path
+        calls = [first_n] + [stride] * ((MAIN_EVENTS - first_n) // stride)
+        calls.append(MAIN_EVENTS - sum(calls))
+        want = sum(c for c in calls if c >= 2 * b)
+        if info["events"] != want:
+            raise AssertionError(f"{name}: fused path took {info['events']} events, "
+                                 f"expected {want}")
+        out[name]["fused_events"] = want
     launches = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
-    for name, r in out.items():
-        _n, cpu_first, _dt = run_app("cpu", MINMAX if "minmax" in name else "", data,
-                                     first_n, first_n, first_n)
-        if not cpu_first or not rows_match(r.pop("first"), cpu_first):
-            raise AssertionError(f"{name}: first 4 batches differ from device='cpu'")
-        print(f"main path {name}: {r['events']} events, {r['rows']} rows delivered, "
-              f"{r['seconds']:.3f} s, {r['events_per_s']:.1f} events/s; first 4 batches "
-              "match device='cpu'", flush=True)
     print(f"main path launches {json.dumps(launches)}; peak device memory "
           f"{peak} bytes", flush=True)
-    for k in ("length_window_step", "running_sum", "window_extreme"):
+    for k in FUSED_KERNELS:
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
+    for name, r in out.items():
+        extra = MINMAX if "minmax" in name else ""
+        _n, cpu_first, _dt, _i = run_app("cpu", extra, data, first_n, first_n, first_n)
+        if not cpu_first[0] or not rows_match(prefixes[name][0], cpu_first[0]):
+            raise AssertionError(f"{name}: first 4 batches differ from device='cpu'")
+        pb_rows, pb_kept, pb_dt, _i = run_app("cuda", extra, data, prefix_events, stride,
+                                              first_n, fused=False, keep_calls=prefix_calls)
+        fused_prefix = [row for call in prefixes[name] for row in call]
+        pb_prefix = [row for call in pb_kept for row in call]
+        if not pb_prefix or not rows_match(fused_prefix, pb_prefix):
+            raise AssertionError(f"{name}: fused rows differ from the per-batch form")
+        r["per_batch"] = {"events": prefix_events, "rows": pb_rows, "seconds": pb_dt,
+                          "events_per_s": prefix_events / pb_dt,
+                          "rows_exactly_equal": fused_prefix == pb_prefix}
+        print(f"main path {name}: fused {r['events']} events, {r['rows']} rows delivered, "
+              f"{r['seconds']:.3f} s, {r['events_per_s']:.1f} events/s, {r['chunks']} chunks "
+              f"(K=4 first, then 8); per-batch form {prefix_events} events, {pb_rows} rows, "
+              f"{pb_dt:.3f} s, {prefix_events / pb_dt:.1f} events/s; first 4 batches match "
+              f"device='cpu', first 20 batches match the per-batch form "
+              f"(exactly: {fused_prefix == pb_prefix}); wire {r['wire']['lanes']} "
+              f"{r['wire']['encoded_B_per_ev']} B/event", flush=True)
     return {"apps": out, "launches": launches, "peak_bytes": peak}
 
 
@@ -452,13 +649,13 @@ def profile_phase(torch) -> dict:
     prof_host = cProfile.Profile()
     prof_host.enable()
     t0 = time.perf_counter()
-    run_app("cuda", MINMAX, data, 16 * b, 8 * b, 8 * b)
+    run_app("cuda", MINMAX, data, 16 * b, 8 * b, 8 * b, fused=False)
     loop_s = time.perf_counter() - t0
     prof_host.disable()
     stats = pstats.Stats(prof_host)
     top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:20]  # by own time
-    print(f"profile: send_columns loop, 16 batches: {loop_s * 1e3 / 16:.3f} ms/batch "
-          "(incl. app build); top host functions by own time:", flush=True)
+    print(f"profile: per-batch send_columns loop, 16 batches: {loop_s * 1e3 / 16:.3f} "
+          "ms/batch (incl. app build); top host functions by own time:", flush=True)
     by_func = []
     for (file, line, fn), (_cc, ncalls, tottime, cumtime, _callers) in top:
         where = f"{os.path.basename(file)}:{line}({fn})"
@@ -468,6 +665,96 @@ def profile_phase(torch) -> dict:
     return {"host_stage_ms_per_batch": per_batch_ms, "wall_ms_4_batches": wall * 1e3,
             "device_busy_ms_4_batches": busy_ms, "by_kernel": kernels_by_name,
             "loop_ms_per_batch": loop_s * 1e3 / 16, "host_by_function": by_func}
+
+
+def profile_fused(torch) -> dict:
+    """Where one fused chunk of the main path spends its time (K=8 batches
+    of B=32768, the min/max app): the engine's own stages, each timed around
+    torch.cuda.synchronize() — host encode into a pooled pinned slot, H2D,
+    K4 + the K steps + K5, the drain's readbacks, host decode + callbacks —
+    averaged over 4 chunks; then torch.profiler's device time by kernel and
+    the device busy share over 4 chunks sent as one send_columns call (the
+    real pipelined path)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    b, K = MAIN_BATCH, 8
+    data = stock_data(12 * K * b, seed=7)
+    cols = ("symbol", "price", "volume")
+    mgr = SiddhiManager()
+    rt = mgr.create_siddhi_app_runtime(MAIN_APP.format(batch=b, w=MAIN_W, extra=MINMAX))
+    for s in SYMBOLS:
+        mgr.interner.intern(s)
+    rows = [0]
+    rt.add_callback("q", lambda t, ins, rem: rows.__setitem__(0, rows[0] + len(ins or [])))
+    rt.start()
+    fi = rt.junctions["StockStream"].fused_ingest
+    h = rt.get_input_handler("StockStream")
+
+    def send(c0, c1):
+        lo, hi = c0 * K * b, c1 * K * b
+        h.send_columns(data["ts"][lo:hi], {k: data[k][lo:hi] for k in cols}, now=0)
+
+    send(0, 2)  # engages: wire chosen, program formed, drain worker up
+    prog, pl = fi._prog, fi._pipeline()
+    (i,) = prog.deliver_idx
+    W = prog.layouts[i][1]
+    hdr = -(-4 * K // W)
+    stages = dict.fromkeys(("encode", "h2d", "k4_steps_k5", "d2h", "decode_deliver"), 0.0)
+
+    def chunk(c, timed):
+        lo, hi = c * K * b, (c + 1) * K * b
+        t0 = time.perf_counter()
+        slot = pl.acquire(K, prog.wire_bytes)
+        fi._encode_chunk(prog.encode, data["ts"][lo:hi], {k: data[k][lo:hi] for k in cols},
+                         0, hi - lo, b, K, prog.wire_bytes, slot=slot)
+        t1 = time.perf_counter()
+        wire, counts, bases = pl.ship(slot)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        packs, event = fi._dispatch_chunk(prog, wire, counts, bases, K, hi - lo, 0)
+        pl.retire(slot)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        head = fi._readback(packs[0], 0, hdr, event)
+        cnts = head.reshape(-1)[: 4 * K].view(np.int32)
+        total = int(cnts.sum())
+        host = fi._readback(packs[0], hdr, hdr + total, None)
+        t4 = time.perf_counter()
+        fi.deliver_endpoint(prog, i, host, cnts, total)
+        t5 = time.perf_counter()
+        if timed:
+            for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+                stages[k] += v
+
+    chunk(2, False)
+    for c in range(3, 7):
+        chunk(c, True)
+    per_chunk_ms = {k: v / 4 * 1e3 for k, v in stages.items()}
+    print(f"profile: fused chunk stages (ms per K=8 chunk, synchronized): "
+          f"{json.dumps(per_chunk_ms)}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        send(7, 11)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if dev_us > 0:
+            by_kernel.append((e.key, e.count, dev_us / 1e3))
+    by_kernel.sort(key=lambda k: -k[2])
+    busy_ms = sum(k[2] for k in by_kernel)
+    print(f"profile: fused, 4 chunks (32 batches) in one send_columns: wall {wall * 1e3:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms ({busy_ms / (wall * 1e3):.4f} of wall)", flush=True)
+    for name, count, ms in by_kernel[:15]:
+        print(f"profile:   {ms:10.3f} ms  x{count:<5d} {name[:90]}", flush=True)
+    rt.shutdown()
+    return {"stage_ms_per_chunk": per_chunk_ms, "wall_ms_4_chunks": wall * 1e3,
+            "device_busy_ms_4_chunks": busy_ms, "by_kernel": by_kernel}
 
 
 def main() -> int:
@@ -488,10 +775,12 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         with open(os.path.join(ROOT, "chiprun_out", "profile.json"), "w") as f:
-            json.dump({"card": card, **profile_phase(torch)}, f, indent=1)
+            json.dump({"card": card, "per_batch": profile_phase(torch),
+                       "fused": profile_fused(torch)}, f, indent=1)
         return 0
 
     res = kernel_phase(torch, "cuda")
+    res.update(fused_kernel_phase(torch, "cuda"))
     verify_phase("cuda")
     main = main_path_phase(torch)
 
@@ -500,7 +789,11 @@ def main() -> int:
            "running_sum": ("siddhi_tpu_torch/csrc/running_sum.cu",
                            "siddhi_tpu/ops/prefix.py:51"),
            "window_extreme": ("siddhi_tpu_torch/csrc/window_extreme.cu",
-                              "siddhi_tpu/core/aggregators.py:191")}
+                              "siddhi_tpu/core/aggregators.py:191"),
+           "wire_decode": ("siddhi_tpu_torch/csrc/wire_decode.cu",
+                           "siddhi_tpu/core/wire.py:665"),
+           "deliver_pack": ("siddhi_tpu_torch/csrc/deliver_pack.cu",
+                            "siddhi_tpu/core/ingest.py:488")}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
          "launches": main["launches"].get(k, 0), "max_abs_err": r["max_abs_err"],
@@ -511,6 +804,8 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "kernels": table,
+                   "fused_kernel_shapes": {k: {"K8": res[k]["K8"], "K32": res[k]["K32"]}
+                                           for k in ("wire_decode", "deliver_pack")},
                    "main_path": main["apps"], "peak_bytes": main["peak_bytes"]}, f, indent=1)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -8,8 +8,10 @@ points between steps.
 
 Ported so far: stream definitions, `@app:name`, `@app:batch`, `@app:playback`,
 and single-stream queries (filter, length window, projection with
-sum/count/avg/min/max) inserting into streams or delivering to callbacks.
-Everything else raises `SiddhiAppCreationError("... not ported yet")`.
+sum/count/avg/min/max) inserting into streams or delivering to callbacks;
+fused columnar ingest (core/ingest.py) with `@app:ingestChunk`, `@app:wire`
+and the per-stream `@pipeline`. Everything else raises
+`SiddhiAppCreationError("... not ported yet")`.
 """
 
 from __future__ import annotations
@@ -31,12 +33,15 @@ from siddhi_tpu_torch.core.event import (
     KIND_EXPIRED,
     StreamSchema,
 )
+from siddhi_tpu_torch.core.ingest import FuseEndpoint, FusedJunctionIngest
+from siddhi_tpu_torch.core.pipeline import resolve_pipeline_annotation
 from siddhi_tpu_torch.core.query_runtime import QueryRuntime
 from siddhi_tpu_torch.core.stream_junction import (
     InputHandler,
     StreamJunction,
     system_clock_ms,
 )
+from siddhi_tpu_torch.core.wire import build_wire_spec, resolve_wire_annotation
 from siddhi_tpu_torch.query_api.annotation import find_annotation
 from siddhi_tpu_torch.query_api.execution import (
     InsertIntoStream,
@@ -51,7 +56,7 @@ from siddhi_tpu_torch.query_api.siddhi_app import SiddhiApp
 DEFAULT_BATCH = 64
 
 _PORTED_APP_ANNOTATIONS = {"app:name", "app", "name", "app:description", "app:batch",
-                           "app:playback"}
+                           "app:playback", "app:ingestchunk", "app:wire"}
 _UNPORTED_STREAM_ANNOTATIONS = {"onerror", "source", "sink", "async"}
 
 
@@ -107,6 +112,17 @@ class SiddhiAppRuntime:
         # one app-level processing lock: receive+route for every query runs
         # under it, so timer/input threads deliver outputs in state-step order
         self._process_lock = threading.RLock()
+        self._exception_handler = None
+
+        # fused ingest (core/ingest.py): micro-batches per chunk, the compact
+        # wire's @app:wire(disable=, range/dict/delta.<stream>.<col>=) with
+        # the SIDDHI_TPU_WIRE override, and each stream's @pipeline(depth=,
+        # disable=) with SIDDHI_TPU_PIPELINE; malformed options raise here
+        self._ingest_chunk = self._capacity_annotation("app:ingestChunk", 32)
+        self._wire_enabled, self._wire_hints = resolve_wire_annotation(
+            find_annotation(app.annotations, "app:wire")
+        )
+        self._pipeline_conf: dict[str, tuple[bool, int]] = {}
 
         for sid, d in app.stream_definitions.items():
             for a in d.annotations:
@@ -114,6 +130,9 @@ class SiddhiAppRuntime:
                     raise _not_ported(f"@{a.name} on stream '{sid}'")
             self.stream_schemas[sid] = StreamSchema(
                 sid, [(a.name, a.type) for a in d.attributes]
+            )
+            self._pipeline_conf[sid] = resolve_pipeline_annotation(
+                find_annotation(d.annotations, "pipeline")
             )
         for ent in assign_execution_ids(app):
             if ent[0] != "query":
@@ -123,6 +142,18 @@ class SiddhiAppRuntime:
 
     # ---- assembly --------------------------------------------------------
 
+    def _capacity_annotation(self, name: str, default):
+        ann = find_annotation(self.app.annotations, name)
+        if ann is None:
+            return default
+        v = ann.element("size") or ann.element(None)
+        if v is None:
+            raise SiddhiAppCreationError(f"@{name} needs a size, e.g. @{name}(size='4096')")
+        try:
+            return int(v)
+        except ValueError:
+            raise SiddhiAppCreationError(f"@{name} size '{v}' must be an integer") from None
+
     def _junction(self, stream_id: str) -> StreamJunction:
         j = self.junctions.get(stream_id)
         if j is None:
@@ -130,6 +161,7 @@ class SiddhiAppRuntime:
             if schema is None:
                 raise DefinitionNotExistError(f"stream '{stream_id}' is not defined")
             j = StreamJunction(schema, self.interner, self.batch_size, self.device)
+            j.exception_handler = self._exception_handler
             self.junctions[stream_id] = j
         return j
 
@@ -153,6 +185,7 @@ class SiddhiAppRuntime:
                 f"does not match defined stream {existing.attrs}"
             )
         target_junction = self._junction(target)
+        qr.insert_target_junction = target_junction
         transform = _make_insert_transform(out.output_events)
         dst_names = existing.attr_names
 
@@ -186,7 +219,9 @@ class SiddhiAppRuntime:
                 out_batch = _qr.receive(batch, now)
                 _qr.route_output(out_batch, now, self._decode)
 
-        self._junction(stream.stream_id).subscribe(receive)
+        j = self._junction(stream.stream_id)
+        j.subscribe(receive)
+        j.fuse_candidates.append(FuseEndpoint(qr))
 
     def _decode(self, schema: StreamSchema, batch: EventBatch):
         return schema.from_batch(batch, self.interner)
@@ -219,7 +254,11 @@ class SiddhiAppRuntime:
                     list(map(mk, map(ts_data, removed))) if removed else None,
                 )
 
-            self.queries[name].query_callbacks.append(qcb)
+            qr = self.queries[name]
+            qr.query_callbacks.append(qcb)
+            # the fused drain builds Event lists once and calls the user
+            # callbacks directly while the two lists stay one to one
+            qr.raw_query_callbacks.append(callback)
             return
         if name in self.stream_schemas:
             self._junction(name).add_stream_callback(
@@ -228,13 +267,49 @@ class SiddhiAppRuntime:
             return
         raise DefinitionNotExistError(f"no stream or query named '{name}'")
 
+    def set_exception_handler(self, handler) -> None:
+        """Route subscriber and fused-drain failures to `handler(exc)`
+        instead of propagating to the sender (reference:
+        SiddhiAppRuntime.handleExceptionWith)."""
+        for j in self.junctions.values():
+            j.exception_handler = handler
+        self._exception_handler = handler
+
     def start(self) -> None:
         if self._playback_clock is not None:
             self._playback_clock.start_heartbeat()
+        self._build_fused_ingest()
+
+    def _build_fused_ingest(self) -> None:
+        """Build a fused ingest engine on each junction whose subscribers
+        all registered a FuseEndpoint (every query of the port does), with
+        the stream's static wire spec and pipeline configuration."""
+        for j in list(self.junctions.values()):
+            if not j.fuse_candidates or len(j.fuse_candidates) != len(j.subscribers):
+                continue
+            sid = j.schema.stream_id
+            pipe_on, pipe_depth = self._pipeline_conf.get(
+                sid, resolve_pipeline_annotation(None)
+            )
+            spec = (
+                build_wire_spec(sid, j.schema.attrs, self._wire_hints, capacity=j.batch_size)
+                if self._wire_enabled
+                else None
+            )
+            if j.fused_ingest is not None:  # a second start(): replace the engine
+                j.fused_ingest.close()
+            j.fused_ingest = FusedJunctionIngest(
+                self, j, j.fuse_candidates, chunk_batches=self._ingest_chunk,
+                pipeline_enabled=pipe_on, pipeline_depth=pipe_depth,
+                wire_spec=spec, wire_enabled=self._wire_enabled,
+            )
 
     def shutdown(self) -> None:
         if self._playback_clock is not None:
             self._playback_clock.stop()
+        for j in self.junctions.values():
+            if j.fused_ingest is not None:
+                j.fused_ingest.close()  # stops the pipeline drain worker
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

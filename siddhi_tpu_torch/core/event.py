@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 from typing import Any, Sequence
 
 import numpy as np
@@ -33,6 +34,11 @@ KIND_RESET = 3
 
 # Host-side event (reference: core/event/Event.java — timestamp + Object[] data).
 Event = collections.namedtuple("Event", ["timestamp", "data"])
+
+
+class WireNarrowMisfit(ValueError):
+    """A value in this batch does not fit the chosen narrow wire dtype; the
+    sender must rebuild with the full-width wire and retry."""
 
 
 @dataclasses.dataclass
@@ -239,6 +245,93 @@ class StreamSchema:
         self._codecs[key] = (encode, decode)
         return encode, decode
 
+    def propose_narrow(
+        self,
+        timestamps: np.ndarray,
+        cols: dict,
+        keep: frozenset | None = None,
+        margin: int = 4,
+    ) -> dict:
+        """Sample-driven narrow wire dtypes: for each integer lane (and the
+        ts-delta lane), the smallest dtype whose range covers `margin`x the
+        sample's extremes. Used once at fused-ingest engagement; a later
+        batch that does not fit raises WireNarrowMisfit and the caller falls
+        back to the full-width wire (one rebuild, then permanent)."""
+        narrow: dict[str, np.dtype] = {}
+
+        def pick(lo: int, hi: int, wide: np.dtype) -> np.dtype | None:
+            for nd in (np.int16, np.int32):
+                dt = np.dtype(nd)
+                if dt.itemsize >= wide.itemsize:
+                    return None
+                info = np.iinfo(dt)
+                if lo * margin >= info.min and hi * margin <= info.max:
+                    return dt
+            return None
+
+        n = len(timestamps)
+        if n:
+            # tsd rides as CONSECUTIVE diffs (decode reconstructs with a
+            # device cumsum), so steady event streams narrow to int8/int16
+            # even when the whole batch spans more than the dtype's range
+            d = np.diff(timestamps[:n].astype(np.int64), prepend=timestamps[0])
+            lo, hi = int(d.min()), int(d.max())
+            for nd in (np.int8, np.int16):
+                info = np.iinfo(nd)
+                if lo * margin >= info.min and hi * margin <= info.max:
+                    narrow["__tsd__"] = np.dtype(nd)
+                    break
+        for name, t in self.attrs:
+            if keep is not None and name not in keep:
+                continue
+            wide = NUMPY_DTYPE[t]
+            if wide.kind != "i" or name not in cols or n == 0:
+                continue
+            src = np.asarray(cols[name])[:n]
+            if src.dtype.kind not in "iu":
+                continue  # un-interned strings etc. — leave wide
+            got = pick(int(src.min()), int(src.max()), wide)
+            if got is not None:
+                narrow[name] = got
+        return narrow
+
+    def wire_codec(
+        self,
+        capacity: int,
+        keep: frozenset | None = None,
+        narrow: dict | None = None,
+    ):
+        """Projected/narrowed single-transfer codec for fused ingest
+        (core/wire.py `build_codec`), cached per (capacity, keep, narrow).
+
+        Cuts wire bytes/event three ways against `packed_codec`: timestamps
+        ride as int32 (or narrower, diff-coded) offsets from a per-batch
+        int64 base; columns not in `keep` (attributes no subscriber ever
+        reads, from Scope.used_keys) are not shipped and decode null-filled;
+        `narrow` maps lanes to smaller encodings (sampled downcasts or the
+        dict/delta/bitpack tuples of core/wire.py), each guarded on encode by
+        WireNarrowMisfit.
+
+        encode(ts, cols, n) -> (buf uint8[total], base int64)
+        decode(wire [K, total] u8, counts [K] int32, bases [K] int64)
+            -> EventBatch of [K, capacity] lanes (the K4 kernel on the card)
+        """
+        from siddhi_tpu_torch.core.wire import build_codec
+
+        narrow = narrow or {}
+        key = (
+            "wire",
+            capacity,
+            keep,
+            tuple(sorted((k, str(v)) for k, v in narrow.items())),
+        )
+        cached = self._codecs.get(key)
+        if cached is not None:
+            return cached
+        codec = build_codec(self, capacity, keep, narrow)
+        self._codecs[key] = codec
+        return codec
+
     def d2h_codec(self, capacity: int):
         """Single-transfer device->host codec: `pack` views every lane of an
         EventBatch as bytes and concatenates them into ONE device buffer, so
@@ -334,5 +427,21 @@ def rows_from_arrays(
         return []
     col_lists = column_lists(schema, cols, n, interner)
     ts_l = np.asarray(ts)[:n].tolist()
-    kind_l = np.asarray(kind)[:n].tolist()
+    if isinstance(kind, int):  # single-kind fast path (deliver drain)
+        kind_l = [kind] * n
+    else:
+        kind_l = np.asarray(kind)[:n].tolist()
     return list(zip(ts_l, kind_l, zip(*col_lists)))
+
+
+def events_from_arrays(
+    schema, ts: np.ndarray, cols: dict, n: int, interner
+) -> list:
+    """Vectorized host decode straight to Event objects (single-kind fused
+    egress fast path — skips the triple intermediate entirely)."""
+    if n <= 0:
+        return []
+    col_lists = column_lists(schema, cols, n, interner)
+    ts_l = np.asarray(ts)[:n].tolist()
+    mk = functools.partial(tuple.__new__, Event)
+    return list(map(mk, zip(ts_l, zip(*col_lists))))

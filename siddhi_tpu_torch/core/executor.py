@@ -95,6 +95,10 @@ class Scope:
         self.interner = interner
         self.device = torch.device(device)
         self.default_ref = default_ref
+        # every VarKey any expression compiled against this scope (or a
+        # child) resolved: fused ingest ships only the attributes some
+        # query reads (QueryRuntime.used_attrs)
+        self.used_keys: set[VarKey] = set()
         self._streams: dict[str, dict[str, AttrType]] = {}
         self._parent: Scope | None = None
 
@@ -109,7 +113,19 @@ class Scope:
         c._parent = self
         return c
 
+    def record_key(self, key: VarKey) -> None:
+        # record at every level, so the root holds the full set
+        scope: Scope | None = self
+        while scope is not None:
+            scope.used_keys.add(key)
+            scope = scope._parent
+
     def resolve(self, var: Variable) -> tuple[VarKey, AttrType]:
+        key, t = self._resolve(var)
+        self.record_key(key)
+        return key, t
+
+    def _resolve(self, var: Variable) -> tuple[VarKey, AttrType]:
         if var.stream_id is not None:
             scope: Scope | None = self
             while scope is not None:

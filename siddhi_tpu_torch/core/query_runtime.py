@@ -107,6 +107,7 @@ class QueryRuntime:
         if self.ref != in_schema.stream_id:
             scope.add_stream(in_schema.stream_id, in_schema.attr_types)
         scope.default_ref = self.ref
+        self._scope = scope
 
         self.chain = CompiledSingleChain(stream, in_schema, scope)
         self.selector = CompiledSelector(
@@ -122,12 +123,25 @@ class QueryRuntime:
         self.out_schema = StreamSchema(target, self.selector.out_attrs)
         self.output_events = out.output_events
         self.query_callbacks: list[Callable] = []
+        # the user callbacks behind query_callbacks, one to one: the fused
+        # drain builds Event lists once and calls them directly
+        self.raw_query_callbacks: list[Callable] = []
         self.publish_fn: Optional[Callable] = None
+        self.insert_target_junction = None
         self._receive_lock = threading.RLock()
         self.state = None
 
     def init_state(self):
         return {"chain": self.chain.init_state(), "sel": self.selector.init_state()}
+
+    @property
+    def used_attrs(self):
+        """Input attribute names this query can ever read (from the compile
+        scope's resolved keys), or None for everything (select *). Fused
+        ingest drops the other columns from the wire."""
+        if self.query.selector.select_all:
+            return None
+        return {k[2] for k in self._scope.used_keys}
 
     # ---- device program --------------------------------------------------
 

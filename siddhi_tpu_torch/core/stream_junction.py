@@ -9,6 +9,7 @@ default pass-through mode.
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from typing import Any, Callable, Sequence
@@ -32,6 +33,13 @@ class StreamJunction:
         self.device = device
         self.subscribers: list[Subscriber] = []
         self.stream_callbacks: list[Callable] = []
+        # fused ingest (core/ingest.py): every subscriber that registered a
+        # FuseEndpoint; the engine built from them at app start
+        self.fuse_candidates: list = []
+        self.fused_ingest = None
+        # set_exception_handler: subscriber and drain failures go to
+        # handler(exc) instead of the sender
+        self.exception_handler: Callable[[Exception], None] | None = None
         # RLock: a query may legally insert into its own input stream
         # (reference allows self-feeding junctions); recursion stays on-thread
         self.lock = threading.RLock()
@@ -44,14 +52,34 @@ class StreamJunction:
 
     def publish_batch(self, batch: EventBatch, now: int) -> None:
         with self.lock:
+            handler = self.exception_handler
             for fn in self.subscribers:
-                fn(batch, now)
+                if handler is None:
+                    fn(batch, now)
+                    continue
+                try:
+                    fn(batch, now)
+                except Exception as e:
+                    handler(e)
             if self.stream_callbacks:
                 events = self.schema.from_batch(batch, self.interner)
                 if events:
                     rows = [(ts, data) for ts, _kind, data in events]
                     for cb in self.stream_callbacks:
                         cb(rows)
+
+    def _on_worker_error(self, exc: Exception, who: str) -> None:
+        """A failure on a worker thread (the fused drain) that the exception
+        handler owns: log it and hand it over."""
+        logging.getLogger(__name__).error(
+            "%s for stream '%s' failed: %s", who, self.schema.stream_id, exc
+        )
+        try:
+            self.exception_handler(exc)
+        except Exception:
+            logging.getLogger(__name__).exception(
+                "exception handler for stream '%s' raised", self.schema.stream_id
+            )
 
     def send_rows(
         self,
@@ -100,15 +128,20 @@ class InputHandler:
         batch-size chunk, no per-row Python work (the analog of the reference's
         @async batched Disruptor path, StreamJunction.java:262-298).
 
-        All-numeric chunks (pre-interned string ids included) ride the packed
-        codec: ONE contiguous host->device copy per batch, split into lanes on
-        the device.
+        All-numeric calls (pre-interned string ids included) of at least two
+        batches take the junction's fused engine when it has one
+        (core/ingest.py: K batches per copy and per device loop); otherwise
+        each batch rides the packed codec: ONE contiguous host->device copy
+        per batch, split into lanes on the device.
         """
         j = self.junction
         n = len(timestamps)
         if now is None:
             now = self.clock()  # same wall-clock default as send/send_many
         numeric = all(np.asarray(v).dtype.kind not in "OUS" for v in cols.values())
+        fi = j.fused_ingest
+        if numeric and fi is not None and fi.try_send(timestamps, cols, now):
+            return
         if numeric:
             encode, decode = j.schema.packed_codec(j.batch_size, j.device)
             for ofs in range(0, n, j.batch_size):

@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "_build"
-SOURCES = ("length_window", "running_sum", "window_extreme")
+SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "deliver_pack")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -47,6 +47,8 @@ SIGNATURES = {
     "window_extreme_f32": ("window_extreme", _EXTREME),
     "window_extreme_i32": ("window_extreme", _EXTREME),
     "window_extreme_i64": ("window_extreme", _EXTREME),
+    "wire_decode": ("wire_decode", [P, P, P, I, LL, I, I, P, P, P, P, P, P]),
+    "deliver_pack": ("deliver_pack", [P, I, I, I, P, P, P, I, I, P, P, P, P, P]),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -24,6 +24,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, siddhi_tpu_torch, siddhi_tpu_torch.interop; "
         "import siddhi_tpu_torch.core.app_runtime; "
+        "import siddhi_tpu_torch.core.wire, siddhi_tpu_torch.core.ingest, "
+        "siddhi_tpu_torch.core.pipeline; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'siddhi_tpu' or m.startswith('siddhi_tpu.')); "
         "assert not bad, bad"
