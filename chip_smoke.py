@@ -13,30 +13,42 @@ engine next to it. Phases, each printed as it ends:
      path's shapes (B=32768, W=50; the fused path's K=8 and K=32 chunks for
      the wire decode and the deliver pack) and ragged ones, from the same
      inputs and state; times from CUDA events;
-  3. verify cases filter_num, len_window_avg, len_window_minmax on the card
-     against the frozen CPU rows of VERIFY.json;
+     The group-by kernels (lengthBatch step, slot assignment, keyed running
+     sum, keep-last) the same way at the tumbling_groupby path's shapes
+     (B=32768, lengthBatch(1024), 33,826 flow rows, G=1024), ragged ones,
+     1,000 distinct keys and 2,000 (overflow);
+  3. verify cases filter_num, len_window_avg, len_window_minmax,
+     len_batch_group and having_order on the card against the frozen CPU
+     rows of VERIFY.json;
   4. the main path at full width: BASELINE.json config 1 (filter + length(50)
      window + avg) and the same app with min/max added, at @app:batch 32768,
      2,000,000 events each through send_columns in calls of 8 batches (the
      first of 4), which take the fused ingest path (K=8 chunks; K=4 first);
-     every kernel's launch count over those runs must be > 0, the first 4
-     batches' rows must match the same run on device="cpu", and the first 20
-     batches' rows must match the per-batch form (fused engines detached),
-     whose events/s is printed beside the fused form's.
+     every kernel of the path must have launched (counts set to 0 just
+     before, read just after), the first 4 batches' rows must match the same
+     run on device="cpu", and the first 20 batches' rows must match the
+     per-batch form (fused engines detached), whose events/s is printed
+     beside the fused form's;
+  5. the tumbling_groupby path (BASELINE.json config 2: lengthBatch(1024)
+     group by symbol with sum and avg) at the same width and in the same
+     way, with its own launch counts; then the same app with 1,000 distinct
+     symbols for 4 batches against device="cpu".
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-instead builds the kernels and prints where the time goes on the main path:
-for one per-batch batch and for one fused K=8 chunk, the host stages timed
-around torch.cuda.synchronize(), and device time by kernel from
-torch.profiler over 4 batches / 4 chunks.
+instead builds the kernels and prints where the time goes on both main
+paths (the quickstart min/max app and tumbling_groupby): for one per-batch
+batch and for one fused K=8 chunk, the host stages timed around
+torch.cuda.synchronize(), and device time by kernel from torch.profiler over
+4 batches / 4 chunks.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -62,6 +74,16 @@ select symbol, avg(price) as ap{extra}
 insert into Out;
 """
 MINMAX = ", min(price) as mn, max(price) as mx"
+GROUP_N, GROUP_G = 1024, 1024  # lengthBatch(1024); the default group capacity
+GROUP_APP = """
+@app:batch(size='{batch}')
+define stream StockStream (symbol string, price float, volume long);
+@info(name='q')
+from StockStream#window.lengthBatch({n})
+select symbol, sum(volume) as total, avg(price) as ap
+group by symbol
+insert into Out;
+"""
 
 VERIFY_HEAD = (
     "@app:batch(size='32')\n"
@@ -71,6 +93,8 @@ VERIFY_CASES = {
     "filter_num": VERIFY_HEAD + "@info(name='q') from S[price > 50 and volume < 800] select symbol, price insert into Out;",
     "len_window_avg": VERIFY_HEAD + "@info(name='q') from S#window.length(7) select symbol, avg(price) as ap, sum(volume) as tv insert into Out;",
     "len_window_minmax": VERIFY_HEAD + "@info(name='q') from S#window.length(5) select min(price) as mn, max(price) as mx insert into Out;",
+    "len_batch_group": VERIFY_HEAD + "@info(name='q') from S#window.lengthBatch(8) select symbol, sum(volume) as tv, count() as c group by symbol insert into Out;",
+    "having_order": VERIFY_HEAD + "@info(name='q') from S#window.lengthBatch(8) select symbol, sum(volume) as tv group by symbol having tv > 100 order by tv desc limit 3 insert into Out;",
 }
 
 
@@ -418,6 +442,195 @@ def fused_kernel_phase(torch, dev) -> dict:
     return res
 
 
+def grouped_kernel_phase(torch, dev) -> dict:
+    """The group-by path's kernels against their plain versions on the card:
+    the lengthBatch step (K6), slot assignment (K7), keyed running sum (K8,
+    the int64 sum and the float32 avg sum and count of tumbling_groupby) and
+    keep-last (K9, grouped and ungrouped), from the same inputs and state.
+    Shapes: the main path (B=32768, lengthBatch(1024) without EXPIRED lanes:
+    33,826 flow rows, 8 symbols, G=1024) for 3 carried steps; the same with
+    the EXPIRED lanes (100,386 rows); ragged B=4097/n=100, B=33/n=4 and
+    B=1/n=1 with holes and TIMER rows, lanes on and off; 1,000 distinct keys
+    over a lengthBatch flow and over B=32768 rows with no reset (a nearly full
+    table) and 2,000 (overflow past G). Ints, bools and masks exact; float32
+    sums to the stated tolerance."""
+    from siddhi_tpu_torch.core.event import (
+        KIND_CURRENT,
+        KIND_EXPIRED,
+        KIND_RESET,
+        EventBatch,
+        StreamSchema,
+    )
+    from siddhi_tpu_torch.core.types import AttrType
+    from siddhi_tpu_torch.core.windows import (
+        BatchWindow,
+        batch_window_step,
+        batch_window_step_ref,
+    )
+    from siddhi_tpu_torch.ops.group import (
+        assign_slots,
+        assign_slots_ref,
+        keep_last,
+        keep_last_ref,
+        keyed_running_sum,
+        keyed_running_sum_ref,
+    )
+
+    schema = StreamSchema("StockStream", [("symbol", AttrType.STRING), ("price", AttrType.FLOAT),
+                                          ("volume", AttrType.LONG)])
+    names = ("batch_window_step", "assign_slots", "keyed_running_sum", "keep_last")
+    res = {k: {"max_abs_err": 0.0} for k in names}
+    rng = np.random.default_rng(77)
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], max_abs_err(torch, got, want))
+
+    def batch_of(b, n_sym, ragged):
+        d = stock_data(b, seed=int(rng.integers(1 << 30)))
+        d["symbol"] = rng.integers(1, n_sym + 1, size=b).astype(np.int32)
+        valid = np.ones(b, bool)
+        kind = np.zeros(b, np.int8)
+        if ragged:
+            valid &= rng.random(b) < 0.9
+            kind[rng.random(b) < 0.05] = 2  # TIMER rows are not window arrivals
+        return EventBatch(
+            ts=torch.from_numpy(d["ts"]).to(dev), kind=torch.from_numpy(kind).to(dev),
+            valid=torch.from_numpy(valid).to(dev),
+            cols={n: torch.from_numpy(d[n]).to(dev) for n in ("symbol", "price", "volume")},
+        )
+
+    def group_lanes(out):
+        cur = out.valid & (out.kind == KIND_CURRENT)
+        exp = out.valid & (out.kind == KIND_EXPIRED)
+        sign = cur.to(torch.int8) - exp.to(torch.int8)
+        return sign, sign != 0, out.valid & (out.kind == KIND_RESET), cur | exp
+
+    def group_state(g):
+        return {"keys": torch.zeros(g, dtype=torch.int64, device=dev),
+                "used": torch.zeros(g, dtype=torch.bool, device=dev),
+                "n": torch.zeros((), dtype=torch.int32, device=dev),
+                "sum": torch.zeros(g, dtype=torch.int64, device=dev),
+                "avg_sum": torch.zeros(g, dtype=torch.float32, device=dev),
+                "avg_count": torch.zeros(g, dtype=torch.float32, device=dev)}
+
+    def group_step(out, gs):
+        """K7-K9 over one flow against their plain versions; returns the new
+        group state (from the plain versions) and the inputs for timing."""
+        sign, active, reset, emitted = group_lanes(out)
+        keys = out.cols["symbol"].to(torch.int64)
+        args = (gs["keys"], gs["used"], gs["n"], keys, active, reset)
+        got, want = assign_slots(*args), assign_slots_ref(*args)
+        flat_g = [got[0], got[1], got[2], got[3], got[4].first, got[4].bounds, got[5]]
+        flat_w = [want[0], want[1], want[2], want[3], want[4].first, want[4].bounds, want[5]]
+        check("assign_slots", flat_g, flat_w)
+        grp, slot = want[4], want[3]
+        sgn_f = sign.to(torch.float32)
+        sums = {
+            "sum": torch.where(sign != 0, out.cols["volume"] * sign.to(torch.int64), 0),
+            "avg_sum": torch.where(sign != 0, out.cols["price"] * sgn_f, 0.0),
+            "avg_count": sgn_f,
+        }
+        new = {"keys": want[0], "used": want[1], "n": want[2]}
+        for k, contrib in sums.items():
+            g = keyed_running_sum(contrib, grp, reset, gs[k], slot)
+            w = keyed_running_sum_ref(contrib, grp, reset, gs[k], slot)
+            check("keyed_running_sum", list(g), list(w))
+            new[k] = w[1]
+        kb = out.kind == KIND_EXPIRED
+        check("keep_last", keep_last(grp.first, kb, emitted), keep_last_ref(grp.first, kb, emitted))
+        seg = torch.cumsum(reset.to(torch.int32), 0, dtype=torch.int32) + kb.to(torch.int32)
+        allowed = emitted & (out.kind == KIND_CURRENT)
+        zeros = torch.zeros_like(allowed)
+        check("keep_last", keep_last(seg, zeros, allowed), keep_last_ref(seg, zeros, allowed))
+        return new, dict(args=args, grp=grp, slot=slot, reset=reset, sums=sums, kb=kb,
+                         emitted=emitted, carry=gs)
+
+    main = {}
+    cases = ((MAIN_BATCH, GROUP_N, False, False, 8, 3), (MAIN_BATCH, GROUP_N, True, False, 8, 2),
+             (4097, 100, True, True, 8, 3), (4097, 100, False, True, 8, 3),
+             (33, 4, True, True, 5, 4), (1, 1, False, True, 2, 3),
+             (MAIN_BATCH, GROUP_N, False, False, 1000, 2))
+    for b, n, exp, ragged, n_sym, steps in cases:
+        state = BatchWindow(schema, "StockStream", n, dev).init_state()
+        gs = group_state(GROUP_G)
+        for step in range(steps):
+            batch = batch_of(b, n_sym, ragged)
+            got = batch_window_step(state, batch, n, exp)
+            want = batch_window_step_ref(state, batch, n, exp)
+            og, ow = got[0], want[0]
+            check("batch_window_step",
+                  [og.ts, og.kind, og.valid, og.cols, got[1] if exp else [], got[2] if exp else [],
+                   got[3]],
+                  [ow.ts, ow.kind, ow.valid, ow.cols, want[1] if exp else [],
+                   want[2] if exp else [], want[3]])
+            gs, inputs = group_step(ow, gs)
+            if (b, n, exp, n_sym) == (MAIN_BATCH, GROUP_N, False, 8) and step == steps - 1:
+                main = dict(state=state, batch=batch, rows=ow.valid.shape[0], **inputs)
+            state = want[3]
+        print(f"kernel check lengthBatch B={b} n={n} expired_lanes={exp} ragged={ragged} "
+              f"symbols={n_sym}: {ow.valid.shape[0]} flow rows ok", flush=True)
+    # no reset: the unwindowed group-by's flow, 1,000 keys (a nearly full
+    # table) then 2,000 (overflow past G)
+    for n_sym in (1000, 2000):
+        gs = group_state(GROUP_G)
+        for step in range(2):
+            batch = batch_of(MAIN_BATCH, n_sym, False)
+            gs, inputs = group_step(batch, gs)
+        over = bool(assign_slots_ref(*inputs["args"])[5])
+        if over != (n_sym > GROUP_G):
+            raise AssertionError(f"{n_sym} keys at G={GROUP_G}: overflow flag {over}")
+        print(f"kernel check group-by, no reset, B={MAIN_BATCH} rows, {n_sym} keys at "
+              f"G={GROUP_G}: overflow={over} ok", flush=True)
+
+    # times at the main path's shapes: one tumbling_groupby step, 33,826 rows
+    m = main
+    b, n, rows, G = MAIN_BATCH, GROUP_N, main["rows"], GROUP_G
+    col_bytes = 4 + 4 + 8
+    k6 = res["batch_window_step"]
+    k6["ms"] = time_ms(torch, lambda: batch_window_step(m["state"], m["batch"], n, False), 50)
+    k6["plain_ms"] = time_ms(
+        torch, lambda: batch_window_step_ref(m["state"], m["batch"], n, False), 10)
+    k6["library_ms"] = None
+    k6_bytes = (b * (8 + 1 + 1 + col_bytes) + 2 * n * (col_bytes + 8) + 8  # in: batch, buffers
+                + rows * (8 + 1 + 1 + col_bytes) + 2 * n * (col_bytes + 8) + 8)  # out rows, buffers
+    k6["bound_ms"], k6["bound_by"] = k6_bytes / MEM_BYTES_PER_S * 1e3, "bytes"
+
+    k7 = res["assign_slots"]
+    args = m["args"]
+    k7["ms"] = time_ms(torch, lambda: assign_slots(*args), 50)
+    k7["plain_ms"] = time_ms(torch, lambda: assign_slots_ref(*args), 10)
+    k7["library_ms"] = None
+    k7_bytes = rows * (8 + 1 + 1) + G * 9 + 4 + rows * (4 + 4) + G * 9 + 4 + 8 + 1
+    k7["bound_ms"], k7["bound_by"] = k7_bytes / MEM_BYTES_PER_S * 1e3, "bytes"
+
+    k8 = res["keyed_running_sum"]
+    grp, slot, reset = m["grp"], m["slot"], m["reset"]
+    contrib, carry = m["sums"]["avg_sum"], m["carry"]["avg_sum"]
+    k8["ms"] = time_ms(torch, lambda: keyed_running_sum(contrib, grp, reset, carry, slot), 50)
+    k8["plain_ms"] = time_ms(
+        torch, lambda: keyed_running_sum_ref(contrib, grp, reset, carry, slot), 10)
+    ci, cc = m["sums"]["sum"], m["carry"]["sum"]
+    k8["int64"] = {"ms": time_ms(torch, lambda: keyed_running_sum(ci, grp, reset, cc, slot), 50)}
+    k8["library_ms"] = None
+    k8_bytes = rows * (4 + 4 + 4 + 1) + 8 + G * 4 + rows * 4 + G * 4
+    k8["bound_ms"], k8["bound_by"] = max((k8_bytes / MEM_BYTES_PER_S * 1e3, "bytes"),
+                                         (rows / FP32_OPS_PER_S * 1e3, "operations"))
+
+    k9 = res["keep_last"]
+    kb, emitted = m["kb"], m["emitted"]
+    k9["ms"] = time_ms(torch, lambda: keep_last(grp.first, kb, emitted), 50)
+    k9["plain_ms"] = time_ms(torch, lambda: keep_last_ref(grp.first, kb, emitted), 10)
+    k9["library_ms"] = None
+    k9["bound_ms"], k9["bound_by"] = rows * (4 + 1 + 1 + 1) / MEM_BYTES_PER_S * 1e3, "bytes"
+    for name in names:
+        r = res[name]
+        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms=None "
+              f"max_abs_err={r['max_abs_err']}", flush=True)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 3: verify cases against VERIFY.json
 # ---------------------------------------------------------------------------
@@ -458,8 +671,12 @@ def verify_phase(dev) -> None:
 # ---------------------------------------------------------------------------
 
 
-def run_app(dev, extra: str, data: dict, n_events: int, stride: int, first_call: int,
-            fused: bool = True, keep_calls: int = 1):
+def main_app(extra: str) -> str:
+    return MAIN_APP.format(batch=MAIN_BATCH, w=MAIN_W, extra=extra)
+
+
+def run_app(dev, app: str, data: dict, n_events: int, stride: int, first_call: int,
+            fused: bool = True, keep_calls: int = 1, symbols=SYMBOLS):
     """Drive one app through send_columns, in calls of `first_call` events
     and then `stride`; with fused=False the fused engines are detached, so
     every call takes the per-batch path. Returns (delivered row count, rows
@@ -470,8 +687,8 @@ def run_app(dev, extra: str, data: dict, n_events: int, stride: int, first_call:
     from siddhi_tpu_torch import SiddhiManager
 
     mgr = SiddhiManager(device=dev)
-    rt = mgr.create_siddhi_app_runtime(MAIN_APP.format(batch=MAIN_BATCH, w=MAIN_W, extra=extra))
-    for s in SYMBOLS:
+    rt = mgr.create_siddhi_app_runtime(app)
+    for s in symbols:
         mgr.interner.intern(s)
     count = [0]
     kept: list = []
@@ -522,13 +739,13 @@ def main_path_phase(torch) -> dict:
     prefix_calls, prefix_events = 3, 20 * b  # calls of 4, 8 and 8 batches
     # warm-up on a short prefix (allocator, pinned pool, drain worker, first
     # launches), two fused calls of 2 batches; not counted
-    run_app("cuda", MINMAX, data, 4 * b, 2 * b, 2 * b)
+    run_app("cuda", main_app(MINMAX), data, 4 * b, 2 * b, 2 * b)
     kernels.launches.clear()
     torch.cuda.reset_peak_memory_stats()
     out, prefixes = {}, {}
     for name, extra in (("filter_window_avg", ""), ("filter_window_minmax", MINMAX)):
-        n_rows, kept, dt, info = run_app("cuda", extra, data, MAIN_EVENTS, stride, first_n,
-                                         keep_calls=prefix_calls)
+        n_rows, kept, dt, info = run_app("cuda", main_app(extra), data, MAIN_EVENTS, stride,
+                                         first_n, keep_calls=prefix_calls)
         prefixes[name] = kept
         out[name] = {"events": MAIN_EVENTS, "rows": n_rows, "seconds": dt,
                      "events_per_s": MAIN_EVENTS / dt, "chunks": info["chunks"],
@@ -552,10 +769,10 @@ def main_path_phase(torch) -> dict:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     for name, r in out.items():
         extra = MINMAX if "minmax" in name else ""
-        _n, cpu_first, _dt, _i = run_app("cpu", extra, data, first_n, first_n, first_n)
+        _n, cpu_first, _dt, _i = run_app("cpu", main_app(extra), data, first_n, first_n, first_n)
         if not cpu_first[0] or not rows_match(prefixes[name][0], cpu_first[0]):
             raise AssertionError(f"{name}: first 4 batches differ from device='cpu'")
-        pb_rows, pb_kept, pb_dt, _i = run_app("cuda", extra, data, prefix_events, stride,
+        pb_rows, pb_kept, pb_dt, _i = run_app("cuda", main_app(extra), data, prefix_events, stride,
                                               first_n, fused=False, keep_calls=prefix_calls)
         fused_prefix = [row for call in prefixes[name] for row in call]
         pb_prefix = [row for call in pb_kept for row in call]
@@ -574,9 +791,111 @@ def main_path_phase(torch) -> dict:
     return {"apps": out, "launches": launches, "peak_bytes": peak}
 
 
-def profile_phase(torch) -> dict:
-    """Where one full-width main-path batch spends its time (B=32768, W=50,
-    the min/max app): host stages timed around torch.cuda.synchronize(),
+GROUP_KERNELS = ("batch_window_step", "assign_slots", "keyed_running_sum", "keep_last",
+                 "wire_decode", "deliver_pack")
+
+
+def grouped_path_phase(torch) -> dict:
+    """tumbling_groupby at full width: 2,000,000 events of seed 7 through
+    send_columns, fused, in calls of 8 batches (the first of 4); launch
+    counts of this run alone; the first 4 batches against device="cpu" and
+    the first 20 against the per-batch form. Then 1,000 distinct symbols for
+    4 batches against device="cpu"."""
+    from siddhi_tpu_torch import kernels
+
+    b = MAIN_BATCH
+    app = GROUP_APP.format(batch=b, n=GROUP_N)
+    data = stock_data(MAIN_EVENTS, seed=7)
+    first_n, stride = 4 * b, 8 * b
+    prefix_calls, prefix_events = 3, 20 * b
+    run_app("cuda", app, data, 4 * b, 2 * b, 2 * b)  # warm-up, not counted
+    kernels.launches.clear()
+    n_rows, kept, dt, info = run_app("cuda", app, data, MAIN_EVENTS, stride, first_n,
+                                     keep_calls=prefix_calls)
+    launches = dict(kernels.launches)
+    print(f"tumbling_groupby launches {json.dumps(launches)}", flush=True)
+    for k in GROUP_KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the tumbling_groupby path")
+    _n, cpu_first, _dt, _i = run_app("cpu", app, data, first_n, first_n, first_n)
+    if not cpu_first[0] or not rows_match(kept[0], cpu_first[0]):
+        raise AssertionError("tumbling_groupby: first 4 batches differ from device='cpu'")
+    pb_rows, pb_kept, pb_dt, _i = run_app("cuda", app, data, prefix_events, stride, first_n,
+                                          fused=False, keep_calls=prefix_calls)
+    fused_prefix = [row for call in kept for row in call]
+    pb_prefix = [row for call in pb_kept for row in call]
+    if not pb_prefix or not rows_match(fused_prefix, pb_prefix):
+        raise AssertionError("tumbling_groupby: fused rows differ from the per-batch form")
+    out = {"events": MAIN_EVENTS, "rows": n_rows, "seconds": dt,
+           "events_per_s": MAIN_EVENTS / dt, "chunks": info["chunks"], "batches": info["batches"],
+           "wire": info["wire"], "launches": launches,
+           "per_batch": {"events": prefix_events, "rows": pb_rows, "seconds": pb_dt,
+                         "events_per_s": prefix_events / pb_dt,
+                         "rows_exactly_equal": fused_prefix == pb_prefix}}
+    print(f"main path tumbling_groupby: fused {MAIN_EVENTS} events, {n_rows} rows delivered, "
+          f"{dt:.3f} s, {MAIN_EVENTS / dt:.1f} events/s, {info['chunks']} chunks; per-batch "
+          f"form {prefix_events} events, {pb_rows} rows, {pb_dt:.3f} s, "
+          f"{prefix_events / pb_dt:.1f} events/s; first 4 batches match device='cpu', first 20 "
+          f"batches match the per-batch form (exactly: {fused_prefix == pb_prefix}); wire "
+          f"{info['wire']['lanes']} {info['wire']['encoded_B_per_ev']} B/event", flush=True)
+
+    # 1,000 distinct symbols, 4 batches in one call (fused), against the CPU
+    names = [f"SYM{i:04d}" for i in range(1000)]
+    hc = stock_data(4 * b, seed=8)
+    hc["symbol"] = np.random.default_rng(8).integers(1, 1001, size=4 * b).astype(np.int32)
+    n_hc, hc_cuda, _dt, _i = run_app("cuda", app, hc, 4 * b, 4 * b, 4 * b, symbols=names)
+    _n, hc_cpu, _dt, _i = run_app("cpu", app, hc, 4 * b, 4 * b, 4 * b, symbols=names)
+    if not hc_cpu[0] or not rows_match(hc_cuda[0], hc_cpu[0]):
+        raise AssertionError("tumbling_groupby, 1,000 symbols: rows differ from device='cpu'")
+    out["symbols_1000"] = {"events": 4 * b, "rows": n_hc}
+    print(f"tumbling_groupby with 1,000 symbols: {4 * b} events, {n_hc} rows, match "
+          "device='cpu'", flush=True)
+
+    # the same feed at @app:groupCapacity(size='512'): buckets hold ~640
+    # distinct symbols, so the table overflows; the flag is read off the
+    # dispatch path (or at shutdown) and logged once, and the rows still
+    # equal the CPU's
+    small = f"@app:groupCapacity(size='{GROUP_N // 2}')\n" + app
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logging.getLogger("siddhi_tpu_torch").addHandler(handler)
+    try:
+        n_ov, ov_cuda, _dt, _i = run_app("cuda", small, hc, 4 * b, 4 * b, 4 * b, symbols=names)
+    finally:
+        logging.getLogger("siddhi_tpu_torch").removeHandler(handler)
+    _n, ov_cpu, _dt, _i = run_app("cpu", small, hc, 4 * b, 4 * b, 4 * b, symbols=names)
+    logged = sum("overflowed" in r.getMessage() for r in records)
+    if logged != 1 or not rows_match(ov_cuda[0], ov_cpu[0]):
+        raise AssertionError(f"group capacity 512: {logged} overflow logs, rows equal to "
+                             f"device='cpu': {rows_match(ov_cuda[0], ov_cpu[0])}")
+    out["capacity_512_overflow"] = {"rows": n_ov, "overflow_logs": logged}
+    print(f"tumbling_groupby at groupCapacity {GROUP_N // 2} with 1,000 symbols: {n_ov} rows match "
+          "device='cpu', overflow logged once", flush=True)
+
+    # forms outside the slice are refused on the card too, at app creation
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
+
+    for q in ("from S#window.lengthBatch(4) select symbol, max(price) as m group by symbol",
+              "from S select symbol, min(price) as m group by symbol",
+              "from S#window.timeBatch(1 sec) select symbol, sum(volume) as t group by symbol",
+              "from S#window.externalTimeBatch(volume, 1 sec) select symbol"):
+        try:
+            SiddhiManager(device="cuda").create_siddhi_app_runtime(
+                VERIFY_HEAD + q + " insert into Out;")
+        except SiddhiAppCreationError as e:
+            if "not ported yet" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"not refused on the card: {q}")
+    print("forms outside the slice raise 'not ported yet' on the card", flush=True)
+    return out
+
+
+def profile_phase(torch, app: str) -> dict:
+    """Where one full-width batch of `app` spends its time (B=32768):
+    host stages timed around torch.cuda.synchronize(),
     torch.profiler's device time by kernel over 4 batches, then cProfile's
     host time by function over the real send_columns loop (16 batches)."""
     from torch.profiler import ProfilerActivity, profile
@@ -586,7 +905,7 @@ def profile_phase(torch) -> dict:
     b = MAIN_BATCH
     data = stock_data(16 * b, seed=7)
     mgr = SiddhiManager()
-    rt = mgr.create_siddhi_app_runtime(MAIN_APP.format(batch=b, w=MAIN_W, extra=MINMAX))
+    rt = mgr.create_siddhi_app_runtime(app)
     for s in SYMBOLS:
         mgr.interner.intern(s)
     rows = [0]
@@ -649,7 +968,7 @@ def profile_phase(torch) -> dict:
     prof_host = cProfile.Profile()
     prof_host.enable()
     t0 = time.perf_counter()
-    run_app("cuda", MINMAX, data, 16 * b, 8 * b, 8 * b, fused=False)
+    run_app("cuda", app, data, 16 * b, 8 * b, 8 * b, fused=False)
     loop_s = time.perf_counter() - t0
     prof_host.disable()
     stats = pstats.Stats(prof_host)
@@ -667,9 +986,9 @@ def profile_phase(torch) -> dict:
             "loop_ms_per_batch": loop_s * 1e3 / 16, "host_by_function": by_func}
 
 
-def profile_fused(torch) -> dict:
-    """Where one fused chunk of the main path spends its time (K=8 batches
-    of B=32768, the min/max app): the engine's own stages, each timed around
+def profile_fused(torch, app: str) -> dict:
+    """Where one fused chunk of `app` spends its time (K=8 batches of
+    B=32768): the engine's own stages, each timed around
     torch.cuda.synchronize() — host encode into a pooled pinned slot, H2D,
     K4 + the K steps + K5, the drain's readbacks, host decode + callbacks —
     averaged over 4 chunks; then torch.profiler's device time by kernel and
@@ -683,7 +1002,7 @@ def profile_fused(torch) -> dict:
     data = stock_data(12 * K * b, seed=7)
     cols = ("symbol", "price", "volume")
     mgr = SiddhiManager()
-    rt = mgr.create_siddhi_app_runtime(MAIN_APP.format(batch=b, w=MAIN_W, extra=MINMAX))
+    rt = mgr.create_siddhi_app_runtime(app)
     for s in SYMBOLS:
         mgr.interner.intern(s)
     rows = [0]
@@ -774,15 +1093,21 @@ def main() -> int:
     print(f"kernel build: {build_s:.2f} s for {', '.join(kernels.SOURCES)}", flush=True)
     if "--profile" in sys.argv[1:]:
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        out = {"card": card}
+        for name, app in (("filter_window_minmax", main_app(MINMAX)),
+                          ("tumbling_groupby", GROUP_APP.format(batch=MAIN_BATCH, n=GROUP_N))):
+            print(f"profile: {name}", flush=True)
+            out[name] = {"per_batch": profile_phase(torch, app), "fused": profile_fused(torch, app)}
         with open(os.path.join(ROOT, "chiprun_out", "profile.json"), "w") as f:
-            json.dump({"card": card, "per_batch": profile_phase(torch),
-                       "fused": profile_fused(torch)}, f, indent=1)
+            json.dump(out, f, indent=1)
         return 0
 
     res = kernel_phase(torch, "cuda")
     res.update(fused_kernel_phase(torch, "cuda"))
+    res.update(grouped_kernel_phase(torch, "cuda"))
     verify_phase("cuda")
     main = main_path_phase(torch)
+    grouped = grouped_path_phase(torch)
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -793,10 +1118,22 @@ def main() -> int:
            "wire_decode": ("siddhi_tpu_torch/csrc/wire_decode.cu",
                            "siddhi_tpu/core/wire.py:665"),
            "deliver_pack": ("siddhi_tpu_torch/csrc/deliver_pack.cu",
-                            "siddhi_tpu/core/ingest.py:488")}
+                            "siddhi_tpu/core/ingest.py:488"),
+           "batch_window_step": ("siddhi_tpu_torch/csrc/batch_window.cu",
+                                 "siddhi_tpu/core/windows.py:553"),
+           "assign_slots": ("siddhi_tpu_torch/csrc/group_assign.cu",
+                            "siddhi_tpu/ops/group.py:85"),
+           "keyed_running_sum": ("siddhi_tpu_torch/csrc/keyed_running_sum.cu",
+                                 "siddhi_tpu/ops/group.py:205"),
+           "keep_last": ("siddhi_tpu_torch/csrc/keep_last.cu",
+                         "siddhi_tpu/ops/group.py:278")}
+    # launches: K1-K5 from the quickstart path's run, K6-K9 from the
+    # tumbling_groupby path's run (each counted from 0 just before its run)
+    path_launches = {k: grouped["launches"].get(k, 0) if k in GROUP_KERNELS[:4]
+                     else main["launches"].get(k, 0) for k in res}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
-         "launches": main["launches"].get(k, 0), "max_abs_err": r["max_abs_err"],
+         "launches": path_launches[k], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         for k, r in res.items()
@@ -806,7 +1143,10 @@ def main() -> int:
         json.dump({"card": card, "build_s": build_s, "kernels": table,
                    "fused_kernel_shapes": {k: {"K8": res[k]["K8"], "K32": res[k]["K32"]}
                                            for k in ("wire_decode", "deliver_pack")},
-                   "main_path": main["apps"], "peak_bytes": main["peak_bytes"]}, f, indent=1)
+                   "main_path": main["apps"], "peak_bytes": main["peak_bytes"],
+                   "tumbling_groupby": grouped,
+                   "keyed_running_sum_int64_ms": res["keyed_running_sum"]["int64"]["ms"]},
+                  f, indent=1)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,11 @@
 Reference: query/selector/attribute/aggregator/*.java — per-event add on CURRENT,
 remove on EXPIRED, zero on RESET, type-specialized inner classes. Batched here:
 per-event running outputs become reset-aware prefix reductions (ops/prefix.py),
-and min/max under an upstream window reduce over the window's lazy membership
-(exact expiry accounting) instead of incremental remove.
+or keyed segment reductions over a `[G]` slot table when a group-by is present
+(ops/group.py); min/max under an upstream window reduce over the window's lazy
+membership (exact expiry accounting) instead of incremental remove. Grouped
+min/max waits for a key lane in the windowed-extreme kernel and raises "not
+ported yet".
 
 `window_extreme` is a hand-written CUDA kernel on the card
 (csrc/window_extreme.cu); `window_extreme_ref` is its plain PyTorch version,
@@ -22,7 +25,9 @@ import torch
 from siddhi_tpu_torch import kernels
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 from siddhi_tpu_torch.core.executor import CompiledExpr, Env
+from siddhi_tpu_torch.core.groupby import CompiledGroupBy, GroupCtx
 from siddhi_tpu_torch.core.types import NUMPY_DTYPE, PHYSICAL_DTYPE, AttrType, null_value
+from siddhi_tpu_torch.ops.group import keyed_running_sum
 from siddhi_tpu_torch.ops.prefix import extreme_identity, running_sum
 
 
@@ -36,6 +41,7 @@ class FlowInfo:
         sees element e iff birth_pos[e] <= i < death_pos[e] — and member_env,
         an Env over the K window elements; provided by window stages for
         exact min/max.
+    group:  optional GroupCtx when the selector has a group-by.
     """
 
     sign: torch.Tensor
@@ -43,15 +49,24 @@ class FlowInfo:
     birth_pos: Optional[torch.Tensor] = None
     death_pos: Optional[torch.Tensor] = None
     member_env: Optional[Env] = None
+    group: Optional[GroupCtx] = None
 
 
 class CompiledAggregator:
-    """One aggregator instance in a selector; owns a slice of query state."""
+    """One aggregator instance in a selector; owns a slice of query state.
+
+    With a group-by its state arrays gain a leading [G] axis indexed by the
+    GroupCtx slot lane."""
 
     type: AttrType
 
-    def __init__(self, device):
+    def __init__(self, device, group: Optional[CompiledGroupBy] = None):
         self.device = torch.device(device)
+        self.group = group
+
+    def _zeros(self, dtype) -> torch.Tensor:
+        shape = (self.group.capacity,) if self.group is not None else ()
+        return torch.zeros(shape, dtype=dtype, device=self.device)
 
     def init(self):  # -> tree of device tensors
         raise NotImplementedError
@@ -59,13 +74,20 @@ class CompiledAggregator:
     def apply(self, state, flow: FlowInfo, env: Env):  # -> (state', [B] col)
         raise NotImplementedError
 
+    def _run_sum(self, state, contrib, flow: FlowInfo):
+        """(run, carry): keyed over the group's segments, else flat."""
+        if flow.group is not None:
+            g = flow.group
+            return keyed_running_sum(contrib.contiguous(), g.groups, flow.reset, state, g.slot)
+        return running_sum(contrib, flow.reset, state)
+
 
 class SumAggregator(CompiledAggregator):
     """sum(): LONG for int/long input, DOUBLE for float/double
     (reference: SumAttributeAggregator.java type matrix)."""
 
-    def __init__(self, arg: CompiledExpr, device):
-        super().__init__(device)
+    def __init__(self, arg: CompiledExpr, device, group=None):
+        super().__init__(device, group)
         self.arg = arg
         self.type = (
             AttrType.LONG if arg.type in (AttrType.INT, AttrType.LONG) else AttrType.DOUBLE
@@ -73,12 +95,12 @@ class SumAggregator(CompiledAggregator):
         self.dtype = PHYSICAL_DTYPE[self.type]
 
     def init(self):
-        return torch.zeros((), dtype=self.dtype, device=self.device)
+        return self._zeros(self.dtype)
 
     def apply(self, state, flow: FlowInfo, env: Env):
         x = self.arg(env).to(self.dtype)
         contrib = torch.where(flow.sign != 0, x * flow.sign.to(self.dtype), 0)
-        run, carry = running_sum(contrib, flow.reset, state)
+        run, carry = self._run_sum(state, contrib, flow)
         return carry, run
 
 
@@ -86,10 +108,10 @@ class CountAggregator(CompiledAggregator):
     type = AttrType.LONG
 
     def init(self):
-        return torch.zeros((), dtype=torch.int64, device=self.device)
+        return self._zeros(torch.int64)
 
     def apply(self, state, flow: FlowInfo, env: Env):
-        run, carry = running_sum(flow.sign.to(torch.int64), flow.reset, state)
+        run, carry = self._run_sum(state, flow.sign.to(torch.int64), flow)
         return carry, run
 
 
@@ -99,21 +121,19 @@ class AvgAggregator(CompiledAggregator):
 
     type = AttrType.DOUBLE
 
-    def __init__(self, arg: CompiledExpr, device):
-        super().__init__(device)
+    def __init__(self, arg: CompiledExpr, device, group=None):
+        super().__init__(device, group)
         self.arg = arg
 
     def init(self):
-        z = torch.zeros((), dtype=torch.float32, device=self.device)
-        return {"sum": z, "count": z.clone()}
+        return {"sum": self._zeros(torch.float32), "count": self._zeros(torch.float32)}
 
     def apply(self, state, flow: FlowInfo, env: Env):
         x = self.arg(env).to(torch.float32)
         sgn = flow.sign.to(torch.float32)
-        s_run, s_carry = running_sum(
-            torch.where(flow.sign != 0, x * sgn, 0.0), flow.reset, state["sum"]
-        )
-        c_run, c_carry = running_sum(sgn, flow.reset, state["count"])
+        contrib = torch.where(flow.sign != 0, x * sgn, 0.0)
+        s_run, s_carry = self._run_sum(state["sum"], contrib, flow)
+        c_run, c_carry = self._run_sum(state["count"], sgn, flow)
         nonzero = c_run != 0
         out = torch.where(nonzero, s_run / torch.where(nonzero, c_run, 1.0), torch.nan)
         return {"sum": s_carry, "count": c_carry}, out
@@ -215,19 +235,27 @@ class ExtremeAggregator(CompiledAggregator):
         )
 
 
-def build_aggregator(name: str, args: list[CompiledExpr], device, windowed: bool):
+def build_aggregator(
+    name: str,
+    args: list[CompiledExpr],
+    device,
+    windowed: bool,
+    group: Optional[CompiledGroupBy] = None,
+):
     low = name.lower()
     if low == "count":
-        return CountAggregator(device)
+        return CountAggregator(device, group)
     if low not in ("sum", "avg", "min", "max"):
         raise SiddhiAppCreationError(f"aggregator '{name}' is not ported yet")
     if not args:
         raise TypeError(f"aggregator '{name}' needs an argument")
     arg = args[0]
     if low == "sum":
-        return SumAggregator(arg, device)
+        return SumAggregator(arg, device, group)
     if low == "avg":
-        return AvgAggregator(arg, device)
+        return AvgAggregator(arg, device, group)
+    if group is not None:
+        raise SiddhiAppCreationError(f"{name}() with a group by is not ported yet")
     if not windowed:
         raise SiddhiAppCreationError(
             f"{name}() without an upstream window is not ported yet"

@@ -7,8 +7,9 @@ step that launches device work on the app's device; junctions are host fan-out
 points between steps.
 
 Ported so far: stream definitions, `@app:name`, `@app:batch`, `@app:playback`,
-and single-stream queries (filter, length window, projection with
-sum/count/avg/min/max) inserting into streams or delivering to callbacks;
+`@app:groupCapacity`, and single-stream queries (filter, length and
+lengthBatch windows, projection with sum/count/avg/min/max, group-by, having,
+order-by, limit/offset) inserting into streams or delivering to callbacks;
 fused columnar ingest (core/ingest.py) with `@app:ingestChunk`, `@app:wire`
 and the per-stream `@pipeline`. Everything else raises
 `SiddhiAppCreationError("... not ported yet")`.
@@ -56,7 +57,8 @@ from siddhi_tpu_torch.query_api.siddhi_app import SiddhiApp
 DEFAULT_BATCH = 64
 
 _PORTED_APP_ANNOTATIONS = {"app:name", "app", "name", "app:description", "app:batch",
-                           "app:playback", "app:ingestchunk", "app:wire"}
+                           "app:playback", "app:ingestchunk", "app:wire",
+                           "app:groupcapacity"}
 _UNPORTED_STREAM_ANNOTATIONS = {"onerror", "source", "sink", "async"}
 
 
@@ -119,6 +121,8 @@ class SiddhiAppRuntime:
         # the SIDDHI_TPU_WIRE override, and each stream's @pipeline(depth=,
         # disable=) with SIDDHI_TPU_PIPELINE; malformed options raise here
         self._ingest_chunk = self._capacity_annotation("app:ingestChunk", 32)
+        # group-by slot-table capacity (None: the selector's default)
+        self.group_capacity = self._capacity_annotation("app:groupCapacity", None)
         self._wire_enabled, self._wire_hints = resolve_wire_annotation(
             find_annotation(app.annotations, "app:wire")
         )
@@ -210,7 +214,8 @@ class SiddhiAppRuntime:
             raise DefinitionNotExistError(
                 f"query '{qid}': stream '{stream.stream_id}' is not defined"
             )
-        qr = QueryRuntime(query, qid, in_schema, self.interner, self.device)
+        qr = QueryRuntime(query, qid, in_schema, self.interner, self.device,
+                          group_capacity=self.group_capacity)
         self.queries[qid] = qr
         self._wire_insert(qr)
 
@@ -310,6 +315,8 @@ class SiddhiAppRuntime:
         for j in self.junctions.values():
             if j.fused_ingest is not None:
                 j.fused_ingest.close()  # stops the pipeline drain worker
+        for qr in self.queries.values():
+            qr.flush_aux_warnings()  # overflow flags not yet read back
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

@@ -22,6 +22,8 @@ class Flow:
     ref: the stream ref whose attributes the batch columns carry
     birth_pos / death_pos / member_env: lazy window membership (see
         aggregators.FlowInfo), set by a window stage
+    aux: device flags for the host (the selector's "groupby_overflow"),
+        read off the dispatch path by the query runtime
     """
 
     batch: EventBatch
@@ -30,6 +32,7 @@ class Flow:
     birth_pos: Optional[torch.Tensor] = None
     death_pos: Optional[torch.Tensor] = None
     member_env: Optional[Env] = None
+    aux: dict = dataclasses.field(default_factory=dict)
 
     def env(self) -> Env:
         cols: dict[VarKey, torch.Tensor] = {

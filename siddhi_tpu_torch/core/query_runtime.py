@@ -10,12 +10,14 @@ host-side output routing.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 from typing import Callable, Optional
 
 import torch
 
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
+from siddhi_tpu_torch.core.aggregators import ExtremeAggregator
 from siddhi_tpu_torch.core.event import (
     EventBatch,
     KIND_CURRENT,
@@ -84,6 +86,54 @@ class CompiledSingleChain:
         return dataclasses.replace(flow, batch=batch)
 
 
+class _FlagWatch:
+    """A device flag ORed across steps and read without stalling dispatch:
+    each `poll` enqueues a non-blocking copy of the running OR into pinned
+    host memory behind an event and reads the previous copy only once its
+    event has completed; `flush` synchronises. On the CPU the flag is read
+    directly."""
+
+    def __init__(self, device: torch.device, on_set: Callable[[], None]):
+        self.device = device
+        self.on_set = on_set
+        self.fired = False
+        self._acc: Optional[torch.Tensor] = None
+        self._host: Optional[torch.Tensor] = None
+        self._event = None
+
+    def note(self, flag: torch.Tensor) -> None:
+        if not self.fired:
+            self._acc = flag if self._acc is None else self._acc | flag
+
+    def poll(self) -> None:
+        if self.fired or self._acc is None:
+            return
+        if self.device.type != "cuda":
+            self._read(bool(self._acc))
+            return
+        if self._event is not None:
+            if not self._event.query():
+                return
+            self._read(bool(self._host))
+            if self.fired:
+                return
+        if self._host is None:
+            self._host = torch.zeros((), dtype=torch.bool, pin_memory=True)
+            self._event = torch.cuda.Event()
+        self._host.copy_(self._acc, non_blocking=True)
+        self._event.record()
+
+    def flush(self) -> None:
+        if self._acc is not None and not self.fired:
+            self._read(bool(self._acc))
+
+    def _read(self, value: bool) -> None:
+        if value:
+            self.fired = True
+            self._acc = None
+            self.on_set()
+
+
 class QueryRuntime:
     """Compiled query + device state + host output routing."""
 
@@ -94,6 +144,7 @@ class QueryRuntime:
         in_schema: StreamSchema,
         interner: InternTable,
         device,
+        group_capacity: Optional[int] = None,
     ):
         self.query = query
         self.query_id = query_id
@@ -110,11 +161,15 @@ class QueryRuntime:
         self._scope = scope
 
         self.chain = CompiledSingleChain(stream, in_schema, scope)
+        win = self.chain.window
+        is_batch = win is not None and win.is_batch
         self.selector = CompiledSelector(
             query.selector,
             scope,
             self.chain.out_attrs,
-            windowed=self.chain.window is not None,
+            windowed=win is not None,
+            batch_mode=is_batch,
+            group_capacity=group_capacity,
         )
         if query.output_rate is not None:
             raise SiddhiAppCreationError("output rate limiting is not ported yet")
@@ -122,6 +177,19 @@ class QueryRuntime:
         target = out.target if isinstance(out, InsertIntoStream) else f"__ret_{query_id}"
         self.out_schema = StreamSchema(target, self.selector.out_attrs)
         self.output_events = out.output_events
+        # the ungrouped batch collapse gates its last event by kind
+        # (reference: QuerySelector currentOn/expiredOn gate lastEvent)
+        self.selector.output_events_for_batch = out.output_events
+        # a batch window skips its EXPIRED lanes when nothing can observe
+        # them: `insert [current] into` output and no membership-reading
+        # aggregator (windowed min/max); the flow is then w + B + F rows,
+        # not 3w + 2B + F
+        if is_batch and (
+            self.output_events is OutputEventsFor.CURRENT
+            and not any(isinstance(a, ExtremeAggregator) for a in self.selector.aggregators)
+        ):
+            win.emit_expired = False
+        self._overflow = _FlagWatch(self.device, self._log_group_overflow)
         self.query_callbacks: list[Callable] = []
         # the user callbacks behind query_callbacks, one to one: the fused
         # drain builds Event lists once and calls them directly
@@ -149,7 +217,22 @@ class QueryRuntime:
         flow = Flow(batch=batch, ref=self.ref, now=now)
         chain_state, flow = self.chain.apply(state["chain"], flow)
         sel_state, out = self.selector.apply(state["sel"], flow)
+        if "groupby_overflow" in flow.aux:
+            self._overflow.note(flow.aux["groupby_overflow"])
+            self._overflow.poll()
         return {"chain": chain_state, "sel": sel_state}, out
+
+    def _log_group_overflow(self) -> None:
+        logging.getLogger(__name__).error(
+            "query '%s': group-by slot table overflowed (capacity %d); overflowed "
+            "keys lose their cross-batch carry — raise it with "
+            "@app:groupCapacity(size='N')",
+            self.query_id, self.selector.group.capacity,
+        )
+
+    def flush_aux_warnings(self) -> None:
+        """Read the pending overflow flag now (one device sync) and log."""
+        self._overflow.flush()
 
     # ---- host side -------------------------------------------------------
 

@@ -1,17 +1,22 @@
-"""Selector compilation: projection + aggregation.
+"""Selector compilation: projection + aggregation + group-by + having +
+order-by/limit/offset.
 
 Reference: query/selector/QuerySelector.java:44-430 — attribute processors over
-each event, aggregator state mutation, then output. Here the whole selector is
-one vectorized transform over the Flow; aggregator calls inside selection
-expressions are lifted out, computed as running columns, and re-injected as
-synthetic attributes of a pseudo-stream "__agg__".
-
-Group-by, having, order-by and limit/offset are not ported yet.
+each event, aggregator state mutation, group-by key via GroupByKeyGenerator,
+having filter, order-by/limit (OrderByEventComparator), then output. Here the
+whole selector is one vectorized transform over the Flow; aggregator calls
+inside selection expressions are lifted out, computed as running columns, and
+re-injected as synthetic attributes of a pseudo-stream "__agg__". After a
+batch window, the output collapses to one row per flush (and key): the
+keep-last kernel (ops/group.py, csrc/keep_last.cu).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
+import torch
 
 from siddhi_tpu_torch.core.aggregators import CompiledAggregator, FlowInfo, build_aggregator
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
@@ -24,11 +29,15 @@ from siddhi_tpu_torch.core.executor import (
     is_aggregator,
 )
 from siddhi_tpu_torch.core.flow import Flow
+from siddhi_tpu_torch.core.groupby import DEFAULT_GROUP_CAPACITY, CompiledGroupBy
 from siddhi_tpu_torch.core.types import AttrType
-from siddhi_tpu_torch.query_api.execution import OutputAttribute, Selector
+from siddhi_tpu_torch.ops.group import keep_last_in_sorted, keep_last_per_group
+from siddhi_tpu_torch.query_api.execution import OutputAttribute, OutputEventsFor, Selector
 from siddhi_tpu_torch.query_api.expression import AttributeFunction, Expression, Variable
 
 _AGG_REF = "__agg__"
+_OUT_REF = "__out__"
+_BIG = torch.iinfo(torch.int32).max
 
 
 def _lift_aggregators(expr: Expression, found: list[AttributeFunction]) -> Expression:
@@ -57,7 +66,10 @@ def _lift_aggregators(expr: Expression, found: list[AttributeFunction]) -> Expre
 
 
 class CompiledSelector:
-    """Stateful selector stage: (state, Flow) -> (state, output EventBatch)."""
+    """Stateful selector stage: (state, Flow) -> (state, output EventBatch).
+
+    batch_mode: the input is a batch window's flow; `output_events_for_batch`
+    (set by the query runtime) gates the ungrouped collapse by kind."""
 
     def __init__(
         self,
@@ -65,31 +77,38 @@ class CompiledSelector:
         scope: Scope,
         input_attrs: list[tuple[str, AttrType]],
         windowed: bool,
+        batch_mode: bool = False,
+        group_capacity: Optional[int] = None,
     ):
-        for clause, present in (
-            ("group by", selector.group_by),
-            ("having", selector.having is not None),
-            ("order by", selector.order_by),
-            ("limit", selector.limit is not None),
-            ("offset", selector.offset is not None),
-        ):
-            if present:
-                raise SiddhiAppCreationError(f"'{clause}' is not ported yet")
+        self.batch_mode = batch_mode
+        self.output_events_for_batch = OutputEventsFor.CURRENT
         sel_list = list(selector.selection_list)
         if selector.select_all:
             sel_list = [OutputAttribute(None, Variable(n)) for n, _ in input_attrs]
+
+        # group-by (reference: GroupByKeyGenerator over the input meta)
+        self.group: Optional[CompiledGroupBy] = None
+        if selector.group_by:
+            self.group = CompiledGroupBy(
+                selector.group_by, scope,
+                capacity=DEFAULT_GROUP_CAPACITY if group_capacity is None else group_capacity,
+            )
 
         # lift aggregator calls out of the selection expressions
         agg_calls: list[AttributeFunction] = []
         lifted = [(oa.name, _lift_aggregators(oa.expression, agg_calls)) for oa in sel_list]
         self.aggregators: list[CompiledAggregator] = []
         agg_types: dict[str, AttrType] = {}
-        for i, call in enumerate(agg_calls):
-            args = [compile_expression(p, scope) for p in call.parameters]
-            agg = build_aggregator(call.name, args, scope.device, windowed)
-            self.aggregators.append(agg)
-            agg_types[f"a{i}"] = agg.type
 
+        def add_aggregators():
+            for i in range(len(self.aggregators), len(agg_calls)):
+                call = agg_calls[i]
+                args = [compile_expression(p, scope) for p in call.parameters]
+                agg = build_aggregator(call.name, args, scope.device, windowed, self.group)
+                self.aggregators.append(agg)
+                agg_types[f"a{i}"] = agg.type
+
+        add_aggregators()
         inner = scope.child()
         inner.add_stream(_AGG_REF, agg_types)
         if inner.default_ref == _AGG_REF:
@@ -107,17 +126,65 @@ class CompiledSelector:
             (n, c.type) for n, c in self.projections
         ]
 
+        # having can reference output attrs (by name) or input attrs
+        # (reference: QuerySelector having executor compiled over output meta)
+        self.having: Optional[CompiledExpr] = None
+        if selector.having is not None:
+            hav_scope = inner.child()
+            hav_scope.add_stream(_OUT_REF, dict(self.out_attrs))
+            hav_scope.default_ref = scope.default_ref
+            lifted_h = _lift_aggregators(selector.having, agg_calls)
+            if len(agg_calls) > len(self.aggregators):
+                add_aggregators()
+                inner.add_stream(_AGG_REF, agg_types)  # refresh
+            self.having = compile_expression(lifted_h, hav_scope)
+            if self.having.type is not AttrType.BOOL:
+                raise SiddhiAppCreationError("having must be a boolean expression")
+
+        # order-by: keys resolve against output attrs first, then input streams
+        # (reference: OrderByEventComparator over output stream attributes)
+        self.order_by: list[tuple[CompiledExpr, bool]] = []
+        out_names = dict(self.out_attrs)
+        for ob in selector.order_by:
+            var = ob.variable
+            if var.stream_id is None and var.attribute in out_names:
+                out_scope = inner.child()
+                out_scope.add_stream(_OUT_REF, out_names)
+                cexpr = compile_expression(Variable(var.attribute, stream_id=_OUT_REF), out_scope)
+            else:
+                cexpr = compile_expression(var, scope)
+            if cexpr.type in (AttrType.STRING, AttrType.OBJECT):
+                raise SiddhiAppCreationError(
+                    "order by on STRING/OBJECT attributes is not supported yet "
+                    "(interned ids are not lexicographic)"
+                )
+            self.order_by.append((cexpr, ob.order.name == "DESC"))
+        self.limit = selector.limit
+        self.offset = selector.offset
+
     def init_state(self):
-        return {"aggs": [a.init() for a in self.aggregators]}
+        st = {"aggs": [a.init() for a in self.aggregators]}
+        if self.group is not None:
+            st["group"] = self.group.init_state()
+        return st
 
     def apply(self, state, flow: Flow):
         env = flow.env()
+        reset = flow.reset
+        group_state = state.get("group")
+        ctx = None
+        if self.group is not None:
+            group_state, ctx = self.group.assign(group_state, env, flow.sign != 0, reset)
+            # read off the dispatch path by the query runtime, which logs
+            # slot-table exhaustion once
+            flow.aux["groupby_overflow"] = ctx.overflow
         info = FlowInfo(
             sign=flow.sign,
-            reset=flow.reset,
+            reset=reset,
             birth_pos=flow.birth_pos,
             death_pos=flow.death_pos,
             member_env=flow.member_env,
+            group=ctx,
         )
         new_aggs = []
         agg_cols: dict = {}
@@ -131,8 +198,68 @@ class CompiledSelector:
         out_cols = {
             name: cexpr(env2).expand(shape).contiguous() for name, cexpr in self.projections
         }
-        valid = flow.batch.valid & (
-            (flow.batch.kind == KIND_CURRENT) | (flow.batch.kind == KIND_EXPIRED)
-        )
-        out = EventBatch(ts=flow.batch.ts, kind=flow.batch.kind, valid=valid, cols=out_cols)
-        return {"aggs": new_aggs}, out
+        kind = flow.batch.kind
+        valid = flow.batch.valid & ((kind == KIND_CURRENT) | (kind == KIND_EXPIRED))
+        env3 = Env({**env2.columns, **{(_OUT_REF, None, n): c for n, c in out_cols.items()}},
+                   now=flow.now)
+        if self.having is not None:
+            valid = valid & self.having(env3)
+
+        # batch-mode collapse: the last having-passing event of each
+        # (kind, bucket, key) survives (reference:
+        # QuerySelector.processInBatchGroupBy checks having before
+        # groupedEvents.put); ungrouped, only the last allowed-kind event of
+        # each flush chunk (processInBatchNoGroupBy)
+        if self.batch_mode and ctx is not None:
+            valid = keep_last_in_sorted(ctx.groups, kind, valid)
+        elif self.batch_mode and self.aggregators:
+            # a flush chunk is [prev-bucket EXPIREDs, RESET, bucket
+            # CURRENTs]: expireds precede their reset, so they shift one
+            # segment forward to land with their flush's currents
+            seg = torch.cumsum(reset.to(torch.int32), 0, dtype=torch.int32) + (
+                kind == KIND_EXPIRED).to(torch.int32)
+            want = self.output_events_for_batch
+            if want is OutputEventsFor.EXPIRED:
+                allowed = valid & (kind == KIND_EXPIRED)
+            elif want is OutputEventsFor.ALL:
+                allowed = valid
+            else:  # CURRENT (the reference default)
+                allowed = valid & (kind == KIND_CURRENT)
+            valid = keep_last_per_group(seg, allowed)
+
+        out = EventBatch(ts=flow.batch.ts, kind=kind, valid=valid, cols=out_cols)
+        out = self._order_limit(out, env3)
+        new_state = {"aggs": new_aggs}
+        if self.group is not None:
+            new_state["group"] = group_state
+        return new_state, out
+
+    def _order_limit(self, out: EventBatch, env: Env) -> EventBatch:
+        """Per-chunk order-by + offset/limit (reference: QuerySelector
+        orderEventChunk/limitEventChunk): valid rows first, then the keys in
+        order, stable by row — the JAX package's lexsort, as stable sorts
+        from the least significant key up."""
+        if not self.order_by and self.limit is None and self.offset is None:
+            return out
+        if self.order_by:
+            keys = []
+            for cexpr, desc in self.order_by:
+                col = cexpr(env).expand(out.valid.shape)
+                if desc:
+                    col = -col.to(torch.float32) if col.dtype == torch.bool else -col
+                keys.append(col)
+            perm = torch.arange(out.valid.shape[0], device=out.valid.device)
+            for k in reversed([(~out.valid).to(torch.uint8)] + keys):
+                perm = perm[torch.sort(k[perm], stable=True).indices]
+            out = EventBatch(
+                ts=out.ts[perm], kind=out.kind[perm], valid=out.valid[perm],
+                cols={n: c[perm] for n, c in out.cols.items()},
+            )
+        if self.limit is not None or self.offset is not None:
+            v = out.valid.to(torch.int32)
+            rank = torch.cumsum(v, 0, dtype=torch.int32) - v
+            lo = 0 if self.offset is None else int(self.offset)
+            hi = _BIG if self.limit is None else lo + int(self.limit)
+            out = EventBatch(ts=out.ts, kind=out.kind,
+                             valid=out.valid & (rank >= lo) & (rank < hi), cols=out.cols)
+        return out

@@ -4,12 +4,16 @@ Reference: query/processor/stream/window/*.java. The reference mutates per-event
 queues inside synchronized blocks; here each window is a stage over the Flow
 with a fixed-capacity slot-indexed ring as carried state.
 
-Only the length window is ported so far. Its emission order follows the
-reference: per arrival when full, the evictee's EXPIRED is emitted before the
-arrival's CURRENT (LengthWindowProcessor.java:102-138 insertBeforeCurrent).
-The step is a hand-written CUDA kernel on the card (csrc/length_window.cu);
-`length_window_step_ref` is its plain PyTorch version, which the wrapper takes
-only for tensors on the CPU.
+Ported so far: the length window and the lengthBatch window. The length
+window's emission order follows the reference: per arrival when full, the
+evictee's EXPIRED is emitted before the arrival's CURRENT
+(LengthWindowProcessor.java:102-138 insertBeforeCurrent). lengthBatch flushes
+tumbling buckets (LengthBatchWindowProcessor.java:108-160). Each step is a
+hand-written CUDA kernel on the card (csrc/length_window.cu,
+csrc/batch_window.cu); `length_window_step_ref` and `batch_window_step_ref`
+are their plain PyTorch versions, which the wrappers take only for tensors on
+the CPU. timeBatch, externalTimeBatch and the other windows raise "not
+ported yet".
 """
 
 from __future__ import annotations
@@ -22,11 +26,13 @@ from siddhi_tpu_torch.core.event import (
     EventBatch,
     KIND_CURRENT,
     KIND_EXPIRED,
+    KIND_RESET,
     StreamSchema,
 )
 from siddhi_tpu_torch.core.executor import Env, TS_ATTR
 from siddhi_tpu_torch.core.flow import Flow
 from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE
+from siddhi_tpu_torch.ops.scatter import set_at
 from siddhi_tpu_torch.query_api.definition import WindowSpec
 from siddhi_tpu_torch.query_api.expression import Constant
 
@@ -40,7 +46,10 @@ def _const_param(spec: WindowSpec, i: int, what: str) -> int:
 
 
 class WindowStage:
-    """Base: (state, Flow) -> (state', Flow')."""
+    """Base: (state, Flow) -> (state', Flow'). `is_batch`: the window flushes
+    tumbling buckets (the selector then collapses each flush)."""
+
+    is_batch = False
 
     def init_state(self):
         raise NotImplementedError
@@ -262,9 +271,326 @@ class SlidingWindow(WindowStage):
         )
 
 
+# ---------------------------------------------------------------------------
+# batch (tumbling) family: lengthBatch
+# ---------------------------------------------------------------------------
+
+NO_TIMER = torch.iinfo(torch.int64).max
+
+
+def _flush_count(bsz: int, n: int) -> int:
+    """F: at most bsz // n + 1 flushes fit in one batch (the carried bucket
+    holds fewer than n rows), so the flush bookkeeping lanes are [F]."""
+    return min(bsz // n + 2, bsz)
+
+
+def batch_window_rows(bsz: int, n: int, emit_expired: bool) -> int:
+    """Rows of the flow a lengthBatch(n) step hands on: 3n + 2B + F with the
+    EXPIRED lanes, n + B + F without."""
+    f = _flush_count(bsz, n)
+    return 3 * n + 2 * bsz + f if emit_expired else n + bsz + f
+
+
+def batch_window_step_ref(state: dict, batch: EventBatch, n: int, emit_expired: bool):
+    """Plain version of `batch_window_step`, in the JAX package's
+    formulation: candidate keys trigger_row*4 + {0 expired, 1 reset,
+    2 current} for every carried, previous-bucket, batch and reset
+    candidate, one stable sort by (key, tie), the lanes gathered in that
+    order, and the new buffers scattered from flush arithmetic. Padding rows
+    are zeroed."""
+    dev = batch.ts.device
+    bsz = batch.capacity
+    w = n
+    big = BIG
+    valid_cur = batch.valid & (batch.kind == KIND_CURRENT)
+    vc = valid_cur.to(torch.int32)
+    rank = torch.cumsum(vc, 0, dtype=torch.int32) - vc
+    c = vc.sum(dtype=torch.int32)
+    perm = torch.argsort((~valid_cur).to(torch.uint8), stable=True).to(torch.int32)
+    cur_n0 = state["cur_n"]
+    F = _flush_count(bsz, n)
+    pos = cur_n0 + rank
+    e_row = torch.div(pos, n, rounding_mode="floor")
+    n_flush = torch.div(cur_n0 + c, n, rounding_mode="floor")
+    f_arr = torch.arange(F, dtype=torch.int32, device=dev)
+    trig_rank_f = (f_arr + 1) * n - 1 - cur_n0
+    flush_exists = (trig_rank_f >= 0) & (trig_rank_f < c)
+    row_of_flush = torch.where(
+        flush_exists, perm[trig_rank_f.clamp(0, bsz - 1).long()], bsz - 1
+    ).to(torch.int64)
+    any_flush = n_flush > 0
+
+    def flush_key(f, kindbit):
+        return row_of_flush[f.clamp(0, F - 1).long()] * 4 + kindbit
+
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    cw = torch.arange(w, dtype=torch.int32, device=dev)
+    rows = torch.arange(bsz, dtype=torch.int32, device=dev)
+    carried_valid = cw < cur_n0
+    cc_cur_key = torch.where(carried_valid & any_flush, flush_key(zero_i, 2), big)
+    cc_exp_key = torch.where(carried_valid & (n_flush > 1), flush_key(zero_i + 1, 0), big)
+    prev_valid = cw < state["prev_n"]
+    pv_exp_key = torch.where(prev_valid & any_flush, flush_key(zero_i, 0), big)
+    row_emit = valid_cur & (e_row < n_flush)
+    bt_cur_key = torch.where(row_emit, flush_key(e_row, 2), big)
+    bt_exp_key = torch.where(row_emit & (e_row + 1 < n_flush), flush_key(e_row + 1, 0), big)
+    rs_key = torch.where(flush_exists, row_of_flush * 4 + 1, big)
+
+    def full(k, v):
+        return torch.full((k,), v, dtype=torch.int8, device=dev)
+
+    if emit_expired:
+        cand_key = torch.cat([cc_cur_key, cc_exp_key, pv_exp_key, bt_cur_key, bt_exp_key, rs_key])
+
+        def lanes(cur, prev, bat):
+            return torch.cat([cur, cur, prev, bat, bat, cur[:1].expand(F)])
+
+        cand_kind = torch.cat([
+            full(w, KIND_CURRENT), full(w, KIND_EXPIRED), full(w, KIND_EXPIRED),
+            full(bsz, KIND_CURRENT), full(bsz, KIND_EXPIRED), full(F, KIND_RESET),
+        ])
+        tie = torch.cat([cw, cw, cw, rows + w, rows + w, f_arr])
+        bt_cur_off = 3 * w
+    else:
+        cand_key = torch.cat([cc_cur_key, bt_cur_key, rs_key])
+
+        def lanes(cur, prev, bat):
+            return torch.cat([cur, bat, cur[:1].expand(F)])
+
+        cand_kind = torch.cat([full(w, KIND_CURRENT), full(bsz, KIND_CURRENT), full(F, KIND_RESET)])
+        tie = torch.cat([cw, rows + w, f_arr])
+        bt_cur_off = w
+    cand_valid = cand_key < big
+    order = torch.argsort(tie, stable=True)
+    order = order[torch.argsort(cand_key[order], stable=True)]
+    o_valid = cand_valid[order]
+    o_kind = torch.where(o_valid, cand_kind[order], 0).to(torch.int8)
+    o_ts = lanes(state["cur_ts"], state["prev_ts"], batch.ts)[order]
+    if emit_expired:
+        trig_ts = batch.ts[torch.div(cand_key[order], 4, rounding_mode="floor").clamp(0, bsz - 1)]
+        o_ts = torch.where(o_kind == KIND_EXPIRED, trig_ts, o_ts)
+    o_ts = torch.where(o_valid, o_ts, 0)
+    o_cols = {}
+    for nm in batch.cols:
+        lane = lanes(state["cur_cols"][nm], state["prev_cols"][nm], batch.cols[nm])[order]
+        o_cols[nm] = torch.where(o_valid, lane, torch.zeros((), dtype=lane.dtype, device=dev))
+    out = EventBatch(ts=o_ts, kind=o_kind, valid=o_valid, cols=o_cols)
+
+    # lazy membership over the elements [carried w | prev w | batch B]
+    birth = death = None
+    if emit_expired:
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=dev)
+        inv = inv.to(torch.int32)
+        birth_cc = torch.where(carried_valid & any_flush, inv[:w], big)
+        birth_bt = torch.where(row_emit, inv[bt_cur_off: bt_cur_off + bsz], big)
+        death_cc = torch.where(carried_valid & (n_flush > 1), inv[w: 2 * w], big)
+        death_bt = torch.where(row_emit & (e_row + 1 < n_flush),
+                               inv[3 * w + bsz: 3 * w + 2 * bsz], big)
+        def prev_lane(v):
+            return torch.full((w,), v, dtype=torch.int32, device=dev)
+
+        birth = torch.cat([birth_cc, prev_lane(big), birth_bt])
+        death = torch.cat([death_cc, prev_lane(-1), death_bt])
+
+    # new buffers: the open bucket and the last flushed one
+    remaining = valid_cur & (e_row == n_flush)
+    keep_carried = ~any_flush
+    rem_slot = torch.where(remaining, pos - n_flush * n, w)
+
+    def place_cur(old, vals):
+        kept = torch.where(keep_carried, old, torch.zeros_like(old))
+        return set_at(kept, rem_slot, vals)
+
+    new_cur_n = torch.where(keep_carried, cur_n0, 0) + remaining.sum(dtype=torch.int32)
+    new_cur_n = new_cur_n.to(torch.int32)
+    in_last = row_emit & (e_row == n_flush - 1)
+    carried_in_last = carried_valid & (n_flush == 1)
+    n_carried_last = torch.where(n_flush == 1, cur_n0, 0)
+    il = in_last.to(torch.int32)
+    lb_rank = torch.cumsum(il, 0, dtype=torch.int32) - il
+    lb_slot_c = torch.where(carried_in_last, cw, w)
+    lb_slot_b = torch.where(in_last, n_carried_last + lb_rank, w)
+
+    def place_prev(old_prev, carried_vals, batch_vals):
+        base = torch.where(any_flush, torch.zeros_like(old_prev), old_prev)
+        base = set_at(base, lb_slot_c, carried_vals)
+        return set_at(base, lb_slot_b, batch_vals)
+
+    new_prev_n = torch.where(any_flush, n_carried_last + il.sum(dtype=torch.int32),
+                             state["prev_n"]).to(torch.int32)
+    new_state = {
+        "cur_cols": {nm: place_cur(state["cur_cols"][nm], batch.cols[nm]) for nm in batch.cols},
+        "cur_ts": place_cur(state["cur_ts"], batch.ts),
+        "cur_n": new_cur_n,
+        "prev_cols": {nm: place_prev(state["prev_cols"][nm], state["cur_cols"][nm], batch.cols[nm])
+                      for nm in batch.cols},
+        "prev_ts": place_prev(state["prev_ts"], state["cur_ts"], batch.ts),
+        "prev_n": new_prev_n,
+        "bucket_start": state["bucket_start"],
+        "timeout_deadline": state["timeout_deadline"],
+    }
+    return out, birth, death, new_state
+
+
+def batch_window_step(state: dict, batch: EventBatch, n: int, emit_expired: bool):
+    """One lengthBatch(n) step over a batch of B arrivals.
+
+    state: {"cur_cols": {name: [n]}, "cur_ts": [n] int64, "cur_n": 0-d int32
+            (the open bucket), "prev_cols", "prev_ts", "prev_n" (the last
+            flushed bucket), "bucket_start", "timeout_deadline" (0-d int64,
+            carried unchanged: they belong to the time branches)}
+    Every flush f (the row completing the bucket) emits, in order: the
+    previous bucket's EXPIRED rows (with the trigger row's ts; only when
+    emit_expired), one RESET row (carrying the open bucket's first element
+    cur[0], cur_ts[0]), then the closing bucket's CURRENT rows (carried rows
+    first at flush 0, then batch rows in arrival order). Padding rows follow
+    with valid False.
+    returns (out, birth_pos, death_pos, new_state):
+      out        [batch_window_rows(B, n, emit_expired)] EventBatch
+      birth_pos / death_pos  [2n + B] int32 lazy membership of the elements
+                 (carried bucket, previous bucket, batch rows) — None when
+                 emit_expired is off
+      new_state  the buffers after the batch (new tensors)
+    """
+    if batch.ts.device.type == "cpu":
+        return batch_window_step_ref(state, batch, n, emit_expired)
+    cols = list(batch.cols)
+    lanes = [batch.ts, batch.kind, batch.valid, *batch.cols.values(), state["cur_ts"],
+             state["prev_ts"], state["cur_n"], state["prev_n"],
+             *state["cur_cols"].values(), *state["prev_cols"].values()]
+    kernels.require_cuda("batch_window_step", *lanes)
+    bsz, w = batch.capacity, n
+    if any(x.shape != (bsz,) for x in (batch.kind, batch.valid, *batch.cols.values())) or any(
+        x.shape != (w,) for x in (state["cur_ts"], state["prev_ts"],
+                                  *state["cur_cols"].values(), *state["prev_cols"].values())
+    ):
+        raise ValueError(f"batch_window_step: lanes must be [{bsz}] and buffers [{w}]")
+    if (batch.ts.dtype, batch.kind.dtype, batch.valid.dtype, state["cur_ts"].dtype,
+            state["prev_ts"].dtype, state["cur_n"].dtype, state["prev_n"].dtype) != (
+            torch.int64, torch.int8, torch.bool, torch.int64, torch.int64, torch.int32,
+            torch.int32) or any(state["cur_cols"][c].dtype != batch.cols[c].dtype
+                                or state["prev_cols"][c].dtype != batch.cols[c].dtype
+                                for c in cols):
+        raise ValueError("batch_window_step: lane dtypes must be int64 ts, int8 kind, bool "
+                         "valid, int32 counts, and each buffer column the batch's dtype")
+    n_rows = batch_window_rows(bsz, n, emit_expired)
+    if n < 1 or n_rows + 2 * w + bsz >= 2**31:
+        raise ValueError(f"batch_window_step: batch {bsz} / length {n} out of range")
+    dev = batch.ts.device
+
+    def i32(k):
+        return torch.empty(k, dtype=torch.int32, device=dev)
+
+    rank, perm, count = i32(bsz), i32(bsz), i32(())
+    out_src = i32(n_rows)
+    out_ts = torch.empty(n_rows, dtype=torch.int64, device=dev)
+    out_kind = torch.empty(n_rows, dtype=torch.int8, device=dev)
+    out_valid = torch.empty(n_rows, dtype=torch.bool, device=dev)
+    birth, death = (i32(2 * w + bsz), i32(2 * w + bsz)) if emit_expired else (None, None)
+    cur_src, prev_src = i32(w), i32(w)
+    new_cur_n, new_prev_n = i32(()), i32(())
+    stream = kernels.stream()
+    err = kernels.function("bw_prepare")(
+        batch.kind.data_ptr(), batch.valid.data_ptr(), batch.ts.data_ptr(),
+        state["cur_ts"].data_ptr(), state["cur_n"].data_ptr(), state["prev_n"].data_ptr(),
+        bsz, w, n_rows, int(emit_expired), rank.data_ptr(), perm.data_ptr(), count.data_ptr(),
+        out_src.data_ptr(), out_ts.data_ptr(), out_kind.data_ptr(), out_valid.data_ptr(),
+        birth.data_ptr() if emit_expired else None, death.data_ptr() if emit_expired else None,
+        cur_src.data_ptr(), prev_src.data_ptr(), new_cur_n.data_ptr(), new_prev_n.data_ptr(),
+        stream,
+    )
+    kernels.check(err, "batch_window_step")
+
+    def gather(cur, prev, bat, idx):
+        out = torch.empty(idx.shape[0], dtype=cur.dtype, device=dev)
+        fn = kernels.function(f"bw_gather_{cur.element_size()}")
+        kernels.check(
+            fn(cur.data_ptr(), prev.data_ptr(), bat.data_ptr(), idx.data_ptr(), out.data_ptr(),
+               idx.shape[0], w, stream),
+            "batch_window_step",
+        )
+        return out
+
+    sc, sp = state["cur_cols"], state["prev_cols"]
+    out = EventBatch(
+        ts=out_ts, kind=out_kind, valid=out_valid,
+        cols={c: gather(sc[c], sp[c], batch.cols[c], out_src) for c in cols},
+    )
+    new_state = {
+        "cur_cols": {c: gather(sc[c], sp[c], batch.cols[c], cur_src) for c in cols},
+        "cur_ts": gather(state["cur_ts"], state["prev_ts"], batch.ts, cur_src),
+        "cur_n": new_cur_n,
+        "prev_cols": {c: gather(sc[c], sp[c], batch.cols[c], prev_src) for c in cols},
+        "prev_ts": gather(state["cur_ts"], state["prev_ts"], batch.ts, prev_src),
+        "prev_n": new_prev_n,
+        "bucket_start": state["bucket_start"],
+        "timeout_deadline": state["timeout_deadline"],
+    }
+    kernels.launches["batch_window_step"] += 1
+    return out, birth, death, new_state
+
+
+class BatchWindow(WindowStage):
+    """lengthBatch(n): tumbling buckets of n events. On each flush the
+    reference emits the previous bucket's EXPIREDs, a RESET, then the
+    closing bucket's CURRENTs (LengthBatchWindowProcessor.java:108-160).
+
+    `emit_expired`: the query runtime clears it when nothing can observe
+    EXPIRED rows (`insert [current] into` output and no membership-reading
+    aggregator); the flow then has no EXPIRED lanes and no membership."""
+
+    is_batch = True
+
+    def __init__(self, schema: StreamSchema, ref: str, length: int, device):
+        if length < 1:
+            raise SiddhiAppCreationError(f"lengthBatch window needs a length >= 1, got {length}")
+        self.schema = schema
+        self.ref = ref
+        self.w = self.n = int(length)
+        self.device = torch.device(device)
+        self.emit_expired = True
+
+    def init_state(self):
+        w, dev = self.w, self.device
+
+        def cols():
+            return {nm: torch.zeros(w, dtype=PHYSICAL_DTYPE[t], device=dev)
+                    for nm, t in self.schema.attrs}
+
+        return {
+            "cur_cols": cols(),
+            "cur_ts": torch.zeros(w, dtype=torch.int64, device=dev),
+            "cur_n": torch.zeros((), dtype=torch.int32, device=dev),
+            "prev_cols": cols(),
+            "prev_ts": torch.zeros(w, dtype=torch.int64, device=dev),
+            "prev_n": torch.zeros((), dtype=torch.int32, device=dev),
+            "bucket_start": torch.full((), -1, dtype=torch.int64, device=dev),
+            "timeout_deadline": torch.full((), NO_TIMER, dtype=torch.int64, device=dev),
+        }
+
+    def apply(self, state, flow: Flow):
+        b = flow.batch
+        out, birth, death, new_state = batch_window_step(state, b, self.n, self.emit_expired)
+        member_env = None
+        if self.emit_expired:
+            member_cols = {
+                (self.ref, None, nm): torch.cat([state["cur_cols"][nm], state["prev_cols"][nm],
+                                                 b.cols[nm]])
+                for nm in b.cols
+            }
+            member_cols[(self.ref, None, TS_ATTR)] = torch.cat(
+                [state["cur_ts"], state["prev_ts"], b.ts])
+            member_env = Env(member_cols, now=flow.now)
+        return new_state, Flow(batch=out, ref=flow.ref, now=flow.now, birth_pos=birth,
+                               death_pos=death, member_env=member_env)
+
+
 def make_window(spec: WindowSpec, schema: StreamSchema, ref: str, device) -> WindowStage:
     """Reference: SingleInputStreamParser.generateProcessor window dispatch."""
     name = spec.name.lower() if spec.namespace is None else f"{spec.namespace}:{spec.name}"
     if name == "length":
         return SlidingWindow(schema, ref, _const_param(spec, 0, "length"), device)
+    if name == "lengthbatch":
+        return BatchWindow(schema, ref, _const_param(spec, 0, "length"), device)
     raise SiddhiAppCreationError(f"window '{spec.name}' is not ported yet")

@@ -1,8 +1,12 @@
 """Carry query state and interned strings in and out of the engine as numpy.
 
-A query's state is a tree of dicts and lists whose leaves are arrays, in the
-layout `{"chain": {"cols": {...}, "ts", "wts", "seq", "total"},
-"sel": {"aggs": [...]}}` for a length-window query. The JAX engine
+A query's state is a tree of dicts and lists whose leaves are arrays:
+`{"chain": ..., "sel": {"aggs": [...], "group": {"keys", "used", "n"}}}`,
+where "chain" is a length window's ring (`{"cols": {...}, "ts", "wts",
+"seq", "total"}`) or a lengthBatch window's buffers (`{"cur_cols",
+"cur_ts", "cur_n", "prev_cols", "prev_ts", "prev_n", "bucket_start",
+"timeout_deadline"}`), "group" is the group-by key table, and each
+aggregator's carry gains a leading [G] axis under a group-by. The JAX engine
 (`siddhi_tpu`) keeps the same layout, so a state taken there as numpy maps
 onto this engine leaf for leaf with dtype and shape unchanged.
 """

@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "_build"
-SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "deliver_pack")
+SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "deliver_pack",
+           "batch_window", "group_assign", "keyed_running_sum", "keep_last")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -36,6 +37,8 @@ LL = ctypes.c_longlong
 _GATHER = [P, P, P, P, I, I, P]
 _RUNNING_SUM = [P] * 7 + [I, P]
 _EXTREME = [P, P, P, P, I, I, I, LL, P]
+_BW_GATHER = [P] * 5 + [I, I, P]
+_KEYED_SUM = [P] * 5 + [I, I] + [P] * 6 + [P]
 # C entry points: name -> (source, argtypes). The last argument is the stream.
 SIGNATURES = {
     "lw_prepare": ("length_window", [P] * 5 + [I, I] + [P] * 12 + [P]),
@@ -49,6 +52,14 @@ SIGNATURES = {
     "window_extreme_i64": ("window_extreme", _EXTREME),
     "wire_decode": ("wire_decode", [P, P, P, I, LL, I, I, P, P, P, P, P, P]),
     "deliver_pack": ("deliver_pack", [P, I, I, I, P, P, P, I, I, P, P, P, P, P]),
+    "bw_prepare": ("batch_window", [P] * 6 + [I] * 4 + [P] * 13 + [P]),
+    "bw_gather_1": ("batch_window", _BW_GATHER),
+    "bw_gather_4": ("batch_window", _BW_GATHER),
+    "bw_gather_8": ("batch_window", _BW_GATHER),
+    "group_assign": ("group_assign", [P] * 6 + [I] * 4 + [P] * 15 + [P]),
+    "keyed_running_sum_f32": ("keyed_running_sum", _KEYED_SUM),
+    "keyed_running_sum_i64": ("keyed_running_sum", _KEYED_SUM),
+    "keep_last": ("keep_last", [P, P, P, I, P, P, P]),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -96,3 +96,53 @@ def extreme_identity(dtype: torch.dtype, is_min: bool) -> torch.Tensor:
         return torch.tensor(np.inf if is_min else -np.inf, dtype=dtype)
     info = torch.iinfo(dtype)
     return torch.tensor(info.max if is_min else info.min, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# segmented scans: the plain versions behind the group kernels
+# (csrc/group_assign.cu, csrc/keyed_running_sum.cu, csrc/keep_last.cu)
+# ---------------------------------------------------------------------------
+
+
+def _segmented_scan(vals: torch.Tensor, seg_start: torch.Tensor, op) -> torch.Tensor:
+    """Inclusive segment-wise scan: positions with seg_start restart the
+    accumulator. Hillis-Steele rounds of shift-and-combine (log2 n of them),
+    with the JAX package's combine: (a, b) -> b if b restarts, else op(a, b)."""
+    v, f = vals, seg_start
+    n = v.shape[0]
+    d = 1
+    while d < n:
+        nv = torch.where(f[d:], v[d:], op(v[:-d], v[d:]))
+        v = torch.cat([v[:d], nv])
+        f = torch.cat([f[:d], f[d:] | f[:-d]])
+        d *= 2
+    return v
+
+
+def segmented_cumsum(vals: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
+    """Inclusive segment-wise running sum."""
+    return _segmented_scan(vals, seg_start, torch.add)
+
+
+def segmented_cum_extreme(
+    vals: torch.Tensor, seg_start: torch.Tensor, is_min: bool
+) -> torch.Tensor:
+    """Inclusive segment-wise running min/max."""
+    return _segmented_scan(vals, seg_start, torch.minimum if is_min else torch.maximum)
+
+
+def segmented_carry(vals: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
+    """Propagate each segment's first value across the segment."""
+    return _segmented_scan(vals, seg_start, lambda a, b: a)
+
+
+def first_indices(mask: torch.Tensor, size: int, fill: int = -1) -> torch.Tensor:
+    """Indices of the first `size` True positions, int32, `fill` past the
+    last one."""
+    n = mask.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=mask.device)
+    rank = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    dst = torch.where(mask & (rank < size), rank, size).long()
+    out = torch.full((size + 1,), fill, dtype=torch.int32, device=mask.device)
+    out[dst] = idx
+    return out[:size]
