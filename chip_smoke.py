@@ -16,10 +16,12 @@ engine next to it. Phases, each printed as it ends:
      The group-by kernels (lengthBatch step, slot assignment, keyed running
      sum, keep-last) the same way at the tumbling_groupby path's shapes
      (B=32768, lengthBatch(1024), 33,826 flow rows, G=1024), ragged ones,
-     1,000 distinct keys and 2,000 (overflow);
+     1,000 distinct keys and 2,000 (overflow); the join slice's kernels
+     (sliding time-window step, ring view, join probe compaction) at paths
+     J, T and T2's shapes and ragged ones (see join_kernel_phase);
   3. verify cases filter_num, len_window_avg, len_window_minmax,
-     len_batch_group and having_order on the card against the frozen CPU
-     rows of VERIFY.json;
+     len_batch_group, having_order, time_window, external_time and
+     self_join on the card against the frozen CPU rows of VERIFY.json;
   4. the main path at full width: BASELINE.json config 1 (filter + length(50)
      window + avg) and the same app with min/max added, at @app:batch 32768,
      2,000,000 events each through send_columns in calls of 8 batches (the
@@ -32,17 +34,26 @@ engine next to it. Phases, each printed as it ends:
   5. the tumbling_groupby path (BASELINE.json config 2: lengthBatch(1024)
      group by symbol with sum and avg) at the same width and in the same
      way, with its own launch counts; then the same app with 1,000 distinct
-     symbols for 4 batches against device="cpu".
+     symbols for 4 batches against device="cpu";
+  6. path J, sliding_join (BASELINE.json config 3: a length(100) self-join
+     on volume, @app:batch 8192, joinCapacity 8192), 2,000,000 events fused
+     and a 20-batch per-batch prefix, in the same way; path T, the same
+     self-join over time(1 sec) windows under @app:playback (joinCapacity
+     16384), 500,000 events per batch with the TIMER steps the event-time
+     clock sends; path T2, a time(1 sec) window with avg/min/max at batch
+     32768 under @app:playback, 16 batches. Each path's own launch counts,
+     no join overflow, the first 4 batches against device="cpu".
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-instead builds the kernels and prints where the time goes on both main
-paths (the quickstart min/max app and tumbling_groupby): for one per-batch
-batch and for one fused K=8 chunk, the host stages timed around
+instead builds the kernels and prints where the time goes on the quickstart
+min/max app, tumbling_groupby and sliding_join: for one per-batch batch and
+for one fused K=8 chunk, the host stages timed around
 torch.cuda.synchronize(), and device time by kernel from torch.profiler over
-4 batches / 4 chunks.
+4 batches / 4 chunks; and on path T, each call's split into its data steps
+and its TIMER steps, with the device busy share of one call.
 """
 
 from __future__ import annotations
@@ -85,6 +96,32 @@ group by symbol
 insert into Out;
 """
 
+# slice 4: joins (bench.py sliding_join, BASELINE.json config 3) and time windows
+JOIN_BATCH, JOIN_W, JOIN_CAP, TIME_JOIN_CAP, TIME_W = 8192, 100, 8192, 16384, 1024
+JOIN_EVENTS, TIME_JOIN_EVENTS, TIME_AGG_BATCHES = 2_000_000, 500_000, 16
+JOIN_APP = """
+@app:joinCapacity(size='{cap}')
+@app:batch(size='{batch}')
+{playback}define stream StockStream (symbol string, price float, volume long);
+@info(name='q')
+from StockStream#window.{win} as a join StockStream#window.{win} as b
+on a.volume == b.volume
+select a.symbol as s1, b.symbol as s2
+insert into Out;
+"""
+SLIDING_JOIN_APP = JOIN_APP.format(cap=JOIN_CAP, batch=JOIN_BATCH, playback="",
+                                   win=f"length({JOIN_W})")
+TIME_JOIN_APP = JOIN_APP.format(cap=TIME_JOIN_CAP, batch=JOIN_BATCH, playback="@app:playback\n",
+                                win="time(1 sec)")
+TIME_AGG_APP = """
+@app:playback @app:batch(size='32768')
+define stream StockStream (symbol string, price float, volume long);
+@info(name='q')
+from StockStream[price > 50]#window.time(1 sec)
+select symbol, avg(price) as ap, min(price) as mn, max(price) as mx
+insert into Out;
+"""
+
 VERIFY_HEAD = (
     "@app:batch(size='32')\n"
     "define stream S (symbol string, price float, volume long);\n"
@@ -95,6 +132,11 @@ VERIFY_CASES = {
     "len_window_minmax": VERIFY_HEAD + "@info(name='q') from S#window.length(5) select min(price) as mn, max(price) as mx insert into Out;",
     "len_batch_group": VERIFY_HEAD + "@info(name='q') from S#window.lengthBatch(8) select symbol, sum(volume) as tv, count() as c group by symbol insert into Out;",
     "having_order": VERIFY_HEAD + "@info(name='q') from S#window.lengthBatch(8) select symbol, sum(volume) as tv group by symbol having tv > 100 order by tv desc limit 3 insert into Out;",
+    "time_window": "@app:playback\n" + VERIFY_HEAD + "@info(name='q') from S#window.time(40) select symbol, sum(volume) as tv insert into Out;",
+    "external_time": VERIFY_HEAD + "@info(name='q') from S#window.externalTime(volume, 500) select symbol, count() as c insert into Out;",
+    "self_join": VERIFY_HEAD + """@app:joinCapacity(size='256')
+        @info(name='q') from S#window.length(4) as a join S#window.length(4) as b
+        on a.volume == b.volume select a.symbol as s1, b.symbol as s2 insert into Out;""",
 }
 
 
@@ -300,7 +342,7 @@ def same_bits(torch, got, want) -> float:
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"shape/dtype {g.dtype}{list(g.shape)} vs {w.dtype}{list(w.shape)}")
         if g.dtype != torch.bool:
-            g, w = g.contiguous().view(torch.uint8), w.contiguous().view(torch.uint8)
+            g, w = (x.contiguous().reshape(-1).view(torch.uint8) for x in (g, w))
         if not torch.equal(g, w):
             raise AssertionError("bitwise mismatch")
     return 0.0
@@ -631,6 +673,217 @@ def grouped_kernel_phase(torch, dev) -> dict:
     return res
 
 
+def join_kernel_phase(torch, dev) -> dict:
+    """The join slice's kernels against their plain versions on the card,
+    exactly, from the same inputs and state: the sliding time-window step
+    (K10) at the T path's shapes (B=8192, W=1024, time(1 sec), 3 carried
+    steps, each followed by 3 one-row TIMER steps as the event-time clock
+    sends them) and T2's (B=32768 with the price > 50 filter), ragged B=33
+    and B=4097 with holes, TIMER rows and a gap that empties the ring into
+    one TIMER row, disordered externalTime (the kernel's general branch) at
+    B=33 and B=4097, and capacity early eviction (W=16); the ring view (K11)
+    of a full length(100) ring (path J), the T ring, a ring with many holes
+    and an empty one; the probe compaction (K12) at path J's shape (8192
+    CURRENT probes against a length(100) view, cap 8192) and T's (a
+    1024-slot view, cap 16384), a full outer join with misses, CURRENT plus
+    EXPIRED probes, overflow past the cap, an empty view and a windowless
+    side."""
+    from siddhi_tpu_torch.core.event import EventBatch, StreamSchema
+    from siddhi_tpu_torch.core.join import join_assemble, join_assemble_ref
+    from siddhi_tpu_torch.core.types import AttrType
+    from siddhi_tpu_torch.core.windows import (
+        SlidingWindow,
+        length_window_step_ref,
+        ring_view,
+        ring_view_ref,
+        time_window_step,
+        time_window_step_ref,
+    )
+
+    schema = StreamSchema("StockStream", [("symbol", AttrType.STRING), ("price", AttrType.FLOAT),
+                                          ("volume", AttrType.LONG)])
+    types = dict(schema.attrs)
+    names = ("time_window_step", "ring_view", "join_assemble")
+    res = {k: {"max_abs_err": 0.0} for k in names}
+    rng = np.random.default_rng(404)
+    col_bytes = 4 + 4 + 8
+
+    def make_batch(b, clock, t, filt=False, ragged=False, disorder=False, gap=False):
+        d = stock_data(b, seed=int(rng.integers(1 << 30)))
+        step = rng.integers(0, 3, b) if ragged else np.ones(b, np.int64)
+        ts = clock + np.cumsum(step).astype(np.int64)
+        kind = np.zeros(b, np.int8)
+        valid = d["price"] > 50 if filt else np.ones(b, bool)
+        if ragged:
+            valid &= rng.random(b) < 0.9
+            kind[rng.random(b) < 0.05] = 2  # TIMER rows
+        if gap:
+            ts += 10 * t
+            kind[0] = 2  # a TIMER that expires the whole ring
+        vol = d["volume"]
+        if disorder:  # the externalTime attribute, out of order
+            vol = ts + rng.integers(-3 * t, 3 * t, b)
+        cols = {"symbol": d["symbol"], "price": d["price"], "volume": vol.astype(np.int64)}
+        return EventBatch(ts=torch.from_numpy(ts).to(dev), kind=torch.from_numpy(kind).to(dev),
+                          valid=torch.from_numpy(valid).to(dev),
+                          cols={n: torch.from_numpy(v).to(dev) for n, v in cols.items()})
+
+    def timer_batch(t_ms):
+        return EventBatch(ts=torch.full((1,), t_ms, dtype=torch.int64, device=dev),
+                          kind=torch.full((1,), 2, dtype=torch.int8, device=dev),
+                          valid=torch.ones(1, dtype=torch.bool, device=dev),
+                          cols={"symbol": torch.zeros(1, dtype=torch.int32, device=dev),
+                                "price": torch.full((1,), float("nan"), device=dev),
+                                "volume": torch.zeros(1, dtype=torch.int64, device=dev)})
+
+    def k10(state, batch, w, t, ext):
+        bwts = batch.cols["volume"] if ext else batch.ts
+        got = time_window_step(state, batch, bwts, w, t)
+        want = time_window_step_ref(state, batch, bwts, w, t)
+        torch.cuda.synchronize()
+        flat_g = [got[0].ts, got[0].kind, got[0].valid, got[0].cols, got[1], got[2], got[3], got[4]]
+        flat_w = [want[0].ts, want[0].kind, want[0].valid, want[0].cols, want[1], want[2], want[3],
+                  want[4]]
+        same_bits(torch, flat_g, flat_w)
+        return want
+
+    main, rings = {}, {}
+    cases = (("T", JOIN_BATCH, TIME_W, 1000, dict(), False, 3),
+             ("T2", MAIN_BATCH, TIME_W, 1000, dict(filt=True), False, 3),
+             ("ragged", 33, 16, 37, dict(ragged=True), False, 4),
+             ("ragged", 4097, TIME_W, 37, dict(ragged=True), False, 3),
+             ("disorder", 33, 16, 37, dict(ragged=True, disorder=True), True, 4),
+             ("disorder", 4097, TIME_W, 300, dict(disorder=True), True, 3),
+             ("capacity", 4097, 16, 1000, dict(), False, 3))
+    for label, b, w, t, kw, ext, steps in cases:
+        state = SlidingWindow(schema, "S", w, dev, duration_ms=t).init_state()
+        clock, expired, timers = 1_700_000_000_000, 0, 0
+        for step in range(steps):
+            batch = make_batch(b, clock, t, gap=label == "ragged" and step == 2, **kw)
+            clock = int(batch.ts.max().item())
+            if label in ("T", "T2"):
+                main[label] = (state, batch)
+            want = k10(state, batch, w, t, ext)
+            expired += int((want[0].valid & (want[0].kind == 1)).sum().item())
+            state = want[3]
+            if label == "T":
+                for _ in range(3):  # the event-time clock's TIMER rows
+                    tb = timer_batch(int(want[4].item()))
+                    main["timer"] = (state, tb)
+                    want = k10(state, tb, w, t, ext)
+                    state = want[3]
+                    timers += 1
+                clock += 1000
+        rings[label] = state
+        print(f"kernel check time_window_step {label} B={b} W={w} t={t} externalTime={ext}: "
+              f"{expired} EXPIRED rows, {timers} TIMER steps ok", flush=True)
+
+    # K11 on the J ring (a full length(100) ring after 3 batches of 8192),
+    # the T ring, a ring with many holes and an empty one
+    j_state = SlidingWindow(schema, "S", JOIN_W, dev).init_state()
+    for _ in range(3):
+        j_state = length_window_step_ref(j_state, make_batch(JOIN_BATCH, 0, 1), JOIN_W)[3]
+    views = {}
+    for label, st in (("J", j_state), ("T", rings["T"]), ("holes", rings["ragged"]),
+                      ("empty", SlidingWindow(schema, "S", 64, dev).init_state())):
+        got, want = ring_view(st), ring_view_ref(st)
+        torch.cuda.synchronize()
+        same_bits(torch, list(got), list(want))
+        views[label] = want
+        print(f"kernel check ring_view {label} W={st['seq'].shape[0]}: "
+              f"{int(want[2].sum().item())} live slots ok", flush=True)
+
+    # K12: probes against views, as CompiledJoin._assemble forms them
+    def k12(probes, view, outer, cap, on=True):
+        batch, rows = probes
+        vcols, vts, vmask = view
+        pair = rows[:, None] & vmask[None, :]
+        if on:
+            pair = pair & (batch.cols["volume"][:, None] == vcols["volume"][None, :])
+        kind = torch.where(batch.kind == 1, 1, 0).to(torch.int8)
+        args = (pair, rows, outer, cap, batch.ts, kind, batch.cols, vts, vcols, types)
+        got, want = join_assemble(*args), join_assemble_ref(*args)
+        torch.cuda.synchronize()
+        fields = ("ts", "kind", "valid", "probe_cols", "partner_cols", "partner_ts", "overflow")
+        same_bits(torch, [getattr(got, f) for f in fields], [getattr(want, f) for f in fields])
+        return args, want
+
+    def probes_of(b, p_valid=1.0, expired=False):
+        batch = make_batch(b, 0, 1)
+        rows = torch.from_numpy(rng.random(b) < p_valid).to(dev)
+        if expired:  # CURRENT then EXPIRED probe sets, as `insert all events` forms them
+            kind = torch.cat([torch.zeros(b // 2, dtype=torch.int8, device=dev),
+                              torch.ones(b - b // 2, dtype=torch.int8, device=dev)])
+            batch = EventBatch(ts=batch.ts, kind=kind, valid=batch.valid, cols=batch.cols)
+        return batch, rows
+
+    j_args, j_want = k12(probes_of(JOIN_BATCH), views["J"], False, JOIN_CAP)
+    t_args, t_want = k12(probes_of(JOIN_BATCH), views["T"], False, TIME_JOIN_CAP)
+    small = SlidingWindow(schema, "S", 16, dev).init_state()
+    small = length_window_step_ref(small, make_batch(33, 0, 1), 16)[3]
+    small_view = ring_view_ref(small)
+    k12(probes_of(33, 0.7), small_view, True, 64)  # full outer with misses
+    k12(probes_of(2 * 33, 0.8, expired=True), small_view, True, 128)  # CURRENT + EXPIRED
+    _a, over = k12(probes_of(4097), small_view, False, 7, on=False)  # overflow past the cap
+    if not bool(over.overflow):
+        raise AssertionError("join_assemble: overflow past the cap not flagged")
+    empty_view = ring_view_ref(SlidingWindow(schema, "S", 64, dev).init_state())
+    k12(probes_of(33, 0.7), empty_view, True, 64)  # an empty view: all misses
+    nowin = ({n: torch.zeros(1, dtype=v.dtype, device=dev) for n, v in small_view[0].items()},
+             torch.zeros(1, dtype=torch.int64, device=dev),
+             torch.zeros(1, dtype=torch.bool, device=dev))
+    k12(probes_of(33), nowin, True, 64)  # a windowless side
+    print(f"kernel check join_assemble J: {int(j_want.valid.sum().item())} matches of "
+          f"{JOIN_BATCH} probes x {JOIN_W}; T: {int(t_want.valid.sum().item())} of "
+          f"{JOIN_BATCH} x {TIME_W}; outer misses, EXPIRED probes, overflow, empty view, "
+          "windowless side: ok", flush=True)
+
+    # times at the paths' shapes
+    k10r = res["time_window_step"]
+    st, bt = main["T2"]
+    bwts = bt.ts
+    k10r["ms"] = time_ms(torch, lambda: time_window_step(st, bt, bwts, TIME_W, 1000), 50)
+    k10r["plain_ms"] = time_ms(torch, lambda: time_window_step_ref(st, bt, bwts, TIME_W, 1000), 10)
+    k10r["library_ms"] = None
+    b, w = MAIN_BATCH, TIME_W
+    k10_bytes = (b * (8 + 1 + 1 + 8 + col_bytes) + w * (col_bytes + 24) + 8  # in: batch, ring
+                 + (w + 2 * b) * (8 + 1 + 1 + col_bytes) + (w + b) * 8  # out rows, birth/death
+                 + w * (col_bytes + 24) + 16)  # new ring, next_timer
+    k10r["bound_ms"], k10r["bound_by"] = k10_bytes / MEM_BYTES_PER_S * 1e3, "bytes"
+    others = {}
+    for label, (st2, bt2) in (("B8192", main["T"]), ("timer_B1", main["timer"])):
+        others[label] = time_ms(torch, lambda: time_window_step(st2, bt2, bt2.ts, TIME_W, 1000), 50)
+    k10r["other_shapes_ms"] = others
+
+    k11 = res["ring_view"]
+    k11["ms"] = time_ms(torch, lambda: ring_view(j_state), 100)
+    k11["plain_ms"] = time_ms(torch, lambda: ring_view_ref(j_state), 100)
+    k11["library_ms"] = time_ms(torch, lambda: torch.argsort(j_state["seq"]), 100)
+    k11["bound_ms"] = JOIN_W * (8 + 2 * (col_bytes + 8) + 1) / MEM_BYTES_PER_S * 1e3
+    k11["bound_by"] = "bytes"
+    k11["W1024_ms"] = time_ms(torch, lambda: ring_view(rings["T"]), 100)
+
+    k12r = res["join_assemble"]
+    k12r["ms"] = time_ms(torch, lambda: join_assemble(*j_args), 50)
+    k12r["plain_ms"] = time_ms(torch, lambda: join_assemble_ref(*j_args), 10)
+    pair = j_args[0]
+    k12r["library_ms"] = time_ms(torch, lambda: torch.nonzero(pair), 50)
+    r_, w_ = pair.shape
+    k12_bytes = (r_ * w_ + r_ * (1 + 8 + 1 + col_bytes) + w_ * (8 + col_bytes)  # mask, lanes in
+                 + JOIN_CAP * (8 + 1 + 1 + 2 * col_bytes + 8) + 1)  # joined lanes out
+    k12r["bound_ms"], k12r["bound_by"] = k12_bytes / MEM_BYTES_PER_S * 1e3, "bytes"
+    k12r["T_shape_ms"] = time_ms(torch, lambda: join_assemble(*t_args), 50)
+    for name in names:
+        r = res[name]
+        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={r['library_ms']} "
+              f"max_abs_err={r['max_abs_err']}", flush=True)
+    print(f"kernel time_window_step at B=8192: {others['B8192']:.4f} ms, one-row TIMER step: "
+          f"{others['timer_B1']:.4f} ms; ring_view at W=1024: {k11['W1024_ms']:.4f} ms; "
+          f"join_assemble at T's shape: {k12r['T_shape_ms']:.4f} ms", flush=True)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 3: verify cases against VERIFY.json
 # ---------------------------------------------------------------------------
@@ -676,12 +929,14 @@ def main_app(extra: str) -> str:
 
 
 def run_app(dev, app: str, data: dict, n_events: int, stride: int, first_call: int,
-            fused: bool = True, keep_calls: int = 1, symbols=SYMBOLS):
+            fused: bool = True, keep_calls: int = 1, symbols=SYMBOLS, fires=None):
     """Drive one app through send_columns, in calls of `first_call` events
     and then `stride`; with fused=False the fused engines are detached, so
     every call takes the per-batch path. Returns (delivered row count, rows
     delivered by each of the first `keep_calls` calls, seconds, the fused
-    engine's counters or None)."""
+    engine's counters or None). With `fires` (a one-element list), the
+    scheduler's timer targets are wrapped and their completed fires added
+    to fires[0]."""
     import torch
 
     from siddhi_tpu_torch import SiddhiManager
@@ -699,6 +954,14 @@ def run_app(dev, app: str, data: dict, n_events: int, stride: int, first_call: i
             kept[-1].extend(tuple(e.data) for e in ins or [])
 
     rt.add_callback("q", on_rows)
+    if fires is not None:
+        targets = rt.queries["q"].timer_targets
+        for key, fire in list(targets.items()):
+            def counted(t_ms, _fire=fire):
+                _fire(t_ms)
+                fires[0] += 1
+
+            targets[key] = counted
     rt.start()
     j = rt.junctions["StockStream"]
     if not fused:
@@ -893,16 +1156,173 @@ def grouped_path_phase(torch) -> dict:
     return out
 
 
-def profile_phase(torch, app: str) -> dict:
-    """Where one full-width batch of `app` spends its time (B=32768):
+JOIN_KERNELS = ("length_window_step", "ring_view", "join_assemble", "wire_decode", "deliver_pack")
+TIME_JOIN_KERNELS = ("time_window_step", "ring_view", "join_assemble")
+TIME_AGG_KERNELS = ("time_window_step", "running_sum", "window_extreme")
+
+
+def capture_join_warnings(fn):
+    """Run fn() and return (its result, the join-overflow warnings logged)."""
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    log = logging.getLogger("siddhi_tpu_torch")
+    log.addHandler(handler)
+    try:
+        out = fn()
+    finally:
+        log.removeHandler(handler)
+    return out, [r for r in records if "joinCapacity" in r.getMessage()]
+
+
+def check_path(name, launches, wanted, kept, cpu_kept, calls):
+    """Every kernel of the path launched, and the first `calls` calls' rows
+    equal to the same run on device="cpu"."""
+    for k in wanted:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the {name} path")
+    got = [row for call in kept[:calls] for row in call]
+    want = [row for call in cpu_kept[:calls] for row in call]
+    if not want or not rows_match(got, want):
+        raise AssertionError(f"{name}: the first batches differ from device='cpu'")
+
+
+def check_fires(name, fires, launches, data_steps) -> int:
+    """Every timer fire of the run completed one time-window step: the
+    step's launches are the data steps' plus the fires (a failed fire
+    raises out of send_columns instead)."""
+    steps = launches.get("time_window_step", 0)
+    if fires <= 0 or steps != data_steps + fires:
+        raise AssertionError(f"{name}: {fires} timer fires completed, but {steps} time-window "
+                             f"steps launched for {data_steps} data steps")
+    return fires
+
+
+def join_path_phase(torch) -> dict:
+    """Path J, sliding_join (bench.py:185, BASELINE.json config 3): the
+    length(100) self-join on volume at @app:batch 8192, joinCapacity 8192,
+    2,000,000 events of seed 7 through send_columns in calls of 8 batches
+    (the first of 4), fused (the self-join's endpoint runs the left then
+    the right half, and delivers both); launch counts of this run alone; no
+    join overflow; the first 4 batches against device="cpu" and the first 20
+    against the per-batch form, exactly."""
+    from siddhi_tpu_torch import kernels
+
+    b = JOIN_BATCH
+    app = SLIDING_JOIN_APP
+    data = stock_data(JOIN_EVENTS, seed=7)
+    first_n, stride = 4 * b, 8 * b
+    prefix_calls, prefix_events = 3, 20 * b
+    run_app("cuda", app, data, 4 * b, 2 * b, 2 * b)  # warm-up, not counted
+    kernels.launches.clear()
+    (n_rows, kept, dt, info), warned = capture_join_warnings(
+        lambda: run_app("cuda", app, data, JOIN_EVENTS, stride, first_n, keep_calls=prefix_calls))
+    launches = dict(kernels.launches)
+    print(f"sliding_join launches {json.dumps(launches)}", flush=True)
+    if warned:
+        raise AssertionError("sliding_join: the join output overflowed its capacity")
+    _n, cpu_first, _dt, _i = run_app("cpu", app, data, first_n, first_n, first_n)
+    check_path("sliding_join", launches, JOIN_KERNELS, kept, cpu_first, 1)
+    pb_rows, pb_kept, pb_dt, _i = run_app("cuda", app, data, prefix_events, stride, first_n,
+                                          fused=False, keep_calls=prefix_calls)
+    fused_prefix = [row for call in kept for row in call]
+    pb_prefix = [row for call in pb_kept for row in call]
+    if not pb_prefix or fused_prefix != pb_prefix:
+        raise AssertionError("sliding_join: fused rows differ from the per-batch form")
+    n_batches = -(-JOIN_EVENTS // b)
+    per_side = n_rows / (2 * n_batches)
+    out = {"events": JOIN_EVENTS, "rows": n_rows, "seconds": dt, "events_per_s": JOIN_EVENTS / dt,
+           "chunks": info["chunks"], "batches": info["batches"], "wire": info["wire"],
+           "launches": launches, "matches_per_side_per_batch": per_side,
+           "per_batch": {"events": prefix_events, "rows": pb_rows, "seconds": pb_dt,
+                         "events_per_s": prefix_events / pb_dt, "rows_exactly_equal": True}}
+    print(f"path J sliding_join: fused {JOIN_EVENTS} events, {n_rows} rows delivered "
+          f"({per_side:.1f} matches per side per batch), {dt:.3f} s, {JOIN_EVENTS / dt:.1f} "
+          f"events/s, {info['chunks']} chunks; per-batch form {prefix_events} events, {pb_rows} "
+          f"rows, {pb_dt:.3f} s, {prefix_events / pb_dt:.1f} events/s; no overflow; first 4 "
+          "batches match device='cpu', first 20 batches exactly equal the per-batch form",
+          flush=True)
+    return out
+
+
+def time_join_path_phase(torch) -> dict:
+    """Path T: the same self-join over time(1 sec) windows under
+    @app:playback, joinCapacity 16384: 500,000 events of seed 7 through
+    send_columns one batch of 8192 per call, the per-batch form (a query
+    whose window needs the scheduler stays off the fused path); the
+    event-time clock fires the TIMER rows before each call's batch; launch
+    counts of this run alone; no join overflow; the first 4 calls against
+    device="cpu"."""
+    from siddhi_tpu_torch import kernels
+
+    b = JOIN_BATCH
+    app = TIME_JOIN_APP
+    data = stock_data(TIME_JOIN_EVENTS, seed=7)
+    run_app("cuda", app, data, 2 * b, b, b, fused=False)  # warm-up, not counted
+    fires = [0]
+    kernels.launches.clear()
+    (n_rows, kept, dt, _info), warned = capture_join_warnings(
+        lambda: run_app("cuda", app, data, TIME_JOIN_EVENTS, b, b, fused=False, keep_calls=4,
+                        fires=fires))
+    launches = dict(kernels.launches)
+    print(f"time join launches {json.dumps(launches)}", flush=True)
+    if warned:
+        raise AssertionError("time join: the join output overflowed its capacity")
+    _n, cpu_first, _dt, _i = run_app("cpu", app, data, 4 * b, b, b, fused=False, keep_calls=4)
+    check_path("time join", launches, TIME_JOIN_KERNELS, kept, cpu_first, 4)
+    n_batches = -(-TIME_JOIN_EVENTS // b)
+    timer_steps = check_fires("time join", fires[0], launches, 2 * n_batches)
+    per_side = n_rows / (2 * n_batches)
+    out = {"events": TIME_JOIN_EVENTS, "rows": n_rows, "seconds": dt,
+           "events_per_s": TIME_JOIN_EVENTS / dt, "batches": n_batches,
+           "timer_steps": timer_steps, "matches_per_side_per_batch": per_side,
+           "launches": launches}
+    print(f"path T time-window join: {TIME_JOIN_EVENTS} events in {n_batches} batches and "
+          f"{timer_steps} one-row TIMER steps, {n_rows} rows delivered ({per_side:.1f} matches "
+          f"per side per batch), {dt:.3f} s, {TIME_JOIN_EVENTS / dt:.1f} events/s; no overflow; "
+          "first 4 batches match device='cpu'", flush=True)
+    return out
+
+
+def time_agg_path_phase(torch) -> dict:
+    """Path T2: StockStream[price > 50]#window.time(1 sec) with avg/min/max
+    under @app:playback at @app:batch 32768, 16 batches one per call
+    (per-batch form); launch counts of this run alone; the first 4 calls
+    against device="cpu"."""
+    from siddhi_tpu_torch import kernels
+
+    b = MAIN_BATCH
+    n = TIME_AGG_BATCHES * b
+    data = stock_data(n, seed=7)
+    run_app("cuda", TIME_AGG_APP, data, 2 * b, b, b, fused=False)  # warm-up, not counted
+    fires = [0]
+    kernels.launches.clear()
+    n_rows, kept, dt, _info = run_app("cuda", TIME_AGG_APP, data, n, b, b, fused=False,
+                                      keep_calls=4, fires=fires)
+    launches = dict(kernels.launches)
+    print(f"time aggregate launches {json.dumps(launches)}", flush=True)
+    _n, cpu_first, _dt, _i = run_app("cpu", TIME_AGG_APP, data, 4 * b, b, b, fused=False,
+                                     keep_calls=4)
+    check_path("time aggregate", launches, TIME_AGG_KERNELS, kept, cpu_first, 4)
+    timer_steps = check_fires("time aggregate", fires[0], launches, TIME_AGG_BATCHES)
+    out = {"events": n, "rows": n_rows, "seconds": dt, "events_per_s": n / dt,
+           "timer_steps": timer_steps, "launches": launches}
+    print(f"path T2 time-window aggregate: {n} events in {TIME_AGG_BATCHES} batches and "
+          f"{timer_steps} one-row TIMER steps, {n_rows} rows delivered, {dt:.3f} s, "
+          f"{n / dt:.1f} events/s; first 4 batches match device='cpu'", flush=True)
+    return out
+
+
+def profile_phase(torch, app: str, b: int) -> dict:
+    """Where one full-width batch of `app` spends its time (B = b):
     host stages timed around torch.cuda.synchronize(),
     torch.profiler's device time by kernel over 4 batches, then cProfile's
     host time by function over the real send_columns loop (16 batches)."""
     from torch.profiler import ProfilerActivity, profile
 
     from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.join import JoinQueryRuntime
 
-    b = MAIN_BATCH
     data = stock_data(16 * b, seed=7)
     mgr = SiddhiManager()
     rt = mgr.create_siddhi_app_runtime(app)
@@ -915,16 +1335,20 @@ def profile_phase(torch, app: str) -> dict:
     encode, decode = j.schema.packed_codec(b, j.device)
     cols = ("symbol", "price", "volume")
     stages = {"encode": 0.0, "h2d_and_step": 0.0, "d2h_decode_deliver": 0.0}
+    # a self-join runs its left then its right step on every batch
+    sides = ("l", "r") if isinstance(qr, JoinQueryRuntime) else (None,)
 
     def one(i, timed):
         lo, hi = i * b, (i + 1) * b
         t0 = time.perf_counter()
         buf = encode(data["ts"][lo:hi], {k: data[k][lo:hi] for k in cols}, b)
         t1 = time.perf_counter()
-        out = qr.receive(decode(buf, b), 0)
+        batch = decode(buf, b)
+        outs = [qr.receive(batch, 0) if sd is None else qr.receive(batch, 0, sd) for sd in sides]
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        qr.route_output(out, 0, rt._decode)
+        for out in outs:
+            qr.route_output(out, 0, rt._decode)
         t3 = time.perf_counter()
         if timed:
             stages["encode"] += t1 - t0
@@ -986,9 +1410,9 @@ def profile_phase(torch, app: str) -> dict:
             "loop_ms_per_batch": loop_s * 1e3 / 16, "host_by_function": by_func}
 
 
-def profile_fused(torch, app: str) -> dict:
+def profile_fused(torch, app: str, b: int) -> dict:
     """Where one fused chunk of `app` spends its time (K=8 batches of
-    B=32768): the engine's own stages, each timed around
+    B = b): the engine's own stages, each timed around
     torch.cuda.synchronize() — host encode into a pooled pinned slot, H2D,
     K4 + the K steps + K5, the drain's readbacks, host decode + callbacks —
     averaged over 4 chunks; then torch.profiler's device time by kernel and
@@ -998,7 +1422,7 @@ def profile_fused(torch, app: str) -> dict:
 
     from siddhi_tpu_torch import SiddhiManager
 
-    b, K = MAIN_BATCH, 8
+    K = 8
     data = stock_data(12 * K * b, seed=7)
     cols = ("symbol", "price", "volume")
     mgr = SiddhiManager()
@@ -1019,7 +1443,8 @@ def profile_fused(torch, app: str) -> dict:
     prog, pl = fi._prog, fi._pipeline()
     (i,) = prog.deliver_idx
     W = prog.layouts[i][1]
-    hdr = -(-4 * K // W)
+    n_out = K * fi.endpoints[i].outputs  # output batches in the pack
+    hdr = -(-4 * n_out // W)
     stages = dict.fromkeys(("encode", "h2d", "k4_steps_k5", "d2h", "decode_deliver"), 0.0)
 
     def chunk(c, timed):
@@ -1037,7 +1462,7 @@ def profile_fused(torch, app: str) -> dict:
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         head = fi._readback(packs[0], 0, hdr, event)
-        cnts = head.reshape(-1)[: 4 * K].view(np.int32)
+        cnts = head.reshape(-1)[: 4 * n_out].view(np.int32)
         total = int(cnts.sum())
         host = fi._readback(packs[0], hdr, hdr + total, None)
         t4 = time.perf_counter()
@@ -1076,6 +1501,69 @@ def profile_fused(torch, app: str) -> dict:
             "device_busy_ms_4_chunks": busy_ms, "by_kernel": by_kernel}
 
 
+def profile_timers(torch, app: str, b: int) -> dict:
+    """Where path T's time goes: 4 calls of one batch each through the real
+    send_columns loop under @app:playback (after 2 warm-up calls), with the
+    one-row TIMER steps the event-time clock sends counted and timed apart
+    from the data steps; then torch.profiler's device busy share over 1
+    call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    data = stock_data(8 * b, seed=7)
+    cols = ("symbol", "price", "volume")
+    mgr = SiddhiManager()
+    rt = mgr.create_siddhi_app_runtime(app)
+    for s in SYMBOLS:
+        mgr.interner.intern(s)
+    rows = [0]
+    rt.add_callback("q", lambda t, ins, rem: rows.__setitem__(0, rows[0] + len(ins or [])))
+    rt.start()
+    rt.junctions["StockStream"].fused_ingest = None
+    qr = rt.queries["q"]
+    timer = {"steps": 0, "s": 0.0}
+    for side, fire in list(qr.timer_targets.items()):
+        def timed(t_ms, _fire=fire):
+            t0 = time.perf_counter()
+            _fire(t_ms)
+            timer["steps"] += 1
+            timer["s"] += time.perf_counter() - t0
+
+        qr.timer_targets[side] = timed
+    h = rt.get_input_handler("StockStream")
+
+    def send(c):
+        lo, hi = c * b, (c + 1) * b
+        h.send_columns(data["ts"][lo:hi], {k: data[k][lo:hi] for k in cols}, now=0)
+
+    send(0)
+    send(1)
+    timer.update(steps=0, s=0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(2, 6):
+        send(c)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"calls": 4, "wall_ms_per_call": wall / 4 * 1e3,
+           "timer_steps_per_call": timer["steps"] / 4,
+           "timer_ms_per_call": timer["s"] / 4 * 1e3,
+           "timer_ms_per_step": timer["s"] / max(timer["steps"], 1) * 1e3}
+    print(f"profile: time join, per call of one batch: {json.dumps(out)}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        send(6)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_ms = sum(getattr(e, "self_device_time_total", 0) / 1e3 for e in prof.key_averages())
+    out.update(profiled_call_wall_ms=wall * 1e3, profiled_call_busy_ms=busy_ms)
+    print(f"profile: time join, 1 call: wall {wall * 1e3:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({busy_ms / (wall * 1e3):.4f} of wall)", flush=True)
+    rt.shutdown()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1094,10 +1582,15 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         out = {"card": card}
-        for name, app in (("filter_window_minmax", main_app(MINMAX)),
-                          ("tumbling_groupby", GROUP_APP.format(batch=MAIN_BATCH, n=GROUP_N))):
+        for name, app, b in (("filter_window_minmax", main_app(MINMAX), MAIN_BATCH),
+                             ("tumbling_groupby", GROUP_APP.format(batch=MAIN_BATCH, n=GROUP_N),
+                              MAIN_BATCH),
+                             ("sliding_join", SLIDING_JOIN_APP, JOIN_BATCH)):
             print(f"profile: {name}", flush=True)
-            out[name] = {"per_batch": profile_phase(torch, app), "fused": profile_fused(torch, app)}
+            out[name] = {"per_batch": profile_phase(torch, app, b),
+                         "fused": profile_fused(torch, app, b)}
+        print("profile: time join", flush=True)
+        out["time_join"] = profile_timers(torch, TIME_JOIN_APP, JOIN_BATCH)
         with open(os.path.join(ROOT, "chiprun_out", "profile.json"), "w") as f:
             json.dump(out, f, indent=1)
         return 0
@@ -1105,9 +1598,13 @@ def main() -> int:
     res = kernel_phase(torch, "cuda")
     res.update(fused_kernel_phase(torch, "cuda"))
     res.update(grouped_kernel_phase(torch, "cuda"))
+    res.update(join_kernel_phase(torch, "cuda"))
     verify_phase("cuda")
     main = main_path_phase(torch)
     grouped = grouped_path_phase(torch)
+    joined = join_path_phase(torch)
+    time_join = time_join_path_phase(torch)
+    time_agg = time_agg_path_phase(torch)
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -1126,11 +1623,20 @@ def main() -> int:
            "keyed_running_sum": ("siddhi_tpu_torch/csrc/keyed_running_sum.cu",
                                  "siddhi_tpu/ops/group.py:205"),
            "keep_last": ("siddhi_tpu_torch/csrc/keep_last.cu",
-                         "siddhi_tpu/ops/group.py:278")}
+                         "siddhi_tpu/ops/group.py:278"),
+           "time_window_step": ("siddhi_tpu_torch/csrc/time_window.cu",
+                                "siddhi_tpu/core/windows.py:190"),
+           "ring_view": ("siddhi_tpu_torch/csrc/ring_view.cu",
+                         "siddhi_tpu/core/windows.py:438"),
+           "join_assemble": ("siddhi_tpu_torch/csrc/join_probe.cu",
+                             "siddhi_tpu/core/join.py:311")}
     # launches: K1-K5 from the quickstart path's run, K6-K9 from the
-    # tumbling_groupby path's run (each counted from 0 just before its run)
-    path_launches = {k: grouped["launches"].get(k, 0) if k in GROUP_KERNELS[:4]
-                     else main["launches"].get(k, 0) for k in res}
+    # tumbling_groupby path's run, K10 from path T's run, K11 and K12 from
+    # path J's (each counted from 0 just before its run)
+    path_of = dict.fromkeys(GROUP_KERNELS[:4], grouped["launches"])
+    path_of["time_window_step"] = time_join["launches"]
+    path_of["ring_view"] = path_of["join_assemble"] = joined["launches"]
+    path_launches = {k: path_of.get(k, main["launches"]).get(k, 0) for k in res}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
          "launches": path_launches[k], "max_abs_err": r["max_abs_err"],
@@ -1145,7 +1651,12 @@ def main() -> int:
                                            for k in ("wire_decode", "deliver_pack")},
                    "main_path": main["apps"], "peak_bytes": main["peak_bytes"],
                    "tumbling_groupby": grouped,
-                   "keyed_running_sum_int64_ms": res["keyed_running_sum"]["int64"]["ms"]},
+                   "keyed_running_sum_int64_ms": res["keyed_running_sum"]["int64"]["ms"],
+                   "sliding_join": joined, "time_join": time_join, "time_aggregate": time_agg,
+                   "join_kernel_shapes": {
+                       "time_window_step": res["time_window_step"]["other_shapes_ms"],
+                       "ring_view_W1024_ms": res["ring_view"]["W1024_ms"],
+                       "join_assemble_T_shape_ms": res["join_assemble"]["T_shape_ms"]}},
                   f, indent=1)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": table}), flush=True)

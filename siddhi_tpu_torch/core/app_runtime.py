@@ -7,11 +7,15 @@ step that launches device work on the app's device; junctions are host fan-out
 points between steps.
 
 Ported so far: stream definitions, `@app:name`, `@app:batch`, `@app:playback`,
-`@app:groupCapacity`, and single-stream queries (filter, length and
-lengthBatch windows, projection with sum/count/avg/min/max, group-by, having,
-order-by, limit/offset) inserting into streams or delivering to callbacks;
-fused columnar ingest (core/ingest.py) with `@app:ingestChunk`, `@app:wire`
-and the per-stream `@pipeline`. Everything else raises
+`@app:groupCapacity`, `@app:joinCapacity`, single-stream queries (filter;
+length, time, timeLength, externalTime and lengthBatch windows; projection
+with sum/count/avg/min/max, group-by, having, order-by, limit/offset) and
+join queries (inner, left/right/full outer, unidirectional, self-joins,
+windowless sides) inserting into streams or delivering to callbacks; the
+timers of time windows, fired by the event-time clock under @app:playback
+and by the wall clock otherwise; fused columnar ingest (core/ingest.py)
+with `@app:ingestChunk`, `@app:wire` and the per-stream `@pipeline`, which
+queries that need the scheduler stay off. Everything else raises
 `SiddhiAppCreationError("... not ported yet")`.
 """
 
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 import operator
 import threading
 from typing import Callable
@@ -32,9 +37,11 @@ from siddhi_tpu_torch.core.event import (
     EventBatch,
     KIND_CURRENT,
     KIND_EXPIRED,
+    KIND_TIMER,
     StreamSchema,
 )
 from siddhi_tpu_torch.core.ingest import FuseEndpoint, FusedJunctionIngest
+from siddhi_tpu_torch.core.join import DEFAULT_JOIN_CAPACITY, JoinQueryRuntime
 from siddhi_tpu_torch.core.pipeline import resolve_pipeline_annotation
 from siddhi_tpu_torch.core.query_runtime import QueryRuntime
 from siddhi_tpu_torch.core.stream_junction import (
@@ -46,6 +53,7 @@ from siddhi_tpu_torch.core.wire import build_wire_spec, resolve_wire_annotation
 from siddhi_tpu_torch.query_api.annotation import find_annotation
 from siddhi_tpu_torch.query_api.execution import (
     InsertIntoStream,
+    JoinInputStream,
     OutputEventsFor,
     Query,
     ReturnStream,
@@ -58,7 +66,7 @@ DEFAULT_BATCH = 64
 
 _PORTED_APP_ANNOTATIONS = {"app:name", "app", "name", "app:description", "app:batch",
                            "app:playback", "app:ingestchunk", "app:wire",
-                           "app:groupcapacity"}
+                           "app:groupcapacity", "app:joincapacity"}
 _UNPORTED_STREAM_ANNOTATIONS = {"onerror", "source", "sink", "async"}
 
 
@@ -88,6 +96,11 @@ class SiddhiAppRuntime:
             if defs:
                 raise _not_ported(f"define {kind}")
 
+        self._exception_handler = None
+        # failures of timer-driven steps not yet raised to a sender (with no
+        # exception handler set); the next send or shutdown() raises them
+        self._timer_errors: list[Exception] = []
+
         # @app:playback(idle.time, increment): event-time clock
         # (reference: SiddhiAppParser.java:166-212)
         self._playback_clock = None
@@ -103,6 +116,13 @@ class SiddhiAppRuntime:
                 increment_ms=SiddhiCompiler.parse_time_constant(inc) if inc else None,
             )
             self.clock = self._playback_clock.now
+            from siddhi_tpu_torch.core.timestamp import EventTimeScheduler
+
+            self._scheduler = EventTimeScheduler(self._playback_clock, self._on_timer_error)
+        else:
+            from siddhi_tpu_torch.core.scheduler import SystemTimeScheduler
+
+            self._scheduler = SystemTimeScheduler(self._on_timer_error)
 
         self.stream_schemas: dict[str, StreamSchema] = {}
         self.junctions: dict[str, StreamJunction] = {}
@@ -114,7 +134,6 @@ class SiddhiAppRuntime:
         # one app-level processing lock: receive+route for every query runs
         # under it, so timer/input threads deliver outputs in state-step order
         self._process_lock = threading.RLock()
-        self._exception_handler = None
 
         # fused ingest (core/ingest.py): micro-batches per chunk, the compact
         # wire's @app:wire(disable=, range/dict/delta.<stream>.<col>=) with
@@ -123,6 +142,9 @@ class SiddhiAppRuntime:
         self._ingest_chunk = self._capacity_annotation("app:ingestChunk", 32)
         # group-by slot-table capacity (None: the selector's default)
         self.group_capacity = self._capacity_annotation("app:groupCapacity", None)
+        # joined rows a join step can emit (matches past it are dropped and
+        # logged once)
+        self.join_capacity = self._capacity_annotation("app:joinCapacity", DEFAULT_JOIN_CAPACITY)
         self._wire_enabled, self._wire_hints = resolve_wire_annotation(
             find_annotation(app.annotations, "app:wire")
         )
@@ -207,6 +229,9 @@ class SiddhiAppRuntime:
         if qid in self.queries:
             raise SiddhiAppCreationError(f"duplicate query name '{qid}'")
         stream = query.input_stream
+        if isinstance(stream, JoinInputStream):
+            self._add_join_query(qid, query)
+            return
         if not isinstance(stream, SingleInputStream):
             raise _not_ported(f"{type(stream).__name__} query")
         in_schema = self.stream_schemas.get(stream.stream_id)
@@ -223,10 +248,114 @@ class SiddhiAppRuntime:
             with self._process_lock:
                 out_batch = _qr.receive(batch, now)
                 _qr.route_output(out_batch, now, self._decode)
+                next_timer = _qr.next_timer
+            self._schedule_at(next_timer, _qr.timer_targets.get("in"))
+
+        if qr.uses_scheduler:
+            def fire(t_ms: int, _schema=in_schema) -> None:
+                receive(self._timer_batch(_schema, t_ms), t_ms)
+
+            qr.timer_targets["in"] = fire
 
         j = self._junction(stream.stream_id)
         j.subscribe(receive)
         j.fuse_candidates.append(FuseEndpoint(qr))
+
+    def _add_join_query(self, qid: str, query: Query) -> None:
+        join = query.input_stream
+        schemas = []
+        for s in (join.left, join.right):
+            sch = self.stream_schemas.get(s.stream_id)
+            if sch is None:
+                raise DefinitionNotExistError(
+                    f"query '{qid}': join stream '{s.stream_id}' is not defined")
+            schemas.append(sch)
+        qr = JoinQueryRuntime(query, qid, schemas[0], schemas[1], self.interner, self.device,
+                              group_capacity=self.group_capacity,
+                              join_capacity=self.join_capacity)
+        self.queries[qid] = qr
+        self._wire_insert(qr)
+
+        def receive_side(batch: EventBatch, now: int, side: str, _qr=qr) -> None:
+            with self._process_lock:
+                out_batch = _qr.receive(batch, now, side)
+                _qr.route_output(out_batch, now, self._decode)
+                next_timer = _qr.next_timer
+            self._schedule_at(next_timer, _qr.timer_targets.get(side))
+
+        def step_side(side: str, _qr=qr):
+            def step(st, b, now):
+                st, out = _qr._step_impl(st, b, now, side)
+                return st, [out]
+
+            return step
+
+        if join.left.stream_id == join.right.stream_id:
+            # a self-join: one subscription drives the left side then the
+            # right, each output delivered in that order (reference:
+            # JoinInputStreamParser self-join double dispatch); the fused
+            # endpoint runs and delivers both halves the same way
+            def step_both(st, b, now, _qr=qr):
+                st, out_l = _qr._step_impl(st, b, now, "l")
+                st, out_r = _qr._step_impl(st, b, now, "r")
+                return st, [out_l, out_r]
+
+            j = self._junction(join.left.stream_id)
+            j.subscribe(lambda b, now: (receive_side(b, now, "l"), receive_side(b, now, "r")))
+            j.fuse_candidates.append(FuseEndpoint(qr, step=step_both, outputs=2))
+        else:
+            for side, stream in (("l", join.left), ("r", join.right)):
+                sj = self._junction(stream.stream_id)
+                sj.subscribe(lambda b, now, _s=side: receive_side(b, now, _s))
+                sj.fuse_candidates.append(FuseEndpoint(qr, step=step_side(side)))
+
+        for side in qr.scheduled_sides:
+            def fire(t_ms: int, _side=side, _schema=qr.side_schemas[side]) -> None:
+                receive_side(self._timer_batch(_schema, t_ms), t_ms, _side)
+
+            qr.timer_targets[side] = fire
+
+    def _timer_batch(self, schema: StreamSchema, t_ms: int) -> EventBatch:
+        """A batch of one TIMER row at t_ms (null payload). The JAX package
+        pads it to the app's batch size, one jit shape for every step; the
+        port runs eagerly, so the step takes one row: the same rows come
+        out, for a fraction of the work."""
+        nulls = tuple(None for _ in schema.attrs)
+        return schema.to_batch([t_ms], [nulls], self.interner, self.device, capacity=1,
+                               kinds=[KIND_TIMER])
+
+    def _schedule_at(self, next_timer, target) -> None:
+        """Ask the scheduler to fire `target` at a step's next expiry (one
+        host read of the 0-d device tensor)."""
+        if target is None or next_timer is None:
+            return
+        from siddhi_tpu_torch.core.windows import NO_TIMER
+
+        t = int(next_timer)
+        if t < NO_TIMER:
+            self._scheduler.start()
+            self._scheduler.notify_at(t, target)
+
+    def _on_timer_error(self, exc: Exception) -> None:
+        """A timer-driven step failed (on the sender's thread under
+        playback, on the scheduler's thread otherwise): hand it to the
+        exception handler, or keep it for the next send or shutdown() to
+        raise, so a failed step never goes unseen."""
+        handler = self._exception_handler
+        if handler is None:
+            self._timer_errors.append(exc)
+            return
+        logging.getLogger(__name__).error("timer step failed: %s", exc)
+        try:
+            handler(exc)
+        except Exception:
+            logging.getLogger(__name__).exception("exception handler raised")
+
+    def _raise_timer_error(self) -> None:
+        if self._timer_errors:
+            exc = self._timer_errors[0]
+            self._timer_errors.clear()
+            raise exc
 
     def _decode(self, schema: StreamSchema, batch: EventBatch):
         return schema.from_batch(batch, self.interner)
@@ -234,10 +363,8 @@ class SiddhiAppRuntime:
     # ---- public API (reference: SiddhiAppRuntime callbacks/handlers) -----
 
     def get_input_handler(self, stream_id: str):
-        h = InputHandler(self._junction(stream_id), lambda: self.clock())
-        if self._playback_clock is not None:
-            h = _PlaybackInputHandler(h, self._playback_clock)
-        return h
+        return _AppInputHandler(InputHandler(self._junction(stream_id), lambda: self.clock()),
+                                self._playback_clock, self._raise_timer_error)
 
     input_handler = get_input_handler
 
@@ -273,7 +400,7 @@ class SiddhiAppRuntime:
         raise DefinitionNotExistError(f"no stream or query named '{name}'")
 
     def set_exception_handler(self, handler) -> None:
-        """Route subscriber and fused-drain failures to `handler(exc)`
+        """Route subscriber, fused-drain and timer-step failures to `handler(exc)`
         instead of propagating to the sender (reference:
         SiddhiAppRuntime.handleExceptionWith)."""
         for j in self.junctions.values():
@@ -312,6 +439,7 @@ class SiddhiAppRuntime:
     def shutdown(self) -> None:
         if self._playback_clock is not None:
             self._playback_clock.stop()
+        self._scheduler.shutdown()
         for j in self.junctions.values():
             if j.fused_ingest is not None:
                 j.fused_ingest.close()  # stops the pipeline drain worker
@@ -319,30 +447,39 @@ class SiddhiAppRuntime:
             qr.flush_aux_warnings()  # overflow flags not yet read back
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self._raise_timer_error()
 
 
-class _PlaybackInputHandler:
-    """Advances the playback clock to each event's timestamp before dispatch
-    (reference: EventTimeBasedMillisTimestampGenerator wiring)."""
+class _AppInputHandler:
+    """Under @app:playback, advances the playback clock to each event's
+    timestamp before dispatch (reference:
+    EventTimeBasedMillisTimestampGenerator wiring); raises a failed timer
+    step's error, whichever thread ran it, before and after the dispatch."""
 
-    def __init__(self, inner: InputHandler, clock):
+    def __init__(self, inner: InputHandler, clock, raise_timer_error):
         self._inner = inner
         self._pb = clock
+        self._raise = raise_timer_error
+
+    def _advance(self, t_ms):
+        if self._pb is not None and t_ms is not None:
+            self._pb.advance(t_ms)
+        self._raise()
 
     def send(self, data, timestamp=None):
-        if timestamp is not None:
-            self._pb.advance(timestamp)
+        self._advance(timestamp)
         self._inner.send(data, timestamp)
+        self._raise()
 
     def send_many(self, rows, timestamps=None):
-        if timestamps:
-            self._pb.advance(max(timestamps))
+        self._advance(max(timestamps) if timestamps else None)
         self._inner.send_many(rows, timestamps)
+        self._raise()
 
     def send_columns(self, timestamps, cols, now=None):
-        if len(timestamps):
-            self._pb.advance(int(np.max(timestamps)))
+        self._advance(int(np.max(timestamps)) if len(timestamps) else None)
         self._inner.send_columns(timestamps, cols, now)
+        self._raise()
 
 
 def _make_insert_transform(output_events: OutputEventsFor):

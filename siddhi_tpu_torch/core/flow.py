@@ -22,8 +22,11 @@ class Flow:
     ref: the stream ref whose attributes the batch columns carry
     birth_pos / death_pos / member_env: lazy window membership (see
         aggregators.FlowInfo), set by a window stage
-    aux: device flags for the host (the selector's "groupby_overflow"),
-        read off the dispatch path by the query runtime
+    aux: device flags for the host (the selector's "groupby_overflow", a
+        join's "join_overflow", a time window's "next_timer"), read by the
+        query runtime (the flags off the dispatch path)
+    extra_cols: further columns keyed (ref, None, attr): a joined batch's
+        right-side columns and both refs' timestamps
     """
 
     batch: EventBatch
@@ -33,6 +36,7 @@ class Flow:
     death_pos: Optional[torch.Tensor] = None
     member_env: Optional[Env] = None
     aux: dict = dataclasses.field(default_factory=dict)
+    extra_cols: dict = dataclasses.field(default_factory=dict)
 
     def env(self) -> Env:
         cols: dict[VarKey, torch.Tensor] = {
@@ -40,6 +44,7 @@ class Flow:
         }
         cols[(self.ref, None, TS_ATTR)] = self.batch.ts
         cols[(self.ref, None, VALID_ATTR)] = self.batch.valid
+        cols.update(self.extra_cols)
         return Env(cols, now=self.now)
 
     # ---- kind masks ----

@@ -161,11 +161,20 @@ def _pack_launch(fn, dv, lanes, stream):
 
 
 class FuseEndpoint:
-    """One junction subscriber in fused form: the query runtime whose
-    `_step_impl(state, batch, now) -> (state', out)` the chunk loop runs."""
+    """One junction subscriber in fused form: the query runtime `qr` (its
+    state, callbacks and output schema) and the step the chunk loop runs,
+    `step(state, batch, now) -> (state', [out, ...])`: `outputs` output
+    batches per micro-batch, delivered in that order (a self-join's left then
+    right half). The default step is `qr._step_impl`, one output."""
 
-    def __init__(self, qr):
+    def __init__(self, qr, step: Optional[Callable] = None, outputs: int = 1):
         self.qr = qr
+        self.outputs = outputs
+        if step is None:
+            def step(st, b, now, _qr=qr):
+                st, out = _qr._step_impl(st, b, now)
+                return st, [out]
+        self.step = step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,7 +256,12 @@ class FusedJunctionIngest:
         if len(j.subscribers) != len(self.endpoints):
             return False  # an uncovered subscriber is attached
         for ep in self.endpoints:
-            tj = ep.qr.insert_target_junction
+            qr = ep.qr
+            # a query whose window needs the scheduler takes the per-batch
+            # path, where each step's next expiry is read and scheduled
+            if qr.uses_scheduler:
+                return False
+            tj = qr.insert_target_junction
             if tj is not None and (tj.subscribers or tj.stream_callbacks):
                 return False
         return True
@@ -332,9 +346,9 @@ class FusedJunctionIngest:
                 cols={n: c[k] for n, c in batch.cols.items()},
             )
             for ei, ep in enumerate(eps):
-                states[ei], out = ep.qr._step_impl(states[ei], bk, now_t)
+                states[ei], step_outs = ep.step(states[ei], bk, now_t)
                 if ei in outs:
-                    outs[ei].append(out)
+                    outs[ei].extend(step_outs)
         for ep, st in zip(eps, states):
             ep.qr.state = st
         packs = [self._pack(prog, i, outs[i]) for i in prog.deliver_idx]
@@ -624,7 +638,8 @@ class FusedJunctionIngest:
             if not qr.query_callbacks:
                 continue
             layout, row_bytes = prog.layouts[i]
-            hdr_rows = -(-4 * K // row_bytes)
+            n_out = K * self.endpoints[i].outputs  # output batches in the pack
+            hdr_rows = -(-4 * n_out // row_bytes)
             R = buf.shape[0] - hdr_rows
 
             def bucket(x: int) -> int:
@@ -635,7 +650,7 @@ class FusedJunctionIngest:
             # previous chunk's total
             guess = bucket(self._drain_guess.get(i, R))
             head = self._readback(buf, 0, hdr_rows + guess, event)
-            cnts = head[:hdr_rows].reshape(-1)[: 4 * K].view(np.int32)
+            cnts = head[:hdr_rows].reshape(-1)[: 4 * n_out].view(np.int32)
             total = int(cnts.sum())
             self._drain_guess[i] = max(total, 1)
             if total == 0:

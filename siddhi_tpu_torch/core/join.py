@@ -1,0 +1,437 @@
+"""Join runtime: two windowed sides probing each other on the device.
+
+Reference: query/input/stream/join/JoinProcessor.java:34-200 — each arriving
+event probes the *other* side's window via FindableProcessor.find and builds
+joined StateEvents; JoinInputStreamParser.java wires filter ->
+preJoinProcessor -> window -> postJoinProcessor per side, with left/right/full
+outer null-filling and unidirectional trigger control.
+
+Here each side's probe is one masked [R, W] condition evaluation (stock torch
+broadcasting over [R, 1] probe lanes and [1, W] view lanes); the matched
+pairs, and the outer-join misses as an extra "null partner" column, are
+compacted into a fixed-capacity joined batch by `join_assemble`, a
+hand-written CUDA kernel on the card (csrc/join_probe.cu) whose plain
+PyTorch version `join_assemble_ref` the wrapper takes only for tensors on the
+CPU. The view a probe reads is the other side's ring in insertion order
+(`SlidingWindow.view`, csrc/ring_view.cu), the open bucket of a lengthBatch
+window, or nothing for a windowless side.
+
+Table, named-window and aggregation sides are not ported yet: their
+definitions raise at app creation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Optional
+
+import torch
+
+from siddhi_tpu_torch import kernels
+from siddhi_tpu_torch.core.aggregators import _null_bits
+from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
+from siddhi_tpu_torch.core.event import (
+    EventBatch,
+    KIND_CURRENT,
+    KIND_EXPIRED,
+    KIND_TIMER,
+    StreamSchema,
+)
+from siddhi_tpu_torch.core.executor import Env, Scope, TS_ATTR, compile_expression
+from siddhi_tpu_torch.core.flow import Flow
+from siddhi_tpu_torch.core.query_runtime import BaseQueryRuntime, _FlagWatch
+from siddhi_tpu_torch.core.selector import CompiledSelector
+from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType, null_value
+from siddhi_tpu_torch.core.windows import WindowStage, make_window
+from siddhi_tpu_torch.query_api.execution import (
+    Filter,
+    JoinEventTrigger,
+    JoinInputStream,
+    JoinType,
+    OutputEventsFor,
+    Query,
+    SingleInputStream,
+    StreamFunctionHandler,
+    WindowHandler,
+)
+
+DEFAULT_JOIN_CAPACITY = 512
+
+
+# ---------------------------------------------------------------------------
+# K12: the probe compaction
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class JoinRows:
+    """The joined batch's lanes: probe lanes gathered by each slot's probe
+    row, partner lanes by its view slot (null-filled for a missed partner),
+    and whether the matches overflowed the capacity (0-d bool)."""
+
+    ts: torch.Tensor
+    kind: torch.Tensor
+    valid: torch.Tensor
+    probe_cols: dict
+    partner_cols: dict
+    partner_ts: torch.Tensor
+    overflow: torch.Tensor
+
+
+def join_assemble_ref(pair, row_mask, outer: bool, cap: int, row_ts, row_kind, row_cols: dict,
+                      vts, vcols: dict, partner_types: dict) -> JoinRows:
+    """Plain version of `join_assemble`, in the JAX package's formulation
+    (CompiledJoin._assemble): the miss column appended, a cumsum rank over
+    the flattened mask, the matched cell indices scattered into `cap` slots
+    (the rest into a dump slot), then the gathers."""
+    dev = pair.device
+    w = pair.shape[1]
+    if outer:
+        missed = row_mask & ~pair.any(dim=1)
+        pair = torch.cat([pair, missed[:, None]], dim=1)
+    wj = pair.shape[1]
+    flat = pair.reshape(-1)
+    fi = flat.to(torch.int64)
+    n = fi.sum()
+    rank = torch.cumsum(fi, 0) - fi
+    pos = torch.where(flat & (rank < cap), rank, cap)
+    idx = torch.full((cap + 1,), -1, dtype=torch.int64, device=dev)
+    idx[pos] = torch.arange(flat.shape[0], device=dev)
+    idx = idx[:cap]
+    valid = idx >= 0
+    pi = torch.div(idx, wj, rounding_mode="floor").clamp(0, pair.shape[0] - 1)
+    pj_raw = torch.where(valid, idx % wj, w)
+    null = pj_raw >= w
+    pj = pj_raw.clamp(0, w - 1)
+
+    def partner(lane, t):
+        fill = torch.tensor(null_value(t), dtype=lane.dtype, device=dev)
+        return torch.where(null, fill, lane[pj])
+
+    return JoinRows(
+        ts=row_ts[pi], kind=row_kind[pi], valid=valid,
+        probe_cols={nm: c[pi] for nm, c in row_cols.items()},
+        partner_cols={nm: partner(vcols[nm], t) for nm, t in partner_types.items()},
+        partner_ts=torch.where(null, torch.zeros((), dtype=torch.int64, device=dev), vts[pj]),
+        overflow=n > cap,
+    )
+
+
+def join_assemble(pair, row_mask, outer: bool, cap: int, row_ts, row_kind, row_cols: dict,
+                  vts, vcols: dict, partner_types: dict) -> JoinRows:
+    """Compact a join step's matched (probe row, view slot) pairs into `cap`
+    output slots in row-major order — the reference's per-arrival,
+    window-order emission — with, for an outer join, one null-partner row for
+    each probe row in `row_mask` that matched nothing.
+
+    pair: [R, W] bool; row_mask: [R] bool probe rows; row_ts/row_kind and
+    row_cols: [R] probe lanes; vts/vcols: [W] view lanes; partner_types:
+    {name: AttrType} of the view's columns (for the null fill). Slots past
+    the match count are padding: valid False, probe row 0, null partner.
+    """
+    if pair.device.type == "cpu":
+        return join_assemble_ref(pair, row_mask, outer, cap, row_ts, row_kind, row_cols, vts,
+                                 vcols, partner_types)
+    pair = pair.contiguous()
+    kernels.require_cuda("join_assemble", pair, row_mask, row_ts, row_kind,
+                         *row_cols.values(), vts, *vcols.values())
+    r, w = pair.shape
+    if pair.dtype != torch.bool or row_mask.shape != (r,) or vts.shape != (w,) or any(
+            c.shape != (r,) for c in (row_ts, row_kind, *row_cols.values())) or any(
+            c.shape != (w,) for c in vcols.values()):
+        raise ValueError(f"join_assemble: a [{r}, {w}] bool mask, [{r}] probe and [{w}] view "
+                         "lanes expected")
+    if cap < 1 or r * (w + 1) >= 2**31:
+        raise ValueError(f"join_assemble: capacity {cap} / mask [{r}, {w}] out of range")
+    dev = pair.device
+
+    def i32(n):
+        return torch.empty(n, dtype=torch.int32, device=dev)
+
+    row_cnt, row_off, n_total = i32(r), i32(r), i32(())
+    pi, pj = i32(cap), i32(cap)
+    valid = torch.empty(cap, dtype=torch.bool, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    stream = kernels.stream()
+    kernels.check(kernels.function("jp_compact")(
+        pair.data_ptr(), row_mask.data_ptr(), r, w, int(outer), cap, row_cnt.data_ptr(),
+        row_off.data_ptr(), n_total.data_ptr(), overflow.data_ptr(), pi.data_ptr(),
+        pj.data_ptr(), valid.data_ptr(), stream), "join_assemble")
+
+    def rows(lane):
+        out = torch.empty(cap, dtype=lane.dtype, device=dev)
+        kernels.check(kernels.function(f"rv_gather_{lane.element_size()}")(
+            lane.data_ptr(), pi.data_ptr(), out.data_ptr(), cap, stream), "join_assemble")
+        return out
+
+    def partner(lane, bits):
+        out = torch.empty(cap, dtype=lane.dtype, device=dev)
+        kernels.check(kernels.function(f"jp_partner_{lane.element_size()}")(
+            lane.data_ptr(), pj.data_ptr(), bits, out.data_ptr(), cap, w, stream),
+            "join_assemble")
+        return out
+
+    out = JoinRows(
+        ts=rows(row_ts), kind=rows(row_kind), valid=valid,
+        probe_cols={nm: rows(c) for nm, c in row_cols.items()},
+        partner_cols={nm: partner(vcols[nm], _null_bits(t)) for nm, t in partner_types.items()},
+        partner_ts=partner(vts, 0),
+        overflow=overflow,
+    )
+    kernels.launches["join_assemble"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# join sides
+# ---------------------------------------------------------------------------
+
+
+class NoWindow(WindowStage):
+    """A join side with no #window: arrivals probe but are never retained
+    (reference: JoinInputStreamParser wraps windowless sides in a zero-length
+    LengthWindowProcessor, JoinInputStreamParser.java:128-146)."""
+
+    def __init__(self, schema: StreamSchema, ref: str, device):
+        self.schema = schema
+        self.ref = ref
+        self.device = torch.device(device)
+
+    def init_state(self):
+        return {}
+
+    def apply(self, state, flow: Flow):
+        b = flow.batch
+        empty = EventBatch(b.ts, b.kind, torch.zeros_like(b.valid), b.cols)
+        return state, dataclasses.replace(flow, batch=empty)
+
+    def view(self, state):
+        dev = self.device
+        cols = {n: torch.zeros(1, dtype=PHYSICAL_DTYPE[t], device=dev)
+                for n, t in self.schema.attrs}
+        return (cols, torch.zeros(1, dtype=torch.int64, device=dev),
+                torch.zeros(1, dtype=torch.bool, device=dev))
+
+
+class JoinSide:
+    """One side of the join: pre-window filters and at most one window."""
+
+    def __init__(self, stream: SingleInputStream, schema: StreamSchema, scope: Scope):
+        self.stream_id = stream.stream_id
+        self.ref = stream.ref
+        self.schema = schema
+        side_scope = scope.child()
+        side_scope.default_ref = self.ref
+        self.pre_filters = []
+        self.window: Optional[WindowStage] = None
+        for h in stream.handlers:
+            if isinstance(h, Filter):
+                if self.window is not None:
+                    raise SiddhiAppCreationError(
+                        "filters after the window are not supported on join sides")
+                cond = compile_expression(h.expression, side_scope)
+                if cond.type is not AttrType.BOOL:
+                    raise SiddhiAppCreationError("filter must be a boolean expression")
+                self.pre_filters.append(cond)
+            elif isinstance(h, WindowHandler):
+                if self.window is not None:
+                    raise SiddhiAppCreationError("only one window per join side")
+                self.window = make_window(h.window, schema, self.ref, side_scope)
+            elif isinstance(h, StreamFunctionHandler):
+                raise SiddhiAppCreationError(
+                    f"stream function '{h.name}' on a join side is not ported yet")
+        if self.window is None:
+            self.window = NoWindow(schema, self.ref, scope.device)
+
+    def filter_batch(self, batch: EventBatch, now) -> EventBatch:
+        if not self.pre_filters:
+            return batch
+        cols = {(self.ref, None, n): c for n, c in batch.cols.items()}
+        cols[(self.ref, None, TS_ATTR)] = batch.ts
+        env = Env(cols, now=now)
+        mask = None
+        for c in self.pre_filters:
+            m = c(env)
+            mask = m if mask is None else (mask & m)
+        is_timer = batch.kind == KIND_TIMER  # timers bypass filters
+        return EventBatch(batch.ts, batch.kind, batch.valid & (is_timer | mask), batch.cols)
+
+
+class CompiledJoin:
+    """The join's device step per arriving side, producing a joined batch
+    whose columns carry both refs (left primary, right in extra columns)."""
+
+    def __init__(self, join: JoinInputStream, left_schema: StreamSchema,
+                 right_schema: StreamSchema, scope: Scope,
+                 out_capacity: int = DEFAULT_JOIN_CAPACITY, output_expired: bool = False):
+        self.left = JoinSide(join.left, left_schema, scope)
+        self.right = JoinSide(join.right, right_schema, scope)
+        if self.left.ref == self.right.ref:
+            raise SiddhiAppCreationError(
+                f"join sides must have distinct references; alias one: "
+                f"'from {self.left.stream_id} as a join ...'")
+        if join.within is not None or join.per is not None:
+            raise SiddhiAppCreationError("aggregation joins (within/per) are not ported yet")
+        self.join_type = join.join_type
+        self.out_capacity = int(out_capacity)
+        if self.out_capacity < 1:
+            raise SiddhiAppCreationError("@app:joinCapacity must be >= 1")
+        self.output_expired = output_expired
+        # unidirectional narrows the trigger side
+        # (reference: JoinInputStreamParser.java:214-231)
+        trigger = join.trigger
+        if join.unidirectional == "left":
+            trigger = JoinEventTrigger.LEFT
+        elif join.unidirectional == "right":
+            trigger = JoinEventTrigger.RIGHT
+        self.emit_left = trigger in (JoinEventTrigger.ALL, JoinEventTrigger.LEFT)
+        self.emit_right = trigger in (JoinEventTrigger.ALL, JoinEventTrigger.RIGHT)
+        self.on = None
+        if join.on is not None:
+            cond = compile_expression(join.on, scope)
+            if cond.type is not AttrType.BOOL:
+                raise SiddhiAppCreationError("join 'on' must be a boolean expression")
+            self.on = cond
+        self.device = scope.device
+
+    def init_state(self):
+        return {"l": self.left.window.init_state(), "r": self.right.window.init_state()}
+
+    def step(self, state, batch: EventBatch, now, side: str):
+        """side: 'l' | 'r'. Returns (state', joined Flow, aux)."""
+        arr = self.left if side == "l" else self.right
+        other = self.right if side == "l" else self.left
+        other_key = "r" if side == "l" else "l"
+        emits = self.emit_left if side == "l" else self.emit_right
+        batch = arr.filter_batch(batch, now)
+        aux: dict = {}
+        vcols, vts, vmask = other.window.view(state[other_key])
+
+        # probe 1: arriving CURRENT rows against the other window (reference:
+        # preJoinProcessor — the probe happens BEFORE the own-window insert)
+        cur_rows = batch.valid & (batch.kind == KIND_CURRENT)
+        wstate, wflow = arr.window.apply(state[side], Flow(batch=batch, ref=arr.ref, now=now))
+        if "next_timer" in wflow.aux:
+            aux["next_timer"] = wflow.aux["next_timer"]
+        probes = []
+        if emits:
+            probes.append((batch, cur_rows, KIND_CURRENT))
+            if self.output_expired:
+                exp = wflow.batch
+                probes.append((exp, exp.valid & (exp.kind == KIND_EXPIRED), KIND_EXPIRED))
+        joined = self._assemble(probes, arr, other, vcols, vts, vmask, now, side, aux)
+        new_state = dict(state)
+        new_state[side] = wstate
+        return new_state, joined, aux
+
+    def _assemble(self, probes, arr, other, vcols, vts, vmask, now, side, aux) -> Flow:
+        """Evaluate the on-condition for every probe set and compact the
+        matched pairs (plus outer misses) into one fixed-capacity Flow."""
+        dev = self.device
+        outer = (
+            self.join_type is JoinType.FULL_OUTER
+            or (side == "l" and self.join_type is JoinType.LEFT_OUTER)
+            or (side == "r" and self.join_type is JoinType.RIGHT_OUTER)
+        )
+        if probes:
+            row_ts = torch.cat([b.ts for b, _, _ in probes])
+            row_mask = torch.cat([m for _, m, _ in probes])
+            row_kind = torch.cat([torch.full(m.shape, k, dtype=torch.int8, device=dev)
+                                  for _, m, k in probes])
+            row_cols = {n: torch.cat([b.cols[n] for b, _, _ in probes]) for n in probes[0][0].cols}
+        else:  # a side that does not trigger: an empty probe set
+            row_ts = torch.zeros(1, dtype=torch.int64, device=dev)
+            row_mask = torch.zeros(1, dtype=torch.bool, device=dev)
+            row_kind = torch.zeros(1, dtype=torch.int8, device=dev)
+            row_cols = {n: torch.zeros(1, dtype=PHYSICAL_DTYPE[t], device=dev)
+                        for n, t in arr.schema.attrs}
+
+        env_cols = {(arr.ref, None, n): c[:, None] for n, c in row_cols.items()}
+        env_cols[(arr.ref, None, TS_ATTR)] = row_ts[:, None]
+        env_cols.update({(other.ref, None, n): c[None, :] for n, c in vcols.items()})
+        env_cols[(other.ref, None, TS_ATTR)] = vts[None, :]
+        pair = row_mask[:, None] & vmask[None, :]
+        if self.on is not None:
+            pair = pair & self.on(Env(env_cols, now=now))
+        res = join_assemble(pair, row_mask, outer, self.out_capacity, row_ts, row_kind, row_cols,
+                            vts, vcols, other.schema.attr_types)
+        aux["join_overflow"] = res.overflow
+
+        # the primary batch always carries the LEFT side's columns, so the
+        # selector's layout is stable; only the per-ref timestamps depend on
+        # the arriving side
+        if side == "l":
+            left_cols, right_cols = res.probe_cols, res.partner_cols
+            left_ts, right_ts = res.ts, res.partner_ts
+        else:
+            left_cols, right_cols = res.partner_cols, res.probe_cols
+            left_ts, right_ts = res.partner_ts, res.ts
+        batch = EventBatch(res.ts, res.kind, res.valid, left_cols)
+        extra = {(self.right.ref, None, n): c for n, c in right_cols.items()}
+        extra[(self.right.ref, None, TS_ATTR)] = right_ts
+        extra[(self.left.ref, None, TS_ATTR)] = left_ts
+        return Flow(batch=batch, ref=self.left.ref, now=now, extra_cols=extra, aux=aux)
+
+
+class JoinQueryRuntime(BaseQueryRuntime):
+    """A compiled join query, its device state and the host routing
+    (reference: JoinStreamRuntime + QueryRuntime)."""
+
+    def __init__(self, query: Query, query_id: str, left_schema: StreamSchema,
+                 right_schema: StreamSchema, interner, device,
+                 group_capacity: Optional[int] = None,
+                 join_capacity: int = DEFAULT_JOIN_CAPACITY):
+        join = query.input_stream
+        assert isinstance(join, JoinInputStream)
+        self.query = query
+        self.query_id = query_id
+        self.device = torch.device(device)
+        scope = Scope(interner, self.device)
+        lref, rref = join.left.ref, join.right.ref
+        scope.add_stream(lref, left_schema.attr_types)
+        scope.add_stream(rref, right_schema.attr_types)
+        scope.default_ref = lref
+        self._scope = scope
+        output_expired = query.output_stream.output_events is not OutputEventsFor.CURRENT
+        self.join = CompiledJoin(join, left_schema, right_schema, scope,
+                                 out_capacity=join_capacity, output_expired=output_expired)
+        combined_attrs = list(left_schema.attrs) + list(right_schema.attrs)
+        self.selector = CompiledSelector(query.selector, scope, combined_attrs, windowed=False,
+                                         group_capacity=group_capacity)
+        self._setup_output(query, query_id)
+        self._join_overflow = _FlagWatch(self.device, self._log_join_overflow)
+        # the sides whose window needs timers
+        self.scheduled_sides = tuple(
+            side for side, js in (("l", self.join.left), ("r", self.join.right))
+            if js.window.needs_scheduler)
+        self.uses_scheduler = bool(self.scheduled_sides)
+        self.side_schemas = {"l": left_schema, "r": right_schema}
+
+    def init_state(self):
+        return {"join": self.join.init_state(), "sel": self.selector.init_state()}
+
+    def _step_impl(self, state, batch: EventBatch, now: torch.Tensor, side: str):
+        jstate, flow, aux = self.join.step(state["join"], batch, now, side)
+        sel_state, out = self.selector.apply(state["sel"], flow)
+        self._note_aux(aux)
+        self._join_overflow.note(aux["join_overflow"])
+        self._join_overflow.poll()
+        return {"join": jstate, "sel": sel_state}, out
+
+    def receive(self, batch: EventBatch, now: int, side: str) -> EventBatch:
+        with self._receive_lock:
+            if self.state is None:
+                self.state = self.init_state()
+            now_t = torch.full((), now, dtype=torch.int64, device=self.device)
+            self.state, out = self._step_impl(self.state, batch, now_t, side)
+        return out
+
+    def _log_join_overflow(self) -> None:
+        logging.getLogger(__name__).warning(
+            "query '%s': join output overflowed its capacity; matches were "
+            "dropped — raise it with @app:joinCapacity(size='N')", self.query_id)
+
+    def flush_aux_warnings(self) -> None:
+        super().flush_aux_warnings()
+        self._join_overflow.flush()

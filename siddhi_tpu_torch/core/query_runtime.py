@@ -58,7 +58,7 @@ class CompiledSingleChain:
             elif isinstance(h, WindowHandler):
                 if self.window is not None:
                     raise SiddhiAppCreationError("only one window per stream")
-                self.window = make_window(h.window, schema, self.ref, scope.device)
+                self.window = make_window(h.window, schema, self.ref, scope)
                 self.stages.append(("window", self.window))
             else:
                 raise SiddhiAppCreationError(
@@ -134,8 +134,89 @@ class _FlagWatch:
             self.on_set()
 
 
-class QueryRuntime:
-    """Compiled query + device state + host output routing."""
+class BaseQueryRuntime:
+    """Output setup and host routing shared by single-stream and join
+    queries. A subclass sets `query`, `query_id`, `device`, `_scope` and
+    `selector`, then calls `_setup_output`."""
+
+    def _setup_output(self, query: Query, query_id: str) -> None:
+        if query.output_rate is not None:
+            raise SiddhiAppCreationError("output rate limiting is not ported yet")
+        out = query.output_stream
+        target = out.target if isinstance(out, InsertIntoStream) else f"__ret_{query_id}"
+        self.out_schema = StreamSchema(target, self.selector.out_attrs)
+        self.output_events = out.output_events
+        self._overflow = _FlagWatch(self.device, self._log_group_overflow)
+        # the last step's earliest expiry (0-d int64 device tensor) when its
+        # window needs the scheduler, else None; read by the app runtime
+        self.next_timer: Optional[torch.Tensor] = None
+        # the scheduler's target for each input whose window needs timers
+        # ("in" for a single stream, "l"/"r" for join sides); set by the
+        # app runtime when `uses_scheduler`
+        self.timer_targets: dict[str, Callable[[int], None]] = {}
+        self.query_callbacks: list[Callable] = []
+        # the user callbacks behind query_callbacks, one to one: the fused
+        # drain builds Event lists once and calls them directly
+        self.raw_query_callbacks: list[Callable] = []
+        self.publish_fn: Optional[Callable] = None
+        self.insert_target_junction = None
+        self._receive_lock = threading.RLock()
+        self.state = None
+
+    @property
+    def used_attrs(self):
+        """Input attribute names this query can ever read (from the compile
+        scope's resolved keys), or None for everything (select *). Fused
+        ingest drops the other columns from the wire."""
+        if self.query.selector.select_all:
+            return None
+        return {k[2] for k in self._scope.used_keys}
+
+    def _note_aux(self, aux: dict) -> None:
+        """Take a step's device flags: the group-by overflow is ORed and read
+        off the dispatch path; the next expiry is kept for the scheduler."""
+        if "groupby_overflow" in aux:
+            self._overflow.note(aux["groupby_overflow"])
+            self._overflow.poll()
+        self.next_timer = aux.get("next_timer")
+
+    def _log_group_overflow(self) -> None:
+        logging.getLogger(__name__).error(
+            "query '%s': group-by slot table overflowed (capacity %d); overflowed "
+            "keys lose their cross-batch carry — raise it with "
+            "@app:groupCapacity(size='N')",
+            self.query_id, self.selector.group.capacity,
+        )
+
+    def flush_aux_warnings(self) -> None:
+        """Read the pending overflow flags now (one device sync) and log."""
+        self._overflow.flush()
+
+    def route_output(self, out: EventBatch, now: int, decode) -> None:
+        """Dispatch a step's output to query callbacks / downstream junction.
+
+        `decode` = app-runtime host decoder (batch -> event triples).
+        """
+        if self.query_callbacks:
+            events = decode(self.out_schema, out)
+            if events:
+                want = self.output_events
+                ins = [] if want is OutputEventsFor.EXPIRED else [
+                    e for e in events if e[1] == KIND_CURRENT
+                ]
+                removed = [] if want is OutputEventsFor.CURRENT else [
+                    e for e in events if e[1] == KIND_EXPIRED
+                ]
+                if ins or removed:
+                    ts = events[-1][0]
+                    for cb in self.query_callbacks:
+                        cb(ts, ins or None, removed or None)
+        if self.publish_fn is not None:
+            self.publish_fn(out, now)
+
+
+class QueryRuntime(BaseQueryRuntime):
+    """Compiled single-stream query + device state + host output routing."""
 
     def __init__(
         self,
@@ -163,6 +244,7 @@ class QueryRuntime:
         self.chain = CompiledSingleChain(stream, in_schema, scope)
         win = self.chain.window
         is_batch = win is not None and win.is_batch
+        self.uses_scheduler = win is not None and win.needs_scheduler
         self.selector = CompiledSelector(
             query.selector,
             scope,
@@ -171,15 +253,10 @@ class QueryRuntime:
             batch_mode=is_batch,
             group_capacity=group_capacity,
         )
-        if query.output_rate is not None:
-            raise SiddhiAppCreationError("output rate limiting is not ported yet")
-        out = query.output_stream
-        target = out.target if isinstance(out, InsertIntoStream) else f"__ret_{query_id}"
-        self.out_schema = StreamSchema(target, self.selector.out_attrs)
-        self.output_events = out.output_events
+        self._setup_output(query, query_id)
         # the ungrouped batch collapse gates its last event by kind
         # (reference: QuerySelector currentOn/expiredOn gate lastEvent)
-        self.selector.output_events_for_batch = out.output_events
+        self.selector.output_events_for_batch = self.output_events
         # a batch window skips its EXPIRED lanes when nothing can observe
         # them: `insert [current] into` output and no membership-reading
         # aggregator (windowed min/max); the flow is then w + B + F rows,
@@ -189,27 +266,9 @@ class QueryRuntime:
             and not any(isinstance(a, ExtremeAggregator) for a in self.selector.aggregators)
         ):
             win.emit_expired = False
-        self._overflow = _FlagWatch(self.device, self._log_group_overflow)
-        self.query_callbacks: list[Callable] = []
-        # the user callbacks behind query_callbacks, one to one: the fused
-        # drain builds Event lists once and calls them directly
-        self.raw_query_callbacks: list[Callable] = []
-        self.publish_fn: Optional[Callable] = None
-        self.insert_target_junction = None
-        self._receive_lock = threading.RLock()
-        self.state = None
 
     def init_state(self):
         return {"chain": self.chain.init_state(), "sel": self.selector.init_state()}
-
-    @property
-    def used_attrs(self):
-        """Input attribute names this query can ever read (from the compile
-        scope's resolved keys), or None for everything (select *). Fused
-        ingest drops the other columns from the wire."""
-        if self.query.selector.select_all:
-            return None
-        return {k[2] for k in self._scope.used_keys}
 
     # ---- device program --------------------------------------------------
 
@@ -217,22 +276,8 @@ class QueryRuntime:
         flow = Flow(batch=batch, ref=self.ref, now=now)
         chain_state, flow = self.chain.apply(state["chain"], flow)
         sel_state, out = self.selector.apply(state["sel"], flow)
-        if "groupby_overflow" in flow.aux:
-            self._overflow.note(flow.aux["groupby_overflow"])
-            self._overflow.poll()
+        self._note_aux(flow.aux)
         return {"chain": chain_state, "sel": sel_state}, out
-
-    def _log_group_overflow(self) -> None:
-        logging.getLogger(__name__).error(
-            "query '%s': group-by slot table overflowed (capacity %d); overflowed "
-            "keys lose their cross-batch carry — raise it with "
-            "@app:groupCapacity(size='N')",
-            self.query_id, self.selector.group.capacity,
-        )
-
-    def flush_aux_warnings(self) -> None:
-        """Read the pending overflow flag now (one device sync) and log."""
-        self._overflow.flush()
 
     # ---- host side -------------------------------------------------------
 
@@ -243,25 +288,3 @@ class QueryRuntime:
             now_t = torch.full((), now, dtype=torch.int64, device=self.device)
             self.state, out = self._step_impl(self.state, batch, now_t)
         return out
-
-    def route_output(self, out: EventBatch, now: int, decode) -> None:
-        """Dispatch a step's output to query callbacks / downstream junction.
-
-        `decode` = app-runtime host decoder (batch -> event triples).
-        """
-        if self.query_callbacks:
-            events = decode(self.out_schema, out)
-            if events:
-                want = self.output_events
-                ins = [] if want is OutputEventsFor.EXPIRED else [
-                    e for e in events if e[1] == KIND_CURRENT
-                ]
-                removed = [] if want is OutputEventsFor.CURRENT else [
-                    e for e in events if e[1] == KIND_EXPIRED
-                ]
-                if ins or removed:
-                    ts = events[-1][0]
-                    for cb in self.query_callbacks:
-                        cb(ts, ins or None, removed or None)
-        if self.publish_fn is not None:
-            self.publish_fn(out, now)

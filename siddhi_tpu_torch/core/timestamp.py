@@ -83,10 +83,12 @@ class EventTimeClock:
 class EventTimeScheduler:
     """Same notify_at contract as SystemTimeScheduler, but fires when the
     playback clock passes the scheduled time (reference:
-    util/EventTimeBasedScheduler.java)."""
+    util/EventTimeBasedScheduler.java). A target that raises is handed to
+    `on_error(exc)` and the due targets after it still fire."""
 
-    def __init__(self, clock: EventTimeClock):
+    def __init__(self, clock: EventTimeClock, on_error: Callable[[Exception], None]):
         self.clock = clock
+        self._on_error = on_error
         self._heap: list[tuple[int, int, Callable[[int], None]]] = []
         self._times: dict[int, int] = {}
         self._lock = threading.Lock()
@@ -128,10 +130,8 @@ class EventTimeScheduler:
                         continue
                 try:
                     target(t_ms)
-                except Exception:  # pragma: no cover
-                    import traceback
-
-                    traceback.print_exc()
+                except Exception as exc:
+                    self._on_error(exc)
         finally:
             self._tls.dispatching = False
 

@@ -4,16 +4,18 @@ Reference: query/processor/stream/window/*.java. The reference mutates per-event
 queues inside synchronized blocks; here each window is a stage over the Flow
 with a fixed-capacity slot-indexed ring as carried state.
 
-Ported so far: the length window and the lengthBatch window. The length
-window's emission order follows the reference: per arrival when full, the
-evictee's EXPIRED is emitted before the arrival's CURRENT
-(LengthWindowProcessor.java:102-138 insertBeforeCurrent). lengthBatch flushes
-tumbling buckets (LengthBatchWindowProcessor.java:108-160). Each step is a
-hand-written CUDA kernel on the card (csrc/length_window.cu,
-csrc/batch_window.cu); `length_window_step_ref` and `batch_window_step_ref`
-are their plain PyTorch versions, which the wrappers take only for tensors on
-the CPU. timeBatch, externalTimeBatch and the other windows raise "not
-ported yet".
+Ported so far: length, time, timeLength, externalTime and lengthBatch, and
+the findable views a join probes. The length window's emission order follows
+the reference: per arrival when full, the evictee's EXPIRED is emitted before
+the arrival's CURRENT (LengthWindowProcessor.java:102-138
+insertBeforeCurrent); in the time windows every due EXPIRED flushes before
+its triggering CURRENT or TIMER row (TimeWindowProcessor.java:79+).
+lengthBatch flushes tumbling buckets (LengthBatchWindowProcessor.java:
+108-160). Each step, and the ring view, is a hand-written CUDA kernel on the
+card (csrc/length_window.cu, csrc/time_window.cu, csrc/batch_window.cu,
+csrc/ring_view.cu); the `*_ref` functions are their plain PyTorch versions,
+which the wrappers take only for tensors on the CPU. timeBatch,
+externalTimeBatch and the other windows raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -27,14 +29,15 @@ from siddhi_tpu_torch.core.event import (
     KIND_CURRENT,
     KIND_EXPIRED,
     KIND_RESET,
+    KIND_TIMER,
     StreamSchema,
 )
-from siddhi_tpu_torch.core.executor import Env, TS_ATTR
+from siddhi_tpu_torch.core.executor import Env, Scope, TS_ATTR
 from siddhi_tpu_torch.core.flow import Flow
-from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE
+from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType
 from siddhi_tpu_torch.ops.scatter import set_at
 from siddhi_tpu_torch.query_api.definition import WindowSpec
-from siddhi_tpu_torch.query_api.expression import Constant
+from siddhi_tpu_torch.query_api.expression import Constant, Variable
 
 BIG = torch.iinfo(torch.int32).max
 
@@ -47,15 +50,24 @@ def _const_param(spec: WindowSpec, i: int, what: str) -> int:
 
 class WindowStage:
     """Base: (state, Flow) -> (state', Flow'). `is_batch`: the window flushes
-    tumbling buckets (the selector then collapses each flush)."""
+    tumbling buckets (the selector then collapses each flush).
+    `needs_scheduler`: the step reports its next expiry ("next_timer" in the
+    flow's aux) and TIMER rows must be sent when it falls due."""
 
     is_batch = False
+    needs_scheduler = False
 
     def init_state(self):
         raise NotImplementedError
 
     def apply(self, state, flow: Flow):
         raise NotImplementedError
+
+    def view(self, state):
+        """Stored window contents for a join's probe: `(cols, ts, mask)` with
+        rows in insertion order (reference: FindableProcessor.find,
+        LengthWindowProcessor.java:144)."""
+        raise NotImplementedError(f"{type(self).__name__} is not findable")
 
 
 def length_window_step_ref(state: dict, batch: EventBatch, w: int):
@@ -226,17 +238,294 @@ def length_window_step(state: dict, batch: EventBatch, w: int):
     return out, birth, death, new_state
 
 
-class SlidingWindow(WindowStage):
-    """length(N): a ring of capacity W = N; each arrival beyond the N-th
-    evicts the oldest element, emitted as EXPIRED just before the arrival's
-    CURRENT."""
+NO_TIMER = torch.iinfo(torch.int64).max
+DEFAULT_TIME_CAPACITY = 1024
+_I64_MIN = torch.iinfo(torch.int64).min
 
-    def __init__(self, schema: StreamSchema, ref: str, capacity: int, device):
+
+def _time_trigger_ref(vals: torch.Tensor, start: torch.Tensor, target: torch.Tensor):
+    """For each element, the first row r >= start with vals[r] >= target
+    (len(vals) when none), by binary lifting over a sparse table of running
+    maxima: no [elements, rows] matrix is formed."""
+    bsz = vals.shape[0]
+    levels = max(1, int(bsz).bit_length())  # 2**levels > bsz
+    size = 1 << levels
+    table = [torch.cat([vals, torch.full((size - bsz,), _I64_MIN, dtype=torch.int64,
+                                          device=vals.device)])]
+    for k in range(1, levels + 1):
+        prev, half = table[-1], 1 << (k - 1)
+        shifted = torch.cat([prev[half:], torch.full((half,), _I64_MIN, dtype=torch.int64,
+                                                     device=vals.device)])
+        table.append(torch.maximum(prev, shifted))
+    pos = start.to(torch.int64)
+    for k in range(levels, -1, -1):
+        step = 1 << k
+        span_max = table[k][pos.clamp(max=size - 1)]
+        ok = (pos + step <= size) & (span_max < target)
+        pos = torch.where(ok, pos + step, pos)
+    return pos.clamp(max=bsz)
+
+
+def time_window_step_ref(state: dict, batch: EventBatch, bwts: torch.Tensor, w: int, t: int):
+    """Plain version of `time_window_step`, in the JAX package's formulation
+    (SlidingWindow.apply's time path) without its [W+B, B] due matrix and
+    [W+2B, W+B] member matrix: each element's first time-trigger row comes
+    from `_time_trigger_ref`, the death/birth candidates are ordered by one
+    stable sort on (trigger row * 2 | row * 2 + 1, seq), and the ring update is
+    `_ring_state`'s scatter. Padding rows are zeroed."""
+    dev = batch.ts.device
+    bsz = batch.capacity
+    k = w + bsz
+    total = state["total"]
+    valid_cur = batch.valid & (batch.kind == KIND_CURRENT)
+    is_timer = batch.valid & (batch.kind == KIND_TIMER)
+    vc = valid_cur.to(torch.int32)
+    rank = torch.cumsum(vc, 0, dtype=torch.int32) - vc
+    c = vc.sum(dtype=torch.int32)
+    seq_batch = torch.where(valid_cur, total + rank, torch.full_like(batch.ts, -1))
+    elem_seq = torch.cat([state["seq"], seq_batch])
+    elem_wts = torch.cat([state["wts"], bwts])
+    elem_ts = torch.cat([state["ts"], batch.ts])
+    present = elem_seq >= 0
+    rows = torch.arange(bsz, dtype=torch.int64, device=dev)
+    own_row = torch.cat([torch.full((w,), -1, dtype=torch.int64, device=dev), rows])
+
+    # capacity: the insertion of seq + W evicts seq
+    trig_rank = elem_seq + w - total
+    len_ok = present & (trig_rank >= 0) & (trig_rank < c)
+    perm = torch.argsort((~valid_cur).to(torch.uint8), stable=True)  # rank -> row
+    trig_len = torch.where(len_ok, perm[trig_rank.clamp(0, bsz - 1)], BIG)
+    # time: the first CURRENT or TIMER row at or after the element's own whose
+    # window time is >= its own + t
+    trig_vals = torch.where(valid_cur | is_timer, bwts, _I64_MIN)
+    first = _time_trigger_ref(trig_vals, own_row.clamp(min=0), elem_wts + t)
+    trig_time = torch.where(present & (first < bsz), first, BIG)
+    trig_row = torch.minimum(trig_len, trig_time)
+    evict = present & (trig_row < BIG)
+
+    # candidates: k deaths (key 2 * trigger row) and B births (2 * row + 1),
+    # ordered by (key, seq)
+    cand_key = torch.cat([torch.where(evict, trig_row * 2, BIG),
+                          torch.where(valid_cur, rows * 2 + 1, BIG)])
+    cand_elem = torch.cat([torch.arange(k, device=dev), torch.arange(w, k, device=dev)])
+    cand_exp = torch.cat([torch.ones(k, dtype=torch.bool, device=dev),
+                          torch.zeros(bsz, dtype=torch.bool, device=dev)])
+    cand_valid = cand_key < BIG
+    cand_seq = elem_seq[cand_elem]
+    order = torch.argsort(cand_seq, stable=True)
+    order = order[torch.argsort(cand_key[order], stable=True)]
+    o_valid = cand_valid[order]
+    o_exp = cand_exp[order] & o_valid
+    o_elem = cand_elem[order]
+    o_trig = (cand_key[order] // 2).clamp(0, bsz - 1)
+    zero64 = torch.zeros((), dtype=torch.int64, device=dev)
+    out_ts = torch.where(o_exp, batch.ts[o_trig], elem_ts[o_elem])
+    out = EventBatch(
+        ts=torch.where(o_valid, out_ts, zero64),
+        kind=(o_exp.to(torch.int8) * KIND_EXPIRED),
+        valid=o_valid,
+        cols={n: torch.where(o_valid, torch.cat([state["cols"][n], a])[o_elem],
+                             torch.zeros((), dtype=a.dtype, device=dev))
+              for n, a in batch.cols.items()},
+    )
+
+    # lazy membership: element e is in the window at output rows
+    # birth <= p < death (absent elements: death -1)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=dev)
+    inv = inv.to(torch.int32)
+    birth = torch.cat([torch.full((w,), -1, dtype=torch.int32, device=dev),
+                       torch.where(valid_cur, inv[k:], -1)])
+    death = torch.where(evict, inv[:k], BIG)
+    death = torch.where(present, death, -1)
+
+    # the ring after the batch (SlidingWindow._ring_state): rows evicted
+    # within the batch are not inserted
+    ring_evicted = evict[:w]
+    insert = valid_cur & ~evict[w:] & (rank >= c - w)
+    slots = torch.where(insert, (total + rank) % w, w)
+
+    def place(old, vals, cleared):
+        return set_at(torch.where(ring_evicted, cleared, old), slots, vals)
+
+    zero = lambda x: torch.zeros((), dtype=x.dtype, device=dev)  # noqa: E731
+    new_seq = place(state["seq"], seq_batch, torch.full((), -1, dtype=torch.int64, device=dev))
+    new_state = {
+        "cols": {n: place(state["cols"][n], a, zero(a)) for n, a in batch.cols.items()},
+        "ts": place(state["ts"], batch.ts, zero64),
+        "wts": place(state["wts"], bwts, zero64),
+        "seq": new_seq,
+        "total": total + c,
+    }
+    live_wts = torch.where(new_seq >= 0, new_state["wts"], NO_TIMER - t)
+    next_timer = live_wts.min() + t
+    return out, birth, death, new_state, next_timer
+
+
+def time_window_step(state: dict, batch: EventBatch, bwts: torch.Tensor, w: int, t: int):
+    """One step of a sliding time window (time, timeLength, externalTime):
+    B arrivals into a W-slot ring whose elements also expire once a CURRENT
+    or TIMER row's window time reaches their own + t.
+
+    state: as `length_window_step`'s ("wts" holds each element's window
+           time); bwts: [B] int64 window time of each batch row (the event ts,
+           or the externalTime attribute)
+    returns (out, birth_pos, death_pos, new_state, next_timer):
+      out        [W + 2B] EventBatch: each row's due EXPIREDs (ordered by
+                 seq, carrying the trigger row's ts) before its CURRENT, then
+                 zeroed padding rows with valid False
+      birth_pos / death_pos  [W + B] int32 lazy membership, as
+                 `length_window_step`'s
+      new_state  the ring after the batch (it may hold holes: seq -1)
+      next_timer 0-d int64: the earliest live window time + t (NO_TIMER when
+                 the ring is empty)
+    """
+    if batch.ts.device.type == "cpu":
+        return time_window_step_ref(state, batch, bwts, w, t)
+    lanes = [batch.ts, batch.kind, batch.valid, bwts, *batch.cols.values(), state["ts"],
+             state["wts"], state["seq"], state["total"], *state["cols"].values()]
+    kernels.require_cuda("time_window_step", *lanes)
+    bsz = batch.capacity
+    if any(x.shape != (bsz,) for x in (batch.kind, batch.valid, bwts,
+                                       *batch.cols.values())) or any(
+        x.shape != (w,) for x in (state["ts"], state["wts"], state["seq"],
+                                  *state["cols"].values())
+    ):
+        raise ValueError(f"time_window_step: lanes must be [{bsz}] and ring lanes [{w}]")
+    if (batch.ts.dtype, batch.kind.dtype, batch.valid.dtype, bwts.dtype, state["seq"].dtype,
+            state["wts"].dtype, state["total"].dtype) != (
+            torch.int64, torch.int8, torch.bool, torch.int64, torch.int64, torch.int64,
+            torch.int64) or any(state["cols"][n].dtype != a.dtype
+                                for n, a in batch.cols.items()):
+        raise ValueError("time_window_step: lane dtypes must be int64 ts/wts/seq/total, "
+                         "int8 kind, bool valid, and each ring column the batch's dtype")
+    if w < 1 or 2 * (w + 2 * bsz) >= 2**31:
+        raise ValueError(f"time_window_step: batch {bsz} / ring {w} out of range")
+    dev = batch.ts.device
+
+    def i32(n):
+        return torch.empty(n, dtype=torch.int32, device=dev)
+
+    size = 1 << max(1, int(bsz - 1).bit_length())  # segment-tree leaves >= B
+    tree = torch.empty(2 * size, dtype=torch.int64, device=dev)
+    rank, perm, count = i32(bsz), i32(bsz), i32(())
+    trig, hist, dx, cursor = i32(w + bsz), i32(bsz), i32(bsz), i32(bsz)
+    by_seq, dpos = i32(w + bsz), i32(w + bsz)
+    n_valid = i32(())
+    birth, death = i32(w + bsz), i32(w + bsz)
+    n_out = w + 2 * bsz
+    out_src, ring_src = i32(n_out), i32(w)
+    out_ts = torch.empty(n_out, dtype=torch.int64, device=dev)
+    out_kind = torch.empty(n_out, dtype=torch.int8, device=dev)
+    out_valid = torch.empty(n_out, dtype=torch.bool, device=dev)
+    new_seq = torch.empty(w, dtype=torch.int64, device=dev)
+    new_total = torch.empty((), dtype=torch.int64, device=dev)
+    next_timer = torch.empty((), dtype=torch.int64, device=dev)
+    stream = kernels.stream()
+    err = kernels.function("tw_prepare")(
+        batch.kind.data_ptr(), batch.valid.data_ptr(), batch.ts.data_ptr(), bwts.data_ptr(),
+        state["seq"].data_ptr(), state["wts"].data_ptr(), state["total"].data_ptr(),
+        bsz, w, size, t, tree.data_ptr(), rank.data_ptr(), perm.data_ptr(), count.data_ptr(),
+        trig.data_ptr(), hist.data_ptr(), dx.data_ptr(), cursor.data_ptr(), by_seq.data_ptr(),
+        dpos.data_ptr(), n_valid.data_ptr(), birth.data_ptr(), death.data_ptr(),
+        out_src.data_ptr(), out_ts.data_ptr(), out_kind.data_ptr(), out_valid.data_ptr(),
+        ring_src.data_ptr(), new_seq.data_ptr(), new_total.data_ptr(), next_timer.data_ptr(),
+        stream,
+    )
+    kernels.check(err, "time_window_step")
+
+    def gather(ring_lane, batch_lane, idx):
+        out = torch.empty(idx.shape[0], dtype=ring_lane.dtype, device=dev)
+        fn = kernels.function(f"lw_gather_{ring_lane.element_size()}")
+        kernels.check(
+            fn(ring_lane.data_ptr(), batch_lane.data_ptr(), idx.data_ptr(),
+               out.data_ptr(), idx.shape[0], w, stream),
+            "time_window_step",
+        )
+        return out
+
+    out = EventBatch(
+        ts=out_ts, kind=out_kind, valid=out_valid,
+        cols={n: gather(state["cols"][n], a, out_src) for n, a in batch.cols.items()},
+    )
+    new_state = {
+        "cols": {n: gather(state["cols"][n], a, ring_src) for n, a in batch.cols.items()},
+        "ts": gather(state["ts"], batch.ts, ring_src),
+        "wts": gather(state["wts"], bwts, ring_src),
+        "seq": new_seq,
+        "total": new_total,
+    }
+    kernels.launches["time_window_step"] += 1
+    return out, birth, death, new_state, next_timer
+
+
+def ring_view_ref(state: dict):
+    """Plain version of `ring_view`: SlidingWindow._view_perm's stable
+    argsort of seq (empty slots last, in slot order), then every lane
+    gathered in that order."""
+    mask = state["seq"] >= 0
+    perm = torch.argsort(torch.where(mask, state["seq"], NO_TIMER), stable=True)
+    cols = {n: c[perm] for n, c in state["cols"].items()}
+    return cols, state["ts"][perm], mask[perm]
+
+
+def ring_view(state: dict):
+    """A sliding ring's stored contents in insertion order, for a join's
+    probe (reference: FindableProcessor.find over the window buffer):
+    (cols {name: [W]}, ts [W], mask [W]), live elements first by seq, then
+    the empty slots in slot order. Live seqs lie in [total - W, total), so
+    the order is a rank over that dense range (csrc/ring_view.cu)."""
+    if state["seq"].device.type == "cpu":
+        return ring_view_ref(state)
+    lanes = [state["ts"], state["seq"], state["total"], *state["cols"].values()]
+    kernels.require_cuda("ring_view", *lanes)
+    w = state["seq"].shape[0]
+    if state["seq"].dtype != torch.int64 or state["total"].dtype != torch.int64 or any(
+            x.shape != (w,) for x in (state["ts"], *state["cols"].values())):
+        raise ValueError(f"ring_view: int64 seq/total and [{w}] ring lanes expected")
+    dev = state["seq"].device
+    perm = torch.empty(w, dtype=torch.int32, device=dev)
+    mask = torch.empty(w, dtype=torch.bool, device=dev)
+    scratch = torch.empty(w, dtype=torch.int32, device=dev)
+    stream = kernels.stream()
+    kernels.check(kernels.function("rv_order")(
+        state["seq"].data_ptr(), state["total"].data_ptr(), w, scratch.data_ptr(),
+        perm.data_ptr(), mask.data_ptr(), stream), "ring_view")
+
+    def gather(lane):
+        out = torch.empty(w, dtype=lane.dtype, device=dev)
+        kernels.check(kernels.function(f"rv_gather_{lane.element_size()}")(
+            lane.data_ptr(), perm.data_ptr(), out.data_ptr(), w, stream), "ring_view")
+        return out
+
+    cols = {n: gather(c) for n, c in state["cols"].items()}
+    ts = gather(state["ts"])
+    kernels.launches["ring_view"] += 1
+    return cols, ts, mask
+
+
+class SlidingWindow(WindowStage):
+    """A ring of capacity W that always length-evicts at W, plus an optional
+    time predicate over each element's window time (the event ts, or an
+    attribute for externalTime). Covers length(N) [W = N], time(T),
+    timeLength(T, N) and externalTime(attr, T).
+
+    Overflow policy for time windows (as the JAX package's): when more than W
+    events are live at once, the oldest are evicted EARLY and still emitted
+    as EXPIRED, so downstream aggregates stay consistent; only the expiry
+    time is early. Raise DEFAULT_TIME_CAPACITY if that matters."""
+
+    def __init__(self, schema: StreamSchema, ref: str, capacity: int, device,
+                 duration_ms: int | None = None, time_attr: str | None = None,
+                 use_scheduler: bool = False):
         if capacity < 1:
-            raise SiddhiAppCreationError(f"length window needs a length >= 1, got {capacity}")
+            raise SiddhiAppCreationError(f"window needs a length >= 1, got {capacity}")
         self.schema = schema
         self.ref = ref
         self.w = int(capacity)
+        self.t = duration_ms
+        self.time_attr = time_attr
+        self.needs_scheduler = use_scheduler
         self.device = torch.device(device)
 
     def init_state(self):
@@ -254,7 +543,15 @@ class SlidingWindow(WindowStage):
 
     def apply(self, state, flow: Flow):
         b = flow.batch
-        out, birth, death, new_state = length_window_step(state, b, self.w)
+        aux = dict(flow.aux)
+        if self.t is None:
+            out, birth, death, new_state = length_window_step(state, b, self.w)
+        else:
+            bwts = b.ts if self.time_attr is None else b.cols[self.time_attr].to(torch.int64)
+            out, birth, death, new_state, next_timer = time_window_step(
+                state, b, bwts.contiguous(), self.w, self.t)
+            if self.needs_scheduler:
+                aux["next_timer"] = next_timer
         # the window's elements (ring slots, then batch rows), for aggregators
         # that reduce over membership
         member_cols = {
@@ -268,15 +565,16 @@ class SlidingWindow(WindowStage):
             birth_pos=birth,
             death_pos=death,
             member_env=Env(member_cols, now=flow.now),
+            aux=aux,
         )
+
+    def view(self, state):
+        return ring_view(state)
 
 
 # ---------------------------------------------------------------------------
 # batch (tumbling) family: lengthBatch
 # ---------------------------------------------------------------------------
-
-NO_TIMER = torch.iinfo(torch.int64).max
-
 
 def _flush_count(bsz: int, n: int) -> int:
     """F: at most bsz // n + 1 flushes fit in one batch (the carried bucket
@@ -585,12 +883,41 @@ class BatchWindow(WindowStage):
         return new_state, Flow(batch=out, ref=flow.ref, now=flow.now, birth_pos=birth,
                                death_pos=death, member_env=member_env)
 
+    def view(self, state):
+        # the open bucket is the probe-able content (reference:
+        # LengthBatchWindowProcessor.find over currentEventQueue)
+        mask = torch.arange(self.w, dtype=torch.int32, device=state["cur_ts"].device) < state["cur_n"]
+        return state["cur_cols"], state["cur_ts"], mask
 
-def make_window(spec: WindowSpec, schema: StreamSchema, ref: str, device) -> WindowStage:
+
+def make_window(spec: WindowSpec, schema: StreamSchema, ref: str, scope: Scope,
+                time_capacity: int = DEFAULT_TIME_CAPACITY) -> WindowStage:
     """Reference: SingleInputStreamParser.generateProcessor window dispatch."""
     name = spec.name.lower() if spec.namespace is None else f"{spec.namespace}:{spec.name}"
+    dev = scope.device
     if name == "length":
-        return SlidingWindow(schema, ref, _const_param(spec, 0, "length"), device)
+        return SlidingWindow(schema, ref, _const_param(spec, 0, "length"), dev)
+    if name == "time":
+        return SlidingWindow(schema, ref, time_capacity, dev,
+                             duration_ms=_const_param(spec, 0, "duration"), use_scheduler=True)
+    if name == "timelength":
+        t = _const_param(spec, 0, "duration")
+        return SlidingWindow(schema, ref, _const_param(spec, 1, "length"), dev,
+                             duration_ms=t, use_scheduler=True)
+    if name == "externaltime":
+        attr = _time_attr(spec, 0, schema)
+        scope.record_key((ref, None, attr))
+        return SlidingWindow(schema, ref, time_capacity, dev,
+                             duration_ms=_const_param(spec, 1, "duration"), time_attr=attr)
     if name == "lengthbatch":
-        return BatchWindow(schema, ref, _const_param(spec, 0, "length"), device)
+        return BatchWindow(schema, ref, _const_param(spec, 0, "length"), dev)
     raise SiddhiAppCreationError(f"window '{spec.name}' is not ported yet")
+
+
+def _time_attr(spec: WindowSpec, i: int, schema: StreamSchema) -> str:
+    p = spec.parameters[i] if i < len(spec.parameters) else None
+    if not isinstance(p, Variable):
+        raise SiddhiAppCreationError(f"window {spec.name}: parameter {i} must be an attribute")
+    if schema.attr_types.get(p.attribute) not in (AttrType.LONG, AttrType.INT):
+        raise SiddhiAppCreationError("external time attribute must be long")
+    return p.attribute

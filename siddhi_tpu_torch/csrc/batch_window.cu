@@ -34,13 +34,14 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kScanThreads = 1024;
 constexpr int kScanItems = 32;
 constexpr int kScanTile = kScanThreads * kScanItems;
 constexpr int kThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBig = INT_MAX;
 
 // rank[r] (or -1), perm[rank] = r and the count c of valid CURRENT rows.
@@ -48,10 +49,8 @@ __global__ void __launch_bounds__(kScanThreads)
 rank_kernel(const int8_t* kind, const bool* valid, int B, int32_t* rank, int32_t* perm,
             int32_t* count) {
   __shared__ int warp_sums[kScanThreads / 32];
-  __shared__ int carry_s;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid == 0) carry_s = 0;
-  __syncthreads();
+  const int tid = threadIdx.x;
+  int carry = 0;
   for (int base = 0; base < B; base += kScanTile) {
     const int start = base + tid * kScanItems;
     unsigned flags = 0;
@@ -62,24 +61,8 @@ rank_kernel(const int8_t* kind, const bool* valid, int B, int32_t* rank, int32_t
       flags |= (unsigned)vc << k;
       local += vc;
     }
-    int incl = local;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl += y;
-    }
-    if (lane == 31) warp_sums[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      int v = warp_sums[lane];
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(kFull, v, d);
-        if (lane >= d) v += y;
-      }
-      warp_sums[lane] = v;
-    }
-    __syncthreads();
-    const int carry = carry_s;
-    int excl = carry + (warp > 0 ? warp_sums[warp - 1] : 0) + incl - local;
+    int tile_total;
+    int excl = carry + block_excl_sum(local, warp_sums, &tile_total);
     for (int k = 0; k < kScanItems; ++k) {
       const int r = start + k;
       if (r >= B) break;
@@ -91,11 +74,9 @@ rank_kernel(const int8_t* kind, const bool* valid, int B, int32_t* rank, int32_t
         rank[r] = -1;
       }
     }
-    __syncthreads();
-    if (tid == kScanThreads - 1) carry_s = carry + warp_sums[kScanThreads / 32 - 1];
-    __syncthreads();
+    carry += tile_total;
   }
-  if (tid == 0) *count = carry_s;
+  if (tid == 0) *count = carry;
 }
 
 // The step's scalars, read from device memory by every thread.

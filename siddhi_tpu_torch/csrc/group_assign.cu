@@ -33,13 +33,14 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kScanThreads = 1024;
 constexpr int kScanItems = 32;
 constexpr int kScanTile = kScanThreads * kScanItems;
 constexpr int kThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSharedTable = 16384;  // old-table hash entries kept in shared memory
 
 __device__ __forceinline__ unsigned long long mix64(unsigned long long x) {
@@ -49,32 +50,6 @@ __device__ __forceinline__ unsigned long long mix64(unsigned long long x) {
   x *= 0x94d049bb133111ebULL;
   x ^= x >> 31;
   return x;
-}
-
-// Inclusive warp scan then block scan of one int per thread; returns the
-// thread's exclusive prefix within the block and sets *total.
-__device__ int block_exclusive(int local, int* warp_sums, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = local;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += y;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int v = warp_sums[lane];
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, v, d);
-      if (lane >= d) v += y;
-    }
-    warp_sums[lane] = v;
-  }
-  __syncthreads();
-  const int excl = (warp > 0 ? warp_sums[warp - 1] : 0) + incl - local;
-  *total = warp_sums[kScanThreads / 32 - 1];
-  __syncthreads();
-  return excl;
 }
 
 // era[i] = #resets at rows <= i; bounds = (first reset row or rows, last or -1).
@@ -104,7 +79,7 @@ era_kernel(const bool* reset, int rows, int32_t* era, int32_t* bounds) {
       atomicMax(&last_s, start + 31 - __clz((int)flags));
     }
     int total;
-    int run = carry + block_exclusive(local, warp_sums, &total);
+    int run = carry + block_excl_sum(local, warp_sums, &total);
     for (int k = 0; k < kScanItems; ++k) {
       const int r = start + k;
       if (r >= rows) break;
@@ -229,8 +204,8 @@ scan_kernel(const int8_t* flags, const int64_t* table_keys, const bool* used,
       }
     }
     int ta, tf;
-    int ra = carry_a + block_exclusive(la, warp_sums, &ta);
-    int rf = carry_f + block_exclusive(lf, warp_sums, &tf);
+    int ra = carry_a + block_excl_sum(la, warp_sums, &ta);
+    int rf = carry_f + block_excl_sum(lf, warp_sums, &tf);
     for (int k = 0; k < kScanItems; ++k) {
       const int r = start + k;
       if (r >= rows) break;

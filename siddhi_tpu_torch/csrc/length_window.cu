@@ -30,13 +30,14 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kScanThreads = 1024;
 constexpr int kScanItems = 32;
 constexpr int kScanTile = kScanThreads * kScanItems;
 constexpr int kThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ long long first_evicting(int W, long long total) {
   long long s = (long long)W - total;
@@ -48,11 +49,9 @@ __global__ void rank_kernel(const int8_t* kind, const bool* valid, int B, int W,
                             const int64_t* total, int32_t* rank, int32_t* perm,
                             int32_t* birth, int32_t* count) {
   __shared__ int warp_sums[kScanThreads / 32];
-  __shared__ int carry_s;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const long long s = first_evicting(W, *total);
-  if (tid == 0) carry_s = 0;
-  __syncthreads();
+  int carry = 0;
   for (int base = 0; base < B; base += kScanTile) {
     const int start = base + tid * kScanItems;
     unsigned flags = 0;
@@ -63,24 +62,8 @@ __global__ void rank_kernel(const int8_t* kind, const bool* valid, int B, int W,
       flags |= (unsigned)vc << k;
       local += vc;
     }
-    int incl = local;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl += y;
-    }
-    if (lane == 31) warp_sums[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      int v = warp_sums[lane];
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(kFull, v, d);
-        if (lane >= d) v += y;
-      }
-      warp_sums[lane] = v;
-    }
-    __syncthreads();
-    const int carry = carry_s;
-    int excl = carry + (warp > 0 ? warp_sums[warp - 1] : 0) + incl - local;
+    int tile_total;
+    int excl = carry + block_excl_sum(local, warp_sums, &tile_total);
     for (int k = 0; k < kScanItems; ++k) {
       const int r = start + k;
       if (r >= B) break;
@@ -95,11 +78,9 @@ __global__ void rank_kernel(const int8_t* kind, const bool* valid, int B, int W,
         birth[W + r] = -1;
       }
     }
-    __syncthreads();
-    if (tid == kScanThreads - 1) carry_s = carry + warp_sums[kScanThreads / 32 - 1];
-    __syncthreads();
+    carry += tile_total;
   }
-  if (tid == 0) *count = carry_s;
+  if (tid == 0) *count = carry;
 }
 
 // Per element e of [ring slots | batch rows]: death position (and birth of
@@ -177,23 +158,6 @@ __global__ void index_kernel(const int64_t* total, const int32_t* count,
   out_ts[p] = v ? batch_ts[row] : 0;
 }
 
-template <typename T>
-__global__ void gather_kernel(const T* ring, const T* batch, const int32_t* idx,
-                              T* out, int n, int W) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  const int i = idx[k];
-  out[k] = i < 0 ? T(0) : (i < W ? ring[i] : batch[i - W]);
-}
-
-template <typename T>
-int gather(const void* ring, const void* batch, const int32_t* idx, void* out,
-           int n, int W, cudaStream_t stream) {
-  gather_kernel<T><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      (const T*)ring, (const T*)batch, idx, (T*)out, n, W);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -221,15 +185,15 @@ int lw_prepare(const int8_t* kind, const bool* valid, const int64_t* batch_ts,
 // out[k] = idx[k] < 0 ? 0 : idx[k] < W ? ring[idx[k]] : batch[idx[k] - W]
 int lw_gather_1(const void* ring, const void* batch, const int32_t* idx,
                 void* out, int n, int W, cudaStream_t stream) {
-  return gather<uint8_t>(ring, batch, idx, out, n, W, stream);
+  return gather2<uint8_t>(ring, batch, idx, 0, out, n, W, stream);
 }
 int lw_gather_4(const void* ring, const void* batch, const int32_t* idx,
                 void* out, int n, int W, cudaStream_t stream) {
-  return gather<uint32_t>(ring, batch, idx, out, n, W, stream);
+  return gather2<uint32_t>(ring, batch, idx, 0, out, n, W, stream);
 }
 int lw_gather_8(const void* ring, const void* batch, const int32_t* idx,
                 void* out, int n, int W, cudaStream_t stream) {
-  return gather<unsigned long long>(ring, batch, idx, out, n, W, stream);
+  return gather2<unsigned long long>(ring, batch, idx, 0, out, n, W, stream);
 }
 
 }  // extern "C"

@@ -1,14 +1,18 @@
 """Carry query state and interned strings in and out of the engine as numpy.
 
 A query's state is a tree of dicts and lists whose leaves are arrays:
-`{"chain": ..., "sel": {"aggs": [...], "group": {"keys", "used", "n"}}}`,
-where "chain" is a length window's ring (`{"cols": {...}, "ts", "wts",
-"seq", "total"}`) or a lengthBatch window's buffers (`{"cur_cols",
-"cur_ts", "cur_n", "prev_cols", "prev_ts", "prev_n", "bucket_start",
-"timeout_deadline"}`), "group" is the group-by key table, and each
-aggregator's carry gains a leading [G] axis under a group-by. The JAX engine
-(`siddhi_tpu`) keeps the same layout, so a state taken there as numpy maps
-onto this engine leaf for leaf with dtype and shape unchanged.
+`{"chain": ..., "sel": {"aggs": [...], "group": {"keys", "used", "n"}}}`
+for a single-stream query and `{"join": {"l": ..., "r": ...}, "sel": ...}`
+for a join, where "chain" and each join side is a sliding window's ring
+(`{"cols": {...}, "ts", "wts", "seq", "total"}`: length, time, timeLength
+and externalTime alike; a time ring may hold holes, seq -1), a lengthBatch
+window's buffers (`{"cur_cols", "cur_ts", "cur_n", "prev_cols", "prev_ts",
+"prev_n", "bucket_start", "timeout_deadline"}`), `{}` for a join side
+without a window, or `()` for a chain without one; "group" is the group-by
+key table, and each aggregator's carry gains a leading [G] axis under a
+group-by. The JAX engine (`siddhi_tpu`) keeps the same layout, so a state
+taken there as numpy maps onto this engine leaf for leaf with dtype and
+shape unchanged. Pending timers are host state and do not travel.
 """
 
 from __future__ import annotations

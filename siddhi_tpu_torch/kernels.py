@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers) and is
 compiled at first use with `nvcc` for Hopper (`sm_90a`) into a shared library
-under `_build/`, named by a hash of its source so an edited kernel is rebuilt.
+under `_build/`, named by a hash of its source and of `csrc/common.cuh` (the
+block scan and gather the sources share) so an edited kernel is rebuilt.
 `build_all()` starts one `nvcc` per source, all at once. The libraries are
 loaded with `ctypes`; every pointer and the stream travel as `c_void_p`, and
 each entry point returns its `cudaError_t`, which `check()` turns into an
@@ -29,7 +30,8 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "_build"
 SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "deliver_pack",
-           "batch_window", "group_assign", "keyed_running_sum", "keep_last")
+           "batch_window", "group_assign", "keyed_running_sum", "keep_last", "time_window",
+           "ring_view", "join_probe")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -39,6 +41,8 @@ _RUNNING_SUM = [P] * 7 + [I, P]
 _EXTREME = [P, P, P, P, I, I, I, LL, P]
 _BW_GATHER = [P] * 5 + [I, I, P]
 _KEYED_SUM = [P] * 5 + [I, I] + [P] * 6 + [P]
+_RV_GATHER = [P, P, P, I, P]
+_JP_PARTNER = [P, P, LL, P, I, I, P]
 # C entry points: name -> (source, argtypes). The last argument is the stream.
 SIGNATURES = {
     "lw_prepare": ("length_window", [P] * 5 + [I, I] + [P] * 12 + [P]),
@@ -60,6 +64,15 @@ SIGNATURES = {
     "keyed_running_sum_f32": ("keyed_running_sum", _KEYED_SUM),
     "keyed_running_sum_i64": ("keyed_running_sum", _KEYED_SUM),
     "keep_last": ("keep_last", [P, P, P, I, P, P, P]),
+    "tw_prepare": ("time_window", [P] * 7 + [I, I, I, LL] + [P] * 21 + [P]),
+    "rv_order": ("ring_view", [P, P, I, P, P, P, P]),
+    "rv_gather_1": ("ring_view", _RV_GATHER),
+    "rv_gather_4": ("ring_view", _RV_GATHER),
+    "rv_gather_8": ("ring_view", _RV_GATHER),
+    "jp_compact": ("join_probe", [P, P, I, I, I, I] + [P] * 7 + [P]),
+    "jp_partner_1": ("join_probe", _JP_PARTNER),
+    "jp_partner_4": ("join_probe", _JP_PARTNER),
+    "jp_partner_8": ("join_probe", _JP_PARTNER),
 }
 
 launches: collections.Counter = collections.Counter()
@@ -80,7 +93,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    h.update((CSRC / "common.cuh").read_bytes())  # included by the sources
+    digest = h.hexdigest()[:12]
     return BUILD / f"lib{name}-{digest}.so"
 
 

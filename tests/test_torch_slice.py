@@ -165,7 +165,7 @@ def test_insert_into_chains_queries():
 
 
 @pytest.mark.parametrize("ql", [
-    "from S#window.time(10) select symbol insert into O;",
+    "from S#window.timeBatch(10) select symbol insert into O;",
     "from S select symbol, min(price) as t group by symbol insert into O;",
     "from S select min(price) as m insert into O;",
     "from S select stdDev(price) as m insert into O;",
