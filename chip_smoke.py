@@ -18,10 +18,14 @@ engine next to it. Phases, each printed as it ends:
      (B=32768, lengthBatch(1024), 33,826 flow rows, G=1024), ragged ones,
      1,000 distinct keys and 2,000 (overflow); the join slice's kernels
      (sliding time-window step, ring view, join probe compaction) at paths
-     J, T and T2's shapes and ragged ones (see join_kernel_phase);
+     J, T and T2's shapes and ragged ones (see join_kernel_phase); the
+     pattern slice's (slot pass, count pass, completions) at paths P and C's
+     shapes, out of lanes, overflowing and ragged (see pattern_kernel_phase);
   3. verify cases filter_num, len_window_avg, len_window_minmax,
-     len_batch_group, having_order, time_window, external_time and
-     self_join on the card against the frozen CPU rows of VERIFY.json;
+     len_batch_group, having_order, time_window, external_time, self_join,
+     pattern_within and count_seq on the card against the frozen CPU rows of
+     VERIFY.json, and logical_pattern (the per-event scan route) raising
+     "not ported yet";
   4. the main path at full width: BASELINE.json config 1 (filter + length(50)
      window + avg) and the same app with min/max added, at @app:batch 32768,
      2,000,000 events each through send_columns in calls of 8 batches (the
@@ -42,14 +46,23 @@ engine next to it. Phases, each printed as it ends:
      16384), 500,000 events per batch with the TIMER steps the event-time
      clock sends; path T2, a time(1 sec) window with avg/min/max at batch
      32768 under @app:playback, 16 batches. Each path's own launch counts,
-     no join overflow, the first 4 batches against device="cpu".
+     no join overflow, the first 4 batches against device="cpu";
+  7. path P, pattern_2state (BASELINE.json config 4: every a1[price > 95] ->
+     a2[price < 5] within 1 sec, patternCapacity 4096, chunks of 2048) with
+     2,000,000 events, and path C, count_sequence (config 5: every
+     a1[price > 90]<2:4> -> a2[price < 10], patternCapacity 512,
+     patternChunk 8192) with 1,000,000, both at @app:batch 32768, fused in
+     calls of 8 batches and a 20-batch per-batch prefix, as above; each
+     kernel's launches held to its launches per step times the steps, no
+     pattern overflow, and the device busy share of one more fused call.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
 instead builds the kernels and prints where the time goes on the quickstart
-min/max app, tumbling_groupby and sliding_join: for one per-batch batch and
+min/max app, tumbling_groupby, sliding_join, pattern_2state and
+count_sequence: for one per-batch batch and
 for one fused K=8 chunk, the host stages timed around
 torch.cuda.synchronize(), and device time by kernel from torch.profiler over
 4 batches / 4 chunks; and on path T, each call's split into its data steps
@@ -122,6 +135,32 @@ select symbol, avg(price) as ap, min(price) as mn, max(price) as mx
 insert into Out;
 """
 
+# patterns (bench.py pattern_2state and count_sequence, BASELINE.json
+# configs 4 and 5), with their engine-buffer annotations as bench.py sets them
+PATTERN_EVENTS, COUNT_EVENTS = 2_000_000, 1_000_000
+PATTERN_T, PATTERN_C = 4096, 2048  # token table, chunk (T // 2)
+COUNT_T, COUNT_C, COUNT_K = 512, 8192, 4  # token table, @app:patternChunk, <2:4>
+PATTERN_APP = """
+@app:patternCapacity(size='4096')
+@app:batch(size='{batch}')
+define stream StockStream (symbol string, price float, volume long);
+@info(name='q')
+from every a1=StockStream[price > 95] -> a2=StockStream[price < 5]
+within 1 sec
+select a1.symbol as s1, a2.symbol as s2
+insert into Out;
+"""
+COUNT_APP = """
+@app:patternCapacity(size='512')
+@app:patternChunk(size='8192')
+@app:batch(size='{batch}')
+define stream StockStream (symbol string, price float, volume long);
+@info(name='q')
+from every a1=StockStream[price > 90]<2:4> -> a2=StockStream[price < 10]
+select a2.symbol as s2
+insert into Out;
+"""
+
 VERIFY_HEAD = (
     "@app:batch(size='32')\n"
     "define stream S (symbol string, price float, volume long);\n"
@@ -137,7 +176,18 @@ VERIFY_CASES = {
     "self_join": VERIFY_HEAD + """@app:joinCapacity(size='256')
         @info(name='q') from S#window.length(4) as a join S#window.length(4) as b
         on a.volume == b.volume select a.symbol as s1, b.symbol as s2 insert into Out;""",
+    "pattern_within": VERIFY_HEAD + """@app:patternCapacity(size='64')
+        @info(name='q') from every a=S[price > 90] -> b=S[price < 10] within 100 milliseconds
+        select a.symbol as s1, b.symbol as s2 insert into Out;""",
+    "count_seq": VERIFY_HEAD + """@app:patternCapacity(size='64')
+        @info(name='q') from every a=S[price > 80]<2:3> -> b=S[price < 20]
+        select b.symbol as s2 insert into Out;""",
 }
+# a pattern that takes the per-event scan route, not ported yet: it must
+# raise at app creation on the card too
+LOGICAL_PATTERN = VERIFY_HEAD + """@app:patternCapacity(size='64')
+        @info(name='q') from every (a=S[price > 90] and b=S[volume > 500])
+        select a.price as pa, b.volume as vb insert into Out;"""
 
 
 def rows_match(a, b, tol=RTOL):
@@ -884,6 +934,268 @@ def join_kernel_phase(torch, dev) -> dict:
     return res
 
 
+def pattern_kernel_phase(torch, dev) -> dict:
+    """The pattern slice's kernels against their plain versions on the card,
+    exactly (every lane of the token table and the emission buffer, entry
+    rows, out_n and the overflow flags), from the same random token tables
+    and chunks: the slot pass (K13) at path P's shape (T=4096, C=2048) for
+    the `every` fork at slot 0 and the advance at slot 1 with a row-only
+    condition, and with a cross-ref [T, C] condition (b.price < a.price);
+    a strict sequence pass; a fork that runs out of free lanes; the count
+    route's tail pass; the count pass (K14) at path C's shape (T=512,
+    C=8192, K=4), with its lanes exhausted, with the generation cap
+    reached, and an unbounded <2:>; the completions (K15) at P's shape with
+    the within purge, into a buffer that overflows, and at C's shape; each
+    also at a ragged C=33."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.pattern import (
+        pattern_advance,
+        pattern_advance_ref,
+        pattern_count,
+        pattern_count_ref,
+        pattern_emit,
+        pattern_emit_ref,
+    )
+
+    names = ("pattern_advance", "pattern_count", "pattern_emit")
+    res = {k: {"max_abs_err": 0.0} for k in names}
+    rng = np.random.default_rng(505)
+    t_base = 1_700_000_000_000
+
+    def prog_of(ql, T, chunk=None):
+        extra = f"@app:patternChunk(size='{chunk}')\n" if chunk else ""
+        app = (f"@app:patternCapacity(size='{T}')\n{extra}define stream S (symbol string, "
+               f"price float, volume long);\n@info(name='q') {ql} insert into Out;")
+        return SiddhiManager(device=dev).create_siddhi_app_runtime(app).queries["q"].prog
+
+    def random_tok(prog, count_route, active=0.5, done=False):
+        tok = prog.init_state(0)
+        T, S = prog.T, len(prog.slots)
+        act = rng.random(T) < active
+        act[0] = True
+        slot = rng.integers(0, S + 1 if done else S, T).astype(np.int32)
+        slot[0] = 0
+        start = np.where(rng.random(T) < 0.3, -1, t_base - rng.integers(0, 2000, T))
+        start[0] = -1
+        lanes = {"active": act, "slot": slot, "start_ts": start.astype(np.int64),
+                 "entry_ts": (t_base - rng.integers(0, 500, T)).astype(np.int64)}
+        tok.update({k: torch.from_numpy(v).to(dev) for k, v in lanes.items()})
+        for a, c in zip(prog.refs, tok["caps"]):
+            hi = a.cap + 3 if count_route else 2
+            n = rng.integers(0, hi, T).astype(np.int32)
+            n[0] = 0  # the arming token is virgin
+            c["n"] = torch.from_numpy(n).to(dev)
+            c["ts"] = torch.from_numpy(
+                (t_base - rng.integers(0, 500, tuple(c["ts"].shape))).astype(np.int64)).to(dev)
+            for name, arr in c["cols"].items():
+                shape = tuple(arr.shape)
+                vals = (rng.uniform(0, 100, shape) if arr.dtype.is_floating_point
+                        else rng.integers(1, 9, shape))
+                c["cols"][name] = torch.from_numpy(vals).to(dtype=arr.dtype, device=dev)
+        return tok
+
+    def make_chunk(C, dense=False):
+        d = stock_data(C, seed=int(rng.integers(1 << 30)))
+        if dense:  # most prices extreme: many matches at both slots
+            d["price"] = np.where(rng.random(C) < 0.5, 99.5, 0.5).astype(np.float32)
+        ts = (t_base + np.cumsum(rng.integers(0, 3, C))).astype(np.int64)
+        kind = np.where(rng.random(C) < 0.03, 2, 0).astype(np.int8)
+        valid = rng.random(C) < 0.95
+        ev = {k: torch.from_numpy(d[k]).to(dev) for k in ("symbol", "price", "volume")}
+        return (torch.from_numpy(ts).to(dev), torch.from_numpy(kind).to(dev),
+                torch.from_numpy(valid).to(dev), ev)
+
+    no_ovf = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def entry_rows(T, C):
+        er = rng.integers(-1, max(C // 2, 1), T)
+        er[rng.random(T) < 0.6] = -1
+        return torch.from_numpy(er.astype(np.int32)).to(dev)
+
+    def k13_args(prog, p, tok, C, dense=False, tail=False):
+        ts, kind, valid, ev = make_chunk(C, dense)
+        v = valid & (kind == 0)
+        now = torch.full((), t_base, dtype=torch.int64, device=dev)
+        cond = prog._slot_cond(p, tok, ev, ts, now)
+        return (prog, p, tok, entry_rows(prog.T, C), v, ts, ev, cond, no_ovf, tail)
+
+    def k13(label, args, want_overflow=None):
+        got, want = pattern_advance(*args), pattern_advance_ref(*args)
+        torch.cuda.synchronize()
+        same_bits(torch, list(got), list(want))
+        if want_overflow is not None and bool(want[2]) != want_overflow:
+            raise AssertionError(f"pattern_advance {label}: overflow {bool(want[2])}")
+        moved = int((want[0]["slot"] != args[2]["slot"]).sum().item())
+        print(f"kernel check pattern_advance {label}: T={args[0].T} C={args[5].shape[0]}, "
+              f"{moved} lanes moved, overflow {bool(want[2])}: ok", flush=True)
+        return args
+
+    p2 = prog_of("from every a=S[price > 95] -> b=S[price < 5] within 1 sec "
+                 "select a.symbol as s1, b.symbol as s2", PATTERN_T)
+    cross = prog_of("from every a=S[price > 50] -> b=S[price < a.price] "
+                    "select a.symbol as s1, b.symbol as s2", PATTERN_T)
+    seq = prog_of("from every a=S[price > 50], b=S[price < 50], c=S[price > 20] "
+                  "select a.symbol as s1, c.price as pc", 64)
+    small = prog_of("from every a=S[price > 95] -> b=S[price < 5] within 1 sec "
+                    "select a.symbol as s1, b.symbol as s2", 64)
+    tail3 = prog_of("from every a=S[price > 85]<1:3> -> b=S[price < 15] -> "
+                    "c=S[volume > b.volume] select a[0].volume as v0, c.volume as vc", COUNT_T,
+                    COUNT_C)
+    fork_p = k13("P fork (slot 0)", k13_args(p2, 0, random_tok(p2, False, 0.05), PATTERN_C))
+    adv_p = k13("P advance (slot 1, row-only)",
+                k13_args(p2, 1, random_tok(p2, False, 0.5), PATTERN_C))
+    cross_p = k13("cross-ref advance ([T, C] condition)",
+                  k13_args(cross, 1, random_tok(cross, False, 0.5), PATTERN_C))
+    k13("strict sequence", k13_args(seq, 1, random_tok(seq, False), 2048))
+    k13("fork out of lanes", k13_args(small, 0, random_tok(small, False, 0.97), 2048, True),
+        want_overflow=True)
+    k13("count tail (slot 2)", k13_args(tail3, 2, random_tok(tail3, True), COUNT_C, tail=True))
+    for label, prog, p in (("ragged fork", small, 0), ("ragged advance", small, 1),
+                           ("ragged strict", seq, 2)):
+        k13(label, k13_args(prog, p, random_tok(prog, False), 33, dense=True))
+
+    def k14_args(prog, tok, C, dense=False):
+        ts, kind, valid, ev = make_chunk(C, dense)
+        v = valid & (kind == 0)
+        now = torch.full((), t_base, dtype=torch.int64, device=dev)
+        masks = []
+        for p in (0, 1):
+            atom = prog.slots[p].atoms[0]
+            env = prog._row_env(ev, ts, now, atom)
+            mask = v
+            for c in prog._conds[(p, atom.ref_idx)]:
+                mask = mask & torch.broadcast_to(c(env), (C,))
+            masks.append(mask)
+        return (prog, tok, masks[0], masks[1], ts, ev, ev, no_ovf)
+
+    def k14(label, args, want_overflow=None):
+        got, want = pattern_count(*args), pattern_count_ref(*args)
+        torch.cuda.synchronize()
+        same_bits(torch, list(got), list(want))
+        if want_overflow is not None and bool(want[2]) != want_overflow:
+            raise AssertionError(f"pattern_count {label}: overflow {bool(want[2])}")
+        armed = int((want[0]["active"] & ~args[1]["active"]).sum().item())
+        print(f"kernel check pattern_count {label}: T={args[0].T} C={args[4].shape[0]}, "
+              f"{armed} generations armed, overflow {bool(want[2])}: ok", flush=True)
+        return args
+
+    cq = "from every a=S[price > 90]<2:4> -> b=S[price < 10] select b.symbol as s2"
+    cs = prog_of(cq, COUNT_T, COUNT_C)
+    cs_caps = prog_of("from every a=S[price > 90]<2:4> -> b=S[price < 10] "
+                      "select a[0].volume as v0, a[last].price as pl, b.symbol as s2",
+                      COUNT_T, COUNT_C)
+    plus = prog_of("from every a=S[price > 60]<2:> -> b=S[price < 30] "
+                   "select a[0].volume as v0, a[last].volume as vl, b.volume as vb", 64)
+    gcap = prog_of(cq, 16)
+    c_args = k14("C", k14_args(cs, random_tok(cs, True, 0.1), COUNT_C))
+    k14("C with capture lanes", k14_args(cs_caps, random_tok(cs_caps, True), COUNT_C))
+    k14("lanes exhausted", k14_args(cs, random_tok(cs, True, 0.99), COUNT_C, True),
+        want_overflow=True)
+    k14("generation cap (T=16)", k14_args(gcap, random_tok(gcap, True, 0.2), COUNT_C, True),
+        want_overflow=True)
+    k14("unbounded <2:>", k14_args(plus, random_tok(plus, True), 2048))
+    k14("ragged", k14_args(cs_caps, random_tok(cs_caps, True), 33))
+    k14("three refs (generation lanes cleared)", k14_args(tail3, random_tok(tail3, True), 2048))
+    other = list(k14_args(cs_caps, random_tok(cs_caps, True), 2048))
+    other[3] = torch.zeros_like(other[3])  # a step of another stream: slot 1 sees no row
+    other[6] = None
+    k14("slot 1 on another stream", tuple(other))
+
+    def k15_args(prog, C, cap, fill, purge):
+        tok = random_tok(prog, not purge, 0.5, done=True)
+        ts, kind, valid, _ev = make_chunk(C)
+        out = prog.init_out(cap)
+        out_n = torch.full((), int(cap * fill), dtype=torch.int32, device=dev)
+        now = torch.full((), t_base + 7, dtype=torch.int64, device=dev)
+        return (prog, tok, entry_rows(prog.T, C), ts, valid & (kind == 0), now, out, out_n,
+                no_ovf, purge)
+
+    def fresh(args):  # the emission buffer and out_n are updated in place
+        a = list(args)
+        a[6] = {k: v.clone() for k, v in a[6].items()}
+        a[7] = a[7].clone()
+        return a
+
+    def k15(label, args, want_overflow=None):
+        got, want = pattern_emit(*fresh(args)), pattern_emit_ref(*fresh(args))
+        torch.cuda.synchronize()
+        same_bits(torch, list(got), list(want))
+        if want_overflow is not None and bool(want[3]) != want_overflow:
+            raise AssertionError(f"pattern_emit {label}: overflow {bool(want[3])}")
+        print(f"kernel check pattern_emit {label}: T={args[0].T} C={args[3].shape[0]}, out_n "
+              f"{int(args[7].item())} -> {int(want[2].item())}, overflow {bool(want[3])}: ok",
+              flush=True)
+        return args
+
+    e_args = k15("P (purge)", k15_args(p2, PATTERN_C, MAIN_BATCH, 0.0, True))
+    k15("overflowing buffer", k15_args(p2, PATTERN_C, MAIN_BATCH, 0.99, True),
+        want_overflow=True)
+    ce_args = k15("C", k15_args(cs_caps, COUNT_C, MAIN_BATCH, 0.0, False))
+    k15("ragged", k15_args(small, 33, 64, 0.5, True))
+
+    # times at the paths' shapes
+    T, C = PATTERN_T, PATTERN_C
+    r = res["pattern_advance"]
+    r["ms"] = time_ms(torch, lambda: pattern_advance(*adv_p), 50)
+    r["plain_ms"] = time_ms(torch, lambda: pattern_advance_ref(*adv_p), 10)
+    _prog, p, tok, er, v, ts, _ev, cond, _o, _t = adv_p
+    M = (tok["active"] & (tok["slot"] == p))[:, None] & v[None, :] & (
+        torch.arange(C, device=dev)[None, :] > er[:, None]) & cond
+    r["library_ms"] = time_ms(torch, lambda: torch.argmax(M.to(torch.int8), dim=1), 50)
+    lane_b = 1 + 4 + 8 + 8 + 4 + 4  # active, slot, start, entry_ts, entry_row, n
+    r["bound_ms"] = (T * (2 * lane_b + 4 + 2 * 4) + C * (1 + 8 + 1 + 4)) / MEM_BYTES_PER_S * 1e3
+    r["bound_by"] = "bytes"
+    r["other_shapes_ms"] = {
+        "fork_slot0": time_ms(torch, lambda: pattern_advance(*fork_p), 50),
+        "cross_ref_TxC": time_ms(torch, lambda: pattern_advance(*cross_p), 50)}
+
+    r = res["pattern_count"]
+    r["ms"] = time_ms(torch, lambda: pattern_count(*c_args), 50)
+    r["plain_ms"] = time_ms(torch, lambda: pattern_count_ref(*c_args), 10)
+    _prog, ctok, Mc, Madv, cts, _e0, _e1, _o = c_args
+    mci = Mc.to(torch.int32)
+    midx = torch.cumsum(mci, 0, dtype=torch.int32) - mci
+    thresh = (2 - ctok["caps"][0]["n"].clamp(0, 2)).to(torch.int32)
+    rows_c = torch.where(Madv, torch.arange(COUNT_C, device=dev, dtype=torch.int32), COUNT_C)
+    r["library_ms"] = time_ms(torch, lambda: (torch.searchsorted(midx, thresh),
+                                              torch.cummin(rows_c.flip(0), 0)), 50)
+    Tc, Kc = COUNT_T, COUNT_K
+    r["bound_ms"] = (COUNT_C * (1 + 1 + 8 + 4) + Tc * (2 * (1 + 4 + 8 + 8) + 4 + 2 * 2 * 4)
+                     + Tc * 2 * 4) / MEM_BYTES_PER_S * 1e3
+    r["bound_by"] = "bytes"
+    r["T512_K4_capture_lanes"] = Kc
+
+    # the buffer is written in place: each timed call starts again from
+    # out_n = 0 (one memset more)
+    r = res["pattern_emit"]
+    ea = fresh(e_args)
+    r["ms"] = time_ms(torch, lambda: (ea[7].zero_(), pattern_emit(*ea)), 50)
+    r["plain_ms"] = time_ms(torch, lambda: (ea[7].zero_(), pattern_emit_ref(*ea)), 10)
+    etok, eer = e_args[1], e_args[2]
+    key = torch.where(etok["active"] & (etok["slot"] == 2), eer.to(torch.int64) * T +
+                      torch.arange(T, device=dev), 1 << 60)
+    r["library_ms"] = time_ms(torch, lambda: torch.argsort(key), 50)
+    n_done = int((etok["active"] & (etok["slot"] == 2)).sum().item())
+    row_b = 8 + 1 + 2 * (4 + 4)  # ts, valid, per ref n and symbol
+    r["bound_ms"] = (T * (1 + 4 + 8 + 4 + 1) + C * (8 + 1) + n_done * 2 * row_b
+                     ) / MEM_BYTES_PER_S * 1e3
+    r["bound_by"] = "bytes"
+    ca = fresh(ce_args)
+    r["other_shapes_ms"] = {"C_shape_no_purge": time_ms(
+        torch, lambda: (ca[7].zero_(), pattern_emit(*ca)), 50)}
+    for name in names:
+        r = res[name]
+        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={r['library_ms']:.4f} "
+              f"max_abs_err={r['max_abs_err']}", flush=True)
+    print(f"kernel pattern_advance fork at P's shape: "
+          f"{res['pattern_advance']['other_shapes_ms']['fork_slot0']:.4f} ms, cross-ref [T, C]: "
+          f"{res['pattern_advance']['other_shapes_ms']['cross_ref_TxC']:.4f} ms; pattern_emit at "
+          f"C's shape: {res['pattern_emit']['other_shapes_ms']['C_shape_no_purge']:.4f} ms",
+          flush=True)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 3: verify cases against VERIFY.json
 # ---------------------------------------------------------------------------
@@ -917,6 +1229,16 @@ def verify_phase(dev) -> None:
         if not rows_match(got, frozen[case]):
             raise AssertionError(f"verify case {case}: rows differ from VERIFY.json")
         print(f"verify {case}: {len(got)} rows match VERIFY.json", flush=True)
+    from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
+
+    try:
+        SiddhiManager(device=dev).create_siddhi_app_runtime(LOGICAL_PATTERN)
+    except SiddhiAppCreationError as e:
+        if "not ported yet" not in str(e):
+            raise
+        print("verify logical_pattern: raises 'not ported yet' on the card", flush=True)
+    else:
+        raise AssertionError("logical_pattern: a scan-route pattern did not raise")
 
 
 # ---------------------------------------------------------------------------
@@ -1161,8 +1483,9 @@ TIME_JOIN_KERNELS = ("time_window_step", "ring_view", "join_assemble")
 TIME_AGG_KERNELS = ("time_window_step", "running_sum", "window_extreme")
 
 
-def capture_join_warnings(fn):
-    """Run fn() and return (its result, the join-overflow warnings logged)."""
+def capture_warnings(fn, needle: str = "joinCapacity"):
+    """Run fn() and return (its result, the warnings logged that name
+    `needle`: the join's or the pattern's overflow)."""
     records = []
     handler = logging.Handler()
     handler.emit = records.append
@@ -1172,7 +1495,7 @@ def capture_join_warnings(fn):
         out = fn()
     finally:
         log.removeHandler(handler)
-    return out, [r for r in records if "joinCapacity" in r.getMessage()]
+    return out, [r for r in records if needle in r.getMessage()]
 
 
 def check_path(name, launches, wanted, kept, cpu_kept, calls):
@@ -1215,7 +1538,7 @@ def join_path_phase(torch) -> dict:
     prefix_calls, prefix_events = 3, 20 * b
     run_app("cuda", app, data, 4 * b, 2 * b, 2 * b)  # warm-up, not counted
     kernels.launches.clear()
-    (n_rows, kept, dt, info), warned = capture_join_warnings(
+    (n_rows, kept, dt, info), warned = capture_warnings(
         lambda: run_app("cuda", app, data, JOIN_EVENTS, stride, first_n, keep_calls=prefix_calls))
     launches = dict(kernels.launches)
     print(f"sliding_join launches {json.dumps(launches)}", flush=True)
@@ -1261,7 +1584,7 @@ def time_join_path_phase(torch) -> dict:
     run_app("cuda", app, data, 2 * b, b, b, fused=False)  # warm-up, not counted
     fires = [0]
     kernels.launches.clear()
-    (n_rows, kept, dt, _info), warned = capture_join_warnings(
+    (n_rows, kept, dt, _info), warned = capture_warnings(
         lambda: run_app("cuda", app, data, TIME_JOIN_EVENTS, b, b, fused=False, keep_calls=4,
                         fires=fires))
     launches = dict(kernels.launches)
@@ -1313,6 +1636,103 @@ def time_agg_path_phase(torch) -> dict:
     return out
 
 
+def fused_busy(torch, app: str, data: dict, b: int) -> tuple:
+    """Device busy share of one fused call of 8 batches (after a warm-up
+    call of 2), from torch.profiler: (wall ms, device busy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    mgr = SiddhiManager()
+    rt = mgr.create_siddhi_app_runtime(app)
+    for s in SYMBOLS:
+        mgr.interner.intern(s)
+    rows = [0]
+    rt.add_callback("q", lambda t, ins, rem: rows.__setitem__(0, rows[0] + len(ins or [])))
+    rt.start()
+    h = rt.get_input_handler("StockStream")
+    cols = ("symbol", "price", "volume")
+
+    def send(lo, hi):
+        h.send_columns(data["ts"][lo:hi], {k: data[k][lo:hi] for k in cols}, now=0)
+
+    send(0, 2 * b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        send(2 * b, 10 * b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = 0.0
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        busy_us += e.self_cuda_time_total if dev_us is None else dev_us
+    rt.shutdown()
+    mgr.shutdown()
+    return wall * 1e3, busy_us / 1e3
+
+
+def pattern_path_phase(torch, label: str, app: str, n_events: int, per_step: dict) -> dict:
+    """One pattern path at full width (B=32768): `n_events` events of seed 7
+    through send_columns in calls of 8 batches (the first of 4), fused;
+    launch counts of this run alone, each of the path's kernels held to its
+    launches per micro-batch step (per_step) times the steps run; no pattern
+    overflow; the first 4 batches against device="cpu" and the first 20
+    exactly against the per-batch form; matches per batch, events/s and the
+    device busy share of one more fused call."""
+    from siddhi_tpu_torch import kernels
+
+    b = MAIN_BATCH
+    data = stock_data(n_events, seed=7)
+    first_n, stride = 4 * b, 8 * b
+    prefix_calls, prefix_events = 3, 20 * b
+    run_app("cuda", app, data, 4 * b, 2 * b, 2 * b)  # warm-up, not counted
+    kernels.launches.clear()
+    (n_rows, kept, dt, info), warned = capture_warnings(
+        lambda: run_app("cuda", app, data, n_events, stride, first_n, keep_calls=prefix_calls),
+        "patternCapacity")
+    launches = dict(kernels.launches)
+    print(f"{label} launches {json.dumps(launches)}", flush=True)
+    if warned:
+        raise AssertionError(f"{label}: the pattern token table or emission buffer overflowed")
+    calls = [first_n] + [stride] * ((n_events - first_n) // stride)
+    if n_events - sum(calls):
+        calls.append(n_events - sum(calls))
+    # micro-batch steps: the fused engine's (its short tail variant's empty
+    # micro-batches included) and the per-batch path's for calls under 2 B
+    steps = info["batches"] + sum(-(-c // b) for c in calls if c < 2 * b)
+    for k, per in per_step.items():
+        if launches.get(k, 0) != per * steps:
+            raise AssertionError(f"{label}: {launches.get(k, 0)} launches of {k}, expected "
+                                 f"{per} a step x {steps} steps")
+    _n, cpu_first, _dt, _i = run_app("cpu", app, data, first_n, first_n, first_n)
+    check_path(label, launches, tuple(per_step) + ("wire_decode", "deliver_pack"), kept,
+               cpu_first, 1)
+    pb_rows, pb_kept, pb_dt, _i = run_app("cuda", app, data, prefix_events, stride, first_n,
+                                          fused=False, keep_calls=prefix_calls)
+    fused_prefix = [row for call in kept for row in call]
+    pb_prefix = [row for call in pb_kept for row in call]
+    if not pb_prefix or fused_prefix != pb_prefix:
+        raise AssertionError(f"{label}: fused rows differ from the per-batch form")
+    wall_ms, busy_ms = fused_busy(torch, app, data, b)
+    n_batches = -(-n_events // b)
+    out = {"events": n_events, "rows": n_rows, "seconds": dt, "events_per_s": n_events / dt,
+           "chunks": info["chunks"], "batches": info["batches"], "steps": steps,
+           "wire": info["wire"], "launches": launches, "matches_per_batch": n_rows / n_batches,
+           "busy": {"wall_ms_8_batches": wall_ms, "device_busy_ms": busy_ms,
+                    "share": busy_ms / wall_ms},
+           "per_batch": {"events": prefix_events, "rows": pb_rows, "seconds": pb_dt,
+                         "events_per_s": prefix_events / pb_dt, "rows_exactly_equal": True}}
+    print(f"path {label}: fused {n_events} events, {n_rows} rows delivered "
+          f"({n_rows / n_batches:.1f} matches per batch), {dt:.3f} s, {n_events / dt:.1f} "
+          f"events/s, {info['chunks']} chunks, {steps} steps; per-batch form {prefix_events} "
+          f"events, {pb_rows} rows, {pb_dt:.3f} s, {prefix_events / pb_dt:.1f} events/s; no "
+          f"overflow; first 4 batches match device='cpu', first 20 batches exactly equal the "
+          f"per-batch form; device busy {busy_ms:.3f} of {wall_ms:.3f} ms over one fused call "
+          f"of 8 batches ({busy_ms / wall_ms:.4f})", flush=True)
+    return out
+
+
 def profile_phase(torch, app: str, b: int) -> dict:
     """Where one full-width batch of `app` spends its time (B = b):
     host stages timed around torch.cuda.synchronize(),
@@ -1322,6 +1742,7 @@ def profile_phase(torch, app: str, b: int) -> dict:
 
     from siddhi_tpu_torch import SiddhiManager
     from siddhi_tpu_torch.core.join import JoinQueryRuntime
+    from siddhi_tpu_torch.core.pattern_runtime import PatternQueryRuntime
 
     data = stock_data(16 * b, seed=7)
     mgr = SiddhiManager()
@@ -1335,8 +1756,10 @@ def profile_phase(torch, app: str, b: int) -> dict:
     encode, decode = j.schema.packed_codec(b, j.device)
     cols = ("symbol", "price", "volume")
     stages = {"encode": 0.0, "h2d_and_step": 0.0, "d2h_decode_deliver": 0.0}
-    # a self-join runs its left then its right step on every batch
-    sides = ("l", "r") if isinstance(qr, JoinQueryRuntime) else (None,)
+    # a self-join runs its left then its right step on every batch; a
+    # pattern's step is per input stream
+    sides = (("l", "r") if isinstance(qr, JoinQueryRuntime) else
+             ("StockStream",) if isinstance(qr, PatternQueryRuntime) else (None,))
 
     def one(i, timed):
         lo, hi = i * b, (i + 1) * b
@@ -1585,7 +2008,9 @@ def main() -> int:
         for name, app, b in (("filter_window_minmax", main_app(MINMAX), MAIN_BATCH),
                              ("tumbling_groupby", GROUP_APP.format(batch=MAIN_BATCH, n=GROUP_N),
                               MAIN_BATCH),
-                             ("sliding_join", SLIDING_JOIN_APP, JOIN_BATCH)):
+                             ("sliding_join", SLIDING_JOIN_APP, JOIN_BATCH),
+                             ("pattern_2state", PATTERN_APP.format(batch=MAIN_BATCH), MAIN_BATCH),
+                             ("count_sequence", COUNT_APP.format(batch=MAIN_BATCH), MAIN_BATCH)):
             print(f"profile: {name}", flush=True)
             out[name] = {"per_batch": profile_phase(torch, app, b),
                          "fused": profile_fused(torch, app, b)}
@@ -1599,12 +2024,19 @@ def main() -> int:
     res.update(fused_kernel_phase(torch, "cuda"))
     res.update(grouped_kernel_phase(torch, "cuda"))
     res.update(join_kernel_phase(torch, "cuda"))
+    res.update(pattern_kernel_phase(torch, "cuda"))
     verify_phase("cuda")
     main = main_path_phase(torch)
     grouped = grouped_path_phase(torch)
     joined = join_path_phase(torch)
     time_join = time_join_path_phase(torch)
     time_agg = time_agg_path_phase(torch)
+    pattern_p = pattern_path_phase(
+        torch, "P pattern_2state", PATTERN_APP.format(batch=MAIN_BATCH), PATTERN_EVENTS,
+        {"pattern_advance": 2 * (MAIN_BATCH // PATTERN_C), "pattern_emit": MAIN_BATCH // PATTERN_C})
+    pattern_c = pattern_path_phase(
+        torch, "C count_sequence", COUNT_APP.format(batch=MAIN_BATCH), COUNT_EVENTS,
+        {"pattern_count": MAIN_BATCH // COUNT_C, "pattern_emit": MAIN_BATCH // COUNT_C})
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -1629,13 +2061,22 @@ def main() -> int:
            "ring_view": ("siddhi_tpu_torch/csrc/ring_view.cu",
                          "siddhi_tpu/core/windows.py:438"),
            "join_assemble": ("siddhi_tpu_torch/csrc/join_probe.cu",
-                             "siddhi_tpu/core/join.py:311")}
+                             "siddhi_tpu/core/join.py:311"),
+           "pattern_advance": ("siddhi_tpu_torch/csrc/pattern_advance.cu",
+                               "siddhi_tpu/core/pattern.py:1754"),
+           "pattern_count": ("siddhi_tpu_torch/csrc/pattern_count.cu",
+                             "siddhi_tpu/core/pattern.py:1381"),
+           "pattern_emit": ("siddhi_tpu_torch/csrc/pattern_emit.cu",
+                            "siddhi_tpu/core/pattern.py:1864")}
     # launches: K1-K5 from the quickstart path's run, K6-K9 from the
     # tumbling_groupby path's run, K10 from path T's run, K11 and K12 from
-    # path J's (each counted from 0 just before its run)
+    # path J's, K13 and K15 from path P's, K14 from path C's (each counted
+    # from 0 just before its run)
     path_of = dict.fromkeys(GROUP_KERNELS[:4], grouped["launches"])
     path_of["time_window_step"] = time_join["launches"]
     path_of["ring_view"] = path_of["join_assemble"] = joined["launches"]
+    path_of["pattern_advance"] = path_of["pattern_emit"] = pattern_p["launches"]
+    path_of["pattern_count"] = pattern_c["launches"]
     path_launches = {k: path_of.get(k, main["launches"]).get(k, 0) for k in res}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
@@ -1656,7 +2097,11 @@ def main() -> int:
                    "join_kernel_shapes": {
                        "time_window_step": res["time_window_step"]["other_shapes_ms"],
                        "ring_view_W1024_ms": res["ring_view"]["W1024_ms"],
-                       "join_assemble_T_shape_ms": res["join_assemble"]["T_shape_ms"]}},
+                       "join_assemble_T_shape_ms": res["join_assemble"]["T_shape_ms"]},
+                   "pattern_2state": pattern_p, "count_sequence": pattern_c,
+                   "pattern_kernel_shapes": {
+                       "pattern_advance": res["pattern_advance"]["other_shapes_ms"],
+                       "pattern_emit": res["pattern_emit"]["other_shapes_ms"]}},
                   f, indent=1)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -11,7 +11,9 @@ Ported so far: stream definitions, `@app:name`, `@app:batch`, `@app:playback`,
 length, time, timeLength, externalTime and lengthBatch windows; projection
 with sum/count/avg/min/max, group-by, having, order-by, limit/offset) and
 join queries (inner, left/right/full outer, unidirectional, self-joins,
-windowless sides) inserting into streams or delivering to callbacks; the
+windowless sides), pattern and sequence queries that take a batch route
+(core/pattern.py; `@app:patternCapacity`, `@app:countCapacity`,
+`@app:patternChunk`), inserting into streams or delivering to callbacks; the
 timers of time windows, fired by the event-time clock under @app:playback
 and by the wall clock otherwise; fused columnar ingest (core/ingest.py)
 with `@app:ingestChunk`, `@app:wire` and the per-stream `@pipeline`, which
@@ -58,7 +60,9 @@ from siddhi_tpu_torch.query_api.execution import (
     Query,
     ReturnStream,
     SingleInputStream,
+    StateInputStream,
     assign_execution_ids,
+    iter_state_streams,
 )
 from siddhi_tpu_torch.query_api.siddhi_app import SiddhiApp
 
@@ -66,7 +70,8 @@ DEFAULT_BATCH = 64
 
 _PORTED_APP_ANNOTATIONS = {"app:name", "app", "name", "app:description", "app:batch",
                            "app:playback", "app:ingestchunk", "app:wire",
-                           "app:groupcapacity", "app:joincapacity"}
+                           "app:groupcapacity", "app:joincapacity", "app:patterncapacity",
+                           "app:countcapacity", "app:patternchunk"}
 _UNPORTED_STREAM_ANNOTATIONS = {"onerror", "source", "sink", "async"}
 
 
@@ -232,6 +237,9 @@ class SiddhiAppRuntime:
         if isinstance(stream, JoinInputStream):
             self._add_join_query(qid, query)
             return
+        if isinstance(stream, StateInputStream):
+            self._add_pattern_query(qid, query)
+            return
         if not isinstance(stream, SingleInputStream):
             raise _not_ported(f"{type(stream).__name__} query")
         in_schema = self.stream_schemas.get(stream.stream_id)
@@ -314,6 +322,38 @@ class SiddhiAppRuntime:
                 receive_side(self._timer_batch(_schema, t_ms), t_ms, _side)
 
             qr.timer_targets[side] = fire
+
+    def _add_pattern_query(self, qid: str, query: Query) -> None:
+        from siddhi_tpu_torch.core.pattern_runtime import PatternQueryRuntime
+
+        for s in iter_state_streams(query.input_stream.state):
+            if s.stream_id not in self.stream_schemas:
+                raise DefinitionNotExistError(
+                    f"query '{qid}': pattern stream '{s.stream_id}' is not defined "
+                    "(patterns consume streams, not tables or windows)")
+        qr = PatternQueryRuntime(
+            query, qid, self.stream_schemas, self.interner, self.device,
+            group_capacity=self.group_capacity,
+            token_capacity=self._capacity_annotation("app:patternCapacity", 128),
+            count_capacity=self._capacity_annotation("app:countCapacity", 8),
+            batch_size=self.batch_size,
+            pattern_chunk=self._capacity_annotation("app:patternChunk", 0) or None,
+        )
+        self.queries[qid] = qr
+        self._wire_insert(qr)
+
+        def receive(batch: EventBatch, now: int, sid: str, _qr=qr) -> None:
+            with self._process_lock:
+                out_batch = _qr.receive(batch, now, sid)
+                _qr.route_output(out_batch, now, self._decode)
+
+        # one subscription and one fused endpoint per input stream, over the
+        # one token table
+        for sid in qr.prog.stream_ids:
+            j = self._junction(sid)
+            j.subscribe(lambda b, now, _sid=sid: receive(b, now, _sid))
+            j.fuse_candidates.append(FuseEndpoint(qr, step=qr.step_for(sid),
+                                                  init_state=qr.init_state))
 
     def _timer_batch(self, schema: StreamSchema, t_ms: int) -> EventBatch:
         """A batch of one TIMER row at t_ms (null payload). The JAX package

@@ -99,6 +99,10 @@ class Scope:
         # child) resolved: fused ingest ships only the attributes some
         # query reads (QueryRuntime.used_attrs)
         self.used_keys: set[VarKey] = set()
+        # pattern-node filters resolve unqualified attrs to the CURRENT event's
+        # stream even when earlier state refs carry the same attribute
+        # (reference: MatchingMetaInfoHolder default stream-event index)
+        self.prefer_default = False
         self._streams: dict[str, dict[str, AttrType]] = {}
         self._parent: Scope | None = None
 
@@ -119,6 +123,12 @@ class Scope:
         while scope is not None:
             scope.used_keys.add(key)
             scope = scope._parent
+
+    def root_used_keys(self) -> set[VarKey]:
+        scope: Scope = self
+        while scope._parent is not None:
+            scope = scope._parent
+        return scope.used_keys
 
     def resolve(self, var: Variable) -> tuple[VarKey, AttrType]:
         key, t = self._resolve(var)
@@ -143,6 +153,16 @@ class Scope:
             raise KeyError(f"unknown stream reference '{var.stream_id}'")
         # unqualified: unique attribute across in-scope streams (reference
         # resolves unprefixed attrs the same way)
+        if self.prefer_default and self.default_ref is not None:
+            scope = self
+            while scope is not None:
+                attrs = scope._streams.get(self.default_ref)
+                if attrs is not None and var.attribute in attrs:
+                    return (
+                        (self.default_ref, var.stream_index, var.attribute),
+                        attrs[var.attribute],
+                    )
+                scope = scope._parent
         scope = self
         while scope is not None:
             hits = [
@@ -303,12 +323,14 @@ def compile_expression(expr: Expression, scope: Scope) -> CompiledExpr:
         return CompiledExpr(AttrType.BOOL, lambda env: ~ce(env))
 
     if isinstance(expr, IsNull):
-        if expr.expression is None:
-            raise SiddhiAppCreationError(
-                "stream-null conditions (patterns) are not ported yet"
-            )
-        ce = compile_expression(expr.expression, scope)
-        return CompiledExpr(AttrType.BOOL, _is_null_fn(ce))
+        if expr.expression is not None:
+            ce = compile_expression(expr.expression, scope)
+            return CompiledExpr(AttrType.BOOL, _is_null_fn(ce))
+        # stream-null form (`e1 is null` in patterns): the pattern engine
+        # provides a per-state arrival flag column
+        key = (expr.stream_id, expr.stream_index, "__arrived__")
+        scope.record_key(key)
+        return CompiledExpr(AttrType.BOOL, lambda env, k=key: ~env.read(k))
 
     if isinstance(expr, In):
         raise SiddhiAppCreationError("'in <table>' conditions are not ported yet")

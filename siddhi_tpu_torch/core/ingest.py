@@ -165,9 +165,12 @@ class FuseEndpoint:
     state, callbacks and output schema) and the step the chunk loop runs,
     `step(state, batch, now) -> (state', [out, ...])`: `outputs` output
     batches per micro-batch, delivered in that order (a self-join's left then
-    right half). The default step is `qr._step_impl`, one output."""
+    right half). The default step is `qr._step_impl`, one output.
+    `init_state(now)` makes the query's first state (default:
+    `qr.init_state()`)."""
 
-    def __init__(self, qr, step: Optional[Callable] = None, outputs: int = 1):
+    def __init__(self, qr, step: Optional[Callable] = None, outputs: int = 1,
+                 init_state: Optional[Callable] = None):
         self.qr = qr
         self.outputs = outputs
         if step is None:
@@ -175,6 +178,7 @@ class FuseEndpoint:
                 st, out = _qr._step_impl(st, b, now)
                 return st, [out]
         self.step = step
+        self.init_state = init_state or (lambda now, _qr=qr: _qr.init_state())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -335,7 +339,7 @@ class FusedJunctionIngest:
         states = []
         for ep in eps:
             if ep.qr.state is None:
-                ep.qr.state = ep.qr.init_state()
+                ep.qr.state = ep.init_state(now)
             states.append(ep.qr.state)
         batch = prog.decode(wire, counts, bases)
         now_t = torch.full((), now, dtype=torch.int64, device=self.device)

@@ -1,0 +1,200 @@
+"""Pattern/sequence query runtime: the NFA token table and the selector as
+one step per input stream.
+
+Reference analog: the per-query object graph of
+util/parser/StateInputStreamParser.java + QueryParser.java for state
+streams, with a Pattern*ProcessStreamReceiver per input stream. As in the
+JAX package (siddhi_tpu/core/pattern_runtime.py), each input stream gets its
+own step `(state, batch, now) -> (state', out)` over the shared token table:
+the batch is cut into chunks (padded with invalid rows to a whole number of
+them), each chunk runs the pattern's batch route (core/pattern.py) on device
+tensors with no host read, completions collect in one emission buffer, and
+the selector projects it.
+
+Only patterns that take a batch route are ported (`fast_path_ok`: simple
+chains with `every` at the first slot; `count_fast_ok`: a count state at the
+first slot). Logical and absent states, counts elsewhere, counts under
+`within`, multi-stream sequences and every-blocks take the JAX package's
+per-event scan, which is not ported yet: they raise at app creation.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Optional
+
+import numpy as np
+import torch
+
+from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
+from siddhi_tpu_torch.core.event import EventBatch, StreamSchema
+from siddhi_tpu_torch.core.flow import Flow
+from siddhi_tpu_torch.core.pattern import NO_TIMER, PatternProgram
+from siddhi_tpu_torch.core.query_runtime import BaseQueryRuntime, _FlagWatch
+from siddhi_tpu_torch.core.selector import CompiledSelector
+from siddhi_tpu_torch.core.types import InternTable
+from siddhi_tpu_torch.query_api.execution import Query, StateInputStream
+
+
+class PatternQueryRuntime(BaseQueryRuntime):
+    def __init__(self, query: Query, query_id: str, schemas: dict[str, StreamSchema],
+                 interner: InternTable, device, group_capacity: Optional[int] = None,
+                 token_capacity: int = 128, count_capacity: int = 8, batch_size: int = 64,
+                 pattern_chunk: Optional[int] = None):
+        self.query = query
+        self.query_id = query_id
+        self.device = torch.device(device)
+        state_stream = query.input_stream
+        assert isinstance(state_stream, StateInputStream)
+        prog = self.prog = PatternProgram(state_stream, schemas, interner, self.device,
+                                          token_capacity=token_capacity,
+                                          count_capacity=count_capacity)
+        if prog.needs_scheduler or not (prog.fast_path_ok or prog.count_fast_ok):
+            raise SiddhiAppCreationError(
+                f"query '{query_id}': this pattern takes the per-event scan route (logical or "
+                "absent states, counts past the first state or under within, multi-stream "
+                "sequences, every-blocks), which is not ported yet")
+        # the route and its chunk: half the token table on the fast route, so
+        # lanes freed by one chunk's completions serve the next chunk's forks;
+        # T * min count on the count route (@app:patternChunk overrides)
+        if prog.fast_path_ok:
+            self._kernel, self._chunk = prog.apply_batch_fast, max(1, prog.T // 2)
+        else:
+            m0 = max(1, prog.slots[0].min_count)
+            self._kernel = prog.apply_batch_count
+            self._chunk = pattern_chunk or max(1, prog.T * m0)
+        # the emission buffer scales with the token table: every pending
+        # token can complete on one event
+        self.out_cap = max(batch_size, 64, token_capacity)
+
+        # select * over a pattern exposes every ref's attributes in order
+        flat_attrs, seen, dup = [], set(), set()
+        for a in prog.refs:
+            for name, t in schemas[a.stream_id].attrs:
+                if name in seen:
+                    dup.add(name)
+                else:
+                    seen.add(name)
+                    flat_attrs.append((name, t))
+        if query.selector.select_all and dup:
+            raise SiddhiAppCreationError(
+                f"select * over this pattern is ambiguous for {sorted(dup)}; project explicitly")
+        # the selector resolves against a CHILD scope, so its keys (with the
+        # cross-ref condition reads) decide which capture lanes exist
+        sel_scope = prog.scope.child()
+        self.selector = CompiledSelector(query.selector, sel_scope, flat_attrs, windowed=False,
+                                         group_capacity=group_capacity)
+        prog.set_capture_readers(frozenset(sel_scope.used_keys))
+        self._setup_output(query, query_id)
+        self._scope = prog.scope
+        self.uses_scheduler = False
+        self._pattern_overflow = _FlagWatch(self.device, self._log_pattern_overflow)
+
+    def init_state(self, now: int = 0) -> dict:
+        return {
+            "tok": self.prog.init_state(now),
+            "sel": self.selector.init_state(),
+            # the max TIMER timestamp processed (the scan route's; carried so
+            # a state keeps the JAX package's layout)
+            "timer_ts": torch.full((), -(1 << 62), dtype=torch.int64, device=self.device),
+        }
+
+    # ---- device program --------------------------------------------------
+
+    def _step_impl(self, state, batch: EventBatch, now: torch.Tensor, stream_id: str):
+        prog = self.prog
+        dev = self.device
+        out = prog.init_out(self.out_cap)
+        out_n = torch.zeros((), dtype=torch.int32, device=dev)
+        ovf = torch.zeros((), dtype=torch.bool, device=dev)
+        B = batch.capacity
+        C = min(B, self._chunk)
+        pad = (-B) % C
+        if pad:  # invalid rows up to a whole number of chunks
+
+            def padded(x):
+                return torch.cat([x, torch.zeros((pad,) + x.shape[1:], dtype=x.dtype,
+                                                 device=x.device)])
+
+            batch = EventBatch(ts=padded(batch.ts), kind=padded(batch.kind),
+                               valid=padded(batch.valid),
+                               cols={n: padded(c) for n, c in batch.cols.items()})
+            B += pad
+        k = B // C
+        ts, kind, valid = batch.ts.view(k, C), batch.kind.view(k, C), batch.valid.view(k, C)
+        cols = {n: c.view(k, C) for n, c in batch.cols.items()}
+        tok = state["tok"]
+        for i in range(k):
+            tok, out, out_n, ovf = self._kernel(
+                tok, ts[i], kind[i], valid[i], {stream_id: {n: c[i] for n, c in cols.items()}},
+                out, out_n, ovf, now)
+        emit = EventBatch(ts=out["ts"], kind=torch.zeros_like(out["ts"], dtype=torch.int8),
+                          valid=out["valid"], cols={})
+        flow = Flow(batch=emit, ref=prog.refs[0].ref, now=now, extra_cols=prog.out_env_cols(out))
+        sel_state, out_batch = self.selector.apply(state["sel"], flow)
+        self._note_aux(flow.aux)
+        self._pattern_overflow.note(ovf)
+        self._pattern_overflow.poll()
+        return {"tok": tok, "sel": sel_state, "timer_ts": state["timer_ts"]}, out_batch
+
+    def step_for(self, stream_id: str):
+        """The fused chunk loop's step for one input stream."""
+
+        def step(st, b, now):
+            st, out = self._step_impl(st, b, now, stream_id)
+            return st, [out]
+
+        return step
+
+    # ---- host side -------------------------------------------------------
+
+    def receive(self, batch: EventBatch, now: int, stream_id: str) -> EventBatch:
+        with self._receive_lock:
+            if self.state is None:
+                self.state = self.init_state(now)
+            now_t = torch.full((), now, dtype=torch.int64, device=self.device)
+            self.state, out = self._step_impl(self.state, batch, now_t, stream_id)
+        return out
+
+    def describe_state(self) -> dict:
+        """NFA introspection: active instances per linearized slot (the
+        token table's active/slot lanes read back) and the earliest pending
+        deadline."""
+        prog = self.prog
+        d = {"kind": type(self).__name__, "callbacks": len(self.query_callbacks),
+             "rate_limited": False, "tables": [], "token_capacity": prog.T}
+        slots = [{"refs": [a.ref for a in s.atoms], "absent": s.is_absent,
+                  "count": [s.min_count, s.max_count] if s.is_count else None}
+                 for s in prog.slots]
+        if self.state is None:
+            d["states"] = [dict(s, active=0) for s in slots]
+            return d
+        with self._receive_lock:
+            tok = self.state["tok"]
+            active = tok["active"].cpu().numpy()
+            slot = tok["slot"].cpu().numpy()
+            deadline = int(prog.next_timer(tok, after=self.state["timer_ts"]))
+        per_state = np.bincount(slot[active], minlength=len(slots))
+        d["states"] = [dict(s, active=int(per_state[i])) for i, s in enumerate(slots)]
+        d["active_instances"] = int(active.sum())
+        d["next_deadline_ms"] = deadline if deadline < NO_TIMER else None
+        return d
+
+    def prime(self, now: int) -> dict:
+        """Create the initial token table at `now`; the batch routes arm no
+        timer."""
+        with self._receive_lock:
+            if self.state is None:
+                self.state = self.init_state(now)
+            t = self.prog.next_timer(self.state["tok"], after=self.state["timer_ts"])
+        return {"next_timer": t}
+
+    def _log_pattern_overflow(self) -> None:
+        logging.getLogger(__name__).warning(
+            "query '%s': pattern token table or emission buffer overflowed; partial matches "
+            "or emissions were dropped — raise @app:patternCapacity(size='N') (sizes both)",
+            self.query_id)
+
+    def flush_aux_warnings(self) -> None:
+        super().flush_aux_warnings()
+        self._pattern_overflow.flush()

@@ -59,4 +59,101 @@ int gather2(const void* a, const void* b, const int32_t* idx, long long null_bit
   return (int)cudaGetLastError();
 }
 
+// Inclusive block-wide minimum of one int per thread (same contract as
+// block_excl_sum); *total gets the block's minimum.
+__device__ __forceinline__ int block_incl_min(int v, int* ws, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  int incl = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl = min(incl, y);
+  }
+  if (lane == 31) ws[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int x = lane < warps ? ws[lane] : 0x7fffffff;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, d);
+      if (lane >= d) x = min(x, y);
+    }
+    if (lane < warps) ws[lane] = x;
+  }
+  __syncthreads();
+  const int out = warp > 0 ? min(incl, ws[warp - 1]) : incl;
+  *total = ws[warps - 1];
+  __syncthreads();
+  return out;
+}
+
+// Token-table lanes rebuilt through an index map (the pattern kernels):
+// element i of lane l, in row r = i / width, takes m = idx[i] (per_elem) or
+// idx[r], and becomes src[m] when m >= 0, old[i] when m == -1, and the
+// lane's null bit pattern otherwise. Up to kMaxGatherLanes lanes a launch.
+constexpr int kMaxGatherLanes = 16;
+
+struct GatherLanes {
+  const void* old[kMaxGatherLanes];
+  const void* src[kMaxGatherLanes];
+  void* out[kMaxGatherLanes];
+  const int32_t* idx[kMaxGatherLanes];
+  long long null_bits[kMaxGatherLanes];
+  int size[kMaxGatherLanes];
+  int width[kMaxGatherLanes];
+  int per_elem[kMaxGatherLanes];
+  int n;
+};
+
+template <typename T>
+__device__ __forceinline__ void gather_lane_elem(const GatherLanes& L, int l, long long i, int m) {
+  const T v = m >= 0 ? ((const T*)L.src[l])[m]
+              : m == -1 ? ((const T*)L.old[l])[i] : (T)L.null_bits[l];
+  ((T*)L.out[l])[i] = v;
+}
+
+__global__ void gather_lanes_kernel(GatherLanes L, int rows) {
+  const int l = blockIdx.y;
+  const int w = L.width[l];
+  const long long n = (long long)rows * w;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int m = L.per_elem[l] ? L.idx[l][i] : L.idx[l][i / w];
+    switch (L.size[l]) {
+      case 1: gather_lane_elem<uint8_t>(L, l, i, m); break;
+      case 4: gather_lane_elem<uint32_t>(L, l, i, m); break;
+      default: gather_lane_elem<unsigned long long>(L, l, i, m); break;
+    }
+  }
+}
+
+// Launch gather_lanes_kernel over `n` lanes of `rows` rows, given as host
+// arrays, kMaxGatherLanes at a time.
+inline int gather_lanes(int n, const void* const* old, const void* const* src, void* const* out,
+                        const int32_t* const* idx, const long long* null_bits, const int* size,
+                        const int* width, const int* per_elem, int rows, cudaStream_t stream) {
+  for (int base = 0; base < n; base += kMaxGatherLanes) {
+    GatherLanes L;
+    L.n = n - base < kMaxGatherLanes ? n - base : kMaxGatherLanes;
+    int wmax = 1;
+    for (int k = 0; k < L.n; ++k) {
+      L.old[k] = old[base + k];
+      L.src[k] = src[base + k];
+      L.out[k] = out[base + k];
+      L.idx[k] = idx[base + k];
+      L.null_bits[k] = null_bits[base + k];
+      L.size[k] = size[base + k];
+      L.width[k] = width[base + k];
+      L.per_elem[k] = per_elem[base + k];
+      wmax = width[base + k] > wmax ? width[base + k] : wmax;
+    }
+    const long long elems = (long long)rows * wmax;
+    int blocks = (int)((elems + 255) / 256);
+    blocks = blocks < 1 ? 1 : blocks > 1024 ? 1024 : blocks;
+    gather_lanes_kernel<<<dim3(blocks, L.n), 256, 0, stream>>>(L, rows);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
 }  // namespace

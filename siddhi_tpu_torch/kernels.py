@@ -31,7 +31,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "_build"
 SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "deliver_pack",
            "batch_window", "group_assign", "keyed_running_sum", "keep_last", "time_window",
-           "ring_view", "join_probe")
+           "ring_view", "join_probe", "pattern_advance", "pattern_count", "pattern_emit")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -73,6 +73,11 @@ SIGNATURES = {
     "jp_partner_1": ("join_probe", _JP_PARTNER),
     "jp_partner_4": ("join_probe", _JP_PARTNER),
     "jp_partner_8": ("join_probe", _JP_PARTNER),
+    "pa_step": ("pattern_advance", [P] * 9 + [LL, LL] + [I] * 7 + [LL] + [P] * 10 + [I] + [P] * 4
+                + [P]),
+    "pc_step": ("pattern_count", [P] * 9 + [I] * 8 + [P] * 10 + [I] + [P] * 7 + [P]),
+    "pe_emit": ("pattern_emit", [P] * 4 + [I, I, P, P, I] + [P] * 3 + [I] + [P] * 4 + [I, P, I, P, I]
+                + [P] * 4 + [P]),
 }
 
 launches: collections.Counter = collections.Counter()
