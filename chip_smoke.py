@@ -21,11 +21,14 @@ engine next to it. Phases, each printed as it ends:
      J, T and T2's shapes and ragged ones (see join_kernel_phase); the
      pattern slice's (slot pass, count pass, completions) at paths P and C's
      shapes, out of lanes, overflowing and ragged (see pattern_kernel_phase);
+     the per-event scan K16 at paths L and A's shapes (and a one-row TIMER
+     step), every slot kind of tests/test_torch_pattern_scan.py, T=33 with
+     ragged B, lanes exhausted, an overflowing buffer and condition programs
+     with nulls and int/float promotion (see pattern_scan_kernel_phase);
   3. verify cases filter_num, len_window_avg, len_window_minmax,
      len_batch_group, having_order, time_window, external_time, self_join,
-     pattern_within and count_seq on the card against the frozen CPU rows of
-     VERIFY.json, and logical_pattern (the per-event scan route) raising
-     "not ported yet";
+     pattern_within, count_seq and logical_pattern (the per-event scan) on
+     the card against the frozen CPU rows of VERIFY.json;
   4. the main path at full width: BASELINE.json config 1 (filter + length(50)
      window + avg) and the same app with min/max added, at @app:batch 32768,
      2,000,000 events each through send_columns in calls of 8 batches (the
@@ -43,7 +46,7 @@ engine next to it. Phases, each printed as it ends:
      on volume, @app:batch 8192, joinCapacity 8192), 2,000,000 events fused
      and a 20-batch per-batch prefix, in the same way; path T, the same
      self-join over time(1 sec) windows under @app:playback (joinCapacity
-     16384), 500,000 events per batch with the TIMER steps the event-time
+     16384), 250,000 events per batch with the TIMER steps the event-time
      clock sends; path T2, a time(1 sec) window with avg/min/max at batch
      32768 under @app:playback, 16 batches. Each path's own launch counts,
      no join overflow, the first 4 batches against device="cpu";
@@ -54,19 +57,28 @@ engine next to it. Phases, each printed as it ends:
      patternChunk 8192) with 1,000,000, both at @app:batch 32768, fused in
      calls of 8 batches and a 20-batch per-batch prefix, as above; each
      kernel's launches held to its launches per step times the steps, no
-     pattern overflow, and the device busy share of one more fused call.
+     pattern overflow, and the device busy share of one more fused call;
+  8. the per-event scan (patternCapacity 1024, B=32768, seed 7): path L,
+     every (e1[price > 95] and e2[volume > 990]) -> e3[symbol == e1.symbol
+     and price < e1.price - 90] within 1 sec, 1,000,000 events fused in calls
+     of 8 batches and a 20-batch per-batch prefix (exactly equal); path A,
+     every e1[price > 95] -> not [symbol == e1.symbol and price < 5] for
+     100 milliseconds under @app:playback, 16 batches one per call with the
+     TIMER steps the clock sends; K16 launches = steps (L) and = data +
+     TIMER steps (A), no pattern overflow, each against device="cpu" on
+     its first 8,192 events.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
 instead builds the kernels and prints where the time goes on the quickstart
-min/max app, tumbling_groupby, sliding_join, pattern_2state and
-count_sequence: for one per-batch batch and
+min/max app, tumbling_groupby, sliding_join, pattern_2state, count_sequence
+and path L's logical pattern: for one per-batch batch and
 for one fused K=8 chunk, the host stages timed around
 torch.cuda.synchronize(), and device time by kernel from torch.profiler over
-4 batches / 4 chunks; and on path T, each call's split into its data steps
-and its TIMER steps, with the device busy share of one call.
+4 batches / 4 chunks; and on paths T and A, each call's split into its data
+steps and its TIMER steps, with the device busy share of one call.
 """
 
 from __future__ import annotations
@@ -111,7 +123,7 @@ insert into Out;
 
 # slice 4: joins (bench.py sliding_join, BASELINE.json config 3) and time windows
 JOIN_BATCH, JOIN_W, JOIN_CAP, TIME_JOIN_CAP, TIME_W = 8192, 100, 8192, 16384, 1024
-JOIN_EVENTS, TIME_JOIN_EVENTS, TIME_AGG_BATCHES = 2_000_000, 500_000, 16
+JOIN_EVENTS, TIME_JOIN_EVENTS, TIME_AGG_BATCHES = 2_000_000, 250_000, 16
 JOIN_APP = """
 @app:joinCapacity(size='{cap}')
 @app:batch(size='{batch}')
@@ -161,6 +173,31 @@ select a2.symbol as s2
 insert into Out;
 """
 
+# the per-event scan route (path L, logical then cross-ref; path A,
+# absence under playback), each with patternCapacity 1024
+SCAN_T, LOGICAL_EVENTS, ABSENT_BATCHES, SCAN_CPU_EVENTS = 1024, 1_000_000, 16, 8192
+LOGICAL_APP = """
+@app:patternCapacity(size='1024')
+@app:batch(size='{batch}')
+define stream StockStream (symbol string, price float, volume long);
+@info(name='q')
+from every (e1=StockStream[price > 95] and e2=StockStream[volume > 990]) ->
+    e3=StockStream[symbol == e1.symbol and price < e1.price - 90] within 1 sec
+select e1.symbol as s, e1.price as p1, e2.volume as v2, e3.price as p3
+insert into Out;
+"""
+ABSENT_APP = """
+@app:playback
+@app:patternCapacity(size='1024')
+@app:batch(size='{batch}')
+define stream StockStream (symbol string, price float, volume long);
+@info(name='q')
+from every e1=StockStream[price > 95] ->
+    not StockStream[symbol == e1.symbol and price < 5] for 100 milliseconds
+select e1.symbol as s, e1.price as p
+insert into Out;
+"""
+
 VERIFY_HEAD = (
     "@app:batch(size='32')\n"
     "define stream S (symbol string, price float, volume long);\n"
@@ -182,12 +219,11 @@ VERIFY_CASES = {
     "count_seq": VERIFY_HEAD + """@app:patternCapacity(size='64')
         @info(name='q') from every a=S[price > 80]<2:3> -> b=S[price < 20]
         select b.symbol as s2 insert into Out;""",
-}
-# a pattern that takes the per-event scan route, not ported yet: it must
-# raise at app creation on the card too
-LOGICAL_PATTERN = VERIFY_HEAD + """@app:patternCapacity(size='64')
+    # the per-event scan route
+    "logical_pattern": VERIFY_HEAD + """@app:patternCapacity(size='64')
         @info(name='q') from every (a=S[price > 90] and b=S[volume > 500])
-        select a.price as pa, b.volume as vb insert into Out;"""
+        select a.price as pa, b.volume as vb insert into Out;""",
+}
 
 
 def rows_match(a, b, tol=RTOL):
@@ -1196,6 +1232,257 @@ def pattern_kernel_phase(torch, dev) -> dict:
     return res
 
 
+# the apps of tests/test_torch_pattern_scan.py: one per slot kind of the scan
+SCAN_HEAD = ("define stream S (symbol string, price float, volume long);\n"
+             "define stream S2 (symbol string, price double, volume int);\n")
+SCAN_KIND_APPS = {
+    "logical_and": "from every (e1=S[price > 50] and e2=S[volume > 500]) -> "
+                   "e3=S[symbol == e1.symbol and price < e1.price - 30] within 2 sec "
+                   "select e1.symbol as s, e1.price as p1, e2.volume as v2, e3.price as p3",
+    "logical_or": "from e1=S[price > 70] or e2=S2[volume > 800] -> e3=S[price < 20] "
+                  "select e1.price as p1, e2.volume as v2, e3.price as p3",
+    "and_absent_wait": "from every e1=S[price > 60] and not S2[price > 80] for 100 milliseconds "
+                       "-> e3=S[price < 10] select e1.price as p1, e3.price as p3",
+    "or_absent_wait": "from e0=S[price > 90] -> e1=S[price > 60] or not S2[price > 80] "
+                      "for 100 milliseconds select e0.price as p0, e1.price as p1",
+    "both_absent_and_0": "from not S[price > 90] for 100 milliseconds and not S2[price > 90] "
+                         "for 150 milliseconds -> e3=S[price < 10] select e3.price as p3",
+    "both_absent_or_1": "from every e1=S[price > 80] -> not S[price < 5] for 100 milliseconds "
+                        "or not S2[price < 5] for 120 milliseconds select e1.price as p1",
+    "absent_for": "from every e1=S[price > 80] -> not S[symbol == e1.symbol and price < 10] "
+                  "for 100 milliseconds select e1.symbol as s, e1.price as p",
+    "absent_no_for": "from e1=S[price > 80] -> not S2[price < 20] and e3=S[price < 10] "
+                     "select e1.price as p1, e3.price as p3",
+    "every_absent": "from every not S2[price > 90] for 100 milliseconds -> e2=S[price < 20] "
+                    "select e2.price as p2",
+    "count_middle": "from e1=S[price > 80] -> e2=S[price < 30]<2:4> -> e3=S[price > 90] "
+                    "select e1.price as p1, e2[0].price as q0, e2[last].price as ql, "
+                    "e3.price as p3",
+    "trailing_min0": "from every e1=S[price > 70] -> e2=S[volume > 900]<0:3> "
+                     "select e1.price as p1, e2[0].volume as v0",
+    "every_block": "from every (e1=S[price > 70] -> e2=S[price < 30]) "
+                   "select e1.price as p1, e2.price as p2",
+    "every_block_mid": "from e0=S[volume > 950] -> every (e1=S[price > 70] -> e2=S[price < 30]) "
+                       "-> e3=S[volume < 50] select e0.volume as v0, e1.price as p1, "
+                       "e3.volume as v3",
+    "seq_count_fwd": "from every e1=S[price > 50]<1:3>, e2=S[price < 50] "
+                     "select e1[0].price as a0, e1[last].price as al, e2.price as b",
+    "seq_two_streams": "from every e1=S[price > 50], e2=S2[price < 40] within 1 sec "
+                       "select e1.price as p1, e2.price as p2",
+    "last_reads": "from every e1=S[price > 60]<2:5> -> "
+                  "e2=S[price < e1[last].price - 30 and volume > e1[0].volume] "
+                  "select e1[last].price as pl, e1[0].volume as v0, e2.price as p2",
+    "cond_promote": "from every e1=S2[volume > 100] -> e2=S[(e1.volume + volume) / 2 > 500 and "
+                    "price * 2 >= e1.price and volume % 7 != e1.volume % 5 and "
+                    "not (e1.symbol is null)] select e1.volume as v1, e2.volume as v2",
+    "cond_nulls": "from every e1=S2[volume > 0] -> e2=S[(volume - e1.volume) * 3 > e1.price / 2 "
+                  "or e1.volume % 4 == volume % 4 or price / e1.volume <= 0.5 or "
+                  "e1.volume / (e1.volume - e1.volume) == -1] "
+                  "select e1.volume as v1, e2.volume as v2",
+}
+
+
+def scan_step_bytes(prog, tok, batch, ev, rmask, regs, n_out) -> int:
+    """Bytes one scan step must move: the token table read and written,
+    the step's rows (ts, kind, valid, row masks, registers, the captured
+    columns) read once, and the n_out emitted rows written."""
+    lanes = [tok["active"], tok["slot"], tok["start_ts"], tok["entry_ts"]] + (
+        [tok["fwd"]] if "fwd" in tok else [])
+    lanes += [x for c in tok["caps"] for x in (c["n"], c["ts"], *c["cols"].values())]
+    table = sum(x.numel() * x.element_size() for x in lanes)
+    rows = (batch.ts.numel() * (8 + 1 + 1) + rmask.numel()
+            + sum(r.numel() * r.element_size() for r in regs)
+            + sum(v.numel() * v.element_size() for k, v in ev.items()
+                  if any(k == name for _r, name in prog.cap_lanes())))
+    keep_cols, ts_used = prog.capture_keep()
+    row_out = 8 + 1 + 4 * len(prog.refs) + sum(
+        (8 * a.cap if ts_used[a.ref_idx] else 0)
+        + sum(c.element_size() * a.cap for c in tok["caps"][a.ref_idx]["cols"].values())
+        for a in prog.refs)
+    return 2 * table + rows + n_out * row_out
+
+
+def pattern_scan_kernel_phase(torch, dev) -> dict:
+    """K16 (the per-event scan) against its plain version on the card,
+    exactly (every lane of the token table and the emission buffer, out_n
+    and the overflow flag), from the same token tables and rows: at path L's
+    shape (T=1024, one 32768-row batch of seed-7 stock data) and path A's
+    (the same, and a one-row TIMER step after it); every app of
+    tests/test_torch_pattern_scan.py (one per slot kind, a condition program
+    with nulls and int/float promotion) from random token tables at T=64 and
+    B=33, on each stream and a TIMER batch; T=33 with ragged B (33, 1000);
+    lanes exhausted (a dense table); an emission buffer that overflows."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.core.pattern import pattern_scan, pattern_scan_ref
+
+    rng = np.random.default_rng(606)
+    t0 = 1_700_000_000_000
+
+    def prog_of(app):
+        prog = SiddhiManager(device=dev).create_siddhi_app_runtime(app).queries["q"].prog
+        prog.compile_scan()
+        return prog
+
+    def kind_app(name, T):
+        return (f"@app:patternCapacity(size='{T}')\n" + SCAN_HEAD
+                + f"@info(name='q') {SCAN_KIND_APPS[name]} insert into Out;")
+
+    def column(name, dtype, shape):
+        null = rng.random(shape) < 0.1
+        if dtype == torch.float32:
+            v = rng.uniform(0, 100, shape).astype(np.float32)
+            v[null] = np.nan
+        elif name == "symbol":
+            v = rng.integers(0, 5, shape).astype(np.int32)
+        elif dtype == torch.int64:
+            v = rng.integers(1, 1000, shape).astype(np.int64)
+            v[null] = np.iinfo(np.int64).min
+        else:
+            v = rng.integers(1, 1000, shape).astype(np.int32)
+            v[null] = np.iinfo(np.int32).min
+        return torch.from_numpy(v).to(dev)
+
+    def random_tok(prog, density):
+        T, S = prog.T, len(prog.slots)
+        tok = prog.init_state(t0)
+        tok["active"] = torch.from_numpy(rng.random(T) < density).to(dev)
+        tok["slot"] = torch.from_numpy(rng.integers(0, S, T).astype(np.int32)).to(dev)
+        tok["start_ts"] = torch.from_numpy(np.where(
+            rng.random(T) < 0.3, -1, t0 - rng.integers(0, 3000, T)).astype(np.int64)).to(dev)
+        tok["entry_ts"] = torch.from_numpy((t0 - rng.integers(0, 400, T)).astype(np.int64)).to(dev)
+        if "fwd" in tok:
+            tok["fwd"] = torch.from_numpy(rng.random(T) < 0.3).to(dev)
+        for a, c in zip(prog.refs, tok["caps"]):
+            c["n"] = torch.from_numpy(rng.integers(0, a.cap + 2, T).astype(np.int32)).to(dev)
+            c["ts"] = torch.from_numpy(t0 - rng.integers(0, 400, tuple(c["ts"].shape))).to(dev)
+            for name, arr in list(c["cols"].items()):
+                c["cols"][name] = column(name, arr.dtype, tuple(arr.shape))
+        return tok
+
+    def random_batch(prog, sid, B):
+        ts = (t0 + np.cumsum(rng.integers(0, 60, B))).astype(np.int64)
+        kind = np.where(rng.random(B) < 0.05, 2, 0).astype(np.int8)
+        if sid is None:
+            kind[:] = 2
+        valid = rng.random(B) < 0.95
+        cols = {}
+        if sid is not None:
+            for name, t in prog.schemas[sid].attrs:
+                dtype = torch.float32 if t.name in ("FLOAT", "DOUBLE") else (
+                    torch.int64 if t.name == "LONG" else torch.int32)
+                cols[name] = column(name, dtype, (B,))
+        return EventBatch(ts=torch.from_numpy(ts).to(dev), kind=torch.from_numpy(kind).to(dev),
+                          valid=torch.from_numpy(valid).to(dev), cols=cols)
+
+    def args_of(prog, tok, sid, batch, cap=64, n0=0, seen=-(1 << 40)):
+        ev, rmask, regs = prog.scan_inputs(sid, batch)
+        return [prog, tok, sid, batch.ts, batch.kind, batch.valid, ev, rmask, regs,
+                prog.init_out(cap), torch.full((), n0, dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.bool, device=dev),
+                torch.tensor(t0 + seen if seen > -(1 << 40) else seen, dtype=torch.int64,
+                             device=dev)]
+
+    def fresh(args):  # the emission buffer and out_n are written in place
+        a = list(args)
+        a[9] = {k: v.clone() for k, v in a[9].items()}
+        a[10] = a[10].clone()
+        return a
+
+    checks = [0]
+    plain_ms = {}
+
+    def k16(label, args, want_overflow=None, quiet=False):
+        got = pattern_scan(*fresh(args))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = pattern_scan_ref(*fresh(args))
+        torch.cuda.synchronize()
+        plain_ms[label] = (time.perf_counter() - t) * 1e3
+        same_bits(torch, [got[0], got[1], got[2], got[3]], [want[0], want[1], want[2], want[3]])
+        if want_overflow is not None and bool(want[3]) != want_overflow:
+            raise AssertionError(f"pattern_scan {label}: overflow {bool(want[3])}")
+        checks[0] += 1
+        if not quiet:
+            print(f"kernel check pattern_scan {label}: T={args[0].T} B={args[3].shape[0]}, "
+                  f"out_n {int(args[10])} -> {int(want[2])}, overflow {bool(want[3])}: ok",
+                  flush=True)
+        return want
+
+    # path L's and path A's shapes: the real rows of the first batch
+    b = MAIN_BATCH
+    d = stock_data(b, seed=7)
+    sdata = EventBatch(
+        ts=torch.from_numpy(d["ts"]).to(dev),
+        kind=torch.zeros(b, dtype=torch.int8, device=dev),
+        valid=torch.ones(b, dtype=torch.bool, device=dev),
+        cols={k: torch.from_numpy(d[k]).to(dev) for k in ("symbol", "price", "volume")})
+    lprog = prog_of(LOGICAL_APP.format(batch=b))
+    l_args = args_of(lprog, lprog.init_state(int(d["ts"][0])), "StockStream", sdata, cap=b)
+    l_want = k16(f"path L ({b} rows)", l_args)
+    aprog = prog_of(ABSENT_APP.format(batch=b))
+    a_args = args_of(aprog, aprog.init_state(int(d["ts"][0])), "StockStream", sdata, cap=b)
+    a_want = k16(f"path A data step ({b} rows)", a_args)
+    tb = EventBatch(ts=torch.full((1,), int(d["ts"][-1]) + 50, dtype=torch.int64, device=dev),
+                    kind=torch.full((1,), 2, dtype=torch.int8, device=dev),
+                    valid=torch.ones(1, dtype=torch.bool, device=dev), cols={})
+    at_args = args_of(aprog, a_want[0], None, tb, cap=b)
+    k16("path A TIMER step (1 row)", at_args)
+
+    # every slot kind, from random tables, on each stream and a TIMER batch
+    for name in SCAN_KIND_APPS:
+        prog = prog_of(kind_app(name, 64))
+        for sid in prog.stream_ids + [None]:
+            for density, seen in ((0.5, -(1 << 40)), (0.9, 250)):
+                k16(f"{name} {sid}", args_of(prog, random_tok(prog, density), sid,
+                                             random_batch(prog, sid, 33), seen=seen), quiet=True)
+    print(f"kernel check pattern_scan: {len(SCAN_KIND_APPS)} apps, one per slot kind, T=64 "
+          f"B=33 ({checks[0] - 3} steps): ok", flush=True)
+    for name in ("logical_and", "every_block", "seq_count_fwd", "absent_for"):
+        prog = prog_of(kind_app(name, 33))
+        for B in (33, 1000):
+            k16(f"{name} T=33 ragged", args_of(prog, random_tok(prog, 0.5), prog.stream_ids[0],
+                                               random_batch(prog, prog.stream_ids[0], B)))
+    for name in ("every_absent", "logical_and", "every_block"):
+        prog = prog_of(kind_app(name, 64))
+        sid = prog.stream_ids[-1] if name == "every_absent" else prog.stream_ids[0]
+        k16(f"{name} lanes exhausted", args_of(prog, random_tok(prog, 0.99), None if
+                                               name == "every_absent" else sid,
+                                               random_batch(prog, None if name == "every_absent"
+                                                            else sid, 200), seen=2000),
+            want_overflow=True)
+    prog = prog_of(kind_app("absent_for", 64))
+    k16("overflowing emission buffer", args_of(prog, random_tok(prog, 0.9), "S",
+                                               random_batch(prog, "S", 200), cap=16, n0=10,
+                                               seen=2000), want_overflow=True)
+
+    # times at the paths' shapes (the plain version's: its one run in the
+    # check, a Python loop over the rows)
+    res = {"max_abs_err": 0.0, "bound_by": "bytes", "library_ms": None}
+    res["ms"] = time_ms(torch, lambda: pattern_scan(*fresh(l_args)), 5)
+    res["plain_ms"] = plain_ms[f"path L ({b} rows)"]
+    ev, rmask, regs = l_args[6:9]
+    res["bound_ms"] = scan_step_bytes(lprog, l_args[1], sdata, ev, rmask, regs,
+                                      int(l_want[2])) / MEM_BYTES_PER_S * 1e3
+    a_ms = time_ms(torch, lambda: pattern_scan(*fresh(a_args)), 5)
+    at_ms = time_ms(torch, lambda: pattern_scan(*fresh(at_args)), 50)
+    a_plain = plain_ms[f"path A data step ({b} rows)"]
+    ev, rmask, regs = a_args[6:9]
+    a_bound = scan_step_bytes(aprog, a_args[1], sdata, ev, rmask, regs,
+                              int(a_want[2])) / MEM_BYTES_PER_S * 1e3
+    ev, rmask, regs = at_args[6:9]
+    at_bound = scan_step_bytes(aprog, at_args[1], tb, ev, rmask, regs, 0) / MEM_BYTES_PER_S * 1e3
+    res["path_A_shape"] = {"ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
+                           "timer_step_ms": at_ms, "timer_step_bound_ms": at_bound}
+    res["checks"] = checks[0]
+    print(f"kernel pattern_scan: ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+          f"bound_ms={res['bound_ms']:.6f} (bytes) library_ms=none max_abs_err=0.0 at path L's "
+          f"shape (T=1024, B=32768); path A's data step {a_ms:.4f} ms (plain {a_plain:.4f}, bound "
+          f"{a_bound:.6f}), its one-row TIMER step {at_ms:.4f} ms (bound {at_bound:.6f})",
+          flush=True)
+    return {"pattern_scan": res}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: verify cases against VERIFY.json
 # ---------------------------------------------------------------------------
@@ -1229,16 +1516,6 @@ def verify_phase(dev) -> None:
         if not rows_match(got, frozen[case]):
             raise AssertionError(f"verify case {case}: rows differ from VERIFY.json")
         print(f"verify {case}: {len(got)} rows match VERIFY.json", flush=True)
-    from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
-
-    try:
-        SiddhiManager(device=dev).create_siddhi_app_runtime(LOGICAL_PATTERN)
-    except SiddhiAppCreationError as e:
-        if "not ported yet" not in str(e):
-            raise
-        print("verify logical_pattern: raises 'not ported yet' on the card", flush=True)
-    else:
-        raise AssertionError("logical_pattern: a scan-route pattern did not raise")
 
 
 # ---------------------------------------------------------------------------
@@ -1570,7 +1847,7 @@ def join_path_phase(torch) -> dict:
 
 def time_join_path_phase(torch) -> dict:
     """Path T: the same self-join over time(1 sec) windows under
-    @app:playback, joinCapacity 16384: 500,000 events of seed 7 through
+    @app:playback, joinCapacity 16384: 250,000 events of seed 7 through
     send_columns one batch of 8192 per call, the per-batch form (a query
     whose window needs the scheduler stays off the fused path); the
     event-time clock fires the TIMER rows before each call's batch; launch
@@ -1730,6 +2007,122 @@ def pattern_path_phase(torch, label: str, app: str, n_events: int, per_step: dic
           f"overflow; first 4 batches match device='cpu', first 20 batches exactly equal the "
           f"per-batch form; device busy {busy_ms:.3f} of {wall_ms:.3f} ms over one fused call "
           f"of 8 batches ({busy_ms / wall_ms:.4f})", flush=True)
+    return out
+
+
+def scan_cpu_check(label: str, app: str, data: dict) -> dict:
+    """The first SCAN_CPU_EVENTS events of `app`, one call, on the card and
+    on device="cpu" (the plain scan, a Python loop over rows): the same
+    rows; prints the plain run's time."""
+    n = SCAN_CPU_EVENTS
+    _n, gpu_kept, gpu_dt, _i = run_app("cuda", app, data, n, n, n, fused=False)
+    _n, cpu_kept, cpu_dt, _i = run_app("cpu", app, data, n, n, n, fused=False)
+    if not cpu_kept[0] or not rows_match(gpu_kept[0], cpu_kept[0]):
+        raise AssertionError(f"{label}: the first {n} events' rows differ from device='cpu'")
+    print(f"{label}: the first {n} events' {len(cpu_kept[0])} rows match device='cpu' "
+          f"({gpu_dt:.3f} s on the card, {cpu_dt:.3f} s for the plain scan on the host)",
+          flush=True)
+    return {"events": n, "rows": len(cpu_kept[0]), "card_s": gpu_dt, "cpu_plain_s": cpu_dt}
+
+
+def logical_path_phase(torch) -> dict:
+    """Path L: every (e1[price > 95] and e2[volume > 990]) -> e3[symbol ==
+    e1.symbol and price < e1.price - 90] within 1 sec at @app:batch 32768,
+    patternCapacity 1024: 1,000,000 events of seed 7 through send_columns in
+    calls of 8 batches (the first of 4), fused (no scheduler), one K16
+    launch per step (counts of this run alone), the fused path's kernels
+    launched, no pattern overflow; the first 20 batches exactly against the
+    per-batch form and the first 8,192 events against device="cpu"; matches
+    per batch, events/s and the device busy share of one more fused call."""
+    from siddhi_tpu_torch import kernels
+
+    b = MAIN_BATCH
+    app = LOGICAL_APP.format(batch=b)
+    data = stock_data(LOGICAL_EVENTS, seed=7)
+    first_n, stride = 4 * b, 8 * b
+    prefix_calls, prefix_events = 3, 20 * b
+    run_app("cuda", app, data, 4 * b, 2 * b, 2 * b)  # warm-up, not counted
+    kernels.launches.clear()
+    (n_rows, kept, dt, info), warned = capture_warnings(
+        lambda: run_app("cuda", app, data, LOGICAL_EVENTS, stride, first_n,
+                        keep_calls=prefix_calls), "patternCapacity")
+    launches = dict(kernels.launches)
+    print(f"L logical_pattern launches {json.dumps(launches)}", flush=True)
+    if warned:
+        raise AssertionError("path L: the pattern token table or emission buffer overflowed")
+    calls = [first_n] + [stride] * ((LOGICAL_EVENTS - first_n) // stride)
+    if LOGICAL_EVENTS - sum(calls):
+        calls.append(LOGICAL_EVENTS - sum(calls))
+    steps = info["batches"] + sum(-(-c // b) for c in calls if c < 2 * b)
+    if launches.get("pattern_scan", 0) != steps:
+        raise AssertionError(f"path L: {launches.get('pattern_scan', 0)} K16 launches for "
+                             f"{steps} steps")
+    for k in ("wire_decode", "deliver_pack"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} was not launched on path L")
+    pb_rows, pb_kept, pb_dt, _i = run_app("cuda", app, data, prefix_events, stride, first_n,
+                                          fused=False, keep_calls=prefix_calls)
+    fused_prefix = [row for call in kept for row in call]
+    pb_prefix = [row for call in pb_kept for row in call]
+    if not pb_prefix or fused_prefix != pb_prefix:
+        raise AssertionError("path L: fused rows differ from the per-batch form")
+    cpu = scan_cpu_check("path L", app, data)
+    wall_ms, busy_ms = fused_busy(torch, app, data, b)
+    n_batches = -(-LOGICAL_EVENTS // b)
+    out = {"events": LOGICAL_EVENTS, "rows": n_rows, "seconds": dt,
+           "events_per_s": LOGICAL_EVENTS / dt, "chunks": info["chunks"],
+           "batches": info["batches"], "steps": steps, "launches": launches,
+           "matches_per_batch": n_rows / n_batches,
+           "busy": {"wall_ms_8_batches": wall_ms, "device_busy_ms": busy_ms,
+                    "share": busy_ms / wall_ms},
+           "per_batch": {"events": prefix_events, "rows": pb_rows, "seconds": pb_dt,
+                         "events_per_s": prefix_events / pb_dt, "rows_exactly_equal": True},
+           "cpu_check": cpu}
+    print(f"path L logical_pattern: fused {LOGICAL_EVENTS} events, {n_rows} rows delivered "
+          f"({n_rows / n_batches:.1f} matches per batch), {dt:.3f} s, {LOGICAL_EVENTS / dt:.1f} "
+          f"events/s, {steps} steps = K16 launches; per-batch form {prefix_events} events, "
+          f"{pb_rows} rows, {pb_dt:.3f} s, {prefix_events / pb_dt:.1f} events/s; no overflow; "
+          f"first 20 batches exactly equal the per-batch form; device busy {busy_ms:.3f} of "
+          f"{wall_ms:.3f} ms over one fused call of 8 batches ({busy_ms / wall_ms:.4f})",
+          flush=True)
+    return out
+
+
+def absent_path_phase(torch) -> dict:
+    """Path A: every e1[price > 95] -> not [symbol == e1.symbol and price <
+    5] for 100 milliseconds under @app:playback at @app:batch 32768,
+    patternCapacity 1024: 16 batches of seed 7, one per call (a pattern that
+    needs the scheduler stays off the fused path), with the one-row TIMER
+    steps the event-time clock sends counted; K16 launches = data steps +
+    TIMER steps (counts of this run alone); no pattern overflow; the first
+    8,192 events against device="cpu"."""
+    from siddhi_tpu_torch import kernels
+
+    b = MAIN_BATCH
+    n = ABSENT_BATCHES * b
+    app = ABSENT_APP.format(batch=b)
+    data = stock_data(n, seed=7)
+    run_app("cuda", app, data, 2 * b, b, b, fused=False)  # warm-up, not counted
+    fires = [0]
+    kernels.launches.clear()
+    (n_rows, _kept, dt, _info), warned = capture_warnings(
+        lambda: run_app("cuda", app, data, n, b, b, fused=False, fires=fires),
+        "patternCapacity")
+    launches = dict(kernels.launches)
+    print(f"A absent_pattern launches {json.dumps(launches)}", flush=True)
+    if warned:
+        raise AssertionError("path A: the pattern token table or emission buffer overflowed")
+    if launches.get("pattern_scan", 0) != ABSENT_BATCHES + fires[0]:
+        raise AssertionError(f"path A: {launches.get('pattern_scan', 0)} K16 launches for "
+                             f"{ABSENT_BATCHES} data steps and {fires[0]} TIMER steps")
+    cpu = scan_cpu_check("path A", app, data)
+    out = {"events": n, "rows": n_rows, "seconds": dt, "events_per_s": n / dt,
+           "data_steps": ABSENT_BATCHES, "timer_steps": fires[0], "launches": launches,
+           "matches_per_batch": n_rows / ABSENT_BATCHES, "cpu_check": cpu}
+    print(f"path A absent_pattern: {n} events in {ABSENT_BATCHES} batches and {fires[0]} one-row "
+          f"TIMER steps (= K16 launches {launches.get('pattern_scan', 0)} - {ABSENT_BATCHES}), "
+          f"{n_rows} rows delivered ({n_rows / ABSENT_BATCHES:.1f} matches per batch), {dt:.3f} "
+          f"s, {n / dt:.1f} events/s; no overflow", flush=True)
     return out
 
 
@@ -1924,8 +2317,8 @@ def profile_fused(torch, app: str, b: int) -> dict:
             "device_busy_ms_4_chunks": busy_ms, "by_kernel": by_kernel}
 
 
-def profile_timers(torch, app: str, b: int) -> dict:
-    """Where path T's time goes: 4 calls of one batch each through the real
+def profile_timers(torch, app: str, b: int, label: str = "time join") -> dict:
+    """Where path T's (or A's) time goes: 4 calls of one batch each through the real
     send_columns loop under @app:playback (after 2 warm-up calls), with the
     one-row TIMER steps the event-time clock sends counted and timed apart
     from the data steps; then torch.profiler's device busy share over 1
@@ -1973,7 +2366,7 @@ def profile_timers(torch, app: str, b: int) -> dict:
            "timer_steps_per_call": timer["steps"] / 4,
            "timer_ms_per_call": timer["s"] / 4 * 1e3,
            "timer_ms_per_step": timer["s"] / max(timer["steps"], 1) * 1e3}
-    print(f"profile: time join, per call of one batch: {json.dumps(out)}", flush=True)
+    print(f"profile: {label}, per call of one batch: {json.dumps(out)}", flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         send(6)
@@ -1981,7 +2374,7 @@ def profile_timers(torch, app: str, b: int) -> dict:
         wall = time.perf_counter() - t0
     busy_ms = sum(getattr(e, "self_device_time_total", 0) / 1e3 for e in prof.key_averages())
     out.update(profiled_call_wall_ms=wall * 1e3, profiled_call_busy_ms=busy_ms)
-    print(f"profile: time join, 1 call: wall {wall * 1e3:.3f} ms, device busy {busy_ms:.3f} ms "
+    print(f"profile: {label}, 1 call: wall {wall * 1e3:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({busy_ms / (wall * 1e3):.4f} of wall)", flush=True)
     rt.shutdown()
     return out
@@ -2010,12 +2403,17 @@ def main() -> int:
                               MAIN_BATCH),
                              ("sliding_join", SLIDING_JOIN_APP, JOIN_BATCH),
                              ("pattern_2state", PATTERN_APP.format(batch=MAIN_BATCH), MAIN_BATCH),
-                             ("count_sequence", COUNT_APP.format(batch=MAIN_BATCH), MAIN_BATCH)):
+                             ("count_sequence", COUNT_APP.format(batch=MAIN_BATCH), MAIN_BATCH),
+                             ("logical_pattern", LOGICAL_APP.format(batch=MAIN_BATCH),
+                              MAIN_BATCH)):
             print(f"profile: {name}", flush=True)
             out[name] = {"per_batch": profile_phase(torch, app, b),
                          "fused": profile_fused(torch, app, b)}
         print("profile: time join", flush=True)
         out["time_join"] = profile_timers(torch, TIME_JOIN_APP, JOIN_BATCH)
+        print("profile: absent pattern", flush=True)
+        out["absent_pattern"] = profile_timers(torch, ABSENT_APP.format(batch=MAIN_BATCH),
+                                               MAIN_BATCH, "absent pattern")
         with open(os.path.join(ROOT, "chiprun_out", "profile.json"), "w") as f:
             json.dump(out, f, indent=1)
         return 0
@@ -2025,6 +2423,7 @@ def main() -> int:
     res.update(grouped_kernel_phase(torch, "cuda"))
     res.update(join_kernel_phase(torch, "cuda"))
     res.update(pattern_kernel_phase(torch, "cuda"))
+    res.update(pattern_scan_kernel_phase(torch, "cuda"))
     verify_phase("cuda")
     main = main_path_phase(torch)
     grouped = grouped_path_phase(torch)
@@ -2037,6 +2436,8 @@ def main() -> int:
     pattern_c = pattern_path_phase(
         torch, "C count_sequence", COUNT_APP.format(batch=MAIN_BATCH), COUNT_EVENTS,
         {"pattern_count": MAIN_BATCH // COUNT_C, "pattern_emit": MAIN_BATCH // COUNT_C})
+    logical = logical_path_phase(torch)
+    absent = absent_path_phase(torch)
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -2067,16 +2468,19 @@ def main() -> int:
            "pattern_count": ("siddhi_tpu_torch/csrc/pattern_count.cu",
                              "siddhi_tpu/core/pattern.py:1381"),
            "pattern_emit": ("siddhi_tpu_torch/csrc/pattern_emit.cu",
-                            "siddhi_tpu/core/pattern.py:1864")}
+                            "siddhi_tpu/core/pattern.py:1864"),
+           "pattern_scan": ("siddhi_tpu_torch/csrc/pattern_scan.cu",
+                            "siddhi_tpu/core/pattern.py:566")}
     # launches: K1-K5 from the quickstart path's run, K6-K9 from the
     # tumbling_groupby path's run, K10 from path T's run, K11 and K12 from
-    # path J's, K13 and K15 from path P's, K14 from path C's (each counted
-    # from 0 just before its run)
+    # path J's, K13 and K15 from path P's, K14 from path C's, K16 from path
+    # L's (each counted from 0 just before its run)
     path_of = dict.fromkeys(GROUP_KERNELS[:4], grouped["launches"])
     path_of["time_window_step"] = time_join["launches"]
     path_of["ring_view"] = path_of["join_assemble"] = joined["launches"]
     path_of["pattern_advance"] = path_of["pattern_emit"] = pattern_p["launches"]
     path_of["pattern_count"] = pattern_c["launches"]
+    path_of["pattern_scan"] = logical["launches"]
     path_launches = {k: path_of.get(k, main["launches"]).get(k, 0) for k in res}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
@@ -2101,7 +2505,9 @@ def main() -> int:
                    "pattern_2state": pattern_p, "count_sequence": pattern_c,
                    "pattern_kernel_shapes": {
                        "pattern_advance": res["pattern_advance"]["other_shapes_ms"],
-                       "pattern_emit": res["pattern_emit"]["other_shapes_ms"]}},
+                       "pattern_emit": res["pattern_emit"]["other_shapes_ms"],
+                       "pattern_scan_path_A": res["pattern_scan"]["path_A_shape"]},
+                   "logical_pattern": logical, "absent_pattern": absent},
                   f, indent=1)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": table}), flush=True)

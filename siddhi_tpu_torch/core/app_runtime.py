@@ -11,11 +11,12 @@ Ported so far: stream definitions, `@app:name`, `@app:batch`, `@app:playback`,
 length, time, timeLength, externalTime and lengthBatch windows; projection
 with sum/count/avg/min/max, group-by, having, order-by, limit/offset) and
 join queries (inner, left/right/full outer, unidirectional, self-joins,
-windowless sides), pattern and sequence queries that take a batch route
-(core/pattern.py; `@app:patternCapacity`, `@app:countCapacity`,
-`@app:patternChunk`), inserting into streams or delivering to callbacks; the
-timers of time windows, fired by the event-time clock under @app:playback
-and by the wall clock otherwise; fused columnar ingest (core/ingest.py)
+windowless sides), pattern and sequence queries (core/pattern.py; the two
+batch routes and the per-event scan; `@app:patternCapacity`,
+`@app:countCapacity`, `@app:patternChunk`), inserting into streams or
+delivering to callbacks; the timers of time windows and of absent pattern
+states, fired by the event-time clock under @app:playback and by the wall
+clock otherwise; fused columnar ingest (core/ingest.py)
 with `@app:ingestChunk`, `@app:wire` and the per-stream `@pipeline`, which
 queries that need the scheduler stay off. Everything else raises
 `SiddhiAppCreationError("... not ported yet")`.
@@ -346,6 +347,8 @@ class SiddhiAppRuntime:
             with self._process_lock:
                 out_batch = _qr.receive(batch, now, sid)
                 _qr.route_output(out_batch, now, self._decode)
+                next_timer = _qr.next_timer
+            self._schedule_at(next_timer, _qr.timer_targets.get("timer"))
 
         # one subscription and one fused endpoint per input stream, over the
         # one token table
@@ -354,6 +357,18 @@ class SiddhiAppRuntime:
             j.subscribe(lambda b, now, _sid=sid: receive(b, now, _sid))
             j.fuse_candidates.append(FuseEndpoint(qr, step=qr.step_for(sid),
                                                   init_state=qr.init_state))
+
+        if qr.uses_scheduler:
+            # absent deadlines: a one-row TIMER step at each (JAX
+            # app_runtime.py _add_pattern_query's timer target)
+            def fire(t_ms: int, _qr=qr) -> None:
+                with self._process_lock:
+                    out_batch = _qr.receive_timer(t_ms)
+                    _qr.route_output(out_batch, t_ms, self._decode)
+                    next_timer = _qr.next_timer
+                self._schedule_at(next_timer, _qr.timer_targets.get("timer"))
+
+            qr.timer_targets["timer"] = fire
 
     def _timer_batch(self, schema: StreamSchema, t_ms: int) -> EventBatch:
         """A batch of one TIMER row at t_ms (null payload). The JAX package
@@ -451,6 +466,12 @@ class SiddhiAppRuntime:
         if self._playback_clock is not None:
             self._playback_clock.start_heartbeat()
         self._build_fused_ingest()
+        # absent-at-start patterns arm their timers before any event
+        # (reference: SiddhiAppRuntime.start -> eternalReferencedHolders.start)
+        for qr in self.queries.values():
+            target = qr.timer_targets.get("timer")
+            if target is not None:
+                self._schedule_at(qr.prime(self.clock())["next_timer"], target)
 
     def _build_fused_ingest(self) -> None:
         """Build a fused ingest engine on each junction whose subscribers

@@ -22,9 +22,13 @@ tensors on the CPU):
 - `pattern_emit` (csrc/pattern_emit.cu): completed tokens into the emission
   buffer, ordered by completion row then lane, and the `within` purge.
 
-The per-event scan route (`apply_event`: logical and absent states, counts
-under `within`, multi-stream sequences, counts anywhere but slot 0) is not
-ported yet: a pattern that needs it raises at app creation.
+Every other pattern (logical and absent states, counts under `within` or
+past the first state, multi-stream sequences, every-blocks) takes the
+per-event scan route: `apply_event` applies one row to the token table, and
+`pattern_scan` (csrc/pattern_scan.cu) runs a whole step's rows, data or one
+TIMER row, in one launch. Filters split into row-only masks, evaluated over
+the batch by the compiled closures, and token-dependent condition programs
+(`CondProgram`), evaluated per token lane inside the scan.
 
 Deliberate deviations from the reference interpreter are the JAX package's
 (its module docstring): static token/capture capacity with overflow flags,
@@ -45,9 +49,26 @@ import torch
 from siddhi_tpu_torch import kernels
 from siddhi_tpu_torch.core.aggregators import _null_bits
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
-from siddhi_tpu_torch.core.event import KIND_CURRENT, StreamSchema
-from siddhi_tpu_torch.core.executor import TS_ATTR, Env, Scope, compile_expression
-from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType, InternTable, null_value
+from siddhi_tpu_torch.core.event import KIND_CURRENT, KIND_TIMER, StreamSchema
+from siddhi_tpu_torch.core.executor import (
+    _CMP,
+    TS_ATTR,
+    Env,
+    Scope,
+    _cast,
+    _int_div,
+    _int_rem,
+    _notnull,
+    compile_expression,
+)
+from siddhi_tpu_torch.core.types import (
+    NUMERIC_TYPES,
+    PHYSICAL_DTYPE,
+    AttrType,
+    InternTable,
+    null_value,
+    promote,
+)
 from siddhi_tpu_torch.ops.prefix import first_indices
 from siddhi_tpu_torch.ops.scatter import set_at
 from siddhi_tpu_torch.query_api.execution import (
@@ -63,6 +84,21 @@ from siddhi_tpu_torch.query_api.execution import (
     StateStreamType,
     StreamStateElement,
 )
+from siddhi_tpu_torch.query_api.expression import (
+    Add,
+    And,
+    Compare,
+    CompareOp,
+    Constant,
+    Divide,
+    IsNull,
+    Mod,
+    Multiply,
+    Not,
+    Or,
+    Subtract,
+    Variable,
+)
 
 NO_TIMER = int(np.iinfo(np.int64).max)
 
@@ -70,6 +106,11 @@ DEFAULT_TOKEN_CAPACITY = 128
 DEFAULT_COUNT_CAPACITY = 8
 
 _UNBOUNDED = 1 << 30  # a count's max when `<m:>`: counting runs on past the captures
+
+# Test hook: every pattern takes the per-event scan route (the batch routes'
+# differential oracle, as the JAX package's FORCE_SCAN). Read when a pattern
+# query is created.
+FORCE_SCAN = False
 
 
 def _min_within(slot_ms, global_ms):
@@ -727,6 +768,276 @@ def pattern_emit(prog: "PatternProgram", tok: dict, entry_row, batch_ts, v, now,
 
 
 # ---------------------------------------------------------------------------
+# condition programs: the token-dependent filters of the scan route
+# ---------------------------------------------------------------------------
+
+# physical value types on a program's stack (csrc/pattern_scan.cu, same codes)
+TY_BOOL, TY_INT, TY_LONG, TY_FLOAT, TY_ID = 0, 1, 2, 3, 4
+_TY = {AttrType.BOOL: TY_BOOL, AttrType.INT: TY_INT, AttrType.LONG: TY_LONG,
+       AttrType.FLOAT: TY_FLOAT, AttrType.DOUBLE: TY_FLOAT, AttrType.STRING: TY_ID,
+       AttrType.OBJECT: TY_ID}
+_TY_NULL = {TY_BOOL: 0, TY_INT: int(null_value(AttrType.INT)),
+            TY_LONG: int(null_value(AttrType.LONG)), TY_ID: 0}
+_TY_DTYPE = {TY_BOOL: torch.bool, TY_INT: torch.int32, TY_LONG: torch.int64,
+             TY_FLOAT: torch.float32, TY_ID: torch.int32}
+# a type's stand-in logical type (the executor's helpers take logical types)
+_TY_LOGICAL = {TY_BOOL: AttrType.BOOL, TY_INT: AttrType.INT, TY_LONG: AttrType.LONG,
+               TY_FLOAT: AttrType.FLOAT, TY_ID: AttrType.STRING}
+
+# opcodes: each instruction is (op, a, b, c, d)
+OP_REG, OP_CONST, OP_CAP, OP_ARITH, OP_CMP, OP_AND, OP_OR, OP_NOT, OP_ISNULL = range(1, 10)
+_ARITH_CODE = {Add: 0, Subtract: 1, Multiply: 2, Divide: 3, Mod: 4}
+_ARITH_NAME = ("add", "sub", "mul", "div", "mod")
+_CMP_CODE = {CompareOp.LT: 0, CompareOp.LE: 1, CompareOp.GT: 2, CompareOp.GE: 3,
+             CompareOp.EQ: 4, CompareOp.NEQ: 5}
+_CMP_BY_CODE = {v: k for k, v in _CMP_CODE.items()}
+K_NONE = 1 << 20  # an un-indexed capture read (e1.price: occurrence 0)
+LANE_ARRIVED = -1  # OP_CAP's lane: the ref's arrival flag, not a capture lane
+MAX_STACK = 16  # csrc/pattern_scan.cu kMaxStack
+
+
+@dataclasses.dataclass
+class CondProgram:
+    """One token-dependent filter of an atom, in postfix: `code` is a list
+    of (op, a, b, c, d) instructions —
+    - (OP_REG, r, ty): row register r (a capture-free subtree, evaluated
+      over the batch by its compiled closure) at this row;
+    - (OP_CONST, ty, bits): a constant (float32 as its bit pattern);
+    - (OP_CAP, ref, k, lane, ty): the token's capture of ref — occurrence k
+      (K_NONE: the first, -1 - i: `last - i`), capture lane `lane` of
+      PatternProgram.cap_lanes() or LANE_ARRIVED — with the null rules of
+      `_synth_capture_cols`;
+    - (OP_ARITH, op, lt, rt, t): + - * / % in type t (the executor's
+      `_arith`: promotion, Java integer division and remainder, fmod);
+    - (OP_CMP, op, lt, rt, t): the six comparisons in common type t (-1:
+      equality of two bools or ids), false on a null operand;
+    - (OP_AND,), (OP_OR,), (OP_NOT,), (OP_ISNULL, ty)."""
+
+    code: list
+
+
+def _const_bits(value: torch.Tensor, ty: int) -> int:
+    if ty == TY_FLOAT:
+        return int(value.to(torch.float32).reshape(1).view(torch.int32)[0])
+    return int(value)
+
+
+def cond_program_ref(prog: "PatternProgram", cp: CondProgram, tok: dict, regs_row: list):
+    """Plain evaluator of a condition program over the [T] token lanes:
+    the executor's own operations (`_cast`, `_int_div`, `_int_rem`, fmod,
+    `_notnull`, the comparison table) on each instruction. regs_row[r] is
+    row register r's value at this row (0-d). Returns [T] bool."""
+    T = tok["active"].shape[0]
+    lanes = prog.cap_lanes()
+    stack = []
+    for ins in cp.code:
+        op = ins[0]
+        if op == OP_REG:
+            stack.append(regs_row[ins[1]])
+        elif op == OP_CONST:
+            stack.append(prog._const(ins[1], ins[2], tok["active"].device))
+        elif op == OP_CAP:
+            _op, r, k, lane, ty = ins
+            c = tok["caps"][r]
+            n = c["n"]
+            if lane == LANE_ARRIVED:
+                stack.append(n > 0 if k == K_NONE else (n > k) if k >= 0 else (n >= -k))
+                continue
+            _ref, name = lanes[lane]
+            arr = c["ts"] if name is None else c["cols"][name]
+            cap = arr.shape[1]
+            if k == K_NONE or 0 <= k < cap:
+                stack.append(arr[:, 0 if k == K_NONE else k])
+                continue
+            col = torch.full((T,), float("nan") if ty == TY_FLOAT else _TY_NULL[ty],
+                             dtype=arr.dtype, device=arr.device)
+            if k < 0:  # last - i: occurrence n - 1 - i
+                for i in range(cap):
+                    col = torch.where(n + k == i, arr[:, i], col)
+            stack.append(col)
+        elif op == OP_ARITH:
+            _op, code, _lt, _rt, t = ins
+            b, a = stack.pop(), stack.pop()
+            lt = _TY_LOGICAL[t]
+            a, b = _cast(a, lt), _cast(b, lt)
+            name = _ARITH_NAME[code]
+            if name == "add":
+                v = a + b
+            elif name == "sub":
+                v = a - b
+            elif name == "mul":
+                v = a * b
+            elif name == "div":
+                v = _int_div(a, b) if t != TY_FLOAT else a / b
+            else:
+                v = _int_rem(a, b) if t != TY_FLOAT else torch.fmod(a, b)
+            stack.append(v)
+        elif op == OP_CMP:
+            _op, code, lt, rt, t = ins
+            b, a = stack.pop(), stack.pop()
+            ok = _notnull(a, _TY_LOGICAL[lt]) & _notnull(b, _TY_LOGICAL[rt])
+            if t >= 0:
+                a, b = _cast(a, _TY_LOGICAL[t]), _cast(b, _TY_LOGICAL[t])
+            stack.append(_CMP[_CMP_BY_CODE[code]](a, b) & ok)
+        elif op == OP_AND:
+            b, a = stack.pop(), stack.pop()
+            stack.append(a & b)
+        elif op == OP_OR:
+            b, a = stack.pop(), stack.pop()
+            stack.append(a | b)
+        elif op == OP_NOT:
+            stack.append(~stack.pop())
+        elif op == OP_ISNULL:
+            v, ty = stack.pop(), ins[1]
+            stack.append(~_notnull(v, _TY_LOGICAL[ty]))
+        else:
+            raise ValueError(f"condition program: opcode {op}")
+    (res,) = stack
+    return torch.broadcast_to(res, (T,))
+
+
+# ---------------------------------------------------------------------------
+# K16: the per-event scan over one step's rows
+# ---------------------------------------------------------------------------
+
+
+def pattern_scan_ref(prog: "PatternProgram", tok: dict, stream_id: Optional[str], batch_ts,
+                     batch_kind, batch_valid, ev: dict, rmask, regs: list, out: dict, out_n,
+                     overflow, timer_seen):
+    """Plain version of `pattern_scan`: `apply_event` on each valid row in
+    order (the JAX package's lax.scan body, pattern_runtime.py:228-266; an
+    invalid row changes nothing there and is skipped here). The row scalars
+    and the row masks are read to the host once; stream_id is not read (the
+    row masks already hold other streams' refs off)."""
+    ts_h = batch_ts.tolist()
+    kind_h = batch_kind.tolist()
+    valid_h = batch_valid.tolist()
+    rm = rmask.cpu().numpy()
+    seen = int(timer_seen)
+    n = out_n.clone()
+    for b in range(len(ts_h)):
+        if not valid_h[b]:
+            continue
+        ev_row = {name: col[b] for name, col in ev.items()}
+        tok, n, overflow = prog.apply_event(tok, ts_h[b], kind_h[b], ev_row, rm[:, b],
+                                            [r[b] for r in regs], out, n, overflow, seen)
+    out_n.copy_(n)
+    return tok, out, out_n, overflow
+
+
+def pattern_scan(prog: "PatternProgram", tok: dict, stream_id: Optional[str], batch_ts,
+                 batch_kind, batch_valid, ev: dict, rmask, regs: list, out: dict, out_n,
+                 overflow, timer_seen):
+    """One scan step (see csrc/pattern_scan.cu): every row of the batch
+    applied to the token table in order. stream_id: the batch's stream
+    (None: a TIMER step); ev: its columns {attr: [B]} ({} on a TIMER step);
+    rmask [R, B] bool and regs (each [B]) from `PatternProgram.scan_inputs`;
+    out and out_n (0-d int32) the emission buffer, written in place;
+    overflow 0-d bool; timer_seen 0-d int64, the max TIMER timestamp
+    processed before the step. Returns (tok', out, out_n, overflow')."""
+    if batch_ts.device.type == "cpu":
+        return pattern_scan_ref(prog, tok, stream_id, batch_ts, batch_kind, batch_valid, ev,
+                                rmask, regs, out, out_n, overflow, timer_seen)
+    lanes = [tok["active"], tok["slot"], tok["start_ts"], tok["entry_ts"]]
+    kernels.require_cuda("pattern_scan", *lanes, batch_ts, batch_kind, batch_valid, rmask,
+                         out_n, overflow, timer_seen, *regs, *ev.values(), *out.values(),
+                         *[x for c in tok["caps"] for x in (c["n"], c["ts"], *c["cols"].values())])
+    tok, ovf = _scan_launch(prog, tok, stream_id, batch_ts, batch_kind, batch_valid, ev, rmask,
+                            regs, out, out_n, overflow, timer_seen, kernels.function("ps_scan"),
+                            kernels.stream())
+    kernels.launches["pattern_scan"] += 1
+    return tok, out, out_n, ovf
+
+
+# the kernel's limits (csrc/pattern_scan.cu)
+_SCAN_MAX_REFS, _SCAN_MAX_CAP_LANES, _SCAN_MAX_REGS, _SCAN_MAX_DESC = 16, 32, 16, 1024
+_SCAN_SMEM_BYTES = 200 * 1024  # per-lane arrays above this go to global scratch
+
+
+def scan_lane_bytes(T: int, R: int) -> int:
+    """Bytes of the kernel's per-lane working arrays (its lane_bytes)."""
+    t8 = (T + 7) // 8 * 8
+    return t8 * (5 * 8 + (3 + 2 * R) * 4 + 10)
+
+
+def _scan_launch(prog: "PatternProgram", tok: dict, stream_id: Optional[str], batch_ts, batch_kind,
+                 batch_valid, ev: dict, rmask, regs: list, out: dict, out_n, overflow, timer_seen,
+                 fn, stream):
+    """Lay out K16's arguments and call the entry point `fn`: fresh output
+    lanes for the token table, the emission buffer and out_n in place.
+    Returns (tok', overflow')."""
+    T, B, R = prog.T, batch_ts.shape[0], len(prog.refs)
+    dev = batch_ts.device
+    desc = prog.scan_desc(dev)
+    lanes = prog.cap_lanes()
+    if (R > _SCAN_MAX_REFS or len(lanes) > _SCAN_MAX_CAP_LANES or len(regs) > _SCAN_MAX_REGS
+            or desc.shape[0] > _SCAN_MAX_DESC):
+        raise ValueError(f"pattern_scan: {R} refs, {len(lanes)} capture lanes, {len(regs)} row "
+                         f"registers, {desc.shape[0]} descriptor words exceed the kernel's "
+                         f"{_SCAN_MAX_REFS}, {_SCAN_MAX_CAP_LANES}, {_SCAN_MAX_REGS}, "
+                         f"{_SCAN_MAX_DESC}")
+    if rmask.shape != (R, B) or any(x.shape != (T,) for x in
+                                    (tok["active"], tok["slot"], tok["start_ts"], tok["entry_ts"])):
+        raise ValueError(f"pattern_scan: [{T}] token lanes and an [{R}, {B}] row mask expected")
+    new = {k: torch.empty_like(tok[k]) for k in ("active", "slot", "start_ts", "entry_ts")}
+    if "fwd" in tok:
+        new["fwd"] = torch.empty_like(tok["fwd"])
+    caps = [{"n": torch.empty_like(c["n"]), "ts": torch.empty_like(c["ts"]),
+             "cols": {k: torch.empty_like(v) for k, v in c["cols"].items()}} for c in tok["caps"]]
+    cl = []  # (in, out, ev, emit, stage, null bits, ref, size, is_ts)
+    for ref_idx, name in lanes:
+        a = prog.refs[ref_idx]
+        old = tok["caps"][ref_idx]["ts"] if name is None else tok["caps"][ref_idx]["cols"][name]
+        newl = caps[ref_idx]["ts"] if name is None else caps[ref_idx]["cols"][name]
+        src = ev[name] if name is not None and a.stream_id == stream_id else None
+        if src is not None and src.dtype != old.dtype:
+            raise ValueError(f"pattern_scan: capture lane {name} is {old.dtype}, the column "
+                             f"{src.dtype}")
+        emit = (out.get(f"ts{ref_idx}") if name is None else out[f"c{ref_idx}.{name}"])
+        nb = 0 if name is None else _null_bits(prog.schemas[a.stream_id].attr_types[name])
+        cl.append((old, newl, src, emit, torch.empty_like(old), nb, ref_idx, old.element_size(),
+                   int(name is None)))
+    bytes_ = scan_lane_bytes(T, R)
+    smem = bytes_ <= _SCAN_SMEM_BYTES
+    scratch = torch.empty(1 if smem else bytes_, dtype=torch.uint8, device=dev)
+    ovf = _flag_out(overflow)
+
+    def ptr(x):
+        return 0 if x is None else x.data_ptr()
+
+    L = _Lanes({
+        "n_in": (ctypes.c_void_p, [c["n"].data_ptr() for c in tok["caps"]]),
+        "n_out": (ctypes.c_void_p, [c["n"].data_ptr() for c in caps]),
+        "out_nref": (ctypes.c_void_p, [out[f"n{r}"].data_ptr() for r in range(R)]),
+    })
+    C = _Lanes({
+        "in": (ctypes.c_void_p, [ptr(x[0]) for x in cl]),
+        "out": (ctypes.c_void_p, [ptr(x[1]) for x in cl]),
+        "ev": (ctypes.c_void_p, [ptr(x[2]) for x in cl]),
+        "emit": (ctypes.c_void_p, [ptr(x[3]) for x in cl]),
+        "stage": (ctypes.c_void_p, [ptr(x[4]) for x in cl]),
+        "null": (ctypes.c_longlong, [x[5] for x in cl]),
+        "ref": (ctypes.c_int, [x[6] for x in cl]),
+        "size": (ctypes.c_int, [x[7] for x in cl]),
+        "is_ts": (ctypes.c_int, [x[8] for x in cl]),
+    })
+    G = _Lanes({"reg": (ctypes.c_void_p, [r.data_ptr() for r in regs])})
+    kernels.check(fn(
+        desc.data_ptr(), desc.shape[0], T, B, R,
+        tok["active"].data_ptr(), new["active"].data_ptr(), tok["slot"].data_ptr(),
+        new["slot"].data_ptr(), tok["start_ts"].data_ptr(), new["start_ts"].data_ptr(),
+        tok["entry_ts"].data_ptr(), new["entry_ts"].data_ptr(),
+        ptr(tok.get("fwd")), ptr(new.get("fwd")), L["n_in"], L["n_out"], L["out_nref"],
+        len(cl), C["in"], C["out"], C["ev"], C["emit"], C["stage"], C["null"], C["ref"],
+        C["size"], C["is_ts"], batch_ts.data_ptr(), batch_kind.data_ptr(),
+        batch_valid.data_ptr(), rmask.data_ptr(), len(regs), G["reg"],
+        out["ts"].data_ptr(), out["valid"].data_ptr(), out["valid"].shape[0], out_n.data_ptr(),
+        overflow.data_ptr(), ovf.data_ptr(), timer_seen.data_ptr(), scratch.data_ptr(), int(smem),
+        stream), "pattern_scan")
+    return {**new, "caps": caps}, ovf
+
+
+# ---------------------------------------------------------------------------
 # the program
 # ---------------------------------------------------------------------------
 
@@ -786,6 +1097,16 @@ class PatternProgram:
         self._capture_readers: Optional[frozenset] = None
         self._keep_cache = None
         self._win_t: dict = {}
+        # a sequence with count slots carries an explicit forwarding lane
+        # (reference: SEQUENCE addState accepts one new state per event)
+        self._use_fwd = self.sequence and any(s.is_count for s in self.slots)
+        # the scan route's split filters (compile_scan) and capture lanes
+        self._cap_lanes: Optional[list] = None
+        self._row_conds: Optional[dict] = None
+        self._progs: dict = {}
+        self._regs: list = []
+        self._scan_descs: dict = {}
+        self._consts: dict = {}
 
     # ---- capture projection ---------------------------------------------
 
@@ -846,7 +1167,7 @@ class PatternProgram:
         active[0] = True
         entry_ts = torch.zeros(T, dtype=torch.int64, device=dev)
         entry_ts[0] = now
-        return {
+        tok = {
             "active": active,
             "slot": torch.zeros(T, dtype=torch.int32, device=dev),
             # -1 == virgin (no event captured yet); 0 is a legitimate epoch ts
@@ -854,6 +1175,12 @@ class PatternProgram:
             "entry_ts": entry_ts,
             "caps": caps,
         }
+        if self._use_fwd:
+            # a min-0 count start state forwards its virgin at once
+            fwd = torch.zeros(T, dtype=torch.bool, device=dev)
+            fwd[0] = self.slots[0].is_count and self.slots[0].min_count == 0
+            tok["fwd"] = fwd
+        return tok
 
     # ---- environments ----------------------------------------------------
 
@@ -1074,6 +1401,723 @@ class PatternProgram:
         return pattern_emit(self, tok, entry_row, batch_ts, v, now, out, out_n, overflow,
                             purge=False)
 
+    # ---- the scan route: inputs ---------------------------------------------
+
+    def cap_lanes(self) -> list:
+        """The capture lanes in the scan's order: per ref, its timestamps
+        (name None) then its kept columns in schema order."""
+        if self._cap_lanes is None:
+            keep_cols, _ts_used = self.capture_keep()
+            lanes = []
+            for a in self.refs:
+                lanes.append((a.ref_idx, None))
+                lanes += [(a.ref_idx, name) for name, _t in self.schemas[a.stream_id].attrs
+                          if name in keep_cols[a.ref_idx]]
+            self._cap_lanes = lanes
+        return self._cap_lanes
+
+    def compile_scan(self) -> None:
+        """Split every atom's filters for the scan route: a filter that reads
+        only the atom's own un-indexed keys (its event) is row-only and
+        stays a compiled closure; any other becomes a CondProgram whose
+        capture-free subtrees are row registers. A token-dependent subtree
+        outside the program's operations raises here, at app creation."""
+        if self._row_conds is not None:
+            return
+        self._row_conds, self._progs, self._regs = {}, {}, []
+        self.cap_lanes()
+        for slot in self.slots:
+            for atom in slot.atoms:
+                rows, progs = [], []
+                for f in atom.filters:
+                    c, free = self._compile_at(f, atom)
+                    if free:
+                        rows.append(c)
+                    else:
+                        code: list = []
+                        self._emit_cond(f, atom, code)
+                        if _stack_depth(code) > MAX_STACK:
+                            raise SiddhiAppCreationError(
+                                f"a pattern condition deeper than {MAX_STACK} operands is not "
+                                "ported yet")
+                        progs.append(CondProgram(code))
+                self._row_conds[(slot.index, atom.ref_idx)] = rows
+                self._progs[(slot.index, atom.ref_idx)] = progs
+
+    def _atom_scope(self, atom: Atom) -> Scope:
+        """The scope a filter of `atom` compiles in (its event unqualified)."""
+        s = self.scope.child()
+        s.default_ref = atom.ref
+        s.prefer_default = True
+        return s
+
+    def _compile_at(self, expr, atom: Atom):
+        """(closure, capture-free) of `expr` in the atom's filter scope."""
+        s = self._atom_scope(atom)
+        c = compile_expression(expr, s)
+        return c, all(k[0] == atom.ref and k[1] is None for k in s.used_keys)
+
+    def _emit_cond(self, expr, atom: Atom, code: list) -> AttrType:
+        """Append `expr`'s postfix code; returns its logical type."""
+        c, free = self._compile_at(expr, atom)
+        if free:
+            if isinstance(expr, Constant):
+                code.append((OP_CONST, _TY[c.type], _const_bits(c(Env({})), _TY[c.type])))
+            else:
+                code.append((OP_REG, len(self._regs), _TY[c.type]))
+                self._regs.append((atom.ref_idx, c))
+            return c.type
+        if isinstance(expr, Variable):
+            (ref, k, attr), t = self._atom_scope(atom).resolve(expr)
+            self._emit_cap(ref, k, attr, t, code)
+            return t
+        if isinstance(expr, IsNull) and expr.expression is None:
+            # `e1 is null`: the ref's arrival flag, negated
+            self._emit_cap(expr.stream_id, expr.stream_index, "__arrived__", AttrType.BOOL, code)
+            code.append((OP_NOT,))
+            return AttrType.BOOL
+        if type(expr) in _ARITH_CODE:
+            lt = self._emit_cond(expr.left, atom, code)
+            rt = self._emit_cond(expr.right, atom, code)
+            t = promote(lt, rt)
+            code.append((OP_ARITH, _ARITH_CODE[type(expr)], _TY[lt], _TY[rt], _TY[t]))
+            return t
+        if isinstance(expr, Compare):
+            lt = self._emit_cond(expr.left, atom, code)
+            rt = self._emit_cond(expr.right, atom, code)
+            t = _TY[promote(lt, rt)] if lt in NUMERIC_TYPES and rt in NUMERIC_TYPES else -1
+            code.append((OP_CMP, _CMP_CODE[expr.op], _TY[lt], _TY[rt], t))
+            return AttrType.BOOL
+        if isinstance(expr, (And, Or)):
+            self._emit_cond(expr.left, atom, code)
+            self._emit_cond(expr.right, atom, code)
+            code.append((OP_AND,) if isinstance(expr, And) else (OP_OR,))
+            return AttrType.BOOL
+        if isinstance(expr, Not):
+            self._emit_cond(expr.expression, atom, code)
+            code.append((OP_NOT,))
+            return AttrType.BOOL
+        if isinstance(expr, IsNull):
+            t = self._emit_cond(expr.expression, atom, code)
+            code.append((OP_ISNULL, _TY[t]))
+            return AttrType.BOOL
+        raise SiddhiAppCreationError(
+            f"a {type(expr).__name__} over captured events in a pattern condition is not "
+            "ported yet")
+
+    def _emit_cap(self, ref: str, k: Optional[int], attr: str, t: AttrType, code: list) -> None:
+        """Append the capture read of key (ref, k, attr)."""
+        a = next((a for a in self.refs if a.ref == ref), None)
+        if a is None:
+            raise SiddhiAppCreationError(f"a pattern condition reading '{ref}' is not ported yet")
+        if attr == "__arrived__":
+            lane = LANE_ARRIVED
+        else:
+            lane = self.cap_lanes().index((a.ref_idx, None if attr == TS_ATTR else attr))
+        code.append((OP_CAP, a.ref_idx, K_NONE if k is None else k, lane, _TY[t]))
+
+    def scan_inputs(self, stream_id: Optional[str], batch):
+        """A scan step's per-row inputs: (ev, rmask, regs) — the step's
+        stream columns, the [R, B] row-only mask of each ref (false for refs
+        of other streams and on a TIMER step) and the row registers, each
+        [B] (a zero lane for those of other streams)."""
+        B = batch.ts.shape[0]
+        dev = batch.ts.device
+        R = len(self.refs)
+        ev = dict(batch.cols) if stream_id is not None else {}
+        slot_of = {a.ref_idx: s.index for s in self.slots for a in s.atoms}
+        masks = []
+        for a in self.refs:
+            if a.stream_id != stream_id:
+                masks.append(torch.zeros(B, dtype=torch.bool, device=dev))
+                continue
+            env = self._row_env(ev, batch.ts, None, a)
+            m = torch.ones(B, dtype=torch.bool, device=dev)
+            for c in self._row_conds[(slot_of[a.ref_idx], a.ref_idx)]:
+                m = m & torch.broadcast_to(c(env), (B,))
+            masks.append(m)
+        rmask = torch.stack(masks) if R else torch.zeros((0, B), dtype=torch.bool, device=dev)
+        regs = []
+        for ref_idx, c in self._regs:
+            a = self.refs[ref_idx]
+            dtype = PHYSICAL_DTYPE[c.type]
+            if a.stream_id != stream_id:
+                regs.append(torch.zeros(B, dtype=dtype, device=dev))
+                continue
+            v = c(self._row_env(ev, batch.ts, None, a))
+            regs.append(torch.broadcast_to(v.to(dtype), (B,)).contiguous())
+        return ev, rmask.contiguous(), regs
+
+    def _const(self, ty: int, bits: int, dev) -> torch.Tensor:
+        """A condition program's constant as a 0-d tensor on `dev` (cached)."""
+        key = (ty, bits, dev)
+        v = self._consts.get(key)
+        if v is None:
+            if ty == TY_FLOAT:
+                v = torch.tensor([bits], dtype=torch.int32).view(torch.float32)[0]
+            else:
+                v = torch.tensor(bits, dtype=_TY_DTYPE[ty])
+            v = self._consts[key] = v.to(dev)
+        return v
+
+    def scan_desc(self, dev) -> torch.Tensor:
+        """K16's descriptor table (int64, on `dev`, built once): a header
+        [S, R, sequence, fwd lane, within or -1]; per slot [atoms, atom
+        refs (2), logical (0 / 1 AND / 2 OR), min, max, every, count,
+        within or -1, first slot of the every-block it ends or -1, deadline
+        kind (0 none, 1 absent, 2 both sides absent, 3 one absent side),
+        the waiting absent ref or -1, both sides absent, a trailing min-0
+        count]; per ref [slot, absent, waiting or -1, capture capacity,
+        programs, word offset of its programs]; then each program as its
+        length and its 5-word instructions (csrc/pattern_scan.cu)."""
+        t = self._scan_descs.get(dev)
+        if t is not None:
+            return t
+        S, R = len(self.slots), len(self.refs)
+        head = [S, R, int(self.sequence), int(self._use_fwd),
+                -1 if self.within_ms is None else self.within_ms]
+        slots, refs, progs = [], [None] * R, []
+        base = len(head) + 14 * S + 6 * R
+        for slot in self.slots:
+            p = slot.index
+            waits = [a for a in slot.atoms if a.absent and a.waiting_ms is not None]
+            if slot.is_absent and slot.atoms[0].waiting_ms is not None:
+                dkind = 1
+            elif slot.logical is not None and len(waits) == len(slot.atoms):
+                dkind = 2
+            elif slot.logical is not None and waits:
+                dkind = 3
+            else:
+                dkind = 0
+            blk = next((b for b in self.every_blocks if b[1] == p), None)
+            logical = {None: 0, LogicalType.AND: 1, LogicalType.OR: 2}[slot.logical]
+            slots += [len(slot.atoms), slot.atoms[0].ref_idx,
+                      slot.atoms[1].ref_idx if len(slot.atoms) > 1 else -1, logical,
+                      slot.min_count, slot.max_count, int(slot.persistent), int(slot.is_count),
+                      -1 if slot.within_ms is None else slot.within_ms,
+                      -1 if blk is None else blk[0], dkind,
+                      waits[0].ref_idx if slot.logical is not None and waits else -1,
+                      int(slot.logical is not None and all(a.absent for a in slot.atoms)),
+                      int(slot.is_count and slot.min_count == 0 and p == S - 1)]
+            for a in slot.atoms:
+                code = self._progs[(p, a.ref_idx)]
+                refs[a.ref_idx] = [p, int(a.absent), -1 if a.waiting_ms is None else a.waiting_ms,
+                                   a.cap, len(code), base + len(progs)]
+                for cp in code:
+                    progs.append(len(cp.code))
+                    for ins in cp.code:
+                        progs += list(ins) + [0] * (5 - len(ins))
+        words = head + slots + [w for r in refs for w in r] + progs
+        t = self._scan_descs[dev] = torch.tensor(words, dtype=torch.int64, device=dev)
+        return t
+
+    # ---- the scan route: one row (JAX apply_event, line for line) ---------------
+
+    def _eligible(self, tok, p: int) -> torch.Tensor:
+        """Tokens that may match slot p: at p, or parked at preceding count
+        slots whose min is satisfied (count-skip); a sequence with counts
+        keeps only the forwarded token (the fwd lane)."""
+        active, slot = tok["active"], tok["slot"]
+        elig = active & (slot == p)
+        skip = torch.zeros_like(elig)
+        q = p - 1
+        while q >= 0 and self.slots[q].is_count:
+            sat = tok["caps"][self.slots[q].atoms[0].ref_idx]["n"] >= max(
+                self.slots[q].min_count, 0)
+            skip = skip | (active & (slot == q) & sat)
+            if self.slots[q].min_count > 0:
+                break
+            q -= 1
+        if self._use_fwd:
+            skip = skip & tok["fwd"]
+        return elig | skip
+
+    def _capture(self, caps_r, atom: Atom, match, ts: int, ev_row: dict):
+        """Write the current event into ref r's next occurrence slot."""
+        n = caps_r["n"]
+        pos = n.clamp(0, atom.cap - 1)
+        write = match & (n < atom.cap)
+        at = (torch.arange(atom.cap, device=n.device)[None, :] == pos[:, None]) & write[:, None]
+        new_cols = {name: torch.where(at, ev_row[name].to(arr.dtype), arr)
+                    for name, arr in caps_r["cols"].items()}
+        return {"n": torch.where(match, n + 1, n), "ts": torch.where(at, ts, caps_r["ts"]),
+                "cols": new_cols}
+
+    def apply_event(self, tok, ts: int, kind: int, ev_row: dict, rmask, regs_row: list, out,
+                    out_n, overflow, timer_seen: int):
+        """One valid row of the scan (JAX PatternProgram.apply_event,
+        pattern.py:566-1059): within kills, the sequence start re-init, the
+        deadline blocks, matching in descending slot order, sequence
+        strictness and the fwd contest. ev_row: the step's stream columns at
+        this row (0-d); rmask: [R] the row-only masks at this row; regs_row:
+        the row registers at this row; timer_seen: the max TIMER timestamp
+        already processed. `out` is written in place; returns (tok', out_n',
+        overflow')."""
+        T = self.T
+        dev = tok["active"].device
+        is_cur = kind == KIND_CURRENT
+        eff_now = max(ts, timer_seen)
+        can_fire = kind == KIND_TIMER or is_cur
+
+        # within expiry (reference: StreamPreStateProcessor.isExpired)
+        started = tok["start_ts"] >= 0
+        dead = None
+        if self.within_ms is not None:
+            dead = started & (ts - tok["start_ts"] > self.within_ms)
+        for slot in self.slots:
+            if slot.within_ms is not None:
+                k = (tok["slot"] == slot.index) & started & (ts - tok["start_ts"] > slot.within_ms)
+                dead = k if dead is None else dead | k
+        if dead is not None:
+            tok = {**tok, "active": tok["active"] & ~dead}
+
+        touched = torch.zeros(T, dtype=torch.bool, device=dev)
+        last = len(self.slots) - 1
+
+        # sequence start-state re-init: a fresh virgin whenever no slot-0
+        # token is still pending there (reference: resetAndUpdate -> init)
+        if self.sequence and self.slots[0].persistent and is_cur:
+            s0 = self.slots[0]
+            n0 = tok["caps"][s0.atoms[0].ref_idx]["n"]
+            pend = tok["active"] & (tok["slot"] == 0) & (tok["start_ts"] < 0)
+            if s0.is_count:
+                mx0 = s0.max_count if s0.max_count > 0 else _UNBOUNDED
+                pend = pend | (tok["active"] & (tok["slot"] == 0) & (n0 < mx0))
+            mask0 = (torch.arange(T, device=dev) == 0) & ~pend.any()
+            tok, overflow = self._arm_virgins(tok, mask0, 0, ts, overflow)
+
+        # deadline blocks: absent deadlines emit or advance
+        for slot in self.slots if can_fire else ():
+            atom = slot.atoms[0]
+            p = slot.index
+            if slot.is_absent and atom.waiting_ms is not None:
+                at_p = tok["active"] & (tok["slot"] == p)
+                deadline = tok["entry_ts"] + atom.waiting_ms
+                fire = at_p & (eff_now >= deadline)
+                if not bool(fire.any()):
+                    continue  # no deadline due: nothing changes
+                # the deadline starts the within clock of an absence-first match
+                tok = {**tok, "start_ts": torch.where(fire & (tok["start_ts"] < 0), deadline,
+                                                      tok["start_ts"])}
+                if p == last:
+                    out_n, overflow = self._write_emits(out, out_n, overflow, fire, tok,
+                                                        deadline)
+                    if slot.persistent:  # `every not X for t` re-arms at the deadline
+                        tok = self._clear_slot_caps(tok, fire, slot, ts=deadline)
+                    else:
+                        tok = self._consume(tok, fire, slot)
+                elif slot.persistent:
+                    tok, overflow, _dest = self._fork(tok, tok, fire, p + 1, deadline, overflow)
+                    tok = self._clear_slot_caps(tok, fire, slot, ts=deadline)
+                else:
+                    tok = self._advance_rows(tok, fire, slot, deadline)
+                touched = touched | fire
+            elif slot.logical is not None and all(
+                    a.absent and a.waiting_ms is not None for a in slot.atoms):
+                # both sides absent: AND at the later deadline iff neither
+                # arrived; OR at each side's own deadline iff it never arrived
+                a1, a2 = slot.atoms[0], slot.atoms[1]
+                at_p = tok["active"] & (tok["slot"] == p)
+                arr1 = tok["caps"][a1.ref_idx]["n"] > 0
+                arr2 = tok["caps"][a2.ref_idx]["n"] > 0
+                if p == 0:
+                    # an arrival re-arms that side's window (the marker ts lane)
+                    last1 = tok["caps"][a1.ref_idx]["ts"][:, 0]
+                    last2 = tok["caps"][a2.ref_idx]["ts"][:, 0]
+                    dl1 = torch.maximum(tok["entry_ts"], last1) + a1.waiting_ms
+                    dl2 = torch.maximum(tok["entry_ts"], last2) + a2.waiting_ms
+                    arr1 = torch.zeros_like(arr1)
+                    arr2 = torch.zeros_like(arr2)
+                else:
+                    dl1 = tok["entry_ts"] + a1.waiting_ms
+                    dl2 = tok["entry_ts"] + a2.waiting_ms
+                if slot.logical is LogicalType.AND:
+                    both_dl = torch.maximum(dl1, dl2)
+                    fires = [(at_p & ~arr1 & ~arr2 & (eff_now >= both_dl), both_dl)]
+                else:
+                    f1 = at_p & ~arr1 & (eff_now >= dl1)
+                    f2 = at_p & ~arr2 & (eff_now >= dl2)
+                    if slot.persistent:
+                        fires = [(f1, dl1), (f2, dl2)]
+                    else:
+                        fires = [(f1 | f2, torch.where(f1, dl1, dl2))]
+                for fire, dts in fires:
+                    if p == last:
+                        out_n, overflow = self._write_emits(out, out_n, overflow, fire, tok, dts)
+                        if slot.persistent:
+                            tok = self._clear_slot_caps(tok, fire, slot, ts=dts)
+                        else:
+                            tok = self._consume(tok, fire, slot)
+                    elif slot.persistent:
+                        tok, overflow, _dest = self._fork(tok, tok, fire, p + 1, dts, overflow)
+                        tok = self._clear_slot_caps(tok, fire, slot, ts=dts)
+                    else:
+                        tok = self._advance_rows(tok, fire, slot, dts)
+                    touched = touched | fire
+            elif slot.logical is not None:
+                # one absent side: `A and not B for t` completes at the deadline
+                # once every present side arrived; `A or not B for t` at the
+                # deadline iff B never arrived
+                ab = next((a for a in slot.atoms if a.absent and a.waiting_ms is not None), None)
+                if ab is None:
+                    continue
+                at_p = tok["active"] & (tok["slot"] == p)
+                deadline = tok["entry_ts"] + ab.waiting_ms
+                if slot.logical is LogicalType.OR:
+                    b_arrived = tok["caps"][ab.ref_idx]["n"] > 0
+                    fire = at_p & ~b_arrived & (eff_now >= deadline)
+                else:
+                    arrived = torch.ones(T, dtype=torch.bool, device=dev)
+                    for a2 in slot.atoms:
+                        if not a2.absent:
+                            arrived = arrived & (tok["caps"][a2.ref_idx]["n"] > 0)
+                    fire = at_p & arrived & (eff_now >= deadline)
+                if p == last:
+                    out_n, overflow = self._write_emits(out, out_n, overflow, fire, tok, deadline)
+                    tok = self._consume(tok, fire, slot)
+                    if slot.persistent:
+                        # re-arm at the deadline, not at a late row's timestamp
+                        tok = self._clear_slot_caps(tok, fire, slot, ts=deadline)
+                elif slot.persistent:
+                    tok, overflow, _dest = self._fork(tok, tok, fire, p + 1, deadline, overflow)
+                    tok = self._clear_slot_caps(tok, fire, slot, ts=deadline)
+                else:
+                    tok = self._advance_rows(tok, fire, slot, deadline)
+                touched = touched | fire
+
+        # event matching, descending slot order: one event moves a token
+        # at most one hop
+        for slot in reversed(self.slots) if is_cur else ():
+            p = slot.index
+            # touched accumulates per slot: both sides of a logical element
+            # may consume the same event
+            slot_touch = torch.zeros(T, dtype=torch.bool, device=dev)
+            for atom in slot.atoms:
+                if not rmask[atom.ref_idx]:
+                    continue  # another stream's atom, or no row filter passed
+                elig = self._eligible(tok, p) & ~touched
+                if slot.is_count and atom.cap:
+                    mx = slot.max_count
+                    if mx > 0:  # only tokens AT p absorb, up to max
+                        n_here = tok["caps"][atom.ref_idx]["n"]
+                        elig = elig & ~((tok["slot"] == p) & (n_here >= mx))
+                match = elig
+                for cp in self._progs[(p, atom.ref_idx)]:
+                    match = match & cond_program_ref(self, cp, tok, regs_row)
+                if not bool(match.any()):
+                    continue  # nothing below changes the table without a match
+                if atom.absent:
+                    both_absent = slot.logical is not None and all(a2.absent for a2 in slot.atoms)
+                    if atom.waiting_ms is not None and (slot.logical is LogicalType.OR
+                                                        or both_absent):
+                        # an arrival inside the window is recorded as a capture
+                        # marker, not a kill (the other side may still complete)
+                        mark = match & (ts <= tok["entry_ts"] + atom.waiting_ms)
+                        caps = list(tok["caps"])
+                        if p == 0 and both_absent:
+                            # start-of-pattern both-absent: the arrival re-arms
+                            # this side's window (latest arrival in ts[:, 0])
+                            c = dict(caps[atom.ref_idx])
+                            c["n"] = torch.where(mark, 1, c["n"]).to(c["n"].dtype)
+                            col0 = torch.where(mark, torch.clamp(c["ts"][:, 0], min=ts),
+                                               c["ts"][:, 0])
+                            c["ts"] = _with_col0(c["ts"], col0)
+                            caps[atom.ref_idx] = c
+                        else:
+                            caps[atom.ref_idx] = self._capture(caps[atom.ref_idx], atom, mark, ts,
+                                                               ev_row)
+                        tok = {**tok, "caps": caps}
+                        slot_touch = slot_touch | mark
+                        continue
+                    # an arrival on an absent stream kills the token; with a
+                    # waiting time, only arrivals inside the window
+                    if atom.waiting_ms is not None:
+                        match = match & (ts <= tok["entry_ts"] + atom.waiting_ms)
+                    if p == 0 and atom.waiting_ms is not None:
+                        # start-of-pattern absent: the virgin re-arms instead
+                        rearm = match & (tok["start_ts"] < 0)
+                        kill = match & ~rearm
+                        tok = {**tok, "active": tok["active"] & ~kill}
+                        tok = self._clear_slot_caps(tok, rearm, slot, ts=ts)
+                    else:
+                        tok = {**tok, "active": tok["active"] & ~match}
+                    slot_touch = slot_touch | match
+                    continue
+
+                # capture the event into the atom's ref
+                new_caps = list(tok["caps"])
+                new_caps[atom.ref_idx] = self._capture(tok["caps"][atom.ref_idx], atom, match, ts,
+                                                       ev_row)
+                adv_tok = {**tok, "caps": new_caps,
+                           "slot": torch.where(match, p, tok["slot"]).to(torch.int32),
+                           "start_ts": torch.where(match & (tok["start_ts"] < 0), ts,
+                                                   tok["start_ts"])}
+
+                count_armed = None
+                if slot.logical is not None:
+                    if slot.logical is LogicalType.OR:
+                        complete = match
+                    else:
+                        complete = match
+                        for a2 in slot.atoms:
+                            if not a2.absent:
+                                complete = complete & (new_caps[a2.ref_idx]["n"] > 0)
+                        wait_ab = next((a for a in slot.atoms
+                                        if a.absent and a.waiting_ms is not None), None)
+                        if wait_ab is not None:
+                            # completion defers to the absent deadline
+                            complete = complete & (eff_now >= tok["entry_ts"] + wait_ab.waiting_ms)
+                    advance = complete
+                elif slot.is_count:
+                    # absorb in place; a trailing count emits (and dies) at min
+                    n_after = new_caps[atom.ref_idx]["n"]
+                    if slot.min_count >= 1:
+                        count_armed = match & (n_after == slot.min_count)
+                    else:
+                        count_armed = torch.zeros_like(match)
+                    if p == last and slot.min_count >= 1:
+                        advance = count_armed
+                    else:
+                        advance = torch.zeros_like(match)
+                else:
+                    advance = match
+
+                stay = match & ~advance
+                blk = next((b for b in self.every_blocks if b[1] == p), None)
+                if p == last:
+                    out_n, overflow = self._write_emits(out, out_n, overflow, advance, adv_tok, ts)
+                    tok = self._merge(tok, adv_tok, stay)
+                    tok = self._consume(tok, advance, slot, force=slot.is_count)
+                    if blk is not None:
+                        tok, overflow, rearmed = self._rearm_block(tok, adv_tok, advance, blk, ts,
+                                                                   overflow)
+                        touched = touched | rearmed
+                elif slot.persistent and not slot.is_count:
+                    # fork: the advanced copy goes to a free lane, the
+                    # generator stays armed
+                    tok, overflow, dest_mask = self._fork(tok, adv_tok, advance, p + 1, ts,
+                                                          overflow)
+                    tok = self._merge(tok, adv_tok, stay)
+                    touched = touched | dest_mask
+                    tok, out_n, overflow = self._arrival_effects(tok, dest_mask, p + 1, ts, out,
+                                                                 out_n, overflow)
+                else:
+                    moved = self._merge(tok, adv_tok, match)
+                    tok = {**moved,
+                           "slot": torch.where(advance, p + 1, moved["slot"]).to(torch.int32),
+                           "entry_ts": torch.where(advance, ts, moved["entry_ts"])}
+                    tok, out_n, overflow = self._arrival_effects(tok, advance, p + 1, ts, out,
+                                                                 out_n, overflow)
+                    if blk is not None:
+                        tok, overflow, rearmed = self._rearm_block(tok, tok, advance, blk, ts,
+                                                                   overflow)
+                        touched = touched | rearmed
+                slot_touch = slot_touch | match
+
+                if slot.persistent and slot.logical is not None:
+                    # the surviving generator re-arms fresh
+                    tok = self._clear_slot_caps(tok, advance, slot, ts=ts)
+                if slot.persistent and slot.is_count and slot.min_count >= 1 and not self.sequence:
+                    # `every` over a count: a fresh virgin when a count reaches min
+                    tok, overflow = self._arm_virgins(tok, count_armed, p, ts, overflow)
+            touched = touched | slot_touch
+
+        # sequence strictness: an unconsumed CURRENT event kills the
+        # non-virgin tokens
+        if self.sequence and is_cur:
+            kill = tok["active"] & ~touched & ~(tok["start_ts"] < 0)
+            tok = {**tok, "active": tok["active"] & ~kill}
+
+        if self._use_fwd and is_cur:
+            # end-of-event forwarding: per count slot, the oldest chain with
+            # min satisfied wins the one pending spot at the next slot
+            lanes64 = torch.arange(T, dtype=torch.int64, device=dev)
+            new_fwd = tok["fwd"] & tok["active"] & (tok["start_ts"] < 0)
+            for q, cslot in enumerate(self.slots):
+                if not cslot.is_count:
+                    continue
+                n_q = tok["caps"][cslot.atoms[0].ref_idx]["n"]
+                cand = (tok["active"] & (tok["slot"] == q) & touched
+                        & (n_q >= max(cslot.min_count, 0)) & (tok["start_ts"] >= 0))
+                key = torch.where(cand, tok["start_ts"] * T + lanes64,
+                                  torch.full((), 1 << 62, dtype=torch.int64, device=dev))
+                winner = cand & (lanes64 == torch.argmin(key))
+                new_fwd = new_fwd | winner
+            tok = {**tok, "fwd": new_fwd}
+        return tok, out_n, overflow
+
+    # ---- the scan route: token-table updates -----------------------------------
+
+    @staticmethod
+    def _merge(old, new, mask):
+        """Per-lane select between two token tables."""
+
+        def sel(a, b):
+            return torch.where(mask if a.dim() == 1 else mask[:, None], b, a)
+
+        caps = [{"n": sel(o["n"], n_["n"]), "ts": sel(o["ts"], n_["ts"]),
+                 "cols": {k: sel(o["cols"][k], n_["cols"][k]) for k in o["cols"]}}
+                for o, n_ in zip(old["caps"], new["caps"])]
+        merged = {k: sel(old[k], new[k]) for k in ("active", "slot", "start_ts", "entry_ts")}
+        merged["caps"] = caps
+        if "fwd" in old:
+            merged["fwd"] = sel(old["fwd"], new["fwd"])
+        return merged
+
+    def _consume(self, tok, mask, slot: Slot, force: bool = False):
+        """Tokens that emitted die, unless at a persistent slot (trailing
+        count slots force it: their re-arm is the virgin armed at min)."""
+        if slot.persistent and not force:
+            return tok
+        return {**tok, "active": tok["active"] & ~mask}
+
+    def _arrival_effects(self, tok, arrived, q: int, ts: int, out, out_n, overflow):
+        """Tokens arriving at a trailing min-0 count emit at once with empty
+        captures and are consumed."""
+        if q >= len(self.slots):
+            return tok, out_n, overflow
+        nxt = self.slots[q]
+        if not (nxt.is_count and nxt.min_count == 0 and q == len(self.slots) - 1):
+            return tok, out_n, overflow
+        out_n, overflow = self._write_emits(out, out_n, overflow, arrived, tok, ts)
+        return {**tok, "active": tok["active"] & ~arrived}, out_n, overflow
+
+    def _null_caps(self, a: Atom, c: dict, mask) -> dict:
+        """Ref a's capture entry with `mask` lanes cleared (count 0,
+        timestamps 0, columns null)."""
+        types = self.schemas[a.stream_id].attr_types
+        return {"n": torch.where(mask, 0, c["n"]).to(c["n"].dtype),
+                "ts": torch.where(mask[:, None], 0, c["ts"]),
+                "cols": {name: torch.where(mask[:, None], _null_of(types[name], arr), arr)
+                         for name, arr in c["cols"].items()}}
+
+    def _clear_slot_caps(self, tok, mask, slot: Slot, ts=None):
+        """Reset a slot's captures on `mask` lanes; `ts` restarts the slot
+        clock; at slot 0 the token becomes virgin again."""
+        caps = list(tok["caps"])
+        for a in slot.atoms:
+            caps[a.ref_idx] = self._null_caps(a, caps[a.ref_idx], mask)
+        out = {**tok, "caps": caps}
+        if ts is not None:
+            out["entry_ts"] = torch.where(mask, ts, out["entry_ts"])
+        if slot.index == 0:
+            out["start_ts"] = torch.where(mask, -1, out["start_ts"])
+        return out
+
+    def _alloc_lanes(self, tok, mask, overflow):
+        """One free lane per set lane of `mask`, the rank-th free lane in
+        ascending order; lanes that do not fit get T (dropped) and raise
+        the overflow flag."""
+        T = self.T
+        free = ~tok["active"]
+        order = torch.argsort((~free).to(torch.int8), stable=True)  # free lanes first
+        nfree = free.sum()
+        rank = torch.cumsum(mask.to(torch.int32), 0) - 1
+        ok = mask & (rank < nfree)
+        dest = torch.where(ok, order[rank.clamp(0, T - 1)], T)
+        return dest, overflow | (mask & ~ok).any()
+
+    def _scatter_tok(self, tok, dest, fields: dict, caps: list):
+        """tok with lane dest[i] set from lane i of each given field (dest
+        T: dropped); caps: per ref a capture entry to scatter, or None to
+        clear the destination lanes."""
+        T = self.T
+        res = dict(tok)
+        for k, v in fields.items():
+            res[k] = set_at(tok[k], dest, v if v.dim() else v.expand(T))
+        new_caps = []
+        for a, c, src in zip(self.refs, tok["caps"], caps):
+            if src is None:
+                hit = torch.zeros(T + 1, dtype=torch.bool, device=dest.device)
+                hit[dest.long()] = True
+                new_caps.append(self._null_caps(a, c, hit[:T]))
+            else:
+                new_caps.append({"n": set_at(c["n"], dest, src["n"]),
+                                 "ts": set_at(c["ts"], dest, src["ts"]),
+                                 "cols": {k: set_at(arr, dest, src["cols"][k])
+                                          for k, arr in c["cols"].items()}})
+        res["caps"] = new_caps
+        return res
+
+    def _fork(self, tok, adv_tok, mask, next_slot: int, ts, overflow):
+        """Advanced copies of `mask` lanes into free lanes (the `every`
+        generator stays armed); returns (tok', overflow', dest mask)."""
+        dest, overflow = self._alloc_lanes(tok, mask, overflow)
+        dev = dest.device
+        fields = {"active": torch.ones((), dtype=torch.bool, device=dev),
+                  "slot": torch.full((), next_slot, dtype=torch.int32, device=dev),
+                  "start_ts": adv_tok["start_ts"],
+                  "entry_ts": torch.as_tensor(ts, dtype=torch.int64, device=dev)}
+        if "fwd" in tok:
+            fields["fwd"] = torch.zeros((), dtype=torch.bool, device=dev)
+        res = self._scatter_tok(tok, dest, fields, adv_tok["caps"])
+        return res, overflow, self._dest_mask(dest)
+
+    def _dest_mask(self, dest):
+        hit = torch.zeros(self.T + 1, dtype=torch.bool, device=dest.device)
+        hit[dest.long()] = True
+        return hit[:self.T]
+
+    def _arm_virgins(self, tok, mask, p: int, ts: int, overflow):
+        """Fresh virgin tokens (slot p, no captures) in free lanes."""
+        dest, overflow = self._alloc_lanes(tok, mask, overflow)
+        dev = dest.device
+        fields = {"active": torch.ones((), dtype=torch.bool, device=dev),
+                  "slot": torch.full((), p, dtype=torch.int32, device=dev),
+                  "start_ts": torch.full((), -1, dtype=torch.int64, device=dev),
+                  "entry_ts": torch.full((), ts, dtype=torch.int64, device=dev)}
+        if "fwd" in tok:
+            fwd0 = self.slots[p].is_count and self.slots[p].min_count == 0
+            fields["fwd"] = torch.full((), fwd0, dtype=torch.bool, device=dev)
+        return self._scatter_tok(tok, dest, fields, [None] * len(self.refs)), overflow
+
+    def _rearm_block(self, tok, src_tok, mask, block, ts: int, overflow):
+        """Re-armed copies at a completed every-block's first slot: the
+        block's captures cleared, the others kept from src_tok; a
+        whole-pattern block is virgin again, a mid-pattern one keeps its
+        start."""
+        first, last = block
+        dest, overflow = self._alloc_lanes(tok, mask, overflow)
+        dev = dest.device
+        block_refs = {a.ref_idx for s in self.slots[first:last + 1] for a in s.atoms}
+        caps = [None if a.ref_idx in block_refs else src_tok["caps"][a.ref_idx]
+                for a in self.refs]
+        fields = {"active": torch.ones((), dtype=torch.bool, device=dev),
+                  "slot": torch.full((), first, dtype=torch.int32, device=dev),
+                  "start_ts": (src_tok["start_ts"] if first > 0
+                               else torch.full((), -1, dtype=torch.int64, device=dev)),
+                  "entry_ts": torch.full((), ts, dtype=torch.int64, device=dev)}
+        if "fwd" in tok:
+            fields["fwd"] = torch.zeros((), dtype=torch.bool, device=dev)
+        return self._scatter_tok(tok, dest, fields, caps), overflow, self._dest_mask(dest)
+
+    def _advance_rows(self, tok, mask, slot: Slot, ts):
+        return {**tok, "slot": torch.where(mask, slot.index + 1, tok["slot"]).to(torch.int32),
+                "entry_ts": torch.where(mask, ts, tok["entry_ts"])}
+
+    def _write_emits(self, out: dict, out_n, overflow, emit, tok, ts):
+        """Append the `emit` lanes, in lane order, at out_n (in place), up
+        to the buffer's capacity (the overflow flag past it); ts: the
+        emission timestamp, per lane or one. Returns (out_n', overflow')."""
+        cap = out["valid"].shape[0]
+        rank = torch.cumsum(emit.to(torch.int32), 0) - 1
+        dest = out_n + rank
+        ok = emit & (dest < cap)
+        overflow = overflow | (emit & ~ok).any()
+        d = dest[ok].long()
+        out["ts"][d] = torch.as_tensor(ts, dtype=torch.int64, device=d.device).expand(
+            self.T)[ok]
+        out["valid"][d] = True
+        for a in self.refs:
+            c = tok["caps"][a.ref_idx]
+            out[f"n{a.ref_idx}"][d] = c["n"][ok]
+            if f"ts{a.ref_idx}" in out:
+                out[f"ts{a.ref_idx}"][d] = c["ts"][ok]
+            for name in c["cols"]:
+                out[f"c{a.ref_idx}.{name}"][d] = c["cols"][name][ok]
+        return torch.clamp(out_n + emit.sum(dtype=torch.int32), max=cap).to(torch.int32), overflow
+
+
     # ---- emission buffer ------------------------------------------------------
 
     def init_out(self, cap: int) -> dict:
@@ -1118,8 +2162,41 @@ class PatternProgram:
         )
         return cols
 
-    def next_timer(self, tok, after=None) -> int:
-        """The earliest absent-state deadline: NO_TIMER, a host constant, for
-        every pattern the batch routes take (none has a waiting absent
-        state), so it costs no device read."""
-        return NO_TIMER
+    def next_timer(self, tok, after=None):
+        """The earliest absent-state deadline over active tokens, deadlines
+        at or before `after` (the max TIMER timestamp processed) excluded:
+        a 0-d int64 on the token table's device, NO_TIMER when none. A
+        pattern without a waiting absent state returns the host constant
+        NO_TIMER, at no device read."""
+        if not self.needs_scheduler:
+            return NO_TIMER
+        t = None
+        for slot in self.slots:
+            absents = [a for a in slot.atoms if a.absent and a.waiting_ms is not None]
+            if not absents or (len(slot.atoms) == 1 and not slot.is_absent):
+                continue
+            both_absent = len(absents) == len(slot.atoms) >= 2
+            at_p = tok["active"] & (tok["slot"] == slot.index)
+            for a in absents:  # both-absent elements wait per side
+                base = tok["entry_ts"]
+                if slot.index == 0 and both_absent:  # arrivals re-arm that side's window
+                    base = torch.maximum(base, tok["caps"][a.ref_idx]["ts"][:, 0])
+                dl = torch.where(at_p, base + a.waiting_ms, NO_TIMER)
+                if after is not None:
+                    dl = torch.where(dl > after, dl, NO_TIMER)
+                m = dl.min()
+                t = m if t is None else torch.minimum(t, m)
+        return t
+
+
+def _stack_depth(code: list) -> int:
+    """The largest stack a condition program builds."""
+    depth = top = 0
+    for ins in code:
+        op = ins[0]
+        if op in (OP_REG, OP_CONST, OP_CAP):
+            top += 1
+        elif op in (OP_ARITH, OP_CMP, OP_AND, OP_OR):
+            top -= 1
+        depth = max(depth, top)
+    return depth

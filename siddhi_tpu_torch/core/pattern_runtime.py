@@ -5,17 +5,17 @@ Reference analog: the per-query object graph of
 util/parser/StateInputStreamParser.java + QueryParser.java for state
 streams, with a Pattern*ProcessStreamReceiver per input stream. As in the
 JAX package (siddhi_tpu/core/pattern_runtime.py), each input stream gets its
-own step `(state, batch, now) -> (state', out)` over the shared token table:
-the batch is cut into chunks (padded with invalid rows to a whole number of
-them), each chunk runs the pattern's batch route (core/pattern.py) on device
-tensors with no host read, completions collect in one emission buffer, and
-the selector projects it.
-
-Only patterns that take a batch route are ported (`fast_path_ok`: simple
-chains with `every` at the first slot; `count_fast_ok`: a count state at the
-first slot). Logical and absent states, counts elsewhere, counts under
-`within`, multi-stream sequences and every-blocks take the JAX package's
-per-event scan, which is not ported yet: they raise at app creation.
+own step `(state, batch, now) -> (state', out)` over the shared token table.
+A pattern that takes a batch route (`fast_path_ok`: simple chains with
+`every` at the first slot; `count_fast_ok`: a count state at the first
+slot) cuts the batch into chunks (padded with invalid rows to a whole
+number of them), and each chunk runs the route (core/pattern.py) on device
+tensors with no host read. Every other pattern — logical and absent states,
+counts elsewhere or under `within`, multi-stream sequences, every-blocks —
+takes the per-event scan: one `pattern_scan` over the batch's rows (JAX
+`_make_step`'s lax.scan of `apply_event`), and a one-row TIMER step
+(`receive_timer`) at each absent deadline the scheduler fires.
+Completions collect in one emission buffer, and the selector projects it.
 """
 
 from __future__ import annotations
@@ -27,9 +27,10 @@ import numpy as np
 import torch
 
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
-from siddhi_tpu_torch.core.event import EventBatch, StreamSchema
+from siddhi_tpu_torch.core.event import KIND_TIMER, EventBatch, StreamSchema
 from siddhi_tpu_torch.core.flow import Flow
-from siddhi_tpu_torch.core.pattern import NO_TIMER, PatternProgram
+from siddhi_tpu_torch.core import pattern as pattern_mod
+from siddhi_tpu_torch.core.pattern import NO_TIMER, PatternProgram, pattern_scan
 from siddhi_tpu_torch.core.query_runtime import BaseQueryRuntime, _FlagWatch
 from siddhi_tpu_torch.core.selector import CompiledSelector
 from siddhi_tpu_torch.core.types import InternTable
@@ -49,15 +50,16 @@ class PatternQueryRuntime(BaseQueryRuntime):
         prog = self.prog = PatternProgram(state_stream, schemas, interner, self.device,
                                           token_capacity=token_capacity,
                                           count_capacity=count_capacity)
-        if prog.needs_scheduler or not (prog.fast_path_ok or prog.count_fast_ok):
-            raise SiddhiAppCreationError(
-                f"query '{query_id}': this pattern takes the per-event scan route (logical or "
-                "absent states, counts past the first state or under within, multi-stream "
-                "sequences, every-blocks), which is not ported yet")
-        # the route and its chunk: half the token table on the fast route, so
-        # lanes freed by one chunk's completions serve the next chunk's forks;
-        # T * min count on the count route (@app:patternChunk overrides)
-        if prog.fast_path_ok:
+        # the route (JAX _make_step :143-170): a batch route when one fits,
+        # else the per-event scan (FORCE_SCAN, read here, forces the scan:
+        # the batch routes' oracle). The batch routes' chunk: half the token
+        # table on the fast route, so lanes freed by one chunk's completions
+        # serve the next chunk's forks; T * min count on the count route
+        # (@app:patternChunk overrides)
+        self._scan = pattern_mod.FORCE_SCAN or not (prog.fast_path_ok or prog.count_fast_ok)
+        if self._scan:
+            self._kernel = self._chunk = None
+        elif prog.fast_path_ok:
             self._kernel, self._chunk = prog.apply_batch_fast, max(1, prog.T // 2)
         else:
             m0 = max(1, prog.slots[0].min_count)
@@ -85,28 +87,58 @@ class PatternQueryRuntime(BaseQueryRuntime):
         self.selector = CompiledSelector(query.selector, sel_scope, flat_attrs, windowed=False,
                                          group_capacity=group_capacity)
         prog.set_capture_readers(frozenset(sel_scope.used_keys))
+        if self._scan:
+            prog.compile_scan()
         self._setup_output(query, query_id)
         self._scope = prog.scope
-        self.uses_scheduler = False
+        # absent states wait on timers: the app runtime wires the TIMER step
+        # and keeps the query off the fused path
+        self.uses_scheduler = prog.needs_scheduler
         self._pattern_overflow = _FlagWatch(self.device, self._log_pattern_overflow)
 
     def init_state(self, now: int = 0) -> dict:
         return {
             "tok": self.prog.init_state(now),
             "sel": self.selector.init_state(),
-            # the max TIMER timestamp processed (the scan route's; carried so
-            # a state keeps the JAX package's layout)
+            # the max TIMER timestamp processed: next_timer never re-arms a
+            # deadline at or before it, and late rows fire deadlines by it
             "timer_ts": torch.full((), -(1 << 62), dtype=torch.int64, device=self.device),
         }
 
     # ---- device program --------------------------------------------------
 
-    def _step_impl(self, state, batch: EventBatch, now: torch.Tensor, stream_id: str):
+    def _step_impl(self, state, batch: EventBatch, now: torch.Tensor, stream_id: Optional[str]):
+        """One step over `batch` of `stream_id` (None: a TIMER batch)."""
         prog = self.prog
         dev = self.device
         out = prog.init_out(self.out_cap)
         out_n = torch.zeros((), dtype=torch.int32, device=dev)
         ovf = torch.zeros((), dtype=torch.bool, device=dev)
+        timer_ts = state["timer_ts"]
+        if self._scan:
+            ev, rmask, regs = prog.scan_inputs(stream_id, batch)
+            tok, out, out_n, ovf = pattern_scan(prog, state["tok"], stream_id, batch.ts,
+                                                batch.kind, batch.valid, ev, rmask, regs, out,
+                                                out_n, ovf, timer_ts)
+            timer_rows = batch.valid & (batch.kind == KIND_TIMER)
+            floor = torch.full((), -(1 << 62), dtype=torch.int64, device=dev)
+            timer_ts = torch.maximum(timer_ts, torch.where(timer_rows, batch.ts, floor).max())
+        else:
+            tok, ovf = self._chunk_loop(state["tok"], batch, now, stream_id, out, out_n, ovf)
+        emit = EventBatch(ts=out["ts"], kind=torch.zeros_like(out["ts"], dtype=torch.int8),
+                          valid=out["valid"], cols={})
+        flow = Flow(batch=emit, ref=prog.refs[0].ref, now=now, extra_cols=prog.out_env_cols(out))
+        sel_state, out_batch = self.selector.apply(state["sel"], flow)
+        self._note_aux(flow.aux)
+        if self.uses_scheduler:
+            self.next_timer = prog.next_timer(tok, after=timer_ts)
+        self._pattern_overflow.note(ovf)
+        self._pattern_overflow.poll()
+        return {"tok": tok, "sel": sel_state, "timer_ts": timer_ts}, out_batch
+
+    def _chunk_loop(self, tok, batch: EventBatch, now, stream_id: str, out, out_n, ovf):
+        """A batch route over the batch's chunks (out and out_n in place);
+        returns (tok', overflow')."""
         B = batch.capacity
         C = min(B, self._chunk)
         pad = (-B) % C
@@ -123,19 +155,11 @@ class PatternQueryRuntime(BaseQueryRuntime):
         k = B // C
         ts, kind, valid = batch.ts.view(k, C), batch.kind.view(k, C), batch.valid.view(k, C)
         cols = {n: c.view(k, C) for n, c in batch.cols.items()}
-        tok = state["tok"]
         for i in range(k):
             tok, out, out_n, ovf = self._kernel(
                 tok, ts[i], kind[i], valid[i], {stream_id: {n: c[i] for n, c in cols.items()}},
                 out, out_n, ovf, now)
-        emit = EventBatch(ts=out["ts"], kind=torch.zeros_like(out["ts"], dtype=torch.int8),
-                          valid=out["valid"], cols={})
-        flow = Flow(batch=emit, ref=prog.refs[0].ref, now=now, extra_cols=prog.out_env_cols(out))
-        sel_state, out_batch = self.selector.apply(state["sel"], flow)
-        self._note_aux(flow.aux)
-        self._pattern_overflow.note(ovf)
-        self._pattern_overflow.poll()
-        return {"tok": tok, "sel": sel_state, "timer_ts": state["timer_ts"]}, out_batch
+        return tok, ovf
 
     def step_for(self, stream_id: str):
         """The fused chunk loop's step for one input stream."""
@@ -154,6 +178,20 @@ class PatternQueryRuntime(BaseQueryRuntime):
                 self.state = self.init_state(now)
             now_t = torch.full((), now, dtype=torch.int64, device=self.device)
             self.state, out = self._step_impl(self.state, batch, now_t, stream_id)
+        return out
+
+    def receive_timer(self, t_ms: int) -> EventBatch:
+        """One TIMER step at t_ms: a one-row TIMER batch with no columns,
+        which fires the absent deadlines due by then."""
+        dev = self.device
+        batch = EventBatch(ts=torch.full((1,), t_ms, dtype=torch.int64, device=dev),
+                           kind=torch.full((1,), KIND_TIMER, dtype=torch.int8, device=dev),
+                           valid=torch.ones(1, dtype=torch.bool, device=dev), cols={})
+        with self._receive_lock:
+            if self.state is None:
+                self.state = self.init_state(t_ms)
+            now_t = torch.full((), t_ms, dtype=torch.int64, device=dev)
+            self.state, out = self._step_impl(self.state, batch, now_t, None)
         return out
 
     def describe_state(self) -> dict:
@@ -181,8 +219,9 @@ class PatternQueryRuntime(BaseQueryRuntime):
         return d
 
     def prime(self, now: int) -> dict:
-        """Create the initial token table at `now`; the batch routes arm no
-        timer."""
+        """Create the initial token table at `now` and report its first
+        deadline, so an absent-at-start pattern arms its timer before any
+        event (reference: AbsentStreamPreStateProcessor.start)."""
         with self._receive_lock:
             if self.state is None:
                 self.state = self.init_state(now)

@@ -1,0 +1,1173 @@
+// The per-event scan of the pattern engine for Hopper (sm_90a): one launch
+// applies every row of a step (a data batch of one stream, or a one-row
+// TIMER batch) to the token table, in order.
+//
+// Replaces siddhi_tpu/core/pattern.py PatternProgram.apply_event :566-1059
+// under the lax.scan of siddhi_tpu/core/pattern_runtime.py
+// PatternQueryRuntime._make_step :228-279, with the token-table helpers it
+// calls (_merge :1063, _consume :1091, _arrival_effects :1099,
+// _clear_slot_caps :1117, _rearm_block :1149, _arm_virgins :1215,
+// _advance_rows :1251, _alloc_lanes :1259, _fork :1271, _eligible :518,
+// _capture :546, _token_env :486 with _synth_capture_cols :448, and
+// _write_emits :1933). Within one row the JAX order exactly: the within
+// kills; the re-arm of a sequence's start state; the deadline blocks in
+// slot order (absent, both-absent logical, logical with one absent side),
+// fired by eff_now = max(ts, timer_seen); the atoms in descending slot
+// order, each with its eligibility, its condition programs, then the
+// absent marker / kill / re-arm or the capture with the logical
+// completion, count absorb, emission, fork, move, block re-arm and virgin
+// arming; sequence strictness; the fwd contest.
+//
+// Design: one thread block per step loops over the rows. It has
+// min(round_up(T, 32), 1024) threads; thread i owns the token lanes i,
+// i + blockDim, ... The NFA is a descriptor table built once per program
+// on the host (PatternProgram.scan_desc: per slot its kind, count bounds,
+// `every`, within, the every-block it ends and its deadline kind; per ref
+// its slot, absence, waiting time, capture capacity and condition
+// programs), which the kernel interprets, so one binary serves every
+// pattern. The control lanes (active, slot, start_ts, entry_ts, fwd, each
+// ref's count) and the per-lane scratch live in shared memory when they
+// fit (dynamic, above 48 KB up to the card's 227 KB), in global scratch
+// otherwise; capture lanes stay in global memory. A lane allocation
+// (_alloc_lanes: the rank-th free lane in ascending order, JAX's stable
+// argsort) is two block scans; a copy into allocated lanes stages its
+// sources first, as JAX's scatters read the table before writing it; an
+// emission appends in lane order at out_n through a block scan. The row
+// filters that read only the event arrive as an [R, B] mask; the
+// token-dependent ones are postfix condition programs
+// (core/pattern.py CondProgram), interpreted per eligible lane, with
+// capture-free subtrees as row registers. Float arithmetic uses the
+// round-to-nearest intrinsics (no contraction), so the results equal the
+// plain PyTorch version's bit for bit.
+// What bounds it on the card: latency. Each row is a handful of block
+// barriers over at most T lanes (a few microseconds), and the rows run in
+// sequence; bytes moved (the token table once in and out, the rows once)
+// are far below that.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kMaxRefs = 16;
+constexpr int kMaxCapLanes = 32;
+constexpr int kMaxRegs = 16;
+constexpr int kMaxStack = 16;
+constexpr int kMaxThreads = 1024;
+constexpr int8_t kCurrent = 0;
+constexpr int8_t kTimer = 2;
+
+// descriptor layout (int64 words), written by PatternProgram.scan_desc
+enum { H_S, H_R, H_SEQ, H_FWD, H_WITHIN, H_WORDS };
+enum {
+  SL_NATOMS, SL_ATOM0, SL_ATOM1, SL_LOGICAL, SL_MIN, SL_MAX, SL_PERSIST, SL_COUNT, SL_WITHIN,
+  SL_BLOCK_FIRST, SL_DKIND, SL_WAIT_REF, SL_BOTH_ABSENT, SL_TRAIL_MIN0, SL_WORDS
+};
+enum { RF_SLOT, RF_ABSENT, RF_WAIT, RF_CAP, RF_NPROG, RF_PROG, RF_WORDS };
+enum { LOG_NONE, LOG_AND, LOG_OR };
+enum { DK_NONE, DK_ABSENT, DK_BOTH, DK_ONE };
+// condition programs: value types and opcodes (core/pattern.py)
+enum { TY_BOOL, TY_INT, TY_LONG, TY_FLOAT, TY_ID };
+enum { OP_REG = 1, OP_CONST, OP_CAP, OP_ARITH, OP_CMP, OP_AND, OP_OR, OP_NOT, OP_ISNULL };
+constexpr long long kNone = 1 << 20;  // an un-indexed capture read
+
+struct CapLane {
+  const void* in;   // [T, cap] token-table lane before the step
+  void* out;        // [T, cap] after it (the kernel works on it in place)
+  const void* ev;   // [B] the event column a capture writes (null: none)
+  void* emit;       // [cap_out, cap] emission lane (null: not emitted)
+  void* stage;      // [T, cap] staging of copies into allocated lanes
+  long long null_bits;  // a cleared element (0 for timestamps)
+  int ref;
+  int size;         // bytes per element: 1, 4 or 8
+  int is_ts;        // the ref's timestamps (a capture writes the row's ts)
+};
+
+struct ScanArgs {
+  const long long* desc;
+  int desc_words, T, B, n_cl, n_regs, cap_out, smem;
+  const bool* active_in;
+  bool* active_out;
+  const int32_t* slot_in;
+  int32_t* slot_out;
+  const long long* start_in;
+  long long* start_out;
+  const long long* entry_in;
+  long long* entry_out;
+  const bool* fwd_in;  // null without a fwd lane
+  bool* fwd_out;
+  const int32_t* n_in[kMaxRefs];
+  int32_t* n_out[kMaxRefs];
+  int32_t* out_nref[kMaxRefs];
+  CapLane cl[kMaxCapLanes];
+  const long long* ts;
+  const int8_t* kind;
+  const bool* valid;
+  const bool* rmask;  // [R, B]
+  const void* reg[kMaxRegs];
+  long long* out_ts;
+  bool* out_valid;
+  int32_t* out_n;
+  const bool* ovf_in;
+  bool* ovf_out;
+  const long long* timer_seen;
+  void* scratch;  // the per-lane arrays when they do not fit shared memory
+};
+
+// per-lane arrays, in this order: int64 start, entry, dl, dl2, st_start;
+// int32 slot, dest, freel, n[R], st_n[R]; bytes active, fwd, match, adv,
+// cnt, touch, stouch, fire, fire2, dmask (core/pattern.py scan_lane_bytes
+// sizes the caller's global scratch the same way)
+inline long long lane_bytes(int T, int R) {
+  const long long t8 = ((long long)T + 7) / 8 * 8;
+  return t8 * (5 * 8 + (3 + 2 * R) * 4 + 10);
+}
+
+struct Ctx {
+  const ScanArgs* A;
+  const long long* d;
+  int T, S, R, B, last;
+  bool* active;
+  bool* fwd;
+  int32_t* slot;
+  long long* start;
+  long long* entry;
+  int32_t* n[kMaxRefs];
+  uint8_t *match, *adv, *cnt, *touch, *stouch, *fire, *fire2, *dmask;
+  int32_t *dest, *freel;
+  long long *dl, *dl2, *st_start;
+  int32_t* st_n[kMaxRefs];
+  int* ws;
+  long long* wsl;
+  int* s_out_n;
+  int* s_ovf;
+};
+
+__device__ __forceinline__ const long long* slotd(const Ctx& c, int p) {
+  return c.d + H_WORDS + (long long)p * SL_WORDS;
+}
+__device__ __forceinline__ const long long* refd(const Ctx& c, int r) {
+  return c.d + H_WORDS + (long long)c.S * SL_WORDS + (long long)r * RF_WORDS;
+}
+
+__device__ __forceinline__ unsigned long long ld_bits(const void* base, long long i, int size) {
+  switch (size) {
+    case 1: return ((const uint8_t*)base)[i];
+    case 4: return ((const uint32_t*)base)[i];
+    default: return ((const unsigned long long*)base)[i];
+  }
+}
+__device__ __forceinline__ void st_bits(void* base, long long i, int size, unsigned long long v) {
+  switch (size) {
+    case 1: ((uint8_t*)base)[i] = (uint8_t)v; break;
+    case 4: ((uint32_t*)base)[i] = (uint32_t)v; break;
+    default: ((unsigned long long*)base)[i] = v; break;
+  }
+}
+
+// the event value a capture of lane l writes at row b
+__device__ __forceinline__ unsigned long long ev_bits(const Ctx& c, int l, int b, long long ts) {
+  const CapLane& L = c.A->cl[l];
+  return L.is_ts ? (unsigned long long)ts : ld_bits(L.ev, b, L.size);
+}
+
+// exclusive rank of the set lanes of `m` in lane order (written to rank[t]
+// for set lanes); returns the count. Every thread calls it.
+__device__ int block_rank(const Ctx& c, const uint8_t* m, int32_t* rank) {
+  int run = 0;
+  for (int base = 0; base < c.T; base += blockDim.x) {
+    const int t = base + threadIdx.x;
+    const int v = t < c.T && m[t];
+    int total;
+    const int x = block_excl_sum(v, c.ws, &total);
+    if (v) rank[t] = run + x;
+    run += total;
+  }
+  return run;
+}
+
+__device__ __forceinline__ bool block_any(const Ctx& c, const uint8_t* m) {
+  int v = 0;
+  for (int t = threadIdx.x; t < c.T; t += blockDim.x) v |= m[t];
+  return __syncthreads_or(v) != 0;
+}
+
+// the block's minimum of one int64 per thread
+__device__ long long block_min64(const Ctx& c, long long v) {
+  for (int dd = 16; dd > 0; dd >>= 1) {
+    const long long y = __shfl_down_sync(kFull, v, dd);
+    v = y < v ? y : v;
+  }
+  if ((threadIdx.x & 31) == 0) c.wsl[threadIdx.x >> 5] = v;
+  __syncthreads();
+  long long m = c.wsl[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = c.wsl[w] < m ? c.wsl[w] : m;
+  __syncthreads();
+  return m;
+}
+
+// ---- the token table: elementwise helpers ----------------------------------
+
+// lane t of ref r's captures, cleared: count 0, timestamps 0, columns null
+__device__ void clear_ref(const Ctx& c, int r, int t) {
+  c.n[r][t] = 0;
+  const int w = (int)refd(c, r)[RF_CAP];
+  for (int l = 0; l < c.A->n_cl; ++l) {
+    const CapLane& L = c.A->cl[l];
+    if (L.ref != r) continue;
+    for (int k = 0; k < w; ++k) st_bits(L.out, (long long)t * w + k, L.size, L.null_bits);
+  }
+}
+
+// _capture on lane t: the row's event into ref r's next occurrence
+__device__ void capture(const Ctx& c, int r, int t, int b, long long ts) {
+  const int w = (int)refd(c, r)[RF_CAP];
+  const int n = c.n[r][t];
+  if (n < w) {
+    const int pos = n < 0 ? 0 : n;
+    for (int l = 0; l < c.A->n_cl; ++l) {
+      const CapLane& L = c.A->cl[l];
+      if (L.ref == r) st_bits(L.out, (long long)t * w + pos, L.size, ev_bits(c, l, b, ts));
+    }
+  }
+  c.n[r][t] = n + 1;
+}
+
+// _clear_slot_caps on lane t: the slot's captures cleared, the slot clock
+// restarted at `at`; slot 0 becomes virgin again
+__device__ void clear_slot(const Ctx& c, int p, int t, long long at) {
+  const long long* sd = slotd(c, p);
+  for (int a = 0; a < (int)sd[SL_NATOMS]; ++a) clear_ref(c, (int)sd[SL_ATOM0 + a], t);
+  c.entry[t] = at;
+  if (p == 0) c.start[t] = -1;
+}
+
+// ---- allocation, staging and copies (_alloc_lanes, _fork, _rearm_block,
+// _arm_virgins) ---------------------------------------------------------------
+
+// dest[t] for each set lane of m: the rank-th free lane, or -1 (overflow)
+__device__ void alloc(const Ctx& c, const uint8_t* m) {
+  int nfree = 0;
+  for (int base = 0; base < c.T; base += blockDim.x) {
+    const int t = base + threadIdx.x;
+    const int v = t < c.T && !c.active[t];
+    int total;
+    const int x = block_excl_sum(v, c.ws, &total);
+    if (v) c.freel[nfree + x] = t;
+    nfree += total;
+  }
+  __syncthreads();
+  block_rank(c, m, c.dest);
+  __syncthreads();
+  int ovf = 0;
+  for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+    if (!m[t]) continue;
+    const int k = c.dest[t];
+    if (k < nfree) {
+      c.dest[t] = c.freel[k];
+    } else {
+      c.dest[t] = -1;
+      ovf = 1;
+    }
+  }
+  if (__syncthreads_or(ovf) && threadIdx.x == 0) *c.s_ovf = 1;
+}
+
+// stage the set lanes of m that got a lane: start_ts, counts and captures;
+// with adv_ref >= 0 each is staged as the advanced token of _capture (that
+// ref's capture of row b written, start_ts set when virgin)
+__device__ void stage(const Ctx& c, const uint8_t* m, int adv_ref, int b, long long ts) {
+  for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+    if (!m[t] || c.dest[t] < 0) continue;
+    const long long st = c.start[t];
+    c.st_start[t] = adv_ref >= 0 && st < 0 ? ts : st;
+    for (int r = 0; r < c.R; ++r) c.st_n[r][t] = c.n[r][t] + (r == adv_ref ? 1 : 0);
+    for (int l = 0; l < c.A->n_cl; ++l) {
+      const CapLane& L = c.A->cl[l];
+      const int w = (int)refd(c, L.ref)[RF_CAP];
+      for (int k = 0; k < w; ++k) {
+        const long long i = (long long)t * w + k;
+        st_bits(L.stage, i, L.size, ld_bits(L.out, i, L.size));
+      }
+      if (L.ref == adv_ref) {
+        const int n = c.n[adv_ref][t];
+        if (n < w) st_bits(L.stage, (long long)t * w + (n < 0 ? 0 : n), L.size, ev_bits(c, l, b, ts));
+      }
+    }
+  }
+}
+
+enum { CP_FORK, CP_REARM, CP_VIRGIN };
+
+// write the staged lanes into their allocated lanes. CP_FORK: at slot
+// new_slot, start_ts staged, entry at (or dl[source] when use_dl), every
+// ref copied; CP_REARM: at the block's first slot new_slot, start_ts
+// staged when new_slot > 0 (else virgin), entry at, the refs of slots
+// [new_slot, blk_last] cleared; CP_VIRGIN: at slot new_slot, virgin,
+// every ref cleared, fwd = fwd0. dmask marks the written lanes.
+__device__ void copy_into(const Ctx& c, const uint8_t* m, int mode, int new_slot, int blk_last,
+                          long long at, bool use_dl, bool fwd0) {
+  for (int t = threadIdx.x; t < c.T; t += blockDim.x) c.dmask[t] = 0;
+  __syncthreads();
+  for (int s = threadIdx.x; s < c.T; s += blockDim.x) {
+    if (!m[s]) continue;
+    const int d = c.dest[s];
+    if (d < 0) continue;
+    c.active[d] = true;
+    c.slot[d] = new_slot;
+    c.start[d] = mode == CP_FORK ? c.st_start[s]
+                 : mode == CP_REARM && new_slot > 0 ? c.st_start[s] : -1;
+    c.entry[d] = use_dl ? c.dl[s] : at;
+    if (c.fwd != nullptr) c.fwd[d] = mode == CP_VIRGIN ? fwd0 : false;
+    for (int r = 0; r < c.R; ++r) {
+      const int rs = (int)refd(c, r)[RF_SLOT];
+      const bool cleared = mode == CP_VIRGIN || (mode == CP_REARM && rs >= new_slot && rs <= blk_last);
+      if (cleared) {
+        clear_ref(c, r, d);
+        continue;
+      }
+      c.n[r][d] = c.st_n[r][s];
+      const int w = (int)refd(c, r)[RF_CAP];
+      for (int l = 0; l < c.A->n_cl; ++l) {
+        const CapLane& L = c.A->cl[l];
+        if (L.ref != r) continue;
+        for (int k = 0; k < w; ++k)
+          st_bits(L.out, (long long)d * w + k, L.size,
+                  ld_bits(L.stage, (long long)s * w + k, L.size));
+      }
+    }
+    c.dmask[d] = 1;
+  }
+  __syncthreads();
+}
+
+// _fork / _rearm_block / _arm_virgins of the set lanes of m
+__device__ void scatter(const Ctx& c, const uint8_t* m, int mode, int adv_ref, int b,
+                        long long ts, int new_slot, int blk_last, long long at, bool use_dl,
+                        bool fwd0) {
+  alloc(c, m);
+  if (mode != CP_VIRGIN) stage(c, m, adv_ref, b, ts);
+  __syncthreads();
+  copy_into(c, m, mode, new_slot, blk_last, at, use_dl, fwd0);
+}
+
+// ---- emission (_write_emits) ---------------------------------------------------
+
+// append the set lanes of m in lane order at out_n, up to cap_out (the
+// overflow flag past it); the emission ts is `at`, or dl[t] with use_dl;
+// with adv_ref >= 0 each lane is emitted as its advanced token (that ref's
+// capture of row b written)
+__device__ void emit(const Ctx& c, const uint8_t* m, int adv_ref, int b, long long at,
+                     bool use_dl) {
+  const ScanArgs& A = *c.A;
+  const int base = *c.s_out_n;
+  const int total = block_rank(c, m, c.dest);
+  int ovf = 0;
+  for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+    if (!m[t]) continue;
+    const int o = base + c.dest[t];
+    if (o >= A.cap_out) {
+      ovf = 1;
+      continue;
+    }
+    A.out_ts[o] = use_dl ? c.dl[t] : at;
+    A.out_valid[o] = true;
+    for (int r = 0; r < c.R; ++r) A.out_nref[r][o] = c.n[r][t] + (r == adv_ref ? 1 : 0);
+    for (int l = 0; l < A.n_cl; ++l) {
+      const CapLane& L = A.cl[l];
+      if (L.emit == nullptr) continue;
+      const int w = (int)refd(c, L.ref)[RF_CAP];
+      for (int k = 0; k < w; ++k)
+        st_bits(L.emit, (long long)o * w + k, L.size, ld_bits(L.out, (long long)t * w + k, L.size));
+      if (L.ref == adv_ref) {
+        const int n = c.n[adv_ref][t];
+        if (n < w) st_bits(L.emit, (long long)o * w + (n < 0 ? 0 : n), L.size, ev_bits(c, l, b, at));
+      }
+    }
+  }
+  if (__syncthreads_or(ovf) && threadIdx.x == 0) *c.s_ovf = 1;
+  if (threadIdx.x == 0) *c.s_out_n = base + total < A.cap_out ? base + total : A.cap_out;
+  __syncthreads();
+}
+
+// ---- condition programs ---------------------------------------------------------
+
+union Val {
+  long long i;
+  float f;
+};
+
+__device__ __forceinline__ Val cast_to(Val v, int from, int to) {
+  Val r;
+  if (to == TY_FLOAT) {
+    if (from == TY_FLOAT) return v;
+    r.f = from == TY_LONG ? __ll2float_rn(v.i) : __int2float_rn((int)v.i);
+  } else if (to == TY_INT) {
+    r.i = (int)v.i;
+  } else {
+    r.i = v.i;
+  }
+  return r;
+}
+
+__device__ __forceinline__ bool not_null(Val v, int ty) {
+  switch (ty) {
+    case TY_FLOAT: return !isnan(v.f);
+    case TY_INT: return (int)v.i != (int)0x80000000;
+    case TY_LONG: return v.i != (long long)0x8000000000000000ULL;
+    case TY_ID: return v.i != 0;
+    default: return true;
+  }
+}
+
+__device__ __forceinline__ Val load_elem(const void* base, long long i, int ty) {
+  Val v;
+  switch (ty) {
+    case TY_FLOAT: v.f = ((const float*)base)[i]; break;
+    case TY_LONG: v.i = ((const long long*)base)[i]; break;
+    case TY_BOOL: v.i = ((const bool*)base)[i] ? 1 : 0; break;
+    default: v.i = ((const int32_t*)base)[i]; break;
+  }
+  return v;
+}
+
+__device__ __forceinline__ Val null_of(int ty) {
+  Val v;
+  v.i = 0;
+  if (ty == TY_FLOAT) v.f = __int_as_float(0x7fc00000);
+  else if (ty == TY_INT) v.i = (int)0x80000000;
+  else if (ty == TY_LONG) v.i = (long long)0x8000000000000000ULL;
+  return v;
+}
+
+// the token's capture read (ref, k, lane) with _synth_capture_cols' rules
+__device__ Val load_cap(const Ctx& c, const long long* ins, int t) {
+  const int r = (int)ins[1], lane = (int)ins[3], ty = (int)ins[4];
+  const long long k = ins[2];
+  const int n = c.n[r][t];
+  Val v;
+  if (lane < 0) {  // the arrival flag
+    v.i = k == kNone ? n > 0 : k >= 0 ? n > k : n >= -k;
+    return v;
+  }
+  const int w = (int)refd(c, r)[RF_CAP];
+  const void* base = c.A->cl[lane].out;
+  if (k == kNone) return load_elem(base, (long long)t * w, ty);
+  if (k >= w) return null_of(ty);
+  if (k >= 0) return load_elem(base, (long long)t * w + k, ty);
+  const long long idx = n + k;
+  if (idx >= 0 && idx < w) return load_elem(base, (long long)t * w + idx, ty);
+  return null_of(ty);
+}
+
+__device__ __forceinline__ int int_div(int a, int b) {
+  if (b == 0) return -1;
+  if (a == (int)0x80000000 && b == -1) return a;
+  return a / b;
+}
+__device__ __forceinline__ int int_rem(int a, int b) {
+  if (b == 0) return a;
+  if (a == (int)0x80000000 && b == -1) return 0;
+  return a % b;
+}
+__device__ __forceinline__ long long ll_div(long long a, long long b) {
+  if (b == 0) return -1;
+  if (a == (long long)0x8000000000000000ULL && b == -1) return a;
+  return a / b;
+}
+__device__ __forceinline__ long long ll_rem(long long a, long long b) {
+  if (b == 0) return a;
+  if (a == (long long)0x8000000000000000ULL && b == -1) return 0;
+  return a % b;
+}
+
+__device__ Val arith(int op, Val a, Val b, int t) {
+  Val r;
+  if (t == TY_FLOAT) {
+    switch (op) {
+      case 0: r.f = __fadd_rn(a.f, b.f); break;
+      case 1: r.f = __fsub_rn(a.f, b.f); break;
+      case 2: r.f = __fmul_rn(a.f, b.f); break;
+      case 3: r.f = __fdiv_rn(a.f, b.f); break;
+      default: r.f = fmodf(a.f, b.f); break;
+    }
+  } else if (t == TY_INT) {
+    const unsigned int x = (unsigned int)(int)a.i, y = (unsigned int)(int)b.i;
+    int v;
+    switch (op) {
+      case 0: v = (int)(x + y); break;
+      case 1: v = (int)(x - y); break;
+      case 2: v = (int)(x * y); break;
+      case 3: v = int_div((int)x, (int)y); break;
+      default: v = int_rem((int)x, (int)y); break;
+    }
+    r.i = v;
+  } else {
+    const unsigned long long x = (unsigned long long)a.i, y = (unsigned long long)b.i;
+    switch (op) {
+      case 0: r.i = (long long)(x + y); break;
+      case 1: r.i = (long long)(x - y); break;
+      case 2: r.i = (long long)(x * y); break;
+      case 3: r.i = ll_div(a.i, b.i); break;
+      default: r.i = ll_rem(a.i, b.i); break;
+    }
+  }
+  return r;
+}
+
+template <typename X>
+__device__ __forceinline__ bool cmp(int op, X a, X b) {
+  switch (op) {
+    case 0: return a < b;
+    case 1: return a <= b;
+    case 2: return a > b;
+    case 3: return a >= b;
+    case 4: return a == b;
+    default: return a != b;
+  }
+}
+
+// one condition program (len instructions of 5 words at ins) on lane t
+__device__ bool run_prog(const Ctx& c, const long long* ins, int len, int t, int b) {
+  Val st[kMaxStack];
+  int sp = 0;
+  for (int i = 0; i < len; ++i, ins += 5) {
+    switch ((int)ins[0]) {
+      case OP_REG: {
+        const int r = (int)ins[1];
+        st[sp++] = load_elem(c.A->reg[r], b, (int)ins[2]);
+        break;
+      }
+      case OP_CONST: {
+        Val v;
+        v.i = ins[2];
+        if (ins[1] == TY_FLOAT) v.f = __int_as_float((int)ins[2]);
+        st[sp++] = v;
+        break;
+      }
+      case OP_CAP:
+        st[sp++] = load_cap(c, ins, t);
+        break;
+      case OP_ARITH: {
+        const int t_out = (int)ins[4];
+        const Val y = cast_to(st[sp - 1], (int)ins[3], t_out);
+        const Val x = cast_to(st[sp - 2], (int)ins[2], t_out);
+        --sp;
+        st[sp - 1] = arith((int)ins[1], x, y, t_out);
+        break;
+      }
+      case OP_CMP: {
+        const int lt = (int)ins[2], rt = (int)ins[3], tc = (int)ins[4], op = (int)ins[1];
+        const Val y = st[sp - 1], x = st[sp - 2];
+        bool v = not_null(x, lt) && not_null(y, rt);
+        if (tc == TY_FLOAT) {
+          v = v && cmp(op, cast_to(x, lt, TY_FLOAT).f, cast_to(y, rt, TY_FLOAT).f);
+        } else if (tc == TY_INT) {
+          v = v && cmp(op, (int)x.i, (int)y.i);
+        } else {
+          v = v && cmp(op, x.i, y.i);
+        }
+        --sp;
+        st[sp - 1].i = v;
+        break;
+      }
+      case OP_AND:
+        --sp;
+        st[sp - 1].i = st[sp - 1].i && st[sp].i;
+        break;
+      case OP_OR:
+        --sp;
+        st[sp - 1].i = st[sp - 1].i || st[sp].i;
+        break;
+      case OP_NOT:
+        st[sp - 1].i = !st[sp - 1].i;
+        break;
+      default:  // OP_ISNULL
+        st[sp - 1].i = !not_null(st[sp - 1], (int)ins[1]);
+        break;
+    }
+  }
+  return st[0].i != 0;
+}
+
+// _eligible on lane t for slot p
+__device__ bool eligible(const Ctx& c, int p, int t) {
+  const bool a = c.active[t];
+  const int s = c.slot[t];
+  bool skip = false;
+  for (int q = p - 1; q >= 0; --q) {
+    const long long* qd = slotd(c, q);
+    if (!qd[SL_COUNT]) break;
+    const int mn = (int)qd[SL_MIN];
+    skip = skip || (a && s == q && c.n[(int)qd[SL_ATOM0]][t] >= (mn > 0 ? mn : 0));
+    if (mn > 0) break;
+  }
+  if (c.fwd != nullptr) skip = skip && c.fwd[t];
+  return (a && s == p) || skip;
+}
+
+// ---- one row (apply_event) --------------------------------------------------------
+
+// the deadline blocks' common tail: emit / re-arm / consume / fork /
+// advance the lanes of m at slot p, times dl[t]
+__device__ void fire_tail(const Ctx& c, int p, const uint8_t* m, bool consume_first) {
+  const long long* sd = slotd(c, p);
+  const bool persist = sd[SL_PERSIST] != 0;
+  if (p == c.last) {
+    emit(c, m, -1, 0, 0, true);
+    if (consume_first && !persist) {
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x)
+        if (m[t]) c.active[t] = false;
+    }
+    if (persist) {
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x)
+        if (m[t]) clear_slot(c, p, t, c.dl[t]);
+    } else if (!consume_first) {
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x)
+        if (m[t]) c.active[t] = false;
+    }
+  } else if (persist) {
+    scatter(c, m, CP_FORK, -1, 0, 0, p + 1, 0, 0, true, false);
+    for (int t = threadIdx.x; t < c.T; t += blockDim.x)
+      if (m[t]) clear_slot(c, p, t, c.dl[t]);
+  } else {
+    for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+      if (!m[t]) continue;
+      c.slot[t] = p + 1;
+      c.entry[t] = c.dl[t];
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < c.T; t += blockDim.x) c.touch[t] |= m[t];
+  __syncthreads();
+}
+
+__device__ void deadlines(const Ctx& c, long long eff_now) {
+  for (int p = 0; p < c.S; ++p) {
+    const long long* sd = slotd(c, p);
+    const int dk = (int)sd[SL_DKIND];
+    if (dk == DK_NONE) continue;
+    if (dk == DK_ABSENT) {
+      const long long w = refd(c, (int)sd[SL_ATOM0])[RF_WAIT];
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+        const long long dl = c.entry[t] + w;
+        const bool f = c.active[t] && c.slot[t] == p && eff_now >= dl;
+        c.fire[t] = f;
+        c.dl[t] = dl;
+        if (f && c.start[t] < 0) c.start[t] = dl;
+      }
+      if (block_any(c, c.fire)) fire_tail(c, p, c.fire, false);
+    } else if (dk == DK_BOTH) {
+      const int r1 = (int)sd[SL_ATOM0], r2 = (int)sd[SL_ATOM1];
+      const long long w1 = refd(c, r1)[RF_WAIT], w2 = refd(c, r2)[RF_WAIT];
+      const int w1cap = (int)refd(c, r1)[RF_CAP], w2cap = (int)refd(c, r2)[RF_CAP];
+      const bool persist = sd[SL_PERSIST] != 0;
+      const bool is_and = sd[SL_LOGICAL] == LOG_AND;
+      // the timestamps lane of each side (the marker's latest arrival)
+      const void* ts1 = nullptr;
+      const void* ts2 = nullptr;
+      for (int l = 0; l < c.A->n_cl; ++l) {
+        if (c.A->cl[l].is_ts && c.A->cl[l].ref == r1) ts1 = c.A->cl[l].out;
+        if (c.A->cl[l].is_ts && c.A->cl[l].ref == r2) ts2 = c.A->cl[l].out;
+      }
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+        const bool at_p = c.active[t] && c.slot[t] == p;
+        bool arr1 = c.n[r1][t] > 0, arr2 = c.n[r2][t] > 0;
+        long long dl1, dl2;
+        if (p == 0) {
+          const long long l1 = ((const long long*)ts1)[(long long)t * w1cap];
+          const long long l2 = ((const long long*)ts2)[(long long)t * w2cap];
+          dl1 = (c.entry[t] > l1 ? c.entry[t] : l1) + w1;
+          dl2 = (c.entry[t] > l2 ? c.entry[t] : l2) + w2;
+          arr1 = arr2 = false;
+        } else {
+          dl1 = c.entry[t] + w1;
+          dl2 = c.entry[t] + w2;
+        }
+        if (is_and) {
+          const long long both = dl1 > dl2 ? dl1 : dl2;
+          c.fire[t] = at_p && !arr1 && !arr2 && eff_now >= both;
+          c.dl[t] = both;
+          c.fire2[t] = 0;
+        } else {
+          const bool f1 = at_p && !arr1 && eff_now >= dl1;
+          const bool f2 = at_p && !arr2 && eff_now >= dl2;
+          if (persist) {
+            c.fire[t] = f1;
+            c.dl[t] = dl1;
+            c.fire2[t] = f2;
+            c.dl2[t] = dl2;
+          } else {
+            c.fire[t] = f1 || f2;
+            c.dl[t] = f1 ? dl1 : dl2;
+            c.fire2[t] = 0;
+          }
+        }
+      }
+      if (block_any(c, c.fire)) fire_tail(c, p, c.fire, false);
+      if (block_any(c, c.fire2)) {
+        for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+          c.dl[t] = c.dl2[t];
+          c.fire[t] = c.fire2[t];
+        }
+        __syncthreads();
+        fire_tail(c, p, c.fire, false);
+      }
+    } else {  // DK_ONE: a logical element with one waiting absent side
+      const int ab = (int)sd[SL_WAIT_REF];
+      const long long w = refd(c, ab)[RF_WAIT];
+      const bool is_or = sd[SL_LOGICAL] == LOG_OR;
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+        const long long dl = c.entry[t] + w;
+        bool f = c.active[t] && c.slot[t] == p && eff_now >= dl;
+        if (is_or) {
+          f = f && !(c.n[ab][t] > 0);
+        } else {
+          for (int a = 0; a < (int)sd[SL_NATOMS]; ++a) {
+            const int r = (int)sd[SL_ATOM0 + a];
+            if (!refd(c, r)[RF_ABSENT]) f = f && c.n[r][t] > 0;
+          }
+        }
+        c.fire[t] = f;
+        c.dl[t] = dl;
+      }
+      if (block_any(c, c.fire)) fire_tail(c, p, c.fire, true);
+    }
+  }
+}
+
+// one atom (ref r of slot p) against the row
+__device__ void match_atom(const Ctx& c, int p, int r, int b, long long ts, long long eff_now) {
+  const ScanArgs& A = *c.A;
+  const long long* sd = slotd(c, p);
+  const long long* rd = refd(c, r);
+  const bool is_count = sd[SL_COUNT] != 0, persist = sd[SL_PERSIST] != 0;
+  const int logical = (int)sd[SL_LOGICAL];
+  const int w = (int)rd[RF_CAP];
+  const long long mx = sd[SL_MAX];
+  // eligibility and the condition programs
+  for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+    bool e = eligible(c, p, t) && !c.touch[t];
+    if (is_count && w > 0 && mx > 0) e = e && !(c.slot[t] == p && c.n[r][t] >= mx);
+    const long long* pr = c.d + rd[RF_PROG];
+    for (int k = 0; k < (int)rd[RF_NPROG] && e; ++k) {
+      const int len = (int)pr[0];
+      e = run_prog(c, pr + 1, len, t, b);
+      pr += 1 + 5 * len;
+    }
+    c.match[t] = e;
+  }
+  if (!block_any(c, c.match)) return;
+
+  if (rd[RF_ABSENT]) {
+    const long long wait = rd[RF_WAIT];
+    const bool both = sd[SL_BOTH_ABSENT] != 0;
+    if (wait >= 0 && (logical == LOG_OR || both)) {
+      // an arrival inside the window: a capture marker, not a kill
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+        const bool mark = c.match[t] && ts <= c.entry[t] + wait;
+        if (mark) {
+          if (p == 0 && both) {
+            c.n[r][t] = 1;
+            for (int l = 0; l < A.n_cl; ++l) {
+              const CapLane& L = A.cl[l];
+              if (L.ref != r || !L.is_ts) continue;
+              long long* col = (long long*)L.out + (long long)t * w;
+              if (ts > *col) *col = ts;
+            }
+          } else {
+            capture(c, r, t, b, ts);
+          }
+        }
+        c.stouch[t] |= mark;
+      }
+      __syncthreads();
+      return;
+    }
+    for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+      bool m = c.match[t];
+      if (wait >= 0) m = m && ts <= c.entry[t] + wait;
+      if (p == 0 && wait >= 0) {
+        const bool rearm = m && c.start[t] < 0;
+        if (m && !rearm) c.active[t] = false;
+        if (rearm) clear_slot(c, p, t, ts);
+      } else if (m) {
+        c.active[t] = false;
+      }
+      c.stouch[t] |= m;
+    }
+    __syncthreads();
+    return;
+  }
+
+  // the advanced token (capture, slot p, start) — completion and count
+  const long long wab = sd[SL_WAIT_REF] >= 0 ? refd(c, (int)sd[SL_WAIT_REF])[RF_WAIT] : -1;
+  for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+    const bool m = c.match[t];
+    bool adv = false, armed = false;
+    if (m) {
+      if (logical == LOG_OR) {
+        adv = true;
+      } else if (logical == LOG_AND) {
+        adv = true;
+        for (int a = 0; a < (int)sd[SL_NATOMS]; ++a) {
+          const int r2 = (int)sd[SL_ATOM0 + a];
+          if (refd(c, r2)[RF_ABSENT]) continue;
+          adv = adv && (c.n[r2][t] + (r2 == r ? 1 : 0)) > 0;
+        }
+        if (wab >= 0) adv = adv && eff_now >= c.entry[t] + wab;
+      } else if (is_count) {
+        armed = sd[SL_MIN] >= 1 && c.n[r][t] + 1 == sd[SL_MIN];
+        adv = p == c.last && sd[SL_MIN] >= 1 && armed;
+      } else {
+        adv = true;
+      }
+    }
+    c.adv[t] = adv;
+    c.cnt[t] = armed;
+  }
+  __syncthreads();
+  const int blk_first = (int)sd[SL_BLOCK_FIRST];
+  if (p == c.last) {
+    if (block_any(c, c.adv)) emit(c, c.adv, r, b, ts, false);
+    // the staying lanes take the advanced token; the emitting ones are
+    // consumed (forced at a count slot)
+    for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+      if (c.match[t] && !c.adv[t]) {
+        capture(c, r, t, b, ts);
+        c.slot[t] = p;
+        if (c.start[t] < 0) c.start[t] = ts;
+      }
+      if (c.adv[t] && (!persist || is_count)) c.active[t] = false;
+    }
+    __syncthreads();
+    if (blk_first >= 0 && block_any(c, c.adv)) {
+      scatter(c, c.adv, CP_REARM, r, b, ts, blk_first, p, ts, false, false);
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x) c.touch[t] |= c.dmask[t];
+      __syncthreads();
+    }
+  } else if (persist && !is_count) {
+    bool arrived_min0 = false;
+    if (block_any(c, c.adv)) {
+      scatter(c, c.adv, CP_FORK, r, b, ts, p + 1, 0, ts, false, false);
+      arrived_min0 = slotd(c, p + 1)[SL_TRAIL_MIN0] != 0;
+    } else {
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x) c.dmask[t] = 0;
+    }
+    for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+      if (c.match[t] && !c.adv[t]) {
+        capture(c, r, t, b, ts);
+        c.slot[t] = p;
+        if (c.start[t] < 0) c.start[t] = ts;
+      }
+      c.touch[t] |= c.dmask[t];
+    }
+    __syncthreads();
+    if (arrived_min0) {  // _arrival_effects: a trailing min-0 count emits at once
+      emit(c, c.dmask, -1, b, ts, false);
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x)
+        if (c.dmask[t]) c.active[t] = false;
+      __syncthreads();
+    }
+  } else {
+    for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+      if (!c.match[t]) continue;
+      capture(c, r, t, b, ts);
+      c.slot[t] = p;
+      if (c.start[t] < 0) c.start[t] = ts;
+      if (c.adv[t]) {
+        c.slot[t] = p + 1;
+        c.entry[t] = ts;
+      }
+    }
+    __syncthreads();
+    const bool any_adv = block_any(c, c.adv);
+    if (any_adv && slotd(c, p + 1)[SL_TRAIL_MIN0]) {
+      emit(c, c.adv, -1, b, ts, false);
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x)
+        if (c.adv[t]) c.active[t] = false;
+      __syncthreads();
+    }
+    if (blk_first >= 0 && any_adv) {
+      scatter(c, c.adv, CP_REARM, -1, b, ts, blk_first, p, ts, false, false);
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x) c.touch[t] |= c.dmask[t];
+      __syncthreads();
+    }
+  }
+  for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+    c.stouch[t] |= c.match[t];
+    if (persist && logical != LOG_NONE && c.adv[t]) clear_slot(c, p, t, ts);
+  }
+  __syncthreads();
+  if (persist && is_count && sd[SL_MIN] >= 1 && !c.d[H_SEQ] && block_any(c, c.cnt)) {
+    const long long* s0 = slotd(c, p);
+    scatter(c, c.cnt, CP_VIRGIN, -1, b, ts, p, 0, ts, false,
+            s0[SL_COUNT] && s0[SL_MIN] == 0);
+  }
+}
+
+__device__ void apply_row(const Ctx& c, int b, long long timer_seen) {
+  const ScanArgs& A = *c.A;
+  const long long ts = A.ts[b];
+  const int8_t kind = A.kind[b];
+  const bool is_cur = kind == kCurrent;
+  const long long eff_now = ts > timer_seen ? ts : timer_seen;
+  const bool can_fire = kind == kTimer || is_cur;
+
+  // within kills
+  const long long gw = c.d[H_WITHIN];
+  for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+    c.touch[t] = 0;
+    const long long st = c.start[t];
+    if (st < 0) continue;
+    bool dead = gw >= 0 && ts - st > gw;
+    const int s = c.slot[t];
+    if (s >= 0 && s < c.S) {
+      const long long sw = slotd(c, s)[SL_WITHIN];
+      dead = dead || (sw >= 0 && ts - st > sw);
+    }
+    if (dead) c.active[t] = false;
+  }
+  __syncthreads();
+
+  // a sequence's start state: a fresh virgin when none is pending at slot 0
+  const long long* s0 = slotd(c, 0);
+  if (c.d[H_SEQ] && s0[SL_PERSIST] && is_cur) {
+    const long long mx0 = s0[SL_MAX] > 0 ? s0[SL_MAX] : (1LL << 30);
+    int pend = 0;
+    for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+      const bool at0 = c.active[t] && c.slot[t] == 0;
+      pend |= at0 && (c.start[t] < 0 || (s0[SL_COUNT] && c.n[(int)s0[SL_ATOM0]][t] < mx0));
+    }
+    if (!__syncthreads_or(pend)) {
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x) c.fire[t] = t == 0;
+      __syncthreads();
+      scatter(c, c.fire, CP_VIRGIN, -1, b, ts, 0, 0, ts, false,
+              s0[SL_COUNT] && s0[SL_MIN] == 0);
+    }
+  }
+
+  if (can_fire) deadlines(c, eff_now);
+
+  if (is_cur) {
+    for (int p = c.last; p >= 0; --p) {
+      const long long* sd = slotd(c, p);
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x) c.stouch[t] = 0;
+      __syncthreads();
+      for (int a = 0; a < (int)sd[SL_NATOMS]; ++a) {
+        const int r = (int)sd[SL_ATOM0 + a];
+        if (!A.rmask[(long long)r * c.B + b]) continue;
+        match_atom(c, p, r, b, ts, eff_now);
+      }
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x) c.touch[t] |= c.stouch[t];
+      __syncthreads();
+    }
+    if (c.d[H_SEQ]) {  // strictness: an unconsumed event kills the started tokens
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x)
+        if (c.active[t] && !c.touch[t] && c.start[t] >= 0) c.active[t] = false;
+      __syncthreads();
+    }
+    if (c.d[H_FWD]) {  // the fwd contest: per count slot, the oldest chain wins
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x)
+        c.fire2[t] = c.fwd[t] && c.active[t] && c.start[t] < 0;
+      for (int q = 0; q < c.S; ++q) {
+        const long long* qd = slotd(c, q);
+        if (!qd[SL_COUNT]) continue;
+        const int rq = (int)qd[SL_ATOM0];
+        const int mn = qd[SL_MIN] > 0 ? (int)qd[SL_MIN] : 0;
+        long long best = 1LL << 62;
+        for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
+          const bool cand = c.active[t] && c.slot[t] == q && c.touch[t] && c.n[rq][t] >= mn &&
+                            c.start[t] >= 0;
+          const long long key = cand ? c.start[t] * c.T + t : (1LL << 62);
+          best = key < best ? key : best;
+        }
+        best = block_min64(c, best);
+        if (best < (1LL << 62)) {
+          const int win = (int)(best - (best / c.T) * c.T);
+          if (threadIdx.x == (unsigned)(win % blockDim.x)) c.fire2[win] = 1;
+        }
+        __syncthreads();
+      }
+      for (int t = threadIdx.x; t < c.T; t += blockDim.x) c.fwd[t] = c.fire2[t];
+      __syncthreads();
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads, 1)
+scan_kernel(const __grid_constant__ ScanArgs A) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int ws[32];
+  __shared__ long long wsl[32];
+  __shared__ int s_out_n, s_ovf;
+  __shared__ long long desc[1024];
+  const int T = A.T, B = A.B;
+  for (int i = threadIdx.x; i < A.desc_words; i += blockDim.x) desc[i] = A.desc[i];
+  __syncthreads();
+  Ctx c;
+  c.A = &A;
+  c.d = desc;
+  c.T = T;
+  c.S = (int)desc[H_S];
+  c.R = (int)desc[H_R];
+  c.B = B;
+  c.last = c.S - 1;
+  c.ws = ws;
+  c.wsl = wsl;
+  c.s_out_n = &s_out_n;
+  c.s_ovf = &s_ovf;
+  // the per-lane arrays: shared memory, or global scratch
+  unsigned char* p = A.smem ? smem : (unsigned char*)A.scratch;
+  const long long t8 = ((long long)T + 7) / 8 * 8;
+  long long* q64 = (long long*)p;
+  c.start = q64;
+  c.entry = q64 + t8;
+  c.dl = q64 + 2 * t8;
+  c.dl2 = q64 + 3 * t8;
+  c.st_start = q64 + 4 * t8;
+  int32_t* q32 = (int32_t*)(q64 + 5 * t8);
+  c.slot = q32;
+  c.dest = q32 + t8;
+  c.freel = q32 + 2 * t8;
+  for (int r = 0; r < c.R; ++r) {
+    c.n[r] = q32 + (3 + r) * t8;
+    c.st_n[r] = q32 + (3 + c.R + r) * t8;
+  }
+  uint8_t* q8 = (uint8_t*)(q32 + (3 + 2 * c.R) * t8);
+  c.active = (bool*)q8;
+  c.fwd = A.fwd_in != nullptr ? (bool*)(q8 + t8) : nullptr;
+  c.match = q8 + 2 * t8;
+  c.adv = q8 + 3 * t8;
+  c.cnt = q8 + 4 * t8;
+  c.touch = q8 + 5 * t8;
+  c.stouch = q8 + 6 * t8;
+  c.fire = q8 + 7 * t8;
+  c.fire2 = q8 + 8 * t8;
+  c.dmask = q8 + 9 * t8;
+
+  // the token table in: control lanes to the working arrays, capture lanes
+  // to their output copies
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    c.active[t] = A.active_in[t];
+    c.slot[t] = A.slot_in[t];
+    c.start[t] = A.start_in[t];
+    c.entry[t] = A.entry_in[t];
+    if (c.fwd != nullptr) c.fwd[t] = A.fwd_in[t];
+    for (int r = 0; r < c.R; ++r) c.n[r][t] = A.n_in[r][t];
+  }
+  for (int l = 0; l < A.n_cl; ++l) {
+    const CapLane& L = A.cl[l];
+    const long long n = (long long)T * refd(c, L.ref)[RF_CAP];
+    for (long long i = threadIdx.x; i < n; i += blockDim.x)
+      st_bits(L.out, i, L.size, ld_bits(L.in, i, L.size));
+  }
+  if (threadIdx.x == 0) {
+    s_out_n = *A.out_n;
+    s_ovf = *A.ovf_in;
+  }
+  __syncthreads();
+  const long long seen = *A.timer_seen;
+  for (int b = 0; b < B; ++b) {
+    if (!A.valid[b]) continue;
+    apply_row(c, b, seen);
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    A.active_out[t] = c.active[t];
+    A.slot_out[t] = c.slot[t];
+    A.start_out[t] = c.start[t];
+    A.entry_out[t] = c.entry[t];
+    if (c.fwd != nullptr) A.fwd_out[t] = c.fwd[t];
+    for (int r = 0; r < c.R; ++r) A.n_out[r][t] = c.n[r][t];
+  }
+  if (threadIdx.x == 0) {
+    *A.out_n = s_out_n;
+    *A.ovf_out = s_ovf != 0;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// One scan step; see ScanArgs. desc: the device descriptor table (at most
+// 1024 words). Host arrays describe the capture lanes (n_cl of them) and
+// the row registers (n_regs).
+int ps_scan(const long long* desc, int desc_words, int T, int B, int R,
+            const bool* active_in, bool* active_out, const int32_t* slot_in, int32_t* slot_out,
+            const long long* start_in, long long* start_out, const long long* entry_in,
+            long long* entry_out, const bool* fwd_in, bool* fwd_out,
+            const int32_t* const* n_in, int32_t* const* n_out, int32_t* const* out_nref,
+            int n_cl, const void* const* cl_in, void* const* cl_out, const void* const* cl_ev,
+            void* const* cl_emit, void* const* cl_stage, const long long* cl_null,
+            const int* cl_ref, const int* cl_size, const int* cl_is_ts,
+            const long long* ts, const int8_t* kind, const bool* valid, const bool* rmask,
+            int n_regs, const void* const* reg,
+            long long* out_ts, bool* out_valid, int cap_out, int32_t* out_n,
+            const bool* ovf_in, bool* ovf_out, const long long* timer_seen, void* scratch,
+            int smem, cudaStream_t stream) {
+  if (R > kMaxRefs || n_cl > kMaxCapLanes || n_regs > kMaxRegs || desc_words > 1024)
+    return (int)cudaErrorInvalidValue;
+  ScanArgs A;
+  A.desc = desc;
+  A.desc_words = desc_words;
+  A.T = T;
+  A.B = B;
+  A.n_cl = n_cl;
+  A.n_regs = n_regs;
+  A.cap_out = cap_out;
+  A.smem = smem;
+  A.active_in = active_in;
+  A.active_out = active_out;
+  A.slot_in = slot_in;
+  A.slot_out = slot_out;
+  A.start_in = start_in;
+  A.start_out = start_out;
+  A.entry_in = entry_in;
+  A.entry_out = entry_out;
+  A.fwd_in = fwd_in;
+  A.fwd_out = fwd_out;
+  for (int r = 0; r < kMaxRefs; ++r) {
+    A.n_in[r] = r < R ? n_in[r] : nullptr;
+    A.n_out[r] = r < R ? n_out[r] : nullptr;
+    A.out_nref[r] = r < R ? out_nref[r] : nullptr;
+  }
+  for (int l = 0; l < n_cl; ++l) {
+    A.cl[l].in = cl_in[l];
+    A.cl[l].out = cl_out[l];
+    A.cl[l].ev = cl_ev[l];
+    A.cl[l].emit = cl_emit[l];
+    A.cl[l].stage = cl_stage[l];
+    A.cl[l].null_bits = cl_null[l];
+    A.cl[l].ref = cl_ref[l];
+    A.cl[l].size = cl_size[l];
+    A.cl[l].is_ts = cl_is_ts[l];
+  }
+  A.ts = ts;
+  A.kind = kind;
+  A.valid = valid;
+  A.rmask = rmask;
+  for (int i = 0; i < n_regs; ++i) A.reg[i] = reg[i];
+  A.out_ts = out_ts;
+  A.out_valid = out_valid;
+  A.out_n = out_n;
+  A.ovf_in = ovf_in;
+  A.ovf_out = ovf_out;
+  A.timer_seen = timer_seen;
+  A.scratch = scratch;
+  int threads = (T + 31) / 32 * 32;
+  threads = threads > kMaxThreads ? kMaxThreads : threads < 32 ? 32 : threads;
+  const long long bytes = smem ? lane_bytes(T, R) : 0;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  scan_kernel<<<1, threads, (size_t)bytes, stream>>>(A);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -4,8 +4,10 @@ A query's state is a tree of dicts and lists whose leaves are arrays:
 `{"chain": ..., "sel": {"aggs": [...], "group": {"keys", "used", "n"}}}`
 for a single-stream query and `{"join": {"l": ..., "r": ...}, "sel": ...}`
 for a join, `{"tok": {"active", "slot", "start_ts", "entry_ts", "caps": [{"n",
-"ts", "cols"}, ...]}, "sel": ..., "timer_ts"}` for a pattern (its token table,
-one capture entry per state ref), where "chain" and each join side is a
+"ts", "cols"}, ...], "fwd"}, "sel": ..., "timer_ts"}` for a pattern (its token
+table, one capture entry per state ref, "fwd" only for a sequence with a
+count state; "timer_ts" the max TIMER timestamp processed), where "chain"
+and each join side is a
 sliding window's ring
 (`{"cols": {...}, "ts", "wts", "seq", "total"}`: length, time, timeLength
 and externalTime alike; a time ring may hold holes, seq -1), a lengthBatch

@@ -31,7 +31,8 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "_build"
 SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "deliver_pack",
            "batch_window", "group_assign", "keyed_running_sum", "keep_last", "time_window",
-           "ring_view", "join_probe", "pattern_advance", "pattern_count", "pattern_emit")
+           "ring_view", "join_probe", "pattern_advance", "pattern_count", "pattern_emit",
+           "pattern_scan")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -78,6 +79,8 @@ SIGNATURES = {
     "pc_step": ("pattern_count", [P] * 9 + [I] * 8 + [P] * 10 + [I] + [P] * 7 + [P]),
     "pe_emit": ("pattern_emit", [P] * 4 + [I, I, P, P, I] + [P] * 3 + [I] + [P] * 4 + [I, P, I, P, I]
                 + [P] * 4 + [P]),
+    "ps_scan": ("pattern_scan", [P, I, I, I, I] + [P] * 13 + [I] + [P] * 9 + [P] * 4 + [I, P]
+                + [P, P, I] + [P] * 5 + [I, P]),
 }
 
 launches: collections.Counter = collections.Counter()

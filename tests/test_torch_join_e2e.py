@@ -756,7 +756,8 @@ def test_join_state_carry():
     "from S#window.timeBatch(1 sec) as a join S#window.length(4) as b "
     "on a.volume == b.volume select a.symbol insert into Out;",
     "from S#window.externalTimeBatch(volume, 1 sec) select symbol insert into Out;",
-    "from every (e1=S[price > 10] and e2=S[price > 20]) select e1.symbol as s insert into Out;",
+    "from every (e1=S[price > 10] and e2=S[price > maximum(e1.price, 20.0)]) "
+    "select e1.symbol as s insert into Out;",
     "from S#window.length(4) as a join S#window.length(4) as b on a.volume == b.volume "
     "select a.symbol, min(a.price) as m insert into Out;",
 ])

@@ -4,11 +4,11 @@ CPU: the same SiddhiQL app and the same events go through `siddhi_tpu`
 match in order — bench.py's pattern_2state and count_sequence apps, the
 verify cases, the batch-route apps of test_pattern_differential.py (also
 against the JAX package's per-event scan, whose order within one timestamp
-may differ), and the apps of test_pattern.py and of the every / sequence /
-count / within golden corpora, each of which either runs on the port (and
-then equals the JAX package and passes its golden assertions) or takes the
-per-event scan route and raises "not ported yet". Floats match to a
-relative 2e-4 (bench.py:_rows_match); everything else exactly.
+may differ), and every app of test_pattern.py and of the every / sequence /
+count / within golden corpora, each of which runs on the port (by a batch
+route or by the per-event scan, as in the JAX package), equals the JAX
+package and passes its golden assertions. Floats match to a relative 2e-4
+(bench.py:_rows_match); everything else exactly.
 """
 
 import importlib
@@ -354,11 +354,6 @@ def test_differential_app(app, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-class _Unported(Exception):
-    """The app takes the per-event scan route: the port raised and the JAX
-    package confirms the route; the golden's own assertions are skipped."""
-
-
 def _jax_batch_route(ql: str, query_name: str) -> bool:
     q = siddhi_tpu.SiddhiManager().create_siddhi_app_runtime(ql).queries[query_name]
     return (q.prog.fast_path_ok or q.prog.count_fast_ok) and not q.prog.needs_scheduler
@@ -367,26 +362,20 @@ def _jax_batch_route(ql: str, query_name: str) -> bool:
 def _both_packages(orig, checked: list):
     """Wrap a golden module's runner: run the app through the JAX package and
     through the port (the same runner with the port's manager) and hold the
-    rows equal; return the port's rows to the golden's assertions."""
+    rows equal; return the port's rows to the golden's assertions. `checked`
+    records the route each app took."""
 
     def run(ql, sends, query_name="query1", *args, **kwargs):
         g = orig.__globals__
         saved = g["SiddhiManager"]
         try:
             g["SiddhiManager"] = lambda: siddhi_tpu_torch.SiddhiManager(device="cpu")
-            try:
-                port = orig(ql, sends, query_name, *args, **kwargs)
-            except SiddhiAppCreationError as e:
-                assert "not ported yet" in str(e)
-                assert not _jax_batch_route(ql, query_name)
-                checked.append("raised")
-                raise _Unported() from e
+            port = orig(ql, sends, query_name, *args, **kwargs)
         finally:
             g["SiddhiManager"] = saved
-        assert _jax_batch_route(ql, query_name)
         want = orig(ql, sends, query_name, *args, **kwargs)
         assert bench._rows_match([list(r) for r in port], [list(r) for r in want])
-        checked.append("ran")
+        checked.append("batch" if _jax_batch_route(ql, query_name) else "scan")
         return port
 
     return run
@@ -421,10 +410,7 @@ def test_golden_app(modname, cname, mname, monkeypatch):
         orig = getattr(mod, runner, None)
         if orig is not None:
             monkeypatch.setattr(mod, runner, _both_packages(orig, checked))
-    try:
-        getattr(getattr(mod, cname)(), mname)()
-    except _Unported:
-        pass
+    getattr(getattr(mod, cname)(), mname)()
     assert checked
 
 
@@ -482,6 +468,17 @@ def test_within_expires():
     assert got["siddhi_tpu_torch"] == got["siddhi_tpu"] == [(3, 4)]
 
 
+SCAN_HEAD = bench.VERIFY_HEAD + "define stream S2 (symbol string, price float, volume long);\n"
+
+
+def _scan_feed():
+    rng = np.random.default_rng(8)
+    return [("S" if rng.random() < 0.7 else "S2",
+             (["WSO2", "IBM", "GOOG"][int(rng.integers(0, 3))],
+              float(np.round(rng.uniform(0.0, 100.0), 3)), int(rng.integers(1, 1000))),
+             1_700_000_000_000 + 200 * i) for i in range(120)]
+
+
 @pytest.mark.parametrize("ql", [
     # logical (bench.py's logical_pattern verify case)
     "from every (e1=S[price > 90] and e2=S[volume > 500]) select e1.price as pa, "
@@ -493,9 +490,36 @@ def test_within_expires():
     # a count past the first state
     "from e1=S[price > 50] -> e2=S[price < 40]<2:3> select e1.price as p insert into Out;",
 ])
+def test_scan_route_patterns_run(ql):
+    """The four scan-route apps that raised "not ported yet" before the
+    scan route was ported: the port's rows equal the JAX package's, under
+    @app:playback, one event per send over two streams."""
+    app = "@app:playback\n" + SCAN_HEAD + "@info(name='q') " + ql
+    assert not _jax_batch_route(app, "q")
+    got = {}
+    for mgr in _managers():
+        rt = mgr.create_siddhi_app_runtime(app)
+        rt.add_callback("q", _collector(got.setdefault(_pkg(mgr), [])))
+        rt.start()
+        for sid, row, t in _scan_feed():
+            rt.get_input_handler(sid).send(row, timestamp=t)
+        rt.shutdown()
+        mgr.shutdown()
+    assert got["siddhi_tpu"]
+    assert bench._rows_match(got["siddhi_tpu_torch"], got["siddhi_tpu"])
+
+
+@pytest.mark.parametrize("ql", [
+    # a function call over a captured event in a condition
+    "from every e1=S[price > 50] -> not S2[price < maximum(e1.price, 10.0)] for 1 sec "
+    "select e1.price as p insert into Out;",
+])
 def test_scan_route_patterns_raise(ql):
-    head = bench.VERIFY_HEAD + "define stream S2 (symbol string, price float, volume long);\n"
+    """A token-dependent condition outside the scan's condition programs
+    raises "not ported yet" at app creation (the split of the filters is
+    the same on either device)."""
+    app = SCAN_HEAD + "@info(name='q') " + ql
+    assert not _jax_batch_route(app, "q")
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
     with pytest.raises(SiddhiAppCreationError, match="not ported yet"):
-        mgr.create_siddhi_app_runtime(head + "@info(name='q') " + ql)
-    assert not _jax_batch_route(head + "@info(name='q') " + ql, "q")
+        mgr.create_siddhi_app_runtime(app)
