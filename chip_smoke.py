@@ -25,10 +25,14 @@ engine next to it. Phases, each printed as it ends:
      step), every slot kind of tests/test_torch_pattern_scan.py, T=33 with
      ragged B, lanes exhausted, an overflowing buffer and condition programs
      with nulls and int/float promotion (see pattern_scan_kernel_phase);
+     the time-batch step K17, the running and keyed running extremes K18
+     and K19, K3's key lane and the distinct count K20 at paths TB's and
+     XB's shapes, bit for bit (see time_batch_kernel_phase);
   3. verify cases filter_num, len_window_avg, len_window_minmax,
-     len_batch_group, having_order, time_window, external_time, self_join,
-     pattern_within, count_seq and logical_pattern (the per-event scan) on
-     the card against the frozen CPU rows of VERIFY.json;
+     len_batch_group, having_order, stddev_distinct, time_window,
+     external_time, self_join, pattern_within, count_seq and
+     logical_pattern (the per-event scan) on the card against the frozen
+     CPU rows of VERIFY.json;
   4. the main path at full width: BASELINE.json config 1 (filter + length(50)
      window + avg) and the same app with min/max added, at @app:batch 32768,
      2,000,000 events each through send_columns in calls of 8 batches (the
@@ -66,23 +70,36 @@ engine next to it. Phases, each printed as it ends:
      100 milliseconds under @app:playback, 16 batches one per call with the
      TIMER steps the clock sends; K16 launches = steps (L) and = data +
      TIMER steps (A), no pattern overflow, each against device="cpu" on
-     its first 8,192 events.
+     its first 8,192 events;
+  9. the tumbling time windows (see tb_path_phase and xb_path_phase): path
+     TB, timeBatch(1 sec) group by symbol with avg, stdDev, min, max,
+     maxForever, distinctCount and count under @app:playback, 16 batches'
+     events one 1,000-event bucket a call with its TIMER step; path XB,
+     externalTimeBatch(ets, 1 sec) with avg, stdDev, max, minForever,
+     distinctCount and count, 1,000,000 events fused and a 20-batch
+     per-batch prefix (exactly equal); each path's launches, no overflow,
+     and its first 8,192 events against device="cpu" at @app:batch 4096.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --kernels
+
+stops after phase 2 (each kernel against its plain version, and its times).
 
     python3 chip_smoke.py --profile
 
 instead builds the kernels and prints where the time goes on the quickstart
-min/max app, tumbling_groupby, sliding_join, pattern_2state, count_sequence
-and path L's logical pattern: for one per-batch batch and
+min/max app, tumbling_groupby, sliding_join, pattern_2state, count_sequence,
+path L's logical pattern and path XB: for one per-batch batch and
 for one fused K=8 chunk, the host stages timed around
 torch.cuda.synchronize(), and device time by kernel from torch.profiler over
-4 batches / 4 chunks; and on paths T and A, each call's split into its data
-steps and its TIMER steps, with the device busy share of one call.
+4 batches / 4 chunks; and on paths T, A and TB, each call's split into its
+data steps and its TIMER steps, with the device busy share of one call.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
@@ -208,6 +225,7 @@ VERIFY_CASES = {
     "len_window_minmax": VERIFY_HEAD + "@info(name='q') from S#window.length(5) select min(price) as mn, max(price) as mx insert into Out;",
     "len_batch_group": VERIFY_HEAD + "@info(name='q') from S#window.lengthBatch(8) select symbol, sum(volume) as tv, count() as c group by symbol insert into Out;",
     "having_order": VERIFY_HEAD + "@info(name='q') from S#window.lengthBatch(8) select symbol, sum(volume) as tv group by symbol having tv > 100 order by tv desc limit 3 insert into Out;",
+    "stddev_distinct": VERIFY_HEAD + "@info(name='q') from S#window.length(9) select stdDev(price) as sd, distinctCount(symbol) as dc insert into Out;",
     "time_window": "@app:playback\n" + VERIFY_HEAD + "@info(name='q') from S#window.time(40) select symbol, sum(volume) as tv insert into Out;",
     "external_time": VERIFY_HEAD + "@info(name='q') from S#window.externalTime(volume, 500) select symbol, count() as c insert into Out;",
     "self_join": VERIFY_HEAD + """@app:joinCapacity(size='256')
@@ -1484,6 +1502,382 @@ def pattern_scan_kernel_phase(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the tumbling time windows' and the remaining aggregators' kernels
+# ---------------------------------------------------------------------------
+
+TB_BATCH, TB_W, TB_T, TB_G = 32768, 1024, 1000, 1024  # B, time capacity, 1 sec, groups
+TB_BATCHES, XB_EVENTS, TB_CHECK_BATCH = 16, 1_000_000, 4096
+TB_APP = """@app:playback @app:batch(size='{batch}')
+define stream StockStream (symbol string, price float, volume long);
+@info(name='q') from StockStream#window.timeBatch(1 sec)
+select symbol, avg(price) as ap, stdDev(price) as sd, min(price) as lo, max(price) as hi,
+       maxForever(price) as ath, distinctCount(volume) as dv, count() as n
+group by symbol insert into Out;
+"""
+XB_APP = """@app:batch(size='{batch}')
+define stream StockStream (symbol string, price float, volume long, ets long);
+@info(name='q') from StockStream#window.externalTimeBatch(ets, 1 sec)
+select avg(price) as ap, stdDev(price) as sd, max(price) as hi, minForever(price) as atl,
+       distinctCount(symbol) as ds, count() as n
+insert into Out;
+"""
+TB_KERNELS = ("time_batch_step", "assign_slots", "keyed_running_sum", "keep_last",
+              "window_extreme_keyed", "keyed_running_extreme", "distinct_count")
+XB_KERNELS = ("wire_decode", "time_batch_step", "running_sum", "window_extreme",
+              "running_extreme", "distinct_count", "deliver_pack")
+
+
+def time_batch_kernel_phase(torch, dev) -> dict:
+    """The time-batch slice's kernels against their plain versions on the
+    card, bit for bit, from the same inputs and state: the time-batch step
+    (K17) at paths TB's and XB's shapes (B=32768, w=1024, 1 sec over 1 ms
+    ticks: ~33 flushes a batch, EXPIRED lanes on, 3 carried steps) and a
+    one-row TIMER step, ragged B=33 and B=4097 with holes and TIMER rows, an
+    open bucket past w, an explicit start time, a gap of several empty
+    buckets, a batch with no trigger row, and an idle timeout that is stale
+    or elapsed at rank 0 and after a CURRENT row; the running extreme (K18)
+    at B=32768 and 98,321 (past one tile) in float32/int32/int64, min and
+    max, with resets and NaN rows, and over XB's flow; the keyed running extreme (K19) over a TB flow with G=1024, 8 and
+    1,000 keys and 2,000 (overflowing the slot table); K3's key lane and the
+    distinct count (K20) over TB's grouped flow and XB's ungrouped one, with
+    NaN, null and int, float and string values."""
+    from siddhi_tpu_torch.core.aggregators import (
+        distinct_count,
+        distinct_count_ref,
+        window_extreme,
+        window_extreme_ref,
+    )
+    from siddhi_tpu_torch.core.event import EventBatch, StreamSchema
+    from siddhi_tpu_torch.core.types import AttrType
+    from siddhi_tpu_torch.core.windows import (
+        TIMER_BUCKET,
+        TIMER_NONE,
+        TIMER_TIMEOUT,
+        BatchWindow,
+        time_batch_step,
+        time_batch_step_ref,
+    )
+    from siddhi_tpu_torch.ops.group import (
+        assign_slots_ref,
+        keyed_running_extreme,
+        keyed_running_extreme_ref,
+    )
+    from siddhi_tpu_torch.ops.prefix import running_extreme, running_extreme_ref
+
+    schema = StreamSchema("StockStream", [("symbol", AttrType.STRING), ("price", AttrType.FLOAT),
+                                          ("volume", AttrType.LONG), ("ets", AttrType.LONG)])
+    names = ("time_batch_step", "running_extreme", "keyed_running_extreme",
+             "window_extreme_keyed", "distinct_count")
+    res = {k: {"max_abs_err": 0.0, "checks": 0} for k in names}
+    rng = np.random.default_rng(707)
+    col_bytes = 4 + 4 + 8 + 8
+    nan = float("nan")
+    long_null = -(1 << 63)
+
+    def exact(name, got, want):
+        torch.cuda.synchronize()
+        if name in ("running_extreme", "keyed_running_extreme", "window_extreme_keyed"):
+            # min/max may keep either NaN: NaN in the same places, the rest equal
+            for g, w in zip(flat(got), flat(want), strict=True):
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    raise AssertionError(f"{name}: dtype/shape differ")
+                gn, wn = (torch.isnan(x) if x.dtype.is_floating_point else torch.zeros_like(
+                    x, dtype=torch.bool) for x in (g, w))
+                if not torch.equal(gn, wn) or not torch.equal(g[~gn], w[~wn]):
+                    raise AssertionError(f"{name}: not exact")
+        else:
+            same_bits(torch, got, want)
+        res[name]["checks"] += 1
+
+    def make_batch(b, clock, ragged=False, gap=0, no_trigger=False, timer_first=False,
+                   ext_timers=False):
+        d = stock_data(b, seed=int(rng.integers(1 << 30)))
+        step = rng.integers(0, 3, b) if ragged else np.ones(b, np.int64)
+        ts = clock + np.cumsum(step).astype(np.int64) + gap
+        kind = np.zeros(b, np.int8)
+        valid = np.ones(b, bool)
+        if ragged:
+            valid &= rng.random(b) < 0.9
+            kind[rng.random(b) < 0.05] = 2
+        if timer_first:
+            kind[0], valid[0] = 2, True
+        if no_trigger:
+            valid[:] = False
+        ets = ts.copy()
+        if ext_timers:
+            ets[kind == 2] = long_null  # a TIMER row's null payload
+        cols = {"symbol": d["symbol"], "price": d["price"], "volume": d["volume"], "ets": ets}
+        return EventBatch(ts=torch.from_numpy(ts).to(dev), kind=torch.from_numpy(kind).to(dev),
+                          valid=torch.from_numpy(valid).to(dev),
+                          cols={n: torch.from_numpy(v).to(dev) for n, v in cols.items()})
+
+    def timer_batch(t_ms):
+        one = dict(dtype=torch.int64, device=dev)
+        return EventBatch(ts=torch.full((1,), t_ms, **one),
+                          kind=torch.full((1,), 2, dtype=torch.int8, device=dev),
+                          valid=torch.ones(1, dtype=torch.bool, device=dev),
+                          cols={"symbol": torch.zeros(1, dtype=torch.int32, device=dev),
+                                "price": torch.full((1,), nan, device=dev),
+                                "volume": torch.full((1,), long_null, **one),
+                                "ets": torch.full((1,), long_null, **one)})
+
+    def k17(state, batch, now, w, t, start, timeout, mode, exp, ext):
+        wts = batch.cols["ets"] if ext else batch.ts
+        now_t = torch.tensor(now, dtype=torch.int64, device=dev)
+        args = (state, batch, wts, now_t, w, t, start, timeout, mode, exp)
+        got, want = time_batch_step(*args), time_batch_step_ref(*args)
+
+        def flat(r):
+            return [r[0].ts, r[0].kind, r[0].valid, r[0].cols, r[1] if exp else [],
+                    r[2] if exp else [], r[3], r[4]]
+
+        exact("time_batch_step", flat(got), flat(want))
+        return want, args
+
+    main = {}
+    # (label, B, w, t, start, timeout, mode, ext, steps, batch options)
+    cases = [
+        ("TB", TB_BATCH, TB_W, TB_T, None, None, TIMER_BUCKET, False, 3, {}),
+        ("XB", TB_BATCH, TB_W, TB_T, None, None, TIMER_NONE, True, 3, {}),
+        ("B=33 ragged", 33, 16, 10, None, None, TIMER_BUCKET, False, 4, {"ragged": True}),
+        ("B=4097 ragged", 4097, TB_W, 100, None, None, TIMER_BUCKET, False, 3,
+         {"ragged": True}),
+        ("past w", 4097, TB_W, 10_000, None, None, TIMER_NONE, True, 2, {}),
+        ("start time", 4097, TB_W, TB_T, 1_700_000_000_123, None, TIMER_NONE, True, 3, {}),
+        ("empty buckets", 4097, TB_W, 100, None, None, TIMER_BUCKET, False, 3,
+         {"gap": 730}),
+        ("no trigger", 33, 16, 10, None, None, TIMER_BUCKET, False, 2, {"no_trigger": True}),
+    ]
+    for label, b, w, t, start, timeout, mode, ext, steps, opts in cases:
+        state = BatchWindow(schema, "StockStream", None, dev, capacity=w, duration_ms=t,
+                            time_attr="ets" if ext else None, start_time=start,
+                            timeout_ms=timeout).init_state()
+        clock, flushes = 1_700_000_000_000, 0
+        for step in range(steps):
+            batch = make_batch(b, clock, **opts)
+            clock = int(batch.ts[-1]) + 1
+            want, args = k17(state, batch, clock, w, t, start, timeout, mode, True, ext)
+            if label in ("TB", "XB") and step == steps - 1:
+                main[label] = dict(args=args, rows=want[0].valid.shape[0])
+            flushes += int((want[0].kind == 3).sum())
+            state = want[3]
+            if mode == TIMER_BUCKET:  # the TIMER step at the open bucket's end
+                want, _ = k17(state, timer_batch(int(want[4])), int(want[4]), w, t, start,
+                              timeout, mode, True, ext)
+                flushes += int((want[0].kind == 3).sum())
+                state = want[3]
+        print(f"kernel check time batch {label}: B={b} w={w} t={t} {steps} steps, "
+              f"{flushes} flushes ok", flush=True)
+    # the idle timeout: stale and elapsed TIMERs, at rank 0 and after a
+    # CURRENT row (the deadline is wall-clock: `now` is set around it)
+    state = BatchWindow(schema, "StockStream", None, dev, capacity=TB_W, duration_ms=TB_T,
+                        time_attr="ets", timeout_ms=500).init_state()
+    clock, now, forced = 1_700_000_000_000, 5_000, 0
+    for step, (dnow, timer_first) in enumerate(((0, False), (-100, True), (100, True),
+                                                (100, False), (100, True))):
+        batch = make_batch(4097, clock, ragged=True, timer_first=timer_first, ext_timers=True)
+        clock = int(batch.ts[-1]) + 1
+        dl = int(state["timeout_deadline"])
+        now = (dl + dnow) if dl < (1 << 62) else now + 10
+        want, _ = k17(state, batch, now, TB_W, TB_T, None, 500, TIMER_TIMEOUT, True, True)
+        forced += int((want[0].kind == 3).sum())
+        state = want[3]
+        dl = int(state["timeout_deadline"])
+        for dt in (-50, 50):  # one-row TIMER steps, stale then elapsed
+            want, _ = k17(state, timer_batch(dl + dt), dl + dt, TB_W, TB_T, None, 500,
+                          TIMER_TIMEOUT, True, True)
+            forced += int((want[0].kind == 3).sum())
+            state = want[3]
+    print(f"kernel check time batch idle timeout: {forced} flushes ok", flush=True)
+
+    # K18 at B=32768 (one 32768-row tile) and past one tile (3 tiles and a
+    # ragged fourth: the tile aggregates and the carry across tiles); over
+    # XB's own flow below
+    for dtype, n in itertools.product((torch.float32, torch.int32, torch.int64),
+                                      (TB_BATCH, 3 * TB_BATCH + 17)):
+        for is_min in (True, False):
+            if dtype.is_floating_point:
+                vals = torch.from_numpy(rng.uniform(-100, 100, n).astype(np.float32))
+                vals[rng.random(n) < 0.001] = nan
+            else:
+                vals = torch.from_numpy(rng.integers(-10**6, 10**6, n)).to(dtype)
+            active = torch.from_numpy(rng.random(n) < 0.8)
+            reset = torch.from_numpy(rng.random(n) < 0.001) & ~active
+            base = vals[:1].clone().reshape(())
+            a = [x.to(dev) for x in (vals, active, reset, base)]
+            exact("running_extreme", list(running_extreme(*a, is_min)),
+                  list(running_extreme_ref(*a, is_min)))
+    print(f"kernel check running_extreme: float32/int32/int64 x min/max at B={TB_BATCH} and "
+          f"{3 * TB_BATCH + 17} ok", flush=True)
+
+    # the aggregators over TB's and XB's flows (from the last checked step)
+    def flow_of(label):
+        a = main[label]["args"]
+        state, batch = a[0], a[1]
+        out, birth, death, _, _ = time_batch_step_ref(*a)
+        elems = {c: torch.cat([state["cur_cols"][c], state["prev_cols"][c], batch.cols[c]])
+                 for c in batch.cols}
+        return out, birth, death, elems
+
+    tb_out, tb_birth, tb_death, tb_elems = flow_of("TB")
+    rows = tb_out.valid.shape[0]
+    cur = tb_out.valid & (tb_out.kind == 0)
+    exp = tb_out.valid & (tb_out.kind == 1)
+    reset = tb_out.valid & (tb_out.kind == 3)
+    sign_active = cur | exp
+    key_cases = {}
+    # 8 symbols and 1,000 keys over the flow's buckets (resets between
+    # them); 2,000 keys with no reset overflow the slot table
+    for n_keys in (8, 1000, 2000):
+        sym = tb_out.cols["symbol"].to(torch.int64)
+        keys = sym if n_keys == 8 else torch.from_numpy(
+            rng.integers(0, n_keys, rows)).to(dev)
+        rs = reset if n_keys <= TB_G else torch.zeros_like(reset)
+        table = (torch.zeros(TB_G, dtype=torch.int64, device=dev),
+                 torch.zeros(TB_G, dtype=torch.bool, device=dev),
+                 torch.zeros((), dtype=torch.int32, device=dev))
+        _, _, _, slot, grp, over = assign_slots_ref(*table, keys, sign_active, rs)
+        if bool(over) != (n_keys > TB_G):
+            raise AssertionError(f"{n_keys} keys at G={TB_G}: overflow flag {bool(over)}")
+        key_cases[n_keys] = (slot, grp)
+        for vals in (tb_out.cols["price"], tb_out.cols["volume"], tb_out.cols["symbol"]):
+            carry = vals[:TB_G].clone()
+            # the running form, and the forever form (resets zeroed over
+            # segments that split at them: a slot may end several)
+            for is_min, ext_reset in ((True, rs), (False, rs), (False, torch.zeros_like(rs))):
+                a = (vals.contiguous(), cur, grp, ext_reset, carry, slot, is_min)
+                exact("keyed_running_extreme", list(keyed_running_extreme(*a)),
+                      list(keyed_running_extreme_ref(*a)))
+    print(f"kernel check keyed_running_extreme: {rows} flow rows, G={TB_G}, 8/1000/2000 keys "
+          "ok", flush=True)
+
+    ekey = tb_elems["symbol"].to(torch.int64).contiguous()
+    rkey = tb_out.cols["symbol"].to(torch.int64).contiguous()
+    for is_min in (True, False):
+        a = (tb_elems["price"].contiguous(), tb_birth, tb_death, rows, is_min, AttrType.FLOAT,
+             ekey, rkey)
+        exact("window_extreme_keyed", window_extreme(*a), window_extreme_ref(*a))
+    print(f"kernel check window_extreme keyed: {rows} rows x {ekey.shape[0]} elements ok",
+          flush=True)
+
+    xb_out, xb_birth, xb_death, xb_elems = flow_of("XB")
+    xrows = xb_out.valid.shape[0]
+    # K18 over XB's flow rows (3w + 3B, four tiles): the path's minForever
+    # (resets zeroed) from the identity and from a carried value, and the
+    # running forms with the flow's RESET rows
+    xvals = xb_out.cols["price"].contiguous()
+    xcur = xb_out.valid & (xb_out.kind == 0)
+    xreset = torch.zeros_like(xcur)  # minForever: resets zeroed
+    xbase = torch.tensor(float("inf"), device=dev)
+    xflow_reset = xb_out.valid & (xb_out.kind == 3)
+    carried = torch.tensor(37.5, device=dev)
+    for rs, base, is_min in ((xreset, xbase, True), (xreset, carried, True),
+                             (xflow_reset, carried, True), (xflow_reset, -xbase, False)):
+        a = (xvals, xcur, rs, base)
+        exact("running_extreme", list(running_extreme(*a, is_min)),
+              list(running_extreme_ref(*a, is_min)))
+    print(f"kernel check running_extreme: XB's {xrows} flow rows, forever and running ok",
+          flush=True)
+    price_nan = tb_elems["price"].clone()
+    price_nan[::97] = nan
+    vol_null = tb_elems["volume"].clone()
+    vol_null[::89] = long_null
+    for label, vals, b, d, r, keys in (
+            ("TB volume grouped", tb_elems["volume"], tb_birth, tb_death, rows, (ekey, rkey)),
+            ("TB price NaN grouped", price_nan, tb_birth, tb_death, rows, (ekey, rkey)),
+            ("TB volume null", vol_null, tb_birth, tb_death, rows, (None, None)),
+            ("XB symbol", xb_elems["symbol"], xb_birth, xb_death, xrows, (None, None)),
+            ("XB price", xb_elems["price"], xb_birth, xb_death, xrows, (None, None))):
+        a = (vals.contiguous(), b, d, r, *keys)
+        exact("distinct_count", distinct_count(*a), distinct_count_ref(*a))
+    print("kernel check distinct_count: TB grouped and XB ungrouped, int/float/string, NaN "
+          "and null ok", flush=True)
+
+    # times at the paths' shapes
+    r17 = res["time_batch_step"]
+    targs = main["TB"]["args"]
+    r17["ms"] = time_ms(torch, lambda: time_batch_step(*targs), 20)
+    r17["plain_ms"] = time_ms(torch, lambda: time_batch_step_ref(*targs), 5)
+    r17["library_ms"] = None
+    k17_bytes = (TB_BATCH * (8 + 8 + 1 + 1 + col_bytes) + 2 * TB_W * (col_bytes + 8) + 64
+                 + rows * (8 + 1 + 1 + col_bytes) + 2 * (2 * TB_W + TB_BATCH) * 4
+                 + 2 * TB_W * (col_bytes + 8) + 64)
+    r17["bound_ms"], r17["bound_by"] = k17_bytes / MEM_BYTES_PER_S * 1e3, "bytes"
+    r17["XB_ms"] = time_ms(torch, lambda: time_batch_step(*main["XB"]["args"]), 20)
+
+    r18 = res["running_extreme"]
+    r18["ms"] = time_ms(torch, lambda: running_extreme(xvals, xcur, xreset, xbase, True), 50)
+    r18["plain_ms"] = time_ms(
+        torch, lambda: running_extreme_ref(xvals, xcur, xreset, xbase, True), 10)
+    masked = torch.where(xcur, xvals, xbase)
+    r18["library_ms"] = time_ms(torch, lambda: torch.cummin(masked, 0), 50)
+    r18["library"] = "torch.cummin (no resets, inactive rows pre-masked)"
+    r18["bound_ms"], r18["bound_by"] = max(
+        (xrows * (4 + 1 + 1 + 4) / MEM_BYTES_PER_S * 1e3, "bytes"),
+        (xrows / FP32_OPS_PER_S * 1e3, "operations"))
+
+    r19 = res["keyed_running_extreme"]
+    slot, grp = key_cases[8]
+    price = tb_out.cols["price"].contiguous()
+    carry = torch.full((TB_G,), -float("inf"), device=dev)
+    zero_reset = torch.zeros_like(reset)  # maxForever: resets zeroed
+    r19["ms"] = time_ms(
+        torch, lambda: keyed_running_extreme(price, cur, grp, zero_reset, carry, slot, False), 50)
+    r19["plain_ms"] = time_ms(
+        torch, lambda: keyed_running_extreme_ref(price, cur, grp, zero_reset, carry, slot, False),
+        10)
+    r19["library_ms"] = None
+    r19["bound_ms"], r19["bound_by"] = max(
+        ((rows * (4 + 1 + 4 + 4 + 4) + 8 + 2 * TB_G * 4) / MEM_BYTES_PER_S * 1e3, "bytes"),
+        (rows / FP32_OPS_PER_S * 1e3, "operations"))
+
+    def keyed_pairs(birth, death, ek, rk, n_rows):
+        """(element, row) pairs the data needs: rows in [birth, death) with
+        the element's key."""
+        total = 0
+        for k in torch.unique(ek).tolist():
+            cnt = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                             torch.cumsum((rk == k).to(torch.int64), 0)])
+            sel = (ek == k) & (birth < death)
+            lo = birth[sel].clamp(0, n_rows).long()
+            hi = death[sel].clamp(0, n_rows).long()
+            total += int((cnt[hi] - cnt[lo]).clamp(min=0).sum())
+        return total
+
+    r3 = res["window_extreme_keyed"]
+    pvals = tb_elems["price"].contiguous()
+    r3["ms"] = time_ms(torch, lambda: window_extreme(
+        pvals, tb_birth, tb_death, rows, True, AttrType.FLOAT, ekey, rkey), 10)
+    r3["plain_ms"] = time_ms(torch, lambda: window_extreme_ref(
+        pvals, tb_birth, tb_death, rows, True, AttrType.FLOAT, ekey, rkey), 2)
+    r3["library_ms"] = None
+    k_el = pvals.shape[0]
+    r3["pairs"] = keyed_pairs(tb_birth, tb_death, ekey, rkey, rows)
+    r3["bound_ms"], r3["bound_by"] = max(
+        ((k_el * (4 + 4 + 4 + 8) + rows * 8 + rows * 4) / MEM_BYTES_PER_S * 1e3, "bytes"),
+        (r3["pairs"] / FP32_OPS_PER_S * 1e3, "operations"))
+
+    r20 = res["distinct_count"]
+    vvals = tb_elems["volume"].contiguous()
+    r20["ms"] = time_ms(torch, lambda: distinct_count(vvals, tb_birth, tb_death, rows, ekey,
+                                                      rkey), 10)
+    r20["plain_ms"] = time_ms(torch, lambda: distinct_count_ref(vvals, tb_birth, tb_death, rows,
+                                                                ekey, rkey), 5)
+    r20["library_ms"] = None
+    r20["bound_ms"], r20["bound_by"] = (
+        (k_el * (8 + 4 + 4 + 8) + rows * 8 + rows * 8) / MEM_BYTES_PER_S * 1e3, "bytes")
+    r20["XB_ms"] = time_ms(torch, lambda: distinct_count(
+        xb_elems["symbol"].contiguous(), xb_birth, xb_death, xrows), 10)
+    for name in names:
+        r = res[name]
+        lib = "None" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={lib} "
+              f"checks={r['checks']} exact", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 3: verify cases against VERIFY.json
 # ---------------------------------------------------------------------------
 
@@ -1528,7 +1922,8 @@ def main_app(extra: str) -> str:
 
 
 def run_app(dev, app: str, data: dict, n_events: int, stride: int, first_call: int,
-            fused: bool = True, keep_calls: int = 1, symbols=SYMBOLS, fires=None):
+            fused: bool = True, keep_calls: int = 1, symbols=SYMBOLS, fires=None,
+            cols=("symbol", "price", "volume")):
     """Drive one app through send_columns, in calls of `first_call` events
     and then `stride`; with fused=False the fused engines are detached, so
     every call takes the per-batch path. Returns (delivered row count, rows
@@ -1568,7 +1963,6 @@ def run_app(dev, app: str, data: dict, n_events: int, stride: int, first_call: i
     elif j.fused_ingest is None:
         raise AssertionError("no fused ingest engine on StockStream")
     h = rt.get_input_handler("StockStream")
-    cols = ("symbol", "price", "volume")
     if dev != "cpu":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1739,10 +2133,10 @@ def grouped_path_phase(torch) -> dict:
     from siddhi_tpu_torch import SiddhiManager
     from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 
-    for q in ("from S#window.lengthBatch(4) select symbol, max(price) as m group by symbol",
-              "from S select symbol, min(price) as m group by symbol",
-              "from S#window.timeBatch(1 sec) select symbol, sum(volume) as t group by symbol",
-              "from S#window.externalTimeBatch(volume, 1 sec) select symbol"):
+    for q in ("from S#window.sort(4, price) select symbol, max(price) as m group by symbol",
+              "from S#window.frequent(3, symbol) select symbol",
+              "from S#window.cron('*/5 * * * * ?') select symbol, sum(volume) as t",
+              "from S#pol2Cart(price, price) select symbol"):
         try:
             SiddhiManager(device="cuda").create_siddhi_app_runtime(
                 VERIFY_HEAD + q + " insert into Out;")
@@ -1913,7 +2307,7 @@ def time_agg_path_phase(torch) -> dict:
     return out
 
 
-def fused_busy(torch, app: str, data: dict, b: int) -> tuple:
+def fused_busy(torch, app: str, data: dict, b: int, cols=("symbol", "price", "volume")) -> tuple:
     """Device busy share of one fused call of 8 batches (after a warm-up
     call of 2), from torch.profiler: (wall ms, device busy ms)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1928,7 +2322,6 @@ def fused_busy(torch, app: str, data: dict, b: int) -> tuple:
     rt.add_callback("q", lambda t, ins, rem: rows.__setitem__(0, rows[0] + len(ins or [])))
     rt.start()
     h = rt.get_input_handler("StockStream")
-    cols = ("symbol", "price", "volume")
 
     def send(lo, hi):
         h.send_columns(data["ts"][lo:hi], {k: data[k][lo:hi] for k in cols}, now=0)
@@ -2010,19 +2403,24 @@ def pattern_path_phase(torch, label: str, app: str, n_events: int, per_step: dic
     return out
 
 
-def scan_cpu_check(label: str, app: str, data: dict) -> dict:
-    """The first SCAN_CPU_EVENTS events of `app`, one call, on the card and
-    on device="cpu" (the plain scan, a Python loop over rows): the same
+def cpu_check(label: str, app: str, data: dict, stride: int = SCAN_CPU_EVENTS,
+              cols=("symbol", "price", "volume")) -> dict:
+    """The first SCAN_CPU_EVENTS events of `app`, in calls of `stride`
+    events, on the card and on device="cpu" (the plain versions): the same
     rows; prints the plain run's time."""
     n = SCAN_CPU_EVENTS
-    _n, gpu_kept, gpu_dt, _i = run_app("cuda", app, data, n, n, n, fused=False)
-    _n, cpu_kept, cpu_dt, _i = run_app("cpu", app, data, n, n, n, fused=False)
-    if not cpu_kept[0] or not rows_match(gpu_kept[0], cpu_kept[0]):
+    calls = -(-n // stride)
+    _n, gpu_kept, gpu_dt, _i = run_app("cuda", app, data, n, stride, stride, fused=False,
+                                       keep_calls=calls, cols=cols)
+    _n, cpu_kept, cpu_dt, _i = run_app("cpu", app, data, n, stride, stride, fused=False,
+                                       keep_calls=calls, cols=cols)
+    got = [r for c in gpu_kept for r in c]
+    want = [r for c in cpu_kept for r in c]
+    if not want or not rows_match(got, want):
         raise AssertionError(f"{label}: the first {n} events' rows differ from device='cpu'")
-    print(f"{label}: the first {n} events' {len(cpu_kept[0])} rows match device='cpu' "
-          f"({gpu_dt:.3f} s on the card, {cpu_dt:.3f} s for the plain scan on the host)",
-          flush=True)
-    return {"events": n, "rows": len(cpu_kept[0]), "card_s": gpu_dt, "cpu_plain_s": cpu_dt}
+    print(f"{label}: the first {n} events' {len(want)} rows match device='cpu' ({gpu_dt:.3f} s "
+          f"on the card, {cpu_dt:.3f} s for the plain versions on the host)", flush=True)
+    return {"events": n, "rows": len(want), "card_s": gpu_dt, "cpu_plain_s": cpu_dt}
 
 
 def logical_path_phase(torch) -> dict:
@@ -2066,7 +2464,7 @@ def logical_path_phase(torch) -> dict:
     pb_prefix = [row for call in pb_kept for row in call]
     if not pb_prefix or fused_prefix != pb_prefix:
         raise AssertionError("path L: fused rows differ from the per-batch form")
-    cpu = scan_cpu_check("path L", app, data)
+    cpu = cpu_check("path L", app, data)
     wall_ms, busy_ms = fused_busy(torch, app, data, b)
     n_batches = -(-LOGICAL_EVENTS // b)
     out = {"events": LOGICAL_EVENTS, "rows": n_rows, "seconds": dt,
@@ -2115,7 +2513,7 @@ def absent_path_phase(torch) -> dict:
     if launches.get("pattern_scan", 0) != ABSENT_BATCHES + fires[0]:
         raise AssertionError(f"path A: {launches.get('pattern_scan', 0)} K16 launches for "
                              f"{ABSENT_BATCHES} data steps and {fires[0]} TIMER steps")
-    cpu = scan_cpu_check("path A", app, data)
+    cpu = cpu_check("path A", app, data)
     out = {"events": n, "rows": n_rows, "seconds": dt, "events_per_s": n / dt,
            "data_steps": ABSENT_BATCHES, "timer_steps": fires[0], "launches": launches,
            "matches_per_batch": n_rows / ABSENT_BATCHES, "cpu_check": cpu}
@@ -2123,6 +2521,117 @@ def absent_path_phase(torch) -> dict:
           f"TIMER steps (= K16 launches {launches.get('pattern_scan', 0)} - {ABSENT_BATCHES}), "
           f"{n_rows} rows delivered ({n_rows / ABSENT_BATCHES:.1f} matches per batch), {dt:.3f} "
           f"s, {n / dt:.1f} events/s; no overflow", flush=True)
+    return out
+
+
+def tb_path_phase(torch) -> dict:
+    """Path TB: BASELINE.json config 2 as a tumbling time window (timeBatch(1
+    sec) group by symbol with avg, stdDev, min, max, maxForever,
+    distinctCount and count) under @app:playback at @app:batch 32768, 16
+    batches of seed-7 1 ms ticks sent one 1-second bucket (1,000 events) a
+    call: a playback send advances the event-time clock to its last
+    timestamp before its rows are processed, so each call's TIMER step (the
+    open bucket's end) closes the previous call's bucket, and a longer call
+    would fire its buckets' TIMER steps first and pile its rows into one
+    bucket past the w=1024 slots. Per batch only (the scheduler keeps it off
+    the fused path); launch counts of this run alone; K17 launches = data
+    steps + TIMER steps; no group overflow; every closed bucket's count sums
+    to the events sent before the open one; the first 8,192 events against
+    device="cpu" at @app:batch 4096."""
+    from siddhi_tpu_torch import kernels
+
+    b, bucket = TB_BATCH, 1000
+    n = TB_BATCHES * b
+    app_of = lambda batch: TB_APP.format(batch=batch)  # noqa: E731
+    data = stock_data(n, seed=7)
+    cols = ("symbol", "price", "volume")
+    run_app("cuda", app_of(b), data, 4 * bucket, bucket, bucket, fused=False, cols=cols)  # warm-up
+    fires = [0]
+    calls = -(-n // bucket)
+    kernels.launches.clear()
+    (n_rows, kept, dt, _info), warned = capture_warnings(
+        lambda: run_app("cuda", app_of(b), data, n, bucket, bucket, fused=False, fires=fires,
+                        keep_calls=calls, cols=cols), "groupCapacity")
+    launches = dict(kernels.launches)
+    print(f"TB time_batch launches {json.dumps(launches)}", flush=True)
+    if warned:
+        raise AssertionError("path TB: the group-by slot table overflowed")
+    for k in TB_KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} was not launched on path TB")
+    if launches["time_batch_step"] != calls + fires[0]:
+        raise AssertionError(f"path TB: {launches['time_batch_step']} K17 launches for {calls} "
+                             f"data steps and {fires[0]} TIMER steps")
+    rows = [r for c in kept for r in c]
+    counted = sum(r[-1] for r in rows)
+    if counted != n - (n % bucket or bucket):
+        raise AssertionError(f"path TB: the closed buckets count {counted} events")
+    # at @app:batch TB_CHECK_BATCH: the plain K3 and K20 are O(rows x
+    # elements) on the host
+    cpu = cpu_check("path TB", app_of(TB_CHECK_BATCH), data, bucket, cols)
+    out = {"events": n, "rows": n_rows, "seconds": dt, "events_per_s": n / dt,
+           "data_steps": calls, "timer_steps": fires[0], "buckets_closed": n_rows / len(SYMBOLS),
+           "flushes_per_batch": fires[0] / TB_BATCHES, "events_counted": counted,
+           "launches": launches, "cpu_check": cpu}
+    print(f"path TB time_batch: {n} events in {calls} calls (one bucket each) and {fires[0]} "
+          f"one-row TIMER steps, {n_rows} rows delivered ({fires[0] / TB_BATCHES:.1f} flushes "
+          f"per 32768 events), closed buckets count {counted} events, {dt:.3f} s, "
+          f"{n / dt:.1f} events/s; no overflow", flush=True)
+    return out
+
+
+def xb_path_phase(torch) -> dict:
+    """Path XB: externalTimeBatch(ets, 1 sec), ungrouped, with avg, stdDev,
+    max, minForever, distinctCount(symbol) and count at @app:batch 32768:
+    1,000,000 events of seed 7 (ets = the 1 ms tick timestamp) through
+    send_columns in calls of 8 batches (the first of 4), fused (no
+    scheduler); launch counts of this run alone; the first 20 batches
+    exactly against the per-batch form and the first 8,192 events against
+    device="cpu" at @app:batch 4096; flushes per batch (one row each),
+    events/s and the device busy share of one more fused call."""
+    from siddhi_tpu_torch import kernels
+
+    b = TB_BATCH
+    app_of = lambda batch: XB_APP.format(batch=batch)  # noqa: E731
+    data = stock_data(XB_EVENTS, seed=7)
+    data["ets"] = data["ts"].copy()
+    cols = ("symbol", "price", "volume", "ets")
+    first_n, stride = 4 * b, 8 * b
+    prefix_calls, prefix_events = 3, 20 * b
+    run_app("cuda", app_of(b), data, 4 * b, 2 * b, 2 * b, cols=cols)  # warm-up, not counted
+    kernels.launches.clear()
+    n_rows, kept, dt, info = run_app("cuda", app_of(b), data, XB_EVENTS, stride, first_n,
+                                     keep_calls=prefix_calls, cols=cols)
+    launches = dict(kernels.launches)
+    print(f"XB external_time_batch launches {json.dumps(launches)}", flush=True)
+    for k in XB_KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} was not launched on path XB")
+    pb_rows, pb_kept, pb_dt, _i = run_app("cuda", app_of(b), data, prefix_events, stride,
+                                          first_n, fused=False, keep_calls=prefix_calls,
+                                          cols=cols)
+    fused_prefix = [row for call in kept for row in call]
+    pb_prefix = [row for call in pb_kept for row in call]
+    if not pb_prefix or fused_prefix != pb_prefix:
+        raise AssertionError("path XB: fused rows differ from the per-batch form")
+    cpu = cpu_check("path XB", app_of(TB_CHECK_BATCH), data, 2 * TB_CHECK_BATCH, cols)
+    wall_ms, busy_ms = fused_busy(torch, app_of(b), data, b, cols)
+    n_batches = -(-XB_EVENTS // b)
+    out = {"events": XB_EVENTS, "rows": n_rows, "seconds": dt,
+           "events_per_s": XB_EVENTS / dt, "chunks": info["chunks"],
+           "batches": info["batches"], "flushes_per_batch": n_rows / n_batches,
+           "launches": launches,
+           "busy": {"wall_ms_8_batches": wall_ms, "device_busy_ms": busy_ms,
+                    "share": busy_ms / wall_ms},
+           "per_batch": {"events": prefix_events, "rows": pb_rows, "seconds": pb_dt,
+                         "events_per_s": prefix_events / pb_dt, "rows_exactly_equal": True},
+           "cpu_check": cpu}
+    print(f"path XB external_time_batch: fused {XB_EVENTS} events, {n_rows} rows delivered "
+          f"({n_rows / n_batches:.1f} flushes per batch), {dt:.3f} s, {XB_EVENTS / dt:.1f} "
+          f"events/s; per-batch form {prefix_events} events, {pb_rows} rows, {pb_dt:.3f} s, "
+          f"{prefix_events / pb_dt:.1f} events/s; first 20 batches exactly equal the per-batch "
+          f"form; device busy {busy_ms:.3f} of {wall_ms:.3f} ms over one fused call of 8 "
+          f"batches ({busy_ms / wall_ms:.4f})", flush=True)
     return out
 
 
@@ -2138,6 +2647,7 @@ def profile_phase(torch, app: str, b: int) -> dict:
     from siddhi_tpu_torch.core.pattern_runtime import PatternQueryRuntime
 
     data = stock_data(16 * b, seed=7)
+    data["ets"] = data["ts"].copy()  # path XB's event-time attribute
     mgr = SiddhiManager()
     rt = mgr.create_siddhi_app_runtime(app)
     for s in SYMBOLS:
@@ -2147,7 +2657,7 @@ def profile_phase(torch, app: str, b: int) -> dict:
     rt.start()
     j, qr = rt.junctions["StockStream"], rt.queries["q"]
     encode, decode = j.schema.packed_codec(b, j.device)
-    cols = ("symbol", "price", "volume")
+    cols = tuple(j.schema.attr_names)
     stages = {"encode": 0.0, "h2d_and_step": 0.0, "d2h_decode_deliver": 0.0}
     # a self-join runs its left then its right step on every batch; a
     # pattern's step is per input stream
@@ -2204,11 +2714,10 @@ def profile_phase(torch, app: str, b: int) -> dict:
     import cProfile
     import pstats
 
-    data = stock_data(16 * b, seed=7)
     prof_host = cProfile.Profile()
     prof_host.enable()
     t0 = time.perf_counter()
-    run_app("cuda", app, data, 16 * b, 8 * b, 8 * b, fused=False)
+    run_app("cuda", app, data, 16 * b, 8 * b, 8 * b, fused=False, cols=cols)
     loop_s = time.perf_counter() - t0
     prof_host.disable()
     stats = pstats.Stats(prof_host)
@@ -2240,7 +2749,7 @@ def profile_fused(torch, app: str, b: int) -> dict:
 
     K = 8
     data = stock_data(12 * K * b, seed=7)
-    cols = ("symbol", "price", "volume")
+    data["ets"] = data["ts"].copy()  # path XB's event-time attribute
     mgr = SiddhiManager()
     rt = mgr.create_siddhi_app_runtime(app)
     for s in SYMBOLS:
@@ -2248,6 +2757,7 @@ def profile_fused(torch, app: str, b: int) -> dict:
     rows = [0]
     rt.add_callback("q", lambda t, ins, rem: rows.__setitem__(0, rows[0] + len(ins or [])))
     rt.start()
+    cols = tuple(rt.junctions["StockStream"].schema.attr_names)
     fi = rt.junctions["StockStream"].fused_ingest
     h = rt.get_input_handler("StockStream")
 
@@ -2405,7 +2915,8 @@ def main() -> int:
                              ("pattern_2state", PATTERN_APP.format(batch=MAIN_BATCH), MAIN_BATCH),
                              ("count_sequence", COUNT_APP.format(batch=MAIN_BATCH), MAIN_BATCH),
                              ("logical_pattern", LOGICAL_APP.format(batch=MAIN_BATCH),
-                              MAIN_BATCH)):
+                              MAIN_BATCH),
+                             ("external_time_batch", XB_APP.format(batch=TB_BATCH), TB_BATCH)):
             print(f"profile: {name}", flush=True)
             out[name] = {"per_batch": profile_phase(torch, app, b),
                          "fused": profile_fused(torch, app, b)}
@@ -2414,6 +2925,9 @@ def main() -> int:
         print("profile: absent pattern", flush=True)
         out["absent_pattern"] = profile_timers(torch, ABSENT_APP.format(batch=MAIN_BATCH),
                                                MAIN_BATCH, "absent pattern")
+        print("profile: time batch", flush=True)
+        out["time_batch"] = profile_timers(torch, TB_APP.format(batch=TB_BATCH), 1000,
+                                           "time batch (one 1,000-event bucket a call)")
         with open(os.path.join(ROOT, "chiprun_out", "profile.json"), "w") as f:
             json.dump(out, f, indent=1)
         return 0
@@ -2424,6 +2938,9 @@ def main() -> int:
     res.update(join_kernel_phase(torch, "cuda"))
     res.update(pattern_kernel_phase(torch, "cuda"))
     res.update(pattern_scan_kernel_phase(torch, "cuda"))
+    res.update(time_batch_kernel_phase(torch, "cuda"))
+    if "--kernels" in sys.argv[1:]:
+        return 0
     verify_phase("cuda")
     main = main_path_phase(torch)
     grouped = grouped_path_phase(torch)
@@ -2438,6 +2955,8 @@ def main() -> int:
         {"pattern_count": MAIN_BATCH // COUNT_C, "pattern_emit": MAIN_BATCH // COUNT_C})
     logical = logical_path_phase(torch)
     absent = absent_path_phase(torch)
+    time_batch = tb_path_phase(torch)
+    external_time_batch = xb_path_phase(torch)
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -2470,17 +2989,32 @@ def main() -> int:
            "pattern_emit": ("siddhi_tpu_torch/csrc/pattern_emit.cu",
                             "siddhi_tpu/core/pattern.py:1864"),
            "pattern_scan": ("siddhi_tpu_torch/csrc/pattern_scan.cu",
-                            "siddhi_tpu/core/pattern.py:566")}
+                            "siddhi_tpu/core/pattern.py:566"),
+           "time_batch_step": ("siddhi_tpu_torch/csrc/batch_window.cu",
+                               "siddhi_tpu/core/windows.py:589"),
+           "running_extreme": ("siddhi_tpu_torch/csrc/running_extreme.cu",
+                               "siddhi_tpu/ops/prefix.py:71"),
+           "keyed_running_extreme": ("siddhi_tpu_torch/csrc/running_extreme.cu",
+                                     "siddhi_tpu/ops/group.py:241"),
+           "window_extreme_keyed": ("siddhi_tpu_torch/csrc/window_extreme.cu",
+                                    "siddhi_tpu/core/aggregators.py:196"),
+           "distinct_count": ("siddhi_tpu_torch/csrc/distinct_count.cu",
+                              "siddhi_tpu/core/aggregators.py:229")}
     # launches: K1-K5 from the quickstart path's run, K6-K9 from the
     # tumbling_groupby path's run, K10 from path T's run, K11 and K12 from
     # path J's, K13 and K15 from path P's, K14 from path C's, K16 from path
-    # L's (each counted from 0 just before its run)
+    # L's, K17, K19, K3's key lane and K20 from path TB's, K18 from path
+    # XB's (each counted from 0 just before its run)
     path_of = dict.fromkeys(GROUP_KERNELS[:4], grouped["launches"])
     path_of["time_window_step"] = time_join["launches"]
     path_of["ring_view"] = path_of["join_assemble"] = joined["launches"]
     path_of["pattern_advance"] = path_of["pattern_emit"] = pattern_p["launches"]
     path_of["pattern_count"] = pattern_c["launches"]
     path_of["pattern_scan"] = logical["launches"]
+    for k in ("time_batch_step", "keyed_running_extreme", "window_extreme_keyed",
+              "distinct_count"):
+        path_of[k] = time_batch["launches"]
+    path_of["running_extreme"] = external_time_batch["launches"]
     path_launches = {k: path_of.get(k, main["launches"]).get(k, 0) for k in res}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
@@ -2507,7 +3041,13 @@ def main() -> int:
                        "pattern_advance": res["pattern_advance"]["other_shapes_ms"],
                        "pattern_emit": res["pattern_emit"]["other_shapes_ms"],
                        "pattern_scan_path_A": res["pattern_scan"]["path_A_shape"]},
-                   "logical_pattern": logical, "absent_pattern": absent},
+                   "logical_pattern": logical, "absent_pattern": absent,
+                   "time_batch": time_batch, "external_time_batch": external_time_batch,
+                   "time_batch_kernel_shapes": {
+                       "time_batch_step_XB_ms": res["time_batch_step"]["XB_ms"],
+                       "distinct_count_XB_ms": res["distinct_count"]["XB_ms"],
+                       "window_extreme_keyed_pairs": res["window_extreme_keyed"]["pairs"],
+                       "running_extreme_library": res["running_extreme"]["library"]}},
                   f, indent=1)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": table}), flush=True)

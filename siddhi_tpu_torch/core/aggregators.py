@@ -1,17 +1,19 @@
-"""Attribute aggregators: streaming sum/count/avg/min/max over batches.
+"""Attribute aggregators: streaming sum/count/avg/stdDev/min/max/
+minForever/maxForever/distinctCount over batches, grouped or not.
 
 Reference: query/selector/attribute/aggregator/*.java — per-event add on CURRENT,
 remove on EXPIRED, zero on RESET, type-specialized inner classes. Batched here:
 per-event running outputs become reset-aware prefix reductions (ops/prefix.py),
 or keyed segment reductions over a `[G]` slot table when a group-by is present
-(ops/group.py); min/max under an upstream window reduce over the window's lazy
-membership (exact expiry accounting) instead of incremental remove. Grouped
-min/max waits for a key lane in the windowed-extreme kernel and raises "not
-ported yet".
+(ops/group.py); min/max and distinctCount under an upstream window reduce over
+the window's lazy membership (exact expiry accounting) instead of incremental
+remove, restricted to the row's group under a group-by. Without a window (or
+for the forever forms) min/max are running extremes.
 
-`window_extreme` is a hand-written CUDA kernel on the card
-(csrc/window_extreme.cu); `window_extreme_ref` is its plain PyTorch version,
-which the wrapper takes only for tensors on the CPU.
+`window_extreme` (csrc/window_extreme.cu, with a key lane when grouped) and
+`distinct_count` (csrc/distinct_count.cu) are hand-written CUDA kernels on
+the card; each `*_ref` is its plain PyTorch version, which the wrapper takes
+only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -23,12 +25,16 @@ import numpy as np
 import torch
 
 from siddhi_tpu_torch import kernels
-from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 from siddhi_tpu_torch.core.executor import CompiledExpr, Env
 from siddhi_tpu_torch.core.groupby import CompiledGroupBy, GroupCtx
 from siddhi_tpu_torch.core.types import NUMPY_DTYPE, PHYSICAL_DTYPE, AttrType, null_value
-from siddhi_tpu_torch.ops.group import keyed_running_sum
-from siddhi_tpu_torch.ops.prefix import extreme_identity, running_sum
+from siddhi_tpu_torch.ops.group import keyed_running_extreme, keyed_running_sum
+from siddhi_tpu_torch.ops.prefix import (
+    extreme_identity,
+    running_extreme,
+    running_sum,
+    segmented_cum_extreme,
+)
 
 
 @dataclasses.dataclass
@@ -36,15 +42,17 @@ class FlowInfo:
     """Per-batch signals handed to aggregators by the selector.
 
     sign:   [B] +1 valid CURRENT, -1 valid EXPIRED, 0 otherwise
+    active: [B] valid CURRENT rows
     reset:  [B] valid RESET rows
     birth_pos / death_pos: optional [K] int32 lazy window membership — row i
         sees element e iff birth_pos[e] <= i < death_pos[e] — and member_env,
         an Env over the K window elements; provided by window stages for
-        exact min/max.
+        exact min/max/distinctCount.
     group:  optional GroupCtx when the selector has a group-by.
     """
 
     sign: torch.Tensor
+    active: torch.Tensor
     reset: torch.Tensor
     birth_pos: Optional[torch.Tensor] = None
     death_pos: Optional[torch.Tensor] = None
@@ -152,17 +160,23 @@ def window_extreme_ref(
     n_rows: int,
     is_min: bool,
     t: AttrType,
+    elem_key: Optional[torch.Tensor] = None,
+    row_key: Optional[torch.Tensor] = None,
     chunk: int = 1024,
 ) -> torch.Tensor:
     """Plain version of `window_extreme`: expand the membership matrix
-    `birth_pos[e] <= p < death_pos[e]`, `chunk` output rows at a time (so
-    memory stays at chunk x K booleans), mask with the identity and reduce."""
+    `birth_pos[e] <= p < death_pos[e]` (and `elem_key[e] == row_key[p]` when
+    keyed), `chunk` output rows at a time (so memory stays at chunk x K
+    booleans), mask with the identity and reduce."""
     ident = extreme_identity(vals.dtype, is_min)
     null = torch.tensor(null_value(t), dtype=vals.dtype)
     out = []
     for lo in range(0, n_rows, chunk):
-        p = torch.arange(lo, min(lo + chunk, n_rows), device=vals.device)[:, None]
+        hi = min(lo + chunk, n_rows)
+        p = torch.arange(lo, hi, device=vals.device)[:, None]
         member = (birth_pos[None, :] <= p) & (p < death_pos[None, :])
+        if elem_key is not None:
+            member = member & (elem_key[None, :] == row_key[lo:hi, None])
         masked = torch.where(member, vals[None, :], ident)
         red = masked.amin(dim=-1) if is_min else masked.amax(dim=-1)
         out.append(torch.where(red == ident, null, red))
@@ -176,16 +190,23 @@ def window_extreme(
     n_rows: int,
     is_min: bool,
     t: AttrType,
+    elem_key: Optional[torch.Tensor] = None,
+    row_key: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per output row p < n_rows, the min/max of vals[e] over the window
-    elements alive at p (birth_pos[e] <= p < death_pos[e]); the null sentinel
-    of logical type `t` where the window is empty.
+    elements alive at p (birth_pos[e] <= p < death_pos[e]) and, when keyed,
+    in the row's group (elem_key[e] == row_key[p]); the null sentinel of
+    logical type `t` where none is.
 
-    vals: [K] float32/int32/int64; birth_pos, death_pos: [K] int32.
+    vals: [K] float32/int32/int64; birth_pos, death_pos: [K] int32;
+    elem_key: [K] int64 and row_key: [n_rows] int64, or both None.
     """
     if vals.device.type == "cpu":
-        return window_extreme_ref(vals, birth_pos, death_pos, n_rows, is_min, t)
-    kernels.require_cuda("window_extreme", vals, birth_pos, death_pos)
+        return window_extreme_ref(vals, birth_pos, death_pos, n_rows, is_min, t,
+                                  elem_key, row_key)
+    keyed = elem_key is not None
+    kernels.require_cuda("window_extreme", vals, birth_pos, death_pos,
+                         *((elem_key, row_key) if keyed else ()))
     suffix = {torch.float32: "f32", torch.int32: "i32", torch.int64: "i64"}.get(vals.dtype)
     k = vals.shape[0]
     if (
@@ -196,57 +217,259 @@ def window_extreme(
         or death_pos.shape != (k,)
         or birth_pos.dtype != torch.int32
         or death_pos.dtype != torch.int32
+        or keyed and (elem_key.shape != (k,) or elem_key.dtype != torch.int64
+                      or row_key.shape != (n_rows,) or row_key.dtype != torch.int64)
     ):
         raise ValueError(
             "window_extreme takes [K] float32/int32/int64 vals of type "
-            f"{t!r} and [K] int32 birth/death; got {vals.dtype}{list(vals.shape)}, "
-            f"{birth_pos.dtype}{list(birth_pos.shape)}, {death_pos.dtype}"
-            f"{list(death_pos.shape)}"
+            f"{t!r}, [K] int32 birth/death and optional [K] / [n_rows] int64 keys; got "
+            f"{vals.dtype}{list(vals.shape)}, {birth_pos.dtype}{list(birth_pos.shape)}, "
+            f"{death_pos.dtype}{list(death_pos.shape)}"
         )
     out = torch.empty(n_rows, dtype=vals.dtype, device=vals.device)
-    err = kernels.function(f"window_extreme_{suffix}")(
-        vals.data_ptr(), birth_pos.data_ptr(), death_pos.data_ptr(), out.data_ptr(),
-        n_rows, k, int(is_min), _null_bits(t), kernels.stream(),
-    )
+    if keyed:
+        err = kernels.function(f"window_extreme_keyed_{suffix}")(
+            vals.data_ptr(), birth_pos.data_ptr(), death_pos.data_ptr(), elem_key.data_ptr(),
+            row_key.data_ptr(), out.data_ptr(), n_rows, k, int(is_min), _null_bits(t),
+            kernels.stream(),
+        )
+    else:
+        err = kernels.function(f"window_extreme_{suffix}")(
+            vals.data_ptr(), birth_pos.data_ptr(), death_pos.data_ptr(), out.data_ptr(),
+            n_rows, k, int(is_min), _null_bits(t), kernels.stream(),
+        )
     kernels.check(err, "window_extreme")
-    kernels.launches["window_extreme"] += 1
+    kernels.launches["window_extreme_keyed" if keyed else "window_extreme"] += 1
     return out
 
 
-class ExtremeAggregator(CompiledAggregator):
-    """min/max under a window, exact via its membership lanes (the state is
-    the unused identity, kept so the state layout matches the JAX package)."""
+class StdDevAggregator(CompiledAggregator):
+    """Population standard deviation from running sum, sum of squares and
+    count, in float32 with the JAX package's formula: var = max(q/n - mean²,
+    0), rounded once as XLA's fused multiply-add rounds it, null (NaN) at
+    count 0 (reference: StdDevAttributeAggregator.java)."""
 
-    def __init__(self, arg: CompiledExpr, is_min: bool, device):
-        super().__init__(device)
+    type = AttrType.DOUBLE
+
+    def __init__(self, arg: CompiledExpr, device, group=None):
+        super().__init__(device, group)
+        self.arg = arg
+
+    def init(self):
+        return {"sum": self._zeros(torch.float32), "sumsq": self._zeros(torch.float32),
+                "count": self._zeros(torch.float32)}
+
+    def apply(self, state, flow: FlowInfo, env: Env):
+        x = self.arg(env).to(torch.float32)
+        sgn = flow.sign.to(torch.float32)
+        live = flow.sign != 0
+        s_run, s_c = self._run_sum(state["sum"], torch.where(live, x * sgn, 0.0), flow)
+        q_run, q_c = self._run_sum(state["sumsq"], torch.where(live, x * x * sgn, 0.0), flow)
+        c_run, c_c = self._run_sum(state["count"], sgn, flow)
+        nonzero = c_run != 0
+        safe_n = torch.where(nonzero, c_run, 1.0)
+        mean = s_run / safe_n
+        # XLA contracts q/n - mean*mean into one fused multiply-add (one
+        # rounding); the float32 product is exact in float64, so this rounds
+        # as that FMA does (and a one-element bucket keeps JAX's residue)
+        # except when q/n and mean^2 lie so far apart in exponent that the
+        # float64 difference itself rounds: a double rounding the FMA lacks
+        var = ((q_run / safe_n).double() - mean.double() * mean.double()).float()
+        var = torch.clamp(var, min=0.0)
+        out = torch.where(nonzero, torch.sqrt(var), torch.nan)
+        return {"sum": s_c, "sumsq": q_c, "count": c_c}, out
+
+
+class ExtremeAggregator(CompiledAggregator):
+    """min/max. Exact under a window via its membership lanes (restricted to
+    the row's group under a group-by); running (no removal) otherwise.
+    minForever/maxForever always run, and ignore resets (reference:
+    MinForeverAttributeAggregator.java ignores expiry)."""
+
+    def __init__(self, arg: CompiledExpr, is_min: bool, forever: bool, device, group=None):
+        super().__init__(device, group)
         self.arg = arg
         self.type = arg.type
         self.dtype = PHYSICAL_DTYPE[arg.type]
         self.is_min = is_min
+        self.forever = forever
 
     def init(self):
-        return extreme_identity(self.dtype, self.is_min).to(self.device)
+        ident = extreme_identity(self.dtype, self.is_min).to(self.device)
+        return ident.expand(self.group.capacity).clone() if self.group is not None else ident
 
     def apply(self, state, flow: FlowInfo, env: Env):
-        vals = self.arg(flow.member_env).to(self.dtype).contiguous()
-        n_rows = flow.sign.shape[0]
-        return state, window_extreme(
-            vals, flow.birth_pos, flow.death_pos, n_rows, self.is_min, self.type
+        if not self.forever and flow.birth_pos is not None:
+            vals = self.arg(flow.member_env).to(self.dtype).contiguous()
+            n_rows = flow.sign.shape[0]
+            keys = (None, None)
+            if flow.group is not None:
+                keys = (flow.group.key_of(flow.member_env).contiguous(), flow.group.key)
+            return state, window_extreme(vals, flow.birth_pos, flow.death_pos, n_rows,
+                                         self.is_min, self.type, *keys)
+        reset = torch.zeros_like(flow.reset) if self.forever else flow.reset
+        x = self.arg(env).to(self.dtype).expand(flow.active.shape).contiguous()
+        if flow.group is not None:
+            g = flow.group
+            run, carry = keyed_running_extreme(x, flow.active, g.groups, reset, state, g.slot,
+                                               self.is_min)
+        else:
+            run, carry = running_extreme(x, flow.active, reset, state, self.is_min)
+        ident = extreme_identity(self.dtype, self.is_min).to(run.device)
+        null = torch.tensor(null_value(self.type), dtype=self.dtype, device=run.device)
+        return carry, torch.where(run == ident, null, run)
+
+
+def distinct_count_ref(vals, birth_pos, death_pos, n_rows: int,
+                       elem_key: Optional[torch.Tensor] = None,
+                       row_key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of `distinct_count`, without the JAX package's
+    [rows, K, K] mask: the present elements sorted by (key, value, birth);
+    each run of equal (key, value) merges its alive intervals into disjoint
+    blocks; each block is +1 at its start and -1 at its end; a row's count
+    is the prefix of its key's events up to its position. Equality is `==`:
+    a NaN equals nothing, -0.0 equals 0.0. [n_rows] int64."""
+    dev = vals.device
+    k = vals.shape[0]
+    idx = torch.arange(k, device=dev)
+    present = birth_pos < death_pos
+    if vals.dtype.is_floating_point:
+        nan = torch.isnan(vals)
+        bits = torch.where(vals == 0, torch.zeros_like(vals), vals).view(torch.int32)
+        vb = torch.where(nan, idx, bits.to(torch.int64))
+    else:
+        nan = torch.zeros(k, dtype=torch.bool, device=dev)
+        vb = vals.to(torch.int64)
+    key = elem_key if elem_key is not None else torch.zeros(k, dtype=torch.int64, device=dev)
+    sel = torch.nonzero(present).flatten()
+    perm = sel
+    for lane in (birth_pos, vb, nan.to(torch.int8), key):  # least significant first
+        perm = perm[torch.sort(lane[perm], stable=True).indices]
+    sk, sn, sv = key[perm], nan[perm], vb[perm]
+    sb, sd = birth_pos[perm].to(torch.int64), death_pos[perm].to(torch.int64)
+    m = perm.shape[0]
+    run_start = torch.ones(m, dtype=torch.bool, device=dev)
+    run_start[1:] = (sk[1:] != sk[:-1]) | (sv[1:] != sv[:-1]) | sn[1:] | sn[:-1]
+    # a member opens a new block when it is born after every earlier member
+    # of its run has died
+    reach = segmented_cum_extreme(sd, run_start, is_min=False)
+    opens = run_start.clone()
+    opens[1:] |= sb[1:] > reach[:-1]
+    block = torch.cumsum(opens.to(torch.int64), 0) - 1
+    n_blocks = int(opens.sum())
+    if n_blocks == 0:
+        return torch.zeros(n_rows, dtype=torch.int64, device=dev)
+    start = sb[opens]
+    end = torch.full((n_blocks,), -1, dtype=torch.int64, device=dev).scatter_reduce(
+        0, block, sd, reduce="amax")
+    bkey = sk[opens]
+    rkey = row_key if row_key is not None else torch.zeros(n_rows, dtype=torch.int64, device=dev)
+    uniq, dense = torch.unique(torch.cat([bkey, rkey]), return_inverse=True)
+    dk, dr = dense[:n_blocks], dense[n_blocks:]
+    ev = torch.cat([dk * 2**32 + start, dk * 2**32 + end])
+    delta = torch.cat([torch.ones(n_blocks, dtype=torch.int64, device=dev),
+                       -torch.ones(n_blocks, dtype=torch.int64, device=dev)])
+    ev, order = torch.sort(ev, stable=True)
+    pref = torch.cumsum(delta[order], 0)
+    q = dr * 2**32 + torch.arange(n_rows, device=dev)
+    at = torch.searchsorted(ev, q, right=True) - 1
+    return torch.where(at >= 0, pref[at.clamp(min=0)], 0)
+
+
+def distinct_count(vals, birth_pos, death_pos, n_rows: int,
+                   elem_key: Optional[torch.Tensor] = None,
+                   row_key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per output row p < n_rows, the number of distinct vals[e] among the
+    window elements alive at p (birth_pos[e] <= p < death_pos[e]) and, when
+    keyed, in the row's group (elem_key[e] == row_key[p]). [n_rows] int64.
+
+    vals: [K] float32/int32/int64/bool; birth_pos, death_pos: [K] int32;
+    elem_key: [K] int64 and row_key: [n_rows] int64, or both None.
+    """
+    if vals.device.type == "cpu":
+        return distinct_count_ref(vals, birth_pos, death_pos, n_rows, elem_key, row_key)
+    keyed = elem_key is not None
+    kernels.require_cuda("distinct_count", vals, birth_pos, death_pos,
+                         *((elem_key, row_key) if keyed else ()))
+    k = vals.shape[0]
+    suffix = {torch.float32: "f32", torch.int32: "i32", torch.int64: "i64",
+              torch.bool: "b8"}.get(vals.dtype)
+    if (
+        suffix is None or vals.dim() != 1 or k == 0 or k >= 2**29
+        or birth_pos.shape != (k,) or death_pos.shape != (k,)
+        or birth_pos.dtype != torch.int32 or death_pos.dtype != torch.int32
+        or keyed and (elem_key.shape != (k,) or elem_key.dtype != torch.int64
+                      or row_key.shape != (n_rows,) or row_key.dtype != torch.int64)
+    ):
+        raise ValueError(
+            "distinct_count takes [K] float32/int32/int64/bool vals, [K] int32 birth/death "
+            f"and optional [K] / [n_rows] int64 keys; got {vals.dtype}{list(vals.shape)}, "
+            f"{birth_pos.dtype}{list(birth_pos.shape)}, {death_pos.dtype}"
+            f"{list(death_pos.shape)}"
         )
+    dev = vals.device
+    n = 1
+    while n < k:
+        n *= 2
+
+    def lane(size, dtype):
+        return torch.empty(size, dtype=dtype, device=dev)
+
+    out = lane(n_rows, torch.int64)
+    scratch = (lane(n, torch.int64), lane(n, torch.int64), lane(n, torch.int32),
+               lane(n, torch.int32), lane(n, torch.int32), lane(2 * n, torch.int8),
+               lane(2 * n, torch.int64), lane(2 * n, torch.int32), lane(2 * n, torch.int32),
+               lane(2 * n, torch.int32), lane(2 * n, torch.int32))
+    err = kernels.function(f"distinct_count_{suffix}")(
+        vals.data_ptr(), birth_pos.data_ptr(), death_pos.data_ptr(),
+        elem_key.data_ptr() if keyed else None, row_key.data_ptr() if keyed else None,
+        out.data_ptr(), n_rows, k, n, *(x.data_ptr() for x in scratch), kernels.stream(),
+    )
+    kernels.check(err, "distinct_count")
+    kernels.launches["distinct_count"] += 1
+    return out
+
+
+class DistinctCountAggregator(CompiledAggregator):
+    """distinctCount under a window: per row, the distinct member values
+    (in the row's group under a group-by) from the window's membership lanes
+    (reference: DistinctCountAttributeAggregator.java keeps a value->count
+    map; the window's lanes make this a reduction here). The state is an
+    unused scalar, kept so the layout matches the JAX package."""
+
+    type = AttrType.LONG
+
+    def __init__(self, arg: CompiledExpr, device, group=None):
+        super().__init__(device, group)
+        self.arg = arg
+
+    def init(self):
+        return torch.zeros((), dtype=torch.int64, device=self.device)
+
+    def apply(self, state, flow: FlowInfo, env: Env):
+        if flow.birth_pos is None:
+            raise NotImplementedError(
+                "distinctCount requires an upstream window (unbounded distinct "
+                "state is capacity-unbounded; the reference grows a map forever)"
+            )
+        vals = self.arg(flow.member_env).contiguous()
+        keys = (None, None)
+        if flow.group is not None:
+            keys = (flow.group.key_of(flow.member_env).contiguous(), flow.group.key)
+        return state, distinct_count(vals, flow.birth_pos, flow.death_pos, flow.sign.shape[0],
+                                     *keys)
 
 
 def build_aggregator(
     name: str,
     args: list[CompiledExpr],
     device,
-    windowed: bool,
     group: Optional[CompiledGroupBy] = None,
 ):
+    """Reference: AttributeAggregatorExecutor extensions by name."""
     low = name.lower()
     if low == "count":
         return CountAggregator(device, group)
-    if low not in ("sum", "avg", "min", "max"):
-        raise SiddhiAppCreationError(f"aggregator '{name}' is not ported yet")
     if not args:
         raise TypeError(f"aggregator '{name}' needs an argument")
     arg = args[0]
@@ -254,10 +477,11 @@ def build_aggregator(
         return SumAggregator(arg, device, group)
     if low == "avg":
         return AvgAggregator(arg, device, group)
-    if group is not None:
-        raise SiddhiAppCreationError(f"{name}() with a group by is not ported yet")
-    if not windowed:
-        raise SiddhiAppCreationError(
-            f"{name}() without an upstream window is not ported yet"
-        )
-    return ExtremeAggregator(arg, is_min=low == "min", device=device)
+    if low == "stddev":
+        return StdDevAggregator(arg, device, group)
+    if low in ("min", "max", "minforever", "maxforever"):
+        return ExtremeAggregator(arg, is_min=low.startswith("min"),
+                                 forever=low.endswith("forever"), device=device, group=group)
+    if low == "distinctcount":
+        return DistinctCountAggregator(arg, device, group)
+    raise TypeError(f"unknown aggregator '{name}'")

@@ -8,15 +8,18 @@ points between steps.
 
 Ported so far: stream definitions, `@app:name`, `@app:batch`, `@app:playback`,
 `@app:groupCapacity`, `@app:joinCapacity`, single-stream queries (filter;
-length, time, timeLength, externalTime and lengthBatch windows; projection
-with sum/count/avg/min/max, group-by, having, order-by, limit/offset) and
+length, time, timeLength, externalTime, lengthBatch, timeBatch and
+externalTimeBatch windows; projection with sum/count/avg/stdDev/min/max/
+minForever/maxForever/distinctCount, group-by, having, order-by,
+limit/offset) and
 join queries (inner, left/right/full outer, unidirectional, self-joins,
 windowless sides), pattern and sequence queries (core/pattern.py; the two
 batch routes and the per-event scan; `@app:patternCapacity`,
 `@app:countCapacity`, `@app:patternChunk`), inserting into streams or
 delivering to callbacks; the timers of time windows and of absent pattern
-states, fired by the event-time clock under @app:playback and by the wall
-clock otherwise; fused columnar ingest (core/ingest.py)
+states and of timeBatch buckets and the externalTimeBatch idle timeout,
+fired by the event-time clock under @app:playback and by the wall clock
+otherwise; fused columnar ingest (core/ingest.py)
 with `@app:ingestChunk`, `@app:wire` and the per-stream `@pipeline`, which
 queries that need the scheduler stay off. Everything else raises
 `SiddhiAppCreationError("... not ported yet")`.

@@ -397,7 +397,7 @@ class JoinQueryRuntime(BaseQueryRuntime):
         self.join = CompiledJoin(join, left_schema, right_schema, scope,
                                  out_capacity=join_capacity, output_expired=output_expired)
         combined_attrs = list(left_schema.attrs) + list(right_schema.attrs)
-        self.selector = CompiledSelector(query.selector, scope, combined_attrs, windowed=False,
+        self.selector = CompiledSelector(query.selector, scope, combined_attrs,
                                          group_capacity=group_capacity)
         self._setup_output(query, query_id)
         self._join_overflow = _FlagWatch(self.device, self._log_join_overflow)

@@ -84,7 +84,7 @@ class PatternQueryRuntime(BaseQueryRuntime):
         # the selector resolves against a CHILD scope, so its keys (with the
         # cross-ref condition reads) decide which capture lanes exist
         sel_scope = prog.scope.child()
-        self.selector = CompiledSelector(query.selector, sel_scope, flat_attrs, windowed=False,
+        self.selector = CompiledSelector(query.selector, sel_scope, flat_attrs,
                                          group_capacity=group_capacity)
         prog.set_capture_readers(frozenset(sel_scope.used_keys))
         if self._scan:

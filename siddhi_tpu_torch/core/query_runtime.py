@@ -17,7 +17,7 @@ from typing import Callable, Optional
 import torch
 
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
-from siddhi_tpu_torch.core.aggregators import ExtremeAggregator
+from siddhi_tpu_torch.core.aggregators import DistinctCountAggregator, ExtremeAggregator
 from siddhi_tpu_torch.core.event import (
     EventBatch,
     KIND_CURRENT,
@@ -249,7 +249,6 @@ class QueryRuntime(BaseQueryRuntime):
             query.selector,
             scope,
             self.chain.out_attrs,
-            windowed=win is not None,
             batch_mode=is_batch,
             group_capacity=group_capacity,
         )
@@ -259,12 +258,14 @@ class QueryRuntime(BaseQueryRuntime):
         self.selector.output_events_for_batch = self.output_events
         # a batch window skips its EXPIRED lanes when nothing can observe
         # them: `insert [current] into` output and no membership-reading
-        # aggregator (windowed min/max); the flow is then w + B + F rows,
-        # not 3w + 2B + F
-        if is_batch and (
-            self.output_events is OutputEventsFor.CURRENT
-            and not any(isinstance(a, ExtremeAggregator) for a in self.selector.aggregators)
-        ):
+        # aggregator (windowed min/max, distinctCount); the flow is then
+        # w + B + F rows, not 3w + 2B + F
+        needs_member = any(
+            isinstance(a, DistinctCountAggregator)
+            or (isinstance(a, ExtremeAggregator) and not a.forever)
+            for a in self.selector.aggregators
+        )
+        if is_batch and self.output_events is OutputEventsFor.CURRENT and not needs_member:
             win.emit_expired = False
 
     def init_state(self):

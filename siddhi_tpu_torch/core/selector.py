@@ -76,7 +76,6 @@ class CompiledSelector:
         selector: Selector,
         scope: Scope,
         input_attrs: list[tuple[str, AttrType]],
-        windowed: bool,
         batch_mode: bool = False,
         group_capacity: Optional[int] = None,
     ):
@@ -104,7 +103,7 @@ class CompiledSelector:
             for i in range(len(self.aggregators), len(agg_calls)):
                 call = agg_calls[i]
                 args = [compile_expression(p, scope) for p in call.parameters]
-                agg = build_aggregator(call.name, args, scope.device, windowed, self.group)
+                agg = build_aggregator(call.name, args, scope.device, self.group)
                 self.aggregators.append(agg)
                 agg_types[f"a{i}"] = agg.type
 
@@ -180,6 +179,7 @@ class CompiledSelector:
             flow.aux["groupby_overflow"] = ctx.overflow
         info = FlowInfo(
             sign=flow.sign,
+            active=flow.current,
             reset=reset,
             birth_pos=flow.birth_pos,
             death_pos=flow.death_pos,

@@ -4,18 +4,21 @@ Reference: query/processor/stream/window/*.java. The reference mutates per-event
 queues inside synchronized blocks; here each window is a stage over the Flow
 with a fixed-capacity slot-indexed ring as carried state.
 
-Ported so far: length, time, timeLength, externalTime and lengthBatch, and
-the findable views a join probes. The length window's emission order follows
-the reference: per arrival when full, the evictee's EXPIRED is emitted before
-the arrival's CURRENT (LengthWindowProcessor.java:102-138
-insertBeforeCurrent); in the time windows every due EXPIRED flushes before
-its triggering CURRENT or TIMER row (TimeWindowProcessor.java:79+).
-lengthBatch flushes tumbling buckets (LengthBatchWindowProcessor.java:
-108-160). Each step, and the ring view, is a hand-written CUDA kernel on the
+Ported so far: length, time, timeLength, externalTime, lengthBatch, timeBatch
+and externalTimeBatch, and the findable views a join probes. The length
+window's emission order follows the reference: per arrival when full, the
+evictee's EXPIRED is emitted before the arrival's CURRENT
+(LengthWindowProcessor.java:102-138 insertBeforeCurrent); in the time
+windows every due EXPIRED flushes before its triggering CURRENT or TIMER row
+(TimeWindowProcessor.java:79+).
+lengthBatch, timeBatch and externalTimeBatch flush tumbling buckets
+(LengthBatchWindowProcessor.java:108-160), the time-driven two at each
+duration boundary of the window time and on an externalTimeBatch idle
+timeout. Each step, and the ring view, is a hand-written CUDA kernel on the
 card (csrc/length_window.cu, csrc/time_window.cu, csrc/batch_window.cu,
 csrc/ring_view.cu); the `*_ref` functions are their plain PyTorch versions,
-which the wrappers take only for tensors on the CPU. timeBatch,
-externalTimeBatch and the other windows raise "not ported yet".
+which the wrappers take only for tensors on the CPU. The sort, frequent,
+lossyFrequent, cron and the other windows raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -573,7 +576,7 @@ class SlidingWindow(WindowStage):
 
 
 # ---------------------------------------------------------------------------
-# batch (tumbling) family: lengthBatch
+# batch (tumbling) family: lengthBatch, timeBatch, externalTimeBatch
 # ---------------------------------------------------------------------------
 
 def _flush_count(bsz: int, n: int) -> int:
@@ -589,34 +592,28 @@ def batch_window_rows(bsz: int, n: int, emit_expired: bool) -> int:
     return 3 * n + 2 * bsz + f if emit_expired else n + bsz + f
 
 
-def batch_window_step_ref(state: dict, batch: EventBatch, n: int, emit_expired: bool):
-    """Plain version of `batch_window_step`, in the JAX package's
+def time_batch_rows(bsz: int, w: int, emit_expired: bool) -> int:
+    """Rows of the flow a time-batch step hands on (F = B flush lanes):
+    3w + 3B with the EXPIRED lanes, w + 2B without."""
+    return 3 * w + 3 * bsz if emit_expired else w + 2 * bsz
+
+
+def _batch_flush_ref(state: dict, batch: EventBatch, w: int, F: int, valid_cur, e_row,
+                     n_flush, row_of_flush, emit_expired: bool):
+    """The emission both batch branches share, in the JAX package's
     formulation: candidate keys trigger_row*4 + {0 expired, 1 reset,
-    2 current} for every carried, previous-bucket, batch and reset
-    candidate, one stable sort by (key, tie), the lanes gathered in that
-    order, and the new buffers scattered from flush arithmetic. Padding rows
-    are zeroed."""
+    2 current} for every carried, previous-bucket, batch and reset candidate,
+    one stable sort by (key, tie), the lanes gathered in that order, and the
+    new buffers scattered from the flush arithmetic. Padding rows are zeroed.
+    `e_row` is each CURRENT row's bucket (flushes at or before it),
+    `row_of_flush` [F] the row of each flush."""
     dev = batch.ts.device
     bsz = batch.capacity
-    w = n
     big = BIG
-    valid_cur = batch.valid & (batch.kind == KIND_CURRENT)
-    vc = valid_cur.to(torch.int32)
-    rank = torch.cumsum(vc, 0, dtype=torch.int32) - vc
-    c = vc.sum(dtype=torch.int32)
-    perm = torch.argsort((~valid_cur).to(torch.uint8), stable=True).to(torch.int32)
     cur_n0 = state["cur_n"]
-    F = _flush_count(bsz, n)
-    pos = cur_n0 + rank
-    e_row = torch.div(pos, n, rounding_mode="floor")
-    n_flush = torch.div(cur_n0 + c, n, rounding_mode="floor")
-    f_arr = torch.arange(F, dtype=torch.int32, device=dev)
-    trig_rank_f = (f_arr + 1) * n - 1 - cur_n0
-    flush_exists = (trig_rank_f >= 0) & (trig_rank_f < c)
-    row_of_flush = torch.where(
-        flush_exists, perm[trig_rank_f.clamp(0, bsz - 1).long()], bsz - 1
-    ).to(torch.int64)
     any_flush = n_flush > 0
+    f_arr = torch.arange(F, dtype=torch.int32, device=dev)
+    flush_exists = f_arr < n_flush
 
     def flush_key(f, kindbit):
         return row_of_flush[f.clamp(0, F - 1).long()] * 4 + kindbit
@@ -685,23 +682,26 @@ def batch_window_step_ref(state: dict, batch: EventBatch, n: int, emit_expired: 
         death_cc = torch.where(carried_valid & (n_flush > 1), inv[w: 2 * w], big)
         death_bt = torch.where(row_emit & (e_row + 1 < n_flush),
                                inv[3 * w + bsz: 3 * w + 2 * bsz], big)
+
         def prev_lane(v):
             return torch.full((w,), v, dtype=torch.int32, device=dev)
 
         birth = torch.cat([birth_cc, prev_lane(big), birth_bt])
         death = torch.cat([death_cc, prev_lane(-1), death_bt])
 
-    # new buffers: the open bucket and the last flushed one
+    # new buffers: the open bucket (filled by rank after the carried rows
+    # when nothing flushed) and the last flushed one
     remaining = valid_cur & (e_row == n_flush)
     keep_carried = ~any_flush
-    rem_slot = torch.where(remaining, pos - n_flush * n, w)
+    rm = remaining.to(torch.int32)
+    rem_rank = torch.cumsum(rm, 0, dtype=torch.int32) - rm
+    rem_slot = torch.where(remaining, rem_rank + torch.where(keep_carried, cur_n0, 0), w)
 
     def place_cur(old, vals):
         kept = torch.where(keep_carried, old, torch.zeros_like(old))
         return set_at(kept, rem_slot, vals)
 
-    new_cur_n = torch.where(keep_carried, cur_n0, 0) + remaining.sum(dtype=torch.int32)
-    new_cur_n = new_cur_n.to(torch.int32)
+    new_cur_n = (torch.where(keep_carried, cur_n0, 0) + rm.sum(dtype=torch.int32)).to(torch.int32)
     in_last = row_emit & (e_row == n_flush - 1)
     carried_in_last = carried_valid & (n_flush == 1)
     n_carried_last = torch.where(n_flush == 1, cur_n0, 0)
@@ -731,6 +731,32 @@ def batch_window_step_ref(state: dict, batch: EventBatch, n: int, emit_expired: 
     return out, birth, death, new_state
 
 
+def batch_window_step_ref(state: dict, batch: EventBatch, n: int, emit_expired: bool):
+    """Plain version of `batch_window_step`: the lengthBatch flush lanes in
+    the JAX package's formulation (flush f at the row completing bucket
+    f + 1: rank and perm by cumsum and a stable argsort), then the shared
+    emission `_batch_flush_ref`."""
+    dev = batch.ts.device
+    bsz = batch.capacity
+    valid_cur = batch.valid & (batch.kind == KIND_CURRENT)
+    vc = valid_cur.to(torch.int32)
+    rank = torch.cumsum(vc, 0, dtype=torch.int32) - vc
+    c = vc.sum(dtype=torch.int32)
+    perm = torch.argsort((~valid_cur).to(torch.uint8), stable=True).to(torch.int32)
+    cur_n0 = state["cur_n"]
+    F = _flush_count(bsz, n)
+    e_row = torch.div(cur_n0 + rank, n, rounding_mode="floor")
+    n_flush = torch.div(cur_n0 + c, n, rounding_mode="floor")
+    f_arr = torch.arange(F, dtype=torch.int32, device=dev)
+    trig_rank_f = (f_arr + 1) * n - 1 - cur_n0
+    flush_exists = (trig_rank_f >= 0) & (trig_rank_f < c)
+    row_of_flush = torch.where(
+        flush_exists, perm[trig_rank_f.clamp(0, bsz - 1).long()], bsz - 1
+    ).to(torch.int64)
+    return _batch_flush_ref(state, batch, n, F, valid_cur, e_row, n_flush, row_of_flush,
+                            emit_expired)
+
+
 def batch_window_step(state: dict, batch: EventBatch, n: int, emit_expired: bool):
     """One lengthBatch(n) step over a batch of B arrivals.
 
@@ -753,52 +779,84 @@ def batch_window_step(state: dict, batch: EventBatch, n: int, emit_expired: bool
     """
     if batch.ts.device.type == "cpu":
         return batch_window_step_ref(state, batch, n, emit_expired)
-    cols = list(batch.cols)
-    lanes = [batch.ts, batch.kind, batch.valid, *batch.cols.values(), state["cur_ts"],
-             state["prev_ts"], state["cur_n"], state["prev_n"],
-             *state["cur_cols"].values(), *state["prev_cols"].values()]
-    kernels.require_cuda("batch_window_step", *lanes)
+    _check_batch_lanes("batch_window_step", state, batch, n)
     bsz, w = batch.capacity, n
-    if any(x.shape != (bsz,) for x in (batch.kind, batch.valid, *batch.cols.values())) or any(
-        x.shape != (w,) for x in (state["cur_ts"], state["prev_ts"],
-                                  *state["cur_cols"].values(), *state["prev_cols"].values())
-    ):
-        raise ValueError(f"batch_window_step: lanes must be [{bsz}] and buffers [{w}]")
-    if (batch.ts.dtype, batch.kind.dtype, batch.valid.dtype, state["cur_ts"].dtype,
-            state["prev_ts"].dtype, state["cur_n"].dtype, state["prev_n"].dtype) != (
-            torch.int64, torch.int8, torch.bool, torch.int64, torch.int64, torch.int32,
-            torch.int32) or any(state["cur_cols"][c].dtype != batch.cols[c].dtype
-                                or state["prev_cols"][c].dtype != batch.cols[c].dtype
-                                for c in cols):
-        raise ValueError("batch_window_step: lane dtypes must be int64 ts, int8 kind, bool "
-                         "valid, int32 counts, and each buffer column the batch's dtype")
     n_rows = batch_window_rows(bsz, n, emit_expired)
     if n < 1 or n_rows + 2 * w + bsz >= 2**31:
         raise ValueError(f"batch_window_step: batch {bsz} / length {n} out of range")
     dev = batch.ts.device
-
-    def i32(k):
-        return torch.empty(k, dtype=torch.int32, device=dev)
-
-    rank, perm, count = i32(bsz), i32(bsz), i32(())
-    out_src = i32(n_rows)
+    scan, (rank, perm, e_row, flush_row, flush_q, flush_start, out_src, cur_src,
+           prev_src) = _batch_scratch(dev, bsz, w, n_rows)
     out_ts = torch.empty(n_rows, dtype=torch.int64, device=dev)
     out_kind = torch.empty(n_rows, dtype=torch.int8, device=dev)
     out_valid = torch.empty(n_rows, dtype=torch.bool, device=dev)
-    birth, death = (i32(2 * w + bsz), i32(2 * w + bsz)) if emit_expired else (None, None)
-    cur_src, prev_src = i32(w), i32(w)
-    new_cur_n, new_prev_n = i32(()), i32(())
-    stream = kernels.stream()
+    birth, death = _membership_lanes(dev, 2 * w + bsz, emit_expired)
+    new_cur_n, new_prev_n = torch.empty(2, dtype=torch.int32, device=dev).unbind()
     err = kernels.function("bw_prepare")(
         batch.kind.data_ptr(), batch.valid.data_ptr(), batch.ts.data_ptr(),
         state["cur_ts"].data_ptr(), state["cur_n"].data_ptr(), state["prev_n"].data_ptr(),
-        bsz, w, n_rows, int(emit_expired), rank.data_ptr(), perm.data_ptr(), count.data_ptr(),
+        bsz, w, n_rows, int(emit_expired), rank.data_ptr(), perm.data_ptr(), e_row.data_ptr(),
+        flush_row.data_ptr(), flush_q.data_ptr(), flush_start.data_ptr(), scan.data_ptr(),
         out_src.data_ptr(), out_ts.data_ptr(), out_kind.data_ptr(), out_valid.data_ptr(),
         birth.data_ptr() if emit_expired else None, death.data_ptr() if emit_expired else None,
         cur_src.data_ptr(), prev_src.data_ptr(), new_cur_n.data_ptr(), new_prev_n.data_ptr(),
-        stream,
+        kernels.stream(),
     )
     kernels.check(err, "batch_window_step")
+    out, new_state = _gather_batch_lanes("batch_window_step", state, batch, w, out_src,
+                                         out_ts, out_kind, out_valid, cur_src, prev_src,
+                                         new_cur_n, new_prev_n, state["bucket_start"],
+                                         state["timeout_deadline"])
+    kernels.launches["batch_window_step"] += 1
+    return out, birth, death, new_state
+
+
+def _batch_scratch(dev, bsz: int, w: int, n_rows: int):
+    """One int32 allocation for a batch step's scratch: the flush pass's
+    32-byte scalars (first, for their int64 alignment), then rank, perm,
+    e_row, flush_row, flush_q [B], flush_start [B + 1], the output rows'
+    sources and the two buffers' sources."""
+    sizes = (bsz,) * 5 + (bsz + 1, n_rows, w, w)
+    buf = torch.empty(8 + sum(sizes), dtype=torch.int32, device=dev)
+    return buf[:8], buf[8:].split(sizes)
+
+
+def _membership_lanes(dev, k: int, emit_expired: bool):
+    if not emit_expired:
+        return None, None
+    return torch.empty((2, k), dtype=torch.int32, device=dev).unbind()
+
+
+def _check_batch_lanes(what: str, state: dict, batch: EventBatch, w: int) -> None:
+    lanes = [batch.ts, batch.kind, batch.valid, *batch.cols.values(), state["cur_ts"],
+             state["prev_ts"], state["cur_n"], state["prev_n"], state["bucket_start"],
+             state["timeout_deadline"], *state["cur_cols"].values(),
+             *state["prev_cols"].values()]
+    kernels.require_cuda(what, *lanes)
+    bsz = batch.capacity
+    if any(x.shape != (bsz,) for x in (batch.kind, batch.valid, *batch.cols.values())) or any(
+        x.shape != (w,) for x in (state["cur_ts"], state["prev_ts"],
+                                  *state["cur_cols"].values(), *state["prev_cols"].values())
+    ):
+        raise ValueError(f"{what}: lanes must be [{bsz}] and buffers [{w}]")
+    if (batch.ts.dtype, batch.kind.dtype, batch.valid.dtype, state["cur_ts"].dtype,
+            state["prev_ts"].dtype, state["cur_n"].dtype, state["prev_n"].dtype,
+            state["bucket_start"].dtype, state["timeout_deadline"].dtype) != (
+            torch.int64, torch.int8, torch.bool, torch.int64, torch.int64, torch.int32,
+            torch.int32, torch.int64, torch.int64) or any(
+                state["cur_cols"][c].dtype != batch.cols[c].dtype
+                or state["prev_cols"][c].dtype != batch.cols[c].dtype for c in batch.cols):
+        raise ValueError(f"{what}: lane dtypes must be int64 ts and times, int8 kind, bool "
+                         "valid, int32 counts, and each buffer column the batch's dtype")
+
+
+def _gather_batch_lanes(what, state, batch, w, out_src, out_ts, out_kind, out_valid, cur_src,
+                        prev_src, cur_n, prev_n, bucket_start, timeout_deadline):
+    """The output batch and the new state: the columns and buffers each
+    gathered from [carried w | previous w | batch B] by
+    csrc/batch_window.cu's bw_gather, and the given scalars."""
+    dev = batch.ts.device
+    stream = kernels.stream()
 
     def gather(cur, prev, bat, idx):
         out = torch.empty(idx.shape[0], dtype=cur.dtype, device=dev)
@@ -806,11 +864,12 @@ def batch_window_step(state: dict, batch: EventBatch, n: int, emit_expired: bool
         kernels.check(
             fn(cur.data_ptr(), prev.data_ptr(), bat.data_ptr(), idx.data_ptr(), out.data_ptr(),
                idx.shape[0], w, stream),
-            "batch_window_step",
+            what,
         )
         return out
 
     sc, sp = state["cur_cols"], state["prev_cols"]
+    cols = list(batch.cols)
     out = EventBatch(
         ts=out_ts, kind=out_kind, valid=out_valid,
         cols={c: gather(sc[c], sp[c], batch.cols[c], out_src) for c in cols},
@@ -818,21 +877,170 @@ def batch_window_step(state: dict, batch: EventBatch, n: int, emit_expired: bool
     new_state = {
         "cur_cols": {c: gather(sc[c], sp[c], batch.cols[c], cur_src) for c in cols},
         "cur_ts": gather(state["cur_ts"], state["prev_ts"], batch.ts, cur_src),
-        "cur_n": new_cur_n,
+        "cur_n": cur_n,
         "prev_cols": {c: gather(sc[c], sp[c], batch.cols[c], prev_src) for c in cols},
         "prev_ts": gather(state["cur_ts"], state["prev_ts"], batch.ts, prev_src),
-        "prev_n": new_prev_n,
-        "bucket_start": state["bucket_start"],
-        "timeout_deadline": state["timeout_deadline"],
+        "prev_n": prev_n,
+        "bucket_start": bucket_start,
+        "timeout_deadline": timeout_deadline,
     }
-    kernels.launches["batch_window_step"] += 1
-    return out, birth, death, new_state
+    return out, new_state
+
+
+# next_timer modes of the time branch: none (externalTimeBatch), the open
+# bucket's end (timeBatch), the idle timeout (externalTimeBatch with one)
+TIMER_NONE, TIMER_BUCKET, TIMER_TIMEOUT = 0, 1, 2
+
+
+def time_batch_step_ref(state: dict, batch: EventBatch, wts: torch.Tensor, now: torch.Tensor,
+                        w: int, t: int, start_time, timeout_ms, timer_mode: int,
+                        emit_expired: bool):
+    """Plain version of `time_batch_step`, in the JAX package's formulation
+    (BatchWindow.apply's time branch): the bucket index g of each trigger
+    row, open_g as a cummax seeded with the carried bucket, the flushes
+    (plus the positional idle-timeout flush), e_row by an inclusive cumsum,
+    row_of_flush by a stable argsort, then the shared emission, the new
+    bucket start, the idle deadline and next_timer."""
+    dev = batch.ts.device
+    bsz = batch.capacity
+    big = BIG
+    valid_cur = batch.valid & (batch.kind == KIND_CURRENT)
+    is_timer = batch.valid & (batch.kind == KIND_TIMER)
+    vc = valid_cur.to(torch.int32)
+    rank = torch.cumsum(vc, 0, dtype=torch.int32) - vc
+    trigger_ok = valid_cur | is_timer
+    bs = state["bucket_start"]
+    minus1 = torch.full((), -1, dtype=torch.int64, device=dev)
+    if start_time is not None:
+        start0 = torch.full((), int(start_time), dtype=torch.int64, device=dev)
+    else:
+        first_trig = torch.argmax(trigger_ok.to(torch.int8))
+        start0 = torch.where(bs >= 0, bs, torch.where(trigger_ok.any(), wts[first_trig], minus1))
+    rel = torch.clamp(wts - start0, min=0)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    g = torch.where(trigger_ok & (start0 >= 0), torch.div(rel, t, rounding_mode="floor"), zero)
+    carried_g = torch.where(bs >= 0, torch.div(torch.clamp(bs - start0, min=0), t,
+                                               rounding_mode="floor"), zero)
+    open_g = torch.cummax(torch.maximum(g, carried_g), 0).values
+    prev_open = torch.cat([carried_g[None], open_g[:-1]])
+    tr = trigger_ok.to(torch.int32)
+    had_bucket = (bs >= 0) | ((torch.cumsum(tr, 0, dtype=torch.int32) - tr) > 0)
+    flush_here = trigger_ok & (g > prev_open) & had_bucket
+    if timeout_ms is not None:
+        # positional: only a TIMER with no CURRENT row before it in the
+        # batch can see a genuinely elapsed deadline
+        flush_here = flush_here | (is_timer & (rank == 0) & (state["cur_n"] > 0)
+                                   & (now >= state["timeout_deadline"]))
+    fh = flush_here.to(torch.int32)
+    e_row = torch.cumsum(fh, 0, dtype=torch.int32)  # inclusive: a flush at i precedes row i
+    n_flush = fh.sum(dtype=torch.int32)
+    rows = torch.arange(bsz, dtype=torch.int32, device=dev)
+    by_flush = torch.argsort(torch.where(flush_here, rows, big), stable=True)
+    row_of_flush = torch.where(rows < n_flush, by_flush, bsz - 1).to(torch.int64)
+    new_bucket_start = torch.where(trigger_ok.any() & (start0 >= 0), start0 + open_g[-1] * t,
+                                   start0)
+    e_row = torch.where(valid_cur, e_row, 0)
+    out, birth, death, new_state = _batch_flush_ref(state, batch, w, bsz, valid_cur, e_row,
+                                                    n_flush, row_of_flush, emit_expired)
+    new_state["bucket_start"] = new_bucket_start
+    no_timer = torch.full((), NO_TIMER, dtype=torch.int64, device=dev)
+    if timer_mode == TIMER_TIMEOUT:
+        # wall-clock idle deadline: every arriving CURRENT row pushes it on;
+        # with an empty open bucket there is none
+        new_state["timeout_deadline"] = torch.where(
+            valid_cur.any(), now + timeout_ms,
+            torch.where(new_state["cur_n"] > 0, state["timeout_deadline"], no_timer))
+        next_timer = torch.where(new_state["cur_n"] > 0, new_state["timeout_deadline"],
+                                 no_timer)
+    elif timer_mode == TIMER_BUCKET:
+        next_timer = torch.where(new_bucket_start >= 0, new_bucket_start + t, no_timer)
+    else:
+        next_timer = no_timer
+    return out, birth, death, new_state, next_timer
+
+
+def time_batch_step(state: dict, batch: EventBatch, wts: torch.Tensor, now: torch.Tensor,
+                    w: int, t: int, start_time, timeout_ms, timer_mode: int,
+                    emit_expired: bool):
+    """One timeBatch / externalTimeBatch step over a batch of B rows
+    (arrivals and TIMER rows) against a [w] open bucket and a [w] previous
+    bucket.
+
+    state: the lengthBatch step's buffers, with "bucket_start" (the open
+           bucket's start, -1 before any) and "timeout_deadline" (the armed
+           wall-clock idle deadline, NO_TIMER when none) in use
+    wts:   [B] int64 window time of each row (the ts lane, or the
+           externalTimeBatch attribute); now: 0-d int64 clock
+    t:     the duration (ms); start_time: the grid's start or None (the
+           first trigger row's time); timeout_ms: the idle timeout or None;
+    timer_mode: TIMER_NONE / TIMER_BUCKET / TIMER_TIMEOUT (what next_timer
+           reports)
+    A trigger row (CURRENT or TIMER) whose bucket index
+    (wts - start) // t passes the open bucket's flushes it: the previous
+    bucket's EXPIRED rows (with the trigger row's ts; only when
+    emit_expired), a RESET, then the closing bucket's CURRENT rows; so does
+    an elapsed idle timeout at a TIMER row with no CURRENT row before it.
+    returns (out, birth_pos, death_pos, new_state, next_timer):
+      out        [time_batch_rows(B, w, emit_expired)] EventBatch
+      birth_pos / death_pos  [2w + B] int32 lazy membership (None without
+                 the EXPIRED lanes)
+      new_state  the buffers, counts, bucket start and idle deadline
+      next_timer 0-d int64 (NO_TIMER: none)
+    """
+    if batch.ts.device.type == "cpu":
+        return time_batch_step_ref(state, batch, wts, now, w, t, start_time, timeout_ms,
+                                   timer_mode, emit_expired)
+    _check_batch_lanes("time_batch_step", state, batch, w)
+    kernels.require_cuda("time_batch_step", wts, now)
+    bsz = batch.capacity
+    n_rows = time_batch_rows(bsz, w, emit_expired)
+    if (wts.shape != (bsz,) or wts.dtype != torch.int64 or now.shape != ()
+            or now.dtype != torch.int64 or w < 1 or t < 1
+            or n_rows + 2 * w + bsz >= 2**31):
+        raise ValueError(f"time_batch_step: [B] int64 times, a 0-d int64 clock, w >= 1 and "
+                         f"t >= 1 within range; got batch {bsz}, w {w}, t {t}")
+    dev = batch.ts.device
+    scan, (rank, perm, e_row, flush_row, flush_q, flush_start, out_src, cur_src,
+           prev_src) = _batch_scratch(dev, bsz, w, n_rows)
+    out_ts = torch.empty(n_rows, dtype=torch.int64, device=dev)
+    out_kind = torch.empty(n_rows, dtype=torch.int8, device=dev)
+    out_valid = torch.empty(n_rows, dtype=torch.bool, device=dev)
+    birth, death = _membership_lanes(dev, 2 * w + bsz, emit_expired)
+    new_cur_n, new_prev_n = torch.empty(2, dtype=torch.int32, device=dev).unbind()
+    new_bs, new_dl, next_timer = torch.empty(3, dtype=torch.int64, device=dev).unbind()
+    err = kernels.function("tb_prepare")(
+        batch.kind.data_ptr(), batch.valid.data_ptr(), batch.ts.data_ptr(), wts.data_ptr(),
+        state["cur_ts"].data_ptr(), state["cur_n"].data_ptr(), state["prev_n"].data_ptr(),
+        state["bucket_start"].data_ptr(), state["timeout_deadline"].data_ptr(), now.data_ptr(),
+        bsz, w, n_rows, int(emit_expired), int(t), int(start_time is not None),
+        int(start_time or 0), timer_mode, int(timeout_ms or 0),
+        rank.data_ptr(), perm.data_ptr(), e_row.data_ptr(), flush_row.data_ptr(),
+        flush_q.data_ptr(), flush_start.data_ptr(), scan.data_ptr(), out_src.data_ptr(),
+        out_ts.data_ptr(), out_kind.data_ptr(), out_valid.data_ptr(),
+        birth.data_ptr() if emit_expired else None, death.data_ptr() if emit_expired else None,
+        cur_src.data_ptr(), prev_src.data_ptr(), new_cur_n.data_ptr(), new_prev_n.data_ptr(),
+        new_bs.data_ptr(), new_dl.data_ptr(), next_timer.data_ptr(), kernels.stream(),
+    )
+    kernels.check(err, "time_batch_step")
+    out, new_state = _gather_batch_lanes("time_batch_step", state, batch, w, out_src, out_ts,
+                                         out_kind, out_valid, cur_src, prev_src, new_cur_n,
+                                         new_prev_n, new_bs, new_dl)
+    kernels.launches["time_batch_step"] += 1
+    return out, birth, death, new_state, next_timer
 
 
 class BatchWindow(WindowStage):
-    """lengthBatch(n): tumbling buckets of n events. On each flush the
+    """Tumbling buckets: every `length` events (lengthBatch) or at each
+    `duration_ms` boundary of the window time (timeBatch on the event
+    timestamp, externalTimeBatch on `time_attr`). On each flush the
     reference emits the previous bucket's EXPIREDs, a RESET, then the
     closing bucket's CURRENTs (LengthBatchWindowProcessor.java:108-160).
+    timeBatch needs the scheduler (a TIMER row at the open bucket's end
+    closes it); externalTimeBatch with `timeout_ms` re-arms a WALL-CLOCK idle
+    deadline on every event, and a TIMER arriving with a nonempty open
+    bucket and no CURRENT row before it force-closes the bucket without
+    moving the grid (ExternalTimeBatchWindowProcessor, lines 243-258).
+    A time bucket holds `capacity` slots; rows past them are dropped.
 
     `emit_expired`: the query runtime clears it when nothing can observe
     EXPIRED rows (`insert [current] into` output and no membership-reading
@@ -840,12 +1048,26 @@ class BatchWindow(WindowStage):
 
     is_batch = True
 
-    def __init__(self, schema: StreamSchema, ref: str, length: int, device):
-        if length < 1:
+    def __init__(self, schema: StreamSchema, ref: str, length, device, capacity=None,
+                 duration_ms=None, time_attr=None, start_time=None, timeout_ms=None):
+        if (length is None) == (duration_ms is None):
+            raise SiddhiAppCreationError("batch window needs length xor duration")
+        if length is not None and length < 1:
             raise SiddhiAppCreationError(f"lengthBatch window needs a length >= 1, got {length}")
         self.schema = schema
         self.ref = ref
-        self.w = self.n = int(length)
+        self.n = None if length is None else int(length)
+        self.w = self.n if length is not None else int(capacity)
+        self.t = duration_ms
+        self.time_attr = time_attr
+        self.start_time = start_time
+        self.timeout_ms = timeout_ms
+        # timeBatch closes its bucket at a TIMER; externalTimeBatch needs one
+        # only for the idle timeout
+        timebatch = duration_ms is not None and time_attr is None
+        self.needs_scheduler = timebatch or timeout_ms is not None
+        self.timer_mode = (TIMER_TIMEOUT if timeout_ms is not None
+                           else TIMER_BUCKET if timebatch else TIMER_NONE)
         self.device = torch.device(device)
         self.emit_expired = True
 
@@ -869,7 +1091,16 @@ class BatchWindow(WindowStage):
 
     def apply(self, state, flow: Flow):
         b = flow.batch
-        out, birth, death, new_state = batch_window_step(state, b, self.n, self.emit_expired)
+        aux = dict(flow.aux)
+        if self.n is not None:
+            out, birth, death, new_state = batch_window_step(state, b, self.n, self.emit_expired)
+        else:
+            wts = b.cols[self.time_attr].to(torch.int64) if self.time_attr else b.ts
+            out, birth, death, new_state, next_timer = time_batch_step(
+                state, b, wts.contiguous(), flow.now, self.w, self.t, self.start_time,
+                self.timeout_ms, self.timer_mode, self.emit_expired)
+            if self.needs_scheduler:
+                aux["next_timer"] = next_timer
         member_env = None
         if self.emit_expired:
             member_cols = {
@@ -881,7 +1112,7 @@ class BatchWindow(WindowStage):
                 [state["cur_ts"], state["prev_ts"], b.ts])
             member_env = Env(member_cols, now=flow.now)
         return new_state, Flow(batch=out, ref=flow.ref, now=flow.now, birth_pos=birth,
-                               death_pos=death, member_env=member_env)
+                               death_pos=death, member_env=member_env, aux=aux)
 
     def view(self, state):
         # the open bucket is the probe-able content (reference:
@@ -911,6 +1142,18 @@ def make_window(spec: WindowSpec, schema: StreamSchema, ref: str, scope: Scope,
                              duration_ms=_const_param(spec, 1, "duration"), time_attr=attr)
     if name == "lengthbatch":
         return BatchWindow(schema, ref, _const_param(spec, 0, "length"), dev)
+    if name == "timebatch":
+        start = _const_param(spec, 1, "start time") if len(spec.parameters) > 1 else None
+        return BatchWindow(schema, ref, None, dev, capacity=time_capacity,
+                           duration_ms=_const_param(spec, 0, "duration"), start_time=start)
+    if name == "externaltimebatch":
+        attr = _time_attr(spec, 0, schema)
+        scope.record_key((ref, None, attr))
+        n = len(spec.parameters)
+        return BatchWindow(schema, ref, None, dev, capacity=time_capacity,
+                           duration_ms=_const_param(spec, 1, "duration"), time_attr=attr,
+                           start_time=_const_param(spec, 2, "start time") if n > 2 else None,
+                           timeout_ms=_const_param(spec, 3, "timeout") if n > 3 else None)
     raise SiddhiAppCreationError(f"window '{spec.name}' is not ported yet")
 
 

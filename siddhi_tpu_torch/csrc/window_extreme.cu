@@ -12,6 +12,9 @@
 // Design: one thread per output row, 256 rows per block; the element lanes
 // stream through shared memory in tiles of 1024, every thread of a warp
 // reading the same element (a broadcast).
+// The keyed entry points are the grouped branch (:196-199,
+// `member & (key_of(member_env)[e] == group.key[p])`): an int64 key lane per
+// element and per row, compared in the same loop.
 // Cost: O(rows * elements) = O(2B * (W + B)) membership tests, about 2.1e9
 // at B = 32768, W = 50 — bound by those tests, not by bytes (the lanes are
 // well under 1 MB). Under a length window only about W elements are alive
@@ -48,15 +51,20 @@ template <> struct Limits<int64_t> {
   __device__ static int64_t from_bits(long long b) { return (int64_t)b; }
 };
 
-template <typename T>
+// Keyed: an element counts toward row p only if ekey[e] == rkey[p] (the
+// grouped form); otherwise ekey/rkey are not read.
+template <typename T, bool Keyed>
 __global__ void window_extreme_kernel(const T* vals, const int32_t* birth,
-                                      const int32_t* death, T* out, int n_rows,
+                                      const int32_t* death, const int64_t* ekey,
+                                      const int64_t* rkey, T* out, int n_rows,
                                       int n_elems, int is_min, long long null_bits) {
   __shared__ T s_val[kTileElems];
   __shared__ int32_t s_birth[kTileElems];
   __shared__ int32_t s_death[kTileElems];
+  __shared__ int64_t s_key[Keyed ? kTileElems : 1];
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   const T ident = is_min ? Limits<T>::hi() : Limits<T>::lo();
+  const int64_t mine = Keyed && p < n_rows ? rkey[p] : 0;
   T red = ident;
   for (int e0 = 0; e0 < n_elems; e0 += kTileElems) {
     const int m = min(kTileElems, n_elems - e0);
@@ -64,11 +72,12 @@ __global__ void window_extreme_kernel(const T* vals, const int32_t* birth,
       s_val[k] = vals[e0 + k];
       s_birth[k] = birth[e0 + k];
       s_death[k] = death[e0 + k];
+      if (Keyed) s_key[k] = ekey[e0 + k];
     }
     __syncthreads();
     if (p < n_rows) {
       for (int k = 0; k < m; ++k) {
-        if (s_birth[k] <= p && p < s_death[k]) {
+        if (s_birth[k] <= p && p < s_death[k] && (!Keyed || s_key[k] == mine)) {
           const T v = s_val[k];
           const bool take = Limits<T>::nan(v) || (is_min ? v < red : v > red);
           if (take && !Limits<T>::nan(red)) red = v;
@@ -80,12 +89,13 @@ __global__ void window_extreme_kernel(const T* vals, const int32_t* birth,
   if (p < n_rows) out[p] = red == ident ? Limits<T>::from_bits(null_bits) : red;
 }
 
-template <typename T>
-int window_extreme(const T* vals, const int32_t* birth, const int32_t* death, T* out,
-                   int n_rows, int n_elems, int is_min, long long null_bits,
-                   cudaStream_t stream) {
-  window_extreme_kernel<T><<<(n_rows + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      vals, birth, death, out, n_rows, n_elems, is_min, null_bits);
+template <typename T, bool Keyed>
+int window_extreme(const T* vals, const int32_t* birth, const int32_t* death,
+                   const int64_t* ekey, const int64_t* rkey, T* out, int n_rows, int n_elems,
+                   int is_min, long long null_bits, cudaStream_t stream) {
+  window_extreme_kernel<T, Keyed>
+      <<<(n_rows + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+          vals, birth, death, ekey, rkey, out, n_rows, n_elems, is_min, null_bits);
   return (int)cudaGetLastError();
 }
 
@@ -93,24 +103,26 @@ int window_extreme(const T* vals, const int32_t* birth, const int32_t* death, T*
 
 extern "C" {
 
-// null_bits: the null sentinel's bit pattern in the low bits (float: as int32)
-int window_extreme_f32(const float* vals, const int32_t* birth, const int32_t* death,
-                       float* out, int n_rows, int n_elems, int is_min,
-                       long long null_bits, cudaStream_t stream) {
-  return window_extreme<float>(vals, birth, death, out, n_rows, n_elems, is_min,
-                               null_bits, stream);
-}
-int window_extreme_i32(const int32_t* vals, const int32_t* birth, const int32_t* death,
-                       int32_t* out, int n_rows, int n_elems, int is_min,
-                       long long null_bits, cudaStream_t stream) {
-  return window_extreme<int32_t>(vals, birth, death, out, n_rows, n_elems, is_min,
-                                 null_bits, stream);
-}
-int window_extreme_i64(const int64_t* vals, const int32_t* birth, const int32_t* death,
-                       int64_t* out, int n_rows, int n_elems, int is_min,
-                       long long null_bits, cudaStream_t stream) {
-  return window_extreme<int64_t>(vals, birth, death, out, n_rows, n_elems, is_min,
-                                 null_bits, stream);
-}
+// null_bits: the null sentinel's bit pattern in the low bits (float: as int32);
+// the _keyed entry points take [K] element keys and [n_rows] row keys (int64)
+#define WINDOW_EXTREME(SUFFIX, T)                                                         \
+  int window_extreme_##SUFFIX(const T* vals, const int32_t* birth, const int32_t* death,  \
+                              T* out, int n_rows, int n_elems, int is_min,                \
+                              long long null_bits, cudaStream_t stream) {                 \
+    return window_extreme<T, false>(vals, birth, death, nullptr, nullptr, out, n_rows,    \
+                                    n_elems, is_min, null_bits, stream);                  \
+  }                                                                                       \
+  int window_extreme_keyed_##SUFFIX(const T* vals, const int32_t* birth,                  \
+                                    const int32_t* death, const int64_t* ekey,            \
+                                    const int64_t* rkey, T* out, int n_rows, int n_elems, \
+                                    int is_min, long long null_bits,                      \
+                                    cudaStream_t stream) {                                \
+    return window_extreme<T, true>(vals, birth, death, ekey, rkey, out, n_rows, n_elems,  \
+                                   is_min, null_bits, stream);                            \
+  }
+
+WINDOW_EXTREME(f32, float)
+WINDOW_EXTREME(i32, int32_t)
+WINDOW_EXTREME(i64, int64_t)
 
 }  // extern "C"

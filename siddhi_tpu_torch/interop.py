@@ -10,12 +10,17 @@ count state; "timer_ts" the max TIMER timestamp processed), where "chain"
 and each join side is a
 sliding window's ring
 (`{"cols": {...}, "ts", "wts", "seq", "total"}`: length, time, timeLength
-and externalTime alike; a time ring may hold holes, seq -1), a lengthBatch
+and externalTime alike; a time ring may hold holes, seq -1), a batch
 window's buffers (`{"cur_cols", "cur_ts", "cur_n", "prev_cols", "prev_ts",
-"prev_n", "bucket_start", "timeout_deadline"}`), `{}` for a join side
-without a window, or `()` for a chain without one; "group" is the group-by
-key table, and each aggregator's carry gains a leading [G] axis under a
-group-by. The JAX engine (`siddhi_tpu`) keeps the same layout, so a state
+"prev_n", "bucket_start", "timeout_deadline"}`: lengthBatch, timeBatch and
+externalTimeBatch alike; the time-driven two use the open bucket's start
+and the idle deadline), `{}` for a join side without a window, or `()` for
+a chain without one; "group" is the group-by key table. Each aggregator's
+entry in "aggs" is its carry: a scalar for sum/count, `{"sum", "count"}`
+for avg, `{"sum", "sumsq", "count"}` for stdDev, the running extreme for
+min/max (the unused identity under a window) and an unused scalar for
+distinctCount; each carry gains a leading [G] axis under a group-by (but
+distinctCount's). The JAX engine (`siddhi_tpu`) keeps the same layout, so a state
 taken there as numpy maps onto this engine leaf for leaf with dtype and
 shape unchanged. Pending timers are host state and do not travel.
 """

@@ -32,7 +32,7 @@ BUILD = Path(__file__).parent / "_build"
 SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "deliver_pack",
            "batch_window", "group_assign", "keyed_running_sum", "keep_last", "time_window",
            "ring_view", "join_probe", "pattern_advance", "pattern_count", "pattern_emit",
-           "pattern_scan")
+           "pattern_scan", "running_extreme", "distinct_count")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -40,6 +40,10 @@ LL = ctypes.c_longlong
 _GATHER = [P, P, P, P, I, I, P]
 _RUNNING_SUM = [P] * 7 + [I, P]
 _EXTREME = [P, P, P, P, I, I, I, LL, P]
+_EXTREME_KEYED = [P] * 6 + [I, I, I, LL, P]
+_RUNNING_EXTREME = [P] * 8 + [I, I, P]
+_KEYED_EXTREME = [P] * 6 + [I, I, I] + [P] * 8 + [P]
+_DISTINCT = [P] * 6 + [I, I, I] + [P] * 11 + [P]
 _BW_GATHER = [P] * 5 + [I, I, P]
 _KEYED_SUM = [P] * 5 + [I, I] + [P] * 6 + [P]
 _RV_GATHER = [P, P, P, I, P]
@@ -55,9 +59,12 @@ SIGNATURES = {
     "window_extreme_f32": ("window_extreme", _EXTREME),
     "window_extreme_i32": ("window_extreme", _EXTREME),
     "window_extreme_i64": ("window_extreme", _EXTREME),
+    "window_extreme_keyed_f32": ("window_extreme", _EXTREME_KEYED),
+    "window_extreme_keyed_i32": ("window_extreme", _EXTREME_KEYED),
+    "window_extreme_keyed_i64": ("window_extreme", _EXTREME_KEYED),
     "wire_decode": ("wire_decode", [P, P, P, I, LL, I, I, P, P, P, P, P, P]),
     "deliver_pack": ("deliver_pack", [P, I, I, I, P, P, P, I, I, P, P, P, P, P]),
-    "bw_prepare": ("batch_window", [P] * 6 + [I] * 4 + [P] * 13 + [P]),
+    "bw_prepare": ("batch_window", [P] * 6 + [I] * 4 + [P] * 17 + [P]),
     "bw_gather_1": ("batch_window", _BW_GATHER),
     "bw_gather_4": ("batch_window", _BW_GATHER),
     "bw_gather_8": ("batch_window", _BW_GATHER),
@@ -81,6 +88,17 @@ SIGNATURES = {
                 + [P] * 4 + [P]),
     "ps_scan": ("pattern_scan", [P, I, I, I, I] + [P] * 13 + [I] + [P] * 9 + [P] * 4 + [I, P]
                 + [P, P, I] + [P] * 5 + [I, P]),
+    "tb_prepare": ("batch_window", [P] * 10 + [I, I, I, I, LL, I, LL, I, LL] + [P] * 20 + [P]),
+    "running_extreme_f32": ("running_extreme", _RUNNING_EXTREME),
+    "running_extreme_i32": ("running_extreme", _RUNNING_EXTREME),
+    "running_extreme_i64": ("running_extreme", _RUNNING_EXTREME),
+    "keyed_running_extreme_f32": ("running_extreme", _KEYED_EXTREME),
+    "keyed_running_extreme_i32": ("running_extreme", _KEYED_EXTREME),
+    "keyed_running_extreme_i64": ("running_extreme", _KEYED_EXTREME),
+    "distinct_count_f32": ("distinct_count", _DISTINCT),
+    "distinct_count_i32": ("distinct_count", _DISTINCT),
+    "distinct_count_i64": ("distinct_count", _DISTINCT),
+    "distinct_count_b8": ("distinct_count", _DISTINCT),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -14,9 +14,10 @@ row of its (era, key). Any grouping of the rows by (active, era, key) that is
 stable by row gives the same results, so the card builds it with no sort
 (a hash table of row indices, csrc/group_assign.cu).
 
-Three hand-written CUDA kernels run on the card:
+Four hand-written CUDA kernels run on the card:
 - `assign_slots` (csrc/group_assign.cu, K7);
 - `keyed_running_sum` (csrc/keyed_running_sum.cu, K8);
+- `keyed_running_extreme` (csrc/running_extreme.cu, K19);
 - `keep_last` behind `keep_last_in_sorted` / `keep_last_per_group`
   (csrc/keep_last.cu, K9).
 Each `*_ref` beside them is its plain PyTorch version, which the wrapper
@@ -33,6 +34,7 @@ import torch
 from siddhi_tpu_torch import kernels
 from siddhi_tpu_torch.core.event import KIND_EXPIRED
 from siddhi_tpu_torch.ops.prefix import (
+    extreme_identity,
     last_reset_index,
     segmented_carry,
     segmented_cum_extreme,
@@ -44,8 +46,10 @@ from siddhi_tpu_torch.ops.scatter import set_at
 _MIX1 = -7046029254386353131  # 0x9E3779B97F4A7C15 as signed
 _MIX2 = -4658895280553007687  # 0xBF58476D1CE4E5B9 as signed
 
-_SUM_TILE = 512  # kTile of csrc/keyed_running_sum.cu
-_SUM_HASH = 1024  # kHash of csrc/keyed_running_sum.cu (slots per tile table)
+# kTile / kHash of csrc/keyed_running_sum.cu (kKeyTile / kHash of
+# csrc/running_extreme.cu): rows per tile, and slots per tile table
+_SUM_TILE = 512
+_SUM_HASH = 1024
 
 
 def mix_keys(cols: list[torch.Tensor]) -> torch.Tensor:
@@ -303,6 +307,93 @@ def keyed_running_sum(contrib, grp: Groups, reset, carry, slot):
     )
     kernels.check(err, "keyed_running_sum")
     kernels.launches["keyed_running_sum"] += 1
+    return run, new_carry
+
+
+def keyed_running_extreme_ref(values, active, grp: Groups, reset, carry, slot, is_min):
+    """Plain version of `keyed_running_extreme`: the JAX package's keyed
+    running min/max over the rows sorted by segment, the carry folded in
+    where no reset came before, and the final era's segment ends written
+    into the new carry."""
+    g = carry.shape[0]
+    rows = values.shape[0]
+    ident = extreme_identity(values.dtype, is_min).to(values.device)
+    op = torch.minimum if is_min else torch.maximum
+    masked = torch.where(active, values, ident)
+    order, seg_start = _sorted_view(grp)
+    run_s = segmented_cum_extreme(masked[order], seg_start, is_min)
+    run = torch.empty_like(run_s)
+    run[order] = run_s
+    lr = last_reset_index(reset)
+    sl = slot.clamp(0, g - 1).long()
+    run = op(run, torch.where((slot < g) & (lr < 0), carry[sl], ident))
+
+    post = torch.arange(rows, dtype=torch.int32, device=values.device) > lr[-1]
+    base = torch.where(reset.any(), ident.expand(g), carry)
+    seg_end = torch.ones_like(seg_start)
+    seg_end[:-1] = seg_start[1:]
+    slot_s, post_s = slot[order], post[order]
+    writer = seg_end & post_s & (slot_s < g)
+    # one slot may end several segments when `reset` omits the resets the
+    # segments split at (the forever forms): the last in order writes, as
+    # the JAX package's scatter keeps it
+    at = torch.arange(rows, device=values.device)
+    last = torch.full((g + 1,), -1, dtype=torch.int64, device=values.device).scatter_reduce(
+        0, torch.where(writer, slot_s, g).long(), at, reduce="amax")
+    writer = writer & (last[slot_s.clamp(0, g).long()] == at)
+    base_s = torch.where(slot_s < g, base[slot_s.clamp(0, g - 1).long()], ident)
+    new_carry = set_at(base, torch.where(writer, slot_s, g), op(base_s, run_s))
+    return run, new_carry
+
+
+def keyed_running_extreme(values, active, grp: Groups, reset, carry, slot, is_min: bool):
+    """Per-row running min/max within each (era, key) group (no removal);
+    returns ([rows] run, [G] new carry).
+
+    values: [rows] float32/int32/int64; active: [rows] bool (valid CURRENT
+    rows; the others read as the identity); grp, slot: from `assign_slots`
+    over the rows (their segments may split at resets that `reset` omits:
+    the forever forms zero it); carry: [G], same dtype. As
+    `keyed_running_sum`, with min/max for the sum and the identity for zero;
+    NaN propagates. Where one slot ends several final-era segments, the
+    latest one writes its carry.
+    """
+    if values.device.type == "cpu":
+        return keyed_running_extreme_ref(values, active, grp, reset, carry, slot, is_min)
+    kernels.require_cuda("keyed_running_extreme", values, active, grp.first, reset, carry,
+                         slot)
+    rows, g = values.shape[0], carry.shape[0]
+    suffix = {torch.float32: "f32", torch.int32: "i32", torch.int64: "i64"}.get(values.dtype)
+    if (
+        suffix is None or values.dim() != 1 or rows == 0 or carry.dtype != values.dtype
+        or carry.dim() != 1 or g == 0 or grp.first.shape != (rows,)
+        or grp.first.dtype != torch.int32 or reset.shape != (rows,)
+        or reset.dtype != torch.bool or active.shape != (rows,) or active.dtype != torch.bool
+        or slot.shape != (rows,) or slot.dtype != torch.int32 or rows >= 2**30
+    ):
+        raise ValueError(
+            "keyed_running_extreme takes [rows] float32/int32/int64 values, [rows] bool "
+            f"active, a [G] carry of the same dtype and [rows] int32 segment ids and slots; "
+            f"got {values.dtype}{list(values.shape)}, {carry.dtype}{list(carry.shape)}"
+        )
+    dev = values.device
+    tiles = -(-rows // _SUM_TILE)
+    run = torch.empty_like(values)
+    new_carry = torch.empty_like(carry)
+    part = torch.empty_like(values)
+    seg_last = torch.empty(rows, dtype=torch.int32, device=dev)
+    tab_key = torch.empty(tiles * _SUM_HASH, dtype=torch.int32, device=dev)
+    tab_val = torch.empty(tiles * _SUM_HASH, dtype=values.dtype, device=dev)
+    slot_win = torch.empty(g, dtype=torch.int32, device=dev)
+    bounds = torch.empty(2, dtype=torch.int32, device=dev)
+    err = kernels.function(f"keyed_running_extreme_{suffix}")(
+        values.data_ptr(), active.data_ptr(), grp.first.data_ptr(), reset.data_ptr(),
+        carry.data_ptr(), slot.data_ptr(), rows, g, int(is_min), run.data_ptr(),
+        new_carry.data_ptr(), part.data_ptr(), seg_last.data_ptr(), tab_key.data_ptr(),
+        tab_val.data_ptr(), slot_win.data_ptr(), bounds.data_ptr(), kernels.stream(),
+    )
+    kernels.check(err, "keyed_running_extreme")
+    kernels.launches["keyed_running_extreme"] += 1
     return run, new_carry
 
 

@@ -6,8 +6,9 @@ value after each event and zeroing state on RESET events
 CURRENT/EXPIRED, reset on RESET). Batched, the per-event running values become
 prefix reductions with reset barriers.
 
-`running_sum` is a hand-written CUDA kernel on the card (csrc/running_sum.cu);
-`running_sum_ref` is its plain PyTorch version, which the wrapper takes only
+`running_sum` (csrc/running_sum.cu) and `running_extreme`
+(csrc/running_extreme.cu) are hand-written CUDA kernels on the card; each
+`*_ref` beside them is its plain PyTorch version, which the wrapper takes only
 for tensors on the CPU.
 """
 
@@ -18,8 +19,9 @@ import torch
 
 from siddhi_tpu_torch import kernels
 
-# rows per scan tile of csrc/running_sum.cu (kTile)
+# rows per scan tile of csrc/running_sum.cu and csrc/running_extreme.cu (kTile)
 _SCAN_TILE = 32768
+_EXTREME_SUFFIX = {torch.float32: "f32", torch.int32: "i32", torch.int64: "i64"}
 
 
 def cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -96,6 +98,60 @@ def extreme_identity(dtype: torch.dtype, is_min: bool) -> torch.Tensor:
         return torch.tensor(np.inf if is_min else -np.inf, dtype=dtype)
     info = torch.iinfo(dtype)
     return torch.tensor(info.max if is_min else info.min, dtype=dtype)
+
+
+def running_extreme_ref(values, active, reset, base, is_min):
+    """Plain version of `running_extreme`, in the JAX package's formulation:
+    inactive rows masked to the identity, a segmented scan that restarts at
+    each reset, and the carry folded in before the first reset."""
+    ident = extreme_identity(values.dtype, is_min).to(values.device)
+    op = torch.minimum if is_min else torch.maximum
+    masked = torch.where(active, values, ident)
+    red = segmented_cum_extreme(masked, reset, is_min)
+    base_eff = torch.where(last_reset_index(reset) < 0, base, ident)
+    run = op(red, base_eff)
+    return run, run[-1]
+
+
+def running_extreme(values, active, reset, base, is_min: bool):
+    """Running min/max after each row with reset barriers (no removal: the
+    forever and unwindowed forms).
+
+    values: [n] float32/int32/int64; active: [n] bool (valid CURRENT rows);
+    reset: [n] bool; base: 0-d carry of the same dtype (the identity when
+    nothing was seen). NaN propagates as in jnp.minimum/maximum.
+    returns: ([n] running values, 0-d new carry)
+    """
+    if values.device.type == "cpu":
+        return running_extreme_ref(values, active, reset, base, is_min)
+    kernels.require_cuda("running_extreme", values, active, reset, base)
+    n = values.shape[0]
+    suffix = _EXTREME_SUFFIX.get(values.dtype)
+    if (
+        suffix is None or values.dim() != 1 or n == 0
+        or active.shape != values.shape or active.dtype != torch.bool
+        or reset.shape != values.shape or reset.dtype != torch.bool
+        or base.shape != () or base.dtype != values.dtype
+    ):
+        raise ValueError(
+            "running_extreme takes [n] float32/int32/int64 values, [n] bool active and "
+            f"reset and a 0-d base of the same dtype; got {values.dtype}{list(values.shape)}, "
+            f"{active.dtype}{list(active.shape)}, {reset.dtype}{list(reset.shape)}, "
+            f"{base.dtype}{list(base.shape)}"
+        )
+    tiles = -(-n // _SCAN_TILE)
+    run = torch.empty_like(values)
+    carry = torch.empty_like(base)
+    agg_v = torch.empty(tiles, dtype=values.dtype, device=values.device)
+    agg_f = torch.empty(tiles, dtype=torch.int32, device=values.device)
+    err = kernels.function(f"running_extreme_{suffix}")(
+        values.data_ptr(), active.data_ptr(), reset.data_ptr(), base.data_ptr(),
+        run.data_ptr(), carry.data_ptr(), agg_v.data_ptr(), agg_f.data_ptr(), n,
+        int(is_min), kernels.stream(),
+    )
+    kernels.check(err, "running_extreme")
+    kernels.launches["running_extreme"] += 1
+    return run, carry
 
 
 # ---------------------------------------------------------------------------

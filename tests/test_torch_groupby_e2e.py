@@ -330,7 +330,7 @@ def test_length_batch_golden(case):
         assert [r[1] for d in got["siddhi_tpu_torch"] for r in d[0]] == [100.0, 240.0]
 
 
-@pytest.mark.parametrize("ql", [
+SLICE7_APPS = [
     # grouped windowed min/max (test_groupby.py::test_groupby_avg_min_max_with_window)
     "from S#window.length(3) select symbol, avg(price) as a, min(price) as lo, "
     "max(price) as hi group by symbol insert into Out;",
@@ -341,14 +341,50 @@ def test_length_batch_golden(case):
     "from S#window.lengthBatch(4) select symbol, maxForever(price) as hi group by symbol "
     "insert into Out;",
     # the time-driven batch windows
-    "from S#window.timeBatch(1 sec) select symbol, sum(volume) as t group by symbol "
+    "from S#window.timeBatch(100) select symbol, sum(volume) as t group by symbol "
     "insert into Out;",
     "from S#window.externalTimeBatch(volume, 1 sec) select symbol insert into Out;",
+]
+
+
+@pytest.mark.parametrize("ql", [
+    "from S#window.sort(5, price) select symbol, sum(volume) as t group by symbol "
+    "insert into Out;",
+    "from S#window.frequent(3, symbol) select symbol insert into Out;",
+    "from S#window.lossyFrequent(0.1, 0.01) select symbol insert into Out;",
+    "from S#window.cron('*/5 * * * * ?') select symbol insert into Out;",
+    "from S#pol2Cart(price, price) select symbol insert into Out;",
+    "define table T (symbol string, price float); from S select symbol insert into T;",
 ])
 def test_outside_the_slice_raises(ql):
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
     with pytest.raises(SiddhiAppCreationError, match="not ported yet"):
         mgr.create_siddhi_app_runtime(bench.VERIFY_HEAD + ql)
+
+
+@pytest.mark.parametrize("ql", SLICE7_APPS)
+def test_forms_that_raised_match_jax(ql):
+    """The forms test_outside_the_slice_raises held to "not ported yet"
+    until the time-batch slice, against the JAX package (under
+    @app:playback, one event per send after a send_many)."""
+    rng = np.random.default_rng(12)
+    rows = [(["A", "B", "C"][int(rng.integers(0, 3))], float(np.round(rng.uniform(0, 100), 3)),
+             int(rng.integers(1, 4000))) for _ in range(60)]
+    ts = [1_700_000_000_000 + 9 * i for i in range(60)]
+    got = {}
+    for mgr in _managers():
+        rt = mgr.create_siddhi_app_runtime("@app:playback\n" + bench.VERIFY_HEAD + ql)
+        rt.add_callback("Out", lambda evs, _o=got.setdefault(_pkg(mgr), []): _o.extend(
+            tuple(e.data) for e in evs))
+        rt.start()
+        h = rt.get_input_handler("S")
+        h.send_many(rows[:20], timestamps=ts[:20])
+        for r, t in zip(rows[20:], ts[20:]):
+            h.send(r, timestamp=t)
+        rt.shutdown()
+        mgr.shutdown()
+    assert got["siddhi_tpu"]
+    assert bench._rows_match(got["siddhi_tpu_torch"], got["siddhi_tpu"])
 
 
 def test_ungrouped_minmax_under_length_batch():
