@@ -27,12 +27,17 @@ engine next to it. Phases, each printed as it ends:
      with nulls and int/float promotion (see pattern_scan_kernel_phase);
      the time-batch step K17, the running and keyed running extremes K18
      and K19, K3's key lane and the distinct count K20 at paths TB's and
-     XB's shapes, bit for bit (see time_batch_kernel_phase);
+     XB's shapes, bit for bit (see time_batch_kernel_phase); the table's
+     insert K21, sorted index and probe K22, condition match K23 and
+     sequential update / update-or-insert K24 at the table paths' shapes,
+     ragged ones, with nulls, a full table, repeated keys, a rekey conflict
+     and a table holding duplicates of an indexed key, bit for bit (see
+     table_kernel_phase);
   3. verify cases filter_num, len_window_avg, len_window_minmax,
      len_batch_group, having_order, stddev_distinct, time_window,
      external_time, self_join, pattern_within, count_seq and
      logical_pattern (the per-event scan) on the card against the frozen
-     CPU rows of VERIFY.json;
+     CPU rows of VERIFY.json, and table_crud by its store query;
   4. the main path at full width: BASELINE.json config 1 (filter + length(50)
      window + avg) and the same app with min/max added, at @app:batch 32768,
      2,000,000 events each through send_columns in calls of 8 batches (the
@@ -78,7 +83,18 @@ engine next to it. Phases, each printed as it ends:
      externalTimeBatch(ets, 1 sec) with avg, stdDev, max, minForever,
      distinctCount and count, 1,000,000 events fused and a 20-batch
      per-batch prefix (exactly equal); each path's launches, no overflow,
-     and its first 8,192 events against device="cpu" at @app:batch 4096.
+     and its first 8,192 events against device="cpu" at @app:batch 4096;
+ 10. the table paths (bench.py:266's traffic, B=8192, 128 batches fused in
+     calls of 8; see table_path_phase): TAB-PK (a @PrimaryKey update of a
+     1,000,000-row table down the indexed path), TAB-IX (the same update
+     without @PrimaryKey: the auto-index's duplicate flag picks the
+     indexed or dense path on the device), TAB-DENSE (a range update
+     and a delete over 100,000 rows), TAB-UPSERT (update or insert into a
+     100,000-row table that fills) and TAB-JOIN (a stream-table join and an
+     `in` condition over 16,384 rows); each path's launches held to its
+     steps, its table after 20 batches equal to the per-batch form's, its
+     first 4 batches equal to device="cpu", events/s and the device busy
+     share of one more fused call.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
 
@@ -241,6 +257,18 @@ VERIFY_CASES = {
     "logical_pattern": VERIFY_HEAD + """@app:patternCapacity(size='64')
         @info(name='q') from every (a=S[price > 90] and b=S[volume > 500])
         select a.price as pa, b.volume as vb insert into Out;""",
+}
+
+
+# bench.py:VERIFY_TABLE_CASES: read back by a store query
+VERIFY_TABLE_CASES = {
+    "table_crud": (
+        VERIFY_HEAD + """@capacity(size='512') define table T (symbol string, total long);
+        @info(name='w') from S#window.lengthBatch(8)
+        select symbol, sum(volume) as total group by symbol
+        update or insert into T on T.symbol == symbol;""",
+        "from T select symbol, total",
+    ),
 }
 
 
@@ -1878,6 +1906,337 @@ def time_batch_kernel_phase(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2, the table slice: K21-K24 against their plain versions
+# ---------------------------------------------------------------------------
+
+TAB_PK_ROWS, TAB_ROWS, TAB_JOIN_ROWS, TAB_BATCH = 1_000_000, 100_000, 16_384, 8192
+LONG_NULL = -(1 << 63)
+
+
+def time_once(torch, fn) -> float:
+    """Wall time of one call on the device, from CUDA events (for the slow
+    plain versions of K21 and K24, which loop on the host)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def table_kernel_phase(torch, dev) -> dict:
+    """The table slice's kernels against their plain versions on the card,
+    bit for bit, from the same inputs and state: the insert (K21) at path
+    TAB-PK's load (C=1,000,000 half full, B=8192, the key's sorted index)
+    and TAB-UPSERT's (C=100,000, no index: the table scan), with keys new,
+    stored, repeated within the batch and null, then ragged B 1/33/4097 and
+    C 33/4097, a full table (overflow), a two-column key and no key; the
+    index build and probe (K22) at TAB-PK's shape (1,000,000 keys, 8192
+    probes with repeats, nulls and misses), float keys with NaN, -0.0 and
+    +inf, int keys with nulls, a table holding duplicates (ix_dups), float
+    probes of long keys, ragged sizes; the condition match (K23) at
+    TAB-DENSE's shape (B=8192, C=100,000, `T.k >= k and T.k < k + 8`, writer
+    and delete) and TAB-JOIN's (B=8192, C=16,384, `T.k == k`, per row), with
+    nulls, ragged, its device gate off and on; the sequential routines (K24)
+    at TAB-UPSERT's shape
+    (B=8192, C=100,000 half full, keys from [0, 150,000)), a full table, the
+    rekey guard (a rekey onto a live key, two rekeys in one event, a clean
+    rekey) and the unguarded update with a table-dependent set value."""
+    from siddhi_tpu_torch.compiler.siddhi_compiler import SiddhiCompiler
+    from siddhi_tpu_torch.core.event import StreamSchema
+    from siddhi_tpu_torch.core.executor import TS_ATTR, Env
+    from siddhi_tpu_torch.core.pattern import OP_CONST, OP_REG
+    from siddhi_tpu_torch.core.table import (
+        InMemoryTable,
+        eval_regs,
+        build_scan_programs,
+        emit_program,
+        output_scope,
+    )
+    from siddhi_tpu_torch.core.types import AttrType, InternTable
+    from siddhi_tpu_torch.ops import table as K
+    from siddhi_tpu_torch.query_api.execution import UpdateSetAttribute
+    from siddhi_tpu_torch.query_api.expression import Variable
+
+    names = ("table_write", "table_index_build", "table_index_probe", "table_match",
+             "table_scan")
+    res = {k: {"max_abs_err": 0.0, "checks": 0} for k in names}
+    rng = np.random.default_rng(808)
+    interner = InternTable()
+    out_schema = StreamSchema("__out__", [("k", AttrType.LONG), ("v", AttrType.LONG)])
+
+    def make_table(pk: str = "", index: str = "", c: int = 64, cols="k long, v long"):
+        app = SiddhiCompiler.parse(f"{pk} {index} define table T ({cols});")
+        return InMemoryTable(app.table_definitions["T"], interner, dev, capacity=c)
+
+    def exact(name, got, want):
+        torch.cuda.synchronize()
+        same_bits(torch, got, want)
+        res[name]["checks"] += 1
+
+    def fill_state(t, n_valid: int, keys=None, holes=True):
+        """t's state with n_valid valid slots (scattered when holes), keys
+        0.. or `keys`, v = the key times 10, seq a permutation, indexes
+        built by the plain version."""
+        c = t.capacity
+        st = t.init_state()
+        pos = rng.permutation(c)[:n_valid] if holes else np.arange(n_valid)
+        valid = np.zeros(c, bool)
+        valid[pos] = True
+        k = np.asarray(keys if keys is not None else np.arange(n_valid), np.int64)
+        kcol = np.zeros(c, np.int64)
+        kcol[pos] = k
+        kcol[~valid] = rng.integers(0, 1 << 40, int((~valid).sum()))  # stale values
+        st["cols"]["k"] = torch.from_numpy(kcol).to(dev)
+        if "v" in st["cols"]:
+            st["cols"]["v"] = torch.from_numpy(kcol * 10).to(dev)
+        seq = np.full(c, np.iinfo(np.int64).max, np.int64)
+        seq[pos] = rng.permutation(n_valid)
+        st["ts"] = torch.from_numpy(np.arange(c, dtype=np.int64) + 1_700_000_000_000).to(dev)
+        st["valid"] = torch.from_numpy(valid).to(dev)
+        st["seq"] = torch.from_numpy(seq).to(dev)
+        st["next"] = torch.tensor(n_valid, dtype=torch.int64, device=dev)
+        for col in t._indexed_cols:
+            o, s, d = K.table_index_build_ref(st["cols"][col], st["valid"])
+            st.update({f"ix_order.{col}": o, f"ix_sorted.{col}": s, f"ix_dups.{col}": d})
+        return st
+
+    def batch_cols(b, lo, hi, nulls=0.05, dup=0.1):
+        k = rng.integers(lo, hi, b).astype(np.int64)
+        rep = rng.random(b) < dup
+        k[rep] = k[rng.integers(0, b, b)][rep]
+        k[rng.random(b) < nulls] = LONG_NULL
+        cols = {"k": torch.from_numpy(k).to(dev),
+                "v": torch.from_numpy(np.arange(b, dtype=np.int64)).to(dev)}
+        rows = torch.from_numpy(rng.random(b) < 0.95).to(dev)
+        ts = torch.from_numpy(np.arange(b, dtype=np.int64) + 1_800_000_000_000).to(dev)
+        return cols, ts, rows
+
+    # ---- K21: the insert --------------------------------------------------
+    def write_case(t, st, b, lo, hi, **kw):
+        cols, ts, rows = batch_cols(b, lo, hi, **kw)
+        index = None
+        if len(t.primary_keys) == 1 and t.primary_keys[0] in t._indexed_cols:
+            col = t.primary_keys[0]
+            index = (st[f"ix_order.{col}"], st[f"ix_sorted.{col}"])
+        got = K.table_write(st, cols, ts, rows, t.primary_keys, index)
+        want = K.table_write_ref(st, cols, ts, rows, t.primary_keys)
+        exact("table_write", got, want)
+        return st, cols, ts, rows, index
+
+    t_pk = make_table("@PrimaryKey('k')", "@Index('k')", TAB_PK_ROWS)
+    st_pk = fill_state(t_pk, TAB_PK_ROWS // 2)
+    _st, w_cols, w_ts, w_rows, w_index = write_case(t_pk, st_pk, TAB_BATCH, TAB_PK_ROWS // 4,
+                                                    TAB_PK_ROWS)
+    r21 = res["table_write"]
+    r21["ms"] = time_ms(torch, lambda: K.table_write(st_pk, w_cols, w_ts, w_rows, ["k"], w_index),
+                        10)
+    r21["plain_ms"] = time_once(torch, lambda: K.table_write_ref(st_pk, w_cols, w_ts, w_rows,
+                                                                 ["k"]))
+    r21["library_ms"] = None
+    # the rows' lanes and key search (log2 C probes of the sorted keys, then
+    # the found slot's ix_order once), the occupancy read, the kept rows'
+    # lanes written with valid and seq
+    probes = TAB_BATCH * (int(np.ceil(np.log2(TAB_PK_ROWS))) * 8 + 4)
+    r21["bound_ms"], r21["bound_by"] = (
+        (TAB_BATCH * (8 + 8 + 8 + 1) + probes + TAB_PK_ROWS + TAB_BATCH * (8 + 8 + 8 + 8 + 1))
+        / MEM_BYTES_PER_S * 1e3, "bytes")
+    t_up = make_table("@PrimaryKey('k')", "", TAB_ROWS)
+    st_up = fill_state(t_up, TAB_ROWS // 2)
+    _st, u_cols, u_ts, u_rows, _ix = write_case(t_up, st_up, TAB_BATCH, 0, 3 * TAB_ROWS // 2)
+    r21["scan_ms"] = time_ms(torch, lambda: K.table_write(st_up, u_cols, u_ts, u_rows, ["k"]), 5)
+    for b, c, n in ((1, 33, 10), (33, 33, 20), (4097, 4097, 2000), (33, 4097, 4097),
+                    (8, 33, 30), (4097, 33, 0)):
+        for pk, ix in (("@PrimaryKey('k')", "@Index('k')"), ("@PrimaryKey('k')", ""),
+                       ("@PrimaryKey('k','v')", ""), ("", "")):
+            t = make_table(pk, ix, c)
+            write_case(t, fill_state(t, n), b, 0, 2 * max(n, 1), nulls=0.1, dup=0.3)
+
+    # ---- K22: the sorted index and its probe ------------------------------
+    r22, r22p = res["table_index_build"], res["table_index_probe"]
+    keys, valid = st_pk["cols"]["k"], st_pk["valid"]
+    exact("table_index_build", K.table_index_build(keys, valid),
+          K.table_index_build_ref(keys, valid))
+    r22["ms"] = time_ms(torch, lambda: K.table_index_build(keys, valid), 10)
+    r22["plain_ms"] = time_ms(torch, lambda: K.table_index_build_ref(keys, valid), 5)
+    r22["library_ms"] = time_ms(torch, lambda: torch.sort(keys, stable=True), 10)
+    r22["bound_ms"], r22["bound_by"] = (TAB_PK_ROWS * (8 + 1 + 4 + 8) / MEM_BYTES_PER_S * 1e3,
+                                        "bytes")
+    for c in (1, 33, 4097, 70_000):
+        fk = rng.uniform(-5, 5, c).astype(np.float32).round()
+        fk[rng.random(c) < 0.1] = np.nan
+        fk[rng.random(c) < 0.05] = -0.0
+        fk[rng.random(c) < 0.05] = np.inf
+        ik = rng.integers(-3, 3, c).astype(np.int32)
+        ik[rng.random(c) < 0.1] = np.iinfo(np.int32).min
+        lk = rng.integers(-(1 << 62), 1 << 62, c).astype(np.int64)
+        lk[rng.random(c) < 0.1] = LONG_NULL
+        vm = torch.from_numpy(rng.random(c) < 0.7).to(dev)
+        for arr in (fk, ik, lk, np.unique(lk)[: c] if c > 1 else lk):
+            kk = torch.from_numpy(np.resize(arr, c)).to(dev)
+            exact("table_index_build", K.table_index_build(kk, vm), K.table_index_build_ref(kk, vm))
+
+    def probe_case(keys, valid, probe_raw, ok):
+        order, sk, _d = K.table_index_build_ref(keys, valid)
+        exact("table_index_probe", K.table_index_probe(keys, valid, order, sk, probe_raw, ok),
+              K.table_index_probe_ref(keys, valid, order, sk, probe_raw, ok))
+        return order, sk
+
+    pk_probe = torch.from_numpy(rng.integers(0, TAB_PK_ROWS, TAB_BATCH).astype(np.int64)).to(dev)
+    pk_probe[::97] = LONG_NULL
+    ok = w_rows & (pk_probe != LONG_NULL)
+    order, sk = probe_case(keys, valid, pk_probe, ok)
+    r22p["ms"] = time_ms(torch, lambda: K.table_index_probe(keys, valid, order, sk, pk_probe, ok),
+                         10)
+    r22p["plain_ms"] = time_ms(torch, lambda: K.table_index_probe_ref(keys, valid, order, sk,
+                                                                      pk_probe, ok), 5)
+    r22p["library_ms"] = time_ms(torch, lambda: torch.searchsorted(sk, pk_probe), 10)
+    r22p["bound_ms"], r22p["bound_by"] = (
+        (TAB_BATCH * (8 + 1 + 4) + TAB_BATCH * int(np.ceil(np.log2(TAB_PK_ROWS))) * 8
+         + TAB_BATCH * (4 + 8 + 1)) / MEM_BYTES_PER_S * 1e3, "bytes")
+    for b, c in ((1, 33), (33, 33), (4097, 4097), (33, 4097), (4097, 33)):
+        kk = torch.from_numpy(rng.integers(0, c // 2 + 1, c).astype(np.int64)).to(dev)  # dups
+        vm = torch.from_numpy(rng.random(c) < 0.8).to(dev)
+        pr = torch.from_numpy(rng.integers(-1, c // 2 + 2, b).astype(np.int64)).to(dev)
+        probe_case(kk, vm, pr, torch.from_numpy(rng.random(b) < 0.9).to(dev))
+        fp = pr.to(torch.float32) + torch.from_numpy(
+            (rng.random(b) < 0.3) * 0.5).to(dev).to(torch.float32)  # fractional misses
+        probe_case(kk, vm, fp, ~torch.isnan(fp))
+        fkk = torch.from_numpy(np.resize(fk, c)).to(dev)
+        probe_case(fkk, vm, fkk[torch.from_numpy(rng.integers(0, c, b)).to(dev)],
+                   torch.ones(b, dtype=torch.bool, device=dev))
+
+    # ---- K23: the condition match -----------------------------------------
+    def program(t, text):
+        scope = output_scope(t, out_schema, interner, dev)
+        return emit_program(SiddhiCompiler.parse_expression(text), scope, "T")
+
+    def probe_env(cols, ts):
+        env = {("__out__", None, n): v for n, v in cols.items()}
+        env[("__out__", None, TS_ATTR)] = ts
+        return Env(env, now=torch.zeros((), dtype=torch.int64, device=dev))
+
+    def match_case(t, st, text, cols, ts, rows, mode, gate=None):
+        prog = program(t, text)
+        regs = eval_regs(prog.regs, probe_env(cols, ts), rows.shape[0])
+        lanes = K.lane_tensors(prog, st["cols"], st["ts"])
+        if gate is not None:
+            gate = torch.tensor(gate, device=dev)
+        exact("table_match", K.table_match(prog, regs, lanes, st["valid"], rows, mode, gate),
+              K.table_match_ref(prog, regs, lanes, st["valid"], rows, mode, gate))
+        return prog, regs, lanes
+
+    r23 = res["table_match"]
+    t_d = make_table("", "", TAB_ROWS)
+    st_d = fill_state(t_d, TAB_ROWS)
+    d_cols, d_ts, d_rows = batch_cols(TAB_BATCH, 0, TAB_ROWS, nulls=0.01, dup=0.0)
+    dense = "T.k >= k and T.k < k + 8"
+    prog, regs, lanes = match_case(t_d, st_d, dense, d_cols, d_ts, d_rows, K.MODE_WRITER)
+    match_case(t_d, st_d, dense, d_cols, d_ts, d_rows, K.MODE_DELETE)
+    for gate in (False, True):  # the device flag of an auto-index's dense path
+        match_case(t_d, st_d, "T.k == k", d_cols, d_ts, d_rows, K.MODE_WRITER, gate)
+    r23["ms"] = time_ms(torch, lambda: K.table_match(prog, regs, lanes, st_d["valid"], d_rows,
+                                                     K.MODE_WRITER), 3)
+    r23["plain_ms"] = time_ms(torch, lambda: K.table_match_ref(prog, regs, lanes, st_d["valid"],
+                                                               d_rows, K.MODE_WRITER), 2)
+    tk, pk = st_d["cols"]["k"], d_cols["k"]
+    r23["library_ms"] = time_ms(torch, lambda: (
+        (tk[None, :] >= pk[:, None]) & (tk[None, :] < pk[:, None] + 8)).any(0), 2)
+    # the cells this run's data needs: per valid slot, the probe rows from
+    # the last down to its writer (all of them where none matches), each the
+    # program's arithmetic, compare and logic instructions (not its loads)
+    w = K.table_match(prog, regs, lanes, st_d["valid"], d_rows, K.MODE_WRITER).long()
+    suffix = torch.flip(torch.cumsum(torch.flip(d_rows.long(), [0]), 0), [0])
+    cells = int(torch.where(w >= 0, suffix[w.clamp(min=0)], suffix[0])[st_d["valid"]].sum())
+    n_ops = sum(1 for ins in prog.code if ins[0] not in (OP_REG, OP_CONST, K.OP_TAB))
+    r23["cells"], r23["ops_per_cell"] = cells, n_ops
+    r23["bound_ms"], r23["bound_by"] = max(
+        ((TAB_ROWS * (8 + 1 + 4) + TAB_BATCH * (sum(r.element_size() for r in regs) + 1))
+         / MEM_BYTES_PER_S * 1e3, "bytes"),
+        (cells * n_ops / FP32_OPS_PER_S * 1e3, "operations"))
+    t_j = make_table("", "", TAB_JOIN_ROWS)
+    st_j = fill_state(t_j, TAB_JOIN_ROWS)
+    j_cols, j_ts, j_rows = batch_cols(TAB_BATCH, 0, 2 * TAB_JOIN_ROWS, nulls=0.01, dup=0.0)
+    jp, jr, jl = match_case(t_j, st_j, "T.k == k", j_cols, j_ts, j_rows, K.MODE_IN)
+    r23["in_ms"] = time_ms(torch, lambda: K.table_match(jp, jr, jl, st_j["valid"], j_rows,
+                                                        K.MODE_IN), 5)
+    for b, c in ((1, 33), (33, 33), (4097, 4097), (33, 4097), (4097, 33)):
+        t = make_table("", "", c)
+        st = fill_state(t, c // 2)
+        cols, ts, rows = batch_cols(b, -2, c, nulls=0.2, dup=0.2)
+        for text in (dense, "T.k == k", "T.v / (k - 3) > 2 or k is null", "v > 5"):
+            for mode in (K.MODE_WRITER, K.MODE_DELETE, K.MODE_IN):
+                match_case(t, st, text, cols, ts, rows, mode)
+        for mode in (K.MODE_WRITER, K.MODE_DELETE, K.MODE_IN):
+            match_case(t, st, "T.k == k", cols, ts, rows, mode, False)
+
+    # ---- K24: the sequential update and the update-or-insert --------------
+    r24 = res["table_scan"]
+
+    def scan_case(t, st, on, sets, guard, cols, ts, rows, upsert):
+        scope = output_scope(t, out_schema, interner, dev)
+        set_attrs = [UpdateSetAttribute(Variable(n), SiddhiCompiler.parse_expression(x))
+                     for n, x in sets] if sets else None
+        sp = build_scan_programs(t, scope, SiddhiCompiler.parse_expression(on), set_attrs,
+                                 [n for n, _x in sets] if sets else t.schema.attr_names, guard)
+        regs = eval_regs(sp.on.regs, probe_env(cols, ts), rows.shape[0])
+        if upsert:
+            ins = {n: cols[n] for n in t.schema.attr_names}
+            got = K.table_upsert_scan(sp, regs, st, rows, ins, ts)
+            want = K.table_upsert_scan_ref(sp, regs, st, rows, ins, ts)
+        else:
+            got = K.table_update_scan(sp, regs, st, rows)
+            want = K.table_update_scan_ref(sp, regs, st, rows)
+        exact("table_scan", got, want)
+        return sp, regs
+
+    t_u = make_table("@PrimaryKey('k')", "@Index('k')", TAB_ROWS)
+    st_u = fill_state(t_u, TAB_ROWS // 2, holes=False)
+    sp, regs = scan_case(t_u, st_u, "T.k == k", None, None, u_cols, u_ts, u_rows, True)
+    ins = {n: u_cols[n] for n in t_u.schema.attr_names}
+    r24["ms"] = time_ms(torch, lambda: K.table_upsert_scan(sp, regs, st_u, u_rows, ins, u_ts), 2)
+    r24["plain_ms"] = time_once(torch, lambda: K.table_upsert_scan_ref(sp, regs, st_u, u_rows,
+                                                                       ins, u_ts))
+    r24["library_ms"] = None
+    # an equality `on` over a primary key matches at most one slot a row: the
+    # function needs an index lookup per row and one pass over the table's
+    # lanes (k, v, ts, seq and valid, read and written once) and the rows'
+    r24["bound_ms"], r24["bound_by"] = (
+        (TAB_ROWS * (8 + 8 + 8 + 8 + 1) * 2 + TAB_BATCH * (8 + 8 + 8 + 1))
+        / MEM_BYTES_PER_S * 1e3, "bytes")
+    t_s = make_table("", "", TAB_ROWS)
+    st_s = fill_state(t_s, TAB_ROWS)
+    s_cols, s_ts, s_rows = batch_cols(TAB_BATCH, 0, TAB_ROWS, nulls=0.01, dup=0.3)
+    sp2, regs2 = scan_case(t_s, st_s, "T.k == k", [("v", "T.v + v")], None, s_cols, s_ts,
+                           s_rows, False)
+    r24["update_ms"] = time_ms(torch, lambda: K.table_update_scan(sp2, regs2, st_s, s_rows), 3)
+    for b, c, n in ((1, 33, 10), (33, 33, 33), (4097, 4097, 2000), (33, 4097, 4000),
+                    (4097, 33, 20)):
+        t = make_table("@PrimaryKey('k')", "", c)
+        st = fill_state(t, n)
+        cols, ts, rows = batch_cols(b, 0, 2 * c, nulls=0.1, dup=0.3)
+        scan_case(t, st, "T.k == k", None, None, cols, ts, rows, True)  # full tables overflow
+        scan_case(t, st, "T.k == k and T.v > -100", None, None, cols, ts, rows, True)
+        scan_case(t, st, "T.k == k", [("v", "T.v + v"), ("k", "T.k")], None, cols, ts, rows,
+                  False)
+        # the rekey guard: `on T.v == v set T.k = k` (a rekey onto a live key,
+        # or of two rows in one event, fails the event)
+        cols2 = dict(cols)
+        cols2["v"] = torch.from_numpy(rng.integers(0, 2 * c, b).astype(np.int64) * 10).to(dev)
+        scan_case(t, st, "T.v == v or T.v == v + 10", [("k", "k"), ("v", "T.v + 1")], "k", cols2,
+                  ts, rows, False)
+        scan_case(t, st, "T.v == v", [("k", "k")], "k", cols2, ts, rows, False)
+    for name in names:
+        r = res[name]
+        lib = "None" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={lib} "
+              f"checks={r['checks']} exact", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 3: verify cases against VERIFY.json
 # ---------------------------------------------------------------------------
 
@@ -1910,6 +2269,18 @@ def verify_phase(dev) -> None:
         if not rows_match(got, frozen[case]):
             raise AssertionError(f"verify case {case}: rows differ from VERIFY.json")
         print(f"verify {case}: {len(got)} rows match VERIFY.json", flush=True)
+    for case, (ql, sq) in VERIFY_TABLE_CASES.items():
+        mgr = SiddhiManager(device=dev)
+        rt = mgr.create_siddhi_app_runtime(ql)
+        rt.start()
+        h = rt.get_input_handler("S")
+        for i, r in enumerate(rows):
+            h.send(r, timestamp=int(ts[i]))
+        got = sorted(list(e.data) for e in rt.query(sq))
+        rt.shutdown()
+        if not rows_match(got, frozen[case]):
+            raise AssertionError(f"verify case {case}: store-query rows differ from VERIFY.json")
+        print(f"verify {case}: {len(got)} store-query rows match VERIFY.json", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2635,6 +3006,236 @@ def xb_path_phase(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the table paths (bench.py:266 _leg_table_scaling's traffic)
+# ---------------------------------------------------------------------------
+
+TAB_HEAD = """@app:batch(size='{batch}')
+define stream Loader (k long, v long);
+define stream S (k long, v long);
+"""
+TAB_APPS = {
+    "TAB-PK": TAB_HEAD + """@PrimaryKey('k')
+@capacity(size='{n}')
+define table T (k long, v long);
+@info(name='load') from Loader insert into T;
+@info(name='upd') from S select k, v update T on T.k == k;
+""",
+    "TAB-DENSE": TAB_HEAD + """define stream D (k long);
+@capacity(size='{n}')
+define table T (k long, v long);
+@info(name='load') from Loader insert into T;
+@info(name='upd') from S select k, v update T set T.v = v on T.k >= k and T.k < k + 8;
+@info(name='del') from D select k delete T on T.k == k;
+""",
+    # @Index('k'): the planner indexes only @Index columns and equality
+    # update probes, so without it neither package keeps a sorted index here
+    "TAB-UPSERT": TAB_HEAD + """@PrimaryKey('k')
+@Index('k')
+@capacity(size='{n}')
+define table T (k long, v long);
+@info(name='load') from Loader insert into T;
+@info(name='upd') from S select k, v update or insert into T on T.k == k;
+""",
+    # bench.py:266's leg without @PrimaryKey: the equality `on` auto-indexes
+    # k, and each step picks the indexed or the dense path on the device
+    # from the index's duplicate flag (K22's probe and K23 gated by it)
+    "TAB-IX": TAB_HEAD + """@capacity(size='{n}')
+define table T (k long, v long);
+@info(name='load') from Loader insert into T;
+@info(name='upd') from S select k, v update T on T.k == k;
+""",
+    "TAB-JOIN": "@app:joinCapacity(size='{batch}')\n" + TAB_HEAD + """define stream Q (k long);
+@capacity(size='{n}')
+define table T (k long, v long);
+@info(name='load') from Loader insert into T;
+@info(name='q') from Q join T on Q.k == T.k select Q.k as k, T.v as v insert into Out;
+@info(name='q2') from Q[(T.k == k) in T] select k insert into Out2;
+""",
+}
+# per path: the keys loaded (0..) and the probe keys' range, as shares of n
+TAB_LOAD = {"TAB-PK": (1.0, 1.0), "TAB-IX": (1.0, 1.0), "TAB-DENSE": (1.0, 1.0),
+            "TAB-UPSERT": (0.5, 1.5), "TAB-JOIN": (1.0, 2.0)}
+TAB_N = {"TAB-PK": TAB_PK_ROWS, "TAB-IX": TAB_PK_ROWS, "TAB-DENSE": TAB_ROWS,
+         "TAB-UPSERT": TAB_ROWS, "TAB-JOIN": TAB_JOIN_ROWS}
+TAB_BATCHES, TAB_PREFIX, TAB_CALL, TAB_CPU_BATCHES, TAB_PK_CPU_ROWS = 128, 20, 8, 4, 65_536
+
+
+def fused_steps(n: int, b: int, k: int = 32) -> int:
+    """The query steps one send_columns call of n events runs at batch b:
+    per batch under 2 batches, else fused chunks of k batches, a short tail
+    padded to the smallest power of two that holds it (FusedJunctionIngest
+    ._chunk_K; the padding's empty batches step too)."""
+    batches = -(-n // b)
+    if batches < 2:
+        return batches
+    steps = 0
+    while batches > 0:
+        kk = k if batches >= k else min(k, 1 << max(1, (batches - 1).bit_length()))
+        steps += kk
+        batches -= kk
+    return steps
+
+
+def run_table_path(dev: str, label: str, n: int, batch: int, n_batches: int, fused: bool = True,
+                   busy: bool = False) -> dict:
+    """One table path: the app of TAB_APPS at capacity n and @app:batch
+    `batch`; the table loaded with keys 0.. through `from Loader insert into
+    T` (one send_columns call); then `n_batches` batches of the traffic of
+    bench.py:266 (keys uniform from the path's range with default_rng(3),
+    values arange) in send_columns calls of 8 batches (fused once 2 batches
+    or more; `fused=False` detaches the fused engines); TAB-DENSE also
+    deletes one batch of keys (default_rng(4)) after every second call.
+    Returns the table's rows in order, the callback rows, the traffic's
+    seconds (after a device sync) and the steps of the probing stream; with
+    `busy`, the wall and device busy ms of one more fused call."""
+    import torch
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(TAB_APPS[label].format(batch=batch, n=n))
+    got: dict = {q: [] for q in ("q", "q2") if q in rt.queries}
+    for q, rows in got.items():
+        rt.add_callback(q, lambda t, ins, rem, _r=rows: _r.extend(tuple(e.data) for e in ins or []))
+    rt.start()
+    if not fused:
+        for j in rt.junctions.values():
+            j.fused_ingest = None
+    load, span = TAB_LOAD[label]
+    lk = np.arange(int(n * load), dtype=np.int64)
+    rt.get_input_handler("Loader").send_columns(lk, {"k": lk, "v": lk})
+    total = batch * n_batches
+    ks = np.random.default_rng(3).integers(0, int(n * span), size=total).astype(np.int64)
+    vs = np.arange(total, dtype=np.int64)
+    dk = np.random.default_rng(4).integers(0, n, size=total).astype(np.int64)
+    stream = "Q" if label == "TAB-JOIN" else "S"
+    h = rt.get_input_handler(stream)
+    hd = rt.get_input_handler("D") if label == "TAB-DENSE" else None
+
+    def call(lo, hi, c):
+        cols = {"k": ks[lo:hi]} if stream == "Q" else {"k": ks[lo:hi], "v": vs[lo:hi]}
+        h.send_columns(vs[lo:hi], cols)
+        if hd is not None and c % 2 == 1:
+            hd.send_columns(vs[lo:lo + batch], {"k": dk[lo:lo + batch]})
+
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c, lo in enumerate(range(0, total, TAB_CALL * batch)):
+        call(lo, min(total, lo + TAB_CALL * batch), c)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    from siddhi_tpu_torch import kernels
+
+    out = {"table": [tuple(e.data) for e in rt.query("from T select k, v")], "rows": got,
+           "seconds": dt, "launches": dict(kernels.launches)}
+    if busy:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            call(0, TAB_CALL * batch, 0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        busy_us = 0.0
+        for e in prof.key_averages():
+            dev_us = getattr(e, "self_device_time_total", None)
+            busy_us += e.self_cuda_time_total if dev_us is None else dev_us
+        out["busy"] = {"wall_ms_8_batches": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+                       "share": busy_us / 1e3 / (wall * 1e3)}
+    rt.shutdown()
+    mgr.shutdown()
+    return out
+
+
+def table_path_phase(torch, label: str, expected) -> dict:
+    """One table path at its realistic size (TAB_N, B=8192): 128 batches
+    fused, with the launch counts of this run alone (from 0 just before the
+    app is built, through the load and the traffic) equal to
+    `expected(load batches, batches)`; events/s and the device busy share of
+    one more fused call; the table (and the callback rows) after a 20-batch
+    fused run equal to the per-batch form's; the first 4 batches against
+    device="cpu" (TAB-PK and TAB-IX at capacity 65,536); the overflow flag logged
+    where the path fills its table (TAB-UPSERT) and no other flag."""
+    from siddhi_tpu_torch import kernels
+
+    b, n, depth, prefix = TAB_BATCH, TAB_N[label], TAB_BATCHES, TAB_PREFIX
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logging.getLogger("siddhi_tpu_torch").addHandler(handler)
+    try:
+        kernels.launches.clear()
+        main = run_table_path("cuda", label, n, b, depth, busy=True)
+    finally:
+        logging.getLogger("siddhi_tpu_torch").removeHandler(handler)
+    launches = main["launches"]
+    print(f"{label} launches {json.dumps(launches)}", flush=True)
+    want = expected(fused_steps(int(n * TAB_LOAD[label][0]), b), depth)
+    for k, w in want.items():
+        if launches.get(k, 0) != w:
+            raise AssertionError(f"{label}: {k} launched {launches.get(k, 0)} times, not {w}")
+    logged = [r.getMessage() for r in records]
+    overflow = any("ran out of capacity" in m for m in logged)
+    if overflow != (label == "TAB-UPSERT") or any("primary key" in m for m in logged):
+        raise AssertionError(f"{label}: unexpected flag logs {logged}")
+    fused = run_table_path("cuda", label, n, b, prefix)
+    pb = run_table_path("cuda", label, n, b, prefix, fused=False)
+    if fused["table"] != pb["table"] or fused["rows"] != pb["rows"]:
+        raise AssertionError(f"{label}: the fused run's table differs from the per-batch form's")
+    cn = TAB_PK_CPU_ROWS if label in ("TAB-PK", "TAB-IX") else n
+    t_cpu = time.perf_counter()
+    on_cpu = run_table_path("cpu", label, cn, b, TAB_CPU_BATCHES)
+    cpu_s = time.perf_counter() - t_cpu
+    on_card = run_table_path("cuda", label, cn, b, TAB_CPU_BATCHES)
+    if on_card["table"] != on_cpu["table"] or on_card["rows"] != on_cpu["rows"]:
+        raise AssertionError(f"{label}: the first {TAB_CPU_BATCHES} batches differ from "
+                             "device='cpu'")
+    events = b * depth
+    out = {"capacity": n, "batch": b, "batches": depth, "events": events,
+           "seconds": main["seconds"], "events_per_s": events / main["seconds"],
+           "table_rows": len(main["table"]),
+           "callback_rows": {q: len(r) for q, r in main["rows"].items()},
+           "launches": launches, "busy": main["busy"], "overflow_logged": overflow,
+           "per_batch_prefix": {"batches": prefix, "table_rows": len(pb["table"]),
+                                "equal": True},
+           "cpu_check": {"capacity": cn, "batches": TAB_CPU_BATCHES,
+                         "table_rows": len(on_cpu["table"]), "cpu_seconds": cpu_s}}
+    print(f"path {label}: capacity {n}, {events} events in {main['seconds']:.3f} s, "
+          f"{events / main['seconds']:.1f} events/s fused, {len(main['table'])} table rows, "
+          f"callback rows {out['callback_rows']}; device busy "
+          f"{main['busy']['device_busy_ms']:.3f} of {main['busy']['wall_ms_8_batches']:.3f} ms "
+          f"over one fused call of 8 batches ({main['busy']['share']:.4f}); 20-batch table equal "
+          f"to the per-batch form's; first {TAB_CPU_BATCHES} batches equal to device='cpu' at "
+          f"capacity {cn} ({cpu_s:.1f} s on the host)", flush=True)
+    return out
+
+
+def table_paths_phase(torch) -> dict:
+    """The table paths (see table_path_phase), each kernel's launches held
+    to its steps, L being the load's steps (fused_steps) and `steps` the
+    path's batches: TAB-PK, K21 and K22's rebuild a load batch (and once
+    when the update indexes k at app creation), K22's probe a step; TAB-IX
+    as TAB-PK, and K23 (gated off by the index's duplicate flag) a step;
+    TAB-DENSE, K23 an update step and a delete step; TAB-UPSERT, K24 and
+    K22's rebuild a step; TAB-JOIN, K12 and K23 (`in`) a probe step."""
+    return {
+        "TAB-PK": table_path_phase(torch, "TAB-PK", lambda L, steps: {
+            "table_write": L, "table_index_build": L + 1, "table_index_probe": steps}),
+        "TAB-IX": table_path_phase(torch, "TAB-IX", lambda L, steps: {
+            "table_write": L, "table_index_build": L + 1, "table_index_probe": steps,
+            "table_match": steps}),
+        "TAB-DENSE": table_path_phase(torch, "TAB-DENSE", lambda L, steps: {
+            "table_write": L, "table_match": steps + steps // (2 * TAB_CALL)}),
+        "TAB-UPSERT": table_path_phase(torch, "TAB-UPSERT", lambda L, steps: {
+            "table_write": L, "table_index_build": L + steps, "table_scan": steps}),
+        "TAB-JOIN": table_path_phase(torch, "TAB-JOIN", lambda L, steps: {
+            "table_write": L, "table_match": steps, "join_assemble": steps}),
+    }
+
+
 def profile_phase(torch, app: str, b: int) -> dict:
     """Where one full-width batch of `app` spends its time (B = b):
     host stages timed around torch.cuda.synchronize(),
@@ -2939,6 +3540,7 @@ def main() -> int:
     res.update(pattern_kernel_phase(torch, "cuda"))
     res.update(pattern_scan_kernel_phase(torch, "cuda"))
     res.update(time_batch_kernel_phase(torch, "cuda"))
+    res.update(table_kernel_phase(torch, "cuda"))
     if "--kernels" in sys.argv[1:]:
         return 0
     verify_phase("cuda")
@@ -2957,6 +3559,7 @@ def main() -> int:
     absent = absent_path_phase(torch)
     time_batch = tb_path_phase(torch)
     external_time_batch = xb_path_phase(torch)
+    tables = table_paths_phase(torch)
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -2999,7 +3602,17 @@ def main() -> int:
            "window_extreme_keyed": ("siddhi_tpu_torch/csrc/window_extreme.cu",
                                     "siddhi_tpu/core/aggregators.py:196"),
            "distinct_count": ("siddhi_tpu_torch/csrc/distinct_count.cu",
-                              "siddhi_tpu/core/aggregators.py:229")}
+                              "siddhi_tpu/core/aggregators.py:229"),
+           "table_write": ("siddhi_tpu_torch/csrc/table_write.cu",
+                           "siddhi_tpu/core/table.py:364"),
+           "table_index_build": ("siddhi_tpu_torch/csrc/table_index.cu",
+                                 "siddhi_tpu/core/table.py:337"),
+           "table_index_probe": ("siddhi_tpu_torch/csrc/table_index.cu",
+                                 "siddhi_tpu/core/table.py:606"),
+           "table_match": ("siddhi_tpu_torch/csrc/table_match.cu",
+                           "siddhi_tpu/core/table.py:431"),
+           "table_scan": ("siddhi_tpu_torch/csrc/table_scan.cu",
+                          "siddhi_tpu/core/table.py:704")}
     # launches: K1-K5 from the quickstart path's run, K6-K9 from the
     # tumbling_groupby path's run, K10 from path T's run, K11 and K12 from
     # path J's, K13 and K15 from path P's, K14 from path C's, K16 from path
@@ -3015,6 +3628,11 @@ def main() -> int:
               "distinct_count"):
         path_of[k] = time_batch["launches"]
     path_of["running_extreme"] = external_time_batch["launches"]
+    # K21 and K22's probe from path TAB-PK's run, K22's rebuild and K24 from
+    # TAB-UPSERT's, K23 from TAB-DENSE's
+    path_of["table_write"] = path_of["table_index_probe"] = tables["TAB-PK"]["launches"]
+    path_of["table_index_build"] = path_of["table_scan"] = tables["TAB-UPSERT"]["launches"]
+    path_of["table_match"] = tables["TAB-DENSE"]["launches"]
     path_launches = {k: path_of.get(k, main["launches"]).get(k, 0) for k in res}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
@@ -3047,7 +3665,12 @@ def main() -> int:
                        "time_batch_step_XB_ms": res["time_batch_step"]["XB_ms"],
                        "distinct_count_XB_ms": res["distinct_count"]["XB_ms"],
                        "window_extreme_keyed_pairs": res["window_extreme_keyed"]["pairs"],
-                       "running_extreme_library": res["running_extreme"]["library"]}},
+                       "running_extreme_library": res["running_extreme"]["library"]},
+                   "tables": tables,
+                   "table_kernel_shapes": {
+                       "table_write_scan_ms": res["table_write"]["scan_ms"],
+                       "table_match_in_ms": res["table_match"]["in_ms"],
+                       "table_update_scan_ms": res["table_scan"]["update_ms"]}},
                   f, indent=1)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -21,8 +21,11 @@ states and of timeBatch buckets and the externalTimeBatch idle timeout,
 fired by the event-time clock under @app:playback and by the wall clock
 otherwise; fused columnar ingest (core/ingest.py)
 with `@app:ingestChunk`, `@app:wire` and the per-stream `@pipeline`, which
-queries that need the scheduler stay off. Everything else raises
-`SiddhiAppCreationError("... not ported yet")`.
+queries that need the scheduler stay off; in-memory tables (core/table.py,
+`@app:tableCapacity`) written inside the query steps by insert, update,
+delete and update-or-insert outputs, read by `in` conditions and table join
+sides, and store queries (`query`, core/store_query.py). Everything else
+raises `SiddhiAppCreationError("... not ported yet")`.
 """
 
 from __future__ import annotations
@@ -75,7 +78,7 @@ DEFAULT_BATCH = 64
 _PORTED_APP_ANNOTATIONS = {"app:name", "app", "name", "app:description", "app:batch",
                            "app:playback", "app:ingestchunk", "app:wire",
                            "app:groupcapacity", "app:joincapacity", "app:patterncapacity",
-                           "app:countcapacity", "app:patternchunk"}
+                           "app:countcapacity", "app:patternchunk", "app:tablecapacity"}
 _UNPORTED_STREAM_ANNOTATIONS = {"onerror", "source", "sink", "async"}
 
 
@@ -96,7 +99,6 @@ class SiddhiAppRuntime:
             if a.name.lower() not in _PORTED_APP_ANNOTATIONS:
                 raise _not_ported(f"@{a.name}")
         for kind, defs in (
-            ("table", app.table_definitions),
             ("window", app.window_definitions),
             ("trigger", app.trigger_definitions),
             ("function", app.function_definitions),
@@ -159,6 +161,17 @@ class SiddhiAppRuntime:
         )
         self._pipeline_conf: dict[str, tuple[bool, int]] = {}
 
+        # tables (core/table.py); @store record tables raise in InMemoryTable
+        from siddhi_tpu_torch.core.table import DEFAULT_TABLE_CAPACITY, InMemoryTable
+
+        for tid, td in app.table_definitions.items():
+            if find_annotation(td.annotations, "OnError") is not None:
+                raise _not_ported(f"@OnError on table '{tid}'")
+        table_capacity = self._capacity_annotation("app:tableCapacity", DEFAULT_TABLE_CAPACITY)
+        self.tables = {tid: InMemoryTable(d, self.interner, self.device, capacity=table_capacity)
+                       for tid, d in app.table_definitions.items()}
+        self._store_query_cache: dict[str, object] = {}
+
         for sid, d in app.stream_definitions.items():
             for a in d.annotations:
                 if a.name.lower() in _UNPORTED_STREAM_ANNOTATIONS:
@@ -204,8 +217,8 @@ class SiddhiAppRuntime:
         """Route a query's output batches into its insert-into junction
         (reference: SiddhiAppRuntimeBuilder.addQuery:170-231 output wiring)."""
         out = qr.query.output_stream
-        if isinstance(out, ReturnStream):
-            return
+        if isinstance(out, ReturnStream) or qr.table_op is not None:
+            return  # table writes run inside the query step
         if not isinstance(out, InsertIntoStream) or out.is_fault:
             raise _not_ported(f"output '{type(out).__name__}'")
         target = out.target
@@ -252,7 +265,7 @@ class SiddhiAppRuntime:
                 f"query '{qid}': stream '{stream.stream_id}' is not defined"
             )
         qr = QueryRuntime(query, qid, in_schema, self.interner, self.device,
-                          group_capacity=self.group_capacity)
+                          group_capacity=self.group_capacity, tables=self.tables)
         self.queries[qid] = qr
         self._wire_insert(qr)
 
@@ -278,13 +291,15 @@ class SiddhiAppRuntime:
         schemas = []
         for s in (join.left, join.right):
             sch = self.stream_schemas.get(s.stream_id)
+            if sch is None and s.stream_id in self.tables:
+                sch = self.tables[s.stream_id].schema
             if sch is None:
                 raise DefinitionNotExistError(
                     f"query '{qid}': join stream '{s.stream_id}' is not defined")
             schemas.append(sch)
         qr = JoinQueryRuntime(query, qid, schemas[0], schemas[1], self.interner, self.device,
                               group_capacity=self.group_capacity,
-                              join_capacity=self.join_capacity)
+                              join_capacity=self.join_capacity, tables=self.tables)
         self.queries[qid] = qr
         self._wire_insert(qr)
 
@@ -317,6 +332,8 @@ class SiddhiAppRuntime:
             j.fuse_candidates.append(FuseEndpoint(qr, step=step_both, outputs=2))
         else:
             for side, stream in (("l", join.left), ("r", join.right)):
+                if qr.table_sides[side]:
+                    continue  # a table side is probed, never driven
                 sj = self._junction(stream.stream_id)
                 sj.subscribe(lambda b, now, _s=side: receive_side(b, now, _s))
                 sj.fuse_candidates.append(FuseEndpoint(qr, step=step_side(side)))
@@ -329,6 +346,10 @@ class SiddhiAppRuntime:
 
     def _add_pattern_query(self, qid: str, query: Query) -> None:
         from siddhi_tpu_torch.core.pattern_runtime import PatternQueryRuntime
+        from siddhi_tpu_torch.core.table import collect_used_tables
+
+        if collect_used_tables(query, self.tables):
+            raise _not_ported("a pattern query reading or writing a table")
 
         for s in iter_state_streams(query.input_stream.state):
             if s.stream_id not in self.stream_schemas:
@@ -456,6 +477,35 @@ class SiddhiAppRuntime:
             )
             return
         raise DefinitionNotExistError(f"no stream or query named '{name}'")
+
+    def query(self, store_query) -> list:
+        """One-shot pull query over tables (reference:
+        SiddhiAppRuntime.query:264-299), compiled once per query string."""
+        from siddhi_tpu_torch.core.store_query import StoreQueryRuntime
+
+        if isinstance(store_query, str):
+            sqr = self._store_query_cache.get(store_query)
+            if sqr is None:
+                from siddhi_tpu_torch.compiler.siddhi_compiler import SiddhiCompiler
+
+                sqr = StoreQueryRuntime(SiddhiCompiler.parse_store_query(store_query),
+                                        self.tables, self.interner, self.device,
+                                        group_capacity=self.group_capacity)
+                self._store_query_cache[store_query] = sqr
+        else:
+            sqr = StoreQueryRuntime(store_query, self.tables, self.interner, self.device,
+                                    group_capacity=self.group_capacity)
+        with self._process_lock:
+            return sqr.execute(self.clock())
+
+    def describe_state(self) -> dict:
+        """Live per-component state: each fused ingest engine and each
+        table's row count, capacity and indexes (one host read a table)."""
+        return {
+            "streams": {sid: j.fused_ingest.describe_state()
+                        for sid, j in self.junctions.items() if j.fused_ingest is not None},
+            "tables": {tid: t.describe_state() for tid, t in self.tables.items()},
+        }
 
     def set_exception_handler(self, handler) -> None:
         """Route subscriber, fused-drain and timer-step failures to `handler(exc)`

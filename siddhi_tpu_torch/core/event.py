@@ -360,6 +360,8 @@ class StreamSchema:
                     x = batch.valid
                 else:
                     x = batch.cols[name]
+                if x.stride(-1) != 1:  # a broadcast lane (a one-row batch's constant)
+                    x = torch.empty(x.shape, dtype=x.dtype, device=x.device).copy_(x)
                 segs.append(x.contiguous().view(torch.uint8))
             return torch.cat(segs)
 

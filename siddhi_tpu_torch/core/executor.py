@@ -103,8 +103,26 @@ class Scope:
         # stream even when earlier state refs carry the same attribute
         # (reference: MatchingMetaInfoHolder default stream-event index)
         self.prefer_default = False
+        # in-table conditions resolve unqualified attrs against the OUTER
+        # (stream) scope before the table's own columns (reference:
+        # CollectionExpressionParser matching-side resolution)
+        self.prefer_parent = False
         self._streams: dict[str, dict[str, AttrType]] = {}
+        self._tables: dict[str, object] = {}
         self._parent: Scope | None = None
+
+    def add_table(self, table) -> "Scope":
+        """Register an InMemoryTable for `in <table>` conditions."""
+        self._tables[table.table_id] = table
+        return self
+
+    def resolve_table(self, name: str):
+        scope: Scope | None = self
+        while scope is not None:
+            if name in scope._tables:
+                return scope._tables[name]
+            scope = scope._parent
+        return None
 
     def add_stream(self, ref: str, attrs: dict[str, AttrType]) -> "Scope":
         self._streams[ref] = dict(attrs)
@@ -153,6 +171,11 @@ class Scope:
             raise KeyError(f"unknown stream reference '{var.stream_id}'")
         # unqualified: unique attribute across in-scope streams (reference
         # resolves unprefixed attrs the same way)
+        if self.prefer_parent and self._parent is not None:
+            try:
+                return self._parent._resolve(var)
+            except KeyError:
+                pass
         if self.prefer_default and self.default_ref is not None:
             scope = self
             while scope is not None:
@@ -333,7 +356,18 @@ def compile_expression(expr: Expression, scope: Scope) -> CompiledExpr:
         return CompiledExpr(AttrType.BOOL, lambda env, k=key: ~env.read(k))
 
     if isinstance(expr, In):
-        raise SiddhiAppCreationError("'in <table>' conditions are not ported yet")
+        table = scope.resolve_table(expr.source_id)
+        if table is None:
+            raise KeyError(f"'in {expr.source_id}': no such table in scope")
+        inner_scope = scope.child()
+        inner_scope.add_stream(expr.source_id, table.schema.attr_types)
+        inner_scope.prefer_parent = True
+        cond = compile_expression(expr.expression, inner_scope)
+        _require_bool(cond, "in-table condition")
+        from siddhi_tpu_torch.core.table import compile_in_condition
+
+        return CompiledExpr(AttrType.BOOL, compile_in_condition(table, expr.expression,
+                                                                inner_scope))
 
     if isinstance(expr, AttributeFunction):
         return _compile_function(expr, scope)

@@ -14,10 +14,10 @@ hand-written CUDA kernel on the card (csrc/join_probe.cu) whose plain
 PyTorch version `join_assemble_ref` the wrapper takes only for tensors on the
 CPU. The view a probe reads is the other side's ring in insertion order
 (`SlidingWindow.view`, csrc/ring_view.cu), the open bucket of a lengthBatch
-window, or nothing for a windowless side.
-
-Table, named-window and aggregation sides are not ported yet: their
-definitions raise at app creation.
+window, nothing for a windowless side, or a table's live `(cols, ts, valid)`
+lanes for a table side (`TableSide`: a passive side that is probed and never
+triggers; reference: TableWindowProcessor). Named-window and aggregation
+sides are not ported yet: their definitions raise at app creation.
 """
 
 from __future__ import annotations
@@ -214,8 +214,47 @@ class NoWindow(WindowStage):
                 torch.zeros(1, dtype=torch.bool, device=dev))
 
 
+class _TableView(WindowStage):
+    """A table side's stand-in window: arrivals never re-buffer, and the
+    view is the table's live state."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def init_state(self):
+        return {}
+
+    def apply(self, state, flow: Flow):
+        return state, flow
+
+    def view(self, state):
+        return self.table.view(self.table.state)
+
+
+class TableSide:
+    """A join side backed by a table (reference: TableWindowProcessor —
+    probe-only, it never triggers)."""
+
+    passive = True
+
+    def __init__(self, stream: SingleInputStream, table):
+        if stream.handlers:
+            raise SiddhiAppCreationError(
+                f"'{stream.stream_id}' cannot carry filters/windows on a join side")
+        self.stream_id = stream.stream_id
+        self.ref = stream.ref
+        self.schema = table.schema
+        self.table = table
+        self.window = _TableView(table)
+
+    def filter_batch(self, batch: EventBatch, now) -> EventBatch:
+        return batch
+
+
 class JoinSide:
     """One side of the join: pre-window filters and at most one window."""
+
+    passive = False
 
     def __init__(self, stream: SingleInputStream, schema: StreamSchema, scope: Scope):
         self.stream_id = stream.stream_id
@@ -264,9 +303,18 @@ class CompiledJoin:
 
     def __init__(self, join: JoinInputStream, left_schema: StreamSchema,
                  right_schema: StreamSchema, scope: Scope,
-                 out_capacity: int = DEFAULT_JOIN_CAPACITY, output_expired: bool = False):
-        self.left = JoinSide(join.left, left_schema, scope)
-        self.right = JoinSide(join.right, right_schema, scope)
+                 out_capacity: int = DEFAULT_JOIN_CAPACITY, output_expired: bool = False,
+                 tables: Optional[dict] = None):
+        tables = tables or {}
+
+        def make_side(stream, schema):
+            t = tables.get(stream.stream_id)
+            return TableSide(stream, t) if t is not None else JoinSide(stream, schema, scope)
+
+        self.left = make_side(join.left, left_schema)
+        self.right = make_side(join.right, right_schema)
+        if self.left.passive and self.right.passive:
+            raise SiddhiAppCreationError("cannot join two tables; use a store query")
         if self.left.ref == self.right.ref:
             raise SiddhiAppCreationError(
                 f"join sides must have distinct references; alias one: "
@@ -281,12 +329,18 @@ class CompiledJoin:
         # unidirectional narrows the trigger side
         # (reference: JoinInputStreamParser.java:214-231)
         trigger = join.trigger
+        for side, js in (("left", self.left), ("right", self.right)):
+            if join.unidirectional == side and js.passive:
+                raise SiddhiAppCreationError(
+                    "unidirectional cannot be set on the table side of a join")
         if join.unidirectional == "left":
             trigger = JoinEventTrigger.LEFT
         elif join.unidirectional == "right":
             trigger = JoinEventTrigger.RIGHT
-        self.emit_left = trigger in (JoinEventTrigger.ALL, JoinEventTrigger.LEFT)
-        self.emit_right = trigger in (JoinEventTrigger.ALL, JoinEventTrigger.RIGHT)
+        self.emit_left = (trigger in (JoinEventTrigger.ALL, JoinEventTrigger.LEFT)
+                          and not self.left.passive)
+        self.emit_right = (trigger in (JoinEventTrigger.ALL, JoinEventTrigger.RIGHT)
+                           and not self.right.passive)
         self.on = None
         if join.on is not None:
             cond = compile_expression(join.on, scope)
@@ -381,7 +435,7 @@ class JoinQueryRuntime(BaseQueryRuntime):
     def __init__(self, query: Query, query_id: str, left_schema: StreamSchema,
                  right_schema: StreamSchema, interner, device,
                  group_capacity: Optional[int] = None,
-                 join_capacity: int = DEFAULT_JOIN_CAPACITY):
+                 join_capacity: int = DEFAULT_JOIN_CAPACITY, tables: Optional[dict] = None):
         join = query.input_stream
         assert isinstance(join, JoinInputStream)
         self.query = query
@@ -392,19 +446,24 @@ class JoinQueryRuntime(BaseQueryRuntime):
         scope.add_stream(lref, left_schema.attr_types)
         scope.add_stream(rref, right_schema.attr_types)
         scope.default_ref = lref
+        for t in (tables or {}).values():
+            scope.add_table(t)
         self._scope = scope
         output_expired = query.output_stream.output_events is not OutputEventsFor.CURRENT
         self.join = CompiledJoin(join, left_schema, right_schema, scope,
-                                 out_capacity=join_capacity, output_expired=output_expired)
+                                 out_capacity=join_capacity, output_expired=output_expired,
+                                 tables=tables)
         combined_attrs = list(left_schema.attrs) + list(right_schema.attrs)
         self.selector = CompiledSelector(query.selector, scope, combined_attrs,
                                          group_capacity=group_capacity)
         self._setup_output(query, query_id)
+        self._attach_tables(tables, interner)
         self._join_overflow = _FlagWatch(self.device, self._log_join_overflow)
-        # the sides whose window needs timers
+        # the sides whose window needs timers; a table side has no junction
         self.scheduled_sides = tuple(
             side for side, js in (("l", self.join.left), ("r", self.join.right))
-            if js.window.needs_scheduler)
+            if not js.passive and js.window.needs_scheduler)
+        self.table_sides = {"l": self.join.left.passive, "r": self.join.right.passive}
         self.uses_scheduler = bool(self.scheduled_sides)
         self.side_schemas = {"l": left_schema, "r": right_schema}
 
@@ -414,6 +473,7 @@ class JoinQueryRuntime(BaseQueryRuntime):
     def _step_impl(self, state, batch: EventBatch, now: torch.Tensor, side: str):
         jstate, flow, aux = self.join.step(state["join"], batch, now, side)
         sel_state, out = self.selector.apply(state["sel"], flow)
+        self._apply_table_op(out, now, aux)
         self._note_aux(aux)
         self._join_overflow.note(aux["join_overflow"])
         self._join_overflow.poll()

@@ -771,7 +771,7 @@ def pattern_emit(prog: "PatternProgram", tok: dict, entry_row, batch_ts, v, now,
 # condition programs: the token-dependent filters of the scan route
 # ---------------------------------------------------------------------------
 
-# physical value types on a program's stack (csrc/pattern_scan.cu, same codes)
+# physical value types on a program's stack (csrc/prog.cuh, same codes)
 TY_BOOL, TY_INT, TY_LONG, TY_FLOAT, TY_ID = 0, 1, 2, 3, 4
 _TY = {AttrType.BOOL: TY_BOOL, AttrType.INT: TY_INT, AttrType.LONG: TY_LONG,
        AttrType.FLOAT: TY_FLOAT, AttrType.DOUBLE: TY_FLOAT, AttrType.STRING: TY_ID,
@@ -785,6 +785,7 @@ _TY_LOGICAL = {TY_BOOL: AttrType.BOOL, TY_INT: AttrType.INT, TY_LONG: AttrType.L
                TY_FLOAT: AttrType.FLOAT, TY_ID: AttrType.STRING}
 
 # opcodes: each instruction is (op, a, b, c, d)
+# (OP_CAP is csrc/prog.cuh's OP_OPERAND: the token's capture in these programs)
 OP_REG, OP_CONST, OP_CAP, OP_ARITH, OP_CMP, OP_AND, OP_OR, OP_NOT, OP_ISNULL = range(1, 10)
 _ARITH_CODE = {Add: 0, Subtract: 1, Multiply: 2, Divide: 3, Mod: 4}
 _ARITH_NAME = ("add", "sub", "mul", "div", "mod")
@@ -793,7 +794,7 @@ _CMP_CODE = {CompareOp.LT: 0, CompareOp.LE: 1, CompareOp.GT: 2, CompareOp.GE: 3,
 _CMP_BY_CODE = {v: k for k, v in _CMP_CODE.items()}
 K_NONE = 1 << 20  # an un-indexed capture read (e1.price: occurrence 0)
 LANE_ARRIVED = -1  # OP_CAP's lane: the ref's arrival flag, not a capture lane
-MAX_STACK = 16  # csrc/pattern_scan.cu kMaxStack
+MAX_STACK = 16  # csrc/prog.cuh kMaxStack
 
 
 @dataclasses.dataclass
@@ -822,45 +823,29 @@ def _const_bits(value: torch.Tensor, ty: int) -> int:
     return int(value)
 
 
-def cond_program_ref(prog: "PatternProgram", cp: CondProgram, tok: dict, regs_row: list):
-    """Plain evaluator of a condition program over the [T] token lanes:
-    the executor's own operations (`_cast`, `_int_div`, `_int_rem`, fmod,
-    `_notnull`, the comparison table) on each instruction. regs_row[r] is
-    row register r's value at this row (0-d). Returns [T] bool."""
-    T = tok["active"].shape[0]
-    lanes = prog.cap_lanes()
+def run_program(code: list, regs: list, const, operand, what: str = "condition program"):
+    """Plain interpreter of a postfix program (csrc/prog.cuh's run_prog),
+    with the executor's own operations (`_cast`, `_int_div`, `_int_rem`,
+    fmod, `_notnull`, the comparison table) on each instruction: regs[r] is
+    row register r, const(ty, bits) a constant, operand(ins) the value of an
+    opcode-3 instruction (a token capture here, a table lane in
+    ops/table.py's table programs), in any shapes that broadcast. Returns
+    the value, broadcast."""
     stack = []
-    for ins in cp.code:
+    for ins in code:
         op = ins[0]
         if op == OP_REG:
-            stack.append(regs_row[ins[1]])
+            stack.append(regs[ins[1]])
         elif op == OP_CONST:
-            stack.append(prog._const(ins[1], ins[2], tok["active"].device))
+            stack.append(const(ins[1], ins[2]))
         elif op == OP_CAP:
-            _op, r, k, lane, ty = ins
-            c = tok["caps"][r]
-            n = c["n"]
-            if lane == LANE_ARRIVED:
-                stack.append(n > 0 if k == K_NONE else (n > k) if k >= 0 else (n >= -k))
-                continue
-            _ref, name = lanes[lane]
-            arr = c["ts"] if name is None else c["cols"][name]
-            cap = arr.shape[1]
-            if k == K_NONE or 0 <= k < cap:
-                stack.append(arr[:, 0 if k == K_NONE else k])
-                continue
-            col = torch.full((T,), float("nan") if ty == TY_FLOAT else _TY_NULL[ty],
-                             dtype=arr.dtype, device=arr.device)
-            if k < 0:  # last - i: occurrence n - 1 - i
-                for i in range(cap):
-                    col = torch.where(n + k == i, arr[:, i], col)
-            stack.append(col)
+            stack.append(operand(ins))
         elif op == OP_ARITH:
-            _op, code, _lt, _rt, t = ins
+            _op, code_, _lt, _rt, t = ins
             b, a = stack.pop(), stack.pop()
             lt = _TY_LOGICAL[t]
             a, b = _cast(a, lt), _cast(b, lt)
-            name = _ARITH_NAME[code]
+            name = _ARITH_NAME[code_]
             if name == "add":
                 v = a + b
             elif name == "sub":
@@ -873,12 +858,12 @@ def cond_program_ref(prog: "PatternProgram", cp: CondProgram, tok: dict, regs_ro
                 v = _int_rem(a, b) if t != TY_FLOAT else torch.fmod(a, b)
             stack.append(v)
         elif op == OP_CMP:
-            _op, code, lt, rt, t = ins
+            _op, code_, lt, rt, t = ins
             b, a = stack.pop(), stack.pop()
             ok = _notnull(a, _TY_LOGICAL[lt]) & _notnull(b, _TY_LOGICAL[rt])
             if t >= 0:
                 a, b = _cast(a, _TY_LOGICAL[t]), _cast(b, _TY_LOGICAL[t])
-            stack.append(_CMP[_CMP_BY_CODE[code]](a, b) & ok)
+            stack.append(_CMP[_CMP_BY_CODE[code_]](a, b) & ok)
         elif op == OP_AND:
             b, a = stack.pop(), stack.pop()
             stack.append(a & b)
@@ -891,8 +876,38 @@ def cond_program_ref(prog: "PatternProgram", cp: CondProgram, tok: dict, regs_ro
             v, ty = stack.pop(), ins[1]
             stack.append(~_notnull(v, _TY_LOGICAL[ty]))
         else:
-            raise ValueError(f"condition program: opcode {op}")
+            raise ValueError(f"{what}: opcode {op}")
     (res,) = stack
+    return res
+
+
+def cond_program_ref(prog: "PatternProgram", cp: CondProgram, tok: dict, regs_row: list):
+    """Plain evaluator of a condition program over the [T] token lanes
+    (`run_program` with the token's capture reads). regs_row[r] is row
+    register r's value at this row (0-d). Returns [T] bool."""
+    T = tok["active"].shape[0]
+    lanes = prog.cap_lanes()
+    dev = tok["active"].device
+
+    def capture(ins):
+        _op, r, k, lane, ty = ins
+        c = tok["caps"][r]
+        n = c["n"]
+        if lane == LANE_ARRIVED:
+            return n > 0 if k == K_NONE else (n > k) if k >= 0 else (n >= -k)
+        _ref, name = lanes[lane]
+        arr = c["ts"] if name is None else c["cols"][name]
+        cap = arr.shape[1]
+        if k == K_NONE or 0 <= k < cap:
+            return arr[:, 0 if k == K_NONE else k]
+        col = torch.full((T,), float("nan") if ty == TY_FLOAT else _TY_NULL[ty],
+                         dtype=arr.dtype, device=arr.device)
+        if k < 0:  # last - i: occurrence n - 1 - i
+            for i in range(cap):
+                col = torch.where(n + k == i, arr[:, i], col)
+        return col
+
+    res = run_program(cp.code, regs_row, lambda ty, bits: prog._const(ty, bits, dev), capture)
     return torch.broadcast_to(res, (T,))
 
 

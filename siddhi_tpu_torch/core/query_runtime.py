@@ -134,6 +134,24 @@ class _FlagWatch:
             self.on_set()
 
 
+# the one-time logs of the table flags (the JAX package's query_runtime.py
+# _check_aux_flags)
+_TABLE_FLAG_LOGS = {
+    "table_overflow": (
+        logging.ERROR,
+        "query '%s': table ran out of capacity; inserts were dropped — raise it with "
+        "@capacity(size='N') on the table definition"),
+    "table_pk_duplicate_dropped": (
+        logging.ERROR,
+        "query '%s': dropping inserted event(s) — an event with the same primary key is "
+        "already stored (use `update or insert into` to overwrite)"),
+    "table_pk_conflict": (
+        logging.ERROR,
+        "query '%s': update failed — rekeying matched rows would collide with an existing "
+        "primary key; the update event was skipped"),
+}
+
+
 class BaseQueryRuntime:
     """Output setup and host routing shared by single-stream and join
     queries. A subclass sets `query`, `query_id`, `device`, `_scope` and
@@ -162,6 +180,33 @@ class BaseQueryRuntime:
         self.insert_target_junction = None
         self._receive_lock = threading.RLock()
         self.state = None
+        # the table op of a table output, compiled by _attach_tables
+        self.table_op: Optional[Callable] = None
+        self.tables: dict = {}
+        self._table_flags = {
+            key: _FlagWatch(self.device, lambda _k=key: self._log_table_flag(_k))
+            for key in _TABLE_FLAG_LOGS
+        }
+
+    def _attach_tables(self, tables: dict, interner) -> None:
+        """Compile this query's table-output op and keep the tables the
+        query reads (in-conditions, join sides) or writes (reference:
+        OutputParser constructing Insert/Update/Delete/
+        UpdateOrInsertIntoTableCallback)."""
+        from siddhi_tpu_torch.core.table import collect_used_tables, compile_table_output
+
+        tables = dict(tables or {})
+        self.table_op = compile_table_output(self.query.output_stream, self.out_schema, tables,
+                                             interner, self.device)
+        self.tables = {tid: tables[tid] for tid in sorted(collect_used_tables(self.query, tables))}
+
+    def _apply_table_op(self, out: EventBatch, now, aux: dict) -> None:
+        if self.table_op is not None:
+            self.table_op(out, now, aux)
+
+    def _log_table_flag(self, key: str) -> None:
+        level, msg = _TABLE_FLAG_LOGS[key]
+        logging.getLogger(__name__).log(level, msg, self.query_id)
 
     @property
     def used_attrs(self):
@@ -178,6 +223,10 @@ class BaseQueryRuntime:
         if "groupby_overflow" in aux:
             self._overflow.note(aux["groupby_overflow"])
             self._overflow.poll()
+        for key, watch in self._table_flags.items():
+            if key in aux:
+                watch.note(aux[key])
+                watch.poll()
         self.next_timer = aux.get("next_timer")
 
     def _log_group_overflow(self) -> None:
@@ -191,6 +240,8 @@ class BaseQueryRuntime:
     def flush_aux_warnings(self) -> None:
         """Read the pending overflow flags now (one device sync) and log."""
         self._overflow.flush()
+        for watch in self._table_flags.values():
+            watch.flush()
 
     def route_output(self, out: EventBatch, now: int, decode) -> None:
         """Dispatch a step's output to query callbacks / downstream junction.
@@ -226,6 +277,7 @@ class QueryRuntime(BaseQueryRuntime):
         interner: InternTable,
         device,
         group_capacity: Optional[int] = None,
+        tables: Optional[dict] = None,
     ):
         self.query = query
         self.query_id = query_id
@@ -239,6 +291,8 @@ class QueryRuntime(BaseQueryRuntime):
         if self.ref != in_schema.stream_id:
             scope.add_stream(in_schema.stream_id, in_schema.attr_types)
         scope.default_ref = self.ref
+        for t in (tables or {}).values():
+            scope.add_table(t)
         self._scope = scope
 
         self.chain = CompiledSingleChain(stream, in_schema, scope)
@@ -253,6 +307,7 @@ class QueryRuntime(BaseQueryRuntime):
             group_capacity=group_capacity,
         )
         self._setup_output(query, query_id)
+        self._attach_tables(tables, interner)
         # the ungrouped batch collapse gates its last event by kind
         # (reference: QuerySelector currentOn/expiredOn gate lastEvent)
         self.selector.output_events_for_batch = self.output_events
@@ -277,6 +332,7 @@ class QueryRuntime(BaseQueryRuntime):
         flow = Flow(batch=batch, ref=self.ref, now=now)
         chain_state, flow = self.chain.apply(state["chain"], flow)
         sel_state, out = self.selector.apply(state["sel"], flow)
+        self._apply_table_op(out, now, flow.aux)
         self._note_aux(flow.aux)
         return {"chain": chain_state, "sel": sel_state}, out
 

@@ -35,7 +35,7 @@
 // emission appends in lane order at out_n through a block scan. The row
 // filters that read only the event arrive as an [R, B] mask; the
 // token-dependent ones are postfix condition programs
-// (core/pattern.py CondProgram), interpreted per eligible lane, with
+// (core/pattern.py CondProgram, csrc/prog.cuh), interpreted per eligible lane, with
 // capture-free subtrees as row registers. Float arithmetic uses the
 // round-to-nearest intrinsics (no contraction), so the results equal the
 // plain PyTorch version's bit for bit.
@@ -48,13 +48,13 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "prog.cuh"
 
 namespace {
 
 constexpr int kMaxRefs = 16;
 constexpr int kMaxCapLanes = 32;
 constexpr int kMaxRegs = 16;
-constexpr int kMaxStack = 16;
 constexpr int kMaxThreads = 1024;
 constexpr int8_t kCurrent = 0;
 constexpr int8_t kTimer = 2;
@@ -68,9 +68,8 @@ enum {
 enum { RF_SLOT, RF_ABSENT, RF_WAIT, RF_CAP, RF_NPROG, RF_PROG, RF_WORDS };
 enum { LOG_NONE, LOG_AND, LOG_OR };
 enum { DK_NONE, DK_ABSENT, DK_BOTH, DK_ONE };
-// condition programs: value types and opcodes (core/pattern.py)
-enum { TY_BOOL, TY_INT, TY_LONG, TY_FLOAT, TY_ID };
-enum { OP_REG = 1, OP_CONST, OP_CAP, OP_ARITH, OP_CMP, OP_AND, OP_OR, OP_NOT, OP_ISNULL };
+// condition programs (core/pattern.py): value types, opcodes and the
+// interpreter are csrc/prog.cuh's; a capture read is its OP_OPERAND
 constexpr long long kNone = 1 << 20;  // an un-indexed capture read
 
 struct CapLane {
@@ -394,45 +393,6 @@ __device__ void emit(const Ctx& c, const uint8_t* m, int adv_ref, int b, long lo
 
 // ---- condition programs ---------------------------------------------------------
 
-union Val {
-  long long i;
-  float f;
-};
-
-__device__ __forceinline__ Val cast_to(Val v, int from, int to) {
-  Val r;
-  if (to == TY_FLOAT) {
-    if (from == TY_FLOAT) return v;
-    r.f = from == TY_LONG ? __ll2float_rn(v.i) : __int2float_rn((int)v.i);
-  } else if (to == TY_INT) {
-    r.i = (int)v.i;
-  } else {
-    r.i = v.i;
-  }
-  return r;
-}
-
-__device__ __forceinline__ bool not_null(Val v, int ty) {
-  switch (ty) {
-    case TY_FLOAT: return !isnan(v.f);
-    case TY_INT: return (int)v.i != (int)0x80000000;
-    case TY_LONG: return v.i != (long long)0x8000000000000000ULL;
-    case TY_ID: return v.i != 0;
-    default: return true;
-  }
-}
-
-__device__ __forceinline__ Val load_elem(const void* base, long long i, int ty) {
-  Val v;
-  switch (ty) {
-    case TY_FLOAT: v.f = ((const float*)base)[i]; break;
-    case TY_LONG: v.i = ((const long long*)base)[i]; break;
-    case TY_BOOL: v.i = ((const bool*)base)[i] ? 1 : 0; break;
-    default: v.i = ((const int32_t*)base)[i]; break;
-  }
-  return v;
-}
-
 __device__ __forceinline__ Val null_of(int ty) {
   Val v;
   v.i = 0;
@@ -462,135 +422,16 @@ __device__ Val load_cap(const Ctx& c, const long long* ins, int t) {
   return null_of(ty);
 }
 
-__device__ __forceinline__ int int_div(int a, int b) {
-  if (b == 0) return -1;
-  if (a == (int)0x80000000 && b == -1) return a;
-  return a / b;
-}
-__device__ __forceinline__ int int_rem(int a, int b) {
-  if (b == 0) return a;
-  if (a == (int)0x80000000 && b == -1) return 0;
-  return a % b;
-}
-__device__ __forceinline__ long long ll_div(long long a, long long b) {
-  if (b == 0) return -1;
-  if (a == (long long)0x8000000000000000ULL && b == -1) return a;
-  return a / b;
-}
-__device__ __forceinline__ long long ll_rem(long long a, long long b) {
-  if (b == 0) return a;
-  if (a == (long long)0x8000000000000000ULL && b == -1) return 0;
-  return a % b;
-}
-
-__device__ Val arith(int op, Val a, Val b, int t) {
-  Val r;
-  if (t == TY_FLOAT) {
-    switch (op) {
-      case 0: r.f = __fadd_rn(a.f, b.f); break;
-      case 1: r.f = __fsub_rn(a.f, b.f); break;
-      case 2: r.f = __fmul_rn(a.f, b.f); break;
-      case 3: r.f = __fdiv_rn(a.f, b.f); break;
-      default: r.f = fmodf(a.f, b.f); break;
-    }
-  } else if (t == TY_INT) {
-    const unsigned int x = (unsigned int)(int)a.i, y = (unsigned int)(int)b.i;
-    int v;
-    switch (op) {
-      case 0: v = (int)(x + y); break;
-      case 1: v = (int)(x - y); break;
-      case 2: v = (int)(x * y); break;
-      case 3: v = int_div((int)x, (int)y); break;
-      default: v = int_rem((int)x, (int)y); break;
-    }
-    r.i = v;
-  } else {
-    const unsigned long long x = (unsigned long long)a.i, y = (unsigned long long)b.i;
-    switch (op) {
-      case 0: r.i = (long long)(x + y); break;
-      case 1: r.i = (long long)(x - y); break;
-      case 2: r.i = (long long)(x * y); break;
-      case 3: r.i = ll_div(a.i, b.i); break;
-      default: r.i = ll_rem(a.i, b.i); break;
-    }
+// a condition program's reads on lane t at row b: row registers (typed by
+// the instruction) and the token's captures
+struct TokenRow {
+  const Ctx* c;
+  int t, b;
+  __device__ Val reg(const long long* ins) const {
+    return load_elem(c->A->reg[ins[1]], b, (int)ins[2]);
   }
-  return r;
-}
-
-template <typename X>
-__device__ __forceinline__ bool cmp(int op, X a, X b) {
-  switch (op) {
-    case 0: return a < b;
-    case 1: return a <= b;
-    case 2: return a > b;
-    case 3: return a >= b;
-    case 4: return a == b;
-    default: return a != b;
-  }
-}
-
-// one condition program (len instructions of 5 words at ins) on lane t
-__device__ bool run_prog(const Ctx& c, const long long* ins, int len, int t, int b) {
-  Val st[kMaxStack];
-  int sp = 0;
-  for (int i = 0; i < len; ++i, ins += 5) {
-    switch ((int)ins[0]) {
-      case OP_REG: {
-        const int r = (int)ins[1];
-        st[sp++] = load_elem(c.A->reg[r], b, (int)ins[2]);
-        break;
-      }
-      case OP_CONST: {
-        Val v;
-        v.i = ins[2];
-        if (ins[1] == TY_FLOAT) v.f = __int_as_float((int)ins[2]);
-        st[sp++] = v;
-        break;
-      }
-      case OP_CAP:
-        st[sp++] = load_cap(c, ins, t);
-        break;
-      case OP_ARITH: {
-        const int t_out = (int)ins[4];
-        const Val y = cast_to(st[sp - 1], (int)ins[3], t_out);
-        const Val x = cast_to(st[sp - 2], (int)ins[2], t_out);
-        --sp;
-        st[sp - 1] = arith((int)ins[1], x, y, t_out);
-        break;
-      }
-      case OP_CMP: {
-        const int lt = (int)ins[2], rt = (int)ins[3], tc = (int)ins[4], op = (int)ins[1];
-        const Val y = st[sp - 1], x = st[sp - 2];
-        bool v = not_null(x, lt) && not_null(y, rt);
-        if (tc == TY_FLOAT) {
-          v = v && cmp(op, cast_to(x, lt, TY_FLOAT).f, cast_to(y, rt, TY_FLOAT).f);
-        } else if (tc == TY_INT) {
-          v = v && cmp(op, (int)x.i, (int)y.i);
-        } else {
-          v = v && cmp(op, x.i, y.i);
-        }
-        --sp;
-        st[sp - 1].i = v;
-        break;
-      }
-      case OP_AND:
-        --sp;
-        st[sp - 1].i = st[sp - 1].i && st[sp].i;
-        break;
-      case OP_OR:
-        --sp;
-        st[sp - 1].i = st[sp - 1].i || st[sp].i;
-        break;
-      case OP_NOT:
-        st[sp - 1].i = !st[sp - 1].i;
-        break;
-      default:  // OP_ISNULL
-        st[sp - 1].i = !not_null(st[sp - 1], (int)ins[1]);
-        break;
-    }
-  }
-  return st[0].i != 0;
-}
+  __device__ Val operand(const long long* ins) const { return load_cap(*c, ins, t); }
+};
 
 // _eligible on lane t for slot p
 __device__ bool eligible(const Ctx& c, int p, int t) {
@@ -754,7 +595,7 @@ __device__ void match_atom(const Ctx& c, int p, int r, int b, long long ts, long
     const long long* pr = c.d + rd[RF_PROG];
     for (int k = 0; k < (int)rd[RF_NPROG] && e; ++k) {
       const int len = (int)pr[0];
-      e = run_prog(c, pr + 1, len, t, b);
+      e = run_prog(pr + 1, len, TokenRow{&c, t, b}).i != 0;
       pr += 1 + 5 * len;
     }
     c.match[t] = e;

@@ -20,7 +20,10 @@ entry in "aggs" is its carry: a scalar for sum/count, `{"sum", "count"}`
 for avg, `{"sum", "sumsq", "count"}` for stdDev, the running extreme for
 min/max (the unused identity under a window) and an unused scalar for
 distinctCount; each carry gains a leading [G] axis under a group-by (but
-distinctCount's). The JAX engine (`siddhi_tpu`) keeps the same layout, so a state
+distinctCount's). A table's state (`runtime.tables[id].state`) is
+`{"cols": {...}, "ts", "valid", "seq", "next"}` with, per indexed column,
+`"ix_order.<col>"`, `"ix_sorted.<col>"` and `"ix_dups.<col>"`.
+The JAX engine (`siddhi_tpu`) keeps the same layout, so a state
 taken there as numpy maps onto this engine leaf for leaf with dtype and
 shape unchanged. Pending timers are host state and do not travel.
 """

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers) and is
 compiled at first use with `nvcc` for Hopper (`sm_90a`) into a shared library
-under `_build/`, named by a hash of its source and of `csrc/common.cuh` (the
-block scan and gather the sources share) so an edited kernel is rebuilt.
+under `_build/`, named by a hash of its source and of the headers `csrc/*.cuh`
+(the block scan and gather the sources share, the table programs'
+interpreter) so an edited kernel is rebuilt.
 `build_all()` starts one `nvcc` per source, all at once. The libraries are
 loaded with `ctypes`; every pointer and the stream travel as `c_void_p`, and
 each entry point returns its `cudaError_t`, which `check()` turns into an
@@ -32,7 +33,8 @@ BUILD = Path(__file__).parent / "_build"
 SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "deliver_pack",
            "batch_window", "group_assign", "keyed_running_sum", "keep_last", "time_window",
            "ring_view", "join_probe", "pattern_advance", "pattern_count", "pattern_emit",
-           "pattern_scan", "running_extreme", "distinct_count")
+           "pattern_scan", "running_extreme", "distinct_count", "table_write", "table_index",
+           "table_match", "table_scan")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -99,6 +101,12 @@ SIGNATURES = {
     "distinct_count_i32": ("distinct_count", _DISTINCT),
     "distinct_count_i64": ("distinct_count", _DISTINCT),
     "distinct_count_b8": ("distinct_count", _DISTINCT),
+    "tw_insert": ("table_write", [P, I, I, P, I] + [P] * 6 + [I] + [P] * 10),
+    "ti_build": ("table_index", [P, I, P, I, I] + [P] * 6),
+    "ti_probe": ("table_index", [P, I, P, P, P, I, P, P, I, P, I, P, P, P]),
+    "tm_match": ("table_match", [P, I, I, P, P, I, P, P, P, P, P, I, I, I, P, P]),
+    "tsc_scan": ("table_scan", [I, P, P, P, P, I, I, P, P, I, P, P, P, I, I, I, I, P, I, I]
+                 + [P] * 8),
 }
 
 launches: collections.Counter = collections.Counter()
@@ -120,7 +128,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
-    h.update((CSRC / "common.cuh").read_bytes())  # included by the sources
+    for header in sorted(CSRC.glob("*.cuh")):  # included by the sources
+        h.update(header.read_bytes())
     digest = h.hexdigest()[:12]
     return BUILD / f"lib{name}-{digest}.so"
 

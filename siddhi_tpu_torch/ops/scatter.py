@@ -19,11 +19,14 @@ import torch
 
 def set_at(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """A copy of `dst` with dst[idx[i]] = src[i] where 0 <= idx[i] < len(dst)."""
-    out = dst.clone()
-    live = (idx >= 0) & (idx < dst.shape[0])
+    n = dst.shape[0]
+    live = (idx >= 0) & (idx < n)
     src = src.to(dst.dtype)
     if src.dim() == 0:
         src = src.expand(idx.shape)
-    out[idx[live].long()] = src[live]
-    return out
+    # the dead lanes write one spare row past the end, which is dropped: no
+    # host read of how many lanes are live
+    out = torch.cat([dst, dst.new_zeros((1,) + tuple(dst.shape[1:]))])
+    out[torch.where(live, idx, n).long()] = src
+    return out[:n]
 

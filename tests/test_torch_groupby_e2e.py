@@ -354,7 +354,8 @@ SLICE7_APPS = [
     "from S#window.lossyFrequent(0.1, 0.01) select symbol insert into Out;",
     "from S#window.cron('*/5 * * * * ?') select symbol insert into Out;",
     "from S#pol2Cart(price, price) select symbol insert into Out;",
-    "define table T (symbol string, price float); from S select symbol insert into T;",
+    "@store(type='memory', store.id='g1') define table T (symbol string, price float); "
+    "from S select symbol, price insert into T;",
 ])
 def test_outside_the_slice_raises(ql):
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")

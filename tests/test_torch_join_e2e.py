@@ -751,7 +751,7 @@ def test_join_state_carry():
 
 
 @pytest.mark.parametrize("ql", [
-    "define table T (symbol string, price float); "
+    "@store(type='memory', store.id='j1') define table T (symbol string, price float); "
     "from S join T on S.symbol == T.symbol select S.symbol insert into Out;",
     "from S#window.sort(4, price) as a join S#window.length(4) as b "
     "on a.volume == b.volume select a.symbol insert into Out;",
