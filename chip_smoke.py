@@ -32,12 +32,18 @@ engine next to it. Phases, each printed as it ends:
      sequential update / update-or-insert K24 at the table paths' shapes,
      ragged ones, with nulls, a full table, repeated keys, a rekey conflict
      and a table holding duplicates of an indexed key, bit for bit (see
-     table_kernel_phase);
+     table_kernel_phase); the special windows' steps K25-K28 (sort,
+     frequent, lossyFrequent, cron) at paths SW, FQ, LF and CR's shapes,
+     ragged B, NaN/-0.0/null sort keys, ties, the arrival evicted, a full
+     frequent table, prunes, a full lossy key table, TIMER rows anywhere and
+     buckets past their slots, bit for bit (see special_window_kernel_phase);
   3. verify cases filter_num, len_window_avg, len_window_minmax,
      len_batch_group, having_order, stddev_distinct, time_window,
-     external_time, self_join, pattern_within, count_seq and
-     logical_pattern (the per-event scan) on the card against the frozen
-     CPU rows of VERIFY.json, and table_crud by its store query;
+     external_time, self_join, pattern_within, count_seq,
+     logical_pattern (the per-event scan), sort_window, frequent and
+     stream_fn on the card against the frozen CPU rows of VERIFY.json,
+     table_crud by its store query, and multi_query_shared (four queries
+     on one stream, one rate-limited) per query against device="cpu";
   4. the main path at full width: BASELINE.json config 1 (filter + length(50)
      window + avg) and the same app with min/max added, at @app:batch 32768,
      2,000,000 events each through send_columns in calls of 8 batches (the
@@ -94,7 +100,17 @@ engine next to it. Phases, each printed as it ends:
      `in` condition over 16,384 rows); each path's launches held to its
      steps, its table after 20 batches equal to the per-batch form's, its
      first 4 batches equal to device="cpu", events/s and the device busy
-     share of one more fused call.
+     share of one more fused call;
+ 11. the special-window, stream-function and rate-limit paths at @app:batch
+     32768 (SPECIAL_APPS): SW (sort(100, price desc, volume asc), 1,000,000
+     events), FQ (frequent(100, symbol) over Zipf symbols) and LF
+     (lossyFrequent(0.01, 0.001, symbol), 4,000 key slots) fused in calls of
+     8 batches with a 20-batch per-batch prefix (exactly equal), launches =
+     steps; CR (cron every second, group by, @app:playback, 16 one-second
+     buckets a call each, launches = data + TIMER steps); FN (#pol2Cart, a
+     filter on the added x, `output last every 4096 events`, per batch);
+     each without overflow and its first 8,192 events against
+     device="cpu".
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
 
@@ -257,7 +273,16 @@ VERIFY_CASES = {
     "logical_pattern": VERIFY_HEAD + """@app:patternCapacity(size='64')
         @info(name='q') from every (a=S[price > 90] and b=S[volume > 500])
         select a.price as pa, b.volume as vb insert into Out;""",
+    # the special windows and a stream function
+    "sort_window": VERIFY_HEAD + "@info(name='q') from S#window.sort(5, price) select min(price) as mn, count() as c insert into Out;",
+    "frequent": VERIFY_HEAD + "@info(name='q') from S#window.frequent(3, symbol) select symbol, count() as c insert into Out;",
+    "stream_fn": VERIFY_HEAD + "@info(name='q') from S#log('v') select symbol, price insert into Out;",
 }
+# bench.py's multi_query_shared: no frozen rows; held per query against device="cpu"
+MULTI_QUERY_CASE = VERIFY_HEAD + """@info(name='q') from S[price > 40]#window.length(6) select symbol, avg(price) as ap insert into Out1;
+        @info(name='q2') from S[price > 40]#window.length(6) select symbol, max(price) as mx insert into Out2;
+        @info(name='q3') from S#window.lengthBatch(8) select sum(volume) as tv insert into Out3;
+        @info(name='q4') from S[volume > 300] select symbol, volume output every 5 events insert into Out4;"""
 
 
 # bench.py:VERIFY_TABLE_CASES: read back by a store query
@@ -2237,6 +2262,245 @@ def table_kernel_phase(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2, the special windows: K25-K28 against their plain versions
+# ---------------------------------------------------------------------------
+
+SW_N, FQ_N, FQ_SYMBOLS, LF_S, LF_E, CR_W = 100, 100, 1000, 0.01, 0.001, 1024
+SW_EVENTS = FQ_EVENTS = LF_EVENTS = FN_EVENTS = 1_000_000
+CR_CALLS, CR_BUCKET, FN_EVERY = 16, 1000, 4096
+SPECIAL_BATCH = 32768
+STOCK_HEAD = """@app:batch(size='{batch}')
+define stream StockStream (symbol string, price float, volume long);
+"""
+# the special-window paths (see special_path_phase); `every` is FN's limit
+SPECIAL_APPS = {
+    # the top-100 book of the highest prices
+    "SW": STOCK_HEAD + """@info(name='q') from StockStream#window.sort(100, price, 'desc',
+volume, 'asc') select symbol, price, volume, count() as n, sum(volume) as v
+insert all events into Out;""",
+    # heavy hitters over a skewed key space (Zipf symbols)
+    "FQ": STOCK_HEAD + """@info(name='q') from StockStream#window.frequent(100, symbol)
+select symbol, count() as c insert all events into Out;""",
+    "LF": STOCK_HEAD + """@info(name='q') from StockStream#window.lossyFrequent(0.01, 0.001,
+symbol) select symbol, count() as c insert into Out;""",
+    "CR": "@app:playback\n" + STOCK_HEAD + """@info(name='q')
+from StockStream#window.cron('*/1 * * * * ?')
+select symbol, sum(volume) as v, count() as c group by symbol insert all events into Out;""",
+    "FN": STOCK_HEAD + """@info(name='q') from StockStream#pol2Cart(price, volume)[x > 0]
+select symbol, x, y output last every {every} events insert into Out;""",
+}
+
+
+def zipf_symbols(n: int, seed: int = 7) -> np.ndarray:
+    """Symbol ids 1..FQ_SYMBOLS drawn from a Zipf law with exponent 1.2."""
+    rng = np.random.default_rng(seed)
+    p = np.arange(1, FQ_SYMBOLS + 1, dtype=np.float64) ** -1.2
+    return (rng.choice(FQ_SYMBOLS, size=n, p=p / p.sum()) + 1).astype(np.int32)
+
+
+def special_window_kernel_phase(torch, dev) -> dict:
+    """The special windows' steps against their plain versions on the card,
+    bit for bit on every output lane (the whole buffer), every state lane and
+    the overflow flag, from the same inputs and carried state (made by the
+    plain version over earlier batches): the sort (K25) at path SW's shape
+    (B=32768, N=100, price desc then volume asc, the book full) and with
+    NaN, -0.0 and int-null keys, desc on int keys, ties and the arrival
+    evicted (small key sets, N 4/16); the frequent (K26) at path FQ's
+    (B=32768, N=100, Zipf keys over 1,000 symbols) and with a full table
+    evicting every key at once and dropping new keys (N=4); the
+    lossyFrequent (K27) at path LF's (B=32768, 4,000 slots, a prune every
+    1,000 rows) and with prunes that evict the arrival, a full key table and
+    an overflowing buffer; the cron (K28) at path CR's (a 1,000-row bucket,
+    w=1024) with its TIMER row first in the batch, after CURRENT rows and on
+    an empty bucket, and a bucket past its w slots; ragged B 1/33/4097; and
+    each with slot lanes past shared memory (global scratch: sort N=5000
+    with 4 keys, frequent N=20,000, lossyFrequent 40,000 slots, cron
+    w=32768)."""
+    from siddhi_tpu_torch.core.event import EventBatch, StreamSchema
+    from siddhi_tpu_torch.core.types import AttrType
+    from siddhi_tpu_torch.core.windows_special import _key_col
+    from siddhi_tpu_torch.ops import special_window as K
+
+    names = ("sort_window_step", "frequent_window_step", "lossy_frequent_window_step",
+             "cron_window_step")
+    res = {k: {"max_abs_err": 0.0, "checks": 0, "library_ms": None} for k in names}
+    rng = np.random.default_rng(925)
+    schema = StreamSchema("S", [("symbol", AttrType.STRING), ("price", AttrType.FLOAT),
+                                ("volume", AttrType.LONG), ("qty", AttrType.INT),
+                                ("hot", AttrType.BOOL)])
+    prices = np.array([np.nan, -0.0, 0.0, 1.5, 2.5, 7.0, -3.0], np.float32)
+    longs = np.array([LONG_NULL, -5, 0, 3, 9, (1 << 63) - 1], np.int64)
+    ints = np.array([-(1 << 31), -1, 0, 2, 4, (1 << 31) - 1], np.int32)
+
+    def batch_of(b, t0, mode="wide", timer_share=0.0, symbols=None, valid_share=0.95):
+        """numpy lanes of one batch: 'wide' draws the stock feed's ranges,
+        'traps' small sets with NaN, -0.0, nulls and ties."""
+        ts = t0 + np.arange(b, dtype=np.int64)
+        u = rng.random(b)
+        kind = np.where(u < timer_share, 2, np.where(u < timer_share + 0.02, 1, 0)).astype(np.int8)
+        if mode == "wide":
+            cols = {"symbol": (symbols if symbols is not None
+                               else rng.integers(1, 9, b)).astype(np.int32),
+                    "price": rng.uniform(0, 100, b).astype(np.float32),
+                    "volume": rng.integers(1, 1000, b).astype(np.int64),
+                    "qty": rng.integers(0, 50, b).astype(np.int32),
+                    "hot": rng.random(b) < 0.5}
+        else:
+            cols = {"symbol": rng.integers(1, 7, b).astype(np.int32),
+                    "price": prices[rng.integers(0, len(prices), b)],
+                    "volume": longs[rng.integers(0, len(longs), b)],
+                    "qty": ints[rng.integers(0, len(ints), b)],
+                    "hot": rng.random(b) < 0.5}
+        return EventBatch(ts=torch.from_numpy(ts), kind=torch.from_numpy(kind),
+                          valid=torch.from_numpy(rng.random(b) < valid_share),
+                          cols={n: torch.from_numpy(c) for n, c in cols.items()})
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        if isinstance(tree, EventBatch):
+            return EventBatch(ts=tree.ts.to(d), kind=tree.kind.to(d), valid=tree.valid.to(d),
+                              cols=to(tree.cols, d))
+        return tree.to(d)
+
+    def lanes(out):
+        return {"ts": out.ts, "kind": out.kind, "valid": out.valid, "cols": out.cols}
+
+    def bytes_of(*trees) -> int:
+        return sum(t.numel() * t.element_size() for tr in trees for t in flat(tr))
+
+    def run(name, step, state, batches, now=None, key_of=None, time_it=False):
+        """Carry `state` through `batches` with the plain version; the last
+        batch also runs on the card from the same state, held bit for bit."""
+        for i, b in enumerate(batches):
+            t_now = torch.tensor(now if now is not None else int(b.ts[-1]) + 3)
+            args = (b, key_of(b)) if key_of is not None else (b,)
+            if i + 1 < len(batches):
+                state, _out, _f = step(state, *args, t_now)
+                continue
+            want = step(state, *args, t_now)
+            gargs = tuple(to(a, dev) for a in args)
+            gstate, gnow = to(state, dev), t_now.to(dev)
+            got = step(gstate, *gargs, gnow)
+            torch.cuda.synchronize()
+            same_bits(torch, [got[0], lanes(got[1]), got[2]],
+                      [to(want[0], dev), to(lanes(want[1]), dev), want[2].to(dev)])
+            res[name]["checks"] += 1
+            if time_it:
+                r = res[name]
+                r["ms"] = time_ms(torch, lambda: step(gstate, *gargs, gnow), 5)
+                r["plain_ms"] = time_once(torch, lambda: step(state, *args, t_now))
+                # bytes: every input lane read once, every output lane written once
+                r["bound_ms"] = bytes_of(lanes(b), list(args[1:]), state, want[0],
+                                         lanes(want[1])) / MEM_BYTES_PER_S * 1e3
+                r["bound_by"] = "bytes"
+                r["flagged"] = bool(want[2])
+            return want
+
+    def key_fn(attrs):
+        return lambda b: _key_col(b.cols, schema.attrs, attrs).contiguous()
+
+    from siddhi_tpu_torch.core.windows_special import (CronWindow, FrequentWindow,
+                                                       LossyFrequentWindow, SortWindow)
+
+    # K25: sort — path SW's shape, then the traps
+    sw_keys = [("price", True), ("volume", False)]
+    st = SortWindow(schema, "S", SW_N, sw_keys, "cpu").init_state()
+    run("sort_window_step", lambda s, b, t: K.sort_window_step(s, b, t, sw_keys, SW_N), st,
+        [batch_of(SPECIAL_BATCH, 0), batch_of(SPECIAL_BATCH, SPECIAL_BATCH)], time_it=True)
+    for keys in ([("price", False)], [("price", True)], [("volume", True), ("qty", False)],
+                 [("qty", True)], [("hot", True), ("price", False)]):
+        for n, b in ((4, 1), (4, 33), (16, 33), (16, 4097)):
+            st = SortWindow(schema, "S", n, keys, "cpu").init_state()
+            bs = [batch_of(b, i * b, "traps", 0.05) for i in range(12 if b == 1 else 3)]
+            bs[0].cols["price"][0] = float("nan")  # a NaN key in slot 0
+            run("sort_window_step", lambda s, bb, t, _k=keys, _n=n: K.sort_window_step(
+                s, bb, t, _k, _n), st, bs)
+
+    # K26: frequent — path FQ's shape, then a small table evicting and dropping
+    fq_key = key_fn(["symbol"])
+    st = FrequentWindow(schema, "S", FQ_N, ["symbol"], "cpu").init_state()
+    run("frequent_window_step", lambda s, b, k, t: K.frequent_window_step(s, b, k, t, FQ_N), st,
+        [batch_of(SPECIAL_BATCH, i * SPECIAL_BATCH, symbols=zipf_symbols(SPECIAL_BATCH, 7 + i))
+         for i in range(2)], key_of=fq_key, time_it=True)
+    for attrs, n, b in ((["symbol"], 4, 1), (["symbol"], 4, 33), ([], 4, 33), (["price"], 16, 33),
+                        (["symbol", "hot"], 4, 4097), (["symbol"], 16, 4097)):
+        st = FrequentWindow(schema, "S", n, attrs, "cpu").init_state()
+        run("frequent_window_step", lambda s, bb, k, t, _n=n: K.frequent_window_step(
+            s, bb, k, t, _n), st, [batch_of(b, i * b, "traps", 0.05)
+                                   for i in range(12 if b == 1 else 3)], key_of=key_fn(attrs))
+
+    # K27: lossyFrequent — path LF's shape, prunes evicting the arrival, a full
+    # key table and an overflowing buffer
+    lf = LossyFrequentWindow(schema, "S", LF_S, LF_E, ["symbol"], "cpu")
+    run("lossy_frequent_window_step", lambda s, b, k, t: K.lossy_frequent_window_step(
+        s, b, k, t, lf.cap_keys, lf.width, LF_S, LF_E), lf.init_state(),
+        [batch_of(SPECIAL_BATCH, i * SPECIAL_BATCH, symbols=zipf_symbols(SPECIAL_BATCH, 9 + i))
+         for i in range(2)], key_of=fq_key, time_it=True)
+    for s_, e_, attrs, b in ((0.3, 0.1, ["symbol"], 1), (0.3, 0.1, ["symbol"], 33),
+                             (0.05, 0.01, [], 4097), (0.5, 0.25, ["price"], 33),
+                             (0.26, 0.25, [], 33)):
+        w = LossyFrequentWindow(schema, "S", s_, e_, attrs, "cpu")
+        st = w.init_state()
+        if s_ == 0.26:  # full of distinct keys one row before a boundary
+            st["occ"][:] = True
+            st["key"][:] = torch.arange(10**6, 10**6 + w.cap_keys)
+            st["cnt"][:] = 1
+            st["total"] = torch.tensor(3)
+        got = run("lossy_frequent_window_step", lambda s, bb, k, t, _w=w: K.lossy_frequent_window_step(
+            s, bb, k, t, _w.cap_keys, _w.width, _w.support, _w.error), st,
+            [batch_of(b, i * b, "traps", 0.05)
+             for i in range(1 if s_ == 0.26 else 12 if b == 1 else 3)], key_of=key_fn(attrs))
+        if s_ == 0.26 and not bool(got[2]):
+            raise AssertionError("K27: the full key table did not set the overflow flag")
+
+    # K28: cron — path CR's shape (a 1,000-row bucket, its TIMER row first),
+    # then TIMER rows anywhere, empty buckets and a bucket past w
+    def cron_batch(b, t0, timer_at=(), n_valid=None):
+        bb = batch_of(b, t0, valid_share=1.0)
+        if n_valid is not None:
+            bb.valid[n_valid:] = False
+        bb.kind[:] = 0
+        for i in timer_at:
+            bb.kind[i] = 2
+        return bb
+
+    st = CronWindow(schema, "S", "*/1 * * * * ?", "cpu", capacity=CR_W).init_state()
+    run("cron_window_step", lambda s, b, t: K.cron_window_step(s, b, t, CR_W), st,
+        [cron_batch(SPECIAL_BATCH, i * CR_BUCKET, (0,), CR_BUCKET) for i in range(3)],
+        time_it=True)
+    for w, b, timers in ((4, 1, (0,)), (4, 33, (0, 7, 8, 20)), (16, 33, (5, 32)),
+                         (16, 4097, (0, 100, 2000, 4096)), (1024, 4097, (3000,))):
+        st = CronWindow(schema, "S", "*/1 * * * * ?", "cpu", capacity=w).init_state()
+        bs = [cron_batch(b, i * b, timers if i % 2 else ()) for i in range(12 if b == 1 else 3)]
+        if b == 1:
+            bs = [cron_batch(1, i, (0,) if i % 3 == 2 else ()) for i in range(12)]
+        run("cron_window_step", lambda s, bb, t, _w=w: K.cron_window_step(s, bb, t, _w), st, bs)
+    # slot lanes past shared memory: the steps keep them in global scratch
+    keys4 = [("price", False), ("volume", True), ("qty", False), ("hot", True)]
+    st = SortWindow(schema, "S", 5000, keys4, "cpu").init_state()
+    run("sort_window_step", lambda s, b, t: K.sort_window_step(s, b, t, keys4, 5000), st,
+        [batch_of(5000, 0), batch_of(200, 5000)])
+    st = FrequentWindow(schema, "S", 20000, [], "cpu").init_state()
+    run("frequent_window_step", lambda s, b, k, t: K.frequent_window_step(s, b, k, t, 20000), st,
+        [batch_of(4097, i * 4097) for i in range(2)], key_of=key_fn([]))
+    lw = LossyFrequentWindow(schema, "S", 0.0002, 0.0001, ["symbol"], "cpu")
+    run("lossy_frequent_window_step", lambda s, b, k, t: K.lossy_frequent_window_step(
+        s, b, k, t, lw.cap_keys, lw.width, lw.support, lw.error), lw.init_state(),
+        [batch_of(4097, i * 4097, symbols=zipf_symbols(4097, i)) for i in range(3)],
+        key_of=fq_key)
+    st = CronWindow(schema, "S", "*/1 * * * * ?", "cpu", capacity=32768).init_state()
+    run("cron_window_step", lambda s, b, t: K.cron_window_step(s, b, t, 32768), st,
+        [cron_batch(4097, i * 4097, (0, 4000) if i else ()) for i in range(3)])
+    for name in names:
+        r = res[name]
+        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms=None "
+              f"checks={r['checks']} exact", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 3: verify cases against VERIFY.json
 # ---------------------------------------------------------------------------
 
@@ -2281,6 +2545,27 @@ def verify_phase(dev) -> None:
         if not rows_match(got, frozen[case]):
             raise AssertionError(f"verify case {case}: store-query rows differ from VERIFY.json")
         print(f"verify {case}: {len(got)} store-query rows match VERIFY.json", flush=True)
+    per_dev = {}
+    for d in (dev, "cpu"):
+        mgr = SiddhiManager(device=d)
+        rt = mgr.create_siddhi_app_runtime(MULTI_QUERY_CASE)
+        got = per_dev[d] = {q: [] for q in rt.queries}
+        for q in rt.queries:
+            rt.add_callback(q, lambda t, ins, rem, _g=got[q]: _g.extend(
+                [["+"] + list(e.data) for e in (ins or [])]
+                + [["-"] + list(e.data) for e in (rem or [])]))
+        rt.start()
+        h = rt.get_input_handler("S")
+        for i, r in enumerate(rows):
+            h.send(r, timestamp=int(ts[i]))
+        rt.shutdown()
+    for q, want in per_dev["cpu"].items():
+        if not want or not rows_match(per_dev[dev][q], want):
+            raise AssertionError(f"verify case multi_query_shared: query {q} differs from "
+                                 "device='cpu'")
+    print("verify multi_query_shared: "
+          + ", ".join(f"{q} {len(r)} rows" for q, r in per_dev["cpu"].items())
+          + " match device='cpu'", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2504,13 +2789,13 @@ def grouped_path_phase(torch) -> dict:
     from siddhi_tpu_torch import SiddhiManager
     from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 
-    for q in ("from S#window.sort(4, price) select symbol, max(price) as m group by symbol",
-              "from S#window.frequent(3, symbol) select symbol",
-              "from S#window.cron('*/5 * * * * ?') select symbol, sum(volume) as t",
-              "from S#pol2Cart(price, price) select symbol"):
+    for q in ("@store(type='memory') define table T (symbol string); "
+              "from S select symbol insert into T",
+              "partition with (symbol of S) begin from S select symbol insert into Out; end",
+              "define window W (symbol string) length(4); from S select symbol insert into W",
+              "define trigger T at every 5 sec; from S select symbol insert into Out"):
         try:
-            SiddhiManager(device="cuda").create_siddhi_app_runtime(
-                VERIFY_HEAD + q + " insert into Out;")
+            SiddhiManager(device="cuda").create_siddhi_app_runtime(VERIFY_HEAD + q + ";")
         except SiddhiAppCreationError as e:
             if "not ported yet" not in str(e):
                 raise
@@ -2678,7 +2963,8 @@ def time_agg_path_phase(torch) -> dict:
     return out
 
 
-def fused_busy(torch, app: str, data: dict, b: int, cols=("symbol", "price", "volume")) -> tuple:
+def fused_busy(torch, app: str, data: dict, b: int, cols=("symbol", "price", "volume"),
+               symbols=SYMBOLS) -> tuple:
     """Device busy share of one fused call of 8 batches (after a warm-up
     call of 2), from torch.profiler: (wall ms, device busy ms)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2687,7 +2973,7 @@ def fused_busy(torch, app: str, data: dict, b: int, cols=("symbol", "price", "vo
 
     mgr = SiddhiManager()
     rt = mgr.create_siddhi_app_runtime(app)
-    for s in SYMBOLS:
+    for s in symbols:
         mgr.interner.intern(s)
     rows = [0]
     rt.add_callback("q", lambda t, ins, rem: rows.__setitem__(0, rows[0] + len(ins or [])))
@@ -2775,16 +3061,16 @@ def pattern_path_phase(torch, label: str, app: str, n_events: int, per_step: dic
 
 
 def cpu_check(label: str, app: str, data: dict, stride: int = SCAN_CPU_EVENTS,
-              cols=("symbol", "price", "volume")) -> dict:
+              cols=("symbol", "price", "volume"), symbols=SYMBOLS) -> dict:
     """The first SCAN_CPU_EVENTS events of `app`, in calls of `stride`
     events, on the card and on device="cpu" (the plain versions): the same
     rows; prints the plain run's time."""
     n = SCAN_CPU_EVENTS
     calls = -(-n // stride)
     _n, gpu_kept, gpu_dt, _i = run_app("cuda", app, data, n, stride, stride, fused=False,
-                                       keep_calls=calls, cols=cols)
+                                       keep_calls=calls, cols=cols, symbols=symbols)
     _n, cpu_kept, cpu_dt, _i = run_app("cpu", app, data, n, stride, stride, fused=False,
-                                       keep_calls=calls, cols=cols)
+                                       keep_calls=calls, cols=cols, symbols=symbols)
     got = [r for c in gpu_kept for r in c]
     want = [r for c in cpu_kept for r in c]
     if not want or not rows_match(got, want):
@@ -3003,6 +3289,174 @@ def xb_path_phase(torch) -> dict:
           f"{prefix_events / pb_dt:.1f} events/s; first 20 batches exactly equal the per-batch "
           f"form; device busy {busy_ms:.3f} of {wall_ms:.3f} ms over one fused call of 8 "
           f"batches ({busy_ms / wall_ms:.4f})", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the special-window, stream-function and rate-limit paths
+# ---------------------------------------------------------------------------
+
+SPECIAL_KERNEL_OF = {"SW": "sort_window_step", "FQ": "frequent_window_step",
+                     "LF": "lossy_frequent_window_step", "CR": "cron_window_step"}
+FQ_NAMES = [f"S{i}" for i in range(1, FQ_SYMBOLS + 1)]
+
+
+def call_sizes(n: int, first: int, stride: int) -> list:
+    sizes, sent = [], 0
+    while sent < n:
+        sizes.append(min(first if sent == 0 else stride, n - sent))
+        sent += sizes[-1]
+    return sizes
+
+
+def special_path_phase(torch, label: str) -> dict:
+    """Path SW, FQ or LF at @app:batch 32768 (SPECIAL_APPS): 1,000,000 events
+    of seed 7 (FQ and LF: symbols over 1,000 names drawn from a Zipf law with
+    exponent 1.2) through send_columns in calls of 8 batches (the first of
+    4), fused; launch counts of this run alone: the window's kernel once a
+    fused step; no window overflow logged; the first 20 batches exactly
+    against the per-batch form and the first 8,192 events against
+    device="cpu"; events/s and the device busy share of one more fused
+    call."""
+    from siddhi_tpu_torch import kernels
+
+    b, kernel = SPECIAL_BATCH, SPECIAL_KERNEL_OF[label]
+    app = SPECIAL_APPS[label].format(batch=b)
+    n = {"SW": SW_EVENTS, "FQ": FQ_EVENTS, "LF": LF_EVENTS}[label]
+    data = stock_data(n, seed=7)
+    names = SYMBOLS
+    if label in ("FQ", "LF"):
+        data["symbol"], names = zipf_symbols(n), FQ_NAMES
+    first_n, stride = 4 * b, 8 * b
+    run_app("cuda", app, data, 4 * b, 2 * b, 2 * b, symbols=names)  # warm-up, not counted
+    kernels.launches.clear()
+    (n_rows, kept, dt, info), warned = capture_warnings(
+        lambda: run_app("cuda", app, data, n, stride, first_n, keep_calls=3, symbols=names),
+        "window emission")
+    launches = dict(kernels.launches)
+    print(f"{label} launches {json.dumps(launches)}", flush=True)
+    if warned:
+        raise AssertionError(f"path {label}: the window's buffer overflowed")
+    steps = sum(fused_steps(c, b) for c in call_sizes(n, first_n, stride))
+    if launches.get(kernel, 0) != steps:
+        raise AssertionError(f"path {label}: {launches.get(kernel, 0)} {kernel} launches for "
+                             f"{steps} steps")
+    pb_rows, pb_kept, pb_dt, _i = run_app("cuda", app, data, 20 * b, stride, first_n,
+                                          fused=False, keep_calls=3, symbols=names)
+    fused_prefix = [row for call in kept for row in call]
+    pb_prefix = [row for call in pb_kept for row in call]
+    if not pb_prefix or fused_prefix != pb_prefix:
+        raise AssertionError(f"path {label}: fused rows differ from the per-batch form")
+    cpu = cpu_check(f"path {label}", app, data, SCAN_CPU_EVENTS, symbols=names)
+    wall_ms, busy_ms = fused_busy(torch, app, data, b, symbols=names)
+    out = {"events": n, "rows": n_rows, "seconds": dt, "events_per_s": n / dt,
+           "steps": steps, "launches": launches, "chunks": info["chunks"],
+           "busy": {"wall_ms_8_batches": wall_ms, "device_busy_ms": busy_ms,
+                    "share": busy_ms / wall_ms},
+           "per_batch": {"events": 20 * b, "rows": pb_rows, "seconds": pb_dt,
+                         "events_per_s": 20 * b / pb_dt, "rows_exactly_equal": True},
+           "cpu_check": cpu}
+    print(f"path {label}: fused {n} events, {n_rows} rows delivered, {dt:.3f} s, "
+          f"{n / dt:.1f} events/s, {steps} steps = {kernel} launches; per-batch form "
+          f"{20 * b} events, {pb_dt:.3f} s, {20 * b / pb_dt:.1f} events/s, first 20 batches "
+          f"exactly equal; device busy {busy_ms:.3f} of {wall_ms:.3f} ms over one fused call "
+          f"of 8 batches ({busy_ms / wall_ms:.4f}); no overflow", flush=True)
+    return out
+
+
+def cron_path_phase(torch) -> dict:
+    """Path CR: cron('*/1 * * * * ?') group by symbol with sum and count
+    under @app:playback at @app:batch 32768: 16 calls of one 1,000-event
+    bucket of seed-7 1 ms ticks each; each call's event-time advance fires
+    the cron TIMER step that closes the previous bucket. Per batch (the
+    scheduler keeps it off the fused path); K28 launches = data steps +
+    TIMER steps; no overflow; the closed buckets' counts sum to their
+    events; the first 8,192 events against device="cpu"."""
+    from siddhi_tpu_torch import kernels
+
+    b, n = SPECIAL_BATCH, CR_CALLS * CR_BUCKET
+    app = SPECIAL_APPS["CR"].format(batch=b)
+    data = stock_data(n, seed=7)
+    run_app("cuda", app, data, 4 * CR_BUCKET, CR_BUCKET, CR_BUCKET, fused=False)  # warm-up
+    fires = [0]
+    kernels.launches.clear()
+    (n_rows, kept, dt, _info), warned = capture_warnings(
+        lambda: run_app("cuda", app, data, n, CR_BUCKET, CR_BUCKET, fused=False, fires=fires,
+                        keep_calls=CR_CALLS), "window emission")
+    launches = dict(kernels.launches)
+    print(f"CR launches {json.dumps(launches)}", flush=True)
+    if warned:
+        raise AssertionError("path CR: the cron bucket overflowed")
+    data_steps = sum(-(-c // b) for c in call_sizes(n, CR_BUCKET, CR_BUCKET))
+    if launches.get("cron_window_step", 0) != data_steps + fires[0]:
+        raise AssertionError(f"path CR: {launches.get('cron_window_step', 0)} K28 launches for "
+                             f"{data_steps} data steps and {fires[0]} TIMER steps")
+    counted = sum(r[-1] for c in kept for r in c)
+    if counted != n - CR_BUCKET:
+        raise AssertionError(f"path CR: the closed buckets count {counted} events")
+    cpu = cpu_check("path CR", app, data, CR_BUCKET)
+    out = {"events": n, "rows": n_rows, "seconds": dt, "events_per_s": n / dt,
+           "data_steps": data_steps, "timer_steps": fires[0], "events_counted": counted,
+           "launches": launches, "cpu_check": cpu}
+    print(f"path CR: {n} events in {CR_CALLS} calls (one bucket each) and {fires[0]} TIMER "
+          f"steps, {n_rows} rows delivered, closed buckets count {counted} events, {dt:.3f} s, "
+          f"{n / dt:.1f} events/s; no overflow", flush=True)
+    return out
+
+
+def fn_path_phase(torch) -> dict:
+    """Path FN: #pol2Cart(price, volume), a filter on the added x, and
+    `output last every 4096 events` at @app:batch 32768: 1,000,000 events of
+    seed 7 through send_columns in calls of 8 batches, per batch (the
+    limiter keeps the junction off the fused path); one row per 4,096
+    passing events; the first 8,192 events against device="cpu"; events/s
+    and the device busy share of one call of 8 batches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    b = SPECIAL_BATCH
+    app = SPECIAL_APPS["FN"].format(batch=b, every=FN_EVERY)
+    data = stock_data(FN_EVENTS, seed=7)
+    run_app("cuda", app, data, 2 * b, 2 * b, 2 * b, fused=False)  # warm-up
+    n_rows, _kept, dt, _info = run_app("cuda", app, data, FN_EVENTS, 8 * b, 8 * b, fused=False)
+    # the stream function's own arithmetic, on the card
+    price = torch.from_numpy(data["price"]).cuda()
+    x = torch.from_numpy(data["volume"]).cuda().float() * torch.cos(torch.deg2rad(price))
+    passing = int((x > 0).sum())
+    if n_rows != passing // FN_EVERY:
+        raise AssertionError(f"path FN: {n_rows} rows for {passing} passing events")
+    cpu = cpu_check("path FN", app.replace(f"every {FN_EVERY} events", "every 16 events"),
+                    data, SCAN_CPU_EVENTS)
+    mgr = SiddhiManager()
+    rt = mgr.create_siddhi_app_runtime(app)
+    for s_ in SYMBOLS:
+        mgr.interner.intern(s_)
+    rt.start()
+    h = rt.get_input_handler("StockStream")
+    cols = ("symbol", "price", "volume")
+    h.send_columns(data["ts"][:b], {k: data[k][:b] for k in cols}, now=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        h.send_columns(data["ts"][b:9 * b], {k: data[k][b:9 * b] for k in cols}, now=0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us = 0.0
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        busy_us += e.self_cuda_time_total if dev_us is None else dev_us
+    busy_ms = busy_us / 1e3
+    rt.shutdown()
+    mgr.shutdown()
+    out = {"events": FN_EVENTS, "rows": n_rows, "passing": passing, "seconds": dt,
+           "events_per_s": FN_EVENTS / dt,
+           "busy": {"wall_ms_8_batches": wall_ms, "device_busy_ms": busy_ms,
+                    "share": busy_ms / wall_ms}, "cpu_check": cpu}
+    print(f"path FN: {FN_EVENTS} events per batch, {passing} pass the filter, {n_rows} rows "
+          f"(one per {FN_EVERY}), {dt:.3f} s, {FN_EVENTS / dt:.1f} events/s; device busy "
+          f"{busy_ms:.3f} of {wall_ms:.3f} ms over one call of 8 batches "
+          f"({busy_ms / wall_ms:.4f})", flush=True)
     return out
 
 
@@ -3541,6 +3995,7 @@ def main() -> int:
     res.update(pattern_scan_kernel_phase(torch, "cuda"))
     res.update(time_batch_kernel_phase(torch, "cuda"))
     res.update(table_kernel_phase(torch, "cuda"))
+    res.update(special_window_kernel_phase(torch, "cuda"))
     if "--kernels" in sys.argv[1:]:
         return 0
     verify_phase("cuda")
@@ -3560,6 +4015,9 @@ def main() -> int:
     time_batch = tb_path_phase(torch)
     external_time_batch = xb_path_phase(torch)
     tables = table_paths_phase(torch)
+    special = {k: special_path_phase(torch, k) for k in ("SW", "FQ", "LF")}
+    special["CR"] = cron_path_phase(torch)
+    special["FN"] = fn_path_phase(torch)
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -3612,7 +4070,15 @@ def main() -> int:
            "table_match": ("siddhi_tpu_torch/csrc/table_match.cu",
                            "siddhi_tpu/core/table.py:431"),
            "table_scan": ("siddhi_tpu_torch/csrc/table_scan.cu",
-                          "siddhi_tpu/core/table.py:704")}
+                          "siddhi_tpu/core/table.py:704"),
+           "sort_window_step": ("siddhi_tpu_torch/csrc/special_window.cu",
+                                "siddhi_tpu/core/windows_special.py:160"),
+           "frequent_window_step": ("siddhi_tpu_torch/csrc/special_window.cu",
+                                    "siddhi_tpu/core/windows_special.py:424"),
+           "lossy_frequent_window_step": ("siddhi_tpu_torch/csrc/special_window.cu",
+                                          "siddhi_tpu/core/windows_special.py:543"),
+           "cron_window_step": ("siddhi_tpu_torch/csrc/special_window.cu",
+                                "siddhi_tpu/core/windows_special.py:298")}
     # launches: K1-K5 from the quickstart path's run, K6-K9 from the
     # tumbling_groupby path's run, K10 from path T's run, K11 and K12 from
     # path J's, K13 and K15 from path P's, K14 from path C's, K16 from path
@@ -3633,6 +4099,9 @@ def main() -> int:
     path_of["table_write"] = path_of["table_index_probe"] = tables["TAB-PK"]["launches"]
     path_of["table_index_build"] = path_of["table_scan"] = tables["TAB-UPSERT"]["launches"]
     path_of["table_match"] = tables["TAB-DENSE"]["launches"]
+    # K25-K28 from paths SW, FQ, LF and CR
+    for label, k in SPECIAL_KERNEL_OF.items():
+        path_of[k] = special[label]["launches"]
     path_launches = {k: path_of.get(k, main["launches"]).get(k, 0) for k in res}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
@@ -3666,7 +4135,7 @@ def main() -> int:
                        "distinct_count_XB_ms": res["distinct_count"]["XB_ms"],
                        "window_extreme_keyed_pairs": res["window_extreme_keyed"]["pairs"],
                        "running_extreme_library": res["running_extreme"]["library"]},
-                   "tables": tables,
+                   "tables": tables, "special_paths": special,
                    "table_kernel_shapes": {
                        "table_write_scan_ms": res["table_write"]["scan_ms"],
                        "table_match_in_ms": res["table_match"]["in_ms"],

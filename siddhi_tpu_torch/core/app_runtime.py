@@ -8,19 +8,21 @@ points between steps.
 
 Ported so far: stream definitions, `@app:name`, `@app:batch`, `@app:playback`,
 `@app:groupCapacity`, `@app:joinCapacity`, single-stream queries (filter;
-length, time, timeLength, externalTime, lengthBatch, timeBatch and
-externalTimeBatch windows; projection with sum/count/avg/stdDev/min/max/
-minForever/maxForever/distinctCount, group-by, having, order-by,
-limit/offset) and
+stream functions `#log`, `#pol2Cart` and extensions; length, time,
+timeLength, externalTime, lengthBatch, timeBatch, externalTimeBatch, sort,
+frequent, lossyFrequent and cron windows; projection with sum/count/avg/
+stdDev/min/max/minForever/maxForever/distinctCount and `define function`
+script functions, group-by, having, order-by, limit/offset; output rate
+limiting by events, time or snapshot, whose query delivers per batch) and
 join queries (inner, left/right/full outer, unidirectional, self-joins,
 windowless sides), pattern and sequence queries (core/pattern.py; the two
 batch routes and the per-event scan; `@app:patternCapacity`,
 `@app:countCapacity`, `@app:patternChunk`), inserting into streams or
 delivering to callbacks; the timers of time windows and of absent pattern
-states and of timeBatch buckets and the externalTimeBatch idle timeout,
-fired by the event-time clock under @app:playback and by the wall clock
-otherwise; fused columnar ingest (core/ingest.py)
-with `@app:ingestChunk`, `@app:wire` and the per-stream `@pipeline`, which
+states and of timeBatch buckets and the externalTimeBatch idle timeout, a
+cron window's fires and a time rate limiter's flushes, fired by the
+event-time clock under @app:playback and by the wall clock otherwise; fused
+columnar ingest (core/ingest.py) with `@app:ingestChunk`, `@app:wire` and the per-stream `@pipeline`, which
 queries that need the scheduler stay off; in-memory tables (core/table.py,
 `@app:tableCapacity`) written inside the query steps by insert, update,
 delete and update-or-insert outputs, read by `in` conditions and table join
@@ -49,10 +51,12 @@ from siddhi_tpu_torch.core.event import (
     KIND_TIMER,
     StreamSchema,
 )
+from siddhi_tpu_torch.core.extension import extension
 from siddhi_tpu_torch.core.ingest import FuseEndpoint, FusedJunctionIngest
 from siddhi_tpu_torch.core.join import DEFAULT_JOIN_CAPACITY, JoinQueryRuntime
 from siddhi_tpu_torch.core.pipeline import resolve_pipeline_annotation
 from siddhi_tpu_torch.core.query_runtime import QueryRuntime
+from siddhi_tpu_torch.core.stream_function import make_script_function
 from siddhi_tpu_torch.core.stream_junction import (
     InputHandler,
     StreamJunction,
@@ -101,13 +105,18 @@ class SiddhiAppRuntime:
         for kind, defs in (
             ("window", app.window_definitions),
             ("trigger", app.trigger_definitions),
-            ("function", app.function_definitions),
             ("aggregation", app.aggregation_definitions),
         ):
             if defs:
                 raise _not_ported(f"define {kind}")
+        # `define function f[python] ...` scripts register into the function
+        # registry (reference: script executors via @Extension SPI; the
+        # registry is process-wide, so same-name redefinitions win last)
+        for fid, fdef in app.function_definitions.items():
+            extension("function", fid)(make_script_function(fdef))
 
         self._exception_handler = None
+        self._running = False
         # failures of timer-driven steps not yet raised to a sender (with no
         # exception handler set); the next send or shutdown() raises them
         self._timer_errors: list[Exception] = []
@@ -274,7 +283,12 @@ class SiddhiAppRuntime:
                 out_batch = _qr.receive(batch, now)
                 _qr.route_output(out_batch, now, self._decode)
                 next_timer = _qr.next_timer
-            self._schedule_at(next_timer, _qr.timer_targets.get("in"))
+            target = _qr.timer_targets.get("in")
+            if _qr.host_next_timer is not None:
+                # a cron window: its next fire comes from the expression
+                self._notify(_qr.host_next_timer(self.clock()), target)
+            else:
+                self._schedule_at(next_timer, target)
 
         if qr.uses_scheduler:
             def fire(t_ms: int, _schema=in_schema) -> None:
@@ -284,7 +298,7 @@ class SiddhiAppRuntime:
 
         j = self._junction(stream.stream_id)
         j.subscribe(receive)
-        j.fuse_candidates.append(FuseEndpoint(qr))
+        self._fuse_candidate(j, FuseEndpoint(qr))
 
     def _add_join_query(self, qid: str, query: Query) -> None:
         join = query.input_stream
@@ -329,14 +343,14 @@ class SiddhiAppRuntime:
 
             j = self._junction(join.left.stream_id)
             j.subscribe(lambda b, now: (receive_side(b, now, "l"), receive_side(b, now, "r")))
-            j.fuse_candidates.append(FuseEndpoint(qr, step=step_both, outputs=2))
+            self._fuse_candidate(j, FuseEndpoint(qr, step=step_both, outputs=2))
         else:
             for side, stream in (("l", join.left), ("r", join.right)):
                 if qr.table_sides[side]:
                     continue  # a table side is probed, never driven
                 sj = self._junction(stream.stream_id)
                 sj.subscribe(lambda b, now, _s=side: receive_side(b, now, _s))
-                sj.fuse_candidates.append(FuseEndpoint(qr, step=step_side(side)))
+                self._fuse_candidate(sj, FuseEndpoint(qr, step=step_side(side)))
 
         for side in qr.scheduled_sides:
             def fire(t_ms: int, _side=side, _schema=qr.side_schemas[side]) -> None:
@@ -379,8 +393,8 @@ class SiddhiAppRuntime:
         for sid in qr.prog.stream_ids:
             j = self._junction(sid)
             j.subscribe(lambda b, now, _sid=sid: receive(b, now, _sid))
-            j.fuse_candidates.append(FuseEndpoint(qr, step=qr.step_for(sid),
-                                                  init_state=qr.init_state))
+            self._fuse_candidate(j, FuseEndpoint(qr, step=qr.step_for(sid),
+                                                 init_state=qr.init_state))
 
         if qr.uses_scheduler:
             # absent deadlines: a one-row TIMER step at each (JAX
@@ -393,6 +407,14 @@ class SiddhiAppRuntime:
                 self._schedule_at(next_timer, _qr.timer_targets.get("timer"))
 
             qr.timer_targets["timer"] = fire
+
+    @staticmethod
+    def _fuse_candidate(j: StreamJunction, ep: FuseEndpoint) -> None:
+        """Offer a query's endpoint to its junction's fused ingest. A
+        rate-limited query delivers through its limiter on the host, so it
+        offers none and keeps its junction on the per-batch path."""
+        if ep.qr.rate_limiter is None:
+            j.fuse_candidates.append(ep)
 
     def _timer_batch(self, schema: StreamSchema, t_ms: int) -> EventBatch:
         """A batch of one TIMER row at t_ms (null payload). The JAX package
@@ -412,8 +434,29 @@ class SiddhiAppRuntime:
 
         t = int(next_timer)
         if t < NO_TIMER:
+            self._notify(t, target)
+
+    def _notify(self, t_ms: int, target) -> None:
+        if target is not None:
             self._scheduler.start()
-            self._scheduler.notify_at(t, target)
+            self._scheduler.notify_at(t_ms, target)
+
+    def _arm_rate_limiter(self, qr) -> None:
+        """Recurring flush timer of a time or snapshot rate limiter
+        (reference: time-based OutputRateLimiter scheduler wiring)."""
+        rl = qr.rate_limiter
+        if rl is None or rl.period_ms is None:
+            return
+        period = rl.period_ms
+
+        def fire(t_ms: int, _qr=qr, _rl=rl) -> None:
+            if not self._running:
+                return  # stopped: stop re-arming
+            with self._process_lock:
+                _qr._deliver(_rl.on_timer(t_ms), t_ms)
+            self._notify(t_ms + period, fire)
+
+        self._notify(self.clock() + period, fire)
 
     def _on_timer_error(self, exc: Exception) -> None:
         """A timer-driven step failed (on the sender's thread under
@@ -516,15 +559,22 @@ class SiddhiAppRuntime:
         self._exception_handler = handler
 
     def start(self) -> None:
+        self._running = True
         if self._playback_clock is not None:
             self._playback_clock.start_heartbeat()
         self._build_fused_ingest()
         # absent-at-start patterns arm their timers before any event
-        # (reference: SiddhiAppRuntime.start -> eternalReferencedHolders.start)
+        # (reference: SiddhiAppRuntime.start -> eternalReferencedHolders.start),
+        # a cron window its first fire, a time or snapshot rate limiter its
+        # first flush
         for qr in self.queries.values():
             target = qr.timer_targets.get("timer")
             if target is not None:
                 self._schedule_at(qr.prime(self.clock())["next_timer"], target)
+            hnt = getattr(qr, "host_next_timer", None)
+            if hnt is not None:
+                self._notify(hnt(self.clock()), qr.timer_targets.get("in"))
+            self._arm_rate_limiter(qr)
 
     def _build_fused_ingest(self) -> None:
         """Build a fused ingest engine on each junction whose subscribers
@@ -551,6 +601,7 @@ class SiddhiAppRuntime:
             )
 
     def shutdown(self) -> None:
+        self._running = False
         if self._playback_clock is not None:
             self._playback_clock.stop()
         self._scheduler.shutdown()

@@ -27,7 +27,9 @@ from siddhi_tpu_torch.core.event import (
 )
 from siddhi_tpu_torch.core.executor import Scope, compile_expression
 from siddhi_tpu_torch.core.flow import Flow
+from siddhi_tpu_torch.core.ratelimit import EventAllLimiter, TimeAllLimiter, build_rate_limiter
 from siddhi_tpu_torch.core.selector import CompiledSelector
+from siddhi_tpu_torch.core.stream_function import make_stream_function
 from siddhi_tpu_torch.core.types import AttrType, InternTable
 from siddhi_tpu_torch.core.windows import make_window
 from siddhi_tpu_torch.query_api.execution import (
@@ -36,19 +38,23 @@ from siddhi_tpu_torch.query_api.execution import (
     OutputEventsFor,
     Query,
     SingleInputStream,
+    StreamFunctionHandler,
     WindowHandler,
 )
 
 
 class CompiledSingleChain:
-    """Ordered filter / window stages over one input stream
-    (reference: SingleInputStreamParser.generateProcessor chain assembly)."""
+    """Ordered filter / stream-function / window stages over one input stream
+    (reference: SingleInputStreamParser.generateProcessor chain assembly).
+    Stream functions append attribute columns; the chain's effective output
+    schema is `out_attrs`."""
 
     def __init__(self, stream: SingleInputStream, schema: StreamSchema, scope: Scope):
         self.schema = schema
         self.ref = stream.alias or stream.stream_id
         self.window = None
         self.stages: list[tuple[str, object]] = []
+        attrs = dict(schema.attr_types)
         for h in stream.handlers:
             if isinstance(h, Filter):
                 cond = compile_expression(h.expression, scope)
@@ -58,13 +64,25 @@ class CompiledSingleChain:
             elif isinstance(h, WindowHandler):
                 if self.window is not None:
                     raise SiddhiAppCreationError("only one window per stream")
-                self.window = make_window(h.window, schema, self.ref, scope)
+                win_schema = StreamSchema(schema.stream_id, list(attrs.items()))
+                self.window = make_window(h.window, win_schema, self.ref, scope)
                 self.stages.append(("window", self.window))
+            elif isinstance(h, StreamFunctionHandler):
+                stage = make_stream_function(h, attrs, self.ref, scope, schema.stream_id)
+                for name, t in stage.new_attrs:
+                    if name in attrs:
+                        raise SiddhiAppCreationError(
+                            f"stream function '#{h.name}' output '{name}' "
+                            "collides with an existing attribute")
+                    attrs[name] = t
+                    # later filters/selectors resolve the appended attrs
+                    scope.add_stream(self.ref, attrs)
+                self.stages.append(("fn", stage))
             else:
                 raise SiddhiAppCreationError(
                     f"stream handler {type(h).__name__} is not ported yet"
                 )
-        self.out_attrs: list[tuple[str, AttrType]] = list(schema.attrs)
+        self.out_attrs: list[tuple[str, AttrType]] = list(attrs.items())
 
     def init_state(self):
         return self.window.init_state() if self.window is not None else ()
@@ -73,6 +91,8 @@ class CompiledSingleChain:
         for kind, stage in self.stages:
             if kind == "filter":
                 flow = self._filter(flow, stage)
+            elif kind == "fn":
+                flow = stage.apply(flow)
             else:  # window
                 state, flow = stage.apply(state, flow)
         return state, flow
@@ -134,9 +154,9 @@ class _FlagWatch:
             self.on_set()
 
 
-# the one-time logs of the table flags (the JAX package's query_runtime.py
-# _check_aux_flags)
-_TABLE_FLAG_LOGS = {
+# the one-time logs of the table and window flags (the JAX package's
+# query_runtime.py _check_aux_flags)
+_FLAG_LOGS = {
     "table_overflow": (
         logging.ERROR,
         "query '%s': table ran out of capacity; inserts were dropped — raise it with "
@@ -149,6 +169,11 @@ _TABLE_FLAG_LOGS = {
         logging.ERROR,
         "query '%s': update failed — rekeying matched rows would collide with an existing "
         "primary key; the update event was skipped"),
+    # a special window's emission buffer or key table (core/windows_special.py)
+    "window_overflow": (
+        logging.WARNING,
+        "query '%s': window emission/key buffer overflowed; events were dropped — reduce "
+        "batch size or raise window capacity"),
 }
 
 
@@ -158,8 +183,12 @@ class BaseQueryRuntime:
     `selector`, then calls `_setup_output`."""
 
     def _setup_output(self, query: Query, query_id: str) -> None:
-        if query.output_rate is not None:
-            raise SiddhiAppCreationError("output rate limiting is not ported yet")
+        grouped = bool(query.selector.group_by)
+        self.rate_limiter = build_rate_limiter(query.output_rate, grouped)
+        if self.rate_limiter is not None and grouped and not isinstance(
+                self.rate_limiter, (EventAllLimiter, TimeAllLimiter)):
+            # per-group limiters need the group key beside each output row
+            self.selector.emit_group_key = True
         out = query.output_stream
         target = out.target if isinstance(out, InsertIntoStream) else f"__ret_{query_id}"
         self.out_schema = StreamSchema(target, self.selector.out_attrs)
@@ -183,9 +212,9 @@ class BaseQueryRuntime:
         # the table op of a table output, compiled by _attach_tables
         self.table_op: Optional[Callable] = None
         self.tables: dict = {}
-        self._table_flags = {
-            key: _FlagWatch(self.device, lambda _k=key: self._log_table_flag(_k))
-            for key in _TABLE_FLAG_LOGS
+        self._flags = {
+            key: _FlagWatch(self.device, lambda _k=key: self._log_flag(_k))
+            for key in _FLAG_LOGS
         }
 
     def _attach_tables(self, tables: dict, interner) -> None:
@@ -198,14 +227,16 @@ class BaseQueryRuntime:
         tables = dict(tables or {})
         self.table_op = compile_table_output(self.query.output_stream, self.out_schema, tables,
                                              interner, self.device)
+        if self.table_op is not None and self.rate_limiter is not None:
+            raise SiddhiAppCreationError("output rate limiting into a table is not supported yet")
         self.tables = {tid: tables[tid] for tid in sorted(collect_used_tables(self.query, tables))}
 
     def _apply_table_op(self, out: EventBatch, now, aux: dict) -> None:
         if self.table_op is not None:
             self.table_op(out, now, aux)
 
-    def _log_table_flag(self, key: str) -> None:
-        level, msg = _TABLE_FLAG_LOGS[key]
+    def _log_flag(self, key: str) -> None:
+        level, msg = _FLAG_LOGS[key]
         logging.getLogger(__name__).log(level, msg, self.query_id)
 
     @property
@@ -223,7 +254,7 @@ class BaseQueryRuntime:
         if "groupby_overflow" in aux:
             self._overflow.note(aux["groupby_overflow"])
             self._overflow.poll()
-        for key, watch in self._table_flags.items():
+        for key, watch in self._flags.items():
             if key in aux:
                 watch.note(aux[key])
                 watch.poll()
@@ -240,7 +271,7 @@ class BaseQueryRuntime:
     def flush_aux_warnings(self) -> None:
         """Read the pending overflow flags now (one device sync) and log."""
         self._overflow.flush()
-        for watch in self._table_flags.values():
+        for watch in self._flags.values():
             watch.flush()
 
     def route_output(self, out: EventBatch, now: int, decode) -> None:
@@ -248,6 +279,23 @@ class BaseQueryRuntime:
 
         `decode` = app-runtime host decoder (batch -> event triples).
         """
+        if self.rate_limiter is not None:
+            rows = decode(self.out_schema, out)
+            keys = None
+            if "__group_key__" in out.cols:
+                keys = out.cols["__group_key__"][out.valid].tolist()
+            rows4 = [(ts, kind, data, keys[i] if keys is not None else None)
+                     for i, (ts, kind, data) in enumerate(rows)]
+            # only the kinds this query OUTPUTS enter the limiter — an
+            # un-requested EXPIRED row must not consume a chunk slot or
+            # shadow a group's held row (reference: the selector's
+            # currentOn/expiredOn gate sits before OutputRateLimiter)
+            want = self.output_events
+            kinds = ((KIND_CURRENT,) if want is OutputEventsFor.CURRENT else
+                     (KIND_EXPIRED,) if want is OutputEventsFor.EXPIRED else
+                     (KIND_CURRENT, KIND_EXPIRED))
+            self._deliver(self.rate_limiter.process([r for r in rows4 if r[1] in kinds], now), now)
+            return
         if self.query_callbacks:
             events = decode(self.out_schema, out)
             if events:
@@ -264,6 +312,31 @@ class BaseQueryRuntime:
                         cb(ts, ins or None, removed or None)
         if self.publish_fn is not None:
             self.publish_fn(out, now)
+
+    def _deliver(self, rows4: list, now: int) -> None:
+        """Route rate-limiter-released `(ts, kind, data, key)` rows to the
+        callbacks and the downstream junction (re-encoded into batches of
+        64 rows, as the JAX package pads them)."""
+        if not rows4:
+            return
+        if self.query_callbacks:
+            want = self.output_events
+            ins = [] if want is OutputEventsFor.EXPIRED else [
+                r[:3] for r in rows4 if r[1] == KIND_CURRENT]
+            removed = [] if want is OutputEventsFor.CURRENT else [
+                r[:3] for r in rows4 if r[1] == KIND_EXPIRED]
+            if ins or removed:
+                ts = rows4[-1][0]
+                for cb in self.query_callbacks:
+                    cb(ts, ins or None, removed or None)
+        if self.publish_fn is not None:
+            cap = 64
+            for ofs in range(0, len(rows4), cap):
+                chunk = rows4[ofs:ofs + cap]
+                batch = self.out_schema.to_batch(
+                    [r[0] for r in chunk], [r[2] for r in chunk], self._scope.interner, self.device,
+                    capacity=cap, kinds=[r[1] for r in chunk])
+                self.publish_fn(batch, now)
 
 
 class QueryRuntime(BaseQueryRuntime):
@@ -320,8 +393,12 @@ class QueryRuntime(BaseQueryRuntime):
             or (isinstance(a, ExtremeAggregator) and not a.forever)
             for a in self.selector.aggregators
         )
-        if is_batch and self.output_events is OutputEventsFor.CURRENT and not needs_member:
+        if (is_batch and self.output_events is OutputEventsFor.CURRENT
+                and self.rate_limiter is None and not needs_member):
             win.emit_expired = False
+        # cron-driven windows compute their next fire on the host
+        cron = getattr(win, "cron_schedule", None)
+        self.host_next_timer = cron.next_fire_ms if cron is not None else None
 
     def init_state(self):
         return {"chain": self.chain.init_state(), "sel": self.selector.init_state()}

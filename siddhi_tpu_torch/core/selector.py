@@ -81,6 +81,9 @@ class CompiledSelector:
     ):
         self.batch_mode = batch_mode
         self.output_events_for_batch = OutputEventsFor.CURRENT
+        # per-group rate limiters read each output row's group key from an
+        # extra "__group_key__" column (not part of the output schema)
+        self.emit_group_key = False
         sel_list = list(selector.selection_list)
         if selector.select_all:
             sel_list = [OutputAttribute(None, Variable(n)) for n, _ in input_attrs]
@@ -227,6 +230,9 @@ class CompiledSelector:
                 allowed = valid & (kind == KIND_CURRENT)
             valid = keep_last_per_group(seg, allowed)
 
+        if self.emit_group_key and ctx is not None:
+            # (reference: GroupByKeyGenerator key threading into rate limiters)
+            out_cols["__group_key__"] = ctx.key.expand(shape).contiguous()
         out = EventBatch(ts=flow.batch.ts, kind=kind, valid=valid, cols=out_cols)
         out = self._order_limit(out, env3)
         new_state = {"aggs": new_aggs}

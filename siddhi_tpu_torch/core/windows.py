@@ -18,7 +18,8 @@ timeout. Each step, and the ring view, is a hand-written CUDA kernel on the
 card (csrc/length_window.cu, csrc/time_window.cu, csrc/batch_window.cu,
 csrc/ring_view.cu); the `*_ref` functions are their plain PyTorch versions,
 which the wrappers take only for tensors on the CPU. The sort, frequent,
-lossyFrequent, cron and the other windows raise "not ported yet".
+lossyFrequent and cron windows live in core/windows_special.py (K25-K28);
+`make_window` builds them too. The other windows raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -45,10 +46,14 @@ from siddhi_tpu_torch.query_api.expression import Constant, Variable
 BIG = torch.iinfo(torch.int32).max
 
 
-def _const_param(spec: WindowSpec, i: int, what: str) -> int:
+def _const_raw(spec: WindowSpec, i: int, what: str):
     if i >= len(spec.parameters) or not isinstance(spec.parameters[i], Constant):
         raise SiddhiAppCreationError(f"window {spec.name}: parameter {i} must be a constant {what}")
-    return int(spec.parameters[i].value)
+    return spec.parameters[i].value
+
+
+def _const_param(spec: WindowSpec, i: int, what: str) -> int:
+    return int(_const_raw(spec, i, what))
 
 
 class WindowStage:
@@ -1154,6 +1159,60 @@ def make_window(spec: WindowSpec, schema: StreamSchema, ref: str, scope: Scope,
                            duration_ms=_const_param(spec, 1, "duration"), time_attr=attr,
                            start_time=_const_param(spec, 2, "start time") if n > 2 else None,
                            timeout_ms=_const_param(spec, 3, "timeout") if n > 3 else None)
+    if name == "sort":
+        from siddhi_tpu_torch.core.windows_special import SortWindow
+
+        n = _const_param(spec, 0, "length")
+        keys: list[tuple[str, bool]] = []
+        i = 1
+        params = spec.parameters
+        while i < len(params):
+            p = params[i]
+            if not isinstance(p, Variable):
+                raise SiddhiAppCreationError(
+                    "sort window parameters after the length must be "
+                    "attribute [, 'asc'|'desc'] pairs")
+            desc = False
+            if i + 1 < len(params) and isinstance(params[i + 1], Constant) and str(
+                    params[i + 1].value).lower() in ("asc", "desc"):
+                desc = str(params[i + 1].value).lower() == "desc"
+                i += 1
+            keys.append((p.attribute, desc))
+            i += 1
+        for a, _d in keys:
+            scope.record_key((ref, None, a))
+        return SortWindow(schema, ref, n, keys, dev)
+    if name in ("frequent", "lossyfrequent"):
+        from siddhi_tpu_torch.core.windows_special import FrequentWindow, LossyFrequentWindow
+
+        if name == "frequent":
+            n = _const_param(spec, 0, "count")
+            rest = spec.parameters[1:]
+        else:
+            support = _const_raw(spec, 0, "support threshold")
+            if len(spec.parameters) > 1 and not isinstance(spec.parameters[1], Variable):
+                error = _const_raw(spec, 1, "error bound")
+                rest = spec.parameters[2:]
+            else:
+                error = float(support) / 10.0  # reference default error bound
+                rest = spec.parameters[1:]
+        attrs = []
+        for p in rest:
+            if not isinstance(p, Variable):
+                raise SiddhiAppCreationError(
+                    f"{'frequent' if name == 'frequent' else 'lossyFrequent'} window keys "
+                    "must be attributes")
+            attrs.append(p.attribute)
+        for a in (attrs or schema.attr_names):  # no keys = whole-event key
+            scope.record_key((ref, None, a))
+        if name == "frequent":
+            return FrequentWindow(schema, ref, n, attrs, dev)
+        return LossyFrequentWindow(schema, ref, float(support), float(error), attrs, dev)
+    if name == "cron":
+        from siddhi_tpu_torch.core.windows_special import CronWindow
+
+        expr = _const_raw(spec, 0, "cron expression")
+        return CronWindow(schema, ref, str(expr), dev, capacity=time_capacity)
     raise SiddhiAppCreationError(f"window '{spec.name}' is not ported yet")
 
 

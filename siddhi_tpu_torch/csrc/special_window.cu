@@ -1,0 +1,847 @@
+// K25-K28: the sort, frequent, lossyFrequent and cron window steps.
+//
+// Each of these windows is a per-arrival state machine: an arrival may evict
+// a victim that depends on every earlier arrival (the sort order, the
+// Misra-Gries counts, the lossy-counting buckets, the open cron bucket).
+// The JAX package scans the batch's rows (windows_special.py); here one
+// block walks the rows in order, one tile at a time:
+//   - the block loads a tile's row lanes (kind/valid flags, ts, keys) into
+//     shared memory, then one worker walks the tile: thread 0 for sort and
+//     cron, warp 0 for frequent and lossyFrequent, whose slot searches
+//     (first hit, first free, the evictions in slot order) are warp ballots;
+//   - the slots' control lanes (sort keys and seq, frequent keys/counts,
+//     bucket lanes) sit in shared memory when they fit, else in a global
+//     scratch the wrapper passes;
+//   - the walk writes no column: it records, for each output row and each
+//     state slot, where its data comes from (`src`: a state slot or a batch
+//     row, or -1 for zeros), and `sw_gather` then fills every column lane
+//     from that map, all lanes in one launch.
+// Output rows past the emitted count keep zeros (valid false), as the JAX
+// package's fixed-capacity buffer does; an emission past the capacity is
+// dropped and sets the overflow flag.
+// What bounds it on the card: the walk is sequential over the rows (each
+// arrival depends on the previous), so latency, not bytes: a few shared
+// memory round trips per row, plus the victim fold of a full sort window
+// (w + 1 candidates by one thread, in slot order: the fold is not a max
+// when keys hold NaN, so it is not a tree reduction).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 256;
+constexpr int kMaxSortKeys = 16;
+constexpr int8_t kCurrent = 0, kExpired = 1, kTimer = 2, kReset = 3;
+
+struct SortKeys {
+  const void* state[kMaxSortKeys];
+  const void* batch[kMaxSortKeys];
+  int type[kMaxSortKeys];  // 0 float32, 1 int32, 2 int64, 3 bool
+  int desc[kMaxSortKeys];
+  int k;
+};
+
+union Key {
+  float f;
+  long long i;
+};
+
+// One sort key as the comparator sees it: `-c` for a descending key, with
+// the integer negation in unsigned arithmetic (it wraps, as two's complement
+// does in the JAX package), bool widened to int32 first.
+__device__ __forceinline__ Key load_key(const void* p, long long idx, int type, int desc) {
+  Key out;
+  out.i = 0;
+  switch (type) {
+    case 0: {
+      const float v = ((const float*)p)[idx];
+      out.f = desc ? -v : v;
+      break;
+    }
+    case 1: {
+      unsigned u = (unsigned)((const int*)p)[idx];
+      if (desc) u = 0u - u;
+      out.i = (long long)(int)u;
+      break;
+    }
+    case 2: {
+      unsigned long long u = (unsigned long long)((const long long*)p)[idx];
+      if (desc) u = 0ull - u;
+      out.i = (long long)u;
+      break;
+    }
+    default: {
+      unsigned u = ((const unsigned char*)p)[idx] ? 1u : 0u;
+      if (desc) u = 0u - u;
+      out.i = (long long)(int)u;
+      break;
+    }
+  }
+  return out;
+}
+
+struct Out {
+  int32_t* src;
+  int64_t* ts;
+  int8_t* kind;
+  bool* valid;
+  int cap;
+  int n;
+  bool ovf;
+
+  // _out_append: one row, dropped (flag set) past the capacity
+  __device__ __forceinline__ void append(int s, long long t, int8_t k) {
+    if (n < cap) {
+      src[n] = s;
+      ts[n] = t;
+      kind[n] = k;
+      valid[n] = true;
+      ++n;
+    } else {
+      ovf = true;
+    }
+  }
+};
+
+// zeros in every output row (the empty buffer the walk appends into)
+__device__ __forceinline__ void clear_out(Out& o) {
+  for (int i = threadIdx.x; i < o.cap; i += blockDim.x) {
+    o.src[i] = -1;
+    o.ts[i] = 0;
+    o.kind[i] = 0;
+    o.valid[i] = false;
+  }
+}
+
+__device__ __forceinline__ int row_flags(const bool* valid, const int8_t* kind, int r) {
+  if (!valid[r]) return 0;
+  return kind[r] == kCurrent ? 1 : kind[r] == kTimer ? 2 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// K25: sort
+// ---------------------------------------------------------------------------
+
+// a > b for the comparator: lexicographic over the keys, then seq; NaN is
+// neither greater nor equal (JAX's `gt |= eq & (a > b); eq &= a == b`)
+template <int KK>
+__device__ __forceinline__ bool key_gt(const SortKeys& K, int k, const Key* a, long long as,
+                                       const Key* b, long long bs) {
+  bool gt = false, eq = true;
+#pragma unroll
+  for (int q = 0; q < KK; ++q) {
+    if (q < k) {
+      if (K.type[q] == 0) {
+        gt = gt || (eq && a[q].f > b[q].f);
+        eq = eq && a[q].f == b[q].f;
+      } else {
+        gt = gt || (eq && a[q].i > b[q].i);
+        eq = eq && a[q].i == b[q].i;
+      }
+    }
+  }
+  return gt || (eq && as > bs);
+}
+
+// NK > 0: the comparator has NK keys (the candidates' keys live in
+// registers); NK == 0: K.k keys, up to kMaxSortKeys. Warp 0 walks the rows.
+template <int NK>
+__global__ void sort_kernel(int B, int W, SortKeys K, const bool* valid, const int8_t* kind,
+                            const int64_t* ts, const bool* occ, const int64_t* seq,
+                            const int64_t* next, const int64_t* now, char* gslots,
+                            int slots_in_smem, int32_t* out_src, int64_t* out_ts,
+                            int8_t* out_kind, bool* out_valid, int32_t* new_src, bool* new_occ,
+                            int64_t* new_seq, int64_t* new_next, bool* ovf) {
+  extern __shared__ __align__(16) char smem[];
+  constexpr int kKeys = NK > 0 ? NK : kMaxSortKeys;
+  const int k = NK > 0 ? NK : K.k;
+  // tile lanes: keys [k][kTile], ts, flags, "a float key is NaN"
+  Key* tkey = (Key*)smem;
+  long long* tts = (long long*)(tkey + (size_t)k * kTile);
+  unsigned char* tflag = (unsigned char*)(tts + kTile);
+  unsigned char* tnan = tflag + kTile;
+  char* sbase = slots_in_smem ? (char*)(tnan + kTile) : gslots;
+  sbase = (char*)(((uintptr_t)sbase + 15) & ~(uintptr_t)15);
+  // slot lanes: keys [k][W], seq, src, occ, NaN
+  Key* skey = (Key*)sbase;
+  long long* sseq = (long long*)(skey + (size_t)k * W);
+  int* ssrc = (int*)(sseq + W);
+  unsigned char* socc = (unsigned char*)(ssrc + W);
+  unsigned char* snan = socc + W;
+
+  Out o{out_src, out_ts, out_kind, out_valid, 2 * B, 0, false};
+  clear_out(o);
+  for (int j = threadIdx.x; j < W; j += blockDim.x) {
+    unsigned char nan = 0;
+    for (int q = 0; q < k; ++q) {
+      const Key v = load_key(K.state[q], j, K.type[q], K.desc[q]);
+      skey[(size_t)q * W + j] = v;
+      nan |= K.type[q] == 0 && isnan(v.f);
+    }
+    sseq[j] = seq[j];
+    ssrc[j] = j;
+    socc[j] = occ[j] ? 1 : 0;
+    snan[j] = nan;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  int occ_count = 0, nan_slots = 0, first_free = 0;
+  long long nx = *next;
+  const long long t_now = *now;
+  if (threadIdx.x < 32) {
+    for (int j = lane; j < W; j += 32) {
+      occ_count += socc[j];
+      nan_slots += snan[j];
+    }
+    for (int d = 16; d > 0; d >>= 1) {
+      occ_count += __shfl_xor_sync(kFull, occ_count, d);
+      nan_slots += __shfl_xor_sync(kFull, nan_slots, d);
+    }
+  }
+  for (int base = 0; base < B; base += kTile) {
+    const int rows = B - base < kTile ? B - base : kTile;
+    __syncthreads();
+    for (int t = threadIdx.x; t < rows; t += blockDim.x) {
+      const int r = base + t;
+      tflag[t] = (unsigned char)row_flags(valid, kind, r);
+      tts[t] = ts[r];
+      unsigned char nan = 0;
+      for (int q = 0; q < k; ++q) {
+        const Key v = load_key(K.batch[q], r, K.type[q], K.desc[q]);
+        tkey[(size_t)q * kTile + t] = v;
+        nan |= K.type[q] == 0 && isnan(v.f);
+      }
+      tnan[t] = nan;
+    }
+    __syncthreads();
+    if (threadIdx.x >= 32) continue;
+    for (int t = 0; t < rows; ++t) {
+      if (tflag[t] != 1) continue;  // only CURRENT rows enter the window
+      const int r = base + t;
+      if (lane == 0) o.append(W + r, tts[t], kCurrent);
+      if (occ_count == W) {
+        // candidate i < W is slot i, candidate W the arrival
+        auto load = [&](int i, Key* a) -> long long {
+#pragma unroll
+          for (int q = 0; q < kKeys; ++q) {
+            if (q < k) a[q] = i < W ? skey[(size_t)q * W + i] : tkey[(size_t)q * kTile + t];
+          }
+          return i < W ? sseq[i] : nx;
+        };
+        int best = 0;
+        if (nan_slots == 0 && !tnan[t]) {
+          // no NaN key: the comparator is a strict total order (seq breaks
+          // every tie), so the fold is the argmax, found by the warp
+          int bi = -1;
+          Key bk[kKeys], ak[kKeys];
+          long long bs = 0;
+          for (int i = lane; i <= W; i += 32) {
+            const long long as = load(i, ak);
+            if (bi < 0 || key_gt<kKeys>(K, k, ak, as, bk, bs)) {
+              bi = i;
+              bs = as;
+#pragma unroll
+              for (int q = 0; q < kKeys; ++q) bk[q] = ak[q];
+            }
+          }
+          for (int d = 16; d > 0; d >>= 1) {
+            const int oi = __shfl_xor_sync(kFull, bi, d);
+            const long long os = __shfl_xor_sync(kFull, bs, d);
+#pragma unroll
+            for (int q = 0; q < kKeys; ++q) {
+              if (q < k) ak[q].i = __shfl_xor_sync(kFull, bk[q].i, d);
+            }
+            if (oi >= 0 && (bi < 0 || key_gt<kKeys>(K, k, ak, os, bk, bs))) {
+              bi = oi;
+              bs = os;
+#pragma unroll
+              for (int q = 0; q < kKeys; ++q) bk[q] = ak[q];
+            }
+          }
+          best = bi;
+        } else if (lane == 0) {
+          // the left-to-right fold of windows_special.py: best moves to i
+          // when i is greater (a NaN key in slot 0 is never replaced)
+          Key bk[kKeys], ak[kKeys];
+          long long bs = load(0, bk);
+          for (int i = 1; i <= W; ++i) {
+            const long long as = load(i, ak);
+            if (key_gt<kKeys>(K, k, ak, as, bk, bs)) {
+              best = i;
+              bs = as;
+#pragma unroll
+              for (int q = 0; q < kKeys; ++q) bk[q] = ak[q];
+            }
+          }
+        }
+        if (lane == 0) {
+          o.append(best == W ? W + r : ssrc[best], t_now, kExpired);
+          if (best < W) {  // the arrival takes the victim's slot
+            for (int q = 0; q < k; ++q) skey[(size_t)q * W + best] = tkey[(size_t)q * kTile + t];
+            sseq[best] = nx;
+            ssrc[best] = W + r;
+            nan_slots += tnan[t] - snan[best];
+            snan[best] = tnan[t];
+          }
+        }
+      } else if (lane == 0) {
+        while (socc[first_free]) ++first_free;  // slots only ever fill
+        for (int q = 0; q < k; ++q) skey[(size_t)q * W + first_free] = tkey[(size_t)q * kTile + t];
+        sseq[first_free] = nx;
+        ssrc[first_free] = W + r;
+        socc[first_free] = 1;
+        snan[first_free] = tnan[t];
+        nan_slots += tnan[t];
+        ++occ_count;
+      }
+      o.n = __shfl_sync(kFull, o.n, 0);
+      o.ovf = __shfl_sync(kFull, (int)o.ovf, 0) != 0;
+      occ_count = __shfl_sync(kFull, occ_count, 0);
+      nan_slots = __shfl_sync(kFull, nan_slots, 0);
+      __syncwarp();
+      ++nx;
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < W; j += blockDim.x) {
+    new_src[j] = ssrc[j];
+    new_occ[j] = socc[j] != 0;
+    new_seq[j] = sseq[j];
+  }
+  if (threadIdx.x == 0) {
+    *new_next = nx;
+    *ovf = o.ovf;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K26 / K27: frequent (Misra-Gries) and lossyFrequent (lossy counting)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned lanes_below() {
+  return (1u << (threadIdx.x & 31)) - 1u;
+}
+
+// First slot in [0, W) where `pred` holds, found by warp 0's ballots (-1 if none).
+template <typename Pred>
+__device__ __forceinline__ int warp_first(int W, Pred pred) {
+  const int lane = threadIdx.x & 31;
+  for (int b = 0; b < W; b += 32) {
+    const int s = b + lane;
+    const unsigned m = __ballot_sync(kFull, s < W && pred(s));
+    if (m) return b + __ffs(m) - 1;
+  }
+  return -1;
+}
+
+// Append, in slot order, every slot where `pred` holds (each as src[s] with
+// ts `t` and kind `kd`), then run `after(s)` on those slots: warp 0.
+template <typename Pred, typename After>
+__device__ __forceinline__ int warp_emit(Out& o, int W, const int* ssrc, long long t, int8_t kd,
+                                         Pred pred, After after) {
+  const int lane = threadIdx.x & 31;
+  int total = 0;
+  for (int b = 0; b < W; b += 32) {
+    const int s = b + lane;
+    const bool p = s < W && pred(s);
+    const unsigned m = __ballot_sync(kFull, p);
+    if (p) {
+      const int pos = o.n + __popc(m & lanes_below());
+      if (pos < o.cap) {
+        o.src[pos] = ssrc[s];
+        o.ts[pos] = t;
+        o.kind[pos] = kd;
+        o.valid[pos] = true;
+      }
+      after(s);
+    }
+    const int c = __popc(m);
+    if (o.n + c > o.cap) o.ovf = true;
+    o.n = o.n + c < o.cap ? o.n + c : o.cap;
+    total += c;
+  }
+  __syncwarp();
+  return total;
+}
+
+__global__ void frequent_kernel(int B, int W, const bool* valid, const int8_t* kind,
+                                const int64_t* ts, const int64_t* key, const bool* occ,
+                                const int64_t* skey_in, const int32_t* cnt, const int64_t* now,
+                                char* gslots, int slots_in_smem, int32_t* out_src,
+                                int64_t* out_ts, int8_t* out_kind, bool* out_valid,
+                                int32_t* new_src, bool* new_occ, int64_t* new_key,
+                                int32_t* new_cnt, bool* ovf) {
+  extern __shared__ __align__(16) char smem[];
+  long long* tkey = (long long*)smem;
+  long long* tts = tkey + kTile;
+  unsigned char* tflag = (unsigned char*)(tts + kTile);
+  char* sbase = slots_in_smem ? (char*)(tflag + kTile) : gslots;
+  sbase = (char*)(((uintptr_t)sbase + 15) & ~(uintptr_t)15);
+  long long* skey = (long long*)sbase;
+  int* scnt = (int*)(skey + W);
+  int* ssrc = scnt + W;
+  unsigned char* socc = (unsigned char*)(ssrc + W);
+
+  Out o{out_src, out_ts, out_kind, out_valid, 2 * B + W, 0, false};
+  clear_out(o);
+  for (int j = threadIdx.x; j < W; j += blockDim.x) {
+    skey[j] = skey_in[j];
+    scnt[j] = cnt[j];
+    ssrc[j] = j;
+    socc[j] = occ[j] ? 1 : 0;
+  }
+  __syncthreads();
+  const long long t_now = *now;
+  const int lane = threadIdx.x & 31;
+  int occ_count = 0;
+  if (threadIdx.x < 32) {
+    for (int j = lane; j < W; j += 32) occ_count += socc[j];
+    for (int d = 16; d > 0; d >>= 1) occ_count += __shfl_xor_sync(kFull, occ_count, d);
+  }
+  for (int base = 0; base < B; base += kTile) {
+    const int rows = B - base < kTile ? B - base : kTile;
+    __syncthreads();
+    for (int t = threadIdx.x; t < rows; t += blockDim.x) {
+      const int r = base + t;
+      tflag[t] = (unsigned char)row_flags(valid, kind, r);
+      tts[t] = ts[r];
+      tkey[t] = key[r];
+    }
+    __syncthreads();
+    if (threadIdx.x >= 32) continue;
+    for (int t = 0; t < rows; ++t) {
+      if (tflag[t] != 1) continue;
+      const int r = base + t;
+      const long long kk = tkey[t];
+      int slot = warp_first(W, [&](int s) { return socc[s] && skey[s] == kk; });
+      const bool exists = slot >= 0;
+      bool insert = false;
+      if (!exists) {
+        if (occ_count == W) {
+          // a new key with the table full: every count drops by one and the
+          // zeros leave as EXPIRED rows, in slot order
+          occ_count -= warp_emit(o, W, ssrc, t_now, kExpired,
+                                 [&](int s) {
+                                   if (!socc[s]) return false;
+                                   return --scnt[s] == 0;
+                                 },
+                                 [&](int s) { socc[s] = 0; });
+        }
+        if (occ_count < W) {
+          slot = warp_first(W, [&](int s) { return !socc[s]; });
+          insert = true;
+        }
+      }
+      if (exists || insert) {
+        if (lane == 0) {
+          o.append(W + r, tts[t], kCurrent);
+          ssrc[slot] = W + r;
+          socc[slot] = 1;
+          skey[slot] = kk;
+          scnt[slot] = exists ? scnt[slot] + 1 : 1;
+        }
+        o.n = __shfl_sync(kFull, o.n, 0);
+        o.ovf = __shfl_sync(kFull, (int)o.ovf, 0) != 0;
+        if (insert) ++occ_count;
+        __syncwarp();
+      }
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < W; j += blockDim.x) {
+    new_src[j] = ssrc[j];
+    new_occ[j] = socc[j] != 0;
+    new_key[j] = skey[j];
+    new_cnt[j] = scnt[j];
+  }
+  if (threadIdx.x == 0) *ovf = o.ovf;
+}
+
+__global__ void lossy_kernel(int B, int C, long long width, float support_minus_error,
+                             const bool* valid, const int8_t* kind, const int64_t* ts,
+                             const int64_t* key, const bool* occ, const int64_t* skey_in,
+                             const int64_t* cnt, const int64_t* bucket, const int64_t* total_in,
+                             const int64_t* now, char* gslots, int slots_in_smem,
+                             int32_t* out_src, int64_t* out_ts, int8_t* out_kind, bool* out_valid,
+                             int32_t* new_src, bool* new_occ, int64_t* new_key, int64_t* new_cnt,
+                             int64_t* new_bucket, int64_t* new_total, bool* ovf) {
+  extern __shared__ __align__(16) char smem[];
+  long long* tkey = (long long*)smem;
+  long long* tts = tkey + kTile;
+  unsigned char* tflag = (unsigned char*)(tts + kTile);
+  char* sbase = slots_in_smem ? (char*)(tflag + kTile) : gslots;
+  sbase = (char*)(((uintptr_t)sbase + 15) & ~(uintptr_t)15);
+  long long* skey = (long long*)sbase;
+  long long* scnt = skey + C;
+  long long* sbkt = scnt + C;
+  int* ssrc = (int*)(sbkt + C);
+  unsigned char* socc = (unsigned char*)(ssrc + C);
+
+  Out o{out_src, out_ts, out_kind, out_valid, B + C, 0, false};
+  clear_out(o);
+  for (int j = threadIdx.x; j < C; j += blockDim.x) {
+    skey[j] = skey_in[j];
+    scnt[j] = cnt[j];
+    sbkt[j] = bucket[j];
+    ssrc[j] = j;
+    socc[j] = occ[j] ? 1 : 0;
+  }
+  __syncthreads();
+  const long long t_now = *now;
+  const int lane = threadIdx.x & 31;
+  long long total = *total_in;
+  int occ_count = 0;
+  if (threadIdx.x < 32) {
+    for (int j = lane; j < C; j += 32) occ_count += socc[j];
+    for (int d = 16; d > 0; d >>= 1) occ_count += __shfl_xor_sync(kFull, occ_count, d);
+  }
+  for (int base = 0; base < B; base += kTile) {
+    const int rows = B - base < kTile ? B - base : kTile;
+    __syncthreads();
+    for (int t = threadIdx.x; t < rows; t += blockDim.x) {
+      const int r = base + t;
+      tflag[t] = (unsigned char)row_flags(valid, kind, r);
+      tts[t] = ts[r];
+      tkey[t] = key[r];
+    }
+    __syncthreads();
+    if (threadIdx.x >= 32) continue;
+    for (int t = 0; t < rows; ++t) {
+      if (tflag[t] != 1) continue;
+      const int r = base + t;
+      const long long kk = tkey[t];
+      ++total;
+      const long long cur_bucket = total <= 1 ? 1 : (total + width - 1) / width;
+      int slot = warp_first(C, [&](int s) { return socc[s] && skey[s] == kk; });
+      const bool exists = slot >= 0;
+      bool insert = false;
+      if (!exists) {
+        if (occ_count < C) {
+          slot = warp_first(C, [&](int s) { return !socc[s]; });
+          insert = true;
+        } else {
+          o.ovf = true;  // no slot for a new key: the row is lost
+        }
+      }
+      if (exists || insert) {
+        if (lane == 0) {
+          scnt[slot] = exists ? scnt[slot] + 1 : 1;
+          if (insert) sbkt[slot] = cur_bucket - 1;
+          socc[slot] = 1;
+          skey[slot] = kk;
+          ssrc[slot] = C + r;
+          // (s - e) * total in float32, as the JAX package multiplies a
+          // float32 total by the weakly typed (s - e): no contraction
+          const float need = __fmul_rn(support_minus_error, __ll2float_rn(total));
+          if (__ll2float_rn(scnt[slot]) >= need) o.append(C + r, tts[t], kCurrent);
+        }
+        o.n = __shfl_sync(kFull, o.n, 0);
+        o.ovf = __shfl_sync(kFull, (int)o.ovf, 0) != 0;
+        if (insert) ++occ_count;
+        __syncwarp();
+      }
+      if (total % width == 0) {
+        // bucket boundary: prune cnt + bucket <= cur_bucket, in slot order
+        occ_count -= warp_emit(o, C, ssrc, t_now, kExpired,
+                               [&](int s) { return socc[s] && scnt[s] + sbkt[s] <= cur_bucket; },
+                               [&](int s) { socc[s] = 0; });
+      }
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < C; j += blockDim.x) {
+    new_src[j] = ssrc[j];
+    new_occ[j] = socc[j] != 0;
+    new_key[j] = skey[j];
+    new_cnt[j] = scnt[j];
+    new_bucket[j] = sbkt[j];
+  }
+  if (threadIdx.x == 0) {
+    *new_total = total;
+    *ovf = o.ovf;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K28: cron
+// ---------------------------------------------------------------------------
+
+// src index space: [cur slots (W) | prev slots (W) | batch rows (B)]
+__device__ __forceinline__ long long cron_ts(int s, int W, const int64_t* cur_ts,
+                                             const int64_t* prev_ts, const int64_t* ts) {
+  return s < 0 ? 0 : s < W ? cur_ts[s] : s < 2 * W ? prev_ts[s - W] : ts[s - 2 * W];
+}
+
+__global__ void cron_kernel(int B, int W, const bool* valid, const int8_t* kind,
+                            const int64_t* ts, const int64_t* cur_ts, const int32_t* cur_n_in,
+                            const int64_t* prev_ts, const int32_t* prev_n_in, const int64_t* now,
+                            int32_t* gslots, int slots_in_smem, int32_t* out_src,
+                            int64_t* out_ts, int8_t* out_kind, bool* out_valid,
+                            int32_t* new_cur_src, int32_t* new_prev_src, int32_t* new_cur_n,
+                            int32_t* new_prev_n, bool* ovf) {
+  extern __shared__ __align__(16) char smem[];
+  unsigned char* tflag = (unsigned char*)smem;
+  int* sl = slots_in_smem ? (int*)(smem + kTile) : gslots;
+  int* bufs[2] = {sl, sl + W};  // the open bucket's and the previous one's src
+
+  Out o{out_src, out_ts, out_kind, out_valid, B + 2 * (2 * W + 1), 0, false};
+  clear_out(o);
+  for (int j = threadIdx.x; j < W; j += blockDim.x) {
+    bufs[0][j] = j;
+    bufs[1][j] = W + j;
+  }
+  __syncthreads();
+  const long long t_now = *now;
+  int cur_n = *cur_n_in, prev_n = *prev_n_in;
+  int cur = 0;  // which of bufs is the open bucket
+  for (int base = 0; base < B; base += kTile) {
+    const int rows = B - base < kTile ? B - base : kTile;
+    __syncthreads();
+    for (int t = threadIdx.x; t < rows; t += blockDim.x) {
+      tflag[t] = (unsigned char)row_flags(valid, kind, base + t);
+    }
+    __syncthreads();
+    if (threadIdx.x != 0) continue;
+    for (int t = 0; t < rows; ++t) {
+      const int f = tflag[t];
+      if (f == 2 && cur_n > 0) {
+        // a fire with a non-empty bucket: the previous bucket EXPIRED, one
+        // RESET (the previous bucket's slot 0), the bucket CURRENT
+        const int* pv = bufs[cur ^ 1];
+        int* cv = bufs[cur];
+        for (int j = 0; j < prev_n; ++j) o.append(pv[j], t_now, kExpired);
+        o.append(pv[0], t_now, kReset);
+        for (int j = 0; j < cur_n; ++j) {
+          o.append(cv[j], cron_ts(cv[j], W, cur_ts, prev_ts, ts), kCurrent);
+        }
+        cur ^= 1;  // the bucket becomes the previous one; the new bucket is zeros
+        int* fresh = bufs[cur];
+        for (int j = 0; j < W; ++j) fresh[j] = -1;
+        prev_n = cur_n;
+        cur_n = 0;
+      } else if (f == 1) {
+        if (cur_n < W) {
+          bufs[cur][cur_n++] = 2 * W + base + t;
+        } else {
+          o.ovf = true;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // publish which buffer ended as the open bucket
+    tflag[0] = (unsigned char)cur;
+  }
+  __syncthreads();
+  const int c = tflag[0];
+  for (int j = threadIdx.x; j < W; j += blockDim.x) {
+    new_cur_src[j] = bufs[c][j];
+    new_prev_src[j] = bufs[c ^ 1][j];
+  }
+  if (threadIdx.x == 0) {
+    *new_cur_n = cur_n;
+    *new_prev_n = prev_n;
+    *ovf = o.ovf;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the column gather
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxLanes = 16;
+
+struct Lanes {
+  const void* s0[kMaxLanes];
+  const void* s1[kMaxLanes];
+  const void* s2[kMaxLanes];
+  void* out[kMaxLanes];
+  int size[kMaxLanes];
+};
+
+// out[i] = m < 0 ? 0 : m < n0 ? s0[m] : m < n0 + n1 ? s1[m - n0] : s2[m - n0 - n1]
+template <typename T>
+__device__ __forceinline__ void gather_elem(const Lanes& L, int l, int i, int m, int n0, int n1) {
+  T v = 0;
+  if (m >= 0) {
+    v = m < n0 ? ((const T*)L.s0[l])[m]
+        : m < n0 + n1 ? ((const T*)L.s1[l])[m - n0]
+                      : ((const T*)L.s2[l])[m - n0 - n1];
+  }
+  ((T*)L.out[l])[i] = v;
+}
+
+__global__ void gather_kernel(Lanes L, const int32_t* idx, int rows, int n0, int n1) {
+  const int l = blockIdx.y;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < rows; i += gridDim.x * blockDim.x) {
+    const int m = idx[i];
+    switch (L.size[l]) {
+      case 1: gather_elem<uint8_t>(L, l, i, m, n0, n1); break;
+      case 4: gather_elem<uint32_t>(L, l, i, m, n0, n1); break;
+      default: gather_elem<unsigned long long>(L, l, i, m, n0, n1); break;
+    }
+  }
+}
+
+int max_smem() {
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return v;
+}
+
+// Dynamic shared memory for `tile` bytes of row lanes plus `slots` bytes of
+// slot lanes when both fit (then *in_smem = 1), else the tile alone.
+template <typename F>
+int smem_for(F kernel, size_t tile, size_t slots, int* in_smem) {
+  const size_t both = tile + 16 + slots;
+  const int cap = max_smem();
+  *in_smem = both <= (size_t)cap ? 1 : 0;
+  const size_t bytes = *in_smem ? both : tile;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return -1;
+  }
+  return (int)bytes;
+}
+
+// Bytes of each step's slot lanes, in shared memory or else in the global
+// scratch the wrapper allocates (sized by sw_slot_bytes).
+long long sw_sort_slot_bytes(int W, int k) {
+  return (long long)k * W * 8 + (long long)W * 8 + (long long)W * 4 + 2LL * W + 16;
+}
+long long sw_frequent_slot_bytes(int W) { return (long long)W * 17 + 16; }
+long long sw_lossy_slot_bytes(int C) { return (long long)C * 29 + 16; }
+long long sw_cron_slot_bytes(int W) { return (long long)W * 8 + 16; }
+
+}  // namespace
+
+extern "C" {
+
+// The global scratch a step needs for its slot lanes (0 sort with k keys,
+// 1 frequent, 2 lossyFrequent, 3 cron; W slots).
+int sw_slot_bytes(int which, int W, int k) {
+  const long long b = which == 0 ? sw_sort_slot_bytes(W, k)
+                      : which == 1 ? sw_frequent_slot_bytes(W)
+                      : which == 2 ? sw_lossy_slot_bytes(W)
+                                   : sw_cron_slot_bytes(W);
+  return (int)b;
+}
+
+int sw_sort(int B, int W, int k, const void* const* state_keys, const void* const* batch_keys,
+            const int* types, const int* desc, const void* valid, const void* kind,
+            const void* ts, const void* occ, const void* seq, const void* next, const void* now,
+            void* scratch, void* out_src, void* out_ts, void* out_kind, void* out_valid,
+            void* new_src, void* new_occ, void* new_seq, void* new_next, void* ovf,
+            cudaStream_t stream) {
+  if (k < 1 || k > kMaxSortKeys) return (int)cudaErrorInvalidValue;
+  SortKeys K;
+  K.k = k;
+  for (int q = 0; q < k; ++q) {
+    K.state[q] = state_keys[q];
+    K.batch[q] = batch_keys[q];
+    K.type[q] = types[q];
+    K.desc[q] = desc[q];
+  }
+  auto kernel = k == 1 ? sort_kernel<1> : k == 2 ? sort_kernel<2> : k == 3 ? sort_kernel<3>
+                                                                     : sort_kernel<0>;
+  int in_smem = 0;
+  const size_t tile = (size_t)k * kTile * 8 + kTile * 8 + 2 * kTile;
+  const int bytes = smem_for(kernel, tile, (size_t)sw_sort_slot_bytes(W, k), &in_smem);
+  if (bytes < 0) return (int)cudaErrorInvalidValue;
+  kernel<<<1, kThreads, bytes, stream>>>(
+      B, W, K, (const bool*)valid, (const int8_t*)kind, (const int64_t*)ts, (const bool*)occ,
+      (const int64_t*)seq, (const int64_t*)next, (const int64_t*)now, (char*)scratch, in_smem,
+      (int32_t*)out_src, (int64_t*)out_ts, (int8_t*)out_kind, (bool*)out_valid,
+      (int32_t*)new_src, (bool*)new_occ, (int64_t*)new_seq, (int64_t*)new_next, (bool*)ovf);
+  return (int)cudaGetLastError();
+}
+
+int sw_frequent(int B, int W, const void* valid, const void* kind, const void* ts,
+                const void* key, const void* occ, const void* skey, const void* cnt,
+                const void* now, void* scratch, void* out_src, void* out_ts, void* out_kind,
+                void* out_valid, void* new_src, void* new_occ, void* new_key, void* new_cnt,
+                void* ovf, cudaStream_t stream) {
+  int in_smem = 0;
+  const size_t tile = (size_t)kTile * 17;
+  const int bytes = smem_for(frequent_kernel, tile, (size_t)sw_frequent_slot_bytes(W), &in_smem);
+  if (bytes < 0) return (int)cudaErrorInvalidValue;
+  frequent_kernel<<<1, kThreads, bytes, stream>>>(
+      B, W, (const bool*)valid, (const int8_t*)kind, (const int64_t*)ts, (const int64_t*)key,
+      (const bool*)occ, (const int64_t*)skey, (const int32_t*)cnt, (const int64_t*)now,
+      (char*)scratch, in_smem, (int32_t*)out_src, (int64_t*)out_ts, (int8_t*)out_kind,
+      (bool*)out_valid, (int32_t*)new_src, (bool*)new_occ, (int64_t*)new_key,
+      (int32_t*)new_cnt, (bool*)ovf);
+  return (int)cudaGetLastError();
+}
+
+int sw_lossy(int B, int C, long long width, float support_minus_error, const void* valid,
+             const void* kind, const void* ts, const void* key, const void* occ,
+             const void* skey, const void* cnt, const void* bucket, const void* total,
+             const void* now, void* scratch, void* out_src, void* out_ts, void* out_kind,
+             void* out_valid, void* new_src, void* new_occ, void* new_key, void* new_cnt,
+             void* new_bucket, void* new_total, void* ovf, cudaStream_t stream) {
+  int in_smem = 0;
+  const size_t tile = (size_t)kTile * 17;
+  const int bytes = smem_for(lossy_kernel, tile, (size_t)sw_lossy_slot_bytes(C), &in_smem);
+  if (bytes < 0) return (int)cudaErrorInvalidValue;
+  lossy_kernel<<<1, kThreads, bytes, stream>>>(
+      B, C, width, support_minus_error, (const bool*)valid, (const int8_t*)kind,
+      (const int64_t*)ts, (const int64_t*)key, (const bool*)occ, (const int64_t*)skey,
+      (const int64_t*)cnt, (const int64_t*)bucket, (const int64_t*)total, (const int64_t*)now,
+      (char*)scratch, in_smem, (int32_t*)out_src, (int64_t*)out_ts, (int8_t*)out_kind,
+      (bool*)out_valid, (int32_t*)new_src, (bool*)new_occ, (int64_t*)new_key,
+      (int64_t*)new_cnt, (int64_t*)new_bucket, (int64_t*)new_total, (bool*)ovf);
+  return (int)cudaGetLastError();
+}
+
+int sw_cron(int B, int W, const void* valid, const void* kind, const void* ts,
+            const void* cur_ts, const void* cur_n, const void* prev_ts, const void* prev_n,
+            const void* now, void* scratch, void* out_src, void* out_ts, void* out_kind,
+            void* out_valid, void* new_cur_src, void* new_prev_src, void* new_cur_n,
+            void* new_prev_n, void* ovf, cudaStream_t stream) {
+  int in_smem = 0;
+  const size_t tile = kTile;
+  const int bytes = smem_for(cron_kernel, tile, (size_t)sw_cron_slot_bytes(W), &in_smem);
+  if (bytes < 0) return (int)cudaErrorInvalidValue;
+  cron_kernel<<<1, kThreads, bytes, stream>>>(
+      B, W, (const bool*)valid, (const int8_t*)kind, (const int64_t*)ts, (const int64_t*)cur_ts,
+      (const int32_t*)cur_n, (const int64_t*)prev_ts, (const int32_t*)prev_n,
+      (const int64_t*)now, (int32_t*)scratch, in_smem, (int32_t*)out_src, (int64_t*)out_ts,
+      (int8_t*)out_kind, (bool*)out_valid, (int32_t*)new_cur_src, (int32_t*)new_prev_src,
+      (int32_t*)new_cur_n, (int32_t*)new_prev_n, (bool*)ovf);
+  return (int)cudaGetLastError();
+}
+
+// Fill `n` lanes of `rows` rows from up to three sources laid end to end
+// (n0 and n1 rows long; the third unbounded) through `idx` (-1: zero).
+int sw_gather(int n, const void* const* s0, const void* const* s1, const void* const* s2,
+              void* const* out, const int* size, const void* idx, int rows, int n0, int n1,
+              cudaStream_t stream) {
+  if (rows <= 0) return 0;
+  for (int base = 0; base < n; base += kMaxLanes) {
+    Lanes L;
+    const int m = n - base < kMaxLanes ? n - base : kMaxLanes;
+    for (int l = 0; l < m; ++l) {
+      L.s0[l] = s0[base + l];
+      L.s1[l] = s1[base + l];
+      L.s2[l] = s2[base + l];
+      L.out[l] = out[base + l];
+      L.size[l] = size[base + l];
+    }
+    int blocks = (rows + 255) / 256;
+    blocks = blocks > 1024 ? 1024 : blocks;
+    gather_kernel<<<dim3(blocks, m), 256, 0, stream>>>(L, (const int32_t*)idx, rows, n0, n1);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+}  // extern "C"

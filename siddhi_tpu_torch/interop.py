@@ -23,13 +23,22 @@ distinctCount; each carry gains a leading [G] axis under a group-by (but
 distinctCount's). A table's state (`runtime.tables[id].state`) is
 `{"cols": {...}, "ts", "valid", "seq", "next"}` with, per indexed column,
 `"ix_order.<col>"`, `"ix_sorted.<col>"` and `"ix_dups.<col>"`.
+The special windows' "chain" is `{"cols": {...}, "ts", "occ", "seq",
+"next"}` for sort, `{"cols": {...}, "ts", "occ", "key", "cnt"}` for
+frequent (cnt int32), the same with int64 cnt plus "bucket" and "total" for
+lossyFrequent, and `{"cur_cols", "cur_ts", "cur_n", "prev_cols", "prev_ts",
+"prev_n"}` for cron.
 The JAX engine (`siddhi_tpu`) keeps the same layout, so a state
 taken there as numpy maps onto this engine leaf for leaf with dtype and
-shape unchanged. Pending timers are host state and do not travel.
+shape unchanged. A rate limiter's buffered rows and counters are host
+state of the same shape in both engines (`rate_limiter_state`,
+`load_rate_limiter_state`). Pending timers are host state and do not
+travel.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Sequence
 
 import numpy as np
@@ -71,3 +80,19 @@ def load_interned(interner: InternTable, values: Sequence) -> None:
             raise ValueError(
                 f"interned value {v!r} has id {got} here but {i} in the table"
             )
+
+
+def rate_limiter_state(limiter) -> dict:
+    """A query's rate limiter's buffered or held `(ts, kind, data, key)` rows
+    and its counters (`query.rate_limiter`, either engine), copied."""
+    return copy.deepcopy(vars(limiter))
+
+
+def load_rate_limiter_state(limiter, state: dict) -> None:
+    """Give `limiter` the rows and counters `rate_limiter_state` took from a
+    limiter of the same kind."""
+    if set(state) != set(vars(limiter)):
+        raise ValueError(f"rate limiter state {sorted(state)} does not fit "
+                         f"{type(limiter).__name__} {sorted(vars(limiter))}")
+    for k, v in copy.deepcopy(state).items():
+        setattr(limiter, k, v)

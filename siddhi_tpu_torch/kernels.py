@@ -8,7 +8,7 @@ interpreter) so an edited kernel is rebuilt.
 `build_all()` starts one `nvcc` per source, all at once. The libraries are
 loaded with `ctypes`; every pointer and the stream travel as `c_void_p`, and
 each entry point returns its `cudaError_t`, which `check()` turns into an
-exception.
+exception (`sw_slot_bytes`, a size, excepted).
 
 `launches` counts, per kernel wrapper, the calls that launched the kernel on
 the card (plain-version calls on CPU tensors do not count).
@@ -34,7 +34,7 @@ SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "del
            "batch_window", "group_assign", "keyed_running_sum", "keep_last", "time_window",
            "ring_view", "join_probe", "pattern_advance", "pattern_count", "pattern_emit",
            "pattern_scan", "running_extreme", "distinct_count", "table_write", "table_index",
-           "table_match", "table_scan")
+           "table_match", "table_scan", "special_window")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -107,6 +107,12 @@ SIGNATURES = {
     "tm_match": ("table_match", [P, I, I, P, P, I, P, P, P, P, P, I, I, I, P, P]),
     "tsc_scan": ("table_scan", [I, P, P, P, P, I, I, P, P, I, P, P, P, I, I, I, I, P, I, I]
                  + [P] * 8),
+    "sw_sort": ("special_window", [I] * 3 + [P] * 21 + [P]),
+    "sw_frequent": ("special_window", [I, I] + [P] * 18 + [P]),
+    "sw_lossy": ("special_window", [I, I, LL, ctypes.c_float] + [P] * 22 + [P]),
+    "sw_cron": ("special_window", [I, I] + [P] * 18 + [P]),
+    "sw_gather": ("special_window", [I] + [P] * 6 + [I, I, I, P]),
+    "sw_slot_bytes": ("special_window", [I, I, I]),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -753,14 +753,15 @@ def test_join_state_carry():
 @pytest.mark.parametrize("ql", [
     "@store(type='memory', store.id='j1') define table T (symbol string, price float); "
     "from S join T on S.symbol == T.symbol select S.symbol insert into Out;",
-    "from S#window.sort(4, price) as a join S#window.length(4) as b "
-    "on a.volume == b.volume select a.symbol insert into Out;",
+    "define window W (symbol string, price float, volume long) length(4); "
+    "from S#window.length(4) as a join W as b on a.volume == b.volume "
+    "select a.symbol insert into Out;",
     "from S#pol2Cart(price, price) as a join S#window.length(4) as b "
     "on a.volume == b.volume select a.symbol insert into Out;",
     "from every (e1=S[price > 10] and e2=S[price > maximum(e1.price, 20.0)]) "
     "select e1.symbol as s insert into Out;",
-    "from S#window.cron('*/5 * * * * ?') as a join S#window.length(4) as b "
-    "on a.volume == b.volume select a.symbol insert into Out;",
+    "partition with (symbol of S) begin from S#window.length(4) as a join "
+    "S#window.length(4) as b on a.volume == b.volume select a.symbol insert into Out; end;",
 ])
 def test_outside_the_slice_raises(ql):
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
@@ -796,6 +797,36 @@ def test_forms_that_raised_match_jax(ql):
         h = rt.get_input_handler("S")
         for r, t in zip(rows, ts):
             h.send(r, timestamp=t)
+        rt.shutdown()
+        mgr.shutdown()
+    assert got["siddhi_tpu"]
+    assert bench._rows_match(got["siddhi_tpu_torch"], got["siddhi_tpu"])
+
+
+@pytest.mark.parametrize("ql", [
+    "from S#window.sort(4, price) as a join S#window.length(4) as b "
+    "on a.volume == b.volume select a.symbol as s1, b.price as p insert into Out;",
+    "from S#window.cron('*/1 * * * * ?') as a join S#window.length(4) as b "
+    "on a.volume == b.volume select a.symbol as s1, b.symbol as s2 insert into Out;",
+])
+def test_slice9_join_forms_match_jax(ql):
+    """The sort and cron join sides test_outside_the_slice_raises held to
+    "not ported yet" until the special-window slice, against the JAX
+    package, under @app:playback, one event per send, 30 ms apart."""
+    rng = np.random.default_rng(99)
+    rows = [(["WSO2", "IBM", "GOOG", "MSFT"][int(rng.integers(0, 4))],
+             float(np.round(rng.uniform(0.0, 100.0), 3)), int(rng.integers(1, 40)) * 100)
+            for _ in range(96)]
+    got = {}
+    for mgr in _managers():
+        rt = mgr.create_siddhi_app_runtime(
+            "@app:playback\n" + bench.VERIFY_HEAD + "@app:joinCapacity(size='256')\n"
+            "@info(name='q') " + ql)
+        rt.add_callback("q", _collector(got.setdefault(_pkg(mgr), [])))
+        rt.start()
+        h = rt.get_input_handler("S")
+        for i, r in enumerate(rows):
+            h.send(r, timestamp=1_700_000_000_000 + 30 * i)
         rt.shutdown()
         mgr.shutdown()
     assert got["siddhi_tpu"]
