@@ -37,12 +37,15 @@ engine next to it. Phases, each printed as it ends:
      ragged B, NaN/-0.0/null sort keys, ties, the arrival evicted, a full
      frequent table, prunes, a full lossy key table, TIMER rows anywhere and
      buckets past their slots, bit for bit (see special_window_kernel_phase);
+     the partitioned length-window step K29 and the windowed min/max of a
+     partition K30 at path PT's shape (B=32768, P=1024, W=50) and ragged,
+     trap and inner-stream batches, bit for bit (see partition_kernel_phase);
   3. verify cases filter_num, len_window_avg, len_window_minmax,
      len_batch_group, having_order, stddev_distinct, time_window,
      external_time, self_join, pattern_within, count_seq,
      logical_pattern (the per-event scan), sort_window, frequent and
      stream_fn on the card against the frozen CPU rows of VERIFY.json,
-     table_crud by its store query, and multi_query_shared (four queries
+     table_crud and partitioned by their store query, and multi_query_shared (four queries
      on one stream, one rate-limited) per query against device="cpu";
   4. the main path at full width: BASELINE.json config 1 (filter + length(50)
      window + avg) and the same app with min/max added, at @app:batch 32768,
@@ -110,6 +113,12 @@ engine next to it. Phases, each printed as it ends:
      buckets a call each, launches = data + TIMER steps); FN (#pol2Cart, a
      filter on the added x, `output last every 4096 events`, per batch);
      each without overflow and its first 8,192 events against
+     device="cpu";
+ 12. path PT (PT_APP; see partition_path_phase): a length(50) window per
+     key into an #inner stream and a filter on it, 1,000 keys in a
+     1,024-slot key table, 1,000,000 events per batch; launches held to
+     the steps, events/s, the device busy share, the first 4 batches
+     against device="cpu", and capacity 512 overflowing against
      device="cpu".
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
@@ -117,6 +126,11 @@ The line before the last is the JSON kernel table; the last line is
     python3 chip_smoke.py --kernels
 
 stops after phase 2 (each kernel against its plain version, and its times).
+
+    python3 chip_smoke.py --partition
+
+builds the kernels and runs only the partition slice: K29 and K30 against
+their plain versions, and path PT.
 
     python3 chip_smoke.py --profile
 
@@ -294,7 +308,28 @@ VERIFY_TABLE_CASES = {
         update or insert into T on T.symbol == symbol;""",
         "from T select symbol, total",
     ),
+    "partitioned": (
+        VERIFY_HEAD + """@app:partitionCapacity(size='16')
+        @capacity(size='2048') define table T (symbol string, ap float);
+        partition with (symbol of S) begin
+        @info(name='w') from S[price > 20] select symbol, price as ap
+        insert into T;
+        end;""",
+        "from T select symbol, ap",
+    ),
 }
+
+# path PT: the Siddhi partition idiom, a per-key length window feeding an
+# inner stream (see partition_path_phase)
+PT_APP = """@app:batch(size='{batch}') @app:partitionCapacity(size='{cap}')
+define stream StockStream (symbol string, price float, volume long);
+partition with (symbol of StockStream) begin
+  @info(name='pw') from StockStream#window.length({w})
+    select symbol, avg(price) as ap, max(price) as mx, count() as n insert into #A;
+  @info(name='q') from #A[ap > 50] select symbol, ap, mx, n insert into Out;
+end;
+"""
+PT_W, PT_CAP, PT_SYMBOLS, PT_EVENTS = 50, 1024, 1000, 1_000_000
 
 
 def rows_match(a, b, tol=RTOL):
@@ -2501,6 +2536,188 @@ def special_window_kernel_phase(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2, the partition slice: K29 and K30 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def partition_kernel_phase(torch, dev) -> dict:
+    """The partitioned length-window step (K29) and the windowed min/max of a
+    partition (K30) against their plain versions on the card, bit for bit on
+    every output lane (the whole 2B rows), the membership, the rings, the
+    totals and the slot lanes, from the same inputs and carried state (made
+    by the plain version over earlier batches): at path PT's shape (B=32768,
+    P=1024, W=50, 1,000 keys, rings filling in the middle of the second
+    batch), B 1/33/4097 x P 1/8/33 with W 1/4/50 (W above a slot's rows),
+    keys past capacity (slot P), TIMER and EXPIRED rows, holes, NaN/-0.0
+    prices and int nulls, empty slots, and an inner-stream batch whose slots
+    arrive out of slot order (a K29 output fed into a second ring), and
+    counters past shared memory (9,000 slots; one slot with 8,396
+    positions). K30 on each step's membership for float32, int32 and int64,
+    min and max."""
+    from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.core.types import AttrType
+    from siddhi_tpu_torch.ops import partition as K
+
+    k29, k30 = "partition_length_window_step", "partition_window_extreme"
+    res = {k: {"max_abs_err": 0.0, "checks": 0} for k in (k29, k30)}
+    rng = np.random.default_rng(1029)
+    prices = np.array([np.nan, -0.0, 0.0, 1.5, 2.5, 7.0, -3.0], np.float32)
+    cols_of = {"symbol": torch.int32, "price": torch.float32, "qty": torch.int32,
+               "volume": torch.int64}
+    values = (("price", AttrType.FLOAT), ("qty", AttrType.INT), ("volume", AttrType.LONG))
+
+    def rings(p, w):
+        z = lambda dt: torch.zeros((p, w), dtype=dt, device=dev)  # noqa: E731
+        return {"cols": {n: z(dt) for n, dt in cols_of.items()}, "ts": z(torch.int64),
+                "wts": z(torch.int64), "seq": torch.full((p, w), -1, dtype=torch.int64,
+                                                          device=dev),
+                "total": torch.zeros(p, dtype=torch.int64, device=dev)}
+
+    def batch_of(b, p, t0, traps=False, slots=None):
+        if traps:
+            kind = np.where(rng.random(b) < 0.05, 2, np.where(rng.random(b) < 0.03, 1, 0))
+            price = prices[rng.integers(0, len(prices), b)]
+            qty = np.where(rng.random(b) < 0.05, -(1 << 31), rng.integers(-9, 9, b))
+            vol = np.where(rng.random(b) < 0.05, LONG_NULL, rng.integers(-9, 9, b))
+            valid = rng.random(b) < 0.9
+            slot = np.where(rng.random(b) < 0.05, p, rng.integers(0, p, b))
+        else:
+            kind = np.zeros(b)
+            price = rng.uniform(0, 100, b)
+            qty = rng.integers(0, 1000, b)
+            vol = rng.integers(1, 1000, b)
+            valid = np.ones(b, bool)
+            slot = rng.integers(0, p, b)
+        if slots is not None:
+            slot = slots
+        batch = EventBatch(
+            ts=torch.from_numpy(t0 + np.arange(b, dtype=np.int64)).to(dev),
+            kind=torch.from_numpy(kind.astype(np.int8)).to(dev),
+            valid=torch.from_numpy(valid).to(dev),
+            cols={"symbol": torch.from_numpy(rng.integers(1, 9, b).astype(np.int32)).to(dev),
+                  "price": torch.from_numpy(price.astype(np.float32)).to(dev),
+                  "qty": torch.from_numpy(qty.astype(np.int32)).to(dev),
+                  "volume": torch.from_numpy(vol.astype(np.int64)).to(dev)})
+        return batch, torch.from_numpy(slot.astype(np.int32)).to(dev)
+
+    def lanes(r):
+        out, birth, death, st, m = r
+        return [out.ts, out.kind, out.valid, out.cols, birth, death, st, m.slot, m.first,
+                m.rowlist, m.slot_start, m.elem_slot]
+
+    def check(state, batch, slot, w, p):
+        got = K.partition_length_window_step(state, batch, slot, w, p)
+        want = K.partition_length_window_step_ref(state, batch, slot, w, p)
+        torch.cuda.synchronize()
+        same_bits(torch, lanes(got), lanes(want))
+        res[k29]["checks"] += 1
+        _out, birth, death, _st, m = want
+        for col, t in values:
+            vals = torch.cat([state["cols"][col].reshape(-1), batch.cols[col]])
+            for is_min in (True, False):
+                g = K.partition_window_extreme(vals, birth, death, m.slot, m.rowlist,
+                                               m.slot_start, w, is_min, t)
+                r = K.partition_window_extreme_ref(vals, birth, death, m.slot, m.rowlist,
+                                                   m.slot_start, w, is_min, t)
+                torch.cuda.synchronize()
+                same_bits(torch, g, r)
+                res[k30]["checks"] += 1
+        return want
+
+    # path PT's shape: 1,000 keys in a 1,024-slot table, three carried batches
+    b, p, w = MAIN_BATCH, PT_CAP, PT_W
+    state = rings(p, w)
+    for i in range(3):
+        batch, slot = batch_of(b, p, i * b, slots=rng.integers(0, PT_SYMBOLS, b))
+        want = check(state, batch, slot, w, p)
+        if i < 2:
+            state = want[3]
+    pt = dict(state=state, batch=batch, slot=slot, want=want)
+    print(f"partition kernels at PT's shape (B={b}, P={p}, W={w}): exact", flush=True)
+    # ragged and trap cases
+    for bb, pp, ww in itertools.product((1, 33, 4097), (1, 8, 33), (1, 4, 50)):
+        if (bb, pp, ww) not in {(1, 1, 1), (1, 8, 50), (1, 33, 4), (33, 1, 4), (33, 8, 50),
+                                (33, 33, 1), (4097, 1, 50), (4097, 8, 1), (4097, 33, 4)}:
+            continue
+        st = rings(pp, ww)
+        for i in range(4 if bb > 1 else 12):
+            batch, slot = batch_of(bb, pp, i * bb, traps=True)
+            st = check(st, batch, slot, ww, pp)[3]
+    # empty slots: 33 slots, rows only in 5 of them
+    st = rings(33, 4)
+    for i in range(3):
+        batch, slot = batch_of(513, 33, i * 513, traps=True, slots=rng.integers(0, 5, 513))
+        st = check(st, batch, slot, 4, 33)[3]
+    # counters past shared memory (global scratch): 9,000 slots, then one
+    # slot with 8,396 positions
+    st = rings(9000, 2)
+    for i in range(2):
+        batch, slot = batch_of(600, 9000, i * 600, traps=True)
+        st = check(st, batch, slot, 2, 9000)[3]
+    batch, slot = batch_of(4200, 1, 0, slots=np.zeros(4200, np.int64))
+    check(rings(1, 4), batch, slot, 4, 1)
+    # an inner-stream batch: a K29 output (rows in (position, slot) order)
+    # inserted as CURRENT rows into a second partitioned ring
+    st1, st2 = rings(8, 3), rings(8, 2)
+    for i in range(3):
+        batch, slot = batch_of(200, 8, i * 200, traps=True)
+        out, _b, _d, st1, m = check(st1, batch, slot, 3, 8)
+        inner = EventBatch(ts=out.ts, kind=torch.zeros_like(out.kind), valid=out.valid,
+                           cols=out.cols)
+        st2 = check(st2, inner, m.slot, 2, 8)[3]
+    print(f"partition kernels: {res[k29]['checks']} K29 and {res[k30]['checks']} K30 checks "
+          "bit for bit", flush=True)
+
+    # times at PT's shape
+    state, batch, slot = pt["state"], pt["batch"], pt["slot"]
+    _out, birth, death, _st, m = pt["want"]
+    r = res[k29]
+    r["ms"] = time_ms(torch, lambda: K.partition_length_window_step(state, batch, slot, w, p), 20)
+    r["plain_ms"] = time_once(torch, lambda: K.partition_length_window_step_ref(
+        state, batch, slot, w, p))
+    r["library_ms"] = None
+    col_b = sum(torch.tensor([], dtype=dt).element_size() for dt in cols_of.values())
+    k29_bytes = (b * (8 + 1 + 1 + 4 + col_b) + p * w * (24 + col_b) + 8 * p  # batch, rings
+                 + 2 * b * (8 + 1 + 1 + 4 + 4 + col_b) + (p * w + b) * 16  # rows, membership
+                 + p * w * (24 + col_b) + 8 * p + 4 * b + 4 * (p + 1))  # new rings, lists
+    r["bound_ms"], r["bound_by"] = k29_bytes / MEM_BYTES_PER_S * 1e3, "bytes"
+    r["rows"] = int(m.slot.lt(p).sum())
+
+    r = res[k30]
+    vals = torch.cat([state["cols"]["price"].reshape(-1), batch.cols["price"]])
+    args = (vals, birth, death, m.slot, m.rowlist, m.slot_start, w, False, AttrType.FLOAT)
+    r["ms"] = time_ms(torch, lambda: K.partition_window_extreme(*args), 20)
+    r["plain_ms"] = time_once(torch, lambda: K.partition_window_extreme_ref(*args))
+    # the library yardstick: a masked amax over the per-slot [rows, W + max c]
+    # gather of element values and membership, prebuilt
+    counts = (m.slot_start[1:] - m.slot_start[:-1]).long()
+    maxc = int(counts.max())
+    kk = torch.arange(maxc, device=dev)
+    idx = (m.slot_start[:-1, None].long() + kk[None, :]).clamp(max=b - 1)
+    batch_e = torch.where(kk[None, :] < counts[:, None], p * w + m.rowlist[idx].long(), -1)
+    elems = torch.cat([torch.arange(p * w, device=dev).view(p, w), batch_e], 1)
+    e = elems[m.slot.long().clamp(0, p - 1)]
+    rows_i = torch.arange(2 * b, device=dev)[:, None]
+    member = (m.slot.long() < p)[:, None] & (e >= 0) & (birth[e.clamp(min=0)] <= rows_i) & (
+        rows_i < death[e.clamp(min=0)])
+    v = vals[e.clamp(min=0)]
+    ident = torch.tensor(float("-inf"), device=dev)
+    r["library_ms"] = time_ms(torch, lambda: torch.amax(torch.where(member, v, ident), 1), 20)
+    live = m.slot < p
+    examined = int((w + counts[m.slot.long().clamp(0, p - 1)])[live].sum())
+    k30_bytes = vals.numel() * (4 + 4 + 4) + 2 * b * (4 + 4) + b * 4 + 4 * (p + 1)
+    r["bound_ms"], r["bound_by"] = max((k30_bytes / MEM_BYTES_PER_S * 1e3, "bytes"),
+                                       (examined / FP32_OPS_PER_S * 1e3, "operations"))
+    r["examined"] = examined
+    for name in (k29, k30):
+        r = res[name]
+        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={r['library_ms']} "
+              f"checks={r['checks']} exact", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 3: verify cases against VERIFY.json
 # ---------------------------------------------------------------------------
 
@@ -2791,7 +3008,8 @@ def grouped_path_phase(torch) -> dict:
 
     for q in ("@store(type='memory') define table T (symbol string); "
               "from S select symbol insert into T",
-              "partition with (symbol of S) begin from S select symbol insert into Out; end",
+              "partition with (symbol of S) begin from S#window.lengthBatch(4) select symbol "
+              "insert into Out; end",
               "define window W (symbol string) length(4); from S select symbol insert into W",
               "define trigger T at every 5 sec; from S select symbol insert into Out"):
         try:
@@ -3461,6 +3679,140 @@ def fn_path_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: path PT, a partitioned length window feeding an inner stream
+# ---------------------------------------------------------------------------
+
+# K29, K30 and K7 once a step; K8 three times (avg's sum and count, count)
+PT_KERNELS = {"partition_length_window_step": 1, "partition_window_extreme": 1,
+              "assign_slots": 1, "keyed_running_sum": 3}
+
+
+def call_breakdown(torch, app: str, data: dict, b: int, symbols) -> dict:
+    """Where one call of 8 batches goes (after a warm-up call of 2):
+    device time by kernel from torch.profiler, then host time by function
+    from cProfile over another call of 8."""
+    import cProfile
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    mgr = SiddhiManager()
+    rt = mgr.create_siddhi_app_runtime(app)
+    for s in symbols:
+        mgr.interner.intern(s)
+    rt.add_callback("q", lambda t, ins, rem: None)
+    rt.start()
+    h = rt.get_input_handler("StockStream")
+
+    def send(lo, hi):
+        h.send_columns(data["ts"][lo:hi], {k: data[k][lo:hi] for k in
+                                           ("symbol", "price", "volume")}, now=0)
+        torch.cuda.synchronize()
+
+    send(0, 2 * b)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        send(2 * b, 10 * b)
+    by_kernel = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        dev_us = e.self_cuda_time_total if dev_us is None else dev_us
+        if dev_us > 0:
+            by_kernel.append((e.key[:80], e.count, dev_us / 1e3))
+    by_kernel.sort(key=lambda k: -k[2])
+    host = cProfile.Profile()
+    host.enable()
+    t0 = time.perf_counter()
+    send(10 * b, 18 * b)
+    wall = time.perf_counter() - t0
+    host.disable()
+    top = sorted(pstats.Stats(host).stats.items(), key=lambda kv: -kv[1][2])[:12]
+    by_func = [(f"{os.path.basename(f)}:{ln}({fn})", st[1], st[2] * 1e3)
+               for (f, ln, fn), st in top]
+    rt.shutdown()
+    mgr.shutdown()
+    for name, count, ms in by_kernel[:10]:
+        print(f"breakdown: device {ms:9.3f} ms x{count:<5d} {name}", flush=True)
+    print(f"breakdown: host, one call of 8 batches under cProfile: {wall * 1e3:.3f} ms",
+          flush=True)
+    for where, n, ms in by_func:
+        print(f"breakdown: host {ms:9.3f} ms own x{n:<7d} {where}", flush=True)
+    return {"device_by_kernel": by_kernel[:20], "host_call_ms": wall * 1e3,
+            "host_by_function": by_func}
+
+
+def partition_path_phase(torch) -> dict:
+    """Path PT (PT_APP): `partition with (symbol of StockStream)`, a
+    length(50) window per key with avg, max and count into `#A`, a filter on
+    `#A` into Out, @app:batch 32768, @app:partitionCapacity 1024, over
+    1,000,000 events of seed 7 whose symbols are 1,000 names drawn
+    uniformly, through send_columns in calls of 8 batches (the first of 4);
+    a partitioned stream runs per batch. Launch counts of this run alone,
+    each held to its uses a step times the steps (K19 is not on this path:
+    PT's max is windowed, K30); events/s and the device busy share of one
+    more call of 8 batches; the first 4 batches against device="cpu"; then
+    the same app at partitionCapacity 512 over 8,192 events (about 1,000
+    keys: the table overflows, the overflow is logged once, the keys past
+    capacity deliver nothing) against device="cpu"."""
+    from siddhi_tpu_torch import kernels
+
+    b = MAIN_BATCH
+    names = [f"SYM{i:04d}" for i in range(PT_SYMBOLS)]
+    data = stock_data(PT_EVENTS, seed=7)
+    data["symbol"] = np.random.default_rng(7).integers(
+        1, PT_SYMBOLS + 1, size=PT_EVENTS).astype(np.int32)
+    app = PT_APP.format(batch=b, cap=PT_CAP, w=PT_W)
+    first_n, stride = 4 * b, 8 * b
+    run_app("cuda", app, data, 2 * b, b, b, fused=False, symbols=names)  # warm-up
+    kernels.launches.clear()
+    n_rows, kept, dt, _i = run_app("cuda", app, data, PT_EVENTS, stride, first_n, fused=False,
+                                   symbols=names)
+    launches = dict(kernels.launches)
+    steps = sum(-(-c // b) for c in call_sizes(PT_EVENTS, first_n, stride))
+    print(f"path PT launches {json.dumps(launches)} over {steps} steps", flush=True)
+    for k, uses in PT_KERNELS.items():
+        if launches.get(k, 0) != uses * steps:
+            raise AssertionError(f"path PT: kernel {k} launched {launches.get(k, 0)} times, "
+                                 f"expected {uses} x {steps} steps")
+    _n, cpu_first, _dt, _i = run_app("cpu", app, data, first_n, first_n, first_n, fused=False,
+                                     symbols=names)
+    check_path("PT", launches, PT_KERNELS, kept, cpu_first, 1)
+    wall_ms, busy_ms = fused_busy(torch, app, data, b, symbols=names)
+    out = {"events": PT_EVENTS, "rows": n_rows, "seconds": dt, "events_per_s": PT_EVENTS / dt,
+           "steps": steps, "launches": launches, "busy_call_wall_ms": wall_ms,
+           "busy_call_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+           "breakdown": call_breakdown(torch, app, data, b, names)}
+    print(f"path PT partitioned length window: {PT_EVENTS} events per batch, {n_rows} rows "
+          f"delivered, {dt:.3f} s, {PT_EVENTS / dt:.1f} events/s; one call of 8 batches: "
+          f"wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.4f}); "
+          "first 4 batches match device='cpu'", flush=True)
+
+    # an overflowing key table: 1,000 keys into 512 slots
+    n = 8192
+    small = PT_APP.format(batch=b, cap=PT_CAP // 2, w=PT_W)
+    (_n, ov_cuda, _dt, _i), warns = capture_warnings(
+        lambda: run_app("cuda", small, data, n, n, n, fused=False, symbols=names),
+        needle="partitionCapacity")
+    _n, ov_cpu, _dt, _i = run_app("cpu", small, data, n, n, n, fused=False, symbols=names)
+    seen = list(dict.fromkeys(data["symbol"][:n].tolist()))
+    kept_names = {names[s - 1] for s in seen[:PT_CAP // 2]}
+    delivered = {r[0] for r in ov_cuda[0]}
+    if len(seen) <= PT_CAP // 2 or len(warns) != 1 or not ov_cpu[0] or not rows_match(
+            ov_cuda[0], ov_cpu[0]) or not delivered <= kept_names:
+        raise AssertionError(f"path PT at partitionCapacity {PT_CAP // 2}: {len(seen)} keys, "
+                             f"{len(warns)} overflow logs, rows equal to device='cpu': "
+                             f"{rows_match(ov_cuda[0], ov_cpu[0])}, only kept keys delivered: "
+                             f"{delivered <= kept_names}")
+    out["capacity_512_overflow"] = {"events": n, "keys": len(seen), "rows": len(ov_cuda[0]),
+                                    "overflow_logs": len(warns)}
+    print(f"path PT at partitionCapacity {PT_CAP // 2}: {len(seen)} keys in {n} events, "
+          f"{len(ov_cuda[0])} rows match device='cpu', overflow logged once, keys past "
+          "capacity deliver nothing", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the table paths (bench.py:266 _leg_table_scaling's traffic)
 # ---------------------------------------------------------------------------
 
@@ -3987,6 +4339,10 @@ def main() -> int:
             json.dump(out, f, indent=1)
         return 0
 
+    if "--partition" in sys.argv[1:]:
+        partition_kernel_phase(torch, "cuda")
+        partition_path_phase(torch)
+        return 0
     res = kernel_phase(torch, "cuda")
     res.update(fused_kernel_phase(torch, "cuda"))
     res.update(grouped_kernel_phase(torch, "cuda"))
@@ -3996,6 +4352,7 @@ def main() -> int:
     res.update(time_batch_kernel_phase(torch, "cuda"))
     res.update(table_kernel_phase(torch, "cuda"))
     res.update(special_window_kernel_phase(torch, "cuda"))
+    res.update(partition_kernel_phase(torch, "cuda"))
     if "--kernels" in sys.argv[1:]:
         return 0
     verify_phase("cuda")
@@ -4018,6 +4375,7 @@ def main() -> int:
     special = {k: special_path_phase(torch, k) for k in ("SW", "FQ", "LF")}
     special["CR"] = cron_path_phase(torch)
     special["FN"] = fn_path_phase(torch)
+    partitioned = partition_path_phase(torch)
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -4078,7 +4436,11 @@ def main() -> int:
            "lossy_frequent_window_step": ("siddhi_tpu_torch/csrc/special_window.cu",
                                           "siddhi_tpu/core/windows_special.py:543"),
            "cron_window_step": ("siddhi_tpu_torch/csrc/special_window.cu",
-                                "siddhi_tpu/core/windows_special.py:298")}
+                                "siddhi_tpu/core/windows_special.py:298"),
+           "partition_length_window_step": ("siddhi_tpu_torch/csrc/partition_window.cu",
+                                            "siddhi_tpu/core/partition.py:105"),
+           "partition_window_extreme": ("siddhi_tpu_torch/csrc/partition_window.cu",
+                                        "siddhi_tpu/core/aggregators.py:191")}
     # launches: K1-K5 from the quickstart path's run, K6-K9 from the
     # tumbling_groupby path's run, K10 from path T's run, K11 and K12 from
     # path J's, K13 and K15 from path P's, K14 from path C's, K16 from path
@@ -4102,6 +4464,9 @@ def main() -> int:
     # K25-K28 from paths SW, FQ, LF and CR
     for label, k in SPECIAL_KERNEL_OF.items():
         path_of[k] = special[label]["launches"]
+    # K29 and K30 from path PT
+    path_of["partition_length_window_step"] = partitioned["launches"]
+    path_of["partition_window_extreme"] = partitioned["launches"]
     path_launches = {k: path_of.get(k, main["launches"]).get(k, 0) for k in res}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
@@ -4135,7 +4500,7 @@ def main() -> int:
                        "distinct_count_XB_ms": res["distinct_count"]["XB_ms"],
                        "window_extreme_keyed_pairs": res["window_extreme_keyed"]["pairs"],
                        "running_extreme_library": res["running_extreme"]["library"]},
-                   "tables": tables, "special_paths": special,
+                   "tables": tables, "special_paths": special, "partition_path": partitioned,
                    "table_kernel_shapes": {
                        "table_write_scan_ms": res["table_write"]["scan_ms"],
                        "table_match_in_ms": res["table_match"]["in_ms"],

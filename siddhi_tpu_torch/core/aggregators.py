@@ -10,6 +10,11 @@ the window's lazy membership (exact expiry accounting) instead of incremental
 remove, restricted to the row's group under a group-by. Without a window (or
 for the forever forms) min/max are running extremes.
 
+Inside a partition the group context is the partition (core/groupby.py
+`partition_ctx`): slot = partition slot, carries [P], no resets; windowed
+min/max there reduce over the row's partition's window elements only
+(ops/partition.py `partition_window_extreme`, K30).
+
 `window_extreme` (csrc/window_extreme.cu, with a key lane when grouped) and
 `distinct_count` (csrc/distinct_count.cu) are hand-written CUDA kernels on
 the card; each `*_ref` is its plain PyTorch version, which the wrapper takes
@@ -302,6 +307,13 @@ class ExtremeAggregator(CompiledAggregator):
         if not self.forever and flow.birth_pos is not None:
             vals = self.arg(flow.member_env).to(self.dtype).contiguous()
             n_rows = flow.sign.shape[0]
+            m = flow.group.members if flow.group is not None else None
+            if m is not None:  # a partitioned length window: its slot's elements only
+                from siddhi_tpu_torch.ops.partition import partition_window_extreme
+
+                return state, partition_window_extreme(
+                    vals, flow.birth_pos, flow.death_pos, m.slot, m.rowlist, m.slot_start,
+                    m.w, self.is_min, self.type)
             keys = (None, None)
             if flow.group is not None:
                 keys = (flow.group.key_of(flow.member_env).contiguous(), flow.group.key)

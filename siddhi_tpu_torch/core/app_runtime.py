@@ -26,8 +26,10 @@ columnar ingest (core/ingest.py) with `@app:ingestChunk`, `@app:wire` and the pe
 queries that need the scheduler stay off; in-memory tables (core/table.py,
 `@app:tableCapacity`) written inside the query steps by insert, update,
 delete and update-or-insert outputs, read by `in` conditions and table join
-sides, and store queries (`query`, core/store_query.py). Everything else
-raises `SiddhiAppCreationError("... not ported yet")`.
+sides, and store queries (`query`, core/store_query.py); partitions
+(core/partition.py, `@app:partitionCapacity`) of single-stream queries with
+no window or a length window, per batch. Everything else raises
+`SiddhiAppCreationError("... not ported yet")`.
 """
 
 from __future__ import annotations
@@ -82,7 +84,8 @@ DEFAULT_BATCH = 64
 _PORTED_APP_ANNOTATIONS = {"app:name", "app", "name", "app:description", "app:batch",
                            "app:playback", "app:ingestchunk", "app:wire",
                            "app:groupcapacity", "app:joincapacity", "app:patterncapacity",
-                           "app:countcapacity", "app:patternchunk", "app:tablecapacity"}
+                           "app:countcapacity", "app:patternchunk", "app:tablecapacity",
+                           "app:partitioncapacity"}
 _UNPORTED_STREAM_ANNOTATIONS = {"onerror", "source", "sink", "async"}
 
 
@@ -191,11 +194,18 @@ class SiddhiAppRuntime:
             self._pipeline_conf[sid] = resolve_pipeline_annotation(
                 find_annotation(d.annotations, "pipeline")
             )
+        # query and partition ids come from the one shared assignment, in
+        # source order (core/partition.py builds each block)
+        from siddhi_tpu_torch.core.partition import PartitionRuntime
+
+        self.partitions: list[PartitionRuntime] = []
         for ent in assign_execution_ids(app):
-            if ent[0] != "query":
-                raise _not_ported("partition")
-            _kind, qid, q = ent
-            self._add_query(qid, q)
+            if ent[0] == "query":
+                _kind, qid, q = ent
+                self._add_query(qid, q)
+            else:
+                _kind, pid, elem, inner_ids = ent
+                self.partitions.append(PartitionRuntime(elem, self, pid, inner_ids))
 
     # ---- assembly --------------------------------------------------------
 

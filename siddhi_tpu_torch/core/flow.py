@@ -27,6 +27,8 @@ class Flow:
         query runtime (the flags off the dispatch path)
     extra_cols: further columns keyed (ref, None, attr): a joined batch's
         right-side columns and both refs' timestamps
+    partition: inside a partition, each row's partition slot and segment
+        (a core/groupby.py GroupCtx from `partition_ctx`), else None
     """
 
     batch: EventBatch
@@ -37,6 +39,7 @@ class Flow:
     member_env: Optional[Env] = None
     aux: dict = dataclasses.field(default_factory=dict)
     extra_cols: dict = dataclasses.field(default_factory=dict)
+    partition: Optional[object] = None
 
     def env(self) -> Env:
         cols: dict[VarKey, torch.Tensor] = {

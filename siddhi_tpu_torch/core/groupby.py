@@ -10,7 +10,7 @@ state is a [G]-array slice per aggregator.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -41,6 +41,31 @@ class GroupCtx:
     capacity: int
     key_of: Callable[[Env], torch.Tensor]  # env -> int64 key column
     overflow: torch.Tensor  # 0-d bool
+    # a partition's rows after its length window: ops/partition.py
+    # PartitionMembers (the window's per-slot element lists), else None
+    members: Optional[object] = None
+
+
+# the member env's lane of each window element's partition slot
+PARTITION_SLOT_KEY = ("__partition__", None, "slot")
+_NO_RESET: dict = {}
+
+
+def partition_ctx(slot: torch.Tensor, first: torch.Tensor, capacity: int,
+                  overflow: torch.Tensor, members=None) -> GroupCtx:
+    """The group context of a partition's rows: the slot lane is the
+    partition slot (`capacity` for rows of no partition), `first` each row's
+    segment head (the first row of its slot), no reset. Aggregators then run
+    keyed by partition, their carries [P] (siddhi_tpu/core/partition.py's
+    vmap over [P] states, in the keyed form)."""
+    key = (slot.device, slot.shape[0])
+    bounds = _NO_RESET.get(key)
+    if bounds is None:
+        bounds = _NO_RESET[key] = torch.tensor([slot.shape[0], -1], dtype=torch.int32,
+                                               device=slot.device)
+    return GroupCtx(slot=slot, key=slot.to(torch.int64), groups=Groups(first, bounds),
+                    capacity=capacity, key_of=lambda env: env.read(PARTITION_SLOT_KEY),
+                    overflow=overflow, members=members)
 
 
 class CompiledGroupBy:

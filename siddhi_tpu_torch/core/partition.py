@@ -1,0 +1,313 @@
+"""Partitions: per-key isolated query state.
+
+Reference: core/partition/PartitionRuntime.java:68-370 — `partition with (expr
+of Stream) begin ... end` clones the inner query graph per key value and
+routes events into per-key junctions; range partitions pick the first
+matching condition (executor/RangePartitionExecutor).
+
+The JAX package (siddhi_tpu/core/partition.py) gives each inner query's state
+a leading [P] partition axis and runs its step under `jax.vmap`: every
+partition sees the whole batch under a mask, and `_flatten` orders the
+[P, K] output by output position first and partition slot second. The port
+keeps the [P]-tiled state but runs the step in a keyed form: each row
+carries its partition slot (from K7 `assign_slots` on the block's shared key
+table), state is indexed by slot, and the step's rows come out already in
+(position, slot) order — the arrival order for a windowless step, the
+partitioned length window's own order after one (ops/partition.py, K29).
+`#inner` streams carry the rows with their slot lane between the block's
+queries. The work is O(B + P*W) a step, not the vmap's O(P*B).
+
+Ported: value and range partitions over one or more streams sharing one key
+table (`@app:partitionCapacity`, default 32; rows of keys past capacity are
+dropped and logged once), and inside them single-stream queries with
+filters, projection, having, no window or a length window, every
+aggregator, output to a stream, a callback, an `#inner` stream or a table.
+Joins, patterns, other windows, stream functions, group-by, order-by,
+limit/offset and rate limiting inside a partition raise "not ported yet".
+Partitioned streams run per batch (no fused endpoint).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
+from siddhi_tpu_torch.core.event import EventBatch, KIND_CURRENT, KIND_TIMER, StreamSchema
+from siddhi_tpu_torch.core.executor import Env, Scope, TS_ATTR, compile_expression
+from siddhi_tpu_torch.core.flow import Flow
+from siddhi_tpu_torch.core.groupby import GroupCtx, _as_key_col, partition_ctx
+from siddhi_tpu_torch.core.query_runtime import QueryRuntime
+from siddhi_tpu_torch.core.types import AttrType
+from siddhi_tpu_torch.core.windows import SlidingWindow
+from siddhi_tpu_torch.ops.group import assign_slots
+from siddhi_tpu_torch.query_api.execution import (
+    InsertIntoStream,
+    JoinInputStream,
+    Partition,
+    Query,
+    RangePartitionType,
+    SingleInputStream,
+    StateInputStream,
+    ValuePartitionType,
+)
+
+DEFAULT_PARTITIONS = 32
+
+
+def _not_ported(what: str) -> SiddhiAppCreationError:
+    return SiddhiAppCreationError(f"{what} inside a partition is not ported yet")
+
+
+def _tile(tree, p: int):
+    """Every leaf of a state tree with a leading [P] axis (a copy each)."""
+    if isinstance(tree, dict):
+        return {k: _tile(v, p) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tile(v, p) for v in tree)
+    return tree.unsqueeze(0).repeat((p,) + (1,) * tree.dim())
+
+
+def _reduce_paux(aux: dict, povf: Optional[torch.Tensor] = None) -> dict:
+    """Fold the key table's overflow into a step's aux flags. The JAX
+    package also min-reduces timers and ORs flags across its [P] vmapped
+    lanes; the keyed step's flags are already one value for all
+    partitions."""
+    if povf is not None:
+        prev = aux.get("partition_overflow")
+        aux["partition_overflow"] = povf if prev is None else prev | povf
+    return aux
+
+
+class PartitionedQueryRuntime(QueryRuntime):
+    """One single-stream query inside a partition, its state [P]-tiled.
+
+    `key_of(env) -> (keys [B] int64, matched [B] bool)` routes an outer
+    stream's batches; None means the input is an `#inner` stream whose rows
+    arrive with their slot lane."""
+
+    def __init__(self, query: Query, query_id: str, in_schema: StreamSchema, interner,
+                 device, p_capacity: int, key_of: Optional[Callable], tables: dict):
+        # under the JAX package's vmap these run per partition per batch
+        sel = query.selector
+        for what, present in (("group by", sel.group_by), ("order by", sel.order_by),
+                              ("limit/offset", sel.limit is not None or sel.offset is not None),
+                              ("output rate limiting", query.output_rate is not None)):
+            if present:
+                raise _not_ported(what)
+        super().__init__(query, query_id, in_schema, interner, device, tables=tables)
+        for kind, stage in self.chain.stages:
+            if kind == "fn":
+                raise _not_ported("a stream function")
+            if kind == "window" and not (isinstance(stage, SlidingWindow) and stage.t is None):
+                raise _not_ported(f"window {type(stage).__name__} (only length)")
+        self.p = int(p_capacity)
+        self.key_of = key_of
+        self.stream_id = in_schema.stream_id
+        # set when the query inserts into an #inner stream
+        self.inner_publish: Optional[Callable] = None
+
+    def init_state(self):
+        return _tile(super().init_state(), self.p)
+
+    # ---- device ----------------------------------------------------------
+
+    def _pstep(self, state, batch: EventBatch, now: torch.Tensor, ctx: GroupCtx, aux: dict):
+        flow = Flow(batch=batch, ref=self.ref, now=now, aux=aux, partition=ctx)
+        chain_state, flow = self.chain.apply(state["chain"], flow)
+        sel_state, out = self.selector.apply(state["sel"], flow)
+        self._apply_table_op(out, now, flow.aux)
+        self._note_aux(flow.aux)
+        return {"chain": chain_state, "sel": sel_state}, out, flow.partition
+
+    def _pstep_outer(self, ptable: dict, state, batch: EventBatch, now: torch.Tensor):
+        """Outer-stream rows: key -> slot on the shared table; a row takes
+        part when valid, CURRENT, matched and within capacity (TIMER rows
+        pass to every partition, as the vmap's masks)."""
+        cols = {(self.stream_id, None, n): c for n, c in batch.cols.items()}
+        cols[(self.stream_id, None, TS_ATTR)] = batch.ts
+        keys, matched = self.key_of(Env(cols, now=now))
+        shape = batch.valid.shape
+        active = batch.valid & (batch.kind == KIND_CURRENT) & matched.expand(shape)
+        keys = keys.expand(shape).contiguous()
+        pk, pu, pn, slot, grp, povf = assign_slots(
+            ptable["keys"], ptable["used"], ptable["n"], keys, active.contiguous(),
+            torch.zeros_like(active))
+        is_timer = batch.valid & (batch.kind == KIND_TIMER)
+        b2 = dataclasses.replace(batch, valid=(active & (slot < self.p)) | is_timer)
+        ctx = partition_ctx(slot, grp.first, self.p, povf)
+        state, out, out_ctx = self._pstep(state, b2, now, ctx, _reduce_paux({}, povf))
+        return {"keys": pk, "used": pu, "n": pn}, state, out, out_ctx
+
+    # ---- host ------------------------------------------------------------
+
+    def _now(self, now: int) -> torch.Tensor:
+        return torch.full((), now, dtype=torch.int64, device=self.device)
+
+    def receive_partitioned(self, ptable: dict, batch: EventBatch, now: int):
+        """Outer-stream arrival. Returns (ptable', out, out_ctx)."""
+        with self._receive_lock:
+            if self.state is None:
+                self.state = self.init_state()
+            ptable, self.state, out, ctx = self._pstep_outer(ptable, self.state, batch,
+                                                             self._now(now))
+        return ptable, out, ctx
+
+    def receive_inner(self, batch: EventBatch, ctx: GroupCtx, now: int):
+        """`#inner` arrival: rows with their slot lane. Returns (out, out_ctx)."""
+        with self._receive_lock:
+            if self.state is None:
+                self.state = self.init_state()
+            self.state, out, ctx = self._pstep(self.state, batch, self._now(now), ctx, {})
+        return out, ctx
+
+
+class PartitionRuntime:
+    """Host orchestration of one `partition with (...) begin ... end` block."""
+
+    def __init__(self, partition: Partition, app_runtime, pid: str, query_ids: list):
+        self.partition = partition
+        self.app = app_runtime
+        self.pid = pid
+        self.p = app_runtime._capacity_annotation("app:partitionCapacity", DEFAULT_PARTITIONS)
+        if self.p < 1:
+            raise SiddhiAppCreationError(f"partition capacity must be >= 1, got {self.p}")
+        dev = app_runtime.device
+
+        # key executors per partitioned stream (reference:
+        # Value/RangePartitionExecutor)
+        self.key_fns: dict[str, Callable] = {}
+        for pt in partition.partition_types:
+            schema = app_runtime.stream_schemas.get(pt.stream_id)
+            if schema is None:
+                raise SiddhiAppCreationError(f"partition: stream '{pt.stream_id}' is not defined")
+            scope = Scope(app_runtime.interner, dev)
+            scope.add_stream(pt.stream_id, schema.attr_types)
+            if isinstance(pt, ValuePartitionType):
+                ce = compile_expression(pt.expression, scope)
+                if ce.type is AttrType.OBJECT:
+                    raise SiddhiAppCreationError("cannot partition by OBJECT")
+
+                def key_of(env, _ce=ce):
+                    k = _as_key_col(_ce(env), _ce.type)
+                    return k, torch.ones((), dtype=torch.bool, device=k.device)
+
+            else:
+                assert isinstance(pt, RangePartitionType)
+                conds = []
+                for rp in pt.ranges:
+                    c = compile_expression(rp.condition, scope)
+                    if c.type is not AttrType.BOOL:
+                        raise SiddhiAppCreationError("range partition conditions must be boolean")
+                    conds.append(c)
+
+                def key_of(env, _conds=tuple(conds)):
+                    # the first matching range wins; unmatched rows are dropped
+                    key, matched = None, None
+                    for i, c in enumerate(_conds):
+                        m = c(env)
+                        if key is None:
+                            key = torch.where(m, i, -1).to(torch.int64)
+                            matched = m
+                        else:
+                            key = torch.where(~matched & m, i, key)
+                            matched = matched | m
+                    return key, matched
+
+            self.key_fns[pt.stream_id] = key_of
+
+        # the block's shared key table (reference: PartitionRuntime's per-key
+        # instance map)
+        self.ptable = {
+            "keys": torch.zeros(self.p, dtype=torch.int64, device=dev),
+            "used": torch.zeros(self.p, dtype=torch.bool, device=dev),
+            "n": torch.zeros((), dtype=torch.int32, device=dev),
+        }
+        self.inner_schemas: dict[str, StreamSchema] = {}
+        self.inner_subscribers: dict[str, list] = {}
+        self.queries: list[PartitionedQueryRuntime] = []
+        for qid, q in query_ids:
+            self._add_query(qid, q)
+
+    def _add_query(self, qid: str, query: Query) -> None:
+        app = self.app
+        stream = query.input_stream
+        if isinstance(stream, JoinInputStream):
+            raise _not_ported("a join query")
+        if isinstance(stream, StateInputStream):
+            raise _not_ported("a pattern or sequence query")
+        if not isinstance(stream, SingleInputStream):
+            raise _not_ported(f"a {type(stream).__name__} query")
+        if qid in app.queries:
+            raise SiddhiAppCreationError(f"duplicate query name '{qid}'")
+        from siddhi_tpu_torch.core.table import collect_used_tables
+
+        # the JAX package compiles an inner query with no table in scope:
+        # only its output may name a table
+        if collect_used_tables(dataclasses.replace(query, output_stream=None), app.tables):
+            raise _not_ported("an `in <table>` condition")
+        if stream.is_inner:
+            in_schema = self.inner_schemas.get(stream.stream_id)
+            if in_schema is None:
+                raise SiddhiAppCreationError(
+                    f"inner stream '#{stream.stream_id}' is not produced by an earlier query "
+                    "in this partition")
+            key_of = None
+        else:
+            in_schema = app.stream_schemas.get(stream.stream_id)
+            if in_schema is None:
+                raise SiddhiAppCreationError(f"stream '{stream.stream_id}' is not defined")
+            key_of = self.key_fns.get(stream.stream_id)
+            if key_of is None:
+                raise SiddhiAppCreationError(
+                    f"partition has no key for stream '{stream.stream_id}'")
+        qr = PartitionedQueryRuntime(query, qid, in_schema, app.interner, app.device,
+                                     p_capacity=self.p, key_of=key_of, tables=app.tables)
+        self.queries.append(qr)
+        app.queries[qid] = qr
+
+        out = query.output_stream
+        if isinstance(out, InsertIntoStream) and out.is_inner:
+            self.inner_schemas[out.target] = StreamSchema(out.target, qr.out_schema.attrs)
+            subs = self.inner_subscribers.setdefault(out.target, [])
+            from siddhi_tpu_torch.core.app_runtime import _make_insert_transform
+
+            # `insert [current|expired|all] events into #T`: the kinds kept,
+            # then rewritten to CURRENT, as the outer insert path
+            transform = _make_insert_transform(out.output_events)
+
+            def publish_inner(batch, ctx, now, _subs=subs, _t=transform):
+                batch = _t(batch)
+                for fn in _subs:
+                    fn(batch, ctx, now)
+
+            qr.inner_publish = publish_inner
+        else:
+            app._wire_insert(qr)
+
+        if stream.is_inner:
+            def recv_inner(batch, ctx, now, _qr=qr):
+                out_b, out_ctx = _qr.receive_inner(batch, ctx, now)
+                self._route(_qr, out_b, out_ctx, now)
+
+            self.inner_subscribers[stream.stream_id].append(recv_inner)
+        else:
+            def receive(batch: EventBatch, now: int, _qr=qr) -> None:
+                with app._process_lock:
+                    self.ptable, out_b, out_ctx = _qr.receive_partitioned(self.ptable, batch, now)
+                    self._route(_qr, out_b, out_ctx, now)
+
+            # no fused endpoint: the stream runs per batch
+            app._junction(stream.stream_id).subscribe(receive)
+
+    def _route(self, qr: PartitionedQueryRuntime, out: EventBatch, ctx: GroupCtx,
+               now: int) -> None:
+        if qr.inner_publish is not None:
+            qr.inner_publish(out, ctx, now)
+            # callbacks on an inner-targeted query still see its rows
+            if qr.query_callbacks:
+                qr.route_output(out, now, self.app._decode)
+        else:
+            qr.route_output(out, now, self.app._decode)

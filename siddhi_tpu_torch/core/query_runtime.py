@@ -169,6 +169,11 @@ _FLAG_LOGS = {
         logging.ERROR,
         "query '%s': update failed — rekeying matched rows would collide with an existing "
         "primary key; the update event was skipped"),
+    # the key table of a partition (core/partition.py)
+    "partition_overflow": (
+        logging.ERROR,
+        "query '%s': partition key table overflowed; events of overflowed keys were dropped "
+        "— raise it with @app:partitionCapacity(size='N')"),
     # a special window's emission buffer or key table (core/windows_special.py)
     "window_overflow": (
         logging.WARNING,

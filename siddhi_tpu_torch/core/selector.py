@@ -8,7 +8,8 @@ whole selector is one vectorized transform over the Flow; aggregator calls
 inside selection expressions are lifted out, computed as running columns, and
 re-injected as synthetic attributes of a pseudo-stream "__agg__". After a
 batch window, the output collapses to one row per flush (and key): the
-keep-last kernel (ops/group.py, csrc/keep_last.cu).
+keep-last kernel (ops/group.py, csrc/keep_last.cu). Inside a partition the
+flow's partition context keys the aggregators (one carry a partition).
 """
 
 from __future__ import annotations
@@ -180,6 +181,8 @@ class CompiledSelector:
             # read off the dispatch path by the query runtime, which logs
             # slot-table exhaustion once
             flow.aux["groupby_overflow"] = ctx.overflow
+        elif flow.partition is not None:
+            ctx = flow.partition  # aggregators keyed by the partition slot
         info = FlowInfo(
             sign=flow.sign,
             active=flow.current,

@@ -20,6 +20,9 @@ csrc/ring_view.cu); the `*_ref` functions are their plain PyTorch versions,
 which the wrappers take only for tensors on the CPU. The sort, frequent,
 lossyFrequent and cron windows live in core/windows_special.py (K25-K28);
 `make_window` builds them too. The other windows raise "not ported yet".
+Inside a partition the length window's ring gains a leading [P] axis and
+its step runs every partition at once by the rows' slots (ops/partition.py,
+csrc/partition_window.cu).
 """
 
 from __future__ import annotations
@@ -552,6 +555,8 @@ class SlidingWindow(WindowStage):
     def apply(self, state, flow: Flow):
         b = flow.batch
         aux = dict(flow.aux)
+        if flow.partition is not None:
+            return self._apply_partitioned(state, flow, aux)
         if self.t is None:
             out, birth, death, new_state = length_window_step(state, b, self.w)
         else:
@@ -575,6 +580,26 @@ class SlidingWindow(WindowStage):
             member_env=Env(member_cols, now=flow.now),
             aux=aux,
         )
+
+    def _apply_partitioned(self, state, flow: Flow, aux: dict):
+        """Inside a partition (length only; the ring lanes gain a leading
+        [P] axis): every partition's step at once by the row slots
+        (ops/partition.py K29), the rows out in (position, slot) order."""
+        from siddhi_tpu_torch.core.groupby import PARTITION_SLOT_KEY, partition_ctx
+        from siddhi_tpu_torch.ops.partition import partition_length_window_step
+
+        b, ctx = flow.batch, flow.partition
+        out, birth, death, new_state, members = partition_length_window_step(
+            state, b, ctx.slot, self.w, ctx.capacity)
+        member_cols = {(self.ref, None, n): torch.cat([state["cols"][n].reshape(-1), b.cols[n]])
+                       for n in b.cols}
+        member_cols[(self.ref, None, TS_ATTR)] = torch.cat([state["ts"].reshape(-1), b.ts])
+        member_cols[PARTITION_SLOT_KEY] = members.elem_slot
+        return new_state, Flow(
+            batch=out, ref=flow.ref, now=flow.now, birth_pos=birth, death_pos=death,
+            member_env=Env(member_cols, now=flow.now), aux=aux,
+            partition=partition_ctx(members.slot, members.first, ctx.capacity, ctx.overflow,
+                                    members))
 
     def view(self, state):
         return ring_view(state)

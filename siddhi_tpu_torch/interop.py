@@ -33,7 +33,10 @@ taken there as numpy maps onto this engine leaf for leaf with dtype and
 shape unchanged. A rate limiter's buffered rows and counters are host
 state of the same shape in both engines (`rate_limiter_state`,
 `load_rate_limiter_state`). Pending timers are host state and do not
-travel.
+travel. A partition's queries keep their state [P]-tiled in both engines
+(every leaf gains a leading [P] axis: rings [P, W], totals and carries
+[P]); `partition_state_from_jax` takes a JAX partition block's key table
+and its queries' states.
 """
 
 from __future__ import annotations
@@ -96,3 +99,14 @@ def load_rate_limiter_state(limiter, state: dict) -> None:
                          f"{type(limiter).__name__} {sorted(vars(limiter))}")
     for k, v in copy.deepcopy(state).items():
         setattr(limiter, k, v)
+
+
+def partition_state_from_jax(ptable: dict, states: dict, device) -> tuple:
+    """A JAX `PartitionRuntime`'s key table (`{"keys": [P] int64, "used":
+    [P] bool, "n": int32}`) and its `PartitionedQueryRuntime` states by
+    query id (the [P]-tiled trees), as numpy, turned into this engine's:
+    `(ptable, {query id: state})` for `PartitionRuntime.ptable` and each
+    query's `state`. The keyed step indexes the same [P] axis by slot, so
+    every leaf keeps its dtype and shape."""
+    return (state_from_numpy(ptable, device),
+            {qid: state_from_numpy(st, device) for qid, st in states.items()})

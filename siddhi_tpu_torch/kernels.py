@@ -34,7 +34,7 @@ SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "del
            "batch_window", "group_assign", "keyed_running_sum", "keep_last", "time_window",
            "ring_view", "join_probe", "pattern_advance", "pattern_count", "pattern_emit",
            "pattern_scan", "running_extreme", "distinct_count", "table_write", "table_index",
-           "table_match", "table_scan", "special_window")
+           "table_match", "table_scan", "special_window", "partition_window")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -50,6 +50,7 @@ _BW_GATHER = [P] * 5 + [I, I, P]
 _KEYED_SUM = [P] * 5 + [I, I] + [P] * 6 + [P]
 _RV_GATHER = [P, P, P, I, P]
 _JP_PARTNER = [P, P, LL, P, I, I, P]
+_PW_EXTREME = [P] * 7 + [I] * 4 + [LL, P]
 # C entry points: name -> (source, argtypes). The last argument is the stream.
 SIGNATURES = {
     "lw_prepare": ("length_window", [P] * 5 + [I, I] + [P] * 12 + [P]),
@@ -113,6 +114,14 @@ SIGNATURES = {
     "sw_cron": ("special_window", [I, I] + [P] * 18 + [P]),
     "sw_gather": ("special_window", [I] + [P] * 6 + [I, I, I, P]),
     "sw_slot_bytes": ("special_window", [I, I, I]),
+    "pw_rank": ("partition_window", [P] * 4 + [I] * 3 + [P] * 10 + [P]),
+    "pw_emit": ("partition_window", [P] * 4 + [I] * 3 + [P] * 17 + [P]),
+    "pw_gather_1": ("partition_window", _GATHER),
+    "pw_gather_4": ("partition_window", _GATHER),
+    "pw_gather_8": ("partition_window", _GATHER),
+    "pw_extreme_f32": ("partition_window", _PW_EXTREME),
+    "pw_extreme_i32": ("partition_window", _PW_EXTREME),
+    "pw_extreme_i64": ("partition_window", _PW_EXTREME),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -42,6 +42,19 @@ from siddhi_tpu_torch.interop import (  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def _fresh_callback_probe():
+    """The JAX package probes host callbacks once a process, lazily; a `#log`
+    stage makes the first probe while its step is traced, which caches
+    False. Keep this file's `#log` apps from deciding it for the tests that
+    run after them in the same process."""
+    from siddhi_tpu.utils import backend
+
+    saved = backend._CB_SUPPORT
+    yield
+    backend._CB_SUPPORT = saved
+
+
 def _port():
     return siddhi_tpu_torch.SiddhiManager(device="cpu")
 
