@@ -40,6 +40,12 @@ engine next to it. Phases, each printed as it ends:
      the partitioned length-window step K29 and the windowed min/max of a
      partition K30 at path PT's shape (B=32768, P=1024, W=50) and ragged,
      trap and inner-stream batches, bit for bit (see partition_kernel_phase);
+     the partitioned time window K31 at path PTE's shape (B=32768, P=1024,
+     W=1024) and a TIMER step over every slot, the partitioned batch
+     window K32 at path PTB's shape and at a lengthBatch(64) over P=1024,
+     idle timeouts, and the per-partition group-slot assignment K33 with a
+     partition overflowing, ragged shapes among them, bit for bit (see
+     partition_windows_kernel_phase);
   3. verify cases filter_num, len_window_avg, len_window_minmax,
      len_batch_group, having_order, stddev_distinct, time_window,
      external_time, self_join, pattern_within, count_seq,
@@ -119,7 +125,14 @@ engine next to it. Phases, each printed as it ends:
      1,024-slot key table, 1,000,000 events per batch; launches held to
      the steps, events/s, the device busy share, the first 4 batches
      against device="cpu", and capacity 512 overflowing against
-     device="cpu".
+     device="cpu"; then the time and batch windows inside a partition
+     (PTW_APPS; see partition_windows_path_phase): PTE (externalTime(ets,
+     60 sec) per symbol, 1,000,000 events per batch), PTB (a range
+     partition of three price bands, timeBatch(1 sec) group by symbol under
+     @app:playback, one bucket a call with its TIMER step) and PTT (PTE on
+     time(1 sec) under @app:playback, 8,192 events with every TIMER step
+     reaching every partition); launches held to the steps, events/s, the
+     busy share (PTE) and each path's first call against device="cpu".
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
 
@@ -129,8 +142,9 @@ stops after phase 2 (each kernel against its plain version, and its times).
 
     python3 chip_smoke.py --partition
 
-builds the kernels and runs only the partition slice: K29 and K30 against
-their plain versions, and path PT.
+builds the kernels and runs only the partition slices: K29-K33 against
+their plain versions, and paths PT, PTE, PTB and PTT;
+`--partition-kernels` stops after K29-K33.
 
     python3 chip_smoke.py --profile
 
@@ -330,6 +344,41 @@ partition with (symbol of StockStream) begin
 end;
 """
 PT_W, PT_CAP, PT_SYMBOLS, PT_EVENTS = 50, 1024, 1000, 1_000_000
+
+# the time and batch windows inside a partition (see partition_windows_path_phase)
+_PTW_STREAM = "define stream StockStream (symbol string, price float, volume long, ets long);"
+PTW_APPS = {
+    # per-symbol sliding event-time statistics over one minute
+    "PTE": """@app:batch(size='{batch}') @app:partitionCapacity(size='{cap}')
+%s
+partition with (symbol of StockStream) begin
+@info(name='q') from StockStream#window.externalTime(ets, 60 sec)
+select symbol, avg(price) as ap, max(price) as mx, count() as n insert into Out;
+end;""" % _PTW_STREAM,
+    # per-band tumbling one-second reports per symbol
+    "PTB": """@app:batch(size='{batch}') @app:partitionCapacity(size='{cap}')
+@app:groupCapacity(size='1024') @app:playback
+%s
+partition with (price < 33 as 'low' or price < 66 as 'mid' or price >= 66 as 'high'
+                of StockStream) begin
+@info(name='q') from StockStream#window.timeBatch(1 sec)
+select symbol, avg(price) as ap, sum(volume) as v, count() as n group by symbol
+insert into Out;
+end;""" % _PTW_STREAM,
+    # PTE on the wall-clock time window under playback: TIMER steps reach
+    # every partition
+    "PTT": """@app:batch(size='{batch}') @app:partitionCapacity(size='{cap}') @app:playback
+%s
+partition with (symbol of StockStream) begin
+@info(name='q') from StockStream#window.time(1 sec)
+select symbol, avg(price) as ap, max(price) as mx, count() as n insert into Out;
+end;""" % _PTW_STREAM,
+}
+
+
+def partition_window_app(path: str, batch: int, cap: int) -> str:
+    return PTW_APPS[path].format(batch=batch, cap=cap)
+
 
 
 def rows_match(a, b, tol=RTOL):
@@ -2717,6 +2766,265 @@ def partition_kernel_phase(torch, dev) -> dict:
     return res
 
 
+PTW_KERNELS = ("partition_time_window_step", "partition_batch_window_step",
+               "partition_assign_slots")
+
+
+def partition_windows_kernel_phase(torch, dev) -> dict:
+    """The partitioned time window (K31), batch window (K32) and per-
+    partition group-slot assignment (K33) against their plain versions on
+    the card, bit for bit on every output lane, the membership, the state,
+    next_timer and the slot lanes, from the same inputs and carried state
+    (made by the plain version over earlier batches). K31 at path PTE's
+    shape (B=32768, P=1024, W=1024, externalTime 60 s over 1 ms ticks, 1,000
+    keys) on two data steps and a TIMER step over every slot, then ragged
+    B/P/W with TIMER rows among the data, a disordered externalTime, rings
+    that evict at capacity and timeLength. K32 at path PTB's shape (a
+    1-second timeBatch, P=32 with 3 keys, one 1,000-event bucket a call, the
+    closing TIMER step) and at a value-partitioned lengthBatch(64) (P=1024,
+    B=32768), with and without the EXPIRED lanes, then an externalTimeBatch
+    idle timeout at rank 0 and after a CURRENT row of the same and of
+    another slot, and ragged shapes with TIMER rows and start times. K33
+    with one partition overflowing its G and per-partition RESET rows."""
+    from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.core.windows import NO_TIMER
+    from siddhi_tpu_torch.ops import group as G
+    from siddhi_tpu_torch.ops import partition as K
+
+    k31, k32, k33 = PTW_KERNELS
+    res = {k: {"max_abs_err": 0.0, "checks": 0} for k in PTW_KERNELS}
+    rng = np.random.default_rng(1031)
+    cols_of = {"symbol": torch.int32, "price": torch.float32, "volume": torch.int64}
+    col_b = 4 + 4 + 8
+
+    def batch_of(b, ts, kind, slot, valid=None):
+        return EventBatch(
+            ts=torch.from_numpy(np.asarray(ts, np.int64)).to(dev),
+            kind=torch.from_numpy(np.asarray(kind, np.int8)).to(dev),
+            valid=torch.from_numpy(np.ones(b, bool) if valid is None else valid).to(dev),
+            cols={"symbol": torch.from_numpy(rng.integers(1, 9, b).astype(np.int32)).to(dev),
+                  "price": torch.from_numpy(rng.uniform(0, 100, b).astype(np.float32)).to(dev),
+                  "volume": torch.from_numpy(rng.integers(1, 1000, b)).to(dev)}), \
+            torch.from_numpy(np.asarray(slot, np.int32)).to(dev)
+
+    # ---- K31 ----------------------------------------------------------
+    def rings(p, w):
+        z = lambda dt: torch.zeros((p, w), dtype=dt, device=dev)  # noqa: E731
+        return {"cols": {n: z(dt) for n, dt in cols_of.items()}, "ts": z(torch.int64),
+                "wts": z(torch.int64), "seq": torch.full((p, w), -1, dtype=torch.int64,
+                                                          device=dev),
+                "total": torch.zeros(p, dtype=torch.int64, device=dev)}
+
+    def tw_lanes(r):
+        out, birth, death, st, nt, m = r
+        return [out.ts, out.kind, out.valid, out.cols, birth, death, st, nt, m.slot, m.first,
+                m.rowlist, m.slot_start, m.elem_slot]
+
+    def check31(state, batch, bwts, slot, w, t, p):
+        got = K.partition_time_window_step(state, batch, bwts, slot, w, t, p)
+        want = K.partition_time_window_step_ref(state, batch, bwts, slot, w, t, p)
+        torch.cuda.synchronize()
+        same_bits(torch, tw_lanes(got), tw_lanes(want))
+        res[k31]["checks"] += 1
+        return want
+
+    b, p, w, t = MAIN_BATCH, PT_CAP, 1024, 60_000
+    state = rings(p, w)
+    for i in range(2):
+        ts = i * b + np.arange(b)
+        batch, slot = batch_of(b, ts, np.zeros(b), rng.integers(0, PT_SYMBOLS, b))
+        want = check31(state, batch, batch.ts, slot, w, t, p)
+        state = want[3]
+    pte = dict(state=state, batch=batch, slot=slot)
+    tb, tslot = batch_of(1, [2 * b + t], [2], [p])
+    check31(state, tb, tb.ts, tslot, w, t, p)
+    print(f"K31 at PTE's shape (B={b}, P={p}, W={w}) and a TIMER step: exact", flush=True)
+    for bb, pp, ww, tt in ((1, 1, 1, 5), (33, 1, 4, 3), (33, 8, 4, 7), (513, 33, 16, 20),
+                           (513, 5, 1024, 50), (4097, 33, 8, 100)):
+        st = rings(pp, ww)
+        for i in range(4):
+            kind = np.where(rng.random(bb) < 0.1, 2, np.where(rng.random(bb) < 0.03, 1, 0))
+            ts = i * bb + np.arange(bb)
+            disorder = ts + rng.integers(-tt, tt + 1, bb)  # a disordered externalTime
+            slot = np.where(rng.random(bb) < 0.05, pp, rng.integers(0, pp, bb))
+            batch, sl = batch_of(bb, ts, kind, slot, valid=rng.random(bb) < 0.95)
+            for bw in (batch.ts, torch.from_numpy(disorder.astype(np.int64)).to(dev)):
+                want = check31(st, batch, bw, sl, ww, tt, pp)
+            st = want[3]
+    # ---- K32 ----------------------------------------------------------
+    def buffers(p, w):
+        z = lambda dt: torch.zeros((p, w), dtype=dt, device=dev)  # noqa: E731
+        return {"cur_cols": {n: z(dt) for n, dt in cols_of.items()}, "cur_ts": z(torch.int64),
+                "cur_n": torch.zeros(p, dtype=torch.int32, device=dev),
+                "prev_cols": {n: z(dt) for n, dt in cols_of.items()}, "prev_ts": z(torch.int64),
+                "prev_n": torch.zeros(p, dtype=torch.int32, device=dev),
+                "bucket_start": torch.full((p,), -1, dtype=torch.int64, device=dev),
+                "timeout_deadline": torch.full((p,), NO_TIMER, dtype=torch.int64, device=dev)}
+
+    def bw_lanes(r):
+        out, birth, death, st, nt, m = r
+        return [out.ts, out.kind, out.valid, out.cols, birth, death, st, nt, m.slot, m.first,
+                m.rowlist, m.slot_start, m.elem_slot]
+
+    def check32(state, batch, wts, now, slot, p, w, n, t, start, timeout, mode, emit):
+        args = (state, batch, wts, torch.tensor(now, device=dev), slot, p, w, n, t, start,
+                timeout, mode, emit)
+        got = K.partition_batch_window_step(*args)
+        want = K.partition_batch_window_step_ref(*args)
+        torch.cuda.synchronize()
+        lanes_g, lanes_w = bw_lanes(got), bw_lanes(want)
+        if not emit:
+            lanes_g, lanes_w = lanes_g[:4] + lanes_g[6:], lanes_w[:4] + lanes_w[6:]
+        same_bits(torch, lanes_g, lanes_w)
+        res[k32]["checks"] += 1
+        return want
+
+    # PTB: a 1-second timeBatch over three price bands, one bucket a call,
+    # then the TIMER row that closes it
+    pb_p, pb_w, pb_b = 32, 1024, 1000
+    st = buffers(pb_p, pb_w)
+    for i in range(3):
+        ts = 1000 * i + np.sort(rng.integers(0, 1000, pb_b))
+        batch, slot = batch_of(pb_b, ts, np.zeros(pb_b), rng.integers(0, 3, pb_b))
+        st = check32(st, batch, batch.ts, 1000 * i, slot, pb_p, pb_w, None, 1000, None, None,
+                     1, False)[3]
+        tb, tslot = batch_of(1, [1000 * (i + 1)], [2], [pb_p])
+        st = check32(st, tb, tb.ts, 1000 * (i + 1), tslot, pb_p, pb_w, None, 1000, None, None,
+                     1, False)[3]
+    ptb = dict(state=st, batch=batch, slot=slot)
+    # a value-partitioned lengthBatch(64), P=1024, with and without EXPIRED lanes
+    for emit in (False, True):
+        st = buffers(PT_CAP, 64)
+        for i in range(2):
+            batch, slot = batch_of(b, i * b + np.arange(b), np.zeros(b),
+                                   rng.integers(0, PT_SYMBOLS, b))
+            want = check32(st, batch, batch.ts, 0, slot, PT_CAP, 64, 64, None, None, None, 0,
+                           emit)
+            st = want[3]
+        if not emit:
+            lb = dict(state=st, batch=batch, slot=slot)
+    print(f"K32 at PTB's shape (P={pb_p}, w={pb_w}, {pb_b} rows a bucket) and lengthBatch(64) "
+          f"(B={b}, P={PT_CAP}): exact", flush=True)
+    # externalTimeBatch with an idle timeout: a TIMER at rank 0, after a
+    # CURRENT row of the same slot and of another slot
+    st = buffers(4, 8)
+    batch, slot = batch_of(6, [0, 1, 2, 3, 4, 5], [0] * 6, [0, 1, 0, 1, 2, 0])
+    st = check32(st, batch, batch.ts, 10, slot, 4, 8, None, 100, None, 50, 2, True)[3]
+    for kinds, slots, now in (([2, 0, 2], [4, 0, 4], 100), ([0, 2, 2], [1, 4, 4], 200),
+                              ([2, 2], [4, 4], 400)):
+        batch, slot = batch_of(len(kinds), [now] * len(kinds), kinds, slots)
+        st = check32(st, batch, batch.ts, now, slot, 4, 8, None, 100, None, 50, 2, True)[3]
+    for bb, pp, ww, n, tt, start, mode in ((33, 8, 4, 4, None, None, 0),
+                                           (513, 33, 16, 16, None, None, 0),
+                                           (33, 5, 8, None, 10, None, 1),
+                                           (513, 33, 64, None, 25, 7, 1),
+                                           (200, 3, 4, None, 30, None, 0)):
+        for emit in (False, True):
+            st = buffers(pp, ww)
+            for i in range(4):
+                kind = np.where(rng.random(bb) < 0.1, 2, np.where(rng.random(bb) < 0.03, 1, 0))
+                ts = i * bb + np.arange(bb)
+                slot = np.where(rng.random(bb) < 0.05, pp, rng.integers(0, pp, bb))
+                batch, sl = batch_of(bb, ts, kind, slot, valid=rng.random(bb) < 0.95)
+                st = check32(st, batch, batch.ts, int(ts[-1]), sl, pp, ww, n, tt, start, None,
+                             mode, emit)[3]
+    print(f"K32: {res[k32]['checks']} checks bit for bit", flush=True)
+
+    # ---- K33 ----------------------------------------------------------
+    def check33(tab, keys, active, reset, pslot, p):
+        got = G.partition_assign_slots(tab["keys"], tab["used"], tab["n"], keys, active, reset,
+                                       pslot, p)
+        want = G.partition_assign_slots_ref(tab["keys"], tab["used"], tab["n"], keys, active,
+                                            reset, pslot, p)
+        torch.cuda.synchronize()
+        same_bits(torch, list(got), list(want))
+        res[k33]["checks"] += 1
+        return {"keys": want[0], "used": want[1], "n": want[2]}
+
+    def table(p, g):
+        return {"keys": torch.zeros((p, g), dtype=torch.int64, device=dev),
+                "used": torch.zeros((p, g), dtype=torch.bool, device=dev),
+                "n": torch.zeros(p, dtype=torch.int32, device=dev)}
+
+    def assign_inputs(rows, p, n_keys, reset_p):
+        keys = torch.from_numpy(rng.integers(0, n_keys, rows)).to(dev)
+        kind = rng.random(rows)
+        reset = torch.from_numpy(kind < reset_p).to(dev)
+        active = torch.from_numpy((kind >= reset_p) & (kind < 0.95)).to(dev)
+        pslot = torch.from_numpy(np.where(rng.random(rows) < 0.03, p, rng.integers(0, p, rows))
+                                 .astype(np.int32)).to(dev)
+        return keys, active, reset, pslot
+
+    # PTB's group table: 3 bands of 1,024 groups, 1,000 symbols, the
+    # RESET rows of a flush in each band
+    tab = table(pb_p, 1024)
+    for i in range(3):
+        keys, active, reset, pslot = assign_inputs(1100, 3, PT_SYMBOLS, 0.003)
+        tab = check33(tab, keys, active, reset, pslot, pb_p)
+    ptb_assign = dict(tab=tab, args=(keys, active, reset, pslot))
+    for rows, p_, g, n_keys, rp in ((1, 1, 1, 3, 0.0), (33, 4, 3, 10, 0.1), (513, 33, 8, 12, 0.02),
+                                    (4097, 8, 64, 100, 0.01), (600, 9000, 2, 3, 0.05)):
+        tab = table(p_, g)
+        for i in range(4):
+            tab = check33(tab, *assign_inputs(rows, p_, n_keys, rp), p_)
+    # one partition overflowing: 40 keys into partition 0's G=16, partition 1 fits
+    tab = table(2, 16)
+    keys = torch.from_numpy(np.concatenate([np.arange(40), np.arange(8)])).to(dev)
+    pslot = torch.from_numpy(np.array([0] * 40 + [1] * 8, np.int32)).to(dev)
+    ones = torch.ones(48, dtype=torch.bool, device=dev)
+    check33(tab, keys, ones, ~ones, pslot, 2)
+    print(f"K33: {res[k33]['checks']} checks bit for bit", flush=True)
+
+    # ---- times ----------------------------------------------------------
+    state, batch, slot = pte["state"], pte["batch"], pte["slot"]
+    r = res[k31]
+    f31 = lambda: K.partition_time_window_step(state, batch, batch.ts, slot, w, t, p)  # noqa: E731
+    r["ms"] = time_ms(torch, f31, 10)
+    r["plain_ms"] = time_once(torch, lambda: K.partition_time_window_step_ref(
+        state, batch, batch.ts, slot, w, t, p))
+    out = f31()[0]
+    rows = out.capacity
+    lane_b = 8 + 1 + 1 + 4 + 4 + 4 + col_b
+    r["bound_ms"] = (b * (8 + 1 + 1 + 4 + 8 + col_b) + 2 * p * w * (24 + col_b) + 16 * p
+                     + rows * lane_b + (p * w + b) * 16) / MEM_BYTES_PER_S * 1e3
+    r["bound_by"], r["library_ms"], r["rows"] = "bytes", None, rows
+    r = res[k32]
+    st, batch, slot = ptb["state"], ptb["batch"], ptb["slot"]
+    now = torch.tensor(3000, device=dev)
+    f32 = lambda: K.partition_batch_window_step(  # noqa: E731
+        st, batch, batch.ts, now, slot, pb_p, pb_w, None, 1000, None, None, 1, False)
+    r["ms"] = time_ms(torch, f32, 20)
+    r["plain_ms"] = time_once(torch, lambda: K.partition_batch_window_step_ref(
+        st, batch, batch.ts, now, slot, pb_p, pb_w, None, 1000, None, None, 1, False))
+    rows = f32()[0].capacity
+    r["bound_ms"] = (pb_b * (8 + 1 + 1 + 4 + 8 + col_b) + 4 * pb_p * pb_w * (8 + col_b)
+                     + 40 * pb_p + rows * lane_b) / MEM_BYTES_PER_S * 1e3
+    r["bound_by"], r["library_ms"], r["rows"] = "bytes", None, rows
+    st, batch, slot = lb["state"], lb["batch"], lb["slot"]
+    r["lengthbatch64_ms"] = time_ms(torch, lambda: K.partition_batch_window_step(
+        st, batch, batch.ts, now, slot, PT_CAP, 64, 64, None, None, None, 0, False), 10)
+    r = res[k33]
+    tab, args = ptb_assign["tab"], ptb_assign["args"]
+    f33 = lambda: G.partition_assign_slots(tab["keys"], tab["used"], tab["n"], *args, pb_p)  # noqa: E731
+    r["ms"] = time_ms(torch, f33, 20)
+    r["plain_ms"] = time_once(torch, lambda: G.partition_assign_slots_ref(
+        tab["keys"], tab["used"], tab["n"], *args, pb_p))
+    nrows = args[0].shape[0]
+    r["bound_ms"] = (nrows * (8 + 1 + 1 + 4 + 4 + 4) + 2 * pb_p * 1024 * 9 + 8 * pb_p) \
+        / MEM_BYTES_PER_S * 1e3
+    r["bound_by"] = "bytes"
+    # the library yardstick: one torch.unique of the (partition, key) pairs
+    pair = args[3].to(torch.int64) * (1 << 40) + args[0]
+    r["library_ms"] = time_ms(torch, lambda: torch.unique(pair, return_inverse=True), 20)
+    for name in PTW_KERNELS:
+        r = res[name]
+        lib = "None" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={lib} "
+              f"checks={r['checks']} exact", flush=True)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 3: verify cases against VERIFY.json
 # ---------------------------------------------------------------------------
@@ -3008,7 +3316,7 @@ def grouped_path_phase(torch) -> dict:
 
     for q in ("@store(type='memory') define table T (symbol string); "
               "from S select symbol insert into T",
-              "partition with (symbol of S) begin from S#window.lengthBatch(4) select symbol "
+              "partition with (symbol of S) begin from S#window.sort(4, price) select symbol "
               "insert into Out; end",
               "define window W (symbol string) length(4); from S select symbol insert into W",
               "define trigger T at every 5 sec; from S select symbol insert into Out"):
@@ -3687,7 +3995,8 @@ PT_KERNELS = {"partition_length_window_step": 1, "partition_window_extreme": 1,
               "assign_slots": 1, "keyed_running_sum": 3}
 
 
-def call_breakdown(torch, app: str, data: dict, b: int, symbols) -> dict:
+def call_breakdown(torch, app: str, data: dict, b: int, symbols,
+                   cols=("symbol", "price", "volume")) -> dict:
     """Where one call of 8 batches goes (after a warm-up call of 2):
     device time by kernel from torch.profiler, then host time by function
     from cProfile over another call of 8."""
@@ -3707,8 +4016,7 @@ def call_breakdown(torch, app: str, data: dict, b: int, symbols) -> dict:
     h = rt.get_input_handler("StockStream")
 
     def send(lo, hi):
-        h.send_columns(data["ts"][lo:hi], {k: data[k][lo:hi] for k in
-                                           ("symbol", "price", "volume")}, now=0)
+        h.send_columns(data["ts"][lo:hi], {k: data[k][lo:hi] for k in cols}, now=0)
         torch.cuda.synchronize()
 
     send(0, 2 * b)
@@ -3809,6 +4117,198 @@ def partition_path_phase(torch) -> dict:
     print(f"path PT at partitionCapacity {PT_CAP // 2}: {len(seen)} keys in {n} events, "
           f"{len(ov_cuda[0])} rows match device='cpu', overflow logged once, keys past "
           "capacity deliver nothing", flush=True)
+    return out
+
+
+PTE_KERNELS = {"assign_slots": 1, "partition_time_window_step": 1,
+               "partition_window_extreme": 1, "keyed_running_sum": 3}
+PTB_KERNELS = {"assign_slots": 1, "partition_batch_window_step": 1,
+               "partition_assign_slots": 1, "keyed_running_sum": 4, "keep_last": 1}
+PTB_CAP, PTT_EVENTS, PTT_FIRST, PTT_CALL = 32, 8192, 1280, 2048
+PTW_COLS = ("symbol", "price", "volume", "ets")
+
+
+def ptw_data(n: int) -> tuple:
+    """Seed-7 stock rows of 1 ms ticks, `ets` the tick, symbols 1,000 names
+    drawn uniformly."""
+    names = [f"SYM{i:04d}" for i in range(PT_SYMBOLS)]
+    data = stock_data(n, seed=7)
+    data["symbol"] = np.random.default_rng(7).integers(1, PT_SYMBOLS + 1, size=n).astype(np.int32)
+    data["ets"] = data["ts"].copy()
+    return data, names
+
+
+def calls_busy(torch, app: str, data: dict, size: int, warm: int, calls: int, cols,
+               symbols) -> tuple:
+    """Device busy share of `calls` send_columns calls of `size` events
+    (their TIMER steps included) after `warm` such calls, from
+    torch.profiler: (wall ms, device busy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    mgr = SiddhiManager()
+    rt = mgr.create_siddhi_app_runtime(app)
+    for s in symbols:
+        mgr.interner.intern(s)
+    rt.add_callback("q", lambda t, ins, rem: None)
+    rt.start()
+    h = rt.get_input_handler("StockStream")
+
+    def send(c):
+        lo, hi = c * size, (c + 1) * size
+        h.send_columns(data["ts"][lo:hi], {k: data[k][lo:hi] for k in cols}, now=0)
+
+    for c in range(warm):
+        send(c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for c in range(warm, warm + calls):
+            send(c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = 0.0
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        busy_us += e.self_cuda_time_total if dev_us is None else dev_us
+    rt.shutdown()
+    mgr.shutdown()
+    return wall * 1e3, busy_us / 1e3
+
+
+def held_launches(label: str, launches: dict, wanted: dict, steps: int) -> None:
+    for k, uses in wanted.items():
+        if launches.get(k, 0) != uses * steps:
+            raise AssertionError(f"path {label}: kernel {k} launched {launches.get(k, 0)} times, "
+                                 f"expected {uses} x {steps} steps")
+
+
+def partition_windows_path_phase(torch) -> dict:
+    """The time and batch windows inside a partition at full width.
+
+    PTE (PTW_APPS): `partition with (symbol of StockStream)`, externalTime(
+    ets, 60 sec) with avg, max and count per symbol, @app:batch 32768,
+    @app:partitionCapacity 1024, 1,000,000 events of seed 7 (1 ms ticks, ets
+    = ts, 1,000 symbols drawn uniformly) through send_columns in calls of 8
+    batches (the first of 2), per batch; launches of this run alone, each
+    held to its uses a step times the steps; events/s, the device busy
+    share of one more call of 8 batches and where a call's time goes
+    (`call_breakdown`); the first 2 batches against device="cpu".
+
+    PTB: three price bands as a range partition, timeBatch(1 sec) group by
+    symbol with avg, sum and count, @app:groupCapacity 1024, @app:playback,
+    16 batches' worth of the same traffic sent one 1-second bucket (1,000
+    events) a call, each call's TIMER step (every band's bucket end)
+    closing the previous bucket; launches held per step (data and TIMER);
+    no group overflow; the closed buckets count every event sent before the
+    open one; the device busy share of 8 more calls; the first 8,192 events
+    against device="cpu".
+
+    PTT: PTE on time(1 sec) under @app:playback, 8,192 events in calls of
+    2,048 (the first of 1,280): each call fires one TIMER step per distinct
+    expiry time, and each reaches every partition; K31 launches = data
+    steps + TIMER steps; the first call against device="cpu"; the device
+    busy share of a second call."""
+    from siddhi_tpu_torch import kernels
+
+    out = {}
+    b = MAIN_BATCH
+    data, names = ptw_data(PT_EVENTS)
+    # ---- PTE
+    app = partition_window_app("PTE", b, PT_CAP)
+    first_n, stride = 2 * b, 8 * b
+    run_app("cuda", app, data, 2 * b, b, b, fused=False, symbols=names, cols=PTW_COLS)
+    kernels.launches.clear()
+    n_rows, kept, dt, _i = run_app("cuda", app, data, PT_EVENTS, stride, first_n, fused=False,
+                                   symbols=names, cols=PTW_COLS)
+    launches = dict(kernels.launches)
+    steps = sum(-(-c // b) for c in call_sizes(PT_EVENTS, first_n, stride))
+    print(f"path PTE launches {json.dumps(launches)} over {steps} steps", flush=True)
+    held_launches("PTE", launches, PTE_KERNELS, steps)
+    t0 = time.perf_counter()
+    _n, cpu_first, _dt, _i = run_app("cpu", app, data, first_n, first_n, first_n, fused=False,
+                                     symbols=names, cols=PTW_COLS)
+    cpu_s = time.perf_counter() - t0
+    check_path("PTE", launches, PTE_KERNELS, kept, cpu_first, 1)
+    wall_ms, busy_ms = fused_busy(torch, app, data, b, cols=PTW_COLS, symbols=names)
+    out["PTE"] = {"events": PT_EVENTS, "rows": n_rows, "seconds": dt,
+                  "events_per_s": PT_EVENTS / dt, "steps": steps, "launches": launches,
+                  "busy_call_wall_ms": wall_ms, "busy_call_busy_ms": busy_ms,
+                  "busy_share": busy_ms / wall_ms, "cpu_check_s": cpu_s,
+                  "breakdown": call_breakdown(torch, app, data, b, names, cols=PTW_COLS)}
+    print(f"path PTE partitioned externalTime(60 sec): {PT_EVENTS} events per batch, {n_rows} "
+          f"rows delivered, {dt:.3f} s, {PT_EVENTS / dt:.1f} events/s; one call of 8 batches: "
+          f"wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.4f}); "
+          f"first 2 batches match device='cpu' ({cpu_s:.1f} s on the host)", flush=True)
+
+    # ---- PTB
+    bucket = 1000
+    n = TB_BATCHES * b
+    app = partition_window_app("PTB", b, PTB_CAP)
+    run_app("cuda", app, data, 4 * bucket, bucket, bucket, fused=False, symbols=names,
+            cols=PTW_COLS)
+    fires = [0]
+    calls = -(-n // bucket)
+    kernels.launches.clear()
+    (n_rows, kept, dt, _i), warned = capture_warnings(
+        lambda: run_app("cuda", app, data, n, bucket, bucket, fused=False, fires=fires,
+                        keep_calls=calls, symbols=names, cols=PTW_COLS), "groupCapacity")
+    launches = dict(kernels.launches)
+    print(f"path PTB launches {json.dumps(launches)} over {calls} data and {fires[0]} TIMER "
+          "steps", flush=True)
+    if warned:
+        raise AssertionError("path PTB: the group-by slot table overflowed")
+    held_launches("PTB", launches, PTB_KERNELS, calls + fires[0])
+    rows = [r for c in kept for r in c]
+    counted = sum(r[-1] for r in rows)
+    if counted != n - (n % bucket or bucket):
+        raise AssertionError(f"path PTB: the closed buckets count {counted} events")
+    cpu = cpu_check("path PTB", partition_window_app("PTB", TB_CHECK_BATCH, PTB_CAP), data,
+                    bucket, PTW_COLS, symbols=names)
+    wall_ms, busy_ms = calls_busy(torch, app, data, bucket, 2, 8, PTW_COLS, names)
+    out["PTB"] = {"events": n, "rows": n_rows, "seconds": dt, "events_per_s": n / dt,
+                  "data_steps": calls, "timer_steps": fires[0], "events_counted": counted,
+                  "launches": launches, "cpu_check": cpu, "busy_8_calls_wall_ms": wall_ms,
+                  "busy_8_calls_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms}
+    print(f"path PTB banded timeBatch group by: {n} events in {calls} calls (one bucket each) "
+          f"and {fires[0]} one-row TIMER steps, {n_rows} rows delivered, closed buckets count "
+          f"{counted} events, {dt:.3f} s, {n / dt:.1f} events/s; no overflow; 8 calls: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.4f})",
+          flush=True)
+
+    # ---- PTT
+    app = partition_window_app("PTT", b, PT_CAP)
+    run_app("cuda", app, data, PTT_FIRST, PTT_CALL, PTT_FIRST, fused=False, symbols=names,
+            cols=PTW_COLS)
+    fires = [0]
+    calls = len(call_sizes(PTT_EVENTS, PTT_FIRST, PTT_CALL))
+    kernels.launches.clear()
+    n_rows, kept, dt, _i = run_app("cuda", app, data, PTT_EVENTS, PTT_CALL, PTT_FIRST,
+                                   fused=False, fires=fires, symbols=names, cols=PTW_COLS)
+    launches = dict(kernels.launches)
+    print(f"path PTT launches {json.dumps(launches)} over {calls} data and {fires[0]} TIMER "
+          "steps", flush=True)
+    if fires[0] <= 0 or launches.get("partition_time_window_step", 0) != calls + fires[0]:
+        raise AssertionError(f"path PTT: {fires[0]} TIMER steps, "
+                             f"{launches.get('partition_time_window_step', 0)} K31 launches "
+                             f"for {calls} data steps")
+    held_launches("PTT", launches, PTE_KERNELS, calls + fires[0])
+    t0 = time.perf_counter()
+    _n, cpu_first, _dt, _i = run_app("cpu", app, data, PTT_FIRST, PTT_FIRST, PTT_FIRST,
+                                     fused=False, symbols=names, cols=PTW_COLS)
+    cpu_s = time.perf_counter() - t0
+    check_path("PTT", launches, PTE_KERNELS, kept, cpu_first, 1)
+    wall_ms, busy_ms = calls_busy(torch, app, data, PTT_FIRST, 1, 1, PTW_COLS, names)
+    out["PTT"] = {"events": PTT_EVENTS, "rows": n_rows, "seconds": dt,
+                  "events_per_s": PTT_EVENTS / dt, "data_steps": calls, "timer_steps": fires[0],
+                  "launches": launches, "cpu_check_s": cpu_s, "busy_call_wall_ms": wall_ms,
+                  "busy_call_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms}
+    print(f"path PTT partitioned time(1 sec), playback: {PTT_EVENTS} events in {calls} calls and "
+          f"{fires[0]} TIMER steps over every partition, {n_rows} rows delivered, {dt:.3f} s, "
+          f"{PTT_EVENTS / dt:.1f} events/s; the first call matches device='cpu' "
+          f"({cpu_s:.1f} s on the host); its second call: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.4f})", flush=True)
     return out
 
 
@@ -4341,7 +4841,13 @@ def main() -> int:
 
     if "--partition" in sys.argv[1:]:
         partition_kernel_phase(torch, "cuda")
+        partition_windows_kernel_phase(torch, "cuda")
         partition_path_phase(torch)
+        partition_windows_path_phase(torch)
+        return 0
+    if "--partition-kernels" in sys.argv[1:]:
+        partition_kernel_phase(torch, "cuda")
+        partition_windows_kernel_phase(torch, "cuda")
         return 0
     res = kernel_phase(torch, "cuda")
     res.update(fused_kernel_phase(torch, "cuda"))
@@ -4353,6 +4859,7 @@ def main() -> int:
     res.update(table_kernel_phase(torch, "cuda"))
     res.update(special_window_kernel_phase(torch, "cuda"))
     res.update(partition_kernel_phase(torch, "cuda"))
+    res.update(partition_windows_kernel_phase(torch, "cuda"))
     if "--kernels" in sys.argv[1:]:
         return 0
     verify_phase("cuda")
@@ -4376,6 +4883,7 @@ def main() -> int:
     special["CR"] = cron_path_phase(torch)
     special["FN"] = fn_path_phase(torch)
     partitioned = partition_path_phase(torch)
+    partition_windows = partition_windows_path_phase(torch)
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -4440,7 +4948,13 @@ def main() -> int:
            "partition_length_window_step": ("siddhi_tpu_torch/csrc/partition_window.cu",
                                             "siddhi_tpu/core/partition.py:105"),
            "partition_window_extreme": ("siddhi_tpu_torch/csrc/partition_window.cu",
-                                        "siddhi_tpu/core/aggregators.py:191")}
+                                        "siddhi_tpu/core/aggregators.py:191"),
+           "partition_time_window_step": ("siddhi_tpu_torch/csrc/partition_time.cu",
+                                          "siddhi_tpu/core/windows.py:190"),
+           "partition_batch_window_step": ("siddhi_tpu_torch/csrc/partition_batch.cu",
+                                           "siddhi_tpu/core/windows.py:553"),
+           "partition_assign_slots": ("siddhi_tpu_torch/csrc/group_assign.cu",
+                                      "siddhi_tpu/ops/group.py:85")}
     # launches: K1-K5 from the quickstart path's run, K6-K9 from the
     # tumbling_groupby path's run, K10 from path T's run, K11 and K12 from
     # path J's, K13 and K15 from path P's, K14 from path C's, K16 from path
@@ -4467,6 +4981,10 @@ def main() -> int:
     # K29 and K30 from path PT
     path_of["partition_length_window_step"] = partitioned["launches"]
     path_of["partition_window_extreme"] = partitioned["launches"]
+    # K31 from path PTE, K32 and K33 from path PTB
+    path_of["partition_time_window_step"] = partition_windows["PTE"]["launches"]
+    path_of["partition_batch_window_step"] = partition_windows["PTB"]["launches"]
+    path_of["partition_assign_slots"] = partition_windows["PTB"]["launches"]
     path_launches = {k: path_of.get(k, main["launches"]).get(k, 0) for k in res}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
@@ -4501,6 +5019,10 @@ def main() -> int:
                        "window_extreme_keyed_pairs": res["window_extreme_keyed"]["pairs"],
                        "running_extreme_library": res["running_extreme"]["library"]},
                    "tables": tables, "special_paths": special, "partition_path": partitioned,
+                   "partition_window_paths": partition_windows,
+                   "partition_window_kernel_shapes": {
+                       "partition_batch_window_step_lengthbatch64_ms":
+                           res["partition_batch_window_step"]["lengthbatch64_ms"]},
                    "table_kernel_shapes": {
                        "table_write_scan_ms": res["table_write"]["scan_ms"],
                        "table_match_in_ms": res["table_match"]["in_ms"],

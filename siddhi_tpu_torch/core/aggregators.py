@@ -11,9 +11,14 @@ remove, restricted to the row's group under a group-by. Without a window (or
 for the forever forms) min/max are running extremes.
 
 Inside a partition the group context is the partition (core/groupby.py
-`partition_ctx`): slot = partition slot, carries [P], no resets; windowed
-min/max there reduce over the row's partition's window elements only
-(ops/partition.py `partition_window_extreme`, K30).
+`partition_ctx`): slot = partition slot, carries [P]; under a group-by it is
+(partition, group), carries [P*G] (`assign_partitioned`, K33). Each
+partition's RESET rows end only its own carries: the carried reductions then
+run K8/K19 over a doubled carry, each row reading its old carry, the fresh
+half, or none (`GroupCtx.carry_slot`). Windowed min/max there reduce over the
+row's partition's window elements only (ops/partition.py
+`partition_window_extreme`, K30), keyed by (partition, group) under a
+group-by (K3's key lane), as distinctCount does (K20's).
 
 `window_extreme` (csrc/window_extreme.cu, with a key lane when grouped) and
 `distinct_count` (csrc/distinct_count.cu) are hand-written CUDA kernels on
@@ -91,9 +96,24 @@ class CompiledAggregator:
         """(run, carry): keyed over the group's segments, else flat."""
         if flow.group is not None:
             g = flow.group
+            if g.carry_slot is not None:
+                return _per_partition(state, torch.zeros_like(state), g, lambda r, c, sl: (
+                    keyed_running_sum(contrib.contiguous(), g.groups, r, c, sl)))
             return keyed_running_sum(contrib.contiguous(), g.groups, flow.reset, state, g.slot)
         return running_sum(contrib, flow.reset, state)
 
+
+def _per_partition(state, fresh, g: GroupCtx, call):
+    """A keyed carried reduction whose RESET rows end only their own
+    partition's carries: `call(no_reset, carries, slot)` (K8 or K19 with no
+    RESET rows) over the carries laid end to end with `fresh` ones ([2S]),
+    each row at its `carry_slot`; a slot whose partition held a RESET row
+    takes the fresh half's new carry."""
+    flat = state.reshape(-1)
+    s = flat.shape[0]
+    no_reset = torch.zeros(g.carry_slot.shape[0], dtype=torch.bool, device=flat.device)
+    run, carry = call(no_reset, torch.cat([flat, fresh.reshape(-1)]), g.carry_slot)
+    return run, torch.where(g.had_reset, carry[s:], carry[:s]).view(state.shape)
 
 class SumAggregator(CompiledAggregator):
     """sum(): LONG for int/long input, DOUBLE for float/double
@@ -321,9 +341,21 @@ class ExtremeAggregator(CompiledAggregator):
                                          self.is_min, self.type, *keys)
         reset = torch.zeros_like(flow.reset) if self.forever else flow.reset
         x = self.arg(env).to(self.dtype).expand(flow.active.shape).contiguous()
-        if flow.group is not None:
-            g = flow.group
-            run, carry = keyed_running_extreme(x, flow.active, g.groups, reset, state, g.slot,
+        g = flow.group
+        if g is not None and g.carry_slot is not None:
+            if self.forever:  # every row reads its slot's carry
+                groups = g.forever_groups or g.groups
+                run, carry = keyed_running_extreme(x, flow.active, groups, reset,
+                                                   state.reshape(-1), g.slot, self.is_min)
+                carry = carry.view(state.shape)
+            else:
+                ident = extreme_identity(self.dtype, self.is_min).to(x.device)
+                run, carry = _per_partition(
+                    state, ident.expand(state.shape), g, lambda r, c, sl: keyed_running_extreme(
+                        x, flow.active, g.groups, r, c, sl, self.is_min))
+        elif g is not None:
+            groups = g.forever_groups if self.forever and g.forever_groups else g.groups
+            run, carry = keyed_running_extreme(x, flow.active, groups, reset, state, g.slot,
                                                self.is_min)
         else:
             run, carry = running_extreme(x, flow.active, reset, state, self.is_min)

@@ -28,7 +28,9 @@ queries that need the scheduler stay off; in-memory tables (core/table.py,
 delete and update-or-insert outputs, read by `in` conditions and table join
 sides, and store queries (`query`, core/store_query.py); partitions
 (core/partition.py, `@app:partitionCapacity`) of single-stream queries with
-no window or a length window, per batch. Everything else raises
+no window or any window of core/windows.py, group-by, order-by, limit and
+rate limiting, per batch, their timers reaching every partition. Everything
+else raises
 `SiddhiAppCreationError("... not ported yet")`.
 """
 

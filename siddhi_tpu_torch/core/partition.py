@@ -20,11 +20,17 @@ queries. The work is O(B + P*W) a step, not the vmap's O(P*B).
 Ported: value and range partitions over one or more streams sharing one key
 table (`@app:partitionCapacity`, default 32; rows of keys past capacity are
 dropped and logged once), and inside them single-stream queries with
-filters, projection, having, no window or a length window, every
-aggregator, output to a stream, a callback, an `#inner` stream or a table.
-Joins, patterns, other windows, stream functions, group-by, order-by,
-limit/offset and rate limiting inside a partition raise "not ported yet".
-Partitioned streams run per batch (no fused endpoint).
+filters, stream functions, projection, no window or a length, time,
+timeLength, externalTime, lengthBatch, timeBatch or externalTimeBatch
+window (K29, K31, K32), every aggregator, group-by (one table a partition,
+K33), having, order-by and limit/offset within each partition, output rate
+limiting over the flattened rows, output to a stream, a callback, an
+`#inner` stream or a table (`insert into` only, as the JAX package, which
+compiles an inner query with no table in scope). TIMER rows reach every
+partition; a time-driven window's next timer is the earliest of all its
+partitions'. Joins, patterns, the sort, frequent, lossyFrequent and cron
+windows and `in <table>` conditions inside a partition raise "not ported
+yet". Partitioned streams run per batch (no fused endpoint).
 """
 
 from __future__ import annotations
@@ -34,16 +40,17 @@ from typing import Callable, Optional
 
 import torch
 
-from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
+from siddhi_tpu_torch.core.errors import DefinitionNotExistError, SiddhiAppCreationError
 from siddhi_tpu_torch.core.event import EventBatch, KIND_CURRENT, KIND_TIMER, StreamSchema
 from siddhi_tpu_torch.core.executor import Env, Scope, TS_ATTR, compile_expression
 from siddhi_tpu_torch.core.flow import Flow
 from siddhi_tpu_torch.core.groupby import GroupCtx, _as_key_col, partition_ctx
 from siddhi_tpu_torch.core.query_runtime import QueryRuntime
 from siddhi_tpu_torch.core.types import AttrType
-from siddhi_tpu_torch.core.windows import SlidingWindow
+from siddhi_tpu_torch.core.windows import BatchWindow, SlidingWindow
 from siddhi_tpu_torch.ops.group import assign_slots
 from siddhi_tpu_torch.query_api.execution import (
+    DeleteStream,
     InsertIntoStream,
     JoinInputStream,
     Partition,
@@ -51,6 +58,8 @@ from siddhi_tpu_torch.query_api.execution import (
     RangePartitionType,
     SingleInputStream,
     StateInputStream,
+    UpdateOrInsertStream,
+    UpdateStream,
     ValuePartitionType,
 )
 
@@ -73,8 +82,8 @@ def _tile(tree, p: int):
 def _reduce_paux(aux: dict, povf: Optional[torch.Tensor] = None) -> dict:
     """Fold the key table's overflow into a step's aux flags. The JAX
     package also min-reduces timers and ORs flags across its [P] vmapped
-    lanes; the keyed step's flags are already one value for all
-    partitions."""
+    lanes (`_reduce_paux`); the keyed steps' flags and next timer are
+    already one value for all partitions."""
     if povf is not None:
         prev = aux.get("partition_overflow")
         aux["partition_overflow"] = povf if prev is None else prev | povf
@@ -89,20 +98,19 @@ class PartitionedQueryRuntime(QueryRuntime):
     arrive with their slot lane."""
 
     def __init__(self, query: Query, query_id: str, in_schema: StreamSchema, interner,
-                 device, p_capacity: int, key_of: Optional[Callable], tables: dict):
-        # under the JAX package's vmap these run per partition per batch
-        sel = query.selector
-        for what, present in (("group by", sel.group_by), ("order by", sel.order_by),
-                              ("limit/offset", sel.limit is not None or sel.offset is not None),
-                              ("output rate limiting", query.output_rate is not None)):
-            if present:
-                raise _not_ported(what)
-        super().__init__(query, query_id, in_schema, interner, device, tables=tables)
+                 device, p_capacity: int, key_of: Optional[Callable], tables: dict,
+                 group_capacity: Optional[int] = None):
+        out = query.output_stream
+        if isinstance(out, (UpdateStream, DeleteStream, UpdateOrInsertStream)):
+            # the JAX package compiles an inner query's output with no table
+            # in scope (siddhi_tpu/core/partition.py passes tables={}), so
+            # only `insert into` reaches a table from a partition
+            raise DefinitionNotExistError(f"'{out.target}' is not a defined table")
+        super().__init__(query, query_id, in_schema, interner, device,
+                         group_capacity=group_capacity, tables=tables)
         for kind, stage in self.chain.stages:
-            if kind == "fn":
-                raise _not_ported("a stream function")
-            if kind == "window" and not (isinstance(stage, SlidingWindow) and stage.t is None):
-                raise _not_ported(f"window {type(stage).__name__} (only length)")
+            if kind == "window" and not isinstance(stage, (SlidingWindow, BatchWindow)):
+                raise _not_ported(f"window {type(stage).__name__}")
         self.p = int(p_capacity)
         self.key_of = key_of
         self.stream_id = in_schema.stream_id
@@ -117,6 +125,7 @@ class PartitionedQueryRuntime(QueryRuntime):
     def _pstep(self, state, batch: EventBatch, now: torch.Tensor, ctx: GroupCtx, aux: dict):
         flow = Flow(batch=batch, ref=self.ref, now=now, aux=aux, partition=ctx)
         chain_state, flow = self.chain.apply(state["chain"], flow)
+        # (the selector hands on the slot lane of its rows in flow.partition)
         sel_state, out = self.selector.apply(state["sel"], flow)
         self._apply_table_op(out, now, flow.aux)
         self._note_aux(flow.aux)
@@ -264,7 +273,8 @@ class PartitionRuntime:
                 raise SiddhiAppCreationError(
                     f"partition has no key for stream '{stream.stream_id}'")
         qr = PartitionedQueryRuntime(query, qid, in_schema, app.interner, app.device,
-                                     p_capacity=self.p, key_of=key_of, tables=app.tables)
+                                     p_capacity=self.p, key_of=key_of, tables=app.tables,
+                                     group_capacity=app.group_capacity)
         self.queries.append(qr)
         app.queries[qid] = qr
 
@@ -291,16 +301,40 @@ class PartitionRuntime:
             def recv_inner(batch, ctx, now, _qr=qr):
                 out_b, out_ctx = _qr.receive_inner(batch, ctx, now)
                 self._route(_qr, out_b, out_ctx, now)
+                app._schedule_at(_qr.next_timer, _qr.timer_targets.get("in"))
 
             self.inner_subscribers[stream.stream_id].append(recv_inner)
+            if qr.uses_scheduler:
+                # a TIMER row reaches every slot of the #inner input (the JAX
+                # package tiles it across the partition axis)
+                def fire_inner(t_ms: int, _qr=qr, _schema=in_schema) -> None:
+                    batch = app._timer_batch(_schema, t_ms)
+                    ctx = partition_ctx(torch.full((1,), self.p, dtype=torch.int32,
+                                                   device=app.device),
+                                        torch.zeros(1, dtype=torch.int32, device=app.device),
+                                        self.p, torch.zeros((), dtype=torch.bool,
+                                                            device=app.device))
+                    with app._process_lock:
+                        recv_inner(batch, ctx, t_ms)
+
+                qr.timer_targets["in"] = fire_inner
         else:
             def receive(batch: EventBatch, now: int, _qr=qr) -> None:
                 with app._process_lock:
                     self.ptable, out_b, out_ctx = _qr.receive_partitioned(self.ptable, batch, now)
                     self._route(_qr, out_b, out_ctx, now)
+                    next_timer = _qr.next_timer
+                app._schedule_at(next_timer, _qr.timer_targets.get("in"))
 
             # no fused endpoint: the stream runs per batch
             app._junction(stream.stream_id).subscribe(receive)
+            if qr.uses_scheduler:
+                # one TIMER row through the key routing: it takes part in
+                # every partition (siddhi_tpu/core/partition.py `fire`)
+                def fire(t_ms: int, _schema=in_schema) -> None:
+                    receive(app._timer_batch(_schema, t_ms), t_ms)
+
+                qr.timer_targets["in"] = fire
 
     def _route(self, qr: PartitionedQueryRuntime, out: EventBatch, ctx: GroupCtx,
                now: int) -> None:

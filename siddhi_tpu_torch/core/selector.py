@@ -9,7 +9,10 @@ inside selection expressions are lifted out, computed as running columns, and
 re-injected as synthetic attributes of a pseudo-stream "__agg__". After a
 batch window, the output collapses to one row per flush (and key): the
 keep-last kernel (ops/group.py, csrc/keep_last.cu). Inside a partition the
-flow's partition context keys the aggregators (one carry a partition).
+flow's partition context keys the aggregators (one carry a partition, or one
+a (partition, group) with a table a partition), and the collapse, the
+order-by and the limit run within each partition, as the JAX package's vmap
+runs the selector once per partition.
 """
 
 from __future__ import annotations
@@ -30,7 +33,16 @@ from siddhi_tpu_torch.core.executor import (
     is_aggregator,
 )
 from siddhi_tpu_torch.core.flow import Flow
-from siddhi_tpu_torch.core.groupby import DEFAULT_GROUP_CAPACITY, CompiledGroupBy
+from siddhi_tpu_torch.core.groupby import (
+    DEFAULT_GROUP_CAPACITY,
+    CompiledGroupBy,
+    first_of,
+    partition_ctx,
+    partition_era_ctx,
+    partition_eras,
+    rank_within,
+    slot_first,
+)
 from siddhi_tpu_torch.core.types import AttrType
 from siddhi_tpu_torch.ops.group import keep_last_in_sorted, keep_last_per_group
 from siddhi_tpu_torch.query_api.execution import OutputAttribute, OutputEventsFor, Selector
@@ -176,13 +188,20 @@ class CompiledSelector:
         reset = flow.reset
         group_state = state.get("group")
         ctx = None
+        pctx = flow.partition
         if self.group is not None:
-            group_state, ctx = self.group.assign(group_state, env, flow.sign != 0, reset)
+            if pctx is not None:  # one table a partition (K33)
+                group_state, ctx = self.group.assign_partitioned(group_state, env,
+                                                                 flow.sign != 0, reset, pctx)
+            else:
+                group_state, ctx = self.group.assign(group_state, env, flow.sign != 0, reset)
             # read off the dispatch path by the query runtime, which logs
             # slot-table exhaustion once
             flow.aux["groupby_overflow"] = ctx.overflow
-        elif flow.partition is not None:
-            ctx = flow.partition  # aggregators keyed by the partition slot
+        elif pctx is not None:
+            # aggregators keyed by the partition slot; a batch window's
+            # RESET rows end their own partition's carries
+            ctx = partition_era_ctx(pctx, reset) if self.batch_mode else pctx
         info = FlowInfo(
             sign=flow.sign,
             active=flow.current,
@@ -216,14 +235,21 @@ class CompiledSelector:
         # QuerySelector.processInBatchGroupBy checks having before
         # groupedEvents.put); ungrouped, only the last allowed-kind event of
         # each flush chunk (processInBatchNoGroupBy)
-        if self.batch_mode and ctx is not None:
+        if self.batch_mode and self.group is not None:
             valid = keep_last_in_sorted(ctx.groups, kind, valid)
         elif self.batch_mode and self.aggregators:
             # a flush chunk is [prev-bucket EXPIREDs, RESET, bucket
             # CURRENTs]: expireds precede their reset, so they shift one
             # segment forward to land with their flush's currents
-            seg = torch.cumsum(reset.to(torch.int32), 0, dtype=torch.int32) + (
-                kind == KIND_EXPIRED).to(torch.int32)
+            if pctx is None:
+                seg = torch.cumsum(reset.to(torch.int32), 0, dtype=torch.int32) + (
+                    kind == KIND_EXPIRED).to(torch.int32)
+            else:  # the same chunks within each partition
+                era = partition_eras(pctx.slot, reset, pctx.capacity)[0]
+                rows = kind.shape[0]
+                seg = first_of(pctx.slot.to(torch.int64) * (rows + 2) + era
+                               + (kind == KIND_EXPIRED).to(torch.int64),
+                               pctx.slot < pctx.capacity)
             want = self.output_events_for_batch
             if want is OutputEventsFor.EXPIRED:
                 allowed = valid & (kind == KIND_EXPIRED)
@@ -235,13 +261,59 @@ class CompiledSelector:
 
         if self.emit_group_key and ctx is not None:
             # (reference: GroupByKeyGenerator key threading into rate limiters)
-            out_cols["__group_key__"] = ctx.key.expand(shape).contiguous()
+            key = ctx.key if ctx.emit_key is None else ctx.emit_key
+            out_cols["__group_key__"] = key.expand(shape).contiguous()
         out = EventBatch(ts=flow.batch.ts, kind=kind, valid=valid, cols=out_cols)
-        out = self._order_limit(out, env3)
+        if pctx is None:
+            out = self._order_limit(out, env3)
+        else:
+            out, pslot = self._order_limit_partitioned(out, env3, pctx.slot, pctx.capacity)
+            if pslot is not pctx.slot:  # the rows moved: their slot lane with them
+                flow.partition = partition_ctx(pslot, slot_first(pslot, pctx.capacity),
+                                               pctx.capacity, pctx.overflow)
         new_state = {"aggs": new_aggs}
         if self.group is not None:
             new_state["group"] = group_state
         return new_state, out
+
+    def _order_keys(self, env: Env, shape) -> list:
+        keys = []
+        for cexpr, desc in self.order_by:
+            col = cexpr(env).expand(shape)
+            if desc:
+                col = -col.to(torch.float32) if col.dtype == torch.bool else -col
+            keys.append(col)
+        return keys
+
+    def _order_limit_partitioned(self, out: EventBatch, env: Env, pslot: torch.Tensor, p: int):
+        """Order-by and offset/limit within each partition, as the JAX
+        package's vmap runs `_order_limit` once per partition: each
+        partition's valid rows first, then its keys in order, stable by row;
+        the limit counts each partition's rows; the ordered rows are placed
+        by (rank within the partition, slot), `_flatten`'s order. Returns
+        (out, slot lane of its rows)."""
+        if not self.order_by and self.limit is None and self.offset is None:
+            return out, pslot
+        part = torch.where(pslot < p, pslot, p).to(torch.int64)
+        if self.order_by:
+            perm = torch.arange(part.shape[0], device=part.device)
+            for k in reversed([part, (~out.valid).to(torch.uint8)]
+                              + self._order_keys(env, out.valid.shape)):
+                perm = perm[torch.sort(k[perm], stable=True).indices]
+            ps = part[perm]
+            rank = rank_within(ps, torch.ones_like(ps))
+            place = perm[torch.sort(rank * (p + 1) + ps, stable=True).indices]
+            out = EventBatch(ts=out.ts[place], kind=out.kind[place], valid=out.valid[place],
+                             cols={n: c[place] for n, c in out.cols.items()})
+            pslot = pslot[place]
+            part = part[place]
+        if self.limit is not None or self.offset is not None:
+            rank = rank_within(part, out.valid)  # among its partition's valid rows
+            lo = 0 if self.offset is None else int(self.offset)
+            hi = _BIG if self.limit is None else lo + int(self.limit)
+            out = EventBatch(ts=out.ts, kind=out.kind,
+                             valid=out.valid & (rank >= lo) & (rank < hi), cols=out.cols)
+        return out, pslot
 
     def _order_limit(self, out: EventBatch, env: Env) -> EventBatch:
         """Per-chunk order-by + offset/limit (reference: QuerySelector
@@ -251,12 +323,7 @@ class CompiledSelector:
         if not self.order_by and self.limit is None and self.offset is None:
             return out
         if self.order_by:
-            keys = []
-            for cexpr, desc in self.order_by:
-                col = cexpr(env).expand(out.valid.shape)
-                if desc:
-                    col = -col.to(torch.float32) if col.dtype == torch.bool else -col
-                keys.append(col)
+            keys = self._order_keys(env, out.valid.shape)
             perm = torch.arange(out.valid.shape[0], device=out.valid.device)
             for k in reversed([(~out.valid).to(torch.uint8)] + keys):
                 perm = perm[torch.sort(k[perm], stable=True).indices]

@@ -20,9 +20,9 @@ csrc/ring_view.cu); the `*_ref` functions are their plain PyTorch versions,
 which the wrappers take only for tensors on the CPU. The sort, frequent,
 lossyFrequent and cron windows live in core/windows_special.py (K25-K28);
 `make_window` builds them too. The other windows raise "not ported yet".
-Inside a partition the length window's ring gains a leading [P] axis and
-its step runs every partition at once by the rows' slots (ops/partition.py,
-csrc/partition_window.cu).
+Inside a partition the ring and bucket lanes gain a leading [P] axis and
+each step runs every partition at once by the rows' slots (ops/partition.py:
+the length window K29, the time windows K31, the batch windows K32).
 """
 
 from __future__ import annotations
@@ -582,15 +582,26 @@ class SlidingWindow(WindowStage):
         )
 
     def _apply_partitioned(self, state, flow: Flow, aux: dict):
-        """Inside a partition (length only; the ring lanes gain a leading
-        [P] axis): every partition's step at once by the row slots
-        (ops/partition.py K29), the rows out in (position, slot) order."""
+        """Inside a partition (the ring lanes gain a leading [P] axis):
+        every partition's step at once by the row slots, the length window
+        by K29 and the time windows by K31 (ops/partition.py), the rows out
+        in (position, slot) order."""
         from siddhi_tpu_torch.core.groupby import PARTITION_SLOT_KEY, partition_ctx
-        from siddhi_tpu_torch.ops.partition import partition_length_window_step
+        from siddhi_tpu_torch.ops.partition import (
+            partition_length_window_step,
+            partition_time_window_step,
+        )
 
         b, ctx = flow.batch, flow.partition
-        out, birth, death, new_state, members = partition_length_window_step(
-            state, b, ctx.slot, self.w, ctx.capacity)
+        if self.t is None:
+            out, birth, death, new_state, members = partition_length_window_step(
+                state, b, ctx.slot, self.w, ctx.capacity)
+        else:
+            bwts = b.ts if self.time_attr is None else b.cols[self.time_attr].to(torch.int64)
+            out, birth, death, new_state, next_timer, members = partition_time_window_step(
+                state, b, bwts.contiguous(), ctx.slot, self.w, self.t, ctx.capacity)
+            if self.needs_scheduler:
+                aux["next_timer"] = next_timer
         member_cols = {(self.ref, None, n): torch.cat([state["cols"][n].reshape(-1), b.cols[n]])
                        for n in b.cols}
         member_cols[(self.ref, None, TS_ATTR)] = torch.cat([state["ts"].reshape(-1), b.ts])
@@ -1122,6 +1133,8 @@ class BatchWindow(WindowStage):
     def apply(self, state, flow: Flow):
         b = flow.batch
         aux = dict(flow.aux)
+        if flow.partition is not None:
+            return self._apply_partitioned(state, flow, aux)
         if self.n is not None:
             out, birth, death, new_state = batch_window_step(state, b, self.n, self.emit_expired)
         else:
@@ -1143,6 +1156,40 @@ class BatchWindow(WindowStage):
             member_env = Env(member_cols, now=flow.now)
         return new_state, Flow(batch=out, ref=flow.ref, now=flow.now, birth_pos=birth,
                                death_pos=death, member_env=member_env, aux=aux)
+
+    def _apply_partitioned(self, state, flow: Flow, aux: dict):
+        """Inside a partition (the buffers gain a leading [P] axis): every
+        partition's step at once by the row slots (ops/partition.py K32),
+        the rows out in (position, slot) order; the elements of the
+        membership are each slot's open then previous bucket, then the
+        batch rows."""
+        from siddhi_tpu_torch.core.groupby import PARTITION_SLOT_KEY, partition_ctx
+        from siddhi_tpu_torch.ops.partition import partition_batch_window_step
+
+        b, ctx = flow.batch, flow.partition
+        wts = b.cols[self.time_attr].to(torch.int64) if self.time_attr else b.ts
+        out, birth, death, new_state, next_timer, members = partition_batch_window_step(
+            state, b, wts.contiguous(), flow.now, ctx.slot, ctx.capacity, self.w, self.n,
+            self.t, self.start_time, self.timeout_ms, self.timer_mode, self.emit_expired)
+        if self.needs_scheduler:
+            aux["next_timer"] = next_timer
+        member_env = None
+        if self.emit_expired:
+            def elems(cur, prev, bat):
+                return torch.cat([torch.cat([cur, prev], 1).reshape(-1), bat])
+
+            member_cols = {(self.ref, None, nm): elems(state["cur_cols"][nm],
+                                                       state["prev_cols"][nm], b.cols[nm])
+                           for nm in b.cols}
+            member_cols[(self.ref, None, TS_ATTR)] = elems(state["cur_ts"], state["prev_ts"],
+                                                           b.ts)
+            member_cols[PARTITION_SLOT_KEY] = members.elem_slot
+            member_env = Env(member_cols, now=flow.now)
+        return new_state, Flow(
+            batch=out, ref=flow.ref, now=flow.now, birth_pos=birth, death_pos=death,
+            member_env=member_env, aux=aux,
+            partition=partition_ctx(members.slot, members.first, ctx.capacity, ctx.overflow,
+                                    members))
 
     def view(self, state):
         # the open bucket is the probe-able content (reference:

@@ -34,6 +34,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "partition.cuh"
 
 namespace {
 
@@ -270,6 +271,132 @@ __global__ void slot_kernel(const int64_t* keys, const bool* active, const int32
 
 int blocks(long long count) { return (int)((count + kThreads - 1) / kThreads); }
 
+// ---------------------------------------------------------------------------
+// K33: the same assignment in P independent tables, one a partition. It
+// replaces ops/group.py assign_slots (:85) under siddhi_tpu/core/partition.py's
+// jax.vmap: each partition p sees its own rows (active or RESET rows whose
+// partition slot is p), allocates in its own [G] table in its own order,
+// overflows at its own G and resets in its own eras.
+//   - pg_rows (one block of 1024 threads): each partition's rows in row
+//     order (partition.cuh member_rows), and every row's default (dead
+//     slot G, segment head the row itself);
+//   - pg_assign (one block a partition): each active row probes its
+//     partition's table (a scan of G keys, the smallest matching slot as
+//     JAX's argmax), then one thread walks the partition's rows in order
+//     with a small open-addressing table of (era, key) -> (first row,
+//     allocation ranks), as the JAX function's cumsums rank first
+//     appearances, and writes each row's slot and segment head, the
+//     partition's new table, count and overflow flag.
+// ---------------------------------------------------------------------------
+
+constexpr int kPartThreads = 256;
+
+__global__ void __launch_bounds__(kRankThreads)
+pg_rows_kernel(const bool* active, const bool* reset, const int32_t* pslot, int rows, int P,
+               int G, int32_t* rank, int32_t* rowlist, int32_t* part_start, int32_t* counters,
+               int32_t* slot, int32_t* first) {
+  __shared__ RankSmem s;
+  for (int r = threadIdx.x; r < rows; r += kRankThreads) {
+    slot[r] = G;
+    first[r] = r;
+  }
+  member_rows(
+      rows, P,
+      [&](int r) {
+        const int sl = pslot[r];
+        return (active[r] || reset[r]) && sl >= 0 && sl < P ? sl : -1;
+      },
+      rank, rowlist, part_start, counters, s);
+}
+
+__global__ void __launch_bounds__(kPartThreads)
+pg_assign_kernel(const int64_t* table_keys, const bool* used, const int32_t* n_used,
+                 const int64_t* keys, const bool* active, const bool* reset, int P, int G,
+                 const int32_t* rowlist, const int32_t* part_start, int64_t* new_keys,
+                 bool* new_used, int32_t* new_n, int32_t* slot, int32_t* first,
+                 bool* overflow, int32_t* tslot, int32_t* hrow, int32_t* hera,
+                 int32_t* halloc_a, int32_t* halloc_f) {
+  __shared__ int s_glr;
+  const int p = blockIdx.x, tid = threadIdx.x;
+  const int lo = part_start[p], c = part_start[p + 1] - lo;
+  const int32_t* prow = rowlist + lo;
+  const int64_t* tk = table_keys + (long long)p * G;
+  const bool* tu = used + (long long)p * G;
+  const int H = 2 * c + 1, hb = 2 * lo + p;  // this partition's (era, key) table
+  if (tid == 0) s_glr = -1;
+  __syncthreads();
+  for (int i = tid; i < H; i += kPartThreads) hrow[hb + i] = -1;
+  for (int i = tid; i < c; i += kPartThreads) {
+    const int r = prow[i];
+    int ts = -1;
+    if (active[r]) {
+      for (int j = 0; j < G; ++j) {
+        if (tu[j] && tk[j] == keys[r]) { ts = j; break; }
+      }
+    } else if (reset[r]) {
+      atomicMax(&s_glr, i);
+    }
+    tslot[r] = ts;
+  }
+  __syncthreads();
+  const int glr = s_glr;
+  const bool any_reset = glr >= 0;
+  int64_t* nk = new_keys + (long long)p * G;
+  bool* nu = new_used + (long long)p * G;
+  for (int j = tid; j < G; j += kPartThreads) {
+    nk[j] = any_reset ? 0 : tk[j];
+    nu[j] = any_reset ? false : tu[j];
+  }
+  __syncthreads();
+  if (tid != 0) return;
+  const int n0 = n_used[p];
+  int era = 0, na = 0, nf = 0;
+  bool old_ovf = false, fresh_ovf = false;
+  for (int i = 0; i < c; ++i) {
+    const int r = prow[i];
+    if (!active[r]) {  // a RESET row opens the next era
+      ++era;
+      continue;
+    }
+    const long long key = keys[r];
+    const bool post = i > glr;
+    unsigned long long h =
+        mix64((unsigned long long)key ^ ((unsigned long long)era * 0x9e3779b97f4a7c15ULL));
+    int at = (int)(h % (unsigned long long)H);
+    while (hrow[hb + at] >= 0 &&
+           !(hera[hb + at] == era && keys[hrow[hb + at]] == key)) {
+      at = at + 1 == H ? 0 : at + 1;
+    }
+    const int e = hb + at;
+    if (hrow[e] < 0) {  // the first appearance of (era, key)
+      hrow[e] = r;
+      hera[e] = era;
+      const bool in_t = tslot[r] >= 0;
+      halloc_a[e] = in_t ? -1 : na++;
+      halloc_f[e] = post ? nf++ : -1;
+      if (!in_t && n0 + halloc_a[e] >= G) old_ovf = true;
+      if (post && halloc_f[e] >= G) fresh_ovf = true;
+      if (!any_reset && !in_t && n0 + halloc_a[e] < G) {
+        nk[n0 + halloc_a[e]] = key;
+        nu[n0 + halloc_a[e]] = true;
+      }
+      if (any_reset && post && halloc_f[e] < G) {
+        nk[halloc_f[e]] = key;
+        nu[halloc_f[e]] = true;
+      }
+    }
+    first[r] = hrow[e];
+    const int ts = tslot[r];
+    const int sa = n0 + halloc_a[e];
+    const int old_slot = ts >= 0 ? ts : sa < G ? sa : G;
+    const int af = halloc_f[e];
+    const int fresh_slot = af >= 0 && af < G ? af : G;
+    slot[r] = any_reset && post ? fresh_slot : old_slot;
+  }
+  overflow[p] = any_reset ? fresh_ovf : old_ovf;
+  new_n[p] = any_reset ? min(nf, G) : min(n0 + na, G);
+}
+
 }  // namespace
 
 extern "C" {
@@ -318,6 +445,24 @@ int group_assign(const int64_t* table_keys, const bool* used, const int32_t* n_u
   slot_kernel<<<blocks(rows), kThreads, 0, stream>>>(keys, active, first, tslot, flags,
                                                      rank_a, rank_f, n_used, bounds, rows, G,
                                                      slot, new_keys, new_used);
+  return (int)cudaGetLastError();
+}
+
+// K33: counters [P] int32 scratch (used when P > 8192); tslot [rows];
+// hrow, hera, halloc_a, halloc_f [2 rows + P]; overflow [P]
+int pg_assign(const int64_t* table_keys, const bool* used, const int32_t* n_used,
+              const int64_t* keys, const bool* active, const bool* reset, const int32_t* pslot,
+              int P, int G, int rows, int32_t* rank, int32_t* rowlist, int32_t* part_start,
+              int32_t* counters, int64_t* new_keys, bool* new_used, int32_t* new_n,
+              int32_t* slot, int32_t* first, bool* overflow, int32_t* tslot, int32_t* hrow,
+              int32_t* hera, int32_t* halloc_a, int32_t* halloc_f, cudaStream_t stream) {
+  pg_rows_kernel<<<1, kRankThreads, 0, stream>>>(active, reset, pslot, rows, P, G, rank,
+                                                 rowlist, part_start, counters, slot, first);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  pg_assign_kernel<<<P, kPartThreads, 0, stream>>>(
+      table_keys, used, n_used, keys, active, reset, P, G, rowlist, part_start, new_keys,
+      new_used, new_n, slot, first, overflow, tslot, hrow, hera, halloc_a, halloc_f);
   return (int)cudaGetLastError();
 }
 

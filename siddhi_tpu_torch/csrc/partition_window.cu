@@ -15,15 +15,13 @@
 // slot p has n_p = c_p + max(0, c_p - f) rows. The flattened order is
 // (position, slot), so output row (pos, p) lands at
 //   A(pos) + #{q < p : n_q > pos},   A(pos) = sum_q min(n_q, pos).
-// Both counts are stable counting ranks:
+// Both counts are stable counting ranks (csrc/partition.cuh, shared with
+// K31-K33):
 //   - pw_rank (one block of 1024 threads): the rank of each member row in
-//     its slot (key = slot, over the rows in order), the slot offsets, n_p,
-//     A(pos) from a histogram of n_p, and the rank of every (pos, p) among
-//     the items of its position (key = pos, over the items listed slot by
-//     slot). Each 1024-item tile ranks within a warp by __match_any_sync,
-//     then warp 0 walks the tile's 32 warps in order adding each run's size
-//     to the key's counter (in shared memory up to kSmemCounters keys, else
-//     in a global scratch): a counting pass, no sort.
+//     its slot (key = slot, over the rows in order; `member_rows`), the
+//     slot offsets, n_p, then `place_by_position`: A(pos) from a histogram
+//     of n_p, and the rank of every (pos, p) among the items of its
+//     position (key = pos, over the items listed slot by slot).
 //   - pw_emit (one thread per output row and per element): each output
 //     row's kind, ts, slot, segment head and source element; each element's
 //     birth and death rows (the lazy membership, as K1's, in the flattened
@@ -50,21 +48,11 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "partition.cuh"
 
 namespace {
 
-constexpr int kRankThreads = 1024;
-constexpr int kSmemCounters = 8192;
 constexpr int kThreads = 256;
-
-struct RankSmem {
-  int key[kRankThreads];
-  int size[kRankThreads];
-  int base[kRankThreads];
-  int ws[32];
-  int cnt[kSmemCounters];
-  int maxn, live;
-};
 
 __device__ __forceinline__ int free_slots(int W, long long total) {
   return total >= W ? 0 : (int)(W - total);
@@ -74,50 +62,6 @@ __device__ __forceinline__ int free_slots(int W, long long total) {
 __device__ __forceinline__ int cur_pos(int i, int f) { return i + max(0, i - f + 1); }
 __device__ __forceinline__ int exp_pos(int i, int f) { return i + max(0, i - f + 1) - 1; }
 
-// The slot whose items [n_start[p], n_start[p + 1]) hold item t.
-__device__ __forceinline__ int slot_of_item(const int32_t* n_start, int P, int t) {
-  int lo = 0, hi = P - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (n_start[mid] <= t) lo = mid; else hi = mid - 1;
-  }
-  return lo;
-}
-
-// Stable counting ranks of items 0..n-1 by key_of(i) (a key < 0 takes no
-// rank): out(i, key, rank) gets the count of earlier items with the same
-// key plus the key's counter on entry; the counters advance by the counts.
-// Every thread of the block calls it.
-template <typename KeyFn, typename OutFn>
-__device__ void stable_rank(int n, KeyFn key_of, int* cnt, OutFn out, RankSmem& s) {
-  const int tid = threadIdx.x, lane = tid & 31;
-  volatile int* vc = cnt;
-  for (int base = 0; base < n; base += kRankThreads) {
-    const int i = base + tid;
-    const int key = i < n ? key_of(i) : -1;
-    const unsigned peers = __match_any_sync(kFull, key);
-    const int within = __popc(peers & ((1u << lane) - 1u));
-    s.key[tid] = within == 0 ? key : -1;  // one leader a run
-    s.size[tid] = __popc(peers);
-    __syncthreads();
-    if (tid < 32) {
-      for (int w = 0; w < kRankThreads / 32; ++w) {
-        const int t2 = w * 32 + tid;
-        const int k = s.key[t2];
-        if (k >= 0) {
-          const int b = vc[k];
-          vc[k] = b + s.size[t2];
-          s.base[t2] = b;
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-    if (key >= 0) out(i, key, s.base[(tid & ~31) + __ffs(peers) - 1] + within);
-    __syncthreads();
-  }
-}
-
 __global__ void __launch_bounds__(kRankThreads)
 pw_rank_kernel(const int8_t* kind, const bool* valid, const int32_t* slot,
                const int64_t* total, int B, int W, int P, int32_t* rank,
@@ -126,80 +70,25 @@ pw_rank_kernel(const int8_t* kind, const bool* valid, const int32_t* slot,
                int64_t* new_total, int32_t* info) {
   __shared__ RankSmem s;
   const int tid = threadIdx.x;
-  if (tid == 0) { s.maxn = 0; s.live = 0; }
-  // rank of each member row within its slot
-  int* cnt = P <= kSmemCounters ? s.cnt : counters;
-  for (int k = tid; k < P; k += kRankThreads) cnt[k] = 0;
-  for (int r = tid; r < B; r += kRankThreads) rank[r] = -1;
-  __syncthreads();
-  stable_rank(
-      B,
+  // rank of each member row within its slot, the slot offsets
+  const int C = member_rows(
+      B, P,
       [&](int r) {
         const int sl = slot[r];
         return valid[r] && kind[r] == 0 && sl >= 0 && sl < P ? sl : -1;
       },
-      cnt, [&](int r, int, int rk) { rank[r] = rk; }, s);
-  // slot offsets, rows per slot, new totals
-  int carry_c = 0, carry_n = 0, my_max = 0, my_live = 0;
-  for (int base = 0; base < P; base += kRankThreads) {
-    const int p = base + tid;
-    const int c = p < P ? cnt[p] : 0;
-    const long long tot = p < P ? total[p] : 0;
-    const int f = free_slots(W, tot);
-    const int n = c > 0 ? c + max(0, c - f) : 0;
-    int tc, tn;
-    const int ec = block_excl_sum(c, s.ws, &tc);
-    const int en = block_excl_sum(n, s.ws, &tn);
-    if (p < P) {
-      slot_start[p] = carry_c + ec;
-      n_start[p] = carry_n + en;
-      n_slot[p] = n;
-      new_total[p] = tot + c;
-    }
-    carry_c += tc;
-    carry_n += tn;
-    my_max = max(my_max, n);
-    my_live += n > 0;
-  }
-  atomicMax(&s.maxn, my_max);
-  atomicAdd(&s.live, my_live);
-  if (tid == 0) {
-    slot_start[P] = carry_c;
-    n_start[P] = carry_n;
-  }
-  __syncthreads();
-  const int C = carry_c, R = carry_n, maxn = s.maxn, live = s.live;
-  for (int r = tid; r < B; r += kRankThreads) {
-    if (rank[r] >= 0) rowlist[slot_start[slot[r]] + rank[r]] = r;
-  }
-  for (int k = C + tid; k < B; k += kRankThreads) rowlist[k] = -1;
-  // A(pos): a histogram of n_p, then two scans in place
-  for (int k = tid; k <= maxn; k += kRankThreads) pos_base[k] = 0;
-  __syncthreads();
+      rank, rowlist, slot_start, counters, s);
+  // rows per slot, new totals
   for (int p = tid; p < P; p += kRankThreads) {
-    if (n_slot[p] > 0) atomicAdd(&pos_base[n_slot[p]], 1);
+    const int c = slot_start[p + 1] - slot_start[p];
+    const long long tot = total[p];
+    const int f = free_slots(W, tot);
+    n_slot[p] = c > 0 ? c + max(0, c - f) : 0;
+    new_total[p] = tot + c;
   }
   __syncthreads();
-  int carry_h = 0, carry_a = 0;
-  for (int base = 0; base <= maxn; base += kRankThreads) {
-    const int pos = base + tid;
-    const int h = pos >= 1 && pos <= maxn ? pos_base[pos] : 0;
-    int th, ta;
-    const int held = carry_h + block_excl_sum(h, s.ws, &th) + h;  // slots with n <= pos
-    const int at = pos < maxn ? live - held : 0;  // slots with a row at pos
-    const int a = carry_a + block_excl_sum(at, s.ws, &ta);
-    if (pos <= maxn) pos_base[pos] = a;
-    carry_h += th;
-    carry_a += ta;
-  }
-  // rank of each (pos, p) among its position's items, the items listed
-  // slot by slot
-  int* cnt2 = maxn <= kSmemCounters ? s.cnt : counters;
-  for (int k = tid; k < maxn; k += kRankThreads) cnt2[k] = 0;
-  __syncthreads();
-  stable_rank(
-      R, [&](int t) { return t - n_start[slot_of_item(n_start, P, t)]; }, cnt2,
-      [&](int t, int pos, int rk) { oidx[t] = pos_base[pos] + rk; }, s);
+  int maxn;
+  const int R = place_by_position(P, n_slot, n_start, pos_base, oidx, counters, &maxn, s);
   if (tid == 0) {
     info[0] = R;
     info[1] = maxn;

@@ -34,7 +34,8 @@ SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "del
            "batch_window", "group_assign", "keyed_running_sum", "keep_last", "time_window",
            "ring_view", "join_probe", "pattern_advance", "pattern_count", "pattern_emit",
            "pattern_scan", "running_extreme", "distinct_count", "table_write", "table_index",
-           "table_match", "table_scan", "special_window", "partition_window")
+           "table_match", "table_scan", "special_window", "partition_window",
+           "partition_time", "partition_batch")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -51,6 +52,7 @@ _KEYED_SUM = [P] * 5 + [I, I] + [P] * 6 + [P]
 _RV_GATHER = [P, P, P, I, P]
 _JP_PARTNER = [P, P, LL, P, I, I, P]
 _PW_EXTREME = [P] * 7 + [I] * 4 + [LL, P]
+_PB_GATHER = [P] * 5 + [I, I, I, P]
 # C entry points: name -> (source, argtypes). The last argument is the stream.
 SIGNATURES = {
     "lw_prepare": ("length_window", [P] * 5 + [I, I] + [P] * 12 + [P]),
@@ -122,6 +124,21 @@ SIGNATURES = {
     "pw_extreme_f32": ("partition_window", _PW_EXTREME),
     "pw_extreme_i32": ("partition_window", _PW_EXTREME),
     "pw_extreme_i64": ("partition_window", _PW_EXTREME),
+    "pt_rows": ("partition_time", [P] * 3 + [I, I] + [P] * 6 + [P]),
+    "pt_step": ("partition_time", [P] * 4 + [I, I, I, LL] + [P] * 16 + [P]),
+    "pt_place": ("partition_time", [I] + [P] * 6 + [P]),
+    "pt_emit": ("partition_time", [P, P, I, I, I, I] + [P] * 19 + [P]),
+    "pt_gather_1": ("partition_time", _GATHER),
+    "pt_gather_4": ("partition_time", _GATHER),
+    "pt_gather_8": ("partition_time", _GATHER),
+    "pb_rows": ("partition_batch", [P] * 3 + [I, I] + [P] * 6 + [P]),
+    "pb_step": ("partition_batch", [I] * 8 + [LL] * 3 + [P] * 23 + [P]),
+    "pb_place": ("partition_batch", [I] + [P] * 6 + [P]),
+    "pb_emit": ("partition_batch", [P] * 4 + [I] * 6 + [P] * 18 + [P]),
+    "pb_gather_1": ("partition_batch", _PB_GATHER),
+    "pb_gather_4": ("partition_batch", _PB_GATHER),
+    "pb_gather_8": ("partition_batch", _PB_GATHER),
+    "pg_assign": ("group_assign", [P] * 7 + [I] * 3 + [P] * 15 + [P]),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -14,8 +14,10 @@ row of its (era, key). Any grouping of the rows by (active, era, key) that is
 stable by row gives the same results, so the card builds it with no sort
 (a hash table of row indices, csrc/group_assign.cu).
 
-Four hand-written CUDA kernels run on the card:
-- `assign_slots` (csrc/group_assign.cu, K7);
+Five hand-written CUDA kernels run on the card:
+- `assign_slots` (csrc/group_assign.cu, K7), and inside a partition
+  `partition_assign_slots` (the same source, K33: P tables of G, one a
+  partition);
 - `keyed_running_sum` (csrc/keyed_running_sum.cu, K8);
 - `keyed_running_extreme` (csrc/running_extreme.cu, K19);
 - `keep_last` behind `keep_last_in_sorted` / `keep_last_per_group`
@@ -451,3 +453,84 @@ def keep_last_per_group(seg: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     value (seg: [rows] int32 in [0, rows]) — the ungrouped batch collapse."""
     return keep_last(seg.to(torch.int32), torch.zeros_like(valid), valid)
 
+
+
+def partition_assign_slots_ref(table_keys, used, n_used, batch_keys, active, reset, pslot,
+                               p: int):
+    """Plain version of `partition_assign_slots`: `assign_slots_ref` once
+    per partition on the rows of that partition (its active and RESET rows,
+    in row order), as the JAX package's vmap runs `assign_slots` per
+    partition under a mask."""
+    g = table_keys.shape[1]
+    rows = batch_keys.shape[0]
+    dev = batch_keys.device
+    new_keys, new_used, new_n = table_keys.clone(), used.clone(), n_used.clone()
+    slot = torch.full((rows,), g, dtype=torch.int32, device=dev)
+    first = torch.arange(rows, dtype=torch.int32, device=dev)
+    overflow = torch.zeros(p, dtype=torch.bool, device=dev)
+    member = (active | reset) & (pslot >= 0) & (pslot < p)
+    for q in torch.unique(pslot[member]).tolist():
+        r = torch.nonzero(member & (pslot == q)).flatten()
+        nk, nu, nn, s, grp, ovf = assign_slots_ref(table_keys[q], used[q], n_used[q],
+                                                   batch_keys[r], active[r], reset[r])
+        new_keys[q], new_used[q], new_n[q], overflow[q] = nk, nu, nn, ovf
+        slot[r] = s
+        first[r] = r[grp.first.long()].to(torch.int32)
+    return new_keys, new_used, new_n, slot, first, overflow
+
+
+def partition_assign_slots(table_keys, used, n_used, batch_keys, active, reset, pslot, p: int):
+    """`assign_slots` in P independent tables, one a partition: each row
+    of partition pslot[r] in [0, P) takes a slot of its partition's [G]
+    table, allocating in its partition's own first-appearance order, with
+    its partition's own RESET eras and overflow at G.
+
+    table_keys [P, G] int64, used [P, G] bool, n_used [P] int32: the
+    tables; batch_keys [rows] int64, active / reset [rows] bool, pslot
+    [rows] int32 (P: no partition). Returns (new_keys, new_used, new_n,
+    slot [rows] int32 (G: dead lane), first [rows] int32 (each active row's
+    first row of its (partition, era, key), the row itself otherwise),
+    overflow [P] bool); nothing is read back to the host."""
+    if batch_keys.device.type == "cpu":
+        return partition_assign_slots_ref(table_keys, used, n_used, batch_keys, active, reset,
+                                          pslot, p)
+    kernels.require_cuda("partition_assign_slots", table_keys, used, n_used, batch_keys, active,
+                         reset, pslot)
+    g, rows = table_keys.shape[-1], batch_keys.shape[0]
+    if (
+        table_keys.shape != (p, g) or table_keys.dtype != torch.int64
+        or used.shape != (p, g) or used.dtype != torch.bool
+        or n_used.shape != (p,) or n_used.dtype != torch.int32
+        or batch_keys.dtype != torch.int64 or batch_keys.dim() != 1
+        or any(x.shape != (rows,) for x in (active, reset, pslot))
+        or active.dtype != torch.bool or reset.dtype != torch.bool
+        or pslot.dtype != torch.int32 or not 0 < g < 2**30 or not 0 < rows < 2**29 or p < 1
+    ):
+        raise ValueError(
+            "partition_assign_slots takes [P, G] int64 keys / bool used, [P] int32 counts and "
+            f"[rows] int64 keys, bool active / reset, int32 partition slots; got "
+            f"{table_keys.dtype}{list(table_keys.shape)}, {batch_keys.dtype}"
+            f"{list(batch_keys.shape)}, P {p}")
+    dev = batch_keys.device
+
+    def i32(n):
+        return torch.empty(n, dtype=torch.int32, device=dev)
+
+    new_keys, new_used, new_n = torch.empty_like(table_keys), torch.empty_like(used), \
+        torch.empty_like(n_used)
+    slot, first = i32(rows), i32(rows)
+    overflow = torch.empty(p, dtype=torch.bool, device=dev)
+    rank, rowlist, part_start, counters, tslot = i32(rows), i32(rows), i32(p + 1), i32(p + 1), \
+        i32(rows)
+    hsize = 2 * rows + p
+    hrow, hera, halloc_a, halloc_f = i32(hsize), i32(hsize), i32(hsize), i32(hsize)
+    err = kernels.function("pg_assign")(
+        table_keys.data_ptr(), used.data_ptr(), n_used.data_ptr(), batch_keys.data_ptr(),
+        active.data_ptr(), reset.data_ptr(), pslot.data_ptr(), p, g, rows, rank.data_ptr(),
+        rowlist.data_ptr(), part_start.data_ptr(), counters.data_ptr(), new_keys.data_ptr(),
+        new_used.data_ptr(), new_n.data_ptr(), slot.data_ptr(), first.data_ptr(),
+        overflow.data_ptr(), tslot.data_ptr(), hrow.data_ptr(), hera.data_ptr(),
+        halloc_a.data_ptr(), halloc_f.data_ptr(), kernels.stream())
+    kernels.check(err, "partition_assign_slots")
+    kernels.launches["partition_assign_slots"] += 1
+    return new_keys, new_used, new_n, slot, first, overflow

@@ -1,5 +1,6 @@
-"""The keyed partition steps: the partitioned length window (K29) and the
-windowed min/max of a partition (K30).
+"""The keyed partition steps: the partitioned length window (K29), the
+windowed min/max of a partition (K30), the partitioned sliding time window
+(K31) and the partitioned batch window (K32).
 
 The JAX package runs a partitioned query step under `jax.vmap` over P
 partition states (siddhi_tpu/core/partition.py `_vmapped`): every partition
@@ -9,16 +10,20 @@ port keeps the same rows in a keyed form: each row carries its partition
 slot (P = no partition), per-partition state is indexed by slot, and the
 output comes out already flattened, ordered by (position within its
 partition, slot). For a windowless step the position is the row, so the
-order is the arrival order; for the length window it is the row's rank
-within its partition plus that partition's evictions so far, which is not
-the arrival order.
+order is the arrival order; after a window it is the row's place in its
+partition's own output, which is not the arrival order. A TIMER row takes
+part in every partition (the vmap's `(active & slot == p) | is_timer`), so
+it moves the clock of every slot, used or not.
 
-On the card each step is hand-written CUDA (csrc/partition_window.cu); each
-`*_ref` beside a wrapper is its plain version, which the wrapper takes only
-for tensors on the CPU. `partition_length_window_step_ref` runs the
-unpartitioned `length_window_step_ref` once per live slot on that slot's
-rows (the vmap's semantics) and flattens by (position, slot), so it checks
-K29 independently of its closed-form positions.
+On the card each step is hand-written CUDA (csrc/partition_window.cu,
+csrc/partition_time.cu, csrc/partition_batch.cu, sharing the placement of
+csrc/partition.cuh); each `*_ref` beside a wrapper is its plain version,
+which the wrapper takes only for tensors on the CPU. Each plain step runs
+the unpartitioned plain step (`length_window_step_ref`,
+`time_window_step_ref`, `batch_window_step_ref`, `time_batch_step_ref`)
+once per slot on that slot's rows and the TIMER rows (the vmap's
+semantics) and flattens by (position, slot), so it checks its kernel
+independently of the kernel's closed forms.
 """
 
 from __future__ import annotations
@@ -28,17 +33,25 @@ import dataclasses
 import torch
 
 from siddhi_tpu_torch import kernels
-from siddhi_tpu_torch.core.event import EventBatch, KIND_CURRENT
+from siddhi_tpu_torch.core.event import EventBatch, KIND_CURRENT, KIND_TIMER
 from siddhi_tpu_torch.core.types import AttrType, null_value
-from siddhi_tpu_torch.core.windows import BIG, length_window_step_ref
+from siddhi_tpu_torch.core.windows import (
+    BIG,
+    NO_TIMER,
+    batch_window_step_ref,
+    length_window_step_ref,
+    time_batch_step_ref,
+    time_window_step_ref,
+)
 from siddhi_tpu_torch.ops.prefix import extreme_identity
 
 
 @dataclasses.dataclass
 class PartitionMembers:
-    """A partitioned length-window step's index lanes, beside its
-    birth/death membership (elements are the P*W ring slots, slot-major,
-    then the B batch rows).
+    """A partitioned window step's index lanes, beside its birth/death
+    membership. The elements are P*W per-slot slots, slot-major, then the B
+    batch rows: a sliding window's ring (W its size), or a batch window's
+    open bucket then previous bucket of each slot (W = 2w).
 
     slot:       [2B] int32, each output row's partition slot (P: padding)
     first:      [2B] int32, the first output row of the row's slot (the
@@ -48,7 +61,7 @@ class PartitionMembers:
                 then -1
     slot_start: [P + 1] int32, where each slot's rows begin in `rowlist`
     elem_slot:  [P*W + B] int64, each element's slot (P: not a member)
-    w:          the ring size W
+    w:          the per-slot element count W
     """
 
     slot: torch.Tensor
@@ -256,6 +269,486 @@ def partition_length_window_step(state: dict, batch: EventBatch, slot: torch.Ten
                                slot_start=slot_start, elem_slot=elem_slot, w=w)
     kernels.launches["partition_length_window_step"] += 1
     return out, birth, death, new_state, members
+
+
+def _flat_order(parts, p: int, dev):
+    """The flattened row of each part's rows, parts listed slot by slot as
+    (slot, n rows): (position within the slot, slot) order, as the JAX
+    package's `_flatten` of a [P, K] output, compacted."""
+    n_rows = sum(n for _q, n in parts)
+    if not n_rows:
+        return torch.zeros(0, dtype=torch.int64, device=dev), 0
+    pos = torch.cat([torch.arange(n, device=dev) for _q, n in parts])
+    sl = torch.cat([torch.full((n,), q, device=dev) for q, n in parts])
+    order = torch.sort(pos * (p + 1) + sl, stable=True).indices
+    flat_of = torch.empty_like(order)
+    flat_of[order] = torch.arange(n_rows, device=dev)
+    return flat_of, n_rows
+
+
+def _sub_batch(batch: EventBatch, rows: torch.Tensor) -> EventBatch:
+    """The given rows of a batch, in order, each valid."""
+    return EventBatch(ts=batch.ts[rows], kind=batch.kind[rows],
+                      valid=torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device),
+                      cols={n: a[rows] for n, a in batch.cols.items()})
+
+
+def _flatten_out(batch: EventBatch, parts, p: int):
+    """The flattened output batch of per-slot outputs `parts` [(slot, out,
+    n rows)], at least one row, with each row's slot and segment head (the
+    slot's first row); returns (out, out_slot, out_first, flat_of per part)."""
+    dev = batch.ts.device
+    flat_of, n_rows = _flat_order([(q, n) for q, _o, n in parts], p, dev)
+    n_out = max(n_rows, 1)
+    out_ts = torch.zeros(n_out, dtype=torch.int64, device=dev)
+    out_kind = torch.zeros(n_out, dtype=torch.int8, device=dev)
+    out_valid = torch.zeros(n_out, dtype=torch.bool, device=dev)
+    out_cols = {n: torch.zeros(n_out, dtype=a.dtype, device=dev) for n, a in batch.cols.items()}
+    out_slot = torch.full((n_out,), p, dtype=torch.int32, device=dev)
+    out_first = torch.arange(n_out, dtype=torch.int32, device=dev)
+    dsts = []
+    base = 0
+    for q, out, n_q in parts:
+        dst = flat_of[base:base + n_q]
+        out_ts[dst] = out.ts[:n_q]
+        out_kind[dst] = out.kind[:n_q]
+        out_valid[dst] = True
+        for n in out_cols:
+            out_cols[n][dst] = out.cols[n][:n_q]
+        out_slot[dst] = q
+        if n_q:
+            out_first[dst] = dst[0].to(torch.int32)
+        dsts.append(dst)
+        base += n_q
+    out = EventBatch(ts=out_ts, kind=out_kind, valid=out_valid, cols=out_cols)
+    return out, out_slot, out_first, dsts
+
+
+def _to_flat(x: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Positions within a slot's output -> flattened rows (-1 and BIG kept)."""
+    n_q = dst.shape[0]
+    if n_q == 0:
+        return x.to(torch.int32)
+    return torch.where((x >= 0) & (x < BIG), dst[x.clamp(0, n_q - 1).long()], x).to(torch.int32)
+
+
+def _merged_rows(rowlist, lo: int, hi: int, timer_rows: torch.Tensor) -> torch.Tensor:
+    """A slot's member rows and the TIMER rows, in row order."""
+    rows = rowlist[lo:hi].long()
+    if timer_rows.numel():
+        rows = torch.sort(torch.cat([rows, timer_rows])).values
+    return rows
+
+
+def partition_time_window_step_ref(state: dict, batch: EventBatch, bwts: torch.Tensor,
+                                   slot: torch.Tensor, w: int, t: int, p: int):
+    """Plain version of `partition_time_window_step`: for each slot with
+    member rows, or with an element a TIMER row of the batch expires,
+    `time_window_step_ref` on that slot's ring over its rows and the TIMER
+    rows (in row order), then every slot's rows ordered by (position,
+    slot). (On any other slot the step changes nothing.)"""
+    dev = batch.ts.device
+    bsz = batch.capacity
+    active, rowlist, slot_start = _member_rows(batch, slot, p)
+    timer_rows = torch.nonzero(batch.valid & (batch.kind == KIND_TIMER)).flatten()
+    starts = slot_start.tolist()
+    new_state = {
+        "cols": {n: c.clone() for n, c in state["cols"].items()},
+        "ts": state["ts"].clone(), "wts": state["wts"].clone(), "seq": state["seq"].clone(),
+        "total": state["total"] + (slot_start[1:] - slot_start[:-1]).to(torch.int64),
+    }
+    n_elem = p * w + bsz
+    birth = torch.full((n_elem,), -1, dtype=torch.int32, device=dev)
+    death = torch.where(state["seq"].reshape(-1) >= 0, BIG, -1).to(torch.int32)
+    death = torch.cat([death, torch.full((bsz,), -1, dtype=torch.int32, device=dev)])
+    # a slot with no rows is a no-op unless a TIMER row reaches the expiry of
+    # one of its elements
+    reach = bwts[timer_rows].max() if timer_rows.numel() else None
+    live_min = torch.where(state["seq"] >= 0, state["wts"], NO_TIMER - t).amin(1).tolist()
+    parts, lanes = [], []
+    for q in range(p):
+        lo, hi = starts[q], starts[q + 1]
+        if hi == lo and (reach is None or live_min[q] + t > reach):
+            continue
+        rows = _merged_rows(rowlist, lo, hi, timer_rows)
+        st = {"cols": {n: a[q] for n, a in state["cols"].items()}, "ts": state["ts"][q],
+              "wts": state["wts"][q], "seq": state["seq"][q], "total": state["total"][q]}
+        out, b_pos, d_pos, nst, _nt = time_window_step_ref(st, _sub_batch(batch, rows),
+                                                           bwts[rows], w, t)
+        for n in nst["cols"]:
+            new_state["cols"][n][q] = nst["cols"][n]
+        for lane in ("ts", "wts", "seq"):
+            new_state[lane][q] = nst[lane]
+        elems = torch.cat([torch.arange(q * w, (q + 1) * w, device=dev), p * w + rows])
+        parts.append((q, out, int(out.valid.sum())))
+        lanes.append((elems, b_pos, d_pos))
+    out, out_slot, out_first, dsts = _flatten_out(batch, parts, p)
+    for (elems, b_pos, d_pos), dst in zip(lanes, dsts):
+        birth[elems] = _to_flat(b_pos, dst)
+        death[elems] = _to_flat(d_pos, dst)
+    live_wts = torch.where(new_state["seq"] >= 0, new_state["wts"], NO_TIMER - t)
+    next_timer = live_wts.min() + t
+    elem_slot = torch.cat([torch.arange(p * w, device=dev) // w,
+                           torch.where(active, slot, p).to(torch.int64)])
+    members = PartitionMembers(slot=out_slot, first=out_first, rowlist=rowlist,
+                               slot_start=slot_start, elem_slot=elem_slot, w=w)
+    return out, birth, death, new_state, next_timer, members
+
+
+def _i32(n, dev):
+    return torch.empty(n, dtype=torch.int32, device=dev)
+
+
+def partition_time_window_step(state: dict, batch: EventBatch, bwts: torch.Tensor,
+                               slot: torch.Tensor, w: int, t: int, p: int):
+    """One sliding time window step (time, timeLength, externalTime) of
+    every partition at once, over a batch of B rows that each carry their
+    partition slot.
+
+    state:  each partition's ring, `time_window_step`'s lanes with a leading
+            [P] axis: {"cols": {name: [P, w]}, "ts", "wts", "seq": [P, w]
+            int64 (seq -1 = empty), "total": [P] int64}
+    bwts:   [B] int64, each row's window time
+    slot:   [B] int32, each row's slot; a valid CURRENT row with a slot in
+            [0, P) is an arrival of its slot, and a valid TIMER row reaches
+            every slot (it expires, never inserts)
+    returns (out, birth_pos, death_pos, new_state, next_timer, members):
+      out        EventBatch of every partition's EXPIRED/CURRENT rows, at
+                 least one row, ordered by (position within the partition,
+                 slot), the positions those of `time_window_step` on the
+                 partition's rows and the TIMER rows alone
+      birth_pos / death_pos  [P*w + B] int32 lazy membership of the
+                 elements (ring slot j of partition q at q*w + j, then batch
+                 rows) in the flattened row space
+      new_state  the rings after the batch (new tensors)
+      next_timer 0-d int64: the earliest live window time + t of any slot
+                 (NO_TIMER when every ring is empty)
+      members    `PartitionMembers`
+    The output's row count is read back once (one sync a step).
+    """
+    if batch.ts.device.type == "cpu":
+        return partition_time_window_step_ref(state, batch, bwts, slot, w, t, p)
+    lanes = [batch.ts, batch.kind, batch.valid, slot, bwts, *batch.cols.values(), state["ts"],
+             state["wts"], state["seq"], state["total"], *state["cols"].values()]
+    kernels.require_cuda("partition_time_window_step", *lanes)
+    bsz = batch.capacity
+    if any(x.shape != (bsz,) for x in (batch.kind, batch.valid, slot, bwts,
+                                       *batch.cols.values())) or any(
+        x.shape != (p, w) for x in (state["ts"], state["wts"], state["seq"],
+                                    *state["cols"].values())) or state["total"].shape != (p,):
+        raise ValueError(f"partition_time_window_step: lanes must be [{bsz}], ring lanes "
+                         f"[{p}, {w}] and totals [{p}]")
+    if (batch.ts.dtype, batch.kind.dtype, batch.valid.dtype, slot.dtype, bwts.dtype,
+            state["seq"].dtype, state["wts"].dtype, state["total"].dtype) != (
+            torch.int64, torch.int8, torch.bool, torch.int32, torch.int64, torch.int64,
+            torch.int64, torch.int64) or any(
+            state["cols"][n].dtype != a.dtype for n, a in batch.cols.items()):
+        raise ValueError("partition_time_window_step: lane dtypes must be int64 ts/wts/seq/"
+                         "total, int8 kind, bool valid, int32 slot, and each ring column the "
+                         "batch's")
+    if w < 1 or p < 1 or bsz < 1 or p * w + 2 * bsz >= 2**31:
+        raise ValueError(f"partition_time_window_step: P {p} x W {w} and B {bsz} out of range")
+    dev = batch.ts.device
+    stream = kernels.stream()
+    cap, n_elem = p * w + 2 * bsz, p * w + bsz
+    rank, rowlist, slot_start, timers = _i32(bsz, dev), _i32(bsz, dev), _i32(p + 1, dev), \
+        _i32(bsz, dev)
+    counters, info = _i32(max(p, cap) + 1, dev), _i32(4, dev)
+    kernels.check(kernels.function("pt_rows")(
+        batch.kind.data_ptr(), batch.valid.data_ptr(), slot.data_ptr(), bsz, p, rank.data_ptr(),
+        rowlist.data_ptr(), slot_start.data_ptr(), timers.data_ptr(), counters.data_ptr(),
+        info.data_ptr(), stream), "partition_time_window_step")
+    trig, lbirth, ldeath = _i32(n_elem, dev), _i32(n_elem, dev), _i32(n_elem, dev)
+    eseq = torch.empty(n_elem, dtype=torch.int64, device=dev)
+    loc_src, loc_row = _i32(cap, dev), _i32(cap, dev)
+    loc_kind = torch.empty(cap, dtype=torch.int8, device=dev)
+    n_slot, ring_src = _i32(p, dev), _i32(p * w, dev)
+    new_seq = torch.empty((p, w), dtype=torch.int64, device=dev)
+    new_total = torch.empty(p, dtype=torch.int64, device=dev)
+    next_timer = torch.full((), NO_TIMER, dtype=torch.int64, device=dev)
+    kernels.check(kernels.function("pt_step")(
+        bwts.data_ptr(), state["seq"].data_ptr(), state["wts"].data_ptr(),
+        state["total"].data_ptr(), bsz, w, p, int(t), rowlist.data_ptr(), slot_start.data_ptr(),
+        timers.data_ptr(), info.data_ptr(), trig.data_ptr(), eseq.data_ptr(), loc_src.data_ptr(),
+        loc_row.data_ptr(), loc_kind.data_ptr(), n_slot.data_ptr(), lbirth.data_ptr(),
+        ldeath.data_ptr(), ring_src.data_ptr(), new_seq.data_ptr(), new_total.data_ptr(),
+        next_timer.data_ptr(), stream), "partition_time_window_step")
+    n_start, pos_base, oidx = _i32(p + 1, dev), _i32(cap + 1, dev), _i32(cap, dev)
+    kernels.check(kernels.function("pt_place")(
+        p, n_slot.data_ptr(), n_start.data_ptr(), pos_base.data_ptr(), oidx.data_ptr(),
+        counters.data_ptr(), info.data_ptr(), stream), "partition_time_window_step")
+    n_out = max(int(info[0]), 1)  # the rows out, read back to size the output
+    out_ts = torch.empty(n_out, dtype=torch.int64, device=dev)
+    out_kind = torch.empty(n_out, dtype=torch.int8, device=dev)
+    out_valid = torch.empty(n_out, dtype=torch.bool, device=dev)
+    out_slot, out_first, out_src = _i32(n_out, dev), _i32(n_out, dev), _i32(n_out, dev)
+    birth, death = _i32(n_elem, dev), _i32(n_elem, dev)
+    elem_slot = torch.empty(n_elem, dtype=torch.int64, device=dev)
+    kernels.check(kernels.function("pt_emit")(
+        batch.ts.data_ptr(), slot.data_ptr(), bsz, w, p, n_out, rank.data_ptr(),
+        slot_start.data_ptr(), n_start.data_ptr(), oidx.data_ptr(), info.data_ptr(),
+        loc_src.data_ptr(), loc_row.data_ptr(), loc_kind.data_ptr(), lbirth.data_ptr(),
+        ldeath.data_ptr(), out_ts.data_ptr(), out_kind.data_ptr(), out_valid.data_ptr(),
+        out_slot.data_ptr(), out_first.data_ptr(), out_src.data_ptr(), birth.data_ptr(),
+        death.data_ptr(), elem_slot.data_ptr(), stream), "partition_time_window_step")
+
+    def gather(ring_lane, batch_lane, idx):
+        out = torch.empty(idx.shape[0], dtype=ring_lane.dtype, device=dev)
+        fn = kernels.function(f"pt_gather_{ring_lane.element_size()}")
+        kernels.check(fn(ring_lane.data_ptr(), batch_lane.data_ptr(), idx.data_ptr(),
+                         out.data_ptr(), idx.shape[0], p * w, stream),
+                      "partition_time_window_step")
+        return out
+
+    out = EventBatch(ts=out_ts, kind=out_kind, valid=out_valid,
+                     cols={n: gather(state["cols"][n], a, out_src)
+                           for n, a in batch.cols.items()})
+    new_state = {
+        "cols": {n: gather(state["cols"][n], a, ring_src).view(p, w)
+                 for n, a in batch.cols.items()},
+        "ts": gather(state["ts"], batch.ts, ring_src).view(p, w),
+        "wts": gather(state["wts"], bwts, ring_src).view(p, w),
+        "seq": new_seq,
+        "total": new_total,
+    }
+    members = PartitionMembers(slot=out_slot, first=out_first, rowlist=rowlist,
+                               slot_start=slot_start, elem_slot=elem_slot, w=w)
+    kernels.launches["partition_time_window_step"] += 1
+    return out, birth, death, new_state, next_timer, members
+
+
+_BATCH_STATE = ("cur_cols", "cur_ts", "cur_n", "prev_cols", "prev_ts", "prev_n", "bucket_start",
+                "timeout_deadline")
+
+
+def _slot_state(state: dict, q: int) -> dict:
+    return {k: ({n: a[q] for n, a in v.items()} if isinstance(v, dict) else v[q])
+            for k, v in state.items()}
+
+
+def _batch_elem_slot(slot, rank_member, p: int, w: int):
+    """The slot of each batch-window element ([P, 2w] bucket slots, then the
+    batch rows; P for a row of no slot)."""
+    dev = slot.device
+    return torch.cat([torch.arange(2 * p * w, device=dev) // (2 * w),
+                      torch.where(rank_member, slot, p).to(torch.int64)])
+
+
+def partition_batch_window_step_ref(state: dict, batch: EventBatch, wts: torch.Tensor,
+                                    now: torch.Tensor, slot: torch.Tensor, p: int, w: int,
+                                    n, t, start_time, timeout_ms, timer_mode: int,
+                                    emit_expired: bool):
+    """Plain version of `partition_batch_window_step`: for each slot with
+    member rows (lengthBatch), or every slot (the time branch: a TIMER row
+    reaches every slot, and a grid with a start time starts in every slot),
+    `batch_window_step_ref` / `time_batch_step_ref` on that slot's buffers
+    over its rows and the TIMER rows (in row order; a slot with no rows
+    gets one invalid row, as the vmap masks every row), then every slot's
+    rows ordered by (position, slot)."""
+    dev = batch.ts.device
+    bsz = batch.capacity
+    timed = n is None
+    active, rowlist, slot_start = _member_rows(batch, slot, p)
+    timer_rows = (torch.nonzero(batch.valid & (batch.kind == KIND_TIMER)).flatten() if timed
+                  else torch.zeros(0, dtype=torch.int64, device=dev))
+    starts = slot_start.tolist()
+    new_state = {k: ({n_: a.clone() for n_, a in v.items()} if isinstance(v, dict)
+                     else v.clone()) for k, v in state.items()}
+    n_elem = 2 * p * w + bsz
+    birth = death = None
+    if emit_expired:
+        birth = torch.full((n_elem,), BIG, dtype=torch.int32, device=dev)
+        death = torch.full((n_elem,), BIG, dtype=torch.int32, device=dev)
+        death[:2 * p * w].view(p, 2 * w)[:, w:] = -1
+    next_timer = torch.full((), NO_TIMER, dtype=torch.int64, device=dev)
+    parts, lanes = [], []
+    for q in range(p):
+        lo, hi = starts[q], starts[q + 1]
+        if not timed and hi == lo:
+            continue
+        rows = _merged_rows(rowlist, lo, hi, timer_rows)
+        if rows.numel():
+            sub = _sub_batch(batch, rows)
+        else:  # a slot with no rows sees every row masked
+            rows = torch.zeros(1, dtype=torch.int64, device=dev)
+            sub = dataclasses.replace(_sub_batch(batch, rows),
+                                      valid=torch.zeros(1, dtype=torch.bool, device=dev))
+        st = _slot_state(state, q)
+        if timed:
+            out, b_pos, d_pos, nst, nt = time_batch_step_ref(
+                st, sub, wts[rows], now, w, t, start_time, timeout_ms, timer_mode, emit_expired)
+            next_timer = torch.minimum(next_timer, nt)
+        else:
+            out, b_pos, d_pos, nst = batch_window_step_ref(st, sub, n, emit_expired)
+        for k in _BATCH_STATE:
+            if isinstance(nst[k], dict):
+                for n_, a in nst[k].items():
+                    new_state[k][n_][q] = a
+            else:
+                new_state[k][q] = nst[k]
+        parts.append((q, out, int(out.valid.sum())))
+        if emit_expired:
+            real = sub.valid & (sub.kind == KIND_CURRENT)
+            elems = torch.cat([torch.arange(2 * q * w, 2 * (q + 1) * w, device=dev),
+                               2 * p * w + rows[real]])
+            sel = torch.cat([torch.ones(2 * w, dtype=torch.bool, device=dev), real])
+            lanes.append((elems, b_pos[sel], d_pos[sel]))
+        else:
+            lanes.append(None)
+    out, out_slot, out_first, dsts = _flatten_out(batch, parts, p)
+    if emit_expired:
+        for (elems, b_pos, d_pos), dst in zip(lanes, dsts):
+            birth[elems] = _to_flat(b_pos, dst)
+            death[elems] = _to_flat(d_pos, dst)
+    members = PartitionMembers(slot=out_slot, first=out_first, rowlist=rowlist,
+                               slot_start=slot_start,
+                               elem_slot=_batch_elem_slot(slot, active, p, w), w=2 * w)
+    return out, birth, death, new_state, next_timer, members
+
+
+def partition_batch_window_step(state: dict, batch: EventBatch, wts: torch.Tensor,
+                                now: torch.Tensor, slot: torch.Tensor, p: int, w: int, n, t,
+                                start_time, timeout_ms, timer_mode: int, emit_expired: bool):
+    """One batch window step (lengthBatch(n) when `n` is given, else the
+    time branch of timeBatch / externalTimeBatch with duration t) of every
+    partition at once, over a batch of B rows that each carry their
+    partition slot.
+
+    state:  each partition's buffers, `batch_window_step`'s lanes with a
+            leading [P] axis: {"cur_cols": {name: [P, w]}, "cur_ts": [P, w],
+            "cur_n": [P] int32, "prev_cols", "prev_ts", "prev_n",
+            "bucket_start", "timeout_deadline": [P] int64}
+    wts:    [B] int64 window time of each row (the time branch); now: 0-d
+            int64 clock; start_time, timeout_ms, timer_mode as
+            `time_batch_step`'s
+    slot:   [B] int32; a valid CURRENT row with a slot in [0, P) is an
+            arrival of its slot; a valid TIMER row reaches every slot (the
+            time branch)
+    returns (out, birth_pos, death_pos, new_state, next_timer, members):
+      out        EventBatch of every partition's flushes (EXPIRED, RESET,
+                 CURRENT rows), at least one row, ordered by (position
+                 within the partition, slot)
+      birth_pos / death_pos  [2*P*w + B] int32 lazy membership of the
+                 elements (slot q's open bucket slot j at 2qw + j, its
+                 previous bucket slot j at 2qw + w + j, then batch rows) in
+                 the flattened row space; None without the EXPIRED lanes
+      new_state  the buffers, counts, bucket starts and idle deadlines
+      next_timer 0-d int64: the earliest timer of any slot (NO_TIMER: none)
+      members    `PartitionMembers` (per-slot elements 2w)
+    The TIMER row count and the output's row count are read back (two
+    syncs a step).
+    """
+    if batch.ts.device.type == "cpu":
+        return partition_batch_window_step_ref(state, batch, wts, now, slot, p, w, n, t,
+                                               start_time, timeout_ms, timer_mode, emit_expired)
+    bufs = [state["cur_ts"], state["prev_ts"], *state["cur_cols"].values(),
+            *state["prev_cols"].values()]
+    scalars = [state[k] for k in ("cur_n", "prev_n", "bucket_start", "timeout_deadline")]
+    kernels.require_cuda("partition_batch_window_step", batch.ts, batch.kind, batch.valid, slot,
+                         wts, now, *batch.cols.values(), *bufs, *scalars)
+    bsz = batch.capacity
+    if any(x.shape != (bsz,) for x in (batch.kind, batch.valid, slot, wts,
+                                       *batch.cols.values())) or any(
+            x.shape != (p, w) for x in bufs) or any(x.shape != (p,) for x in scalars):
+        raise ValueError(f"partition_batch_window_step: lanes must be [{bsz}], buffers "
+                         f"[{p}, {w}] and counts [{p}]")
+    if (batch.ts.dtype, batch.kind.dtype, batch.valid.dtype, slot.dtype, wts.dtype, now.dtype,
+            *(x.dtype for x in scalars)) != (
+            torch.int64, torch.int8, torch.bool, torch.int32, torch.int64, torch.int64,
+            torch.int32, torch.int32, torch.int64, torch.int64) or any(
+            state["cur_cols"][c].dtype != a.dtype or state["prev_cols"][c].dtype != a.dtype
+            for c, a in batch.cols.items()) or now.shape != ():
+        raise ValueError("partition_batch_window_step: lane dtypes must be int64 ts/times, int8 "
+                         "kind, bool valid, int32 slot and counts, a 0-d int64 clock, and each "
+                         "buffer column the batch's")
+    timed = n is None
+    if w < 1 or p < 1 or bsz < 1 or (timed and t < 1) or (not timed and n != w):
+        raise ValueError(f"partition_batch_window_step: P {p}, w {w}, n {n}, t {t} out of range")
+    dev = batch.ts.device
+    stream = kernels.stream()
+    rank, rowlist, slot_start, timers = _i32(bsz, dev), _i32(bsz, dev), _i32(p + 1, dev), \
+        _i32(bsz, dev)
+    info = _i32(4, dev)
+    kernels.check(kernels.function("pb_rows")(
+        batch.kind.data_ptr(), batch.valid.data_ptr(), slot.data_ptr(), bsz, p, rank.data_ptr(),
+        rowlist.data_ptr(), slot_start.data_ptr(), timers.data_ptr(),
+        _i32(p + 1, dev).data_ptr(), info.data_ptr(), stream), "partition_batch_window_step")
+    n_timers = int(info[3]) if timed else 0  # a TIMER row flushes in every slot
+    stride = (3 * w if emit_expired else w) + n_timers + 1
+    cap = p * stride + (3 if emit_expired else 2) * bsz
+    n_elem = 2 * p * w + bsz
+    if cap >= 2**31 or n_elem >= 2**31:
+        raise ValueError(f"partition_batch_window_step: P {p} x w {w} and B {bsz} out of range")
+    loc_src, loc_row = _i32(cap, dev), _i32(cap, dev)
+    loc_kind = torch.empty(cap, dtype=torch.int8, device=dev)
+    n_slot = _i32(p, dev)
+    lbirth, ldeath = (_i32(n_elem, dev), _i32(n_elem, dev)) if emit_expired else (n_slot, n_slot)
+    cur_src, prev_src = _i32(p * w, dev), _i32(p * w, dev)
+    new_cur_n, new_prev_n = _i32(p, dev), _i32(p, dev)
+    new_bs = torch.empty(p, dtype=torch.int64, device=dev)
+    new_dl = torch.empty(p, dtype=torch.int64, device=dev)
+    next_timer = torch.full((), NO_TIMER, dtype=torch.int64, device=dev)
+    kernels.check(kernels.function("pb_step")(
+        bsz, w, p, int(n or 0), int(timed), int(emit_expired), int(start_time is not None),
+        int(timer_mode), int(t or 0), int(start_time or 0), int(timeout_ms or 0), wts.data_ptr(),
+        rowlist.data_ptr(), slot_start.data_ptr(), timers.data_ptr(), info.data_ptr(),
+        state["cur_n"].data_ptr(), state["prev_n"].data_ptr(), state["bucket_start"].data_ptr(),
+        state["timeout_deadline"].data_ptr(), now.data_ptr(), loc_src.data_ptr(),
+        loc_row.data_ptr(), loc_kind.data_ptr(), n_slot.data_ptr(), lbirth.data_ptr(),
+        ldeath.data_ptr(), cur_src.data_ptr(), prev_src.data_ptr(), new_cur_n.data_ptr(),
+        new_prev_n.data_ptr(), new_bs.data_ptr(), new_dl.data_ptr(), next_timer.data_ptr(),
+        stream), "partition_batch_window_step")
+    n_start, pos_base, oidx = _i32(p + 1, dev), _i32(cap + 1, dev), _i32(cap, dev)
+    counters = _i32(max(p, cap) + 1, dev)
+    kernels.check(kernels.function("pb_place")(
+        p, n_slot.data_ptr(), n_start.data_ptr(), pos_base.data_ptr(), oidx.data_ptr(),
+        counters.data_ptr(), info.data_ptr(), stream), "partition_batch_window_step")
+    n_out = max(int(info[0]), 1)  # the rows out, read back to size the output
+    out_ts = torch.empty(n_out, dtype=torch.int64, device=dev)
+    out_kind = torch.empty(n_out, dtype=torch.int8, device=dev)
+    out_valid = torch.empty(n_out, dtype=torch.bool, device=dev)
+    out_slot, out_first, out_src = _i32(n_out, dev), _i32(n_out, dev), _i32(n_out, dev)
+    birth = death = None
+    if emit_expired:
+        birth, death = _i32(n_elem, dev), _i32(n_elem, dev)
+    kernels.check(kernels.function("pb_emit")(
+        batch.ts.data_ptr(), state["cur_ts"].data_ptr(), state["prev_ts"].data_ptr(),
+        slot.data_ptr(), bsz, w, p, n_out, stride, int(emit_expired), rank.data_ptr(),
+        slot_start.data_ptr(), n_start.data_ptr(), oidx.data_ptr(), info.data_ptr(),
+        loc_src.data_ptr(), loc_row.data_ptr(), loc_kind.data_ptr(), lbirth.data_ptr(),
+        ldeath.data_ptr(), out_ts.data_ptr(), out_kind.data_ptr(), out_valid.data_ptr(),
+        out_slot.data_ptr(), out_first.data_ptr(), out_src.data_ptr(),
+        birth.data_ptr() if emit_expired else None, death.data_ptr() if emit_expired else None,
+        stream), "partition_batch_window_step")
+
+    def gather(cur, prev, bat, idx):
+        out = torch.empty(idx.shape[0], dtype=cur.dtype, device=dev)
+        fn = kernels.function(f"pb_gather_{cur.element_size()}")
+        kernels.check(fn(cur.data_ptr(), prev.data_ptr(), bat.data_ptr(), idx.data_ptr(),
+                         out.data_ptr(), idx.shape[0], w, p, stream),
+                      "partition_batch_window_step")
+        return out
+
+    sc, sp = state["cur_cols"], state["prev_cols"]
+    out = EventBatch(ts=out_ts, kind=out_kind, valid=out_valid,
+                     cols={c: gather(sc[c], sp[c], a, out_src) for c, a in batch.cols.items()})
+    new_state = {
+        "cur_cols": {c: gather(sc[c], sp[c], a, cur_src).view(p, w)
+                     for c, a in batch.cols.items()},
+        "cur_ts": gather(state["cur_ts"], state["prev_ts"], batch.ts, cur_src).view(p, w),
+        "cur_n": new_cur_n,
+        "prev_cols": {c: gather(sc[c], sp[c], a, prev_src).view(p, w)
+                      for c, a in batch.cols.items()},
+        "prev_ts": gather(state["cur_ts"], state["prev_ts"], batch.ts, prev_src).view(p, w),
+        "prev_n": new_prev_n,
+        "bucket_start": new_bs,
+        "timeout_deadline": new_dl,
+    }
+    members = PartitionMembers(slot=out_slot, first=out_first, rowlist=rowlist,
+                               slot_start=slot_start,
+                               elem_slot=_batch_elem_slot(slot, rank >= 0, p, w), w=2 * w)
+    kernels.launches["partition_batch_window_step"] += 1
+    return out, birth, death, new_state, next_timer, members
 
 
 def _fold_extreme(red, v, member, is_min: bool):

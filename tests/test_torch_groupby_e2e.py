@@ -348,8 +348,8 @@ SLICE7_APPS = [
 
 
 @pytest.mark.parametrize("ql", [
-    "partition with (symbol of S) begin from S select symbol, sum(volume) as t "
-    "group by symbol insert into Out; end;",
+    "partition with (symbol of S) begin from S#window.frequent(3, symbol) select symbol, "
+    "sum(volume) as t group by symbol insert into Out; end;",
     "define window W (symbol string, price float) length(5); "
     "from S select symbol, price insert into W;",
     "define trigger T at every 5 sec; from S select symbol insert into Out;",

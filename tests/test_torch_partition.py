@@ -9,7 +9,15 @@ rings and totals, the expanded membership and the extremes, exactly, over
 four carried batches with holes, TIMER rows, NaN, -0.0, int32/int64 nulls
 and rows of no partition (keys past capacity). Also the keyed K8/K19 use
 (slot = partition slot, no resets) against vmapped `running_sum` /
-`running_extreme` (float32 within a relative 2e-4, the rest exact).
+`running_extreme` (float32 within a relative 2e-4, the rest exact). And the
+partitioned sliding time window (K31, time / timeLength / disordered
+externalTime, rings evicting at capacity), the partitioned batch window
+(K32, lengthBatch / timeBatch with and without a start time /
+externalTimeBatch with an idle timeout, with and without the EXPIRED lanes)
+and the per-partition group-slot assignment (K33, RESET eras and overflow
+per partition) against `jax.vmap` of `SlidingWindow.apply`,
+`BatchWindow.apply` and `assign_slots` with the same masks: every lane, the
+state, next_timer, the expanded membership and the flags, exactly.
 """
 
 import numpy as np
@@ -276,3 +284,240 @@ def test_tile_matches_jax():
     np.testing.assert_array_equal(got["a"].numpy(), want["a"])
     np.testing.assert_array_equal(got["b"][0].numpy(), want["b"][0])
     np.testing.assert_array_equal(got["b"][1].numpy(), want["b"][1])
+
+
+# ---------------------------------------------------------------------------
+# K31 / K32 / K33: the partitioned time window, batch window and per-
+# partition group-slot assignment against jax.vmap of the JAX functions
+# ---------------------------------------------------------------------------
+
+from siddhi_tpu.core.windows import BatchWindow as JaxBatchWindow  # noqa: E402
+from siddhi_tpu.ops import group as jgroup  # noqa: E402
+from siddhi_tpu_torch.core.windows import (  # noqa: E402
+    NO_TIMER,
+    TIMER_BUCKET,
+    TIMER_NONE,
+    TIMER_TIMEOUT,
+)
+from siddhi_tpu_torch.ops.partition import (  # noqa: E402
+    partition_batch_window_step,
+    partition_time_window_step,
+)
+
+
+def _jax_window_vmap(win, p: int):
+    """jit of one step of `win` vmapped over [P]-tiled states with
+    partition.py's masks; the next timers min-reduced (`_reduce_paux`)."""
+
+    @jax.jit
+    def step(states, ts, kind, valid, cols, slot, now):
+        active = valid & (kind == 0) & (slot < p)
+        is_timer = valid & (kind == 2)
+
+        def one(state, q):
+            b2 = JaxBatch(ts, kind, (active & (slot == q)) | is_timer, cols)
+            st, fl = win.apply(state, JaxFlow(batch=b2, ref="S", now=now))
+            nt = fl.aux.get("next_timer", jnp.int64(NO_TIMER))
+            return st, fl.batch, fl.member, nt
+
+        sts, outs, members, nts = jax.vmap(one)(states, jnp.arange(p))
+        return sts, outs, members, nts.min()
+
+    return step
+
+
+def _torch_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _torch_tree(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def state_np(tree):
+    if isinstance(tree, dict):
+        return {k: state_np(v) for k, v in tree.items()}
+    return tree.numpy()
+
+
+def _check_flat(out, jout, p):
+    """The port's rows against `_flatten` of the vmapped output, compacted;
+    returns (q, pos) of each row in the JAX [P, K] output."""
+    flat = _flatten(jout)
+    keep = np.asarray(flat.valid)
+    n = int(keep.sum())
+    assert out.valid.shape == (max(n, 1),)
+    assert out.valid[:n].all() and not out.valid[n:].any()
+    np.testing.assert_array_equal(out.ts[:n].numpy(), np.asarray(flat.ts)[keep])
+    np.testing.assert_array_equal(out.kind[:n].numpy(), np.asarray(flat.kind)[keep])
+    for c in out.cols:
+        np.testing.assert_array_equal(out.cols[c][:n].numpy(), np.asarray(flat.cols[c])[keep])
+    fi = np.nonzero(keep)[0]
+    return n, fi % p, fi // p
+
+
+def _check_members(n, q, pos, birth, death, elem_slot, jmember, ids):
+    rr = np.arange(n)[:, None]
+    bn, dn, es = birth.numpy()[ids], death.numpy()[ids], elem_slot.numpy()[ids]
+    got = (es == q[:, None]) & (bn <= rr) & (rr < dn)
+    np.testing.assert_array_equal(got, np.asarray(jmember)[q, pos])
+
+
+def _time_batch(rng, b, p, t0, spread, disorder):
+    d = _batch(rng, b, p, t0)
+    d["ts"] = t0 + np.sort(rng.integers(0, spread, b)).astype(np.int64)
+    if disorder:  # an externalTime attribute out of order
+        d["cols"]["volume"] = d["ts"] + rng.integers(-disorder, disorder + 1, b)
+    return d
+
+
+# (P, B, W, t, window): time(t) on ts, timeLength(t, W), externalTime on
+# `volume` (disordered); W small enough that rings evict at capacity
+TW_CASES = [(1, 1, 4, 5, "time"), (8, 33, 4, 20, "time"), (33, 33, 2, 10, "timelength"),
+            (8, 513, 16, 40, "ext"), (33, 513, 4, 25, "ext"), (5, 513, 64, 100, "time")]
+
+
+@pytest.mark.parametrize("p,b,w,t,kind", TW_CASES)
+def test_partition_time_window_step(p, b, w, t, kind):
+    """Four carried batches of arrivals with TIMER, EXPIRED, invalid and
+    no-partition rows: K31's rows, rings, next timer and membership against
+    the vmapped JAX SlidingWindow (time path), flattened and compacted."""
+    rng = np.random.default_rng(7 * p + b + w)
+    ext = kind == "ext"
+    win = JaxSlidingWindow(JSCHEMA, "S", capacity=w, duration_ms=t,
+                           time_attr="volume" if ext else None, use_scheduler=not ext)
+    step = _jax_window_vmap(win, p)
+    jstates = _jtile(win.init_state(), p)
+    state = _torch_tree(jstates)
+    for i in range(4):
+        d = _time_batch(rng, b, p, 3 * t * i, 3 * t, t // 2 if ext else 0)
+        jst2, jout, jmember, jnext = step(
+            jstates, jnp.asarray(d["ts"]), jnp.asarray(d["kind"]), jnp.asarray(d["valid"]),
+            {n: jnp.asarray(c) for n, c in d["cols"].items()}, jnp.asarray(d["slot"]),
+            jnp.int64(0))
+        batch = _port_batch(d)
+        bwts = batch.cols["volume"] if ext else batch.ts
+        out, birth, death, new_state, next_timer, m = partition_time_window_step(
+            state, batch, bwts, torch.from_numpy(d["slot"]), w, t, p)
+        n, q, pos = _check_flat(out, jout, p)
+        np.testing.assert_array_equal(m.slot[:n].numpy(), q)
+        ids = np.concatenate([np.arange(w)[None, :] + w * q[:, None],
+                              np.broadcast_to(p * w + np.arange(b), (n, b))], axis=1)
+        _check_members(n, q, pos, birth, death, m.elem_slot, jmember, ids)
+        np.testing.assert_equal(state_np(new_state), jax.tree_util.tree_map(np.asarray, jst2))
+        if not ext:
+            assert int(next_timer) == int(jnext)
+        state, jstates = new_state, jst2
+
+
+# (P, B, w, n, t, window, emit_expired): lengthBatch(n); timeBatch(t) with
+# or without a start time; externalTimeBatch(volume, t) with an idle timeout
+BW_CASES = [(1, 1, 4, 4, None, "length", True), (8, 33, 4, 4, None, "length", False),
+            (33, 513, 8, 8, None, "length", True), (8, 33, 4, None, 10, "timebatch", True),
+            (33, 513, 16, None, 25, "timebatch_start", False),
+            (8, 513, 16, None, 25, "timebatch", True), (5, 33, 8, None, 10, "ext", True),
+            (8, 513, 64, None, 40, "ext_timeout", True),
+            (33, 33, 4, None, 10, "ext_timeout", False)]
+
+
+@pytest.mark.parametrize("p,b,w,n,t,kind,emit", BW_CASES)
+def test_partition_batch_window_step(p, b, w, n, t, kind, emit):
+    """Four carried batches (arrivals, TIMER rows reaching every slot, a
+    clock around the idle deadline): K32's rows, buffers, counts, bucket
+    starts, deadlines, next timer and membership against the vmapped JAX
+    BatchWindow, flattened and compacted."""
+    rng = np.random.default_rng(11 * p + b + w)
+    ext = kind.startswith("ext")
+    start = 7 if kind == "timebatch_start" else None
+    timeout = 15 if kind == "ext_timeout" else None
+    sched = kind.startswith("timebatch")
+    win = JaxBatchWindow(JSCHEMA, "S", capacity=w, length=n, duration_ms=t,
+                         time_attr="volume" if ext else None, use_scheduler=sched,
+                         start_time=start, timeout_ms=timeout)
+    win.emit_expired = emit
+    mode = TIMER_TIMEOUT if timeout else TIMER_BUCKET if sched else TIMER_NONE
+    step = _jax_window_vmap(win, p)
+    jstates = _jtile(win.init_state(), p)
+    state = _torch_tree(jstates)
+    now = 1000
+    for i in range(4):
+        d = _time_batch(rng, b, p, 3 * (t or 4) * i, 3 * (t or 4), 0)
+        d["cols"]["volume"] = d["ts"].copy()
+        if timeout is not None:
+            dls = np.asarray(jstates["timeout_deadline"])
+            live = dls[dls != NO_TIMER]
+            now = int(live.min()) + int(rng.choice([-3, 3])) if live.size else now + 7
+        jst2, jout, jmember, jnext = step(
+            jstates, jnp.asarray(d["ts"]), jnp.asarray(d["kind"]), jnp.asarray(d["valid"]),
+            {c: jnp.asarray(a) for c, a in d["cols"].items()}, jnp.asarray(d["slot"]),
+            jnp.int64(now))
+        batch = _port_batch(d)
+        out, birth, death, new_state, next_timer, m = partition_batch_window_step(
+            state, batch, batch.cols["volume"] if ext else batch.ts, torch.tensor(now),
+            torch.from_numpy(d["slot"]), p, w, n, t, start, timeout, mode, emit)
+        cnt, q, pos = _check_flat(out, jout, p)
+        np.testing.assert_array_equal(m.slot[:cnt].numpy(), q)
+        if emit:
+            ids = np.concatenate([np.arange(2 * w)[None, :] + 2 * w * q[:, None],
+                                  np.broadcast_to(2 * p * w + np.arange(b), (cnt, b))], axis=1)
+            _check_members(cnt, q, pos, birth, death, m.elem_slot, jmember, ids)
+        else:
+            assert birth is None and jmember is None
+        np.testing.assert_equal(state_np(new_state), jax.tree_util.tree_map(np.asarray, jst2))
+        if sched or timeout:
+            assert int(next_timer) == int(jnext)
+        state, jstates = new_state, jst2
+
+
+@jax.jit
+def _jax_assign_vmap(keys, used, n, bk, active, reset, pslot):
+    p = keys.shape[0]
+
+    def one(k, u, c, q):
+        nk, nu, nn, slot, grp, over = jgroup.assign_slots(
+            k, u, c, bk, active & (pslot == q), reset & (pslot == q))
+        return nk, nu, nn, slot, (grp.perm, grp.seg_start), over
+
+    return jax.vmap(one)(keys, used, n, jnp.arange(p))
+
+
+# (P, rows, G, distinct keys, RESET share)
+K33_CASES = [(1, 1, 4, 3, 0.0), (4, 33, 4, 10, 0.1), (8, 513, 8, 12, 0.02),
+             (33, 513, 16, 40, 0.0), (3, 513, 16, 40, 0.01)]
+
+
+@pytest.mark.parametrize("p,rows,g,nkeys,rp", K33_CASES)
+def test_partition_assign_slots(p, rows, g, nkeys, rp):
+    """Three carried calls: each row's slot (its partition's lane of the
+    vmap), the P tables, counts and per-partition overflow flags exactly;
+    the segment heads equal the JAX sorted view's on active rows."""
+    rng = np.random.default_rng(p * rows + g)
+    jt = (jnp.zeros((p, g), jnp.int64), jnp.zeros((p, g), bool), jnp.zeros(p, jnp.int32))
+    pt = tuple(torch.from_numpy(np.array(x)) for x in jt)
+    for call in range(3):
+        keys = rng.integers(0, nkeys, rows).astype(np.int64) * 7919 - 3
+        u = rng.random(rows)
+        reset = u < rp
+        active = (u >= rp) & (u < 0.92)
+        pslot = np.where(rng.random(rows) < 0.05, p, rng.integers(0, p, rows)).astype(np.int32)
+        nk, nu, nn, jslot, (perm, seg_start), jover = _jax_assign_vmap(
+            *jt, jnp.asarray(keys), jnp.asarray(active), jnp.asarray(reset), jnp.asarray(pslot))
+        out = group.partition_assign_slots(*pt, torch.from_numpy(keys),
+                                           torch.from_numpy(active), torch.from_numpy(reset),
+                                           torch.from_numpy(pslot), p)
+        for got, want in zip(out[:3], (nk, nu, nn)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(out[5].numpy(), np.asarray(jover))
+        member = (active | reset) & (pslot < p)
+        ps = np.minimum(pslot, p - 1)
+        want_slot = np.where(member, np.asarray(jslot)[ps, np.arange(rows)], g)
+        np.testing.assert_array_equal(out[3].numpy(), want_slot)
+        first = out[4].numpy()
+        for q in range(p):
+            sel = active & (pslot == q)
+            pm, ss = np.asarray(perm)[q], np.asarray(seg_start)[q]
+            heads = np.asarray(jprefix.segmented_carry(jnp.asarray(pm), jnp.asarray(ss)))
+            jfirst = np.empty_like(heads)
+            jfirst[pm] = heads
+            np.testing.assert_array_equal(first[sel], jfirst[sel])
+        assert (first[~active] == np.arange(rows)[~active]).all()
+        jt = (nk, nu, nn)
+        pt = out[:3]

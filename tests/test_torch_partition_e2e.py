@@ -3,13 +3,15 @@ app and events through `siddhi_tpu` (JAX) and `siddhi_tpu_torch`
 (device="cpu") — the `partitioned` verify case against VERIFY.json and JAX;
 the single-stream tests of tests/test_partition.py and
 tests/test_golden_partition.py under their own assertions with the port's
-manager swapped in (their join, pattern, lengthBatch and time-window tests
-must raise "not ported yet"); the row order of a partitioned length window
+manager swapped in (their join and pattern tests must raise "not ported
+yet"); the row order of a partitioned length window
 (rank within the partition, not arrival); path PT of chip_smoke.py, inner
 streams two deep, range partitions, two streams sharing one key table,
 every aggregator, table writes and overflowing key tables, at batch 16 and
 33, against JAX; a JAX partition state carried in through
-`partition_state_from_jax`; the forms left out raising. Floats match to a
+`partition_state_from_jax`; the forms a partition took from PR 11 on
+against JAX, the forms left out raising, and a table update, delete or
+upsert from a partition refused as JAX refuses it. Floats match to a
 relative 2e-4 (bench.py:_rows_match); everything else exactly.
 """
 
@@ -29,6 +31,7 @@ import jax  # noqa: E402
 import bench  # noqa: E402
 import chip_smoke  # noqa: E402
 import siddhi_tpu  # noqa: E402
+from siddhi_tpu.core.errors import DefinitionNotExistError as JaxDefinitionNotExistError  # noqa: E402,E501
 import siddhi_tpu_torch  # noqa: E402
 from siddhi_tpu_torch.core import errors as port_errors  # noqa: E402
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError  # noqa: E402
@@ -90,11 +93,10 @@ def test_partitioned_verify_case():
 # ---------------------------------------------------------------------------
 
 MODULES = ("tests.test_partition", "tests.test_golden_partition")
-# joins, patterns and the windows other than length inside a partition wait
-# for later slices: these raise "not ported yet"
+# joins and patterns inside a partition wait for later slices: these raise
+# "not ported yet"
 UNPORTED = {"test_per_key_join_windows", "test_per_key_pattern",
-            "test_window_partition2_length_batch", "test_pattern_partition_counts_per_key",
-            "test_time_window_in_partition_playback", "test_absent_pattern_in_partition"}
+            "test_pattern_partition_counts_per_key", "test_absent_pattern_in_partition"}
 
 
 def _cases():
@@ -374,21 +376,71 @@ def test_inner_query_callback_sees_its_rows():
     assert bench._rows_match(got["siddhi_tpu_torch"], got["siddhi_tpu"])
 
 
-@pytest.mark.parametrize("body", [
+# forms a partition took from PR 11 on: each against JAX (the time window
+# under playback)
+FORMERLY_LEFT_OUT = [
     "from S#window.lengthBatch(4) select symbol, sum(volume) as t insert into Out;",
     "from S#window.time(1 sec) select symbol, sum(volume) as t insert into Out;",
-    "from S#window.sort(3, price) select symbol insert into Out;",
     "from S select symbol, sum(volume) as t group by symbol insert into Out;",
     "from S select symbol, price order by price insert into Out;",
     "from S select symbol, price limit 2 insert into Out;",
     "from S select symbol, price output last every 3 events insert into Out;",
     "from S#pol2Cart(price, price) select symbol, x insert into Out;",
+]
+
+
+@pytest.mark.parametrize("body", FORMERLY_LEFT_OUT)
+def test_formerly_left_out_forms_match_jax(body):
+    playback = "@app:playback\n" if "time(" in body else ""
+    ql = playback + _head(16, 8) + PART.format(body=body)
+    rows, ts = _events(48, 6, seed=len(body))
+    got = {_pkg(m): _run(m, ql, [("S", rows, ts)], 20) for m in _managers()}
+    assert len(got["siddhi_tpu"]["Out"]) > 3
+    assert bench._rows_match(got["siddhi_tpu_torch"], got["siddhi_tpu"])
+
+
+@pytest.mark.parametrize("body", [
+    "from S#window.sort(3, price) select symbol insert into Out;",
+    "from S#window.frequent(2, symbol) select symbol insert into Out;",
+    "from S#window.lossyFrequent(0.1, 0.01, symbol) select symbol insert into Out;",
+    "from S#window.cron('*/1 * * * * ?') select symbol insert into Out;",
     "from S#window.length(2) as a join S#window.length(2) as b on a.volume == b.volume "
     "select a.symbol insert into Out;",
+    "from S#window.time(1 sec) as a join T on a.symbol == T.symbol select a.symbol "
+    "insert into Out;",
+    "from S as a unidirectional join S#window.lengthBatch(2) as b on a.volume == b.volume "
+    "select a.symbol insert into Out;",
     "from every e1=S[price > 90] -> e2=S[price < 10] select e1.symbol as s insert into Out;",
+    "from e1=S[price > 90], e2=S[price < 10] select e1.symbol as s insert into Out;",
+    "from every e1=S[price > 90] -> not S[price < 10] for 1 sec select e1.symbol as s "
+    "insert into Out;",
     "from S[(T.symbol == symbol) in T] select symbol, price insert into Out;",
 ])
 def test_left_out_forms_raise(body):
     ql = _head(16, 8) + "define table T (symbol string);\n" + PART.format(body=body)
     with pytest.raises(SiddhiAppCreationError, match="not ported yet"):
         _port().create_siddhi_app_runtime(ql)
+
+
+@pytest.mark.parametrize("window", ["", "#window.length(2)"])
+@pytest.mark.parametrize("output", [
+    "update T on T.symbol == symbol",
+    "delete T on T.symbol == symbol",
+    "update or insert into T on T.symbol == symbol",
+])
+def test_partitioned_table_mutation_raises_as_jax(window, output):
+    """`update`, `delete` and `update or insert into` a table from inside a
+    partition: the JAX package compiles the inner query with no table in
+    scope, so both packages refuse the app with the same error class and
+    message (the reference's TablePartitionTestCase runs them)."""
+    ql = (_head(16, 8) + "define table T (symbol string, t long);\n"
+          + PART.format(body=f"from S{window} select symbol, sum(volume) as t {output};"))
+    msgs = {}
+    for mgr in _managers():
+        err = (JaxDefinitionNotExistError if _pkg(mgr) == "siddhi_tpu"
+               else port_errors.DefinitionNotExistError)
+        with pytest.raises(err) as info:
+            mgr.create_siddhi_app_runtime(ql)
+        msgs[_pkg(mgr)] = str(info.value)
+        mgr.shutdown()
+    assert msgs["siddhi_tpu_torch"] == msgs["siddhi_tpu"] == "'T' is not a defined table"
