@@ -45,7 +45,13 @@ engine next to it. Phases, each printed as it ends:
      window K32 at path PTB's shape and at a lengthBatch(64) over P=1024,
      idle timeouts, and the per-partition group-slot assignment K33 with a
      partition overflowing, ragged shapes among them, bit for bit (see
-     partition_windows_kernel_phase);
+     partition_windows_kernel_phase); the keyed pattern kernels K34-K37
+     (slot pass, count pass, completions, per-event scan), the chunk lists
+     and the placement at paths PPF, PPC and PPA's shapes (P=1024,
+     T=128), a TIMER step over 1,024 slots, ragged B/P/T, chunks across a
+     slot's rows, fork and emission overflow in one slot, fresh slots,
+     two streams on one key table, bit for bit (see
+     partition_pattern_kernel_phase);
   3. verify cases filter_num, len_window_avg, len_window_minmax,
      len_batch_group, having_order, stddev_distinct, time_window,
      external_time, self_join, pattern_within, count_seq,
@@ -70,9 +76,9 @@ engine next to it. Phases, each printed as it ends:
      on volume, @app:batch 8192, joinCapacity 8192), 2,000,000 events fused
      and a 20-batch per-batch prefix, in the same way; path T, the same
      self-join over time(1 sec) windows under @app:playback (joinCapacity
-     16384), 250,000 events per batch with the TIMER steps the event-time
+     16384), 65,536 events per batch with the TIMER steps the event-time
      clock sends; path T2, a time(1 sec) window with avg/min/max at batch
-     32768 under @app:playback, 16 batches. Each path's own launch counts,
+     32768 under @app:playback, 8 batches. Each path's own launch counts,
      no join overflow, the first 4 batches against device="cpu";
   7. path P, pattern_2state (BASELINE.json config 4: every a1[price > 95] ->
      a2[price < 5] within 1 sec, patternCapacity 4096, chunks of 2048) with
@@ -93,7 +99,7 @@ engine next to it. Phases, each printed as it ends:
      its first 8,192 events;
   9. the tumbling time windows (see tb_path_phase and xb_path_phase): path
      TB, timeBatch(1 sec) group by symbol with avg, stdDev, min, max,
-     maxForever, distinctCount and count under @app:playback, 16 batches'
+     maxForever, distinctCount and count under @app:playback, 8 batches'
      events one 1,000-event bucket a call with its TIMER step; path XB,
      externalTimeBatch(ets, 1 sec) with avg, stdDev, max, minForever,
      distinctCount and count, 1,000,000 events fused and a 20-batch
@@ -132,7 +138,15 @@ engine next to it. Phases, each printed as it ends:
      @app:playback, one bucket a call with its TIMER step) and PTT (PTE on
      time(1 sec) under @app:playback, 8,192 events with every TIMER step
      reaching every partition); launches held to the steps, events/s, the
-     busy share (PTE) and each path's first call against device="cpu".
+     busy share (PTE) and each path's first call against device="cpu";
+     then patterns inside a partition (PP_PATTERNS; see
+     partition_pattern_path_phase): PPF (the partitioned pattern_2state on
+     the fast route, K34/K36), PPC (a count <2:4>, K35/K36), 1,000,000
+     events per batch each, and PPA (an absent pattern under
+     @app:playback, K37, PPA_BATCHES calls of one batch with a TIMER step
+     per deadline over every slot); launches held to the steps,
+     events/s, the busy share and each path's first events against
+     device="cpu".
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
 
@@ -142,9 +156,10 @@ stops after phase 2 (each kernel against its plain version, and its times).
 
     python3 chip_smoke.py --partition
 
-builds the kernels and runs only the partition slices: K29-K33 against
-their plain versions, and paths PT, PTE, PTB and PTT;
-`--partition-kernels` stops after K29-K33.
+builds the kernels and runs only the partition slices: K29-K37 against
+their plain versions, and paths PT, PTE, PTB, PTT, PPF, PPC and PPA;
+`--partition-kernels` stops after K29-K37, and `--partition-patterns` runs
+only K34-K37 and paths PPF, PPC and PPA (`--no-paths`: only K34-K37).
 
     python3 chip_smoke.py --profile
 
@@ -200,7 +215,9 @@ insert into Out;
 
 # slice 4: joins (bench.py sliding_join, BASELINE.json config 3) and time windows
 JOIN_BATCH, JOIN_W, JOIN_CAP, TIME_JOIN_CAP, TIME_W = 8192, 100, 8192, 16384, 1024
-JOIN_EVENTS, TIME_JOIN_EVENTS, TIME_AGG_BATCHES = 2_000_000, 250_000, 16
+# T and T2 run 65,536 events and 8 batches (250,000 and 16 until the
+# partitioned patterns' paths joined the script's time)
+JOIN_EVENTS, TIME_JOIN_EVENTS, TIME_AGG_BATCHES = 2_000_000, 65_536, 8
 JOIN_APP = """
 @app:joinCapacity(size='{cap}')
 @app:batch(size='{batch}')
@@ -344,6 +361,33 @@ partition with (symbol of StockStream) begin
 end;
 """
 PT_W, PT_CAP, PT_SYMBOLS, PT_EVENTS = 50, 1024, 1000, 1_000_000
+
+# patterns inside a partition (see partition_pattern_path_phase): the
+# partitioned pattern_2state (PPF, the fast route), a count (PPC) and an
+# absent pattern under playback (PPA, the scan with its TIMER steps)
+PP_APP = """{playback}@app:batch(size='{batch}') @app:partitionCapacity(size='{cap}')
+define stream StockStream (symbol string, price float, volume long);
+partition with (symbol of StockStream) begin
+  @info(name='q') from {pattern}
+    select {select} insert into Out;
+end;
+"""
+PP_PATTERNS = {
+    "PPF": ("every e1=StockStream[price > 95] -> e2=StockStream[price < 5] within 1 min",
+            "e1.symbol as s, e1.price as p1, e2.price as p2"),
+    "PPC": ("every a1=StockStream[price > 90]<2:4> -> a2=StockStream[price < 10]",
+            "a1[0].symbol as s, a1[0].price as p1, a1[1].price as p2, a2.price as p3"),
+    "PPA": ("every e1=StockStream[price > 95] -> not StockStream[price < 5] for 100 milliseconds",
+            "e1.symbol as s, e1.price as p1"),
+}
+PP_EVENTS, PPA_BATCHES = 1_000_000, 8
+
+
+def partition_pattern_app(path: str, batch: int, cap: int) -> str:
+    pattern, select = PP_PATTERNS[path]
+    return PP_APP.format(playback="@app:playback\n" if path == "PPA" else "", batch=batch,
+                         cap=cap, pattern=pattern, select=select)
+
 
 # the time and batch windows inside a partition (see partition_windows_path_phase)
 _PTW_STREAM = "define stream StockStream (symbol string, price float, volume long, ets long);"
@@ -1643,7 +1687,9 @@ def pattern_scan_kernel_phase(torch, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 TB_BATCH, TB_W, TB_T, TB_G = 32768, 1024, 1000, 1024  # B, time capacity, 1 sec, groups
-TB_BATCHES, XB_EVENTS, TB_CHECK_BATCH = 16, 1_000_000, 4096
+# TB and PTB send 8 batches' worth of buckets (16 until the partitioned
+# patterns' paths joined the script's time)
+TB_BATCHES, XB_EVENTS, TB_CHECK_BATCH = 8, 1_000_000, 4096
 TB_APP = """@app:playback @app:batch(size='{batch}')
 define stream StockStream (symbol string, price float, volume long);
 @info(name='q') from StockStream#window.timeBatch(1 sec)
@@ -3025,6 +3071,581 @@ def partition_windows_kernel_phase(torch, dev) -> dict:
     return res
 
 
+PP_KERNELS = ("partition_pattern_advance", "partition_pattern_count", "partition_pattern_emit",
+              "partition_pattern_scan", "pattern_chunks", "pattern_place", "partition_rows")
+PP_T = 128  # @app:patternCapacity's default: T a partition
+# each wrapper's CUDA kernels, by the names torch.profiler gives them
+PP_DEVICE_NAMES = {
+    "partition_pattern_advance": ("advance_kernel(", "fork_kernel("),
+    "partition_pattern_count": ("count_kernel(",),
+    "partition_pattern_emit": ("emit_kernel(",),
+    "partition_pattern_scan": ("scan_kernel(",),
+    "pattern_chunks": ("chunks_kernel(",),
+    "pattern_place": ("place_stretch_kernel(", "place_rows_kernel(", "gather_kernel("),
+    "partition_rows": ("window_rows_kernel(",),
+}
+
+
+def device_ms(torch, setup, fn, reps: int, names) -> float:
+    """Mean device time per fn() call of the CUDA kernels whose names hold
+    one of `names`, from torch.profiler over `reps` calls, each after
+    setup() (whose kernels are not counted): the kernels alone, without the
+    wrapper's host work. Raises when the profiler records none of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    setup()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            setup()
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if any(n in e.key for n in names):
+            dev_us = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if dev_us is None else dev_us
+    if us <= 0:
+        raise AssertionError(f"torch.profiler recorded no device time for {names}")
+    return us / 1e3 / reps
+
+
+def changed_bytes(torch, before, after) -> int:
+    """Bytes of the elements of a tree of tensors that differ bit for bit
+    (the least a function updating them in place must write)."""
+    total = 0
+    for b, a in zip(flat(before), flat(after), strict=True):
+        n = a.numel()
+        if not n:
+            continue
+        bb, ab = (x.contiguous().reshape(-1).view(torch.uint8).reshape(n, -1) for x in (b, a))
+        total += int((bb != ab).any(1).sum()) * bb.shape[1]
+    return total
+
+
+def time_inplace(torch, setup, fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` calls, each after setup() (not
+    timed) restores the state fn updates in place; CUDA events."""
+    setup()
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        setup()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def partition_pattern_kernel_phase(torch, dev) -> dict:
+    """The keyed pattern kernels against their plain versions on the card,
+    bit for bit on every lane of the [P*T] token table, the entry rows, the
+    emission stretches and their counts, the overflow flag and the placed
+    rows: the chunk lists and each chunk's K34 passes and K36 completions
+    at path PPF's shape (P=1024, T=128, B=32768, C=64, 1,000 keys) on
+    three chunks, K35 at PPC's (C=256) on three chunks, K37 at PPA's
+    (P=1024, T=128, 1,000 keys) on a 4,096-row data step and on a TIMER
+    step over 1,024 slots with deadlines due in 8; then every chunk of
+    ragged B/P/T (P 5 and 33: not multiples of 32) with TIMER
+    and unmatched rows, chunks cut across one slot's run of rows, slots
+    left at their initial table (first used mid-batch), the `every` fork
+    overflowing in one slot only, an emission stretch overflowing in one
+    slot only, sequences, a count tail slot, a cross-ref [P*T, C]
+    condition and two streams on one key table; the placement
+    (`pattern_place`) after each run."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core import pattern as PM
+    from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.core.pattern_runtime import PatternPartition
+    from siddhi_tpu_torch.ops import partition as K
+
+    k34, k35, k36, k37, kch, kpl, kr = PP_KERNELS
+    res = {k: {"max_abs_err": 0.0, "checks": 0} for k in PP_KERNELS}
+    rng = np.random.default_rng(1212)
+    t0 = 1_700_000_000_000
+    kernel_fn = {k34: PM.partition_pattern_advance, k35: PM.partition_pattern_count,
+                 k36: PM.partition_pattern_emit}
+    plain_fn = {k34: PM.partition_pattern_advance_ref, k35: PM.partition_pattern_count_ref,
+                k36: PM.partition_pattern_emit_ref}
+
+    def query(pattern, T, P, B, select="e1.symbol as s"):
+        ql = (f"@app:batch(size='{B}') @app:partitionCapacity(size='{P}') "
+              f"@app:patternCapacity(size='{T}')\n"
+              "define stream S (symbol string, price float, volume long);\n"
+              "define stream S2 (symbol string, price float, volume long);\n"
+              "partition with (symbol of S, symbol of S2) begin @info(name='q') "
+              f"from {pattern} select {select} insert into Out; end;")
+        return SiddhiManager(device=dev).create_siddhi_app_runtime(ql).queries["q"]
+
+    def clone(tok):
+        return PM._tok_map(tok, torch.clone)
+
+    def table(qr, P, active=0.5, done=False, virgin=0.1, count=False):
+        """A random [P*T] token table; `virgin` of the slots left at the
+        initial table (a key first seen in this batch)."""
+        prog = qr.prog
+        T, S, N = prog.T, len(prog.slots), P * prog.T
+        tok = PM.keyed_tok(qr.init_state(t0)["tok"])
+        lane0 = np.arange(N) % T == 0
+        keep = torch.from_numpy(np.repeat(rng.random(P) < virgin, T)).to(dev)
+        act = (rng.random(N) < active) | lane0
+        sl = rng.integers(0, S + 1 if done else S, N).astype(np.int32)
+        sl[lane0] = 0
+        start = np.where(rng.random(N) < 0.3, -1, t0 - rng.integers(0, 2000, N))
+        start[lane0] = -1
+        new = {"active": act, "slot": sl, "start_ts": start.astype(np.int64),
+               "entry_ts": (t0 - rng.integers(0, 500, N)).astype(np.int64)}
+
+        def mix(old, arr):
+            x = torch.from_numpy(arr).to(device=dev, dtype=old.dtype)
+            k = keep.reshape((N,) + (1,) * (old.dim() - 1))
+            return torch.where(k, old, x)
+
+        for k, v in new.items():
+            tok[k] = mix(tok[k], v)
+        for a, c in zip(prog.refs, tok["caps"]):
+            n = rng.integers(0, a.cap + 3 if count else 2, N).astype(np.int32)
+            n[lane0] = 0
+            c["n"] = mix(c["n"], n)
+            c["ts"] = mix(c["ts"], t0 - rng.integers(0, 500, tuple(c["ts"].shape)))
+            for name, arr in c["cols"].items():
+                vals = (rng.uniform(0, 100, tuple(arr.shape)) if arr.dtype.is_floating_point
+                        else rng.integers(1, 9, tuple(arr.shape)))
+                c["cols"][name] = mix(arr, vals)
+        return tok
+
+    def batch(B, P, keys=None, timer=0.0, dense=False, one_slot=None, t_start=t0):
+        ts = t_start + np.cumsum(rng.integers(0, 3, B))
+        kind = np.where(rng.random(B) < timer, 2, 0).astype(np.int8)
+        slot = rng.integers(0, keys or P, B)
+        if one_slot is not None:
+            slot[:] = one_slot
+        slot[rng.random(B) < 0.03] = P  # rows of no partition
+        price = (np.where(rng.random(B) < 0.5, 99.5, 0.5) if dense
+                 else rng.uniform(0, 100, B)).astype(np.float32)
+        bt = EventBatch(
+            ts=torch.from_numpy(ts.astype(np.int64)).to(dev),
+            kind=torch.from_numpy(kind).to(dev),
+            valid=torch.from_numpy(rng.random(B) < 0.97).to(dev),
+            cols={"symbol": torch.from_numpy(rng.integers(1, 9, B).astype(np.int32)).to(dev),
+                  "price": torch.from_numpy(price).to(dev),
+                  "volume": torch.from_numpy(rng.integers(1, 1000, B)).to(dev)})
+        return bt, torch.from_numpy(slot.astype(np.int32)).to(dev)
+
+    class St:
+        def __init__(self, tok, er, emis, ovf):
+            self.tok, self.er, self.emis, self.ovf = tok, er, emis, ovf
+
+        def lanes(self):
+            return [self.tok, self.er, self.emis.out, self.emis.n, self.ovf]
+
+    def chunk_states(qr, P, tok, caps):
+        prog = qr.prog
+        out = []
+        for _ in range(2):
+            out.append(St(clone(tok), torch.full((P * prog.T,), -1, dtype=torch.int32,
+                                                 device=dev),
+                          PM.keyed_out(prog, caps, qr.out_cap),
+                          torch.zeros((), dtype=torch.bool, device=dev)))
+        return out
+
+    def check_chunks(ch, P):
+        want = K.pattern_chunks_ref(ch.ts, ch.v, ch.slot, ch.C, P)
+        torch.cuda.synchronize()
+        same_bits(torch, [ch.rows, ch.srow, ch.nseg], [want.rows, want.srow, want.nseg])
+        live = torch.arange(ch.k * ch.C, device=dev) % ch.C < ch.nseg.repeat_interleave(ch.C)
+        same_bits(torch, [x[live] for x in (ch.seg_slot, ch.seg_lo, ch.seg_hi)],
+                  [x[live] for x in (want.seg_slot, want.seg_lo, want.seg_hi)])
+        res[kch]["checks"] += 1
+
+    def check_place(emis, P):
+        got = K.pattern_place(emis.out, emis.off, emis.cap, emis.n, P)
+        want = K.pattern_place_ref(emis.out, emis.off, emis.cap, emis.n, P)
+        torch.cuda.synchronize()
+        same_bits(torch, list(got), list(want))
+        res[kpl]["checks"] += 1
+        return got
+
+    def chunk_route(label, qr, P, tok, bt, slot, sid="S", chunks=None, emis_caps=None,
+                    want_overflow=None):
+        """Each chunk through the path's own dispatch (`keyed_chunk`: K35,
+        K34 for each NFA slot, K36), each kernel against its plain version
+        from the same state (the plain version's state carries on)."""
+        prog = qr.prog
+        now = torch.tensor(int(bt.ts.max()), device=dev)
+        pctx = PatternPartition(slot=slot, used=None, fresh=None, p=P, overflow=None)
+        ch, caps, inputs = qr.keyed_chunk_inputs(bt, now, sid, pctx)
+        check_chunks(ch, P)
+        if emis_caps is not None:
+            caps = emis_caps(caps)
+        sk, sr = chunk_states(qr, P, tok, caps)
+
+        def checked(name):
+            def call(*args, **kw):
+                if chunks is not None:  # a chunk taken alone starts from the plain state
+                    sk.tok, sk.er, sk.ovf = clone(sr.tok), sr.er.clone(), sr.ovf.clone()
+                    sk.emis.n.copy_(sr.emis.n)
+                    for k_, v_ in sr.emis.out.items():
+                        sk.emis.out[k_].copy_(v_)
+                swap = {id(sr.tok): sk.tok, id(sr.er): sk.er, id(sr.emis): sk.emis,
+                        id(sr.ovf): sk.ovf}
+                kernel_fn[name](*[swap.get(id(a), a) for a in args], **kw)
+                plain_fn[name](*args, **kw)
+                torch.cuda.synchronize()
+                same_bits(torch, sk.lanes(), sr.lanes())
+                res[name]["checks"] += 1
+
+            return call
+
+        impl = {"advance": checked(k34), "count": checked(k35), "emit": checked(k36)}
+        for i in (range(ch.k) if chunks is None else chunks):
+            qr.keyed_chunk(i, sr.tok, sr.er, ch, inputs, sr.emis, now, sr.ovf, impl=impl)
+        if want_overflow is not None and bool(sr.ovf) != want_overflow:
+            raise AssertionError(f"{label}: overflow {bool(sr.ovf)}, expected {want_overflow}")
+        rows = check_place(sr.emis, P)[0]["valid"].sum().item()
+        print(f"kernel check {label}: P={P} T={prog.T} B={bt.capacity} C={ch.C}, "
+              f"{ch.k if chunks is None else len(chunks)} chunks, {int(ch.nseg.sum())} "
+              f"segments, {rows} rows placed, overflow {bool(sr.ovf)}: exact", flush=True)
+        return dict(qr=qr, P=P, tok=tok, ch=ch, inputs=inputs, caps=caps, now=now)
+
+    def scan(label, qr, P, tok, bt, slot, used, sid="S", seen=None, caps=None):
+        prog = qr.prog
+        ev, rmask, regs = prog.scan_inputs(sid, bt)
+        rows = K.partition_rows(bt, slot, P)
+        want_rows = K.partition_rows_ref(bt, slot, P)
+        nt = int(want_rows.info[3])
+        torch.cuda.synchronize()
+        same_bits(torch, [rows.rowlist, rows.slot_start, rows.timers[:nt], rows.info[3]],
+                  [want_rows.rowlist, want_rows.slot_start, want_rows.timers, want_rows.info[3]])
+        res[kr]["checks"] += 1
+        if seen is None:
+            seen = torch.full((P,), -(1 << 62), dtype=torch.int64, device=dev)
+        if caps is None:
+            caps = torch.where(used, torch.clamp(2 * rows.rows.to(torch.int64) + 8,
+                                                 max=qr.out_cap), 0)
+        out = []
+        for fn, rw in ((PM.partition_pattern_scan, rows),
+                       (PM.partition_pattern_scan_ref, want_rows)):
+            emis = PM.keyed_out(prog, caps, qr.out_cap)
+            ovf = torch.zeros((), dtype=torch.bool, device=dev)
+            new = fn(prog, tok, sid, bt.ts, bt.kind, bt.valid, ev, rmask, regs, rw, used, emis,
+                     ovf, seen)
+            out.append([new, emis.out, emis.n, ovf])
+        torch.cuda.synchronize()
+        same_bits(torch, out[0], out[1])
+        res[k37]["checks"] += 1
+        emis_n = out[1][2]
+        print(f"kernel check {label}: P={P} T={prog.T} B={bt.capacity}, "
+              f"{int(used.sum())} used slots, {int(emis_n.sum())} emissions, "
+              f"overflow {bool(out[1][3])}: exact", flush=True)
+        return dict(prog=prog, tok=tok, sid=sid, bt=bt, ev=ev, rmask=rmask, regs=regs,
+                    rows=rows, used=used, caps=caps, seen=seen, out_cap=qr.out_cap,
+                    want=out[1])
+
+    # ---- at the paths' shapes ------------------------------------------
+    P, B = PT_CAP, MAIN_BATCH
+    ppf = query(PP_PATTERNS["PPF"][0].replace("StockStream", "S"), PP_T, P, B,
+                PP_PATTERNS["PPF"][1])
+    bt, slot = batch(B, P, keys=PT_SYMBOLS)
+    ppf_run = chunk_route("K34/K36 at PPF's shape", ppf, P, table(ppf, P, 0.3), bt, slot,
+                          chunks=[0, 255, 511])
+    ppc = query(PP_PATTERNS["PPC"][0].replace("StockStream", "S"), PP_T, P, B,
+                PP_PATTERNS["PPC"][1])
+    ppc_run = chunk_route("K35/K36 at PPC's shape", ppc, P, table(ppc, P, 0.3, count=True), bt,
+                          slot, chunks=[0, 63, 127])
+    ppa = query(PP_PATTERNS["PPA"][0].replace("StockStream", "S"), PP_T, P, B,
+                PP_PATTERNS["PPA"][1])
+    used = torch.from_numpy(rng.random(P) < 0.98).to(dev)
+    bt_a, slot_a = batch(4096, P, keys=PT_SYMBOLS)
+    ppa_run = scan("K37 at PPA's shape (4,096 rows)", ppa, P, table(ppa, P, 0.3), bt_a, slot_a,
+                   used)
+    # a TIMER step over 1,024 slots, deadlines due in 8 of them
+    tok = PM.keyed_tok(ppa.init_state(t0)["tok"])
+    due = rng.choice(P, 8, replace=False)
+    for q in due:
+        lanes = slice(q * PP_T + 1, q * PP_T + 4)
+        tok["active"][lanes] = True
+        tok["slot"][lanes] = 1
+        tok["start_ts"][lanes] = t0 - 300
+        tok["entry_ts"][lanes] = t0 - 300
+    tb = EventBatch(ts=torch.full((1,), t0, dtype=torch.int64, device=dev),
+                    kind=torch.full((1,), 2, dtype=torch.int8, device=dev),
+                    valid=torch.ones(1, dtype=torch.bool, device=dev), cols={})
+    timer_run = scan("K37 TIMER step over 1,024 slots", ppa, P, tok, tb,
+                     torch.full((1,), P, dtype=torch.int32, device=dev),
+                     torch.ones(P, dtype=torch.bool, device=dev), sid=None)
+    if int(timer_run["want"][2].sum()) != 3 * len(due):
+        raise AssertionError("K37 TIMER step: the due deadlines did not all emit")
+
+    # ---- ragged shapes and edge cases --------------------------------------
+    fast_q = "every e1=S[price > 90] -> e2=S[price < 10] within 20 milliseconds"
+    for bb, pp, tt in ((33, 5, 4), (513, 33, 8)):
+        qr = query(fast_q, tt, pp, bb, "e1.symbol as s, e1.price as p1, e2.price as p2")
+        b2, s2 = batch(bb, pp, dense=True, timer=0.05)
+        chunk_route(f"fast ragged B={bb}", qr, pp, table(qr, pp, 0.4), b2, s2)
+        qc = query("every e1=S[price > 90]<2:4> -> e2=S[price < 10] -> e3=S[volume > e2.volume]",
+                   tt, pp, bb, "e1[0].price as p0, e3.volume as v")
+        chunk_route(f"count + tail ragged B={bb}", qc, pp, table(qc, pp, 0.4, count=True), b2,
+                    s2)
+        qs = query("every e1=S[price > 50], e2=S[price < 50], e3=S[price > 20]", tt, pp, bb,
+                   "e1.symbol as s, e3.price as p3")
+        chunk_route(f"sequence ragged B={bb}", qs, pp, table(qs, pp), b2, s2)
+        qa = query("every e1=S[price > 90] -> not S[price < 10] for 5 milliseconds and "
+                   "e2=S[volume > 500]", tt, pp, bb, "e1.symbol as s")
+        scan(f"K37 ragged B={bb}", qa, pp, table(qa, pp, 0.4), b2, s2,
+             torch.from_numpy(rng.random(pp) < 0.9).to(dev),
+             seen=torch.full((pp,), t0, dtype=torch.int64, device=dev))
+    # one slot's run of rows across every chunk
+    qr = query(fast_q, 8, 3, 64, "e1.symbol as s")
+    b2, s2 = batch(64 * 4, 3, dense=True, one_slot=1)
+    chunk_route("one slot across chunks", qr, 3, table(qr, 3), b2, s2)
+    # the fork runs out of one slot's lanes; the other slots fit
+    qr = query("every e1=S[price > 50] -> e2=S[price < 0]", 16, 4, 64, "e1.symbol as s")
+    tok = table(qr, 4, 0.2, virgin=0.0)
+    tok["active"][16:32] = True
+    tok["slot"][16:32] = torch.where(torch.arange(16, device=dev) == 0, 0, 1).to(torch.int32)
+    b2, s2 = batch(64, 4, dense=True)
+    chunk_route("fork overflow in slot 1 only", qr, 4, tok, b2, s2, want_overflow=True)
+    # an emission stretch of 2 rows in slot 0, which completes more
+    qr = query("every e1=S[price > 50] -> e2=S[price < 50]", 16, 4, 64, "e1.symbol as s")
+    tok = table(qr, 4, 0.9, virgin=0.0)
+    tok["slot"][:16] = torch.where(torch.arange(16, device=dev) == 0, 0, 1).to(torch.int32)
+    b2, s2 = batch(64, 4, dense=True)
+    chunk_route("emission overflow in slot 0 only", qr, 4, tok, b2, s2,
+                emis_caps=lambda c: torch.where(torch.arange(4, device=dev) == 0, 2, c),
+                want_overflow=True)
+    # a cross-ref [P*T, C] condition; two streams on one key table
+    qr = query("every e1=S[price > 50] -> e2=S[price < e1.price]", 8, 33, 513, "e1.symbol as s")
+    b2, s2 = batch(513, 33)
+    chunk_route("cross-ref condition", qr, 33, table(qr, 33), b2, s2)
+    qr = query("every e1=S[price > 50] -> e2=S2[price < 50]", 8, 33, 513, "e1.symbol as s")
+    chunk_route("two streams (S2's step)", qr, 33, table(qr, 33), b2, s2, sid="S2")
+    chunk_route("two streams (S's step)", qr, 33, table(qr, 33), b2, s2, sid="S")
+    qr = query("e1=S[price > 50] -> not S2[price < 50] for 5 milliseconds", 8, 33, 513,
+               "e1.symbol as s")
+    scan("K37 two streams (S2's step)", qr, 33, table(qr, 33), b2, s2,
+         torch.ones(33, dtype=torch.bool, device=dev), sid="S2")
+    # an emission stretch of 1 row in every slot (the step runs again larger)
+    qr = query("every e1=S[price > 50] -> e2=S[price < 50]", 16, 4, 64, "e1.symbol as s")
+    qr._scan = True
+    qr.prog.compile_scan()
+    b2, s2 = batch(64, 4, dense=True)
+    scan("K37 stretches of one row", qr, 4, table(qr, 4, 0.9), b2, s2,
+         torch.ones(4, dtype=torch.bool, device=dev),
+         caps=torch.ones(4, dtype=torch.int64, device=dev))
+
+    # ---- times at the paths' shapes -----------------------------------------
+    # ms: the device time of a wrapper's kernels alone (torch.profiler);
+    # wrapper_ms: the wrapper's call with its host work (CUDA events);
+    # bound_ms: the bytes the call must move over the memory rate: each
+    # element it changes written once; read once: the control lanes (active,
+    # slot) of every token of a partition slot it runs, the other lanes it
+    # needs only of the tokens it acts on, its rows and its list entries
+    def chunk_time(run, name, q=None, i=3):
+        """K34 (NFA slot q's pass), K35 or K36 on chunk i of a path's
+        shape, from the table the chunk's earlier passes leave (the path's
+        own order, `keyed_chunk`, with the plain versions)."""
+        qr, Pn, ch, inputs, now = run["qr"], run["P"], run["ch"], run["inputs"], run["now"]
+        prog = qr.prog
+        T, S, C = prog.T, len(prog.slots), ch.C
+        st = St(clone(run["tok"]), torch.full((Pn * T,), -1, dtype=torch.int32, device=dev),
+                PM.keyed_out(prog, run["caps"], qr.out_cap),
+                torch.zeros((), dtype=torch.bool, device=dev))
+        grab = {}
+
+        class Reached(Exception):
+            pass
+
+        def hook(key):
+            def call(*a, **kw):
+                if key == name and (key != k34 or a[1] == q):
+                    grab.update(args=a, kw=kw)
+                    raise Reached
+                plain_fn[key](*a, **kw)
+
+            return call
+
+        try:
+            qr.keyed_chunk(i, st.tok, st.er, ch, inputs, st.emis, now, st.ovf,
+                           impl={"advance": hook(k34), "count": hook(k35), "emit": hook(k36)})
+            raise AssertionError(f"{name} is not run in chunk {i}")
+        except Reached:
+            pass
+        pre = [clone(st.tok), st.er.clone(), st.emis.n.clone(),
+               {k_: v_.clone() for k_, v_ in st.emis.out.items()}, st.ovf.clone()]
+        cur = [st.tok, st.er, st.emis.n, st.emis.out, st.ovf]
+
+        def setup():
+            for d, src in zip(flat(cur), flat(pre), strict=True):
+                d.copy_(src)
+
+        def call(f):
+            f(*grab["args"], **grab["kw"])
+
+        ms = device_ms(torch, setup, lambda: call(kernel_fn[name]), 20, PP_DEVICE_NAMES[name])
+        wrapper = time_inplace(torch, setup, lambda: call(kernel_fn[name]), 20)
+        setup()
+        t = time.perf_counter()
+        call(plain_fn[name])
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t) * 1e3
+        setup()
+        call(kernel_fn[name])
+        torch.cuda.synchronize()
+        written = changed_bytes(torch, pre[:4], cur[:4])
+        emitted = changed_bytes(torch, pre[3], cur[3])
+        # what it reads: the segments of chunk i, their slots' control lanes,
+        # the rows (list entry, timestamp, condition or masks, the captured
+        # columns) and the acted-on tokens' other lanes
+        cb, nseg = i * C, int(ch.nseg[i])
+        live = torch.zeros(Pn, dtype=torch.bool, device=dev)
+        live[ch.seg_slot[cb:cb + nseg].long()] = True
+        live = live.repeat_interleave(T)
+        act, sl = pre[0]["active"] & live, pre[0]["slot"]
+        n_rows = int((ch.seg_hi[cb:cb + nseg] - ch.seg_lo[cb:cb + nseg]).sum())
+        evs = inputs["evs"]
+
+        def col_b(qq):
+            cc = pre[0]["caps"][prog.slots[qq].atoms[0].ref_idx]["cols"]
+            return sum(evs[qq][n_].element_size() for n_ in cc) if evs[qq] is not None else 0
+
+        read = int(live.sum()) * (1 + 4) + nseg * 12 + 4 + n_rows * (4 + 8)
+        if name == k34:
+            cond = grab["args"][7]
+            row_cond = cond is None or cond.dim() == 0 or cond.shape[0] == 1
+            acted = int((act & (sl == q)).sum())
+            read += acted * (4 + 8) + n_rows * (1 + col_b(q)) + (0 if row_cond
+                                                                  else acted * n_rows)
+        elif name == k35:
+            read += int((act & (sl == 0)).sum()) * (4 + 8) + n_rows * (2 + col_b(0) + col_b(1))
+        else:
+            done = act & (sl == S)
+            read += int(done.sum()) * 4 + emitted
+            if grab["kw"].get("purge"):
+                read += int((act & ~done).sum()) * 8
+        bound = (read + written) / MEM_BYTES_PER_S * 1e3
+        return ms, plain, bound, wrapper
+
+    r = res[k34]
+    r["ms"], r["plain_ms"], r["bound_ms"], r["wrapper_ms"] = chunk_time(ppf_run, k34, q=0)
+    r["advance_ms"], _p, r["advance_bound_ms"], _w = chunk_time(ppf_run, k34, q=1)
+    r = res[k36]
+    r["ms"], r["plain_ms"], r["bound_ms"], r["wrapper_ms"] = chunk_time(ppf_run, k36)
+    r = res[k35]
+    r["ms"], r["plain_ms"], r["bound_ms"], r["wrapper_ms"] = chunk_time(ppc_run, k35)
+
+    def scan_bound(run, new, emis) -> float:
+        """K37's bytes: the control lanes of every token of each slot the
+        step runs (used, with rows or TIMER rows), the other lanes of its
+        active tokens, its rows (list entry, ts, kind, valid, row masks,
+        registers, the captured columns) read once; the changed lanes, the
+        emitted rows and the counts written."""
+        tok, rows, Pn = run["tok"], run["rows"], run["used"].shape[0]
+        T = run["prog"].T
+        nt = int(rows.info[3])
+        ran = run["used"] if nt else run["used"] & (rows.rows > 0)
+        on = ran.repeat_interleave(T)
+        full_b = sum(x.element_size() * (x.numel() // (Pn * T)) for x in flat(tok)) - (1 + 4)
+        n_rows = int(rows.rows[ran].sum()) + nt * int(ran.sum())
+        row_b = (4 + 8 + 1 + 1 + run["rmask"].shape[0] + 4 * len(run["regs"])
+                 + sum(c.element_size() for c in run["ev"].values()))
+        blank = run["prog"].init_out(emis.out["ts"].shape[0])
+        nbytes = (int(on.sum()) * (1 + 4) + int((tok["active"] & on).sum()) * full_b
+                  + n_rows * row_b + changed_bytes(torch, tok, new)
+                  + changed_bytes(torch, blank, emis.out) + 4 * Pn)
+        return nbytes / MEM_BYTES_PER_S * 1e3
+
+    for run, key in ((ppa_run, "ms"), (timer_run, "timer_ms")):
+        prog = run["prog"]
+        args = (prog, run["tok"], run["sid"], run["bt"].ts, run["bt"].kind, run["bt"].valid,
+                run["ev"], run["rmask"], run["regs"])
+        last = {}
+
+        def step(fn=PM.partition_pattern_scan, rows=run["rows"], run=run, args=args, last=last):
+            emis = PM.keyed_out(prog, run["caps"], run["out_cap"])
+            ovf = torch.zeros((), dtype=torch.bool, device=dev)
+            last["new"], last["emis"] = fn(*args, rows, run["used"], emis, ovf, run["seen"]), emis
+
+        res[k37][key] = device_ms(torch, lambda: None, step, 5, PP_DEVICE_NAMES[k37])
+        res[k37]["wrapper_" + key] = time_ms(torch, step, 5)
+        step()
+        torch.cuda.synchronize()
+        bound = scan_bound(run, last["new"], last["emis"])
+        if key == "ms":
+            res[k37]["plain_ms"] = time_once(torch, lambda: step(
+                PM.partition_pattern_scan_ref, K.partition_rows_ref(run["bt"], slot_a, P)))
+            res[k37]["bound_ms"] = bound
+        else:
+            res[k37]["timer_bound_ms"] = bound
+    ch = ppf_run["ch"]
+    r = res[kch]
+    r["ms"] = device_ms(torch, lambda: None, lambda: K.pattern_chunks(ch.ts, ch.v, ch.slot,
+                                                                      ch.C, P),
+                        20, PP_DEVICE_NAMES[kch])
+    r["wrapper_ms"] = time_ms(torch, lambda: K.pattern_chunks(ch.ts, ch.v, ch.slot, ch.C, P), 20)
+    r["plain_ms"] = time_once(torch, lambda: K.pattern_chunks_ref(ch.ts, ch.v, ch.slot, ch.C, P))
+    # rows read (member flag, slot) and listed; each slot's count; each
+    # chunk's segments (slot, lo, hi) and their count
+    r["bound_ms"] = (B * (1 + 4) + B * 4 + 4 * P + int(ch.nseg.sum()) * 12 + 4 * ch.k) \
+        / MEM_BYTES_PER_S * 1e3
+    # the library yardstick: one stable sort of the rows by (chunk, slot)
+    key = torch.arange(B, device=dev) // ch.C * (P + 1) + ch.slot.long()
+    r["library_ms"] = time_ms(torch, lambda: torch.sort(key, stable=True), 20)
+    want = ppa_run["want"]
+    emis = PM.keyed_out(ppa_run["prog"], ppa_run["caps"], ppa_run["out_cap"])
+    for k_, v_ in want[1].items():
+        emis.out[k_].copy_(v_)
+    emis.n.copy_(want[2])
+    r = res[kpl]
+
+    def place():
+        return K.pattern_place(emis.out, emis.off, emis.cap, emis.n, P)
+
+    r["ms"] = device_ms(torch, lambda: None, place, 20, PP_DEVICE_NAMES[kpl])
+    r["wrapper_ms"] = time_ms(torch, place, 20)
+    r["plain_ms"] = time_once(torch, lambda: K.pattern_place_ref(emis.out, emis.off, emis.cap,
+                                                                 emis.n, P))
+    n_rows = int(torch.minimum(emis.n, emis.cap).sum())
+    lane_b = sum(v.element_size() * (v.shape[1] if v.dim() == 2 else 1)
+                 for v in emis.out.values())
+    # each slot's offset, stretch and count read; each row's lanes read and
+    # written, its slot and its slot's first row written
+    r["bound_ms"] = (n_rows * (2 * lane_b + 4 + 4) + P * (8 + 4 + 4)) / MEM_BYTES_PER_S * 1e3
+    # the row lists at the paths' batch (PPA's data step: 32,768 rows)
+    r = res[kr]
+    r["ms"] = device_ms(torch, lambda: None, lambda: K.partition_rows(bt, slot, P), 20,
+                        PP_DEVICE_NAMES[kr])
+    r["wrapper_ms"] = time_ms(torch, lambda: K.partition_rows(bt, slot, P), 20)
+    r["plain_ms"] = time_once(torch, lambda: K.partition_rows_ref(bt, slot, P))
+    n_tim = int(((bt.kind == 2) & bt.valid).sum())
+    # kind, valid and slot read a row; the row list, the slot starts, the
+    # TIMER rows and the counts written
+    r["bound_ms"] = (B * (1 + 1 + 4) + B * 4 + 4 * (P + 1) + 4 * n_tim + 16) \
+        / MEM_BYTES_PER_S * 1e3
+    # the library yardstick: one stable sort of the rows by slot
+    member = bt.valid & (bt.kind == 0) & (slot >= 0) & (slot < P)
+    skey = torch.where(member, slot, P)
+    r["library_ms"] = time_ms(torch, lambda: torch.sort(skey, stable=True), 20)
+    for name in PP_KERNELS:
+        r = res[name]
+        r["bound_by"] = "bytes"
+        r.setdefault("library_ms", None)
+        lib = "None" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"kernel {name}: ms={r['ms']:.4f} (device, torch.profiler; with the wrapper's "
+              f"host work {r['wrapper_ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={lib} "
+              f"checks={r['checks']} exact", flush=True)
+    print(f"kernel partition_pattern_advance (advance at slot 1): {res[k34]['advance_ms']:.4f} ms"
+          f" (bound {res[k34]['advance_bound_ms']:.6f}); partition_pattern_scan TIMER step: "
+          f"{res[k37]['timer_ms']:.4f} ms (bound {res[k37]['timer_bound_ms']:.6f}, with the "
+          f"wrapper {res[k37]['wrapper_timer_ms']:.4f})", flush=True)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 3: verify cases against VERIFY.json
 # ---------------------------------------------------------------------------
@@ -3423,7 +4044,7 @@ def join_path_phase(torch) -> dict:
 
 def time_join_path_phase(torch) -> dict:
     """Path T: the same self-join over time(1 sec) windows under
-    @app:playback, joinCapacity 16384: 250,000 events of seed 7 through
+    @app:playback, joinCapacity 16384: 65,536 events of seed 7 through
     send_columns one batch of 8192 per call, the per-batch form (a query
     whose window needs the scheduler stays off the fused path); the
     event-time clock fires the TIMER rows before each call's batch; launch
@@ -3462,7 +4083,7 @@ def time_join_path_phase(torch) -> dict:
 
 def time_agg_path_phase(torch) -> dict:
     """Path T2: StockStream[price > 50]#window.time(1 sec) with avg/min/max
-    under @app:playback at @app:batch 32768, 16 batches one per call
+    under @app:playback at @app:batch 32768, 8 batches one per call
     (per-batch form); launch counts of this run alone; the first 4 calls
     against device="cpu"."""
     from siddhi_tpu_torch import kernels
@@ -3587,11 +4208,10 @@ def pattern_path_phase(torch, label: str, app: str, n_events: int, per_step: dic
 
 
 def cpu_check(label: str, app: str, data: dict, stride: int = SCAN_CPU_EVENTS,
-              cols=("symbol", "price", "volume"), symbols=SYMBOLS) -> dict:
-    """The first SCAN_CPU_EVENTS events of `app`, in calls of `stride`
+              cols=("symbol", "price", "volume"), symbols=SYMBOLS, n=SCAN_CPU_EVENTS) -> dict:
+    """The first n (SCAN_CPU_EVENTS) events of `app`, in calls of `stride`
     events, on the card and on device="cpu" (the plain versions): the same
     rows; prints the plain run's time."""
-    n = SCAN_CPU_EVENTS
     calls = -(-n // stride)
     _n, gpu_kept, gpu_dt, _i = run_app("cuda", app, data, n, stride, stride, fused=False,
                                        keep_calls=calls, cols=cols, symbols=symbols)
@@ -3710,7 +4330,7 @@ def absent_path_phase(torch) -> dict:
 def tb_path_phase(torch) -> dict:
     """Path TB: BASELINE.json config 2 as a tumbling time window (timeBatch(1
     sec) group by symbol with avg, stdDev, min, max, maxForever,
-    distinctCount and count) under @app:playback at @app:batch 32768, 16
+    distinctCount and count) under @app:playback at @app:batch 32768, 8
     batches of seed-7 1 ms ticks sent one 1-second bucket (1,000 events) a
     call: a playback send advances the event-time clock to its last
     timestamp before its rows are processed, so each call's TIMER step (the
@@ -4120,7 +4740,7 @@ def partition_path_phase(torch) -> dict:
     return out
 
 
-PTE_KERNELS = {"assign_slots": 1, "partition_time_window_step": 1,
+PTE_KERNELS = {"assign_slots": 1, "partition_time_window_step": 1, "partition_rows": 1,
                "partition_window_extreme": 1, "keyed_running_sum": 3}
 PTB_KERNELS = {"assign_slots": 1, "partition_batch_window_step": 1,
                "partition_assign_slots": 1, "keyed_running_sum": 4, "keep_last": 1}
@@ -4198,7 +4818,7 @@ def partition_windows_path_phase(torch) -> dict:
 
     PTB: three price bands as a range partition, timeBatch(1 sec) group by
     symbol with avg, sum and count, @app:groupCapacity 1024, @app:playback,
-    16 batches' worth of the same traffic sent one 1-second bucket (1,000
+    8 batches' worth of the same traffic sent one 1-second bucket (1,000
     events) a call, each call's TIMER step (every band's bucket end)
     closing the previous bucket; launches held per step (data and TIMER);
     no group overflow; the closed buckets count every event sent before the
@@ -4309,6 +4929,124 @@ def partition_windows_path_phase(torch) -> dict:
           f"{PTT_EVENTS / dt:.1f} events/s; the first call matches device='cpu' "
           f"({cpu_s:.1f} s on the host); its second call: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.4f})", flush=True)
+    return out
+
+
+PPF_KERNELS = {"assign_slots": 1, "pattern_chunks": 1, "pattern_place": 1,
+               "partition_pattern_advance": 2 * (MAIN_BATCH // (PP_T // 2)),
+               "partition_pattern_emit": MAIN_BATCH // (PP_T // 2)}
+PPC_KERNELS = {"assign_slots": 1, "pattern_chunks": 1, "pattern_place": 1,
+               "partition_pattern_count": MAIN_BATCH // (2 * PP_T),
+               "partition_pattern_emit": MAIN_BATCH // (2 * PP_T)}
+PP_CPU_EVENTS, PPA_CPU_EVENTS = 4096, 1024
+
+
+def pp_data(n: int) -> tuple:
+    """stock_data's 1 ms traffic with 1,000 symbols drawn uniformly."""
+    names = [f"SYM{i:04d}" for i in range(PT_SYMBOLS)]
+    data = stock_data(n, seed=7)
+    data["symbol"] = np.random.default_rng(7).integers(1, PT_SYMBOLS + 1,
+                                                       size=n).astype(np.int32)
+    return data, names
+
+
+def partition_pattern_path_phase(torch) -> dict:
+    """Patterns inside a partition at full width: `partition with (symbol
+    of StockStream)`, @app:batch 32768, @app:partitionCapacity 1024 (1,000
+    symbols drawn uniformly, 1 ms ticks), the default patternCapacity 128
+    a partition (131,072 token lanes).
+
+    PPF (the fast route, K34/K36): every e1[price > 95] -> e2[price < 5]
+    within 1 min, 1,000,000 events in calls of 8 batches (the first of 4),
+    per batch; launches of this run alone held to their uses a step (512
+    chunks of 64 rows: two K34 passes and one K36 a chunk) times the steps;
+    events/s, the device busy share of one more call of 8 batches and where
+    a call's time goes (`call_breakdown`); the first 4,096 events against
+    device="cpu".
+
+    PPC (the count route, K35/K36): every a1[price > 90]<2:4> ->
+    a2[price < 10], the same traffic and checks but the breakdown (128
+    chunks of 256 rows).
+
+    PPA (the scan, K37, with its TIMER steps): every e1[price > 95] -> not
+    [price < 5] for 100 milliseconds under @app:playback, PPA_BATCHES calls
+    of one batch: each call's data step, then one TIMER step per distinct
+    deadline, each over every slot; K37, the row lists and the placement
+    launched once a step (data or TIMER); the first 1,024 events against
+    device="cpu" in calls of 512; the device busy share of one more
+    call."""
+    from siddhi_tpu_torch import kernels
+
+    out = {}
+    b = MAIN_BATCH
+    data, names = pp_data(PP_EVENTS)
+    for label, wanted in (("PPF", PPF_KERNELS), ("PPC", PPC_KERNELS)):
+        app = partition_pattern_app(label, b, PT_CAP)
+        first_n, stride = 4 * b, 8 * b
+        run_app("cuda", app, data, 2 * b, b, b, fused=False, symbols=names)  # warm-up
+        kernels.launches.clear()
+        (n_rows, kept, dt, _i), warned = capture_warnings(
+            lambda: run_app("cuda", app, data, PP_EVENTS, stride, first_n, fused=False,
+                            symbols=names), "patternCapacity")
+        launches = dict(kernels.launches)
+        steps = sum(-(-c // b) for c in call_sizes(PP_EVENTS, first_n, stride))
+        print(f"path {label} launches {json.dumps(launches)} over {steps} steps", flush=True)
+        if warned:
+            raise AssertionError(f"path {label}: a token table or emission buffer overflowed")
+        held_launches(label, launches, wanted, steps)
+        cpu = cpu_check(f"path {label}", app, data, PP_CPU_EVENTS, symbols=names,
+                        n=PP_CPU_EVENTS)
+        if not n_rows:
+            raise AssertionError(f"path {label}: no rows delivered")
+        wall_ms, busy_ms = fused_busy(torch, app, data, b, symbols=names)
+        out[label] = {"events": PP_EVENTS, "rows": n_rows, "seconds": dt,
+                      "events_per_s": PP_EVENTS / dt, "steps": steps, "launches": launches,
+                      "cpu_check": cpu, "busy_call_wall_ms": wall_ms,
+                      "busy_call_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms}
+        if label == "PPF":
+            out[label]["breakdown"] = call_breakdown(torch, app, data, b, names)
+        print(f"path {label}: {PP_EVENTS} events per batch, {n_rows} rows delivered, "
+              f"{dt:.3f} s, {PP_EVENTS / dt:.1f} events/s; one call of 8 batches: wall "
+              f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.4f}); the "
+              f"first {PP_CPU_EVENTS} events match device='cpu'", flush=True)
+
+    # ---- PPA
+    app = partition_pattern_app("PPA", b, PT_CAP)
+    run_app("cuda", app, data, b, b, b, fused=False, symbols=names)  # warm-up
+    fires = [0]
+    n = PPA_BATCHES * b
+    kernels.launches.clear()
+    (n_rows, kept, dt, _i), warned = capture_warnings(
+        lambda: run_app("cuda", app, data, n, b, b, fused=False, fires=fires, symbols=names),
+        "patternCapacity")
+    launches = dict(kernels.launches)
+    print(f"path PPA launches {json.dumps(launches)} over {PPA_BATCHES} data and {fires[0]} "
+          "TIMER steps", flush=True)
+    if warned:
+        raise AssertionError("path PPA: a token table or emission buffer overflowed")
+    if fires[0] <= 0 or not n_rows:
+        raise AssertionError(f"path PPA: {fires[0]} TIMER steps, {n_rows} rows")
+    steps = PPA_BATCHES + fires[0]
+    held_launches("PPA", launches, {"pattern_place": 1, "partition_rows": 1}, steps)
+    held_launches("PPA", launches, {"assign_slots": 1}, PPA_BATCHES)
+    reruns = launches.get("partition_pattern_scan", 0) - steps
+    if reruns < 0:
+        raise AssertionError(f"path PPA: {launches.get('partition_pattern_scan', 0)} K37 "
+                             f"launches for {steps} steps")
+    cpu = cpu_check("path PPA", app, data, PPA_CPU_EVENTS // 2, symbols=names,
+                    n=PPA_CPU_EVENTS)
+    wall_ms, busy_ms = calls_busy(torch, app, data, b, 1, 1, ("symbol", "price", "volume"),
+                                  names)
+    out["PPA"] = {"events": n, "rows": n_rows, "seconds": dt, "events_per_s": n / dt,
+                  "data_steps": PPA_BATCHES, "timer_steps": fires[0], "reruns": reruns,
+                  "launches": launches, "cpu_check": cpu, "busy_call_wall_ms": wall_ms,
+                  "busy_call_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms}
+    print(f"path PPA absent pattern, playback: {n} events in {PPA_BATCHES} calls and "
+          f"{fires[0]} TIMER steps over every slot ({reruns} steps ran again for their "
+          f"emissions), {n_rows} rows delivered, {dt:.3f} s, {n / dt:.1f} events/s; one more "
+          f"call: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({busy_ms / wall_ms:.4f}); the first {PPA_CPU_EVENTS} events match device='cpu'",
+          flush=True)
     return out
 
 
@@ -4806,6 +5544,11 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from siddhi_tpu_torch import kernels
 
+    t_start = time.perf_counter()
+
+    def lap(done: str) -> None:
+        print(f"elapsed {time.perf_counter() - t_start:.1f} s after {done}", flush=True)
+
     card = card_line()
     print(card, flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
@@ -4842,48 +5585,64 @@ def main() -> int:
     if "--partition" in sys.argv[1:]:
         partition_kernel_phase(torch, "cuda")
         partition_windows_kernel_phase(torch, "cuda")
+        partition_pattern_kernel_phase(torch, "cuda")
         partition_path_phase(torch)
         partition_windows_path_phase(torch)
+        partition_pattern_path_phase(torch)
         return 0
     if "--partition-kernels" in sys.argv[1:]:
         partition_kernel_phase(torch, "cuda")
         partition_windows_kernel_phase(torch, "cuda")
+        partition_pattern_kernel_phase(torch, "cuda")
         return 0
-    res = kernel_phase(torch, "cuda")
-    res.update(fused_kernel_phase(torch, "cuda"))
-    res.update(grouped_kernel_phase(torch, "cuda"))
-    res.update(join_kernel_phase(torch, "cuda"))
-    res.update(pattern_kernel_phase(torch, "cuda"))
-    res.update(pattern_scan_kernel_phase(torch, "cuda"))
-    res.update(time_batch_kernel_phase(torch, "cuda"))
-    res.update(table_kernel_phase(torch, "cuda"))
-    res.update(special_window_kernel_phase(torch, "cuda"))
-    res.update(partition_kernel_phase(torch, "cuda"))
-    res.update(partition_windows_kernel_phase(torch, "cuda"))
+    if "--partition-patterns" in sys.argv[1:]:
+        partition_pattern_kernel_phase(torch, "cuda")
+        if "--no-paths" not in sys.argv[1:]:
+            partition_pattern_path_phase(torch)
+        return 0
+    lap("the build")
+    res = {}
+    for phase in (kernel_phase, fused_kernel_phase, grouped_kernel_phase, join_kernel_phase,
+                  pattern_kernel_phase, pattern_scan_kernel_phase, time_batch_kernel_phase,
+                  table_kernel_phase, special_window_kernel_phase, partition_kernel_phase,
+                  partition_windows_kernel_phase, partition_pattern_kernel_phase):
+        res.update(phase(torch, "cuda"))
+        lap(phase.__name__)
     if "--kernels" in sys.argv[1:]:
         return 0
     verify_phase("cuda")
+    lap("verify_phase")
     main = main_path_phase(torch)
     grouped = grouped_path_phase(torch)
+    lap("the quickstart and tumbling_groupby paths")
     joined = join_path_phase(torch)
     time_join = time_join_path_phase(torch)
     time_agg = time_agg_path_phase(torch)
+    lap("paths J, T and T2")
     pattern_p = pattern_path_phase(
         torch, "P pattern_2state", PATTERN_APP.format(batch=MAIN_BATCH), PATTERN_EVENTS,
         {"pattern_advance": 2 * (MAIN_BATCH // PATTERN_C), "pattern_emit": MAIN_BATCH // PATTERN_C})
     pattern_c = pattern_path_phase(
         torch, "C count_sequence", COUNT_APP.format(batch=MAIN_BATCH), COUNT_EVENTS,
         {"pattern_count": MAIN_BATCH // COUNT_C, "pattern_emit": MAIN_BATCH // COUNT_C})
+    lap("paths P and C")
     logical = logical_path_phase(torch)
     absent = absent_path_phase(torch)
+    lap("paths L and A")
     time_batch = tb_path_phase(torch)
     external_time_batch = xb_path_phase(torch)
+    lap("paths TB and XB")
     tables = table_paths_phase(torch)
+    lap("the table paths")
     special = {k: special_path_phase(torch, k) for k in ("SW", "FQ", "LF")}
     special["CR"] = cron_path_phase(torch)
     special["FN"] = fn_path_phase(torch)
+    lap("the special paths")
     partitioned = partition_path_phase(torch)
     partition_windows = partition_windows_path_phase(torch)
+    lap("paths PT, PTE, PTB and PTT")
+    partition_patterns = partition_pattern_path_phase(torch)
+    lap("paths PPF, PPC and PPA")
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -4954,7 +5713,21 @@ def main() -> int:
            "partition_batch_window_step": ("siddhi_tpu_torch/csrc/partition_batch.cu",
                                            "siddhi_tpu/core/windows.py:553"),
            "partition_assign_slots": ("siddhi_tpu_torch/csrc/group_assign.cu",
-                                      "siddhi_tpu/ops/group.py:85")}
+                                      "siddhi_tpu/ops/group.py:85"),
+           "partition_pattern_advance": ("siddhi_tpu_torch/csrc/partition_pattern.cu",
+                                         "siddhi_tpu/core/partition.py:326"),
+           "partition_pattern_count": ("siddhi_tpu_torch/csrc/partition_pattern.cu",
+                                       "siddhi_tpu/core/partition.py:326"),
+           "partition_pattern_emit": ("siddhi_tpu_torch/csrc/partition_pattern.cu",
+                                      "siddhi_tpu/core/partition.py:326"),
+           "partition_pattern_scan": ("siddhi_tpu_torch/csrc/pattern_scan.cu",
+                                      "siddhi_tpu/core/partition.py:378"),
+           "pattern_chunks": ("siddhi_tpu_torch/csrc/partition_pattern.cu",
+                              "siddhi_tpu/core/partition.py:356"),
+           "pattern_place": ("siddhi_tpu_torch/csrc/partition_pattern.cu",
+                             "siddhi_tpu/core/partition.py:436"),
+           "partition_rows": ("siddhi_tpu_torch/csrc/partition_time.cu",
+                              "siddhi_tpu/core/partition.py:356")}
     # launches: K1-K5 from the quickstart path's run, K6-K9 from the
     # tumbling_groupby path's run, K10 from path T's run, K11 and K12 from
     # path J's, K13 and K15 from path P's, K14 from path C's, K16 from path
@@ -4985,6 +5758,14 @@ def main() -> int:
     path_of["partition_time_window_step"] = partition_windows["PTE"]["launches"]
     path_of["partition_batch_window_step"] = partition_windows["PTB"]["launches"]
     path_of["partition_assign_slots"] = partition_windows["PTB"]["launches"]
+    # K34, K36 and the chunk lists from path PPF, K35 from PPC, K37 and the
+    # placement from PPA
+    for k in ("partition_pattern_advance", "partition_pattern_emit", "pattern_chunks"):
+        path_of[k] = partition_patterns["PPF"]["launches"]
+    path_of["partition_pattern_count"] = partition_patterns["PPC"]["launches"]
+    path_of["partition_pattern_scan"] = partition_patterns["PPA"]["launches"]
+    path_of["pattern_place"] = partition_patterns["PPA"]["launches"]
+    path_of["partition_rows"] = partition_patterns["PPA"]["launches"]
     path_launches = {k: path_of.get(k, main["launches"]).get(k, 0) for k in res}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
@@ -5020,6 +5801,15 @@ def main() -> int:
                        "running_extreme_library": res["running_extreme"]["library"]},
                    "tables": tables, "special_paths": special, "partition_path": partitioned,
                    "partition_window_paths": partition_windows,
+                   "partition_pattern_paths": partition_patterns,
+                   "partition_pattern_kernel_times": {
+                       k: {x: res[k][x] for x in res[k] if x.endswith(("ms", "_bound_ms"))}
+                       for k in PP_KERNELS},
+                   "partition_pattern_kernel_shapes": {
+                       "partition_pattern_advance_slot1_ms":
+                           res["partition_pattern_advance"]["advance_ms"],
+                       "partition_pattern_scan_timer_ms":
+                           res["partition_pattern_scan"]["timer_ms"]},
                    "partition_window_kernel_shapes": {
                        "partition_batch_window_step_lengthbatch64_ms":
                            res["partition_batch_window_step"]["lengthbatch64_ms"]},

@@ -28,9 +28,16 @@ limiting over the flattened rows, output to a stream, a callback, an
 `#inner` stream or a table (`insert into` only, as the JAX package, which
 compiles an inner query with no table in scope). TIMER rows reach every
 partition; a time-driven window's next timer is the earliest of all its
-partitions'. Joins, patterns, the sort, frequent, lossyFrequent and cron
-windows and `in <table>` conditions inside a partition raise "not ported
-yet". Partitioned streams run per batch (no fused endpoint).
+partitions'. Patterns and sequences run one NFA per key
+(`PartitionedPatternQueryRuntime`): every route, state kind and stream
+count of the unpartitioned query, each stream of the pattern keyed, the
+token table [P]-tiled, a slot first allocated to a key refreshed to a
+fresh table stamped with the step's clock, TIMER steps over every slot
+holding a key (core/pattern_runtime.py `_keyed_step_impl`, K34-K37).
+Joins, the sort, frequent, lossyFrequent and cron windows and `in <table>`
+conditions inside a partition raise "not ported yet"; an `#inner` output
+of a pattern is refused as in JAX. Partitioned streams run per batch (no
+fused endpoint).
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ from siddhi_tpu_torch.core.event import EventBatch, KIND_CURRENT, KIND_TIMER, St
 from siddhi_tpu_torch.core.executor import Env, Scope, TS_ATTR, compile_expression
 from siddhi_tpu_torch.core.flow import Flow
 from siddhi_tpu_torch.core.groupby import GroupCtx, _as_key_col, partition_ctx
+from siddhi_tpu_torch.core.pattern import keyed_tok
+from siddhi_tpu_torch.core.pattern_runtime import PatternPartition, PatternQueryRuntime
 from siddhi_tpu_torch.core.query_runtime import QueryRuntime
 from siddhi_tpu_torch.core.types import AttrType
 from siddhi_tpu_torch.core.windows import BatchWindow, SlidingWindow
@@ -88,6 +97,23 @@ def _reduce_paux(aux: dict, povf: Optional[torch.Tensor] = None) -> dict:
         prev = aux.get("partition_overflow")
         aux["partition_overflow"] = povf if prev is None else prev | povf
     return aux
+
+
+def _assign(ptable: dict, key_of: Callable, stream_id: str, batch: EventBatch,
+            now: torch.Tensor):
+    """Each row of a stream's batch to its slot on the shared key table (K7):
+    (ptable', active [B], slot [B] int32 (P past capacity or for rows not
+    taking part), the segment heads, the table's overflow flag). A row takes
+    part when valid, CURRENT and matched by its key function."""
+    cols = {(stream_id, None, n): c for n, c in batch.cols.items()}
+    cols[(stream_id, None, TS_ATTR)] = batch.ts
+    keys, matched = key_of(Env(cols, now=now))
+    shape = batch.valid.shape
+    active = batch.valid & (batch.kind == KIND_CURRENT) & matched.expand(shape)
+    pk, pu, pn, slot, grp, povf = assign_slots(
+        ptable["keys"], ptable["used"], ptable["n"], keys.expand(shape).contiguous(),
+        active.contiguous(), torch.zeros_like(active))
+    return {"keys": pk, "used": pu, "n": pn}, active, slot, grp, povf
 
 
 class PartitionedQueryRuntime(QueryRuntime):
@@ -135,20 +161,13 @@ class PartitionedQueryRuntime(QueryRuntime):
         """Outer-stream rows: key -> slot on the shared table; a row takes
         part when valid, CURRENT, matched and within capacity (TIMER rows
         pass to every partition, as the vmap's masks)."""
-        cols = {(self.stream_id, None, n): c for n, c in batch.cols.items()}
-        cols[(self.stream_id, None, TS_ATTR)] = batch.ts
-        keys, matched = self.key_of(Env(cols, now=now))
-        shape = batch.valid.shape
-        active = batch.valid & (batch.kind == KIND_CURRENT) & matched.expand(shape)
-        keys = keys.expand(shape).contiguous()
-        pk, pu, pn, slot, grp, povf = assign_slots(
-            ptable["keys"], ptable["used"], ptable["n"], keys, active.contiguous(),
-            torch.zeros_like(active))
+        ptable, active, slot, grp, povf = _assign(ptable, self.key_of, self.stream_id, batch,
+                                                  now)
         is_timer = batch.valid & (batch.kind == KIND_TIMER)
         b2 = dataclasses.replace(batch, valid=(active & (slot < self.p)) | is_timer)
         ctx = partition_ctx(slot, grp.first, self.p, povf)
         state, out, out_ctx = self._pstep(state, b2, now, ctx, _reduce_paux({}, povf))
-        return {"keys": pk, "used": pu, "n": pn}, state, out, out_ctx
+        return ptable, state, out, out_ctx
 
     # ---- host ------------------------------------------------------------
 
@@ -171,6 +190,111 @@ class PartitionedQueryRuntime(QueryRuntime):
                 self.state = self.init_state()
             self.state, out, ctx = self._pstep(self.state, batch, self._now(now), ctx, {})
         return out, ctx
+
+
+class PartitionedPatternQueryRuntime(PatternQueryRuntime):
+    """A pattern or sequence inside a partition: one NFA per key (reference:
+    per-key cloned state runtimes, PartitionTestCase pattern/sequence
+    coverage; siddhi_tpu/core/partition.py PartitionedPatternQueryRuntime).
+    The token table, the selector's state and the TIMER clock are [P]-tiled;
+    the keyed step (`_keyed_step_impl`) runs the route the unpartitioned
+    query would take, over each slot's rows, and TIMER rows reach every
+    slot. `key_fns`: stream id -> key function, one for every stream
+    of the pattern."""
+
+    def __init__(self, query: Query, query_id: str, schemas: dict, interner, device,
+                 p_capacity: int, key_fns: dict, tables: dict,
+                 group_capacity: Optional[int] = None, token_capacity: int = 128,
+                 count_capacity: int = 8, batch_size: int = 64,
+                 pattern_chunk: Optional[int] = None):
+        out = query.output_stream
+        if isinstance(out, (UpdateStream, DeleteStream, UpdateOrInsertStream)):
+            # the JAX package compiles the inner pattern's output with no
+            # table in scope (tables={}): only `insert into` reaches a table
+            raise DefinitionNotExistError(f"'{out.target}' is not a defined table")
+        super().__init__(query, query_id, schemas, interner, device,
+                         group_capacity=group_capacity, token_capacity=token_capacity,
+                         count_capacity=count_capacity, batch_size=batch_size,
+                         pattern_chunk=pattern_chunk)
+        self.p = int(p_capacity)
+        for sid in self.prog.stream_ids:
+            if sid not in key_fns:
+                raise SiddhiAppCreationError(f"partition has no key for pattern stream '{sid}'")
+        self.key_fns = key_fns
+        # `insert into` a table: applied to the flattened rows, every
+        # partition's into the one shared table (JAX _attach_table_output)
+        self._attach_tables(tables, interner)
+
+    def init_state(self, now: int = 0) -> dict:
+        return _tile(super().init_state(now), self.p)
+
+    def _now(self, now: int) -> torch.Tensor:
+        return torch.full((), now, dtype=torch.int64, device=self.device)
+
+    def receive_partitioned(self, ptable: dict, batch: EventBatch, now: int, stream_id: str):
+        """A batch of one of the pattern's streams: each row's key to its
+        slot on the shared table, a slot first used now refreshed, then the
+        keyed step. Returns (ptable', out)."""
+        with self._receive_lock:
+            if self.state is None:
+                self.state = self.init_state()
+            now_t = self._now(now)
+            new_table, _active, slot, _grp, povf = _assign(ptable, self.key_fns[stream_id],
+                                                           stream_id, batch, now_t)
+            pu = new_table["used"]
+            pctx = PatternPartition(slot=slot, used=pu, fresh=pu & ~ptable["used"], p=self.p,
+                                    overflow=povf)
+            self.state, out, _ctx = self._keyed_step_impl(self.state, batch, now_t, stream_id,
+                                                          pctx)
+        return new_table, out
+
+    def receive_timer_partitioned(self, ptable: dict, t_ms: int) -> EventBatch:
+        """One TIMER step at t_ms over every slot, its rows and timers
+        masked to the slots holding a key (as the JAX package's vmap: a slot
+        that another query of the block allocates first is not refreshed
+        by this one, so it must have been stepped)."""
+        dev = self.device
+        batch = EventBatch(ts=torch.full((1,), t_ms, dtype=torch.int64, device=dev),
+                           kind=torch.full((1,), KIND_TIMER, dtype=torch.int8, device=dev),
+                           valid=torch.ones(1, dtype=torch.bool, device=dev), cols={})
+        with self._receive_lock:
+            if self.state is None:
+                self.state = self.init_state(t_ms)
+            pctx = PatternPartition(slot=torch.full((1,), self.p, dtype=torch.int32, device=dev),
+                                    used=ptable["used"], fresh=None, p=self.p,
+                                    overflow=torch.zeros((), dtype=torch.bool, device=dev))
+            self.state, out, _ctx = self._keyed_step_impl(self.state, batch, self._now(t_ms),
+                                                          None, pctx)
+        return out
+
+    def prime(self, now: int) -> dict:
+        """The earliest deadline over every slot's token table, used or not
+        (as the JAX package's prime, partition.py:399-407): arms an
+        absent-at-start pattern's timer before any event."""
+        with self._receive_lock:
+            if self.state is None:
+                self.state = self.init_state(now)
+            t = self.prog.next_timer(keyed_tok(self.state["tok"]))
+        return {"next_timer": t}
+
+    def describe_state(self) -> dict:
+        d = super().describe_state() if self.state is None else None
+        if d is not None:
+            return d
+        prog = self.prog
+        d = {"kind": type(self).__name__, "callbacks": len(self.query_callbacks),
+             "rate_limited": self.rate_limiter is not None, "tables": sorted(self.tables),
+             "token_capacity": prog.T, "partitions": self.p}
+        with self._receive_lock:
+            tok = keyed_tok(self.state["tok"])
+            active = tok["active"].cpu().numpy()
+            slot = tok["slot"].cpu().numpy()
+        d["states"] = [{"refs": [a.ref for a in s.atoms], "absent": s.is_absent,
+                        "count": [s.min_count, s.max_count] if s.is_count else None,
+                        "active": int(((slot == i) & active).sum())}
+                       for i, s in enumerate(prog.slots)]
+        d["active_instances"] = int(active.sum())
+        return d
 
 
 class PartitionRuntime:
@@ -246,7 +370,8 @@ class PartitionRuntime:
         if isinstance(stream, JoinInputStream):
             raise _not_ported("a join query")
         if isinstance(stream, StateInputStream):
-            raise _not_ported("a pattern or sequence query")
+            self._add_pattern_query(qid, query)
+            return
         if not isinstance(stream, SingleInputStream):
             raise _not_ported(f"a {type(stream).__name__} query")
         if qid in app.queries:
@@ -335,6 +460,59 @@ class PartitionRuntime:
                     receive(app._timer_batch(_schema, t_ms), t_ms)
 
                 qr.timer_targets["in"] = fire
+
+    def _add_pattern_query(self, qid: str, query: Query) -> None:
+        """A pattern or sequence inside the block (JAX
+        PartitionRuntime._add_pattern_query, partition.py:769-826): every
+        stream of the pattern needs a key; its rows leave the partition
+        flattened, to a stream, a callback or a table."""
+        app = self.app
+        if getattr(query.output_stream, "is_inner", False):
+            raise SiddhiAppCreationError(
+                "#inner outputs from joins/patterns inside partitions are not supported yet")
+        from siddhi_tpu_torch.core.table import collect_used_tables
+        from siddhi_tpu_torch.query_api.execution import iter_state_streams
+
+        for s in iter_state_streams(query.input_stream.state):
+            if s.stream_id not in app.stream_schemas:
+                raise SiddhiAppCreationError(
+                    f"query '{qid}': pattern stream '{s.stream_id}' is not defined (patterns "
+                    "consume streams, not tables or windows)")
+        if qid in app.queries:
+            raise SiddhiAppCreationError(f"duplicate query name '{qid}'")
+        if collect_used_tables(dataclasses.replace(query, output_stream=None), app.tables):
+            raise _not_ported("an `in <table>` condition")
+        qr = PartitionedPatternQueryRuntime(
+            query, qid, app.stream_schemas, app.interner, app.device, p_capacity=self.p,
+            key_fns=self.key_fns, tables=app.tables, group_capacity=app.group_capacity,
+            token_capacity=app._capacity_annotation("app:patternCapacity", 128),
+            count_capacity=app._capacity_annotation("app:countCapacity", 8),
+            batch_size=app.batch_size,
+            pattern_chunk=app._capacity_annotation("app:patternChunk", 0) or None)
+        self.queries.append(qr)
+        app.queries[qid] = qr
+        app._wire_insert(qr)
+
+        def receive(batch: EventBatch, now: int, sid: str, _qr=qr) -> None:
+            with app._process_lock:
+                self.ptable, out_b = _qr.receive_partitioned(self.ptable, batch, now, sid)
+                _qr.route_output(out_b, now, app._decode)
+                next_timer = _qr.next_timer
+            app._schedule_at(next_timer, _qr.timer_targets.get("timer"))
+
+        # no fused endpoint: each stream runs per batch
+        for sid in qr.prog.stream_ids:
+            app._junction(sid).subscribe(lambda b, now, _sid=sid: receive(b, now, _sid))
+        if qr.uses_scheduler:
+            # absent deadlines: a one-row TIMER step over every slot
+            def fire(t_ms: int, _qr=qr) -> None:
+                with app._process_lock:
+                    out_b = _qr.receive_timer_partitioned(self.ptable, t_ms)
+                    _qr.route_output(out_b, t_ms, app._decode)
+                    next_timer = _qr.next_timer
+                app._schedule_at(next_timer, _qr.timer_targets.get("timer"))
+
+            qr.timer_targets["timer"] = fire
 
     def _route(self, qr: PartitionedQueryRuntime, out: EventBatch, ctx: GroupCtx,
                now: int) -> None:

@@ -30,6 +30,11 @@ TIMER row, in one launch. Filters split into row-only masks, evaluated over
 the batch by the compiled closures, and token-dependent condition programs
 (`CondProgram`), evaluated per token lane inside the scan.
 
+Inside a partition each route runs keyed by partition slot over one [P*T]
+token table (K34-K37 below, csrc/partition_pattern.cu and
+csrc/pattern_scan.cu's keyed entry point): only the slots with rows, each
+on its own lanes and rows, into its own stretch of the emission buffer.
+
 Deliberate deviations from the reference interpreter are the JAX package's
 (its module docstring): static token/capture capacity with overflow flags,
 the generation chain of `every` over a count, lane-order emission among
@@ -572,48 +577,27 @@ def _null_of(t: AttrType, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(null_value(t), dtype=like.dtype, device=like.device)
 
 
-def pattern_count(prog: "PatternProgram", tok: dict, Mc, Madv, batch_ts, ev0, ev1, overflow):
-    """The count route's pass over slots 0 and 1 for one chunk (see
-    csrc/pattern_count.cu): Mc / Madv [C] bool, slot 0's and slot 1's
-    row-only conditions with the valid CURRENT rows; ev0 / ev1 the two
-    slots' stream columns (None when this step's stream is not theirs).
-    Returns (tok', entry_row [T] int32, overflow')."""
-    if batch_ts.device.type == "cpu":
-        return pattern_count_ref(prog, tok, Mc, Madv, batch_ts, ev0, ev1, overflow)
-    T, C = prog.T, batch_ts.shape[0]
+def _count_plan(prog: "PatternProgram", tok: dict, ts, ev0, ev1) -> list:
+    """The count pass's capture lanes (K14 and K35): (lane key (ref, "n" |
+    "ts" | "col", name), lane, source, null bits, index map) — map 0: ref
+    0's [T, K] captures of its matches, 1: ref 1's capture of its advance
+    row, 2: a generation's cleared ref."""
     slot0, slot1 = prog.slots[0], prog.slots[1]
     atom0, atom1 = slot0.atoms[0], slot1.atoms[0]
     _keep, ts_used = prog.capture_keep()
-    K, m = atom0.cap, slot0.min_count
-    Mx = slot0.max_count if slot0.max_count > 0 else _UNBOUNDED
     c0, c1 = tok["caps"][atom0.ref_idx], tok["caps"][atom1.ref_idx]
-    lanes_in = [tok["active"], tok["slot"], tok["start_ts"], tok["entry_ts"], c0["n"], c1["n"]]
-    kernels.require_cuda("pattern_count", Mc, Madv, batch_ts, overflow, *lanes_in)
-    if Mc.shape != (C,) or Madv.shape != (C,) or any(x.shape != (T,) for x in lanes_in):
-        raise ValueError(f"pattern_count: [{T}] token lanes and [{C}] rows expected")
-    dev = batch_ts.device
-    Gmax = min(C // max(m, 1) + 1, T)
-    out = [torch.empty_like(x) for x in lanes_in[:4]]
-    entry_row = torch.empty(T, dtype=torch.int32, device=dev)
-    n0_o, n1_o = torch.empty_like(c0["n"]), torch.empty_like(c1["n"])
-    scratch = torch.empty(3 * C + (K + 7) * T + 3, dtype=torch.int32, device=dev)
-    ovf = _flag_out(overflow)
-
-    # (lane key (ref, "n" | "ts" | "col", name), old, source, null bits,
-    # index map): map 0 = idx0 per element of [T, K], 1 = idx1 per token,
-    # 2 = the generation clear per token
     plan = []
     if ev0 is not None:
         types0 = prog.schemas[atom0.stream_id].attr_types
         if ts_used[atom0.ref_idx]:
-            plan.append(((atom0.ref_idx, "ts", None), c0["ts"], batch_ts, 0, 0))
+            plan.append(((atom0.ref_idx, "ts", None), c0["ts"], ts, 0, 0))
         for name, arr in c0["cols"].items():
             plan.append(((atom0.ref_idx, "col", name), arr, ev0[name],
                          _null_bits(types0[name]), 0))
     if ev1 is not None:
         types1 = prog.schemas[atom1.stream_id].attr_types
         if ts_used[atom1.ref_idx]:
-            plan.append(((atom1.ref_idx, "ts", None), c1["ts"], batch_ts, 0, 1))
+            plan.append(((atom1.ref_idx, "ts", None), c1["ts"], ts, 0, 1))
         for name, arr in c1["cols"].items():
             plan.append(((atom1.ref_idx, "col", name), arr, ev1[name],
                          _null_bits(types1[name]), 1))
@@ -629,9 +613,39 @@ def pattern_count(prog: "PatternProgram", tok: dict, Mc, Madv, batch_ts, ev0, ev
             types = prog.schemas[a.stream_id].attr_types
             for name, arr in c["cols"].items():
                 plan.append(((ridx, "col", name), arr, arr, _null_bits(types[name]), 2))
-    for _k, old, srcl, _nb, _mp in plan:
+    for k, old, srcl, _nb, _mp in plan:
         if srcl.dtype != old.dtype:
-            raise ValueError(f"pattern_count: lane {_k} is {old.dtype}, its source {srcl.dtype}")
+            raise ValueError(f"pattern_count: lane {k} is {old.dtype}, its source {srcl.dtype}")
+    return plan
+
+
+def pattern_count(prog: "PatternProgram", tok: dict, Mc, Madv, batch_ts, ev0, ev1, overflow):
+    """The count route's pass over slots 0 and 1 for one chunk (see
+    csrc/pattern_count.cu): Mc / Madv [C] bool, slot 0's and slot 1's
+    row-only conditions with the valid CURRENT rows; ev0 / ev1 the two
+    slots' stream columns (None when this step's stream is not theirs).
+    Returns (tok', entry_row [T] int32, overflow')."""
+    if batch_ts.device.type == "cpu":
+        return pattern_count_ref(prog, tok, Mc, Madv, batch_ts, ev0, ev1, overflow)
+    T, C = prog.T, batch_ts.shape[0]
+    slot0, slot1 = prog.slots[0], prog.slots[1]
+    atom0, atom1 = slot0.atoms[0], slot1.atoms[0]
+    K, m = atom0.cap, slot0.min_count
+    Mx = slot0.max_count if slot0.max_count > 0 else _UNBOUNDED
+    c0, c1 = tok["caps"][atom0.ref_idx], tok["caps"][atom1.ref_idx]
+    lanes_in = [tok["active"], tok["slot"], tok["start_ts"], tok["entry_ts"], c0["n"], c1["n"]]
+    kernels.require_cuda("pattern_count", Mc, Madv, batch_ts, overflow, *lanes_in)
+    if Mc.shape != (C,) or Madv.shape != (C,) or any(x.shape != (T,) for x in lanes_in):
+        raise ValueError(f"pattern_count: [{T}] token lanes and [{C}] rows expected")
+    dev = batch_ts.device
+    Gmax = min(C // max(m, 1) + 1, T)
+    out = [torch.empty_like(x) for x in lanes_in[:4]]
+    entry_row = torch.empty(T, dtype=torch.int32, device=dev)
+    n0_o, n1_o = torch.empty_like(c0["n"]), torch.empty_like(c1["n"])
+    scratch = torch.empty(3 * C + (K + 7) * T + 3, dtype=torch.int32, device=dev)
+    ovf = _flag_out(overflow)
+
+    plan = _count_plan(prog, tok, batch_ts, ev0, ev1)
     new_lanes = [torch.empty_like(old) for _k, old, _s, _nb, _mp in plan]
     L = _Lanes({
         "old": (ctypes.c_void_p, [old.data_ptr() for _k, old, _s, _nb, _mp in plan]),
@@ -977,11 +991,14 @@ def scan_lane_bytes(T: int, R: int) -> int:
 
 def _scan_launch(prog: "PatternProgram", tok: dict, stream_id: Optional[str], batch_ts, batch_kind,
                  batch_valid, ev: dict, rmask, regs: list, out: dict, out_n, overflow, timer_seen,
-                 fn, stream):
+                 fn, stream, keyed=None):
     """Lay out K16's arguments and call the entry point `fn`: fresh output
     lanes for the token table, the emission buffer and out_n in place.
-    Returns (tok', overflow')."""
+    Returns (tok', overflow'). keyed: K37's (P, used, rows, emission, timer
+    seen per slot, the output table) for `pps_scan` over a [P*T] table,
+    whose overflow flag is updated in place."""
     T, B, R = prog.T, batch_ts.shape[0], len(prog.refs)
+    n_tok = T if keyed is None else keyed[0] * T
     dev = batch_ts.device
     desc = prog.scan_desc(dev)
     lanes = prog.cap_lanes()
@@ -991,14 +1008,20 @@ def _scan_launch(prog: "PatternProgram", tok: dict, stream_id: Optional[str], ba
                          f"registers, {desc.shape[0]} descriptor words exceed the kernel's "
                          f"{_SCAN_MAX_REFS}, {_SCAN_MAX_CAP_LANES}, {_SCAN_MAX_REGS}, "
                          f"{_SCAN_MAX_DESC}")
-    if rmask.shape != (R, B) or any(x.shape != (T,) for x in
+    if rmask.shape != (R, B) or any(x.shape != (n_tok,) for x in
                                     (tok["active"], tok["slot"], tok["start_ts"], tok["entry_ts"])):
-        raise ValueError(f"pattern_scan: [{T}] token lanes and an [{R}, {B}] row mask expected")
-    new = {k: torch.empty_like(tok[k]) for k in ("active", "slot", "start_ts", "entry_ts")}
-    if "fwd" in tok:
-        new["fwd"] = torch.empty_like(tok["fwd"])
-    caps = [{"n": torch.empty_like(c["n"]), "ts": torch.empty_like(c["ts"]),
-             "cols": {k: torch.empty_like(v) for k, v in c["cols"].items()}} for c in tok["caps"]]
+        raise ValueError(f"pattern_scan: [{n_tok}] token lanes and an [{R}, {B}] row mask "
+                         "expected")
+    if keyed is None:
+        new = {k: torch.empty_like(tok[k]) for k in ("active", "slot", "start_ts", "entry_ts")}
+        if "fwd" in tok:
+            new["fwd"] = torch.empty_like(tok["fwd"])
+        caps = [{"n": torch.empty_like(c["n"]), "ts": torch.empty_like(c["ts"]),
+                 "cols": {k: torch.empty_like(v) for k, v in c["cols"].items()}}
+                for c in tok["caps"]]
+    else:
+        new = {k: v for k, v in keyed[5].items() if k != "caps"}
+        caps = keyed[5]["caps"]
     cl = []  # (in, out, ev, emit, stage, null bits, ref, size, is_ts)
     for ref_idx, name in lanes:
         a = prog.refs[ref_idx]
@@ -1014,8 +1037,8 @@ def _scan_launch(prog: "PatternProgram", tok: dict, stream_id: Optional[str], ba
                    int(name is None)))
     bytes_ = scan_lane_bytes(T, R)
     smem = bytes_ <= _SCAN_SMEM_BYTES
-    scratch = torch.empty(1 if smem else bytes_, dtype=torch.uint8, device=dev)
-    ovf = _flag_out(overflow)
+    scratch = torch.empty(1 if smem else bytes_ * (n_tok // T), dtype=torch.uint8, device=dev)
+    ovf = _flag_out(overflow) if keyed is None else overflow
 
     def ptr(x):
         return 0 if x is None else x.data_ptr()
@@ -1037,19 +1060,381 @@ def _scan_launch(prog: "PatternProgram", tok: dict, stream_id: Optional[str], ba
         "is_ts": (ctypes.c_int, [x[8] for x in cl]),
     })
     G = _Lanes({"reg": (ctypes.c_void_p, [r.data_ptr() for r in regs])})
-    kernels.check(fn(
-        desc.data_ptr(), desc.shape[0], T, B, R,
-        tok["active"].data_ptr(), new["active"].data_ptr(), tok["slot"].data_ptr(),
-        new["slot"].data_ptr(), tok["start_ts"].data_ptr(), new["start_ts"].data_ptr(),
-        tok["entry_ts"].data_ptr(), new["entry_ts"].data_ptr(),
-        ptr(tok.get("fwd")), ptr(new.get("fwd")), L["n_in"], L["n_out"], L["out_nref"],
-        len(cl), C["in"], C["out"], C["ev"], C["emit"], C["stage"], C["null"], C["ref"],
-        C["size"], C["is_ts"], batch_ts.data_ptr(), batch_kind.data_ptr(),
-        batch_valid.data_ptr(), rmask.data_ptr(), len(regs), G["reg"],
-        out["ts"].data_ptr(), out["valid"].data_ptr(), out["valid"].shape[0], out_n.data_ptr(),
-        overflow.data_ptr(), ovf.data_ptr(), timer_seen.data_ptr(), scratch.data_ptr(), int(smem),
-        stream), "pattern_scan")
+    args = (desc.data_ptr(), desc.shape[0], T, B, R,
+            tok["active"].data_ptr(), new["active"].data_ptr(), tok["slot"].data_ptr(),
+            new["slot"].data_ptr(), tok["start_ts"].data_ptr(), new["start_ts"].data_ptr(),
+            tok["entry_ts"].data_ptr(), new["entry_ts"].data_ptr(),
+            ptr(tok.get("fwd")), ptr(new.get("fwd")), L["n_in"], L["n_out"], L["out_nref"],
+            len(cl), C["in"], C["out"], C["ev"], C["emit"], C["stage"], C["null"], C["ref"],
+            C["size"], C["is_ts"], batch_ts.data_ptr(), batch_kind.data_ptr(),
+            batch_valid.data_ptr(), rmask.data_ptr(), len(regs), G["reg"],
+            out["ts"].data_ptr(), out["valid"].data_ptr())
+    if keyed is None:
+        kernels.check(fn(*args, out["valid"].shape[0], out_n.data_ptr(), overflow.data_ptr(),
+                         ovf.data_ptr(), timer_seen.data_ptr(), scratch.data_ptr(), int(smem),
+                         stream), "pattern_scan")
+    else:
+        p, used, rows, emis, seen, _new = keyed
+        kernels.check(fn(*args, emis.out_cap, overflow.data_ptr(), scratch.data_ptr(), int(smem),
+                         p, used.data_ptr(), rows.rowlist.data_ptr(), rows.slot_start.data_ptr(),
+                         rows.timers.data_ptr(), rows.info.data_ptr(), emis.off.data_ptr(),
+                         emis.cap.data_ptr(), emis.n.data_ptr(), seen.data_ptr(), stream),
+                      "partition_pattern_scan")
     return {**new, "caps": caps}, ovf
+
+
+# ---------------------------------------------------------------------------
+# K34-K37: the routes keyed by partition slot
+# ---------------------------------------------------------------------------
+#
+# Inside a partition the JAX package runs the whole pattern step once per
+# partition lane under jax.vmap (siddhi_tpu/core/partition.py
+# PartitionedPatternQueryRuntime._pstep_impl :326): lane p sees the batch
+# with only its own rows, and every TIMER row, valid. The port keeps one
+# [P*T] token table, slot q's lanes at q*T (`keyed_tok`), and runs only the
+# slots that have rows: the batch routes chunk by chunk, a chunk being C
+# rows of the whole batch as under the vmap (ops/partition.py
+# `PatternChunks`: each chunk's member rows as (slot, rows) segments), the
+# scan over each used slot's rows and every slot over the TIMER rows
+# (the caller's `used`: the slots it steps). Completions go to
+# each slot's own stretch of one emission buffer (`PatternEmission`), which
+# ops/partition.py `pattern_place` flattens by (position, slot) after the
+# step. The batch-route wrappers update the token table, the entry rows,
+# the emission buffer and the overflow flag in place. Each `*_ref` twin
+# runs the unpartitioned plain route once per slot with rows on that
+# slot's lanes.
+
+
+def _tok_map(tok: dict, f) -> dict:
+    out = {k: f(v) for k, v in tok.items() if k != "caps"}
+    out["caps"] = [{"n": f(c["n"]), "ts": f(c["ts"]),
+                    "cols": {k: f(v) for k, v in c["cols"].items()}} for c in tok["caps"]]
+    return out
+
+
+def keyed_tok(tok: dict) -> dict:
+    """A [P, T]-tiled token table as one [P*T] table (views of its lanes)."""
+    return _tok_map(tok, lambda x: x.reshape((-1,) + tuple(x.shape[2:])))
+
+
+def tiled_tok(tok: dict, p: int) -> dict:
+    """A [P*T] token table as the [P, T]-tiled one (views)."""
+    return _tok_map(tok, lambda x: x.reshape((p, -1) + tuple(x.shape[1:])))
+
+
+def _slot_tok(tok: dict, q: int, T: int) -> dict:
+    s = slice(q * T, (q + 1) * T)
+    return _tok_map(tok, lambda x: x[s])
+
+
+def _put_slot(tok: dict, q: int, T: int, sub: dict) -> None:
+    s = slice(q * T, (q + 1) * T)
+    for k, v in tok.items():
+        if k != "caps":
+            v[s] = sub[k]
+    for c, sc in zip(tok["caps"], sub["caps"]):
+        c["n"][s] = sc["n"]
+        c["ts"][s] = sc["ts"]
+        for k, v in c["cols"].items():
+            v[s] = sc["cols"][k]
+
+
+@dataclasses.dataclass
+class PatternEmission:
+    """One step's emissions inside a partition: slot q's rows, in the order
+    of its own emission buffer, at rows [off[q], off[q] + cap[q]) of the
+    `init_out` lanes `out`. n[q] counts the slot's emissions up to out_cap
+    (the JAX package's per-lane buffer, whose overflow raises the flag);
+    cap[q] <= out_cap of them are stored."""
+
+    out: dict
+    off: torch.Tensor  # [P] int64
+    cap: torch.Tensor  # [P] int32
+    n: torch.Tensor  # [P] int32
+    out_cap: int
+
+    def stretch(self, q: int):
+        """(lanes, n) of slot q: views."""
+        lo = int(self.off[q])
+        hi = lo + int(self.cap[q])
+        return {k: v[lo:hi] for k, v in self.out.items()}, self.n[q]
+
+
+def keyed_out(prog: "PatternProgram", caps: torch.Tensor, out_cap: int) -> PatternEmission:
+    """An emission buffer of caps[q] rows for slot q (one host read: the
+    total)."""
+    caps = caps.to(torch.int32)
+    off = torch.cumsum(caps.to(torch.int64), 0) - caps.to(torch.int64)
+    return PatternEmission(prog.init_out(max(int(caps.sum()), 1)), off, caps,
+                           torch.zeros_like(caps), out_cap)
+
+
+def _chunk_slots(ch, i: int):
+    """(rows of chunk i, its member mask, their slots, the slots with rows)."""
+    s = slice(i * ch.C, (i + 1) * ch.C)
+    v, rs = ch.v[s], ch.slot[s]
+    return s, v, rs, torch.unique(rs[v]).tolist()
+
+
+def partition_pattern_advance_ref(prog: "PatternProgram", p: int, tok: dict, entry_row, ch,
+                                  i: int, ev: dict, cond, overflow, tail: bool = False):
+    """Plain version of `partition_pattern_advance`: `pattern_advance_ref`
+    on each slot with rows in chunk i, its lanes and its rows."""
+    T = prog.T
+    s, v, rs, slots = _chunk_slots(ch, i)
+    ts = ch.ts[s]
+    evc = {n: a[s] for n, a in ev.items()}
+    ovf = overflow.clone()
+    for q in slots:
+        cq = cond if cond is None or cond.dim() == 0 or cond.shape[0] == 1 else \
+            cond[q * T:(q + 1) * T]
+        new, er, ovf = pattern_advance_ref(prog, p, _slot_tok(tok, q, T),
+                                           entry_row[q * T:(q + 1) * T].clone(), v & (rs == q),
+                                           ts, evc, cq, ovf, tail)
+        _put_slot(tok, q, T, new)
+        entry_row[q * T:(q + 1) * T] = er
+    overflow.copy_(ovf)
+
+
+def partition_pattern_advance(prog: "PatternProgram", p: int, tok: dict, entry_row, ch, i: int,
+                              ev: dict, cond, overflow, tail: bool = False) -> None:
+    """K34: one NFA slot's pass (`pattern_advance`) over chunk i, for every
+    partition slot with rows in it, each over its own [T] lanes and rows
+    (csrc/partition_pattern.cu). tok: the [P*T] token table; entry_row
+    [P*T] int32, chunk-local; ch: ops/partition.py `PatternChunks`; ev:
+    {attr: [k*C]} the slot's stream columns over the whole padded batch;
+    cond: the chunk's condition, [1, C] when it reads only the row, else
+    [P*T, C] (None: true). tok, entry_row and overflow (0-d bool) are
+    updated in place."""
+    if ch.ts.device.type == "cpu":
+        return partition_pattern_advance_ref(prog, p, tok, entry_row, ch, i, ev, cond, overflow,
+                                             tail)
+    atom = prog.slots[p].atoms[0]
+    _keep, ts_used = prog.capture_keep()
+    cr = tok["caps"][atom.ref_idx]
+    lanes_in = [tok["active"], tok["slot"], tok["start_ts"], tok["entry_ts"], entry_row, cr["n"]]
+    kernels.require_cuda("partition_pattern_advance", *lanes_in, ch.ts, overflow,
+                         *[ev[n] for n in cr["cols"]])
+    T, C, P = prog.T, ch.C, ch.p
+    dev = ch.ts.device
+    if any(x.shape != (P * T,) for x in lanes_in):
+        raise ValueError(f"partition_pattern_advance: [{P * T}] token lanes expected")
+    fork, strict, win = prog._pass_kind(p, tail)
+    c, cst, csc = _cond_view(cond, dev)
+    if c.dtype != torch.bool or c.shape[0] not in (1, P * T) or c.shape[1] not in (1, C):
+        raise ValueError(f"partition_pattern_advance: condition {list(c.shape)} does not "
+                         f"broadcast to [{P * T}, {C}]")
+    pairs = [(cr["ts"], ch.ts)] if ts_used[atom.ref_idx] else []
+    pairs += [(arr, ev[name]) for name, arr in cr["cols"].items()]
+    for lane, src in pairs:
+        if lane.dtype != src.dtype:
+            raise ValueError(f"partition_pattern_advance: capture lane {lane.dtype}, column "
+                             f"{src.dtype}")
+    scratch = torch.empty(2 * P * T if fork else 1, dtype=torch.int32, device=dev)
+    L = _Lanes({
+        "lane": (ctypes.c_void_p, [a.data_ptr() for a, _s in pairs]),
+        "src": (ctypes.c_void_p, [s.data_ptr() for _a, s in pairs]),
+        "size": (ctypes.c_int, [a.element_size() for a, _s in pairs]),
+        "width": (ctypes.c_int, [a.shape[1] for a, _s in pairs]),
+    })
+    kernels.check(kernels.function("pp_advance")(
+        *[x.data_ptr() for x in lanes_in], ch.ts.data_ptr(), c.data_ptr(), cst, csc, T, C, i, p,
+        int(fork), int(strict), int(not tail), int(win is not None),
+        0 if win is None else int(win), ch.srow.data_ptr(), ch.seg_slot.data_ptr(),
+        ch.seg_lo.data_ptr(), ch.seg_hi.data_ptr(), ch.nseg.data_ptr(), min(C, P),
+        overflow.data_ptr(), scratch.data_ptr(), L.n, L["lane"], L["src"], L["size"],
+        L["width"], kernels.stream()), "partition_pattern_advance")
+    kernels.launches["partition_pattern_advance"] += 1
+
+
+def partition_pattern_count_ref(prog: "PatternProgram", tok: dict, entry_row, ch, i: int, Mc,
+                                Madv, ev0, ev1, overflow) -> None:
+    """Plain version of `partition_pattern_count`: `pattern_count_ref` on
+    each slot with rows in chunk i, with its lanes and its rows' masks (C
+    the whole chunk's, as the vmap's)."""
+    T = prog.T
+    s, v, rs, slots = _chunk_slots(ch, i)
+    ts = ch.ts[s]
+    ev0c = None if ev0 is None else {n: a[s] for n, a in ev0.items()}
+    ev1c = None if ev1 is None else {n: a[s] for n, a in ev1.items()}
+    ovf = overflow.clone()
+    for q in slots:
+        mine = rs == q
+        new, er, ovf = pattern_count_ref(prog, _slot_tok(tok, q, T), Mc[s] & mine,
+                                         Madv[s] & mine, ts, ev0c, ev1c, ovf)
+        _put_slot(tok, q, T, new)
+        entry_row[q * T:(q + 1) * T] = er
+    overflow.copy_(ovf)
+
+
+def partition_pattern_count(prog: "PatternProgram", tok: dict, entry_row, ch, i: int, Mc, Madv,
+                            ev0, ev1, overflow) -> None:
+    """K35: the count route's closed-form pass over slots 0 and 1
+    (`pattern_count`) in chunk i, for every partition slot with rows in it
+    (csrc/partition_pattern.cu). Mc / Madv [k*C] bool: slot 0's and slot
+    1's row-only conditions with the member rows over the padded batch;
+    ev0 / ev1: the two slots' stream columns over it (None when this
+    step's stream is not theirs). The chain cap Gmax = min(C // m + 1, T)
+    takes the whole chunk's C, as the vmap's. tok, entry_row (every lane
+    of a slot with rows: its chunk-local advance row, or -1) and overflow
+    are updated in place."""
+    if ch.ts.device.type == "cpu":
+        return partition_pattern_count_ref(prog, tok, entry_row, ch, i, Mc, Madv, ev0, ev1,
+                                           overflow)
+    T, C, P = prog.T, ch.C, ch.p
+    slot0, slot1 = prog.slots[0], prog.slots[1]
+    atom0, atom1 = slot0.atoms[0], slot1.atoms[0]
+    K, m = atom0.cap, slot0.min_count
+    Mx = slot0.max_count if slot0.max_count > 0 else _UNBOUNDED
+    c0, c1 = tok["caps"][atom0.ref_idx], tok["caps"][atom1.ref_idx]
+    lanes = [tok["active"], tok["slot"], tok["start_ts"], tok["entry_ts"], entry_row, c0["n"],
+             c1["n"]]
+    kernels.require_cuda("partition_pattern_count", Mc, Madv, ch.ts, overflow, *lanes)
+    if any(x.shape != (P * T,) for x in lanes):
+        raise ValueError(f"partition_pattern_count: [{P * T}] token lanes expected")
+    dev = ch.ts.device
+    plan = _count_plan(prog, tok, ch.ts, ev0, ev1)
+    scratch = torch.empty(3 * C + P * T + 8, dtype=torch.int32, device=dev)
+    L = _Lanes({
+        "lane": (ctypes.c_void_p, [old.data_ptr() for _k, old, _s, _nb, _mp in plan]),
+        "src": (ctypes.c_void_p, [s.data_ptr() for _k, _o, s, _nb, _mp in plan]),
+        "size": (ctypes.c_int, [old.element_size() for _k, old, _s, _nb, _mp in plan]),
+        "width": (ctypes.c_int, [old.shape[1] if old.dim() == 2 else 1
+                                 for _k, old, _s, _nb, _mp in plan]),
+        "map": (ctypes.c_int, [mp for _k, _o, _s, _nb, mp in plan]),
+        "null": (ctypes.c_longlong, [nb for _k, _o, _s, nb, _mp in plan]),
+    })
+    kernels.check(kernels.function("pp_count")(
+        Mc.data_ptr(), Madv.data_ptr(), ch.ts.data_ptr(), *[x.data_ptr() for x in lanes], T, C, i,
+        K, m, Mx, int(slot0.persistent), int(ev1 is not None), min(C // max(m, 1) + 1, T),
+        ch.srow.data_ptr(), ch.seg_slot.data_ptr(), ch.seg_lo.data_ptr(), ch.seg_hi.data_ptr(),
+        ch.nseg.data_ptr(), min(C, P), overflow.data_ptr(), scratch.data_ptr(), L.n, L["lane"],
+        L["src"], L["size"], L["width"], L["map"], L["null"], kernels.stream()),
+        "partition_pattern_count")
+    kernels.launches["partition_pattern_count"] += 1
+
+
+def partition_pattern_emit_ref(prog: "PatternProgram", tok: dict, entry_row, ch, i: int, now,
+                               emis: PatternEmission, overflow, purge: bool) -> None:
+    """Plain version of `partition_pattern_emit`: `pattern_emit_ref` on
+    each slot with rows in chunk i into its own stretch, then its entry
+    rows back to -1."""
+    T = prog.T
+    s, v, rs, slots = _chunk_slots(ch, i)
+    ts = ch.ts[s]
+    ovf = overflow.clone()
+    for q in slots:
+        out_q, n_q = emis.stretch(q)
+        er = entry_row[q * T:(q + 1) * T]
+        new, _o, _n, ovf = pattern_emit_ref(prog, _slot_tok(tok, q, T), er, ts, v & (rs == q),
+                                            now, out_q, n_q, ovf, purge)
+        tok["active"][q * T:(q + 1) * T] = new["active"]
+        er.fill_(-1)
+    overflow.copy_(ovf)
+
+
+def partition_pattern_emit(prog: "PatternProgram", tok: dict, entry_row, ch, i: int, now,
+                           emis: PatternEmission, overflow, purge: bool) -> None:
+    """K36: the completions of chunk i (`pattern_emit`) for every partition
+    slot with rows in it (csrc/partition_pattern.cu): each slot's tokens
+    at its last NFA slot go to its emission stretch at emis.n[q] + their
+    rank in (completion row, lane) order, up to the stretch (the overflow
+    flag past it), and leave the table; with purge (the fast route) the
+    tokens whose `within` expired by the slot's last row in the chunk are
+    dropped, the arming token kept; the slot's entry rows go back to -1.
+    Everything in place."""
+    if ch.ts.device.type == "cpu":
+        return partition_pattern_emit_ref(prog, tok, entry_row, ch, i, now, emis, overflow,
+                                          purge)
+    T, C, P = prog.T, ch.C, ch.p
+    S = len(prog.slots)
+    dev = ch.ts.device
+    out = emis.out
+    pairs = _emit_lanes(prog, tok, out)
+    kernels.require_cuda("partition_pattern_emit", tok["active"], tok["slot"], tok["start_ts"],
+                         entry_row, ch.ts, now, out["ts"], out["valid"], emis.n, overflow,
+                         *[x for pr in pairs for x in pr])
+    for src, dst in pairs:
+        if src.dtype != dst.dtype or src.shape[1:] != dst.shape[1:]:
+            raise ValueError("partition_pattern_emit: emission lanes do not match the token lanes")
+    scratch = torch.empty(2 * P * T, dtype=torch.int32, device=dev)
+    L = _Lanes({
+        "src": (ctypes.c_void_p, [s.data_ptr() for s, _d in pairs]),
+        "dst": (ctypes.c_void_p, [d.data_ptr() for _s, d in pairs]),
+        "size": (ctypes.c_int, [s.element_size() for s, _d in pairs]),
+        "width": (ctypes.c_int, [s.shape[1] if s.dim() == 2 else 1 for s, _d in pairs]),
+    })
+    kernels.check(kernels.function("pp_emit")(
+        tok["active"].data_ptr(), tok["slot"].data_ptr(), tok["start_ts"].data_ptr(),
+        entry_row.data_ptr(), T, S, ch.ts.data_ptr(), C, i, now.data_ptr(), out["ts"].data_ptr(),
+        out["valid"].data_ptr(), emis.off.data_ptr(), emis.cap.data_ptr(), emis.n.data_ptr(),
+        overflow.data_ptr(), int(purge), prog.win_by_slot(dev).data_ptr(),
+        int(prog.slots[0].persistent), ch.srow.data_ptr(), ch.seg_slot.data_ptr(),
+        ch.seg_lo.data_ptr(), ch.seg_hi.data_ptr(), ch.nseg.data_ptr(), min(C, P),
+        scratch.data_ptr(), L.n, L["src"], L["dst"], L["size"], L["width"], kernels.stream()),
+        "partition_pattern_emit")
+    kernels.launches["partition_pattern_emit"] += 1
+
+
+def partition_pattern_scan_ref(prog: "PatternProgram", tok: dict, stream_id: Optional[str],
+                               batch_ts, batch_kind, batch_valid, ev: dict, rmask, regs: list,
+                               rows, used, emis: PatternEmission, overflow, timer_seen) -> dict:
+    """Plain version of `partition_pattern_scan`: `pattern_scan_ref` on each
+    used slot over its member rows and the TIMER rows (row order), into an
+    emission buffer of out_cap rows, of which the stretch keeps the
+    first."""
+    T = prog.T
+    new = _tok_map(tok, torch.clone)
+    rowlist, slot_start, timers = rows.rowlist, rows.slot_start.tolist(), rows.timers
+    ovf = overflow.clone()
+    for q in torch.nonzero(used).flatten().tolist():
+        rq = rowlist[slot_start[q]:slot_start[q + 1]].long()
+        if timers.numel():
+            rq = torch.sort(torch.cat([rq, timers.long()])).values
+        if not rq.numel():
+            continue
+        out_t = prog.init_out(emis.out_cap)
+        n_t = torch.zeros((), dtype=torch.int32, device=batch_ts.device)
+        sub, out_t, n_t, ovf = pattern_scan_ref(
+            prog, _slot_tok(new, q, T), stream_id, batch_ts[rq], batch_kind[rq], batch_valid[rq],
+            {n: c[rq] for n, c in ev.items()}, rmask[:, rq], [r[rq] for r in regs], out_t, n_t,
+            ovf, timer_seen[q])
+        _put_slot(new, q, T, sub)
+        st, n_q = emis.stretch(q)
+        k = min(int(n_t), st["valid"].shape[0])
+        for name, lane in st.items():
+            lane[:k] = out_t[name][:k]
+        n_q.copy_(n_t)
+    overflow.copy_(ovf)
+    return new
+
+
+def partition_pattern_scan(prog: "PatternProgram", tok: dict, stream_id: Optional[str], batch_ts,
+                           batch_kind, batch_valid, ev: dict, rmask, regs: list, rows, used,
+                           emis: PatternEmission, overflow, timer_seen) -> dict:
+    """K37: one scan step (`pattern_scan`) of the `used` partition slots at
+    once, each over its member rows and every TIMER row, in row order
+    (csrc/pattern_scan.cu `pps_scan`, one block a slot). tok: the [P*T]
+    token table (read; the new table is returned); rows: ops/partition.py
+    `PartitionRows` of the batch; used [P] bool the slots stepped;
+    timer_seen [P] int64 each slot's max TIMER timestamp before the step.
+    Slot q's emissions go to its stretch of `emis` (emis.n[q] counts them
+    up to out_cap, past its stretch too: the caller runs the step again
+    with larger stretches); overflow (0-d bool) is updated in place."""
+    if batch_ts.device.type == "cpu":
+        return partition_pattern_scan_ref(prog, tok, stream_id, batch_ts, batch_kind, batch_valid,
+                                          ev, rmask, regs, rows, used, emis, overflow, timer_seen)
+    P, T = used.shape[0], prog.T
+    kernels.require_cuda("partition_pattern_scan", tok["active"], batch_ts, batch_kind,
+                         batch_valid, rmask, overflow, timer_seen, used, rows.rowlist, *regs,
+                         *ev.values(), *emis.out.values())
+    new = _tok_map(tok, torch.clone)  # slots the step does not run keep their lanes
+    emis.n.zero_()
+    _scan_launch(prog, tok, stream_id, batch_ts, batch_kind, batch_valid, ev, rmask, regs,
+                 emis.out, None, overflow, None, kernels.function("pps_scan"), kernels.stream(),
+                 keyed=(P, used, rows, emis, timer_seen, new))
+    kernels.launches["partition_pattern_scan"] += 1
+    return new
 
 
 # ---------------------------------------------------------------------------
@@ -1297,6 +1682,17 @@ class PatternProgram:
             cond = x if cond is None else cond & x
         return cond
 
+    def row_mask(self, p: int, ev: dict, batch_ts, now, v):
+        """v AND slot p's conditions evaluated on each row alone (the
+        count route's slots 0 and 1, or any slot whose conditions read only
+        the row)."""
+        atom = self.slots[p].atoms[0]
+        env = self._row_env(ev, batch_ts, now, atom)
+        mask = v
+        for c in self._conds[(p, atom.ref_idx)]:
+            mask = mask & torch.broadcast_to(c(env), v.shape)
+        return mask
+
     # ---- routes ------------------------------------------------------------
 
     @property
@@ -1395,13 +1791,8 @@ class PatternProgram:
         masks, evs = [], []
         for p, atom in ((0, atom0), (1, atom1)):
             ev = stream_cols.get(atom.stream_id)
-            mask = torch.zeros(C, dtype=torch.bool, device=batch_ts.device)
-            if ev is not None:
-                env = self._row_env(ev, batch_ts, now, atom)
-                mask = v
-                for c in self._conds[(p, atom.ref_idx)]:
-                    mask = mask & torch.broadcast_to(c(env), (C,))
-            masks.append(mask)
+            masks.append(torch.zeros(C, dtype=torch.bool, device=batch_ts.device) if ev is None
+                         else self.row_mask(p, ev, batch_ts, now, v))
             evs.append(ev)
         tok, entry_row, overflow = pattern_count(self, tok, masks[0], masks[1], batch_ts, evs[0],
                                                  evs[1], overflow)
@@ -2177,12 +2568,13 @@ class PatternProgram:
         )
         return cols
 
-    def next_timer(self, tok, after=None):
+    def next_timer(self, tok, after=None, live=None):
         """The earliest absent-state deadline over active tokens, deadlines
-        at or before `after` (the max TIMER timestamp processed) excluded:
-        a 0-d int64 on the token table's device, NO_TIMER when none. A
-        pattern without a waiting absent state returns the host constant
-        NO_TIMER, at no device read."""
+        at or before `after` (the max TIMER timestamp processed; one value
+        or one per token) excluded: a 0-d int64 on the token table's
+        device, NO_TIMER when none. `live` [T] bool limits it to some
+        tokens. A pattern without a waiting absent state returns the host
+        constant NO_TIMER, at no device read."""
         if not self.needs_scheduler:
             return NO_TIMER
         t = None
@@ -2192,6 +2584,8 @@ class PatternProgram:
                 continue
             both_absent = len(absents) == len(slot.atoms) >= 2
             at_p = tok["active"] & (tok["slot"] == slot.index)
+            if live is not None:
+                at_p = at_p & live
             for a in absents:  # both-absent elements wait per side
                 base = tok["entry_ts"]
                 if slot.index == 0 and both_absent:  # arrivals re-arm that side's window

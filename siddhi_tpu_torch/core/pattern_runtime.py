@@ -16,10 +16,19 @@ takes the per-event scan: one `pattern_scan` over the batch's rows (JAX
 `_make_step`'s lax.scan of `apply_event`), and a one-row TIMER step
 (`receive_timer`) at each absent deadline the scheduler fires.
 Completions collect in one emission buffer, and the selector projects it.
+
+Inside a partition (`_keyed_step_impl`, the JAX package's vmap of the step
+over P partition lanes) the token table is [P]-tiled and each row carries
+its partition slot: the batch routes run chunk by chunk over the whole
+batch with only the slots that have rows in the chunk (K34-K36), the scan
+runs every used slot over its rows, and every slot over the TIMER rows
+(K37), and each slot's completions are placed by (position, slot) before
+the selector, which keys its state by the slot.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Optional
 
@@ -27,14 +36,42 @@ import numpy as np
 import torch
 
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
-from siddhi_tpu_torch.core.event import KIND_TIMER, EventBatch, StreamSchema
+from siddhi_tpu_torch.core.event import KIND_CURRENT, KIND_TIMER, EventBatch, StreamSchema
 from siddhi_tpu_torch.core.flow import Flow
 from siddhi_tpu_torch.core import pattern as pattern_mod
-from siddhi_tpu_torch.core.pattern import NO_TIMER, PatternProgram, pattern_scan
+from siddhi_tpu_torch.core.groupby import partition_ctx
+from siddhi_tpu_torch.core.pattern import (
+    NO_TIMER,
+    PatternEmission,
+    PatternProgram,
+    keyed_out,
+    keyed_tok,
+    partition_pattern_advance,
+    partition_pattern_count,
+    partition_pattern_emit,
+    partition_pattern_scan,
+    pattern_scan,
+    tiled_tok,
+)
 from siddhi_tpu_torch.core.query_runtime import BaseQueryRuntime, _FlagWatch
 from siddhi_tpu_torch.core.selector import CompiledSelector
 from siddhi_tpu_torch.core.types import InternTable
+from siddhi_tpu_torch.ops.partition import partition_rows, pattern_chunks, pattern_place
 from siddhi_tpu_torch.query_api.execution import Query, StateInputStream
+
+
+@dataclasses.dataclass
+class PatternPartition:
+    """A keyed step's partition context: each row's slot [B] int32 (P: no
+    partition), the slots holding a key after the step (`used` [P] bool),
+    the slots first allocated by it (`fresh` [P] bool, None: none), the
+    capacity P and the key table's overflow flag (0-d bool)."""
+
+    slot: torch.Tensor
+    used: torch.Tensor
+    fresh: Optional[torch.Tensor]
+    p: int
+    overflow: torch.Tensor
 
 
 class PatternQueryRuntime(BaseQueryRuntime):
@@ -160,6 +197,180 @@ class PatternQueryRuntime(BaseQueryRuntime):
                 tok, ts[i], kind[i], valid[i], {stream_id: {n: c[i] for n, c in cols.items()}},
                 out, out_n, ovf, now)
         return tok, ovf
+
+    # ---- the keyed step inside a partition --------------------------------
+
+    def _keyed_step_impl(self, state, batch: EventBatch, now: torch.Tensor,
+                         stream_id: Optional[str], pctx: "PatternPartition"):
+        """One step of every partition's NFA at once (the JAX package's vmap
+        of `_make_step`, siddhi_tpu/core/partition.py:326-376 and :378):
+        the fresh lanes refreshed, the route over each slot's rows (and
+        every TIMER row), the emissions placed by (position, slot), the
+        selector over them with the slot lane in Flow.partition. state:
+        the [P]-tiled tree; pctx: the rows' slots, the used and fresh
+        slots. Returns (state', out, out partition context)."""
+        prog = self.prog
+        p, T = pctx.p, prog.T
+        dev = self.device
+        state = self._refresh(state, pctx.fresh, now, p)
+        tok = keyed_tok(state["tok"])
+        ovf = torch.zeros((), dtype=torch.bool, device=dev)
+        timer_ts = state["timer_ts"]
+        if self._scan:
+            ev, rmask, regs = prog.scan_inputs(stream_id, batch)
+            rows = partition_rows(batch, pctx.slot, p)
+            timer_rows = batch.valid & (batch.kind == KIND_TIMER)
+            # TIMER rows step every slot, used or not, as under the vmap: a
+            # slot that another query of the block allocates first is not
+            # fresh for this one, and starts from the lanes those steps made
+            walk = pctx.used | timer_rows.any()
+            # a first guess of each used slot's emissions (the others' rows
+            # are dropped, as the vmap masks them)
+            caps = torch.where(pctx.used, torch.clamp(2 * rows.rows.to(torch.int64) + 8,
+                                                      max=self.out_cap), 0)
+            while True:
+                emis = keyed_out(prog, caps, self.out_cap)
+                tok2 = partition_pattern_scan(prog, tok, stream_id, batch.ts, batch.kind,
+                                              batch.valid, ev, rmask, regs, rows, walk, emis,
+                                              ovf, timer_ts)
+                if not bool(((emis.n > emis.cap) & pctx.used).any()):
+                    break
+                # a slot emitted past its stretch: again with the room it took
+                caps = torch.where(pctx.used, torch.maximum(emis.n, emis.cap), 0)
+                ovf.zero_()
+            tok = tok2
+            emis.n = torch.where(pctx.used, emis.n, 0)
+            floor = torch.full((), -(1 << 62), dtype=torch.int64, device=dev)
+            timer_ts = torch.maximum(timer_ts, torch.where(timer_rows, batch.ts, floor).max())
+        else:  # in place, on the lanes the refresh made
+            emis = self._keyed_chunk_loop(tok, batch, now, stream_id, pctx, ovf)
+        flat, out_slot, out_first = pattern_place(emis.out, emis.off, emis.cap, emis.n, p)
+        emit = EventBatch(ts=flat["ts"], kind=torch.zeros_like(flat["ts"], dtype=torch.int8),
+                          valid=flat["valid"], cols={})
+        ctx = partition_ctx(out_slot, out_first, p, pctx.overflow)
+        aux = {"partition_overflow": pctx.overflow}
+        flow = Flow(batch=emit, ref=prog.refs[0].ref, now=now, extra_cols=prog.out_env_cols(flat),
+                    aux=aux, partition=ctx)
+        sel_state, out_batch = self.selector.apply(state["sel"], flow)
+        self._apply_table_op(out_batch, now, flow.aux)
+        self._note_aux(flow.aux)
+        if self.uses_scheduler:
+            # only slots holding a live key schedule (the vmap's mask)
+            self.next_timer = prog.next_timer(tok, after=timer_ts.repeat_interleave(T),
+                                              live=pctx.used.repeat_interleave(T))
+        self._pattern_overflow.note(ovf)
+        self._pattern_overflow.poll()
+        new_state = {"tok": tiled_tok(tok, p), "sel": sel_state, "timer_ts": timer_ts}
+        return new_state, out_batch, flow.partition
+
+    def _refresh(self, state, fresh: Optional[torch.Tensor], now: torch.Tensor, p: int):
+        """A slot allocated to a key for the first time starts from the
+        whole lane state of `init_state(now)` (token table, selector, timer
+        clock), as the JAX package's refresh (partition.py:338-353): its
+        absence windows run from its key's first step, not app start."""
+        if fresh is None:
+            return state
+        init = PatternQueryRuntime.init_state(self, now)  # one lane
+
+        def refresh(cur, new):
+            if isinstance(cur, dict):
+                return {k: refresh(cur[k], new[k]) for k in cur}
+            if isinstance(cur, (list, tuple)):
+                return type(cur)(refresh(a, b) for a, b in zip(cur, new))
+            mask = fresh.reshape((p,) + (1,) * (cur.dim() - 1))
+            return torch.where(mask, new.unsqueeze(0).to(cur.dtype), cur)
+
+        return refresh(state, init)
+
+    def _keyed_chunk_loop(self, tok, batch: EventBatch, now, stream_id: str,
+                          pctx: "PatternPartition", ovf) -> PatternEmission:
+        """A batch route keyed by slot (K34-K36), chunk by chunk over the
+        whole padded batch as the vmap cuts it; tok ([P*T]) and ovf in
+        place. Returns the emission buffer."""
+        ch, caps, inputs = self.keyed_chunk_inputs(batch, now, stream_id, pctx)
+        emis = keyed_out(self.prog, caps, self.out_cap)
+        entry_row = torch.full((pctx.p * self.prog.T,), -1, dtype=torch.int32, device=self.device)
+        for i in range(ch.k):
+            self.keyed_chunk(i, tok, entry_row, ch, inputs, emis, now, ovf)
+        return emis
+
+    def keyed_chunk_inputs(self, batch: EventBatch, now, stream_id: str,
+                           pctx: "PatternPartition"):
+        """The keyed batch route's inputs: (chunks, the emission stretch of
+        each slot, the row inputs): the batch padded to whole chunks of C
+        rows with its member rows listed per chunk (ops/partition.py
+        `pattern_chunks`), each NFA slot's stream columns, the conditions
+        that read only the row evaluated once over the batch, and the count
+        route's two row masks."""
+        prog = self.prog
+        p, T = pctx.p, prog.T
+        dev = self.device
+        B = batch.capacity
+        C = min(B, self._chunk)
+        pad = (-B) % C
+        member = batch.valid & (batch.kind == KIND_CURRENT) & (pctx.slot >= 0) & (pctx.slot < p)
+
+        def padded(x):
+            if not pad:
+                return x
+            return torch.cat([x, torch.zeros((pad,) + x.shape[1:], dtype=x.dtype, device=dev)])
+
+        ts, v = padded(batch.ts), padded(member)
+        slot = torch.where(v, padded(pctx.slot), p).to(torch.int32)
+        cols = {n: padded(c) for n, c in batch.cols.items()}
+        ch = pattern_chunks(ts, v, slot, C, p)
+        # a slot completes at most its T tokens and one new token a row
+        caps = torch.clamp(ch.rows.to(torch.int64) + T, max=self.out_cap)
+        evs = [cols if s.atoms[0].stream_id == stream_id else None for s in prog.slots]
+        # a condition that reads only the row: once over the batch
+        ones = torch.ones_like(v)
+        row_cond = {}
+        for q, st in enumerate(prog.slots):
+            atom = st.atoms[0]
+            keys = prog._cond_keys[(q, atom.ref_idx)]
+            if evs[q] is not None and all(k[0] == atom.ref and k[1] is None for k in keys):
+                row_cond[q] = prog.row_mask(q, cols, ts, now, ones).reshape(1, -1)
+        masks = []
+        if self._kernel == prog.apply_batch_count:
+            masks = [torch.zeros_like(v) if evs[q] is None else prog.row_mask(q, cols, ts, now, v)
+                     for q in (0, 1)]
+        return ch, caps, {"ts": ts, "cols": cols, "evs": evs, "row_cond": row_cond,
+                          "masks": masks}
+
+    def keyed_chunk(self, i: int, tok, entry_row, ch, inputs: dict, emis: PatternEmission, now,
+                    ovf, impl=None) -> None:
+        """Chunk i of the keyed batch route: the count pass (K35) on the
+        count route, the slot passes (K34), the completions (K36). impl:
+        {"advance", "count", "emit"} in place of the wrappers (the card's
+        check holds each kernel against its plain version with it)."""
+        prog = self.prog
+        impl = impl or {"advance": partition_pattern_advance, "count": partition_pattern_count,
+                        "emit": partition_pattern_emit}
+        evs = inputs["evs"]
+
+        def cond_of(q):
+            return self.keyed_cond(q, i, tok, ch, inputs, now)
+
+        fast = self._kernel == prog.apply_batch_fast
+        if not fast:
+            impl["count"](prog, tok, entry_row, ch, i, inputs["masks"][0], inputs["masks"][1],
+                          evs[0], evs[1], ovf)
+        for q in range(0 if fast else 2, len(prog.slots)):
+            if evs[q] is not None:
+                impl["advance"](prog, q, tok, entry_row, ch, i, evs[q], cond_of(q), ovf,
+                                tail=not fast)
+        impl["emit"](prog, tok, entry_row, ch, i, now, emis, ovf, purge=fast)
+
+    def keyed_cond(self, q: int, i: int, tok, ch, inputs: dict, now):
+        """NFA slot q's condition in chunk i: [1, C] when it reads only the
+        row (evaluated once over the batch), else [P*T, C] over the token
+        table as it stands."""
+        C = ch.C
+        if q in inputs["row_cond"]:
+            return inputs["row_cond"][q][:, i * C:(i + 1) * C]
+        s = slice(i * C, (i + 1) * C)
+        return self.prog._slot_cond(q, tok, {n: a[s] for n, a in inputs["cols"].items()},
+                                    inputs["ts"][s], now)
 
     def step_for(self, stream_id: str):
         """The fused chunk loop's step for one input stream."""

@@ -39,6 +39,13 @@
 // capture-free subtrees as row registers. Float arithmetic uses the
 // round-to-nearest intrinsics (no contraction), so the results equal the
 // plain PyTorch version's bit for bit.
+// K37, the keyed form inside a partition (`pps_scan`; replaces
+// siddhi_tpu/core/partition.py :326 and :378, the vmap of this step over P
+// partition lanes): one block a used slot runs the same code on its [T]
+// lanes of a [P*T] table, over its member rows merged with the TIMER rows
+// in row order, with its own timer_seen, into its own stretch of the
+// emission lanes (counting past the stretch up to the per-lane capacity,
+// so the caller can run the step again with more room).
 // What bounds it on the card: latency. Each row is a handful of block
 // barriers over at most T lanes (a few microseconds), and the rows run in
 // sequence; bytes moved (the token table once in and out, the rows once)
@@ -113,19 +120,40 @@ struct ScanArgs {
   bool* ovf_out;
   const long long* timer_seen;
   void* scratch;  // the per-lane arrays when they do not fit shared memory
+  // keyed mode (K37, inside a partition): block q runs slot q's [T] lanes
+  // of a [P*T] table (lanes q*T ..), over its member rows merged with the
+  // TIMER rows in row order, into its emission stretch
+  int keyed;
+  const bool* used;          // [P] slots that run
+  const int32_t* rowlist;    // [B] member rows by (slot, row)
+  const int32_t* slot_start; // [P + 1]
+  const int32_t* timers;     // the TIMER rows, in row order
+  const int32_t* info;       // info[3]: the TIMER row count
+  const long long* off;      // [P] each slot's stretch in the emission lanes
+  const int32_t* cap;        // [P] its rows
+  int32_t* n_slot;           // [P] out: the slot's emissions (up to cap_out)
+  const long long* seen_slot;  // [P] each slot's timer_seen
 };
 
 // per-lane arrays, in this order: int64 start, entry, dl, dl2, st_start;
 // int32 slot, dest, freel, n[R], st_n[R]; bytes active, fwd, match, adv,
 // cnt, touch, stouch, fire, fire2, dmask (core/pattern.py scan_lane_bytes
 // sizes the caller's global scratch the same way)
-inline long long lane_bytes(int T, int R) {
+__host__ __device__ inline long long lane_bytes(int T, int R) {
   const long long t8 = ((long long)T + 7) / 8 * 8;
   return t8 * (5 * 8 + (3 + 2 * R) * 4 + 10);
 }
 
 struct Ctx {
   const ScanArgs* A;
+  // this block's capture lanes and emission lanes (keyed: at its slot's
+  // token lanes and emission stretch), the JAX emission capacity and the
+  // rows this block may store
+  const CapLane* cl;
+  long long* out_ts;
+  bool* out_valid;
+  int32_t* out_nref[kMaxRefs];
+  int cap_out, cap_write;
   const long long* d;
   int T, S, R, B, last;
   bool* active;
@@ -168,7 +196,7 @@ __device__ __forceinline__ void st_bits(void* base, long long i, int size, unsig
 
 // the event value a capture of lane l writes at row b
 __device__ __forceinline__ unsigned long long ev_bits(const Ctx& c, int l, int b, long long ts) {
-  const CapLane& L = c.A->cl[l];
+  const CapLane& L = c.cl[l];
   return L.is_ts ? (unsigned long long)ts : ld_bits(L.ev, b, L.size);
 }
 
@@ -214,7 +242,7 @@ __device__ void clear_ref(const Ctx& c, int r, int t) {
   c.n[r][t] = 0;
   const int w = (int)refd(c, r)[RF_CAP];
   for (int l = 0; l < c.A->n_cl; ++l) {
-    const CapLane& L = c.A->cl[l];
+    const CapLane& L = c.cl[l];
     if (L.ref != r) continue;
     for (int k = 0; k < w; ++k) st_bits(L.out, (long long)t * w + k, L.size, L.null_bits);
   }
@@ -227,7 +255,7 @@ __device__ void capture(const Ctx& c, int r, int t, int b, long long ts) {
   if (n < w) {
     const int pos = n < 0 ? 0 : n;
     for (int l = 0; l < c.A->n_cl; ++l) {
-      const CapLane& L = c.A->cl[l];
+      const CapLane& L = c.cl[l];
       if (L.ref == r) st_bits(L.out, (long long)t * w + pos, L.size, ev_bits(c, l, b, ts));
     }
   }
@@ -284,7 +312,7 @@ __device__ void stage(const Ctx& c, const uint8_t* m, int adv_ref, int b, long l
     c.st_start[t] = adv_ref >= 0 && st < 0 ? ts : st;
     for (int r = 0; r < c.R; ++r) c.st_n[r][t] = c.n[r][t] + (r == adv_ref ? 1 : 0);
     for (int l = 0; l < c.A->n_cl; ++l) {
-      const CapLane& L = c.A->cl[l];
+      const CapLane& L = c.cl[l];
       const int w = (int)refd(c, L.ref)[RF_CAP];
       for (int k = 0; k < w; ++k) {
         const long long i = (long long)t * w + k;
@@ -330,7 +358,7 @@ __device__ void copy_into(const Ctx& c, const uint8_t* m, int mode, int new_slot
       c.n[r][d] = c.st_n[r][s];
       const int w = (int)refd(c, r)[RF_CAP];
       for (int l = 0; l < c.A->n_cl; ++l) {
-        const CapLane& L = c.A->cl[l];
+        const CapLane& L = c.cl[l];
         if (L.ref != r) continue;
         for (int k = 0; k < w; ++k)
           st_bits(L.out, (long long)d * w + k, L.size,
@@ -367,15 +395,16 @@ __device__ void emit(const Ctx& c, const uint8_t* m, int adv_ref, int b, long lo
   for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
     if (!m[t]) continue;
     const int o = base + c.dest[t];
-    if (o >= A.cap_out) {
+    if (o >= c.cap_out) {
       ovf = 1;
       continue;
     }
-    A.out_ts[o] = use_dl ? c.dl[t] : at;
-    A.out_valid[o] = true;
-    for (int r = 0; r < c.R; ++r) A.out_nref[r][o] = c.n[r][t] + (r == adv_ref ? 1 : 0);
+    if (o >= c.cap_write) continue;  // counted, past the slot's stretch
+    c.out_ts[o] = use_dl ? c.dl[t] : at;
+    c.out_valid[o] = true;
+    for (int r = 0; r < c.R; ++r) c.out_nref[r][o] = c.n[r][t] + (r == adv_ref ? 1 : 0);
     for (int l = 0; l < A.n_cl; ++l) {
-      const CapLane& L = A.cl[l];
+      const CapLane& L = c.cl[l];
       if (L.emit == nullptr) continue;
       const int w = (int)refd(c, L.ref)[RF_CAP];
       for (int k = 0; k < w; ++k)
@@ -387,7 +416,7 @@ __device__ void emit(const Ctx& c, const uint8_t* m, int adv_ref, int b, long lo
     }
   }
   if (__syncthreads_or(ovf) && threadIdx.x == 0) *c.s_ovf = 1;
-  if (threadIdx.x == 0) *c.s_out_n = base + total < A.cap_out ? base + total : A.cap_out;
+  if (threadIdx.x == 0) *c.s_out_n = base + total < c.cap_out ? base + total : c.cap_out;
   __syncthreads();
 }
 
@@ -413,7 +442,7 @@ __device__ Val load_cap(const Ctx& c, const long long* ins, int t) {
     return v;
   }
   const int w = (int)refd(c, r)[RF_CAP];
-  const void* base = c.A->cl[lane].out;
+  const void* base = c.cl[lane].out;
   if (k == kNone) return load_elem(base, (long long)t * w, ty);
   if (k >= w) return null_of(ty);
   if (k >= 0) return load_elem(base, (long long)t * w + k, ty);
@@ -510,8 +539,8 @@ __device__ void deadlines(const Ctx& c, long long eff_now) {
       const void* ts1 = nullptr;
       const void* ts2 = nullptr;
       for (int l = 0; l < c.A->n_cl; ++l) {
-        if (c.A->cl[l].is_ts && c.A->cl[l].ref == r1) ts1 = c.A->cl[l].out;
-        if (c.A->cl[l].is_ts && c.A->cl[l].ref == r2) ts2 = c.A->cl[l].out;
+        if (c.cl[l].is_ts && c.cl[l].ref == r1) ts1 = c.cl[l].out;
+        if (c.cl[l].is_ts && c.cl[l].ref == r2) ts2 = c.cl[l].out;
       }
       for (int t = threadIdx.x; t < c.T; t += blockDim.x) {
         const bool at_p = c.active[t] && c.slot[t] == p;
@@ -613,7 +642,7 @@ __device__ void match_atom(const Ctx& c, int p, int r, int b, long long ts, long
           if (p == 0 && both) {
             c.n[r][t] = 1;
             for (int l = 0; l < A.n_cl; ++l) {
-              const CapLane& L = A.cl[l];
+              const CapLane& L = c.cl[l];
               if (L.ref != r || !L.is_ts) continue;
               long long* col = (long long*)L.out + (long long)t * w;
               if (ts > *col) *col = ts;
@@ -845,7 +874,18 @@ scan_kernel(const __grid_constant__ ScanArgs A) {
   __shared__ long long wsl[32];
   __shared__ int s_out_n, s_ovf;
   __shared__ long long desc[1024];
+  __shared__ CapLane s_cl[kMaxCapLanes];
   const int T = A.T, B = A.B;
+  // keyed: block q runs slot q, when the slot is used and some row reaches
+  // it (any other slot keeps its lanes, copied by the caller)
+  const int q = A.keyed ? (int)blockIdx.x : 0;
+  int m_lo = 0, m_hi = 0, n_tim = 0;
+  if (A.keyed) {
+    m_lo = A.slot_start[q];
+    m_hi = A.slot_start[q + 1];
+    n_tim = A.info[3];
+    if (!A.used[q] || (m_hi == m_lo && n_tim == 0)) return;
+  }
   for (int i = threadIdx.x; i < A.desc_words; i += blockDim.x) desc[i] = A.desc[i];
   __syncthreads();
   Ctx c;
@@ -860,8 +900,30 @@ scan_kernel(const __grid_constant__ ScanArgs A) {
   c.wsl = wsl;
   c.s_out_n = &s_out_n;
   c.s_ovf = &s_ovf;
-  // the per-lane arrays: shared memory, or global scratch
-  unsigned char* p = A.smem ? smem : (unsigned char*)A.scratch;
+  // this block's lanes: slot q's token lanes start at q * T, its emission
+  // stretch at off[q]
+  const long long tb = (long long)q * T;
+  const long long eo = A.keyed ? A.off[q] : 0;
+  if (threadIdx.x < (unsigned)A.n_cl) {
+    CapLane L = A.cl[threadIdx.x];
+    const long long w = refd(c, L.ref)[RF_CAP];
+    const long long shift = tb * w * L.size;
+    L.in = (const unsigned char*)L.in + shift;
+    L.out = (unsigned char*)L.out + shift;
+    L.stage = (unsigned char*)L.stage + shift;
+    if (L.emit != nullptr) L.emit = (unsigned char*)L.emit + eo * w * L.size;
+    s_cl[threadIdx.x] = L;
+  }
+  c.cl = s_cl;
+  c.out_ts = A.out_ts + eo;
+  c.out_valid = A.out_valid + eo;
+  for (int r = 0; r < c.R; ++r) c.out_nref[r] = A.out_nref[r] + eo;
+  c.cap_out = A.cap_out;
+  c.cap_write = A.keyed ? A.cap[q] : A.cap_out;
+  // the per-lane arrays: shared memory, or global scratch (one region a
+  // block)
+  unsigned char* p = A.smem ? smem
+                            : (unsigned char*)A.scratch + (A.keyed ? q * lane_bytes(T, c.R) : 0);
   const long long t8 = ((long long)T + 7) / 8 * 8;
   long long* q64 = (long long*)p;
   c.start = q64;
@@ -888,71 +950,103 @@ scan_kernel(const __grid_constant__ ScanArgs A) {
   c.fire = q8 + 7 * t8;
   c.fire2 = q8 + 8 * t8;
   c.dmask = q8 + 9 * t8;
+  __syncthreads();
 
   // the token table in: control lanes to the working arrays, capture lanes
   // to their output copies
   for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    c.active[t] = A.active_in[t];
-    c.slot[t] = A.slot_in[t];
-    c.start[t] = A.start_in[t];
-    c.entry[t] = A.entry_in[t];
-    if (c.fwd != nullptr) c.fwd[t] = A.fwd_in[t];
-    for (int r = 0; r < c.R; ++r) c.n[r][t] = A.n_in[r][t];
+    c.active[t] = A.active_in[tb + t];
+    c.slot[t] = A.slot_in[tb + t];
+    c.start[t] = A.start_in[tb + t];
+    c.entry[t] = A.entry_in[tb + t];
+    if (c.fwd != nullptr) c.fwd[t] = A.fwd_in[tb + t];
+    for (int r = 0; r < c.R; ++r) c.n[r][t] = A.n_in[r][tb + t];
   }
   for (int l = 0; l < A.n_cl; ++l) {
-    const CapLane& L = A.cl[l];
+    const CapLane& L = c.cl[l];
     const long long n = (long long)T * refd(c, L.ref)[RF_CAP];
     for (long long i = threadIdx.x; i < n; i += blockDim.x)
       st_bits(L.out, i, L.size, ld_bits(L.in, i, L.size));
   }
   if (threadIdx.x == 0) {
-    s_out_n = *A.out_n;
-    s_ovf = *A.ovf_in;
+    s_out_n = A.keyed ? 0 : *A.out_n;
+    s_ovf = A.keyed ? 0 : *A.ovf_in;
   }
   __syncthreads();
-  const long long seen = *A.timer_seen;
-  for (int b = 0; b < B; ++b) {
-    if (!A.valid[b]) continue;
-    apply_row(c, b, seen);
+  const long long seen = A.keyed ? A.seen_slot[q] : *A.timer_seen;
+  if (A.keyed) {
+    // the slot's member rows and the TIMER rows, merged in row order
+    int i = m_lo, k = 0;
+    while (i < m_hi || k < n_tim) {
+      const int rm = i < m_hi ? A.rowlist[i] : 0x7fffffff;
+      const int rt = k < n_tim ? A.timers[k] : 0x7fffffff;
+      if (rm < rt) {
+        ++i;
+        apply_row(c, rm, seen);
+      } else {
+        ++k;
+        apply_row(c, rt, seen);
+      }
+    }
+  } else {
+    for (int b = 0; b < B; ++b) {
+      if (!A.valid[b]) continue;
+      apply_row(c, b, seen);
+    }
   }
   __syncthreads();
   for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    A.active_out[t] = c.active[t];
-    A.slot_out[t] = c.slot[t];
-    A.start_out[t] = c.start[t];
-    A.entry_out[t] = c.entry[t];
-    if (c.fwd != nullptr) A.fwd_out[t] = c.fwd[t];
-    for (int r = 0; r < c.R; ++r) A.n_out[r][t] = c.n[r][t];
+    A.active_out[tb + t] = c.active[t];
+    A.slot_out[tb + t] = c.slot[t];
+    A.start_out[tb + t] = c.start[t];
+    A.entry_out[tb + t] = c.entry[t];
+    if (c.fwd != nullptr) A.fwd_out[tb + t] = c.fwd[t];
+    for (int r = 0; r < c.R; ++r) A.n_out[r][tb + t] = c.n[r][t];
   }
   if (threadIdx.x == 0) {
-    *A.out_n = s_out_n;
-    *A.ovf_out = s_ovf != 0;
+    if (A.keyed) {
+      A.n_slot[q] = s_out_n;
+      if (s_ovf) *A.ovf_out = true;
+    } else {
+      *A.out_n = s_out_n;
+      *A.ovf_out = s_ovf != 0;
+    }
   }
 }
 
-}  // namespace
+// the launch of either mode: one block, or one a slot
+int launch_scan(ScanArgs& A, int grid, cudaStream_t stream) {
+  int threads = (A.T + 31) / 32 * 32;
+  threads = threads > kMaxThreads ? kMaxThreads : threads < 32 ? 32 : threads;
+  // the descriptor's R is the refs count the lane arrays are sized by
+  int R = 0;
+  while (R < kMaxRefs && A.n_in[R] != nullptr) ++R;
+  const long long bytes = A.smem ? lane_bytes(A.T, R) : 0;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  scan_kernel<<<grid, threads, (size_t)bytes, stream>>>(A);
+  return (int)cudaGetLastError();
+}
 
-extern "C" {
-
-// One scan step; see ScanArgs. desc: the device descriptor table (at most
-// 1024 words). Host arrays describe the capture lanes (n_cl of them) and
-// the row registers (n_regs).
-int ps_scan(const long long* desc, int desc_words, int T, int B, int R,
-            const bool* active_in, bool* active_out, const int32_t* slot_in, int32_t* slot_out,
-            const long long* start_in, long long* start_out, const long long* entry_in,
-            long long* entry_out, const bool* fwd_in, bool* fwd_out,
-            const int32_t* const* n_in, int32_t* const* n_out, int32_t* const* out_nref,
-            int n_cl, const void* const* cl_in, void* const* cl_out, const void* const* cl_ev,
-            void* const* cl_emit, void* const* cl_stage, const long long* cl_null,
-            const int* cl_ref, const int* cl_size, const int* cl_is_ts,
-            const long long* ts, const int8_t* kind, const bool* valid, const bool* rmask,
-            int n_regs, const void* const* reg,
-            long long* out_ts, bool* out_valid, int cap_out, int32_t* out_n,
-            const bool* ovf_in, bool* ovf_out, const long long* timer_seen, void* scratch,
-            int smem, cudaStream_t stream) {
+int fill_args(ScanArgs& A, const long long* desc, int desc_words, int T, int B, int R,
+              const bool* active_in, bool* active_out, const int32_t* slot_in, int32_t* slot_out,
+              const long long* start_in, long long* start_out, const long long* entry_in,
+              long long* entry_out, const bool* fwd_in, bool* fwd_out,
+              const int32_t* const* n_in, int32_t* const* n_out, int32_t* const* out_nref,
+              int n_cl, const void* const* cl_in, void* const* cl_out, const void* const* cl_ev,
+              void* const* cl_emit, void* const* cl_stage, const long long* cl_null,
+              const int* cl_ref, const int* cl_size, const int* cl_is_ts,
+              const long long* ts, const int8_t* kind, const bool* valid, const bool* rmask,
+              int n_regs, const void* const* reg,
+              long long* out_ts, bool* out_valid, int cap_out, int32_t* out_n,
+              const bool* ovf_in, bool* ovf_out, const long long* timer_seen, void* scratch,
+              int smem) {
   if (R > kMaxRefs || n_cl > kMaxCapLanes || n_regs > kMaxRegs || desc_words > 1024)
     return (int)cudaErrorInvalidValue;
-  ScanArgs A;
+  A = ScanArgs{};
   A.desc = desc;
   A.desc_words = desc_words;
   A.T = T;
@@ -999,16 +1093,81 @@ int ps_scan(const long long* desc, int desc_words, int T, int B, int R,
   A.ovf_out = ovf_out;
   A.timer_seen = timer_seen;
   A.scratch = scratch;
-  int threads = (T + 31) / 32 * 32;
-  threads = threads > kMaxThreads ? kMaxThreads : threads < 32 ? 32 : threads;
-  const long long bytes = smem ? lane_bytes(T, R) : 0;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  scan_kernel<<<1, threads, (size_t)bytes, stream>>>(A);
-  return (int)cudaGetLastError();
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One scan step; see ScanArgs. desc: the device descriptor table (at most
+// 1024 words). Host arrays describe the capture lanes (n_cl of them) and
+// the row registers (n_regs).
+int ps_scan(const long long* desc, int desc_words, int T, int B, int R,
+            const bool* active_in, bool* active_out, const int32_t* slot_in, int32_t* slot_out,
+            const long long* start_in, long long* start_out, const long long* entry_in,
+            long long* entry_out, const bool* fwd_in, bool* fwd_out,
+            const int32_t* const* n_in, int32_t* const* n_out, int32_t* const* out_nref,
+            int n_cl, const void* const* cl_in, void* const* cl_out, const void* const* cl_ev,
+            void* const* cl_emit, void* const* cl_stage, const long long* cl_null,
+            const int* cl_ref, const int* cl_size, const int* cl_is_ts,
+            const long long* ts, const int8_t* kind, const bool* valid, const bool* rmask,
+            int n_regs, const void* const* reg,
+            long long* out_ts, bool* out_valid, int cap_out, int32_t* out_n,
+            const bool* ovf_in, bool* ovf_out, const long long* timer_seen, void* scratch,
+            int smem, cudaStream_t stream) {
+  ScanArgs A;
+  const int e = fill_args(A, desc, desc_words, T, B, R, active_in, active_out, slot_in, slot_out,
+                          start_in, start_out, entry_in, entry_out, fwd_in, fwd_out, n_in, n_out,
+                          out_nref, n_cl, cl_in, cl_out, cl_ev, cl_emit, cl_stage, cl_null, cl_ref,
+                          cl_size, cl_is_ts, ts, kind, valid, rmask, n_regs, reg, out_ts, out_valid,
+                          cap_out, out_n, ovf_in, ovf_out, timer_seen, scratch, smem);
+  if (e != 0) return e;
+  return launch_scan(A, 1, stream);
+}
+
+// K37, the keyed scan step inside a partition: the same arguments over a
+// [P*T] token table (the in and out lanes, the capture lanes and their
+// staging all [P*T]-long; slots the step does not run keep the out lanes
+// the caller filled), one block a used slot over its member rows
+// (rowlist / slot_start) and the TIMER rows (timers, info[3] of them) in
+// row order. Slot q emits into the emission lanes at off[q], up to cap[q]
+// rows stored and cap_out counted (n_slot[q], which the caller zeroes);
+// ovf_out is set (never cleared) when a slot passes cap_out or a fork finds
+// no lane. seen_slot [P]: each slot's timer_seen.
+int pps_scan(const long long* desc, int desc_words, int T, int B, int R,
+             const bool* active_in, bool* active_out, const int32_t* slot_in, int32_t* slot_out,
+             const long long* start_in, long long* start_out, const long long* entry_in,
+             long long* entry_out, const bool* fwd_in, bool* fwd_out,
+             const int32_t* const* n_in, int32_t* const* n_out, int32_t* const* out_nref,
+             int n_cl, const void* const* cl_in, void* const* cl_out, const void* const* cl_ev,
+             void* const* cl_emit, void* const* cl_stage, const long long* cl_null,
+             const int* cl_ref, const int* cl_size, const int* cl_is_ts,
+             const long long* ts, const int8_t* kind, const bool* valid, const bool* rmask,
+             int n_regs, const void* const* reg,
+             long long* out_ts, bool* out_valid, int cap_out, bool* ovf_out, void* scratch,
+             int smem, int P, const bool* used, const int32_t* rowlist,
+             const int32_t* slot_start, const int32_t* timers, const int32_t* info,
+             const long long* off, const int32_t* cap, int32_t* n_slot,
+             const long long* seen_slot, cudaStream_t stream) {
+  ScanArgs A;
+  const int e = fill_args(A, desc, desc_words, T, B, R, active_in, active_out, slot_in, slot_out,
+                          start_in, start_out, entry_in, entry_out, fwd_in, fwd_out, n_in, n_out,
+                          out_nref, n_cl, cl_in, cl_out, cl_ev, cl_emit, cl_stage, cl_null, cl_ref,
+                          cl_size, cl_is_ts, ts, kind, valid, rmask, n_regs, reg, out_ts, out_valid,
+                          cap_out, nullptr, nullptr, ovf_out, nullptr, scratch, smem);
+  if (e != 0) return e;
+  A.keyed = 1;
+  A.used = used;
+  A.rowlist = rowlist;
+  A.slot_start = slot_start;
+  A.timers = timers;
+  A.info = info;
+  A.off = off;
+  A.cap = cap;
+  A.n_slot = n_slot;
+  A.seen_slot = seen_slot;
+  return launch_scan(A, P, stream);
 }
 
 }  // extern "C"

@@ -106,7 +106,9 @@ def partition_state_from_jax(ptable: dict, states: dict, device) -> tuple:
     [P] bool, "n": int32}`) and its `PartitionedQueryRuntime` states by
     query id (the [P]-tiled trees), as numpy, turned into this engine's:
     `(ptable, {query id: state})` for `PartitionRuntime.ptable` and each
-    query's `state`. The keyed step indexes the same [P] axis by slot, so
-    every leaf keeps its dtype and shape."""
+    query's `state`. A partitioned pattern's state is its `{"tok", "sel",
+    "timer_ts"}` with the [P] axis on every leaf (token lanes [P, T],
+    captures [P, T, K], clocks [P]). The keyed step indexes the same [P]
+    axis by slot, so every leaf keeps its dtype and shape."""
     return (state_from_numpy(ptable, device),
             {qid: state_from_numpy(st, device) for qid, st in states.items()})

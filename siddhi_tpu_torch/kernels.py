@@ -35,7 +35,7 @@ SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "del
            "ring_view", "join_probe", "pattern_advance", "pattern_count", "pattern_emit",
            "pattern_scan", "running_extreme", "distinct_count", "table_write", "table_index",
            "table_match", "table_scan", "special_window", "partition_window",
-           "partition_time", "partition_batch")
+           "partition_time", "partition_batch", "partition_pattern")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -139,6 +139,18 @@ SIGNATURES = {
     "pb_gather_4": ("partition_batch", _PB_GATHER),
     "pb_gather_8": ("partition_batch", _PB_GATHER),
     "pg_assign": ("group_assign", [P] * 7 + [I] * 3 + [P] * 15 + [P]),
+    "pps_scan": ("pattern_scan", [P, I, I, I, I] + [P] * 13 + [I] + [P] * 9 + [P] * 4 + [I, P]
+                 + [P, P, I] + [P, P, I, I] + [P] * 9 + [P]),
+    "pp_chunks": ("partition_pattern", [P, P, I, I, I] + [P] * 7 + [P]),
+    "pp_advance": ("partition_pattern", [P] * 8 + [LL, LL] + [I] * 8 + [LL] + [P] * 5 + [I]
+                   + [P] * 2 + [I] + [P] * 4 + [P]),
+    "pp_count": ("partition_pattern", [P] * 10 + [I] * 9 + [P] * 5 + [I] + [P] * 2 + [I] + [P] * 6
+                 + [P]),
+    "pp_emit": ("partition_pattern", [P] * 4 + [I, I, P, I, I] + [P] * 7 + [I, P, I] + [P] * 5
+                + [I, P, I] + [P] * 4 + [P]),
+    "pp_place": ("partition_pattern", [I] + [P] * 8 + [P]),
+    "pp_place_rows": ("partition_pattern", [I, I] + [P] * 8 + [P]),
+    "pp_gather": ("partition_pattern", [P, P, P, I, I, I, P]),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -1,6 +1,10 @@
 """The keyed partition steps: the partitioned length window (K29), the
 windowed min/max of a partition (K30), the partitioned sliding time window
-(K31) and the partitioned batch window (K32).
+(K31) and the partitioned batch window (K32); and what the keyed pattern
+routes (core/pattern.py K34-K37) share: each chunk's member rows by slot
+(`pattern_chunks`), each slot's rows and the TIMER rows
+(`partition_rows`), and the (position, slot) placement of each slot's
+emissions (`pattern_place`).
 
 The JAX package runs a partitioned query step under `jax.vmap` over P
 partition states (siddhi_tpu/core/partition.py `_vmapped`): every partition
@@ -29,6 +33,7 @@ independently of the kernel's closed forms.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -451,13 +456,9 @@ def partition_time_window_step(state: dict, batch: EventBatch, bwts: torch.Tenso
     dev = batch.ts.device
     stream = kernels.stream()
     cap, n_elem = p * w + 2 * bsz, p * w + bsz
-    rank, rowlist, slot_start, timers = _i32(bsz, dev), _i32(bsz, dev), _i32(p + 1, dev), \
-        _i32(bsz, dev)
-    counters, info = _i32(max(p, cap) + 1, dev), _i32(4, dev)
-    kernels.check(kernels.function("pt_rows")(
-        batch.kind.data_ptr(), batch.valid.data_ptr(), slot.data_ptr(), bsz, p, rank.data_ptr(),
-        rowlist.data_ptr(), slot_start.data_ptr(), timers.data_ptr(), counters.data_ptr(),
-        info.data_ptr(), stream), "partition_time_window_step")
+    rows = partition_rows(batch, slot, p, counters=max(p, cap) + 1)
+    rank, rowlist, slot_start, timers = rows.rank, rows.rowlist, rows.slot_start, rows.timers
+    counters, info = rows.counters, rows.info
     trig, lbirth, ldeath = _i32(n_elem, dev), _i32(n_elem, dev), _i32(n_elem, dev)
     eseq = torch.empty(n_elem, dtype=torch.int64, device=dev)
     loc_src, loc_row = _i32(cap, dev), _i32(cap, dev)
@@ -839,3 +840,220 @@ def partition_window_extreme(vals, birth_pos, death_pos, row_slot, rowlist, slot
         int(is_min), _null_bits(t), kernels.stream()), "partition_window_extreme")
     kernels.launches["partition_window_extreme"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the keyed pattern routes' row lists and emission placement (K34-K37)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PatternChunks:
+    """A step's batch cut into k chunks of C rows (the JAX package's chunks
+    of the whole batch, padded with rows of no partition), for the keyed
+    batch routes of core/pattern.py.
+
+    ts:       [k*C] int64 row timestamps
+    v:        [k*C] bool, the member rows (valid, CURRENT, slot in [0, P))
+    slot:     [k*C] int32, each row's slot (P: none)
+    rows:     [P] int32, each slot's member rows in the batch
+    srow:     [k*C] int32, chunk i's member rows by (slot, row) at i*C, then
+              -1
+    seg_slot, seg_lo, seg_hi: [k*C] int32, chunk i's segment s at i*C + s:
+              its slot and its rows srow[lo:hi] (absolute)
+    nseg:     [k] int32, each chunk's segments
+    """
+
+    C: int
+    k: int
+    p: int
+    ts: torch.Tensor
+    v: torch.Tensor
+    slot: torch.Tensor
+    rows: torch.Tensor
+    srow: torch.Tensor
+    seg_slot: torch.Tensor
+    seg_lo: torch.Tensor
+    seg_hi: torch.Tensor
+    nseg: torch.Tensor
+
+
+def pattern_chunks_ref(ts: torch.Tensor, v: torch.Tensor, slot: torch.Tensor, C: int,
+                       p: int) -> PatternChunks:
+    """Plain version of `pattern_chunks`: a stable sort by (chunk, slot)."""
+    dev = ts.device
+    n = ts.shape[0]
+    k = n // C
+    idx = torch.arange(n, device=dev)
+    chunk = idx // C
+    key = chunk * (p + 1) + torch.where(v, slot.long(), p)
+    order = torch.sort(key, stable=True).indices
+    mem = v[order]
+    srow = torch.where(mem, order, -1).to(torch.int32)
+    sk = key[order]
+    pos = idx % C
+    prev = torch.cat([torch.full((1,), -1, dtype=sk.dtype, device=dev), sk[:-1]])
+    start = mem & ((pos == 0) | (sk != prev))
+    nxt = torch.cat([sk[1:], torch.full((1,), -1, dtype=sk.dtype, device=dev)])
+    nmem = torch.cat([mem[1:], torch.zeros(1, dtype=torch.bool, device=dev)])
+    end = mem & ((pos == C - 1) | (nxt != sk) | ~nmem)
+    starts = start.view(k, C).to(torch.int64)
+    seg_of = (torch.cumsum(starts, 1) - 1).view(-1)  # a member row's segment in its chunk
+    at = (chunk * C + seg_of).clamp(min=0)
+    seg_slot = torch.full((n,), p, dtype=torch.int32, device=dev)
+    seg_lo = torch.zeros(n, dtype=torch.int32, device=dev)
+    seg_hi = torch.zeros(n, dtype=torch.int32, device=dev)
+    seg_slot[at[start]] = slot[order][start].to(torch.int32)
+    seg_lo[at[start]] = idx[start].to(torch.int32)
+    seg_hi[at[end]] = (idx[end] + 1).to(torch.int32)
+    rows = torch.bincount(slot[v].long(), minlength=p)[:p].to(torch.int32)
+    return PatternChunks(C=C, k=k, p=p, ts=ts, v=v, slot=slot, rows=rows, srow=srow,
+                         seg_slot=seg_slot, seg_lo=seg_lo, seg_hi=seg_hi,
+                         nseg=starts.sum(1).to(torch.int32))
+
+
+def pattern_chunks(ts: torch.Tensor, v: torch.Tensor, slot: torch.Tensor, C: int,
+                   p: int) -> PatternChunks:
+    """The chunks of a padded batch of k*C rows for the keyed batch routes:
+    each chunk's member rows listed by (slot, row) with its (slot, rows)
+    segments, and each slot's member rows in the batch. ts [k*C] int64, v
+    [k*C] bool (the member rows), slot [k*C] int32. One block a chunk on
+    the card (csrc/partition_pattern.cu `pp_chunks`)."""
+    if ts.device.type == "cpu":
+        return pattern_chunks_ref(ts, v, slot, C, p)
+    kernels.require_cuda("pattern_chunks", ts, v, slot)
+    n = ts.shape[0]
+    if n % C or v.shape != (n,) or slot.shape != (n,) or slot.dtype != torch.int32 or p < 1:
+        raise ValueError(f"pattern_chunks: [{n}] lanes in chunks of {C}, int32 slots")
+    dev = ts.device
+    k = n // C
+    srow, seg_slot, seg_lo, seg_hi = _i32(n, dev), _i32(n, dev), _i32(n, dev), _i32(n, dev)
+    nseg, rows = _i32(k, dev), _i32(p, dev)
+    scratch = _i32(k * (C + 2 * p + 1), dev)
+    kernels.check(kernels.function("pp_chunks")(
+        v.data_ptr(), slot.data_ptr(), n, C, p, srow.data_ptr(), seg_slot.data_ptr(),
+        seg_lo.data_ptr(), seg_hi.data_ptr(), nseg.data_ptr(), rows.data_ptr(),
+        scratch.data_ptr(), kernels.stream()), "pattern_chunks")
+    kernels.launches["pattern_chunks"] += 1
+    return PatternChunks(C=C, k=k, p=p, ts=ts, v=v, slot=slot, rows=rows, srow=srow,
+                         seg_slot=seg_slot, seg_lo=seg_lo, seg_hi=seg_hi, nseg=nseg)
+
+
+@dataclasses.dataclass
+class PartitionRows:
+    """A batch's member rows by slot and its TIMER rows (the keyed scan's
+    rows). rowlist [B] int32 by (slot, row), then -1; slot_start [P + 1]
+    int32; timers [B] int32 the TIMER rows in row order, then unspecified;
+    info [4] int32 with info[3] the TIMER row count (device lanes); rows
+    [P] int32 each slot's member rows; on the card also rank [B] int32
+    each row's place in its slot's list and the counters scratch, which
+    K31's later kernels reuse."""
+
+    rowlist: torch.Tensor
+    slot_start: torch.Tensor
+    timers: torch.Tensor
+    info: torch.Tensor
+    rows: torch.Tensor
+    rank: Optional[torch.Tensor] = None
+    counters: Optional[torch.Tensor] = None
+
+
+def partition_rows_ref(batch: EventBatch, slot: torch.Tensor, p: int) -> PartitionRows:
+    """Plain version of `partition_rows`."""
+    dev = batch.ts.device
+    _active, rowlist, slot_start = _member_rows(batch, slot, p)
+    timers = torch.nonzero(batch.valid & (batch.kind == KIND_TIMER)).flatten().to(torch.int32)
+    info = torch.tensor([0, 0, 0, timers.numel()], dtype=torch.int32, device=dev)
+    return PartitionRows(rowlist=rowlist, slot_start=slot_start, timers=timers, info=info,
+                         rows=(slot_start[1:] - slot_start[:-1]).to(torch.int32))
+
+
+def partition_rows(batch: EventBatch, slot: torch.Tensor, p: int,
+                   counters: Optional[int] = None) -> PartitionRows:
+    """Each slot's member rows (valid CURRENT rows with a slot in [0, P))
+    and the TIMER rows. On the card, partition.cuh's row lists (`pt_rows`,
+    which K31 and K37 take); counters: the scratch's size (at least P + 1,
+    the default)."""
+    dev = batch.ts.device
+    if dev.type == "cpu":
+        return partition_rows_ref(batch, slot, p)
+    bsz = batch.capacity
+    kernels.require_cuda("partition_rows", batch.kind, batch.valid, slot)
+    rank, rowlist, slot_start, timers = _i32(bsz, dev), _i32(bsz, dev), _i32(p + 1, dev), \
+        _i32(bsz, dev)
+    scratch = _i32(max(counters or 0, p + 1), dev)
+    info = torch.zeros(4, dtype=torch.int32, device=dev)
+    kernels.check(kernels.function("pt_rows")(
+        batch.kind.data_ptr(), batch.valid.data_ptr(), slot.data_ptr(), bsz, p, rank.data_ptr(),
+        rowlist.data_ptr(), slot_start.data_ptr(), timers.data_ptr(), scratch.data_ptr(),
+        info.data_ptr(), kernels.stream()), "partition_rows")
+    kernels.launches["partition_rows"] += 1
+    return PartitionRows(rowlist=rowlist, slot_start=slot_start, timers=timers, info=info,
+                         rows=(slot_start[1:] - slot_start[:-1]).to(torch.int32), rank=rank,
+                         counters=scratch)
+
+
+def pattern_place_ref(out: dict, off, cap, n, p: int):
+    """Plain version of `pattern_place`, by `_flat_order`."""
+    dev = off.device
+    nq = torch.minimum(n, cap).tolist()
+    parts = [(q, c) for q, c in enumerate(nq) if c]
+    flat_of, total = _flat_order(parts, p, dev)
+    src = torch.cat([int(off[q]) + torch.arange(c, device=dev) for q, c in parts]) if parts \
+        else flat_of
+    rows = max(total, 1)
+    res = {}
+    for name, lane in out.items():
+        o = torch.zeros((rows,) + tuple(lane.shape[1:]), dtype=lane.dtype, device=dev)
+        o[flat_of] = lane[src]
+        res[name] = o
+    out_slot = torch.full((rows,), p, dtype=torch.int32, device=dev)
+    out_first = torch.arange(rows, dtype=torch.int32, device=dev)
+    base = 0
+    for q, c in parts:
+        dst = flat_of[base:base + c]
+        out_slot[dst] = q
+        out_first[dst] = dst[0].to(torch.int32)
+        base += c
+    return res, out_slot, out_first
+
+
+def pattern_place(out: dict, off: torch.Tensor, cap: torch.Tensor, n: torch.Tensor, p: int):
+    """The flattened rows of the keyed emission stretches: slot q's first
+    min(n[q], cap[q]) rows at out rows off[q].. go to (position within the
+    slot, slot) order, the JAX package's `_flatten` of a [P, out_cap]
+    emission, compacted. out: {lane: [E] or [E, K]}; off [P] int64; cap,
+    n [P] int32. Returns (lanes with max(rows, 1) rows, valid False past
+    the rows; out_slot [rows] int32, P past them; out_first [rows] int32,
+    each row's slot's first row). One host read: the row count. On the
+    card partition.cuh's placement, then a gather
+    (csrc/partition_pattern.cu `pp_place`)."""
+    if off.device.type == "cpu":
+        return pattern_place_ref(out, off, cap, n, p)
+    kernels.require_cuda("pattern_place", off, cap, n, *out.values())
+    dev = off.device
+    nq = _i32(p, dev)
+    n_start, info = _i32(p + 1, dev), torch.zeros(4, dtype=torch.int32, device=dev)
+    e = out["valid"].shape[0]
+    pos_base, oidx, counters = _i32(e + 2, dev), _i32(e + 1, dev), _i32(max(p, e) + 1, dev)
+    stream = kernels.stream()
+    kernels.check(kernels.function("pp_place")(
+        p, n.data_ptr(), cap.data_ptr(), nq.data_ptr(), n_start.data_ptr(), pos_base.data_ptr(),
+        oidx.data_ptr(), counters.data_ptr(), info.data_ptr(), stream), "pattern_place")
+    total = int(info[0])  # the rows out, read back to size the output
+    rows = max(total, 1)
+    out_slot, out_first, src = _i32(rows, dev), _i32(rows, dev), _i32(rows, dev)
+    kernels.check(kernels.function("pp_place_rows")(
+        p, rows, off.data_ptr(), nq.data_ptr(), n_start.data_ptr(), oidx.data_ptr(),
+        info.data_ptr(), out_slot.data_ptr(), out_first.data_ptr(), src.data_ptr(), stream),
+        "pattern_place")
+    res = {}
+    for name, lane in out.items():
+        w = lane.shape[1] if lane.dim() == 2 else 1
+        o = torch.empty((rows,) + tuple(lane.shape[1:]), dtype=lane.dtype, device=dev)
+        kernels.check(kernels.function("pp_gather")(
+            lane.data_ptr(), src.data_ptr(), o.data_ptr(), rows, w, lane.element_size(), stream),
+            "pattern_place")
+        res[name] = o
+    kernels.launches["pattern_place"] += 1
+    return res, out_slot, out_first

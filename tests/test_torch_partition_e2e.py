@@ -3,9 +3,9 @@ app and events through `siddhi_tpu` (JAX) and `siddhi_tpu_torch`
 (device="cpu") — the `partitioned` verify case against VERIFY.json and JAX;
 the single-stream tests of tests/test_partition.py and
 tests/test_golden_partition.py under their own assertions with the port's
-manager swapped in (their join and pattern tests must raise "not ported
-yet"); the row order of a partitioned length window
-(rank within the partition, not arrival); path PT of chip_smoke.py, inner
+manager swapped in (their join test must raise "not ported yet"); the row
+order of a partitioned length window (rank within the partition, not
+arrival); path PT of chip_smoke.py, inner
 streams two deep, range partitions, two streams sharing one key table,
 every aggregator, table writes and overflowing key tables, at batch 16 and
 33, against JAX; a JAX partition state carried in through
@@ -93,10 +93,9 @@ def test_partitioned_verify_case():
 # ---------------------------------------------------------------------------
 
 MODULES = ("tests.test_partition", "tests.test_golden_partition")
-# joins and patterns inside a partition wait for later slices: these raise
-# "not ported yet"
-UNPORTED = {"test_per_key_join_windows", "test_per_key_pattern",
-            "test_pattern_partition_counts_per_key", "test_absent_pattern_in_partition"}
+# joins inside a partition wait for a later slice: this raises "not ported
+# yet"
+UNPORTED = {"test_per_key_join_windows"}
 
 
 def _cases():
@@ -400,6 +399,21 @@ def test_formerly_left_out_forms_match_jax(body):
 
 
 @pytest.mark.parametrize("body", [
+    "from every e1=S[price > 90] -> e2=S[price < 10] select e1.symbol as s insert into Out;",
+    "from e1=S[price > 90], e2=S[price < 10] select e1.symbol as s insert into Out;",
+    "from every e1=S[price > 90] -> not S[price < 10] for 1 sec select e1.symbol as s "
+    "insert into Out;",
+])
+def test_formerly_left_out_patterns_match_jax(body):
+    """The pattern forms a partition takes: a pattern, a sequence and an
+    absent pattern (under playback) per key, as JAX delivers them."""
+    ql = "@app:playback\n" + _head(16, 8) + PART.format(body=body)
+    rows, ts = _events(48, 6, seed=len(body))
+    got = {_pkg(m): _run(m, ql, [("S", rows, ts)], 20) for m in _managers()}
+    assert bench._rows_match(got["siddhi_tpu_torch"], got["siddhi_tpu"])
+
+
+@pytest.mark.parametrize("body", [
     "from S#window.sort(3, price) select symbol insert into Out;",
     "from S#window.frequent(2, symbol) select symbol insert into Out;",
     "from S#window.lossyFrequent(0.1, 0.01, symbol) select symbol insert into Out;",
@@ -410,10 +424,6 @@ def test_formerly_left_out_forms_match_jax(body):
     "insert into Out;",
     "from S as a unidirectional join S#window.lengthBatch(2) as b on a.volume == b.volume "
     "select a.symbol insert into Out;",
-    "from every e1=S[price > 90] -> e2=S[price < 10] select e1.symbol as s insert into Out;",
-    "from e1=S[price > 90], e2=S[price < 10] select e1.symbol as s insert into Out;",
-    "from every e1=S[price > 90] -> not S[price < 10] for 1 sec select e1.symbol as s "
-    "insert into Out;",
     "from S[(T.symbol == symbol) in T] select symbol, price insert into Out;",
 ])
 def test_left_out_forms_raise(body):

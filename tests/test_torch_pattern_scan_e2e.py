@@ -81,8 +81,8 @@ def test_logical_pattern_verify_case():
 GOLDEN_MODULES = ("tests.test_golden_logical", "tests.test_golden_absent",
                   "tests.test_golden_absent_ref2", "tests.test_golden_logical_absent_ref",
                   "tests.test_pattern_late_timer")
-# patterns inside partitions wait for the partition slice: these raise
-UNPORTED = {"test_late_key_gets_a_fresh_absence_window", "test_absent68_partitioned_both_absent"}
+# every golden app runs on the port, patterns inside partitions among them
+UNPORTED: set = set()
 
 
 def _golden_cases():
