@@ -51,7 +51,15 @@ engine next to it. Phases, each printed as it ends:
      T=128), a TIMER step over 1,024 slots, ragged B/P/T, chunks across a
      slot's rows, fork and emission overflow in one slot, fresh slots,
      two streams on one key table, bit for bit (see
-     partition_pattern_kernel_phase);
+     partition_pattern_kernel_phase); the join slice's keyed ring view K38
+     and probe compaction K39 at path PJ's shape (P=1024, W=50, 32,768
+     probe rows, joinCapacity 512 a slot) with inner and outer joins,
+     EXPIRED probes, a unidirectional side, a self-join, one slot
+     overflowing, empty slots and keys past capacity, ragged B/P/W, and
+     the keyed sort and frequent windows K40/K41 at paths PSW's and PFQ's
+     shapes with NaN/-0.0 sort keys, -0.0/0.0 frequent keys and more than
+     N new keys a call in one slot, bit for bit (see
+     partition_join_kernel_phase);
   3. verify cases filter_num, len_window_avg, len_window_minmax,
      len_batch_group, having_order, stddev_distinct, time_window,
      external_time, self_join, pattern_within, count_seq,
@@ -76,10 +84,11 @@ engine next to it. Phases, each printed as it ends:
      on volume, @app:batch 8192, joinCapacity 8192), 2,000,000 events fused
      and a 20-batch per-batch prefix, in the same way; path T, the same
      self-join over time(1 sec) windows under @app:playback (joinCapacity
-     16384), 65,536 events per batch with the TIMER steps the event-time
-     clock sends; path T2, a time(1 sec) window with avg/min/max at batch
-     32768 under @app:playback, 8 batches. Each path's own launch counts,
-     no join overflow, the first 4 batches against device="cpu";
+     16384), 32,768 events in batches of 8192 with the TIMER steps the
+     event-time clock sends; path T2, a time(1 sec) window with
+     avg/min/max at batch 32768 under @app:playback, 4 batches. Each
+     path's own launch counts,
+     no join overflow, the first 4 batches (T, T2: 2) against device="cpu";
   7. path P, pattern_2state (BASELINE.json config 4: every a1[price > 95] ->
      a2[price < 5] within 1 sec, patternCapacity 4096, chunks of 2048) with
      2,000,000 events, and path C, count_sequence (config 5: every
@@ -99,13 +108,13 @@ engine next to it. Phases, each printed as it ends:
      its first 8,192 events;
   9. the tumbling time windows (see tb_path_phase and xb_path_phase): path
      TB, timeBatch(1 sec) group by symbol with avg, stdDev, min, max,
-     maxForever, distinctCount and count under @app:playback, 8 batches'
+     maxForever, distinctCount and count under @app:playback, 4 batches'
      events one 1,000-event bucket a call with its TIMER step; path XB,
      externalTimeBatch(ets, 1 sec) with avg, stdDev, max, minForever,
      distinctCount and count, 1,000,000 events fused and a 20-batch
      per-batch prefix (exactly equal); each path's launches, no overflow,
      and its first 8,192 events against device="cpu" at @app:batch 4096;
- 10. the table paths (bench.py:266's traffic, B=8192, 128 batches fused in
+ 10. the table paths (bench.py:266's traffic, B=8192, 64 batches fused in
      calls of 8; see table_path_phase): TAB-PK (a @PrimaryKey update of a
      1,000,000-row table down the indexed path), TAB-IX (the same update
      without @PrimaryKey: the auto-index's duplicate flag picks the
@@ -113,8 +122,8 @@ engine next to it. Phases, each printed as it ends:
      and a delete over 100,000 rows), TAB-UPSERT (update or insert into a
      100,000-row table that fills) and TAB-JOIN (a stream-table join and an
      `in` condition over 16,384 rows); each path's launches held to its
-     steps, its table after 20 batches equal to the per-batch form's, its
-     first 4 batches equal to device="cpu", events/s and the device busy
+     steps, its table after 10 batches equal to the per-batch form's, its
+     first 2 batches equal to device="cpu", events/s and the device busy
      share of one more fused call;
  11. the special-window, stream-function and rate-limit paths at @app:batch
      32768 (SPECIAL_APPS): SW (sort(100, price desc, volume asc), 1,000,000
@@ -136,7 +145,7 @@ engine next to it. Phases, each printed as it ends:
      60 sec) per symbol, 1,000,000 events per batch), PTB (a range
      partition of three price bands, timeBatch(1 sec) group by symbol under
      @app:playback, one bucket a call with its TIMER step) and PTT (PTE on
-     time(1 sec) under @app:playback, 8,192 events with every TIMER step
+     time(1 sec) under @app:playback, 4,096 events with every TIMER step
      reaching every partition); launches held to the steps, events/s, the
      busy share (PTE) and each path's first call against device="cpu";
      then patterns inside a partition (PP_PATTERNS; see
@@ -146,7 +155,14 @@ engine next to it. Phases, each printed as it ends:
      @app:playback, K37, PPA_BATCHES calls of one batch with a TIMER step
      per deadline over every slot); launches held to the steps,
      events/s, the busy share and each path's first events against
-     device="cpu".
+     device="cpu"; then joins and the sort and frequent windows inside a
+     partition (PJ_APPS; see partition_join_path_phase): PJ (a per-symbol
+     equality join of Trades and Quotes over length(50) windows, one batch
+     a stream a call, 32 steps), PSW (a per-symbol sort(10) price book,
+     262,144 events) and PFQ (per-symbol frequent(10, volume), 262,144
+     events); launches held to the steps, events/s, the busy share and
+     each path's first call against device="cpu".
+Each phase prints an `elapsed ... s after ...` line.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
 
@@ -156,10 +172,13 @@ stops after phase 2 (each kernel against its plain version, and its times).
 
     python3 chip_smoke.py --partition
 
-builds the kernels and runs only the partition slices: K29-K37 against
-their plain versions, and paths PT, PTE, PTB, PTT, PPF, PPC and PPA;
-`--partition-kernels` stops after K29-K37, and `--partition-patterns` runs
-only K34-K37 and paths PPF, PPC and PPA (`--no-paths`: only K34-K37).
+builds the kernels and runs only the partition slices: K29-K41 against
+their plain versions, and paths PT, PTE, PTB, PTT, PPF, PPC, PPA, PJ, PSW
+and PFQ;
+`--partition-kernels` stops after K29-K41, `--partition-patterns` runs
+only K34-K37 and paths PPF, PPC and PPA (`--no-paths`: only K34-K37), and
+`--partition-joins` only K38-K41 and paths PJ, PSW and PFQ (`--no-paths`:
+only K38-K41).
 
     python3 chip_smoke.py --profile
 
@@ -215,9 +234,10 @@ insert into Out;
 
 # slice 4: joins (bench.py sliding_join, BASELINE.json config 3) and time windows
 JOIN_BATCH, JOIN_W, JOIN_CAP, TIME_JOIN_CAP, TIME_W = 8192, 100, 8192, 16384, 1024
-# T and T2 run 65,536 events and 8 batches (250,000 and 16 until the
-# partitioned patterns' paths joined the script's time)
-JOIN_EVENTS, TIME_JOIN_EVENTS, TIME_AGG_BATCHES = 2_000_000, 65_536, 8
+# T and T2 run 32,768 events and 4 batches (250,000 and 16 until the
+# partitioned patterns' paths joined the script's time, 65,536 and 8 until
+# the partitioned joins' did)
+JOIN_EVENTS, TIME_JOIN_EVENTS, TIME_AGG_BATCHES = 2_000_000, 32_768, 4
 JOIN_APP = """
 @app:joinCapacity(size='{cap}')
 @app:batch(size='{batch}')
@@ -422,6 +442,37 @@ end;""" % _PTW_STREAM,
 
 def partition_window_app(path: str, batch: int, cap: int) -> str:
     return PTW_APPS[path].format(batch=batch, cap=cap)
+
+
+# joins and the sort and frequent windows inside a partition (see
+# partition_join_path_phase): fills matched to resting quotes of the same
+# instrument (PJ, path J's equality join made per symbol), a per-symbol
+# top-10 price book (PSW, path SW per key) and per-symbol recurring lot
+# sizes (PFQ, a surveillance query)
+_PJ_HEAD = "@app:batch(size='{batch}') @app:partitionCapacity(size='{cap}')\n"
+PJ_APPS = {
+    "PJ": _PJ_HEAD + """define stream Trades (symbol string, price float, volume long);
+define stream Quotes (symbol string, price float, volume long);
+partition with (symbol of Trades, symbol of Quotes) begin
+@info(name='q') from Trades#window.length(50) as t join Quotes#window.length(50) as q
+on t.volume == q.volume
+select t.symbol as s, t.price as tp, q.price as qp, t.volume as v insert into Out;
+end;""",
+    "PSW": _PJ_HEAD + """define stream StockStream (symbol string, price float, volume long);
+partition with (symbol of StockStream) begin
+@info(name='q') from StockStream#window.sort(10, price, 'desc', volume, 'asc')
+select symbol, price, volume, count() as n, sum(volume) as v insert all events into Out;
+end;""",
+    "PFQ": _PJ_HEAD + """define stream StockStream (symbol string, price float, volume long);
+partition with (symbol of StockStream) begin
+@info(name='q') from StockStream#window.frequent(10, volume)
+select symbol, volume, count() as c insert all events into Out;
+end;""",
+}
+
+
+def partition_join_app(path: str, batch: int, cap: int) -> str:
+    return PJ_APPS[path].format(batch=batch, cap=cap)
 
 
 
@@ -1687,9 +1738,9 @@ def pattern_scan_kernel_phase(torch, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 TB_BATCH, TB_W, TB_T, TB_G = 32768, 1024, 1000, 1024  # B, time capacity, 1 sec, groups
-# TB and PTB send 8 batches' worth of buckets (16 until the partitioned
+# TB and PTB send 4 batches' worth of buckets (16 until the partitioned
 # patterns' paths joined the script's time)
-TB_BATCHES, XB_EVENTS, TB_CHECK_BATCH = 8, 1_000_000, 4096
+TB_BATCHES, XB_EVENTS, TB_CHECK_BATCH = 4, 1_000_000, 4096
 TB_APP = """@app:playback @app:batch(size='{batch}')
 define stream StockStream (symbol string, price float, volume long);
 @info(name='q') from StockStream#window.timeBatch(1 sec)
@@ -3651,6 +3702,287 @@ def partition_pattern_kernel_phase(torch, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
+PJ_KERNEL_NAMES = ("partition_ring_view", "partition_join_assemble", "partition_sort_window_step",
+                   "partition_frequent_window_step")
+PJ_W, PSW_N, PFQ_N = 50, 10, 10
+
+
+def partition_join_kernel_phase(torch, dev) -> dict:
+    """The join slice's keyed kernels against their plain versions on the
+    card, bit for bit on every output lane, state lane and flag, from the
+    same inputs: the keyed ring view K38 and the keyed probe compaction K39
+    at path PJ's shape (P=1024 rings of W=50, 32,768 probe rows of 1,000
+    keys, joinCapacity 512 a slot, an equality `on` over the slot's view)
+    with inner and outer joins, EXPIRED probes, a unidirectional side (an
+    empty probe set), a self-join (probes and view from one stream), one
+    slot overflowing its capacity, empty slots and keys past capacity, and
+    ragged B/P/W; the keyed sort window K40 at path PSW's shape (B=32768,
+    P=1024, sort(10, price desc, volume asc), carried state) with NaN and
+    -0.0 keys and one to four comparators; the keyed frequent window K41 at
+    path PFQ's shape (frequent(10, volume)) with -0.0/0.0 keys (a price
+    key) and a call bringing more than N new keys to one slot; then each
+    kernel's time beside its plain version's, its byte bound and the
+    library call named in PERF.md."""
+    from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.core.types import AttrType
+    from siddhi_tpu_torch.core.windows_special import _key_col
+    from siddhi_tpu_torch.ops import partition as K
+
+    k38, k39, k40, k41 = PJ_KERNEL_NAMES
+    res = {k: {"max_abs_err": 0.0, "checks": 0} for k in PJ_KERNEL_NAMES}
+    rng = np.random.default_rng(1038)
+    attrs = [("symbol", AttrType.STRING), ("price", AttrType.FLOAT), ("volume", AttrType.LONG)]
+    types = dict(attrs)
+    traps = np.array([np.nan, -0.0, 0.0, 1.5, 2.5, -3.0], np.float32)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def ring(p, w, vmax=1000, holes=0.0):
+        total = rng.integers(0, 3 * w + 1, p)
+        seq = np.full((p, w), -1, np.int64)
+        for q in range(p):
+            live = np.arange(max(0, total[q] - w), total[q])
+            live = live[rng.random(live.shape[0]) >= holes]
+            pos = live % w if holes == 0 else rng.permutation(w)[:live.shape[0]]
+            seq[q, pos] = live
+        return {"cols": {"symbol": t(rng.integers(1, 9, (p, w)).astype(np.int32)),
+                         "price": t(rng.uniform(0, 100, (p, w)).astype(np.float32)),
+                         "volume": t(rng.integers(1, vmax, (p, w)).astype(np.int64))},
+                "ts": t(rng.integers(0, 10**9, (p, w)).astype(np.int64)),
+                "wts": t(np.zeros((p, w), np.int64)), "seq": t(seq),
+                "total": t(total.astype(np.int64))}
+
+    def check_view(state):
+        got, want = K.partition_ring_view(state), K.partition_ring_view_ref(state)
+        torch.cuda.synchronize()
+        same_bits(torch, got, want)
+        res[k38]["checks"] += 1
+        return want
+
+    def probes(b, p, vmax=1000, kind=0, past=0.0, keys=None, trap=False):
+        slot = rng.integers(0, p, b) if keys is None else keys
+        slot = np.where(rng.random(b) < past, p, slot)
+        return {"slot": t(slot.astype(np.int32)), "ts": t(np.arange(b, dtype=np.int64)),
+                "kind": t(np.full(b, kind, np.int8)),
+                "mask": t(rng.random(b) < (0.9 if trap else 1.0)),
+                "cols": {"symbol": t(rng.integers(1, 9, b).astype(np.int32)),
+                         "price": t(rng.uniform(0, 100, b).astype(np.float32)),
+                         "volume": t(rng.integers(1, vmax, b).astype(np.int64))}}
+
+    def cat(parts):
+        return {"slot": torch.cat([x["slot"] for x in parts]),
+                "ts": torch.cat([x["ts"] for x in parts]),
+                "kind": torch.cat([x["kind"] for x in parts]),
+                "mask": torch.cat([x["mask"] for x in parts]),
+                "cols": {n: torch.cat([x["cols"][n] for x in parts]) for n in parts[0]["cols"]}}
+
+    def assemble_args(pr, view, p, outer, cap, on=True):
+        vcols, vts, vmask = view
+        at = pr["slot"].long().clamp(0, p - 1)
+        pair = pr["mask"][:, None] & vmask[at]
+        if on:
+            pair = pair & (pr["cols"]["volume"][:, None] == vcols["volume"][at])
+        return (pair, pr["mask"], pr["slot"], outer, cap, p, pr["ts"], pr["kind"], pr["cols"],
+                vts, vcols, types)
+
+    def jlanes(r):
+        return [r.ts, r.kind, r.valid, r.probe_cols, r.partner_cols, r.partner_ts, r.slot,
+                r.first, r.overflow]
+
+    def check_join(args):
+        got = K.partition_join_assemble(*args)
+        want = K.partition_join_assemble_ref(*args)
+        torch.cuda.synchronize()
+        same_bits(torch, jlanes(got), jlanes(want))
+        res[k39]["checks"] += 1
+        return want
+
+    # path PJ's shape: 1,000 keys in 1,024 slots, rings of 50
+    b, p, w, cap = MAIN_BATCH, PT_CAP, PJ_W, 512
+    keys = rng.integers(0, PT_SYMBOLS, b)
+    pj_ring = ring(p, w)
+    pj_view = check_view(pj_ring)
+    pj_probes = probes(b, p, keys=keys)
+    pj_args = assemble_args(pj_probes, pj_view, p, False, cap)
+    pj_want = check_join(pj_args)
+    check_join(assemble_args(pj_probes, pj_view, p, True, cap))  # outer
+    exp = probes(2 * b, p, kind=1, keys=rng.integers(0, PT_SYMBOLS, 2 * b), trap=True)
+    for outer in (False, True):  # CURRENT then EXPIRED probes
+        check_join(assemble_args(cat([pj_probes, exp]), pj_view, p, outer, cap))
+    empty = probes(1, p, past=1.0)  # a unidirectional side: no probe row
+    empty["mask"] = torch.zeros_like(empty["mask"])
+    for outer in (False, True):
+        check_join(assemble_args(empty, pj_view, p, outer, cap))
+    # a self-join: the view is the probes' own stream's ring
+    self_ring = ring(p, w, vmax=50)
+    self_view = check_view(self_ring)
+    check_join(assemble_args(probes(b, p, vmax=50, keys=keys), self_view, p, False, cap))
+    # one slot overflowing its capacity: 600 rows of slot 3 match everything
+    hot = probes(600, 8, keys=np.full(600, 3))
+    hot_view = check_view(ring(8, 4))
+    for outer in (False, True):
+        if not bool(check_join(assemble_args(hot, hot_view, 8, outer, 512, on=False)).overflow):
+            raise AssertionError("partition_join_assemble: the hot slot did not overflow")
+    # empty slots, keys past capacity (probe rows of slot P in the mask)
+    sparse_view = check_view(ring(33, 4, vmax=5, holes=0.3))
+    for outer in (False, True):
+        check_join(assemble_args(probes(513, 33, vmax=5, keys=rng.integers(0, 5, 513),
+                                        past=0.1, trap=True), sparse_view, 33, outer, 7))
+    # ragged B / P / W, rings with holes
+    for bb, pp, ww in ((1, 1, 1), (33, 8, 4), (4097, 33, 50), (33, 1, 50), (4097, 1, 1),
+                       (1, 33, 4)):
+        view = check_view(ring(pp, ww, vmax=6, holes=0.2))
+        for outer in (False, True):
+            check_join(assemble_args(probes(bb, pp, vmax=6, past=0.05, trap=True), view, pp,
+                                     outer, 5))
+    print(f"partition join kernels: {res[k38]['checks']} K38 and {res[k39]['checks']} K39 "
+          "checks bit for bit", flush=True)
+
+    # ---- K40 / K41
+    def windows(kind, p, n):
+        z = lambda dt: torch.zeros((p, n), dtype=dt, device=dev)  # noqa: E731
+        st = {"cols": {"symbol": z(torch.int32), "price": z(torch.float32),
+                       "volume": z(torch.int64)},
+              "ts": z(torch.int64), "occ": z(torch.bool)}
+        if kind == "sort":
+            st.update(seq=z(torch.int64), next=torch.zeros(p, dtype=torch.int64, device=dev))
+        else:
+            st.update(key=z(torch.int64), cnt=z(torch.int32))
+        return st
+
+    def wbatch(bsz, p, t0, trap=False, keys=None, vmax=1000):
+        kind = np.where(rng.random(bsz) < 0.05, 2, np.where(rng.random(bsz) < 0.03, 1, 0)) \
+            if trap else np.zeros(bsz)
+        slot = rng.integers(0, p, bsz) if keys is None else keys
+        if trap:
+            slot = np.where(rng.random(bsz) < 0.05, p, slot)
+        price = traps[rng.integers(0, len(traps), bsz)] if trap else rng.uniform(0, 100, bsz)
+        batch = EventBatch(
+            ts=t(t0 + np.arange(bsz, dtype=np.int64)), kind=t(kind.astype(np.int8)),
+            valid=t(rng.random(bsz) < 0.9 if trap else np.ones(bsz, bool)),
+            cols={"symbol": t(rng.integers(1, 9, bsz).astype(np.int32)),
+                  "price": t(price.astype(np.float32)),
+                  "volume": t(rng.integers(1, vmax, bsz).astype(np.int64))})
+        return batch, t(slot.astype(np.int32))
+
+    def wlanes(r):
+        st, out, out_slot, out_first, ovf = r
+        return [st, out.ts, out.kind, out.valid, out.cols, out_slot, out_first, ovf]
+
+    def check_sort(st, batch, slot, now, sk, n, p):
+        got = K.partition_sort_window_step(st, batch, slot, now, sk, n, p)
+        want = K.partition_sort_window_step_ref(st, batch, slot, now, sk, n, p)
+        torch.cuda.synchronize()
+        same_bits(torch, wlanes(got), wlanes(want))
+        res[k40]["checks"] += 1
+        return want[0]
+
+    def fkey(batch, ka):
+        return _key_col(batch.cols, attrs, ka).expand(batch.ts.shape).contiguous()
+
+    def check_freq(st, batch, slot, now, ka, n, p):
+        key = fkey(batch, ka)
+        got = K.partition_frequent_window_step(st, batch, key, slot, now, n, p)
+        want = K.partition_frequent_window_step_ref(st, batch, key, slot, now, n, p)
+        torch.cuda.synchronize()
+        same_bits(torch, wlanes(got), wlanes(want))
+        res[k41]["checks"] += 1
+        return want[0]
+
+    psw_keys = [("price", True), ("volume", False)]
+    now = torch.tensor(7, dtype=torch.int64, device=dev)
+    st_s, st_f = windows("sort", p, PSW_N), windows("freq", p, PFQ_N)
+    for i in range(3):  # paths PSW's and PFQ's shapes, carried state
+        batch, slot = wbatch(b, p, i * b, keys=rng.integers(0, PT_SYMBOLS, b))
+        if i < 2:
+            st_s = check_sort(st_s, batch, slot, now, psw_keys, PSW_N, p)
+            st_f = check_freq(st_f, batch, slot, now, ["volume"], PFQ_N, p)
+    psw = dict(state=st_s, batch=batch, slot=slot)
+    pfq = dict(state=st_f, batch=batch, slot=slot)
+    check_sort(st_s, batch, slot, now, psw_keys, PSW_N, p)
+    check_freq(st_f, batch, slot, now, ["volume"], PFQ_N, p)
+    for sk in ([("price", False)], psw_keys, [("price", True), ("volume", False),
+                                              ("symbol", True)],
+               [("volume", True), ("price", False), ("symbol", False), ("price", True)]):
+        for bb, pp, nn in ((1, 1, 1), (33, 8, 3), (513, 33, 4), (4097, 8, 16)):
+            st = windows("sort", pp, nn)
+            for i in range(3):
+                batch, slot = wbatch(bb, pp, i * bb, trap=True)
+                st = check_sort(st, batch, slot, now + i, sk, nn, pp)
+    for ka in (["volume"], ["price"], ["symbol", "volume"]):
+        for bb, pp, nn in ((1, 1, 1), (33, 8, 3), (513, 33, 4), (4097, 8, 16)):
+            st = windows("freq", pp, nn)
+            for i in range(3):
+                batch, slot = wbatch(bb, pp, i * bb, trap=True, vmax=6)
+                st = check_freq(st, batch, slot, now + i, ka, nn, pp)
+    # more than N new keys a call in one slot (every count decremented,
+    # zeros evicted in slot order), then the same keys again
+    st = windows("freq", 4, 4)
+    for i in range(3):
+        batch, slot = wbatch(513, 4, i * 513, keys=np.zeros(513, np.int64), vmax=40)
+        st = check_freq(st, batch, slot, now, ["volume"], 4, 4)
+    print(f"partition window kernels: {res[k40]['checks']} K40 and {res[k41]['checks']} K41 "
+          "checks bit for bit", flush=True)
+
+    # ---- times at the paths' shapes
+    col_b = 4 + 4 + 8
+    r = res[k38]
+    r["ms"] = time_ms(torch, lambda: K.partition_ring_view(pj_ring), 50)
+    r["plain_ms"] = time_once(torch, lambda: K.partition_ring_view_ref(pj_ring))
+    seq = pj_ring["seq"]
+    r["library_ms"] = time_ms(torch, lambda: torch.argsort(
+        torch.where(seq >= 0, seq, np.iinfo(np.int64).max), dim=1, stable=True), 50)
+    r["bound_ms"], r["bound_by"] = (p * w * (8 + 2 * (8 + col_b) + 1) + 8 * p) \
+        / MEM_BYTES_PER_S * 1e3, "bytes"
+    r = res[k39]
+    pair = pj_args[0]
+    r["ms"] = time_ms(torch, lambda: K.partition_join_assemble(*pj_args), 20)
+    r["plain_ms"] = time_once(torch, lambda: K.partition_join_assemble_ref(*pj_args))
+    r["library_ms"] = time_ms(torch, lambda: torch.nonzero(pair), 20)
+    rows = int(pj_want.valid.sum())
+    r["rows"] = rows
+    # the bytes touched: the pair mask, each probe row's mask and slot, and
+    # for the rows out only, the probe lanes (ts, kind, columns) and the
+    # partner lanes (ts, columns) read through the gathers and every output
+    # lane written (ts, kind, valid, both sides' columns, partner ts, slot,
+    # first row); the flag
+    n_r, n_w = pair.shape
+    r["bound_ms"], r["bound_by"] = (n_r * n_w + n_r * (1 + 4)
+                                    + rows * ((8 + 1 + col_b) + (8 + col_b)
+                                              + (8 + 1 + 1 + 2 * col_b + 8 + 4 + 4)) + 1) \
+        / MEM_BYTES_PER_S * 1e3, "bytes"
+    for name, d, step, ref, extra in (
+            (k40, psw, K.partition_sort_window_step, K.partition_sort_window_step_ref,
+             (psw_keys, PSW_N, p)),
+            (k41, pfq, K.partition_frequent_window_step, K.partition_frequent_window_step_ref,
+             (PFQ_N, p))):
+        st, batch, slot = d["state"], d["batch"], d["slot"]
+        if name == k41:
+            key = fkey(batch, ["volume"])
+            args = (st, batch, key, slot, now) + extra
+            state_b = p * PFQ_N * (col_b + 8 + 1 + 8 + 4)
+        else:
+            args = (st, batch, slot, now) + extra
+            state_b = p * PSW_N * (col_b + 8 + 1 + 8) + 8 * p
+        r = res[name]
+        r["ms"] = time_ms(torch, lambda: step(*args), 20)
+        r["plain_ms"] = time_once(torch, lambda: ref(*args))
+        r["library_ms"] = None
+        out = ref(*args)[1]
+        n_out = int(out.valid.sum())
+        r["rows"] = n_out
+        r["bound_ms"], r["bound_by"] = (b * (8 + 1 + 1 + 4 + col_b + (8 if name == k41 else 0))
+                                        + 2 * state_b + n_out * (8 + 1 + 1 + col_b + 4 + 4)) \
+            / MEM_BYTES_PER_S * 1e3, "bytes"
+    for name in PJ_KERNEL_NAMES:
+        r = res[name]
+        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={r['library_ms']} "
+              f"checks={r['checks']} exact", flush=True)
+    return res
+
+
 def verify_phase(dev) -> None:
     from siddhi_tpu_torch import SiddhiManager
 
@@ -3937,8 +4269,8 @@ def grouped_path_phase(torch) -> dict:
 
     for q in ("@store(type='memory') define table T (symbol string); "
               "from S select symbol insert into T",
-              "partition with (symbol of S) begin from S#window.sort(4, price) select symbol "
-              "insert into Out; end",
+              "partition with (symbol of S) begin from S#window.lossyFrequent(0.1, 0.01, "
+              "symbol) select symbol insert into Out; end",
               "define window W (symbol string) length(4); from S select symbol insert into W",
               "define trigger T at every 5 sec; from S select symbol insert into Out"):
         try:
@@ -4044,11 +4376,11 @@ def join_path_phase(torch) -> dict:
 
 def time_join_path_phase(torch) -> dict:
     """Path T: the same self-join over time(1 sec) windows under
-    @app:playback, joinCapacity 16384: 65,536 events of seed 7 through
+    @app:playback, joinCapacity 16384: 32,768 events of seed 7 through
     send_columns one batch of 8192 per call, the per-batch form (a query
     whose window needs the scheduler stays off the fused path); the
     event-time clock fires the TIMER rows before each call's batch; launch
-    counts of this run alone; no join overflow; the first 4 calls against
+    counts of this run alone; no join overflow; the first 2 calls against
     device="cpu"."""
     from siddhi_tpu_torch import kernels
 
@@ -4065,8 +4397,8 @@ def time_join_path_phase(torch) -> dict:
     print(f"time join launches {json.dumps(launches)}", flush=True)
     if warned:
         raise AssertionError("time join: the join output overflowed its capacity")
-    _n, cpu_first, _dt, _i = run_app("cpu", app, data, 4 * b, b, b, fused=False, keep_calls=4)
-    check_path("time join", launches, TIME_JOIN_KERNELS, kept, cpu_first, 4)
+    _n, cpu_first, _dt, _i = run_app("cpu", app, data, 2 * b, b, b, fused=False, keep_calls=2)
+    check_path("time join", launches, TIME_JOIN_KERNELS, kept, cpu_first, 2)
     n_batches = -(-TIME_JOIN_EVENTS // b)
     timer_steps = check_fires("time join", fires[0], launches, 2 * n_batches)
     per_side = n_rows / (2 * n_batches)
@@ -4077,14 +4409,14 @@ def time_join_path_phase(torch) -> dict:
     print(f"path T time-window join: {TIME_JOIN_EVENTS} events in {n_batches} batches and "
           f"{timer_steps} one-row TIMER steps, {n_rows} rows delivered ({per_side:.1f} matches "
           f"per side per batch), {dt:.3f} s, {TIME_JOIN_EVENTS / dt:.1f} events/s; no overflow; "
-          "first 4 batches match device='cpu'", flush=True)
+          "first 2 batches match device='cpu'", flush=True)
     return out
 
 
 def time_agg_path_phase(torch) -> dict:
     """Path T2: StockStream[price > 50]#window.time(1 sec) with avg/min/max
-    under @app:playback at @app:batch 32768, 8 batches one per call
-    (per-batch form); launch counts of this run alone; the first 4 calls
+    under @app:playback at @app:batch 32768, 4 batches one per call
+    (per-batch form); launch counts of this run alone; the first 2 calls
     against device="cpu"."""
     from siddhi_tpu_torch import kernels
 
@@ -4098,15 +4430,15 @@ def time_agg_path_phase(torch) -> dict:
                                       keep_calls=4, fires=fires)
     launches = dict(kernels.launches)
     print(f"time aggregate launches {json.dumps(launches)}", flush=True)
-    _n, cpu_first, _dt, _i = run_app("cpu", TIME_AGG_APP, data, 4 * b, b, b, fused=False,
-                                     keep_calls=4)
-    check_path("time aggregate", launches, TIME_AGG_KERNELS, kept, cpu_first, 4)
+    _n, cpu_first, _dt, _i = run_app("cpu", TIME_AGG_APP, data, 2 * b, b, b, fused=False,
+                                     keep_calls=2)
+    check_path("time aggregate", launches, TIME_AGG_KERNELS, kept, cpu_first, 2)
     timer_steps = check_fires("time aggregate", fires[0], launches, TIME_AGG_BATCHES)
     out = {"events": n, "rows": n_rows, "seconds": dt, "events_per_s": n / dt,
            "timer_steps": timer_steps, "launches": launches}
     print(f"path T2 time-window aggregate: {n} events in {TIME_AGG_BATCHES} batches and "
           f"{timer_steps} one-row TIMER steps, {n_rows} rows delivered, {dt:.3f} s, "
-          f"{n / dt:.1f} events/s; first 4 batches match device='cpu'", flush=True)
+          f"{n / dt:.1f} events/s; first 2 batches match device='cpu'", flush=True)
     return out
 
 
@@ -4744,7 +5076,9 @@ PTE_KERNELS = {"assign_slots": 1, "partition_time_window_step": 1, "partition_ro
                "partition_window_extreme": 1, "keyed_running_sum": 3}
 PTB_KERNELS = {"assign_slots": 1, "partition_batch_window_step": 1,
                "partition_assign_slots": 1, "keyed_running_sum": 4, "keep_last": 1}
-PTB_CAP, PTT_EVENTS, PTT_FIRST, PTT_CALL = 32, 8192, 1280, 2048
+# PTT sends 4,096 events, its first call of 640 against device="cpu"
+# (8,192 and 1,280 until the partitioned joins joined the script's time)
+PTB_CAP, PTT_EVENTS, PTT_FIRST, PTT_CALL = 32, 4096, 640, 2048
 PTW_COLS = ("symbol", "price", "volume", "ets")
 
 
@@ -4818,15 +5152,15 @@ def partition_windows_path_phase(torch) -> dict:
 
     PTB: three price bands as a range partition, timeBatch(1 sec) group by
     symbol with avg, sum and count, @app:groupCapacity 1024, @app:playback,
-    8 batches' worth of the same traffic sent one 1-second bucket (1,000
+    4 batches' worth of the same traffic sent one 1-second bucket (1,000
     events) a call, each call's TIMER step (every band's bucket end)
     closing the previous bucket; launches held per step (data and TIMER);
     no group overflow; the closed buckets count every event sent before the
     open one; the device busy share of 8 more calls; the first 8,192 events
     against device="cpu".
 
-    PTT: PTE on time(1 sec) under @app:playback, 8,192 events in calls of
-    2,048 (the first of 1,280): each call fires one TIMER step per distinct
+    PTT: PTE on time(1 sec) under @app:playback, 4,096 events in calls of
+    2,048 (the first of 640): each call fires one TIMER step per distinct
     expiry time, and each reaches every partition; K31 launches = data
     steps + TIMER steps; the first call against device="cpu"; the device
     busy share of a second call."""
@@ -5050,6 +5384,168 @@ def partition_pattern_path_phase(torch) -> dict:
     return out
 
 
+PJ_PATH_KERNELS = {
+    "PJ": {"assign_slots": 1, "partition_length_window_step": 1, "partition_ring_view": 1,
+           "partition_join_assemble": 1},
+    "PSW": {"assign_slots": 1, "partition_rows": 1, "partition_sort_window_step": 1,
+            "pattern_place": 1, "keyed_running_sum": 2},
+    "PFQ": {"assign_slots": 1, "partition_rows": 1, "partition_frequent_window_step": 1,
+            "pattern_place": 1, "keyed_running_sum": 1},
+}
+PJ_CALLS, PSW_EVENTS = 16, 262_144
+
+
+def run_streams(dev, app: str, feeds: list, b: int, calls: int, symbols, keep_calls: int = 1,
+                profile=None):
+    """Drive a multi-stream app: each call sends one batch of `b` events to
+    each stream of `feeds` [(stream, data)] in turn, through send_columns.
+    Returns (delivered rows, rows of each of the first `keep_calls` calls,
+    seconds). With `profile` (torch.profiler's profile class), the last
+    call runs under it and its device busy ms is returned as a fourth
+    value with the call's wall ms."""
+    import torch
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(app)
+    for s in symbols:
+        mgr.interner.intern(s)
+    count, kept = [0], []
+
+    def on_rows(t, ins, rem):
+        count[0] += len(ins or [])
+        if len(kept) <= keep_calls:
+            kept[-1].extend(tuple(e.data) for e in ins or [])
+
+    rt.add_callback("q", on_rows)
+    rt.start()
+    hs = {sid: rt.get_input_handler(sid) for sid, _d in feeds}
+
+    def call(c):
+        kept.append([])
+        lo, hi = c * b, (c + 1) * b
+        for sid, data in feeds:
+            hs[sid].send_columns(data["ts"][lo:hi], {k: data[k][lo:hi]
+                                                     for k in ("symbol", "price", "volume")},
+                                 now=0)
+
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(calls - (profile is not None)):
+        call(c)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    busy = None
+    if profile is not None:
+        from torch.profiler import ProfilerActivity
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            call(calls - 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        busy_us = 0.0
+        for e in prof.key_averages():
+            dev_us = getattr(e, "self_device_time_total", None)
+            busy_us += e.self_cuda_time_total if dev_us is None else dev_us
+        busy = (wall * 1e3, busy_us / 1e3)
+    rt.shutdown()
+    mgr.shutdown()
+    return count[0], kept[:keep_calls], dt, busy
+
+
+def partition_join_path_phase(torch) -> dict:
+    """Joins and the sort and frequent windows inside a partition at full
+    width: @app:batch 32768, @app:partitionCapacity 1024, 1,000 symbols
+    drawn uniformly (seed-7 stock data, 1 ms ticks).
+
+    PJ (PJ_APPS): `Trades#window.length(50) as t join
+    Quotes#window.length(50) as q on t.volume == q.volume` per symbol, the
+    quotes from seed 8; PJ_CALLS calls of one batch a stream (Trades then
+    Quotes), each batch one step; launches of this run held to their uses
+    a step times the steps; events/s over both streams; no join overflow;
+    the first call (one batch a stream) against device="cpu"; the device
+    busy share of one more call.
+
+    PSW: sort(10, price desc, volume asc) with count and sum per symbol,
+    `insert all events`, PSW_EVENTS events in calls of 4 batches (the first
+    of 1); PFQ: frequent(10, volume) with count, the same way; each with
+    its launches held, events/s, the first batch against device="cpu" and
+    the busy share of one more call of 4 batches."""
+    from torch.profiler import profile
+
+    from siddhi_tpu_torch import kernels
+
+    b = MAIN_BATCH
+    out = {}
+    trades, names = pp_data(PJ_CALLS * b)
+    quotes = stock_data(PJ_CALLS * b, seed=8)
+    quotes["symbol"] = np.random.default_rng(8).integers(
+        1, PT_SYMBOLS + 1, size=PJ_CALLS * b).astype(np.int32)
+    app = partition_join_app("PJ", b, PT_CAP)
+    feeds = [("Trades", trades), ("Quotes", quotes)]
+    run_streams("cuda", app, feeds, b, 1, names)  # warm-up
+    kernels.launches.clear()
+    (n_rows, kept, dt, _busy), warned = capture_warnings(
+        lambda: run_streams("cuda", app, feeds, b, PJ_CALLS, names))
+    launches = dict(kernels.launches)
+    steps = 2 * PJ_CALLS
+    print(f"path PJ launches {json.dumps(launches)} over {steps} steps", flush=True)
+    if warned:
+        raise AssertionError("path PJ: the join output overflowed its capacity")
+    held_launches("PJ", launches, PJ_PATH_KERNELS["PJ"], steps)
+    t0 = time.perf_counter()
+    _n, cpu_kept, _dt, _b = run_streams("cpu", app, feeds, b, 1, names)
+    cpu_s = time.perf_counter() - t0
+    check_path("PJ", launches, PJ_PATH_KERNELS["PJ"], kept, cpu_kept, 1)
+    _n, _k, _dt, (wall_ms, busy_ms) = run_streams("cuda", app, feeds, b, 2, names,
+                                                  profile=profile)
+    n_ev = steps * b
+    out["PJ"] = {"events": n_ev, "rows": n_rows, "seconds": dt, "events_per_s": n_ev / dt,
+                 "steps": steps, "launches": launches, "cpu_first_call_rows": len(cpu_kept[0]),
+                 "cpu_plain_s": cpu_s, "busy_call_wall_ms": wall_ms,
+                 "busy_call_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms}
+    print(f"path PJ partitioned equality join: {n_ev} events over two streams, {n_rows} rows "
+          f"delivered, {dt:.3f} s, {n_ev / dt:.1f} events/s; one call (a batch a stream): "
+          f"wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.4f}); "
+          f"the first call's {len(cpu_kept[0])} rows match device='cpu'", flush=True)
+
+    data, names = pp_data(PSW_EVENTS + 4 * b)
+    for label in ("PSW", "PFQ"):
+        app = partition_join_app(label, b, PT_CAP)
+        wanted = PJ_PATH_KERNELS[label]
+        run_app("cuda", app, data, b, b, b, fused=False, symbols=names)  # warm-up
+        kernels.launches.clear()
+        (n_rows, kept, dt, _i), warned = capture_warnings(
+            lambda: run_app("cuda", app, data, PSW_EVENTS, 4 * b, b, fused=False,
+                            symbols=names), "window emission")
+        launches = dict(kernels.launches)
+        steps = PSW_EVENTS // b
+        print(f"path {label} launches {json.dumps(launches)} over {steps} steps", flush=True)
+        if warned:
+            raise AssertionError(f"path {label}: a window's emission buffer overflowed")
+        held_launches(label, launches, wanted, steps)
+        t0 = time.perf_counter()
+        _n, cpu_kept, _dt, _i = run_app("cpu", app, data, b, b, b, fused=False, symbols=names)
+        cpu_s = time.perf_counter() - t0
+        check_path(label, launches, wanted, kept, cpu_kept, 1)
+        wall_ms, busy_ms = calls_busy(torch, app, data, 4 * b, 1, 1,
+                                      ("symbol", "price", "volume"), names)
+        out[label] = {"events": PSW_EVENTS, "rows": n_rows, "seconds": dt,
+                      "events_per_s": PSW_EVENTS / dt, "steps": steps, "launches": launches,
+                      "cpu_first_batch_rows": len(cpu_kept[0]), "cpu_plain_s": cpu_s,
+                      "busy_call_wall_ms": wall_ms, "busy_call_busy_ms": busy_ms,
+                      "busy_share": busy_ms / wall_ms}
+        print(f"path {label}: {PSW_EVENTS} events, {n_rows} rows delivered, {dt:.3f} s, "
+              f"{PSW_EVENTS / dt:.1f} events/s; one call of 4 batches: wall {wall_ms:.3f} ms, "
+              f"device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.4f}); the first batch's "
+              f"{len(cpu_kept[0])} rows match device='cpu'", flush=True)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 10: the table paths (bench.py:266 _leg_table_scaling's traffic)
 # ---------------------------------------------------------------------------
@@ -5102,7 +5598,10 @@ TAB_LOAD = {"TAB-PK": (1.0, 1.0), "TAB-IX": (1.0, 1.0), "TAB-DENSE": (1.0, 1.0),
             "TAB-UPSERT": (0.5, 1.5), "TAB-JOIN": (1.0, 2.0)}
 TAB_N = {"TAB-PK": TAB_PK_ROWS, "TAB-IX": TAB_PK_ROWS, "TAB-DENSE": TAB_ROWS,
          "TAB-UPSERT": TAB_ROWS, "TAB-JOIN": TAB_JOIN_ROWS}
-TAB_BATCHES, TAB_PREFIX, TAB_CALL, TAB_CPU_BATCHES, TAB_PK_CPU_ROWS = 128, 20, 8, 4, 65_536
+# 64 batches a path, a 10-batch per-batch prefix and 2 batches against
+# device="cpu" (128, 20 and 4 until the partitioned joins joined the
+# script's time)
+TAB_BATCHES, TAB_PREFIX, TAB_CALL, TAB_CPU_BATCHES, TAB_PK_CPU_ROWS = 64, 10, 8, 2, 65_536
 
 
 def fused_steps(n: int, b: int, k: int = 32) -> int:
@@ -5195,12 +5694,12 @@ def run_table_path(dev: str, label: str, n: int, batch: int, n_batches: int, fus
 
 
 def table_path_phase(torch, label: str, expected) -> dict:
-    """One table path at its realistic size (TAB_N, B=8192): 128 batches
+    """One table path at its realistic size (TAB_N, B=8192): 64 batches
     fused, with the launch counts of this run alone (from 0 just before the
     app is built, through the load and the traffic) equal to
     `expected(load batches, batches)`; events/s and the device busy share of
-    one more fused call; the table (and the callback rows) after a 20-batch
-    fused run equal to the per-batch form's; the first 4 batches against
+    one more fused call; the table (and the callback rows) after a 10-batch
+    fused run equal to the per-batch form's; the first 2 batches against
     device="cpu" (TAB-PK and TAB-IX at capacity 65,536); the overflow flag logged
     where the path fills its table (TAB-UPSERT) and no other flag."""
     from siddhi_tpu_torch import kernels
@@ -5251,8 +5750,8 @@ def table_path_phase(torch, label: str, expected) -> dict:
           f"{events / main['seconds']:.1f} events/s fused, {len(main['table'])} table rows, "
           f"callback rows {out['callback_rows']}; device busy "
           f"{main['busy']['device_busy_ms']:.3f} of {main['busy']['wall_ms_8_batches']:.3f} ms "
-          f"over one fused call of 8 batches ({main['busy']['share']:.4f}); 20-batch table equal "
-          f"to the per-batch form's; first {TAB_CPU_BATCHES} batches equal to device='cpu' at "
+          f"over one fused call of 8 batches ({main['busy']['share']:.4f}); {prefix}-batch "
+          f"table equal to the per-batch form's; first {TAB_CPU_BATCHES} batches equal to device='cpu' at "
           f"capacity {cn} ({cpu_s:.1f} s on the host)", flush=True)
     return out
 
@@ -5586,26 +6085,37 @@ def main() -> int:
         partition_kernel_phase(torch, "cuda")
         partition_windows_kernel_phase(torch, "cuda")
         partition_pattern_kernel_phase(torch, "cuda")
+        partition_join_kernel_phase(torch, "cuda")
         partition_path_phase(torch)
         partition_windows_path_phase(torch)
         partition_pattern_path_phase(torch)
+        partition_join_path_phase(torch)
         return 0
     if "--partition-kernels" in sys.argv[1:]:
         partition_kernel_phase(torch, "cuda")
         partition_windows_kernel_phase(torch, "cuda")
         partition_pattern_kernel_phase(torch, "cuda")
+        partition_join_kernel_phase(torch, "cuda")
         return 0
     if "--partition-patterns" in sys.argv[1:]:
         partition_pattern_kernel_phase(torch, "cuda")
         if "--no-paths" not in sys.argv[1:]:
             partition_pattern_path_phase(torch)
         return 0
+    if "--partition-joins" in sys.argv[1:]:
+        partition_join_kernel_phase(torch, "cuda")
+        lap("partition_join_kernel_phase")
+        if "--no-paths" not in sys.argv[1:]:
+            partition_join_path_phase(torch)
+            lap("paths PJ, PSW and PFQ")
+        return 0
     lap("the build")
     res = {}
     for phase in (kernel_phase, fused_kernel_phase, grouped_kernel_phase, join_kernel_phase,
                   pattern_kernel_phase, pattern_scan_kernel_phase, time_batch_kernel_phase,
                   table_kernel_phase, special_window_kernel_phase, partition_kernel_phase,
-                  partition_windows_kernel_phase, partition_pattern_kernel_phase):
+                  partition_windows_kernel_phase, partition_pattern_kernel_phase,
+                  partition_join_kernel_phase):
         res.update(phase(torch, "cuda"))
         lap(phase.__name__)
     if "--kernels" in sys.argv[1:]:
@@ -5643,6 +6153,8 @@ def main() -> int:
     lap("paths PT, PTE, PTB and PTT")
     partition_patterns = partition_pattern_path_phase(torch)
     lap("paths PPF, PPC and PPA")
+    partition_joins = partition_join_path_phase(torch)
+    lap("paths PJ, PSW and PFQ")
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -5727,7 +6239,15 @@ def main() -> int:
            "pattern_place": ("siddhi_tpu_torch/csrc/partition_pattern.cu",
                              "siddhi_tpu/core/partition.py:436"),
            "partition_rows": ("siddhi_tpu_torch/csrc/partition_time.cu",
-                              "siddhi_tpu/core/partition.py:356")}
+                              "siddhi_tpu/core/partition.py:356"),
+           "partition_ring_view": ("siddhi_tpu_torch/csrc/partition_join.cu",
+                                   "siddhi_tpu/core/windows.py:438"),
+           "partition_join_assemble": ("siddhi_tpu_torch/csrc/partition_join.cu",
+                                       "siddhi_tpu/core/partition.py:214"),
+           "partition_sort_window_step": ("siddhi_tpu_torch/csrc/special_window.cu",
+                                          "siddhi_tpu/core/windows_special.py:160"),
+           "partition_frequent_window_step": ("siddhi_tpu_torch/csrc/special_window.cu",
+                                              "siddhi_tpu/core/windows_special.py:424")}
     # launches: K1-K5 from the quickstart path's run, K6-K9 from the
     # tumbling_groupby path's run, K10 from path T's run, K11 and K12 from
     # path J's, K13 and K15 from path P's, K14 from path C's, K16 from path
@@ -5766,6 +6286,11 @@ def main() -> int:
     path_of["partition_pattern_scan"] = partition_patterns["PPA"]["launches"]
     path_of["pattern_place"] = partition_patterns["PPA"]["launches"]
     path_of["partition_rows"] = partition_patterns["PPA"]["launches"]
+    # K38 and K39 from path PJ, K40 from PSW, K41 from PFQ
+    path_of["partition_ring_view"] = partition_joins["PJ"]["launches"]
+    path_of["partition_join_assemble"] = partition_joins["PJ"]["launches"]
+    path_of["partition_sort_window_step"] = partition_joins["PSW"]["launches"]
+    path_of["partition_frequent_window_step"] = partition_joins["PFQ"]["launches"]
     path_launches = {k: path_of.get(k, main["launches"]).get(k, 0) for k in res}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
@@ -5802,6 +6327,7 @@ def main() -> int:
                    "tables": tables, "special_paths": special, "partition_path": partitioned,
                    "partition_window_paths": partition_windows,
                    "partition_pattern_paths": partition_patterns,
+                   "partition_join_paths": partition_joins,
                    "partition_pattern_kernel_times": {
                        k: {x: res[k][x] for x in res[k] if x.endswith(("ms", "_bound_ms"))}
                        for k in PP_KERNELS},

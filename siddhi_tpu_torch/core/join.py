@@ -17,7 +17,11 @@ CPU. The view a probe reads is the other side's ring in insertion order
 window, nothing for a windowless side, or a table's live `(cols, ts, valid)`
 lanes for a table side (`TableSide`: a passive side that is probed and never
 triggers; reference: TableWindowProcessor). Named-window and aggregation
-sides are not ported yet: their definitions raise at app creation.
+sides are not ported yet: their definitions raise at app creation. Inside a
+partition (`CompiledJoin.step_partitioned`) every state leaf has a leading
+[P] axis: each probe row meets its own slot's view (csrc/partition_join.cu
+K38 for a sliding ring), and the keyed compaction K39 keeps each slot's
+first `join_capacity` matches, placed by (position within the slot, slot).
 """
 
 from __future__ import annotations
@@ -68,7 +72,10 @@ DEFAULT_JOIN_CAPACITY = 512
 class JoinRows:
     """The joined batch's lanes: probe lanes gathered by each slot's probe
     row, partner lanes by its view slot (null-filled for a missed partner),
-    and whether the matches overflowed the capacity (0-d bool)."""
+    and whether the matches overflowed the capacity (0-d bool). Inside a
+    partition (K39) also each row's partition slot `slot` [rows] int32 (P
+    past the rows) and its slot's first row `first` [rows] int32, and
+    `overflow` is set when some slot overflowed."""
 
     ts: torch.Tensor
     kind: torch.Tensor
@@ -77,6 +84,8 @@ class JoinRows:
     partner_cols: dict
     partner_ts: torch.Tensor
     overflow: torch.Tensor
+    slot: Optional[torch.Tensor] = None
+    first: Optional[torch.Tensor] = None
 
 
 def join_assemble_ref(pair, row_mask, outer: bool, cap: int, row_ts, row_kind, row_cols: dict,
@@ -186,6 +195,21 @@ def join_assemble(pair, row_mask, outer: bool, cap: int, row_ts, row_kind, row_c
 # ---------------------------------------------------------------------------
 # join sides
 # ---------------------------------------------------------------------------
+
+
+class _SlotViewCols(dict):
+    """Env columns of a keyed probe: a view lane [P, W] is gathered to
+    [R, W] by each probe row's slot when the condition first reads it."""
+
+    def __init__(self, view: dict, at: torch.Tensor):
+        super().__init__()
+        self._view = view
+        self._at = at
+
+    def __missing__(self, key):
+        lane = self._view[key]
+        self[key] = v = lane[self._at]
+        return v
 
 
 class NoWindow(WindowStage):
@@ -379,39 +403,104 @@ class CompiledJoin:
         new_state[side] = wstate
         return new_state, joined, aux
 
-    def _assemble(self, probes, arr, other, vcols, vts, vmask, now, side, aux) -> Flow:
-        """Evaluate the on-condition for every probe set and compact the
-        matched pairs (plus outer misses) into one fixed-capacity Flow."""
+    def step_partitioned(self, state, batch: EventBatch, now, side: str, ctx):
+        """The step inside a partition (siddhi_tpu/core/partition.py
+        `_pstep_impl`'s vmap of `step` over P partitions, keyed): state
+        leaves carry a leading [P] axis, `ctx` (a `partition_ctx`) gives
+        each row's slot. The other side's view is read before the arriving
+        side's own insert, as in `step`; the arriving window steps every
+        slot at once (K29/K31/K32/K40/K41); a slot's probe set is its
+        CURRENT rows in batch order, then its window's EXPIRED rows in the
+        slot's output order, each against its own slot's view. Returns
+        (state', joined Flow with the rows' partition context, aux)."""
+        arr = self.left if side == "l" else self.right
+        other = self.right if side == "l" else self.left
+        other_key = "r" if side == "l" else "l"
+        emits = self.emit_left if side == "l" else self.emit_right
+        batch = arr.filter_batch(batch, now)
+        aux: dict = {}
+        vcols, vts, vmask = self._keyed_view(other, state[other_key], ctx.capacity)
+        cur_rows = batch.valid & (batch.kind == KIND_CURRENT)
+        wstate, wflow = arr.window.apply(state[side], Flow(batch=batch, ref=arr.ref, now=now,
+                                                           partition=ctx))
+        probes = []
+        if emits:
+            probes.append((batch, cur_rows, KIND_CURRENT, ctx.slot))
+            if self.output_expired:
+                exp = wflow.batch
+                probes.append((exp, exp.valid & (exp.kind == KIND_EXPIRED), KIND_EXPIRED,
+                               wflow.partition.slot))
+        joined = self._assemble_partitioned(probes, arr, other, vcols, vts, vmask, now, side,
+                                            aux, ctx)
+        new_state = dict(state)
+        new_state[side] = wstate
+        return new_state, joined, aux
+
+    def _keyed_view(self, js, state, p: int):
+        """Every partition's view of a side: [P, W] lanes by slot."""
+        if isinstance(js.window, NoWindow):
+            dev = self.device
+            cols = {n: torch.zeros((p, 1), dtype=PHYSICAL_DTYPE[t], device=dev)
+                    for n, t in js.schema.attrs}
+            return (cols, torch.zeros((p, 1), dtype=torch.int64, device=dev),
+                    torch.zeros((p, 1), dtype=torch.bool, device=dev))
+        return js.window.view(state)
+
+    def _outer(self, side: str) -> bool:
+        return (self.join_type is JoinType.FULL_OUTER
+                or (side == "l" and self.join_type is JoinType.LEFT_OUTER)
+                or (side == "r" and self.join_type is JoinType.RIGHT_OUTER))
+
+    def _probe_lanes(self, probes, arr, p: Optional[int] = None):
+        """The probe sets' lanes end to end: (ts, mask, kind, cols, slot).
+        A probe is (batch, row mask, kind) or, keyed (`p` given), (batch,
+        row mask, kind, each row's slot); slot is None unkeyed. A side that
+        does not trigger has an empty probe set: one masked row (slot P)."""
         dev = self.device
-        outer = (
-            self.join_type is JoinType.FULL_OUTER
-            or (side == "l" and self.join_type is JoinType.LEFT_OUTER)
-            or (side == "r" and self.join_type is JoinType.RIGHT_OUTER)
-        )
         if probes:
-            row_ts = torch.cat([b.ts for b, _, _ in probes])
-            row_mask = torch.cat([m for _, m, _ in probes])
-            row_kind = torch.cat([torch.full(m.shape, k, dtype=torch.int8, device=dev)
-                                  for _, m, k in probes])
-            row_cols = {n: torch.cat([b.cols[n] for b, _, _ in probes]) for n in probes[0][0].cols}
-        else:  # a side that does not trigger: an empty probe set
+            row_ts = torch.cat([pr[0].ts for pr in probes])
+            row_mask = torch.cat([pr[1] for pr in probes])
+            row_kind = torch.cat([torch.full(pr[1].shape, pr[2], dtype=torch.int8, device=dev)
+                                  for pr in probes])
+            row_cols = {n: torch.cat([pr[0].cols[n] for pr in probes]) for n in probes[0][0].cols}
+            row_slot = None if p is None else torch.cat([pr[3].to(torch.int32) for pr in probes])
+        else:
             row_ts = torch.zeros(1, dtype=torch.int64, device=dev)
             row_mask = torch.zeros(1, dtype=torch.bool, device=dev)
             row_kind = torch.zeros(1, dtype=torch.int8, device=dev)
             row_cols = {n: torch.zeros(1, dtype=PHYSICAL_DTYPE[t], device=dev)
                         for n, t in arr.schema.attrs}
+            row_slot = None if p is None else torch.full((1,), p, dtype=torch.int32, device=dev)
+        return row_ts, row_mask, row_kind, row_cols, row_slot
 
-        env_cols = {(arr.ref, None, n): c[:, None] for n, c in row_cols.items()}
+    def _assemble_partitioned(self, probes, arr, other, vcols, vts, vmask, now, side, aux,
+                              ctx) -> Flow:
+        """`_assemble` keyed by slot: each probe row's on-condition over its
+        own slot's view lanes ([R, W] gathered by slot), then the keyed
+        compaction (K39), the rows by (position, slot)."""
+        from siddhi_tpu_torch.core.groupby import partition_ctx
+        from siddhi_tpu_torch.ops.partition import partition_join_assemble
+
+        p = ctx.capacity
+        row_ts, row_mask, row_kind, row_cols, row_slot = self._probe_lanes(probes, arr, p)
+        at = row_slot.to(torch.int64).clamp(0, p - 1)
+        view = {(other.ref, None, n): c for n, c in vcols.items()}
+        view[(other.ref, None, TS_ATTR)] = vts
+        env_cols = _SlotViewCols(view, at)
+        env_cols.update({(arr.ref, None, n): c[:, None] for n, c in row_cols.items()})
         env_cols[(arr.ref, None, TS_ATTR)] = row_ts[:, None]
-        env_cols.update({(other.ref, None, n): c[None, :] for n, c in vcols.items()})
-        env_cols[(other.ref, None, TS_ATTR)] = vts[None, :]
-        pair = row_mask[:, None] & vmask[None, :]
+        pair = row_mask[:, None] & vmask[at]
         if self.on is not None:
             pair = pair & self.on(Env(env_cols, now=now))
-        res = join_assemble(pair, row_mask, outer, self.out_capacity, row_ts, row_kind, row_cols,
-                            vts, vcols, other.schema.attr_types)
+        res = partition_join_assemble(pair, row_mask, row_slot, self._outer(side),
+                                      self.out_capacity, p, row_ts, row_kind, row_cols, vts,
+                                      vcols, other.schema.attr_types)
         aux["join_overflow"] = res.overflow
+        flow = self._joined_flow(res, side, now, aux)
+        flow.partition = partition_ctx(res.slot, res.first, p, ctx.overflow)
+        return flow
 
+    def _joined_flow(self, res, side: str, now, aux) -> Flow:
         # the primary batch always carries the LEFT side's columns, so the
         # selector's layout is stable; only the per-ref timestamps depend on
         # the arriving side
@@ -426,6 +515,23 @@ class CompiledJoin:
         extra[(self.right.ref, None, TS_ATTR)] = right_ts
         extra[(self.left.ref, None, TS_ATTR)] = left_ts
         return Flow(batch=batch, ref=self.left.ref, now=now, extra_cols=extra, aux=aux)
+
+    def _assemble(self, probes, arr, other, vcols, vts, vmask, now, side, aux) -> Flow:
+        """Evaluate the on-condition for every probe set and compact the
+        matched pairs (plus outer misses) into one fixed-capacity Flow."""
+        outer = self._outer(side)
+        row_ts, row_mask, row_kind, row_cols, _ = self._probe_lanes(probes, arr)
+        env_cols = {(arr.ref, None, n): c[:, None] for n, c in row_cols.items()}
+        env_cols[(arr.ref, None, TS_ATTR)] = row_ts[:, None]
+        env_cols.update({(other.ref, None, n): c[None, :] for n, c in vcols.items()})
+        env_cols[(other.ref, None, TS_ATTR)] = vts[None, :]
+        pair = row_mask[:, None] & vmask[None, :]
+        if self.on is not None:
+            pair = pair & self.on(Env(env_cols, now=now))
+        res = join_assemble(pair, row_mask, outer, self.out_capacity, row_ts, row_kind, row_cols,
+                            vts, vcols, other.schema.attr_types)
+        aux["join_overflow"] = res.overflow
+        return self._joined_flow(res, side, now, aux)
 
 
 class JoinQueryRuntime(BaseQueryRuntime):

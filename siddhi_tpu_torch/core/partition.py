@@ -34,10 +34,17 @@ count of the unpartitioned query, each stream of the pattern keyed, the
 token table [P]-tiled, a slot first allocated to a key refreshed to a
 fresh table stamped with the step's clock, TIMER steps over every slot
 holding a key (core/pattern_runtime.py `_keyed_step_impl`, K34-K37).
-Joins, the sort, frequent, lossyFrequent and cron windows and `in <table>`
-conditions inside a partition raise "not ported yet"; an `#inner` output
-of a pattern is refused as in JAX. Partitioned streams run per batch (no
-fused endpoint).
+Joins run per key (`PartitionedJoinQueryRuntime`): two plain streams with
+a key, or one stream joined with itself, each side's window [P]-tiled (no
+window, length, externalTime, lengthBatch, sort or frequent; time-driven
+sides refused as in JAX), a row probing only its own slot's view of the
+other side (K38), the matches compacted per slot and placed by (position,
+slot) (K39), the selector run per partition. The sort and frequent windows
+run keyed by slot (K40, K41) in single-stream queries and on join sides.
+The lossyFrequent and cron windows and `in <table>` conditions inside a
+partition raise "not ported yet"; an `#inner` output of a join or a
+pattern is refused as in JAX. Partitioned streams run per batch (no fused
+endpoint).
 """
 
 from __future__ import annotations
@@ -52,11 +59,13 @@ from siddhi_tpu_torch.core.event import EventBatch, KIND_CURRENT, KIND_TIMER, St
 from siddhi_tpu_torch.core.executor import Env, Scope, TS_ATTR, compile_expression
 from siddhi_tpu_torch.core.flow import Flow
 from siddhi_tpu_torch.core.groupby import GroupCtx, _as_key_col, partition_ctx
+from siddhi_tpu_torch.core.join import DEFAULT_JOIN_CAPACITY, JoinQueryRuntime, NoWindow
 from siddhi_tpu_torch.core.pattern import keyed_tok
 from siddhi_tpu_torch.core.pattern_runtime import PatternPartition, PatternQueryRuntime
 from siddhi_tpu_torch.core.query_runtime import QueryRuntime
 from siddhi_tpu_torch.core.types import AttrType
 from siddhi_tpu_torch.core.windows import BatchWindow, SlidingWindow
+from siddhi_tpu_torch.core.windows_special import FrequentWindow, SortWindow
 from siddhi_tpu_torch.ops.group import assign_slots
 from siddhi_tpu_torch.query_api.execution import (
     DeleteStream,
@@ -73,6 +82,8 @@ from siddhi_tpu_torch.query_api.execution import (
 )
 
 DEFAULT_PARTITIONS = 32
+# the windows with a keyed step (K29, K31, K32, K40, K41)
+_KEYED_WINDOWS = (SlidingWindow, BatchWindow, SortWindow, FrequentWindow)
 
 
 def _not_ported(what: str) -> SiddhiAppCreationError:
@@ -135,7 +146,7 @@ class PartitionedQueryRuntime(QueryRuntime):
         super().__init__(query, query_id, in_schema, interner, device,
                          group_capacity=group_capacity, tables=tables)
         for kind, stage in self.chain.stages:
-            if kind == "window" and not isinstance(stage, (SlidingWindow, BatchWindow)):
+            if kind == "window" and not isinstance(stage, _KEYED_WINDOWS):
                 raise _not_ported(f"window {type(stage).__name__}")
         self.p = int(p_capacity)
         self.key_of = key_of
@@ -190,6 +201,69 @@ class PartitionedQueryRuntime(QueryRuntime):
                 self.state = self.init_state()
             self.state, out, ctx = self._pstep(self.state, batch, self._now(now), ctx, {})
         return out, ctx
+
+
+class PartitionedJoinQueryRuntime(JoinQueryRuntime):
+    """A join inside a partition: both sides' rows go to their key's slot
+    on the block's key table and probe only that slot's window of the other
+    side (reference: per-key cloned JoinStreamRuntimes; siddhi_tpu/core/
+    partition.py PartitionedJoinQueryRuntime, a vmap over P lanes). Each
+    side's window state and the selector's state are [P]-tiled; the keyed
+    step (`CompiledJoin.step_partitioned`) emits the rows by (position,
+    slot) with their slot lane, so the selector runs per partition.
+    `key_of_by_side`: side ('l' / 'r') -> key function."""
+
+    def __init__(self, query: Query, query_id: str, left_schema: StreamSchema,
+                 right_schema: StreamSchema, interner, device, p_capacity: int,
+                 key_of_by_side: dict, tables: dict, group_capacity: Optional[int] = None,
+                 join_capacity: int = DEFAULT_JOIN_CAPACITY):
+        out = query.output_stream
+        if isinstance(out, (UpdateStream, DeleteStream, UpdateOrInsertStream)):
+            # compiled with no table in scope, as the JAX package does
+            raise DefinitionNotExistError(f"'{out.target}' is not a defined table")
+        super().__init__(query, query_id, left_schema, right_schema, interner, device,
+                         group_capacity=group_capacity, join_capacity=join_capacity, tables={})
+        if self.scheduled_sides:
+            raise SiddhiAppCreationError(
+                "time windows on join sides inside partitions are not supported yet")
+        for js in (self.join.left, self.join.right):
+            if not isinstance(js.window, _KEYED_WINDOWS + (NoWindow,)):
+                raise _not_ported(f"window {type(js.window).__name__} on a join side")
+        self.p = int(p_capacity)
+        self.key_of_by_side = key_of_by_side
+        # `insert into` a table: applied to the flattened rows
+        self._attach_tables(tables, interner)
+
+    def init_state(self):
+        return _tile(super().init_state(), self.p)
+
+    def _pstep(self, ptable: dict, state, batch: EventBatch, now: torch.Tensor, side: str):
+        """One side's batch: each row's key to its slot on the shared table
+        (a row past capacity joins nothing and enters no window), then the
+        keyed join step and the selector per partition."""
+        js = self.join.left if side == "l" else self.join.right
+        ptable, active, slot, grp, povf = _assign(ptable, self.key_of_by_side[side],
+                                                  js.stream_id, batch, now)
+        is_timer = batch.valid & (batch.kind == KIND_TIMER)
+        b2 = dataclasses.replace(batch, valid=(active & (slot < self.p)) | is_timer)
+        ctx = partition_ctx(slot, grp.first, self.p, povf)
+        jstate, flow, aux = self.join.step_partitioned(state["join"], b2, now, side, ctx)
+        _reduce_paux(aux, povf)
+        sel_state, out = self.selector.apply(state["sel"], flow)
+        self._apply_table_op(out, now, aux)
+        self._note_aux(aux)
+        self._join_overflow.note(aux["join_overflow"])
+        self._join_overflow.poll()
+        return ptable, {"join": jstate, "sel": sel_state}, out
+
+    def receive_partitioned(self, ptable: dict, batch: EventBatch, now: int, side: str):
+        """A batch of one side's stream. Returns (ptable', out)."""
+        with self._receive_lock:
+            if self.state is None:
+                self.state = self.init_state()
+            now_t = torch.full((), now, dtype=torch.int64, device=self.device)
+            ptable, self.state, out = self._pstep(ptable, self.state, batch, now_t, side)
+        return ptable, out
 
 
 class PartitionedPatternQueryRuntime(PatternQueryRuntime):
@@ -368,7 +442,8 @@ class PartitionRuntime:
         app = self.app
         stream = query.input_stream
         if isinstance(stream, JoinInputStream):
-            raise _not_ported("a join query")
+            self._add_join_query(qid, query)
+            return
         if isinstance(stream, StateInputStream):
             self._add_pattern_query(qid, query)
             return
@@ -460,6 +535,57 @@ class PartitionRuntime:
                     receive(app._timer_batch(_schema, t_ms), t_ms)
 
                 qr.timer_targets["in"] = fire
+
+    def _add_join_query(self, qid: str, query: Query) -> None:
+        """A join inside the block (JAX PartitionRuntime._add_join_query,
+        partition.py:708-765): both sides plain streams with a key; a
+        self-join runs its left side then its right on each batch, each
+        assigning slots on the shared table in turn."""
+        app = self.app
+        if getattr(query.output_stream, "is_inner", False):
+            raise SiddhiAppCreationError(
+                "#inner outputs from joins/patterns inside partitions are not supported yet")
+        join = query.input_stream
+        schemas, key_by_side = [], {}
+        for side, s in (("l", join.left), ("r", join.right)):
+            if s.is_inner:
+                raise SiddhiAppCreationError(
+                    "#inner streams on join sides inside partitions are not supported yet")
+            sch = app.stream_schemas.get(s.stream_id)
+            if sch is None:
+                raise SiddhiAppCreationError("only plain streams can join inside partitions")
+            kf = self.key_fns.get(s.stream_id)
+            if kf is None:
+                raise SiddhiAppCreationError(f"partition has no key for stream '{s.stream_id}'")
+            key_by_side[side] = kf
+            schemas.append(sch)
+        if qid in app.queries:
+            raise SiddhiAppCreationError(f"duplicate query name '{qid}'")
+        from siddhi_tpu_torch.core.table import collect_used_tables
+
+        if collect_used_tables(dataclasses.replace(query, output_stream=None), app.tables):
+            raise _not_ported("an `in <table>` condition")
+        qr = PartitionedJoinQueryRuntime(
+            query, qid, schemas[0], schemas[1], app.interner, app.device, p_capacity=self.p,
+            key_of_by_side=key_by_side, tables=app.tables, group_capacity=app.group_capacity,
+            join_capacity=app.join_capacity)
+        self.queries.append(qr)
+        app.queries[qid] = qr
+        app._wire_insert(qr)
+
+        def receive_side(batch: EventBatch, now: int, side: str, _qr=qr) -> None:
+            with app._process_lock:
+                self.ptable, out_b = _qr.receive_partitioned(self.ptable, batch, now, side)
+                _qr.route_output(out_b, now, app._decode)
+
+        # no fused endpoint: each stream runs per batch
+        if join.left.stream_id == join.right.stream_id:
+            app._junction(join.left.stream_id).subscribe(
+                lambda b, now: (receive_side(b, now, "l"), receive_side(b, now, "r")))
+        else:
+            for side, s in (("l", join.left), ("r", join.right)):
+                app._junction(s.stream_id).subscribe(
+                    lambda b, now, _s=side: receive_side(b, now, _s))
 
     def _add_pattern_query(self, qid: str, query: Query) -> None:
         """A pattern or sequence inside the block (JAX

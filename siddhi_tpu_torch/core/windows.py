@@ -613,6 +613,10 @@ class SlidingWindow(WindowStage):
                                     members))
 
     def view(self, state):
+        if state["seq"].dim() == 2:  # inside a partition: every slot's ring (K38)
+            from siddhi_tpu_torch.ops.partition import partition_ring_view
+
+            return partition_ring_view(state)
         return ring_view(state)
 
 
@@ -1193,8 +1197,10 @@ class BatchWindow(WindowStage):
 
     def view(self, state):
         # the open bucket is the probe-able content (reference:
-        # LengthBatchWindowProcessor.find over currentEventQueue)
-        mask = torch.arange(self.w, dtype=torch.int32, device=state["cur_ts"].device) < state["cur_n"]
+        # LengthBatchWindowProcessor.find over currentEventQueue); inside a
+        # partition each slot's bucket, [P, w]
+        mask = torch.arange(self.w, dtype=torch.int32,
+                            device=state["cur_ts"].device) < state["cur_n"][..., None]
         return state["cur_cols"], state["cur_ts"], mask
 
 

@@ -12,6 +12,10 @@ batch's rows in order into a fixed-capacity emission buffer: one
 hand-written CUDA kernel a step on the card (K25-K28, ops/special_window.py,
 csrc/special_window.cu). None of these windows sets a lazy membership
 (birth/death positions): aggregators downstream take their running forms.
+Inside a partition the sort and frequent windows' lanes gain a leading [P]
+axis and one step runs every partition's window at once by the rows' slots
+(ops/partition.py K40, K41), the rows out in (position, slot) order; the
+lossyFrequent and cron windows are not ported there yet.
 """
 
 from __future__ import annotations
@@ -21,10 +25,14 @@ import torch
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 from siddhi_tpu_torch.core.event import StreamSchema
 from siddhi_tpu_torch.core.flow import Flow
-from siddhi_tpu_torch.core.groupby import _as_key_col
+from siddhi_tpu_torch.core.groupby import _as_key_col, partition_ctx
 from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType
 from siddhi_tpu_torch.core.windows import WindowStage
 from siddhi_tpu_torch.ops.group import mix_keys
+from siddhi_tpu_torch.ops.partition import (
+    partition_frequent_window_step,
+    partition_sort_window_step,
+)
 from siddhi_tpu_torch.ops.special_window import (
     cron_window_step,
     frequent_window_step,
@@ -44,6 +52,20 @@ def _out_flow(out, flow: Flow, ovf) -> Flow:
     aux = dict(flow.aux)
     aux["window_overflow"] = ovf
     return Flow(batch=out, ref=flow.ref, now=flow.now, aux=aux)
+
+
+def _keyed_flow(res, flow: Flow):
+    """(state, Flow) of a keyed step's (state, out, slot, first, overflow):
+    the rows' partition context is their slot lane."""
+    st, out, out_slot, out_first, ovf = res
+    ctx = flow.partition
+    fl = _out_flow(out, flow, ovf)
+    fl.partition = partition_ctx(out_slot, out_first, ctx.capacity, ctx.overflow)
+    return st, fl
+
+
+def _take(lane: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    return torch.take_along_dim(lane, order, dim=-1)
 
 
 def _key_col(cols: dict, attrs, key_attrs: list) -> torch.Tensor:
@@ -87,14 +109,20 @@ class SortWindow(WindowStage):
         }
 
     def apply(self, state, flow: Flow):
+        if flow.partition is not None:  # every partition's window at once (K40)
+            ctx = flow.partition
+            return _keyed_flow(partition_sort_window_step(
+                state, flow.batch, ctx.slot, flow.now, self.keys, self.n, ctx.capacity), flow)
         st, out, ovf = sort_window_step(state, flow.batch, flow.now, self.keys, self.n)
         return st, _out_flow(out, flow, ovf)
 
     def view(self, state):
-        # insertion order, empty slots last (a stable order by seq)
-        order = torch.argsort(torch.where(state["occ"], state["seq"], _I64_MAX), stable=True)
-        return ({k: c[order] for k, c in state["cols"].items()}, state["ts"][order],
-                state["occ"][order])
+        # insertion order, empty slots last (a stable order by seq); inside
+        # a partition each slot's row of the [P, N] lanes
+        order = torch.argsort(torch.where(state["occ"], state["seq"], _I64_MAX), dim=-1,
+                              stable=True)
+        return ({k: _take(c, order) for k, c in state["cols"].items()},
+                _take(state["ts"], order), _take(state["occ"], order))
 
 
 class CronWindow(WindowStage):
@@ -161,6 +189,10 @@ class FrequentWindow(WindowStage):
     def apply(self, state, flow: Flow):
         b = flow.batch
         key = _key_col(b.cols, self.schema.attrs, self.key_attrs).expand(b.ts.shape).contiguous()
+        if flow.partition is not None:  # every partition's window at once (K41)
+            ctx = flow.partition
+            return _keyed_flow(partition_frequent_window_step(
+                state, b, key, ctx.slot, flow.now, self.n, ctx.capacity), flow)
         st, out, ovf = frequent_window_step(state, b, key, flow.now, self.n)
         return st, _out_flow(out, flow, ovf)
 

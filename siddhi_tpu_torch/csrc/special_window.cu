@@ -24,6 +24,14 @@
 // memory round trips per row, plus the victim fold of a full sort window
 // (w + 1 candidates by one thread, in slot order: the fold is not a max
 // when keys hold NaN, so it is not a tree reduction).
+// K40/K41 run the sort and frequent windows of every partition at once
+// (siddhi_tpu/core/partition.py:105 `_vmapped` over `SortWindow.apply` and
+// `FrequentWindow.apply`): a warp a partition slot walks that slot's rows
+// with the same per-arrival code as K25/K26 (`sort_arrive`,
+// `frequent_arrive`), its slot lanes in a global scratch and its emissions
+// in its own stretch; the wrapper then places the stretches by (position,
+// slot). Slots run in parallel, so a step takes the walk of its busiest
+// slot, not of the batch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -35,6 +43,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 256;
 constexpr int kMaxSortKeys = 16;
+constexpr int kSlotWarps = 4;  // K40/K41: slots (warps) a block
 constexpr int8_t kCurrent = 0, kExpired = 1, kTimer = 2, kReset = 3;
 
 struct SortKeys {
@@ -147,6 +156,163 @@ __device__ __forceinline__ bool key_gt(const SortKeys& K, int k, const Key* a, l
   return gt || (eq && as > bs);
 }
 
+// The slot lanes of one sort window as its walk sees them: keys [k][W],
+// seq, src (where each slot's data comes from), occupied and NaN flags, and
+// the walk's counters (occupied and NaN slots, the first free slot: kept by
+// lane 0 alone, slots only ever fill) and the next seq.
+struct SortSlots {
+  Key* skey;
+  long long* sseq;
+  int* ssrc;
+  unsigned char* socc;
+  unsigned char* snan;
+  int W;
+  int occ_count;
+  int nan_slots;
+  int first_free;
+  long long nx;
+};
+
+// Point s at its lanes in `base` (16-byte aligned) and load them from a
+// window's state: slot j's source is src0 + j. The warp's lanes load.
+__device__ __forceinline__ void sort_slots_load(SortSlots& s, char* base, const SortKeys& K,
+                                                int k, int W, long long off, const bool* occ,
+                                                const int64_t* seq, long long nx, int src0,
+                                                int lane, int stride) {
+  s.skey = (Key*)base;
+  s.sseq = (long long*)(s.skey + (size_t)k * W);
+  s.ssrc = (int*)(s.sseq + W);
+  s.socc = (unsigned char*)(s.ssrc + W);
+  s.snan = s.socc + W;
+  s.W = W;
+  s.first_free = 0;
+  s.nx = nx;
+  for (int j = lane; j < W; j += stride) {
+    unsigned char nan = 0;
+    for (int q = 0; q < k; ++q) {
+      const Key v = load_key(K.state[q], off + j, K.type[q], K.desc[q]);
+      s.skey[(size_t)q * W + j] = v;
+      nan |= K.type[q] == 0 && isnan(v.f);
+    }
+    s.sseq[j] = seq[off + j];
+    s.ssrc[j] = src0 + j;
+    s.socc[j] = occ[off + j] ? 1 : 0;
+    s.snan[j] = nan;
+  }
+}
+
+// The occupied and NaN slot counts, summed by one warp (after the load).
+__device__ __forceinline__ void sort_slots_count(SortSlots& s, int lane) {
+  int occ_count = 0, nan_slots = 0;
+  for (int j = lane; j < s.W; j += 32) {
+    occ_count += s.socc[j];
+    nan_slots += s.snan[j];
+  }
+  for (int d = 16; d > 0; d >>= 1) {
+    occ_count += __shfl_xor_sync(kFull, occ_count, d);
+    nan_slots += __shfl_xor_sync(kFull, nan_slots, d);
+  }
+  s.occ_count = occ_count;
+  s.nan_slots = nan_slots;
+}
+
+// One CURRENT arrival through a sort window (windows_special.py's scan
+// body): its CURRENT row (source asrc), then, when the window is full, the
+// greatest of the W slots and the arrival as EXPIRED at t_now and the
+// arrival in the victim's slot; else the arrival in the first free slot.
+// The arrival's keys are akey[q * astride], anan when one is NaN. Every
+// lane of one warp calls it.
+template <int NK>
+__device__ __forceinline__ void sort_arrive(const SortKeys& K, int k, SortSlots& s, Out& o,
+                                            const Key* akey, int astride, unsigned char anan,
+                                            long long ats, int asrc, long long t_now) {
+  constexpr int kKeys = NK > 0 ? NK : kMaxSortKeys;
+  const int lane = threadIdx.x & 31;
+  const int W = s.W;
+  if (lane == 0) o.append(asrc, ats, kCurrent);
+  if (s.occ_count == W) {
+    // candidate i < W is slot i, candidate W the arrival
+    auto load = [&](int i, Key* a) -> long long {
+#pragma unroll
+      for (int q = 0; q < kKeys; ++q) {
+        if (q < k) a[q] = i < W ? s.skey[(size_t)q * W + i] : akey[(size_t)q * astride];
+      }
+      return i < W ? s.sseq[i] : s.nx;
+    };
+    int best = 0;
+    if (s.nan_slots == 0 && !anan) {
+      // no NaN key: the comparator is a strict total order (seq breaks
+      // every tie), so the fold is the argmax, found by the warp
+      int bi = -1;
+      Key bk[kKeys], ak[kKeys];
+      long long bs = 0;
+      for (int i = lane; i <= W; i += 32) {
+        const long long as = load(i, ak);
+        if (bi < 0 || key_gt<kKeys>(K, k, ak, as, bk, bs)) {
+          bi = i;
+          bs = as;
+#pragma unroll
+          for (int q = 0; q < kKeys; ++q) bk[q] = ak[q];
+        }
+      }
+      for (int d = 16; d > 0; d >>= 1) {
+        const int oi = __shfl_xor_sync(kFull, bi, d);
+        const long long os = __shfl_xor_sync(kFull, bs, d);
+#pragma unroll
+        for (int q = 0; q < kKeys; ++q) {
+          if (q < k) ak[q].i = __shfl_xor_sync(kFull, bk[q].i, d);
+        }
+        if (oi >= 0 && (bi < 0 || key_gt<kKeys>(K, k, ak, os, bk, bs))) {
+          bi = oi;
+          bs = os;
+#pragma unroll
+          for (int q = 0; q < kKeys; ++q) bk[q] = ak[q];
+        }
+      }
+      best = bi;
+    } else if (lane == 0) {
+      // the left-to-right fold of windows_special.py: best moves to i
+      // when i is greater (a NaN key in slot 0 is never replaced)
+      Key bk[kKeys], ak[kKeys];
+      long long bs = load(0, bk);
+      for (int i = 1; i <= W; ++i) {
+        const long long as = load(i, ak);
+        if (key_gt<kKeys>(K, k, ak, as, bk, bs)) {
+          best = i;
+          bs = as;
+#pragma unroll
+          for (int q = 0; q < kKeys; ++q) bk[q] = ak[q];
+        }
+      }
+    }
+    if (lane == 0) {
+      o.append(best == W ? asrc : s.ssrc[best], t_now, kExpired);
+      if (best < W) {  // the arrival takes the victim's slot
+        for (int q = 0; q < k; ++q) s.skey[(size_t)q * W + best] = akey[(size_t)q * astride];
+        s.sseq[best] = s.nx;
+        s.ssrc[best] = asrc;
+        s.nan_slots += anan - s.snan[best];
+        s.snan[best] = anan;
+      }
+    }
+  } else if (lane == 0) {
+    while (s.socc[s.first_free]) ++s.first_free;  // slots only ever fill
+    for (int q = 0; q < k; ++q) s.skey[(size_t)q * W + s.first_free] = akey[(size_t)q * astride];
+    s.sseq[s.first_free] = s.nx;
+    s.ssrc[s.first_free] = asrc;
+    s.socc[s.first_free] = 1;
+    s.snan[s.first_free] = anan;
+    s.nan_slots += anan;
+    ++s.occ_count;
+  }
+  o.n = __shfl_sync(kFull, o.n, 0);
+  o.ovf = __shfl_sync(kFull, (int)o.ovf, 0) != 0;
+  s.occ_count = __shfl_sync(kFull, s.occ_count, 0);
+  s.nan_slots = __shfl_sync(kFull, s.nan_slots, 0);
+  __syncwarp();
+  ++s.nx;
+}
+
 // NK > 0: the comparator has NK keys (the candidates' keys live in
 // registers); NK == 0: K.k keys, up to kMaxSortKeys. Warp 0 walks the rows.
 template <int NK>
@@ -157,7 +323,6 @@ __global__ void sort_kernel(int B, int W, SortKeys K, const bool* valid, const i
                             int8_t* out_kind, bool* out_valid, int32_t* new_src, bool* new_occ,
                             int64_t* new_seq, int64_t* new_next, bool* ovf) {
   extern __shared__ __align__(16) char smem[];
-  constexpr int kKeys = NK > 0 ? NK : kMaxSortKeys;
   const int k = NK > 0 ? NK : K.k;
   // tile lanes: keys [k][kTile], ts, flags, "a float key is NaN"
   Key* tkey = (Key*)smem;
@@ -166,42 +331,15 @@ __global__ void sort_kernel(int B, int W, SortKeys K, const bool* valid, const i
   unsigned char* tnan = tflag + kTile;
   char* sbase = slots_in_smem ? (char*)(tnan + kTile) : gslots;
   sbase = (char*)(((uintptr_t)sbase + 15) & ~(uintptr_t)15);
-  // slot lanes: keys [k][W], seq, src, occ, NaN
-  Key* skey = (Key*)sbase;
-  long long* sseq = (long long*)(skey + (size_t)k * W);
-  int* ssrc = (int*)(sseq + W);
-  unsigned char* socc = (unsigned char*)(ssrc + W);
-  unsigned char* snan = socc + W;
 
   Out o{out_src, out_ts, out_kind, out_valid, 2 * B, 0, false};
   clear_out(o);
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    unsigned char nan = 0;
-    for (int q = 0; q < k; ++q) {
-      const Key v = load_key(K.state[q], j, K.type[q], K.desc[q]);
-      skey[(size_t)q * W + j] = v;
-      nan |= K.type[q] == 0 && isnan(v.f);
-    }
-    sseq[j] = seq[j];
-    ssrc[j] = j;
-    socc[j] = occ[j] ? 1 : 0;
-    snan[j] = nan;
-  }
+  SortSlots s;
+  sort_slots_load(s, sbase, K, k, W, 0, occ, seq, *next, 0, threadIdx.x, blockDim.x);
   __syncthreads();
   const int lane = threadIdx.x & 31;
-  int occ_count = 0, nan_slots = 0, first_free = 0;
-  long long nx = *next;
   const long long t_now = *now;
-  if (threadIdx.x < 32) {
-    for (int j = lane; j < W; j += 32) {
-      occ_count += socc[j];
-      nan_slots += snan[j];
-    }
-    for (int d = 16; d > 0; d >>= 1) {
-      occ_count += __shfl_xor_sync(kFull, occ_count, d);
-      nan_slots += __shfl_xor_sync(kFull, nan_slots, d);
-    }
-  }
+  if (threadIdx.x < 32) sort_slots_count(s, lane);
   for (int base = 0; base < B; base += kTile) {
     const int rows = B - base < kTile ? B - base : kTile;
     __syncthreads();
@@ -221,100 +359,72 @@ __global__ void sort_kernel(int B, int W, SortKeys K, const bool* valid, const i
     if (threadIdx.x >= 32) continue;
     for (int t = 0; t < rows; ++t) {
       if (tflag[t] != 1) continue;  // only CURRENT rows enter the window
-      const int r = base + t;
-      if (lane == 0) o.append(W + r, tts[t], kCurrent);
-      if (occ_count == W) {
-        // candidate i < W is slot i, candidate W the arrival
-        auto load = [&](int i, Key* a) -> long long {
-#pragma unroll
-          for (int q = 0; q < kKeys; ++q) {
-            if (q < k) a[q] = i < W ? skey[(size_t)q * W + i] : tkey[(size_t)q * kTile + t];
-          }
-          return i < W ? sseq[i] : nx;
-        };
-        int best = 0;
-        if (nan_slots == 0 && !tnan[t]) {
-          // no NaN key: the comparator is a strict total order (seq breaks
-          // every tie), so the fold is the argmax, found by the warp
-          int bi = -1;
-          Key bk[kKeys], ak[kKeys];
-          long long bs = 0;
-          for (int i = lane; i <= W; i += 32) {
-            const long long as = load(i, ak);
-            if (bi < 0 || key_gt<kKeys>(K, k, ak, as, bk, bs)) {
-              bi = i;
-              bs = as;
-#pragma unroll
-              for (int q = 0; q < kKeys; ++q) bk[q] = ak[q];
-            }
-          }
-          for (int d = 16; d > 0; d >>= 1) {
-            const int oi = __shfl_xor_sync(kFull, bi, d);
-            const long long os = __shfl_xor_sync(kFull, bs, d);
-#pragma unroll
-            for (int q = 0; q < kKeys; ++q) {
-              if (q < k) ak[q].i = __shfl_xor_sync(kFull, bk[q].i, d);
-            }
-            if (oi >= 0 && (bi < 0 || key_gt<kKeys>(K, k, ak, os, bk, bs))) {
-              bi = oi;
-              bs = os;
-#pragma unroll
-              for (int q = 0; q < kKeys; ++q) bk[q] = ak[q];
-            }
-          }
-          best = bi;
-        } else if (lane == 0) {
-          // the left-to-right fold of windows_special.py: best moves to i
-          // when i is greater (a NaN key in slot 0 is never replaced)
-          Key bk[kKeys], ak[kKeys];
-          long long bs = load(0, bk);
-          for (int i = 1; i <= W; ++i) {
-            const long long as = load(i, ak);
-            if (key_gt<kKeys>(K, k, ak, as, bk, bs)) {
-              best = i;
-              bs = as;
-#pragma unroll
-              for (int q = 0; q < kKeys; ++q) bk[q] = ak[q];
-            }
-          }
-        }
-        if (lane == 0) {
-          o.append(best == W ? W + r : ssrc[best], t_now, kExpired);
-          if (best < W) {  // the arrival takes the victim's slot
-            for (int q = 0; q < k; ++q) skey[(size_t)q * W + best] = tkey[(size_t)q * kTile + t];
-            sseq[best] = nx;
-            ssrc[best] = W + r;
-            nan_slots += tnan[t] - snan[best];
-            snan[best] = tnan[t];
-          }
-        }
-      } else if (lane == 0) {
-        while (socc[first_free]) ++first_free;  // slots only ever fill
-        for (int q = 0; q < k; ++q) skey[(size_t)q * W + first_free] = tkey[(size_t)q * kTile + t];
-        sseq[first_free] = nx;
-        ssrc[first_free] = W + r;
-        socc[first_free] = 1;
-        snan[first_free] = tnan[t];
-        nan_slots += tnan[t];
-        ++occ_count;
-      }
-      o.n = __shfl_sync(kFull, o.n, 0);
-      o.ovf = __shfl_sync(kFull, (int)o.ovf, 0) != 0;
-      occ_count = __shfl_sync(kFull, occ_count, 0);
-      nan_slots = __shfl_sync(kFull, nan_slots, 0);
-      __syncwarp();
-      ++nx;
+      sort_arrive<NK>(K, k, s, o, tkey + t, kTile, tnan[t], tts[t], W + base + t, t_now);
     }
   }
   __syncthreads();
   for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    new_src[j] = ssrc[j];
-    new_occ[j] = socc[j] != 0;
-    new_seq[j] = sseq[j];
+    new_src[j] = s.ssrc[j];
+    new_occ[j] = s.socc[j] != 0;
+    new_seq[j] = s.sseq[j];
   }
   if (threadIdx.x == 0) {
-    *new_next = nx;
+    *new_next = s.nx;
     *ovf = o.ovf;
+  }
+}
+
+// K40: the sort window of every partition at once. A warp a slot walks the
+// slot's member rows (rowlist[slot_start[p]..slot_start[p + 1]), in row
+// order) with `sort_arrive`, its slot lanes in its own stretch of the
+// global scratch (slot_bytes each), its emissions into its own stretch of
+// the output (2 * slot_start[p], two rows a member row at most); a source
+// is state element p*W + j or batch row P*W + r. n_slot[p] = the slot's
+// emitted rows; a slot without rows keeps its state.
+template <int NK>
+__global__ void psort_kernel(int W, int P, SortKeys K, int slot_bytes, const int64_t* ts,
+                             const int32_t* rowlist, const int32_t* slot_start, const bool* occ,
+                             const int64_t* seq, const int64_t* next, const int64_t* now,
+                             char* gslots, int32_t* out_src, int64_t* out_ts, int8_t* out_kind,
+                             bool* out_valid, int32_t* n_slot, int32_t* new_src, bool* new_occ,
+                             int64_t* new_seq, int64_t* new_next, bool* ovf) {
+  constexpr int kKeys = NK > 0 ? NK : kMaxSortKeys;
+  const int p = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (p >= P) return;
+  const int k = NK > 0 ? NK : K.k;
+  const int lane = threadIdx.x & 31;
+  const long long off = (long long)p * W;
+  const int lo = slot_start[p], hi = slot_start[p + 1];
+  SortSlots s;
+  sort_slots_load(s, gslots + (size_t)p * slot_bytes, K, k, W, off, occ, seq, next[p],
+                  (int)off, lane, 32);
+  __syncwarp();
+  sort_slots_count(s, lane);
+  Out o{out_src + 2 * lo, out_ts + 2 * lo, out_kind + 2 * lo, out_valid + 2 * lo,
+        2 * (hi - lo), 0, false};
+  const long long t_now = *now;
+  for (int i = lo; i < hi; ++i) {
+    const int r = rowlist[i];
+    Key ak[kKeys];
+    unsigned char anan = 0;
+#pragma unroll
+    for (int q = 0; q < kKeys; ++q) {
+      if (q < k) {
+        ak[q] = load_key(K.batch[q], r, K.type[q], K.desc[q]);
+        anan |= K.type[q] == 0 && isnan(ak[q].f);
+      }
+    }
+    sort_arrive<NK>(K, k, s, o, ak, 1, anan, ts[r], P * W + r, t_now);
+  }
+  for (int j = lane; j < W; j += 32) {
+    new_src[off + j] = s.ssrc[j];
+    new_occ[off + j] = s.socc[j] != 0;
+    new_seq[off + j] = s.sseq[j];
+  }
+  if (lane == 0) {
+    new_next[p] = s.nx;
+    n_slot[p] = o.n;
+    if (o.ovf) *ovf = true;
   }
 }
 
@@ -326,7 +436,7 @@ __device__ __forceinline__ unsigned lanes_below() {
   return (1u << (threadIdx.x & 31)) - 1u;
 }
 
-// First slot in [0, W) where `pred` holds, found by warp 0's ballots (-1 if none).
+// First slot in [0, W) where `pred` holds, found by one warp's ballots (-1 if none).
 template <typename Pred>
 __device__ __forceinline__ int warp_first(int W, Pred pred) {
   const int lane = threadIdx.x & 31;
@@ -339,7 +449,7 @@ __device__ __forceinline__ int warp_first(int W, Pred pred) {
 }
 
 // Append, in slot order, every slot where `pred` holds (each as src[s] with
-// ts `t` and kind `kd`), then run `after(s)` on those slots: warp 0.
+// ts `t` and kind `kd`), then run `after(s)` on those slots: one warp.
 template <typename Pred, typename After>
 __device__ __forceinline__ int warp_emit(Out& o, int W, const int* ssrc, long long t, int8_t kd,
                                          Pred pred, After after) {
@@ -368,6 +478,86 @@ __device__ __forceinline__ int warp_emit(Out& o, int W, const int* ssrc, long lo
   return total;
 }
 
+// The slot lanes of one frequent window as its walk sees them: keys,
+// counts, sources and occupied flags, and the occupied count.
+struct FreqSlots {
+  long long* skey;
+  int* scnt;
+  int* ssrc;
+  unsigned char* socc;
+  int W;
+  int occ_count;
+};
+
+// Point s at its lanes in `base` (16-byte aligned) and load them from a
+// window's state at element off: slot j's source is src0 + j.
+__device__ __forceinline__ void freq_slots_load(FreqSlots& s, char* base, int W, long long off,
+                                                const bool* occ, const int64_t* skey_in,
+                                                const int32_t* cnt, int src0, int lane,
+                                                int stride) {
+  s.skey = (long long*)base;
+  s.scnt = (int*)(s.skey + W);
+  s.ssrc = s.scnt + W;
+  s.socc = (unsigned char*)(s.ssrc + W);
+  s.W = W;
+  for (int j = lane; j < W; j += stride) {
+    s.skey[j] = skey_in[off + j];
+    s.scnt[j] = cnt[off + j];
+    s.ssrc[j] = src0 + j;
+    s.socc[j] = occ[off + j] ? 1 : 0;
+  }
+}
+
+__device__ __forceinline__ void freq_slots_count(FreqSlots& s, int lane) {
+  int occ_count = 0;
+  for (int j = lane; j < s.W; j += 32) occ_count += s.socc[j];
+  for (int d = 16; d > 0; d >>= 1) occ_count += __shfl_xor_sync(kFull, occ_count, d);
+  s.occ_count = occ_count;
+}
+
+// One CURRENT arrival with key kk through a frequent window
+// (windows_special.py's scan body): its slot is the first occupied slot
+// holding kk; a new key with the table full first drops every count by
+// one, the zeros leaving as EXPIRED rows at t_now in slot order; then a
+// new key takes the first free slot, or is dropped if none is free. A kept
+// arrival leaves as a CURRENT row (source asrc). Every lane of one warp
+// calls it.
+__device__ __forceinline__ void frequent_arrive(FreqSlots& s, Out& o, long long kk, long long ats,
+                                                int asrc, long long t_now) {
+  const int lane = threadIdx.x & 31;
+  const int W = s.W;
+  int slot = warp_first(W, [&](int j) { return s.socc[j] && s.skey[j] == kk; });
+  const bool exists = slot >= 0;
+  bool insert = false;
+  if (!exists) {
+    if (s.occ_count == W) {
+      s.occ_count -= warp_emit(o, W, s.ssrc, t_now, kExpired,
+                               [&](int j) {
+                                 if (!s.socc[j]) return false;
+                                 return --s.scnt[j] == 0;
+                               },
+                               [&](int j) { s.socc[j] = 0; });
+    }
+    if (s.occ_count < W) {
+      slot = warp_first(W, [&](int j) { return !s.socc[j]; });
+      insert = true;
+    }
+  }
+  if (exists || insert) {
+    if (lane == 0) {
+      o.append(asrc, ats, kCurrent);
+      s.ssrc[slot] = asrc;
+      s.socc[slot] = 1;
+      s.skey[slot] = kk;
+      s.scnt[slot] = exists ? s.scnt[slot] + 1 : 1;
+    }
+    o.n = __shfl_sync(kFull, o.n, 0);
+    o.ovf = __shfl_sync(kFull, (int)o.ovf, 0) != 0;
+    if (insert) ++s.occ_count;
+    __syncwarp();
+  }
+}
+
 __global__ void frequent_kernel(int B, int W, const bool* valid, const int8_t* kind,
                                 const int64_t* ts, const int64_t* key, const bool* occ,
                                 const int64_t* skey_in, const int32_t* cnt, const int64_t* now,
@@ -381,27 +571,14 @@ __global__ void frequent_kernel(int B, int W, const bool* valid, const int8_t* k
   unsigned char* tflag = (unsigned char*)(tts + kTile);
   char* sbase = slots_in_smem ? (char*)(tflag + kTile) : gslots;
   sbase = (char*)(((uintptr_t)sbase + 15) & ~(uintptr_t)15);
-  long long* skey = (long long*)sbase;
-  int* scnt = (int*)(skey + W);
-  int* ssrc = scnt + W;
-  unsigned char* socc = (unsigned char*)(ssrc + W);
 
   Out o{out_src, out_ts, out_kind, out_valid, 2 * B + W, 0, false};
   clear_out(o);
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    skey[j] = skey_in[j];
-    scnt[j] = cnt[j];
-    ssrc[j] = j;
-    socc[j] = occ[j] ? 1 : 0;
-  }
+  FreqSlots s;
+  freq_slots_load(s, sbase, W, 0, occ, skey_in, cnt, 0, threadIdx.x, blockDim.x);
   __syncthreads();
   const long long t_now = *now;
-  const int lane = threadIdx.x & 31;
-  int occ_count = 0;
-  if (threadIdx.x < 32) {
-    for (int j = lane; j < W; j += 32) occ_count += socc[j];
-    for (int d = 16; d > 0; d >>= 1) occ_count += __shfl_xor_sync(kFull, occ_count, d);
-  }
+  if (threadIdx.x < 32) freq_slots_count(s, threadIdx.x & 31);
   for (int base = 0; base < B; base += kTile) {
     const int rows = B - base < kTile ? B - base : kTile;
     __syncthreads();
@@ -415,50 +592,58 @@ __global__ void frequent_kernel(int B, int W, const bool* valid, const int8_t* k
     if (threadIdx.x >= 32) continue;
     for (int t = 0; t < rows; ++t) {
       if (tflag[t] != 1) continue;
-      const int r = base + t;
-      const long long kk = tkey[t];
-      int slot = warp_first(W, [&](int s) { return socc[s] && skey[s] == kk; });
-      const bool exists = slot >= 0;
-      bool insert = false;
-      if (!exists) {
-        if (occ_count == W) {
-          // a new key with the table full: every count drops by one and the
-          // zeros leave as EXPIRED rows, in slot order
-          occ_count -= warp_emit(o, W, ssrc, t_now, kExpired,
-                                 [&](int s) {
-                                   if (!socc[s]) return false;
-                                   return --scnt[s] == 0;
-                                 },
-                                 [&](int s) { socc[s] = 0; });
-        }
-        if (occ_count < W) {
-          slot = warp_first(W, [&](int s) { return !socc[s]; });
-          insert = true;
-        }
-      }
-      if (exists || insert) {
-        if (lane == 0) {
-          o.append(W + r, tts[t], kCurrent);
-          ssrc[slot] = W + r;
-          socc[slot] = 1;
-          skey[slot] = kk;
-          scnt[slot] = exists ? scnt[slot] + 1 : 1;
-        }
-        o.n = __shfl_sync(kFull, o.n, 0);
-        o.ovf = __shfl_sync(kFull, (int)o.ovf, 0) != 0;
-        if (insert) ++occ_count;
-        __syncwarp();
-      }
+      frequent_arrive(s, o, tkey[t], tts[t], W + base + t, t_now);
     }
   }
   __syncthreads();
   for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    new_src[j] = ssrc[j];
-    new_occ[j] = socc[j] != 0;
-    new_key[j] = skey[j];
-    new_cnt[j] = scnt[j];
+    new_src[j] = s.ssrc[j];
+    new_occ[j] = s.socc[j] != 0;
+    new_key[j] = s.skey[j];
+    new_cnt[j] = s.scnt[j];
   }
   if (threadIdx.x == 0) *ovf = o.ovf;
+}
+
+// K41: the frequent window of every partition at once, as psort_kernel:
+// a warp a slot with `frequent_arrive`, its emissions into its stretch at
+// 2 * slot_start[p] + p * W (its member rows' CURRENT rows and at most W
+// plus one a row of evictions: 2 * rows + W).
+__global__ void pfrequent_kernel(int W, int P, int slot_bytes, const int64_t* ts,
+                                 const int64_t* key, const int32_t* rowlist,
+                                 const int32_t* slot_start, const bool* occ,
+                                 const int64_t* skey_in, const int32_t* cnt, const int64_t* now,
+                                 char* gslots, int32_t* out_src, int64_t* out_ts,
+                                 int8_t* out_kind, bool* out_valid, int32_t* n_slot,
+                                 int32_t* new_src, bool* new_occ, int64_t* new_key,
+                                 int32_t* new_cnt, bool* ovf) {
+  const int p = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (p >= P) return;
+  const int lane = threadIdx.x & 31;
+  const long long off = (long long)p * W;
+  const int lo = slot_start[p], hi = slot_start[p + 1];
+  FreqSlots s;
+  freq_slots_load(s, gslots + (size_t)p * slot_bytes, W, off, occ, skey_in, cnt, (int)off, lane,
+                  32);
+  __syncwarp();
+  freq_slots_count(s, lane);
+  const long long o0 = 2LL * lo + off;
+  Out o{out_src + o0, out_ts + o0, out_kind + o0, out_valid + o0, 2 * (hi - lo) + W, 0, false};
+  const long long t_now = *now;
+  for (int i = lo; i < hi; ++i) {
+    const int r = rowlist[i];
+    frequent_arrive(s, o, key[r], ts[r], P * W + r, t_now);
+  }
+  for (int j = lane; j < W; j += 32) {
+    new_src[off + j] = s.ssrc[j];
+    new_occ[off + j] = s.socc[j] != 0;
+    new_key[off + j] = s.skey[j];
+    new_cnt[off + j] = s.scnt[j];
+  }
+  if (lane == 0) {
+    n_slot[p] = o.n;
+    if (o.ovf) *ovf = true;
+  }
 }
 
 __global__ void lossy_kernel(int B, int C, long long width, float support_minus_error,
@@ -778,6 +963,47 @@ int sw_frequent(int B, int W, const void* valid, const void* kind, const void* t
       (char*)scratch, in_smem, (int32_t*)out_src, (int64_t*)out_ts, (int8_t*)out_kind,
       (bool*)out_valid, (int32_t*)new_src, (bool*)new_occ, (int64_t*)new_key,
       (int32_t*)new_cnt, (bool*)ovf);
+  return (int)cudaGetLastError();
+}
+
+int sw_psort(int B, int W, int P, int k, int slot_bytes, const void* const* state_keys,
+             const void* const* batch_keys, const int* types, const int* desc, const void* ts,
+             const void* rowlist, const void* slot_start, const void* occ, const void* seq,
+             const void* next, const void* now, void* scratch, void* out_src, void* out_ts,
+             void* out_kind, void* out_valid, void* n_slot, void* new_src, void* new_occ,
+             void* new_seq, void* new_next, void* ovf, cudaStream_t stream) {
+  if (k < 1 || k > kMaxSortKeys || P < 1) return (int)cudaErrorInvalidValue;
+  SortKeys K;
+  K.k = k;
+  for (int q = 0; q < k; ++q) {
+    K.state[q] = state_keys[q];
+    K.batch[q] = batch_keys[q];
+    K.type[q] = types[q];
+    K.desc[q] = desc[q];
+  }
+  auto kernel = k == 1 ? psort_kernel<1> : k == 2 ? psort_kernel<2> : k == 3 ? psort_kernel<3>
+                                                                       : psort_kernel<0>;
+  kernel<<<(P + kSlotWarps - 1) / kSlotWarps, 32 * kSlotWarps, 0, stream>>>(
+      W, P, K, slot_bytes, (const int64_t*)ts, (const int32_t*)rowlist,
+      (const int32_t*)slot_start, (const bool*)occ, (const int64_t*)seq, (const int64_t*)next,
+      (const int64_t*)now, (char*)scratch, (int32_t*)out_src, (int64_t*)out_ts,
+      (int8_t*)out_kind, (bool*)out_valid, (int32_t*)n_slot, (int32_t*)new_src, (bool*)new_occ,
+      (int64_t*)new_seq, (int64_t*)new_next, (bool*)ovf);
+  return (int)cudaGetLastError();
+}
+
+int sw_pfrequent(int B, int W, int P, int slot_bytes, const void* ts, const void* key,
+                 const void* rowlist, const void* slot_start, const void* occ, const void* skey,
+                 const void* cnt, const void* now, void* scratch, void* out_src, void* out_ts,
+                 void* out_kind, void* out_valid, void* n_slot, void* new_src, void* new_occ,
+                 void* new_key, void* new_cnt, void* ovf, cudaStream_t stream) {
+  if (P < 1) return (int)cudaErrorInvalidValue;
+  pfrequent_kernel<<<(P + kSlotWarps - 1) / kSlotWarps, 32 * kSlotWarps, 0, stream>>>(
+      W, P, slot_bytes, (const int64_t*)ts, (const int64_t*)key, (const int32_t*)rowlist,
+      (const int32_t*)slot_start, (const bool*)occ, (const int64_t*)skey, (const int32_t*)cnt,
+      (const int64_t*)now, (char*)scratch, (int32_t*)out_src, (int64_t*)out_ts,
+      (int8_t*)out_kind, (bool*)out_valid, (int32_t*)n_slot, (int32_t*)new_src, (bool*)new_occ,
+      (int64_t*)new_key, (int32_t*)new_cnt, (bool*)ovf);
   return (int)cudaGetLastError();
 }
 

@@ -108,7 +108,10 @@ def partition_state_from_jax(ptable: dict, states: dict, device) -> tuple:
     `(ptable, {query id: state})` for `PartitionRuntime.ptable` and each
     query's `state`. A partitioned pattern's state is its `{"tok", "sel",
     "timer_ts"}` with the [P] axis on every leaf (token lanes [P, T],
-    captures [P, T, K], clocks [P]). The keyed step indexes the same [P]
-    axis by slot, so every leaf keeps its dtype and shape."""
+    captures [P, T, K], clocks [P]); a partitioned join's is `{"join":
+    {"l", "r"}, "sel"}`, each side's window lanes [P, W] (`{}` for a side
+    without one); a sort or frequent window's lanes are [P, N] ("next"
+    [P]). The keyed step indexes the same [P] axis by slot, so every leaf
+    keeps its dtype and shape."""
     return (state_from_numpy(ptable, device),
             {qid: state_from_numpy(st, device) for qid, st in states.items()})

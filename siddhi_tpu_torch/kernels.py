@@ -35,7 +35,7 @@ SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "del
            "ring_view", "join_probe", "pattern_advance", "pattern_count", "pattern_emit",
            "pattern_scan", "running_extreme", "distinct_count", "table_write", "table_index",
            "table_match", "table_scan", "special_window", "partition_window",
-           "partition_time", "partition_batch", "partition_pattern")
+           "partition_time", "partition_batch", "partition_pattern", "partition_join")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -151,6 +151,11 @@ SIGNATURES = {
     "pp_place": ("partition_pattern", [I] + [P] * 8 + [P]),
     "pp_place_rows": ("partition_pattern", [I, I] + [P] * 8 + [P]),
     "pp_gather": ("partition_pattern", [P, P, P, I, I, I, P]),
+    "pj_view": ("partition_join", [P, P, I, I, P, P, P, P]),
+    "pj_plan": ("partition_join", [P] * 3 + [I] * 5 + [P] * 13 + [P]),
+    "pj_fill": ("partition_join", [P] * 3 + [I] * 6 + [P] * 9 + [P]),
+    "sw_psort": ("special_window", [I] * 5 + [P] * 22 + [P]),
+    "sw_pfrequent": ("special_window", [I] * 4 + [P] * 19 + [P]),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -1,10 +1,12 @@
 """The keyed partition steps: the partitioned length window (K29), the
 windowed min/max of a partition (K30), the partitioned sliding time window
-(K31) and the partitioned batch window (K32); and what the keyed pattern
+(K31) and the partitioned batch window (K32); what the keyed pattern
 routes (core/pattern.py K34-K37) share: each chunk's member rows by slot
 (`pattern_chunks`), each slot's rows and the TIMER rows
 (`partition_rows`), and the (position, slot) placement of each slot's
-emissions (`pattern_place`).
+emissions (`pattern_place`); and the join slice's keyed ring view (K38),
+keyed probe compaction (K39) and keyed sort and frequent windows (K40,
+K41, which take `partition_rows` and `pattern_place` around their walk).
 
 The JAX package runs a partitioned query step under `jax.vmap` over P
 partition states (siddhi_tpu/core/partition.py `_vmapped`): every partition
@@ -20,8 +22,9 @@ part in every partition (the vmap's `(active & slot == p) | is_timer`), so
 it moves the clock of every slot, used or not.
 
 On the card each step is hand-written CUDA (csrc/partition_window.cu,
-csrc/partition_time.cu, csrc/partition_batch.cu, sharing the placement of
-csrc/partition.cuh); each `*_ref` beside a wrapper is its plain version,
+csrc/partition_time.cu, csrc/partition_batch.cu, csrc/partition_join.cu,
+csrc/special_window.cu, sharing the placement of csrc/partition.cuh);
+each `*_ref` beside a wrapper is its plain version,
 which the wrapper takes only for tensors on the CPU. Each plain step runs
 the unpartitioned plain step (`length_window_step_ref`,
 `time_window_step_ref`, `batch_window_step_ref`, `time_batch_step_ref`)
@@ -39,6 +42,7 @@ import torch
 
 from siddhi_tpu_torch import kernels
 from siddhi_tpu_torch.core.event import EventBatch, KIND_CURRENT, KIND_TIMER
+from siddhi_tpu_torch.core.join import JoinRows
 from siddhi_tpu_torch.core.types import AttrType, null_value
 from siddhi_tpu_torch.core.windows import (
     BIG,
@@ -49,6 +53,15 @@ from siddhi_tpu_torch.core.windows import (
     time_window_step_ref,
 )
 from siddhi_tpu_torch.ops.prefix import extreme_identity
+from siddhi_tpu_torch.ops.special_window import (
+    _KEY_TYPE,
+    MAX_SORT_KEYS,
+    _gather,
+    _lanes_out,
+    frequent_window_step_ref,
+    sort_window_step_ref,
+)
+from siddhi_tpu_torch.ops.table import _Args
 
 
 @dataclasses.dataclass
@@ -1057,3 +1070,395 @@ def pattern_place(out: dict, off: torch.Tensor, cap: torch.Tensor, n: torch.Tens
         res[name] = o
     kernels.launches["pattern_place"] += 1
     return res, out_slot, out_first
+
+
+# ---------------------------------------------------------------------------
+# joins and the sort and frequent windows inside a partition (K38-K41)
+# ---------------------------------------------------------------------------
+
+
+def partition_ring_view_ref(state: dict):
+    """Plain version of `partition_ring_view`: each slot's stable argsort
+    of seq (empty slots last, in slot order), every lane gathered along
+    the slot's row (`ring_view_ref` batched over the [P] axis)."""
+    mask = state["seq"] >= 0
+    perm = torch.argsort(torch.where(mask, state["seq"], NO_TIMER), dim=1, stable=True)
+    cols = {n: torch.gather(c, 1, perm) for n, c in state["cols"].items()}
+    return cols, torch.gather(state["ts"], 1, perm), torch.gather(mask, 1, perm)
+
+
+def partition_ring_view(state: dict):
+    """Every partition's sliding ring in insertion order, for a join side's
+    probe inside a partition: (cols {name: [P, W]}, ts [P, W], mask
+    [P, W]); row q holds slot q's live elements first by seq, then its
+    empty ring slots in slot order (the JAX package's `view` under the
+    vmap). A slot's live seqs lie in [total[q] - W, total[q]), so the order
+    is a rank over that dense range: one block a slot
+    (csrc/partition_join.cu `pj_view`)."""
+    if state["seq"].device.type == "cpu":
+        return partition_ring_view_ref(state)
+    lanes = [state["ts"], state["seq"], state["total"], *state["cols"].values()]
+    kernels.require_cuda("partition_ring_view", *lanes)
+    p, w = state["seq"].shape
+    if state["seq"].dtype != torch.int64 or state["total"].dtype != torch.int64 or \
+            state["total"].shape != (p,) or any(
+            x.shape != (p, w) for x in (state["ts"], *state["cols"].values())):
+        raise ValueError(f"partition_ring_view: int64 seq/total, [{p}, {w}] ring lanes and "
+                         f"[{p}] totals expected")
+    if p * w >= 2**31:
+        raise ValueError(f"partition_ring_view: P {p} x W {w} out of range")
+    dev = state["seq"].device
+    perm = _i32((p, w), dev)
+    mask = torch.empty((p, w), dtype=torch.bool, device=dev)
+    scratch = _i32(p * w, dev)
+    stream = kernels.stream()
+    kernels.check(kernels.function("pj_view")(
+        state["seq"].data_ptr(), state["total"].data_ptr(), p, w, scratch.data_ptr(),
+        perm.data_ptr(), mask.data_ptr(), stream), "partition_ring_view")
+
+    def gather(lane):
+        out = torch.empty((p, w), dtype=lane.dtype, device=dev)
+        kernels.check(kernels.function(f"jp_partner_{lane.element_size()}")(
+            lane.data_ptr(), perm.data_ptr(), -1, out.data_ptr(), p * w, p * w, stream),
+            "partition_ring_view")
+        return out
+
+    cols = {n: gather(c) for n, c in state["cols"].items()}
+    ts = gather(state["ts"])
+    kernels.launches["partition_ring_view"] += 1
+    return cols, ts, mask
+
+
+def _null_fill(t: AttrType, dtype, dev):
+    return torch.tensor(null_value(t), dtype=dtype, device=dev)
+
+
+def partition_join_assemble_ref(pair, row_mask, row_slot, outer: bool, cap: int, p: int,
+                                row_ts, row_kind, row_cols: dict, vts, vcols: dict,
+                                partner_types: dict) -> JoinRows:
+    """Plain version of `partition_join_assemble`: the miss column
+    appended, the cells listed by (slot, row, column), a cumsum rank within
+    each slot, the first `cap` of each slot kept, then ordered by (rank,
+    slot) and gathered."""
+    dev = pair.device
+    r, w = pair.shape
+    member = row_mask & (row_slot >= 0) & (row_slot < p)
+    pair = pair & member[:, None]
+    if outer:
+        pair = torch.cat([pair, (member & ~pair.any(1))[:, None]], 1)
+    wj = pair.shape[1]
+    key = torch.where(member, row_slot.to(torch.int64), p)
+    order = torch.sort(key, stable=True).indices  # rows by (slot, row)
+    flat = pair[order].reshape(-1)
+    cell_slot = key[order].repeat_interleave(wj)
+    fi = flat.to(torch.int64)
+    before = torch.cumsum(fi, 0) - fi
+    counts = torch.bincount(cell_slot[flat], minlength=p + 1)[:p]
+    slot_base = torch.cumsum(counts, 0) - counts
+    rank = before - torch.cat([slot_base, before.new_zeros(1)])[cell_slot]
+    idx = torch.nonzero(flat & (rank < cap)).flatten()
+    ks, kr = cell_slot[idx], rank[idx]
+    o = torch.sort(kr * (p + 1) + ks).indices  # (position, slot)
+    idx, ks, kr = idx[o], ks[o], kr[o]
+    n = idx.shape[0]
+    rows = max(n, 1)
+    pi = torch.zeros(rows, dtype=torch.int64, device=dev)
+    pj = torch.full((rows,), w, dtype=torch.int64, device=dev)
+    pi[:n] = order[torch.div(idx, wj, rounding_mode="floor")]
+    pj[:n] = idx % wj
+    valid = torch.arange(rows, device=dev) < n
+    out_slot = torch.full((rows,), p, dtype=torch.int32, device=dev)
+    out_slot[:n] = ks.to(torch.int32)
+    first_of_slot = torch.zeros(p + 1, dtype=torch.int64, device=dev)
+    first_of_slot[ks[kr == 0]] = torch.nonzero(kr == 0).flatten()
+    out_first = torch.arange(rows, dtype=torch.int32, device=dev)
+    out_first[:n] = first_of_slot[ks].to(torch.int32)
+    null = pj >= w
+    vslot = torch.where(null, 0, out_slot.to(torch.int64).clamp(max=p - 1))
+    vlane = pj.clamp(max=w - 1)
+
+    def partner(lane, t):
+        return torch.where(null, _null_fill(t, lane.dtype, dev), lane[vslot, vlane])
+
+    return JoinRows(
+        ts=row_ts[pi], kind=row_kind[pi], valid=valid,
+        probe_cols={nm: c[pi] for nm, c in row_cols.items()},
+        partner_cols={nm: partner(vcols[nm], t) for nm, t in partner_types.items()},
+        partner_ts=torch.where(null, torch.zeros((), dtype=torch.int64, device=dev),
+                               vts[vslot, vlane]),
+        slot=out_slot, first=out_first, overflow=(counts > cap).any())
+
+
+def partition_join_assemble(pair, row_mask, row_slot, outer: bool, cap: int, p: int, row_ts,
+                            row_kind, row_cols: dict, vts, vcols: dict,
+                            partner_types: dict) -> JoinRows:
+    """A keyed join step's matched (probe row, view lane) pairs: for each
+    partition slot, its probe rows' matches in row-major order (its probe
+    rows in row order, each against its own slot's view lanes) with, for
+    an outer join, one null-partner row for each of its probe rows that
+    matched nothing, at its row's turn; the slot's first `cap` kept; then
+    every slot's rows by (position within the slot, slot), the JAX
+    package's `_flatten` of the vmapped `_assemble`, compacted.
+
+    pair: [R, W] bool, each row against its slot's W view lanes; row_mask
+    [R] bool the probe rows; row_slot [R] int32 each row's slot (P: none);
+    row_ts/row_kind/row_cols [R] probe lanes; vts/vcols [P, W] view lanes
+    by slot; partner_types {name: AttrType} of the view's columns (the
+    null fill). At least one row comes out (valid False past the rows).
+    One host read: the row count. On the card csrc/partition_join.cu:
+    a warp a row counts, one block ranks and places, a warp a row fills."""
+    if pair.device.type == "cpu":
+        return partition_join_assemble_ref(pair, row_mask, row_slot, outer, cap, p, row_ts,
+                                           row_kind, row_cols, vts, vcols, partner_types)
+    what = "partition_join_assemble"
+    pair = pair.contiguous()
+    kernels.require_cuda(what, pair, row_mask, row_slot, row_ts, row_kind,
+                         *row_cols.values(), vts, *vcols.values())
+    r, w = pair.shape
+    if pair.dtype != torch.bool or row_slot.dtype != torch.int32 or any(
+            c.shape != (r,) for c in (row_mask, row_slot, row_ts, row_kind,
+                                      *row_cols.values())) or any(
+            c.shape != (p, w) for c in (vts, *vcols.values())):
+        raise ValueError(f"{what}: a [{r}, {w}] bool mask, [{r}] probe lanes with int32 slots "
+                         f"and [{p}, {w}] view lanes expected")
+    if cap < 1 or p < 1 or r * (w + 1) >= 2**31 or p * w >= 2**31:
+        raise ValueError(f"{what}: capacity {cap} / mask [{r}, {w}] / P {p} out of range")
+    dev = pair.device
+    stream = kernels.stream()
+    items = min(p * cap, r * (w + 1)) + 1
+    row_cnt, row_off, rank, rowlist = _i32(r, dev), _i32(r, dev), _i32(r, dev), _i32(r, dev)
+    slot_start, n_slot, n_start = _i32(p + 1, dev), _i32(p, dev), _i32(p + 1, dev)
+    prefix, pos_base, oidx = _i32(r + 1, dev), _i32(cap + 2, dev), _i32(items, dev)
+    counters = _i32(max(p, cap) + 1, dev)
+    info = torch.zeros(4, dtype=torch.int32, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    kernels.check(kernels.function("pj_plan")(
+        pair.data_ptr(), row_mask.data_ptr(), row_slot.data_ptr(), r, w, p, int(outer), cap,
+        row_cnt.data_ptr(), row_off.data_ptr(), rank.data_ptr(), rowlist.data_ptr(),
+        slot_start.data_ptr(), prefix.data_ptr(), n_slot.data_ptr(), n_start.data_ptr(),
+        pos_base.data_ptr(), oidx.data_ptr(), counters.data_ptr(), info.data_ptr(),
+        overflow.data_ptr(), stream), what)
+    rows = max(int(info[0]), 1)  # the rows out, read back to size the output
+    pi, pidx, out_slot, out_first = _i32(rows, dev), _i32(rows, dev), _i32(rows, dev), \
+        _i32(rows, dev)
+    valid = torch.empty(rows, dtype=torch.bool, device=dev)
+    kernels.check(kernels.function("pj_fill")(
+        pair.data_ptr(), row_mask.data_ptr(), row_slot.data_ptr(), r, w, p, int(outer), cap,
+        rows, row_off.data_ptr(), n_start.data_ptr(), oidx.data_ptr(), info.data_ptr(),
+        pi.data_ptr(), pidx.data_ptr(), out_slot.data_ptr(), out_first.data_ptr(),
+        valid.data_ptr(), stream), what)
+
+    def probe(lane):
+        out = torch.empty(rows, dtype=lane.dtype, device=dev)
+        kernels.check(kernels.function(f"jp_partner_{lane.element_size()}")(
+            lane.data_ptr(), pi.data_ptr(), 0, out.data_ptr(), rows, r, stream), what)
+        return out
+
+    def partner(lane, bits):
+        out = torch.empty(rows, dtype=lane.dtype, device=dev)
+        kernels.check(kernels.function(f"jp_partner_{lane.element_size()}")(
+            lane.data_ptr(), pidx.data_ptr(), bits, out.data_ptr(), rows, p * w, stream), what)
+        return out
+
+    from siddhi_tpu_torch.core.aggregators import _null_bits
+
+    res = JoinRows(
+        ts=probe(row_ts), kind=probe(row_kind), valid=valid,
+        probe_cols={nm: probe(c) for nm, c in row_cols.items()},
+        partner_cols={nm: partner(vcols[nm], _null_bits(t)) for nm, t in partner_types.items()},
+        partner_ts=partner(vts, 0), slot=out_slot, first=out_first, overflow=overflow)
+    kernels.launches[what] += 1
+    return res
+
+
+def _keyed_special_ref(step_ref, state: dict, batch: EventBatch, slot: torch.Tensor, p: int,
+                       *args):
+    """The plain keyed form of a special window's step: `step_ref` on each
+    slot's state over its member rows (in row order; the window acts on
+    CURRENT rows alone, so the vmap's masked rows change nothing), then
+    every slot's rows by (position, slot). Returns (new_state, out,
+    out_slot, out_first, overflow)."""
+    _active, rowlist, slot_start = _member_rows(batch, slot, p)
+    starts = slot_start.tolist()
+    new_state = {k: ({n: a.clone() for n, a in v.items()} if isinstance(v, dict) else v.clone())
+                 for k, v in state.items()}
+    parts, ovf = [], False
+    for q in range(p):
+        lo, hi = starts[q], starts[q + 1]
+        if hi == lo:
+            continue
+        rows = rowlist[lo:hi].long()
+        nst, out, o = step_ref(_slot_state(state, q), _sub_batch(batch, rows), rows, *args)
+        for k, v in nst.items():
+            if isinstance(v, dict):
+                for n, a in v.items():
+                    new_state[k][n][q] = a
+            else:
+                new_state[k][q] = v
+        parts.append((q, out, int(out.valid.sum())))
+        ovf = ovf or bool(o)
+    out, out_slot, out_first, _ = _flatten_out(batch, parts, p)
+    return new_state, out, out_slot, out_first, torch.tensor(ovf, device=batch.ts.device)
+
+
+def partition_sort_window_step_ref(state: dict, batch: EventBatch, slot: torch.Tensor,
+                                   now: torch.Tensor, keys: list, w: int, p: int):
+    """Plain version of `partition_sort_window_step`: `sort_window_step_ref`
+    a slot, flattened by (position, slot)."""
+    return _keyed_special_ref(
+        lambda st, sub, _rows: sort_window_step_ref(st, sub, now, keys, w),
+        state, batch, slot, p)
+
+
+def partition_frequent_window_step_ref(state: dict, batch: EventBatch, key: torch.Tensor,
+                                       slot: torch.Tensor, now: torch.Tensor, w: int, p: int):
+    """Plain version of `partition_frequent_window_step`:
+    `frequent_window_step_ref` a slot, flattened by (position, slot)."""
+    return _keyed_special_ref(
+        lambda st, sub, rows: frequent_window_step_ref(st, sub, key[rows], now, w),
+        state, batch, slot, p)
+
+
+def _place_special(what, state, batch, rows: PartitionRows, out_src, out_ts, out_kind,
+                   out_valid, n_slot, off, new_src, w: int, p: int):
+    """A keyed special window's stretches placed by (position, slot) with
+    `pattern_place`, then every column from the source maps: state
+    element q*w + j, batch row P*w + r, -1 zeros."""
+    placed, out_slot, out_first = pattern_place(
+        {"src": out_src, "ts": out_ts, "kind": out_kind, "valid": out_valid}, off, n_slot,
+        n_slot, p)
+    src = torch.where(placed["valid"], placed["src"], -1)
+    names = list(batch.cols)
+    pairs = [(state["cols"][n].view(-1), batch.cols[n]) for n in names]
+    st = _gather(what, pairs + [(state["ts"].view(-1), batch.ts)], new_src, p * w, 1 << 30)
+    cols = _gather(what, pairs, src, p * w, 1 << 30)
+    out = EventBatch(ts=placed["ts"], kind=placed["kind"], valid=placed["valid"],
+                     cols=dict(zip(names, cols)))
+    new_cols = {n: c.view(p, w) for n, c in zip(names, st[:-1])}
+    return out, out_slot, out_first, new_cols, st[-1].view(p, w)
+
+
+def _check_keyed_special(what, state, batch, slot, w: int, p: int, lanes) -> None:
+    bsz = batch.capacity
+    if (batch.ts.dtype, batch.kind.dtype, batch.valid.dtype, slot.dtype) != (
+            torch.int64, torch.int8, torch.bool, torch.int32):
+        raise ValueError(f"{what}: lanes must be int64 ts, int8 kind, bool valid, int32 slot")
+    if any(x.shape != (bsz,) for x in (batch.kind, batch.valid, slot, *batch.cols.values())) \
+            or set(state["cols"]) != set(batch.cols) or any(
+            state["cols"][n].shape != (p, w) or state["cols"][n].dtype != a.dtype
+            for n, a in batch.cols.items()) or any(x.shape != (p, w) for x in lanes):
+        raise ValueError(f"{what}: batch lanes must be [{bsz}] and each state lane [{p}, {w}] "
+                         "of the batch column's dtype")
+    if w < 1 or p < 1 or 2 * bsz + p * w + 2 >= 2**31 or p * w >= 2**30:
+        raise ValueError(f"{what}: P {p} x w {w} and B {bsz} out of range")
+
+
+def partition_sort_window_step(state: dict, batch: EventBatch, slot: torch.Tensor,
+                               now: torch.Tensor, keys: list, w: int, p: int):
+    """One sort(w, keys) window step of every partition at once (K40),
+    over a batch of B rows that each carry their partition slot.
+
+    state: each partition's sort window, `sort_window_step`'s lanes with a
+           leading [P] axis: {"cols": {name: [P, w]}, "ts", "occ", "seq":
+           [P, w], "next": [P] int64}
+    slot:  [B] int32; a valid CURRENT row with a slot in [0, P) is an
+           arrival of its slot (no other row changes a window)
+    returns (new_state, out, out_slot, out_first, overflow): out holds each
+    slot's emissions (each CURRENT arrival, then its evicted greatest as
+    EXPIRED at `now`), every slot's rows by (position within the slot,
+    slot), at least one row; out_slot [rows] int32 (P past the rows),
+    out_first [rows] int32 the slot's first row. One warp a slot walks the
+    slot's rows with K25's device code (csrc/special_window.cu
+    `sw_psort`), then `pattern_place` places the stretches (one host
+    read) and `sw_gather` fills the columns."""
+    if batch.ts.device.type == "cpu":
+        return partition_sort_window_step_ref(state, batch, slot, now, keys, w, p)
+    what = "partition_sort_window_step"
+    kernels.require_cuda(what, batch.ts, batch.kind, batch.valid, slot, now, state["ts"],
+                         state["occ"], state["seq"], state["next"], *batch.cols.values(),
+                         *state["cols"].values())
+    _check_keyed_special(what, state, batch, slot, w, p, (state["ts"], state["occ"],
+                                                          state["seq"]))
+    if not 1 <= len(keys) <= MAX_SORT_KEYS or state["next"].shape != (p,):
+        raise ValueError(f"{what}: 1 to {MAX_SORT_KEYS} sort keys and [{p}] next expected")
+    bsz, dev, k = batch.capacity, batch.ts.device, len(keys)
+    rows = partition_rows(batch, slot, p)
+    out_src, out_ts, out_kind, out_valid = _lanes_out(2 * bsz, dev)
+    n_slot, new_src = _i32(p, dev), _i32(p * w, dev)
+    new_occ = torch.empty((p, w), dtype=torch.bool, device=dev)
+    new_seq = torch.empty((p, w), dtype=torch.int64, device=dev)
+    new_next = torch.empty(p, dtype=torch.int64, device=dev)
+    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    slot_bytes = (kernels.function("sw_slot_bytes")(0, w, k) + 15) // 16 * 16
+    scratch = torch.empty(p * slot_bytes, dtype=torch.uint8, device=dev)
+    a = _Args()
+    kernels.check(kernels.function("sw_psort")(
+        bsz, w, p, k, slot_bytes, a.ptrs([state["cols"][n] for n, _ in keys]),
+        a.ptrs([batch.cols[n] for n, _ in keys]),
+        a.ints([_KEY_TYPE[batch.cols[n].dtype] for n, _ in keys]),
+        a.ints([int(d) for _, d in keys]), batch.ts.data_ptr(), rows.rowlist.data_ptr(),
+        rows.slot_start.data_ptr(), state["occ"].data_ptr(), state["seq"].data_ptr(),
+        state["next"].data_ptr(), now.data_ptr(), scratch.data_ptr(), out_src.data_ptr(),
+        out_ts.data_ptr(), out_kind.data_ptr(), out_valid.data_ptr(), n_slot.data_ptr(),
+        new_src.data_ptr(), new_occ.data_ptr(), new_seq.data_ptr(), new_next.data_ptr(),
+        ovf.data_ptr(), kernels.stream()), what)
+    off = 2 * rows.slot_start[:-1].to(torch.int64)
+    out, out_slot, out_first, cols, ts = _place_special(
+        what, state, batch, rows, out_src, out_ts, out_kind, out_valid, n_slot, off, new_src,
+        w, p)
+    new_state = {"cols": cols, "ts": ts, "occ": new_occ, "seq": new_seq, "next": new_next}
+    kernels.launches[what] += 1
+    return new_state, out, out_slot, out_first, ovf
+
+
+def partition_frequent_window_step(state: dict, batch: EventBatch, key: torch.Tensor,
+                                   slot: torch.Tensor, now: torch.Tensor, w: int, p: int):
+    """One frequent(w) window step of every partition at once (K41): each
+    slot's Misra-Gries table over its rows.
+
+    state: `frequent_window_step`'s lanes with a leading [P] axis:
+           {"cols": {name: [P, w]}, "ts": [P, w] int64, "occ": [P, w] bool,
+           "key": [P, w] int64, "cnt": [P, w] int32}
+    key:   [B] int64 row keys (float columns by their bits, so -0.0 and
+           0.0 differ); slot: [B] int32 as `partition_sort_window_step`'s
+    returns (new_state, out, out_slot, out_first, overflow) as
+    `partition_sort_window_step`: each slot's evictions of a full table as
+    EXPIRED at `now` in slot order, then the kept arrival as CURRENT. One
+    warp a slot with K26's ballots (csrc/special_window.cu `sw_pfrequent`),
+    then the placement and the gather."""
+    if batch.ts.device.type == "cpu":
+        return partition_frequent_window_step_ref(state, batch, key, slot, now, w, p)
+    what = "partition_frequent_window_step"
+    kernels.require_cuda(what, batch.ts, batch.kind, batch.valid, slot, key, now, state["ts"],
+                         state["occ"], state["key"], state["cnt"], *batch.cols.values(),
+                         *state["cols"].values())
+    _check_keyed_special(what, state, batch, slot, w, p, (state["ts"], state["occ"],
+                                                          state["key"], state["cnt"]))
+    if key.shape != batch.ts.shape or key.dtype != torch.int64 or \
+            state["cnt"].dtype != torch.int32:
+        raise ValueError(f"{what}: key must be [B] int64 and cnt int32")
+    bsz, dev = batch.capacity, batch.ts.device
+    rows = partition_rows(batch, slot, p)
+    out_src, out_ts, out_kind, out_valid = _lanes_out(2 * bsz + p * w, dev)
+    n_slot, new_src = _i32(p, dev), _i32(p * w, dev)
+    new_occ = torch.empty((p, w), dtype=torch.bool, device=dev)
+    new_key = torch.empty((p, w), dtype=torch.int64, device=dev)
+    new_cnt = torch.empty((p, w), dtype=torch.int32, device=dev)
+    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    slot_bytes = (kernels.function("sw_slot_bytes")(1, w, 0) + 15) // 16 * 16
+    scratch = torch.empty(p * slot_bytes, dtype=torch.uint8, device=dev)
+    kernels.check(kernels.function("sw_pfrequent")(
+        bsz, w, p, slot_bytes, batch.ts.data_ptr(), key.data_ptr(), rows.rowlist.data_ptr(),
+        rows.slot_start.data_ptr(), state["occ"].data_ptr(), state["key"].data_ptr(),
+        state["cnt"].data_ptr(), now.data_ptr(), scratch.data_ptr(), out_src.data_ptr(),
+        out_ts.data_ptr(), out_kind.data_ptr(), out_valid.data_ptr(), n_slot.data_ptr(),
+        new_src.data_ptr(), new_occ.data_ptr(), new_key.data_ptr(), new_cnt.data_ptr(),
+        ovf.data_ptr(), kernels.stream()), what)
+    off = (2 * rows.slot_start[:-1] + w * torch.arange(p, device=dev,
+                                                       dtype=torch.int32)).to(torch.int64)
+    out, out_slot, out_first, cols, ts = _place_special(
+        what, state, batch, rows, out_src, out_ts, out_kind, out_valid, n_slot, off, new_src,
+        w, p)
+    new_state = {"cols": cols, "ts": ts, "occ": new_occ, "key": new_key, "cnt": new_cnt}
+    kernels.launches[what] += 1
+    return new_state, out, out_slot, out_first, ovf

@@ -3,14 +3,16 @@ app and events through `siddhi_tpu` (JAX) and `siddhi_tpu_torch`
 (device="cpu") — the `partitioned` verify case against VERIFY.json and JAX;
 the single-stream tests of tests/test_partition.py and
 tests/test_golden_partition.py under their own assertions with the port's
-manager swapped in (their join test must raise "not ported yet"); the row
+manager swapped in (the join test among them); the row
 order of a partitioned length window (rank within the partition, not
 arrival); path PT of chip_smoke.py, inner
 streams two deep, range partitions, two streams sharing one key table,
 every aggregator, table writes and overflowing key tables, at batch 16 and
 33, against JAX; a JAX partition state carried in through
 `partition_state_from_jax`; the forms a partition took from PR 11 on
-against JAX, the forms left out raising, and a table update, delete or
+against JAX (the sort and frequent windows and joins since the join slice,
+a join with a table side refused with JAX's class and message), the forms
+left out raising, and a table update, delete or
 upsert from a partition refused as JAX refuses it. Floats match to a
 relative 2e-4 (bench.py:_rows_match); everything else exactly.
 """
@@ -93,9 +95,9 @@ def test_partitioned_verify_case():
 # ---------------------------------------------------------------------------
 
 MODULES = ("tests.test_partition", "tests.test_golden_partition")
-# joins inside a partition wait for a later slice: this raises "not ported
-# yet"
-UNPORTED = {"test_per_key_join_windows"}
+# every test of both modules runs on the port (joins inside a partition
+# since the join slice); a name here would have to raise "not ported yet"
+UNPORTED: set = set()
 
 
 def _cases():
@@ -413,17 +415,49 @@ def test_formerly_left_out_patterns_match_jax(body):
     assert bench._rows_match(got["siddhi_tpu_torch"], got["siddhi_tpu"])
 
 
-@pytest.mark.parametrize("body", [
+# forms a partition took from the join slice on (sort and frequent windows,
+# joins): each against JAX
+FORMERLY_LEFT_OUT_JOINS = [
     "from S#window.sort(3, price) select symbol insert into Out;",
     "from S#window.frequent(2, symbol) select symbol insert into Out;",
-    "from S#window.lossyFrequent(0.1, 0.01, symbol) select symbol insert into Out;",
-    "from S#window.cron('*/1 * * * * ?') select symbol insert into Out;",
+    "from S#window.frequent(3, symbol) select symbol, sum(volume) as t group by symbol "
+    "insert into Out;",
     "from S#window.length(2) as a join S#window.length(2) as b on a.volume == b.volume "
     "select a.symbol insert into Out;",
-    "from S#window.time(1 sec) as a join T on a.symbol == T.symbol select a.symbol "
-    "insert into Out;",
     "from S as a unidirectional join S#window.lengthBatch(2) as b on a.volume == b.volume "
     "select a.symbol insert into Out;",
+]
+
+
+@pytest.mark.parametrize("body", FORMERLY_LEFT_OUT_JOINS)
+def test_formerly_left_out_joins_and_windows_match_jax(body):
+    ql = _head(16, 8) + PART.format(body=body)
+    rows, ts = _events(48, 6, seed=len(body))
+    rows = [(r[0], r[1], r[2] % 3) for r in rows]  # repeated volumes: the joins match
+    got = {_pkg(m): _run(m, ql, [("S", rows, ts)], 20) for m in _managers()}
+    assert len(got["siddhi_tpu"]["Out"]) > 3
+    assert bench._rows_match(got["siddhi_tpu_torch"], got["siddhi_tpu"])
+
+
+def test_time_window_join_on_table_raises_as_jax():
+    """A join with a table side inside a partition: both packages refuse it
+    with the same class and message (only plain streams join there)."""
+    ql = (_head(16, 8) + "define table T (symbol string);\n" + PART.format(
+        body="from S#window.time(1 sec) as a join T on a.symbol == T.symbol select a.symbol "
+             "insert into Out;"))
+    msgs = {}
+    for mgr in _managers():
+        with pytest.raises(Exception) as e:
+            mgr.create_siddhi_app_runtime(ql)
+        msgs[_pkg(mgr)] = (type(e.value).__name__, str(e.value))
+    assert msgs["siddhi_tpu_torch"] == msgs["siddhi_tpu"]
+
+
+@pytest.mark.parametrize("body", [
+    "from S#window.lossyFrequent(0.1, 0.01, symbol) select symbol insert into Out;",
+    "from S#window.cron('*/1 * * * * ?') select symbol insert into Out;",
+    "from S#window.length(2) as a join S#window.lossyFrequent(0.1, 0.01, volume) as b "
+    "on a.volume == b.volume select a.symbol insert into Out;",
     "from S[(T.symbol == symbol) in T] select symbol, price insert into Out;",
 ])
 def test_left_out_forms_raise(body):
