@@ -59,7 +59,16 @@ engine next to it. Phases, each printed as it ends:
      the keyed sort and frequent windows K40/K41 at paths PSW's and PFQ's
      shapes with NaN/-0.0 sort keys, -0.0/0.0 frequent keys and more than
      N new keys a call in one slot, bit for bit (see
-     partition_join_kernel_phase);
+     partition_join_kernel_phase); the keyed lossyFrequent and cron
+     windows K42/K43 at paths PLF's and PCR's shapes (P=1024; 400 key slots
+     a partition; a one-second bucket, then a TIMER step over every slot),
+     ragged, a full key table, key tables in global scratch and TIMER rows
+     anywhere, bit for bit (see partition_special_kernel_phase); the
+     aggregation's duration-chain step K44 at path AGG's shape (B=32768,
+     G=1024, sec ... year) and ragged B and G, across month, leap-day and
+     year ends, a fifth close a step, a store overflowing and NaN prices,
+     and its find merge K45 for every `per`, bit for bit (see
+     aggregation_kernel_phase);
   3. verify cases filter_num, len_window_avg, len_window_minmax,
      len_batch_group, having_order, stddev_distinct, time_window,
      external_time, self_join, pattern_within, count_seq,
@@ -84,7 +93,7 @@ engine next to it. Phases, each printed as it ends:
      on volume, @app:batch 8192, joinCapacity 8192), 2,000,000 events fused
      and a 20-batch per-batch prefix, in the same way; path T, the same
      self-join over time(1 sec) windows under @app:playback (joinCapacity
-     16384), 32,768 events in batches of 8192 with the TIMER steps the
+     16384), 16,384 events in batches of 8192 with the TIMER steps the
      event-time clock sends; path T2, a time(1 sec) window with
      avg/min/max at batch 32768 under @app:playback, 4 batches. Each
      path's own launch counts,
@@ -114,7 +123,7 @@ engine next to it. Phases, each printed as it ends:
      distinctCount and count, 1,000,000 events fused and a 20-batch
      per-batch prefix (exactly equal); each path's launches, no overflow,
      and its first 8,192 events against device="cpu" at @app:batch 4096;
- 10. the table paths (bench.py:266's traffic, B=8192, 64 batches fused in
+ 10. the table paths (bench.py:266's traffic, B=8192, 32 batches fused in
      calls of 8; see table_path_phase): TAB-PK (a @PrimaryKey update of a
      1,000,000-row table down the indexed path), TAB-IX (the same update
      without @PrimaryKey: the auto-index's duplicate flag picks the
@@ -123,7 +132,7 @@ engine next to it. Phases, each printed as it ends:
      100,000-row table that fills) and TAB-JOIN (a stream-table join and an
      `in` condition over 16,384 rows); each path's launches held to its
      steps, its table after 10 batches equal to the per-batch form's, its
-     first 2 batches equal to device="cpu", events/s and the device busy
+     first batch equal to device="cpu", events/s and the device busy
      share of one more fused call;
  11. the special-window, stream-function and rate-limit paths at @app:batch
      32768 (SPECIAL_APPS): SW (sort(100, price desc, volume asc), 1,000,000
@@ -161,7 +170,19 @@ engine next to it. Phases, each printed as it ends:
      a stream a call, 32 steps), PSW (a per-symbol sort(10) price book,
      262,144 events) and PFQ (per-symbol frequent(10, volume), 262,144
      events); launches held to the steps, events/s, the busy share and
-     each path's first call against device="cpu".
+     each path's first call against device="cpu"; then the lossyFrequent
+     and cron windows inside a partition (PSP_APPS; see
+     partition_special_path_phase): PLF (per-symbol lossyFrequent(0.1,
+     0.01, volume), 131,072 events) and PCR (per-symbol cron every second
+     with sum(volume) group by, @app:playback, 16 one-second calls each
+     with its TIMER step over every slot), each against device="cpu";
+ 13. the incremental aggregation (agg_app; see aggregation_path_phase):
+     AGG, sec ... year over 1,000 symbols at @app:aggGroupCapacity 1024, 4
+     batches of 32,768 events (1.024 s of event time each), K44 once a
+     step, then two store queries timed (per 'sec'; within .. per 'min'),
+     and AGJ, 8 calls of 1,024 probes joining it `within .. per 'sec'` (a
+     K45 and a K12 a step); the first batch's stores, tables and queries
+     and the first probe call against device="cpu".
 Each phase prints an `elapsed ... s after ...` line.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
@@ -172,13 +193,18 @@ stops after phase 2 (each kernel against its plain version, and its times).
 
     python3 chip_smoke.py --partition
 
-builds the kernels and runs only the partition slices: K29-K41 against
-their plain versions, and paths PT, PTE, PTB, PTT, PPF, PPC, PPA, PJ, PSW
-and PFQ;
-`--partition-kernels` stops after K29-K41, `--partition-patterns` runs
+builds the kernels and runs only the partition slices: K29-K43 against
+their plain versions, and paths PT, PTE, PTB, PTT, PPF, PPC, PPA, PJ, PSW,
+PFQ, PLF and PCR;
+`--partition-kernels` stops after K29-K43, `--partition-patterns` runs
 only K34-K37 and paths PPF, PPC and PPA (`--no-paths`: only K34-K37), and
 `--partition-joins` only K38-K41 and paths PJ, PSW and PFQ (`--no-paths`:
 only K38-K41).
+
+    python3 chip_smoke.py --aggregation
+
+builds the kernels and runs only K44 and K45 against their plain versions
+and paths AGG and AGJ (`--no-paths`: only K44 and K45).
 
     python3 chip_smoke.py --profile
 
@@ -234,10 +260,10 @@ insert into Out;
 
 # slice 4: joins (bench.py sliding_join, BASELINE.json config 3) and time windows
 JOIN_BATCH, JOIN_W, JOIN_CAP, TIME_JOIN_CAP, TIME_W = 8192, 100, 8192, 16384, 1024
-# T and T2 run 32,768 events and 4 batches (250,000 and 16 until the
+# T and T2 run 16,384 events and 4 batches (250,000 and 16 until the
 # partitioned patterns' paths joined the script's time, 65,536 and 8 until
-# the partitioned joins' did)
-JOIN_EVENTS, TIME_JOIN_EVENTS, TIME_AGG_BATCHES = 2_000_000, 32_768, 4
+# the partitioned joins' did, 32,768 until the aggregation's did)
+JOIN_EVENTS, TIME_JOIN_EVENTS, TIME_AGG_BATCHES = 2_000_000, 16_384, 4
 JOIN_APP = """
 @app:joinCapacity(size='{cap}')
 @app:batch(size='{batch}')
@@ -3983,6 +4009,664 @@ def partition_join_kernel_phase(torch, dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 2, the lossyFrequent and cron windows inside a partition (K42, K43)
+# and the incremental aggregation (K44, K45)
+# ---------------------------------------------------------------------------
+
+PSP_KERNEL_NAMES = ("partition_lossy_frequent_window_step", "partition_cron_window_step")
+PLF_S, PLF_E = 0.1, 0.01  # path PLF's lossyFrequent(0.1, 0.01, volume): 400 key slots
+PCR_W = 1024  # a cron window's slots (the time capacity)
+
+
+def _slot_tree(torch, dev, p, w, lanes: dict, cols=True):
+    """A [P, w] state tree of zeros: the three stock columns (under
+    "cols", or cur_cols/prev_cols) and the named lanes."""
+    z = lambda dt: torch.zeros((p, w), dtype=dt, device=dev)  # noqa: E731
+    col = lambda: {"symbol": z(torch.int32), "price": z(torch.float32),  # noqa: E731
+                   "volume": z(torch.int64)}
+    st = {"cols": col()} if cols else {"cur_cols": col(), "prev_cols": col()}
+    for name, (shape, dt) in lanes.items():
+        st[name] = torch.zeros((p,) if shape == "p" else (p, w), dtype=dt, device=dev)
+    return st
+
+
+def partition_special_kernel_phase(torch, dev) -> dict:
+    """The keyed lossyFrequent (K42) and cron (K43) windows against their
+    plain versions on the card, bit for bit on every output lane, slot and
+    first row, every state lane and the flag, from the same inputs and
+    carried state: K42 at path PLF's shape (B=32768, P=1024, 1,000 keys,
+    lossyFrequent(0.1, 0.01, volume): 400 key slots a partition in shared
+    memory) over three carried batches, ragged B 1/33/513 and P 1/33 with
+    NaN/-0.0 price keys, TIMER, EXPIRED and invalid rows and keys past
+    capacity, a slot's table full one row before its bucket end (a new key
+    lost, then the prune of every key), and key tables in global scratch
+    (4,000 slots: lossyFrequent(0.002, 0.001)); K43 at path PCR's shapes (a
+    one-second bucket of 1,000 events in a 32,768-row batch over P=1024,
+    w=1024, then a one-row TIMER batch over every slot), TIMER rows anywhere
+    in ragged batches (B 1/33/513, P 1/33, w 4/16), buckets past their w
+    slots; then each kernel's time beside its plain version's and its byte
+    bound."""
+    from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.ops import partition as K
+
+    k42, k43 = PSP_KERNEL_NAMES
+    res = {k: {"max_abs_err": 0.0, "checks": 0, "library_ms": None} for k in PSP_KERNEL_NAMES}
+    rng = np.random.default_rng(1042)
+    traps = np.array([np.nan, -0.0, 0.0, 1.5, 2.5, -3.0], np.float32)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def pbatch(b, p, t0, trap=False, keys=None, vmax=1000, n_valid=None, timer_at=()):
+        kind = np.where(rng.random(b) < 0.05, 2, np.where(rng.random(b) < 0.03, 1, 0)) \
+            if trap else np.zeros(b)
+        kind = kind.astype(np.int8)
+        for i in timer_at:
+            kind[i] = 2
+        slot = rng.integers(0, p, b) if keys is None else keys
+        if trap:
+            slot = np.where(rng.random(b) < 0.05, p, slot)
+        valid = rng.random(b) < 0.9 if trap else np.ones(b, bool)
+        if n_valid is not None:
+            valid[n_valid:] = False
+        price = traps[rng.integers(0, len(traps), b)] if trap else rng.uniform(0, 100, b)
+        batch = EventBatch(
+            ts=t(t0 + np.arange(b, dtype=np.int64)), kind=t(kind), valid=t(valid),
+            cols={"symbol": t(rng.integers(1, 9, b).astype(np.int32)),
+                  "price": t(price.astype(np.float32)),
+                  "volume": t(rng.integers(1, vmax, b).astype(np.int64))})
+        return batch, t(np.asarray(slot).astype(np.int32))
+
+    def lanes(r):
+        st, out, out_slot, out_first, ovf = r
+        return [st, out.ts, out.kind, out.valid, out.cols, out_slot, out_first, ovf]
+
+    def lossy_state(p, c):
+        i64 = ("pw", torch.int64)
+        return _slot_tree(torch, dev, p, c, {"ts": i64, "occ": ("pw", torch.bool), "key": i64,
+                                             "cnt": i64, "bucket": i64,
+                                             "total": ("p", torch.int64)})
+
+    def lossy_args(s, e):
+        return max(64, int(4.0 / e)), max(1, int(1.0 / e + 0.9999999)), s, e
+
+    def checked(name, fn, ref, args, timed):
+        """The kernel against its plain version (the plain one timed once
+        when `timed`: at the path's shape); returns the plain output."""
+        got = fn(*args)
+        if timed:
+            out = []
+            res[name]["plain_ms"] = time_once(torch, lambda: out.append(ref(*args)))
+            want = out[0]
+        else:
+            want = ref(*args)
+        torch.cuda.synchronize()
+        same_bits(torch, lanes(got), lanes(want))
+        res[name]["checks"] += 1
+        return want
+
+    def check_lossy(st, batch, slot, now, s, e, p, key_col="volume", timed=False):
+        c, width, s, e = lossy_args(s, e)
+        key = (batch.cols[key_col] if key_col == "volume"
+               else batch.cols["price"].view(torch.int32).to(torch.int64)).contiguous()
+        args = (st, batch, key, slot, now, c, width, s, e, p)
+        return checked(k42, K.partition_lossy_frequent_window_step,
+                       K.partition_lossy_frequent_window_step_ref, args, timed), args
+
+    b, p = MAIN_BATCH, PT_CAP
+    now = torch.tensor(7, dtype=torch.int64, device=dev)
+    c_plf = lossy_args(PLF_S, PLF_E)[0]
+    # path PLF's shape, on a state the kernel carried over a first batch
+    # (its plain version takes ~10 s here: one call, timed)
+    st = lossy_state(p, c_plf)
+    batch, slot = pbatch(b, p, 0, keys=rng.integers(0, PT_SYMBOLS, b))
+    st = K.partition_lossy_frequent_window_step(
+        st, batch, batch.cols["volume"], slot, now, *lossy_args(PLF_S, PLF_E), p)[0]
+    batch, slot = pbatch(b, p, b, keys=rng.integers(0, PT_SYMBOLS, b))
+    want, plf_args = check_lossy(st, batch, slot, now, PLF_S, PLF_E, p, timed=True)
+    plf_rows = int(want[1].valid.sum())
+    for s_, e_, key_col in ((0.3, 0.1, "volume"), (0.5, 0.25, "price")):
+        for bb, pp in ((1, 1), (33, 33), (513, 1), (513, 33), (33, 1)):
+            st = lossy_state(pp, lossy_args(s_, e_)[0])
+            for i in range(3):
+                batch, slot = pbatch(bb, pp, i * bb, trap=True, vmax=6)
+                st = check_lossy(st, batch, slot, now + i, s_, e_, pp, key_col)[0][0]
+    # slot 2's table full one row before its bucket end (width 4, 64 slots)
+    st = lossy_state(4, 64)
+    st["occ"][2] = True
+    st["key"][2] = torch.arange(10**6, 10**6 + 64, device=dev)
+    st["cnt"][2] = 1
+    st["total"][2] = 3
+    for i in range(2):
+        batch, slot = pbatch(33, 4, i * 33, keys=np.full(33, 2))
+        want, _a = check_lossy(st, batch, slot, now, 0.26, 0.25, 4)
+        st = want[0]
+        if i == 0 and not (bool(want[4]) and int((want[1].kind == 1).sum()) >= 64):
+            raise AssertionError("K42: the full table lost no key or pruned fewer than 64")
+    # key tables past shared memory: 4,000 slots a partition, global scratch
+    st = lossy_state(8, 4000)
+    for i in range(2):
+        batch, slot = pbatch(4097, 8, i * 4097)
+        st = check_lossy(st, batch, slot, now, 0.002, 0.001, 8)[0][0]
+    print(f"partition lossyFrequent kernel: {res[k42]['checks']} K42 checks bit for bit",
+          flush=True)
+
+    # ---- K43
+    def cron_state(p, w):
+        i32 = ("p", torch.int32)
+        return _slot_tree(torch, dev, p, w, {"cur_ts": ("pw", torch.int64), "cur_n": i32,
+                                             "prev_ts": ("pw", torch.int64), "prev_n": i32},
+                          cols=False)
+
+    def check_cron(st, batch, slot, now, w, p, timed=False):
+        args = (st, batch, slot, now, w, p)
+        return checked(k43, K.partition_cron_window_step, K.partition_cron_window_step_ref,
+                       args, timed), args
+
+    st = cron_state(p, PCR_W)
+    timer = EventBatch(ts=t(np.array([10**6], np.int64)), kind=t(np.array([2], np.int8)),
+                       valid=t(np.array([True])),
+                       cols={"symbol": t(np.zeros(1, np.int32)),
+                             "price": t(np.zeros(1, np.float32)),
+                             "volume": t(np.zeros(1, np.int64))})
+    # path PCR's shapes: a one-second bucket, then a fire over every slot
+    batch, slot = pbatch(b, p, 0, keys=rng.integers(0, PT_SYMBOLS, b), n_valid=CR_BUCKET)
+    want, pcr_data_args = check_cron(st, batch, slot, now, PCR_W, p, timed=True)
+    data_plain_ms = res[k43]["plain_ms"]
+    want, pcr_timer_args = check_cron(want[0], timer, t(np.array([p], np.int32)), now, PCR_W,
+                                      p, timed=True)
+    res[k43]["timer_plain_ms"], res[k43]["plain_ms"] = res[k43]["plain_ms"], data_plain_ms
+    pcr_rows = int(want[1].valid.sum())
+    if pcr_rows < CR_BUCKET:
+        raise AssertionError(f"K43: a fire over {p} slots flushed {pcr_rows} rows")
+    for w in (4, 16):
+        for bb, pp in ((1, 1), (33, 33), (513, 1), (513, 33), (33, 1)):
+            st = cron_state(pp, w)
+            for i in range(4 if bb > 1 else 8):
+                batch, slot = pbatch(bb, pp, i * bb, trap=True,
+                                     timer_at=(0,) if bb == 1 and i % 3 == 2 else ())
+                st = check_cron(st, batch, slot, now + i, w, pp)[0][0]
+    print(f"partition cron kernel: {res[k43]['checks']} K43 checks bit for bit", flush=True)
+
+    # ---- times at the paths' shapes; bytes: each row's lanes and slot list
+    # entry read once, each state lane read and written once, each output
+    # row's lanes (src, ts, kind, valid; the columns; slot and first row)
+    # written once
+    col_b = 4 + 4 + 8
+    for name, args, rows_out, state_b, fn in (
+            (k42, plf_args, plf_rows, p * c_plf * (col_b + 8 + 1 + 8 + 8 + 8) + 8 * p,
+             K.partition_lossy_frequent_window_step),
+            (k43, pcr_data_args, 0, 2 * p * PCR_W * (col_b + 8) + 8 * p,
+             K.partition_cron_window_step)):
+        r = res[name]
+        r["ms"] = time_ms(torch, lambda: fn(*args), 10)
+        r["bound_ms"], r["bound_by"] = (b * (8 + 1 + 1 + 4 + 4 + col_b + (8 if name == k42 else 0))
+                                        + 2 * state_b + rows_out * (8 + 1 + 1 + col_b + 4 + 4)) \
+            / MEM_BYTES_PER_S * 1e3, "bytes"
+        r["rows"] = rows_out
+    r = res[k43]
+    r["timer_ms"] = time_ms(torch, lambda: K.partition_cron_window_step(*pcr_timer_args), 10)
+    r["timer_rows"] = pcr_rows
+    r["timer_bound_ms"] = (2 * (2 * p * PCR_W * (col_b + 8) + 8 * p)
+                           + pcr_rows * (8 + 1 + 1 + col_b + 4 + 4)) / MEM_BYTES_PER_S * 1e3
+    for name in PSP_KERNEL_NAMES:
+        r = res[name]
+        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms=None "
+              f"checks={r['checks']} exact", flush=True)
+    r = res[k43]
+    print(f"kernel {k43} TIMER step over {p} slots: ms={r['timer_ms']:.4f} "
+          f"plain_ms={r['timer_plain_ms']:.4f} bound_ms={r['timer_bound_ms']:.6f} "
+          f"rows={r['timer_rows']}", flush=True)
+    return res
+
+
+AGG_KERNEL_NAMES = ("agg_step", "agg_find_merge")
+AGG_DURATIONS = (1000, 60_000, 3_600_000, 86_400_000, -2, -1)  # sec ... year
+AGG_GROUPS = 1024
+# path AGG's bases: avg(price) -> sum and count, sum(volume), count(),
+# min(price), max(price), and the group column kept as last
+AGG_OPS = {"sum_avgPrice": "sum", "count_": "count", "sum_total": "sum", "min_lo": "min",
+           "max_hi": "max", "last__g_symbol": "last"}
+AGG_DTYPES = {"sum_avgPrice": "float32", "count_": "int64", "sum_total": "int64",
+              "min_lo": "float32", "max_hi": "float32", "last__g_symbol": "int32"}
+
+
+def _ms_of(*args) -> int:
+    import calendar
+    import datetime
+
+    return calendar.timegm(datetime.datetime(*args).timetuple()) * 1000
+
+
+def aggregation_kernel_phase(torch, dev) -> dict:
+    """The incremental aggregation's duration-chain step (K44) and the
+    in-flight merge of a find (K45) against their plain versions on the
+    card, bit for bit on every store and spill lane, the spill counts and
+    the flag: K44 at path AGG's shape (B=32768, G=1024, sec ... year,
+    AGG's bases: float32 sums, int64 sums and counts, float32 min/max, an
+    int32 last; 1,000 symbols, 32 events a millisecond) over three carried
+    batches, then ragged B 1/33/513 with G 4 (the store overflows) and
+    1,024, batches crossing a month end, a leap day and a year end, one
+    spanning more than four seconds (a fifth close rolls up but is not
+    spilled), NaN prices and TIMER rows, and 8,192 groups (K44's key
+    indexes past shared memory); K45 for every `per` on each state
+    reached; then each kernel's time beside its plain version's and its
+    byte bound (no single library call computes either)."""
+    from siddhi_tpu_torch.ops import aggregation as A
+
+    res = {k: {"max_abs_err": 0.0, "checks": 0, "library_ms": None} for k in AGG_KERNEL_NAMES}
+    rng = np.random.default_rng(1044)
+    dts = {"float32": torch.float32, "int64": torch.int64, "int32": torch.int32}
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def fresh(g):
+        d = len(AGG_DURATIONS)
+        vals = {}
+        for bname, op in AGG_OPS.items():
+            dt = dts[AGG_DTYPES[bname]]
+            vals[bname] = torch.full((d, g), A.base_init(op, dt), dtype=dt, device=dev)
+        return {"keys": torch.zeros((d, g), dtype=torch.int64, device=dev),
+                "used": torch.zeros((d, g), dtype=torch.bool, device=dev), "vals": vals,
+                "bucket": torch.full((d,), -1, dtype=torch.int64, device=dev)}
+
+    def rows(b, t0, per_ms=32, symbols=PT_SYMBOLS, nan=0.0, timers=0.0, span=None):
+        ts = (t0 + np.arange(b, dtype=np.int64) // per_ms) if span is None else \
+            t0 + np.sort(rng.integers(0, span, b)).astype(np.int64)
+        sym = rng.integers(1, symbols + 1, b).astype(np.int32)
+        price = rng.uniform(0, 100, b).astype(np.float32)
+        price[rng.random(b) < nan] = np.nan
+        timer = rng.random(b) < timers
+        live = ~timer & (rng.random(b) < 0.97)
+        con = {"sum_avgPrice": t(price), "count_": t(np.ones(b, np.int64)),
+               "sum_total": t(rng.integers(1, 1000, b).astype(np.int64)), "min_lo": t(price),
+               "max_hi": t(price), "last__g_symbol": t(sym)}
+        return t(ts), t(live), t(timer), t(sym.astype(np.int64)), con
+
+    def check(st, args):
+        got = A.agg_step(st, *args, AGG_OPS, list(AGG_DURATIONS))
+        want = A.agg_step_ref(st, *args, AGG_OPS, list(AGG_DURATIONS))
+        torch.cuda.synchronize()
+        same_bits(torch, got, want)
+        res["agg_step"]["checks"] += 1
+        new = want[0]
+        for n in range(1, len(AGG_DURATIONS) + 1):
+            fa = (new, n, AGG_DURATIONS[n - 1], AGG_OPS)
+            got = A.agg_find_merge(*fa)
+            want_f = A.agg_find_merge_ref(*fa)
+            torch.cuda.synchronize()
+            same_bits(torch, got, want_f)
+            res["agg_find_merge"]["checks"] += 1
+        return new, want[1]
+
+    b, g = MAIN_BATCH, AGG_GROUPS
+    st = fresh(g)
+    t0 = 1_700_000_000_000
+    for i in range(3):  # path AGG's shape: 1.024 s of event time a batch
+        agg_args = rows(b, t0 + i * (b // 32))
+        agg_state = st
+        st, _o = check(st, agg_args)
+    agg_closed = st["spill_n"].tolist()
+    edges = (_ms_of(2024, 1, 31, 23, 59, 59), _ms_of(2024, 2, 28, 23, 59, 59),
+             _ms_of(2024, 2, 29, 23, 59, 59), _ms_of(2024, 12, 31, 23, 59, 59))
+    flagged = False
+    for gg in (4, 1024):
+        for bb in (1, 33, 513):
+            st = fresh(gg)
+            for e0 in edges:  # each batch 3 s across the edge
+                args = rows(bb, e0, symbols=8 if gg == 4 else 1500, nan=0.05, timers=0.05,
+                            span=3000)
+                st, ovf = check(st, args)
+                flagged = flagged or bool(ovf)
+            # a batch spanning ten seconds: a fifth close of the finest
+            st, ovf = check(st, rows(max(bb, 33), edges[-1] + 5000, span=10_000, nan=0.05))
+            if int(st["spill_n"][0]) <= 4 or not bool(ovf):
+                raise AssertionError("K44: a ten-second batch did not spill past four")
+    # 8,192 groups: K44's key indexes do not fit in shared memory (lookups
+    # scan the store), K45's does
+    st = fresh(8192)
+    for e0 in edges[:2]:
+        st, _o = check(st, rows(4097, e0, symbols=6000, span=3000))
+    if not flagged:
+        raise AssertionError("K44: no store overflowed G=4")
+    print(f"aggregation kernels: {res['agg_step']['checks']} K44 and "
+          f"{res['agg_find_merge']['checks']} K45 checks bit for bit", flush=True)
+
+    # ---- times at path AGG's shape; bytes: each row's lanes read once, the
+    # stores read and written once, the spills written once (K44); the
+    # finest .. year stores read once and the merged store written (K45)
+    def nbytes(x):
+        return sum(v.numel() * v.element_size() for v in flat(x))
+
+    store_b = nbytes([agg_state["keys"], agg_state["used"], agg_state["vals"],
+                      agg_state["bucket"]])
+    stepped = A.agg_step(agg_state, *agg_args, AGG_OPS, list(AGG_DURATIONS))[0]
+    spill_b = nbytes([stepped["spill"], stepped["spill_n"]])
+    r = res["agg_step"]
+    r["ms"] = time_ms(torch, lambda: A.agg_step(agg_state, *agg_args, AGG_OPS,
+                                                list(AGG_DURATIONS)), 5)
+    r["plain_ms"] = time_once(torch, lambda: A.agg_step_ref(agg_state, *agg_args, AGG_OPS,
+                                                            list(AGG_DURATIONS)))
+    r["us_per_row"] = r["ms"] * 1e3 / b
+    r["closes"] = agg_closed
+    r["bound_ms"], r["bound_by"] = (nbytes(agg_args) + 2 * store_b + spill_b) \
+        / MEM_BYTES_PER_S * 1e3, "bytes"
+    r = res["agg_find_merge"]
+    n = len(AGG_DURATIONS)
+    fa = (stepped, n, AGG_DURATIONS[-1], AGG_OPS)
+    r["ms"] = time_ms(torch, lambda: A.agg_find_merge(*fa), 20)
+    r["plain_ms"] = time_once(torch, lambda: A.agg_find_merge_ref(*fa))
+    r["bound_ms"], r["bound_by"] = (store_b + store_b // n) / MEM_BYTES_PER_S * 1e3, "bytes"
+    r["per_ms"] = {str(d): time_ms(torch, lambda _k=k: A.agg_find_merge(
+        stepped, _k, AGG_DURATIONS[_k - 1], AGG_OPS), 20)
+        for k, d in enumerate(AGG_DURATIONS, start=1)}
+    for name in AGG_KERNEL_NAMES:
+        r = res[name]
+        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms=None "
+              f"checks={r['checks']} exact", flush=True)
+    print(f"kernel agg_step: {res['agg_step']['us_per_row']:.3f} us a row at B={b}, G={g}",
+          flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the lossyFrequent and cron windows inside a partition at full width
+# ---------------------------------------------------------------------------
+
+PSP_APPS = {
+    # per-instrument recurring lot sizes
+    "PLF": _PJ_HEAD + """define stream StockStream (symbol string, price float, volume long);
+partition with (symbol of StockStream) begin
+@info(name='q') from StockStream#window.lossyFrequent(0.1, 0.01, volume)
+select symbol, volume insert all events into Out;
+end;""",
+    # one volume report per instrument per second
+    "PCR": "@app:playback\n" + _PJ_HEAD + """define stream StockStream (symbol string, price float,
+volume long);
+partition with (symbol of StockStream) begin
+@info(name='q') from StockStream#window.cron('*/1 * * * * ?')
+select symbol, sum(volume) as v group by symbol insert into Out;
+end;""",
+}
+PSP_PATH_KERNELS = {
+    "PLF": {"assign_slots": 1, "partition_rows": 1, "partition_lossy_frequent_window_step": 1,
+            "pattern_place": 1},
+    "PCR": {"assign_slots": 1, "partition_rows": 1, "partition_cron_window_step": 1,
+            "pattern_place": 1},
+}
+PLF_EVENTS, PCR_CALLS = 131_072, 16
+
+
+def partition_special_path_phase(torch) -> dict:
+    """The lossyFrequent and cron windows inside a partition at full width:
+    @app:batch 32768, @app:partitionCapacity 1024, 1,000 symbols drawn
+    uniformly (seed-7 stock data, 1 ms ticks; PSP_APPS).
+
+    PLF: lossyFrequent(0.1, 0.01, volume) per symbol, `insert all events`,
+    PLF_EVENTS events in calls of 4 batches (the first of 1), per batch;
+    each kernel's launches held to its uses a step; events/s; the first
+    batch against device="cpu"; the busy share of one more call.
+
+    PCR: cron('*/1 * * * * ?') with sum(volume) group by symbol per symbol
+    under @app:playback, PCR_CALLS calls of one one-second bucket (1,000
+    events) each, every call's clock advance firing the TIMER step that
+    reaches every slot; K43 launches = data steps + TIMER steps; the other
+    kernels one a step; no overflow; the first two calls against
+    device="cpu"."""
+    from siddhi_tpu_torch import kernels
+
+    b = MAIN_BATCH
+    out = {}
+    data, names = pp_data(PLF_EVENTS + 4 * b)
+    app = PSP_APPS["PLF"].format(batch=b, cap=PT_CAP)
+    wanted = PSP_PATH_KERNELS["PLF"]
+    run_app("cuda", app, data, b, b, b, fused=False, symbols=names)  # warm-up
+    kernels.launches.clear()
+    (n_rows, kept, dt, _i), warned = capture_warnings(
+        lambda: run_app("cuda", app, data, PLF_EVENTS, 4 * b, b, fused=False, symbols=names),
+        "window")
+    launches = dict(kernels.launches)
+    steps = PLF_EVENTS // b
+    print(f"path PLF launches {json.dumps(launches)} over {steps} steps", flush=True)
+    if warned:
+        raise AssertionError("path PLF: a window overflowed")
+    held_launches("PLF", launches, wanted, steps)
+    t0 = time.perf_counter()
+    _n, cpu_kept, _dt, _i = run_app("cpu", app, data, b, b, b, fused=False, symbols=names)
+    cpu_s = time.perf_counter() - t0
+    check_path("PLF", launches, wanted, kept, cpu_kept, 1)
+    wall_ms, busy_ms = calls_busy(torch, app, data, 4 * b, 1, 1, ("symbol", "price", "volume"),
+                                  names)
+    out["PLF"] = {"events": PLF_EVENTS, "rows": n_rows, "seconds": dt,
+                  "events_per_s": PLF_EVENTS / dt, "steps": steps, "launches": launches,
+                  "cpu_first_batch_rows": len(cpu_kept[0]), "cpu_plain_s": cpu_s,
+                  "busy_call_wall_ms": wall_ms, "busy_call_busy_ms": busy_ms,
+                  "busy_share": busy_ms / wall_ms}
+    print(f"path PLF: {PLF_EVENTS} events, {n_rows} rows delivered, {dt:.3f} s, "
+          f"{PLF_EVENTS / dt:.1f} events/s; one call of 4 batches: wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.4f}); the first batch's "
+          f"{len(cpu_kept[0])} rows match device='cpu'", flush=True)
+
+    n = PCR_CALLS * CR_BUCKET
+    data, names = pp_data(n)
+    app = PSP_APPS["PCR"].format(batch=b, cap=PT_CAP)
+    wanted = PSP_PATH_KERNELS["PCR"]
+    run_app("cuda", app, data, 2 * CR_BUCKET, CR_BUCKET, CR_BUCKET, fused=False,
+            symbols=names)  # warm-up
+    fires = [0]
+    kernels.launches.clear()
+    (n_rows, kept, dt, _i), warned = capture_warnings(
+        lambda: run_app("cuda", app, data, n, CR_BUCKET, CR_BUCKET, fused=False, fires=fires,
+                        keep_calls=2, symbols=names), "window")
+    launches = dict(kernels.launches)
+    print(f"path PCR launches {json.dumps(launches)} over {PCR_CALLS} data steps and "
+          f"{fires[0]} TIMER steps", flush=True)
+    if warned:
+        raise AssertionError("path PCR: a cron bucket overflowed")
+    steps = PCR_CALLS + fires[0]
+    if fires[0] < PCR_CALLS - 1:
+        raise AssertionError(f"path PCR: {fires[0]} TIMER steps for {PCR_CALLS} buckets")
+    held_launches("PCR", launches, wanted, steps)
+    t0 = time.perf_counter()
+    _n, cpu_kept, _dt, _i = run_app("cpu", app, data, 2 * CR_BUCKET, CR_BUCKET, CR_BUCKET,
+                                    fused=False, keep_calls=2, symbols=names)
+    cpu_s = time.perf_counter() - t0
+    check_path("PCR", launches, wanted, kept, cpu_kept, 2)
+    out["PCR"] = {"events": n, "rows": n_rows, "seconds": dt, "events_per_s": n / dt,
+                  "data_steps": PCR_CALLS, "timer_steps": fires[0], "launches": launches,
+                  "cpu_first_calls_rows": sum(len(c) for c in cpu_kept), "cpu_plain_s": cpu_s}
+    print(f"path PCR: {n} events in {PCR_CALLS} one-second calls and {fires[0]} TIMER steps "
+          f"over {PT_CAP} slots, {n_rows} rows delivered, {dt:.3f} s, {n / dt:.1f} events/s; "
+          f"the first two calls' {sum(len(c) for c in cpu_kept)} rows match device='cpu'",
+          flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the incremental aggregation at full width (paths AGG and AGJ)
+# ---------------------------------------------------------------------------
+
+AGG_APP = """@app:batch(size='{batch}') @app:aggGroupCapacity(size='{groups}')
+@app:joinCapacity(size='8192')
+define stream S (symbol string, price float, volume long, ts long);
+define aggregation TradeAgg from S
+select symbol, avg(price) as avgPrice, sum(volume) as total, count() as n, min(price) as lo,
+max(price) as hi
+group by symbol
+aggregate by ts every sec ... year;
+define stream Probe (symbol string);
+@info(name='q') from Probe join TradeAgg on Probe.symbol == TradeAgg.symbol
+within {lo}L, {hi}L per 'sec'
+select Probe.symbol as s, TradeAgg.AGG_TIMESTAMP as t, TradeAgg.total as total,
+TradeAgg.avgPrice as ap, TradeAgg.n as n
+insert into Out;"""
+AGG_BATCHES, AGJ_CALLS, AGJ_PROBES = 4, 8, 1024
+AGG_PER_MS = 32  # the ts lane advances 1 ms every 32 events: 1.024 s a batch
+AGG_T0 = 1_700_000_000_000
+AGG_HOUR = AGG_T0 - AGG_T0 % 3_600_000  # the within range: the hour holding the feed
+AGG_QUERIES = ("from TradeAgg per 'sec' select AGG_TIMESTAMP, symbol, total, n",
+               "from TradeAgg within {lo}L, {hi}L per 'min' select symbol, avgPrice, total, lo, "
+               "hi")
+
+
+def agg_app(batch: int = MAIN_BATCH, groups: int = AGG_GROUPS) -> str:
+    return AGG_APP.format(batch=batch, groups=groups, lo=AGG_HOUR, hi=AGG_HOUR + 3_600_000)
+
+
+def agg_data(n: int, per_ms: int = AGG_PER_MS) -> tuple:
+    """pp_data's 1,000 symbols with the aggregation's `ts` lane: AGG_T0 +
+    one millisecond every `per_ms` events."""
+    data, names = pp_data(n)
+    data["agg_ts"] = AGG_T0 + np.arange(n, dtype=np.int64) // per_ms
+    return data, names
+
+
+def run_agg(dev, app: str, data: dict, probes: np.ndarray, b: int, batches: int,
+            probe_calls: int, names, queries=AGG_QUERIES) -> dict:
+    """Drive the AGG app: `batches` calls of one batch of `b` events to S
+    (send_columns), then each store query of `queries` once, then
+    `probe_calls` calls of AGJ_PROBES probes to Probe. Returns the seconds
+    of each part, the query rows, each probe call's joined rows, and the
+    aggregation's state and duration tables as numpy."""
+    import torch
+
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.interop import state_to_numpy
+
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(app)
+    for s in names:
+        mgr.interner.intern(s)
+    calls: list = []
+    rt.add_callback("q", lambda t, ins, rem: calls[-1].extend(tuple(e.data) for e in ins or []))
+    rt.start()
+    hs, hp = rt.get_input_handler("S"), rt.get_input_handler("Probe")
+
+    def sync():
+        if dev != "cpu":
+            torch.cuda.synchronize()
+
+    sync()
+    t0 = time.perf_counter()
+    for c in range(batches):
+        lo, hi = c * b, (c + 1) * b
+        hs.send_columns(data["ts"][lo:hi], {"symbol": data["symbol"][lo:hi],
+                                            "price": data["price"][lo:hi],
+                                            "volume": data["volume"][lo:hi],
+                                            "ts": data["agg_ts"][lo:hi]}, now=0)
+    sync()
+    ingest_s = time.perf_counter() - t0
+    agg = rt.aggregations["TradeAgg"]
+    state = state_to_numpy(agg.state)
+    tables = {t.table_id: state_to_numpy(t.state) for t in agg.tables.values()}
+    q_rows, q_s = [], []
+    for q in queries:
+        q = q.format(lo=AGG_HOUR, hi=AGG_HOUR + 3_600_000)
+        t1 = time.perf_counter()
+        q_rows.append([tuple(e.data) for e in rt.query(q)])
+        q_s.append(time.perf_counter() - t1)
+    pts = data["ts"][batches * b - 1] + 1 + np.arange(probe_calls * AGJ_PROBES, dtype=np.int64)
+    sync()
+    t2 = time.perf_counter()
+    for c in range(probe_calls):
+        calls.append([])
+        lo, hi = c * AGJ_PROBES, (c + 1) * AGJ_PROBES
+        hp.send_columns(pts[lo:hi], {"symbol": probes[lo:hi]}, now=0)
+    sync()
+    probe_s = time.perf_counter() - t2
+    rt.shutdown()
+    mgr.shutdown()
+    return {"ingest_s": ingest_s, "query_rows": q_rows, "query_s": q_s, "calls": calls,
+            "probe_s": probe_s, "state": state, "tables": tables}
+
+
+def aggregation_path_phase(torch) -> dict:
+    """Paths AGG and AGJ: the reference's TradeAggregation shape for 1,000
+    instruments (agg_app: avg, sum, count, min and max of price and volume
+    group by symbol, aggregate by ts every sec ... year, @app:batch 32768,
+    @app:aggGroupCapacity 1024; the ts lane 1 ms every 32 events, so 1.024
+    s of event time a batch). AGG: AGG_BATCHES batches through send_columns
+    (the aggregation's stream runs per batch), K44 launches = the steps;
+    events/s; then the store queries AGG_QUERIES (a `per 'sec'` read of
+    every closed and in-flight second, a `within .. per 'min'` read), each
+    timed, one K45 launch each. AGJ: AGJ_CALLS calls of AGJ_PROBES probes
+    (seed-9 symbols) joining `TradeAgg within .. per 'sec'` on symbol, a
+    find (K45) and a probe compaction (K12) a step; rows and events/s.
+    Against device="cpu": the first batch's stores, duration tables and
+    store-query rows, and the first probe call's rows."""
+    from siddhi_tpu_torch import kernels
+
+    b = MAIN_BATCH
+    data, names = agg_data(AGG_BATCHES * b)
+    probes = np.random.default_rng(9).integers(1, PT_SYMBOLS + 1,
+                                               AGJ_CALLS * AGJ_PROBES).astype(np.int32)
+    app = agg_app()
+    run_agg("cuda", app, data, probes, b, 1, 1, names)  # warm-up
+    kernels.launches.clear()
+    run = run_agg("cuda", app, data, probes, b, AGG_BATCHES, 0, names, queries=())
+    ingest = dict(kernels.launches)
+    if ingest.get("agg_step", 0) != AGG_BATCHES:
+        raise AssertionError(f"path AGG: {ingest.get('agg_step', 0)} K44 launches for "
+                             f"{AGG_BATCHES} steps")
+    n_ev = AGG_BATCHES * b
+    closed = {k: int(v["valid"].sum()) for k, v in run["tables"].items()}
+    print(f"path AGG: {n_ev} events in {AGG_BATCHES} steps, {run['ingest_s']:.3f} s, "
+          f"{n_ev / run['ingest_s']:.1f} events/s; launches {json.dumps(ingest)}; closed rows "
+          f"{json.dumps(closed)}; open groups {run['state']['used'].sum(1).tolist()}",
+          flush=True)
+    kernels.launches.clear()
+    full = run_agg("cuda", app, data, probes, b, AGG_BATCHES, AGJ_CALLS, names)
+    launches = dict(kernels.launches)
+    finds = launches.get("agg_find_merge", 0)
+    if finds != len(AGG_QUERIES) + AGJ_CALLS or launches.get("join_assemble", 0) != AGJ_CALLS:
+        raise AssertionError(f"paths AGG/AGJ: {finds} K45 and {launches.get('join_assemble', 0)}"
+                             f" K12 launches for {len(AGG_QUERIES)} queries and {AGJ_CALLS} "
+                             "probe steps")
+    joined = sum(len(c) for c in full["calls"])
+    n_probe = AGJ_CALLS * AGJ_PROBES
+    if joined < n_probe:
+        raise AssertionError(f"path AGJ: {joined} rows for {n_probe} probes")
+    # the first batch and the first probe call against device="cpu"
+    one = {d: run_agg(d, app, data, probes, b, 1, 1, names) for d in ("cuda", "cpu")}
+    for part in ("state", "tables"):
+        same_tree_np(one["cuda"][part], one["cpu"][part], f"path AGG {part}")
+    for q, got, want in zip(AGG_QUERIES, one["cuda"]["query_rows"], one["cpu"]["query_rows"]):
+        if not want or not rows_match(got, want):
+            raise AssertionError(f"path AGG: `{q}` differs from device='cpu'")
+    if not one["cpu"]["calls"][0] or not rows_match(one["cuda"]["calls"][0],
+                                                     one["cpu"]["calls"][0]):
+        raise AssertionError("path AGJ: the first probe call differs from device='cpu'")
+    out = {"AGG": {"events": n_ev, "steps": AGG_BATCHES, "seconds": run["ingest_s"],
+                   "events_per_s": n_ev / run["ingest_s"], "launches": ingest,
+                   "closed_rows": closed, "store_query_ms": [x * 1e3 for x in full["query_s"]],
+                   "store_query_rows": [len(r) for r in full["query_rows"]]},
+           "AGJ": {"probes": n_probe, "calls": AGJ_CALLS, "rows": joined,
+                   "seconds": full["probe_s"], "events_per_s": n_probe / full["probe_s"],
+                   "launches": launches, "k45_per_step": 1, "k12_per_step": 1,
+                   "cpu_first_call_rows": len(one["cpu"]["calls"][0])}}
+    print(f"path AGG store queries: {[len(r) for r in full['query_rows']]} rows in "
+          f"{[round(x * 1e3, 3) for x in full['query_s']]} ms; path AGJ: {n_probe} probes in "
+          f"{AGJ_CALLS} calls, {joined} rows, {full['probe_s']:.3f} s, "
+          f"{n_probe / full['probe_s']:.1f} events/s, one K45 and one K12 a step; the first "
+          "batch's stores, tables and queries and the first probe call match device='cpu'",
+          flush=True)
+    return out
+
+
+def same_tree_np(got, want, what: str) -> None:
+    """Two numpy trees equal leaf for leaf (floats by their bits)."""
+    for g, w in zip(flat(got), flat(want), strict=True):
+        g, w = np.atleast_1d(np.asarray(g)), np.atleast_1d(np.asarray(w))
+        if g.shape != w.shape or g.dtype != w.dtype or not np.array_equal(
+                g.view(np.uint8) if g.dtype != bool else g,
+                w.view(np.uint8) if w.dtype != bool else w):
+            raise AssertionError(f"{what}: differs from device='cpu'")
+
+
 def verify_phase(dev) -> None:
     from siddhi_tpu_torch import SiddhiManager
 
@@ -4269,8 +4953,8 @@ def grouped_path_phase(torch) -> dict:
 
     for q in ("@store(type='memory') define table T (symbol string); "
               "from S select symbol insert into T",
-              "partition with (symbol of S) begin from S#window.lossyFrequent(0.1, 0.01, "
-              "symbol) select symbol insert into Out; end",
+              "define table T (symbol string); partition with (symbol of S) begin "
+              "from S[(T.symbol == symbol) in T] select symbol insert into Out; end",
               "define window W (symbol string) length(4); from S select symbol insert into W",
               "define trigger T at every 5 sec; from S select symbol insert into Out"):
         try:
@@ -4376,7 +5060,7 @@ def join_path_phase(torch) -> dict:
 
 def time_join_path_phase(torch) -> dict:
     """Path T: the same self-join over time(1 sec) windows under
-    @app:playback, joinCapacity 16384: 32,768 events of seed 7 through
+    @app:playback, joinCapacity 16384: 16,384 events of seed 7 through
     send_columns one batch of 8192 per call, the per-batch form (a query
     whose window needs the scheduler stays off the fused path); the
     event-time clock fires the TIMER rows before each call's batch; launch
@@ -5598,10 +6282,10 @@ TAB_LOAD = {"TAB-PK": (1.0, 1.0), "TAB-IX": (1.0, 1.0), "TAB-DENSE": (1.0, 1.0),
             "TAB-UPSERT": (0.5, 1.5), "TAB-JOIN": (1.0, 2.0)}
 TAB_N = {"TAB-PK": TAB_PK_ROWS, "TAB-IX": TAB_PK_ROWS, "TAB-DENSE": TAB_ROWS,
          "TAB-UPSERT": TAB_ROWS, "TAB-JOIN": TAB_JOIN_ROWS}
-# 64 batches a path, a 10-batch per-batch prefix and 2 batches against
+# 32 batches a path, a 10-batch per-batch prefix and 1 batch against
 # device="cpu" (128, 20 and 4 until the partitioned joins joined the
-# script's time)
-TAB_BATCHES, TAB_PREFIX, TAB_CALL, TAB_CPU_BATCHES, TAB_PK_CPU_ROWS = 64, 10, 8, 2, 65_536
+# script's time, 64 and 2 until the aggregation's did)
+TAB_BATCHES, TAB_PREFIX, TAB_CALL, TAB_CPU_BATCHES, TAB_PK_CPU_ROWS = 32, 10, 8, 1, 65_536
 
 
 def fused_steps(n: int, b: int, k: int = 32) -> int:
@@ -5694,12 +6378,12 @@ def run_table_path(dev: str, label: str, n: int, batch: int, n_batches: int, fus
 
 
 def table_path_phase(torch, label: str, expected) -> dict:
-    """One table path at its realistic size (TAB_N, B=8192): 64 batches
+    """One table path at its realistic size (TAB_N, B=8192): 32 batches
     fused, with the launch counts of this run alone (from 0 just before the
     app is built, through the load and the traffic) equal to
     `expected(load batches, batches)`; events/s and the device busy share of
     one more fused call; the table (and the callback rows) after a 10-batch
-    fused run equal to the per-batch form's; the first 2 batches against
+    fused run equal to the per-batch form's; the first batch against
     device="cpu" (TAB-PK and TAB-IX at capacity 65,536); the overflow flag logged
     where the path fills its table (TAB-UPSERT) and no other flag."""
     from siddhi_tpu_torch import kernels
@@ -6086,16 +6770,26 @@ def main() -> int:
         partition_windows_kernel_phase(torch, "cuda")
         partition_pattern_kernel_phase(torch, "cuda")
         partition_join_kernel_phase(torch, "cuda")
+        partition_special_kernel_phase(torch, "cuda")
         partition_path_phase(torch)
         partition_windows_path_phase(torch)
         partition_pattern_path_phase(torch)
         partition_join_path_phase(torch)
+        partition_special_path_phase(torch)
         return 0
     if "--partition-kernels" in sys.argv[1:]:
         partition_kernel_phase(torch, "cuda")
         partition_windows_kernel_phase(torch, "cuda")
         partition_pattern_kernel_phase(torch, "cuda")
         partition_join_kernel_phase(torch, "cuda")
+        partition_special_kernel_phase(torch, "cuda")
+        return 0
+    if "--aggregation" in sys.argv[1:]:
+        aggregation_kernel_phase(torch, "cuda")
+        lap("aggregation_kernel_phase")
+        if "--no-paths" not in sys.argv[1:]:
+            aggregation_path_phase(torch)
+            lap("paths AGG and AGJ")
         return 0
     if "--partition-patterns" in sys.argv[1:]:
         partition_pattern_kernel_phase(torch, "cuda")
@@ -6115,7 +6809,8 @@ def main() -> int:
                   pattern_kernel_phase, pattern_scan_kernel_phase, time_batch_kernel_phase,
                   table_kernel_phase, special_window_kernel_phase, partition_kernel_phase,
                   partition_windows_kernel_phase, partition_pattern_kernel_phase,
-                  partition_join_kernel_phase):
+                  partition_join_kernel_phase, partition_special_kernel_phase,
+                  aggregation_kernel_phase):
         res.update(phase(torch, "cuda"))
         lap(phase.__name__)
     if "--kernels" in sys.argv[1:]:
@@ -6155,6 +6850,10 @@ def main() -> int:
     lap("paths PPF, PPC and PPA")
     partition_joins = partition_join_path_phase(torch)
     lap("paths PJ, PSW and PFQ")
+    partition_specials = partition_special_path_phase(torch)
+    lap("paths PLF and PCR")
+    aggregations = aggregation_path_phase(torch)
+    lap("paths AGG and AGJ")
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -6247,7 +6946,15 @@ def main() -> int:
            "partition_sort_window_step": ("siddhi_tpu_torch/csrc/special_window.cu",
                                           "siddhi_tpu/core/windows_special.py:160"),
            "partition_frequent_window_step": ("siddhi_tpu_torch/csrc/special_window.cu",
-                                              "siddhi_tpu/core/windows_special.py:424")}
+                                              "siddhi_tpu/core/windows_special.py:424"),
+           "partition_lossy_frequent_window_step": ("siddhi_tpu_torch/csrc/special_window.cu",
+                                                    "siddhi_tpu/core/windows_special.py:543"),
+           "partition_cron_window_step": ("siddhi_tpu_torch/csrc/special_window.cu",
+                                          "siddhi_tpu/core/windows_special.py:298"),
+           "agg_step": ("siddhi_tpu_torch/csrc/aggregation.cu",
+                        "siddhi_tpu/core/aggregation.py:470"),
+           "agg_find_merge": ("siddhi_tpu_torch/csrc/aggregation.cu",
+                              "siddhi_tpu/core/aggregation.py:887")}
     # launches: K1-K5 from the quickstart path's run, K6-K9 from the
     # tumbling_groupby path's run, K10 from path T's run, K11 and K12 from
     # path J's, K13 and K15 from path P's, K14 from path C's, K16 from path
@@ -6291,6 +6998,12 @@ def main() -> int:
     path_of["partition_join_assemble"] = partition_joins["PJ"]["launches"]
     path_of["partition_sort_window_step"] = partition_joins["PSW"]["launches"]
     path_of["partition_frequent_window_step"] = partition_joins["PFQ"]["launches"]
+    # K42 from path PLF, K43 from PCR, K44 from AGG's ingest, K45 from AGG's
+    # store queries and AGJ's probe steps
+    path_of["partition_lossy_frequent_window_step"] = partition_specials["PLF"]["launches"]
+    path_of["partition_cron_window_step"] = partition_specials["PCR"]["launches"]
+    path_of["agg_step"] = aggregations["AGG"]["launches"]
+    path_of["agg_find_merge"] = aggregations["AGJ"]["launches"]
     path_launches = {k: path_of.get(k, main["launches"]).get(k, 0) for k in res}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
@@ -6328,6 +7041,16 @@ def main() -> int:
                    "partition_window_paths": partition_windows,
                    "partition_pattern_paths": partition_patterns,
                    "partition_join_paths": partition_joins,
+                   "partition_special_paths": partition_specials,
+                   "aggregation_paths": aggregations,
+                   "aggregation_kernel_shapes": {
+                       "agg_step_us_per_row": res["agg_step"]["us_per_row"],
+                       "agg_step_closes": res["agg_step"]["closes"],
+                       "agg_find_merge_per_ms": res["agg_find_merge"]["per_ms"],
+                       "partition_cron_timer_step": {
+                           k: res["partition_cron_window_step"][k]
+                           for k in ("timer_ms", "timer_plain_ms", "timer_rows",
+                                     "timer_bound_ms")}},
                    "partition_pattern_kernel_times": {
                        k: {x: res[k][x] for x in res[k] if x.endswith(("ms", "_bound_ms"))}
                        for k in PP_KERNELS},

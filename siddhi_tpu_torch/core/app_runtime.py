@@ -28,10 +28,13 @@ queries that need the scheduler stay off; in-memory tables (core/table.py,
 delete and update-or-insert outputs, read by `in` conditions and table join
 sides, and store queries (`query`, core/store_query.py); partitions
 (core/partition.py, `@app:partitionCapacity`) of single-stream queries with
-no window or any window of core/windows.py, group-by, order-by, limit and
-rate limiting, per batch, their timers reaching every partition. Everything
-else raises
-`SiddhiAppCreationError("... not ported yet")`.
+no window or any window (the special windows too), group-by, order-by,
+limit and rate limiting, of patterns and sequences and of joins, per batch,
+their timers reaching every partition; incremental aggregations
+(core/aggregation.py, `define aggregation`, `@app:aggGroupCapacity`),
+their duration tables, store queries over them (`within`/`per`) and
+aggregation join sides, each aggregation's input stream per batch.
+Everything else raises `SiddhiAppCreationError("... not ported yet")`.
 """
 
 from __future__ import annotations
@@ -87,7 +90,7 @@ _PORTED_APP_ANNOTATIONS = {"app:name", "app", "name", "app:description", "app:ba
                            "app:playback", "app:ingestchunk", "app:wire",
                            "app:groupcapacity", "app:joincapacity", "app:patterncapacity",
                            "app:countcapacity", "app:patternchunk", "app:tablecapacity",
-                           "app:partitioncapacity"}
+                           "app:partitioncapacity", "app:agggroupcapacity"}
 _UNPORTED_STREAM_ANNOTATIONS = {"onerror", "source", "sink", "async"}
 
 
@@ -110,7 +113,6 @@ class SiddhiAppRuntime:
         for kind, defs in (
             ("window", app.window_definitions),
             ("trigger", app.trigger_definitions),
-            ("aggregation", app.aggregation_definitions),
         ):
             if defs:
                 raise _not_ported(f"define {kind}")
@@ -196,6 +198,7 @@ class SiddhiAppRuntime:
             self._pipeline_conf[sid] = resolve_pipeline_annotation(
                 find_annotation(d.annotations, "pipeline")
             )
+        self._add_aggregations()
         # query and partition ids come from the one shared assignment, in
         # source order (core/partition.py builds each block)
         from siddhi_tpu_torch.core.partition import PartitionRuntime
@@ -222,6 +225,41 @@ class SiddhiAppRuntime:
             return int(v)
         except ValueError:
             raise SiddhiAppCreationError(f"@{name} size '{v}' must be an integer") from None
+
+    def _add_aggregations(self) -> None:
+        """Incremental aggregations (core/aggregation.py): each one's
+        duration tables join the app's tables (reference:
+        AggregationParser.java:701-708), and its input stream drives it per
+        batch (no fused endpoint), under the processing lock, with a TIMER
+        step at each finest bucket's end when it buckets by the events'
+        own timestamps."""
+        from siddhi_tpu_torch.core.aggregation import AggregationRuntime
+
+        groups = self._capacity_annotation("app:aggGroupCapacity", 64)
+        self.aggregations: dict[str, AggregationRuntime] = {}
+        for aid, ad in self.app.aggregation_definitions.items():
+            in_sid = ad.basic_single_input_stream.stream_id
+            in_schema = self.stream_schemas.get(in_sid)
+            if in_schema is None:
+                raise DefinitionNotExistError(
+                    f"aggregation '{aid}': stream '{in_sid}' is not defined")
+            ar = AggregationRuntime(ad, in_schema, self.interner, self.device,
+                                    group_capacity=groups)
+            self.aggregations[aid] = ar
+            for t in ar.tables.values():
+                self.tables[t.table_id] = t
+
+            def agg_receive(batch: EventBatch, now: int, _ar=ar) -> None:
+                with self._process_lock:
+                    aux = _ar.receive(batch, now)
+                self._schedule_at(aux.get("next_timer"), _ar.timer_target)
+
+            self._junction(in_sid).subscribe(agg_receive)
+
+            def agg_fire(t_ms: int, _schema=in_schema, _recv=agg_receive) -> None:
+                _recv(self._timer_batch(_schema, t_ms), t_ms)
+
+            ar.timer_target = agg_fire
 
     def _junction(self, stream_id: str) -> StreamJunction:
         j = self.junctions.get(stream_id)
@@ -314,18 +352,38 @@ class SiddhiAppRuntime:
 
     def _add_join_query(self, qid: str, query: Query) -> None:
         join = query.input_stream
+        # an aggregation side is its merged buckets for the join's per,
+        # masked by its within (reference: AggregationRuntime joins)
+        agg_findables = {}
+        for s in (join.left, join.right):
+            if s.stream_id in self.aggregations:
+                from siddhi_tpu_torch.core.aggregation import (
+                    AggFindable,
+                    parse_per,
+                    parse_within,
+                )
+                from siddhi_tpu_torch.query_api.expression import Constant
+
+                if join.per is None or not isinstance(join.per, Constant):
+                    raise SiddhiAppCreationError("joining an aggregation needs per '<duration>'")
+                within = parse_within(join.within)
+                agg_findables[s.stream_id] = AggFindable(
+                    self.aggregations[s.stream_id], parse_per(join.per.value), within)
         schemas = []
         for s in (join.left, join.right):
             sch = self.stream_schemas.get(s.stream_id)
             if sch is None and s.stream_id in self.tables:
                 sch = self.tables[s.stream_id].schema
+            if sch is None and s.stream_id in agg_findables:
+                sch = agg_findables[s.stream_id].schema
             if sch is None:
                 raise DefinitionNotExistError(
                     f"query '{qid}': join stream '{s.stream_id}' is not defined")
             schemas.append(sch)
         qr = JoinQueryRuntime(query, qid, schemas[0], schemas[1], self.interner, self.device,
                               group_capacity=self.group_capacity,
-                              join_capacity=self.join_capacity, tables=self.tables)
+                              join_capacity=self.join_capacity, tables=self.tables,
+                              findables={**self.tables, **agg_findables})
         self.queries[qid] = qr
         self._wire_insert(qr)
 
@@ -545,11 +603,13 @@ class SiddhiAppRuntime:
 
                 sqr = StoreQueryRuntime(SiddhiCompiler.parse_store_query(store_query),
                                         self.tables, self.interner, self.device,
-                                        group_capacity=self.group_capacity)
+                                        group_capacity=self.group_capacity,
+                                        aggregations=self.aggregations)
                 self._store_query_cache[store_query] = sqr
         else:
             sqr = StoreQueryRuntime(store_query, self.tables, self.interner, self.device,
-                                    group_capacity=self.group_capacity)
+                                    group_capacity=self.group_capacity,
+                                    aggregations=self.aggregations)
         with self._process_lock:
             return sqr.execute(self.clock())
 

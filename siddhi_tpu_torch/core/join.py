@@ -16,7 +16,9 @@ CPU. The view a probe reads is the other side's ring in insertion order
 (`SlidingWindow.view`, csrc/ring_view.cu), the open bucket of a lengthBatch
 window, nothing for a windowless side, or a table's live `(cols, ts, valid)`
 lanes for a table side (`TableSide`: a passive side that is probed and never
-triggers; reference: TableWindowProcessor). Named-window and aggregation
+triggers; reference: TableWindowProcessor), or an aggregation's merged
+buckets for the join's `per`, masked by its `within`
+(core/aggregation.py `AggFindable`, a find a probe step). Named-window
 sides are not ported yet: their definitions raise at app creation. Inside a
 partition (`CompiledJoin.step_partitioned`) every state leaf has a leading
 [P] axis: each probe row meets its own slot's view (csrc/partition_join.cu
@@ -332,6 +334,8 @@ class CompiledJoin:
         tables = tables or {}
 
         def make_side(stream, schema):
+            # a table or an aggregation's merged buckets (core/aggregation.py
+            # AggFindable): probed, never driven
             t = tables.get(stream.stream_id)
             return TableSide(stream, t) if t is not None else JoinSide(stream, schema, scope)
 
@@ -343,8 +347,6 @@ class CompiledJoin:
             raise SiddhiAppCreationError(
                 f"join sides must have distinct references; alias one: "
                 f"'from {self.left.stream_id} as a join ...'")
-        if join.within is not None or join.per is not None:
-            raise SiddhiAppCreationError("aggregation joins (within/per) are not ported yet")
         self.join_type = join.join_type
         self.out_capacity = int(out_capacity)
         if self.out_capacity < 1:
@@ -541,7 +543,8 @@ class JoinQueryRuntime(BaseQueryRuntime):
     def __init__(self, query: Query, query_id: str, left_schema: StreamSchema,
                  right_schema: StreamSchema, interner, device,
                  group_capacity: Optional[int] = None,
-                 join_capacity: int = DEFAULT_JOIN_CAPACITY, tables: Optional[dict] = None):
+                 join_capacity: int = DEFAULT_JOIN_CAPACITY, tables: Optional[dict] = None,
+                 findables: Optional[dict] = None):
         join = query.input_stream
         assert isinstance(join, JoinInputStream)
         self.query = query
@@ -558,7 +561,7 @@ class JoinQueryRuntime(BaseQueryRuntime):
         output_expired = query.output_stream.output_events is not OutputEventsFor.CURRENT
         self.join = CompiledJoin(join, left_schema, right_schema, scope,
                                  out_capacity=join_capacity, output_expired=output_expired,
-                                 tables=tables)
+                                 tables=tables if findables is None else findables)
         combined_attrs = list(left_schema.attrs) + list(right_schema.attrs)
         self.selector = CompiledSelector(query.selector, scope, combined_attrs,
                                          group_capacity=group_capacity)

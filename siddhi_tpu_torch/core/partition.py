@@ -36,15 +36,16 @@ fresh table stamped with the step's clock, TIMER steps over every slot
 holding a key (core/pattern_runtime.py `_keyed_step_impl`, K34-K37).
 Joins run per key (`PartitionedJoinQueryRuntime`): two plain streams with
 a key, or one stream joined with itself, each side's window [P]-tiled (no
-window, length, externalTime, lengthBatch, sort or frequent; time-driven
-sides refused as in JAX), a row probing only its own slot's view of the
-other side (K38), the matches compacted per slot and placed by (position,
-slot) (K39), the selector run per partition. The sort and frequent windows
-run keyed by slot (K40, K41) in single-stream queries and on join sides.
-The lossyFrequent and cron windows and `in <table>` conditions inside a
-partition raise "not ported yet"; an `#inner` output of a join or a
-pattern is refused as in JAX. Partitioned streams run per batch (no fused
-endpoint).
+window, length, externalTime, lengthBatch, sort, frequent or
+lossyFrequent; time-driven sides refused as in JAX), a row probing only
+its own slot's view of the other side (K38), the matches compacted per
+slot and placed by (position, slot) (K39), the selector run per
+partition. The sort, frequent, lossyFrequent and cron windows run keyed
+by slot (K40-K43); a cron window's next fire comes from its expression
+once for every partition, and its TIMER rows reach every slot.
+`in <table>` conditions inside a partition raise "not ported yet"; an
+`#inner` output of a join or a pattern is refused as in JAX. Partitioned
+streams run per batch (no fused endpoint).
 """
 
 from __future__ import annotations
@@ -65,7 +66,12 @@ from siddhi_tpu_torch.core.pattern_runtime import PatternPartition, PatternQuery
 from siddhi_tpu_torch.core.query_runtime import QueryRuntime
 from siddhi_tpu_torch.core.types import AttrType
 from siddhi_tpu_torch.core.windows import BatchWindow, SlidingWindow
-from siddhi_tpu_torch.core.windows_special import FrequentWindow, SortWindow
+from siddhi_tpu_torch.core.windows_special import (
+    CronWindow,
+    FrequentWindow,
+    LossyFrequentWindow,
+    SortWindow,
+)
 from siddhi_tpu_torch.ops.group import assign_slots
 from siddhi_tpu_torch.query_api.execution import (
     DeleteStream,
@@ -82,8 +88,9 @@ from siddhi_tpu_torch.query_api.execution import (
 )
 
 DEFAULT_PARTITIONS = 32
-# the windows with a keyed step (K29, K31, K32, K40, K41)
-_KEYED_WINDOWS = (SlidingWindow, BatchWindow, SortWindow, FrequentWindow)
+# the windows with a keyed step (K29, K31, K32, K40-K43)
+_KEYED_WINDOWS = (SlidingWindow, BatchWindow, SortWindow, FrequentWindow, LossyFrequentWindow,
+                  CronWindow)
 
 
 def _not_ported(what: str) -> SiddhiAppCreationError:
@@ -501,7 +508,7 @@ class PartitionRuntime:
             def recv_inner(batch, ctx, now, _qr=qr):
                 out_b, out_ctx = _qr.receive_inner(batch, ctx, now)
                 self._route(_qr, out_b, out_ctx, now)
-                app._schedule_at(_qr.next_timer, _qr.timer_targets.get("in"))
+                self._arm(_qr, _qr.next_timer)
 
             self.inner_subscribers[stream.stream_id].append(recv_inner)
             if qr.uses_scheduler:
@@ -524,7 +531,7 @@ class PartitionRuntime:
                     self.ptable, out_b, out_ctx = _qr.receive_partitioned(self.ptable, batch, now)
                     self._route(_qr, out_b, out_ctx, now)
                     next_timer = _qr.next_timer
-                app._schedule_at(next_timer, _qr.timer_targets.get("in"))
+                self._arm(_qr, next_timer)
 
             # no fused endpoint: the stream runs per batch
             app._junction(stream.stream_id).subscribe(receive)
@@ -639,6 +646,16 @@ class PartitionRuntime:
                 app._schedule_at(next_timer, _qr.timer_targets.get("timer"))
 
             qr.timer_targets["timer"] = fire
+
+    def _arm(self, qr: PartitionedQueryRuntime, next_timer) -> None:
+        """Schedule a query's next TIMER step: a cron window's next fire
+        from its expression (one for every partition), else the step's
+        next timer."""
+        target = qr.timer_targets.get("in")
+        if qr.host_next_timer is not None:
+            self.app._notify(qr.host_next_timer(self.app.clock()), target)
+        else:
+            self.app._schedule_at(next_timer, target)
 
     def _route(self, qr: PartitionedQueryRuntime, out: EventBatch, ctx: GroupCtx,
                now: int) -> None:

@@ -5,8 +5,11 @@ Update/Delete store-query runtimes, cached per query string by
 SiddhiAppRuntime.java:272-299. As in the JAX package (siddhi_tpu/core/
 store_query.py), a pull orders the table's rows by insertion, applies the
 on-condition, runs the selector in batch mode (one row per group key) and
-applies any table write-back (core/table.py), all on the app's device.
-Store queries over named windows and aggregations are not ported yet.
+applies any table write-back (core/table.py), all on the app's device. A
+store query over an aggregation (`from A within .. per '<duration>'`)
+reads its find (core/aggregation.py: the duration table's closed buckets,
+then the in-flight ones merged by K45), masked by `within`. Store queries
+over named windows are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,14 +34,45 @@ class StoreQueryRuntime:
     """Compiled pull query over one table source (or none: a constant row
     inserted into a table)."""
 
-    def __init__(self, sq: StoreQuery, tables: dict, interner, device, group_capacity=None):
+    def __init__(self, sq: StoreQuery, tables: dict, interner, device, group_capacity=None,
+                 aggregations: dict | None = None):
         store = sq.input_store
         self.device = torch.device(device)
         self.no_from = store is None
         if self.no_from and sq.output_stream is None:
             raise SiddhiAppCreationError(
                 "a store query needs a 'from <store>' clause or an insert/update/delete output")
-        if self.no_from:
+        aggregations = aggregations or {}
+        self.aggregation = aggregations.get(store.store_id) if store is not None else None
+        self.per = self.within = None
+        if self.aggregation is not None:
+            from siddhi_tpu_torch.core.aggregation import parse_per, parse_within_value
+            from siddhi_tpu_torch.query_api.expression import Constant
+
+            if store.per is None:
+                raise SiddhiAppCreationError(
+                    "aggregation store queries need a per '<duration>' clause")
+            if not isinstance(store.per, Constant):
+                raise SiddhiAppCreationError("'per' must be a constant duration")
+            self.per = parse_per(store.per.value)
+            if store.within is not None:
+                w1, w2 = store.within
+                if not isinstance(w1, Constant) or (w2 is not None
+                                                    and not isinstance(w2, Constant)):
+                    raise SiddhiAppCreationError("'within' operands must be constants")
+                if w2 is None:
+                    self.within = parse_within_value(w1.value)
+                else:
+                    self.within = (parse_within_value(w1.value)[0],
+                                   parse_within_value(w2.value)[0])
+                if self.within[0] >= self.within[1]:
+                    # reference: StoreQueryCreationException for an empty or
+                    # inverted range
+                    raise SiddhiAppCreationError(
+                        "'within' start time must be before the end time")
+            table = self.aggregation
+            source_schema = self.aggregation.out_schema
+        elif self.no_from:
             # `select <constants> insert into T;` — one synthetic row
             # (reference: InsertStoreQueryRuntime)
             table = None
@@ -48,7 +82,7 @@ class StoreQueryRuntime:
             if table is None:
                 raise DefinitionNotExistError(
                     f"'{store.store_id}' is not a defined table (store queries over named "
-                    "windows and aggregations are not ported yet)")
+                    "windows are not ported yet)")
             if store.within is not None or store.per is not None:
                 raise SiddhiAppCreationError("'within'/'per' apply to aggregation store queries")
             source_schema = table.schema
@@ -87,6 +121,8 @@ class StoreQueryRuntime:
             return EventBatch(ts=now.reshape(1).clone(), kind=torch.zeros(1, dtype=torch.int8,
                                                                           device=dev),
                               valid=torch.ones(1, dtype=torch.bool, device=dev), cols={})
+        if self.aggregation is not None:
+            return self.aggregation.find(self.per, self.within)
         st = self.table.state
         # iterate in insertion order (reference: holder iteration order)
         order = torch.argsort(torch.where(st["valid"], st["seq"], _MAX64), stable=True)

@@ -12,10 +12,10 @@ batch's rows in order into a fixed-capacity emission buffer: one
 hand-written CUDA kernel a step on the card (K25-K28, ops/special_window.py,
 csrc/special_window.cu). None of these windows sets a lazy membership
 (birth/death positions): aggregators downstream take their running forms.
-Inside a partition the sort and frequent windows' lanes gain a leading [P]
-axis and one step runs every partition's window at once by the rows' slots
-(ops/partition.py K40, K41), the rows out in (position, slot) order; the
-lossyFrequent and cron windows are not ported there yet.
+Inside a partition every window's lanes gain a leading [P] axis and one
+step runs every partition's window at once by the rows' slots
+(ops/partition.py K40-K43), the rows out in (position, slot) order; a
+TIMER row reaches every partition's cron window.
 """
 
 from __future__ import annotations
@@ -30,7 +30,9 @@ from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType
 from siddhi_tpu_torch.core.windows import WindowStage
 from siddhi_tpu_torch.ops.group import mix_keys
 from siddhi_tpu_torch.ops.partition import (
+    partition_cron_window_step,
     partition_frequent_window_step,
+    partition_lossy_frequent_window_step,
     partition_sort_window_step,
 )
 from siddhi_tpu_torch.ops.special_window import (
@@ -157,6 +159,10 @@ class CronWindow(WindowStage):
         }
 
     def apply(self, state, flow: Flow):
+        if flow.partition is not None:  # every partition's window at once (K43)
+            ctx = flow.partition
+            return _keyed_flow(partition_cron_window_step(
+                state, flow.batch, ctx.slot, flow.now, self.w, ctx.capacity), flow)
         st, out, ovf = cron_window_step(state, flow.batch, flow.now, self.w)
         return st, _out_flow(out, flow, ovf)
 
@@ -232,6 +238,11 @@ class LossyFrequentWindow(WindowStage):
     def apply(self, state, flow: Flow):
         b = flow.batch
         key = _key_col(b.cols, self.schema.attrs, self.key_attrs).expand(b.ts.shape).contiguous()
+        if flow.partition is not None:  # every partition's window at once (K42)
+            ctx = flow.partition
+            return _keyed_flow(partition_lossy_frequent_window_step(
+                state, b, key, ctx.slot, flow.now, self.cap_keys, self.width, self.support,
+                self.error, ctx.capacity), flow)
         st, out, ovf = lossy_frequent_window_step(state, b, key, flow.now, self.cap_keys,
                                                   self.width, self.support, self.error)
         return st, _out_flow(out, flow, ovf)

@@ -1,4 +1,5 @@
-// K25-K28: the sort, frequent, lossyFrequent and cron window steps.
+// K25-K28: the sort, frequent, lossyFrequent and cron window steps (K40-K43:
+// the same inside a partition).
 //
 // Each of these windows is a per-arrival state machine: an arrival may evict
 // a victim that depends on every earlier arrival (the sort order, the
@@ -31,7 +32,11 @@
 // `frequent_arrive`), its slot lanes in a global scratch and its emissions
 // in its own stretch; the wrapper then places the stretches by (position,
 // slot). Slots run in parallel, so a step takes the walk of its busiest
-// slot, not of the batch.
+// slot, not of the batch. K42/K43 do the same for the lossyFrequent and cron
+// windows (`lossy_arrive`, K27's per-arrival code with the slot's own total,
+// its key table in shared memory when four fit in a block; `cron_row`, K28's
+// per-row code, now walked by a warp, over the slot's rows merged with the
+// batch's TIMER rows, which reach every slot).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -646,6 +651,115 @@ __global__ void pfrequent_kernel(int W, int P, int slot_bytes, const int64_t* ts
   }
 }
 
+// The slot lanes of one lossyFrequent window as its walk sees them: keys,
+// counts, buckets, sources and occupied flags, the occupied count and the
+// window's own total.
+struct LossySlots {
+  long long* skey;
+  long long* scnt;
+  long long* sbkt;
+  int* ssrc;
+  unsigned char* socc;
+  int C;
+  int occ_count;
+  long long total;
+};
+
+// Point s at its lanes in `base` (16-byte aligned) and load them from a
+// window's state at element off: slot j's source is src0 + j.
+__device__ __forceinline__ void lossy_slots_load(LossySlots& s, char* base, int C, long long off,
+                                                 const bool* occ, const int64_t* skey_in,
+                                                 const int64_t* cnt, const int64_t* bucket,
+                                                 long long total, int src0, int lane,
+                                                 int stride) {
+  s.skey = (long long*)base;
+  s.scnt = s.skey + C;
+  s.sbkt = s.scnt + C;
+  s.ssrc = (int*)(s.sbkt + C);
+  s.socc = (unsigned char*)(s.ssrc + C);
+  s.C = C;
+  s.total = total;
+  for (int j = lane; j < C; j += stride) {
+    s.skey[j] = skey_in[off + j];
+    s.scnt[j] = cnt[off + j];
+    s.sbkt[j] = bucket[off + j];
+    s.ssrc[j] = src0 + j;
+    s.socc[j] = occ[off + j] ? 1 : 0;
+  }
+}
+
+__device__ __forceinline__ void lossy_slots_count(LossySlots& s, int lane) {
+  int occ_count = 0;
+  for (int j = lane; j < s.C; j += 32) occ_count += s.socc[j];
+  for (int d = 16; d > 0; d >>= 1) occ_count += __shfl_xor_sync(kFull, occ_count, d);
+  s.occ_count = occ_count;
+}
+
+// One CURRENT arrival with key kk through a lossyFrequent window
+// (windows_special.py's scan body): the total grows by one; the key's slot
+// is the first occupied slot holding it, else the first free slot (its
+// bucket the current one less one), else the row is lost (flag set); a
+// kept arrival whose count meets (s - e) * total leaves as a CURRENT row
+// (source asrc); at each bucket boundary the slots with cnt + bucket <=
+// the current bucket leave as EXPIRED rows at t_now, in slot order. Every
+// lane of one warp calls it.
+__device__ __forceinline__ void lossy_arrive(LossySlots& s, Out& o, long long kk, long long ats,
+                                             int asrc, long long t_now, long long width,
+                                             float support_minus_error) {
+  const int lane = threadIdx.x & 31;
+  const int C = s.C;
+  const long long total = ++s.total;
+  const long long cur_bucket = total <= 1 ? 1 : (total + width - 1) / width;
+  int slot = warp_first(C, [&](int j) { return s.socc[j] && s.skey[j] == kk; });
+  const bool exists = slot >= 0;
+  bool insert = false;
+  if (!exists) {
+    if (s.occ_count < C) {
+      slot = warp_first(C, [&](int j) { return !s.socc[j]; });
+      insert = true;
+    } else {
+      o.ovf = true;  // no slot for a new key: the row is lost
+    }
+  }
+  if (exists || insert) {
+    if (lane == 0) {
+      s.scnt[slot] = exists ? s.scnt[slot] + 1 : 1;
+      if (insert) s.sbkt[slot] = cur_bucket - 1;
+      s.socc[slot] = 1;
+      s.skey[slot] = kk;
+      s.ssrc[slot] = asrc;
+      // (s - e) * total in float32, as the JAX package multiplies a
+      // float32 total by the weakly typed (s - e): no contraction
+      const float need = __fmul_rn(support_minus_error, __ll2float_rn(total));
+      if (__ll2float_rn(s.scnt[slot]) >= need) o.append(asrc, ats, kCurrent);
+    }
+    o.n = __shfl_sync(kFull, o.n, 0);
+    o.ovf = __shfl_sync(kFull, (int)o.ovf, 0) != 0;
+    if (insert) ++s.occ_count;
+    __syncwarp();
+  }
+  if (total % width == 0) {
+    // bucket boundary: prune cnt + bucket <= cur_bucket, in slot order
+    s.occ_count -= warp_emit(
+        o, C, s.ssrc, t_now, kExpired,
+        [&](int j) { return s.socc[j] && s.scnt[j] + s.sbkt[j] <= cur_bucket; },
+        [&](int j) { s.socc[j] = 0; });
+  }
+}
+
+__device__ __forceinline__ void lossy_slots_store(const LossySlots& s, long long off, int lane,
+                                                  int stride, int32_t* new_src, bool* new_occ,
+                                                  int64_t* new_key, int64_t* new_cnt,
+                                                  int64_t* new_bucket) {
+  for (int j = lane; j < s.C; j += stride) {
+    new_src[off + j] = s.ssrc[j];
+    new_occ[off + j] = s.socc[j] != 0;
+    new_key[off + j] = s.skey[j];
+    new_cnt[off + j] = s.scnt[j];
+    new_bucket[off + j] = s.sbkt[j];
+  }
+}
+
 __global__ void lossy_kernel(int B, int C, long long width, float support_minus_error,
                              const bool* valid, const int8_t* kind, const int64_t* ts,
                              const int64_t* key, const bool* occ, const int64_t* skey_in,
@@ -660,30 +774,15 @@ __global__ void lossy_kernel(int B, int C, long long width, float support_minus_
   unsigned char* tflag = (unsigned char*)(tts + kTile);
   char* sbase = slots_in_smem ? (char*)(tflag + kTile) : gslots;
   sbase = (char*)(((uintptr_t)sbase + 15) & ~(uintptr_t)15);
-  long long* skey = (long long*)sbase;
-  long long* scnt = skey + C;
-  long long* sbkt = scnt + C;
-  int* ssrc = (int*)(sbkt + C);
-  unsigned char* socc = (unsigned char*)(ssrc + C);
 
   Out o{out_src, out_ts, out_kind, out_valid, B + C, 0, false};
   clear_out(o);
-  for (int j = threadIdx.x; j < C; j += blockDim.x) {
-    skey[j] = skey_in[j];
-    scnt[j] = cnt[j];
-    sbkt[j] = bucket[j];
-    ssrc[j] = j;
-    socc[j] = occ[j] ? 1 : 0;
-  }
+  LossySlots s;
+  lossy_slots_load(s, sbase, C, 0, occ, skey_in, cnt, bucket, *total_in, 0, threadIdx.x,
+                   blockDim.x);
   __syncthreads();
   const long long t_now = *now;
-  const int lane = threadIdx.x & 31;
-  long long total = *total_in;
-  int occ_count = 0;
-  if (threadIdx.x < 32) {
-    for (int j = lane; j < C; j += 32) occ_count += socc[j];
-    for (int d = 16; d > 0; d >>= 1) occ_count += __shfl_xor_sync(kFull, occ_count, d);
-  }
+  if (threadIdx.x < 32) lossy_slots_count(s, threadIdx.x & 31);
   for (int base = 0; base < B; base += kTile) {
     const int rows = B - base < kTile ? B - base : kTile;
     __syncthreads();
@@ -697,57 +796,61 @@ __global__ void lossy_kernel(int B, int C, long long width, float support_minus_
     if (threadIdx.x >= 32) continue;
     for (int t = 0; t < rows; ++t) {
       if (tflag[t] != 1) continue;
-      const int r = base + t;
-      const long long kk = tkey[t];
-      ++total;
-      const long long cur_bucket = total <= 1 ? 1 : (total + width - 1) / width;
-      int slot = warp_first(C, [&](int s) { return socc[s] && skey[s] == kk; });
-      const bool exists = slot >= 0;
-      bool insert = false;
-      if (!exists) {
-        if (occ_count < C) {
-          slot = warp_first(C, [&](int s) { return !socc[s]; });
-          insert = true;
-        } else {
-          o.ovf = true;  // no slot for a new key: the row is lost
-        }
-      }
-      if (exists || insert) {
-        if (lane == 0) {
-          scnt[slot] = exists ? scnt[slot] + 1 : 1;
-          if (insert) sbkt[slot] = cur_bucket - 1;
-          socc[slot] = 1;
-          skey[slot] = kk;
-          ssrc[slot] = C + r;
-          // (s - e) * total in float32, as the JAX package multiplies a
-          // float32 total by the weakly typed (s - e): no contraction
-          const float need = __fmul_rn(support_minus_error, __ll2float_rn(total));
-          if (__ll2float_rn(scnt[slot]) >= need) o.append(C + r, tts[t], kCurrent);
-        }
-        o.n = __shfl_sync(kFull, o.n, 0);
-        o.ovf = __shfl_sync(kFull, (int)o.ovf, 0) != 0;
-        if (insert) ++occ_count;
-        __syncwarp();
-      }
-      if (total % width == 0) {
-        // bucket boundary: prune cnt + bucket <= cur_bucket, in slot order
-        occ_count -= warp_emit(o, C, ssrc, t_now, kExpired,
-                               [&](int s) { return socc[s] && scnt[s] + sbkt[s] <= cur_bucket; },
-                               [&](int s) { socc[s] = 0; });
-      }
+      lossy_arrive(s, o, tkey[t], tts[t], C + base + t, t_now, width, support_minus_error);
     }
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < C; j += blockDim.x) {
-    new_src[j] = ssrc[j];
-    new_occ[j] = socc[j] != 0;
-    new_key[j] = skey[j];
-    new_cnt[j] = scnt[j];
-    new_bucket[j] = sbkt[j];
-  }
+  lossy_slots_store(s, 0, threadIdx.x, blockDim.x, new_src, new_occ, new_key, new_cnt,
+                    new_bucket);
   if (threadIdx.x == 0) {
-    *new_total = total;
+    *new_total = s.total;
     *ovf = o.ovf;
+  }
+}
+
+// K42: the lossyFrequent window of every partition at once, as
+// pfrequent_kernel: a warp a slot with `lossy_arrive` and the slot's own
+// total; its key table in shared memory when kSlotWarps of them fit
+// (slots_in_smem), else in its stretch of the global scratch; its
+// emissions into its stretch at 2 * slot_start[p] + p * C (its CURRENT
+// rows and at most C + rows pruned: 2 * rows + C), capped at B + C as the
+// JAX package's per-partition buffer is.
+__global__ void plossy_kernel(int B, int C, int P, long long width, float support_minus_error,
+                              int slot_bytes, int slots_in_smem, const int64_t* ts,
+                              const int64_t* key, const int32_t* rowlist,
+                              const int32_t* slot_start, const bool* occ,
+                              const int64_t* skey_in, const int64_t* cnt, const int64_t* bucket,
+                              const int64_t* total_in, const int64_t* now, char* gslots,
+                              int32_t* out_src, int64_t* out_ts, int8_t* out_kind,
+                              bool* out_valid, int32_t* n_slot, int32_t* new_src, bool* new_occ,
+                              int64_t* new_key, int64_t* new_cnt, int64_t* new_bucket,
+                              int64_t* new_total, bool* ovf) {
+  extern __shared__ __align__(16) char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int p = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (p >= P) return;
+  const int lane = threadIdx.x & 31;
+  const long long off = (long long)p * C;
+  const int lo = slot_start[p], hi = slot_start[p + 1];
+  char* base = slots_in_smem ? smem + (size_t)warp * slot_bytes : gslots + (size_t)p * slot_bytes;
+  LossySlots s;
+  lossy_slots_load(s, base, C, off, occ, skey_in, cnt, bucket, total_in[p], (int)off, lane, 32);
+  __syncwarp();
+  lossy_slots_count(s, lane);
+  const long long o0 = 2LL * lo + off;
+  const int stretch = 2 * (hi - lo) + C;
+  Out o{out_src + o0, out_ts + o0, out_kind + o0, out_valid + o0,
+        stretch < B + C ? stretch : B + C, 0, false};
+  const long long t_now = *now;
+  for (int i = lo; i < hi; ++i) {
+    const int r = rowlist[i];
+    lossy_arrive(s, o, key[r], ts[r], P * C + r, t_now, width, support_minus_error);
+  }
+  lossy_slots_store(s, off, lane, 32, new_src, new_occ, new_key, new_cnt, new_bucket);
+  if (lane == 0) {
+    new_total[p] = s.total;
+    n_slot[p] = o.n;
+    if (o.ovf) *ovf = true;
   }
 }
 
@@ -755,10 +858,84 @@ __global__ void lossy_kernel(int B, int C, long long width, float support_minus_
 // K28: cron
 // ---------------------------------------------------------------------------
 
-// src index space: [cur slots (W) | prev slots (W) | batch rows (B)]
-__device__ __forceinline__ long long cron_ts(int s, int W, const int64_t* cur_ts,
-                                             const int64_t* prev_ts, const int64_t* ts) {
-  return s < 0 ? 0 : s < W ? cur_ts[s] : s < 2 * W ? prev_ts[s - W] : ts[s - 2 * W];
+// The src index space: [open buckets (n0) | previous buckets (n1) | batch
+// rows]: n0 = n1 = W for one window, P * W for every partition's.
+struct CronSrc {
+  const int64_t* cur_ts;
+  const int64_t* prev_ts;
+  const int64_t* ts;
+  long long n0, n1;
+
+  __device__ __forceinline__ long long ts_of(int s) const {
+    return s < 0 ? 0 : s < n0 ? cur_ts[s] : s < n0 + n1 ? prev_ts[s - n0] : ts[s - n0 - n1];
+  }
+};
+
+// One cron window's buffers as its walk sees them: the sources of the open
+// bucket's and the previous bucket's W slots (bufs[cur] the open one) and
+// their counts.
+struct CronSlot {
+  int* bufs[2];
+  int cur;
+  int cur_n;
+  int prev_n;
+  int W;
+};
+
+// Append k rows in order (row i: source src_of(i), ts ts_of(i), kind kd)
+// by the lanes of one warp; rows past the capacity are dropped and set the
+// flag, as k calls of Out::append would.
+template <typename S, typename T>
+__device__ __forceinline__ void warp_append_n(Out& o, int k, int8_t kd, S src_of, T ts_of) {
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < k; i += 32) {
+    const int pos = o.n + i;
+    if (pos < o.cap) {
+      o.src[pos] = src_of(i);
+      o.ts[pos] = ts_of(i);
+      o.kind[pos] = kd;
+      o.valid[pos] = true;
+    }
+  }
+  if (o.n + k > o.cap) o.ovf = true;
+  o.n = o.n + k < o.cap ? o.n + k : o.cap;
+  __syncwarp();
+}
+
+// One row through a cron window (windows_special.py's scan body), by every
+// lane of one warp: a TIMER row (flag 2) with a non-empty open bucket
+// flushes it (the previous bucket EXPIRED at t_now, one RESET from the
+// previous bucket's slot 0, the bucket CURRENT with its rows' own ts; the
+// bucket becomes the previous one and the open bucket empties); a CURRENT
+// row (flag 1) joins the open bucket as source row_src, or is lost with
+// the flag set when the bucket is full.
+__device__ __forceinline__ void cron_row(CronSlot& s, Out& o, int flag, int row_src,
+                                         long long t_now, const CronSrc& src) {
+  const int lane = threadIdx.x & 31;
+  if (flag == 2 && s.cur_n > 0) {
+    const int* pv = s.bufs[s.cur ^ 1];
+    const int* cv = s.bufs[s.cur];
+    warp_append_n(o, s.prev_n, kExpired, [&](int j) { return pv[j]; },
+                  [&](int) { return t_now; });
+    const int r0 = pv[0];
+    warp_append_n(o, 1, kReset, [&](int) { return r0; }, [&](int) { return t_now; });
+    warp_append_n(o, s.cur_n, kCurrent, [&](int j) { return cv[j]; },
+                  [&](int j) { return src.ts_of(cv[j]); });
+    s.cur ^= 1;  // the bucket becomes the previous one; the new bucket is zeros
+    int* fresh = s.bufs[s.cur];
+    for (int j = lane; j < s.W; j += 32) fresh[j] = -1;
+    __syncwarp();
+    s.prev_n = s.cur_n;
+    s.cur_n = 0;
+  } else if (flag == 1) {
+    if (s.cur_n < s.W) {
+      if (lane == 0) s.bufs[s.cur][s.cur_n] = row_src;
+      ++s.cur_n;
+      __syncwarp();
+    } else {
+      o.ovf = true;
+    }
+  }
 }
 
 __global__ void cron_kernel(int B, int W, const bool* valid, const int8_t* kind,
@@ -771,18 +948,17 @@ __global__ void cron_kernel(int B, int W, const bool* valid, const int8_t* kind,
   extern __shared__ __align__(16) char smem[];
   unsigned char* tflag = (unsigned char*)smem;
   int* sl = slots_in_smem ? (int*)(smem + kTile) : gslots;
-  int* bufs[2] = {sl, sl + W};  // the open bucket's and the previous one's src
 
   Out o{out_src, out_ts, out_kind, out_valid, B + 2 * (2 * W + 1), 0, false};
   clear_out(o);
+  CronSlot s{{sl, sl + W}, 0, *cur_n_in, *prev_n_in, W};
   for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    bufs[0][j] = j;
-    bufs[1][j] = W + j;
+    s.bufs[0][j] = j;
+    s.bufs[1][j] = W + j;
   }
   __syncthreads();
+  const CronSrc src{cur_ts, prev_ts, ts, W, W};
   const long long t_now = *now;
-  int cur_n = *cur_n_in, prev_n = *prev_n_in;
-  int cur = 0;  // which of bufs is the open bucket
   for (int base = 0; base < B; base += kTile) {
     const int rows = B - base < kTile ? B - base : kTile;
     __syncthreads();
@@ -790,48 +966,78 @@ __global__ void cron_kernel(int B, int W, const bool* valid, const int8_t* kind,
       tflag[t] = (unsigned char)row_flags(valid, kind, base + t);
     }
     __syncthreads();
-    if (threadIdx.x != 0) continue;
-    for (int t = 0; t < rows; ++t) {
-      const int f = tflag[t];
-      if (f == 2 && cur_n > 0) {
-        // a fire with a non-empty bucket: the previous bucket EXPIRED, one
-        // RESET (the previous bucket's slot 0), the bucket CURRENT
-        const int* pv = bufs[cur ^ 1];
-        int* cv = bufs[cur];
-        for (int j = 0; j < prev_n; ++j) o.append(pv[j], t_now, kExpired);
-        o.append(pv[0], t_now, kReset);
-        for (int j = 0; j < cur_n; ++j) {
-          o.append(cv[j], cron_ts(cv[j], W, cur_ts, prev_ts, ts), kCurrent);
-        }
-        cur ^= 1;  // the bucket becomes the previous one; the new bucket is zeros
-        int* fresh = bufs[cur];
-        for (int j = 0; j < W; ++j) fresh[j] = -1;
-        prev_n = cur_n;
-        cur_n = 0;
-      } else if (f == 1) {
-        if (cur_n < W) {
-          bufs[cur][cur_n++] = 2 * W + base + t;
-        } else {
-          o.ovf = true;
-        }
-      }
-    }
+    if (threadIdx.x >= 32) continue;  // warp 0 walks the rows
+    for (int t = 0; t < rows; ++t) cron_row(s, o, tflag[t], 2 * W + base + t, t_now, src);
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     // publish which buffer ended as the open bucket
-    tflag[0] = (unsigned char)cur;
+    tflag[0] = (unsigned char)s.cur;
   }
   __syncthreads();
   const int c = tflag[0];
   for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    new_cur_src[j] = bufs[c][j];
-    new_prev_src[j] = bufs[c ^ 1][j];
+    new_cur_src[j] = s.bufs[c][j];
+    new_prev_src[j] = s.bufs[c ^ 1][j];
   }
   if (threadIdx.x == 0) {
-    *new_cur_n = cur_n;
-    *new_prev_n = prev_n;
+    *new_cur_n = s.cur_n;
+    *new_prev_n = s.prev_n;
     *ovf = o.ovf;
+  }
+}
+
+// K43: the cron window of every partition at once. A warp a slot walks the
+// slot's member rows merged with the batch's TIMER rows (every slot sees
+// each TIMER row), in row order, with `cron_row`; its buffers in its
+// stretch of the global scratch (2 * W sources); its emissions into its
+// stretch at off[p], cap[p] rows (the wrapper's bound: at most one flush
+// of 2W + 1 rows a TIMER row, and only while a row has arrived since the
+// last, capped at B + 2(2W + 1) as the JAX package's per-partition
+// buffer). A source is open-bucket element p*W + j, previous-bucket element
+// P*W + p*W + j or batch row 2*P*W + r. A slot with neither member nor
+// TIMER rows keeps its state.
+__global__ void pcron_kernel(int W, int P, const int64_t* ts, const int32_t* rowlist,
+                             const int32_t* slot_start, const int32_t* timers,
+                             const int32_t* info, const int64_t* cur_ts,
+                             const int32_t* cur_n_in, const int64_t* prev_ts,
+                             const int32_t* prev_n_in, const int64_t* now, const int64_t* off,
+                             const int32_t* cap, int32_t* gslots, int32_t* out_src,
+                             int64_t* out_ts, int8_t* out_kind, bool* out_valid, int32_t* n_slot,
+                             int32_t* new_cur_src, int32_t* new_prev_src, int32_t* new_cur_n,
+                             int32_t* new_prev_n, bool* ovf) {
+  const int p = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (p >= P) return;
+  const int lane = threadIdx.x & 31;
+  const long long pw = (long long)P * W, e0 = (long long)p * W;
+  int* sl = gslots + 2 * e0;
+  CronSlot s{{sl, sl + W}, 0, cur_n_in[p], prev_n_in[p], W};
+  for (int j = lane; j < W; j += 32) {
+    s.bufs[0][j] = (int)(e0 + j);
+    s.bufs[1][j] = (int)(pw + e0 + j);
+  }
+  __syncwarp();
+  const CronSrc src{cur_ts, prev_ts, ts, pw, pw};
+  const long long o0 = off[p];
+  Out o{out_src + o0, out_ts + o0, out_kind + o0, out_valid + o0, cap[p], 0, false};
+  const long long t_now = *now;
+  const int lo = slot_start[p], hi = slot_start[p + 1], nt = info[3];
+  int i = lo, k = 0;
+  while (i < hi || k < nt) {
+    // the next row of the merged lists (a row is a member or a TIMER row)
+    const bool member = k >= nt || (i < hi && rowlist[i] < timers[k]);
+    const int r = member ? rowlist[i++] : timers[k++];
+    cron_row(s, o, member ? 1 : 2, (int)(2 * pw + r), t_now, src);
+  }
+  for (int j = lane; j < W; j += 32) {
+    new_cur_src[e0 + j] = s.bufs[s.cur][j];
+    new_prev_src[e0 + j] = s.bufs[s.cur ^ 1][j];
+  }
+  if (lane == 0) {
+    new_cur_n[p] = s.cur_n;
+    new_prev_n[p] = s.prev_n;
+    n_slot[p] = o.n;
+    if (o.ovf) *ovf = true;
   }
 }
 
@@ -910,8 +1116,14 @@ long long sw_cron_slot_bytes(int W) { return (long long)W * 8 + 16; }
 extern "C" {
 
 // The global scratch a step needs for its slot lanes (0 sort with k keys,
-// 1 frequent, 2 lossyFrequent, 3 cron; W slots).
+// 1 frequent, 2 lossyFrequent, 3 cron; W slots); 4: a K42 slot's lanes
+// (16-byte aligned) when kSlotWarps of them do not fit in a block's shared
+// memory, else 0 (no scratch: they live in shared memory).
 int sw_slot_bytes(int which, int W, int k) {
+  if (which == 4) {
+    const long long b = (sw_lossy_slot_bytes(W) + 15) / 16 * 16;
+    return kSlotWarps * b <= max_smem() ? 0 : (int)b;
+  }
   const long long b = which == 0 ? sw_sort_slot_bytes(W, k)
                       : which == 1 ? sw_frequent_slot_bytes(W)
                       : which == 2 ? sw_lossy_slot_bytes(W)
@@ -1042,6 +1254,52 @@ int sw_cron(int B, int W, const void* valid, const void* kind, const void* ts,
       (const int64_t*)now, (int32_t*)scratch, in_smem, (int32_t*)out_src, (int64_t*)out_ts,
       (int8_t*)out_kind, (bool*)out_valid, (int32_t*)new_cur_src, (int32_t*)new_prev_src,
       (int32_t*)new_cur_n, (int32_t*)new_prev_n, (bool*)ovf);
+  return (int)cudaGetLastError();
+}
+
+int sw_plossy(int B, int C, int P, long long width, float support_minus_error,
+              const void* ts, const void* key, const void* rowlist, const void* slot_start,
+              const void* occ, const void* skey, const void* cnt, const void* bucket,
+              const void* total, const void* now, void* scratch, void* out_src, void* out_ts,
+              void* out_kind, void* out_valid, void* n_slot, void* new_src, void* new_occ,
+              void* new_key, void* new_cnt, void* new_bucket, void* new_total, void* ovf,
+              cudaStream_t stream) {
+  if (P < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  const long long slot_bytes = (sw_lossy_slot_bytes(C) + 15) / 16 * 16;
+  const int in_smem = sw_slot_bytes(4, C, 0) == 0;
+  const int smem = in_smem ? (int)(kSlotWarps * slot_bytes) : 0;
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(plossy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!in_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  plossy_kernel<<<(P + kSlotWarps - 1) / kSlotWarps, 32 * kSlotWarps, smem, stream>>>(
+      B, C, P, width, support_minus_error, (int)slot_bytes, in_smem, (const int64_t*)ts,
+      (const int64_t*)key, (const int32_t*)rowlist, (const int32_t*)slot_start,
+      (const bool*)occ, (const int64_t*)skey, (const int64_t*)cnt, (const int64_t*)bucket,
+      (const int64_t*)total, (const int64_t*)now, (char*)scratch, (int32_t*)out_src,
+      (int64_t*)out_ts, (int8_t*)out_kind, (bool*)out_valid, (int32_t*)n_slot,
+      (int32_t*)new_src, (bool*)new_occ, (int64_t*)new_key, (int64_t*)new_cnt,
+      (int64_t*)new_bucket, (int64_t*)new_total, (bool*)ovf);
+  return (int)cudaGetLastError();
+}
+
+int sw_pcron(int W, int P, const void* ts, const void* rowlist, const void* slot_start,
+             const void* timers, const void* info, const void* cur_ts, const void* cur_n,
+             const void* prev_ts, const void* prev_n, const void* now, const void* off,
+             const void* cap, void* scratch, void* out_src, void* out_ts, void* out_kind,
+             void* out_valid, void* n_slot, void* new_cur_src, void* new_prev_src,
+             void* new_cur_n, void* new_prev_n, void* ovf, cudaStream_t stream) {
+  if (P < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  pcron_kernel<<<(P + kSlotWarps - 1) / kSlotWarps, 32 * kSlotWarps, 0, stream>>>(
+      W, P, (const int64_t*)ts, (const int32_t*)rowlist, (const int32_t*)slot_start,
+      (const int32_t*)timers, (const int32_t*)info, (const int64_t*)cur_ts,
+      (const int32_t*)cur_n, (const int64_t*)prev_ts, (const int32_t*)prev_n,
+      (const int64_t*)now, (const int64_t*)off, (const int32_t*)cap, (int32_t*)scratch,
+      (int32_t*)out_src, (int64_t*)out_ts, (int8_t*)out_kind, (bool*)out_valid,
+      (int32_t*)n_slot, (int32_t*)new_cur_src, (int32_t*)new_prev_src, (int32_t*)new_cur_n,
+      (int32_t*)new_prev_n, (bool*)ovf);
   return (int)cudaGetLastError();
 }
 

@@ -36,7 +36,9 @@ state of the same shape in both engines (`rate_limiter_state`,
 travel. A partition's queries keep their state [P]-tiled in both engines
 (every leaf gains a leading [P] axis: rings [P, W], totals and carries
 [P]); `partition_state_from_jax` takes a JAX partition block's key table
-and its queries' states.
+and its queries' states. An aggregation's stores are a list of one dict a
+duration in the JAX engine and stacked [D, ...] lanes here
+(`aggregation_state_from_jax`).
 """
 
 from __future__ import annotations
@@ -115,3 +117,30 @@ def partition_state_from_jax(ptable: dict, states: dict, device) -> tuple:
     keeps its dtype and shape."""
     return (state_from_numpy(ptable, device),
             {qid: state_from_numpy(st, device) for qid, st in states.items()})
+
+
+def aggregation_state_from_jax(state: dict, device) -> dict:
+    """A JAX `AggregationRuntime.state` as numpy (`{"stores": [D x {"keys":
+    [G], "used", "vals": {base: [G]}, "bucket": 0-d}], "spill": [D x {"ts":
+    [S], "keys": [S, G], "used", "vals"}], "spill_n": [D x 0-d int32]}`) in
+    this engine's stacked layout: `{"keys": [D, G], "used", "vals": {base:
+    [D, G]}, "bucket": [D], "spill": {"ts": [D, S], "keys": [D, S, G],
+    "used", "vals"}, "spill_n": [D]}`. A duration table's state is a
+    table's (`runtime.tables["<id>_<DURATION>"].state`)."""
+    stores, spill = state["stores"], state["spill"]
+
+    def stack(items, leaf):
+        return np.stack([np.asarray(leaf(x)) for x in items])
+
+    return state_from_numpy({
+        "keys": stack(stores, lambda x: x["keys"]),
+        "used": stack(stores, lambda x: x["used"]),
+        "vals": {b: stack(stores, lambda x, _b=b: x["vals"][_b]) for b in stores[0]["vals"]},
+        "bucket": stack(stores, lambda x: x["bucket"]),
+        "spill": {"ts": stack(spill, lambda x: x["ts"]),
+                  "keys": stack(spill, lambda x: x["keys"]),
+                  "used": stack(spill, lambda x: x["used"]),
+                  "vals": {b: stack(spill, lambda x, _b=b: x["vals"][_b])
+                           for b in spill[0]["vals"]}},
+        "spill_n": stack(state["spill_n"], lambda x: x),
+    }, device)

@@ -35,7 +35,8 @@ SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "del
            "ring_view", "join_probe", "pattern_advance", "pattern_count", "pattern_emit",
            "pattern_scan", "running_extreme", "distinct_count", "table_write", "table_index",
            "table_match", "table_scan", "special_window", "partition_window",
-           "partition_time", "partition_batch", "partition_pattern", "partition_join")
+           "partition_time", "partition_batch", "partition_pattern", "partition_join",
+           "aggregation")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -156,6 +157,10 @@ SIGNATURES = {
     "pj_fill": ("partition_join", [P] * 3 + [I] * 6 + [P] * 9 + [P]),
     "sw_psort": ("special_window", [I] * 5 + [P] * 22 + [P]),
     "sw_pfrequent": ("special_window", [I] * 4 + [P] * 19 + [P]),
+    "sw_plossy": ("special_window", [I, I, I, LL, ctypes.c_float] + [P] * 23 + [P]),
+    "sw_pcron": ("special_window", [I, I] + [P] * 23 + [P]),
+    "agg_step": ("aggregation", [I] * 4 + [P] * 24 + [P]),
+    "agg_find": ("aggregation", [I] * 4 + [P] * 12 + [P]),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -58,7 +58,12 @@ from siddhi_tpu_torch.ops.special_window import (
     MAX_SORT_KEYS,
     _gather,
     _lanes_out,
+    cron_rows,
+    cron_window_step_ref,
     frequent_window_step_ref,
+    lossy_frequent_window_step_ref,
+    lossy_rows,
+    lossy_threshold,
     sort_window_step_ref,
 )
 from siddhi_tpu_torch.ops.table import _Args
@@ -1460,5 +1465,208 @@ def partition_frequent_window_step(state: dict, batch: EventBatch, key: torch.Te
         what, state, batch, rows, out_src, out_ts, out_kind, out_valid, n_slot, off, new_src,
         w, p)
     new_state = {"cols": cols, "ts": ts, "occ": new_occ, "key": new_key, "cnt": new_cnt}
+    kernels.launches[what] += 1
+    return new_state, out, out_slot, out_first, ovf
+
+
+# ---------------------------------------------------------------------------
+# the lossyFrequent and cron windows inside a partition (K42, K43)
+# ---------------------------------------------------------------------------
+
+
+def partition_lossy_frequent_window_step_ref(state: dict, batch: EventBatch, key: torch.Tensor,
+                                             slot: torch.Tensor, now: torch.Tensor, c: int,
+                                             width: int, support: float, error: float, p: int):
+    """Plain version of `partition_lossy_frequent_window_step`:
+    `lossy_frequent_window_step_ref` a slot (into the JAX package's
+    per-partition buffer of B + c rows, B the whole batch's), flattened by
+    (position, slot)."""
+    cap = lossy_rows(batch.capacity, c)
+    return _keyed_special_ref(
+        lambda st, sub, rows: lossy_frequent_window_step_ref(st, sub, key[rows], now, c, width,
+                                                             support, error, cap=cap),
+        state, batch, slot, p)
+
+
+def partition_lossy_frequent_window_step(state: dict, batch: EventBatch, key: torch.Tensor,
+                                         slot: torch.Tensor, now: torch.Tensor, c: int,
+                                         width: int, support: float, error: float, p: int):
+    """One lossyFrequent(support, error) window step of every partition at
+    once (K42): each slot's lossy-counting table over its rows, with its
+    own total and buckets.
+
+    state: `lossy_frequent_window_step`'s lanes with a leading [P] axis:
+           {"cols": {name: [P, c]}, "ts": [P, c] int64, "occ": [P, c] bool,
+           "key"/"cnt"/"bucket": [P, c] int64, "total": [P] int64}
+    key:   [B] int64 row keys; slot: [B] int32 as
+           `partition_sort_window_step`'s
+    returns (new_state, out, out_slot, out_first, overflow) as
+    `partition_sort_window_step`: each slot's arrivals meeting (s - e) *
+    total as CURRENT, and at each of its bucket ends its pruned slots as
+    EXPIRED at `now` in slot order. One warp a slot with K27's
+    `lossy_arrive` (csrc/special_window.cu `sw_plossy`; the slot's key
+    table in shared memory when four fit in a block, else in a global
+    scratch), then the placement and the gather."""
+    if batch.ts.device.type == "cpu":
+        return partition_lossy_frequent_window_step_ref(state, batch, key, slot, now, c, width,
+                                                        support, error, p)
+    what = "partition_lossy_frequent_window_step"
+    kernels.require_cuda(what, batch.ts, batch.kind, batch.valid, slot, key, now, state["ts"],
+                         state["occ"], state["key"], state["cnt"], state["bucket"],
+                         state["total"], *batch.cols.values(), *state["cols"].values())
+    _check_keyed_special(what, state, batch, slot, c, p, (state["ts"], state["occ"],
+                                                          state["key"], state["cnt"],
+                                                          state["bucket"]))
+    if key.shape != batch.ts.shape or state["total"].shape != (p,) or any(
+            x.dtype != torch.int64 for x in (key, state["ts"], state["key"], state["cnt"],
+                                             state["bucket"], state["total"])) or \
+            state["occ"].dtype != torch.bool:
+        raise ValueError(f"{what}: key [B], ts/key/cnt/bucket [{p}, {c}] and total [{p}] must "
+                         "be int64, occ bool")
+    bsz, dev = batch.capacity, batch.ts.device
+    rows = partition_rows(batch, slot, p)
+    out_src, out_ts, out_kind, out_valid = _lanes_out(2 * bsz + p * c, dev)
+    n_slot, new_src = _i32(p, dev), _i32(p * c, dev)
+    new_occ = torch.empty((p, c), dtype=torch.bool, device=dev)
+    new_key, new_cnt, new_bucket = (torch.empty((p, c), dtype=torch.int64, device=dev)
+                                    for _ in range(3))
+    new_total = torch.empty(p, dtype=torch.int64, device=dev)
+    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    slot_bytes = kernels.function("sw_slot_bytes")(4, c, 0)
+    scratch = torch.empty(max(p * slot_bytes, 1), dtype=torch.uint8, device=dev)
+    kernels.check(kernels.function("sw_plossy")(
+        bsz, c, p, width, float(lossy_threshold(support, error)), batch.ts.data_ptr(),
+        key.data_ptr(), rows.rowlist.data_ptr(), rows.slot_start.data_ptr(),
+        state["occ"].data_ptr(), state["key"].data_ptr(), state["cnt"].data_ptr(),
+        state["bucket"].data_ptr(), state["total"].data_ptr(), now.data_ptr(),
+        scratch.data_ptr(), out_src.data_ptr(), out_ts.data_ptr(), out_kind.data_ptr(),
+        out_valid.data_ptr(), n_slot.data_ptr(), new_src.data_ptr(), new_occ.data_ptr(),
+        new_key.data_ptr(), new_cnt.data_ptr(), new_bucket.data_ptr(), new_total.data_ptr(),
+        ovf.data_ptr(), kernels.stream()), what)
+    off = (2 * rows.slot_start[:-1] + c * torch.arange(p, device=dev,
+                                                       dtype=torch.int32)).to(torch.int64)
+    out, out_slot, out_first, cols, ts = _place_special(
+        what, state, batch, rows, out_src, out_ts, out_kind, out_valid, n_slot, off, new_src,
+        c, p)
+    new_state = {"cols": cols, "ts": ts, "occ": new_occ, "key": new_key, "cnt": new_cnt,
+                 "bucket": new_bucket, "total": new_total}
+    kernels.launches[what] += 1
+    return new_state, out, out_slot, out_first, ovf
+
+
+def partition_cron_window_step_ref(state: dict, batch: EventBatch, slot: torch.Tensor,
+                                   now: torch.Tensor, w: int, p: int):
+    """Plain version of `partition_cron_window_step`: for each slot with
+    member rows, or with an open bucket a TIMER row of the batch flushes,
+    `cron_window_step_ref` on that slot's buffers over its rows and the
+    TIMER rows in row order (into the JAX package's per-partition buffer
+    of B + 2(2w + 1) rows), then every slot's rows by (position, slot).
+    (On any other slot the step changes nothing.)"""
+    _active, rowlist, slot_start = _member_rows(batch, slot, p)
+    timer_rows = torch.nonzero(batch.valid & (batch.kind == KIND_TIMER)).flatten()
+    starts, cur_n = slot_start.tolist(), state["cur_n"].tolist()
+    cap = cron_rows(batch.capacity, w)
+    new_state = {k: ({n: a.clone() for n, a in v.items()} if isinstance(v, dict) else v.clone())
+                 for k, v in state.items()}
+    parts, ovf = [], False
+    for q in range(p):
+        lo, hi = starts[q], starts[q + 1]
+        if hi == lo and (not timer_rows.numel() or not cur_n[q]):
+            continue
+        rows = _merged_rows(rowlist, lo, hi, timer_rows)
+        nst, out, o = cron_window_step_ref(_slot_state(state, q), _sub_batch(batch, rows), now,
+                                           w, cap=cap)
+        for k, v in nst.items():
+            if isinstance(v, dict):
+                for n, a in v.items():
+                    new_state[k][n][q] = a
+            else:
+                new_state[k][q] = v
+        parts.append((q, out, int(out.valid.sum())))
+        ovf = ovf or bool(o)
+    out, out_slot, out_first, _ = _flatten_out(batch, parts, p)
+    return new_state, out, out_slot, out_first, torch.tensor(ovf, device=batch.ts.device)
+
+
+def partition_cron_window_step(state: dict, batch: EventBatch, slot: torch.Tensor,
+                               now: torch.Tensor, w: int, p: int):
+    """One cron window step of every partition at once (K43): each slot's
+    open bucket collects its rows, and every TIMER row of the batch reaches
+    every slot (the vmap's `(active & slot == p) | is_timer`), flushing each
+    non-empty bucket.
+
+    state: `cron_window_step`'s lanes with a leading [P] axis:
+           {"cur_cols"/"prev_cols": {name: [P, w]}, "cur_ts"/"prev_ts":
+           [P, w] int64, "cur_n"/"prev_n": [P] int32}
+    slot:  [B] int32 as `partition_sort_window_step`'s
+    returns (new_state, out, out_slot, out_first, overflow) as
+    `partition_sort_window_step`: each flush of a slot (its previous bucket
+    EXPIRED at `now`, a RESET, its bucket CURRENT). A warp a slot walks its
+    rows merged with the TIMER rows with K28's `cron_row`
+    (csrc/special_window.cu `sw_pcron`) into a stretch sized by the
+    flushes it can make and the rows its buckets can hold (one host read:
+    the rows out), then the placement and the gather."""
+    if batch.ts.device.type == "cpu":
+        return partition_cron_window_step_ref(state, batch, slot, now, w, p)
+    what = "partition_cron_window_step"
+    kernels.require_cuda(what, batch.ts, batch.kind, batch.valid, slot, now, state["cur_ts"],
+                         state["cur_n"], state["prev_ts"], state["prev_n"],
+                         *batch.cols.values(), *state["cur_cols"].values(),
+                         *state["prev_cols"].values())
+    for half in ("cur", "prev"):
+        _check_keyed_special(what, {"cols": state[f"{half}_cols"]}, batch, slot, w, p,
+                             (state[f"{half}_ts"],))
+        if state[f"{half}_n"].shape != (p,) or state[f"{half}_n"].dtype != torch.int32 or \
+                state[f"{half}_ts"].dtype != torch.int64:
+            raise ValueError(f"{what}: {half}_n must be [{p}] int32 and {half}_ts int64")
+    if 2 * p * w + batch.capacity >= 2**31:
+        raise ValueError(f"{what}: P {p} x w {w} out of range")
+    bsz, dev = batch.capacity, batch.ts.device
+    rows = partition_rows(batch, slot, p)
+    # each slot's stretch: at most one flush a TIMER row, and only while a
+    # row has come since the last (or the bucket holds rows); a flush is
+    # its previous bucket, a RESET and its bucket, each bucket at most its
+    # rows so far (or the previous bucket's own)
+    n_rows_q = rows.rows.to(torch.int64)
+    cur_n, prev_n = state["cur_n"].to(torch.int64), state["prev_n"].to(torch.int64)
+    flushes = torch.minimum(rows.info[3].to(torch.int64), n_rows_q + (cur_n > 0).to(torch.int64))
+    cur_b = torch.clamp(cur_n + n_rows_q, max=w)
+    cap = torch.clamp(flushes * (1 + torch.maximum(prev_n, cur_b) + cur_b),
+                      max=cron_rows(bsz, w)).to(torch.int32)
+    ends = torch.cumsum(cap.to(torch.int64), 0)
+    off = ends - cap.to(torch.int64)
+    n_rows = int(ends[-1])  # read back to size the stretches
+    out_src, out_ts, out_kind, out_valid = _lanes_out(max(n_rows, 1), dev)
+    n_slot = _i32(p, dev)
+    new_cur, new_prev = _i32(p * w, dev), _i32(p * w, dev)
+    new_cur_n, new_prev_n = _i32(p, dev), _i32(p, dev)
+    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    scratch = _i32(2 * p * w, dev)
+    kernels.check(kernels.function("sw_pcron")(
+        w, p, batch.ts.data_ptr(), rows.rowlist.data_ptr(), rows.slot_start.data_ptr(),
+        rows.timers.data_ptr(), rows.info.data_ptr(), state["cur_ts"].data_ptr(),
+        state["cur_n"].data_ptr(), state["prev_ts"].data_ptr(), state["prev_n"].data_ptr(),
+        now.data_ptr(), off.data_ptr(), cap.data_ptr(), scratch.data_ptr(), out_src.data_ptr(),
+        out_ts.data_ptr(), out_kind.data_ptr(), out_valid.data_ptr(), n_slot.data_ptr(),
+        new_cur.data_ptr(), new_prev.data_ptr(), new_cur_n.data_ptr(), new_prev_n.data_ptr(),
+        ovf.data_ptr(), kernels.stream()), what)
+    placed, out_slot, out_first = pattern_place(
+        {"src": out_src, "ts": out_ts, "kind": out_kind, "valid": out_valid}, off, n_slot,
+        n_slot, p)
+    src = torch.where(placed["valid"], placed["src"], -1)
+    names = list(batch.cols)
+    sources = [(state["cur_cols"][n].view(-1), state["prev_cols"][n].view(-1), batch.cols[n])
+               for n in names]
+    sources.append((state["cur_ts"].view(-1), state["prev_ts"].view(-1), batch.ts))
+    cur = _gather(what, sources, new_cur, p * w, p * w)
+    prev = _gather(what, sources, new_prev, p * w, p * w)
+    new_state = {
+        "cur_cols": {n: c.view(p, w) for n, c in zip(names, cur[:-1])},
+        "cur_ts": cur[-1].view(p, w), "cur_n": new_cur_n,
+        "prev_cols": {n: c.view(p, w) for n, c in zip(names, prev[:-1])},
+        "prev_ts": prev[-1].view(p, w), "prev_n": new_prev_n,
+    }
+    out = EventBatch(ts=placed["ts"], kind=placed["kind"], valid=placed["valid"],
+                     cols=dict(zip(names, _gather(what, sources[:-1], src, p * w, p * w))))
     kernels.launches[what] += 1
     return new_state, out, out_slot, out_first, ovf

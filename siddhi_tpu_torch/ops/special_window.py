@@ -19,6 +19,8 @@ window's key columns mixed by `ops/group.py` `mix_keys`.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -410,9 +412,10 @@ def lossy_threshold(support: float, error: float) -> np.float32:
 
 def lossy_frequent_window_step_ref(state: dict, batch: EventBatch, key: torch.Tensor,
                                    now: torch.Tensor, c: int, width: int, support: float,
-                                   error: float):
+                                   error: float, cap: Optional[int] = None):
     """Plain version of `lossy_frequent_window_step`:
-    LossyFrequentWindow.apply's scan."""
+    LossyFrequentWindow.apply's scan (into `cap` output rows: the batch's
+    own B + c by default; a partition's step passes the whole batch's)."""
     dev = batch.ts.device
     bsz = batch.capacity
     cur, _ = _flags(batch)
@@ -424,7 +427,7 @@ def lossy_frequent_window_step_ref(state: dict, batch: EventBatch, key: torch.Te
     src = list(range(c))
     hit = _slot_of_key(occ, skey)
     n_occ = sum(occ)
-    out = _OutRef(lossy_rows(bsz, c))
+    out = _OutRef(lossy_rows(bsz, c) if cap is None else cap)
     for r in range(bsz):
         if not cur[r]:
             continue
@@ -519,8 +522,10 @@ def lossy_frequent_window_step(state: dict, batch: EventBatch, key: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def cron_window_step_ref(state: dict, batch: EventBatch, now: torch.Tensor, w: int):
-    """Plain version of `cron_window_step`: CronWindow.apply's scan. Sources
+def cron_window_step_ref(state: dict, batch: EventBatch, now: torch.Tensor, w: int,
+                         cap: Optional[int] = None):
+    """Plain version of `cron_window_step`: CronWindow.apply's scan (into
+    `cap` output rows, by default the batch's own B + 2(2w + 1)). Sources
     laid end to end: the open bucket's w slots, the previous bucket's w
     slots, the batch rows."""
     dev = batch.ts.device
@@ -530,7 +535,7 @@ def cron_window_step_ref(state: dict, batch: EventBatch, now: torch.Tensor, w: i
     cur_n, prev_n = int(state["cur_n"]), int(state["prev_n"])
     cur_src, prev_src = list(range(w)), [w + j for j in range(w)]
     ts_all = state["cur_ts"].tolist() + state["prev_ts"].tolist() + batch.ts.tolist()
-    out = _OutRef(cron_rows(bsz, w))
+    out = _OutRef(cron_rows(bsz, w) if cap is None else cap)
     for r in range(bsz):
         if timer[r] and cur_n > 0:
             # the previous bucket EXPIRED, one RESET (its slot 0), the open

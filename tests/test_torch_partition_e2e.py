@@ -11,8 +11,9 @@ every aggregator, table writes and overflowing key tables, at batch 16 and
 33, against JAX; a JAX partition state carried in through
 `partition_state_from_jax`; the forms a partition took from PR 11 on
 against JAX (the sort and frequent windows and joins since the join slice,
-a join with a table side refused with JAX's class and message), the forms
-left out raising, and a table update, delete or
+the lossyFrequent and cron windows since the aggregation slice, a join
+with a table side refused with JAX's class and message), the form left
+out (`in <table>`) raising, and a table update, delete or
 upsert from a partition refused as JAX refuses it. Floats match to a
 relative 2e-4 (bench.py:_rows_match); everything else exactly.
 """
@@ -453,11 +454,29 @@ def test_time_window_join_on_table_raises_as_jax():
     assert msgs["siddhi_tpu_torch"] == msgs["siddhi_tpu"]
 
 
-@pytest.mark.parametrize("body", [
+# forms a partition took from the aggregation slice on (the lossyFrequent
+# and cron windows, a lossyFrequent join side): each against JAX, the cron
+# window under playback with its one-second fires reaching every partition
+FORMERLY_LEFT_OUT_SPECIAL = [
     "from S#window.lossyFrequent(0.1, 0.01, symbol) select symbol insert into Out;",
     "from S#window.cron('*/1 * * * * ?') select symbol insert into Out;",
     "from S#window.length(2) as a join S#window.lossyFrequent(0.1, 0.01, volume) as b "
     "on a.volume == b.volume select a.symbol insert into Out;",
+]
+
+
+@pytest.mark.parametrize("body", FORMERLY_LEFT_OUT_SPECIAL)
+def test_formerly_left_out_special_windows_match_jax(body):
+    ql = ("@app:playback\n" if "cron" in body else "") + _head(16, 8) + PART.format(body=body)
+    rows, _ts = _events(96, 6, seed=len(body))
+    rows = [(r[0], r[1], r[2] % 3) for r in rows]  # repeated volumes: the join matches
+    ts = [1_700_000_000_000 + 37 * i for i in range(96)]  # 3.5 s: cron fires
+    got = {_pkg(m): _run(m, ql, [("S", rows, ts)], 20) for m in _managers()}
+    assert len(got["siddhi_tpu"]["Out"]) > 10
+    assert bench._rows_match(got["siddhi_tpu_torch"], got["siddhi_tpu"])
+
+
+@pytest.mark.parametrize("body", [
     "from S[(T.symbol == symbol) in T] select symbol, price insert into Out;",
 ])
 def test_left_out_forms_raise(body):
