@@ -68,7 +68,10 @@ engine next to it. Phases, each printed as it ends:
      G=1024, sec ... year) and ragged B and G, across month, leap-day and
      year ends, a fifth close a step, a store overflowing and NaN prices,
      and its find merge K45 for every `per`, bit for bit (see
-     aggregation_kernel_phase);
+     aggregation_kernel_phase); order-by/limit K46, flat and per
+     partition, at path NW's shapes and ragged with the encoding's edge
+     keys, and the composite-key mix K47 over 2-8 columns, exactly (see
+     named_window_kernel_phase);
   3. verify cases filter_num, len_window_avg, len_window_minmax,
      len_batch_group, having_order, stddev_distinct, time_window,
      external_time, self_join, pattern_within, count_seq,
@@ -182,7 +185,16 @@ engine next to it. Phases, each printed as it ends:
      step, then two store queries timed (per 'sec'; within .. per 'min'),
      and AGJ, 8 calls of 1,024 probes joining it `within .. per 'sec'` (a
      K45 and a K12 a step); the first batch's stores, tables and queries
-     and the first probe call against device="cpu".
+     and the first probe call against device="cpu";
+ 14. path NW (nw_app; see named_window_path_phase): 1,000 symbols x 4
+     venues of trades into a shared length(32,768) named window, its
+     emissions grouped into VenueAvg, a `define trigger Tick at every 1 sec`
+     under @app:playback joining the whole window into a top-10 Board
+     (`order by v desc, venue limit 10`, K46), a per-venue top 3 inside a
+     partition (K46's partition entry), a store query over the window
+     after each 1,024-event call; events/s, trigger steps a call, ms a
+     trigger step, the busy share, and every delivered row and store query
+     of the first calls against device="cpu".
 Each phase prints an `elapsed ... s after ...` line.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
@@ -205,6 +217,11 @@ only K38-K41).
 
 builds the kernels and runs only K44 and K45 against their plain versions
 and paths AGG and AGJ (`--no-paths`: only K44 and K45).
+
+    python3 chip_smoke.py --named-windows
+
+builds the kernels and runs only K46 and K47 against their plain versions
+and path NW (`--no-paths`: only K46 and K47).
 
     python3 chip_smoke.py --profile
 
@@ -4657,6 +4674,373 @@ def aggregation_path_phase(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# named windows, triggers and order-by (K46) / composite keys (K47)
+# ---------------------------------------------------------------------------
+
+NW_KERNEL_NAMES = ("order_limit", "order_limit_partitioned", "mix_keys")
+# path NW: a trigger's leaderboard over a shared window of the last trades,
+# with @app:batch(1024) (one batch a send), a group table of 4,096 (1,000
+# symbols x 4 venues), ties of v broken by venue (both packages refuse an
+# order-by on a string: siddhi_tpu/core/selector.py:153), and a per-venue
+# top 3 inside a partition (K46's partition entry on the path)
+NW_APP = """@app:playback @app:batch(size='{batch}') @app:joinCapacity(size='{w}')
+@app:groupCapacity(size='{groups}')
+define stream Trades (symbol string, venue int, price float, volume long);
+define window Recent (symbol string, venue int, price float, volume long) length({w}) output all events;
+define trigger Tick at every 1 sec;
+from Trades insert into Recent;
+@info(name='avg') from Recent select symbol, venue, avg(price) as ap group by symbol, venue
+insert into VenueAvg;
+@info(name='board') from Tick unidirectional join Recent
+select Recent.symbol as symbol, Recent.venue as venue, sum(Recent.volume) as v
+group by Recent.symbol, Recent.venue order by v desc, venue limit 10 insert into Board;
+partition with (venue of Trades) begin
+@info(name='top') from Trades select symbol, venue, price order by price desc limit 3
+insert into VenueTop;
+end;"""
+NW_QUERY = "from Recent on volume > 990 select symbol, venue, price order by price desc limit 5"
+NW_W, NW_SEND, NW_GROUPS, NW_VENUES = 32768, 1024, 4096, 4
+NW_FILL = NW_W // NW_SEND  # calls until the window is full
+NW_CALLS, NW_CPU_CALLS, NW_BUSY_CALLS = 16, 4, 8
+NW_PARTITIONS = 32  # the default @app:partitionCapacity
+
+
+def nw_app(w: int = 0, batch: int = 0, groups: int = NW_GROUPS) -> str:
+    return NW_APP.format(w=w or NW_W, batch=batch or NW_SEND, groups=groups)
+
+
+def nw_data(n: int) -> tuple:
+    """pp_data's 1,000 symbols with a venue in 1..4 drawn after them from the
+    same seed; 1 ms ticks from event time 1, so `at every 1 sec` fires about
+    once a 1,024-event call."""
+    data, names = pp_data(n)
+    rng = np.random.default_rng(7)
+    rng.integers(1, PT_SYMBOLS + 1, size=n)  # the symbols' draw
+    data["venue"] = rng.integers(1, NW_VENUES + 1, size=n).astype(np.int32)
+    data["ts"] = 1 + np.arange(n, dtype=np.int64)
+    return data, names
+
+
+def run_nw(dev, app: str, data: dict, names, calls: int, size: int = 0,
+           query: str = NW_QUERY, time_ticks: bool = False, profile_calls: int = 0) -> dict:
+    """Drive the NW app: `calls` send_columns calls of `size` trades, the
+    store query after each. Returns every callback's rows a call (Board,
+    VenueAvg, VenueTop, the Tick fires), the store query's rows a call, the
+    seconds of the last `calls - NW_FILL` calls (the window full), the ms of
+    each trigger step then (synchronized around the Tick junction's
+    publish) and, over the last `profile_calls` calls, (wall ms, device
+    busy ms) from torch.profiler."""
+    import torch
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    size = size or NW_SEND
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(app)
+    for s in names:
+        mgr.interner.intern(s)
+    cur = {k: [] for k in ("board", "avg", "top", "ticks")}
+    for q in ("board", "avg", "top"):
+        rt.add_callback(q, lambda t, ins, rem, _q=q: cur[_q].extend(
+            tuple(e.data) for e in ins or []))
+    rt.add_callback("Tick", lambda evs: cur["ticks"].extend(e.data[0] for e in evs))
+    rt.start()
+    h = rt.get_input_handler("Trades")
+    tick_ms: list = []
+    tj = rt.junctions["Tick"]
+    inner = tj.publish_batch
+    measuring = False  # the window full: time the trigger steps
+
+    def timed(batch, now):
+        if not (time_ticks and measuring):
+            inner(batch, now)
+            return
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner(batch, now)
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+
+    tj.publish_batch = timed
+    out = {k: [] for k in (*cur, "query")}
+    seconds = 0.0
+    busy = None
+    for c in range(calls):
+        for v in cur.values():
+            v.clear()
+        measuring = c >= NW_FILL
+        lo, hi = c * size, (c + 1) * size
+        cols = {k: data[k][lo:hi] for k in ("symbol", "venue", "price", "volume")}
+
+        def one():
+            h.send_columns(data["ts"][lo:hi], cols, now=0)
+            return [tuple(e.data) for e in rt.query(query)]
+
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profile_calls and c == calls - profile_calls:
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = profile(activities=[ProfilerActivity.CUDA])  # the device alone: less overhead
+            prof.__enter__()
+            p0 = t0
+        rows = one()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        if measuring:
+            seconds += time.perf_counter() - t0
+        for k, v in cur.items():
+            out[k].append(list(v))
+        out["query"].append(rows)
+    if profile_calls:
+        wall = (time.perf_counter() - p0) * 1e3
+        prof.__exit__(None, None, None)
+        busy_us = 0.0
+        for e in prof.key_averages():
+            dev_us = getattr(e, "self_device_time_total", None)
+            busy_us += e.self_cuda_time_total if dev_us is None else dev_us
+        busy = (wall, busy_us / 1e3)
+    rt.shutdown()
+    mgr.shutdown()
+    out.update(seconds=seconds, tick_ms=tick_ms, busy=busy)
+    return out
+
+
+def _order_key(rng, dtype: str, r: int) -> np.ndarray:
+    """An order key lane with the encoding's edge values and many ties."""
+    if dtype == "int32":
+        base = rng.integers(-3, 4, r).astype(np.int32)
+        edges = np.array([-(2**31), 2**31 - 1, 0, -1, 1], np.int32)
+    elif dtype == "int64":
+        base = rng.integers(-3, 4, r).astype(np.int64)
+        edges = np.array([-(2**63), 2**63 - 1, 0, -1, 2**40], np.int64)
+    elif dtype == "float32":
+        base = rng.choice(np.array([-1.5, 0.25, 2.0], np.float32), r)
+        edges = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-38], np.float32)
+        edges = np.concatenate([edges, np.array([0xFFC00000], np.uint32).view(np.float32)])
+    else:
+        return rng.random(r) < 0.5
+    pick = rng.random(r) < 0.4
+    base[pick] = rng.choice(edges, int(pick.sum()))
+    return base
+
+
+def named_window_kernel_phase(torch, dev) -> dict:
+    """K46 (flat and per partition) and K47 against their plain versions
+    on the card, exactly (the permutation, the kept mask, the keys bit for
+    bit), the plain versions on CPU copies of the same inputs: K46 at path
+    NW's shapes (the leaderboard's 32,768 joined rows by `v desc, venue`
+    limit 10, the store query's 32,768 window rows by `price desc` limit 5
+    with ~1% valid, the per-venue top 3 of a 1,024-row batch over 32
+    partitions) and ragged (R 1/33/32,768, 1-4 keys of int32, int64,
+    float32 and bool asc and desc with INT_MIN/MAX, -0.0, subnormals,
+    +-inf and NaN of both signs, offset alone, limit alone, no key; P
+    1/8/33/1,024 and 10,000 past shared memory); K47 over 2-8 columns of
+    int32, int64, bool and float32 (negative, extreme, NaN, -0.0) at
+    32,768 rows and ragged. Then each kernel's time beside its plain
+    version's and its byte bound; K46's library time is one stable
+    torch.sort of the encoded single key; K47 has none."""
+    from siddhi_tpu_torch.core import selector as S
+    from siddhi_tpu_torch.ops import group as G
+
+    res = {k: {"max_abs_err": 0.0, "checks": 0, "library_ms": None} for k in NW_KERNEL_NAMES}
+    rng = np.random.default_rng(1546)
+    big = 2**31 - 1
+
+    def both(x):
+        c = torch.from_numpy(np.ascontiguousarray(x))
+        return c, c.to(dev)
+
+    def check_order(r, dtypes, desc, lo, hi, p=None, valid_p=0.85, keys=None):
+        valid = rng.random(r) < valid_p
+        keys = [_order_key(rng, d, r) for d in dtypes] if keys is None else keys
+        v_c, v_g = both(valid)
+        kc, kg = zip(*[both(k) for k in keys]) if keys else ((), ())
+        if p is None:
+            name = "order_limit"
+            want = S.order_limit_ref(v_c, list(kc), desc, lo, hi)
+            got = S.order_limit(v_g, list(kg), desc, lo, hi)
+        else:
+            name = "order_limit_partitioned"
+            part = np.where(valid | (rng.random(r) < 0.5), rng.integers(0, p, r), p)
+            pc, pg = both(part.astype(np.int64))
+            want = S.order_limit_partitioned_ref(v_c, list(kc), desc, pc, p, lo, hi)
+            got = S.order_limit_partitioned(v_g, list(kg), desc, pg, p, lo, hi)
+        torch.cuda.synchronize()
+        if (got[0] is None) != (want[0] is None) or not torch.equal(got[1].cpu(), want[1]) or (
+                want[0] is not None and not torch.equal(got[0].cpu().long(), want[0])):
+            raise AssertionError(f"K46 {name} differs from its plain version at R={r}, "
+                                 f"keys {dtypes}, desc {desc}, [{lo}, {hi}), P={p}")
+        res[name]["checks"] += 1
+        return v_g, list(kg)
+
+    # path NW's shapes
+    board_args = check_order(NW_W, ["int64", "int32"], [True, False], 0, 10, valid_p=1.0, keys=[
+        rng.integers(1, 40_000, NW_W).astype(np.int64),
+        rng.integers(1, PT_SYMBOLS + 1, NW_W).astype(np.int32)])
+    query_args = check_order(NW_W, ["float32"], [True], 0, 5, valid_p=0.01)
+    top_args = check_order(NW_SEND, ["float32"], [True], 0, 3, p=NW_PARTITIONS, valid_p=1.0)
+    ragged = [(1, ["float32"], [True], 0, 1), (33, ["int32"], [False], 2, big),
+              (33, ["float32", "int64"], [True, False], 0, 5),
+              (33, ["bool", "float32"], [True, False], 1, 4),
+              (33, [], [], 3, 13), (NW_W, ["int64", "int32", "float32"], [True, True, False],
+                                    0, big),
+              (NW_W, ["float32", "bool", "int32", "int64"], [False, False, True, True], 7, 27),
+              (NW_W, [], [], 100, 200)]
+    for case in ragged:
+        check_order(*case)
+        if case[0] > 1:
+            for p in (1, 8, 33, 1024):
+                check_order(*case, p=p)
+    check_order(33, ["int32"], [True], 0, 2, p=10_000)
+    check_order(33, [], [], 1, 3, p=10_000)
+    check_order(NW_W, ["float32"], [False], 0, big, p=10_000)
+
+    # K47
+    def mix_col(dtype, n):
+        if dtype == "int32":
+            c = rng.integers(-(2**31), 2**31, n).astype(np.int32)
+        elif dtype == "int64":
+            c = rng.integers(-(2**63), 2**63 - 1, n, endpoint=True).astype(np.int64)
+        elif dtype == "float32":
+            c = rng.normal(0, 1e3, n).astype(np.float32)
+            k = min(n, 4)
+            c[:k] = np.array([0.0, -0.0, np.nan, -np.inf], np.float32)[:k]
+        else:
+            c = rng.random(n) < 0.5
+        return c
+
+    kinds = ["int64", "int32", "float32", "bool"]
+    for n in (1, 33, NW_W):
+        for ncols in range(2, 9):
+            cols = [mix_col(kinds[(ncols + i) % 4], n) for i in range(ncols)]
+            cc, cg = zip(*[both(c) for c in cols])
+            got = G.mix_keys(list(cg))
+            want = G.mix_keys_ref(list(cc))
+            torch.cuda.synchronize()
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"K47 differs from its plain version: {ncols} columns, {n} rows")
+            res["mix_keys"]["checks"] += 1
+    # NW's composite keys: (symbol, venue) as the callers' int64 lanes
+    mix_args = [torch.from_numpy(rng.integers(1, PT_SYMBOLS + 1, NW_W).astype(np.int64)).to(dev),
+                torch.from_numpy(rng.integers(1, NW_VENUES + 1, NW_W).astype(np.int64)).to(dev)]
+    print(f"named-window kernels: {res['order_limit']['checks']} flat and "
+          f"{res['order_limit_partitioned']['checks']} partitioned K46 checks, "
+          f"{res['mix_keys']['checks']} K47 checks, exact", flush=True)
+
+    # ---- times at path NW's shapes
+    def nbytes(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
+
+    v_g, kg = board_args
+    r = res["order_limit"]
+    r["ms"] = time_ms(torch, lambda: S.order_limit(v_g, kg, [True, False], 0, 10), 20)
+    r["plain_ms"] = time_ms(torch, lambda: S.order_limit_ref(v_g, kg, [True, False], 0, 10), 5)
+    # bytes: the keys and the mask read once, the permutation and mask written
+    r["bound_ms"], r["bound_by"] = (nbytes(v_g, *kg) + NW_W * 5) / MEM_BYTES_PER_S * 1e3, "bytes"
+    enc = (-kg[0]) ^ torch.iinfo(torch.int64).min  # the single int64 key, encoded
+    r["library_ms"] = time_ms(torch, lambda: torch.sort(enc, stable=True), 20)
+    qv, qk = query_args
+    r["query_ms"] = time_ms(torch, lambda: S.order_limit(qv, qk, [True], 0, 5), 20)
+    r["query_plain_ms"] = time_ms(torch, lambda: S.order_limit_ref(qv, qk, [True], 0, 5), 5)
+    r = res["order_limit_partitioned"]
+    tv, tk = top_args
+    tpart = torch.from_numpy(rng.integers(0, NW_VENUES, NW_SEND).astype(np.int64)).to(dev)
+    r["ms"] = time_ms(torch, lambda: S.order_limit_partitioned(
+        tv, tk, [True], tpart, NW_PARTITIONS, 0, 3), 20)
+    r["plain_ms"] = time_ms(torch, lambda: S.order_limit_partitioned_ref(
+        tv, tk, [True], tpart, NW_PARTITIONS, 0, 3), 5)
+    r["bound_ms"], r["bound_by"] = ((nbytes(tv, *tk, tpart) + NW_SEND * 5) / MEM_BYTES_PER_S
+                                    * 1e3, "bytes")
+    # (partition, encoded key) as one int64 key
+    tenc = (tpart << 32) | (tk[0].view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+    r["library_ms"] = time_ms(torch, lambda: torch.sort(tenc, stable=True), 20)
+    r = res["mix_keys"]
+    r["ms"] = time_ms(torch, lambda: G.mix_keys(mix_args), 50)
+    r["plain_ms"] = time_ms(torch, lambda: G.mix_keys_ref(mix_args), 20)
+    r["bound_ms"], r["bound_by"] = (nbytes(*mix_args) + NW_W * 8) / MEM_BYTES_PER_S * 1e3, "bytes"
+    for name in NW_KERNEL_NAMES:
+        r = res[name]
+        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={r['library_ms']} "
+              f"checks={r['checks']} exact", flush=True)
+    print(f"kernel order_limit at the store query's shape: ms={res['order_limit']['query_ms']:.4f}"
+          f" plain_ms={res['order_limit']['query_plain_ms']:.4f}", flush=True)
+    return res
+
+
+NW_PATH_KERNELS = ("order_limit", "order_limit_partitioned", "mix_keys", "length_window_step",
+                   "ring_view", "join_assemble", "assign_slots", "keyed_running_sum")
+
+
+def named_window_path_phase(torch) -> dict:
+    """Path NW (nw_app): 1,000 symbols x 4 venues of trades into a shared
+    length(32,768) window, its emissions grouped by (symbol, venue) into
+    VenueAvg; a 1 sec trigger under @app:playback joining the whole window
+    (unidirectional), grouped by (symbol, venue), `order by v desc, venue
+    limit 10` into Board; a per-venue top 3 inside a partition; a store
+    query over the window after each call. Calls of 1,024 events (1 ms
+    ticks, so about one trigger step a call); NW_FILL calls fill the
+    window, then NW_CALLS calls are timed: events/s, trigger steps a call,
+    ms a trigger step (the join of 32,768 rows and what follows), the busy
+    share of the last NW_BUSY_CALLS calls. Every delivered row and the
+    store query's rows of the first NW_CPU_CALLS calls against
+    device="cpu"; the counts read just after the run."""
+    from siddhi_tpu_torch import kernels
+
+    calls = NW_FILL + NW_CALLS
+    data, names = nw_data(calls * NW_SEND)
+    app = nw_app()
+    run_nw("cuda", app, data, names, 2)  # warm-up
+    kernels.launches.clear()
+    run = run_nw("cuda", app, data, names, calls, time_ticks=True)
+    launches = dict(kernels.launches)
+    fires = sum(len(t) for t in run["ticks"][NW_FILL:])
+    for k in NW_PATH_KERNELS:
+        if launches.get(k, 0) < 1:
+            raise AssertionError(f"path NW: kernel {k} was not launched")
+    # K46: a trigger step, the window side's step (each call's window
+    # emissions: it probes nothing but runs the selector) and a store query
+    all_fires = sum(len(t) for t in run["ticks"])
+    if launches["order_limit"] != all_fires + 2 * calls:
+        raise AssertionError(f"path NW: {launches['order_limit']} K46 launches for {all_fires} "
+                             f"trigger steps, {calls} window steps and {calls} store queries")
+    if not fires or any(len(b) != 10 * len(t) for b, t in zip(run["board"][NW_FILL:],
+                                                               run["ticks"][NW_FILL:])):
+        raise AssertionError("path NW: a trigger step over the full window gave no top 10")
+    n_ev = NW_CALLS * NW_SEND
+    busy_run = run_nw("cuda", app, data, names, calls, profile_calls=NW_BUSY_CALLS)
+    wall, busy = busy_run["busy"]
+    cpu = run_nw("cpu", app, data, names, NW_CPU_CALLS)
+    gpu = run_nw("cuda", app, data, names, NW_CPU_CALLS)
+    for k in ("board", "avg", "top", "ticks", "query"):
+        if not any(cpu[k]) or not rows_match(gpu[k], cpu[k]):
+            raise AssertionError(f"path NW: the {k} rows differ from device='cpu'")
+    tick = run["tick_ms"]
+    out = {"events": n_ev, "calls": NW_CALLS, "seconds": run["seconds"],
+           "events_per_s": n_ev / run["seconds"], "trigger_steps": fires,
+           "trigger_steps_per_call": fires / NW_CALLS,
+           "trigger_step_ms": {"mean": float(np.mean(tick)), "min": float(np.min(tick)),
+                               "max": float(np.max(tick))},
+           "busy": {"calls": NW_BUSY_CALLS, "wall_ms": wall, "busy_ms": busy,
+                    "share": busy / wall},
+           "launches": launches,
+           "rows_per_call": {k: float(np.mean([len(x) for x in run[k][NW_FILL:]]))
+                             for k in ("board", "avg", "top", "query")},
+           "cpu_calls": NW_CPU_CALLS}
+    print(f"path NW: {n_ev} events in {NW_CALLS} calls (window full), {run['seconds']:.3f} s, "
+          f"{out['events_per_s']:.1f} events/s; {fires} trigger steps "
+          f"({out['trigger_steps_per_call']:.3f} a call), {out['trigger_step_ms']['mean']:.3f} ms "
+          f"a trigger step (min {out['trigger_step_ms']['min']:.3f}, max "
+          f"{out['trigger_step_ms']['max']:.3f}); busy {busy:.2f} / {wall:.2f} ms "
+          f"({busy / wall:.4f}) over {NW_BUSY_CALLS} calls; launches {json.dumps(launches)}; "
+          f"rows a call {json.dumps(out['rows_per_call'])}; the first {NW_CPU_CALLS} calls' "
+          "rows and store queries match device='cpu'", flush=True)
+    return out
+
+
 def same_tree_np(got, want, what: str) -> None:
     """Two numpy trees equal leaf for leaf (floats by their bits)."""
     for g, w in zip(flat(got), flat(want), strict=True):
@@ -4951,12 +5335,14 @@ def grouped_path_phase(torch) -> dict:
     from siddhi_tpu_torch import SiddhiManager
     from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 
-    for q in ("@store(type='memory') define table T (symbol string); "
+    for q in ("@OnError(action='LOG') define table T (symbol string); "
               "from S select symbol insert into T",
               "define table T (symbol string); partition with (symbol of S) begin "
               "from S[(T.symbol == symbol) in T] select symbol insert into Out; end",
-              "define window W (symbol string) length(4); from S select symbol insert into W",
-              "define trigger T at every 5 sec; from S select symbol insert into Out"):
+              "@OnError(action='LOG') define window W (symbol string) length(4); "
+              "from S select symbol insert into W",
+              "@source(type='inMemory', topic='t') define stream S9 (a int); "
+              "from S select symbol insert into Out"):
         try:
             SiddhiManager(device="cuda").create_siddhi_app_runtime(VERIFY_HEAD + q + ";")
         except SiddhiAppCreationError as e:
@@ -6796,6 +7182,13 @@ def main() -> int:
         if "--no-paths" not in sys.argv[1:]:
             partition_pattern_path_phase(torch)
         return 0
+    if "--named-windows" in sys.argv[1:]:
+        named_window_kernel_phase(torch, "cuda")
+        lap("named_window_kernel_phase")
+        if "--no-paths" not in sys.argv[1:]:
+            named_window_path_phase(torch)
+            lap("path NW")
+        return 0
     if "--partition-joins" in sys.argv[1:]:
         partition_join_kernel_phase(torch, "cuda")
         lap("partition_join_kernel_phase")
@@ -6810,7 +7203,7 @@ def main() -> int:
                   table_kernel_phase, special_window_kernel_phase, partition_kernel_phase,
                   partition_windows_kernel_phase, partition_pattern_kernel_phase,
                   partition_join_kernel_phase, partition_special_kernel_phase,
-                  aggregation_kernel_phase):
+                  aggregation_kernel_phase, named_window_kernel_phase):
         res.update(phase(torch, "cuda"))
         lap(phase.__name__)
     if "--kernels" in sys.argv[1:]:
@@ -6854,6 +7247,8 @@ def main() -> int:
     lap("paths PLF and PCR")
     aggregations = aggregation_path_phase(torch)
     lap("paths AGG and AGJ")
+    named_windows = named_window_path_phase(torch)
+    lap("path NW")
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -6954,7 +7349,12 @@ def main() -> int:
            "agg_step": ("siddhi_tpu_torch/csrc/aggregation.cu",
                         "siddhi_tpu/core/aggregation.py:470"),
            "agg_find_merge": ("siddhi_tpu_torch/csrc/aggregation.cu",
-                              "siddhi_tpu/core/aggregation.py:887")}
+                              "siddhi_tpu/core/aggregation.py:887"),
+           "order_limit": ("siddhi_tpu_torch/csrc/order_limit.cu",
+                           "siddhi_tpu/core/selector.py:261"),
+           "order_limit_partitioned": ("siddhi_tpu_torch/csrc/order_limit.cu",
+                                       "siddhi_tpu/core/partition.py:105"),
+           "mix_keys": ("siddhi_tpu_torch/csrc/mix_keys.cu", "siddhi_tpu/ops/group.py:37")}
     # launches: K1-K5 from the quickstart path's run, K6-K9 from the
     # tumbling_groupby path's run, K10 from path T's run, K11 and K12 from
     # path J's, K13 and K15 from path P's, K14 from path C's, K16 from path
@@ -7004,6 +7404,9 @@ def main() -> int:
     path_of["partition_cron_window_step"] = partition_specials["PCR"]["launches"]
     path_of["agg_step"] = aggregations["AGG"]["launches"]
     path_of["agg_find_merge"] = aggregations["AGJ"]["launches"]
+    # K46 (both entries) and K47 from path NW
+    for k in NW_KERNEL_NAMES:
+        path_of[k] = named_windows["launches"]
     path_launches = {k: path_of.get(k, main["launches"]).get(k, 0) for k in res}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
@@ -7043,6 +7446,10 @@ def main() -> int:
                    "partition_join_paths": partition_joins,
                    "partition_special_paths": partition_specials,
                    "aggregation_paths": aggregations,
+                   "named_window_path": named_windows,
+                   "order_limit_store_query_shape": {
+                       "ms": res["order_limit"]["query_ms"],
+                       "plain_ms": res["order_limit"]["query_plain_ms"]},
                    "aggregation_kernel_shapes": {
                        "agg_step_us_per_row": res["agg_step"]["us_per_row"],
                        "agg_step_closes": res["agg_step"]["closes"],

@@ -20,9 +20,12 @@ duration a step, which are inserted into the duration tables (the table's
 insert, K21). A find (`find`: store queries `from A within .. per ..`, and
 join sides) merges the finest .. `per` in-flight stores with K45 and
 recomposes avg, sum, count, min, max and last after the duration table's
-rows. The duration tables keep the JAX package's 4,096 rows; `@store`
-on an aggregation (and so the restart rebuild from stored tables) and the
-late-event merge of `@app:watermark` are not ported yet.
+rows. The duration tables keep the JAX package's 4,096 rows. `@store` on
+an aggregation rides through to its duration tables, each with its own
+`store.id` (core/record_table.py); an app created over stored tables
+rebuilds each coarser duration's open bucket from the next finer table
+(`rebuild_from_tables`, host side, once). The late-event merge of
+`@app:watermark` is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from __future__ import annotations
 import re
 from typing import Optional
 
+import numpy as np
 import torch
 
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
@@ -51,12 +55,14 @@ from siddhi_tpu_torch.core.table import InMemoryTable
 from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType
 from siddhi_tpu_torch.ops.aggregation import (
     SPILLS_PER_BATCH,
+    _align1,
     agg_find_merge,
     agg_step,
+    align_bucket,
     base_init,
 )
 from siddhi_tpu_torch.ops.group import mix_keys
-from siddhi_tpu_torch.query_api.annotation import find_annotation
+from siddhi_tpu_torch.query_api.annotation import Annotation, find_annotation
 from siddhi_tpu_torch.query_api.definition import Attribute, Duration, TableDefinition
 from siddhi_tpu_torch.query_api.execution import Filter
 from siddhi_tpu_torch.query_api.expression import AttributeFunction
@@ -91,9 +97,6 @@ class AggregationRuntime:
         self.g = int(group_capacity)
         if self.g < 1:
             raise SiddhiAppCreationError(f"@app:aggGroupCapacity must be >= 1, got {self.g}")
-        if find_annotation(getattr(definition, "annotations", []) or [], "store") is not None:
-            raise SiddhiAppCreationError(
-                f"aggregation '{self.agg_id}': @store is not ported yet")
 
         stream = definition.basic_single_input_stream
         self.stream_id = stream.stream_id
@@ -174,10 +177,20 @@ class AggregationRuntime:
         for bname, (_kind, _arg, t) in self.bases.items():
             if not bname.startswith("last__g_"):
                 table_attrs.append(Attribute(f"AGG_{bname}", t))
-        self.tables: dict[Duration, InMemoryTable] = {
-            d: InMemoryTable(TableDefinition(f"{self.agg_id}_{d.name}", list(table_attrs)),
-                             interner, self.device)
-            for d in self.durations}
+        # @store on the aggregation rides through to every duration table,
+        # each in a store namespace of its own (reference: AggregationParser
+        # initDefaultTables passes the aggregation's annotations on)
+        store_ann = find_annotation(getattr(definition, "annotations", []) or [], "store")
+        self.tables: dict[Duration, InMemoryTable] = {}
+        for d in self.durations:
+            anns = []
+            if store_ann is not None:
+                els = [(k, v) for k, v in store_ann.elements if k != "store.id"]
+                base_id = store_ann.element("store.id") or self.agg_id
+                anns.append(Annotation(store_ann.name, els + [("store.id", f"{base_id}__{d.name}")]))
+            self.tables[d] = InMemoryTable(
+                TableDefinition(f"{self.agg_id}_{d.name}", list(table_attrs), annotations=anns),
+                interner, self.device)
 
         # the find path's rows: AGG_TIMESTAMP, then the selected attributes
         self.out_schema = StreamSchema(
@@ -185,10 +198,86 @@ class AggregationRuntime:
                                                        for s in self.out_specs])
         self.state = self.init_state()
         self.timer_target = None
+        self.rebuild_from_tables()
 
     def _base(self, name, kind, arg, t):
         if name not in self.bases:
             self.bases[name] = (kind, arg, t)
+
+    # ---- the restart rebuild -----------------------------------------------
+
+    def rebuild_from_tables(self) -> None:
+        """Rebuild each coarser duration's open bucket from the next finer
+        duration's table rows (reference: aggregation/RecreateInMemoryData.java;
+        the JAX package's `rebuild_from_tables`, numpy folds and all): a
+        `@store` aggregation created again without a snapshot recovers its
+        in-flight coarse buckets from the stored fine spills. The finest
+        duration's open bucket is lost, as in the reference (its raw events
+        were never spilled). Host side, once, at creation."""
+        for i in range(1, len(self.durations)):
+            d = self.durations[i]
+            src = self.tables[self.durations[i - 1]].state
+            valid = src["valid"].cpu().numpy()
+            if not valid.any():
+                continue  # only a duration whose own source is empty is skipped
+            src_cols = {n: c.cpu().numpy() for n, c in src["cols"].items()}
+            ts = src_cols[AGG_TS][valid]
+            open_bucket = _align1(int(ts.max()), d.value)
+            own = self.tables[d].state
+            own_valid = own["valid"].cpu().numpy()
+            if own_valid.any() and (own["cols"][AGG_TS].cpu().numpy()[own_valid]
+                                    == open_bucket).any():
+                # this bucket already closed into d's own table: in flight
+                # again it would be inserted twice at the next close
+                continue
+            in_open = align_bucket(torch.from_numpy(ts), d.value).numpy() == open_bucket
+            if not in_open.any():
+                continue
+            cols = {n: c[valid][in_open] for n, c in src_cols.items()}
+            order = np.argsort(ts[in_open], kind="stable")
+            gvals = [cols[g] for g in self.group_names]
+            groups: dict = {}
+            for ri in order:
+                groups.setdefault(tuple(v[ri].item() for v in gvals), []).append(ri)
+            g = self.g
+            keys = np.zeros(g, np.int64)
+            used = np.zeros(g, bool)
+            vals = {b: np.full(g, base_init(kind, PHYSICAL_DTYPE[t]),
+                               torch.empty(0, dtype=PHYSICAL_DTYPE[t]).numpy().dtype)
+                    for b, (kind, _a, t) in self.bases.items()}
+            for slot_i, ridx in enumerate(groups.values()):
+                if slot_i >= g:
+                    break
+                # the device key: float group values by their int32 bits, mixed
+                kcols = []
+                for gname, gv in zip(self.group_names, gvals):
+                    t = self.bases[f"last__g_{gname}"][2]
+                    v = np.asarray([gv[ridx[0]]])
+                    if t in (AttrType.FLOAT, AttrType.DOUBLE):
+                        v = v.astype(np.float32).view(np.int32)
+                    kcols.append(torch.from_numpy(v.astype(np.int64)))
+                if kcols:
+                    keys[slot_i] = int(mix_keys(kcols)[0])
+                used[slot_i] = True
+                for bname, (kind, _arg, _t) in self.bases.items():
+                    col = (cols[bname[len("last__g_"):]] if bname.startswith("last__g_")
+                           else cols[f"AGG_{bname}"])
+                    sel = col[ridx]
+                    if kind in ("sum", "count"):
+                        vals[bname][slot_i] = sel.sum()
+                    elif kind == "min":
+                        vals[bname][slot_i] = sel.min()
+                    elif kind == "max":
+                        vals[bname][slot_i] = sel.max()
+                    else:  # last
+                        vals[bname][slot_i] = sel[-1]
+            st = self.state
+            dev = self.device
+            st["keys"][i] = torch.from_numpy(keys).to(dev)
+            st["used"][i] = torch.from_numpy(used).to(dev)
+            for b, v in vals.items():
+                st["vals"][b][i] = torch.from_numpy(v).to(dev)
+            st["bucket"][i] = open_bucket
 
     # ---- state -----------------------------------------------------------
 
@@ -288,11 +377,14 @@ class AggregationRuntime:
 
     def receive(self, batch: EventBatch, now: int) -> dict:
         """One batch (or one TIMER row) through the chain; the closed buckets
-        into the tables. Returns the step's aux (`next_timer` when the
-        finest bucket's end drives a TIMER step)."""
+        into the tables, written through to their record stores. Returns the
+        step's aux (`next_timer` when the finest bucket's end drives a TIMER
+        step)."""
         now_t = torch.full((), now, dtype=torch.int64, device=self.device)
         self.state, aux = self._step(self.state, batch, now_t)
         self._spill_to_tables(self.state)
+        for t in self.tables.values():
+            t.notify_change()
         return aux
 
     # ---- find (store queries and join sides) -----------------------------

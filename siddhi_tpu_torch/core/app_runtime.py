@@ -33,7 +33,11 @@ limit and rate limiting, of patterns and sequences and of joins, per batch,
 their timers reaching every partition; incremental aggregations
 (core/aggregation.py, `define aggregation`, `@app:aggGroupCapacity`),
 their duration tables, store queries over them (`within`/`per`) and
-aggregation join sides, each aggregation's input stream per batch.
+aggregation join sides, each aggregation's input stream per batch;
+named windows (core/window_runtime.py, `define window`: `from W` readers,
+`insert into W`, named-window join sides, store queries) and triggers
+(core/trigger.py, `define trigger`, started last); `@store` record tables
+(core/record_table.py).
 Everything else raises `SiddhiAppCreationError("... not ported yet")`.
 """
 
@@ -110,12 +114,6 @@ class SiddhiAppRuntime:
         for a in app.annotations:
             if a.name.lower() not in _PORTED_APP_ANNOTATIONS:
                 raise _not_ported(f"@{a.name}")
-        for kind, defs in (
-            ("window", app.window_definitions),
-            ("trigger", app.trigger_definitions),
-        ):
-            if defs:
-                raise _not_ported(f"define {kind}")
         # `define function f[python] ...` scripts register into the function
         # registry (reference: script executors via @Extension SPI; the
         # registry is process-wide, so same-name redefinitions win last)
@@ -187,6 +185,7 @@ class SiddhiAppRuntime:
         self.tables = {tid: InMemoryTable(d, self.interner, self.device, capacity=table_capacity)
                        for tid, d in app.table_definitions.items()}
         self._store_query_cache: dict[str, object] = {}
+        self._add_named_windows()
 
         for sid, d in app.stream_definitions.items():
             for a in d.annotations:
@@ -199,6 +198,7 @@ class SiddhiAppRuntime:
                 find_annotation(d.annotations, "pipeline")
             )
         self._add_aggregations()
+        self._add_triggers()
         # query and partition ids come from the one shared assignment, in
         # source order (core/partition.py builds each block)
         from siddhi_tpu_torch.core.partition import PartitionRuntime
@@ -261,6 +261,54 @@ class SiddhiAppRuntime:
 
             ar.timer_target = agg_fire
 
+    def _add_named_windows(self) -> None:
+        """Named windows (core/window_runtime.py): an input junction under
+        the window's id, the shared window step behind it under the
+        processing lock, and an output junction feeding `from W` queries
+        and join sides; a window with timers re-arms after each step (its
+        next expiry, or a cron window's next fire)."""
+        from siddhi_tpu_torch.core.window_runtime import NamedWindow
+
+        self.named_windows: dict[str, NamedWindow] = {}
+        for wid, wd in self.app.window_definitions.items():
+            if find_annotation(wd.annotations, "OnError") is not None:
+                raise _not_ported(f"@OnError on window '{wid}'")
+            nw = NamedWindow(wd, self.interner, self.device)
+            self.named_windows[wid] = nw
+            in_j = StreamJunction(nw.schema, self.interner, self.batch_size, self.device)
+            self.junctions[wid] = in_j
+            nw.out_junction = StreamJunction(nw.schema, self.interner, self.batch_size,
+                                             self.device)
+
+            def receive(batch: EventBatch, now: int, _nw=nw) -> None:
+                with self._process_lock:
+                    out, aux = _nw.receive(batch, now)
+                    _nw.out_junction.publish_batch(out, now)
+                if _nw.host_next_timer is not None:
+                    self._notify(_nw.host_next_timer(self.clock()), _nw.timer_target)
+                else:
+                    self._schedule_at(aux.get("next_timer"), _nw.timer_target)
+
+            in_j.subscribe(receive)
+            if nw.needs_scheduler:
+                def fire(t_ms: int, _nw=nw, _recv=receive) -> None:
+                    _recv(self._timer_batch(_nw.schema, t_ms), t_ms)
+
+                nw.timer_target = fire
+
+    def _add_triggers(self) -> None:
+        """Triggers (core/trigger.py): each defines a stream
+        `<id>(triggered_time long)`, fed by the app's scheduler once
+        `start()` has started it."""
+        from siddhi_tpu_torch.core.trigger import TriggerRuntime
+        from siddhi_tpu_torch.core.types import AttrType
+
+        self.triggers = {}
+        for tid, td in self.app.trigger_definitions.items():
+            self.stream_schemas[tid] = StreamSchema(tid, [("triggered_time", AttrType.LONG)])
+            self.triggers[tid] = TriggerRuntime(td, self._junction(tid), self._scheduler,
+                                                lambda: self.clock())
+
     def _junction(self, stream_id: str) -> StreamJunction:
         j = self.junctions.get(stream_id)
         if j is None:
@@ -282,6 +330,8 @@ class SiddhiAppRuntime:
             raise _not_ported(f"output '{type(out).__name__}'")
         target = out.target
         existing = self.stream_schemas.get(target)
+        if existing is None and target in self.named_windows:
+            existing = self.named_windows[target].schema
         inferred = qr.out_schema
         if existing is None:
             self.stream_schemas[target] = inferred
@@ -319,6 +369,11 @@ class SiddhiAppRuntime:
         if not isinstance(stream, SingleInputStream):
             raise _not_ported(f"{type(stream).__name__} query")
         in_schema = self.stream_schemas.get(stream.stream_id)
+        src_junction = None
+        if in_schema is None and stream.stream_id in self.named_windows:
+            # `from W`: the named window's emission stream
+            nw = self.named_windows[stream.stream_id]
+            in_schema, src_junction = nw.schema, nw.out_junction
         if in_schema is None:
             raise DefinitionNotExistError(
                 f"query '{qid}': stream '{stream.stream_id}' is not defined"
@@ -346,6 +401,9 @@ class SiddhiAppRuntime:
 
             qr.timer_targets["in"] = fire
 
+        if src_junction is not None:
+            src_junction.subscribe(receive)  # never sent to: no fused endpoint
+            return
         j = self._junction(stream.stream_id)
         j.subscribe(receive)
         self._fuse_candidate(j, FuseEndpoint(qr))
@@ -374,6 +432,8 @@ class SiddhiAppRuntime:
             sch = self.stream_schemas.get(s.stream_id)
             if sch is None and s.stream_id in self.tables:
                 sch = self.tables[s.stream_id].schema
+            if sch is None and s.stream_id in self.named_windows:
+                sch = self.named_windows[s.stream_id].schema
             if sch is None and s.stream_id in agg_findables:
                 sch = agg_findables[s.stream_id].schema
             if sch is None:
@@ -383,7 +443,8 @@ class SiddhiAppRuntime:
         qr = JoinQueryRuntime(query, qid, schemas[0], schemas[1], self.interner, self.device,
                               group_capacity=self.group_capacity,
                               join_capacity=self.join_capacity, tables=self.tables,
-                              findables={**self.tables, **agg_findables})
+                              findables={**self.tables, **self.named_windows,
+                                         **agg_findables})
         self.queries[qid] = qr
         self._wire_insert(qr)
 
@@ -416,6 +477,12 @@ class SiddhiAppRuntime:
             self._fuse_candidate(j, FuseEndpoint(qr, step=step_both, outputs=2))
         else:
             for side, stream in (("l", join.left), ("r", join.right)):
+                nw = qr.window_sides[side]
+                if nw is not None:
+                    # a named-window side: driven by the window's emissions
+                    # (that junction never sees send_columns)
+                    nw.out_junction.subscribe(lambda b, now, _s=side: receive_side(b, now, _s))
+                    continue
                 if qr.table_sides[side]:
                     continue  # a table side is probed, never driven
                 sj = self._junction(stream.stream_id)
@@ -604,11 +671,13 @@ class SiddhiAppRuntime:
                 sqr = StoreQueryRuntime(SiddhiCompiler.parse_store_query(store_query),
                                         self.tables, self.interner, self.device,
                                         group_capacity=self.group_capacity,
+                                        windows=self.named_windows,
                                         aggregations=self.aggregations)
                 self._store_query_cache[store_query] = sqr
         else:
             sqr = StoreQueryRuntime(store_query, self.tables, self.interner, self.device,
                                     group_capacity=self.group_capacity,
+                                    windows=self.named_windows,
                                     aggregations=self.aggregations)
         with self._process_lock:
             return sqr.execute(self.clock())
@@ -647,6 +716,10 @@ class SiddhiAppRuntime:
             if hnt is not None:
                 self._notify(hnt(self.clock()), qr.timer_targets.get("in"))
             self._arm_rate_limiter(qr)
+        # triggers begin last, into fully wired queries (reference:
+        # SiddhiAppRuntime.start:353-394)
+        for tr in self.triggers.values():
+            tr.start()
 
     def _build_fused_ingest(self) -> None:
         """Build a fused ingest engine on each junction whose subscribers
@@ -674,6 +747,8 @@ class SiddhiAppRuntime:
 
     def shutdown(self) -> None:
         self._running = False
+        for tr in self.triggers.values():
+            tr.stop()
         if self._playback_clock is not None:
             self._playback_clock.stop()
         self._scheduler.shutdown()
@@ -682,6 +757,9 @@ class SiddhiAppRuntime:
                 j.fused_ingest.close()  # stops the pipeline drain worker
         for qr in self.queries.values():
             qr.flush_aux_warnings()  # overflow flags not yet read back
+        # flush after the scheduler stops, so no timer re-dirties a table
+        for t in self.tables.values():
+            t.close_record_store()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._raise_timer_error()

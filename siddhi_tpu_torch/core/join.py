@@ -18,8 +18,10 @@ window, nothing for a windowless side, or a table's live `(cols, ts, valid)`
 lanes for a table side (`TableSide`: a passive side that is probed and never
 triggers; reference: TableWindowProcessor), or an aggregation's merged
 buckets for the join's `per`, masked by its `within`
-(core/aggregation.py `AggFindable`, a find a probe step). Named-window
-sides are not ported yet: their definitions raise at app creation. Inside a
+(core/aggregation.py `AggFindable`, a find a probe step), or a named
+window's live view (core/window_runtime.py `NamedWindow`: an active side,
+whose emissions drive the join while probes read its shared buffer;
+reference: WindowWindowProcessor). Inside a
 partition (`CompiledJoin.step_partitioned`) every state leaf has a leading
 [P] axis: each probe row meets its own slot's view (csrc/partition_join.cu
 K38 for a sliding ring), and the keyed compaction K39 keeps each slot's
@@ -258,10 +260,12 @@ class _TableView(WindowStage):
 
 
 class TableSide:
-    """A join side backed by a table (reference: TableWindowProcessor —
-    probe-only, it never triggers)."""
+    """A join side backed by a shared findable: a table (reference:
+    TableWindowProcessor — probe-only, it never triggers) or a named window
+    (reference: WindowWindowProcessor — its emission stream drives the join
+    while probes read the shared buffer; its arrivals never re-buffer)."""
 
-    passive = True
+    is_table = True
 
     def __init__(self, stream: SingleInputStream, table):
         if stream.handlers:
@@ -272,6 +276,8 @@ class TableSide:
         self.schema = table.schema
         self.table = table
         self.window = _TableView(table)
+        # tables are passive probe targets; named windows also trigger
+        self.passive = not getattr(table, "is_named_window", False)
 
     def filter_batch(self, batch: EventBatch, now) -> EventBatch:
         return batch
@@ -280,6 +286,7 @@ class TableSide:
 class JoinSide:
     """One side of the join: pre-window filters and at most one window."""
 
+    is_table = False
     passive = False
 
     def __init__(self, stream: SingleInputStream, schema: StreamSchema, scope: Scope):
@@ -568,11 +575,16 @@ class JoinQueryRuntime(BaseQueryRuntime):
         self._setup_output(query, query_id)
         self._attach_tables(tables, interner)
         self._join_overflow = _FlagWatch(self.device, self._log_join_overflow)
-        # the sides whose window needs timers; a table side has no junction
+        # the sides whose window needs timers; a findable side has no junction
         self.scheduled_sides = tuple(
             side for side, js in (("l", self.join.left), ("r", self.join.right))
             if not js.passive and js.window.needs_scheduler)
-        self.table_sides = {"l": self.join.left.passive, "r": self.join.right.passive}
+        # findable sides have no junction of their own; a named-window side
+        # is driven by the window's emission junction instead
+        self.table_sides = {"l": self.join.left.is_table, "r": self.join.right.is_table}
+        self.window_sides = {
+            side: js.table if js.is_table and not js.passive else None
+            for side, js in (("l", self.join.left), ("r", self.join.right))}
         self.uses_scheduler = bool(self.scheduled_sides)
         self.side_schemas = {"l": left_schema, "r": right_schema}
 

@@ -13,6 +13,13 @@ flow's partition context keys the aggregators (one carry a partition, or one
 a (partition, group) with a table a partition), and the collapse, the
 order-by and the limit run within each partition, as the JAX package's vmap
 runs the selector once per partition.
+
+Order-by and offset/limit run as `order_limit` (flat) and
+`order_limit_partitioned` (within each partition, placed by (rank, slot)):
+K46, a hand-written CUDA kernel on the card (csrc/order_limit.cu) whose
+plain PyTorch versions `order_limit_ref` / `order_limit_partitioned_ref` the
+wrappers take only for tensors on the CPU; the lanes follow the order by
+K11's gather.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from siddhi_tpu_torch import kernels
 from siddhi_tpu_torch.core.aggregators import CompiledAggregator, FlowInfo, build_aggregator
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 from siddhi_tpu_torch.core.event import EventBatch, KIND_CURRENT, KIND_EXPIRED
@@ -51,6 +59,151 @@ from siddhi_tpu_torch.query_api.expression import AttributeFunction, Expression,
 _AGG_REF = "__agg__"
 _OUT_REF = "__out__"
 _BIG = torch.iinfo(torch.int32).max
+
+
+# ---------------------------------------------------------------------------
+# K46: order-by and offset/limit
+# ---------------------------------------------------------------------------
+
+# csrc/order_limit.cu's key type codes, and its most keys
+_ORDER_CODE = {torch.int32: 0, torch.int64: 1, torch.bool: 2, torch.float32: 3}
+_MAX_ORDER_KEYS = 8
+
+
+_FLT_MIN = torch.finfo(torch.float32).tiny
+
+
+def _order_cols(valid: torch.Tensor, keys: list, desc: list) -> list:
+    """The JAX package's sort keys: a `desc` key negated (a bool one as
+    -float32), wrapping; a float key's subnormals as 0.0, since XLA's
+    comparisons flush them. An invalid row's keys are 0: the invalid rows,
+    never delivered, follow the valid ones in row order."""
+    out = []
+    for k, d in zip(keys, desc):
+        if d:
+            k = -k.to(torch.float32) if k.dtype == torch.bool else -k
+        if k.dtype == torch.float32:
+            k = torch.where(k.abs() < _FLT_MIN, torch.zeros_like(k), k)
+        out.append(torch.where(valid, k, torch.zeros_like(k)))
+    return out
+
+
+def _stable_perm(keys: list) -> torch.Tensor:
+    """The permutation ordering rows by keys[0], then keys[1], ..., stable
+    by row (jnp.lexsort, as stable sorts from the least significant key)."""
+    perm = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in reversed(keys):
+        perm = perm[torch.sort(k[perm], stable=True).indices]
+    return perm
+
+
+def order_limit_ref(valid: torch.Tensor, keys: list, desc: list, lo: int, hi: int):
+    """Plain version of `order_limit`, the JAX package's `_order_limit`:
+    the rows' stable order by (invalid last, key 1, ..., key n, row), then
+    the valid rows ranked [lo, hi) kept (the invalid rows in row order).
+    Returns (perm [R] int64, or None with no key; the kept mask [R] bool in
+    the output order)."""
+    perm = None
+    if keys:
+        perm = _stable_perm([(~valid).to(torch.uint8)] + _order_cols(valid, keys, desc))
+        valid = valid[perm]
+    v = valid.to(torch.int32)
+    rank = torch.cumsum(v, 0, dtype=torch.int32) - v
+    return perm, valid & (rank >= lo) & (rank < hi)
+
+
+def order_limit_partitioned_ref(valid: torch.Tensor, keys: list, desc: list,
+                                part: torch.Tensor, p: int, lo: int, hi: int):
+    """Plain version of `order_limit_partitioned`: each partition's rows
+    (part [R] int64 in [0, p], p for a row of no partition) in
+    `order_limit_ref`'s order, placed by (rank within the partition,
+    partition) as the JAX package's `_flatten` places a vmapped output; the
+    valid rows ranked [lo, hi) within their partition kept."""
+    perm = None
+    if keys:
+        srt = _stable_perm([part, (~valid).to(torch.uint8)] + _order_cols(valid, keys, desc))
+        ps = part[srt]
+        rank = rank_within(ps, torch.ones_like(ps))
+        perm = srt[torch.sort(rank * (p + 1) + ps, stable=True).indices]
+        valid, part = valid[perm], part[perm]
+    rank = rank_within(part, valid)  # among its partition's valid rows
+    return perm, valid & (rank >= lo) & (rank < hi)
+
+
+def order_limit(valid: torch.Tensor, keys: list, desc: list, lo: int, hi: int):
+    """Order a chunk's rows by `keys` (each [R]; `desc` flags) with the
+    valid rows first, stable, and keep the valid rows ranked [lo, hi)
+    (reference: QuerySelector orderEventChunk/limitEventChunk). Returns
+    (perm [R] int, or None with no key; the kept mask in the output order)."""
+    if valid.device.type == "cpu":
+        return order_limit_ref(valid, keys, desc, lo, hi)
+    return _order_launch("order_limit", valid, keys, desc, None, 0, lo, hi)
+
+
+def order_limit_partitioned(valid: torch.Tensor, keys: list, desc: list, part: torch.Tensor,
+                            p: int, lo: int, hi: int):
+    """`order_limit` within each partition (part [R] int64 in [0, p]), the
+    rows placed by (rank within the partition, partition)."""
+    if valid.device.type == "cpu":
+        return order_limit_partitioned_ref(valid, keys, desc, part, p, lo, hi)
+    return _order_launch("order_limit_partitioned", valid, keys, desc, part.contiguous(), p,
+                         lo, hi)
+
+
+def _order_launch(name: str, valid, keys, desc, part, p: int, lo: int, hi: int):
+    keys = [k.contiguous() for k in keys]
+    kernels.require_cuda(name, valid, *keys, *([] if part is None else [part]))
+    r = valid.shape[0]
+    if valid.dtype != torch.bool or valid.dim() != 1 or any(k.shape != (r,) for k in keys) or (
+            part is not None and (part.shape != (r,) or part.dtype != torch.int64)):
+        raise ValueError(f"{name}: [{r}] bool rows, [{r}] keys and int64 partitions expected")
+    if len(keys) > _MAX_ORDER_KEYS or any(k.dtype not in _ORDER_CODE for k in keys):
+        raise ValueError(f"{name}: at most {_MAX_ORDER_KEYS} int32/int64/bool/float32 keys, "
+                         f"got {[k.dtype for k in keys]}")
+    dev, nk = valid.device, len(keys)
+    hi = min(int(hi), _BIG)
+
+    def i32(n):
+        return torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+
+    words = torch.empty(max((nk + 2) * r, 1), dtype=torch.int64, device=dev)
+    worand = torch.empty(2 * (_MAX_ORDER_KEYS + 2), dtype=torch.int64, device=dev)
+    pa, pb, perm = i32(r), i32(r), i32(r)
+    kept = torch.empty(r, dtype=torch.bool, device=dev)
+    if part is None:
+        n_slot = n_start = pos_base = oidx = counters = i32(1)
+    else:
+        n_slot, n_start, pos_base, oidx = i32(p + 2), i32(p + 2), i32(r + 1), i32(r)
+        counters = i32(max(p + 2, r + 1))
+    ptrs = [k.data_ptr() for k in keys] + [None] * (_MAX_ORDER_KEYS - nk)
+    codes = [_ORDER_CODE[k.dtype] for k in keys] + [0] * (_MAX_ORDER_KEYS - nk)
+    descs = [int(bool(d)) for d in desc[:nk]] + [0] * (_MAX_ORDER_KEYS - nk)
+    kernels.check(kernels.function("ol_order")(
+        r, nk, p, int(lo), hi, valid.data_ptr(), None if part is None else part.data_ptr(),
+        *ptrs, *codes, *descs, words.data_ptr(), worand.data_ptr(), pa.data_ptr(),
+        pb.data_ptr(), perm.data_ptr(), kept.data_ptr(), n_slot.data_ptr(), n_start.data_ptr(),
+        pos_base.data_ptr(), oidx.data_ptr(), counters.data_ptr(), kernels.stream()), name)
+    kernels.launches[name] += 1
+    return (perm if nk else None), kept
+
+
+def take_lane(lane: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """lane[perm] (K11's gather on the card)."""
+    if lane.device.type == "cpu":
+        return lane[perm]
+    lane = lane.contiguous()
+    out = torch.empty(perm.shape[0], dtype=lane.dtype, device=lane.device)
+    kernels.check(kernels.function(f"rv_gather_{lane.element_size()}")(
+        lane.data_ptr(), perm.data_ptr(), out.data_ptr(), perm.shape[0], kernels.stream()),
+        "order_limit gather")
+    return out
+
+
+def _take(batch: EventBatch, perm: torch.Tensor, valid: torch.Tensor) -> EventBatch:
+    """The batch's lanes in `perm`'s order, with the kept mask `valid`
+    (already in that order)."""
+    return EventBatch(ts=take_lane(batch.ts, perm), kind=take_lane(batch.kind, perm),
+                      valid=valid, cols={n: take_lane(c, perm) for n, c in batch.cols.items()})
 
 
 def _lift_aggregators(expr: Expression, found: list[AttributeFunction]) -> Expression:
@@ -276,66 +429,39 @@ class CompiledSelector:
             new_state["group"] = group_state
         return new_state, out
 
-    def _order_keys(self, env: Env, shape) -> list:
-        keys = []
-        for cexpr, desc in self.order_by:
-            col = cexpr(env).expand(shape)
-            if desc:
-                col = -col.to(torch.float32) if col.dtype == torch.bool else -col
-            keys.append(col)
-        return keys
+    def _order_args(self, env: Env, shape):
+        """The order keys [R] with their `desc` flags, and the offset/limit
+        as the rank range [lo, hi)."""
+        keys = [cexpr(env).expand(shape) for cexpr, _desc in self.order_by]
+        desc = [d for _c, d in self.order_by]
+        lo = 0 if self.offset is None else int(self.offset)
+        hi = _BIG if self.limit is None else lo + int(self.limit)
+        return keys, desc, lo, hi
 
     def _order_limit_partitioned(self, out: EventBatch, env: Env, pslot: torch.Tensor, p: int):
         """Order-by and offset/limit within each partition, as the JAX
         package's vmap runs `_order_limit` once per partition: each
         partition's valid rows first, then its keys in order, stable by row;
         the limit counts each partition's rows; the ordered rows are placed
-        by (rank within the partition, slot), `_flatten`'s order. Returns
-        (out, slot lane of its rows)."""
+        by (rank within the partition, slot), `_flatten`'s order (K46).
+        Returns (out, slot lane of its rows)."""
         if not self.order_by and self.limit is None and self.offset is None:
             return out, pslot
         part = torch.where(pslot < p, pslot, p).to(torch.int64)
-        if self.order_by:
-            perm = torch.arange(part.shape[0], device=part.device)
-            for k in reversed([part, (~out.valid).to(torch.uint8)]
-                              + self._order_keys(env, out.valid.shape)):
-                perm = perm[torch.sort(k[perm], stable=True).indices]
-            ps = part[perm]
-            rank = rank_within(ps, torch.ones_like(ps))
-            place = perm[torch.sort(rank * (p + 1) + ps, stable=True).indices]
-            out = EventBatch(ts=out.ts[place], kind=out.kind[place], valid=out.valid[place],
-                             cols={n: c[place] for n, c in out.cols.items()})
-            pslot = pslot[place]
-            part = part[place]
-        if self.limit is not None or self.offset is not None:
-            rank = rank_within(part, out.valid)  # among its partition's valid rows
-            lo = 0 if self.offset is None else int(self.offset)
-            hi = _BIG if self.limit is None else lo + int(self.limit)
-            out = EventBatch(ts=out.ts, kind=out.kind,
-                             valid=out.valid & (rank >= lo) & (rank < hi), cols=out.cols)
-        return out, pslot
+        keys, desc, lo, hi = self._order_args(env, out.valid.shape)
+        perm, kept = order_limit_partitioned(out.valid, keys, desc, part, p, lo, hi)
+        if perm is None:
+            return EventBatch(out.ts, out.kind, kept, out.cols), pslot
+        return _take(out, perm, kept), take_lane(pslot, perm)
 
     def _order_limit(self, out: EventBatch, env: Env) -> EventBatch:
         """Per-chunk order-by + offset/limit (reference: QuerySelector
         orderEventChunk/limitEventChunk): valid rows first, then the keys in
-        order, stable by row — the JAX package's lexsort, as stable sorts
-        from the least significant key up."""
+        order, stable by row — the JAX package's lexsort (K46)."""
         if not self.order_by and self.limit is None and self.offset is None:
             return out
-        if self.order_by:
-            keys = self._order_keys(env, out.valid.shape)
-            perm = torch.arange(out.valid.shape[0], device=out.valid.device)
-            for k in reversed([(~out.valid).to(torch.uint8)] + keys):
-                perm = perm[torch.sort(k[perm], stable=True).indices]
-            out = EventBatch(
-                ts=out.ts[perm], kind=out.kind[perm], valid=out.valid[perm],
-                cols={n: c[perm] for n, c in out.cols.items()},
-            )
-        if self.limit is not None or self.offset is not None:
-            v = out.valid.to(torch.int32)
-            rank = torch.cumsum(v, 0, dtype=torch.int32) - v
-            lo = 0 if self.offset is None else int(self.offset)
-            hi = _BIG if self.limit is None else lo + int(self.limit)
-            out = EventBatch(ts=out.ts, kind=out.kind,
-                             valid=out.valid & (rank >= lo) & (rank < hi), cols=out.cols)
-        return out
+        keys, desc, lo, hi = self._order_args(env, out.valid.shape)
+        perm, kept = order_limit(out.valid, keys, desc, lo, hi)
+        if perm is None:
+            return EventBatch(out.ts, out.kind, kept, out.cols)
+        return _take(out, perm, kept)

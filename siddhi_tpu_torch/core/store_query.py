@@ -8,8 +8,10 @@ on-condition, runs the selector in batch mode (one row per group key) and
 applies any table write-back (core/table.py), all on the app's device. A
 store query over an aggregation (`from A within .. per '<duration>'`)
 reads its find (core/aggregation.py: the duration table's closed buckets,
-then the in-flight ones merged by K45), masked by `within`. Store queries
-over named windows are not ported yet.
+then the in-flight ones merged by K45), masked by `within`. One over a
+named window reads its live `view()` (insertion order). A table backed by
+a lazy record store (core/record_table.py) is staged per pull from the
+store's pushdown of the `on` condition.
 """
 
 from __future__ import annotations
@@ -18,7 +20,11 @@ import dataclasses
 
 import torch
 
-from siddhi_tpu_torch.core.errors import DefinitionNotExistError, SiddhiAppCreationError
+from siddhi_tpu_torch.core.errors import (
+    DefinitionNotExistError,
+    SiddhiAppCreationError,
+    SiddhiAppRuntimeError,
+)
 from siddhi_tpu_torch.core.event import Event, EventBatch, StreamSchema
 from siddhi_tpu_torch.core.executor import Scope, compile_expression
 from siddhi_tpu_torch.core.flow import Flow
@@ -35,8 +41,10 @@ class StoreQueryRuntime:
     inserted into a table)."""
 
     def __init__(self, sq: StoreQuery, tables: dict, interner, device, group_capacity=None,
-                 aggregations: dict | None = None):
+                 windows: dict | None = None, aggregations: dict | None = None):
         store = sq.input_store
+        self._sq = sq
+        windows = windows or {}
         self.device = torch.device(device)
         self.no_from = store is None
         if self.no_from and sq.output_stream is None:
@@ -78,15 +86,15 @@ class StoreQueryRuntime:
             table = None
             source_schema = StreamSchema("__const__", [])
         else:
-            table = tables.get(store.store_id)
+            table = tables.get(store.store_id) or windows.get(store.store_id)
             if table is None:
                 raise DefinitionNotExistError(
-                    f"'{store.store_id}' is not a defined table (store queries over named "
-                    "windows are not ported yet)")
+                    f"'{store.store_id}' is not a defined table, window, or aggregation")
             if store.within is not None or store.per is not None:
                 raise SiddhiAppCreationError("'within'/'per' apply to aggregation store queries")
             source_schema = table.schema
-        self.table = table
+        self.table = table  # the findable source: a table, window or aggregation
+        self.is_window = store is not None and store.store_id in windows
         self.tables = dict(tables)
         self.ref = (store.alias or store.store_id) if store is not None else "__const__"
 
@@ -123,6 +131,11 @@ class StoreQueryRuntime:
                               valid=torch.ones(1, dtype=torch.bool, device=dev), cols={})
         if self.aggregation is not None:
             return self.aggregation.find(self.per, self.within)
+        if self.is_window:
+            # a named window: view() already yields insertion order
+            cols, ts, mask = self.table.view(self.table.state)
+            return EventBatch(ts=ts, kind=torch.zeros_like(ts, dtype=torch.int8), valid=mask,
+                              cols=cols)
         st = self.table.state
         # iterate in insertion order (reference: holder iteration order)
         order = torch.argsort(torch.where(st["valid"], st["seq"], _MAX64), stable=True)
@@ -130,7 +143,41 @@ class StoreQueryRuntime:
                           valid=st["valid"][order],
                           cols={n: c[order] for n, c in st["cols"].items()})
 
+    def _stage_lazy_tables(self) -> dict:
+        """Each lazy record-store table's rows for this pull: the store's
+        pushdown of the `on` condition (the condition is applied again on
+        the device), staged in a fresh table state. Returns {table id: the
+        live state to put back}."""
+        live = {}
+        for tid, t in self.tables.items():
+            if not t.lazy:
+                continue
+            store = self._sq.input_store
+            on = store.on if store is not None and store.store_id == tid else None
+            rows = t.record_store.query(on, self.interner)
+            if rows is None:
+                raise SiddhiAppRuntimeError(
+                    f"table '{tid}': lazy record store did not push the condition down "
+                    "(query() returned None)")
+            if len(rows) > t.capacity:
+                raise SiddhiAppRuntimeError(
+                    f"table '{tid}': pushdown returned {len(rows)} rows but capacity is "
+                    f"{t.capacity}; narrow the condition or raise @capacity(size='N')")
+            live[tid] = t.state
+            t.state = t.load_rows(t.init_state(), rows)
+        return live
+
     def execute(self, now: int) -> list[Event]:
+        live = self._stage_lazy_tables()
+        try:
+            out = self._execute(now)
+        finally:
+            for tid, st in live.items():  # staged subsets never become live state
+                self.tables[tid].state = st
+        rows = self.out_schema.from_batch(out, self.interner)
+        return [Event(ts, data) for ts, _kind, data in rows]
+
+    def _execute(self, now: int) -> EventBatch:
         now_t = torch.full((), now, dtype=torch.int64, device=self.device)
         batch = self._source_batch(now_t)
         flow = Flow(batch=batch, ref=self.ref, now=now_t)
@@ -145,5 +192,4 @@ class StoreQueryRuntime:
             out = EventBatch(out.ts, out.kind, out.valid & (idx == last), out.cols)
         if self.table_op is not None:
             self.table_op(out, now_t, dict(flow.aux))
-        rows = self.out_schema.from_batch(out, self.interner)
-        return [Event(ts, data) for ts, _kind, data in rows]
+        return out

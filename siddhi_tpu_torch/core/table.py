@@ -29,14 +29,19 @@ routines are the kernels of `ops/table.py` (K21-K24):
 
 Conditions and set values that read the table compile into table programs
 (`ops/table.py` TableProgram); a table-dependent subtree outside their
-operations raises at app creation ("not ported yet"). Record-store tables
-(`@store`) and `@OnError` on a table are not ported yet.
+operations raises at app creation ("not ported yet"). A `@store` table
+(core/record_table.py) loads its rows from its record store at creation
+through `insert` (K21) and writes a row snapshot through after its mutating
+steps, at most one a second (`notify_change`); a lazy store stages the rows
+of each store query's pushdown instead. `@OnError` on a table is not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -110,9 +115,6 @@ class InMemoryTable:
         self.schema = StreamSchema(definition.id, [(a.name, a.type) for a in definition.attributes])
         self.interner = interner
         self.device = torch.device(device)
-        if find_annotation(definition.annotations, "store") is not None:
-            raise SiddhiAppCreationError(
-                f"table '{self.table_id}': @store record tables are not ported yet")
         cap_ann = find_annotation(definition.annotations, "capacity")
         self.capacity = (int(cap_ann.element("size") or cap_ann.element(None))
                          if cap_ann else int(capacity))
@@ -150,6 +152,90 @@ class InMemoryTable:
         self.lock = threading.RLock()
         self.state = self.init_state()
 
+        # @store(type='...'): an external record store — load its contents,
+        # write a snapshot through after each mutation (reference:
+        # AbstractRecordTable SPI)
+        self.record_store = None
+        self.lazy = False
+        store_ann = find_annotation(definition.annotations, "store")
+        if store_ann is not None:
+            from siddhi_tpu_torch.core.record_table import build_record_store
+
+            self.record_store = build_record_store(store_ann, self.table_id, self.schema)
+            rows = self.record_store.load()
+            if rows is None:
+                self.lazy = True  # finds push their condition down
+            else:
+                if len(rows) > self.capacity:
+                    raise SiddhiAppCreationError(
+                        f"table '{self.table_id}': record store holds {len(rows)} rows but "
+                        f"capacity is {self.capacity}; raise it with @capacity(size='N') "
+                        "before restarting")
+                self.state = self.load_rows(self.state, rows)
+        self._dirty = False
+        self._last_flush = 0.0
+        self._flush_lock = threading.Lock()
+        self._flush_timer = None
+
+    def load_rows(self, state: dict, rows: list) -> dict:
+        """`state` with host rows (schema order) inserted."""
+        if not rows:
+            return state
+        batch = self.schema.to_batch([0] * len(rows), rows, self.interner, self.device,
+                                     capacity=len(rows))
+        return self.insert(state, batch, {})
+
+    # ---- record-store write-through ---------------------------------------
+
+    def notify_change(self) -> None:
+        """After a mutating step: mark the table dirty; snapshots coalesce to
+        at most one a second (each decodes the whole table on the host), a
+        deferred flush catching the last change of a quiet spell."""
+        if self.record_store is None:
+            return
+        if self.lazy:
+            raise SiddhiAppCreationError(
+                f"table '{self.table_id}': a lazy (queryable) record store cannot accept "
+                "streaming writes; materialize it or write to the store directly")
+        with self._flush_lock:
+            self._dirty = True
+            due = time.monotonic() - self._last_flush >= 1.0
+            if not due and self._flush_timer is None:
+                t = threading.Timer(1.0, self._deferred_flush)
+                t.daemon = True
+                self._flush_timer = t
+                t.start()
+        if due:
+            self.flush_record_store()
+
+    def _deferred_flush(self) -> None:
+        with self._flush_lock:
+            self._flush_timer = None
+        self.flush_record_store()
+
+    def flush_record_store(self) -> None:
+        with self._flush_lock:
+            store = self.record_store
+            if store is None or not self._dirty:
+                return
+            if self._flush_timer is not None:
+                self._flush_timer.cancel()
+                self._flush_timer = None
+            store.on_change(self.rows())
+            self._dirty = False
+            self._last_flush = time.monotonic()
+
+    def close_record_store(self) -> None:
+        """The last flush, then disconnect; later flushes do nothing."""
+        self.flush_record_store()
+        with self._flush_lock:
+            store, self.record_store = self.record_store, None
+            if self._flush_timer is not None:
+                self._flush_timer.cancel()
+                self._flush_timer = None
+        if store is not None:
+            store.disconnect()
+
     # ---- state ------------------------------------------------------------
 
     def init_state(self) -> dict:
@@ -174,7 +260,8 @@ class InMemoryTable:
         with self.lock:
             rows = int(self.state["valid"].sum())
         return {"capacity": self.capacity, "primary_keys": list(self.primary_keys),
-                "indexes": list(self._indexed_cols), "record_store": False, "rows": rows}
+                "indexes": list(self._indexed_cols),
+                "record_store": self.record_store is not None, "rows": rows}
 
     def enable_index(self, col: str) -> None:
         """Keep a sorted index of `col` (an equality probe compiled against
@@ -532,6 +619,7 @@ def compile_table_output(output_stream, out_schema: StreamSchema,
                                  out_batch.valid & keep, cols)
             with _t.lock:
                 _t.state = _t.insert(_t.state, renamed, aux)
+            _t.notify_change()  # record-store write-through
 
         return insert_op
 
@@ -555,6 +643,7 @@ def compile_table_output(output_stream, out_schema: StreamSchema,
         def delete_op(out_batch, now, aux, _t=table):
             with _t.lock:
                 _t.state = _t.delete(_t.state, out_batch, on, now)
+            _t.notify_change()  # record-store write-through
 
         return delete_op
 
@@ -572,6 +661,7 @@ def compile_table_output(output_stream, out_schema: StreamSchema,
         def upsert_op(out_batch, now, aux, _t=table):
             with _t.lock:
                 _t.state = _t.update_or_insert(_t.state, out_batch, op, now, aux)
+            _t.notify_change()  # record-store write-through
 
         return upsert_op
 
@@ -617,6 +707,7 @@ def compile_table_output(output_stream, out_schema: StreamSchema,
     def update_op(out_batch, now, aux, _t=table):
         with _t.lock:
             _t.state = _t.update(_t.state, out_batch, op, now, aux)
+        _t.notify_change()  # record-store write-through
 
     return update_op
 

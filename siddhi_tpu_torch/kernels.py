@@ -36,7 +36,7 @@ SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "del
            "pattern_scan", "running_extreme", "distinct_count", "table_write", "table_index",
            "table_match", "table_scan", "special_window", "partition_window",
            "partition_time", "partition_batch", "partition_pattern", "partition_join",
-           "aggregation")
+           "aggregation", "mix_keys", "order_limit")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -161,6 +161,8 @@ SIGNATURES = {
     "sw_pcron": ("special_window", [I, I] + [P] * 23 + [P]),
     "agg_step": ("aggregation", [I] * 4 + [P] * 24 + [P]),
     "agg_find": ("aggregation", [I] * 4 + [P] * 12 + [P]),
+    "mk_mix": ("mix_keys", [I, I] + [P] * 8 + [I] * 8 + [P, P]),
+    "ol_order": ("order_limit", [I] * 5 + [P] * 2 + [P] * 8 + [I] * 16 + [P] * 11 + [P]),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -14,17 +14,19 @@ row of its (era, key). Any grouping of the rows by (active, era, key) that is
 stable by row gives the same results, so the card builds it with no sort
 (a hash table of row indices, csrc/group_assign.cu).
 
-Five hand-written CUDA kernels run on the card:
+Six hand-written CUDA kernels run on the card:
 - `assign_slots` (csrc/group_assign.cu, K7), and inside a partition
   `partition_assign_slots` (the same source, K33: P tables of G, one a
   partition);
 - `keyed_running_sum` (csrc/keyed_running_sum.cu, K8);
 - `keyed_running_extreme` (csrc/running_extreme.cu, K19);
 - `keep_last` behind `keep_last_in_sorted` / `keep_last_per_group`
-  (csrc/keep_last.cu, K9).
+  (csrc/keep_last.cu, K9);
+- `mix_keys`, the composite group key (csrc/mix_keys.cu, K47).
 Each `*_ref` beside them is its plain PyTorch version, which the wrapper
-takes only for tensors on the CPU. `mix_keys` is stock torch int64
-elementwise code.
+takes only for tensors on the CPU. The JAX package's `permute_by` (a
+payload sort standing in for a gather on the TPU) has no counterpart: its
+callers' kernels gather by index (K7, K9, K17).
 """
 
 from __future__ import annotations
@@ -54,19 +56,53 @@ _SUM_TILE = 512
 _SUM_HASH = 1024
 
 
-def mix_keys(cols: list[torch.Tensor]) -> torch.Tensor:
-    """Combine one or more [B] integer-encoded key columns into one int64 key.
+# csrc/mix_keys.cu's column type codes, and its most columns
+_KEY_CODE = {torch.int32: 0, torch.int64: 1, torch.bool: 2, torch.float32: 3}
+_MAX_KEY_COLS = 8
 
-    A single column passes through unchanged; composite keys are mixed with
-    the JAX package's splitmix64 rounds, bit for bit (wrapping int64
-    multiply, arithmetic right shift)."""
+
+def _widen(c: torch.Tensor) -> torch.Tensor:
+    """A key column as int64: a float32 by its int32 bits (as the callers'
+    `_as_key_col` encodes floats), anything else by value."""
+    if c.dtype == torch.float32:
+        return c.contiguous().view(torch.int32).to(torch.int64)
+    return c.to(torch.int64)
+
+
+def mix_keys_ref(cols: list[torch.Tensor]) -> torch.Tensor:
+    """Plain version of `mix_keys`: the JAX package's splitmix64 rounds
+    (wrapping int64 multiply, arithmetic right shift)."""
     if len(cols) == 1:
-        return cols[0].to(torch.int64)
-    h = torch.zeros_like(cols[0], dtype=torch.int64)
+        return _widen(cols[0])
+    h = torch.zeros_like(torch.broadcast_tensors(*cols)[0], dtype=torch.int64)
     for c in cols:
-        h = (h ^ c.to(torch.int64)) * _MIX1
+        h = (h ^ _widen(c)) * _MIX1
         h = (h ^ (h >> 29)) * _MIX2
     return h
+
+
+def mix_keys(cols: list[torch.Tensor]) -> torch.Tensor:
+    """Combine one or more integer-encoded key columns (int32, int64, bool,
+    or float32 by its bits; broadcast to one shape) into one int64 key.
+
+    A single column passes through unchanged; composite keys are mixed with
+    the JAX package's splitmix64 rounds, bit for bit: K47 on the card."""
+    if len(cols) == 1 or cols[0].device.type == "cpu":
+        return mix_keys_ref(cols)
+    if len(cols) > _MAX_KEY_COLS or any(c.dtype not in _KEY_CODE for c in cols):
+        raise ValueError(f"mix_keys: at most {_MAX_KEY_COLS} int32/int64/bool/float32 "
+                         f"columns, got {[c.dtype for c in cols]}")
+    cols = [c.contiguous() for c in torch.broadcast_tensors(*cols)]
+    kernels.require_cuda("mix_keys", *cols)
+    out = torch.empty(cols[0].shape, dtype=torch.int64, device=cols[0].device)
+    n = out.numel()
+    pad = _MAX_KEY_COLS - len(cols)
+    kernels.check(kernels.function("mk_mix")(
+        n, len(cols), *[c.data_ptr() for c in cols], *[None] * pad,
+        *[_KEY_CODE[c.dtype] for c in cols], *[0] * pad, out.data_ptr(), kernels.stream()),
+        "mix_keys")
+    kernels.launches["mix_keys"] += 1
+    return out
 
 
 @dataclasses.dataclass

@@ -1,7 +1,7 @@
 """Incremental aggregation end to end through both packages on the CPU: every
 test of tests/test_aggregation.py and tests/test_golden_aggregation_ref.py
-under its own assertions with the port's SiddhiManager swapped in (the
-`@store` restart test must raise "not ported yet"); chip_smoke.py's AGG and
+under its own assertions with the port's SiddhiManager swapped in (and,
+for the `@store` restart test, the port's record store); chip_smoke.py's AGG and
 AGJ paths at a small size against the JAX package (the stores, the duration
 tables, the store queries and the joined rows); JAX's stores and tables
 carried into the port, then more batches through both; the refusals the JAX
@@ -64,8 +64,9 @@ def _bits_equal(got, want, where):
 # ---------------------------------------------------------------------------
 
 MODULES = ("tests.test_aggregation", "tests.test_golden_aggregation_ref")
-# @store on an aggregation (its restart rebuild reads the stored tables)
-UNPORTED = {"test_store_backed_restart_rebuilds_inflight"}
+# @store on an aggregation (its restart rebuild reads the stored tables):
+# run with the port's record store in the JAX module's place
+RECORD_STORE_TESTS = {"test_store_backed_restart_rebuilds_inflight"}
 
 
 def _cases():
@@ -82,7 +83,7 @@ def _cases():
 
 def test_every_aggregation_test_is_covered():
     names = {c[2] for c in _cases()}
-    assert UNPORTED <= names and len(names) == 23
+    assert RECORD_STORE_TESTS <= names and len(names) == 23
 
 
 @pytest.mark.parametrize("modname,cname,fname", _cases())
@@ -92,12 +93,14 @@ def test_jax_aggregation_test_on_the_port(modname, cname, fname, monkeypatch):
     mod = importlib.import_module(modname)
     monkeypatch.setattr(mod, "SiddhiManager", _port)
     monkeypatch.setattr(siddhi_tpu, "SiddhiManager", _port)  # in-test imports
+    if fname in RECORD_STORE_TESTS:
+        import siddhi_tpu.core.record_table as jax_records
+
+        import siddhi_tpu_torch.core.record_table as port_records
+
+        monkeypatch.setattr(jax_records, "InMemoryRecordStore", port_records.InMemoryRecordStore)
     fn = getattr(mod, fname) if cname is None else getattr(getattr(mod, cname)(), fname)
-    if fname in UNPORTED:
-        with pytest.raises(SiddhiAppCreationError, match="not ported yet"):
-            fn()
-    else:
-        fn()
+    fn()
 
 
 # ---------------------------------------------------------------------------

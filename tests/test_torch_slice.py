@@ -165,9 +165,6 @@ def test_insert_into_chains_queries():
 
 
 @pytest.mark.parametrize("ql", [
-    "define window W (symbol string, price float) length(5); "
-    "from S select symbol, price insert into W;",
-    "define trigger T at every 5 sec; from S select symbol insert into O;",
     "@source(type='inMemory', topic='t') define stream S9 (a int); "
     "from S select symbol insert into O;",
 ])
@@ -175,6 +172,33 @@ def test_unported_features_raise(ql):
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
     with pytest.raises(SiddhiAppCreationError, match="not ported yet"):
         mgr.create_siddhi_app_runtime(bench.VERIFY_HEAD + ql)
+
+
+@pytest.mark.parametrize("ql", [
+    "define window W (symbol string, price float) length(5); "
+    "from S select symbol, price insert into W; from W select symbol, price insert into O;",
+    "define trigger T at every 5 sec; from S select symbol insert into O; "
+    "from T join S#window.length(2) as s select s.symbol as symbol insert into O;",
+])
+def test_slice15_forms_match_jax(ql):
+    """The named window and the trigger test_unported_features_raise held
+    to "not ported yet" until the named-window slice (each given a reader
+    into O), against the JAX package: under @app:playback from event time
+    1, one event per send, 70 ms apart, so the trigger fires every 5 s."""
+    _ts, rows = _verify_feed()
+    got = {}
+    for mgr in _managers():
+        rt = mgr.create_siddhi_app_runtime("@app:playback\n" + bench.VERIFY_HEAD + ql)
+        out = got.setdefault(type(mgr).__module__.split(".")[0], [])
+        rt.add_callback("O", lambda evs, _o=out: _o.extend(tuple(e.data) for e in evs))
+        rt.start()
+        h = rt.get_input_handler("S")
+        for i, r in enumerate(rows):
+            h.send(r, timestamp=1 + 70 * i)
+        rt.shutdown()
+        mgr.shutdown()
+    assert len(got["siddhi_tpu"]) >= 96
+    assert bench._rows_match(got["siddhi_tpu_torch"], got["siddhi_tpu"])
 
 
 @pytest.mark.parametrize("ql", [

@@ -3,13 +3,14 @@ SiddhiQL app and events through `siddhi_tpu` (JAX) and `siddhi_tpu_torch`
 (device="cpu") — the table_crud verify case against VERIFY.json and JAX;
 every test of tests/test_table.py and tests/test_table_update_parallel.py
 and of the primary-key and index-table golden corpora under its own
-assertions with the port's manager swapped in (record-store tables must
-raise "not ported yet"), the update apps of test_table_update_parallel.py
+assertions with the port's manager swapped in (the record-store tests
+with the port's record-store SPI, extension registry and expression
+classes), the update apps of test_table_update_parallel.py
 also against JAX; the table paths of chip_smoke.py (TAB-PK, TAB-IX,
 TAB-DENSE, TAB-UPSERT, TAB-JOIN) at capacity 64 and batch 32/33 against JAX,
 fused and per batch; an auto-indexed update whose index gains and loses
 duplicates, with no host read in the update; a JAX table state carried in
-through interop; describe_state;
+through interop; describe_state; a @store table against JAX;
 the forms left out raising "not ported yet". Floats match to a relative
 2e-4 (bench.py:_rows_match); everything else exactly.
 """
@@ -80,8 +81,25 @@ def test_table_crud_verify_case():
 
 MODULES = ("tests.test_table", "tests.test_table_update_parallel",
            "tests.test_golden_pktable_ref", "tests.test_golden_indextable_ref")
-# record-store tables wait for the host-services slice
-UNPORTED = {"test_store_backed_table_survives_restart", "test_lazy_store_pushdown"}
+# the record-store tests import the JAX package's store SPI, extension
+# registry and expression classes: the port's take their place
+RECORD_STORE_TESTS = {"test_store_backed_table_survives_restart", "test_lazy_store_pushdown"}
+
+
+def _swap_record_store_modules(monkeypatch) -> None:
+    import siddhi_tpu.core.extension as jax_ext
+    import siddhi_tpu.core.record_table as jax_records
+    import siddhi_tpu.query_api.expression as jax_expr
+
+    import siddhi_tpu_torch.core.extension as port_ext
+    import siddhi_tpu_torch.core.record_table as port_records
+    import siddhi_tpu_torch.query_api.expression as port_expr
+
+    monkeypatch.setattr(jax_records, "InMemoryRecordStore", port_records.InMemoryRecordStore)
+    monkeypatch.setattr(jax_records, "RecordStore", port_records.RecordStore)
+    monkeypatch.setattr(jax_ext, "extension", port_ext.extension)
+    for name in ("Compare", "CompareOp", "Constant", "Variable"):
+        monkeypatch.setattr(jax_expr, name, getattr(port_expr, name))
 
 
 def _cases():
@@ -117,13 +135,11 @@ def test_jax_table_test_on_the_port(modname, cname, fname, param, monkeypatch):
     monkeypatch.setattr(siddhi_tpu, "SiddhiManager", _port)  # in-test imports
     if hasattr(mod, "table_mod"):
         monkeypatch.setattr(mod, "table_mod", port_table)
+    if fname in RECORD_STORE_TESTS:
+        _swap_record_store_modules(monkeypatch)
     fn = getattr(getattr(mod, cname)(), fname) if cname else getattr(mod, fname)
     kwargs = {param[0]: param[1]} if param else {}
-    if fname in UNPORTED:
-        with pytest.raises(SiddhiAppCreationError, match="not ported yet"):
-            fn(**kwargs)
-    else:
-        fn(**kwargs)
+    fn(**kwargs)
 
 
 @pytest.mark.parametrize("case", sorted(importlib.import_module(
@@ -392,9 +408,6 @@ def test_flags_logged_once(caplog):
 
 
 UNPORTED_FORMS = {
-    "record_store": """define stream S (k long);
-        @store(type='memory', store.id='t9') define table T (k long);
-        from S insert into T;""",
     "on_error": """define stream S (k long);
         @OnError(action='LOG') define table T (k long);
         from S insert into T;""",
@@ -448,8 +461,55 @@ def test_forms_that_raised_match_jax(ql):
 
 
 def test_store_query_over_a_window_or_aggregation_raises():
-    mgr = _port()
-    rt = mgr.create_siddhi_app_runtime("define stream S (k long); define table T (k long);")
-    with pytest.raises(port_errors.DefinitionNotExistError, match="not ported yet"):
-        rt.query("from W select k")
-    mgr.shutdown()
+    """A store query over a name that is no table, window or aggregation
+    raises JAX's class and message."""
+    from siddhi_tpu.core import errors as jax_errors
+
+    for mgr, err in ((siddhi_tpu.SiddhiManager(), jax_errors.DefinitionNotExistError),
+                     (_port(), port_errors.DefinitionNotExistError)):
+        rt = mgr.create_siddhi_app_runtime("define stream S (k long); define table T (k long);")
+        with pytest.raises(err, match="'W' is not a defined table, window, or aggregation"):
+            rt.query("from W select k")
+        mgr.shutdown()
+
+
+def test_record_store_table_matches_jax():
+    """A @store table (the left-out form test_left_out_forms_raise held to
+    "not ported yet" until the named-window slice) against JAX: stored rows
+    loaded at creation, the table's rows after inserts and a delete, the
+    snapshot written through, and every table lane after a restart over
+    that snapshot."""
+    import siddhi_tpu.core.record_table as jax_records
+
+    import siddhi_tpu_torch.core.record_table as port_records
+
+    app = """define stream S (k long, v double); define stream D (k long);
+        @store(type='memory', store.id='t9') @PrimaryKey('k') @capacity(size='64')
+        define table T (k long, v double);
+        from S insert into T; from D delete T on T.k == k;"""
+    got = {}
+    for name, mgr, records in (("jax", siddhi_tpu.SiddhiManager(), jax_records),
+                               ("port", _port(), port_records)):
+        records.InMemoryRecordStore.clear_all()
+        records.InMemoryRecordStore._data["t9"] = [(100, 1.25), (-7, -0.0)]
+        rt = mgr.create_siddhi_app_runtime(app)
+        rt.start()
+        for i in range(40):
+            rt.get_input_handler("S").send((i % 23, i * 0.5), timestamp=1 + i)
+            if i % 7 == 3:
+                rt.get_input_handler("D").send((i % 5,), timestamp=1 + i)
+        rows = [tuple(e.data) for e in rt.query("from T select k, v")]
+        rt.shutdown()
+        stored = list(records.InMemoryRecordStore._data["t9"])
+        rt2 = mgr.create_siddhi_app_runtime(app)
+        lanes = rt2.tables["T"].state
+        got[name] = (rows, stored, lanes)
+        rt2.shutdown()
+        mgr.shutdown()
+        records.InMemoryRecordStore.clear_all()
+    assert len(got["jax"][0]) > 15
+    assert got["port"][:2] == got["jax"][:2]
+    np.testing.assert_equal(
+        state_to_numpy(got["port"][2]),
+        {k: (np.asarray(v) if k != "cols" else {n: np.asarray(c) for n, c in v.items()})
+         for k, v in got["jax"][2].items()})
