@@ -71,7 +71,9 @@ engine next to it. Phases, each printed as it ends:
      aggregation_kernel_phase); order-by/limit K46, flat and per
      partition, at path NW's shapes and ragged with the encoding's edge
      keys, and the composite-key mix K47 over 2-8 columns, exactly (see
-     named_window_kernel_phase);
+     named_window_kernel_phase); the ring's seq view K48 on path LIN's J
+     ring, a time ring with holes, W 1/50/1,024 and an empty ring, and the
+     view paired with it, exactly (see lineage_kernel_phase);
   3. verify cases filter_num, len_window_avg, len_window_minmax,
      len_batch_group, having_order, stddev_distinct, time_window,
      external_time, self_join, pattern_within, count_seq,
@@ -194,7 +196,14 @@ engine next to it. Phases, each printed as it ends:
      partition (K46's partition entry), a store query over the window
      after each 1,024-event call; events/s, trigger steps a call, ms a
      trigger step, the busy share, and every delivered row and store query
-     of the first calls against device="cpu".
+     of the first calls against device="cpu";
+ 15. path LIN (see lineage_path_phase): @app:lineage(capacity='262144') on
+     the quickstart (its stream with @flightRecorder(size='1024')), J and P
+     at @app:batch 32,768, a 2-batch call then a 262,144-event call, fused,
+     lineage on and off (and J in sample mode): rows equal on and off, the
+     recorder's counts, the first call's records and resolutions against
+     device="cpu", K48 launches = join probe steps, the flight ring; events/s
+     on and off, and the arena's per-batch D2H.
 Each phase prints an `elapsed ... s after ...` line.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
@@ -222,6 +231,11 @@ and paths AGG and AGJ (`--no-paths`: only K44 and K45).
 
 builds the kernels and runs only K46 and K47 against their plain versions
 and path NW (`--no-paths`: only K46 and K47).
+
+    python3 chip_smoke.py --lineage
+
+builds the kernels and runs only K48 against its plain version and path LIN
+(`--no-paths`: only K48).
 
     python3 chip_smoke.py --profile
 
@@ -5041,6 +5055,288 @@ def named_window_path_phase(torch) -> dict:
     return out
 
 
+# slice 16: event lineage and the flight recorder (@app:lineage, K48)
+LIN_CAP, LIN_K = 262_144, 8
+# per app two fused calls: 2 batches (held against device="cpu"), then 8
+# (262,144 events, one fused K=8 call: timed, and the arena's capacity)
+LIN_CALLS = (2 * MAIN_BATCH, LIN_K * MAIN_BATCH)
+LIN_SAMPLE_EVERY, LIN_FLIGHT = 16, 1024
+LIN_APPS = {
+    "Q": MAIN_APP.format(batch=MAIN_BATCH, w=MAIN_W, extra="").replace(
+        "define stream", f"@flightRecorder(size='{LIN_FLIGHT}') define stream"),
+    "J": JOIN_APP.format(cap=JOIN_CAP, batch=MAIN_BATCH, playback="", win=f"length({JOIN_W})"),
+    "P": PATTERN_APP.format(batch=MAIN_BATCH),
+}
+LIN_PATH_KERNELS = {"Q": ("length_window_step", "running_sum", "wire_decode", "deliver_pack"),
+                    "J": ("length_window_step", "ring_view", "ring_view_seq", "join_assemble",
+                          "wire_decode", "deliver_pack"),
+                    "P": ("pattern_advance", "pattern_emit", "wire_decode", "deliver_pack")}
+
+
+def lin_app(label: str, lineage: bool = True, sample: bool = False) -> str:
+    mode = f", mode='sample', sample.every='{LIN_SAMPLE_EVERY}'" if sample else ""
+    head = f"@app:lineage(capacity='{LIN_CAP}'{mode})\n" if lineage else ""
+    return head + f"@app:ingestChunk(size='{LIN_K}')\n" + LIN_APPS[label]
+
+
+def run_lin(dev, app: str, data: dict, sizes, keep_records: bool = False) -> dict:
+    """Drive one LIN app through send_columns, one call a size (each at
+    least 2 batches: fused), query "q" delivering to a callback. Returns
+    the rows (ts, data) in order, each call's seconds (host clock around a
+    synchronize), and under lineage the recorder's counters, the first
+    call's records, each call's last 16 records resolved, the flight ring
+    after each call, and with `keep_records` every kept record at the end
+    (records are built as dicts only when read)."""
+    import torch
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(app)
+    for s in SYMBOLS:
+        mgr.interner.intern(s)
+    rows = []
+    rt.add_callback("q", lambda t, ins, rem: rows.extend(
+        (e.timestamp, tuple(e.data)) for e in ins or []))
+    rt.start()
+    j = rt.junctions["StockStream"]
+    lin = rt.queries["q"].lineage
+    h = rt.get_input_handler("StockStream")
+    out: dict = {"calls": []}
+    sent = 0
+    for i, n in enumerate(sizes):
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h.send_columns(data["ts"][sent:sent + n],
+                       {k: data[k][sent:sent + n] for k in ("symbol", "price", "volume")}, now=0)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        call = {"events": n, "seconds": time.perf_counter() - t0, "rows": len(rows)}
+        sent += n
+        if lin is not None:
+            if i == 0:
+                out["first_records"] = lin.records
+            call["chains"] = [rt.lineage("q", r["out_index"]) for r in lin.recent(16)]
+        if j.flight is not None:
+            call["flight"] = rt.flight_record("StockStream")
+        out["calls"].append(call)
+    out["rows"] = rows
+    out["chunks"] = j.fused_ingest.chunks_dispatched
+    if lin is not None:
+        out["lin"] = {"out_count": lin.out_count, "pub_count": lin.pub_count,
+                      "in_seen": lin.in_seen, "desync": lin.desync,
+                      "recorded": len(lin.records), "approx": lin.approx_count,
+                      "arena_next_seq": j.lineage.next_seq}
+        if keep_records:
+            out["records"] = lin.records
+    rt.shutdown()
+    mgr.shutdown()
+    return out
+
+
+def lineage_kernel_phase(torch, dev) -> dict:
+    """K48, the seq view, against its plain version on the card, exactly:
+    path LIN's J ring (a full length(100) ring after 3 batches of 32,768),
+    a time(1 sec) ring of 1,024 slots with holes (ragged batches, then a
+    gap that leaves part of it live), length rings of W 1, 50 and 1,024 and
+    an empty ring; `ring_view(..., with_seq=True)` against the plain view
+    and seqs, the lanes paired. Times at the J ring; the library figure is
+    one stable torch.argsort of the seq lane and one gather."""
+    from siddhi_tpu_torch.core.event import EventBatch, StreamSchema
+    from siddhi_tpu_torch.core.types import AttrType
+    from siddhi_tpu_torch.core.windows import (
+        SlidingWindow,
+        length_window_step_ref,
+        ring_view,
+        ring_view_ref,
+        ring_view_seq,
+        ring_view_seq_ref,
+        time_window_step_ref,
+    )
+
+    schema = StreamSchema("StockStream", [("symbol", AttrType.STRING), ("price", AttrType.FLOAT),
+                                          ("volume", AttrType.LONG)])
+    rng = np.random.default_rng(48)
+
+    def batch(b, clock, p_valid=1.0):
+        d = stock_data(b, seed=int(rng.integers(1 << 30)))
+        ts = clock + np.cumsum(rng.integers(0, 3, b)).astype(np.int64)
+        valid = rng.random(b) < p_valid
+        return EventBatch(ts=torch.from_numpy(ts).to(dev),
+                          kind=torch.zeros(b, dtype=torch.int8, device=dev),
+                          valid=torch.from_numpy(valid).to(dev),
+                          cols={n: torch.from_numpy(d[n]).to(dev)
+                                for n in ("symbol", "price", "volume")})
+
+    def length_ring(w, batches, b):
+        st = SlidingWindow(schema, "S", w, dev).init_state()
+        for _ in range(batches):
+            st = length_window_step_ref(st, batch(b, 0, 0.9), w)[3]
+        return st
+
+    t_ring = SlidingWindow(schema, "S", TIME_W, dev, duration_ms=1000).init_state()
+    clock = 1_700_000_000_000
+    for gap in (0, 0, 1700):
+        bt = batch(4097, clock + gap, 0.9)
+        t_ring = time_window_step_ref(t_ring, bt, bt.ts, TIME_W, 1000)[3]
+        clock = int(bt.ts.max().item())
+    rings = {"J": length_ring(JOIN_W, 3, MAIN_BATCH), "time_holes": t_ring,
+             "W1": length_ring(1, 2, 33), "W50": length_ring(50, 2, 33),
+             "W1024": length_ring(1024, 2, 513),
+             "empty": SlidingWindow(schema, "S", 64, dev).init_state()}
+    for label, st in rings.items():
+        got, want = ring_view_seq(st), ring_view_seq_ref(st)
+        paired = ring_view(st, with_seq=True)
+        torch.cuda.synchronize()
+        same_bits(torch, [got, list(paired)], [want, [*ring_view_ref(st), want]])
+        print(f"kernel check ring_view_seq {label} W={st['seq'].shape[0]}: "
+              f"{int((want >= 0).sum().item())} live slots ok", flush=True)
+    st = rings["J"]
+    seq = st["seq"]
+    w = seq.shape[0]
+    r = {"max_abs_err": 0.0,
+         "ms": time_ms(torch, lambda: ring_view_seq(st), 200),
+         "plain_ms": time_ms(torch, lambda: ring_view_seq_ref(st), 200),
+         "library_ms": time_ms(torch, lambda: seq[torch.argsort(seq, stable=True)], 200),
+         # the seq lane and total read once, the view's seqs written once
+         "bound_ms": (8 * w + 8 + 8 * w) / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "W1024_ms": time_ms(torch, lambda: ring_view_seq(rings["time_holes"]), 200)}
+    print(f"kernel ring_view_seq: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+          f"bound_ms={r['bound_ms']:.6f} (bytes) library_ms={r['library_ms']:.4f} "
+          f"max_abs_err=0.0; at W=1024: {r['W1024_ms']:.4f} ms", flush=True)
+    return {"ring_view_seq": r}
+
+
+def arena_d2h_ms(torch) -> dict:
+    """The arena's per-batch publish: `LineageArena.record_batch` of a
+    32,768-row batch on the card (one device-to-host copy of its packed
+    lanes, then the ring write), host clock around it, 20 reps after one
+    warm-up."""
+    from siddhi_tpu_torch.core.event import EventBatch, StreamSchema
+    from siddhi_tpu_torch.core.types import AttrType, InternTable
+    from siddhi_tpu_torch.observability.lineage import LineageArena
+
+    schema = StreamSchema("StockStream", [("symbol", AttrType.STRING), ("price", AttrType.FLOAT),
+                                          ("volume", AttrType.LONG)])
+    d = stock_data(MAIN_BATCH, seed=16)
+    b = EventBatch(ts=torch.from_numpy(d["ts"]).cuda(),
+                   kind=torch.zeros(MAIN_BATCH, dtype=torch.int8, device="cuda"),
+                   valid=torch.ones(MAIN_BATCH, dtype=torch.bool, device="cuda"),
+                   cols={n: torch.from_numpy(d[n]).cuda() for n in ("symbol", "price", "volume")})
+    arena = LineageArena(schema, InternTable(), LIN_CAP)
+    arena.record_batch(b)
+    torch.cuda.synchronize()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        arena.record_batch(b)
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    lane_bytes = MAIN_BATCH * (8 + 1 + 1 + 4 + 4 + 8)
+    if arena.next_seq != (reps + 1) * MAIN_BATCH:
+        raise AssertionError("arena: a publish was not stamped")
+    return {"rows": MAIN_BATCH, "bytes": lane_bytes, "ms": ms,
+            "GB_per_s": lane_bytes / ms / 1e6}
+
+
+def lineage_path_phase(torch) -> dict:
+    """Path LIN: the quickstart (BASELINE.json config 1, its stream with
+    @flightRecorder(size='1024')), J (sliding_join's length(100) self-join)
+    and P (pattern_2state), each at @app:batch 32,768 with
+    @app:lineage(capacity='262144') and @app:ingestChunk 8, in two fused
+    calls: 2 batches, then 8 (262,144 events, the arena's capacity). Each
+    app with lineage on (launch counts from 0 just before, read just after)
+    and off, J also in sample mode (every 16th output recorded). Checks:
+    the rows on equal to off, byte for byte; the recorder saw every event
+    (its input count, the arena's seqs), never desynchronized and counted
+    every delivered row as published; the first call's records and its last
+    16 outputs resolved equal to the same call on device="cpu"; every input
+    event of the last call's last 16 outputs decoded; K48 launched once a
+    join probe step (two a micro-batch for the self-join); the sample
+    records the full records' every 16th; the flight ring equal to the
+    CPU's after the first call and to the last 1,024 events after the
+    second. Events/s of the second call, on and off; and the arena's
+    per-batch D2H."""
+    from siddhi_tpu_torch import kernels
+
+    n_all = sum(LIN_CALLS)
+    data = stock_data(n_all, seed=7)
+    out: dict = {}
+    for label in ("Q", "J", "P"):
+        run_lin("cuda", lin_app(label), data, (2 * MAIN_BATCH,))  # warm-up, not counted
+        kernels.launches.clear()
+        on = run_lin("cuda", lin_app(label), data, LIN_CALLS, keep_records=label == "J")
+        launches = dict(kernels.launches)
+        off = run_lin("cuda", lin_app(label, lineage=False), data, LIN_CALLS)
+        cpu = run_lin("cpu", lin_app(label), data, LIN_CALLS[:1])
+        for k in LIN_PATH_KERNELS[label]:
+            if launches.get(k, 0) <= 0:
+                raise AssertionError(f"path LIN {label}: kernel {k} was not launched")
+        if launches.get("ring_view_seq", 0) != (2 * n_all // MAIN_BATCH if label == "J" else 0):
+            raise AssertionError(f"path LIN {label}: {launches.get('ring_view_seq', 0)} K48 "
+                                 "launches, expected one a join probe step")
+        if on["rows"] != off["rows"] or not on["rows"]:
+            raise AssertionError(f"path LIN {label}: the rows differ with lineage on and off")
+        lin = on["lin"]
+        seen = lin["in_seen"] if isinstance(lin["in_seen"], int) else set(lin["in_seen"].values())
+        if (lin["out_count"] <= 0 or lin["recorded"] <= 0 or lin["desync"]
+                or seen not in (n_all, {n_all}) or lin["arena_next_seq"] != n_all
+                or lin["pub_count"] != len(on["rows"])):
+            raise AssertionError(f"path LIN {label}: the recorder missed events or outputs: "
+                                 f"{json.dumps(lin, default=str)}, {len(on['rows'])} rows")
+        if on["first_records"] != cpu["first_records"] or not cpu["first_records"]:
+            raise AssertionError(f"path LIN {label}: the first call's records differ from "
+                                 "device='cpu'")
+        if on["calls"][0]["chains"] != cpu["calls"][0]["chains"]:
+            raise AssertionError(f"path LIN {label}: the first call's last 16 outputs resolve "
+                                 "to other events than on device='cpu'")
+        last = on["calls"][-1]["chains"]
+        if len(last) != 16 or any(e.get("event") is None for c in last for i in c["inputs"]
+                                  for e in i.get("events", ())):
+            raise AssertionError(f"path LIN {label}: the last call's outputs did not resolve")
+        sec_on, sec_off = on["calls"][-1]["seconds"], off["calls"][-1]["seconds"]
+        r = {"events": n_all, "timed_call_events": LIN_CALLS[-1], "rows": len(on["rows"]),
+             "chunks": on["chunks"], "launches": launches,
+             "records": lin["recorded"], "outputs": lin["out_count"],
+             "approx_records": lin["approx"],
+             "seconds_on": sec_on, "seconds_off": sec_off,
+             "events_per_s_on": LIN_CALLS[-1] / sec_on,
+             "events_per_s_off": LIN_CALLS[-1] / sec_off,
+             "cpu_compared_events": LIN_CALLS[0]}
+        if label == "Q":
+            fl = on["calls"]
+            if (fl[0]["flight"] != cpu["calls"][0]["flight"]
+                    or [t for t, _d in fl[-1]["flight"]]
+                    != data["ts"][n_all - LIN_FLIGHT:n_all].tolist()):
+                raise AssertionError("path LIN Q: the flight ring differs from device='cpu' "
+                                     "or from the last events")
+            r["flight_events"] = len(fl[-1]["flight"])
+        if label == "J":
+            sample = run_lin("cuda", lin_app("J", sample=True), data, LIN_CALLS,
+                             keep_records=True)
+            every = [x for x in on["records"] if x["out_index"] % LIN_SAMPLE_EVERY == 0]
+            if sample["records"] != every or sample["rows"] != off["rows"]:
+                raise AssertionError("path LIN J: sample mode did not record every 16th output")
+            r["sample"] = {"records": len(sample["records"]),
+                           "seconds": sample["calls"][-1]["seconds"],
+                           "events_per_s": LIN_CALLS[-1] / sample["calls"][-1]["seconds"]}
+        out[label] = r
+        print(f"path LIN {label}: {n_all} events ({r['chunks']} fused chunks), {r['rows']} rows, "
+              f"{r['outputs']} outputs recorded ({r['records']} kept, {r['approx_records']} "
+              f"approx); the {LIN_CALLS[-1]}-event call {sec_on:.3f} s with lineage "
+              f"({r['events_per_s_on']:.1f} events/s), {sec_off:.3f} s without "
+              f"({r['events_per_s_off']:.1f} events/s)"
+              + (f", sample mode {r['sample']['events_per_s']:.1f} events/s"
+                 if "sample" in r else "")
+              + f"; rows equal on/off; first call's records and resolutions equal "
+              f"device='cpu'; launches {json.dumps(launches)}", flush=True)
+    out["arena_d2h"] = arena_d2h_ms(torch)
+    a = out["arena_d2h"]
+    print(f"path LIN arena: record_batch of {a['rows']} rows ({a['bytes']} lane bytes) "
+          f"{a['ms']:.3f} ms a publish ({a['GB_per_s']:.2f} GB/s)", flush=True)
+    return out
+
+
 def same_tree_np(got, want, what: str) -> None:
     """Two numpy trees equal leaf for leaf (floats by their bits)."""
     for g, w in zip(flat(got), flat(want), strict=True):
@@ -5337,8 +5633,8 @@ def grouped_path_phase(torch) -> dict:
 
     for q in ("@OnError(action='LOG') define table T (symbol string); "
               "from S select symbol insert into T",
-              "define table T (symbol string); partition with (symbol of S) begin "
-              "from S[(T.symbol == symbol) in T] select symbol insert into Out; end",
+              "@async(buffer.size='64') define stream S7 (a int); "
+              "from S7 select a insert into O7",
               "@OnError(action='LOG') define window W (symbol string) length(4); "
               "from S select symbol insert into W",
               "@source(type='inMemory', topic='t') define stream S9 (a int); "
@@ -7189,6 +7485,13 @@ def main() -> int:
             named_window_path_phase(torch)
             lap("path NW")
         return 0
+    if "--lineage" in sys.argv[1:]:
+        lineage_kernel_phase(torch, "cuda")
+        lap("lineage_kernel_phase")
+        if "--no-paths" not in sys.argv[1:]:
+            lineage_path_phase(torch)
+            lap("path LIN")
+        return 0
     if "--partition-joins" in sys.argv[1:]:
         partition_join_kernel_phase(torch, "cuda")
         lap("partition_join_kernel_phase")
@@ -7203,7 +7506,7 @@ def main() -> int:
                   table_kernel_phase, special_window_kernel_phase, partition_kernel_phase,
                   partition_windows_kernel_phase, partition_pattern_kernel_phase,
                   partition_join_kernel_phase, partition_special_kernel_phase,
-                  aggregation_kernel_phase, named_window_kernel_phase):
+                  aggregation_kernel_phase, named_window_kernel_phase, lineage_kernel_phase):
         res.update(phase(torch, "cuda"))
         lap(phase.__name__)
     if "--kernels" in sys.argv[1:]:
@@ -7249,6 +7552,8 @@ def main() -> int:
     lap("paths AGG and AGJ")
     named_windows = named_window_path_phase(torch)
     lap("path NW")
+    lineage = lineage_path_phase(torch)
+    lap("path LIN")
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -7354,7 +7659,9 @@ def main() -> int:
                            "siddhi_tpu/core/selector.py:261"),
            "order_limit_partitioned": ("siddhi_tpu_torch/csrc/order_limit.cu",
                                        "siddhi_tpu/core/partition.py:105"),
-           "mix_keys": ("siddhi_tpu_torch/csrc/mix_keys.cu", "siddhi_tpu/ops/group.py:37")}
+           "mix_keys": ("siddhi_tpu_torch/csrc/mix_keys.cu", "siddhi_tpu/ops/group.py:37"),
+           "ring_view_seq": ("siddhi_tpu_torch/csrc/ring_view.cu",
+                             "siddhi_tpu/core/windows.py:453")}
     # launches: K1-K5 from the quickstart path's run, K6-K9 from the
     # tumbling_groupby path's run, K10 from path T's run, K11 and K12 from
     # path J's, K13 and K15 from path P's, K14 from path C's, K16 from path
@@ -7407,6 +7714,8 @@ def main() -> int:
     # K46 (both entries) and K47 from path NW
     for k in NW_KERNEL_NAMES:
         path_of[k] = named_windows["launches"]
+    # K48 from path LIN's J (the lineage-armed self-join)
+    path_of["ring_view_seq"] = lineage["J"]["launches"]
     path_launches = {k: path_of.get(k, main["launches"]).get(k, 0) for k in res}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
@@ -7447,6 +7756,8 @@ def main() -> int:
                    "partition_special_paths": partition_specials,
                    "aggregation_paths": aggregations,
                    "named_window_path": named_windows,
+                   "lineage_path": lineage,
+                   "ring_view_seq_W1024_ms": res["ring_view_seq"]["W1024_ms"],
                    "order_limit_store_query_shape": {
                        "ms": res["order_limit"]["query_ms"],
                        "plain_ms": res["order_limit"]["query_plain_ms"]},

@@ -30,6 +30,7 @@ rebuilds each coarser duration's open bucket from the next finer table
 
 from __future__ import annotations
 
+import logging
 import re
 from typing import Optional
 
@@ -53,6 +54,7 @@ from siddhi_tpu_torch.core.executor import (
 )
 from siddhi_tpu_torch.core.table import InMemoryTable
 from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType
+from siddhi_tpu_torch.observability.lineage import AggregationLineage
 from siddhi_tpu_torch.ops.aggregation import (
     SPILLS_PER_BATCH,
     _align1,
@@ -65,7 +67,7 @@ from siddhi_tpu_torch.ops.group import mix_keys
 from siddhi_tpu_torch.query_api.annotation import Annotation, find_annotation
 from siddhi_tpu_torch.query_api.definition import Attribute, Duration, TableDefinition
 from siddhi_tpu_torch.query_api.execution import Filter
-from siddhi_tpu_torch.query_api.expression import AttributeFunction
+from siddhi_tpu_torch.query_api.expression import AttributeFunction, Variable
 
 AGG_TS = "AGG_TIMESTAMP"
 DEFAULT_AGG_GROUPS = 64
@@ -123,6 +125,12 @@ class AggregationRuntime:
             self.ts_expr = c
         else:
             self.ts_expr = None
+        # lineage recorder (observability/lineage.py AggregationLineage), set
+        # by arm_lineage(); it reads the `aggregate by` attribute when that
+        # is a plain attribute, else the event timestamp (as JAX)
+        self.lineage = None
+        self._lin_ts_attr = (definition.aggregate_attribute.attribute
+                             if isinstance(definition.aggregate_attribute, Variable) else None)
 
         self.durations: list[Duration] = list(definition.time_period.durations)
         self.group_by = list(definition.selector.group_by)
@@ -375,11 +383,25 @@ class AggregationRuntime:
             with table.lock:
                 table.state = table.insert(table.state, batch, {})
 
+    def arm_lineage(self, cfg) -> None:
+        """Per-bucket provenance (@app:lineage): the contributing seq range
+        and count per finest-duration bucket."""
+        self.lineage = AggregationLineage(cfg, self.agg_id, self.stream_id, self.durations[0])
+
     def receive(self, batch: EventBatch, now: int) -> dict:
         """One batch (or one TIMER row) through the chain; the closed buckets
         into the tables, written through to their record stores. Returns the
         step's aux (`next_timer` when the finest bucket's end drives a TIMER
         step)."""
+        lin = self.lineage
+        if lin is not None:
+            try:
+                ts = batch.cols[self._lin_ts_attr] if self._lin_ts_attr is not None else batch.ts
+                current = batch.valid & (batch.kind == KIND_CURRENT)
+                lin.observe_ts(ts.to(torch.int64)[current].cpu().numpy())
+            except Exception:  # provenance never breaks dispatch
+                logging.getLogger(__name__).debug("aggregation lineage observe failed",
+                                                  exc_info=True)
         now_t = torch.full((), now, dtype=torch.int64, device=self.device)
         self.state, aux = self._step(self.state, batch, now_t)
         self._spill_to_tables(self.state)

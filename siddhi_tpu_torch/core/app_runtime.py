@@ -37,7 +37,9 @@ aggregation join sides, each aggregation's input stream per batch;
 named windows (core/window_runtime.py, `define window`: `from W` readers,
 `insert into W`, named-window join sides, store queries) and triggers
 (core/trigger.py, `define trigger`, started last); `@store` record tables
-(core/record_table.py).
+(core/record_table.py); `@flightRecorder` rings and event lineage
+(`@app:lineage`, observability/; partitioned queries run unrecorded, as in
+JAX).
 Everything else raises `SiddhiAppCreationError("... not ported yet")`.
 """
 
@@ -74,6 +76,12 @@ from siddhi_tpu_torch.core.stream_junction import (
     system_clock_ms,
 )
 from siddhi_tpu_torch.core.wire import build_wire_spec, resolve_wire_annotation
+from siddhi_tpu_torch.observability.flight import flight_env_size, resolve_flight_annotation
+from siddhi_tpu_torch.observability.lineage import (
+    LineageLedger,
+    publisher_context,
+    resolve_lineage_annotation,
+)
 from siddhi_tpu_torch.query_api.annotation import find_annotation
 from siddhi_tpu_torch.query_api.execution import (
     InsertIntoStream,
@@ -94,7 +102,7 @@ _PORTED_APP_ANNOTATIONS = {"app:name", "app", "name", "app:description", "app:ba
                            "app:playback", "app:ingestchunk", "app:wire",
                            "app:groupcapacity", "app:joincapacity", "app:patterncapacity",
                            "app:countcapacity", "app:patternchunk", "app:tablecapacity",
-                           "app:partitioncapacity", "app:agggroupcapacity"}
+                           "app:partitioncapacity", "app:agggroupcapacity", "app:lineage"}
 _UNPORTED_STREAM_ANNOTATIONS = {"onerror", "source", "sink", "async"}
 
 
@@ -152,6 +160,15 @@ class SiddhiAppRuntime:
         self.stream_schemas: dict[str, StreamSchema] = {}
         self.junctions: dict[str, StreamJunction] = {}
         self.queries: dict[str, QueryRuntime] = {}
+        # event lineage: @app:lineage(capacity='N', mode='full|sample',
+        # sample.every='K') (observability/lineage.py; malformed options raise
+        # here), resolved before any junction or query: _junction() arms an
+        # arena on every junction, the _add_* methods a recorder on every
+        # query and aggregation
+        self._lineage_cfg = resolve_lineage_annotation(find_annotation(app.annotations,
+                                                                       "app:lineage"))
+        self.lineage_ledger = (LineageLedger(self, self._lineage_cfg)
+                               if self._lineage_cfg is not None else None)
         batch_ann = find_annotation(app.annotations, "app:batch")
         self.batch_size = (
             int(batch_ann.element("size", str(DEFAULT_BATCH))) if batch_ann else DEFAULT_BATCH
@@ -197,6 +214,16 @@ class SiddhiAppRuntime:
             self._pipeline_conf[sid] = resolve_pipeline_annotation(
                 find_annotation(d.annotations, "pipeline")
             )
+            # @flightRecorder(size='N'): the last N events through this
+            # stream's junction (observability/flight.py; _junction() arms
+            # SIDDHI_TPU_FLIGHT=N on every junction)
+            try:
+                flight_size = resolve_flight_annotation(
+                    find_annotation(d.annotations, "flightRecorder"))
+            except SiddhiAppCreationError as e:
+                raise SiddhiAppCreationError(f"stream '{sid}': {e}") from e
+            if flight_size:
+                self._junction(sid).enable_flight(flight_size)
         self._add_aggregations()
         self._add_triggers()
         # query and partition ids come from the one shared assignment, in
@@ -245,6 +272,8 @@ class SiddhiAppRuntime:
                     f"aggregation '{aid}': stream '{in_sid}' is not defined")
             ar = AggregationRuntime(ad, in_schema, self.interner, self.device,
                                     group_capacity=groups)
+            if self._lineage_cfg is not None:
+                ar.arm_lineage(self._lineage_cfg)
             self.aggregations[aid] = ar
             for t in ar.tables.values():
                 self.tables[t.table_id] = t
@@ -317,6 +346,13 @@ class SiddhiAppRuntime:
                 raise DefinitionNotExistError(f"stream '{stream_id}' is not defined")
             j = StreamJunction(schema, self.interner, self.batch_size, self.device)
             j.exception_handler = self._exception_handler
+            # SIDDHI_TPU_FLIGHT=N and @app:lineage arm every junction, internal
+            # insert-into targets included, so a chain can be walked back
+            env_n = flight_env_size()
+            if env_n:
+                j.enable_flight(env_n)
+            if self._lineage_cfg is not None:
+                j.enable_lineage(self._lineage_cfg.capacity)
             self.junctions[stream_id] = j
         return j
 
@@ -346,12 +382,20 @@ class SiddhiAppRuntime:
         transform = _make_insert_transform(out.output_events)
         dst_names = existing.attr_names
 
-        def publish(out_batch: EventBatch, now: int, _t=target_junction) -> None:
-            if not _t.subscribers and not _t.stream_callbacks:
+        def publish(out_batch: EventBatch, now: int, _t=target_junction, _qr=qr) -> None:
+            if (not _t.subscribers and not _t.stream_callbacks and _t.flight is None
+                    and _t.lineage is None):
                 return  # nobody downstream: skip the transform
             b = transform(out_batch)
             # positional rename onto the target stream's attribute names
             b = dataclasses.replace(b, cols=dict(zip(dst_names, b.cols.values())))
+            lin = getattr(_qr, "lineage", None)
+            if lin is not None and _t.lineage is not None:
+                # the arena notes which recorded query stamped the range, so
+                # a multi-producer stream resolves each seq to its producer
+                with publisher_context(_qr.query_id, lin):
+                    _t.publish_batch(b, now)
+                return
             _t.publish_batch(b, now)
 
         qr.publish_fn = publish
@@ -380,6 +424,7 @@ class SiddhiAppRuntime:
             )
         qr = QueryRuntime(query, qid, in_schema, self.interner, self.device,
                           group_capacity=self.group_capacity, tables=self.tables)
+        self._wire_query_lineage(qr)
         self.queries[qid] = qr
         self._wire_insert(qr)
 
@@ -445,6 +490,7 @@ class SiddhiAppRuntime:
                               join_capacity=self.join_capacity, tables=self.tables,
                               findables={**self.tables, **self.named_windows,
                                          **agg_findables})
+        self._wire_query_lineage(qr)
         self.queries[qid] = qr
         self._wire_insert(qr)
 
@@ -515,6 +561,7 @@ class SiddhiAppRuntime:
             batch_size=self.batch_size,
             pattern_chunk=self._capacity_annotation("app:patternChunk", 0) or None,
         )
+        self._wire_query_lineage(qr)
         self.queries[qid] = qr
         self._wire_insert(qr)
 
@@ -544,6 +591,17 @@ class SiddhiAppRuntime:
                 self._schedule_at(next_timer, _qr.timer_targets.get("timer"))
 
             qr.timer_targets["timer"] = fire
+
+    def _wire_query_lineage(self, qr) -> None:
+        """Arm the query's provenance recorder when @app:lineage is on (a
+        query that cannot be armed runs unrecorded, as in JAX)."""
+        if self._lineage_cfg is None:
+            return
+        try:
+            qr.arm_lineage(self._lineage_cfg)
+        except Exception:
+            logging.getLogger(__name__).warning(
+                "lineage could not be armed for query '%s'", qr.query_id, exc_info=True)
 
     @staticmethod
     def _fuse_candidate(j: StreamJunction, ep: FuseEndpoint) -> None:
@@ -683,13 +741,57 @@ class SiddhiAppRuntime:
             return sqr.execute(self.clock())
 
     def describe_state(self) -> dict:
-        """Live per-component state: each fused ingest engine and each
-        table's row count, capacity and indexes (one host read a table)."""
-        return {
-            "streams": {sid: j.fused_ingest.describe_state()
-                        for sid, j in self.junctions.items() if j.fused_ingest is not None},
+        """Live per-component state: each junction (its fused engine, flight
+        ring and lineage arena), each table's row count, capacity and
+        indexes (one host read a table), each recorded query's lineage."""
+        d = {
+            "streams": {sid: j.describe_state() for sid, j in self.junctions.items()},
             "tables": {tid: t.describe_state() for tid, t in self.tables.items()},
         }
+        lin = {qid: qr.lineage.describe() for qid, qr in self.queries.items()
+               if getattr(qr, "lineage", None) is not None}
+        if lin:
+            d["lineage"] = lin
+        return d
+
+    # ---- flight recorder (observability/flight.py) ------------------------
+
+    def flight_record(self, stream_id: str) -> list[tuple[int, tuple]]:
+        """The last events through `stream_id`'s junction, oldest first, as
+        (timestamp, data tuple); the stream needs a recorder
+        (@flightRecorder(size='N') or SIDDHI_TPU_FLIGHT=N)."""
+        j = self.junctions.get(stream_id)
+        if j is None:
+            raise DefinitionNotExistError(f"no stream '{stream_id}' in app '{self.name}'")
+        if j.flight is None:
+            raise SiddhiAppCreationError(
+                f"stream '{stream_id}' has no flight recorder — enable it "
+                "with @flightRecorder(size='N') or SIDDHI_TPU_FLIGHT=N")
+        return j.flight.events()
+
+    def flight_records(self) -> dict[str, list[tuple[int, tuple]]]:
+        """Every recorded junction's ring: stream -> [(ts, data tuple)]."""
+        return {sid: j.flight.events() for sid, j in self.junctions.items()
+                if j.flight is not None}
+
+    # ---- lineage (observability/lineage.py) -------------------------------
+
+    def lineage(self, target: str, index: int | None = None, depth: int = 6) -> dict:
+        """Explain an output back to its input events (@app:lineage needed):
+        `target` is a query id (index = its output index) or a stream id
+        (index = the junction's seq id, its k-th valid CURRENT event); None
+        is the newest."""
+        if self.lineage_ledger is None:
+            raise SiddhiAppCreationError(
+                f"app '{self.name}' has no lineage — enable it with @app:lineage(capacity='N')")
+        return self.lineage_ledger.resolve(target, index, depth)
+
+    def lineage_report(self, resolve_recent: int = 1) -> dict:
+        """Per-stream arenas, per-query fan-in and the newest resolved
+        chains ({} when @app:lineage is off)."""
+        if self.lineage_ledger is None:
+            return {}
+        return self.lineage_ledger.report(resolve_recent=resolve_recent)
 
     def set_exception_handler(self, handler) -> None:
         """Route subscriber, fused-drain and timer-step failures to `handler(exc)`

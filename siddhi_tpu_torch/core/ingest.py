@@ -18,6 +18,12 @@ micro-batches in chunks of K:
    and the callbacks, once per non-empty micro-batch, in order, all before
    `send_columns` returns.
 
+Under @app:lineage each step also leaves its `__lin.*` lanes (beside K5's
+pack, never in it); after the K steps one readback brings a chunk's lanes
+back and each recorder replays them micro-batch by micro-batch. A send that
+commits on this path stamps the junction's flight ring and lineage arena
+from the host columns it was given.
+
 Engagement is all-or-nothing per junction: the fused path is used only when
 nothing host-side observes per-batch boundaries — no stream callbacks, no
 subscriber outside the engine, and no consumer of the queries' insert
@@ -32,9 +38,8 @@ The chunk stages run double-buffered through core/pipeline.py by default;
 Outputs and delivery order are the same either way.
 
 Ported from the JAX package's core/ingest.py without its plan groups and
-share sets, residual dispatch, lineage lanes, shard router, profiler
-waterfall, device statistics and tracer, tail prewarm, and value-inferred
-wire hints.
+share sets, residual dispatch, shard router, profiler waterfall, device
+statistics and tracer, tail prewarm, and value-inferred wire hints.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from siddhi_tpu_torch.core.event import (
 from siddhi_tpu_torch.core.pipeline import IngestPipeline, device_views
 from siddhi_tpu_torch.core.types import NUMPY_DTYPE
 from siddhi_tpu_torch.core.wire import choose_encodings, wire_report
+from siddhi_tpu_torch.observability.lineage import observe_steps
 from siddhi_tpu_torch.query_api.execution import OutputEventsFor
 
 _MAX_LANES = 32  # kMaxLanes of csrc/deliver_pack.cu
@@ -332,9 +338,11 @@ class FusedJunctionIngest:
     def _run_chunk(self, prog: _ChunkProgram, wire, counts, bases, K: int, now: int):
         """The chunk's device work, enqueued with no host sync: K4, the K
         query steps per endpoint, K5 per delivering endpoint. Runs under
-        the app lock; writes the new states back. Returns (packs, event):
-        one packed buffer per delivering endpoint and, on the card, an event
-        recorded after the last kernel."""
+        the app lock; writes the new states back. Returns (packs, event,
+        marks): one packed buffer per delivering endpoint, on the card an
+        event recorded after the last kernel, and for each recorded
+        endpoint its lineage sink's length before and after each
+        micro-batch."""
         eps = self.endpoints
         states = []
         for ep in eps:
@@ -344,6 +352,9 @@ class FusedJunctionIngest:
         batch = prog.decode(wire, counts, bases)
         now_t = torch.full((), now, dtype=torch.int64, device=self.device)
         outs: dict = {i: [] for i in prog.deliver_idx}
+        # a recorded query's sink length after each micro-batch's step
+        marks = {ei: [len(ep.qr._lin_sink)] for ei, ep in enumerate(eps)
+                 if ep.qr.lineage is not None}
         for k in range(K):
             bk = EventBatch(
                 ts=batch.ts[k], kind=batch.kind[k], valid=batch.valid[k],
@@ -353,6 +364,8 @@ class FusedJunctionIngest:
                 states[ei], step_outs = ep.step(states[ei], bk, now_t)
                 if ei in outs:
                     outs[ei].extend(step_outs)
+                if ei in marks:
+                    marks[ei].append(len(ep.qr._lin_sink))
         for ep, st in zip(eps, states):
             ep.qr.state = st
         packs = [self._pack(prog, i, outs[i]) for i in prog.deliver_idx]
@@ -360,7 +373,7 @@ class FusedJunctionIngest:
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        return packs, event
+        return packs, event, marks
 
     def _pack(self, prog: _ChunkProgram, i: int, outs: list) -> torch.Tensor:
         """K5 over one endpoint's K step outputs. `dv` marks the rows its
@@ -433,6 +446,7 @@ class FusedJunctionIngest:
                 self._build(dset)
             prog = self._prog
 
+        sent = False
         if self.pipeline_enabled:
             pl = self._pipeline()
             # a query callback that re-enters send_columns from the drain
@@ -441,10 +455,19 @@ class FusedJunctionIngest:
                 with self._send_lock:
                     self._sender = threading.current_thread()
                     try:
-                        return self._send_pipelined(prog, dset, ts_arr, cols, n, B, now, pl)
+                        sent = self._send_pipelined(prog, dset, ts_arr, cols, n, B, now, pl)
                     finally:
                         self._sender = None
-        return self._send_serial(prog, dset, ts_arr, cols, n, B, now)
+        if not sent:
+            sent = self._send_serial(prog, dset, ts_arr, cols, n, B, now)
+        # the committed send is this junction's one publish: the flight ring
+        # and the lineage arena record it from the host columns
+        j = self.junction
+        if j.flight is not None:
+            j.flight.record_columns(ts_arr, cols, n)
+        if j.lineage is not None:
+            j.lineage.record_columns(ts_arr, cols, n)
+        return sent
 
     def _pipeline(self):
         pl = self.pipeline
@@ -476,8 +499,10 @@ class FusedJunctionIngest:
         per-batch path goes on with the next batch."""
         with self.app._process_lock:
             try:
-                packs, event = self._run_chunk(prog, wire, counts, bases, K, now)
+                packs, event, marks = self._run_chunk(prog, wire, counts, bases, K, now)
             except Exception as e:
+                for ep in self.endpoints:
+                    ep.qr._lin_sink.clear()
                 handler = self.junction.exception_handler
                 if handler is None:
                     raise
@@ -486,7 +511,22 @@ class FusedJunctionIngest:
             self.chunks_dispatched += 1
             self.batches_fused += K
             self.events_fused += n_events
+            if marks:
+                self._lin_observe_chunk(marks, K, n_events, now)
         return packs, event
+
+    def _lin_observe_chunk(self, marks: dict, K: int, n_events: int, now: int) -> None:
+        """Replay the chunk's lineage lanes: one readback of every recorded
+        endpoint's steps, then each endpoint's micro-batches in order, the
+        empty ones (a short chunk's padding) skipped, as JAX does."""
+        B = self.junction.batch_size
+        per_ep = []
+        for ei, m in marks.items():
+            qr = self.endpoints[ei].qr
+            steps, qr._lin_sink = qr._lin_sink, []
+            per_ep.append((qr.lineage, [step for k in range(K) if n_events - k * B > 0
+                                        for step in steps[m[k] - m[0]:m[k + 1] - m[0]]]))
+        observe_steps(per_ep, now)
 
     def _send_serial(self, prog, dset, ts_arr, cols, n, B, now) -> bool:
         """The serial chunk loop (@pipeline(disable='true') or a drain-worker

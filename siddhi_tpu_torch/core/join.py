@@ -52,6 +52,7 @@ from siddhi_tpu_torch.core.query_runtime import BaseQueryRuntime, _FlagWatch
 from siddhi_tpu_torch.core.selector import CompiledSelector
 from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType, null_value
 from siddhi_tpu_torch.core.windows import WindowStage, make_window
+from siddhi_tpu_torch.observability.lineage import LIN, JoinQueryLineage
 from siddhi_tpu_torch.query_api.execution import (
     Filter,
     JoinEventTrigger,
@@ -90,6 +91,10 @@ class JoinRows:
     overflow: torch.Tensor
     slot: Optional[torch.Tensor] = None
     first: Optional[torch.Tensor] = None
+    # each slot's probe row (0 for padding) and partner view slot (W: a
+    # null partner or padding), kept for join lineage
+    pi: Optional[torch.Tensor] = None
+    pj: Optional[torch.Tensor] = None
 
 
 def join_assemble_ref(pair, row_mask, outer: bool, cap: int, row_ts, row_kind, row_cols: dict,
@@ -128,6 +133,7 @@ def join_assemble_ref(pair, row_mask, outer: bool, cap: int, row_ts, row_kind, r
         partner_cols={nm: partner(vcols[nm], t) for nm, t in partner_types.items()},
         partner_ts=torch.where(null, torch.zeros((), dtype=torch.int64, device=dev), vts[pj]),
         overflow=n > cap,
+        pi=pi.to(torch.int32), pj=pj_raw.to(torch.int32),
     )
 
 
@@ -191,8 +197,29 @@ def join_assemble(pair, row_mask, outer: bool, cap: int, row_ts, row_kind, row_c
         partner_cols={nm: partner(vcols[nm], _null_bits(t)) for nm, t in partner_types.items()},
         partner_ts=partner(vts, 0),
         overflow=overflow,
+        pi=pi, pj=pj,
     )
     kernels.launches["join_assemble"] += 1
+    return out
+
+
+def join_partner_seq(res: JoinRows, vseq: Optional[torch.Tensor], w: int) -> torch.Tensor:
+    """Join lineage's partner lane (JAX CompiledJoin._assemble's
+    `j_pseq`): each valid row's partner admission seq, -1 for a null
+    partner and for padding, -2 for a matched partner whose window keeps no
+    admission order (vseq None). On the card the seq lane is gathered by
+    pj with K12's partner gather, whose null fill is the -1."""
+    real = res.valid & (res.pj < w)
+    if vseq is None:
+        return -1 - real.to(torch.int64)
+    if vseq.device.type == "cpu":
+        return torch.where(real, vseq[res.pj.clamp(max=w - 1).long()], -1)
+    kernels.require_cuda("join_partner_seq", vseq, res.pj)
+    cap = res.pj.shape[0]
+    out = torch.empty(cap, dtype=torch.int64, device=vseq.device)
+    kernels.check(kernels.function("jp_partner_8")(
+        vseq.data_ptr(), res.pj.data_ptr(), -1, out.data_ptr(), cap, w, kernels.stream()),
+        "join_partner_seq")
     return out
 
 
@@ -240,6 +267,9 @@ class NoWindow(WindowStage):
                 for n, t in self.schema.attrs}
         return (cols, torch.zeros(1, dtype=torch.int64, device=dev),
                 torch.zeros(1, dtype=torch.bool, device=dev))
+
+    def view_seq(self, state):
+        return torch.full((1,), -1, dtype=torch.int64, device=self.device)
 
 
 class _TableView(WindowStage):
@@ -312,7 +342,7 @@ class JoinSide:
                 self.window = make_window(h.window, schema, self.ref, side_scope)
             elif isinstance(h, StreamFunctionHandler):
                 raise SiddhiAppCreationError(
-                    f"stream function '{h.name}' on a join side is not ported yet")
+                    f"stream function '{h.name}' not supported on join sides yet")
         if self.window is None:
             self.window = NoWindow(schema, self.ref, scope.device)
 
@@ -381,6 +411,10 @@ class CompiledJoin:
                 raise SiddhiAppCreationError("join 'on' must be a boolean expression")
             self.on = cond
         self.device = scope.device
+        # lineage (observability/lineage.py): when set, each step also adds
+        # `__lin.*` lanes to its aux — the arriving side's admissions and,
+        # per joined row, its probe row and its partner's window seq
+        self.lineage = False
 
     def init_state(self):
         return {"l": self.left.window.init_state(), "r": self.right.window.init_state()}
@@ -393,7 +427,15 @@ class CompiledJoin:
         emits = self.emit_left if side == "l" else self.emit_right
         batch = arr.filter_batch(batch, now)
         aux: dict = {}
-        vcols, vts, vmask = other.window.view(state[other_key])
+        vseq = None
+        if self.lineage:
+            # the arriving side's window admissions: its filter-passing
+            # CURRENT rows (a table or named-window side never re-buffers)
+            aux[LIN + "admit"] = (batch.valid & (batch.kind == KIND_CURRENT) if not arr.is_table
+                                  else torch.zeros_like(batch.valid))
+            vcols, vts, vmask, vseq = other.window.view_with_seq(state[other_key])
+        else:
+            vcols, vts, vmask = other.window.view(state[other_key])
 
         # probe 1: arriving CURRENT rows against the other window (reference:
         # preJoinProcessor — the probe happens BEFORE the own-window insert)
@@ -407,7 +449,7 @@ class CompiledJoin:
             if self.output_expired:
                 exp = wflow.batch
                 probes.append((exp, exp.valid & (exp.kind == KIND_EXPIRED), KIND_EXPIRED))
-        joined = self._assemble(probes, arr, other, vcols, vts, vmask, now, side, aux)
+        joined = self._assemble(probes, arr, other, vcols, vts, vmask, now, side, aux, vseq)
         new_state = dict(state)
         new_state[side] = wstate
         return new_state, joined, aux
@@ -525,7 +567,8 @@ class CompiledJoin:
         extra[(self.left.ref, None, TS_ATTR)] = left_ts
         return Flow(batch=batch, ref=self.left.ref, now=now, extra_cols=extra, aux=aux)
 
-    def _assemble(self, probes, arr, other, vcols, vts, vmask, now, side, aux) -> Flow:
+    def _assemble(self, probes, arr, other, vcols, vts, vmask, now, side, aux,
+                  vseq=None) -> Flow:
         """Evaluate the on-condition for every probe set and compact the
         matched pairs (plus outer misses) into one fixed-capacity Flow."""
         outer = self._outer(side)
@@ -540,6 +583,11 @@ class CompiledJoin:
         res = join_assemble(pair, row_mask, outer, self.out_capacity, row_ts, row_kind, row_cols,
                             vts, vcols, other.schema.attr_types)
         aux["join_overflow"] = res.overflow
+        if self.lineage:
+            # per joined row: the probe row (-1 for padding) and the
+            # partner's window seq — the recorder's (left seq, right seq)
+            aux[LIN + "j_pi"] = torch.where(res.valid, res.pi, -1).to(torch.int32)
+            aux[LIN + "j_pseq"] = join_partner_seq(res, vseq, vmask.shape[0])
         return self._joined_flow(res, side, now, aux)
 
 
@@ -591,13 +639,33 @@ class JoinQueryRuntime(BaseQueryRuntime):
     def init_state(self):
         return {"join": self.join.init_state(), "sel": self.selector.init_state()}
 
+    def arm_lineage(self, cfg) -> None:
+        """Record provenance (@app:lineage): each step's lanes — (probe
+        row, partner window seq) per joined row — feed a JoinQueryLineage.
+        Emissions are untouched."""
+        self.join.lineage = True
+        self.lineage = JoinQueryLineage(
+            cfg, self.query_id, self._published_kinds(),
+            left_stream=self.join.left.stream_id, right_stream=self.join.right.stream_id)
+
     def _step_impl(self, state, batch: EventBatch, now: torch.Tensor, side: str):
         jstate, flow, aux = self.join.step(state["join"], batch, now, side)
+        if self.lineage is not None:
+            # the join's lanes leave the aux (the joined flow's) before the
+            # selector and the flag reads see it
+            lanes = {k: aux.pop(k) for k in list(aux) if k.startswith(LIN)}
         sel_state, out = self.selector.apply(state["sel"], flow)
         self._apply_table_op(out, now, aux)
         self._note_aux(aux)
         self._join_overflow.note(aux["join_overflow"])
         self._join_overflow.poll()
+        if self.lineage is not None:
+            lanes[LIN + "in"] = batch.valid & (batch.kind == KIND_CURRENT)
+            lanes[LIN + "in_ts"] = batch.ts
+            lanes[LIN + "out_valid"] = out.valid
+            lanes[LIN + "out_kind"] = out.kind
+            lanes[LIN + "out_ts"] = out.ts
+            self._lin_sink.append((side, lanes))
         return {"join": jstate, "sel": sel_state}, out
 
     def receive(self, batch: EventBatch, now: int, side: str) -> EventBatch:
@@ -606,6 +674,8 @@ class JoinQueryRuntime(BaseQueryRuntime):
                 self.state = self.init_state()
             now_t = torch.full((), now, dtype=torch.int64, device=self.device)
             self.state, out = self._step_impl(self.state, batch, now_t, side)
+            if self.lineage is not None:
+                self._lin_flush(now)  # under the receive lock: dispatch order
         return out
 
     def _log_join_overflow(self) -> None:

@@ -51,6 +51,34 @@ class SiddhiManager:
     def get_siddhi_app_runtime(self, name: str):
         return self._runtimes.get(name)
 
+    def flight_records(self) -> dict:
+        """Every app's recorded flight rings: app -> stream -> [(ts, row)]."""
+        out = {}
+        for name, rt in list(self._runtimes.items()):
+            recs = rt.flight_records()
+            if recs:
+                out[name] = recs
+        return out
+
+    def lineage_reports(self, resolve_recent: int = 1) -> dict:
+        """Every lineage-enabled app's report: app -> per-stream arenas,
+        per-query fan-in and the newest resolved chains."""
+        out = {}
+        for name, rt in list(self._runtimes.items()):
+            rep = rt.lineage_report(resolve_recent=resolve_recent)
+            if rep:
+                out[name] = rep
+        return out
+
+    def lineage_text(self) -> str:
+        """A human-readable lineage summary of every app."""
+        from siddhi_tpu_torch.observability.lineage import render_lineage_text
+
+        reports = self.lineage_reports()
+        if not reports:
+            return "no lineage-enabled apps (add @app:lineage)\n"
+        return render_lineage_text(reports)
+
     def shutdown(self) -> None:
         for rt in list(self._runtimes.values()):
             rt.shutdown()

@@ -43,9 +43,11 @@ slot and placed by (position, slot) (K39), the selector run per
 partition. The sort, frequent, lossyFrequent and cron windows run keyed
 by slot (K40-K43); a cron window's next fire comes from its expression
 once for every partition, and its TIMER rows reach every slot.
-`in <table>` conditions inside a partition raise "not ported yet"; an
-`#inner` output of a join or a pattern is refused as in JAX. Partitioned
-streams run per batch (no fused endpoint).
+`in <table>` conditions inside a partition raise JAX's KeyError (JAX
+compiles an inner query with no table in scope); an `#inner` output of a
+join or a pattern is refused as in JAX. Partitioned streams run per batch
+(no fused endpoint). Under @app:lineage a partitioned query runs
+unrecorded, as in JAX.
 """
 
 from __future__ import annotations
@@ -91,6 +93,38 @@ DEFAULT_PARTITIONS = 32
 # the windows with a keyed step (K29, K31, K32, K40-K43)
 _KEYED_WINDOWS = (SlidingWindow, BatchWindow, SortWindow, FrequentWindow, LossyFrequentWindow,
                   CronWindow)
+
+
+def _refuse_in_tables(query, tables: dict) -> None:
+    """An `in <table>` condition inside a partition: JAX compiles the inner
+    query with no table in scope, so the first `in` it meets raises its
+    KeyError (siddhi_tpu/core/executor.py:370). Only the output may name a
+    table."""
+    from siddhi_tpu_torch.core.table import collect_used_tables
+    from siddhi_tpu_torch.query_api.expression import In
+
+    if not collect_used_tables(dataclasses.replace(query, output_stream=None), tables):
+        return
+
+    def first_in(obj):
+        if isinstance(obj, In):
+            return obj
+        if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+            items = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+        elif isinstance(obj, (list, tuple)):
+            items = obj
+        elif isinstance(obj, dict):
+            items = obj.values()
+        else:
+            return None
+        for x in items:
+            hit = first_in(x)
+            if hit is not None:
+                return hit
+        return None
+
+    hit = first_in(dataclasses.replace(query, output_stream=None))
+    raise KeyError(f"'in {hit.source_id}': no such table in scope")
 
 
 def _not_ported(what: str) -> SiddhiAppCreationError:
@@ -458,12 +492,9 @@ class PartitionRuntime:
             raise _not_ported(f"a {type(stream).__name__} query")
         if qid in app.queries:
             raise SiddhiAppCreationError(f"duplicate query name '{qid}'")
-        from siddhi_tpu_torch.core.table import collect_used_tables
-
         # the JAX package compiles an inner query with no table in scope:
         # only its output may name a table
-        if collect_used_tables(dataclasses.replace(query, output_stream=None), app.tables):
-            raise _not_ported("an `in <table>` condition")
+        _refuse_in_tables(query, app.tables)
         if stream.is_inner:
             in_schema = self.inner_schemas.get(stream.stream_id)
             if in_schema is None:
@@ -568,10 +599,7 @@ class PartitionRuntime:
             schemas.append(sch)
         if qid in app.queries:
             raise SiddhiAppCreationError(f"duplicate query name '{qid}'")
-        from siddhi_tpu_torch.core.table import collect_used_tables
-
-        if collect_used_tables(dataclasses.replace(query, output_stream=None), app.tables):
-            raise _not_ported("an `in <table>` condition")
+        _refuse_in_tables(query, app.tables)
         qr = PartitionedJoinQueryRuntime(
             query, qid, schemas[0], schemas[1], app.interner, app.device, p_capacity=self.p,
             key_of_by_side=key_by_side, tables=app.tables, group_capacity=app.group_capacity,
@@ -603,7 +631,6 @@ class PartitionRuntime:
         if getattr(query.output_stream, "is_inner", False):
             raise SiddhiAppCreationError(
                 "#inner outputs from joins/patterns inside partitions are not supported yet")
-        from siddhi_tpu_torch.core.table import collect_used_tables
         from siddhi_tpu_torch.query_api.execution import iter_state_streams
 
         for s in iter_state_streams(query.input_stream.state):
@@ -613,8 +640,7 @@ class PartitionRuntime:
                     "consume streams, not tables or windows)")
         if qid in app.queries:
             raise SiddhiAppCreationError(f"duplicate query name '{qid}'")
-        if collect_used_tables(dataclasses.replace(query, output_stream=None), app.tables):
-            raise _not_ported("an `in <table>` condition")
+        _refuse_in_tables(query, app.tables)
         qr = PartitionedPatternQueryRuntime(
             query, qid, app.stream_schemas, app.interner, app.device, p_capacity=self.p,
             key_fns=self.key_fns, tables=app.tables, group_capacity=app.group_capacity,

@@ -1517,6 +1517,19 @@ class PatternProgram:
             raise RuntimeError("capture_keep() ran before set_capture_readers()")
         self._capture_readers = frozenset(keys)
 
+    def widen_capture_readers(self, keys: frozenset) -> None:
+        """Add reader keys after the projection was computed (pattern
+        lineage keeps every ref's timestamp lane): the projection and the scan
+        route's compiled inputs are dropped and re-formed. Only before the
+        first step."""
+        self._capture_readers = frozenset(keys)
+        self._keep_cache = None
+        self._cap_lanes = None
+        if self._row_conds is not None:
+            self._row_conds = None
+            self._progs, self._regs, self._scan_descs, self._consts = {}, [], {}, {}
+            self.compile_scan()
+
     def capture_keep(self):
         """Per-ref projection of the capture lanes: (keep_cols, ts_used) —
         the attributes some expression reads from captures (indexed keys,

@@ -37,6 +37,7 @@ import torch
 
 from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 from siddhi_tpu_torch.core.event import KIND_CURRENT, KIND_TIMER, EventBatch, StreamSchema
+from siddhi_tpu_torch.core.executor import TS_ATTR
 from siddhi_tpu_torch.core.flow import Flow
 from siddhi_tpu_torch.core import pattern as pattern_mod
 from siddhi_tpu_torch.core.groupby import partition_ctx
@@ -56,6 +57,7 @@ from siddhi_tpu_torch.core.pattern import (
 from siddhi_tpu_torch.core.query_runtime import BaseQueryRuntime, _FlagWatch
 from siddhi_tpu_torch.core.selector import CompiledSelector
 from siddhi_tpu_torch.core.types import InternTable
+from siddhi_tpu_torch.observability.lineage import LIN, PatternQueryLineage
 from siddhi_tpu_torch.ops.partition import partition_rows, pattern_chunks, pattern_place
 from siddhi_tpu_torch.query_api.execution import Query, StateInputStream
 
@@ -123,7 +125,8 @@ class PatternQueryRuntime(BaseQueryRuntime):
         sel_scope = prog.scope.child()
         self.selector = CompiledSelector(query.selector, sel_scope, flat_attrs,
                                          group_capacity=group_capacity)
-        prog.set_capture_readers(frozenset(sel_scope.used_keys))
+        self._sel_used_keys = frozenset(sel_scope.used_keys)
+        prog.set_capture_readers(self._sel_used_keys)
         if self._scan:
             prog.compile_scan()
         self._setup_output(query, query_id)
@@ -132,6 +135,18 @@ class PatternQueryRuntime(BaseQueryRuntime):
         # and keeps the query off the fused path
         self.uses_scheduler = prog.needs_scheduler
         self._pattern_overflow = _FlagWatch(self.device, self._log_pattern_overflow)
+
+    def arm_lineage(self, cfg) -> None:
+        """Record provenance (@app:lineage): every ref's captured-timestamp
+        lane is kept (the emission buffer then says, per match, which input
+        row filled each linearized slot) and surfaced as `__lin.*` lanes
+        feeding a PatternQueryLineage. Before the first step; emissions are
+        untouched."""
+        prog = self.prog
+        prog.widen_capture_readers(
+            self._sel_used_keys | {(a.ref, None, TS_ATTR) for a in prog.refs})
+        self.lineage = PatternQueryLineage(cfg, self.query_id, self._published_kinds(),
+                                           refs=[(a.ref, a.stream_id) for a in prog.refs])
 
     def init_state(self, now: int = 0) -> dict:
         return {
@@ -171,6 +186,18 @@ class PatternQueryRuntime(BaseQueryRuntime):
             self.next_timer = prog.next_timer(tok, after=timer_ts)
         self._pattern_overflow.note(ovf)
         self._pattern_overflow.poll()
+        if self.lineage is not None:
+            # the emission buffer's per-ref capture timestamps (arm_lineage
+            # kept every ref's ts lane)
+            lanes = {LIN + "out_valid": out_batch.valid, LIN + "out_kind": out_batch.kind,
+                     LIN + "out_ts": out_batch.ts,
+                     LIN + "in": batch.valid & (batch.kind == KIND_CURRENT),
+                     LIN + "in_ts": batch.ts}
+            for i, a in enumerate(prog.refs):
+                lanes[f"{LIN}p_n{i}"] = out[f"n{a.ref_idx}"]
+                if f"ts{a.ref_idx}" in out:
+                    lanes[f"{LIN}p_ts{i}"] = out[f"ts{a.ref_idx}"]
+            self._lin_sink.append((stream_id, lanes))
         return {"tok": tok, "sel": sel_state, "timer_ts": timer_ts}, out_batch
 
     def _chunk_loop(self, tok, batch: EventBatch, now, stream_id: str, out, out_n, ovf):
@@ -389,6 +416,8 @@ class PatternQueryRuntime(BaseQueryRuntime):
                 self.state = self.init_state(now)
             now_t = torch.full((), now, dtype=torch.int64, device=self.device)
             self.state, out = self._step_impl(self.state, batch, now_t, stream_id)
+            if self.lineage is not None:
+                self._lin_flush(now)  # under the receive lock: dispatch order
         return out
 
     def receive_timer(self, t_ms: int) -> EventBatch:
@@ -403,6 +432,8 @@ class PatternQueryRuntime(BaseQueryRuntime):
                 self.state = self.init_state(t_ms)
             now_t = torch.full((), t_ms, dtype=torch.int64, device=dev)
             self.state, out = self._step_impl(self.state, batch, now_t, None)
+            if self.lineage is not None:
+                self._lin_flush(t_ms)
         return out
 
     def describe_state(self) -> dict:

@@ -32,6 +32,11 @@ from siddhi_tpu_torch.core.selector import CompiledSelector
 from siddhi_tpu_torch.core.stream_function import make_stream_function
 from siddhi_tpu_torch.core.types import AttrType, InternTable
 from siddhi_tpu_torch.core.windows import make_window
+from siddhi_tpu_torch.observability.lineage import (
+    LIN,
+    SingleQueryLineage,
+    observe_steps,
+)
 from siddhi_tpu_torch.query_api.execution import (
     Filter,
     InsertIntoStream,
@@ -53,6 +58,13 @@ class CompiledSingleChain:
         self.schema = schema
         self.ref = stream.alias or stream.stream_id
         self.window = None
+        # lineage probe (observability/lineage.py): called on the flow after
+        # the filters and stream functions, before the window (or on the
+        # final flow of a windowless chain); returns the admit, key and
+        # window-time lanes, kept in `probe_lanes`. None when @app:lineage
+        # is off.
+        self.lineage_probe: Optional[Callable] = None
+        self.probe_lanes: dict = {}
         self.stages: list[tuple[str, object]] = []
         attrs = dict(schema.attr_types)
         for h in stream.handlers:
@@ -88,13 +100,19 @@ class CompiledSingleChain:
         return self.window.init_state() if self.window is not None else ()
 
     def apply(self, state, flow: Flow):
+        probe = self.lineage_probe
         for kind, stage in self.stages:
             if kind == "filter":
                 flow = self._filter(flow, stage)
             elif kind == "fn":
                 flow = stage.apply(flow)
             else:  # window
+                if probe is not None:
+                    self.probe_lanes = probe(flow)  # admitted: post-filter, pre-window
+                    probe = None
                 state, flow = stage.apply(state, flow)
+        if probe is not None:
+            self.probe_lanes = probe(flow)  # a windowless chain: the final flow
         return state, flow
 
     @staticmethod
@@ -221,6 +239,27 @@ class BaseQueryRuntime:
             key: _FlagWatch(self.device, lambda _k=key: self._log_flag(_k))
             for key in _FLAG_LOGS
         }
+        # lineage recorder (observability/lineage.py), set by arm_lineage()
+        # when @app:lineage is on; each step then appends (tag, its __lin.*
+        # device lanes) to _lin_sink, which the per-batch receive and the
+        # fused chunk loop read back and replay in order
+        self.lineage = None
+        self._lin_sink: list = []
+
+    def _published_kinds(self) -> frozenset:
+        """The kinds this query's insert-into publishes (all re-kinded
+        CURRENT on the target): maps the target's seq k to the k-th
+        published record."""
+        if self.output_events is OutputEventsFor.CURRENT:
+            return frozenset((KIND_CURRENT,))
+        if self.output_events is OutputEventsFor.EXPIRED:
+            return frozenset((KIND_EXPIRED,))
+        return frozenset((KIND_CURRENT, KIND_EXPIRED))
+
+    def _lin_flush(self, now: int) -> None:
+        """Read back and replay the steps' lineage lanes (one copy)."""
+        steps, self._lin_sink = self._lin_sink, []
+        observe_steps([(self.lineage, steps)], now)
 
     def _attach_tables(self, tables: dict, interner) -> None:
         """Compile this query's table-output op and keep the tables the
@@ -408,6 +447,36 @@ class QueryRuntime(BaseQueryRuntime):
     def init_state(self):
         return {"chain": self.chain.init_state(), "sel": self.selector.init_state()}
 
+    def arm_lineage(self, cfg) -> None:
+        """Record provenance (@app:lineage): the chain's probe and the
+        step's lanes feed a SingleQueryLineage. Emissions are untouched; a
+        grouped query's out rows carry their group key beside them (the
+        rate limiter's `__group_key__` column, not part of the out
+        schema)."""
+        sel = self.selector
+        grouped = sel.group is not None
+        if grouped:
+            sel.emit_group_key = True
+        win = self.chain.window
+        time_attr = getattr(win, "time_attr", None)
+
+        def probe(flow: Flow) -> dict:
+            b = flow.batch
+            lanes = {LIN + "admit": b.valid & (b.kind == KIND_CURRENT)}
+            if grouped:
+                lanes[LIN + "key"] = sel.group.key_of(flow.env()).expand(b.valid.shape)
+            if time_attr is not None:
+                lanes[LIN + "wts"] = b.cols[time_attr].to(torch.int64)
+            return lanes
+
+        self.chain.lineage_probe = probe
+        self.lineage = SingleQueryLineage(
+            cfg, self.query_id, self._published_kinds(),
+            input_stream=self.in_schema.stream_id, window=win, grouped=grouped,
+            aggregated=bool(sel.aggregators),
+            order_limited=bool(sel.order_by or sel.limit is not None or sel.offset is not None),
+        )
+
     # ---- device program --------------------------------------------------
 
     def _step_impl(self, state, batch: EventBatch, now: torch.Tensor):
@@ -416,6 +485,18 @@ class QueryRuntime(BaseQueryRuntime):
         sel_state, out = self.selector.apply(state["sel"], flow)
         self._apply_table_op(out, now, flow.aux)
         self._note_aux(flow.aux)
+        if self.lineage is not None:
+            lanes = dict(self.chain.probe_lanes)
+            lanes[LIN + "in"] = batch.valid & (batch.kind == KIND_CURRENT)
+            lanes[LIN + "in_ts"] = batch.ts
+            lanes[LIN + "w_valid"] = flow.batch.valid
+            lanes[LIN + "w_kind"] = flow.batch.kind
+            lanes[LIN + "w_ts"] = flow.batch.ts
+            lanes[LIN + "out_valid"] = out.valid
+            lanes[LIN + "out_kind"] = out.kind
+            if "__group_key__" in out.cols:
+                lanes[LIN + "gkey"] = out.cols["__group_key__"]
+            self._lin_sink.append((None, lanes))
         return {"chain": chain_state, "sel": sel_state}, out
 
     # ---- host side -------------------------------------------------------
@@ -426,4 +507,6 @@ class QueryRuntime(BaseQueryRuntime):
                 self.state = self.init_state()
             now_t = torch.full((), now, dtype=torch.int64, device=self.device)
             self.state, out = self._step_impl(self.state, batch, now_t)
+            if self.lineage is not None:
+                self._lin_flush(now)  # under the receive lock: dispatch order
         return out

@@ -18,6 +18,8 @@ import numpy as np
 
 from siddhi_tpu_torch.core.event import EventBatch, StreamSchema
 from siddhi_tpu_torch.core.types import InternTable
+from siddhi_tpu_torch.observability.flight import FlightRecorder
+from siddhi_tpu_torch.observability.lineage import LineageArena, current_publisher
 
 # subscriber: fn(batch: EventBatch, now_ms: int) -> None
 Subscriber = Callable[[EventBatch, int], None]
@@ -43,6 +45,41 @@ class StreamJunction:
         # RLock: a query may legally insert into its own input stream
         # (reference allows self-feeding junctions); recursion stays on-thread
         self.lock = threading.RLock()
+        # flight recorder (observability/flight.py): the last N events, armed
+        # by @flightRecorder(size='N') or SIDDHI_TPU_FLIGHT=N; None = one
+        # check a publish
+        self.flight = None
+        # lineage arena (observability/lineage.py): stamps each valid CURRENT
+        # event with a seq id and keeps the last N decodable, armed by
+        # @app:lineage; None = one check a publish
+        self.lineage = None
+
+    def enable_flight(self, size: int) -> None:
+        """Attach a flight recorder of the last `size` events; re-arming at
+        the same size keeps the recorded history."""
+        if self.flight is not None and self.flight.size == int(size):
+            return
+        self.flight = FlightRecorder(self.schema, self.interner, size)
+
+    def enable_lineage(self, size: int) -> None:
+        """Attach a lineage arena stamping and keeping the last `size`
+        CURRENT events; re-arming at the same size keeps the seq counter."""
+        if self.lineage is not None and self.lineage.size == int(size):
+            return
+        self.lineage = LineageArena(self.schema, self.interner, size)
+
+    def describe_state(self) -> dict:
+        """Wiring, the fused engine's counters, the flight ring and the
+        lineage arena (one host read each, no device read)."""
+        d: dict = {"subscribers": len(self.subscribers), "callbacks": len(self.stream_callbacks),
+                   "batch_size": self.batch_size}
+        if self.fused_ingest is not None:
+            d["pipeline"] = self.fused_ingest.describe_state()
+        if self.flight is not None:
+            d["flight"] = self.flight.describe_state()
+        if self.lineage is not None:
+            d["lineage"] = self.lineage.describe_state()
+        return d
 
     def subscribe(self, fn: Subscriber) -> None:
         self.subscribers.append(fn)
@@ -52,6 +89,10 @@ class StreamJunction:
 
     def publish_batch(self, batch: EventBatch, now: int) -> None:
         with self.lock:
+            if self.flight is not None:
+                self.flight.record_batch(batch)
+            if self.lineage is not None:
+                self._stamp(batch)
             handler = self.exception_handler
             for fn in self.subscribers:
                 if handler is None:
@@ -67,6 +108,18 @@ class StreamJunction:
                     rows = [(ts, data) for ts, _kind, data in events]
                     for cb in self.stream_callbacks:
                         cb(rows)
+
+    def _stamp(self, batch: EventBatch) -> None:
+        """Stamp the batch's valid CURRENT rows with seq ids; when a recorded
+        query's insert publishes them, note it as their producer (its
+        recorder counted this batch's published records in its observe,
+        which runs before the publish, so the range starts n records back
+        from its pub_count)."""
+        base, n = self.lineage.record_batch(batch)
+        pub = current_publisher()
+        if n and pub is not None:
+            qid, rec = pub
+            self.lineage.note_producer(base, n, qid, max(rec.pub_count - n, 0))
 
     def _on_worker_error(self, exc: Exception, who: str) -> None:
         """A failure on a worker thread (the fused drain) that the exception

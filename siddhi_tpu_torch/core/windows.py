@@ -74,6 +74,17 @@ class WindowStage:
     def apply(self, state, flow: Flow):
         raise NotImplementedError
 
+    def view_seq(self, state):
+        """Per-slot admission seqs in `view()` order (-1: an empty slot), or
+        None when this window keeps no admission order: join lineage then
+        records the partner as unresolved (observability/lineage.py)."""
+        return None
+
+    def view_with_seq(self, state):
+        """(cols, ts, mask, seq) — `view()` and `view_seq()` paired by
+        position."""
+        return (*self.view(state), self.view_seq(state))
+
     def view(self, state):
         """Stored window contents for a join's probe: `(cols, ts, mask)` with
         rows in insertion order (reference: FindableProcessor.find,
@@ -470,38 +481,78 @@ def time_window_step(state: dict, batch: EventBatch, bwts: torch.Tensor, w: int,
     return out, birth, death, new_state, next_timer
 
 
-def ring_view_ref(state: dict):
-    """Plain version of `ring_view`: SlidingWindow._view_perm's stable
-    argsort of seq (empty slots last, in slot order), then every lane
-    gathered in that order."""
+def _view_perm_ref(state: dict):
+    """SlidingWindow._view_perm: the live mask and the stable argsort of
+    seq (empty slots last, in slot order)."""
     mask = state["seq"] >= 0
-    perm = torch.argsort(torch.where(mask, state["seq"], NO_TIMER), stable=True)
+    return mask, torch.argsort(torch.where(mask, state["seq"], NO_TIMER), stable=True)
+
+
+def ring_view_ref(state: dict):
+    """Plain version of `ring_view`: every lane gathered by the view
+    permutation."""
+    mask, perm = _view_perm_ref(state)
     cols = {n: c[perm] for n, c in state["cols"].items()}
     return cols, state["ts"][perm], mask[perm]
 
 
-def ring_view(state: dict):
-    """A sliding ring's stored contents in insertion order, for a join's
-    probe (reference: FindableProcessor.find over the window buffer):
-    (cols {name: [W]}, ts [W], mask [W]), live elements first by seq, then
-    the empty slots in slot order. Live seqs lie in [total - W, total), so
-    the order is a rank over that dense range (csrc/ring_view.cu)."""
-    if state["seq"].device.type == "cpu":
-        return ring_view_ref(state)
+def ring_view_seq_ref(state: dict) -> torch.Tensor:
+    """Plain version of `ring_view_seq` (SlidingWindow.view_seq): the seq
+    lane gathered by the view permutation."""
+    return state["seq"][_view_perm_ref(state)[1]]
+
+
+def _ring_order(state: dict, what: str, with_seq: bool):
+    """K11's order pass (K48's, with the seq lane) over a ring on the
+    card: (perm [W] int32, mask [W], seq in view order [W] or None)."""
     lanes = [state["ts"], state["seq"], state["total"], *state["cols"].values()]
-    kernels.require_cuda("ring_view", *lanes)
+    kernels.require_cuda(what, *lanes)
     w = state["seq"].shape[0]
     if state["seq"].dtype != torch.int64 or state["total"].dtype != torch.int64 or any(
             x.shape != (w,) for x in (state["ts"], *state["cols"].values())):
-        raise ValueError(f"ring_view: int64 seq/total and [{w}] ring lanes expected")
+        raise ValueError(f"{what}: int64 seq/total and [{w}] ring lanes expected")
     dev = state["seq"].device
     perm = torch.empty(w, dtype=torch.int32, device=dev)
     mask = torch.empty(w, dtype=torch.bool, device=dev)
     scratch = torch.empty(w, dtype=torch.int32, device=dev)
+    args = [state["seq"].data_ptr(), state["total"].data_ptr(), w, scratch.data_ptr(),
+            perm.data_ptr(), mask.data_ptr()]
+    vseq = None
+    if with_seq:
+        vseq = torch.empty(w, dtype=torch.int64, device=dev)
+        kernels.check(kernels.function("rv_order_seq")(*args, vseq.data_ptr(), kernels.stream()),
+                      what)
+        kernels.launches["ring_view_seq"] += 1
+    else:
+        kernels.check(kernels.function("rv_order")(*args, kernels.stream()), what)
+    return perm, mask, vseq
+
+
+def ring_view_seq(state: dict) -> torch.Tensor:
+    """K48: a sliding ring's admission seqs in `ring_view` order (JAX
+    SlidingWindow.view_seq: the live slots' seqs ascending, then the empty
+    slots' own seqs, -1, in slot order), [W] int64, from the order pass
+    alone (csrc/ring_view.cu `rv_order_seq`)."""
+    if state["seq"].device.type == "cpu":
+        return ring_view_seq_ref(state)
+    return _ring_order(state, "ring_view_seq", True)[2]
+
+
+def ring_view(state: dict, with_seq: bool = False):
+    """A sliding ring's stored contents in insertion order, for a join's
+    probe (reference: FindableProcessor.find over the window buffer):
+    (cols {name: [W]}, ts [W], mask [W]), live elements first by seq, then
+    the empty slots in slot order. Live seqs lie in [total - W, total), so
+    the order is a rank over that dense range (csrc/ring_view.cu). With
+    `with_seq` also the seq lane in the same order (K48), from the same
+    order launch, so the view and its seqs are paired by position."""
+    if state["seq"].device.type == "cpu":
+        view = ring_view_ref(state)
+        return (*view, ring_view_seq_ref(state)) if with_seq else view
+    w = state["seq"].shape[0]
+    dev = state["seq"].device
+    perm, mask, vseq = _ring_order(state, "ring_view", with_seq)
     stream = kernels.stream()
-    kernels.check(kernels.function("rv_order")(
-        state["seq"].data_ptr(), state["total"].data_ptr(), w, scratch.data_ptr(),
-        perm.data_ptr(), mask.data_ptr(), stream), "ring_view")
 
     def gather(lane):
         out = torch.empty(w, dtype=lane.dtype, device=dev)
@@ -512,7 +563,7 @@ def ring_view(state: dict):
     cols = {n: gather(c) for n, c in state["cols"].items()}
     ts = gather(state["ts"])
     kernels.launches["ring_view"] += 1
-    return cols, ts, mask
+    return (cols, ts, mask, vseq) if with_seq else (cols, ts, mask)
 
 
 class SlidingWindow(WindowStage):
@@ -618,6 +669,12 @@ class SlidingWindow(WindowStage):
 
             return partition_ring_view(state)
         return ring_view(state)
+
+    def view_seq(self, state):
+        return ring_view_seq(state)
+
+    def view_with_seq(self, state):
+        return ring_view(state, with_seq=True)
 
 
 # ---------------------------------------------------------------------------

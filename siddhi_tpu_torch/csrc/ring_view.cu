@@ -13,6 +13,15 @@
 // What bounds it on the card: bytes, W slots read and written per lane
 // (tens of KB at W = 1024); at that size the launch and the one scan block
 // dominate.
+//
+// K48, the seq view (rv_order_seq): replaces siddhi_tpu/core/windows.py
+// SlidingWindow.view_seq (:453), the ring's admission seqs in view order,
+// which join lineage pairs with the view's lanes by position. It is the
+// same order pass writing one more lane, the seq at each view row, from
+// the same launch, so the seq lane and the perm that gathers the view can
+// never disagree: a live row's seq is total - W + i by construction, an
+// empty row's is the slot's own (negative) seq. Bound: bytes, W int64 seqs
+// read and written (16 KB at W = 1024); the launch dominates.
 
 #include <climits>
 #include <cstdint>
@@ -24,11 +33,12 @@ namespace {
 
 constexpr int kBlock = 1024;
 
-// perm[p] = the slot shown at view row p; mask[p] = p < live slots.
+// perm[p] = the slot shown at view row p; mask[p] = p < live slots;
+// vseq[p] (when not null) = seq[perm[p]].
 // slot_at[i] (scratch, [W]) = the live slot whose seq is total - W + i.
 __global__ void __launch_bounds__(kBlock, 1)
 order_kernel(const int64_t* seq, const int64_t* total, int W, int32_t* slot_at,
-             int32_t* perm, bool* mask) {
+             int32_t* perm, bool* mask, int64_t* vseq) {
   __shared__ int ws[32];
   __shared__ int tile_total;
   const int tid = threadIdx.x;
@@ -46,7 +56,10 @@ order_kernel(const int64_t* seq, const int64_t* total, int W, int32_t* slot_at,
     const int i = base + tid;
     const int j = i < W ? slot_at[i] : -1;
     const int excl = block_excl_sum(j >= 0, ws, &tile_total);
-    if (j >= 0) perm[live + excl] = j;
+    if (j >= 0) {
+      perm[live + excl] = j;
+      if (vseq != nullptr) vseq[live + excl] = base_seq + i;
+    }
     live += tile_total;
   }
   int empty = 0;
@@ -54,7 +67,10 @@ order_kernel(const int64_t* seq, const int64_t* total, int W, int32_t* slot_at,
     const int j = base + tid;
     const bool hole = j < W && seq[j] < 0;
     const int excl = block_excl_sum(hole, ws, &tile_total);
-    if (hole) perm[live + empty + excl] = j;
+    if (hole) {
+      perm[live + empty + excl] = j;
+      if (vseq != nullptr) vseq[live + empty + excl] = seq[j];
+    }
     empty += tile_total;
   }
   for (int p = tid; p < W; p += kBlock) mask[p] = p < live;
@@ -66,7 +82,14 @@ extern "C" {
 
 int rv_order(const int64_t* seq, const int64_t* total, int W, int32_t* slot_at,
              int32_t* perm, bool* mask, cudaStream_t stream) {
-  order_kernel<<<1, kBlock, 0, stream>>>(seq, total, W, slot_at, perm, mask);
+  order_kernel<<<1, kBlock, 0, stream>>>(seq, total, W, slot_at, perm, mask, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// K48: the order pass with the seq lane in view order (vseq, [W] int64)
+int rv_order_seq(const int64_t* seq, const int64_t* total, int W, int32_t* slot_at,
+                 int32_t* perm, bool* mask, int64_t* vseq, cudaStream_t stream) {
+  order_kernel<<<1, kBlock, 0, stream>>>(seq, total, W, slot_at, perm, mask, vseq);
   return (int)cudaGetLastError();
 }
 

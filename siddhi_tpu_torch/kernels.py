@@ -80,6 +80,7 @@ SIGNATURES = {
     "keep_last": ("keep_last", [P, P, P, I, P, P, P]),
     "tw_prepare": ("time_window", [P] * 7 + [I, I, I, LL] + [P] * 21 + [P]),
     "rv_order": ("ring_view", [P, P, I, P, P, P, P]),
+    "rv_order_seq": ("ring_view", [P, P, I, P, P, P, P, P]),
     "rv_gather_1": ("ring_view", _RV_GATHER),
     "rv_gather_4": ("ring_view", _RV_GATHER),
     "rv_gather_8": ("ring_view", _RV_GATHER),
