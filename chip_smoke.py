@@ -73,7 +73,10 @@ engine next to it. Phases, each printed as it ends:
      keys, and the composite-key mix K47 over 2-8 columns, exactly (see
      named_window_kernel_phase); the ring's seq view K48 on path LIN's J
      ring, a time ring with holes, W 1/50/1,024 and an empty ring, and the
-     view paired with it, exactly (see lineage_kernel_phase);
+     view paired with it, exactly (see lineage_kernel_phase); the sharded
+     execution's owner hash and fold K49 and routed pre-pass K50 at path
+     SH's shapes and ragged (B 1/33/32,768, D 1/2/8, INT64 edge keys, NaN
+     and -0.0 lanes, all-TIMER batches), exactly (see shard_kernel_phase);
   3. verify cases filter_num, len_window_avg, len_window_minmax,
      len_batch_group, having_order, stddev_distinct, time_window,
      external_time, self_join, pattern_within, count_seq,
@@ -204,6 +207,13 @@ engine next to it. Phases, each printed as it ends:
      recorder's counts, the first call's records and resolutions against
      device="cpu", K48 launches = join probe steps, the flight ring; events/s
      on and off, and the arena's per-batch D2H.
+ 16. path SH (see shard_path_phase): `@app:shard` with `mesh_devices` giving
+     8 shards, all on the one card (XLA_FLAGS' host device count 8), B
+     32,768, 1,000 symbols: SH-PART (PT's app, axis 'part') and SH-KEYS (a
+     count/max/sum group-by, axis 'keys', K49) against the app with
+     sharding off, SH-ROUTED (PT's window query as the routed step, K50)
+     against the unsharded step, SH-BATCH (a filter, axis 'batch', fused
+     calls of 8 batches) against sharding off; events/s sharded and off.
 Each phase prints an `elapsed ... s after ...` line.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
@@ -237,6 +247,11 @@ and path NW (`--no-paths`: only K46 and K47).
 builds the kernels and runs only K48 against its plain version and path LIN
 (`--no-paths`: only K48).
 
+    python3 chip_smoke.py --shard
+
+builds the kernels and runs only K49 and K50 against their plain versions
+and path SH (`--no-paths`: only K49 and K50).
+
     python3 chip_smoke.py --profile
 
 instead builds the kernels and prints where the time goes on the quickstart
@@ -250,6 +265,7 @@ data steps and its TIMER steps, with the device busy share of one call.
 
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import logging
@@ -5337,6 +5353,341 @@ def lineage_path_phase(torch) -> dict:
     return out
 
 
+# sharded execution (@app:shard; K49 the owner hash and fold, K50
+# the routed pre-pass). The card is one H100: `mesh_devices` gives the 8
+# shards of XLA_FLAGS' host device count, all on cuda:0, so every SH figure
+# is 8 shards sharing one card, never 8 cards.
+SH_SHARDS, SH_SYMBOLS, SH_BATCHES = 8, 1000, 8
+SH_FLAG = f"--xla_force_host_platform_device_count={SH_SHARDS}"
+SH_PART_APP = PT_APP.replace(
+    "@app:partitionCapacity", "{head}@app:partitionCapacity")
+SH_KEYS_APP = """@app:batch(size='{batch}')
+{head}define stream StockStream (symbol string, price float, volume long);
+@info(name='q') from StockStream select symbol, count() as n, max(price) as hi, sum(volume) as vol
+group by symbol insert into Out;
+"""
+SH_BATCH_APP = """@app:batch(size='{batch}') @app:ingestChunk(size='{k}')
+{head}define stream StockStream (symbol string, price float, volume long);
+@info(name='q') from StockStream[price > 50] select symbol, price, volume insert into Out;
+"""
+SH_KERNELS = {"PART": ("pattern_place", "partition_length_window_step"),
+              "ROUTED": ("shard_route", "partition_length_window_step"),
+              "KEYS": ("shard_owner", "shard_fold"), "BATCH": ("wire_decode", "deliver_pack")}
+
+
+def sh_data(n: int) -> tuple:
+    """bench.py:_make_stock_data of seed 7 with 1,000 symbols (ids 1..1000)."""
+    data = stock_data(n, seed=7)
+    data["symbol"] = np.random.default_rng(7).integers(1, SH_SYMBOLS + 1, size=n).astype(np.int32)
+    return data, [f"SYM{i:04d}" for i in range(SH_SYMBOLS)]
+
+
+def sh_head(axis: str) -> str:
+    return f"@app:shard(devices='{SH_SHARDS}', axis='{axis}')\n"
+
+
+def run_sh(dev, app: str, data: dict, names, calls: list, fused: bool = True) -> dict:
+    """Drive an SH app through send_columns, one call a (lo, hi) range,
+    query "q" to a callback. Returns the rows (ts, data) in order, each
+    call's seconds (host clock around a synchronize), the app's status."""
+    import torch
+
+    from siddhi_tpu_torch import SiddhiManager
+
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(app)
+    for s in names:
+        mgr.interner.intern(s)
+    rows: list = []
+    rt.add_callback("q", lambda t, ins, rem: rows.extend(
+        (e.timestamp, tuple(e.data)) for e in ins or []))
+    rt.start()
+    if not fused:
+        rt.junctions["StockStream"].fused_ingest = None
+    h = rt.get_input_handler("StockStream")
+    secs = []
+    for lo, hi in calls:
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h.send_columns(data["ts"][lo:hi], {k: data[k][lo:hi] for k in ("symbol", "price",
+                                                                         "volume")}, now=0)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    status = rt.snapshot_status()
+    rt.shutdown()
+    mgr.shutdown()
+    return {"rows": rows, "seconds": secs, "status": status}
+
+
+def shard_kernel_phase(torch, dev) -> dict:
+    """K49 (ks_owner, ks_fold) and K50 (sr_route) against their plain
+    versions on the card, exactly: at path SH's shapes (B 32,768, D 8, P
+    1,024; SH-KEYS' output lanes, the PT stream's lanes) and ragged (B 1, 33
+    and 32,768, D 1, 2 and 8), keys at the INT64 edges, NaN payloads and
+    -0.0 in float lanes, bool lanes, an all-TIMER batch. Times at SH's
+    shapes; the library figures: one `torch.gather` a lane along D by the
+    owner (the fold given the owners), and one stable `torch.argsort` of
+    each row's device (the routing of the active rows, without the TIMER
+    rows' broadcast to every device)."""
+    from siddhi_tpu_torch.parallel.keyshard import fold_rows, fold_rows_ref, owner_of, owner_of_ref
+    from siddhi_tpu_torch.parallel.mesh import route_rows, route_rows_ref
+
+    rng = np.random.default_rng(17)
+    edges = np.array([0, 1, -1, -(1 << 63), (1 << 63) - 1, -(1 << 63) + 1, (1 << 63) - 2],
+                     np.int64)
+
+    def keys_of(b):
+        k = rng.integers(-(1 << 63), (1 << 63) - 1, b, dtype=np.int64, endpoint=True)
+        k[:min(b, len(edges))] = edges[:b]
+        return torch.from_numpy(k).to(dev)
+
+    def fold_lanes(d, b):
+        f = rng.uniform(-5, 5, (d, b)).astype(np.float32)
+        f.view(np.int32)[:, ::5] = 0x7FC00001
+        f.view(np.int32)[:, 1::7] = -0x80000000
+        return {"symbol": torch.from_numpy(rng.integers(1, 1001, (d, b)).astype(np.int32)).to(dev),
+                "n": torch.from_numpy(rng.integers(0, 1 << 40, (d, b))).to(dev),
+                "hi": torch.from_numpy(f).to(dev),
+                "vol": torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, (d, b))).to(dev),
+                "flag": torch.from_numpy(rng.random((d, b)) < 0.5).to(dev)}
+
+    def route_in(b, p, all_timer=False):
+        slot = rng.integers(0, p + 1, b).astype(np.int32)
+        active = rng.random(b) < 0.8
+        timer = ~active & (rng.random(b) < 0.2)
+        if all_timer:
+            active[:], timer[:] = False, True
+        d = stock_data(b, seed=int(rng.integers(1 << 30)))
+        price = d["price"].copy()
+        price.view(np.int32)[::9] = -0x80000000
+        lanes = {"ts": d["ts"], "kind": np.where(timer, 2, 0).astype(np.int8),
+                 "c.symbol": d["symbol"], "c.price": price, "c.volume": d["volume"]}
+        return (torch.from_numpy(slot).to(dev), torch.from_numpy(active).to(dev),
+                torch.from_numpy(timer).to(dev),
+                {k: torch.from_numpy(v).to(dev) for k, v in lanes.items()})
+
+    b_sh = MAIN_BATCH
+    for b in (1, 33, b_sh):
+        for d in (1, 2, SH_SHARDS):
+            k = keys_of(b)
+            same_bits(torch, [owner_of(k, d)], [owner_of_ref(k, d)])
+            lanes = fold_lanes(d, b)
+            owner = owner_of(keys_of(b), d)
+            valid = torch.from_numpy(rng.random((d, b)) < 0.4).to(dev)
+            got, want = fold_rows(lanes, owner, valid), fold_rows_ref(lanes, owner, valid)
+            same_bits(torch, [got[0], got[1]], [want[0], want[1]])
+            for all_timer in (False, True):
+                ins = route_in(b, 1024)
+                if all_timer:
+                    ins = route_in(b, 1024, all_timer=True)
+                same_bits(torch, list(route_rows(*ins, 1024, d)), list(route_rows_ref(*ins, 1024, d)))
+    print("kernel check shard_owner, shard_fold and shard_route: B 1/33/32768 x D 1/2/8, "
+          "INT64 edges, NaN and -0.0 lanes, all-TIMER batches: exact", flush=True)
+
+    keys = keys_of(b_sh)
+    r_owner = {"max_abs_err": 0.0, "ms": time_ms(torch, lambda: owner_of(keys, SH_SHARDS), 200),
+               "plain_ms": time_ms(torch, lambda: owner_of_ref(keys, SH_SHARDS), 200),
+               "library_ms": None,
+               # each key read once, each owner written once
+               "bound_ms": (8 + 4) * b_sh / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    lanes = fold_lanes(SH_SHARDS, b_sh)
+    owner = owner_of(keys, SH_SHARDS)
+    valid = torch.from_numpy(rng.random((SH_SHARDS, b_sh)) < 0.4).to(dev)
+    lane_bytes = sum(x.element_size() for x in lanes.values())
+    idx = owner.long()[None, :]
+    r_fold = {"max_abs_err": 0.0,
+              "ms": time_ms(torch, lambda: fold_rows(lanes, owner, valid), 200),
+              "plain_ms": time_ms(torch, lambda: fold_rows_ref(lanes, owner, valid), 50),
+              "library_ms": time_ms(torch, lambda: [torch.gather(x, 0, idx) for x in
+                                                    lanes.values()], 200),
+              # the [D, B] lanes, valid and the owners read once; [B] lanes written once
+              "bound_ms": ((SH_SHARDS * b_sh * (lane_bytes + 1) + 4 * b_sh)
+                           + b_sh * (lane_bytes + 1)) / MEM_BYTES_PER_S * 1e3,
+              "bound_by": "bytes", "lanes": len(lanes)}
+    ins = route_in(b_sh, 1024)
+    slot, active, timer, rl = ins
+    dev_of = torch.where(active & (slot < 1024), slot % SH_SHARDS, SH_SHARDS)
+    in_bytes = sum(x.element_size() for x in rl.values())
+    r_route = {"max_abs_err": 0.0,
+               "ms": time_ms(torch, lambda: route_rows(*ins, 1024, SH_SHARDS), 200),
+               "plain_ms": time_ms(torch, lambda: route_rows_ref(*ins, 1024, SH_SHARDS), 50),
+               "library_ms": time_ms(torch, lambda: torch.argsort(dev_of, stable=True), 200),
+               # slot, active and timer masks and every lane read once; the
+               # [D, B] routed indices, slot, valid and lanes written once
+               "bound_ms": (b_sh * (4 + 1 + 1 + in_bytes)
+                            + SH_SHARDS * b_sh * (4 + 4 + 1 + in_bytes)) / MEM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"}
+    for name, r in (("shard_owner", r_owner), ("shard_fold", r_fold), ("shard_route", r_route)):
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} (bytes) library_ms={lib} max_abs_err=0.0 "
+              f"(B {b_sh}, D {SH_SHARDS})", flush=True)
+    return {"shard_owner": r_owner, "shard_fold": r_fold, "shard_route": r_route}
+
+
+def sh_rows_np(out) -> np.ndarray:
+    """A step's valid rows as a record array sorted by every exact lane."""
+    v = out.valid.cpu().numpy()
+    lanes = {"ts": out.ts.cpu().numpy()[v], "kind": out.kind.cpu().numpy()[v]}
+    lanes.update({n: c.cpu().numpy()[v] for n, c in out.cols.items()})
+    exact = [k for k, x in lanes.items() if x.dtype.kind != "f"]
+    order = np.lexsort([lanes[k] for k in reversed(exact)])
+    return {k: x[order] for k, x in lanes.items()}
+
+
+def sh_routed(torch, data: dict, names, steps: int, dev: str = "cuda") -> dict:
+    """SH-ROUTED: PT's per-key length window query ("pw") as a routed
+    sharded step (parallel/mesh.py `shard_partitioned_query`, K50) and as
+    the unsharded keyed step, on the same batches: each step's rows
+    set-equal (exact lanes equal, floats within 2e-4), K50 once a step."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    from siddhi_tpu_torch.parallel.mesh import mesh_devices, shard_partitioned_query
+
+    b = MAIN_BATCH
+    app = SH_PART_APP.format(batch=b, cap=PT_CAP, w=PT_W, head="")
+    mgr = SiddhiManager(device=dev)
+    for s in names:
+        mgr.interner.intern(s)
+    rt = mgr.create_siddhi_app_runtime(app)
+    rt.start()
+    qr = rt.queries["pw"]
+    schema = qr.in_schema
+    devices = mesh_devices(dev)
+    if len(devices) != SH_SHARDS or any(d != devices[0] for d in devices):
+        raise AssertionError(f"path SH: mesh_devices gave {devices}")
+    cols = ("symbol", "price", "volume")
+    batches = [schema.to_batch_cols(data["ts"][i * b:(i + 1) * b],
+                                    {k: data[k][i * b:(i + 1) * b] for k in cols},
+                                    mgr.interner, dev, capacity=b) for i in range(steps)]
+    ptable = dict(rt.partitions[0].ptable)
+    state = qr.init_state()
+    sq = shard_partitioned_query(qr, devices, routed=True)
+    sq.step(batches[0], 0)  # warm-up, not counted
+    sq = shard_partitioned_query(qr, devices, routed=True)
+    launches: collections.Counter = collections.Counter()
+    routed_s = plain_s = 0.0
+    rows = 0
+    for i, bt in enumerate(batches):
+        now = int(data["ts"][(i + 1) * b - 1])
+        sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
+        sync()
+        kernels.launches.clear()  # the routed step's launches alone
+        t0 = time.perf_counter()
+        outs, aux = sq.step(bt, now)
+        sync()
+        routed_s += time.perf_counter() - t0
+        launches.update(kernels.launches)
+        t0 = time.perf_counter()
+        ptable, state, want, _ctx = qr._pstep_outer(ptable, state, bt,
+                                                    torch.tensor(now, device=dev))
+        sync()
+        plain_s += time.perf_counter() - t0
+        g, w = sh_rows_np(outs), sh_rows_np(want)
+        if set(g) != set(w) or any(not np.array_equal(g[k], w[k]) for k in g
+                                   if g[k].dtype.kind != "f") or not all(
+                np.allclose(g[k], w[k], rtol=RTOL, atol=RTOL, equal_nan=True)
+                for k in g if g[k].dtype.kind == "f"):
+            raise AssertionError(f"path SH-ROUTED: step {i}'s rows differ from the unsharded step's")
+        rows += len(w["ts"])
+    rt.shutdown()
+    mgr.shutdown()
+    return {"steps": steps, "events": steps * b, "rows": rows, "launches": dict(launches),
+            "seconds": routed_s, "seconds_off": plain_s,
+            "events_per_s": steps * b / routed_s, "events_per_s_off": steps * b / plain_s}
+
+
+def shard_path_phase(torch, dev: str = "cuda") -> dict:
+    """Path SH: the port's sharded execution at full width, B 32,768, 1,000
+    symbols of seed 7, `mesh_devices` giving 8 shards on cuda:0 (XLA_FLAGS'
+    host device count 8; 8 shards share one H100). SH-PART: PT's
+    partitioned app under @app:shard(devices='8', axis='part') (1,024 slots,
+    128 a shard), its rows equal in order to the unsharded app's; SH-ROUTED:
+    the routed step of PT's window query on the same feed, each step's rows
+    set-equal to the unsharded step's; SH-KEYS: a count/max/sum group-by
+    over the symbols under axis='keys', rows byte-identical to sharding
+    off; SH-BATCH: a filter under axis='batch' in fused calls of 8 batches
+    (one a shard), rows byte-identical to sharding off. Each sharded run's
+    launch counts from 0 just before it (after a warm-up call); events/s
+    sharded and off. K49's launches come from SH-KEYS, K50's from
+    SH-ROUTED."""
+    from siddhi_tpu_torch import kernels
+
+    b = MAIN_BATCH
+    n = SH_BATCHES * b
+    data, names = sh_data(n)
+    saved = os.environ.get("XLA_FLAGS")
+    os.environ["XLA_FLAGS"] = SH_FLAG
+    out: dict = {"shards": SH_SHARDS, "card": card_line()}
+    try:
+        calls = [(i * b, (i + 1) * b) for i in range(SH_BATCHES)]
+        part = SH_PART_APP.format(batch=b, cap=PT_CAP, w=PT_W, head="{head}")
+        keys = SH_KEYS_APP.format(batch=b, head="{head}")
+        routed_batches = SH_BATCH_APP.format(batch=b, k=SH_BATCHES, head="{head}")
+        for label, app, axis, runs in (("PART", part, "part", calls),
+                                       ("KEYS", keys, "keys", calls),
+                                       ("BATCH", routed_batches, "batch", [(0, n), (0, n)])):
+            sharded = app.replace("{head}", sh_head(axis))
+            plain = app.replace("{head}", "")
+            run_sh(dev, sharded, data, names, runs[:1])  # warm-up, not counted
+            kernels.launches.clear()
+            on = run_sh(dev, sharded, data, names, runs)
+            launches = dict(kernels.launches)
+            off = run_sh(dev, plain, data, names, runs)
+            for k in SH_KERNELS[label]:
+                if launches.get(k, 0) <= 0 and dev != "cpu":
+                    raise AssertionError(f"path SH-{label}: kernel {k} was not launched")
+            if label == "PART":
+                same = on["rows"] == off["rows"]
+                if not on["rows"] or not rows_match([r for _t, r in on["rows"]],
+                                                    [r for _t, r in off["rows"]]) or [
+                        t for t, _r in on["rows"]] != [t for t, _r in off["rows"]]:
+                    raise AssertionError("path SH-PART: rows differ from the unsharded app's")
+            else:
+                same = on["rows"] == off["rows"]
+                if not same or not on["rows"]:
+                    raise AssertionError(f"path SH-{label}: rows not byte-identical to "
+                                         "sharding off")
+            shard = on["status"].get("shard", {})
+            if shard.get("devices") != SH_SHARDS:
+                raise AssertionError(f"path SH-{label}: sharding not armed: {shard}")
+            ev = sum(hi - lo for lo, hi in runs)
+            timed = runs[1:] if label == "BATCH" else runs
+            t_on = sum(on["seconds"][len(runs) - len(timed):])
+            t_off = sum(off["seconds"][len(runs) - len(timed):])
+            ev_t = sum(hi - lo for lo, hi in timed)
+            r = {"events": ev, "rows": len(on["rows"]), "launches": launches,
+                 "rows_exactly_equal": same, "seconds": t_on, "seconds_off": t_off,
+                 "events_per_s": ev_t / t_on, "events_per_s_off": ev_t / t_off,
+                 "placement": {k: v for k, v in shard.items() if k != "devices"}}
+            out[label] = r
+            print(f"path SH-{label}: {ev} events, {r['rows']} rows equal to sharding off"
+                  f"{' (byte for byte)' if same else ' (floats within 2e-4)'}; "
+                  f"{r['events_per_s']:.1f} events/s sharded ({SH_SHARDS} shards sharing one "
+                  f"card), {r['events_per_s_off']:.1f} events/s off; launches "
+                  f"{json.dumps(launches)}", flush=True)
+            if label == "PART":
+                routed = sh_routed(torch, data, names, SH_BATCHES, dev)
+                out["ROUTED"] = routed
+                if routed["launches"].get("shard_route", 0) != SH_BATCHES and dev != "cpu":
+                    raise AssertionError(f"path SH-ROUTED: {routed['launches']} — K50 not "
+                                         "launched once a step")
+                print(f"path SH-ROUTED: {routed['events']} events in {routed['steps']} steps, "
+                      f"{routed['rows']} rows set-equal to the unsharded step's; "
+                      f"{routed['events_per_s']:.1f} events/s routed ({SH_SHARDS} shards "
+                      f"sharing one card), {routed['events_per_s_off']:.1f} events/s "
+                      f"unsharded; launches {json.dumps(routed['launches'])}", flush=True)
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+    print(f"path SH: every figure is {SH_SHARDS} virtual shards sharing one card "
+          f"({out['card']}), not {SH_SHARDS} cards", flush=True)
+    return out
+
+
 def same_tree_np(got, want, what: str) -> None:
     """Two numpy trees equal leaf for leaf (floats by their bits)."""
     for g, w in zip(flat(got), flat(want), strict=True):
@@ -7492,6 +7843,13 @@ def main() -> int:
             lineage_path_phase(torch)
             lap("path LIN")
         return 0
+    if "--shard" in sys.argv[1:]:
+        shard_kernel_phase(torch, "cuda")
+        lap("shard_kernel_phase")
+        if "--no-paths" not in sys.argv[1:]:
+            shard_path_phase(torch)
+            lap("path SH")
+        return 0
     if "--partition-joins" in sys.argv[1:]:
         partition_join_kernel_phase(torch, "cuda")
         lap("partition_join_kernel_phase")
@@ -7506,7 +7864,8 @@ def main() -> int:
                   table_kernel_phase, special_window_kernel_phase, partition_kernel_phase,
                   partition_windows_kernel_phase, partition_pattern_kernel_phase,
                   partition_join_kernel_phase, partition_special_kernel_phase,
-                  aggregation_kernel_phase, named_window_kernel_phase, lineage_kernel_phase):
+                  aggregation_kernel_phase, named_window_kernel_phase, lineage_kernel_phase,
+                  shard_kernel_phase):
         res.update(phase(torch, "cuda"))
         lap(phase.__name__)
     if "--kernels" in sys.argv[1:]:
@@ -7554,6 +7913,8 @@ def main() -> int:
     lap("path NW")
     lineage = lineage_path_phase(torch)
     lap("path LIN")
+    sharded = shard_path_phase(torch)
+    lap("path SH")
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -7661,7 +8022,13 @@ def main() -> int:
                                        "siddhi_tpu/core/partition.py:105"),
            "mix_keys": ("siddhi_tpu_torch/csrc/mix_keys.cu", "siddhi_tpu/ops/group.py:37"),
            "ring_view_seq": ("siddhi_tpu_torch/csrc/ring_view.cu",
-                             "siddhi_tpu/core/windows.py:453")}
+                             "siddhi_tpu/core/windows.py:453"),
+           "shard_owner": ("siddhi_tpu_torch/csrc/keyshard.cu",
+                           "siddhi_tpu/parallel/keyshard.py:74"),
+           "shard_fold": ("siddhi_tpu_torch/csrc/keyshard.cu",
+                          "siddhi_tpu/parallel/keyshard.py:227"),
+           "shard_route": ("siddhi_tpu_torch/csrc/shard_route.cu",
+                           "siddhi_tpu/parallel/mesh.py:175")}
     # launches: K1-K5 from the quickstart path's run, K6-K9 from the
     # tumbling_groupby path's run, K10 from path T's run, K11 and K12 from
     # path J's, K13 and K15 from path P's, K14 from path C's, K16 from path
@@ -7716,6 +8083,9 @@ def main() -> int:
         path_of[k] = named_windows["launches"]
     # K48 from path LIN's J (the lineage-armed self-join)
     path_of["ring_view_seq"] = lineage["J"]["launches"]
+    # K49 (owner and fold) from path SH-KEYS, K50 from SH-ROUTED
+    path_of["shard_owner"] = path_of["shard_fold"] = sharded["KEYS"]["launches"]
+    path_of["shard_route"] = sharded["ROUTED"]["launches"]
     path_launches = {k: path_of.get(k, main["launches"]).get(k, 0) for k in res}
     table = [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
@@ -7757,6 +8127,7 @@ def main() -> int:
                    "aggregation_paths": aggregations,
                    "named_window_path": named_windows,
                    "lineage_path": lineage,
+                   "shard_path": sharded,
                    "ring_view_seq_W1024_ms": res["ring_view_seq"]["W1024_ms"],
                    "order_limit_store_query_shape": {
                        "ms": res["order_limit"]["query_ms"],

@@ -39,7 +39,9 @@ named windows (core/window_runtime.py, `define window`: `from W` readers,
 (core/trigger.py, `define trigger`, started last); `@store` record tables
 (core/record_table.py); `@flightRecorder` rings and event lineage
 (`@app:lineage`, observability/; partitioned queries run unrecorded, as in
-JAX).
+JAX); sharded execution (`@app:shard`, parallel/: the partition mesh, the
+batch router, key-sharded group-by and join placement, resolved at creation
+and applied at `start()`).
 Everything else raises `SiddhiAppCreationError("... not ported yet")`.
 """
 
@@ -82,6 +84,7 @@ from siddhi_tpu_torch.observability.lineage import (
     publisher_context,
     resolve_lineage_annotation,
 )
+from siddhi_tpu_torch.parallel.shard import resolve_shard_annotation
 from siddhi_tpu_torch.query_api.annotation import find_annotation
 from siddhi_tpu_torch.query_api.execution import (
     InsertIntoStream,
@@ -102,7 +105,8 @@ _PORTED_APP_ANNOTATIONS = {"app:name", "app", "name", "app:description", "app:ba
                            "app:playback", "app:ingestchunk", "app:wire",
                            "app:groupcapacity", "app:joincapacity", "app:patterncapacity",
                            "app:countcapacity", "app:patternchunk", "app:tablecapacity",
-                           "app:partitioncapacity", "app:agggroupcapacity", "app:lineage"}
+                           "app:partitioncapacity", "app:agggroupcapacity", "app:lineage",
+                           "app:shard"}
 _UNPORTED_STREAM_ANNOTATIONS = {"onerror", "source", "sink", "async"}
 
 
@@ -169,6 +173,15 @@ class SiddhiAppRuntime:
                                                                        "app:lineage"))
         self.lineage_ledger = (LineageLedger(self, self._lineage_cfg)
                                if self._lineage_cfg is not None else None)
+        # sharded execution: @app:shard(devices='N', axis=...) /
+        # SIDDHI_TPU_SHARD (parallel/shard.py; malformed options raise here),
+        # resolved now, applied at start() once the fused engines exist
+        self._shard_conf = resolve_shard_annotation(find_annotation(app.annotations,
+                                                                    "app:shard"))
+        self._shard = None  # ShardRuntime, built at start()
+        # @app:statistics is not ported: no statistics manager, as a JAX app
+        # without the annotation
+        self.statistics_manager = None
         batch_ann = find_annotation(app.annotations, "app:batch")
         self.batch_size = (
             int(batch_ann.element("size", str(DEFAULT_BATCH))) if batch_ann else DEFAULT_BATCH
@@ -603,13 +616,22 @@ class SiddhiAppRuntime:
             logging.getLogger(__name__).warning(
                 "lineage could not be armed for query '%s'", qr.query_id, exc_info=True)
 
-    @staticmethod
-    def _fuse_candidate(j: StreamJunction, ep: FuseEndpoint) -> None:
+    def _fuse_candidate(self, j: StreamJunction, ep: FuseEndpoint) -> None:
         """Offer a query's endpoint to its junction's fused ingest. A
         rate-limited query delivers through its limiter on the host, so it
-        offers none and keeps its junction on the per-batch path."""
-        if ep.qr.rate_limiter is None:
-            j.fuse_candidates.append(ep)
+        offers none and keeps its junction on the per-batch path. Under
+        `@app:shard(axis='keys')` a key-shardable query offers none either:
+        its sharded step would be bypassed by a fused chunk (JAX
+        app_runtime.py:807-817 `_wire_fuse_candidate`)."""
+        if ep.qr.rate_limiter is not None:
+            return
+        devices, axis = self._shard_conf
+        if devices >= 2 and axis == "keys":
+            from siddhi_tpu_torch.parallel.keyshard import keyed_shardable
+
+            if keyed_shardable(ep.qr)[0]:
+                return
+        j.fuse_candidates.append(ep)
 
     def _timer_batch(self, schema: StreamSchema, t_ms: int) -> EventBatch:
         """A batch of one TIMER row at t_ms (null payload). The JAX package
@@ -752,7 +774,15 @@ class SiddhiAppRuntime:
                if getattr(qr, "lineage", None) is not None}
         if lin:
             d["lineage"] = lin
+        if self._shard is not None:
+            d["shard"] = self._shard.describe_state()
         return d
+
+    def snapshot_status(self) -> dict:
+        """The app's live status: `describe_state()` (the port keeps no
+        statistics, SLO or persistence sections yet); "shard" is the sharded
+        execution's placement and counters when `@app:shard` is on."""
+        return self.describe_state()
 
     # ---- flight recorder (observability/flight.py) ------------------------
 
@@ -806,6 +836,14 @@ class SiddhiAppRuntime:
         if self._playback_clock is not None:
             self._playback_clock.start_heartbeat()
         self._build_fused_ingest()
+        # sharded execution (parallel/shard.py): the partition mesh, key
+        # sharding and the batch routers, from the creation-time resolution
+        shard_devices, shard_axis = self._shard_conf
+        if shard_devices >= 2:
+            from siddhi_tpu_torch.parallel.shard import ShardRuntime
+
+            self._shard = ShardRuntime(self, shard_devices, shard_axis)
+            self._shard.apply()
         # absent-at-start patterns arm their timers before any event
         # (reference: SiddhiAppRuntime.start -> eternalReferencedHolders.start),
         # a cron window its first fire, a time or snapshot rate limiter its

@@ -37,9 +37,15 @@ The chunk stages run double-buffered through core/pipeline.py by default;
 `@pipeline(disable='true')` (or SIDDHI_TPU_PIPELINE=0) runs them serially.
 Outputs and delivery order are the same either way.
 
+Under `@app:shard` a junction whose endpoints are all stateless takes a
+batch shard router (parallel/shard.py `BatchShardRouter`): its micro-batches
+go round-robin to the mesh devices, one `_dispatch_chunk` a chunk of each
+device's batches, delivered in the original batch order, the lineage
+observations parked and replayed in that order.
+
 Ported from the JAX package's core/ingest.py without its plan groups and
-share sets, residual dispatch, shard router, profiler waterfall, device
-statistics and tracer, tail prewarm, and value-inferred wire hints.
+share sets, residual dispatch, profiler waterfall, device statistics and
+tracer, tail prewarm, and value-inferred wire hints.
 """
 
 from __future__ import annotations
@@ -239,6 +245,10 @@ class FusedJunctionIngest:
         self._sender = None  # thread holding _send_lock (re-entrancy guard)
         self._drain_guess: dict = {}
         self._drain_stream = None
+        # the batch-axis router (parallel/shard.py), armed at start() under
+        # @app:shard; and the lineage observations it parks during a send
+        self.shard_router = None
+        self._lin_pending: Optional[list] = None
 
     def describe_state(self) -> dict:
         d: dict = {
@@ -250,6 +260,8 @@ class FusedJunctionIngest:
             "batches": self.batches_fused,
             "events": self.events_fused,
         }
+        if self.shard_router is not None:
+            d["shard_router"] = self.shard_router.describe_state()
         if self._narrow is not None:
             d["wire"] = wire_report(
                 self.junction.schema, self._keep, self._narrow, self.wire_spec,
@@ -350,7 +362,8 @@ class FusedJunctionIngest:
                 ep.qr.state = ep.init_state(now)
             states.append(ep.qr.state)
         batch = prog.decode(wire, counts, bases)
-        now_t = torch.full((), now, dtype=torch.int64, device=self.device)
+        dev = wire.device  # a mesh device under the batch shard router
+        now_t = torch.full((), now, dtype=torch.int64, device=dev)
         outs: dict = {i: [] for i in prog.deliver_idx}
         # a recorded query's sink length after each micro-batch's step
         marks = {ei: [len(ep.qr._lin_sink)] for ei, ep in enumerate(eps)
@@ -370,9 +383,9 @@ class FusedJunctionIngest:
             ep.qr.state = st
         packs = [self._pack(prog, i, outs[i]) for i in prog.deliver_idx]
         event = None
-        if self.device.type == "cuda":
+        if dev.type == "cuda":
             event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+            event.record(torch.cuda.current_stream(dev))
         return packs, event, marks
 
     def _pack(self, prog: _ChunkProgram, i: int, outs: list) -> torch.Tensor:
@@ -447,7 +460,11 @@ class FusedJunctionIngest:
             prog = self._prog
 
         sent = False
-        if self.pipeline_enabled:
+        if self.shard_router is not None:
+            # None: the router declined (too few batches, a re-entrant send,
+            # a narrow-wire misfit) and the single-device paths own the call
+            sent = bool(self.shard_router.try_send(self, prog, ts_arr, cols, n, B, now))
+        if not sent and self.pipeline_enabled:
             pl = self._pipeline()
             # a query callback that re-enters send_columns from the drain
             # worker must not block on the pipeline it is draining
@@ -492,11 +509,13 @@ class FusedJunctionIngest:
             self._build(dset)
             return self._prog
 
-    def _dispatch_chunk(self, prog, wire, counts, bases, K: int, n_events: int, now: int):
+    def _dispatch_chunk(self, prog, wire, counts, bases, K: int, n_events: int, now: int,
+                        lin_ks: Optional[list] = None):
         """One chunk's device work under the app lock, then the counters.
         On a failure owned by the junction's exception handler returns
         (None, None) and the caller goes on with the next chunk, as the
-        per-batch path goes on with the next batch."""
+        per-batch path goes on with the next batch. `lin_ks`: the shard
+        router's global batch index of each micro-batch."""
         with self.app._process_lock:
             try:
                 packs, event, marks = self._run_chunk(prog, wire, counts, bases, K, now)
@@ -512,21 +531,44 @@ class FusedJunctionIngest:
             self.batches_fused += K
             self.events_fused += n_events
             if marks:
-                self._lin_observe_chunk(marks, K, n_events, now)
+                self._lin_observe_chunk(marks, K, n_events, now, lin_ks)
         return packs, event
 
-    def _lin_observe_chunk(self, marks: dict, K: int, n_events: int, now: int) -> None:
+    def _lin_observe_chunk(self, marks: dict, K: int, n_events: int, now: int,
+                           lin_ks: Optional[list] = None) -> None:
         """Replay the chunk's lineage lanes: one readback of every recorded
         endpoint's steps, then each endpoint's micro-batches in order, the
-        empty ones (a short chunk's padding) skipped, as JAX does."""
+        empty ones (a short chunk's padding) skipped, as JAX does. Under the
+        shard router (`lin_ks`, a send begun by `_lin_begin_send`) each
+        micro-batch's steps park, keyed by global batch, for the in-order
+        replay of `_lin_end_send` (JAX core/ingest.py:909-960)."""
         B = self.junction.batch_size
         per_ep = []
         for ei, m in marks.items():
             qr = self.endpoints[ei].qr
             steps, qr._lin_sink = qr._lin_sink, []
-            per_ep.append((qr.lineage, [step for k in range(K) if n_events - k * B > 0
-                                        for step in steps[m[k] - m[0]:m[k + 1] - m[0]]]))
-        observe_steps(per_ep, now)
+            for k in range(K):
+                if n_events - k * B <= 0:
+                    continue
+                mb = steps[m[k] - m[0]:m[k + 1] - m[0]]
+                if lin_ks is not None and self._lin_pending is not None:
+                    self._lin_pending.append((int(lin_ks[k]), ei, qr.lineage, mb, now))
+                else:
+                    per_ep.append((qr.lineage, mb))
+        if per_ep:
+            observe_steps(per_ep, now)
+
+    def _lin_begin_send(self) -> None:
+        if any(ep.qr.lineage is not None for ep in self.endpoints):
+            self._lin_pending = []
+
+    def _lin_end_send(self) -> None:
+        """Replay the parked observations in the original batch order, then
+        endpoint order: the single-device chunk loop's order."""
+        pend, self._lin_pending = self._lin_pending, None
+        if pend:
+            pend.sort(key=lambda x: (x[0], x[1]))
+            observe_steps([(lin, mb) for _k, _ei, lin, mb, _now in pend], pend[0][4])
 
     def _send_serial(self, prog, dset, ts_arr, cols, n, B, now) -> bool:
         """The serial chunk loop (@pipeline(disable='true') or a drain-worker

@@ -190,29 +190,47 @@ class PartitionedQueryRuntime(QueryRuntime):
             if kind == "window" and not isinstance(stage, _KEYED_WINDOWS):
                 raise _not_ported(f"window {type(stage).__name__}")
         self.p = int(p_capacity)
+        # the key table's capacity: `p` grows past it when the partition
+        # mesh pads the [P] axis with dead slots (parallel/shard.py)
+        self.p_logical = self.p
         self.key_of = key_of
         self.stream_id = in_schema.stream_id
         # set when the query inserts into an #inner stream
         self.inner_publish: Optional[Callable] = None
+        # the partition mesh's devices (`@app:shard`, parallel/shard.py
+        # apply_partition_mesh), else None
+        self.mesh_devices: Optional[list] = None
 
     def init_state(self):
         return _tile(super().init_state(), self.p)
 
     # ---- device ----------------------------------------------------------
 
-    def _pstep(self, state, batch: EventBatch, now: torch.Tensor, ctx: GroupCtx, aux: dict):
+    def _pstep_rows(self, state, batch: EventBatch, now: torch.Tensor, ctx: GroupCtx,
+                    aux: dict):
+        """The chain and the selector over every slot of `state`: (state',
+        out, out_ctx, aux)."""
         flow = Flow(batch=batch, ref=self.ref, now=now, aux=aux, partition=ctx)
         chain_state, flow = self.chain.apply(state["chain"], flow)
         # (the selector hands on the slot lane of its rows in flow.partition)
         sel_state, out = self.selector.apply(state["sel"], flow)
-        self._apply_table_op(out, now, flow.aux)
-        self._note_aux(flow.aux)
-        return {"chain": chain_state, "sel": sel_state}, out, flow.partition
+        return {"chain": chain_state, "sel": sel_state}, out, flow.partition, flow.aux
+
+    def _pstep(self, state, batch: EventBatch, now: torch.Tensor, ctx: GroupCtx, aux: dict):
+        state, out, out_ctx, aux = self._pstep_rows(state, batch, now, ctx, aux)
+        self._apply_table_op(out, now, aux)
+        self._note_aux(aux)
+        return state, out, out_ctx
 
     def _pstep_outer(self, ptable: dict, state, batch: EventBatch, now: torch.Tensor):
         """Outer-stream rows: key -> slot on the shared table; a row takes
         part when valid, CURRENT, matched and within capacity (TIMER rows
-        pass to every partition, as the vmap's masks)."""
+        pass to every partition, as the vmap's masks). On the partition mesh
+        each shard steps its block of slots (parallel/mesh.py)."""
+        if self.mesh_devices is not None:
+            from siddhi_tpu_torch.parallel.mesh import replicated_step
+
+            return replicated_step(self, self.mesh_devices, ptable, state, batch, now)
         ptable, active, slot, grp, povf = _assign(ptable, self.key_of, self.stream_id, batch,
                                                   now)
         is_timer = batch.valid & (batch.kind == KIND_TIMER)

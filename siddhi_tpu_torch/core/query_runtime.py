@@ -443,6 +443,20 @@ class QueryRuntime(BaseQueryRuntime):
         # cron-driven windows compute their next fire on the host
         cron = getattr(win, "cron_schedule", None)
         self.host_next_timer = cron.next_fire_ms if cron is not None else None
+        # armed by parallel/keyshard.py (@app:shard axis='keys'): the
+        # KeyShardedGroupExec whose step and [D] state layout `receive` takes
+        self._keyshard = None
+
+    @property
+    def stateless_chain(self) -> bool:
+        """True when this query carries no cross-batch state (no window,
+        aggregator, group-by, table or rate limiter): its rows for a
+        micro-batch depend on that micro-batch alone, so the batch shard
+        router (parallel/shard.py) may step micro-batches of one send on
+        different devices (JAX query_runtime.py:803)."""
+        sel = self.selector
+        return (self.chain.window is None and not sel.aggregators and sel.group is None
+                and self.rate_limiter is None and self.table_op is None and not self.tables)
 
     def init_state(self):
         return {"chain": self.chain.init_state(), "sel": self.selector.init_state()}
@@ -502,11 +516,13 @@ class QueryRuntime(BaseQueryRuntime):
     # ---- host side -------------------------------------------------------
 
     def receive(self, batch: EventBatch, now: int) -> EventBatch:
+        ks = self._keyshard
         with self._receive_lock:
             if self.state is None:
-                self.state = self.init_state()
+                self.state = ks.init_state() if ks is not None else self.init_state()
             now_t = torch.full((), now, dtype=torch.int64, device=self.device)
-            self.state, out = self._step_impl(self.state, batch, now_t)
+            step = ks._step_impl if ks is not None else self._step_impl
+            self.state, out = step(self.state, batch, now_t)
             if self.lineage is not None:
                 self._lin_flush(now)  # under the receive lock: dispatch order
         return out

@@ -38,7 +38,10 @@ travel. A partition's queries keep their state [P]-tiled in both engines
 [P]); `partition_state_from_jax` takes a JAX partition block's key table
 and its queries' states. An aggregation's stores are a list of one dict a
 duration in the JAX engine and stacked [D, ...] lanes here
-(`aggregation_state_from_jax`).
+(`aggregation_state_from_jax`). Under `@app:shard` a key-sharded group-by's
+state gains a leading [D] device axis in both engines
+(`keyshard_state_from_jax`), and a sharded partitioned query's [P] state
+keeps the mesh's block layout (`sharded_partition_state_from_jax`).
 """
 
 from __future__ import annotations
@@ -144,3 +147,20 @@ def aggregation_state_from_jax(state: dict, device) -> dict:
                            for b in spill[0]["vals"]}},
         "spill_n": stack(state["spill_n"], lambda x: x),
     }, device)
+
+
+def keyshard_state_from_jax(state: dict, device) -> dict:
+    """A JAX `KeyShardedGroupExec` query's state as numpy (every leaf of the
+    unsharded `{"chain", "sel"}` tree with a leading [D] device axis: group
+    tables [D, G], aggregator carries [D, G]) as this engine's
+    `KeyShardedGroupExec` state: the same layout, leaf for leaf."""
+    return state_from_numpy(state, device)
+
+
+def sharded_partition_state_from_jax(ptable: dict, state: dict, device) -> tuple:
+    """A JAX `ShardedPartitionedQuery`'s key table and [P] state as numpy
+    (`sq._ptable`, `sq.state`) as this engine's `(ptable, state)` for
+    `parallel.mesh.shard_partitioned_query(..., ptable=, state=)`: the same
+    block layout, the routed step's striped one included (state row
+    d * P/D + l holds slot l * D + d)."""
+    return state_from_numpy(ptable, device), state_from_numpy(state, device)

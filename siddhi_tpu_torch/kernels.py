@@ -36,7 +36,7 @@ SOURCES = ("length_window", "running_sum", "window_extreme", "wire_decode", "del
            "pattern_scan", "running_extreme", "distinct_count", "table_write", "table_index",
            "table_match", "table_scan", "special_window", "partition_window",
            "partition_time", "partition_batch", "partition_pattern", "partition_join",
-           "aggregation", "mix_keys", "order_limit")
+           "aggregation", "mix_keys", "order_limit", "keyshard", "shard_route")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -164,6 +164,9 @@ SIGNATURES = {
     "agg_find": ("aggregation", [I] * 4 + [P] * 12 + [P]),
     "mk_mix": ("mix_keys", [I, I] + [P] * 8 + [I] * 8 + [P, P]),
     "ol_order": ("order_limit", [I] * 5 + [P] * 2 + [P] * 8 + [I] * 16 + [P] * 11 + [P]),
+    "ks_owner": ("keyshard", [P, I, I, P, P]),
+    "ks_fold": ("keyshard", [I, I, I, P, P, P, P, P, P, P]),
+    "sr_route": ("shard_route", [I, I, I, P, P, P, I, P, P, P, P, P, P, P]),
 }
 
 launches: collections.Counter = collections.Counter()

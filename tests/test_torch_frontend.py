@@ -10,6 +10,10 @@ import pytest
 
 pytest.importorskip("torch")
 
+from tests._torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
+
 import bench  # noqa: E402
 from siddhi_tpu.compiler.siddhi_compiler import SiddhiCompiler as JaxCompiler  # noqa: E402
 from siddhi_tpu_torch.compiler.siddhi_compiler import SiddhiCompiler  # noqa: E402

@@ -11,6 +11,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests._torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
+
 ROOT = Path(__file__).resolve().parent.parent
 
 

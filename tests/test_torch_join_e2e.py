@@ -20,6 +20,10 @@ import pytest
 
 pytest.importorskip("torch")
 
+from tests._torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
+
 import jax  # noqa: E402
 
 import bench  # noqa: E402

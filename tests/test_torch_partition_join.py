@@ -27,6 +27,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests._torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

@@ -10,6 +10,10 @@ import pytest
 
 pytest.importorskip("torch")
 
+from tests._torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
+
 import bench  # noqa: E402
 import chip_smoke  # noqa: E402
 from tests.test_torch_partition_windows_e2e import (  # noqa: E402,F401

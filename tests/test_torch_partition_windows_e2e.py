@@ -17,6 +17,10 @@ import pytest
 
 pytest.importorskip("torch")
 
+from tests._torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
+
 import bench  # noqa: E402
 import siddhi_tpu  # noqa: E402
 import siddhi_tpu_torch  # noqa: E402

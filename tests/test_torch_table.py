@@ -16,6 +16,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests._torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
+
 import jax.numpy as jnp  # noqa: E402
 
 from siddhi_tpu.compiler.siddhi_compiler import SiddhiCompiler as JaxCompiler  # noqa: E402

@@ -25,6 +25,10 @@ import pytest
 
 pytest.importorskip("torch")
 
+from tests._torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
+
 import bench  # noqa: E402
 import chip_smoke  # noqa: E402
 import siddhi_tpu  # noqa: E402

@@ -15,6 +15,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests._torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
+
 import siddhi_tpu  # noqa: E402
 import siddhi_tpu_torch  # noqa: E402
 from siddhi_tpu.core import wire as JW  # noqa: E402
