@@ -252,6 +252,13 @@ builds the kernels and runs only K48 against its plain version and path LIN
 builds the kernels and runs only K49 and K50 against their plain versions
 and path SH (`--no-paths`: only K49 and K50).
 
+    python3 chip_smoke.py --sorts
+
+builds the kernels and runs only the checks and times of the two kernels
+on `csrc/radix_sort.cuh`'s sort, K46 (with K47, which shares its phase)
+and K22 (the index build and the probe), and writes their figures to
+chiprun_out/sorts.json.
+
     python3 chip_smoke.py --profile
 
 instead builds the kernels and prints where the time goes on the quickstart
@@ -272,6 +279,7 @@ import logging
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2204,7 +2212,7 @@ def time_once(torch, fn) -> float:
     return start.elapsed_time(end)
 
 
-def table_kernel_phase(torch, dev) -> dict:
+def table_kernel_phase(torch, dev, index_only: bool = False) -> dict:
     """The table slice's kernels against their plain versions on the card,
     bit for bit, from the same inputs and state: the insert (K21) at path
     TAB-PK's load (C=1,000,000 half full, B=8192, the key's sorted index)
@@ -2221,7 +2229,15 @@ def table_kernel_phase(torch, dev) -> dict:
     at TAB-UPSERT's shape
     (B=8192, C=100,000 half full, keys from [0, 150,000)), a full table, the
     rekey guard (a rekey onto a live key, two rekeys in one event, a clean
-    rekey) and the unguarded update with a table-dependent set value."""
+    rekey) and the unguarded update with a table-dependent set value. K22
+    also at the radix sort's tile edges and above (C 1,023/1,024/1,025/
+    2,047/2,048/2,049/4,097/131,073/10^6), with keys varying in every byte
+    and an all-empty table, and two probe calls in a row (the cached writer
+    scratch all -1 after them); its ms the whole call and device_ms its
+    kernels alone (`device_all_ms`), beside the library call's library_ms
+    and library_device_ms measured alike. index_only: K22 alone
+    (`--sorts`), with its and the library call's kernel times summed by
+    torch.profiler (kernel_ms, library_kernel_ms)."""
     from siddhi_tpu_torch.compiler.siddhi_compiler import SiddhiCompiler
     from siddhi_tpu_torch.core.event import StreamSchema
     from siddhi_tpu_torch.core.executor import TS_ATTR, Env
@@ -2306,31 +2322,35 @@ def table_kernel_phase(torch, dev) -> dict:
 
     t_pk = make_table("@PrimaryKey('k')", "@Index('k')", TAB_PK_ROWS)
     st_pk = fill_state(t_pk, TAB_PK_ROWS // 2)
-    _st, w_cols, w_ts, w_rows, w_index = write_case(t_pk, st_pk, TAB_BATCH, TAB_PK_ROWS // 4,
-                                                    TAB_PK_ROWS)
-    r21 = res["table_write"]
-    r21["ms"] = time_ms(torch, lambda: K.table_write(st_pk, w_cols, w_ts, w_rows, ["k"], w_index),
-                        10)
-    r21["plain_ms"] = time_once(torch, lambda: K.table_write_ref(st_pk, w_cols, w_ts, w_rows,
-                                                                 ["k"]))
-    r21["library_ms"] = None
-    # the rows' lanes and key search (log2 C probes of the sorted keys, then
-    # the found slot's ix_order once), the occupancy read, the kept rows'
-    # lanes written with valid and seq
-    probes = TAB_BATCH * (int(np.ceil(np.log2(TAB_PK_ROWS))) * 8 + 4)
-    r21["bound_ms"], r21["bound_by"] = (
-        (TAB_BATCH * (8 + 8 + 8 + 1) + probes + TAB_PK_ROWS + TAB_BATCH * (8 + 8 + 8 + 8 + 1))
-        / MEM_BYTES_PER_S * 1e3, "bytes")
-    t_up = make_table("@PrimaryKey('k')", "", TAB_ROWS)
-    st_up = fill_state(t_up, TAB_ROWS // 2)
-    _st, u_cols, u_ts, u_rows, _ix = write_case(t_up, st_up, TAB_BATCH, 0, 3 * TAB_ROWS // 2)
-    r21["scan_ms"] = time_ms(torch, lambda: K.table_write(st_up, u_cols, u_ts, u_rows, ["k"]), 5)
-    for b, c, n in ((1, 33, 10), (33, 33, 20), (4097, 4097, 2000), (33, 4097, 4097),
-                    (8, 33, 30), (4097, 33, 0)):
-        for pk, ix in (("@PrimaryKey('k')", "@Index('k')"), ("@PrimaryKey('k')", ""),
-                       ("@PrimaryKey('k','v')", ""), ("", "")):
-            t = make_table(pk, ix, c)
-            write_case(t, fill_state(t, n), b, 0, 2 * max(n, 1), nulls=0.1, dup=0.3)
+    if index_only:
+        w_rows = batch_cols(TAB_BATCH, TAB_PK_ROWS // 4, TAB_PK_ROWS)[2]
+    else:
+        _st, w_cols, w_ts, w_rows, w_index = write_case(t_pk, st_pk, TAB_BATCH, TAB_PK_ROWS // 4,
+                                                        TAB_PK_ROWS)
+        r21 = res["table_write"]
+        r21["ms"] = time_ms(
+            torch, lambda: K.table_write(st_pk, w_cols, w_ts, w_rows, ["k"], w_index), 10)
+        r21["plain_ms"] = time_once(torch, lambda: K.table_write_ref(st_pk, w_cols, w_ts, w_rows,
+                                                                     ["k"]))
+        r21["library_ms"] = None
+        # the rows' lanes and key search (log2 C probes of the sorted keys, then
+        # the found slot's ix_order once), the occupancy read, the kept rows'
+        # lanes written with valid and seq
+        probes = TAB_BATCH * (int(np.ceil(np.log2(TAB_PK_ROWS))) * 8 + 4)
+        r21["bound_ms"], r21["bound_by"] = (
+            (TAB_BATCH * (8 + 8 + 8 + 1) + probes + TAB_PK_ROWS + TAB_BATCH * (8 + 8 + 8 + 8 + 1))
+            / MEM_BYTES_PER_S * 1e3, "bytes")
+        t_up = make_table("@PrimaryKey('k')", "", TAB_ROWS)
+        st_up = fill_state(t_up, TAB_ROWS // 2)
+        _st, u_cols, u_ts, u_rows, _ix = write_case(t_up, st_up, TAB_BATCH, 0, 3 * TAB_ROWS // 2)
+        r21["scan_ms"] = time_ms(
+            torch, lambda: K.table_write(st_up, u_cols, u_ts, u_rows, ["k"]), 5)
+        for b, c, n in ((1, 33, 10), (33, 33, 20), (4097, 4097, 2000), (33, 4097, 4097),
+                        (8, 33, 30), (4097, 33, 0)):
+            for pk, ix in (("@PrimaryKey('k')", "@Index('k')"), ("@PrimaryKey('k')", ""),
+                           ("@PrimaryKey('k','v')", ""), ("", "")):
+                t = make_table(pk, ix, c)
+                write_case(t, fill_state(t, n), b, 0, 2 * max(n, 1), nulls=0.1, dup=0.3)
 
     # ---- K22: the sorted index and its probe ------------------------------
     r22, r22p = res["table_index_build"], res["table_index_probe"]
@@ -2338,8 +2358,19 @@ def table_kernel_phase(torch, dev) -> dict:
     exact("table_index_build", K.table_index_build(keys, valid),
           K.table_index_build_ref(keys, valid))
     r22["ms"] = time_ms(torch, lambda: K.table_index_build(keys, valid), 10)
+    r22["device_ms"] = device_all_ms(torch, lambda: K.table_index_build(keys, valid), 10)
     r22["plain_ms"] = time_ms(torch, lambda: K.table_index_build_ref(keys, valid), 5)
     r22["library_ms"] = time_ms(torch, lambda: torch.sort(keys, stable=True), 10)
+    r22["library_device_ms"] = device_all_ms(torch, lambda: torch.sort(keys, stable=True), 10)
+    # the same table with its empty slots' stale keys inside the live keys'
+    # range (as TAB-PK's own table: three key bytes and the empty flag vary)
+    in_range = torch.where(valid, keys, torch.remainder(keys, TAB_PK_ROWS))
+    r22["in_range_device_ms"] = device_all_ms(
+        torch, lambda: K.table_index_build(in_range, valid), 10)
+    r22["in_range_library_device_ms"] = device_all_ms(
+        torch, lambda: torch.sort(in_range, stable=True), 10)
+    exact("table_index_build", K.table_index_build(in_range, valid),
+          K.table_index_build_ref(in_range, valid))
     r22["bound_ms"], r22["bound_by"] = (TAB_PK_ROWS * (8 + 1 + 4 + 8) / MEM_BYTES_PER_S * 1e3,
                                         "bytes")
     for c in (1, 33, 4097, 70_000):
@@ -2358,7 +2389,9 @@ def table_kernel_phase(torch, dev) -> dict:
 
     def probe_case(keys, valid, probe_raw, ok):
         order, sk, _d = K.table_index_build_ref(keys, valid)
-        exact("table_index_probe", K.table_index_probe(keys, valid, order, sk, probe_raw, ok),
+        exact("table_index_probe",
+              K.table_index_probe(keys, valid, order, sk, probe_raw, ok,
+                                  K.winner_scratch(dev, keys.shape[0])),
               K.table_index_probe_ref(keys, valid, order, sk, probe_raw, ok))
         return order, sk
 
@@ -2366,11 +2399,23 @@ def table_kernel_phase(torch, dev) -> dict:
     pk_probe[::97] = LONG_NULL
     ok = w_rows & (pk_probe != LONG_NULL)
     order, sk = probe_case(keys, valid, pk_probe, ok)
-    r22p["ms"] = time_ms(torch, lambda: K.table_index_probe(keys, valid, order, sk, pk_probe, ok),
-                         10)
+    pk_winner = K.winner_scratch(dev, TAB_PK_ROWS)  # the index's own, as a table keeps it
+
+    def probe_call():
+        return K.table_index_probe(keys, valid, order, sk, pk_probe, ok, pk_winner)
+
+    r22p["ms"] = time_ms(torch, probe_call, 10)
+    r22p["device_ms"] = device_all_ms(torch, probe_call, 10)
     r22p["plain_ms"] = time_ms(torch, lambda: K.table_index_probe_ref(keys, valid, order, sk,
                                                                       pk_probe, ok), 5)
     r22p["library_ms"] = time_ms(torch, lambda: torch.searchsorted(sk, pk_probe), 10)
+    r22p["library_device_ms"] = device_all_ms(torch, lambda: torch.searchsorted(sk, pk_probe), 10)
+    if index_only:  # the kernel times summed by torch.profiler as well
+        for row, call, lib in ((r22, lambda: K.table_index_build(keys, valid),
+                                lambda: torch.sort(keys, stable=True)),
+                               (r22p, probe_call, lambda: torch.searchsorted(sk, pk_probe))):
+            row["kernel_ms"] = device_ms(torch, lambda: None, call, 10, None)
+            row["library_kernel_ms"] = device_ms(torch, lambda: None, lib, 10, None)
     r22p["bound_ms"], r22p["bound_by"] = (
         (TAB_BATCH * (8 + 1 + 4) + TAB_BATCH * int(np.ceil(np.log2(TAB_PK_ROWS))) * 8
          + TAB_BATCH * (4 + 8 + 1)) / MEM_BYTES_PER_S * 1e3, "bytes")
@@ -2385,6 +2430,79 @@ def table_kernel_phase(torch, dev) -> dict:
         fkk = torch.from_numpy(np.resize(fk, c)).to(dev)
         probe_case(fkk, vm, fkk[torch.from_numpy(rng.integers(0, c, b)).to(dev)],
                    torch.ones(b, dtype=torch.bool, device=dev))
+
+    # csrc/radix_sort.cuh: one block up to a tile, the grid above it; keys
+    # varying in every byte; an all-empty table. The plain version runs on
+    # CPU copies here, as K46's do: on the card the stable torch.sort it
+    # calls puts float32 NaNs with the sign bit before -inf, while on the
+    # CPU, where the tests hold it against JAX, every NaN ties after +inf
+    def build_case(kk, vm):
+        want = K.table_index_build_ref(kk.cpu(), vm.cpu())
+        exact("table_index_build", K.table_index_build(kk, vm), tuple(x.to(dev) for x in want))
+
+    for c in (1023, 1024, 1025, SORT_TILE - 1, SORT_TILE, SORT_TILE + 1, 2 * SORT_TILE + 1,
+              131_073, 1_000_000):
+        vm = torch.from_numpy(rng.random(c) < 0.6).to(dev)
+        lk = rng.integers(0, c // 2 + 1, c).astype(np.int64)  # duplicates
+        stale = rng.random(c) < 0.3
+        lk[stale] = rng.integers(0, 1 << 40, int(stale.sum()))
+        for arr in (lk, _every_byte_key(rng, "int64", c), _every_byte_key(rng, "float32", c)):
+            build_case(torch.from_numpy(arr).to(dev), vm)
+    for c in (1000, TAB_ROWS):
+        build_case(torch.from_numpy(_every_byte_key(rng, "int64", c)).to(dev),
+                   torch.zeros(c, dtype=torch.bool, device=dev))
+    # two probe calls in a row on one table: its writer scratch comes back
+    # all -1 (each slot's writer resets it)
+    for _ in range(2):
+        exact("table_index_probe", probe_call(),
+              K.table_index_probe_ref(keys, valid, order, sk, pk_probe, ok))
+    if not bool((pk_winner == -1).all()):
+        raise AssertionError("K22 probe: the writer scratch is not all -1 after two calls")
+    # two tables of one capacity probed from two threads at once, each with
+    # its own scratch (a ctypes call drops the GIL, so their kernels
+    # interleave on the stream)
+    pair = []
+    for _ in range(2):
+        kk = torch.from_numpy(rng.integers(0, 2048, 4097).astype(np.int64)).to(dev)
+        vm = torch.from_numpy(rng.random(4097) < 0.8).to(dev)
+        pr = torch.from_numpy(rng.integers(0, 2048, TAB_BATCH).astype(np.int64)).to(dev)
+        po = torch.ones(TAB_BATCH, dtype=torch.bool, device=dev)
+        o_, s_, _d = K.table_index_build_ref(kk, vm)
+        pair.append(((kk, vm, o_, s_, pr, po), K.table_index_probe_ref(kk, vm, o_, s_, pr, po),
+                     K.winner_scratch(dev, 4097)))
+    got = [[], []]
+
+    def prober(i):
+        args, _want, w = pair[i]
+        for _ in range(50):
+            got[i].append(K.table_index_probe(*args, w))
+
+    threads = [threading.Thread(target=prober, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for i in range(2):
+        if len(got[i]) != 50:
+            raise AssertionError(f"K22 probe: thread {i} did not finish its probes")
+        for g in got[i]:
+            exact("table_index_probe", g, pair[i][1])
+        if not bool((pair[i][2] == -1).all()):
+            raise AssertionError("K22 probe: a writer scratch is not all -1 after two threads")
+    if index_only:
+        for name in ("table_index_build", "table_index_probe"):
+            r = res[name]
+            print(f"kernel {name}: ms={r['ms']:.4f} device_ms={r['device_ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+                  f"library_ms={r['library_ms']:.4f} "
+                  f"library_device_ms={r['library_device_ms']:.4f} "
+                  f"kernel_ms={r['kernel_ms']:.4f} library_kernel_ms={r['library_kernel_ms']:.4f} "
+                  f"checks={r['checks']} exact", flush=True)
+        r = res["table_index_build"]
+        print(f"kernel table_index_build, empty slots' keys in range: "
+              f"device_ms={r['in_range_device_ms']:.4f} "
+              f"library_device_ms={r['in_range_library_device_ms']:.4f}", flush=True)
+        return {name: res[name] for name in ("table_index_build", "table_index_probe")}
 
     # ---- K23: the condition match -----------------------------------------
     def program(t, text):
@@ -3212,9 +3330,12 @@ PP_DEVICE_NAMES = {
 
 def device_ms(torch, setup, fn, reps: int, names) -> float:
     """Mean device time per fn() call of the CUDA kernels whose names hold
-    one of `names`, from torch.profiler over `reps` calls, each after
-    setup() (whose kernels are not counted): the kernels alone, without the
-    wrapper's host work. Raises when the profiler records none of them."""
+    one of `names` (None: every kernel), from torch.profiler over `reps`
+    calls, each after setup() (whose kernels are not counted unless names
+    is None): the kernels alone, without the wrapper's host work or the
+    gaps between them. Raises when the profiler records none of them.
+    torch.profiler can lose device events late in a long run of this
+    script; `device_all_ms` does not use it."""
     from torch.profiler import ProfilerActivity, profile
 
     setup()
@@ -3227,12 +3348,35 @@ def device_ms(torch, setup, fn, reps: int, names) -> float:
         torch.cuda.synchronize()
     us = 0.0
     for e in prof.key_averages():
-        if any(n in e.key for n in names):
+        if names is None or any(n in e.key for n in names):
             dev_us = getattr(e, "self_device_time_total", None)
             us += e.self_cuda_time_total if dev_us is None else dev_us
     if us <= 0:
         raise AssertionError(f"torch.profiler recorded no device time for {names}")
     return us / 1e3 / reps
+
+
+def device_all_ms(torch, fn, reps: int) -> float:
+    """Mean device time per fn() call of everything it runs on the card: the
+    calls are queued behind a sleep kernel that outlasts their queueing, so
+    the card runs them back to back and CUDA events around them see no host
+    time (a wrapper's kernels without its host work, or a library call's
+    whole device work). torch.profiler loses device events late in a long
+    run of this script, so it is not used here."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0  # one call's host time, queueing included
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(max(2e-3, 3 * reps * host_s) * 2e9))  # cycles at <= 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def changed_bytes(torch, before, after) -> int:
@@ -4838,6 +4982,30 @@ def run_nw(dev, app: str, data: dict, names, calls: int, size: int = 0,
     return out
 
 
+SORT_TILE = 2048  # csrc/radix_sort.cuh kSortTile: one block up to it, the grid above
+# the entry points of csrc/radix_sort.cuh's sort (K46 flat and partitioned,
+# K22's build) and K22's probe
+SORT_KERNELS = ("order_limit", "order_limit_partitioned", "table_index_build",
+                "table_index_probe")
+
+
+def _every_byte_key(rng, dtype: str, r: int) -> np.ndarray:
+    """A key lane whose sort words vary in every byte: int64 uniform over its
+    whole range, or float32 over every bit pattern, with INT64_MIN/MAX, NaN
+    of both signs, -0.0, subnormals and +-inf mixed in."""
+    if dtype == "int64":
+        k = rng.integers(-(2**63), 2**63 - 1, r, endpoint=True).astype(np.int64)
+        edges = np.array([-(2**63), 2**63 - 1, 0, -1], np.int64)
+    else:
+        k = rng.integers(0, 2**32, r, dtype=np.uint64).astype(np.uint32).view(np.float32)
+        edges = np.concatenate([
+            np.array([np.nan, -0.0, 0.0, 1e-40, -1e-40, np.inf, -np.inf], np.float32),
+            np.array([0xFFC00000, 0x7F800001, 0x00000001, 0x80000001], np.uint32).view(np.float32)])
+    pick = rng.random(r) < 0.05
+    k[pick] = rng.choice(edges, int(pick.sum()))
+    return k
+
+
 def _order_key(rng, dtype: str, r: int) -> np.ndarray:
     """An order key lane with the encoding's edge values and many ties."""
     if dtype == "int32":
@@ -4857,7 +5025,7 @@ def _order_key(rng, dtype: str, r: int) -> np.ndarray:
     return base
 
 
-def named_window_kernel_phase(torch, dev) -> dict:
+def named_window_kernel_phase(torch, dev, kernel_sums: bool = False) -> dict:
     """K46 (flat and per partition) and K47 against their plain versions
     on the card, exactly (the permutation, the kept mask, the keys bit for
     bit), the plain versions on CPU copies of the same inputs: K46 at path
@@ -4867,11 +5035,19 @@ def named_window_kernel_phase(torch, dev) -> dict:
     partitions) and ragged (R 1/33/32,768, 1-4 keys of int32, int64,
     float32 and bool asc and desc with INT_MIN/MAX, -0.0, subnormals,
     +-inf and NaN of both signs, offset alone, limit alone, no key; P
-    1/8/33/1,024 and 10,000 past shared memory); K47 over 2-8 columns of
-    int32, int64, bool and float32 (negative, extreme, NaN, -0.0) at
-    32,768 rows and ragged. Then each kernel's time beside its plain
-    version's and its byte bound; K46's library time is one stable
-    torch.sort of the encoded single key; K47 has none."""
+    1/8/33/1,024 and 10,000 past shared memory), at the radix sort's tile
+    edges and above (R 2,047/2,048/2,049/4,097/65,537/10^6, flat and P=33),
+    with keys varying in every byte (uniform int64, float32 over every bit
+    pattern) and all rows invalid; K47 over 2-8 columns of int32, int64,
+    bool and float32 (negative, extreme, NaN, -0.0) at 32,768 rows and
+    ragged. Then each kernel's time: ms the whole wrapper call (CUDA
+    events), device_ms its kernels alone (`device_all_ms`), beside its plain
+    version's and its byte bound; K46's library call is one stable
+    torch.sort of the encoded single key, timed alike (library_ms,
+    library_device_ms); the every-byte keys timed at the board's 32,768
+    rows; K47 has no library call. kernel_sums (`--sorts`): K46's and the
+    library call's kernel times summed by torch.profiler as well (kernel_ms,
+    library_kernel_ms), which leave out the gaps between kernels."""
     from siddhi_tpu_torch.core import selector as S
     from siddhi_tpu_torch.ops import group as G
 
@@ -4927,6 +5103,20 @@ def named_window_kernel_phase(torch, dev) -> dict:
     check_order(33, ["int32"], [True], 0, 2, p=10_000)
     check_order(33, [], [], 1, 3, p=10_000)
     check_order(NW_W, ["float32"], [False], 0, big, p=10_000)
+    # csrc/radix_sort.cuh: one block up to a tile, the grid above it; keys
+    # varying in every byte; a chunk with no valid row
+    for r in (SORT_TILE - 1, SORT_TILE, SORT_TILE + 1, 2 * SORT_TILE + 1, 65_537, 1_000_000):
+        check_order(r, ["int64", "int32"], [True, False], 0, 10)
+        check_order(r, ["float32", "bool"], [False, True], 3, big, p=33)
+    every = {}
+    for dt in ("int64", "float32"):
+        for r in (SORT_TILE + 1, NW_W):
+            every[dt] = check_order(r, [dt], [dt == "float32"], 0, big,
+                                    keys=[_every_byte_key(rng, dt, r)])
+            check_order(r, [dt], [False], 0, 10, p=33, keys=[_every_byte_key(rng, dt, r)])
+    for r in (1000, NW_W):
+        check_order(r, ["float32"], [True], 0, 5, valid_p=0.0)
+        check_order(r, ["float32"], [True], 0, 5, p=33, valid_p=0.0)
 
     # K47
     def mix_col(dtype, n):
@@ -4966,20 +5156,51 @@ def named_window_kernel_phase(torch, dev) -> dict:
 
     v_g, kg = board_args
     r = res["order_limit"]
-    r["ms"] = time_ms(torch, lambda: S.order_limit(v_g, kg, [True, False], 0, 10), 20)
+
+    def board():
+        return S.order_limit(v_g, kg, [True, False], 0, 10)
+
+    r["ms"] = time_ms(torch, board, 20)
+    r["device_ms"] = device_all_ms(torch, board, 20)
     r["plain_ms"] = time_ms(torch, lambda: S.order_limit_ref(v_g, kg, [True, False], 0, 10), 5)
     # bytes: the keys and the mask read once, the permutation and mask written
     r["bound_ms"], r["bound_by"] = (nbytes(v_g, *kg) + NW_W * 5) / MEM_BYTES_PER_S * 1e3, "bytes"
     enc = (-kg[0]) ^ torch.iinfo(torch.int64).min  # the single int64 key, encoded
     r["library_ms"] = time_ms(torch, lambda: torch.sort(enc, stable=True), 20)
+    r["library_device_ms"] = device_all_ms(torch, lambda: torch.sort(enc, stable=True), 20)
+
+    def sums(row, call, lib):
+        if kernel_sums:
+            row["kernel_ms"] = device_ms(torch, lambda: None, call, 20, None)
+            row["library_kernel_ms"] = device_ms(torch, lambda: None, lib, 20, None)
+
+    sums(r, board, lambda: torch.sort(enc, stable=True))
+    r["every_byte"] = {}
+    for dt, (ev, ek) in every.items():  # one key of every byte, at the board's 32,768 rows
+        def call(ev=ev, ek=ek, dt=dt):
+            return S.order_limit(ev, ek, [dt == "float32"], 0, big)
+
+        def lib(ek=ek):
+            return torch.sort(ek[0], stable=True)
+
+        r["every_byte"][dt] = {
+            "ms": time_ms(torch, call, 20), "device_ms": device_all_ms(torch, call, 20),
+            "library_ms": time_ms(torch, lib, 20),
+            "library_device_ms": device_all_ms(torch, lib, 20),
+            "bound_ms": (nbytes(ev, *ek) + NW_W * 5) / MEM_BYTES_PER_S * 1e3}
+        sums(r["every_byte"][dt], call, lib)
     qv, qk = query_args
     r["query_ms"] = time_ms(torch, lambda: S.order_limit(qv, qk, [True], 0, 5), 20)
     r["query_plain_ms"] = time_ms(torch, lambda: S.order_limit_ref(qv, qk, [True], 0, 5), 5)
     r = res["order_limit_partitioned"]
     tv, tk = top_args
     tpart = torch.from_numpy(rng.integers(0, NW_VENUES, NW_SEND).astype(np.int64)).to(dev)
-    r["ms"] = time_ms(torch, lambda: S.order_limit_partitioned(
-        tv, tk, [True], tpart, NW_PARTITIONS, 0, 3), 20)
+
+    def top():
+        return S.order_limit_partitioned(tv, tk, [True], tpart, NW_PARTITIONS, 0, 3)
+
+    r["ms"] = time_ms(torch, top, 20)
+    r["device_ms"] = device_all_ms(torch, top, 20)
     r["plain_ms"] = time_ms(torch, lambda: S.order_limit_partitioned_ref(
         tv, tk, [True], tpart, NW_PARTITIONS, 0, 3), 5)
     r["bound_ms"], r["bound_by"] = ((nbytes(tv, *tk, tpart) + NW_SEND * 5) / MEM_BYTES_PER_S
@@ -4987,15 +5208,21 @@ def named_window_kernel_phase(torch, dev) -> dict:
     # (partition, encoded key) as one int64 key
     tenc = (tpart << 32) | (tk[0].view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
     r["library_ms"] = time_ms(torch, lambda: torch.sort(tenc, stable=True), 20)
+    r["library_device_ms"] = device_all_ms(torch, lambda: torch.sort(tenc, stable=True), 20)
+    sums(r, top, lambda: torch.sort(tenc, stable=True))
     r = res["mix_keys"]
     r["ms"] = time_ms(torch, lambda: G.mix_keys(mix_args), 50)
     r["plain_ms"] = time_ms(torch, lambda: G.mix_keys_ref(mix_args), 20)
     r["bound_ms"], r["bound_by"] = (nbytes(*mix_args) + NW_W * 8) / MEM_BYTES_PER_S * 1e3, "bytes"
     for name in NW_KERNEL_NAMES:
         r = res[name]
-        print(f"kernel {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={r['library_ms']} "
+        print(f"kernel {name}: ms={r['ms']:.4f} device_ms={r.get('device_ms')} "
+              f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+              f"library_ms={r['library_ms']} library_device_ms={r.get('library_device_ms')} "
+              f"kernel_ms={r.get('kernel_ms')} library_kernel_ms={r.get('library_kernel_ms')} "
               f"checks={r['checks']} exact", flush=True)
+    print(f"kernel order_limit, one key varying in every byte, {NW_W} rows: "
+          f"{json.dumps(res['order_limit']['every_byte'])}", flush=True)
     print(f"kernel order_limit at the store query's shape: ms={res['order_limit']['query_ms']:.4f}"
           f" plain_ms={res['order_limit']['query_plain_ms']:.4f}", flush=True)
     return res
@@ -7843,6 +8070,15 @@ def main() -> int:
             lineage_path_phase(torch)
             lap("path LIN")
         return 0
+    if "--sorts" in sys.argv[1:]:
+        res = named_window_kernel_phase(torch, "cuda", kernel_sums=True)
+        lap("named_window_kernel_phase")
+        res.update(table_kernel_phase(torch, "cuda", index_only=True))
+        lap("table_kernel_phase (K22 alone)")
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "sorts.json"), "w") as f:
+            json.dump({"card": card, "kernels": {k: res[k] for k in SORT_KERNELS}}, f, indent=1)
+        return 0
     if "--shard" in sys.argv[1:]:
         shard_kernel_phase(torch, "cuda")
         lap("shard_kernel_phase")
@@ -8132,6 +8368,7 @@ def main() -> int:
                    "order_limit_store_query_shape": {
                        "ms": res["order_limit"]["query_ms"],
                        "plain_ms": res["order_limit"]["query_plain_ms"]},
+                   "sort_kernel_shapes": {k: res[k] for k in SORT_KERNELS},
                    "aggregation_kernel_shapes": {
                        "agg_step_us_per_row": res["agg_step"]["us_per_row"],
                        "agg_step_closes": res["agg_step"]["closes"],

@@ -150,6 +150,15 @@ def order_limit_partitioned(valid: torch.Tensor, keys: list, desc: list, part: t
                          lo, hi)
 
 
+def _order_codes(keys: list, desc: list) -> int:
+    """csrc/order_limit.cu's packed key types: key j's type code in bits
+    3j..3j+1 and its `desc` flag in bit 3j+2."""
+    codes = 0
+    for j, (k, d) in enumerate(zip(keys, desc)):
+        codes |= (_ORDER_CODE[k.dtype] | (4 if d else 0)) << (3 * j)
+    return codes
+
+
 def _order_launch(name: str, valid, keys, desc, part, p: int, lo: int, hi: int):
     keys = [k.contiguous() for k in keys]
     kernels.require_cuda(name, valid, *keys, *([] if part is None else [part]))
@@ -160,29 +169,22 @@ def _order_launch(name: str, valid, keys, desc, part, p: int, lo: int, hi: int):
     if len(keys) > _MAX_ORDER_KEYS or any(k.dtype not in _ORDER_CODE for k in keys):
         raise ValueError(f"{name}: at most {_MAX_ORDER_KEYS} int32/int64/bool/float32 keys, "
                          f"got {[k.dtype for k in keys]}")
+    if r >= 2**30:
+        raise ValueError(f"{name}: R={r} out of range")
+    if len(desc) < len(keys):
+        raise ValueError(f"{name}: {len(keys)} keys but {len(desc)} desc flags")
     dev, nk = valid.device, len(keys)
     hi = min(int(hi), _BIG)
-
-    def i32(n):
-        return torch.empty(max(n, 1), dtype=torch.int32, device=dev)
-
-    words = torch.empty(max((nk + 2) * r, 1), dtype=torch.int64, device=dev)
-    worand = torch.empty(2 * (_MAX_ORDER_KEYS + 2), dtype=torch.int64, device=dev)
-    pa, pb, perm = i32(r), i32(r), i32(r)
+    perm = torch.empty(r, dtype=torch.int32, device=dev)
     kept = torch.empty(r, dtype=torch.bool, device=dev)
-    if part is None:
-        n_slot = n_start = pos_base = oidx = counters = i32(1)
-    else:
-        n_slot, n_start, pos_base, oidx = i32(p + 2), i32(p + 2), i32(r + 1), i32(r)
-        counters = i32(max(p + 2, r + 1))
+    # one workspace, carved by the kernel's own layout (ol_workspace)
+    work = torch.empty(kernels.function("ol_workspace")(r, nk, p, int(part is not None)),
+                       dtype=torch.uint8, device=dev)
     ptrs = [k.data_ptr() for k in keys] + [None] * (_MAX_ORDER_KEYS - nk)
-    codes = [_ORDER_CODE[k.dtype] for k in keys] + [0] * (_MAX_ORDER_KEYS - nk)
-    descs = [int(bool(d)) for d in desc[:nk]] + [0] * (_MAX_ORDER_KEYS - nk)
     kernels.check(kernels.function("ol_order")(
-        r, nk, p, int(lo), hi, valid.data_ptr(), None if part is None else part.data_ptr(),
-        *ptrs, *codes, *descs, words.data_ptr(), worand.data_ptr(), pa.data_ptr(),
-        pb.data_ptr(), perm.data_ptr(), kept.data_ptr(), n_slot.data_ptr(), n_start.data_ptr(),
-        pos_base.data_ptr(), oidx.data_ptr(), counters.data_ptr(), kernels.stream()), name)
+        r, nk, p, int(lo), hi, _order_codes(keys, desc), valid.data_ptr(),
+        None if part is None else part.data_ptr(), *ptrs, perm.data_ptr(), kept.data_ptr(),
+        work.data_ptr(), kernels.stream()), name)
     kernels.launches[name] += 1
     return (perm if nk else None), kept
 

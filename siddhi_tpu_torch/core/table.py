@@ -150,6 +150,7 @@ class InMemoryTable:
         # columns also index at query-compile time (enable_index)
         self._indexed_cols: tuple = tuple(dict.fromkeys(self.indexes))
         self.lock = threading.RLock()
+        self._winners: dict = {}  # K22's probe writer scratch, one an indexed column
         self.state = self.init_state()
 
         # @store(type='...'): an external record store — load its contents,
@@ -365,8 +366,9 @@ class InMemoryTable:
             probe_raw = probe_raw.expand(rows.shape).contiguous()
         probe_t = getattr(probe_fn, "type", self.schema.attr_types[col])
         ok = rows & _notnull(probe_raw, probe_t)
+        winner = None if keys.device.type == "cpu" else self.winner_scratch(col, keys.device)
         target = K.table_index_probe(keys, state["valid"], state[f"ix_order.{col}"],
-                                     state[f"ix_sorted.{col}"], probe_raw, ok)
+                                     state[f"ix_sorted.{col}"], probe_raw, ok, winner)
         cand = target.clamp(0, c - 1).long()
         env_cols.update({(self.table_id, None, n): v[cand] for n, v in state["cols"].items()})
         env_cols[(self.table_id, None, TS_ATTR)] = state["ts"][cand]
@@ -375,6 +377,15 @@ class InMemoryTable:
         for name, fn in set_fns:
             new_cols[name] = set_at(state["cols"][name], target, fn(env).to(state["cols"][name].dtype))
         return {**state, "cols": new_cols}
+
+    def winner_scratch(self, col: str, device) -> torch.Tensor:
+        """Column col's writer scratch for K22's probe, made once (all -1,
+        and left so by every probe); used under self.lock, so no other
+        table's probe or a second probe of this one shares it in flight."""
+        w = self._winners.get(col)
+        if w is None or w.device != device:
+            w = self._winners[col] = K.winner_scratch(device, self.capacity)
+        return w
 
     def _apply_winner(self, state: dict, batch: EventBatch, winner, set_fns, now) -> dict:
         """Gather each slot's winning probe row, build the per-slot env and

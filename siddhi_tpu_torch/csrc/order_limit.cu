@@ -14,29 +14,31 @@
 // row order decides, as XLA's comparisons flush subnormals) and every NaN,
 // whatever its sign, after +inf, also after a `desc` negation; bool as
 // 0/1, `desc` through -float32(b); strings by interned id.
-// A stable LSD radix sort then orders the rows by (partition, invalid, key
-// 1, ..., key n), least significant byte first, skipping every byte that no
-// row changes (an OR and an AND of each word over the rows); the invalid
-// rows, which are never delivered, follow the valid ones in row order. Each pass is
-// a stable counting pass of `partition.cuh` (`stable_rank`) in one block.
-// The partitioned entry then places the sorted rows with `partition.cuh`'s
-// (position, slot) placement; the offset/limit keeps ranks [lo, hi) among a
-// partition's (or the chunk's) valid rows, which the sort puts first.
+// `radix_sort.cuh` then orders the rows stably by the words (partition,
+// invalid, key 1, ..., key n), skipping every byte that no row changes; the
+// invalid rows, which are never delivered, follow the valid ones in row
+// order. Up to one tile of rows (2,048) one block encodes and sorts in
+// shared memory; above it one cooperative launch sorts over the grid and
+// its last pass writes the flat entry's permutation and kept mask. The
+// partitioned entry then places the sorted rows with `partition.cuh`'s
+// (position, slot) placement, in the same block up to one tile, else in one
+// more block; the offset/limit keeps ranks [lo, hi) among a partition's (or
+// the chunk's) valid rows, which the sort puts first.
 //
-// Bound: bytes (the keys read once, the permutation and mask written
-// once). Design: simple and exact first — one block walks every pass, so a
-// pass costs ~R/1024 block barriers; a top-k for small limits and a
-// multi-block radix sort are later speed work.
+// Bound: bytes (the keys read once, the permutation and mask written once);
+// each pass moves the current word and the row once each way.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "partition.cuh"
+#include "radix_sort.cuh"
 
 namespace {
 
 constexpr int kMaxKeys = 8;
-constexpr int kEncodeThreads = 256;
+static_assert(kMaxKeys + 2 <= kMaxSortWords, "the partition, invalid and key words");
+static_assert(kRankThreads == kBlockSortThreads, "the one-block sort places in its block");
 
 struct OrderKeys {
   const void* col[kMaxKeys];
@@ -76,166 +78,219 @@ __device__ __forceinline__ unsigned long long enc_key(const void* p, int code, i
   }
 }
 
-// words[w * R + r]: row r's word w, the most significant first (the
-// partition when there is one, then the invalid flag, then the keys);
-// wor/wand[w] the OR and the AND of word w over the rows.
-__global__ void encode_kernel(int R, int nk, OrderKeys k, const bool* valid,
-                              const long long* part, unsigned long long* words,
-                              unsigned long long* wor, unsigned long long* wand) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = r < R;
-  int w = 0;
-  auto put = [&](unsigned long long code) {
-    if (live) words[(size_t)w * R + r] = code;
-    unsigned long long o = live ? code : 0ull, a = live ? code : ~0ull;
-    for (int d = 16; d > 0; d >>= 1) {
-      o |= __shfl_xor_sync(kFull, o, d);
-      a &= __shfl_xor_sync(kFull, a, d);
+// Row r's word w, the most significant first: the partition when there is
+// one, then the invalid flag, then the keys (an invalid row's keys are 0:
+// the invalid rows follow in row order, and a chunk with none valid, such as
+// a join side that does not trigger, sorts nothing).
+struct OrderWords {
+  OrderKeys k;
+  const bool* valid;
+  const long long* part;
+  __device__ unsigned long long operator()(int w, int r) const {
+    if (part != nullptr) {
+      if (w == 0) return (unsigned long long)part[r];
+      --w;
     }
-    if ((threadIdx.x & 31) == 0) {
-      atomicOr(&wor[w], o);
-      atomicAnd(&wand[w], a);
-    }
-    ++w;
-  };
-  if (part != nullptr) put(live ? (unsigned long long)part[r] : 0ull);
-  put(live && !valid[r] ? 1ull : 0ull);
-  // an invalid row's keys are 0: the invalid rows follow in row order, and a
-  // chunk with none valid (a join side that does not trigger) sorts nothing
-  const bool keyed = live && valid[r];
-  for (int j = 0; j < nk; ++j) put(keyed ? enc_key(k.col[j], k.code[j], k.desc[j], r) : 0ull);
-}
+    if (!valid[r]) return w == 0 ? 1ull : 0ull;
+    return w == 0 ? 0ull : enc_key(k.col[w - 1], k.code[w - 1], k.desc[w - 1], r);
+  }
+};
 
-// One block: the sort (when nw > 0), then the placement and the limit.
-__global__ void __launch_bounds__(kRankThreads)
-order_kernel(int R, int nw, const unsigned long long* words, const unsigned long long* wor,
-             const unsigned long long* wand, const bool* valid, const long long* part, int P,
-             int lo, int hi, int32_t* pa, int32_t* pb, int32_t* perm_out, bool* valid_out,
-             int32_t* n_slot, int32_t* n_start, int32_t* pos_base, int32_t* oidx,
-             int32_t* counters) {
-  __shared__ RankSmem s;
+// The flat entry's output at place i of the order: row r, kept when valid
+// and ranked [lo, hi) (the valid rows come first: a valid row's rank is its
+// place).
+struct OrderOut {
+  const bool* valid;
+  int lo, hi;
+  int32_t* perm;
+  bool* kept;
+  __device__ void put(int i, int r) const {
+    perm[i] = r;
+    kept[i] = valid[r] && i >= lo && i < hi;
+  }
+};
+
+// The partitioned entry's scratch: the rows in sorted order, and the
+// placement's counts and offsets.
+struct PlaceScratch {
+  int32_t* sorted;    // [R]
+  int32_t* n_slot;    // [P + 2]
+  int32_t* n_start;   // [P + 2]
+  int32_t* pos_base;  // [R + 1]
+  int32_t* oidx;      // [R]
+  int32_t* counters;  // [max(P + 2, R + 1)]
+};
+
+// The rows in sorted order (sorted by partition first), each partition's
+// run placed by (position within the partition, partition) as `_flatten`
+// does. Every thread of a kRankThreads block calls it.
+__device__ void place_sorted(int R, const bool* valid, const long long* part, int P, int lo,
+                             int hi, const OrderOut& out, const PlaceScratch& ps, RankSmem& s) {
   const int tid = threadIdx.x;
-  if (nw == 0) {
-    // offset/limit alone: the row order stays, ranks among the valid rows
-    // (of each partition)
-    for (int i = tid; i < R; i += kRankThreads) {
-      perm_out[i] = i;
-      valid_out[i] = false;
-    }
-    if (part == nullptr) {
-      int carry = 0;
-      for (int base = 0; base < R; base += kRankThreads) {
-        const int i = base + tid;
-        const int f = i < R && valid[i] ? 1 : 0;
-        int tot;
-        const int rk = carry + block_excl_sum(f, s.ws, &tot);
-        if (f) valid_out[i] = rk >= lo && rk < hi;
-        carry += tot;
-      }
-      return;
-    }
-    int* cnt = P + 1 <= kSmemCounters ? s.cnt : counters;
-    for (int k2 = tid; k2 <= P; k2 += kRankThreads) cnt[k2] = 0;
-    __syncthreads();
-    stable_rank(
-        R, [&](int i) { return valid[i] ? (int)part[i] : -1; }, cnt,
-        [&](int i, int, int rk) { valid_out[i] = rk >= lo && rk < hi; }, s);
-    return;
-  }
-  for (int i = tid; i < R; i += kRankThreads) pa[i] = i;
+  for (int q = tid; q <= P; q += kRankThreads) ps.n_slot[q] = 0;
   __syncthreads();
-  int32_t* in = pa;
-  int32_t* out = pb;
-  for (int w = nw - 1; w >= 0; --w) {
-    const unsigned long long diff = wor[w] ^ wand[w];
-    const unsigned long long* kw = words + (size_t)w * R;
-    for (int b = 0; b < 8; ++b) {
-      const int sh = 8 * b;
-      if (((diff >> sh) & 0xffull) == 0ull) continue;  // no row changes this byte
-      for (int d = tid; d < 256; d += kRankThreads) s.cnt[d] = 0;
-      __syncthreads();
-      for (int i = tid; i < R; i += kRankThreads) {
-        atomicAdd(&s.cnt[(int)((kw[in[i]] >> sh) & 0xffull)], 1);
-      }
-      __syncthreads();
-      int tot;
-      const int c = tid < 256 ? s.cnt[tid] : 0;
-      const int e = block_excl_sum(c, s.ws, &tot);
-      if (tid < 256) s.cnt[tid] = e;
-      __syncthreads();
-      const int32_t* cin = in;
-      int32_t* cout = out;
-      stable_rank(
-          R, [&](int i) { return (int)((kw[cin[i]] >> sh) & 0xffull); }, s.cnt,
-          [&](int i, int, int rk) { cout[rk] = cin[i]; }, s);
-      in = cout;
-      out = const_cast<int32_t*>(cin);
-    }
-  }
-  if (part == nullptr) {
-    // the valid rows come first: a valid row's rank is its position
-    for (int i = tid; i < R; i += kRankThreads) {
-      const int r = in[i];
-      perm_out[i] = r;
-      valid_out[i] = valid[r] && i >= lo && i < hi;
-    }
-    return;
-  }
-  // the rows sorted by partition: each partition's run, placed by
-  // (position within the partition, partition) as `_flatten` does
-  for (int q = tid; q <= P; q += kRankThreads) n_slot[q] = 0;
-  __syncthreads();
-  for (int i = tid; i < R; i += kRankThreads) atomicAdd(&n_slot[(int)part[i]], 1);
+  for (int i = tid; i < R; i += kRankThreads) atomicAdd(&ps.n_slot[(int)part[i]], 1);
   __syncthreads();
   int maxn;
-  place_by_position(P + 1, n_slot, n_start, pos_base, oidx, counters, &maxn, s);
+  place_by_position(P + 1, ps.n_slot, ps.n_start, ps.pos_base, ps.oidx, ps.counters, &maxn, s);
   __syncthreads();
   for (int t = tid; t < R; t += kRankThreads) {
-    const int r = in[t];
-    const int rk = t - n_start[(int)part[r]];
-    const int o = oidx[t];
-    perm_out[o] = r;
-    valid_out[o] = valid[r] && rk >= lo && rk < hi;
+    const int r = ps.sorted[t];
+    const int rk = t - ps.n_start[(int)part[r]];
+    const int o = ps.oidx[t];
+    out.perm[o] = r;
+    out.kept[o] = valid[r] && rk >= lo && rk < hi;
   }
+}
+
+// No key: the offset/limit alone, the row order kept, ranks among the valid
+// rows (of each partition). One block.
+__global__ void __launch_bounds__(kRankThreads)
+ol_limit_kernel(int R, const bool* valid, const long long* part, int P, int lo, int hi,
+                int32_t* perm_out, bool* valid_out, int32_t* counters) {
+  __shared__ RankSmem s;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < R; i += kRankThreads) {
+    perm_out[i] = i;
+    valid_out[i] = false;
+  }
+  if (part == nullptr) {
+    int carry = 0;
+    for (int base = 0; base < R; base += kRankThreads) {
+      const int i = base + tid;
+      const int f = i < R && valid[i] ? 1 : 0;
+      int tot;
+      const int rk = carry + block_excl_sum(f, s.ws, &tot);
+      if (f) valid_out[i] = rk >= lo && rk < hi;
+      carry += tot;
+    }
+    return;
+  }
+  int* cnt = P + 1 <= kSmemCounters ? s.cnt : counters;
+  for (int k2 = tid; k2 <= P; k2 += kRankThreads) cnt[k2] = 0;
+  __syncthreads();
+  stable_rank(
+      R, [&](int i) { return valid[i] ? (int)part[i] : -1; }, cnt,
+      [&](int i, int, int rk) { valid_out[i] = rk >= lo && rk < hi; }, s);
+}
+
+union TileOrderSmem {
+  TileSmem<kBlockSortThreads, kBlockSortIPT> t;
+  unsigned long long red[2][kMaxSortWords][32];
+  RankSmem rank;
+};
+
+// Up to one tile of rows: the encode, the sort and the output (the
+// placement too, partitioned) in one block.
+__global__ void __launch_bounds__(kBlockSortThreads)
+ol_tile_kernel(int R, int nw, OrderWords words, int P, OrderOut out, PlaceScratch ps) {
+  __shared__ TileOrderSmem u;
+  __shared__ PassList pl;
+  radix_sort_block<kBlockSortThreads, kBlockSortIPT>(R, nw, words, u.t, u.red, pl);
+  const int tid = threadIdx.x;
+  if (words.part == nullptr) {
+    for (int i = tid; i < R; i += kBlockSortThreads) out.put(i, u.t.val[i]);
+    return;
+  }
+  for (int i = tid; i < R; i += kBlockSortThreads) ps.sorted[i] = u.t.val[i];
+  __syncthreads();  // the sort's shared memory becomes the placement's
+  place_sorted(R, words.valid, words.part, P, out.lo, out.hi, out, ps, u.rank);
+}
+
+// Above one tile: the sort over the grid (cooperative launch); the flat
+// entry's output from its last pass, the partitioned entry's sorted rows.
+__global__ void __launch_bounds__(kSortThreads)
+ol_grid_kernel(int R, int nw, OrderWords words, OrderOut out, int32_t* sorted, RadixWork wk) {
+  __shared__ GridSmem s;
+  if (words.part == nullptr) {
+    radix_sort_grid(R, nw, words, wk, s, [&](int i, int r) { out.put(i, r); });
+  } else {
+    radix_sort_grid(R, nw, words, wk, s, [&](int i, int r) { sorted[i] = r; });
+  }
+}
+
+// The partitioned entry's placement after the grid sort: one block.
+__global__ void __launch_bounds__(kRankThreads)
+ol_place_kernel(int R, const bool* valid, const long long* part, int P, OrderOut out,
+                PlaceScratch ps) {
+  __shared__ RankSmem s;
+  place_sorted(R, valid, part, P, out.lo, out.hi, out, ps, s);
+}
+
+// The workspace of a call: its layout (base null: only its size).
+size_t ol_carve(char* base, int R, int nk, int P, bool partitioned, RadixWork* rw,
+                PlaceScratch* ps) {
+  Carve c{base, 0};
+  const int nw = nk > 0 ? nk + 1 + (partitioned ? 1 : 0) : 0;
+  if (nw > 0 && R > kSortTile) *rw = carve_radix(c, R, nw);
+  if (partitioned) {
+    ps->sorted = c.take<int32_t>((size_t)R);
+    ps->n_slot = c.take<int32_t>((size_t)P + 2);
+    ps->n_start = c.take<int32_t>((size_t)P + 2);
+    ps->pos_base = c.take<int32_t>((size_t)R + 1);
+    ps->oidx = c.take<int32_t>((size_t)R);
+    ps->counters = c.take<int32_t>((size_t)(P + 2 > R + 1 ? P + 2 : R + 1));
+  }
+  return c.off + 256;
 }
 
 }  // namespace
 
-// nk keys (0: offset/limit alone); part: null for the flat entry, else each
-// row's partition in [0, P] (P: a row of no partition). Scratch: words
-// [(nk + 2) * R] u64, wor/wand [2 * (kMaxKeys + 2)] u64, pa/pb [R],
-// n_slot/n_start [P + 2], pos_base [R + 1], oidx [R], counters
-// [max(P + 2, R + 1)] int32.
-extern "C" int ol_order(int R, int nk, int P, int lo, int hi, const void* valid,
-                        const void* part, const void* k0, const void* k1, const void* k2,
-                        const void* k3, const void* k4, const void* k5, const void* k6,
-                        const void* k7, int c0, int c1, int c2, int c3, int c4, int c5, int c6,
-                        int c7, int d0, int d1, int d2, int d3, int d4, int d5, int d6, int d7,
-                        void* words, void* worand, void* pa, void* pb, void* perm_out,
-                        void* valid_out, void* n_slot, void* n_start, void* pos_base, void* oidx,
-                        void* counters, void* stream) {
-  if (R < 0 || nk < 0 || nk > kMaxKeys || P < 0) return (int)cudaErrorInvalidValue;
+extern "C" {
+
+// The bytes of ol_order's workspace for R rows, nk keys and P partitions
+// (partitioned: 0 for the flat entry).
+long long ol_workspace(int R, int nk, int P, int partitioned) {
+  RadixWork rw;
+  PlaceScratch ps;
+  return (long long)ol_carve(nullptr, R < 0 ? 0 : R, nk, P < 0 ? 0 : P, partitioned != 0, &rw,
+                             &ps);
+}
+
+// nk keys (0: offset/limit alone); codes: key j's type code (0 int32, 1
+// int64, 2 bool, 3 float32) in bits 3j..3j+1 and its `desc` flag in bit
+// 3j+2; part: null for the flat entry, else each row's partition in [0, P]
+// (P: a row of no partition). perm_out int32 [R], valid_out bool [R]; work:
+// ol_workspace(R, nk, P, part != null) bytes.
+int ol_order(int R, int nk, int P, int lo, int hi, int codes, const void* valid,
+             const void* part, const void* k0, const void* k1, const void* k2, const void* k3,
+             const void* k4, const void* k5, const void* k6, const void* k7, void* perm_out,
+             void* valid_out, void* work, void* stream) {
+  if (R < 0 || R >= kMaxGridRows || nk < 0 || nk > kMaxKeys || P < 0)
+    return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const long long* pt = (const long long*)part;
-  int nw = 0;
-  auto* wor = (unsigned long long*)worand;
-  auto* wand = wor + (kMaxKeys + 2);
-  if (nk > 0) {
-    nw = nk + 1 + (pt != nullptr ? 1 : 0);
-    cudaError_t err = cudaMemsetAsync(wor, 0, nw * sizeof(unsigned long long), st);
-    if (err == cudaSuccess) err = cudaMemsetAsync(wand, 0xff, nw * sizeof(unsigned long long), st);
-    if (err != cudaSuccess) return (int)err;
-    OrderKeys k{{k0, k1, k2, k3, k4, k5, k6, k7}, {c0, c1, c2, c3, c4, c5, c6, c7},
-                {d0, d1, d2, d3, d4, d5, d6, d7}};
-    encode_kernel<<<(R + kEncodeThreads - 1) / kEncodeThreads, kEncodeThreads, 0, st>>>(
-        R, nk, k, (const bool*)valid, pt, (unsigned long long*)words, wor, wand);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  const bool* vd = (const bool*)valid;
+  RadixWork rw{};
+  PlaceScratch ps{};
+  ol_carve((char*)work, R, nk, P, pt != nullptr, &rw, &ps);
+  OrderOut out{vd, lo, hi, (int32_t*)perm_out, (bool*)valid_out};
+  if (nk == 0) {
+    ol_limit_kernel<<<1, kRankThreads, 0, st>>>(R, vd, pt, P, lo, hi, out.perm, out.kept,
+                                                ps.counters);
+    return (int)cudaGetLastError();
   }
-  order_kernel<<<1, kRankThreads, 0, st>>>(
-      R, nw, (const unsigned long long*)words, wor, wand, (const bool*)valid, pt, P, lo, hi,
-      (int32_t*)pa, (int32_t*)pb, (int32_t*)perm_out, (bool*)valid_out, (int32_t*)n_slot,
-      (int32_t*)n_start, (int32_t*)pos_base, (int32_t*)oidx, (int32_t*)counters);
+  OrderWords words{{{k0, k1, k2, k3, k4, k5, k6, k7}, {}, {}}, vd, pt};
+  for (int j = 0; j < kMaxKeys; ++j) {
+    words.k.code[j] = (codes >> (3 * j)) & 3;
+    words.k.desc[j] = (codes >> (3 * j + 2)) & 1;
+  }
+  int nw = nk + 1 + (pt != nullptr ? 1 : 0);
+  if (R <= kSortTile) {
+    ol_tile_kernel<<<1, kBlockSortThreads, 0, st>>>(R, nw, words, P, out, ps);
+    return (int)cudaGetLastError();
+  }
+  int blocks = 0;
+  cudaError_t err = coop_blocks(ol_grid_kernel, R, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  int32_t* sorted = ps.sorted;
+  void* args[] = {&R, &nw, &words, &out, &sorted, &rw};
+  err = cudaLaunchCooperativeKernel((const void*)ol_grid_kernel, dim3(blocks), dim3(kSortThreads),
+                                    args, 0, st);
+  if (err != cudaSuccess) return (int)err;
+  if (pt != nullptr) ol_place_kernel<<<1, kRankThreads, 0, st>>>(R, vd, pt, P, out, ps);
   return (int)cudaGetLastError();
 }
+
+}  // extern "C"

@@ -4,11 +4,11 @@ Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers) and is
 compiled at first use with `nvcc` for Hopper (`sm_90a`) into a shared library
 under `_build/`, named by a hash of its source and of the headers `csrc/*.cuh`
 (the block scan and gather the sources share, the table programs'
-interpreter) so an edited kernel is rebuilt.
+interpreter, the radix sort of K22 and K46) so an edited kernel is rebuilt.
 `build_all()` starts one `nvcc` per source, all at once. The libraries are
 loaded with `ctypes`; every pointer and the stream travel as `c_void_p`, and
 each entry point returns its `cudaError_t`, which `check()` turns into an
-exception (`sw_slot_bytes`, a size, excepted).
+exception (`sw_slot_bytes` and the `RESTYPES` sizes excepted).
 
 `launches` counts, per kernel wrapper, the calls that launched the kernel on
 the card (plain-version calls on CPU tensors do not count).
@@ -107,7 +107,8 @@ SIGNATURES = {
     "distinct_count_i64": ("distinct_count", _DISTINCT),
     "distinct_count_b8": ("distinct_count", _DISTINCT),
     "tw_insert": ("table_write", [P, I, I, P, I] + [P] * 6 + [I] + [P] * 10),
-    "ti_build": ("table_index", [P, I, P, I, I] + [P] * 6),
+    "ti_build": ("table_index", [P, I, P, I] + [P] * 5),
+    "ti_build_workspace": ("table_index", [I]),
     "ti_probe": ("table_index", [P, I, P, P, P, I, P, P, I, P, I, P, P, P]),
     "tm_match": ("table_match", [P, I, I, P, P, I, P, P, P, P, P, I, I, I, P, P]),
     "tsc_scan": ("table_scan", [I, P, P, P, P, I, I, P, P, I, P, P, P, I, I, I, I, P, I, I]
@@ -163,11 +164,15 @@ SIGNATURES = {
     "agg_step": ("aggregation", [I] * 4 + [P] * 24 + [P]),
     "agg_find": ("aggregation", [I] * 4 + [P] * 12 + [P]),
     "mk_mix": ("mix_keys", [I, I] + [P] * 8 + [I] * 8 + [P, P]),
-    "ol_order": ("order_limit", [I] * 5 + [P] * 2 + [P] * 8 + [I] * 16 + [P] * 11 + [P]),
+    "ol_order": ("order_limit", [I] * 6 + [P] * 2 + [P] * 8 + [P] * 3 + [P]),
+    "ol_workspace": ("order_limit", [I] * 4),
     "ks_owner": ("keyshard", [P, I, I, P, P]),
     "ks_fold": ("keyshard", [I, I, I, P, P, P, P, P, P, P]),
     "sr_route": ("shard_route", [I, I, I, P, P, P, I, P, P, P, P, P, P, P]),
 }
+
+# entry points that return a size (long long) instead of a cudaError_t
+RESTYPES = {"ti_build_workspace": LL, "ol_workspace": LL}
 
 launches: collections.Counter = collections.Counter()
 
@@ -194,6 +199,13 @@ def _lib_path(name: str) -> Path:
     return BUILD / f"lib{name}-{digest}.so"
 
 
+def nvcc_command(src: Path, out: Path, *extra: str) -> list[str]:
+    """The nvcc command line that builds one source into a shared library
+    for Hopper (`extra`: further flags)."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-shared", "-Xcompiler", "-fPIC", *extra, "-o", str(out), str(src)]
+
+
 def build_all() -> float:
     """Compile every source whose library is missing, one `nvcc` process per
     source, all started together. Returns the wall seconds spent."""
@@ -205,13 +217,9 @@ def build_all() -> float:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-            str(CSRC / f"{name}.cu"),
-        ]
         procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            nvcc_command(CSRC / f"{name}.cu", tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True
         )))
     failed = []
     for name, out, tmp, proc in procs:
@@ -236,7 +244,7 @@ def _library(source: str) -> ctypes.CDLL:
             for fn, (src, argtypes) in SIGNATURES.items():
                 if src == source:
                     getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = I
+                    getattr(lib, fn).restype = RESTYPES.get(fn, I)
             _libs[source] = lib
         return lib
 

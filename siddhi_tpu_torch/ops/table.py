@@ -17,10 +17,12 @@ empty slot) and the 0-d duplicate flag `ix_dups`.
   the key column's sorted index when there is one and scans the table
   otherwise; it never builds the JAX package's [B, C] compare.
 - K22 `table_index_build` / `table_index_probe` (csrc/table_index.cu): the
-  sorted index of one column (a bitonic sort of (empty, key, slot) records,
-  floats in the sort's total order: -0.0 equal to 0.0, NaN last) and the
-  indexed update's probe (a binary search per probe row, the hit test under
-  numeric promotion, the last hitting probe row per slot as its writer).
+  sorted index of one column (`csrc/radix_sort.cuh`'s stable radix sort of
+  the slots by (empty, key), floats in the sort's total order: -0.0 equal
+  to 0.0, NaN last) and the indexed update's probe (a binary search per
+  probe row, the hit test under numeric promotion, the last hitting probe
+  row per slot as its writer, through a per-slot scratch kept all -1
+  between calls).
 - K23 `table_match` (csrc/table_match.cu): the on-condition per (probe row,
   slot) cell, as a program (below), reduced without the [B, C] mask: the
   last matching probe row per slot (the dense update's writer), any match
@@ -288,18 +290,15 @@ def table_index_build(keys: torch.Tensor, valid: torch.Tensor):
     c = keys.shape[0]
     if c >= 2**30:
         raise ValueError(f"table_index_build: C={c} out of range")
-    n = 1024  # csrc/table_index.cu sorts whole 1024-record blocks
-    while n < c:
-        n *= 2
     dev = keys.device
     order = torch.empty(c, dtype=torch.int32, device=dev)
     sk = torch.empty_like(keys)
     dups = torch.empty((), dtype=torch.bool, device=dev)
-    rec = torch.empty(n, dtype=torch.int64, device=dev)
-    tag = torch.empty(n, dtype=torch.int32, device=dev)
+    # one workspace, carved by the kernel's own layout (ti_build_workspace)
+    work = torch.empty(kernels.function("ti_build_workspace")(c), dtype=torch.uint8, device=dev)
     kernels.check(kernels.function("ti_build")(
-        keys.data_ptr(), _ty_of(keys.dtype), valid.data_ptr(), c, n, rec.data_ptr(),
-        tag.data_ptr(), order.data_ptr(), sk.data_ptr(), dups.data_ptr(), kernels.stream()),
+        keys.data_ptr(), _ty_of(keys.dtype), valid.data_ptr(), c, order.data_ptr(),
+        sk.data_ptr(), dups.data_ptr(), work.data_ptr(), kernels.stream()),
         "table_index_build")
     kernels.launches["table_index_build"] += 1
     return order, sk, dups
@@ -342,36 +341,50 @@ def table_index_probe_ref(keys, valid, order, sk, probe_raw, probe_ok):
     return torch.where(win, cand, c).to(torch.int32)
 
 
+def winner_scratch(device, c: int) -> torch.Tensor:
+    """A new per-slot writer scratch for `table_index_probe`: int32 [C] all
+    -1. The probe leaves it all -1 (each slot's writer puts it back,
+    csrc/table_index.cu target_kernel), so its owner fills it once and
+    passes it to every probe of one index, in stream order: a table keeps
+    one a column and probes under its lock."""
+    return torch.full((max(c, 1),), -1, dtype=torch.int32, device=device)
+
+
 def _promoted(a: torch.dtype, b: torch.dtype) -> torch.dtype:
     return torch.promote_types(a, b)
 
 
-def table_index_probe(keys, valid, order, sk, probe_raw, probe_ok):
+def table_index_probe(keys, valid, order, sk, probe_raw, probe_ok, winner):
     """The indexed update's probe: per probe row, the slot it writes, or C.
 
     keys/valid [C] the key column and occupancy; order/sk the column's
     sorted index; probe_raw [B] the probe values in their own dtype;
-    probe_ok [B] bool (a live CURRENT row whose probe is not null). A row
+    probe_ok [B] bool (a live CURRENT row whose probe is not null); winner
+    the index's writer scratch from `winner_scratch`, all -1, left so
+    (None on the CPU, where it is not used). A row
     locates its candidate with its probe cast to the key dtype, hits when
     the candidate is valid and equal under numeric promotion, and writes
     when it is the last hitting row of its candidate. Returns int32 [B]."""
     if keys.device.type == "cpu":
         return table_index_probe_ref(keys, valid, order, sk, probe_raw, probe_ok)
-    kernels.require_cuda("table_index_probe", keys, valid, order, sk, probe_raw, probe_ok)
+    kernels.require_cuda("table_index_probe", keys, valid, order, sk, probe_raw, probe_ok,
+                         winner)
     b, c = probe_raw.shape[0], keys.shape[0]
     if b >= 2**30 or c >= 2**30:
         raise ValueError(f"table_index_probe: B={b}, C={c} out of range")
+    if winner.dtype != torch.int32 or winner.shape != (max(c, 1),):
+        raise ValueError(f"table_index_probe: winner must be int32 [{max(c, 1)}]")
     cmp_dtype = _promoted(keys.dtype, probe_raw.dtype)
     probe = probe_raw.to(keys.dtype)
     probe_cmp = probe_raw.to(cmp_dtype)
-    dev = keys.device
-    target = torch.empty(b, dtype=torch.int32, device=dev)
-    scratch = torch.empty(max(c, 1), dtype=torch.int32, device=dev)
-    kernels.check(kernels.function("ti_probe")(
+    target = torch.empty(b, dtype=torch.int32, device=keys.device)
+    err = kernels.function("ti_probe")(
         keys.data_ptr(), _ty_of(keys.dtype), valid.data_ptr(), order.data_ptr(),
         sk.data_ptr(), c, probe.data_ptr(), probe_cmp.data_ptr(), _ty_of(cmp_dtype),
-        probe_ok.data_ptr(), b, scratch.data_ptr(), target.data_ptr(), kernels.stream()),
-        "table_index_probe")
+        probe_ok.data_ptr(), b, winner.data_ptr(), target.data_ptr(), kernels.stream())
+    if err != 0:  # the scratch may hold writers
+        winner.fill_(-1)
+    kernels.check(err, "table_index_probe")
     kernels.launches["table_index_probe"] += 1
     return target
 

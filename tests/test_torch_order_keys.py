@@ -9,7 +9,11 @@ against the JAX package, on the CPU, with inputs made from a seed with numpy:
   row order). Keys of int32, int64, float32 and bool, asc and desc, 1-4 of them,
   with the edge values the encoding must keep (INT_MIN/MAX, -0.0 beside
   0.0, +-inf, NaN of either sign, ties); offset alone, limit alone, both,
-  neither, and a limit with no key; R = 1, 33 and 513.
+  neither, and a limit with no key; R = 1, 33 and 513; and at the radix
+  sort's tile edges (R 2,047/2,048/2,049: one block up to 2,048 rows, the
+  grid above) with one key varying in every byte (int64 over its whole
+  range, float32 over every bit pattern).
+- The wrapper's packed key types (`_order_codes`).
 - K47 `mix_keys_ref` against JAX `mix_keys` over JAX `_as_key_col`'s
   encoding (floats by their int32 bits), 1-8 columns of every key dtype
   with negative, extreme and float keys: bit for bit.
@@ -37,6 +41,7 @@ from siddhi_tpu.core.selector import CompiledSelector as JaxSelector  # noqa: E4
 from siddhi_tpu.core.types import AttrType as JaxAttrType  # noqa: E402
 from siddhi_tpu.ops import group as jgroup  # noqa: E402
 from siddhi_tpu_torch.core.selector import (  # noqa: E402
+    _order_codes,
     order_limit,
     order_limit_partitioned,
     order_limit_partitioned_ref,
@@ -147,6 +152,66 @@ def test_order_limit_partitioned_matches_jax_vmap(p, r, dtypes, desc, offset, li
     np.testing.assert_array_equal(rows[kept.numpy()], want)
     perm2, kept2 = order_limit_partitioned(*args)
     assert torch.equal(kept2, kept)
+
+
+def _every_byte(rng, dtype: str, r: int) -> np.ndarray:
+    """A key whose sort words vary in every byte: int64 over its whole range,
+    or float32 over every bit pattern (NaN of both signs, -0.0, subnormals,
+    +-inf mixed in)."""
+    if dtype == "int64":
+        k = rng.integers(I64.min, I64.max, r, endpoint=True).astype(np.int64)
+        edges = np.array([I64.min, I64.max, 0, -1], np.int64)
+    else:
+        k = rng.integers(0, 2**32, r, dtype=np.uint64).astype(np.uint32).view(np.float32)
+        edges = np.concatenate([
+            np.array([np.nan, -0.0, 0.0, 1e-40, -1e-40, np.inf, -np.inf], np.float32),
+            np.array([0xFFC00000, 0x7F800001, 1, 0x80000001], np.uint32).view(np.float32)])
+    pick = rng.random(r) < 0.05
+    k[pick] = rng.choice(edges, int(pick.sum()))
+    return k
+
+
+@pytest.mark.parametrize("r,dtype,desc,p", [(2047, "int64", True, None),
+                                            (2048, "float32", False, None),
+                                            (2049, "float32", True, None),
+                                            (2049, "int64", False, 8)])
+def test_order_limit_sort_edges_match_jax(r, dtype, desc, p):
+    """One key varying in every byte at the radix sort's tile edges, against
+    JAX `_order_limit` (flat) or its vmap (`_flatten`ed): every valid row
+    in JAX's order."""
+    rng = np.random.default_rng(r + len(dtype))
+    valid = rng.random(r) < 0.85
+    key = _every_byte(rng, dtype, r)
+    rowid = jnp.arange(r, dtype=jnp.int32)
+    if p is None:
+        jvalid, jrows = jax.jit(lambda v, k: _jax_order(v, [k], [desc], None, None, rowid))(
+            jnp.asarray(valid), jnp.asarray(key))
+        perm, kept = order_limit_ref(torch.from_numpy(valid), [torch.from_numpy(key)], [desc], 0,
+                                     _BIG)
+        np.testing.assert_array_equal(kept.numpy(), np.asarray(jvalid))
+        np.testing.assert_array_equal(perm.numpy()[kept.numpy()],
+                                      np.asarray(jrows)[np.asarray(jvalid)])
+        return
+    part = rng.integers(0, p, r).astype(np.int64)
+    tiles = jnp.asarray(valid[None, :] & (part[None, :] == np.arange(p)[:, None]))
+    jvalid, jrows = jax.jit(jax.vmap(lambda v, k: _jax_order(v, [k], [desc], None, None, rowid),
+                                     in_axes=(0, None)))(tiles, jnp.asarray(key))
+    want = np.asarray(jrows).T.reshape(-1)[np.asarray(jvalid).T.reshape(-1)]
+    perm, kept = order_limit_partitioned_ref(torch.from_numpy(valid), [torch.from_numpy(key)],
+                                             [desc], torch.from_numpy(part), p, 0, _BIG)
+    np.testing.assert_array_equal(perm.numpy()[kept.numpy()], want)
+
+
+def test_order_codes_pack_type_and_desc():
+    """Key j's type code in bits 3j..3j+1 and its desc flag in bit 3j+2, as
+    csrc/order_limit.cu unpacks them."""
+    keys = [torch.zeros(2, dtype=d) for d in (torch.int32, torch.int64, torch.bool,
+                                              torch.float32, torch.float32)]
+    desc = [False, True, True, False, True]
+    codes = _order_codes(keys, desc)
+    assert [(codes >> (3 * j)) & 3 for j in range(5)] == [0, 1, 2, 3, 3]
+    assert [(codes >> (3 * j + 2)) & 1 for j in range(5)] == [0, 1, 1, 0, 1]
+    assert codes >> 15 == 0 and _order_codes([], []) == 0
 
 
 def test_partitioned_rows_of_no_partition_go_last():

@@ -185,7 +185,7 @@ def test_insert(b, c, ann):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("c", [1, 33, 4097])
+@pytest.mark.parametrize("c", [1, 33, 2047, 2048, 2049, 4097])
 @pytest.mark.parametrize("col", ["k", "v", "p", "s"])
 def test_rebuild_index(c, col):
     rng = np.random.default_rng(c + len(col))
@@ -202,6 +202,40 @@ def test_rebuild_index(c, col):
     _same({"o": order.numpy(), "s": sk.numpy(), "d": dups.numpy()},
           {"o": np.asarray(want[f"ix_order.{col}"]), "s": np.asarray(want[f"ix_sorted.{col}"]),
            "d": np.asarray(want[f"ix_dups.{col}"])})
+
+
+@pytest.mark.parametrize("c", [2047, 2049])
+def test_rebuild_index_every_byte(c):
+    """Long keys varying in every byte (the whole int64 range, INT64_MIN/MAX
+    among them) at the radix sort's tile edges (one block up to 2,048
+    slots, the grid above), against `_rebuild_index`."""
+    rng = np.random.default_rng(c)
+    jt, _pt = _tables("", c)
+    st = _state(rng, jt, 2 * c // 3, c // 4 + 1)
+    k = rng.integers(LONG_NULL, np.iinfo(np.int64).max, c, endpoint=True).astype(np.int64)
+    k[:4] = [LONG_NULL, np.iinfo(np.int64).max, 0, -1]
+    k[rng.random(c) < 0.05] = 7  # ties among the valid and the empty slots
+    st["cols"]["k"] = k
+    want = jt._rebuild_index(_jstate(st), "k")
+    order, sk, dups = K.table_index_build_ref(torch.from_numpy(k.copy()),
+                                              torch.from_numpy(st["valid"].copy()))
+    _same({"o": order.numpy(), "s": sk.numpy(), "d": dups.numpy()},
+          {"o": np.asarray(want["ix_order.k"]), "s": np.asarray(want["ix_sorted.k"]),
+           "d": np.asarray(want["ix_dups.k"])})
+
+
+def test_winner_scratch_is_per_table_column():
+    """The indexed probe's writer scratch: int32 [C] all -1, one a table
+    and column, so two tables of one capacity never share one in flight."""
+    _jt, a_t = _tables("@PrimaryKey('k') @Index('p')", 5)
+    _jt, b_t = _tables("@PrimaryKey('k') @Index('p')", 5)
+    cpu = torch.device("cpu")
+    a = a_t.winner_scratch("k", cpu)
+    assert a.dtype == torch.int32 and a.tolist() == [-1] * 5
+    assert a_t.winner_scratch("k", cpu) is a
+    assert a_t.winner_scratch("p", cpu) is not a
+    assert b_t.winner_scratch("k", cpu) is not a
+    assert K.winner_scratch(cpu, 0).shape == (1,)
 
 
 @pytest.mark.parametrize("b,c", SIZES)
