@@ -77,6 +77,14 @@ engine next to it. Phases, each printed as it ends:
      execution's owner hash and fold K49 and routed pre-pass K50 at path
      SH's shapes and ragged (B 1/33/32,768, D 1/2/8, INT64 edge keys, NaN
      and -0.0 lanes, all-TIMER batches), exactly (see shard_kernel_phase);
+     the ring view K11 (one launch a view) and its seq lane K48 at W 1, 16,
+     100, 1,024 and 57,345, full, rotated, with holes and empty, and the
+     row lists of K31/K32/K37 (one stable sort by slot) at B 1/33/2,048/
+     2,049/32,768 and P 1/33/1,024 with all-TIMER, no-TIMER and all-invalid
+     batches, exactly, each timed three ways beside its stock calls (see
+     ring_view_kernel_phase, row_lists_kernel_phase); K21-K23 on float32
+     keys with subnormals, exactly (see subnormal_kernel_phase); subnormal
+     operands and keys run through the trap data of K16, K22 and K25-K43;
   3. verify cases filter_num, len_window_avg, len_window_minmax,
      len_batch_group, having_order, stddev_distinct, time_window,
      external_time, self_join, pattern_within, count_seq,
@@ -89,7 +97,7 @@ engine next to it. Phases, each printed as it ends:
      2,000,000 events each through send_columns in calls of 8 batches (the
      first of 4), which take the fused ingest path (K=8 chunks; K=4 first);
      every kernel of the path must have launched (counts set to 0 just
-     before, read just after), the first 4 batches' rows must match the same
+     before, read just after), the first batch's rows must match the same
      run on device="cpu", and the first 20 batches' rows must match the
      per-batch form (fused engines detached), whose events/s is printed
      beside the fused form's;
@@ -214,6 +222,11 @@ engine next to it. Phases, each printed as it ends:
      sharding off, SH-ROUTED (PT's window query as the routed step, K50)
      against the unsharded step, SH-BATCH (a filter, axis 'batch', fused
      calls of 8 batches) against sharding off; events/s sharded and off.
+ 17. path SUB (SUB_APPS; see subnormal_path_phase): float32 subnormals,
+     one event a send, through filters, table keys, updates and `in`, sort
+     windows, patterns on both routes, a join `on`, distinctCount and
+     partitions, every row against device="cpu", each app's kernel
+     launched.
 Each phase prints an `elapsed ... s after ...` line.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
@@ -259,6 +272,12 @@ on `csrc/radix_sort.cuh`'s sort, K46 (with K47, which shares its phase)
 and K22 (the index build and the probe), and writes their figures to
 chiprun_out/sorts.json.
 
+    python3 chip_smoke.py --redesign
+
+builds the kernels and runs only the K11/K48 and row-list checks and their
+three-way times, the subnormal table checks and path SUB (`--no-paths`:
+the kernels only), and writes their figures to chiprun_out/redesign.json.
+
     python3 chip_smoke.py --profile
 
 instead builds the kernels and prints where the time goes on the quickstart
@@ -288,6 +307,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL = 2e-4  # bench.py:_rows_match
+# float32 subnormals of both signs: XLA's comparisons, sorts and searches
+# take them as zeros, and so do the port's (core/types.py flush_subnormal)
+SUBNORMALS = np.array([1e-40, -1e-40, 1e-38, -1e-38, 2e-45, -2e-45], np.float32)
 MAIN_BATCH, MAIN_W, MAIN_EVENTS = 32768, 50, 2_000_000
 
 # the 8-symbol stock feed of bench.py:_make_stock_data
@@ -370,7 +392,8 @@ insert into Out;
 
 # the per-event scan route (path L, logical then cross-ref; path A,
 # absence under playback), each with patternCapacity 1024
-SCAN_T, LOGICAL_EVENTS, ABSENT_BATCHES, SCAN_CPU_EVENTS = 1024, 1_000_000, 16, 8192
+# SCAN_CPU_EVENTS: the events each of L, A, TB, SW-FN checks against device="cpu"
+SCAN_T, LOGICAL_EVENTS, ABSENT_BATCHES, SCAN_CPU_EVENTS = 1024, 1_000_000, 16, 4096
 LOGICAL_APP = """
 @app:patternCapacity(size='1024')
 @app:batch(size='{batch}')
@@ -1663,6 +1686,8 @@ def pattern_scan_kernel_phase(torch, dev) -> dict:
         null = rng.random(shape) < 0.1
         if dtype == torch.float32:
             v = rng.uniform(0, 100, shape).astype(np.float32)
+            sub = rng.random(shape) < 0.05  # compared as zeros
+            v[sub] = rng.choice(np.append(SUBNORMALS, 0.0), int(sub.sum()))
             v[null] = np.nan
         elif name == "symbol":
             v = rng.integers(0, 5, shape).astype(np.int32)
@@ -2378,6 +2403,8 @@ def table_kernel_phase(torch, dev, index_only: bool = False) -> dict:
         fk[rng.random(c) < 0.1] = np.nan
         fk[rng.random(c) < 0.05] = -0.0
         fk[rng.random(c) < 0.05] = np.inf
+        sub = rng.random(c) < 0.1
+        fk[sub] = rng.choice(SUBNORMALS, int(sub.sum()))
         ik = rng.integers(-3, 3, c).astype(np.int32)
         ik[rng.random(c) < 0.1] = np.iinfo(np.int32).min
         lk = rng.integers(-(1 << 62), 1 << 62, c).astype(np.int64)
@@ -2700,7 +2727,8 @@ def special_window_kernel_phase(torch, dev) -> dict:
     schema = StreamSchema("S", [("symbol", AttrType.STRING), ("price", AttrType.FLOAT),
                                 ("volume", AttrType.LONG), ("qty", AttrType.INT),
                                 ("hot", AttrType.BOOL)])
-    prices = np.array([np.nan, -0.0, 0.0, 1.5, 2.5, 7.0, -3.0], np.float32)
+    prices = np.concatenate([np.array([np.nan, -0.0, 0.0, 1.5, 2.5, 7.0, -3.0], np.float32),
+                             SUBNORMALS])
     longs = np.array([LONG_NULL, -5, 0, 3, 9, (1 << 63) - 1], np.int64)
     ints = np.array([-(1 << 31), -1, 0, 2, 4, (1 << 31) - 1], np.int32)
 
@@ -2898,7 +2926,8 @@ def partition_kernel_phase(torch, dev) -> dict:
     k29, k30 = "partition_length_window_step", "partition_window_extreme"
     res = {k: {"max_abs_err": 0.0, "checks": 0} for k in (k29, k30)}
     rng = np.random.default_rng(1029)
-    prices = np.array([np.nan, -0.0, 0.0, 1.5, 2.5, 7.0, -3.0], np.float32)
+    prices = np.concatenate([np.array([np.nan, -0.0, 0.0, 1.5, 2.5, 7.0, -3.0], np.float32),
+                             SUBNORMALS])
     cols_of = {"symbol": torch.int32, "price": torch.float32, "qty": torch.int32,
                "volume": torch.int64}
     values = (("price", AttrType.FLOAT), ("qty", AttrType.INT), ("volume", AttrType.LONG))
@@ -2977,7 +3006,7 @@ def partition_kernel_phase(torch, dev) -> dict:
                                 (33, 33, 1), (4097, 1, 50), (4097, 8, 1), (4097, 33, 4)}:
             continue
         st = rings(pp, ww)
-        for i in range(4 if bb > 1 else 12):
+        for i in range(3 if bb > 1 else 8):
             batch, slot = batch_of(bb, pp, i * bb, traps=True)
             st = check(st, batch, slot, ww, pp)[3]
     # empty slots: 33 slots, rows only in 5 of them
@@ -3130,7 +3159,7 @@ def partition_windows_kernel_phase(torch, dev) -> dict:
     for bb, pp, ww, tt in ((1, 1, 1, 5), (33, 1, 4, 3), (33, 8, 4, 7), (513, 33, 16, 20),
                            (513, 5, 1024, 50), (4097, 33, 8, 100)):
         st = rings(pp, ww)
-        for i in range(4):
+        for i in range(3):
             kind = np.where(rng.random(bb) < 0.1, 2, np.where(rng.random(bb) < 0.03, 1, 0))
             ts = i * bb + np.arange(bb)
             disorder = ts + rng.integers(-tt, tt + 1, bb)  # a disordered externalTime
@@ -3171,7 +3200,7 @@ def partition_windows_kernel_phase(torch, dev) -> dict:
     # then the TIMER row that closes it
     pb_p, pb_w, pb_b = 32, 1024, 1000
     st = buffers(pb_p, pb_w)
-    for i in range(3):
+    for i in range(2):
         ts = 1000 * i + np.sort(rng.integers(0, 1000, pb_b))
         batch, slot = batch_of(pb_b, ts, np.zeros(pb_b), rng.integers(0, 3, pb_b))
         st = check32(st, batch, batch.ts, 1000 * i, slot, pb_p, pb_w, None, 1000, None, None,
@@ -3209,7 +3238,7 @@ def partition_windows_kernel_phase(torch, dev) -> dict:
                                            (200, 3, 4, None, 30, None, 0)):
         for emit in (False, True):
             st = buffers(pp, ww)
-            for i in range(4):
+            for i in range(3):
                 kind = np.where(rng.random(bb) < 0.1, 2, np.where(rng.random(bb) < 0.03, 1, 0))
                 ts = i * bb + np.arange(bb)
                 slot = np.where(rng.random(bb) < 0.05, pp, rng.integers(0, pp, bb))
@@ -3253,7 +3282,7 @@ def partition_windows_kernel_phase(torch, dev) -> dict:
     for rows, p_, g, n_keys, rp in ((1, 1, 1, 3, 0.0), (33, 4, 3, 10, 0.1), (513, 33, 8, 12, 0.02),
                                     (4097, 8, 64, 100, 0.01), (600, 9000, 2, 3, 0.05)):
         tab = table(p_, g)
-        for i in range(4):
+        for i in range(3):
             tab = check33(tab, *assign_inputs(rows, p_, n_keys, rp), p_)
     # one partition overflowing: 40 keys into partition 0's G=16, partition 1 fits
     tab = table(2, 16)
@@ -3317,6 +3346,8 @@ PP_KERNELS = ("partition_pattern_advance", "partition_pattern_count", "partition
               "partition_pattern_scan", "pattern_chunks", "pattern_place", "partition_rows")
 PP_T = 128  # @app:patternCapacity's default: T a partition
 # each wrapper's CUDA kernels, by the names torch.profiler gives them
+# the row lists' kernels (csrc/partition_rows.cuh), by torch.profiler's names
+ROWS_KERNEL_NAMES = ("rows_tile_kernel(", "rows_grid_kernel(")
 PP_DEVICE_NAMES = {
     "partition_pattern_advance": ("advance_kernel(", "fork_kernel("),
     "partition_pattern_count": ("count_kernel(",),
@@ -3324,7 +3355,7 @@ PP_DEVICE_NAMES = {
     "partition_pattern_scan": ("scan_kernel(",),
     "pattern_chunks": ("chunks_kernel(",),
     "pattern_place": ("place_stretch_kernel(", "place_rows_kernel(", "gather_kernel("),
-    "partition_rows": ("window_rows_kernel(",),
+    "partition_rows": ROWS_KERNEL_NAMES,
 }
 
 
@@ -3885,9 +3916,9 @@ def partition_pattern_kernel_phase(torch, dev) -> dict:
     r["bound_ms"] = (n_rows * (2 * lane_b + 4 + 4) + P * (8 + 4 + 4)) / MEM_BYTES_PER_S * 1e3
     # the row lists at the paths' batch (PPA's data step: 32,768 rows)
     r = res[kr]
-    r["ms"] = device_ms(torch, lambda: None, lambda: K.partition_rows(bt, slot, P), 20,
-                        PP_DEVICE_NAMES[kr])
-    r["wrapper_ms"] = time_ms(torch, lambda: K.partition_rows(bt, slot, P), 20)
+    # its ms the whole call, device_ms its device work (device_all_ms), kernel_ms the profiler's
+    r.update(three_times(torch, lambda: K.partition_rows(bt, slot, P), 20, PP_DEVICE_NAMES[kr]))
+    r["wrapper_ms"] = r["ms"]
     r["plain_ms"] = time_once(torch, lambda: K.partition_rows_ref(bt, slot, P))
     n_tim = int(((bt.kind == 2) & bt.valid).sum())
     # kind, valid and slot read a row; the row list, the slot starts, the
@@ -3897,12 +3928,22 @@ def partition_pattern_kernel_phase(torch, dev) -> dict:
     # the library yardstick: one stable sort of the rows by slot
     member = bt.valid & (bt.kind == 0) & (slot >= 0) & (slot < P)
     skey = torch.where(member, slot, P)
-    r["library_ms"] = time_ms(torch, lambda: torch.sort(skey, stable=True), 20)
+    lib = three_times(torch, lambda: torch.sort(skey, stable=True), 20, None)
+    r["library_ms"], r["library_device_ms"] = lib["ms"], lib["device_ms"]
+    r["library_kernel_ms"] = lib["kernel_ms"]
     for name in PP_KERNELS:
         r = res[name]
         r["bound_by"] = "bytes"
         r.setdefault("library_ms", None)
         lib = "None" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        if name == kr:
+            print(f"kernel {name}: ms={r['ms']:.4f} (the whole call) device_ms="
+                  f"{r['device_ms']:.4f} kernel_ms={fmt(r['kernel_ms'])} plain_ms="
+                  f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+                  f"library_ms={lib} library_device_ms={r['library_device_ms']:.4f} "
+                  f"library_kernel_ms={fmt(r['library_kernel_ms'])} checks={r['checks']} exact",
+                  flush=True)
+            continue
         print(f"kernel {name}: ms={r['ms']:.4f} (device, torch.profiler; with the wrapper's "
               f"host work {r['wrapper_ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={lib} "
@@ -3950,7 +3991,8 @@ def partition_join_kernel_phase(torch, dev) -> dict:
     rng = np.random.default_rng(1038)
     attrs = [("symbol", AttrType.STRING), ("price", AttrType.FLOAT), ("volume", AttrType.LONG)]
     types = dict(attrs)
-    traps = np.array([np.nan, -0.0, 0.0, 1.5, 2.5, -3.0], np.float32)
+    traps = np.concatenate([np.array([np.nan, -0.0, 0.0, 1.5, 2.5, -3.0], np.float32),
+                            SUBNORMALS])
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -4244,7 +4286,8 @@ def partition_special_kernel_phase(torch, dev) -> dict:
     k42, k43 = PSP_KERNEL_NAMES
     res = {k: {"max_abs_err": 0.0, "checks": 0, "library_ms": None} for k in PSP_KERNEL_NAMES}
     rng = np.random.default_rng(1042)
-    traps = np.array([np.nan, -0.0, 0.0, 1.5, 2.5, -3.0], np.float32)
+    traps = np.concatenate([np.array([np.nan, -0.0, 0.0, 1.5, 2.5, -3.0], np.float32),
+                            SUBNORMALS])
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -6101,9 +6144,12 @@ def main_path_phase(torch) -> dict:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     for name, r in out.items():
         extra = MINMAX if "minmax" in name else ""
-        _n, cpu_first, _dt, _i = run_app("cpu", main_app(extra), data, first_n, first_n, first_n)
-        if not cpu_first[0] or not rows_match(prefixes[name][0], cpu_first[0]):
-            raise AssertionError(f"{name}: first 4 batches differ from device='cpu'")
+        # the first batch on the host (the plain K3 is O(rows x elements)):
+        # its rows lead the first fused call's, the window's rows in order
+        _n, cpu_first, _dt, _i = run_app("cpu", main_app(extra), data, b, b, b)
+        cpu_rows = cpu_first[0]
+        if not cpu_rows or not rows_match(prefixes[name][0][:len(cpu_rows)], cpu_rows):
+            raise AssertionError(f"{name}: the first batch differs from device='cpu'")
         pb_rows, pb_kept, pb_dt, _i = run_app("cuda", main_app(extra), data, prefix_events, stride,
                                               first_n, fused=False, keep_calls=prefix_calls)
         fused_prefix = [row for call in prefixes[name] for row in call]
@@ -6116,7 +6162,7 @@ def main_path_phase(torch) -> dict:
         print(f"main path {name}: fused {r['events']} events, {r['rows']} rows delivered, "
               f"{r['seconds']:.3f} s, {r['events_per_s']:.1f} events/s, {r['chunks']} chunks "
               f"(K=4 first, then 8); per-batch form {prefix_events} events, {pb_rows} rows, "
-              f"{pb_dt:.3f} s, {prefix_events / pb_dt:.1f} events/s; first 4 batches match "
+              f"{pb_dt:.3f} s, {prefix_events / pb_dt:.1f} events/s; the first batch matches "
               f"device='cpu', first 20 batches match the per-batch form "
               f"(exactly: {fused_prefix == pb_prefix}); wire {r['wire']['lanes']} "
               f"{r['wire']['encoded_B_per_ev']} B/event", flush=True)
@@ -7022,7 +7068,7 @@ PTB_KERNELS = {"assign_slots": 1, "partition_batch_window_step": 1,
                "partition_assign_slots": 1, "keyed_running_sum": 4, "keep_last": 1}
 # PTT sends 4,096 events, its first call of 640 against device="cpu"
 # (8,192 and 1,280 until the partitioned joins joined the script's time)
-PTB_CAP, PTT_EVENTS, PTT_FIRST, PTT_CALL = 32, 4096, 640, 2048
+PTB_CAP, PTT_EVENTS, PTT_FIRST, PTT_CALL = 32, 2688, 640, 2048
 PTW_COLS = ("symbol", "price", "volume", "ets")
 
 
@@ -7216,7 +7262,7 @@ PPF_KERNELS = {"assign_slots": 1, "pattern_chunks": 1, "pattern_place": 1,
 PPC_KERNELS = {"assign_slots": 1, "pattern_chunks": 1, "pattern_place": 1,
                "partition_pattern_count": MAIN_BATCH // (2 * PP_T),
                "partition_pattern_emit": MAIN_BATCH // (2 * PP_T)}
-PP_CPU_EVENTS, PPA_CPU_EVENTS = 4096, 1024
+PP_CPU_EVENTS, PPA_CPU_EVENTS = 2048, 512
 
 
 def pp_data(n: int) -> tuple:
@@ -7545,7 +7591,7 @@ TAB_N = {"TAB-PK": TAB_PK_ROWS, "TAB-IX": TAB_PK_ROWS, "TAB-DENSE": TAB_ROWS,
 # 32 batches a path, a 10-batch per-batch prefix and 1 batch against
 # device="cpu" (128, 20 and 4 until the partitioned joins joined the
 # script's time, 64 and 2 until the aggregation's did)
-TAB_BATCHES, TAB_PREFIX, TAB_CALL, TAB_CPU_BATCHES, TAB_PK_CPU_ROWS = 32, 10, 8, 1, 65_536
+TAB_BATCHES, TAB_PREFIX, TAB_CALL, TAB_CPU_BATCHES, TAB_PK_CPU_ROWS = 16, 5, 8, 1, 65_536
 
 
 def fused_steps(n: int, b: int, k: int = 32) -> int:
@@ -7978,6 +8024,406 @@ def profile_timers(torch, app: str, b: int, label: str = "time join") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2: the redesigned K11/K48 and row lists, and the float32 subnormals
+# ---------------------------------------------------------------------------
+
+
+
+def fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def three_times(torch, fn, reps: int, names) -> dict:
+    """One call timed three ways: `ms` the whole call (CUDA events around
+    back-to-back calls: host work shows where it outlasts the device's),
+    `device_ms` its device work alone (`device_all_ms`), `kernel_ms`
+    torch.profiler's sum of the kernels whose names hold one of `names`
+    (None: every kernel of the call; None when the profiler recorded none,
+    as it can late in a long run)."""
+    out = {"ms": time_ms(torch, fn, reps), "device_ms": device_all_ms(torch, fn, reps)}
+    try:
+        out["kernel_ms"] = device_ms(torch, lambda: None, fn, max(reps // 4, 5), names)
+    except AssertionError:
+        out["kernel_ms"] = None
+    return out
+
+
+def view_ring(torch, rng, dev, w: int, live: int, holes: bool = False, lanes=None) -> dict:
+    """A sliding ring's state of W slots for K11/K48: `live` slots hold the
+    last seqs (in ring order, or scattered with `holes`), the rest -1; the
+    stock lanes (price with NaN), or `lanes` int32/bool lanes."""
+    total = 3 * w + 5000
+    seq = np.full(w, -1, np.int64)
+    n = min(live, w)
+    s = np.arange(total - n, total, dtype=np.int64)
+    if holes:
+        seq[rng.permutation(w)[:n]] = rng.permutation(s)
+    else:
+        seq[s % w] = s
+    if lanes is None:
+        price = rng.uniform(0, 100, w).astype(np.float32)
+        price[rng.random(w) < 0.1] = np.nan
+        cols = {"symbol": rng.integers(0, 9, w).astype(np.int32), "price": price,
+                "volume": rng.integers(1, 1000, w).astype(np.int64)}
+    else:
+        cols = {f"c{i}": (rng.random(w) < 0.5 if i % 3 == 0
+                          else rng.integers(-9, 9, w).astype(np.int32)) for i in range(lanes)}
+    return {"cols": {k: torch.from_numpy(v).to(dev) for k, v in cols.items()},
+            "ts": torch.from_numpy(rng.integers(0, 1 << 40, w)).to(dev),
+            "seq": torch.from_numpy(seq).to(dev),
+            "total": torch.tensor(total, dtype=torch.int64, device=dev)}
+
+
+VIEW_SEED, ROWS_SEED, ROWS_TIMING_SEED = 1911, 1912, 1914
+
+
+def view_timing_rings(torch, rng, dev) -> tuple:
+    """K11's timed rings, the first draws of `rng` (VIEW_SEED): path J's
+    length(100), full, and path T's 1,024-slot time ring, 700 live with
+    holes."""
+    return view_ring(torch, rng, dev, JOIN_W, JOIN_W), view_ring(torch, rng, dev, TIME_W, 700,
+                                                                 holes=True)
+
+
+def rows_batch(torch, rng, dev, bsz: int, p: int, timer=0.05, valid=0.9, oob=0.05,
+               keys=None) -> tuple:
+    """A batch for the row lists and its int32 slots: a `timer` share of
+    TIMER rows, 3% EXPIRED, a `valid` share valid, an `oob` share of slots
+    out of [0, P); slots uniform over P, or `keys`."""
+    from siddhi_tpu_torch.core.event import EventBatch
+
+    u = rng.random(bsz)
+    kind = np.where(u < timer, 2, np.where(u < timer + 0.03, 1, 0)).astype(np.int8)
+    slot = rng.integers(0, p, bsz) if keys is None else keys
+    bad = rng.random(bsz) < oob
+    slot = np.where(bad, rng.choice(np.array([-1, p, p + 7]), bsz), slot).astype(np.int32)
+    bt = EventBatch(ts=torch.arange(bsz, dtype=torch.int64, device=dev),
+                    kind=torch.from_numpy(kind).to(dev),
+                    valid=torch.from_numpy(rng.random(bsz) < valid).to(dev), cols={})
+    return bt, torch.from_numpy(slot).to(dev)
+
+
+def rows_timing_batches(torch, dev, p: int) -> dict:
+    """The row lists' timed batches (ROWS_TIMING_SEED): PPA's data step and
+    PTE's batch (B=32,768 CURRENT rows over 1,000 keys) and a TIMER step
+    (B=1)."""
+    rng = np.random.default_rng(ROWS_TIMING_SEED)
+    data = rows_batch(torch, rng, dev, MAIN_BATCH, p, timer=0.0, valid=1.0, oob=0.0,
+                      keys=rng.integers(0, 1000, MAIN_BATCH))
+    return {"B32768": data, "B1": rows_batch(torch, rng, dev, 1, p, timer=1.0, valid=1.0, oob=0.0)}
+
+
+def ring_view_kernel_phase(torch, dev) -> dict:
+    """K11 (`ring_view`, one launch a view) and K48 (its seq lane, with the
+    view or alone) against their plain versions on the card, bit for bit:
+    rings of W 1, 16, 100 (path J's length(100), full), 1,024 (path T's
+    time ring) and 57,345 (past shared memory: the global scratch), full,
+    rotated, with holes scattered, and empty; a ring of 40 lanes (two
+    launches).
+    Times at J's ring (W=100), T's (W=1,024 with holes) and LIN's (J's with
+    the seq lane) three ways (`three_times`), beside one stable
+    `torch.argsort(seq)` and the whole function as stock calls (that
+    argsort and one `index_select` a lane) timed alike (PERF.md §6)."""
+    from siddhi_tpu_torch.core import windows as W
+
+    rng = np.random.default_rng(VIEW_SEED)
+    res = {"checks": 0}
+
+    def ring(w, live, holes=False, lanes=None):
+        return view_ring(torch, rng, dev, w, live, holes, lanes)
+
+    def check(label, st):
+        for with_seq in (False, True):
+            got = W.ring_view(st, with_seq=with_seq)
+            want = W.ring_view(to_cpu(st), with_seq=with_seq)
+            torch.cuda.synchronize()
+            same_bits(torch, [x.cpu() if not isinstance(x, dict) else to_cpu(x) for x in got],
+                      list(want))
+            res["checks"] += 1
+        got = W.ring_view_seq(st)
+        torch.cuda.synchronize()
+        same_bits(torch, got.cpu(), W.ring_view_seq_ref(to_cpu(st)))
+        res["checks"] += 1
+        print(f"kernel check ring_view {label} W={st['seq'].shape[0]}: "
+              f"{int((st['seq'] >= 0).sum())} live slots, view, view with seq, seq alone: "
+              "exact", flush=True)
+
+    j_ring, t_ring = view_timing_rings(torch, rng, dev)
+    cases = [("J", j_ring), ("T", t_ring), ("W1", ring(1, 1)), ("W1 empty", ring(1, 0)),
+             ("W16 rotated", ring(16, 16)), ("W16 holes", ring(16, 9, holes=True)),
+             ("W1024 holes", ring(1024, 3, holes=True)), ("W1024 full", ring(1024, 1024)),
+             ("empty", ring(64, 0)), ("40 lanes", ring(16, 11, holes=True, lanes=40)),
+             ("global scratch", ring(57_345, 40_000, holes=True))]
+    for label, st in cases:
+        check(label, st)
+
+    names = ("view_kernel(",)
+    col_bytes = 4 + 4 + 8
+    for label, st, with_seq in (("J", j_ring, False), ("T", t_ring, False),
+                                ("LIN", j_ring, True)):
+        w = st["seq"].shape[0]
+        seq = st["seq"]
+        lanes = [*st["cols"].values(), st["ts"]]
+        r = three_times(torch, lambda: W.ring_view(st, with_seq=with_seq), 200, names)
+        r["seq_alone"] = three_times(torch, lambda: W.ring_view_seq(st), 200, names)
+        r["library_argsort"] = three_times(torch, lambda: torch.argsort(seq, stable=True), 200,
+                                           None)
+
+        def whole():
+            perm = torch.argsort(seq, stable=True)
+            return [x.index_select(0, perm) for x in lanes + ([seq] if with_seq else [])]
+
+        r["library_whole"] = three_times(torch, whole, 200, None)
+        r["plain_ms"] = time_ms(torch, lambda: W.ring_view_ref(st), 50)
+        r["bound_ms"] = w * (8 + 2 * (col_bytes + 8) + 1 + (8 if with_seq else 0)) \
+            / MEM_BYTES_PER_S * 1e3
+        res[label] = r
+        print(f"kernel ring_view {label} W={w}{' with seq' if with_seq else ''}: "
+              f"ms={r['ms']:.4f} device_ms={r['device_ms']:.4f} kernel_ms={fmt(r['kernel_ms'])}; "
+              f"argsort {r['library_argsort']['ms']:.4f}/{r['library_argsort']['device_ms']:.4f}/"
+              f"{fmt(r['library_argsort']['kernel_ms'])}; argsort + index_select a lane "
+              f"{r['library_whole']['ms']:.4f}/{r['library_whole']['device_ms']:.4f}/"
+              f"{fmt(r['library_whole']['kernel_ms'])}; seq alone {r['seq_alone']['ms']:.4f}/"
+              f"{r['seq_alone']['device_ms']:.4f}/{fmt(r['seq_alone']['kernel_ms'])}; "
+              f"plain {r['plain_ms']:.4f}; bound {r['bound_ms']:.7f}", flush=True)
+    return {"ring_view_times": res}
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_cpu(v) for v in tree)
+    return tree.cpu() if hasattr(tree, "cpu") else tree
+
+
+def row_lists_kernel_phase(torch, dev) -> dict:
+    """The row lists (csrc/partition_rows.cuh, through `partition_rows`'
+    pt_rows, which K31, K32 and K37 share) against the plain version on the
+    card, bit for bit: rank, rowlist, slot_start, the TIMER rows, info and each
+    slot's rows, at B 1/33/2,048/2,049/32,768 and P 1/33/1,024 with TIMER,
+    EXPIRED, invalid and out-of-range rows, and all-TIMER, no-TIMER and
+    all-invalid batches. Times three ways (`three_times`) at PPA's data
+    step and PTE's batch (B=32,768, P=1,024, 1,000 keys) and a TIMER step
+    (B=1), beside one stable `torch.sort` of the rows' keys timed alike."""
+    from siddhi_tpu_torch.ops import partition as K
+
+    rng = np.random.default_rng(ROWS_SEED)
+    res = {"checks": 0}
+
+    def batch_of(bsz, p, **kw):
+        return rows_batch(torch, rng, dev, bsz, p, **kw)
+
+    def check(label, bt, slot, p):
+        want = K.partition_rows_ref(bt, slot, p)
+        nt, c = int(want.info[3]), int(want.slot_start[p])
+        rank = torch.full((bt.capacity,), -1, dtype=torch.int32, device=dev)
+        members = want.rowlist[:c].long()
+        rank[members] = (torch.arange(c, device=dev)
+                         - want.slot_start[slot[members].long()]).to(torch.int32)
+        info = torch.tensor([0, 0, c, nt], dtype=torch.int32, device=dev)
+        got = K.partition_rows(bt, slot, p)
+        torch.cuda.synchronize()
+        same_bits(torch, [got.rowlist, got.slot_start, got.timers[:nt], got.info, got.rows,
+                          got.rank],
+                  [want.rowlist, want.slot_start, want.timers, info, want.rows, rank])
+        res["checks"] += 1
+        return c, nt
+
+    for bsz in (1, 33, 2048, 2049, 32768):
+        for p in (1, 33, 1024):
+            c, nt = check("mixed", *batch_of(bsz, p), p)
+            print(f"kernel check row lists B={bsz} P={p}: {c} member rows, {nt} TIMER rows: "
+                  "exact", flush=True)
+    for bsz in (1, 33, 2049, 32768):
+        for label, kw in (("all TIMER", dict(timer=1.0, valid=1.0, oob=0.0)),
+                          ("no TIMER", dict(timer=0.0)), ("all invalid", dict(valid=0.0))):
+            c, nt = check(label, *batch_of(bsz, 1024, **kw), 1024)
+            print(f"kernel check row lists {label} B={bsz} P=1024: {c} member rows, {nt} TIMER "
+                  "rows: exact", flush=True)
+
+    p = 1024
+    for label, (bt, slot) in rows_timing_batches(torch, dev, p).items():
+        member = bt.valid & (bt.kind == 0) & (slot >= 0) & (slot < p)
+        skey = torch.where(member, slot, torch.where(bt.valid & (bt.kind == 2), p, p + 1))
+        r = three_times(torch, lambda: K.partition_rows(bt, slot, p), 100, ROWS_KERNEL_NAMES)
+        r["library"] = three_times(torch, lambda: torch.sort(skey, stable=True), 100, None)
+        r["plain_ms"] = time_once(torch, lambda: K.partition_rows_ref(bt, slot, p))
+        n_tim = int((bt.valid & (bt.kind == 2)).sum())
+        bsz = bt.capacity
+        r["bound_ms"] = (bsz * (1 + 1 + 4) + bsz * (4 + 4) + 4 * (p + 1) + 4 * p + 4 * n_tim
+                         + 16) / MEM_BYTES_PER_S * 1e3
+        res[label] = r
+        print(f"kernel partition_rows {label} P={p}: ms={r['ms']:.4f} "
+              f"device_ms={r['device_ms']:.4f} kernel_ms={fmt(r['kernel_ms'])}; stable torch.sort "
+              f"{r['library']['ms']:.4f}/{r['library']['device_ms']:.4f}/"
+              f"{fmt(r['library']['kernel_ms'])}; plain {r['plain_ms']:.4f}; "
+              f"bound {r['bound_ms']:.7f}", flush=True)
+    return {"row_lists_times": res}
+
+
+def subnormal_kernel_phase(torch, dev) -> dict:
+    """Float32 subnormals (compared as zeros, as XLA compares them) through
+    the table kernels against their plain versions on the card, bit for
+    bit: K22's index build and probe over float keys of ±0.0, every
+    subnormal class of both signs, NaN and a few values, C 33/2,049/10,000
+    (one block and the grid sort); K21's insert with a float primary key,
+    by the index and by the table scan; K23's `==`, `>` and `<=` conditions
+    over those keys as writer, delete and `in` masks. The plain versions
+    run on CPU copies (the card's torch.sort places NaN otherwise)."""
+    from siddhi_tpu_torch.compiler.siddhi_compiler import SiddhiCompiler
+    from siddhi_tpu_torch.core.event import StreamSchema
+    from siddhi_tpu_torch.core.executor import TS_ATTR, Env
+    from siddhi_tpu_torch.core.table import InMemoryTable, emit_program, eval_regs, output_scope
+    from siddhi_tpu_torch.core.types import AttrType, InternTable
+    from siddhi_tpu_torch.ops import table as K
+
+    rng = np.random.default_rng(1913)
+    vals = np.concatenate([SUBNORMALS, np.array([0.0, -0.0, np.nan, 1.0, -2.5, 1.2e-38],
+                                                np.float32)])
+    interner = InternTable()
+    out_schema = StreamSchema("__out__", [("k", AttrType.FLOAT), ("v", AttrType.LONG)])
+    checks = {"table_index_build": 0, "table_index_probe": 0, "table_write": 0,
+              "table_match": 0}
+
+    def exact(name, got, want):
+        torch.cuda.synchronize()
+        same_bits(torch, to_cpu(got), want)
+        checks[name] += 1
+
+    def env_of(cols, ts, d):
+        env = {("__out__", None, n): v.to(d) for n, v in cols.items()}
+        env[("__out__", None, TS_ATTR)] = ts.to(d)
+        return Env(env, now=torch.zeros((), dtype=torch.int64, device=d))
+
+    for c, b in ((33, 33), (2049, 513), (10_000, 4097)):
+        app = SiddhiCompiler.parse("@PrimaryKey('k') @Index('k') define table T (k float, "
+                                   "v long);")
+        t = InMemoryTable(app.table_definitions["T"], interner, dev, capacity=c)
+        keys = torch.from_numpy(rng.choice(vals, c)).to(dev)
+        valid = torch.from_numpy(rng.random(c) < 0.7).to(dev)
+        exact("table_index_build", K.table_index_build(keys, valid),
+              K.table_index_build_ref(keys.cpu(), valid.cpu()))
+        order, sk, dups = K.table_index_build_ref(keys.cpu(), valid.cpu())
+        probe = torch.from_numpy(rng.choice(vals, b)).to(dev)
+        ok = torch.from_numpy(rng.random(b) < 0.9).to(dev) & ~torch.isnan(probe)
+        exact("table_index_probe",
+              K.table_index_probe(keys, valid, order.to(dev), sk.to(dev), probe, ok,
+                                  K.winner_scratch(dev, c)),
+              K.table_index_probe_ref(keys.cpu(), valid.cpu(), order, sk, probe.cpu(), ok.cpu()))
+        st = t.init_state()
+        st["cols"]["k"], st["valid"] = keys, valid
+        st["cols"]["v"] = torch.arange(c, dtype=torch.int64, device=dev)
+        st["seq"] = torch.where(valid, torch.arange(c, device=dev), torch.iinfo(torch.int64).max)
+        st["next"] = torch.tensor(c, dtype=torch.int64, device=dev)
+        st.update({"ix_order.k": order.to(dev), "ix_sorted.k": sk.to(dev),
+                   "ix_dups.k": dups.to(dev)})
+        cols = {"k": probe, "v": torch.arange(b, dtype=torch.int64, device=dev)}
+        ts = torch.arange(b, dtype=torch.int64, device=dev) + 1_800_000_000_000
+        rows = torch.from_numpy(rng.random(b) < 0.95).to(dev)
+        for index in ((st["ix_order.k"], st["ix_sorted.k"]), None):
+            exact("table_write", K.table_write(st, cols, ts, rows, ["k"], index),
+                  K.table_write_ref(to_cpu(st), to_cpu(cols), ts.cpu(), rows.cpu(), ["k"]))
+        for text, mode in (("T.k == k", K.MODE_WRITER), ("T.k > k", K.MODE_DELETE),
+                           ("T.k <= k", K.MODE_IN)):
+            scope = output_scope(t, out_schema, interner, dev)
+            prog = emit_program(SiddhiCompiler.parse_expression(text), scope, "T")
+            regs = eval_regs(prog.regs, env_of(cols, ts, dev), b)
+            lanes = K.lane_tensors(prog, st["cols"], st["ts"])
+            exact("table_match", K.table_match(prog, regs, lanes, st["valid"], rows, mode),
+                  K.table_match_ref(prog, to_cpu(regs), to_cpu(lanes), valid.cpu(), rows.cpu(),
+                                    mode))
+        print(f"kernel check subnormal keys C={c} B={b}: K22 build and probe, K21 by the index "
+              "and the scan, K23 ==, >, <= (writer, delete, in): exact", flush=True)
+    return {"subnormal_checks": checks}
+
+
+SUB_VALUES = [0.0, 1e-40, -1e-40, 1e-38, 2e-45, 1.0, -0.0, float("nan"), -2e-45, 3.5]
+SUB_HEAD = "define stream S (k float, v int, g int);\ndefine stream U (k float, v int);\n"
+# label: (app, sends after S's events, store query, a kernel the app must launch)
+SUB_APPS = {
+    "filter": ("from S[k == 0.0] select k, v insert into Out;\n"
+               "from S[k > 0.0] select k, v insert into Out;", [], None, None),
+    "pk table": ("@PrimaryKey('k') define table T (k float, v int);\n"
+                 "from S select k, v insert into T;", [], "from T select k, v", "table_write"),
+    "index update": ("@Index('k') define table T (k float, v int);\n"
+                     "from S select k, v insert into T;\n"
+                     "from U update T set T.v = v on T.k == k;", [("U", (0.0, 99))],
+                     "from T select k, v", "table_index_build"),
+    "dense update": ("define table T (k float, v int);\nfrom S select k, v insert into T;\n"
+                     "from U update T set T.v = v on T.k == k;", [("U", (-1e-40, 98))],
+                     "from T select k, v", "table_match"),
+    "upsert": ("define table T (k float, v int);\nfrom S select k, v insert into T;\n"
+               "from U update or insert into T set T.v = v on T.k == k;",
+               [("U", (2e-45, 97)), ("U", (7.0, 96))], "from T select k, v", "table_scan"),
+    "in table": ("define table T (k float, v int);\nfrom U insert into T;\n"
+                 "from S[(T.k == k) in T] select k, v insert into Out;", [], None, "table_match"),
+    "sort window": ("from S#window.sort(2, k, 'asc') select k, v insert all events into Out;",
+                    [], None, "sort_window_step"),
+    "pattern": ("from every e1=S[k == 0.0] -> e2=S[k > e1.k] select e1.v as a, e2.v as b "
+                "insert into Out;", [], None, "pattern_advance"),
+    "scan pattern": ("from every e1=S[k == 0.0] -> e2=S[k > e1.k] or e3=S[k < e1.k] "
+                     "select e1.v as a, e2.v as b, e3.v as c insert into Out;", [], None,
+                     "pattern_scan"),
+    "join on": ("from S#window.length(10) join U#window.length(10) on S.k == U.k "
+                "select S.v as a, U.v as b insert into Out;",
+                [("U", (x, 100 + i)) for i, x in enumerate(SUB_VALUES)], None, "join_assemble"),
+    "distinctCount": ("from S#window.length(8) select distinctCount(k) as d insert into Out;",
+                      [], None, "distinct_count"),
+    "partitioned sort": ("partition with (g of S) begin from S#window.sort(2, k, 'asc') "
+                         "select k, v insert all events into Out; end;", [], None,
+                         "partition_sort_window_step"),
+    "partitioned scan pattern": ("partition with (g of S) begin from every e1=S[k == 0.0] -> "
+                                 "e2=S[k > e1.k] or e3=S[k < e1.k] select e1.v as a, e2.v as b "
+                                 "insert into Out; end;", [], None, "partition_pattern_scan"),
+}
+
+
+def run_sub_app(dev: str, app: str, sends: list, query) -> tuple:
+    from siddhi_tpu_torch import SiddhiManager
+
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(SUB_HEAD + app)
+    out = []
+    if "Out" in rt.junctions:
+        rt.add_callback("Out", lambda evs: out.extend(tuple(e.data) for e in evs))
+    rt.start()
+    if "U" in app and "from U insert into T" in app:
+        rt.get_input_handler("U").send((0.0, 1))
+    for i, x in enumerate(SUB_VALUES):
+        rt.get_input_handler("S").send((x, i, i % 2))
+    for stream, row in sends:
+        rt.get_input_handler(stream).send(row)
+    rows = [r[1] for r in rt.query(query)] if query else None
+    rt.shutdown()
+    return repr(out), repr(rows)
+
+
+def subnormal_path_phase(torch) -> dict:
+    """The subnormal apps (SUB_APPS: filters, table keys, updates and `in`
+    conditions, sort windows, patterns on both routes, a join `on`,
+    distinctCount, in and out of partitions) on the card, one event a send,
+    against device="cpu": every row equal, in order; each app launches the
+    kernel named beside it."""
+    from siddhi_tpu_torch import kernels
+
+    res = {}
+    for label, (app, sends, query, kernel) in SUB_APPS.items():
+        kernels.launches.clear()
+        got = run_sub_app("cuda", app, sends, query)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        want = run_sub_app("cpu", app, sends, query)
+        if got != want:
+            raise AssertionError(f"subnormal app {label}: card {got} vs cpu {want}")
+        if kernel is not None and not launches.get(kernel):
+            raise AssertionError(f"subnormal app {label}: {kernel} never launched ({launches})")
+        res[label] = launches.get(kernel, 0) if kernel else 0
+        print(f"path SUB {label}: rows = device=\"cpu\"; {kernel} launches {res[label]}",
+              flush=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -8086,6 +8532,18 @@ def main() -> int:
             shard_path_phase(torch)
             lap("path SH")
         return 0
+    if "--redesign" in sys.argv[1:]:
+        out = {"card": card}
+        for phase in (ring_view_kernel_phase, row_lists_kernel_phase, subnormal_kernel_phase):
+            out.update(phase(torch, "cuda"))
+            lap(phase.__name__)
+        if "--no-paths" not in sys.argv[1:]:
+            out["subnormal_path"] = subnormal_path_phase(torch)
+            lap("path SUB")
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "redesign.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        return 0
     if "--partition-joins" in sys.argv[1:]:
         partition_join_kernel_phase(torch, "cuda")
         lap("partition_join_kernel_phase")
@@ -8103,6 +8561,10 @@ def main() -> int:
                   aggregation_kernel_phase, named_window_kernel_phase, lineage_kernel_phase,
                   shard_kernel_phase):
         res.update(phase(torch, "cuda"))
+        lap(phase.__name__)
+    redesign = {}  # K11/K48 and the row lists three ways; the subnormal checks
+    for phase in (ring_view_kernel_phase, row_lists_kernel_phase, subnormal_kernel_phase):
+        redesign.update(phase(torch, "cuda"))
         lap(phase.__name__)
     if "--kernels" in sys.argv[1:]:
         return 0
@@ -8151,6 +8613,8 @@ def main() -> int:
     lap("path LIN")
     sharded = shard_path_phase(torch)
     lap("path SH")
+    redesign["subnormal_path"] = subnormal_path_phase(torch)
+    lap("path SUB")
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),
@@ -8364,6 +8828,7 @@ def main() -> int:
                    "named_window_path": named_windows,
                    "lineage_path": lineage,
                    "shard_path": sharded,
+                   "redesign": redesign,
                    "ring_view_seq_W1024_ms": res["ring_view_seq"]["W1024_ms"],
                    "order_limit_store_query_shape": {
                        "ms": res["order_limit"]["query_ms"],

@@ -37,7 +37,13 @@ import torch
 from siddhi_tpu_torch import kernels
 from siddhi_tpu_torch.core.executor import CompiledExpr, Env
 from siddhi_tpu_torch.core.groupby import CompiledGroupBy, GroupCtx
-from siddhi_tpu_torch.core.types import NUMPY_DTYPE, PHYSICAL_DTYPE, AttrType, null_value
+from siddhi_tpu_torch.core.types import (
+    NUMPY_DTYPE,
+    PHYSICAL_DTYPE,
+    AttrType,
+    flush_subnormal,
+    null_value,
+)
 from siddhi_tpu_torch.ops.group import keyed_running_extreme, keyed_running_sum
 from siddhi_tpu_torch.ops.prefix import (
     extreme_identity,
@@ -371,13 +377,15 @@ def distinct_count_ref(vals, birth_pos, death_pos, n_rows: int,
     [rows, K, K] mask: the present elements sorted by (key, value, birth);
     each run of equal (key, value) merges its alive intervals into disjoint
     blocks; each block is +1 at its start and -1 at its end; a row's count
-    is the prefix of its key's events up to its position. Equality is `==`:
-    a NaN equals nothing, -0.0 equals 0.0. [n_rows] int64."""
+    is the prefix of its key's events up to its position. Equality is
+    JAX's `==`: a NaN equals nothing, -0.0 and the subnormals equal 0.0.
+    [n_rows] int64."""
     dev = vals.device
     k = vals.shape[0]
     idx = torch.arange(k, device=dev)
     present = birth_pos < death_pos
     if vals.dtype.is_floating_point:
+        vals = flush_subnormal(vals)
         nan = torch.isnan(vals)
         bits = torch.where(vals == 0, torch.zeros_like(vals), vals).view(torch.int32)
         vb = torch.where(nan, idx, bits.to(torch.int64))

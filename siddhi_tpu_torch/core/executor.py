@@ -24,6 +24,8 @@ from siddhi_tpu_torch.core.types import (
     PHYSICAL_DTYPE,
     AttrType,
     InternTable,
+    flush_needed,
+    flush_subnormal,
     null_value,
     promote,
 )
@@ -78,6 +80,8 @@ class Env:
 class CompiledExpr:
     type: AttrType
     fn: Callable[[Env], torch.Tensor]
+    # a numeric constant's value (None: not a constant, or a null)
+    const: int | float | None = None
 
     def __call__(self, env: Env) -> torch.Tensor:
         return self.fn(env)
@@ -217,7 +221,8 @@ def _const_expr(value, t: AttrType, scope: Scope) -> CompiledExpr:
     else:
         value_dev = value
     dev = torch.tensor(value_dev, dtype=PHYSICAL_DTYPE[t], device=scope.device)
-    return CompiledExpr(t, lambda env: dev)
+    const = value if t in NUMERIC_TYPES and value is not None else None
+    return CompiledExpr(t, lambda env: dev, const)
 
 
 def _int_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -286,12 +291,25 @@ def _compare(op: CompareOp, le: CompiledExpr, re_: CompiledExpr) -> CompiledExpr
     if lt in NUMERIC_TYPES and rt in NUMERIC_TYPES:
         t = promote(lt, rt)
 
+        def side(e: CompiledExpr, other: CompiledExpr):
+            # float operands compare as XLA compares them: subnormals as
+            # zero. A constant is cast and flushed once, here; another
+            # operand is flushed only where the other side needs it.
+            if e.const is not None:
+                v = flush_subnormal(_cast(e(None), t))
+                return lambda x: v
+            if flush_needed(other.const):
+                return lambda x: flush_subnormal(_cast(x, t))
+            return lambda x: _cast(x, t)
+
+        lside, rside = side(le, re_), side(re_, le)
+
         def fn(env: Env) -> torch.Tensor:
             lv, rv = le(env), re_(env)
             # a null operand makes ANY comparison false, NEQ included
             # (reference: CompareConditionExpressionExecutor.java:42)
             ok = _notnull(lv, lt) & _notnull(rv, rt)
-            return _CMP[op](_cast(lv, t), _cast(rv, t)) & ok
+            return _CMP[op](lside(lv), rside(rv)) & ok
 
     elif lt == rt and lt in (AttrType.BOOL, AttrType.STRING, AttrType.OBJECT):
         if op not in (CompareOp.EQ, CompareOp.NEQ):

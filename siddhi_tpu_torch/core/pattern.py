@@ -71,6 +71,8 @@ from siddhi_tpu_torch.core.types import (
     PHYSICAL_DTYPE,
     AttrType,
     InternTable,
+    flush_needed,
+    flush_subnormal,
     null_value,
     promote,
 )
@@ -837,6 +839,20 @@ def _const_bits(value: torch.Tensor, ty: int) -> int:
     return int(value)
 
 
+def _cmp_consts(code: list, i: int) -> tuple:
+    """The values of OP_CMP code[i]'s operands where an OP_CONST pushed
+    them (None: not a constant, or not known without a walk): b is
+    code[i - 1]'s result, a code[i - 2]'s when code[i - 1] pushed a leaf."""
+    def value(ins):
+        if ins[0] != OP_CONST:
+            return None
+        return float(np.int32(ins[2]).view(np.float32)) if ins[1] == TY_FLOAT else ins[2]
+
+    b = value(code[i - 1])
+    a = value(code[i - 2]) if i >= 2 and code[i - 1][0] in (OP_REG, OP_CONST, OP_CAP) else None
+    return a, b
+
+
 def run_program(code: list, regs: list, const, operand, what: str = "condition program"):
     """Plain interpreter of a postfix program (csrc/prog.cuh's run_prog),
     with the executor's own operations (`_cast`, `_int_div`, `_int_rem`,
@@ -846,7 +862,7 @@ def run_program(code: list, regs: list, const, operand, what: str = "condition p
     ops/table.py's table programs), in any shapes that broadcast. Returns
     the value, broadcast."""
     stack = []
-    for ins in code:
+    for i, ins in enumerate(code):
         op = ins[0]
         if op == OP_REG:
             stack.append(regs[ins[1]])
@@ -877,6 +893,10 @@ def run_program(code: list, regs: list, const, operand, what: str = "condition p
             ok = _notnull(a, _TY_LOGICAL[lt]) & _notnull(b, _TY_LOGICAL[rt])
             if t >= 0:
                 a, b = _cast(a, _TY_LOGICAL[t]), _cast(b, _TY_LOGICAL[t])
+            # subnormals as zero, as in the executor's `_compare`
+            ca, cb = _cmp_consts(code, i)
+            a = flush_subnormal(a) if flush_needed(cb) else a
+            b = flush_subnormal(b) if flush_needed(ca) else b
             stack.append(_CMP[_CMP_BY_CODE[code_]](a, b) & ok)
         elif op == OP_AND:
             b, a = stack.pop(), stack.pop()

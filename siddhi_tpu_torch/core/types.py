@@ -63,6 +63,26 @@ NULL_LONG = np.int64(np.iinfo(np.int64).min)
 # float/double nulls are NaN.
 
 
+FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor as XLA compares it: each subnormal a zero of its own
+    sign (the JAX package's comparisons, sorts and searches flush them), NaN
+    and every other value as it is. Another dtype passes through."""
+    if x.dtype != torch.float32:
+        return x
+    return torch.where(x.abs() < FLT_MIN, x * 0, x)
+
+
+def flush_needed(const) -> bool:
+    """Whether a comparison must flush an operand whose other side is the
+    constant `const` (a number; None: not a constant). Only against a zero
+    or a subnormal: every other value, NaN too, sits on the same side of a
+    subnormal as of the zero it flushes to."""
+    return const is None or abs(const) < FLT_MIN
+
+
 def promote(a: AttrType, b: AttrType) -> AttrType:
     """Binary arithmetic result type, per the reference's executor matrix."""
     if a not in NUMERIC_TYPES or b not in NUMERIC_TYPES:

@@ -27,6 +27,8 @@ the length window K29, the time windows K31, the batch windows K32).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from siddhi_tpu_torch import kernels
@@ -502,40 +504,47 @@ def ring_view_seq_ref(state: dict) -> torch.Tensor:
     return state["seq"][_view_perm_ref(state)[1]]
 
 
-def _ring_order(state: dict, what: str, with_seq: bool):
-    """K11's order pass (K48's, with the seq lane) over a ring on the
-    card: (perm [W] int32, mask [W], seq in view order [W] or None)."""
-    lanes = [state["ts"], state["seq"], state["total"], *state["cols"].values()]
-    kernels.require_cuda(what, *lanes)
-    w = state["seq"].shape[0]
-    if state["seq"].dtype != torch.int64 or state["total"].dtype != torch.int64 or any(
-            x.shape != (w,) for x in (state["ts"], *state["cols"].values())):
+_RV_SHARED_SLOTS = 56 * 1024  # csrc/ring_view.cu kSharedSlots
+
+
+def _ring_view_launch(state: dict, what: str, lanes: list, with_mask: bool, with_seq: bool):
+    """K11's one launch over a ring on the card (csrc/ring_view.cu `rv_view`):
+    each of `lanes` in view order, the mask and K48's seq lane (each when
+    asked, else None). Returns (lanes in view order, mask, vseq)."""
+    seq, total = state["seq"], state["total"]
+    kernels.require_cuda(what, seq, total, *lanes)
+    w = seq.shape[0]
+    if seq.dtype != torch.int64 or total.dtype != torch.int64 or any(
+            x.shape != (w,) for x in lanes):
         raise ValueError(f"{what}: int64 seq/total and [{w}] ring lanes expected")
-    dev = state["seq"].device
-    perm = torch.empty(w, dtype=torch.int32, device=dev)
-    mask = torch.empty(w, dtype=torch.bool, device=dev)
-    scratch = torch.empty(w, dtype=torch.int32, device=dev)
-    args = [state["seq"].data_ptr(), state["total"].data_ptr(), w, scratch.data_ptr(),
-            perm.data_ptr(), mask.data_ptr()]
-    vseq = None
-    if with_seq:
-        vseq = torch.empty(w, dtype=torch.int64, device=dev)
-        kernels.check(kernels.function("rv_order_seq")(*args, vseq.data_ptr(), kernels.stream()),
-                      what)
-        kernels.launches["ring_view_seq"] += 1
-    else:
-        kernels.check(kernels.function("rv_order")(*args, kernels.stream()), what)
-    return perm, mask, vseq
+    dev = seq.device
+    n = len(lanes)
+    dtypes = [x.dtype for x in lanes] + [torch.bool] * with_mask + [torch.int64] * with_seq
+    bufs = [torch.empty(w, dtype=dt, device=dev) for dt in dtypes]
+    mask = bufs[n] if with_mask else None
+    vseq = bufs[-1] if with_seq else None
+    src = (ctypes.c_void_p * max(n, 1))(*[x.data_ptr() for x in lanes])
+    dst = (ctypes.c_void_p * max(n, 1))(*[x.data_ptr() for x in bufs[:n]])
+    size = (ctypes.c_int * max(n, 1))(*[x.element_size() for x in lanes])
+    scratch = torch.empty(w, dtype=torch.int32, device=dev) if w > _RV_SHARED_SLOTS else None
+    kernels.check(kernels.function("rv_view")(
+        seq.data_ptr(), total.data_ptr(), w, None if scratch is None else scratch.data_ptr(),
+        n, ctypes.addressof(src), ctypes.addressof(dst), ctypes.addressof(size),
+        None if mask is None else mask.data_ptr(), None if vseq is None else vseq.data_ptr(),
+        kernels.stream()), what)
+    return bufs[:n], mask, vseq
 
 
 def ring_view_seq(state: dict) -> torch.Tensor:
     """K48: a sliding ring's admission seqs in `ring_view` order (JAX
     SlidingWindow.view_seq: the live slots' seqs ascending, then the empty
-    slots' own seqs, -1, in slot order), [W] int64, from the order pass
-    alone (csrc/ring_view.cu `rv_order_seq`)."""
+    slots' own seqs, -1, in slot order), [W] int64, from K11's launch with
+    no lane but the seq (csrc/ring_view.cu `rv_view`)."""
     if state["seq"].device.type == "cpu":
         return ring_view_seq_ref(state)
-    return _ring_order(state, "ring_view_seq", True)[2]
+    vseq = _ring_view_launch(state, "ring_view_seq", [], False, True)[2]
+    kernels.launches["ring_view_seq"] += 1
+    return vseq
 
 
 def ring_view(state: dict, with_seq: bool = False):
@@ -543,27 +552,21 @@ def ring_view(state: dict, with_seq: bool = False):
     probe (reference: FindableProcessor.find over the window buffer):
     (cols {name: [W]}, ts [W], mask [W]), live elements first by seq, then
     the empty slots in slot order. Live seqs lie in [total - W, total), so
-    the order is a rank over that dense range (csrc/ring_view.cu). With
-    `with_seq` also the seq lane in the same order (K48), from the same
-    order launch, so the view and its seqs are paired by position."""
+    the order is a rank over that dense range, and one launch places every
+    lane (csrc/ring_view.cu `rv_view`). With `with_seq` also the seq lane in
+    the same order (K48) from the same launch, so the view and its seqs are
+    paired by position."""
     if state["seq"].device.type == "cpu":
         view = ring_view_ref(state)
         return (*view, ring_view_seq_ref(state)) if with_seq else view
-    w = state["seq"].shape[0]
-    dev = state["seq"].device
-    perm, mask, vseq = _ring_order(state, "ring_view", with_seq)
-    stream = kernels.stream()
-
-    def gather(lane):
-        out = torch.empty(w, dtype=lane.dtype, device=dev)
-        kernels.check(kernels.function(f"rv_gather_{lane.element_size()}")(
-            lane.data_ptr(), perm.data_ptr(), out.data_ptr(), w, stream), "ring_view")
-        return out
-
-    cols = {n: gather(c) for n, c in state["cols"].items()}
-    ts = gather(state["ts"])
+    names = list(state["cols"])
+    lanes = [state["cols"][n] for n in names] + [state["ts"]]
+    outs, mask, vseq = _ring_view_launch(state, "ring_view", lanes, True, with_seq)
     kernels.launches["ring_view"] += 1
-    return (cols, ts, mask, vseq) if with_seq else (cols, ts, mask)
+    if with_seq:
+        kernels.launches["ring_view_seq"] += 1
+    cols = dict(zip(names, outs[:-1]))
+    return (cols, outs[-1], mask, vseq) if with_seq else (cols, outs[-1], mask)
 
 
 class SlidingWindow(WindowStage):

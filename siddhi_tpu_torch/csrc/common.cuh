@@ -10,6 +10,17 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
+// A float32 as XLA compares it: a subnormal is a zero of its own sign (the
+// JAX package's comparisons, sorts and searches flush them); NaN and every
+// other value as it is. siddhi_tpu_torch/core/types.py flush_subnormal.
+__device__ __forceinline__ bool is_subnormal_or_zero(unsigned int u) {
+  return (u & 0x7f800000u) == 0u;
+}
+__device__ __forceinline__ float flush_subnormal(float f) {
+  const unsigned int u = __float_as_uint(f);
+  return is_subnormal_or_zero(u) ? __uint_as_float(u & 0x80000000u) : f;
+}
+
 // Exclusive block-wide sum of one int per thread: returns the sum over the
 // threads before this one and sets *total to the block's sum. Every thread
 // of the block calls it; blockDim.x is a multiple of 32, and ws is a

@@ -48,6 +48,7 @@ __device__ __forceinline__ void canon(float v, int i, long long* vb, int* cls) {
     *vb = i;
   } else {
     *cls = 0;
+    v = flush_subnormal(v);  // JAX's `==`: a subnormal equals 0.0
     *vb = v == 0.0f ? 0 : __float_as_int(v);
   }
 }

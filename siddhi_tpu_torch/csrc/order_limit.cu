@@ -49,7 +49,7 @@ struct OrderKeys {
 __device__ __forceinline__ unsigned long long enc_f32(float f) {
   if (isnan(f)) return 0xFFFFFFFFull;  // after +inf (0xFF800000)
   unsigned u = __float_as_uint(f);
-  if ((u & 0x7f800000u) == 0u) u = 0u;  // -0.0 and subnormals tie 0.0
+  if (is_subnormal_or_zero(u)) u = 0u;  // -0.0 and subnormals tie 0.0
   return (u & 0x80000000u) ? (unsigned long long)(~u) : (unsigned long long)(u | 0x80000000u);
 }
 

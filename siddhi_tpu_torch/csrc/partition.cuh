@@ -1,7 +1,8 @@
 // Device routines the keyed partition kernels share (csrc/partition_window.cu
 // K29, partition_time.cu K31, partition_batch.cu K32, group_assign.cu K33):
-// stable counting ranks in one block, each slot's member rows, the TIMER
-// rows, and the (position, slot) placement of every slot's output rows.
+// stable counting ranks in one block, each slot's member rows, and the
+// (position, slot) placement of every slot's output rows (the row lists of
+// K31, K32 and K37 are csrc/partition_rows.cuh's).
 //
 // The JAX package flattens a vmapped [P, K] output by output position first
 // and partition slot second (siddhi_tpu/core/partition.py `_flatten`). With
@@ -111,22 +112,6 @@ __device__ int member_rows(int B, int P, SlotFn slot_of, int32_t* rank, int32_t*
   return carry;
 }
 
-// The rows for which pick(r) holds, in row order, into out[]; returns their
-// count. Every thread of the block calls it.
-template <typename PickFn>
-__device__ int compact_rows(int B, PickFn pick, int32_t* out, RankSmem& s) {
-  int carry = 0;
-  for (int base = 0; base < B; base += kRankThreads) {
-    const int r = base + threadIdx.x;
-    const int f = r < B && pick(r) ? 1 : 0;
-    int tot;
-    const int e = block_excl_sum(f, s.ws, &tot);
-    if (f) out[carry + e] = r;
-    carry += tot;
-  }
-  return carry;
-}
-
 // The flattened place of every slot's output rows: with n_slot[p] rows out
 // of slot p, n_start [P + 1] gets the items' offsets (the items listed slot
 // by slot), pos_base [max n + 1] A(pos), and oidx[t] the flattened row of
@@ -184,28 +169,6 @@ __device__ int place_by_position(int P, const int32_t* n_slot, int32_t* n_start,
       [&](int t, int pos, int rk) { oidx[t] = pos_base[pos] + rk; }, s);
   *maxn_out = maxn;
   return R;
-}
-
-// One block: each slot's member rows (valid CURRENT rows whose slot lies in
-// [0, P)) and the TIMER rows in row order, for the window steps K31/K32;
-// info[2] = member rows, info[3] = TIMER rows.
-__global__ void __launch_bounds__(kRankThreads)
-window_rows_kernel(const int8_t* kind, const bool* valid, const int32_t* slot, int B, int P,
-                   int32_t* rank, int32_t* rowlist, int32_t* slot_start, int32_t* timers,
-                   int32_t* counters, int32_t* info) {
-  __shared__ RankSmem s;
-  const int C = member_rows(
-      B, P,
-      [&](int r) {
-        const int sl = slot[r];
-        return valid[r] && kind[r] == 0 && sl >= 0 && sl < P ? sl : -1;
-      },
-      rank, rowlist, slot_start, counters, s);
-  const int T = compact_rows(B, [&](int r) { return valid[r] && kind[r] == 2; }, timers, s);
-  if (threadIdx.x == 0) {
-    info[2] = C;
-    info[3] = T;
-  }
 }
 
 // One block: the (position, slot) placement of n_slot[p] rows a slot;

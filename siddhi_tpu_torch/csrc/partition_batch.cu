@@ -10,9 +10,9 @@
 // TIMER row moves every slot's clock, used or not. The output comes out
 // already in (position within the partition, slot) order.
 //
-//   - pb_rows (one block of 1024 threads): each member row's rank in its
-//     slot, the slot offsets and row lists, and the TIMER rows in order
-//     (csrc/partition.cuh window_rows_kernel).
+//   - the row lists: each member row's rank in its slot, the slot offsets
+//     and row lists, and the TIMER rows in order, come from K31's `pt_rows`
+//     (csrc/partition_time.cu, on csrc/partition_rows.cuh).
 //   - pb_step (one thread a slot): the slot's rows and the TIMER rows
 //     merged in row order, walked once. A lengthBatch bucket flushes at the
 //     row that fills it; a time bucket at the first trigger row (CURRENT or
@@ -313,15 +313,6 @@ int pb_gather(const void* cur, const void* prev, const void* bat, const int32_t*
 }  // namespace
 
 extern "C" {
-
-// info: [R rows, max rows of a slot, member rows, TIMER rows]
-int pb_rows(const int8_t* kind, const bool* valid, const int32_t* slot, int B, int P,
-            int32_t* rank, int32_t* rowlist, int32_t* slot_start, int32_t* timers,
-            int32_t* counters, int32_t* info, cudaStream_t stream) {
-  window_rows_kernel<<<1, kRankThreads, 0, stream>>>(kind, valid, slot, B, P, rank, rowlist,
-                                                 slot_start, timers, counters, info);
-  return (int)cudaGetLastError();
-}
 
 // T: the TIMER rows (info[3], read by the caller to size the scratch);
 // next_timer must hold NO_TIMER (int64 max) on entry

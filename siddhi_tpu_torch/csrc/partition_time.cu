@@ -10,9 +10,10 @@
 // `(active & slot == p) | is_timer`), and the output comes out already in
 // (position within the partition, slot) order, about P*W + 2B rows at most.
 //
-//   - pt_rows (one block of 1024 threads): each member row's rank in its
-//     slot, the slot offsets and row lists, and the TIMER rows in order
-//     (csrc/partition.cuh window_rows_kernel).
+//   - pt_rows: each member row's rank in its slot, the slot offsets and
+//     row lists, and the TIMER rows in order, from one stable sort of the
+//     rows by slot (csrc/partition_rows.cuh: one block up to 2,048 rows,
+//     one cooperative launch over the card above).
 //   - pt_step (one block a slot): the slot's W ring elements and c batch
 //     elements each find their trigger row, the earlier of the insertion W
 //     later (capacity) and the first CURRENT row of the slot or TIMER row at
@@ -40,6 +41,7 @@
 
 #include "common.cuh"
 #include "partition.cuh"
+#include "partition_rows.cuh"
 
 namespace {
 
@@ -250,13 +252,21 @@ __global__ void pt_emit_kernel(const int64_t* batch_ts, const int32_t* slot, int
 
 extern "C" {
 
-// info: [R rows, max rows of a slot, member rows, TIMER rows]
+// The bytes of pt_rows' workspace for B rows and P slots.
+long long pt_rows_workspace(int B, int P) {
+  RadixWork rw;
+  unsigned* bins;
+  return (long long)rows_carve(nullptr, B, P, &rw, &bins);
+}
+
+// rows: [P] each slot's member rows; info: [R rows, max rows of a
+// slot, member rows, TIMER rows] (the first two zeroed here, for the
+// placement to fill); work: pt_rows_workspace bytes
 int pt_rows(const int8_t* kind, const bool* valid, const int32_t* slot, int B, int P,
             int32_t* rank, int32_t* rowlist, int32_t* slot_start, int32_t* timers,
-            int32_t* counters, int32_t* info, cudaStream_t stream) {
-  window_rows_kernel<<<1, kRankThreads, 0, stream>>>(kind, valid, slot, B, P, rank, rowlist,
-                                                 slot_start, timers, counters, info);
-  return (int)cudaGetLastError();
+            int32_t* rows, int32_t* info, void* work, cudaStream_t stream) {
+  return launch_rows(kind, valid, slot, B, P, rank, rowlist, slot_start, timers, rows, info,
+                     work, stream);
 }
 
 // next_timer must hold NO_TIMER (int64 max) on entry

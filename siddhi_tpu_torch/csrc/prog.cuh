@@ -15,6 +15,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kMaxStack = 16;
@@ -86,10 +88,11 @@ __device__ __forceinline__ Val convert(Val v, int from, int to) {
   return r;
 }
 
-// raw equality of two values of one physical type (NaN equals nothing)
+// equality of two values of one physical type as the JAX package's `==`
+// (NaN equals nothing; a float subnormal equals zero, flush_subnormal)
 __device__ __forceinline__ bool raw_eq(Val a, Val b, int ty) {
   switch (ty) {
-    case TY_FLOAT: return a.f == b.f;
+    case TY_FLOAT: return flush_subnormal(a.f) == flush_subnormal(b.f);
     case TY_LONG: return a.i == b.i;
     case TY_BOOL: return (a.i != 0) == (b.i != 0);
     default: return (int)a.i == (int)b.i;
@@ -107,12 +110,13 @@ __device__ __forceinline__ bool not_null(Val v, int ty) {
 }
 
 // a value's place in the sort's total order, as an unsigned integer: a
-// float's -0.0 and 0.0 are one value and every NaN one value after +inf (the
-// JAX sort canonicalises them so), an int its offset binary
+// float's -0.0, 0.0 and subnormals are one value and every NaN one value
+// after +inf (the JAX sort canonicalises them so, under XLA's flush), an int
+// its offset binary
 __device__ __forceinline__ unsigned long long total_key(Val v, int ty) {
   switch (ty) {
     case TY_FLOAT: {
-      float f = v.f;
+      const float f = flush_subnormal(v.f);
       unsigned int u;
       if (f == 0.0f) u = 0u;
       else if (isnan(f)) u = 0x7fc00000u;
@@ -243,7 +247,8 @@ __device__ Val run_prog(const long long* ins, int len, const Src& src) {
         const Val y = st[sp - 1], x = st[sp - 2];
         bool v = not_null(x, lt) && not_null(y, rt);
         if (tc == TY_FLOAT) {
-          v = v && t_cmp(op, cast_up(x, lt, TY_FLOAT).f, cast_up(y, rt, TY_FLOAT).f);
+          v = v && t_cmp(op, flush_subnormal(cast_up(x, lt, TY_FLOAT).f),
+                         flush_subnormal(cast_up(y, rt, TY_FLOAT).f));
         } else if (tc == TY_INT) {
           v = v && t_cmp(op, (int)x.i, (int)y.i);
         } else {

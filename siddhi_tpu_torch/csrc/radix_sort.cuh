@@ -376,13 +376,19 @@ __device__ __forceinline__ int radix_count(const RadixWork& wk, const GridSmem& 
   return (int)((o >> (8 * b)) & 0xffull) == d ? R : 0;  // every row holds one value
 }
 
+struct NoHook {
+  __device__ void operator()() const {}
+};
+
 // Every block of a cooperative launch of at most sort_blocks(R) blocks of
-// kSortThreads threads calls it (R > 0). word(w, r) is row r's word w;
-// emit(place, row) gets each row's place in the order (no barrier after
-// it: a caller reading the order from other blocks syncs the grid first).
-template <class WordFn, class EmitFn>
+// kSortThreads threads calls it (R > 0). word(w, r) is row r's word w, asked
+// once a row and word, in phase 1; emit(place, row) gets each row's place in
+// the order (no barrier after it: a caller reading the order from other
+// blocks syncs the grid first). after_encode() runs in every block after
+// phase 1's grid barrier, and what it writes is seen by every emit.
+template <class WordFn, class EmitFn, class HookFn = NoHook>
 __device__ void radix_sort_grid(int R, int nw, WordFn word, const RadixWork& wk, GridSmem& s,
-                                EmitFn emit) {
+                                EmitFn emit, HookFn after_encode = HookFn()) {
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = gridDim.x, tiles = sort_tiles(R);
@@ -420,6 +426,7 @@ __device__ void radix_sort_grid(int R, int nw, WordFn word, const RadixWork& wk,
   for (long long x = row0 + tid; x < (long long)tiles * 256; x += row_step)
     wk.status[0][x] = wk.status[1][x] = 0u;
   grid.sync();
+  after_encode();
 
   // 2. the pass list; the digit counts of every byte that varies, word by
   // word (they do not depend on the order, as in Onesweep)

@@ -72,7 +72,7 @@ __device__ __forceinline__ Key load_key(const void* p, long long idx, int type, 
   out.i = 0;
   switch (type) {
     case 0: {
-      const float v = ((const float*)p)[idx];
+      const float v = flush_subnormal(((const float*)p)[idx]);  // as XLA compares
       out.f = desc ? -v : v;
       break;
     }

@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers) and is
 compiled at first use with `nvcc` for Hopper (`sm_90a`) into a shared library
 under `_build/`, named by a hash of its source and of the headers `csrc/*.cuh`
 (the block scan and gather the sources share, the table programs'
-interpreter, the radix sort of K22 and K46) so an edited kernel is rebuilt.
+interpreter, the radix sort of K22, K46 and the row lists) so an edited
+kernel is rebuilt.
 `build_all()` starts one `nvcc` per source, all at once. The libraries are
 loaded with `ctypes`; every pointer and the stream travel as `c_void_p`, and
 each entry point returns its `cudaError_t`, which `check()` turns into an
@@ -79,8 +80,7 @@ SIGNATURES = {
     "keyed_running_sum_i64": ("keyed_running_sum", _KEYED_SUM),
     "keep_last": ("keep_last", [P, P, P, I, P, P, P]),
     "tw_prepare": ("time_window", [P] * 7 + [I, I, I, LL] + [P] * 21 + [P]),
-    "rv_order": ("ring_view", [P, P, I, P, P, P, P]),
-    "rv_order_seq": ("ring_view", [P, P, I, P, P, P, P, P]),
+    "rv_view": ("ring_view", [P, P, I, P, I, P, P, P, P, P, P]),
     "rv_gather_1": ("ring_view", _RV_GATHER),
     "rv_gather_4": ("ring_view", _RV_GATHER),
     "rv_gather_8": ("ring_view", _RV_GATHER),
@@ -127,14 +127,14 @@ SIGNATURES = {
     "pw_extreme_f32": ("partition_window", _PW_EXTREME),
     "pw_extreme_i32": ("partition_window", _PW_EXTREME),
     "pw_extreme_i64": ("partition_window", _PW_EXTREME),
-    "pt_rows": ("partition_time", [P] * 3 + [I, I] + [P] * 6 + [P]),
+    "pt_rows": ("partition_time", [P] * 3 + [I, I] + [P] * 7 + [P]),
+    "pt_rows_workspace": ("partition_time", [I, I]),
     "pt_step": ("partition_time", [P] * 4 + [I, I, I, LL] + [P] * 16 + [P]),
     "pt_place": ("partition_time", [I] + [P] * 6 + [P]),
     "pt_emit": ("partition_time", [P, P, I, I, I, I] + [P] * 19 + [P]),
     "pt_gather_1": ("partition_time", _GATHER),
     "pt_gather_4": ("partition_time", _GATHER),
     "pt_gather_8": ("partition_time", _GATHER),
-    "pb_rows": ("partition_batch", [P] * 3 + [I, I] + [P] * 6 + [P]),
     "pb_step": ("partition_batch", [I] * 8 + [LL] * 3 + [P] * 23 + [P]),
     "pb_place": ("partition_batch", [I] + [P] * 6 + [P]),
     "pb_emit": ("partition_batch", [P] * 4 + [I] * 6 + [P] * 18 + [P]),
@@ -172,7 +172,7 @@ SIGNATURES = {
 }
 
 # entry points that return a size (long long) instead of a cudaError_t
-RESTYPES = {"ti_build_workspace": LL, "ol_workspace": LL}
+RESTYPES = {"ti_build_workspace": LL, "ol_workspace": LL, "pt_rows_workspace": LL}
 
 launches: collections.Counter = collections.Counter()
 

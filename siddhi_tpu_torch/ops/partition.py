@@ -685,13 +685,9 @@ def partition_batch_window_step(state: dict, batch: EventBatch, wts: torch.Tenso
         raise ValueError(f"partition_batch_window_step: P {p}, w {w}, n {n}, t {t} out of range")
     dev = batch.ts.device
     stream = kernels.stream()
-    rank, rowlist, slot_start, timers = _i32(bsz, dev), _i32(bsz, dev), _i32(p + 1, dev), \
-        _i32(bsz, dev)
-    info = _i32(4, dev)
-    kernels.check(kernels.function("pb_rows")(
-        batch.kind.data_ptr(), batch.valid.data_ptr(), slot.data_ptr(), bsz, p, rank.data_ptr(),
-        rowlist.data_ptr(), slot_start.data_ptr(), timers.data_ptr(),
-        _i32(p + 1, dev).data_ptr(), info.data_ptr(), stream), "partition_batch_window_step")
+    lists = _row_lists("partition_batch_window_step", batch, slot, p, 0)
+    rank, rowlist, slot_start, timers = lists.rank, lists.rowlist, lists.slot_start, lists.timers
+    info = lists.info
     n_timers = int(info[3]) if timed else 0  # a TIMER row flushes in every slot
     stride = (3 * w if emit_expired else w) + n_timers + 1
     cap = p * stride + (3 if emit_expired else 2) * bsz
@@ -986,29 +982,50 @@ def partition_rows_ref(batch: EventBatch, slot: torch.Tensor, p: int) -> Partiti
                          rows=(slot_start[1:] - slot_start[:-1]).to(torch.int32))
 
 
+_ROWS_SORT_WORDS: dict = {}  # (B, P) -> the sort's int32 words of the workspace
+
+
+def _row_lists(what: str, batch: EventBatch, slot: torch.Tensor, p: int,
+               counters: int) -> PartitionRows:
+    """The row lists on the card through `pt_rows` (csrc/partition_rows.cuh's
+    launch), for K31, K32 and K37: every lane, a `counters`-long scratch
+    for the caller's later kernels and the sort's own scratch, carved from
+    one int32 workspace (one allocation a call: a TIMER step's batch of one
+    row is all wrapper)."""
+    bsz = batch.capacity
+    dev = batch.ts.device
+    kernels.require_cuda(what, batch.kind, batch.valid, slot)
+    if slot.dtype != torch.int32 or slot.shape != (bsz,) or p < 1:
+        raise ValueError(f"{what}: int32 [{bsz}] slots and P >= 1 expected")
+    key = (bsz, p)
+    words = _ROWS_SORT_WORDS.get(key)
+    if words is None:  # 256-byte aligned, so the lanes after it keep the carve's alignment
+        words = _ROWS_SORT_WORDS[key] = -(-kernels.function("pt_rows_workspace")(bsz, p)
+                                          // 256) * 64
+    ws = torch.empty(words + 4 + 3 * bsz + (p + 1) + p + counters, dtype=torch.int32,
+                     device=dev)
+    cuts = [words, 4, bsz, bsz, bsz, p + 1, p, counters]
+    _sort, info, rank, rowlist, timers, slot_start, rows, scratch = torch.split(ws, cuts)
+    kernels.check(kernels.function("pt_rows")(
+        batch.kind.data_ptr(), batch.valid.data_ptr(), slot.data_ptr(), bsz, p, rank.data_ptr(),
+        rowlist.data_ptr(), slot_start.data_ptr(), timers.data_ptr(),
+        rows.data_ptr(), info.data_ptr(), ws.data_ptr(),
+        kernels.stream()), what)
+    return PartitionRows(rowlist=rowlist, slot_start=slot_start, timers=timers, info=info,
+                         rows=rows, rank=rank, counters=scratch)
+
+
 def partition_rows(batch: EventBatch, slot: torch.Tensor, p: int,
                    counters: Optional[int] = None) -> PartitionRows:
     """Each slot's member rows (valid CURRENT rows with a slot in [0, P))
-    and the TIMER rows. On the card, partition.cuh's row lists (`pt_rows`,
-    which K31 and K37 take); counters: the scratch's size (at least P + 1,
-    the default)."""
-    dev = batch.ts.device
-    if dev.type == "cpu":
+    and the TIMER rows. On the card, one stable sort of the rows by slot
+    (csrc/partition_rows.cuh through `pt_rows`; K31 and K37 take its lists);
+    counters: the scratch's size (at least P + 1, the default)."""
+    if batch.ts.device.type == "cpu":
         return partition_rows_ref(batch, slot, p)
-    bsz = batch.capacity
-    kernels.require_cuda("partition_rows", batch.kind, batch.valid, slot)
-    rank, rowlist, slot_start, timers = _i32(bsz, dev), _i32(bsz, dev), _i32(p + 1, dev), \
-        _i32(bsz, dev)
-    scratch = _i32(max(counters or 0, p + 1), dev)
-    info = torch.zeros(4, dtype=torch.int32, device=dev)
-    kernels.check(kernels.function("pt_rows")(
-        batch.kind.data_ptr(), batch.valid.data_ptr(), slot.data_ptr(), bsz, p, rank.data_ptr(),
-        rowlist.data_ptr(), slot_start.data_ptr(), timers.data_ptr(), scratch.data_ptr(),
-        info.data_ptr(), kernels.stream()), "partition_rows")
+    out = _row_lists("partition_rows", batch, slot, p, max(counters or 0, p + 1))
     kernels.launches["partition_rows"] += 1
-    return PartitionRows(rowlist=rowlist, slot_start=slot_start, timers=timers, info=info,
-                         rows=(slot_start[1:] - slot_start[:-1]).to(torch.int32), rank=rank,
-                         counters=scratch)
+    return out
 
 
 def pattern_place_ref(out: dict, off, cap, n, p: int):

@@ -32,6 +32,7 @@ from siddhi_tpu_torch.core.event import (
     KIND_RESET,
     KIND_TIMER,
 )
+from siddhi_tpu_torch.core.types import flush_subnormal
 from siddhi_tpu_torch.ops.table import _Args
 
 MAX_SORT_KEYS = 16  # kMaxSortKeys of csrc/special_window.cu
@@ -173,9 +174,10 @@ def _gather_slots(what, state, batch, new_src, out_src, w):
 
 def _sort_key_values(lane: torch.Tensor, desc: bool) -> list:
     """A key lane as the comparator sees it (JAX `_sort_keys`): bool as
-    int32, `-c` for a descending key, wrapping on integers."""
+    int32, `-c` for a descending key, wrapping on integers, a float's
+    subnormals as zeros (XLA's comparisons flush them)."""
     if lane.dtype == torch.float32:
-        vals = lane.tolist()
+        vals = flush_subnormal(lane).tolist()
         return [-v for v in vals] if desc else vals
     vals = [int(v) for v in lane.tolist()]
     if not desc:

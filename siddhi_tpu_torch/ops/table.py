@@ -61,6 +61,7 @@ from siddhi_tpu_torch.core.pattern import (
     TY_LONG,
     run_program,
 )
+from siddhi_tpu_torch.core.types import flush_subnormal
 from siddhi_tpu_torch.ops.prefix import first_indices
 
 OP_TAB = 3  # (OP_TAB, lane, ty): table lane `lane` at the slot (prog.cuh OP_OPERAND)
@@ -158,15 +159,17 @@ def table_write_ref(state: dict, cols: dict, ts, rows, pk_cols: list):
     if pk_cols:
         stored = torch.zeros(b, dtype=torch.bool, device=dev)
         step = max(1, _CELLS // max(c, 1))
+        keys = {k: flush_subnormal(cols[k]) for k in pk_cols}  # compared as JAX compares
+        held = {k: flush_subnormal(state["cols"][k]) for k in pk_cols}
         for lo in range(0, b, step):
             hi = min(b, lo + step)
             m = rows[lo:hi, None] & valid[None, :]
             for k in pk_cols:
-                m = m & (cols[k][lo:hi, None] == state["cols"][k][None, :])
+                m = m & (keys[k][lo:hi, None] == held[k][None, :])
             stored[lo:hi] = m.any(dim=1)
         same = torch.ones((b, b), dtype=torch.bool, device=dev)
         for k in pk_cols:
-            same = same & (cols[k][:, None] == cols[k][None, :])
+            same = same & (keys[k][:, None] == keys[k][None, :])
         ar = torch.arange(b, device=dev)
         earlier = same & rows[None, :] & (ar[None, :] < ar[:, None])
         fresh = rows & ~earlier.any(dim=1) & ~stored
@@ -266,8 +269,9 @@ def sort_sentinel(dtype: torch.dtype):
 def table_index_build_ref(keys: torch.Tensor, valid: torch.Tensor):
     """Plain version of `table_index_build`, in the JAX package's
     formulation (_rebuild_index): a stable lexsort by (empty, key), the
-    sentinel fill and the adjacent-duplicate test."""
-    o1 = torch.sort(keys.to(torch.uint8) if keys.dtype == torch.bool else keys,
+    sentinel fill and the adjacent-duplicate test. Float keys sort and
+    compare with their subnormals as zeros, as XLA's do."""
+    o1 = torch.sort(keys.to(torch.uint8) if keys.dtype == torch.bool else flush_subnormal(keys),
                     stable=True).indices
     o2 = torch.sort((~valid[o1]).to(torch.uint8), stable=True).indices
     order = o1[o2]
@@ -275,7 +279,8 @@ def table_index_build_ref(keys: torch.Tensor, valid: torch.Tensor):
     sk = torch.where(svalid, keys[order],
                      torch.tensor(sort_sentinel(keys.dtype), dtype=keys.dtype,
                                   device=keys.device))
-    dups = ((sk[1:] == sk[:-1]) & svalid[1:] & svalid[:-1]).any()
+    fk = flush_subnormal(sk)
+    dups = ((fk[1:] == fk[:-1]) & svalid[1:] & svalid[:-1]).any()
     return order.to(torch.int32), sk, dups
 
 
@@ -306,12 +311,13 @@ def table_index_build(keys: torch.Tensor, valid: torch.Tensor):
 
 def total_order(x: torch.Tensor) -> torch.Tensor:
     """Keys whose integer order is the JAX sort's total order: a float's
-    -0.0 and 0.0 one value, every NaN one value after +inf (an int's order
-    is its own; a bool is 0/1)."""
+    -0.0, 0.0 and subnormals one value, every NaN one value after +inf (an
+    int's order is its own; a bool is 0/1)."""
     if x.dtype == torch.bool:
         return x.to(torch.uint8)
     if x.dtype != torch.float32:
         return x
+    x = flush_subnormal(x)
     x = torch.where(x == 0, torch.zeros_like(x), x)
     x = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
     u = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
@@ -329,7 +335,9 @@ def table_index_probe_ref(keys, valid, order, sk, probe_raw, probe_ok):
     probe = probe_raw.to(keys.dtype)
     pos = torch.searchsorted(total_order(sk), total_order(probe), side="left").clamp(0, c - 1)
     cand = order[pos].long()
-    hit = probe_ok & (keys[cand] == probe_raw) & valid[cand]
+    t = _promoted(keys.dtype, probe_raw.dtype)
+    hit = probe_ok & (flush_subnormal(keys[cand].to(t)) == flush_subnormal(probe_raw.to(t))) \
+        & valid[cand]
     idx = torch.arange(b, device=keys.device)
     perm = idx
     for k in (idx, hit.to(torch.int32), cand):
@@ -543,6 +551,7 @@ def table_update_scan_ref(scan: ScanPrograms, regs: list, state: dict, rows):
             name = sets[guard][0]
             kcol = cols[name]
             v = vals[name]
+            v, kcol = flush_subnormal(v), flush_subnormal(kcol)
             changed = m & (v != kcol)
             n_changed = changed.sum()
             i0 = int(torch.argmax(changed.to(torch.uint8)))
