@@ -55,7 +55,10 @@ engine next to it. Phases, each printed as it ends:
      and probe compaction K39 at path PJ's shape (P=1024, W=50, 32,768
      probe rows, joinCapacity 512 a slot) with inner and outer joins,
      EXPIRED probes, a unidirectional side, a self-join, one slot
-     overflowing, empty slots and keys past capacity, ragged B/P/W, and
+     overflowing, empty slots and keys past capacity, ragged B/P/W (K38,
+     one launch a view, also at W 32/33/64/65/1,024/1,025, empty and holed
+     rings, 40 lanes and W past shared memory, timed three ways beside a
+     stable argsort and argsort plus a gather a lane), and
      the keyed sort and frequent windows K40/K41 at paths PSW's and PFQ's
      shapes with NaN/-0.0 sort keys, -0.0/0.0 frequent keys and more than
      N new keys a call in one slot, bit for bit (see
@@ -76,15 +79,23 @@ engine next to it. Phases, each printed as it ends:
      view paired with it, exactly (see lineage_kernel_phase); the sharded
      execution's owner hash and fold K49 and routed pre-pass K50 at path
      SH's shapes and ragged (B 1/33/32,768, D 1/2/8, INT64 edge keys, NaN
-     and -0.0 lanes, all-TIMER batches), exactly (see shard_kernel_phase);
+     and -0.0 lanes, all-TIMER batches), exactly, the fold (one launch
+     reading each shard's lanes in place) also at D 64 and 70 (a device
+     pointer table) and timed three ways beside a `torch.gather` a lane
+     and the stacks it replaced (see shard_kernel_phase);
      the ring view K11 (one launch a view) and its seq lane K48 at W 1, 16,
      100, 1,024 and 57,345, full, rotated, with holes and empty, and the
      row lists of K31/K32/K37 (one stable sort by slot) at B 1/33/2,048/
      2,049/32,768 and P 1/33/1,024 with all-TIMER, no-TIMER and all-invalid
      batches, exactly, each timed three ways beside its stock calls (see
      ring_view_kernel_phase, row_lists_kernel_phase); K21-K23 on float32
-     keys with subnormals, exactly (see subnormal_kernel_phase); subnormal
-     operands and keys run through the trap data of K16, K22 and K25-K43;
+     keys with subnormals and K23/K24 with float arithmetic in their table
+     programs, exactly (see subnormal_kernel_phase); subnormal operands and
+     keys run through the trap data of K16, K22 and K25-K43, the
+     arithmetic traps (ARITH_TRAPS: subnormals, FLT_MIN's neighbours, sums
+     cancelling below it) through K2, K3, K8, K16, K17-K19, K29/K30 and
+     K44, and K2's and K8's sums of EXACT_SUM_VALUES equal their plain
+     versions' exactly;
   3. verify cases filter_num, len_window_avg, len_window_minmax,
      len_batch_group, having_order, stddev_distinct, time_window,
      external_time, self_join, pattern_within, count_seq,
@@ -225,8 +236,10 @@ engine next to it. Phases, each printed as it ends:
  17. path SUB (SUB_APPS; see subnormal_path_phase): float32 subnormals,
      one event a send, through filters, table keys, updates and `in`, sort
      windows, patterns on both routes, a join `on`, distinctCount and
-     partitions, every row against device="cpu", each app's kernel
-     launched.
+     partitions, and through float32 arithmetic (filters, projections,
+     sums, averages, stdDev, min/max, grouped and partitioned, a table's
+     set clause, a pattern condition), every row against device="cpu",
+     each app's kernel launched.
 Each phase prints an `elapsed ... s after ...` line.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}.
@@ -310,6 +323,23 @@ RTOL = 2e-4  # bench.py:_rows_match
 # float32 subnormals of both signs: XLA's comparisons, sorts and searches
 # take them as zeros, and so do the port's (core/types.py flush_subnormal)
 SUBNORMALS = np.array([1e-40, -1e-40, 1e-38, -1e-38, 2e-45, -2e-45], np.float32)
+# float32 operands for arithmetic traps: the subnormals (read as zeros),
+# the zeros, FLT_MIN's neighbours and values whose sums and differences
+# cancel below FLT_MIN (flushed as zeros)
+ARITH_TRAPS = np.concatenate([SUBNORMALS, np.array(
+    [0.0, -0.0, 1.1754944e-38, -1.1754944e-38, 1.5e-38, -1.4e-38, 2e-38, 1e-20], np.float32)])
+# sums of these are exact in any order once a subnormal reads as zero, so a
+# kernel's sums equal its plain version's bit for bit
+EXACT_SUM_VALUES = np.concatenate([SUBNORMALS, np.array([0.0, -0.0, 1.0, -1.0, 2.0, 3.5],
+                                                        np.float32)])
+
+
+def arith_traps(rng, x: np.ndarray, share: float = 0.1) -> np.ndarray:
+    """x (float32) with a `share` of its values drawn from ARITH_TRAPS."""
+    pick = rng.random(x.shape) < share
+    x = x.copy()
+    x[pick] = rng.choice(ARITH_TRAPS, int(pick.sum()))
+    return x
 MAIN_BATCH, MAIN_W, MAIN_EVENTS = 32768, 50, 2_000_000
 
 # the 8-symbol stock feed of bench.py:_make_stock_data
@@ -683,6 +713,8 @@ def kernel_phase(torch, dev) -> dict:
         valid = d["price"] > 50  # the main path's filter
         kind = np.zeros(b, np.int8)
         if ragged:
+            d["price"] = arith_traps(rng, d["price"])  # subnormal operands, kept valid
+            valid |= np.isin(d["price"], ARITH_TRAPS)
             valid &= np.arange(b) < rng.integers(b // 2, b + 1)
             kind[rng.random(b) < 0.05] = 2  # TIMER rows pass through untouched
         return EventBatch(
@@ -719,6 +751,13 @@ def kernel_phase(torch, dev) -> dict:
                 r = running_sum_ref(c, reset, bs)
                 res["running_sum"]["max_abs_err"] = max(
                     res["running_sum"]["max_abs_err"], max_abs_err(torch, list(g), list(r)))
+            if ragged:
+                # sums exact in any order: every subnormal flushed, equal
+                # values (the sign of a zero sum follows the formulation)
+                c = torch.from_numpy(rng.choice(EXACT_SUM_VALUES, 2 * b)).to(dev)
+                bs = torch.tensor(float(rng.choice(EXACT_SUM_VALUES)), device=dev)
+                exact_values(torch, list(running_sum(c, reset, bs)),
+                             list(running_sum_ref(c, reset, bs)))
             # K3 over this step's window elements
             vals = torch.cat([state["cols"]["price"], batch.cols["price"]])
             for is_min in (True, False):
@@ -773,6 +812,27 @@ def kernel_phase(torch, dev) -> dict:
               f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={r['library_ms']} "
               f"max_abs_err={r['max_abs_err']}", flush=True)
     return res
+
+
+def exact_values(torch, got, want) -> None:
+    """Exact check of float sums by value (a zero's sign aside): raises on
+    any difference, a subnormal against a zero among them."""
+    if max_abs_err(torch, got, want) != 0.0:
+        raise AssertionError("float values differ")
+
+
+def same_bits_but_nan(torch, got, want) -> None:
+    """`same_bits` where a float NaN may carry any payload (arithmetic on
+    the host and on the card makes different NaNs): NaN positions equal,
+    every other element bit for bit."""
+    g, w = flat(got), flat(want)
+    nan_g = [x.isnan() if x.dtype.is_floating_point else None for x in g]
+    nan_w = [x.isnan() if x.dtype.is_floating_point else None for x in w]
+    for a, b in zip(nan_g, nan_w, strict=True):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError("NaN positions differ")
+    same_bits(torch, [torch.where(m, 0, x) if m is not None else x for x, m in zip(g, nan_g)],
+              [torch.where(m, 0, x) if m is not None else x for x, m in zip(w, nan_w)])
 
 
 def same_bits(torch, got, want) -> float:
@@ -974,6 +1034,7 @@ def grouped_kernel_phase(torch, dev) -> dict:
         valid = np.ones(b, bool)
         kind = np.zeros(b, np.int8)
         if ragged:
+            d["price"] = arith_traps(rng, d["price"])  # subnormal operands of the avg sum
             valid &= rng.random(b) < 0.9
             kind[rng.random(b) < 0.05] = 2  # TIMER rows are not window arrivals
         return EventBatch(
@@ -994,7 +1055,8 @@ def grouped_kernel_phase(torch, dev) -> dict:
                 "n": torch.zeros((), dtype=torch.int32, device=dev),
                 "sum": torch.zeros(g, dtype=torch.int64, device=dev),
                 "avg_sum": torch.zeros(g, dtype=torch.float32, device=dev),
-                "avg_count": torch.zeros(g, dtype=torch.float32, device=dev)}
+                "avg_count": torch.zeros(g, dtype=torch.float32, device=dev),
+                "exact_sum": torch.zeros(g, dtype=torch.float32, device=dev)}
 
     def group_step(out, gs):
         """K7-K9 over one flow against their plain versions; returns the new
@@ -1012,12 +1074,17 @@ def grouped_kernel_phase(torch, dev) -> dict:
             "sum": torch.where(sign != 0, out.cols["volume"] * sign.to(torch.int64), 0),
             "avg_sum": torch.where(sign != 0, out.cols["price"] * sgn_f, 0.0),
             "avg_count": sgn_f,
+            # sums exact in any order: subnormals flushed bit for bit
+            "exact_sum": torch.where(sign != 0, torch.from_numpy(
+                rng.choice(EXACT_SUM_VALUES, sign.shape[0])).to(dev) * sgn_f, 0.0),
         }
         new = {"keys": want[0], "used": want[1], "n": want[2]}
         for k, contrib in sums.items():
             g = keyed_running_sum(contrib, grp, reset, gs[k], slot)
             w = keyed_running_sum_ref(contrib, grp, reset, gs[k], slot)
             check("keyed_running_sum", list(g), list(w))
+            if k == "exact_sum":
+                exact_values(torch, list(g), list(w))
             new[k] = w[1]
         kb = out.kind == KIND_EXPIRED
         check("keep_last", keep_last(grp.first, kb, emitted), keep_last_ref(grp.first, kb, emitted))
@@ -1686,8 +1753,8 @@ def pattern_scan_kernel_phase(torch, dev) -> dict:
         null = rng.random(shape) < 0.1
         if dtype == torch.float32:
             v = rng.uniform(0, 100, shape).astype(np.float32)
-            sub = rng.random(shape) < 0.05  # compared as zeros
-            v[sub] = rng.choice(np.append(SUBNORMALS, 0.0), int(sub.sum()))
+            sub = rng.random(shape) < 0.05  # compared and computed as zeros
+            v[sub] = rng.choice(ARITH_TRAPS, int(sub.sum()))
             v[null] = np.nan
         elif name == "symbol":
             v = rng.integers(0, 5, shape).astype(np.int32)
@@ -1946,7 +2013,8 @@ def time_batch_kernel_phase(torch, dev) -> dict:
         ets = ts.copy()
         if ext_timers:
             ets[kind == 2] = long_null  # a TIMER row's null payload
-        cols = {"symbol": d["symbol"], "price": d["price"], "volume": d["volume"], "ets": ets}
+        price = arith_traps(rng, d["price"]) if ragged else d["price"]  # subnormal operands
+        cols = {"symbol": d["symbol"], "price": price, "volume": d["volume"], "ets": ets}
         return EventBatch(ts=torch.from_numpy(ts).to(dev), kind=torch.from_numpy(kind).to(dev),
                           valid=torch.from_numpy(valid).to(dev),
                           cols={n: torch.from_numpy(v).to(dev) for n, v in cols.items()})
@@ -2927,7 +2995,7 @@ def partition_kernel_phase(torch, dev) -> dict:
     res = {k: {"max_abs_err": 0.0, "checks": 0} for k in (k29, k30)}
     rng = np.random.default_rng(1029)
     prices = np.concatenate([np.array([np.nan, -0.0, 0.0, 1.5, 2.5, 7.0, -3.0], np.float32),
-                             SUBNORMALS])
+                             ARITH_TRAPS])
     cols_of = {"symbol": torch.int32, "price": torch.float32, "qty": torch.int32,
                "volume": torch.int64}
     values = (("price", AttrType.FLOAT), ("qty", AttrType.INT), ("volume", AttrType.LONG))
@@ -3965,6 +4033,37 @@ PJ_KERNEL_NAMES = ("partition_ring_view", "partition_join_assemble", "partition_
 PJ_W, PSW_N, PFQ_N = 50, 10, 10
 
 
+def keyed_ring(torch, rng, dev, p: int, w: int, vmax: int = 1000, holes: float = 0.0,
+               lanes=None) -> dict:
+    """P sliding rings of W slots for K38 (a partitioned join side): slot q
+    holds the last of total[q] seqs (in ring order, or scattered with `holes`
+    a share of them gone), the rest -1; the stock lanes, or `lanes` int32 /
+    bool lanes."""
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    total = rng.integers(0, 3 * w + 1, p)
+    seq = np.full((p, w), -1, np.int64)
+    for q in range(p):
+        live = np.arange(max(0, total[q] - w), total[q])
+        live = live[rng.random(live.shape[0]) >= holes]
+        pos = live % w if holes == 0 else rng.permutation(w)[:live.shape[0]]
+        seq[q, pos] = live
+    if lanes is not None:  # `lanes` int32 / bool lanes (past one launch's 32)
+        cols = {f"c{i}": t(rng.random((p, w)) < 0.5 if i % 3 == 0
+                           else rng.integers(-9, 9, (p, w)).astype(np.int32))
+                for i in range(lanes)}
+    else:
+        cols = {"symbol": t(rng.integers(1, 9, (p, w)).astype(np.int32)),
+                "price": t(rng.uniform(0, 100, (p, w)).astype(np.float32)),
+                "volume": t(rng.integers(1, vmax, (p, w)).astype(np.int64))}
+    return {"cols": cols,
+            "ts": t(rng.integers(0, 10**9, (p, w)).astype(np.int64)),
+            "wts": t(np.zeros((p, w), np.int64)), "seq": t(seq),
+            "total": t(total.astype(np.int64))}
+
+
 def partition_join_kernel_phase(torch, dev) -> dict:
     """The join slice's keyed kernels against their plain versions on the
     card, bit for bit on every output lane, state lane and flag, from the
@@ -3974,6 +4073,9 @@ def partition_join_kernel_phase(torch, dev) -> dict:
     with inner and outer joins, EXPIRED probes, a unidirectional side (an
     empty probe set), a self-join (probes and view from one stream), one
     slot overflowing its capacity, empty slots and keys past capacity, and
+    K38 alone at W 32/33/64/65/1,024/1,025 (its groups of 32-1,024
+    threads a slot), empty and holed rings, 40 lanes (two launches) and W
+    57,345 (the global scratch), and
     ragged B/P/W; the keyed sort window K40 at path PSW's shape (B=32768,
     P=1024, sort(10, price desc, volume asc), carried state) with NaN and
     -0.0 keys and one to four comparators; the keyed frequent window K41 at
@@ -3997,20 +4099,8 @@ def partition_join_kernel_phase(torch, dev) -> dict:
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-    def ring(p, w, vmax=1000, holes=0.0):
-        total = rng.integers(0, 3 * w + 1, p)
-        seq = np.full((p, w), -1, np.int64)
-        for q in range(p):
-            live = np.arange(max(0, total[q] - w), total[q])
-            live = live[rng.random(live.shape[0]) >= holes]
-            pos = live % w if holes == 0 else rng.permutation(w)[:live.shape[0]]
-            seq[q, pos] = live
-        return {"cols": {"symbol": t(rng.integers(1, 9, (p, w)).astype(np.int32)),
-                         "price": t(rng.uniform(0, 100, (p, w)).astype(np.float32)),
-                         "volume": t(rng.integers(1, vmax, (p, w)).astype(np.int64))},
-                "ts": t(rng.integers(0, 10**9, (p, w)).astype(np.int64)),
-                "wts": t(np.zeros((p, w), np.int64)), "seq": t(seq),
-                "total": t(total.astype(np.int64))}
+    def ring(p, w, vmax=1000, holes=0.0, lanes=None):
+        return keyed_ring(torch, rng, dev, p, w, vmax, holes, lanes)
 
     def check_view(state):
         got, want = K.partition_ring_view(state), K.partition_ring_view_ref(state)
@@ -4095,6 +4185,14 @@ def partition_join_kernel_phase(torch, dev) -> dict:
         for outer in (False, True):
             check_join(assemble_args(probes(bb, pp, vmax=6, past=0.05, trap=True), view, pp,
                                      outer, 5))
+    # K38 alone: a group of 32 to 1,024 threads a slot (W 1/32/33/64/65/
+    # 1,024/1,025), empty and holed rings, a ring of 40 lanes (two
+    # launches) and W past shared memory (the global scratch)
+    for pp, ww, kw in ((1024, 32, {}), (33, 33, dict(holes=0.3)), (1024, 64, {}),
+                       (33, 65, dict(holes=0.5)), (8, 1024, dict(holes=0.2)), (8, 1025, {}),
+                       (33, 50, dict(holes=1.0)), (1, 1, dict(holes=1.0)),
+                       (33, 16, dict(holes=0.2, lanes=40)), (2, 57_345, dict(holes=0.3))):
+        check_view(ring(pp, ww, **kw))
     print(f"partition join kernels: {res[k38]['checks']} K38 and {res[k39]['checks']} K39 "
           "checks bit for bit", flush=True)
 
@@ -4187,13 +4285,31 @@ def partition_join_kernel_phase(torch, dev) -> dict:
     # ---- times at the paths' shapes
     col_b = 4 + 4 + 8
     r = res[k38]
-    r["ms"] = time_ms(torch, lambda: K.partition_ring_view(pj_ring), 50)
+    # three ways (`three_times`), beside the argsort alone (part of the
+    # function: the order) and the whole function as stock calls (the
+    # argsort and a gather a lane, as partition_ring_view_ref)
+    r.update(three_times(torch, lambda: K.partition_ring_view(pj_ring), 100, ("view_kernel(",)))
     r["plain_ms"] = time_once(torch, lambda: K.partition_ring_view_ref(pj_ring))
     seq = pj_ring["seq"]
-    r["library_ms"] = time_ms(torch, lambda: torch.argsort(
-        torch.where(seq >= 0, seq, np.iinfo(np.int64).max), dim=1, stable=True), 50)
+    skey = torch.where(seq >= 0, seq, np.iinfo(np.int64).max)
+    r["library"] = three_times(torch, lambda: torch.argsort(skey, dim=1, stable=True), 100,
+                               None)
+    r["library_ms"] = r["library"]["ms"]
+    view_lanes = [*pj_ring["cols"].values(), pj_ring["ts"]]
+
+    def whole():
+        perm = torch.argsort(skey, dim=1, stable=True)
+        return [torch.gather(x, 1, perm) for x in view_lanes] + [torch.gather(seq >= 0, 1, perm)]
+
+    r["library_whole"] = three_times(torch, whole, 100, None)
     r["bound_ms"], r["bound_by"] = (p * w * (8 + 2 * (8 + col_b) + 1) + 8 * p) \
         / MEM_BYTES_PER_S * 1e3, "bytes"
+    print(f"kernel partition_ring_view P={p} W={w}: ms={r['ms']:.4f} "
+          f"device_ms={r['device_ms']:.4f} kernel_ms={fmt(r['kernel_ms'])}; stable argsort "
+          f"{r['library']['ms']:.4f}/{r['library']['device_ms']:.4f}/"
+          f"{fmt(r['library']['kernel_ms'])}; argsort + a gather a lane "
+          f"{r['library_whole']['ms']:.4f}/{r['library_whole']['device_ms']:.4f}/"
+          f"{fmt(r['library_whole']['kernel_ms'])}", flush=True)
     r = res[k39]
     pair = pj_args[0]
     r["ms"] = time_ms(torch, lambda: K.partition_join_assemble(*pj_args), 20)
@@ -4511,7 +4627,7 @@ def aggregation_kernel_phase(torch, dev) -> dict:
         ts = (t0 + np.arange(b, dtype=np.int64) // per_ms) if span is None else \
             t0 + np.sort(rng.integers(0, span, b)).astype(np.int64)
         sym = rng.integers(1, symbols + 1, b).astype(np.int32)
-        price = rng.uniform(0, 100, b).astype(np.float32)
+        price = arith_traps(rng, rng.uniform(0, 100, b).astype(np.float32), 0.05)
         price[rng.random(b) < nan] = np.nan
         timer = rng.random(b) < timers
         live = ~timer & (rng.random(b) < 0.97)
@@ -5691,6 +5807,30 @@ def run_sh(dev, app: str, data: dict, names, calls: list, fused: bool = True) ->
     return {"rows": rows, "seconds": secs, "status": status}
 
 
+FOLD_SEED = 2049
+PJ_VIEW_SEED = 2038  # tools/redesign_times.py's K38 ring at PJ's shape
+
+
+def fold_timing_inputs(torch, dev) -> tuple:
+    """K49's fold at SH-KEYS' shape (B=32,768, D=8, seed FOLD_SEED): each
+    shard's own lanes of SH-KEYS' output kind {name: D [B] tensors} (int32,
+    int64, float32 with NaN payloads and -0.0, bool), each shard's valid,
+    and the owners (the rows' owner shards, uniform)."""
+    rng = np.random.default_rng(FOLD_SEED)
+    d, b = SH_SHARDS, MAIN_BATCH
+    f = rng.uniform(-5, 5, (d, b)).astype(np.float32)
+    f.view(np.int32)[:, ::5] = 0x7FC00001
+    f.view(np.int32)[:, 1::7] = -0x80000000
+    lanes = {"symbol": rng.integers(1, 1001, (d, b)).astype(np.int32),
+             "n": rng.integers(0, 1 << 40, (d, b)), "hi": f,
+             "vol": rng.integers(-(1 << 62), 1 << 62, (d, b)), "flag": rng.random((d, b)) < 0.5}
+    valid = rng.random((d, b)) < 0.4
+    owner = rng.integers(0, d, b).astype(np.int32)
+    return ({k: [torch.from_numpy(v[i].copy()).to(dev) for i in range(d)]
+             for k, v in lanes.items()},
+            [torch.from_numpy(v.copy()).to(dev) for v in valid], torch.from_numpy(owner).to(dev))
+
+
 def shard_kernel_phase(torch, dev) -> dict:
     """K49 (ks_owner, ks_fold) and K50 (sr_route) against their plain
     versions on the card, exactly: at path SH's shapes (B 32,768, D 8, P
@@ -5714,14 +5854,20 @@ def shard_kernel_phase(torch, dev) -> dict:
         return torch.from_numpy(k).to(dev)
 
     def fold_lanes(d, b):
+        """Each shard's own [B] lanes, as the shards' selectors leave them:
+        {name: D tensors}."""
         f = rng.uniform(-5, 5, (d, b)).astype(np.float32)
         f.view(np.int32)[:, ::5] = 0x7FC00001
         f.view(np.int32)[:, 1::7] = -0x80000000
-        return {"symbol": torch.from_numpy(rng.integers(1, 1001, (d, b)).astype(np.int32)).to(dev),
-                "n": torch.from_numpy(rng.integers(0, 1 << 40, (d, b))).to(dev),
-                "hi": torch.from_numpy(f).to(dev),
-                "vol": torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, (d, b))).to(dev),
-                "flag": torch.from_numpy(rng.random((d, b)) < 0.5).to(dev)}
+        lanes = {"symbol": rng.integers(1, 1001, (d, b)).astype(np.int32),
+                 "n": rng.integers(0, 1 << 40, (d, b)), "hi": f,
+                 "vol": rng.integers(-(1 << 62), 1 << 62, (d, b)),
+                 "flag": rng.random((d, b)) < 0.5}
+        return {k: [torch.from_numpy(v[i].copy()).to(dev) for i in range(d)]
+                for k, v in lanes.items()}
+
+    def valid_of(d, b):
+        return [torch.from_numpy(rng.random(b) < 0.4).to(dev) for _ in range(d)]
 
     def route_in(b, p, all_timer=False):
         slot = rng.integers(0, p + 1, b).astype(np.int32)
@@ -5745,7 +5891,7 @@ def shard_kernel_phase(torch, dev) -> dict:
             same_bits(torch, [owner_of(k, d)], [owner_of_ref(k, d)])
             lanes = fold_lanes(d, b)
             owner = owner_of(keys_of(b), d)
-            valid = torch.from_numpy(rng.random((d, b)) < 0.4).to(dev)
+            valid = valid_of(d, b)
             got, want = fold_rows(lanes, owner, valid), fold_rows_ref(lanes, owner, valid)
             same_bits(torch, [got[0], got[1]], [want[0], want[1]])
             for all_timer in (False, True):
@@ -5753,7 +5899,16 @@ def shard_kernel_phase(torch, dev) -> dict:
                 if all_timer:
                     ins = route_in(b, 1024, all_timer=True)
                 same_bits(torch, list(route_rows(*ins, 1024, d)), list(route_rows_ref(*ins, 1024, d)))
-    print("kernel check shard_owner, shard_fold and shard_route: B 1/33/32768 x D 1/2/8, "
+    # the fold's pointer table past its by-value size (a device table), and
+    # rows of no owner
+    for b, d in ((33, 70), (4097, 64)):
+        lanes, valid = fold_lanes(d, b), valid_of(d, b)
+        owner = owner_of(keys_of(b), d)
+        owner[::11] = -1
+        same_bits(torch, list(fold_rows(lanes, owner, valid)),
+                  list(fold_rows_ref(lanes, owner, valid)))
+    print("kernel check shard_owner, shard_fold and shard_route: B 1/33/32768 x D 1/2/8 "
+          "(the fold also at D 64 and 70, a device pointer table, and rows of no owner), "
           "INT64 edges, NaN and -0.0 lanes, all-TIMER batches: exact", flush=True)
 
     keys = keys_of(b_sh)
@@ -5762,20 +5917,37 @@ def shard_kernel_phase(torch, dev) -> dict:
                "library_ms": None,
                # each key read once, each owner written once
                "bound_ms": (8 + 4) * b_sh / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
-    lanes = fold_lanes(SH_SHARDS, b_sh)
-    owner = owner_of(keys, SH_SHARDS)
-    valid = torch.from_numpy(rng.random((SH_SHARDS, b_sh)) < 0.4).to(dev)
-    lane_bytes = sum(x.element_size() for x in lanes.values())
+    lanes, valid, owner = fold_timing_inputs(torch, dev)
+    lane_bytes = sum(x[0].element_size() for x in lanes.values())
     idx = owner.long()[None, :]
+    stacked = [torch.stack(x) for x in lanes.values()]
+
+    def stacks():  # what the callers built before the fold read the shards in place
+        return [torch.stack(x) for x in lanes.values()] + [torch.stack(valid)]
+
+    # three ways (`three_times`), beside a `torch.gather` a lane along D by
+    # the owner over lanes stacked beforehand (the fold given the owners and
+    # the stacks), and the stacks alone
     r_fold = {"max_abs_err": 0.0,
-              "ms": time_ms(torch, lambda: fold_rows(lanes, owner, valid), 200),
+              **three_times(torch, lambda: fold_rows(lanes, owner, valid), 200,
+                            ("fold_kernel(",)),
               "plain_ms": time_ms(torch, lambda: fold_rows_ref(lanes, owner, valid), 50),
-              "library_ms": time_ms(torch, lambda: [torch.gather(x, 0, idx) for x in
-                                                    lanes.values()], 200),
-              # the [D, B] lanes, valid and the owners read once; [B] lanes written once
-              "bound_ms": ((SH_SHARDS * b_sh * (lane_bytes + 1) + 4 * b_sh)
+              "library": three_times(torch, lambda: [torch.gather(x, 0, idx) for x in stacked],
+                                     200, None),
+              "stacks": three_times(torch, stacks, 200, None),
+              # the shards' lanes (the owner's element a lane), every
+              # shard's valid and the owners read once; [B] lanes and valid
+              # written once
+              "bound_ms": ((b_sh * lane_bytes + SH_SHARDS * b_sh + 4 * b_sh)
                            + b_sh * (lane_bytes + 1)) / MEM_BYTES_PER_S * 1e3,
               "bound_by": "bytes", "lanes": len(lanes)}
+    r_fold["library_ms"] = r_fold["library"]["ms"]
+    print(f"kernel shard_fold B={b_sh} D={SH_SHARDS}: ms={r_fold['ms']:.4f} "
+          f"device_ms={r_fold['device_ms']:.4f} kernel_ms={fmt(r_fold['kernel_ms'])}; "
+          f"torch.gather a lane {r_fold['library']['ms']:.4f}/"
+          f"{r_fold['library']['device_ms']:.4f}/{fmt(r_fold['library']['kernel_ms'])}; "
+          f"the stacks {r_fold['stacks']['ms']:.4f}/{r_fold['stacks']['device_ms']:.4f}/"
+          f"{fmt(r_fold['stacks']['kernel_ms'])}", flush=True)
     ins = route_in(b_sh, 1024)
     slot, active, timer, rl = ins
     dev_of = torch.where(active & (slot < 1024), slot % SH_SHARDS, SH_SHARDS)
@@ -8270,26 +8442,38 @@ def subnormal_kernel_phase(torch, dev) -> dict:
     subnormal class of both signs, NaN and a few values, C 33/2,049/10,000
     (one block and the grid sort); K21's insert with a float primary key,
     by the index and by the table scan; K23's `==`, `>` and `<=` conditions
-    over those keys as writer, delete and `in` masks. The plain versions
-    run on CPU copies (the card's torch.sort places NaN otherwise)."""
+    over those keys as writer, delete and `in` masks; and float arithmetic
+    over those keys in table programs (XLA's: subnormal operands and results
+    as zeros, csrc/common.cuh): K23's `T.k * 10000000000.0 > k` and
+    `T.k - k < T.k / 3.0`, K24's update `set T.k = T.k * k` and upsert
+    `set T.k = T.k + k, T.v = T.v` (csrc/prog.cuh t_arith). The plain
+    versions run on CPU copies (the card's torch.sort places NaN
+    otherwise)."""
     from siddhi_tpu_torch.compiler.siddhi_compiler import SiddhiCompiler
     from siddhi_tpu_torch.core.event import StreamSchema
     from siddhi_tpu_torch.core.executor import TS_ATTR, Env
-    from siddhi_tpu_torch.core.table import InMemoryTable, emit_program, eval_regs, output_scope
+    from siddhi_tpu_torch.core.table import (
+        InMemoryTable,
+        build_scan_programs,
+        emit_program,
+        eval_regs,
+        output_scope,
+    )
     from siddhi_tpu_torch.core.types import AttrType, InternTable
     from siddhi_tpu_torch.ops import table as K
+    from siddhi_tpu_torch.query_api.execution import UpdateSetAttribute
+    from siddhi_tpu_torch.query_api.expression import Variable
 
     rng = np.random.default_rng(1913)
-    vals = np.concatenate([SUBNORMALS, np.array([0.0, -0.0, np.nan, 1.0, -2.5, 1.2e-38],
-                                                np.float32)])
+    vals = np.concatenate([ARITH_TRAPS, np.array([np.nan, 1.0, -2.5, 1.2e-38], np.float32)])
     interner = InternTable()
     out_schema = StreamSchema("__out__", [("k", AttrType.FLOAT), ("v", AttrType.LONG)])
     checks = {"table_index_build": 0, "table_index_probe": 0, "table_write": 0,
-              "table_match": 0}
+              "table_match": 0, "table_scan": 0}
 
-    def exact(name, got, want):
+    def exact(name, got, want, nan_payloads=False):
         torch.cuda.synchronize()
-        same_bits(torch, to_cpu(got), want)
+        (same_bits_but_nan if nan_payloads else same_bits)(torch, to_cpu(got), want)
         checks[name] += 1
 
     def env_of(cols, ts, d):
@@ -8326,7 +8510,9 @@ def subnormal_kernel_phase(torch, dev) -> dict:
             exact("table_write", K.table_write(st, cols, ts, rows, ["k"], index),
                   K.table_write_ref(to_cpu(st), to_cpu(cols), ts.cpu(), rows.cpu(), ["k"]))
         for text, mode in (("T.k == k", K.MODE_WRITER), ("T.k > k", K.MODE_DELETE),
-                           ("T.k <= k", K.MODE_IN)):
+                           ("T.k <= k", K.MODE_IN),
+                           ("T.k * 10000000000.0 > k", K.MODE_WRITER),
+                           ("T.k - k < T.k / 3.0", K.MODE_IN)):
             scope = output_scope(t, out_schema, interner, dev)
             prog = emit_program(SiddhiCompiler.parse_expression(text), scope, "T")
             regs = eval_regs(prog.regs, env_of(cols, ts, dev), b)
@@ -8334,8 +8520,28 @@ def subnormal_kernel_phase(torch, dev) -> dict:
             exact("table_match", K.table_match(prog, regs, lanes, st["valid"], rows, mode),
                   K.table_match_ref(prog, to_cpu(regs), to_cpu(lanes), valid.cpu(), rows.cpu(),
                                     mode))
+        # K24: float arithmetic in the set clauses, a sequential update and
+        # an upsert
+        for on, sets, upsert in (("T.v == v", [("k", "T.k * k")], False),
+                                 ("T.k == k", [("k", "T.k + k"), ("v", "T.v")], True)):
+            scope = output_scope(t, out_schema, interner, dev)
+            sp = build_scan_programs(
+                t, scope, SiddhiCompiler.parse_expression(on),
+                [UpdateSetAttribute(Variable(n), SiddhiCompiler.parse_expression(x))
+                 for n, x in sets], [n for n, _x in sets], None)
+            regs = eval_regs(sp.on.regs, env_of(cols, ts, dev), b)
+            # a NaN out of the arithmetic: the host's payload and the card's differ
+            if upsert:
+                exact("table_scan", K.table_upsert_scan(sp, regs, st, rows, cols, ts),
+                      K.table_upsert_scan_ref(sp, to_cpu(regs), to_cpu(st), rows.cpu(),
+                                              to_cpu(cols), ts.cpu()), nan_payloads=True)
+            else:
+                exact("table_scan", K.table_update_scan(sp, regs, st, rows),
+                      K.table_update_scan_ref(sp, to_cpu(regs), to_cpu(st), rows.cpu()),
+                      nan_payloads=True)
         print(f"kernel check subnormal keys C={c} B={b}: K22 build and probe, K21 by the index "
-              "and the scan, K23 ==, >, <= (writer, delete, in): exact", flush=True)
+              "and the scan, K23 ==, >, <= and two arithmetic conditions (writer, delete, in), "
+              "K24 arithmetic set clauses (update, upsert): exact", flush=True)
     return {"subnormal_checks": checks}
 
 
@@ -8377,6 +8583,33 @@ SUB_APPS = {
     "partitioned scan pattern": ("partition with (g of S) begin from every e1=S[k == 0.0] -> "
                                  "e2=S[k > e1.k] or e3=S[k < e1.k] select e1.v as a, e2.v as b "
                                  "insert into Out; end;", [], None, "partition_pattern_scan"),
+    # float32 arithmetic: subnormal operands and results as zeros (PR 20)
+    "product filter": ("from S[k * 10000000000.0 > 0.0] select k, v insert into Out;", [], None,
+                       None),
+    "sum, avg having": ("from S#window.length(4) select sum(k) as s, avg(k) as a having s > 0.0 "
+                        "insert into Out;", [], None, "running_sum"),
+    "min, max": ("from S select min(k) as mn, max(k) as mx insert into Out;", [], None,
+                 "running_extreme"),
+    "windowed min, max, stdDev": ("from S#window.length(3) select min(k) as mn, max(k) as mx, "
+                                  "stdDev(k) as sd insert into Out;", [], None, "window_extreme"),
+    "grouped sum, min": ("from S select g, sum(k) as s, min(k) as m group by g insert into Out;",
+                         [], None, "keyed_running_sum"),
+    "projections": ("from S select k * 1e10 as a, k / 3.0 as b, k - 1e-38 as c, k % 1.0 as d, "
+                    "k % 3.0 as e, maximum(k, 0.0) as f, minimum(k, 0.0, 1.0) as h "
+                    "insert into Out;", [], None, None),
+    "upsert product": ("define table T (k float, v int);\nfrom S select k, v insert into T;\n"
+                       "from U update or insert into T set T.k = T.k * k on T.v == v;",
+                       [("U", (1e-20, 5)), ("U", (1e10, 2)), ("U", (1e-30, 9))],
+                       "from T select k, v", "table_scan"),
+    "scan pattern product": ("from every e1=S[k >= 0.0] -> e2=S[k > e1.k * 100.0] or "
+                             "e3=S[k < 0.0] select e1.v as a, e2.v as b, e3.v as c "
+                             "insert into Out;", [], None, "pattern_scan"),
+    "partitioned sum having": ("partition with (g of S) begin from S#window.length(4) "
+                               "select g, sum(k) as s having s > 0.0 insert into Out; end;", [],
+                               None, "keyed_running_sum"),
+    "partitioned windowed min, max": ("partition with (g of S) begin from S#window.length(3) "
+                                      "select g, min(k) as m, max(k) as x insert into Out; end;",
+                                      [], None, "partition_window_extreme"),
 }
 
 
@@ -8402,9 +8635,11 @@ def run_sub_app(dev: str, app: str, sends: list, query) -> tuple:
 def subnormal_path_phase(torch) -> dict:
     """The subnormal apps (SUB_APPS: filters, table keys, updates and `in`
     conditions, sort windows, patterns on both routes, a join `on`,
-    distinctCount, in and out of partitions) on the card, one event a send,
-    against device="cpu": every row equal, in order; each app launches the
-    kernel named beside it."""
+    distinctCount, in and out of partitions; float32 arithmetic in filters,
+    projections, sums, averages, stdDev, min/max, a table's set clause and
+    a pattern's condition) on the card, one event a send, against
+    device="cpu": every row equal, in order; each app launches the kernel
+    named beside it."""
     from siddhi_tpu_torch import kernels
 
     res = {}
@@ -8829,6 +9064,8 @@ def main() -> int:
                    "lineage_path": lineage,
                    "shard_path": sharded,
                    "redesign": redesign,
+                   # K38 and K49's fold three ways beside their yardsticks
+                   "redesign_pr20": {k: res[k] for k in ("partition_ring_view", "shard_fold")},
                    "ring_view_seq_W1024_ms": res["ring_view_seq"]["W1024_ms"],
                    "order_limit_store_query_shape": {
                        "ms": res["order_limit"]["query_ms"],

@@ -53,7 +53,7 @@ from siddhi_tpu_torch.core.executor import (
     is_aggregator,
 )
 from siddhi_tpu_torch.core.table import InMemoryTable
-from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType
+from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType, float_arith
 from siddhi_tpu_torch.observability.lineage import AggregationLineage
 from siddhi_tpu_torch.ops.aggregation import (
     SPILLS_PER_BATCH,
@@ -459,7 +459,8 @@ class AggregationRuntime:
             if s.kind == "avg":
                 num = vals[f"sum_{s.name}"].to(torch.float32)
                 den = vals["count_"].to(torch.float32)
-                cols[s.name] = torch.where(den != 0, num / den, torch.nan)
+                q = float_arith("div", num, torch.where(den != 0, den, 1.0))
+                cols[s.name] = torch.where(den != 0, q, torch.nan)
             elif s.kind == "sum":
                 cols[s.name] = vals[f"sum_{s.name}"]
             elif s.kind == "count":

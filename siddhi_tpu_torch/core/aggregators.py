@@ -41,6 +41,9 @@ from siddhi_tpu_torch.core.types import (
     NUMPY_DTYPE,
     PHYSICAL_DTYPE,
     AttrType,
+    float32_ftz,
+    float_arith,
+    float_extreme,
     flush_subnormal,
     null_value,
 )
@@ -174,7 +177,8 @@ class AvgAggregator(CompiledAggregator):
         s_run, s_carry = self._run_sum(state["sum"], contrib, flow)
         c_run, c_carry = self._run_sum(state["count"], sgn, flow)
         nonzero = c_run != 0
-        out = torch.where(nonzero, s_run / torch.where(nonzero, c_run, 1.0), torch.nan)
+        mean = float_arith("div", s_run, torch.where(nonzero, c_run, 1.0), False, False)
+        out = torch.where(nonzero, mean, torch.nan)
         return {"sum": s_carry, "count": c_carry}, out
 
 
@@ -198,9 +202,12 @@ def window_extreme_ref(
     """Plain version of `window_extreme`: expand the membership matrix
     `birth_pos[e] <= p < death_pos[e]` (and `elem_key[e] == row_key[p]` when
     keyed), `chunk` output rows at a time (so memory stays at chunk x K
-    booleans), mask with the identity and reduce."""
+    booleans), mask with the identity and reduce; float32 subnormals read
+    as zeros of their sign, and of zeros of both signs the minimum is -0.0
+    and the maximum 0.0."""
     ident = extreme_identity(vals.dtype, is_min)
     null = torch.tensor(null_value(t), dtype=vals.dtype)
+    vals = flush_subnormal(vals)  # a float32 subnormal as a zero (XLA's CPU code)
     out = []
     for lo in range(0, n_rows, chunk):
         hi = min(lo + chunk, n_rows)
@@ -210,6 +217,11 @@ def window_extreme_ref(
             member = member & (elem_key[None, :] == row_key[lo:hi, None])
         masked = torch.where(member, vals[None, :], ident)
         red = masked.amin(dim=-1) if is_min else masked.amax(dim=-1)
+        if vals.dtype == torch.float32:
+            # of zeros of both signs the minimum is -0.0, the maximum 0.0
+            signed = (masked == 0) & (masked.signbit() == is_min)
+            red = torch.where(red == 0, torch.where(signed.any(-1), -0.0 if is_min else 0.0,
+                                                    0.0 if is_min else -0.0), red)
         out.append(torch.where(red == ident, null, red))
     return torch.cat(out)
 
@@ -295,18 +307,22 @@ class StdDevAggregator(CompiledAggregator):
         sgn = flow.sign.to(torch.float32)
         live = flow.sign != 0
         s_run, s_c = self._run_sum(state["sum"], torch.where(live, x * sgn, 0.0), flow)
-        q_run, q_c = self._run_sum(state["sumsq"], torch.where(live, x * x * sgn, 0.0), flow)
+        sq = float_arith("mul", x, x)
+        q_run, q_c = self._run_sum(state["sumsq"], torch.where(live, sq * sgn, 0.0), flow)
         c_run, c_c = self._run_sum(state["count"], sgn, flow)
         nonzero = c_run != 0
         safe_n = torch.where(nonzero, c_run, 1.0)
-        mean = s_run / safe_n
+        # the sums hold no subnormal; each float32 step as XLA's CPU code
+        # takes it, subnormals as zeros (core/types.py float_arith)
+        mean = float_arith("div", s_run, safe_n, False, False)
+        qn = float_arith("div", q_run, safe_n, False, False)
         # XLA contracts q/n - mean*mean into one fused multiply-add (one
         # rounding); the float32 product is exact in float64, so this rounds
         # as that FMA does (and a one-element bucket keeps JAX's residue)
         # except when q/n and mean^2 lie so far apart in exponent that the
         # float64 difference itself rounds: a double rounding the FMA lacks
-        var = ((q_run / safe_n).double() - mean.double() * mean.double()).float()
-        var = torch.clamp(var, min=0.0)
+        var = float32_ftz(qn.double() - mean.double() * mean.double())
+        var = float_extreme(var, torch.zeros((), device=var.device), False, False, False)
         out = torch.where(nonzero, torch.sqrt(var), torch.nan)
         return {"sum": s_c, "sumsq": q_c, "count": c_c}, out
 

@@ -24,8 +24,11 @@ from siddhi_tpu_torch.core.types import (
     PHYSICAL_DTYPE,
     AttrType,
     InternTable,
+    float_arith,
+    float_extreme,
     flush_needed,
     flush_subnormal,
+    mod_pow2_divisor,
     null_value,
     promote,
 )
@@ -82,6 +85,8 @@ class CompiledExpr:
     fn: Callable[[Env], torch.Tensor]
     # a numeric constant's value (None: not a constant, or a null)
     const: int | float | None = None
+    # its float32 values hold no subnormal (an arithmetic result)
+    flushed: bool = False
 
     def __call__(self, env: Env) -> torch.Tensor:
         return self.fn(env)
@@ -244,25 +249,50 @@ def _int_rem(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(zero, a, r)
 
 
+def _float_operand(e: CompiledExpr, t: AttrType):
+    """(value fn, holds no subnormal) of an operand of float32 arithmetic or
+    min/max in type t: a constant cast and flushed once, here; an int or
+    long operand cast (no int is a subnormal); an arithmetic result as it
+    is; any other read as it is, for the operation to flush."""
+    if e.const is not None:
+        v = flush_subnormal(_cast(e(None), t))
+        return (lambda env: v), True
+    return (lambda env: _cast(e(env), t)), e.flushed or e.type in (AttrType.INT, AttrType.LONG)
+
+
 def _arith(op_name: str, le: CompiledExpr, re_: CompiledExpr) -> CompiledExpr:
     t = promote(le.type, re_.type)
-    integral = t in (AttrType.INT, AttrType.LONG)
+    if t in (AttrType.INT, AttrType.LONG):
 
-    def fn(env: Env) -> torch.Tensor:
-        a, b = _cast(le(env), t), _cast(re_(env), t)
-        if op_name == "add":
-            return a + b
-        if op_name == "sub":
-            return a - b
-        if op_name == "mul":
-            return a * b
-        if op_name == "div":
-            return _int_div(a, b) if integral else a / b
-        if op_name == "mod":
-            return _int_rem(a, b) if integral else torch.fmod(a, b)
-        raise AssertionError(op_name)
+        def fn(env: Env) -> torch.Tensor:
+            a, b = _cast(le(env), t), _cast(re_(env), t)
+            if op_name == "add":
+                return a + b
+            if op_name == "sub":
+                return a - b
+            if op_name == "mul":
+                return a * b
+            if op_name == "div":
+                return _int_div(a, b)
+            if op_name == "mod":
+                return _int_rem(a, b)
+            raise AssertionError(op_name)
 
-    return CompiledExpr(t, fn)
+        return CompiledExpr(t, fn)
+
+    if le.const is not None and re_.const is not None and op_name != "mod":
+        # two constants: the JAX package folds them in numpy when it traces
+        # (subnormals kept)
+        ops = {"add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch.div}
+        v = ops[op_name](_cast(le(None), t), _cast(re_(None), t))
+        return CompiledExpr(t, lambda env: v, const=float(v))
+    # float32 as XLA's CPU code computes it (core/types.py float_arith)
+    if op_name == "mod" and mod_pow2_divisor(re_.const):
+        op_name = "mod_pow2"
+    (lv, lflushed), (rv, rflushed) = _float_operand(le, t), _float_operand(re_, t)
+    return CompiledExpr(
+        t, lambda env: float_arith(op_name, lv(env), rv(env), not lflushed, not rflushed),
+        flushed=op_name != "mod")
 
 
 _CMP = {
@@ -566,15 +596,29 @@ def _compile_function(expr: AttributeFunction, scope: Scope) -> CompiledExpr:
         t = compiled[0].type
         for c in compiled[1:]:
             t = promote(t, c.type)
-        red = torch.maximum if name == "maximum" else torch.minimum
+        is_min = name == "minimum"
+        if t not in (AttrType.FLOAT, AttrType.DOUBLE) or len(compiled) == 1:
+            red = torch.minimum if is_min else torch.maximum
 
-        def fn(env: Env) -> torch.Tensor:
-            out = _cast(compiled[0](env), t)
-            for c in compiled[1:]:
-                out = red(out, _cast(c(env), t))
+            def fn(env: Env) -> torch.Tensor:
+                out = _cast(compiled[0](env), t)
+                for c in compiled[1:]:
+                    out = red(out, _cast(c(env), t))
+                return out
+
+            return CompiledExpr(t, fn)
+
+        # float32 as XLA's CPU code computes it (core/types.py float_extreme)
+        ops = [_float_operand(c, t) for c in compiled]
+
+        def ffn(env: Env) -> torch.Tensor:
+            out, flushed = ops[0][0](env), ops[0][1]
+            for v, f in ops[1:]:
+                out = float_extreme(out, v(env), is_min, not flushed, not f)
+                flushed = True
             return out
 
-        return CompiledExpr(t, fn)
+        return CompiledExpr(t, ffn, flushed=True)
 
     if name == "eventTimestamp":
         key = scope.ts_key()

@@ -71,8 +71,10 @@ from siddhi_tpu_torch.core.types import (
     PHYSICAL_DTYPE,
     AttrType,
     InternTable,
+    float_arith,
     flush_needed,
     flush_subnormal,
+    mod_pow2_divisor,
     null_value,
     promote,
 )
@@ -804,7 +806,8 @@ _TY_LOGICAL = {TY_BOOL: AttrType.BOOL, TY_INT: AttrType.INT, TY_LONG: AttrType.L
 # (OP_CAP is csrc/prog.cuh's OP_OPERAND: the token's capture in these programs)
 OP_REG, OP_CONST, OP_CAP, OP_ARITH, OP_CMP, OP_AND, OP_OR, OP_NOT, OP_ISNULL = range(1, 10)
 _ARITH_CODE = {Add: 0, Subtract: 1, Multiply: 2, Divide: 3, Mod: 4}
-_ARITH_NAME = ("add", "sub", "mul", "div", "mod")
+_ARITH_NAME = ("add", "sub", "mul", "div", "mod", "mod_pow2")
+ARITH_MOD_POW2 = 5  # a float % by a constant power of two >= 1 (core/types.py float_arith)
 _CMP_CODE = {CompareOp.LT: 0, CompareOp.LE: 1, CompareOp.GT: 2, CompareOp.GE: 3,
              CompareOp.EQ: 4, CompareOp.NEQ: 5}
 _CMP_BY_CODE = {v: k for k, v in _CMP_CODE.items()}
@@ -825,7 +828,8 @@ class CondProgram:
       PatternProgram.cap_lanes() or LANE_ARRIVED — with the null rules of
       `_synth_capture_cols`;
     - (OP_ARITH, op, lt, rt, t): + - * / % in type t (the executor's
-      `_arith`: promotion, Java integer division and remainder, fmod);
+      `_arith`: promotion, Java integer division and remainder, fmod, float32
+      subnormals as zeros; op ARITH_MOD_POW2: `arith_code`);
     - (OP_CMP, op, lt, rt, t): the six comparisons in common type t (-1:
       equality of two bools or ids), false on a null operand;
     - (OP_AND,), (OP_OR,), (OP_NOT,), (OP_ISNULL, ty)."""
@@ -837,6 +841,15 @@ def _const_bits(value: torch.Tensor, ty: int) -> int:
     if ty == TY_FLOAT:
         return int(value.to(torch.float32).reshape(1).view(torch.int32)[0])
     return int(value)
+
+
+def arith_code(expr, t: AttrType) -> int:
+    """OP_ARITH's operation code for the arithmetic expr in type t (a float
+    % by a constant power of two of at least 1: ARITH_MOD_POW2)."""
+    if (isinstance(expr, Mod) and t in (AttrType.FLOAT, AttrType.DOUBLE)
+            and isinstance(expr.right, Constant) and mod_pow2_divisor(expr.right.value)):
+        return ARITH_MOD_POW2
+    return _ARITH_CODE[type(expr)]
 
 
 def _cmp_consts(code: list, i: int) -> tuple:
@@ -876,16 +889,19 @@ def run_program(code: list, regs: list, const, operand, what: str = "condition p
             lt = _TY_LOGICAL[t]
             a, b = _cast(a, lt), _cast(b, lt)
             name = _ARITH_NAME[code_]
-            if name == "add":
+            if t == TY_FLOAT:
+                # subnormals as zeros, as in the executor's `_arith`
+                v = float_arith(name, a, b)
+            elif name == "add":
                 v = a + b
             elif name == "sub":
                 v = a - b
             elif name == "mul":
                 v = a * b
             elif name == "div":
-                v = _int_div(a, b) if t != TY_FLOAT else a / b
+                v = _int_div(a, b)
             else:
-                v = _int_rem(a, b) if t != TY_FLOAT else torch.fmod(a, b)
+                v = _int_rem(a, b)
             stack.append(v)
         elif op == OP_CMP:
             _op, code_, lt, rt, t = ins
@@ -1919,7 +1935,7 @@ class PatternProgram:
             lt = self._emit_cond(expr.left, atom, code)
             rt = self._emit_cond(expr.right, atom, code)
             t = promote(lt, rt)
-            code.append((OP_ARITH, _ARITH_CODE[type(expr)], _TY[lt], _TY[rt], _TY[t]))
+            code.append((OP_ARITH, arith_code(expr, t), _TY[lt], _TY[rt], _TY[t]))
             return t
         if isinstance(expr, Compare):
             lt = self._emit_cond(expr.left, atom, code)

@@ -24,8 +24,11 @@ from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 from siddhi_tpu_torch.core.executor import CompiledExpr, Env, Scope, compile_expression
 from siddhi_tpu_torch.core.extension import lookup
 from siddhi_tpu_torch.core.flow import Flow
-from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType
+from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType, float_arith
 from siddhi_tpu_torch.query_api.expression import Constant
+
+# degrees to radians in float32, as jnp.deg2rad multiplies (a 0-d scalar)
+_DEG = torch.tensor(np.float32(np.pi / 180))
 
 
 class StreamFunctionStage:
@@ -87,9 +90,12 @@ def make_stream_function(handler, schema_attrs: dict[str, AttrType], ref: str, s
             raise SiddhiAppCreationError("pol2Cart(theta, rho[, z]) needs 2-3 args")
 
         def fn(env: Env, _p=params):
-            theta = torch.deg2rad(_p[0](env).to(torch.float32))
+            # float32 products with subnormals as zeros (core/types.py
+            # float_arith), as jnp's under XLA's CPU code
+            theta = float_arith("mul", _p[0](env).to(torch.float32), _DEG, True, False)
             rho = _p[1](env).to(torch.float32)
-            out = {"x": rho * torch.cos(theta), "y": rho * torch.sin(theta)}
+            out = {"x": float_arith("mul", rho, torch.cos(theta), True, False),
+                   "y": float_arith("mul", rho, torch.sin(theta), True, False)}
             if len(_p) > 2:
                 out["z"] = _p[2](env).to(torch.float32)
             return out

@@ -70,6 +70,7 @@ from siddhi_tpu_torch.core.pattern import (
     OP_OR,
     OP_REG,
     _const_bits,
+    arith_code,
 )
 from siddhi_tpu_torch.core.types import NUMERIC_TYPES, PHYSICAL_DTYPE, AttrType, promote
 from siddhi_tpu_torch.ops import table as K
@@ -500,7 +501,7 @@ def emit_program(expr, scope: Scope, table_ref: str, regs: Optional[list] = None
         if type(e) in _ARITH_CODE:
             lt, rt = emit(e.left), emit(e.right)
             t = promote(lt, rt)
-            code.append((OP_ARITH, _ARITH_CODE[type(e)], _TY[lt], _TY[rt], _TY[t]))
+            code.append((OP_ARITH, arith_code(e, t), _TY[lt], _TY[rt], _TY[t]))
             return t
         if isinstance(e, Compare):
             lt, rt = emit(e.left), emit(e.right)

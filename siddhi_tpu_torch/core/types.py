@@ -12,6 +12,7 @@ at the egress boundary).
 from __future__ import annotations
 
 import enum
+import math
 import threading
 from typing import Any
 
@@ -67,12 +68,110 @@ FLT_MIN = float(np.finfo(np.float32).tiny)
 
 
 def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
-    """A float32 tensor as XLA compares it: each subnormal a zero of its own
-    sign (the JAX package's comparisons, sorts and searches flush them), NaN
-    and every other value as it is. Another dtype passes through."""
+    """A float32 tensor as XLA reads it: each subnormal a zero of its own
+    sign (the JAX package's comparisons, sorts, searches and arithmetic
+    flush them), NaN and every other value as it is. Another dtype passes
+    through."""
     if x.dtype != torch.float32:
         return x
     return torch.where(x.abs() < FLT_MIN, x * 0, x)
+
+
+# |x| below this rounds, in 24 bits with an unbounded exponent, below FLT_MIN
+_FTZ_BELOW = FLT_MIN * (1.0 - 2.0**-25)
+
+
+def _ftz(r: torch.Tensor, tiny: torch.Tensor) -> torch.Tensor:
+    return torch.where(tiny, r * 0, r)
+
+
+def float32_ftz(p: torch.Tensor) -> torch.Tensor:
+    """A float64 result rounded to float32 as XLA's CPU code rounds it: a
+    zero of its sign where it rounds, in 24 bits with an unbounded
+    exponent, below FLT_MIN (FTZ, tininess after rounding)."""
+    return _ftz(p.float(), p.abs() < _FTZ_BELOW)
+
+
+def float_arith(op: str, a: torch.Tensor, b: torch.Tensor, flush_a: bool = True,
+                flush_b: bool = True) -> torch.Tensor:
+    """`a op b` (op: add, sub, mul, div, mod) on float32 as XLA's CPU code
+    computes it for the JAX package. + - * / read each subnormal operand as
+    a zero of its sign (DAZ) and give a zero of its sign where the result,
+    rounded to 24 bits with an unbounded exponent, lies below FLT_MIN (FTZ,
+    tininess after rounding: a product rounded up to FLT_MIN only by the
+    subnormal grid flushes too). % ("mod") is fmodf, a library call: it
+    reads a subnormal divisor as zero and keeps everything else; XLA
+    rewrites a % by a constant power of two of at least 1 in magnitude
+    ("mod_pow2", `mod_pow2_divisor`) into arithmetic, whose dividend reads a
+    subnormal as zero too. flush_a / flush_b False: that operand is known to
+    hold no subnormal."""
+    if flush_b:
+        b = flush_subnormal(b)
+    if op == "mod":
+        return torch.fmod(a, b)
+    if flush_a:
+        a = flush_subnormal(a)
+    if op == "mod_pow2":
+        return torch.fmod(a, b)
+    if op in ("add", "sub"):
+        # the exact sum of two float32s past the flush is a float32 when
+        # below FLT_MIN: no rounding to tell apart
+        r = a + b if op == "add" else a - b
+        return _ftz(r, r.abs() < FLT_MIN)
+    # a float64 product is exact and a float64 quotient close enough to
+    # tell tininess after rounding (csrc/common.cuh xla_mul / xla_div)
+    if op == "mul":
+        r, p = a * b, a.double() * b.double()
+    else:
+        r, p = a / b, a.double() / b.double()
+    return _ftz(r, p.abs() < _FTZ_BELOW)
+
+
+def mod_pow2_divisor(c) -> bool:
+    """Whether a float % by the constant c is XLA's "mod_pow2"
+    (`float_arith`): c a power of two of at least 1 in magnitude."""
+    if c is None:
+        return False
+    m, _e = math.frexp(abs(float(np.float32(c))))
+    return abs(float(c)) >= 1 and m == 0.5
+
+
+def float_extreme(a: torch.Tensor, b: torch.Tensor, is_min: bool, flush_a: bool = True,
+                  flush_b: bool = True) -> torch.Tensor:
+    """`jnp.minimum` / `jnp.maximum` on float32 as XLA's CPU code computes
+    them: subnormal operands read as zeros of their sign, NaN wins, and of
+    a zero of each sign the minimum is -0.0, the maximum 0.0."""
+    if flush_a:
+        a = flush_subnormal(a)
+    if flush_b:
+        b = flush_subnormal(b)
+    r = torch.minimum(a, b) if is_min else torch.maximum(a, b)
+    return torch.where(a == b, torch.where(a.signbit() == is_min, a, b), r)
+
+
+def flushed_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running sum of a [n] lane, for float32 as XLA's CPU code
+    takes it: x holds no subnormal, and a partial sum that comes out
+    subnormal is a zero of its sign that the sum goes on from (FTZ; it can
+    only come of a cancellation). Another dtype: the plain running sum."""
+    c = torch.cumsum(x, 0, dtype=x.dtype)
+    if x.dtype != torch.float32:
+        return c
+    tiny = (c != 0) & (c.abs() < FLT_MIN)
+    if not bool(tiny.any()):
+        return c
+    # from the first flushed partial on, one add at a time
+    i = int(tiny.nonzero()[0])
+    xs = x.cpu().numpy()
+    cs = c.cpu().numpy().copy()
+    s = cs[i] * np.float32(0)
+    cs[i] = s
+    for j in range(i + 1, cs.shape[0]):
+        s = np.float32(s + xs[j])
+        if s != 0 and abs(s) < FLT_MIN:
+            s = s * np.float32(0)
+        cs[j] = s
+    return torch.from_numpy(cs).to(x.device)
 
 
 def flush_needed(const) -> bool:

@@ -136,7 +136,7 @@ __device__ __forceinline__ float fmax_xla(float a, float b) {
 __device__ __forceinline__ float fadd_host_nan(float a, float b) {
   if (isnan(a)) return __int_as_float(__float_as_int(a) | 0x00400000);
   if (isnan(b)) return __int_as_float(__float_as_int(b) | 0x00400000);
-  const float s = __fadd_rn(a, b);
+  const float s = xla_add(a, b);
   return isnan(s) ? __int_as_float((int)0xffc00000u) : s;
 }
 
@@ -147,8 +147,11 @@ __device__ __forceinline__ void fold(int op, int type, char* dst, long long i, c
     case kF32: {
       float* d = (float*)dst + i;
       const float s = ((const float*)src)[j];
-      *d = op == kSum ? fadd_host_nan(*d, s) : op == kMin ? fmin_xla(*d, s)
-           : op == kMax ? fmax_xla(*d, s) : s;
+      // XLA's scatter-add/min/max read subnormals as zeros (xla_add flushes
+      // its sum too); `last` copies the bits
+      *d = op == kSum ? fadd_host_nan(*d, s)
+           : op == kMin ? fmin_xla(flush_subnormal(*d), flush_subnormal(s))
+           : op == kMax ? fmax_xla(flush_subnormal(*d), flush_subnormal(s)) : s;
       break;
     }
     case kI32: {

@@ -21,6 +21,40 @@ __device__ __forceinline__ float flush_subnormal(float f) {
   return is_subnormal_or_zero(u) ? __uint_as_float(u & 0x80000000u) : f;
 }
 
+// Float32 arithmetic as XLA's CPU code computes it for the JAX package
+// (siddhi_tpu_torch/core/types.py float_arith): + - * / read a subnormal
+// operand as a zero of its sign (DAZ) and give a zero of its sign where the
+// result, rounded to 24 bits with an unbounded exponent, lies below FLT_MIN
+// (FTZ, tininess after rounding). A sum below FLT_MIN is exact, so its flush
+// needs no more; a product or quotient that rounds to +-FLT_MIN is checked
+// in float64 against FLT_MIN * (1 - 2^-25). In registers, no memory traffic.
+constexpr float kFltMin = 0x1p-126f;
+constexpr double kFtzBelow = 0x1.ffffffp-127;
+__device__ __forceinline__ float xla_add(float a, float b) {
+  return flush_subnormal(__fadd_rn(flush_subnormal(a), flush_subnormal(b)));
+}
+__device__ __forceinline__ float xla_sub(float a, float b) {
+  return flush_subnormal(__fsub_rn(flush_subnormal(a), flush_subnormal(b)));
+}
+__device__ __forceinline__ float ftz_checked(float r, double p) {
+  return fabsf(r) <= kFltMin && fabs(p) < kFtzBelow
+             ? __uint_as_float(__float_as_uint(r) & 0x80000000u)
+             : r;
+}
+__device__ __forceinline__ float xla_mul(float a, float b) {
+  a = flush_subnormal(a);
+  b = flush_subnormal(b);
+  return ftz_checked(__fmul_rn(a, b), (double)a * (double)b);
+}
+__device__ __forceinline__ float xla_div(float a, float b) {
+  a = flush_subnormal(a);
+  b = flush_subnormal(b);
+  return ftz_checked(__fdiv_rn(a, b), __ddiv_rn((double)a, (double)b));
+}
+// fmodf is a library call in XLA's CPU code: only a subnormal divisor reads
+// as zero
+__device__ __forceinline__ float xla_mod(float a, float b) { return fmodf(a, flush_subnormal(b)); }
+
 // Exclusive block-wide sum of one int per thread: returns the sum over the
 // threads before this one and sets *total to the block's sum. Every thread
 // of the block calls it; blockDim.x is a multiple of 32, and ws is a

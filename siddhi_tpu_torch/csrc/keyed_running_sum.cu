@@ -22,12 +22,19 @@
 // of run out, G of carry in and out: well under a microsecond at 3.35
 // TB/s); the tile pass's 512-step shared-memory loop (O(tile^2) compares)
 // and the launch count dominate at this size. Ints are exact; float32 sums
-// run in another order than the JAX scan and agree to rounding.
+// run in another order than the JAX scan and agree to rounding. Float32 adds
+// are XLA's CPU adds (common.cuh xla_add): a subnormal contribution reads as
+// a zero of its sign and a partial sum below FLT_MIN flushes, in registers.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
+
+__device__ __forceinline__ float sum_add(float a, float b) { return xla_add(a, b); }
+__device__ __forceinline__ int64_t sum_add(int64_t a, int64_t b) { return a + b; }
 
 constexpr int kTile = 512;   // rows per tile and threads per tile block
 constexpr int kHash = 1024;  // slots of each tile's segment-total table
@@ -69,7 +76,7 @@ tile_kernel(const T* contrib, const int32_t* first, const int32_t* bounds, const
   for (int j = 0; j < len; ++j) {
     if (s_first[j] == mine) {
       if (j <= t)
-        acc += s_val[j];
+        acc = sum_add(acc, s_val[j]);
       else
         later = true;
     }
@@ -99,19 +106,19 @@ __global__ void row_kernel(const int32_t* first, const int32_t* bounds, const T*
     for (;;) {
       const int k = keys[h];
       if (k == f) {
-        cross += tab_val[(size_t)tt * kHash + h];
+        cross = sum_add(cross, tab_val[(size_t)tt * kHash + h]);
         break;
       }
       if (k < 0) break;
       h = (h + 1) & (kHash - 1);
     }
   }
-  const T seg = cross + part[r];
+  const T seg = sum_add(cross, part[r]);
   const int s = slot[r];
   const bool live = s >= 0 && s < G;
-  run[r] = seg + (r < bounds[0] && live ? carry[s] : T(0));
+  run[r] = sum_add(seg, r < bounds[0] && live ? carry[s] : T(0));
   if (live && r > bounds[1] && seg_last[f] == r)
-    new_carry[s] = (bounds[1] >= 0 ? T(0) : carry[s]) + seg;
+    new_carry[s] = sum_add(bounds[1] >= 0 ? T(0) : carry[s], seg);
 }
 
 template <typename T>

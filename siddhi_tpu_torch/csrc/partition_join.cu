@@ -6,12 +6,18 @@
 // `_flatten` (:436), which orders the vmapped [P, cap] output by position
 // first and slot second:
 //   - K38 `pj_view`: each partition's ring in insertion order (core/
-//     windows.py:438-452 `_view_perm` / `view` under the vmap). One block a
-//     slot runs ring_view.cu's dense-index rank with the slot's own total:
-//     a live seq lies in [total - W, total), so seq - (total - W) indexes a
-//     [W] scratch row; one block scan compacts the live slots, a second
-//     ranks the empty ones after them. join_probe.cu's `jp_partner_N` then
-//     gathers a lane.
+//     windows.py:438-452 `_view_perm` / `view` under the vmap), K11's
+//     design (ring_view.cu) over P slots: a live seq lies in [total[q] - W,
+//     total[q]), so seq - (total[q] - W) is a dense index into the slot's
+//     [W] `slot_at` row, in shared memory (a global [P * W] scratch only
+//     past it). A group of G threads (a power of two from 32 to 1,024, the
+//     least at or past W) a slot, several slots a block while G < 256: one
+//     group scan compacts the live slots, a second ranks the empty ones
+//     after them, and the thread that places a slot copies its element of
+//     every lane (up to kViewLanes a launch, passed by value) and writes
+//     the mask: a view is one launch. Bound: bytes, the ring read and the
+//     view written once (a few MB at P = 1,024, W = 50); the launch and the
+//     wrapper dominate at that size.
 //   - K39 `pj_plan` + `pj_fill`: the probe compaction keyed by slot. The
 //     pair mask is [R, W], each probe row against its own slot's W view
 //     lanes (the vmap's [P, R, W] has only one slot's lanes live a row). A
@@ -27,8 +33,7 @@
 //     vmap's [cap * P].
 // What bounds it on the card: bytes, the R*W mask read twice and the
 // output lanes written once (a few MB at R = 32,768, W = 50), but the one
-// block that ranks and places the rows serialises ~R/1024 block scans;
-// K38 is a few KB a slot, P blocks.
+// block that ranks and places the rows serialises ~R/1024 block scans.
 
 #include <climits>
 #include <cstdint>
@@ -39,47 +44,109 @@
 
 namespace {
 
-constexpr int kViewThreads = 256;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kViewBlock = 256;  // threads a block of K38 while a group is smaller
+constexpr int kViewLanes = 32;   // lanes a launch of K38, by value
+// slot_at's slots a block in dynamic shared memory (4 bytes each, 224 KB of
+// the block's 227 KB); past it a [P * W] int32 global scratch
+constexpr int kViewSharedSlots = 56 * 1024;
 
-// perm[q*W + k] = the ring element (q*W + j) shown at slot q's view row k;
-// mask[q*W + k] = k < slot q's live elements. slot_at: a [P*W] scratch.
-__global__ void __launch_bounds__(kViewThreads)
-view_kernel(const int64_t* seq, const int64_t* total, int W, int32_t* slot_at, int32_t* perm,
-            bool* mask) {
-  __shared__ int ws[32];
-  const int q = blockIdx.x, tid = threadIdx.x;
-  const size_t row = (size_t)q * W;
-  const int64_t* sq = seq + row;
-  int32_t* sa = slot_at + row;
-  int32_t* pm = perm + row;
-  const long long base_seq = total[q] - W;
-  for (int i = tid; i < W; i += kViewThreads) sa[i] = -1;
-  __syncthreads();
-  for (int j = tid; j < W; j += kViewThreads) {
-    const long long s = sq[j];
-    const long long i = s - base_seq;
-    if (s >= 0 && i >= 0 && i < W) sa[i] = j;
+struct ViewLanes {
+  const void* src[kViewLanes];  // [P, W] ring lane
+  void* dst[kViewLanes];        // [P, W] view lane
+  int size[kViewLanes];         // element bytes: 1, 2, 4 or 8
+  int n;
+};
+
+template <typename E>
+__device__ __forceinline__ void view_elem(const ViewLanes& L, int k, size_t p, size_t j) {
+  static_cast<E*>(L.dst[k])[p] = static_cast<const E*>(L.src[k])[j];
+}
+
+// view element p shows ring element j: every lane's element
+__device__ __forceinline__ void view_row(const ViewLanes& L, size_t p, size_t j) {
+  for (int k = 0; k < L.n; ++k) {
+    switch (L.size[k]) {
+      case 1: view_elem<uint8_t>(L, k, p, j); break;
+      case 2: view_elem<uint16_t>(L, k, p, j); break;
+      case 4: view_elem<uint32_t>(L, k, p, j); break;
+      default: view_elem<unsigned long long>(L, k, p, j); break;
+    }
   }
+}
+
+// Exclusive sum of v over the group of G threads (G a multiple of 32 that
+// divides blockDim.x) holding this thread; *total gets the group's sum.
+// Every thread of the block calls it; ws: a __shared__ int[32].
+__device__ __forceinline__ int group_excl_sum(int v, int G, int* ws, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += y;
+  }
+  int before = 0, tot = 0;
+  if (G == 32) {
+    tot = __shfl_sync(kFull, incl, 31);
+  } else {
+    if (lane == 31) ws[warp] = incl;
+    __syncthreads();
+    const int w0 = warp & ~(G / 32 - 1);  // the group's first warp
+    for (int w = w0; w < w0 + G / 32; ++w) {
+      const int x = ws[w];
+      before += w < warp ? x : 0;
+      tot += x;
+    }
+    __syncthreads();
+  }
+  *total = tot;
+  return incl - v + before;
+}
+
+// View element q*W + p shows slot q's ring element perm(p); mask[q*W + p] =
+// p < slot q's live elements; L's lanes placed by the placing thread.
+// slot_at_g: a [P * W] int32 scratch, or null for shared memory.
+__global__ void __launch_bounds__(1024)
+view_kernel(const int64_t* seq, const int64_t* total, int P, int W, int G,
+            int32_t* slot_at_g, const __grid_constant__ ViewLanes L, bool* mask) {
+  extern __shared__ int32_t slot_sh[];
+  __shared__ int ws[32];
+  const int g = threadIdx.x / G, t = threadIdx.x % G;
+  const int q = blockIdx.x * (blockDim.x / G) + g;
+  const bool on = q < P;  // a group past the last slot still joins the scans
+  const size_t row = (size_t)(on ? q : 0) * W;
+  int32_t* sa = slot_at_g != nullptr ? slot_at_g + row : slot_sh + (size_t)g * W;
+  const int64_t* sq = seq + row;
+  const long long base_seq = on ? total[q] - W : 0;
+  if (on)
+    for (int i = t; i < W; i += G) sa[i] = -1;
+  __syncthreads();
+  if (on)
+    for (int j = t; j < W; j += G) {
+      const long long s = sq[j];
+      const long long i = s - base_seq;
+      if (s >= 0 && i >= 0 && i < W) sa[i] = j;
+    }
   __syncthreads();
   int live = 0, tot;
-  for (int base = 0; base < W; base += kViewThreads) {
-    const int i = base + tid;
-    const int j = i < W ? sa[i] : -1;
-    const int excl = block_excl_sum(j >= 0, ws, &tot);
-    if (j >= 0) pm[live + excl] = (int32_t)(row + j);
+  for (int base = 0; base < W; base += G) {
+    const int i = base + t;
+    const int j = on && i < W ? sa[i] : -1;
+    const int excl = group_excl_sum(j >= 0, G, ws, &tot);
+    if (j >= 0) view_row(L, row + live + excl, row + j);
     live += tot;
   }
   int empty = 0;
-  for (int base = 0; base < W; base += kViewThreads) {
-    const int j = base + tid;
-    const bool hole = j < W && sq[j] < 0;
-    const int excl = block_excl_sum(hole, ws, &tot);
-    if (hole) pm[live + empty + excl] = (int32_t)(row + j);
+  for (int base = 0; base < W; base += G) {
+    const int j = base + t;
+    const bool hole = on && j < W && sq[j] < 0;
+    const int excl = group_excl_sum(hole, G, ws, &tot);
+    if (hole) view_row(L, row + live + empty + excl, row + j);
     empty += tot;
   }
-  for (int k = tid; k < W; k += kViewThreads) mask[row + k] = k < live;
+  if (on && mask != nullptr)
+    for (int p = t; p < W; p += G) mask[row + p] = p < live;
 }
 
 __device__ __forceinline__ int member_slot(const bool* row_mask, const int32_t* row_slot, int P,
@@ -209,10 +276,47 @@ __global__ void fill_kernel(const bool* pair, const bool* row_mask, const int32_
 
 extern "C" {
 
-int pj_view(const int64_t* seq, const int64_t* total, int P, int W, int32_t* slot_at,
-            int32_t* perm, bool* mask, cudaStream_t stream) {
-  view_kernel<<<P, kViewThreads, 0, stream>>>(seq, total, W, slot_at, perm, mask);
-  return (int)cudaGetLastError();
+// The keyed view of P rings: n lanes and the [P, W] mask; args holds n
+// source pointers, n destination pointers, then n element sizes (lane k
+// from args[k] to args[n + k], [P, W] each, args[2n + k] bytes an
+// element). One launch up to
+// kViewLanes lanes (more take one more launch a kViewLanes, each ranking
+// again). slot_at: a [P * W] int32 scratch when a block's slots pass
+// kViewSharedSlots (ops/partition.py `_pj_view_scratch` says), else null.
+int pj_view(const int64_t* seq, const int64_t* total, int P, int W, int32_t* slot_at, int n,
+            const long long* args, bool* mask, cudaStream_t stream) {
+  if (P < 1 || W < 1 || n < 0) return (int)cudaErrorInvalidValue;
+  int G = 32;
+  while (G < W && G < 1024) G <<= 1;
+  const int threads = G < kViewBlock ? kViewBlock : G;
+  const int per_block = threads / G;
+  const size_t shared = (size_t)per_block * W * sizeof(int32_t);
+  if (slot_at == nullptr) {
+    if (shared > (size_t)kViewSharedSlots * sizeof(int32_t)) return (int)cudaErrorInvalidValue;
+    if (shared > 48 * 1024) {  // the opt-in above 48 KB
+      const cudaError_t e = cudaFuncSetAttribute(
+          view_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kViewSharedSlots * (int)sizeof(int32_t));
+      if (e != cudaSuccess) return (int)e;
+    }
+  }
+  const int blocks = (P + per_block - 1) / per_block;
+  int base = 0;
+  do {
+    ViewLanes L;
+    L.n = n - base < kViewLanes ? n - base : kViewLanes;
+    for (int k = 0; k < L.n; ++k) {
+      L.src[k] = (const void*)args[base + k];
+      L.dst[k] = (void*)args[n + base + k];
+      L.size[k] = (int)args[2 * n + base + k];
+    }
+    view_kernel<<<blocks, threads, slot_at == nullptr ? shared : 0, stream>>>(
+        seq, total, P, W, G, slot_at, L, base == 0 ? mask : nullptr);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    base += kViewLanes;
+  } while (base < n);
+  return 0;
 }
 
 // The counts, ranks, offsets and placement of a keyed probe compaction

@@ -192,18 +192,22 @@ template <> struct Limits<float> {
   __device__ static float hi() { return INFINITY; }
   __device__ static float lo() { return -INFINITY; }
   __device__ static bool nan(float v) { return isnan(v); }
+  // a float32 subnormal reads as a zero of its sign, as XLA's CPU code reads it
+  __device__ static float read(float v) { return flush_subnormal(v); }
   __device__ static float from_bits(long long b) { return __int_as_float((int)b); }
 };
 template <> struct Limits<int32_t> {
   __device__ static int32_t hi() { return INT_MAX; }
   __device__ static int32_t lo() { return INT_MIN; }
   __device__ static bool nan(int32_t) { return false; }
+  __device__ static int32_t read(int32_t v) { return v; }
   __device__ static int32_t from_bits(long long b) { return (int32_t)b; }
 };
 template <> struct Limits<int64_t> {
   __device__ static int64_t hi() { return LLONG_MAX; }
   __device__ static int64_t lo() { return LLONG_MIN; }
   __device__ static bool nan(int64_t) { return false; }
+  __device__ static int64_t read(int64_t v) { return v; }
   __device__ static int64_t from_bits(long long b) { return (int64_t)b; }
 };
 
@@ -226,12 +230,12 @@ __global__ void pw_extreme_kernel(const T* vals, const int32_t* birth, const int
   if (p >= 0 && p < P) {
     for (int j = 0; j < W; ++j) {
       const int e = p * W + j;
-      if (birth[e] <= o && o < death[e]) fold(red, vals[e], is_min);
+      if (birth[e] <= o && o < death[e]) fold(red, Limits<T>::read(vals[e]), is_min);
     }
     const int hi = slot_start[p + 1];
     for (int k = slot_start[p]; k < hi; ++k) {
       const int e = P * W + rowlist[k];
-      if (birth[e] <= o && o < death[e]) fold(red, vals[e], is_min);
+      if (birth[e] <= o && o < death[e]) fold(red, Limits<T>::read(vals[e]), is_min);
     }
   }
   out[o] = red == ident ? Limits<T>::from_bits(null_bits) : red;

@@ -170,11 +170,14 @@ __device__ __forceinline__ Val t_arith(int op, Val a, Val b, int t) {
   r.i = 0;
   if (t == TY_FLOAT) {
     switch (op) {
-      case 0: r.f = __fadd_rn(a.f, b.f); break;
-      case 1: r.f = __fsub_rn(a.f, b.f); break;
-      case 2: r.f = __fmul_rn(a.f, b.f); break;
-      case 3: r.f = __fdiv_rn(a.f, b.f); break;
-      default: r.f = fmodf(a.f, b.f); break;
+      case 0: r.f = xla_add(a.f, b.f); break;
+      case 1: r.f = xla_sub(a.f, b.f); break;
+      case 2: r.f = xla_mul(a.f, b.f); break;
+      case 3: r.f = xla_div(a.f, b.f); break;
+      case 4: r.f = xla_mod(a.f, b.f); break;
+      // % by a constant power of two >= 1 (core/pattern.py ARITH_MOD_POW2):
+      // XLA's arithmetic rewrite reads a subnormal dividend as zero too
+      default: r.f = xla_mod(flush_subnormal(a.f), b.f); break;
     }
   } else if (t == TY_INT) {
     const unsigned int x = (unsigned int)(int)a.i, y = (unsigned int)(int)b.i;

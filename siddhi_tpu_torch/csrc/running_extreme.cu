@@ -25,8 +25,11 @@
 // segment of a slot, as the plain version's scatter keeps it).
 // NaN: jnp.minimum/maximum propagate it (a null float is NaN), while CUDA's
 // fminf/fmaxf drop it, so the comparisons here are written out and any NaN
-// operand wins. Min and max are exact in any order, so both kernels equal
-// their plain versions bit for bit (up to which NaN is kept).
+// operand wins; of zeros of both signs the minimum is -0.0 and the maximum
+// 0.0. Min and max are then exact in any order, so both kernels equal their
+// plain versions bit for bit (up to which NaN is kept). A float32
+// subnormal value reads as a zero of its sign, as XLA's CPU code reads it
+// (common.cuh flush_subnormal, in registers).
 // What bounds them on the card: bytes (n values + 2n flags in, n values out;
 // K19 also the ids, slots and the [G] carry): well under a microsecond at
 // 3.35 TB/s at n = 32768; the launches, the serial in-thread loops (K18) and
@@ -37,6 +40,8 @@
 #include <cmath>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
@@ -45,30 +50,37 @@ constexpr int kTile = kThreads * kItems;  // keep equal to ops/prefix.py _SCAN_T
 constexpr int kKeyTile = 512;  // keep equal to ops/group.py _SUM_TILE
 constexpr int kHash = 1024;    // keep equal to ops/group.py _SUM_HASH
 constexpr int kRowThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> struct Lim;
 template <> struct Lim<float> {
   __device__ static float hi() { return INFINITY; }
   __device__ static float lo() { return -INFINITY; }
   __device__ static bool nan(float v) { return isnan(v); }
+  __device__ static float read(float v) { return flush_subnormal(v); }
+  __device__ static bool neg(float v) { return signbit(v); }
 };
 template <> struct Lim<int32_t> {
   __device__ static int32_t hi() { return INT_MAX; }
   __device__ static int32_t lo() { return INT_MIN; }
   __device__ static bool nan(int32_t) { return false; }
+  __device__ static int32_t read(int32_t v) { return v; }
+  __device__ static bool neg(int32_t v) { return v < 0; }
 };
 template <> struct Lim<int64_t> {
   __device__ static int64_t hi() { return LLONG_MAX; }
   __device__ static int64_t lo() { return LLONG_MIN; }
   __device__ static bool nan(int64_t) { return false; }
+  __device__ static int64_t read(int64_t v) { return v; }
+  __device__ static bool neg(int64_t v) { return v < 0; }
 };
 
-// min or max with NaN propagation
+// min or max with NaN propagation; of zeros of both signs the minimum is
+// -0.0 and the maximum 0.0, in any order (XLA's jnp.minimum/maximum)
 template <typename T>
 __device__ __forceinline__ T ext(T a, T b, bool is_min) {
   if (Lim<T>::nan(a)) return a;
   if (Lim<T>::nan(b)) return b;
+  if (a == b) return Lim<T>::neg(a) == is_min ? a : b;
   return is_min ? (b < a ? b : a) : (b > a ? b : a);
 }
 
@@ -95,7 +107,7 @@ __device__ __forceinline__ Seg<T> combine(Seg<T> a, Seg<T> b, bool is_min) {
 template <typename T>
 __device__ __forceinline__ Seg<T> element(const T* values, const bool* active,
                                           const bool* reset, int i, bool is_min) {
-  return Seg<T>{active[i] ? values[i] : identity<T>(is_min), (int)reset[i]};
+  return Seg<T>{active[i] ? Lim<T>::read(values[i]) : identity<T>(is_min), (int)reset[i]};
 }
 
 // Exclusive scan of one Seg per thread over the block (identity before the
@@ -164,7 +176,7 @@ tile_scan_kernel(const T* values, const bool* active, const bool* reset, const T
   __shared__ T c_v;
   __shared__ int c_f;
   if (threadIdx.x == 0) {
-    Seg<T> c{*base, 0};
+    Seg<T> c{Lim<T>::read(*base), 0};
     for (int b = 0; b < (int)blockIdx.x; ++b) c = combine(c, Seg<T>{agg_v[b], agg_f[b]}, is_min);
     c_v = c.v;
     c_f = c.f;
@@ -228,7 +240,7 @@ key_tile_kernel(const T* values, const bool* active, const int32_t* first,
   const T ident = identity<T>(is_min);
   if (t < len) {
     s_first[t] = first[r];
-    s_val[t] = active[r] ? values[r] : ident;
+    s_val[t] = active[r] ? Lim<T>::read(values[r]) : ident;
   }
   __syncthreads();
   // the new carry's base: the identity when the batch holds a reset
@@ -285,7 +297,7 @@ __global__ void key_row_kernel(const int32_t* first, const int32_t* bounds, cons
   part[r] = seg;  // the segment's running value, read back by the writer pass
   const int s = slot[r];
   const bool live = s >= 0 && s < G;
-  run[r] = ext(seg, r < bounds[0] && live ? carry[s] : ident, is_min);
+  run[r] = ext(seg, r < bounds[0] && live ? Lim<T>::read(carry[s]) : ident, is_min);
   if (live && r > bounds[1] && seg_last[f] == r) atomicMax(&slot_win[s], f);
 }
 
@@ -304,7 +316,8 @@ __global__ void key_write_kernel(const int32_t* first, const int32_t* bounds, co
   if (r >= rows) return;
   const int f = first[r], s = slot[r];
   if (s < 0 || s >= G || r <= bounds[1] || seg_last[f] != r || slot_win[s] != f) return;
-  new_carry[s] = ext(bounds[1] >= 0 ? identity<T>(is_min) : carry[s], part[r], is_min);
+  new_carry[s] = ext(bounds[1] >= 0 ? identity<T>(is_min) : Lim<T>::read(carry[s]), part[r],
+                     is_min);
 }
 
 // bounds = [first, last] RESET row of `reset` (rows and -1 when none): the

@@ -15,17 +15,20 @@
 // What bounds it on the card: bytes (n values + n flags in, n values out);
 // at n = 65536 that is well under a microsecond at 3.35 TB/s, so the launch
 // and the serial in-thread loops dominate. Float32 sums run in a different
-// order than jnp.cumsum, so results agree to rounding only.
+// order than jnp.cumsum, so results agree to rounding only. Float32 adds are
+// XLA's CPU adds (common.cuh xla_add): a subnormal contribution reads as a
+// zero of its sign and a partial sum below FLT_MIN flushes, in registers.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kItems = 32;
 constexpr int kTile = kThreads * kItems;  // keep equal to ops/prefix.py _SCAN_TILE
-constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T>
 struct Seg {
@@ -33,16 +36,19 @@ struct Seg {
   int f;
 };
 
+__device__ __forceinline__ float sum_add(float a, float b) { return xla_add(a, b); }
+__device__ __forceinline__ int64_t sum_add(int64_t a, int64_t b) { return a + b; }
+
 // a then b: b restarts the sum if it holds a reset
 template <typename T>
 __device__ __forceinline__ Seg<T> combine(Seg<T> a, Seg<T> b) {
-  return Seg<T>{b.f ? b.v : a.v + b.v, a.f | b.f};
+  return Seg<T>{b.f ? b.v : sum_add(a.v, b.v), a.f | b.f};
 }
 
 template <typename T>
 __device__ __forceinline__ Seg<T> element(const T* contrib, const bool* reset, int i) {
   const bool r = reset[i];
-  return Seg<T>{r ? T(0) : contrib[i], (int)r};
+  return Seg<T>{r ? T(0) : sum_add(T(0), contrib[i]), (int)r};
 }
 
 // Exclusive scan of one Seg per thread over the block; *total gets the

@@ -8,7 +8,12 @@
 // vals[e] over the elements with birth[e] <= p < death[e] (absent elements
 // carry death = -1), starting from the identity (+inf/-inf, or the integer
 // extreme as ops/prefix.py extreme_identity), and an empty window (result
-// == identity) becomes the null sentinel. NaN propagates as in jnp.min/max.
+// == identity) becomes the null sentinel. NaN propagates as in jnp.min/max;
+// of zeros of both signs the minimum is -0.0 and the maximum 0.0, in any
+// order; a float32 subnormal value reads as a zero of its sign, as XLA's
+// CPU code reads it (common.cuh flush_subnormal, when the tile is loaded).
+// The loop compares integer order keys made once an element (Limits::key),
+// one compare a (row, element) pair.
 // Design: one thread per output row, 256 rows per block; the element lanes
 // stream through shared memory in tiles of 1024, every thread of a warp
 // reading the same element (a broadcast).
@@ -26,28 +31,44 @@
 #include <cmath>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTileElems = 1024;
 
 template <typename T> struct Limits;
+// key(v): an integer in v's order, the min and max compare keys. A float's
+// key is its total order (-0.0 below 0.0, so a zero of each sign gives -0.0
+// for min and 0.0 for max in any order); a NaN's is below every number for
+// min and above for max, so the first NaN met wins and sticks.
 template <> struct Limits<float> {
+  using Key = int;
   __device__ static float hi() { return INFINITY; }
   __device__ static float lo() { return -INFINITY; }
-  __device__ static bool nan(float v) { return isnan(v); }
+  __device__ static float read(float v) { return flush_subnormal(v); }
+  __device__ static int key(float v, bool is_min) {
+    if (isnan(v)) return is_min ? INT_MIN : INT_MAX;
+    const int u = __float_as_int(v);
+    return u >= 0 ? u : u ^ 0x7fffffff;
+  }
   __device__ static float from_bits(long long b) { return __int_as_float((int)b); }
 };
 template <> struct Limits<int32_t> {
+  using Key = int32_t;
   __device__ static int32_t hi() { return INT_MAX; }
   __device__ static int32_t lo() { return INT_MIN; }
-  __device__ static bool nan(int32_t) { return false; }
+  __device__ static int32_t read(int32_t v) { return v; }
+  __device__ static int32_t key(int32_t v, bool) { return v; }
   __device__ static int32_t from_bits(long long b) { return (int32_t)b; }
 };
 template <> struct Limits<int64_t> {
+  using Key = int64_t;
   __device__ static int64_t hi() { return LLONG_MAX; }
   __device__ static int64_t lo() { return LLONG_MIN; }
-  __device__ static bool nan(int64_t) { return false; }
+  __device__ static int64_t read(int64_t v) { return v; }
+  __device__ static int64_t key(int64_t v, bool) { return v; }
   __device__ static int64_t from_bits(long long b) { return (int64_t)b; }
 };
 
@@ -58,29 +79,36 @@ __global__ void window_extreme_kernel(const T* vals, const int32_t* birth,
                                       const int32_t* death, const int64_t* ekey,
                                       const int64_t* rkey, T* out, int n_rows,
                                       int n_elems, int is_min, long long null_bits) {
+  using Key = typename Limits<T>::Key;
   __shared__ T s_val[kTileElems];
+  __shared__ Key s_key[kTileElems];
   __shared__ int32_t s_birth[kTileElems];
   __shared__ int32_t s_death[kTileElems];
-  __shared__ int64_t s_key[Keyed ? kTileElems : 1];
+  __shared__ int64_t s_ekey[Keyed ? kTileElems : 1];
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   const T ident = is_min ? Limits<T>::hi() : Limits<T>::lo();
   const int64_t mine = Keyed && p < n_rows ? rkey[p] : 0;
   T red = ident;
+  Key rk = Limits<T>::key(ident, is_min);
   for (int e0 = 0; e0 < n_elems; e0 += kTileElems) {
     const int m = min(kTileElems, n_elems - e0);
     for (int k = threadIdx.x; k < m; k += blockDim.x) {
-      s_val[k] = vals[e0 + k];
+      const T v = Limits<T>::read(vals[e0 + k]);
+      s_val[k] = v;
+      s_key[k] = Limits<T>::key(v, is_min);
       s_birth[k] = birth[e0 + k];
       s_death[k] = death[e0 + k];
-      if (Keyed) s_key[k] = ekey[e0 + k];
+      if (Keyed) s_ekey[k] = ekey[e0 + k];
     }
     __syncthreads();
     if (p < n_rows) {
       for (int k = 0; k < m; ++k) {
-        if (s_birth[k] <= p && p < s_death[k] && (!Keyed || s_key[k] == mine)) {
-          const T v = s_val[k];
-          const bool take = Limits<T>::nan(v) || (is_min ? v < red : v > red);
-          if (take && !Limits<T>::nan(red)) red = v;
+        if (s_birth[k] <= p && p < s_death[k] && (!Keyed || s_ekey[k] == mine)) {
+          const Key kv = s_key[k];
+          if (is_min ? kv < rk : kv > rk) {
+            rk = kv;
+            red = s_val[k];
+          }
         }
       }
     }

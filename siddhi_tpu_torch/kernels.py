@@ -154,7 +154,7 @@ SIGNATURES = {
     "pp_place": ("partition_pattern", [I] + [P] * 8 + [P]),
     "pp_place_rows": ("partition_pattern", [I, I] + [P] * 8 + [P]),
     "pp_gather": ("partition_pattern", [P, P, P, I, I, I, P]),
-    "pj_view": ("partition_join", [P, P, I, I, P, P, P, P]),
+    "pj_view": ("partition_join", [P, P, I, I, P, I, P, P, P]),
     "pj_plan": ("partition_join", [P] * 3 + [I] * 5 + [P] * 13 + [P]),
     "pj_fill": ("partition_join", [P] * 3 + [I] * 6 + [P] * 9 + [P]),
     "sw_psort": ("special_window", [I] * 5 + [P] * 22 + [P]),
@@ -167,7 +167,7 @@ SIGNATURES = {
     "ol_order": ("order_limit", [I] * 6 + [P] * 2 + [P] * 8 + [P] * 3 + [P]),
     "ol_workspace": ("order_limit", [I] * 4),
     "ks_owner": ("keyshard", [P, I, I, P, P]),
-    "ks_fold": ("keyshard", [I, I, I, P, P, P, P, P, P, P]),
+    "ks_fold": ("keyshard", [I, I, I, P, P, P, P, P]),
     "sr_route": ("shard_route", [I, I, I, P, P, P, I, P, P, P, P, P, P, P]),
 }
 

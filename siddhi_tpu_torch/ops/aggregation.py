@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from siddhi_tpu_torch import kernels
+from siddhi_tpu_torch.core.types import FLT_MIN
 from siddhi_tpu_torch.ops.table import _Args
 
 SPILLS_PER_BATCH = 4  # kSpills of csrc/aggregation.cu
@@ -146,9 +147,20 @@ def _fmax(a, b):
     return b if math.copysign(1.0, a) < 0 else a
 
 
+def _fl(x):
+    """A float32 scalar as XLA's CPU code reads it: a subnormal as a zero
+    of its sign (core/types.py flush_subnormal)."""
+    return x * np.float32(0) if abs(x) < FLT_MIN else x
+
+
 def _fold(op: str, is_float: bool, dst, src):
+    if is_float and op != "last":
+        # XLA's scatter-add/min/max read subnormals as zeros; a float32 sum
+        # below FLT_MIN is exact, and flushed as well
+        dst, src = _fl(dst), _fl(src)
     if op in ("sum", "count"):
-        return dst + src  # numpy scalars: float32 / wrapping int64 arithmetic
+        r = dst + src  # numpy scalars: float32 / wrapping int64 arithmetic
+        return _fl(r) if is_float else r
     if op == "min":
         return _fmin(dst, src) if is_float else min(dst, src)
     if op == "max":

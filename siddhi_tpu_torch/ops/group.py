@@ -37,8 +37,11 @@ import torch
 
 from siddhi_tpu_torch import kernels
 from siddhi_tpu_torch.core.event import KIND_EXPIRED
+from siddhi_tpu_torch.core.types import flush_subnormal
 from siddhi_tpu_torch.ops.prefix import (
+    add,
     extreme_identity,
+    extreme_op,
     last_reset_index,
     segmented_carry,
     segmented_cum_extreme,
@@ -278,18 +281,19 @@ def _sorted_view(grp: Groups):
 def keyed_running_sum_ref(contrib, grp: Groups, reset, carry, slot):
     """Plain version of `keyed_running_sum`: a segmented scan over the rows
     sorted by segment, the carry gathered where no reset came before, and
-    the segment ends of the final era written into the new carry."""
+    the segment ends of the final era written into the new carry; float32
+    contributions and sums with subnormals as zeros (XLA's CPU code)."""
     g = carry.shape[0]
     rows = contrib.shape[0]
     order, seg_start = _sorted_view(grp)
-    run_s = segmented_cumsum(contrib[order], seg_start)
+    run_s = segmented_cumsum(flush_subnormal(contrib)[order], seg_start)
     run = torch.empty_like(run_s)
     run[order] = run_s
     lr = last_reset_index(reset)
     zero = torch.zeros((), dtype=carry.dtype, device=carry.device)
     sl = slot.clamp(0, g - 1).long()
     gathered = torch.where(slot < g, carry[sl], zero)
-    run = run + torch.where(lr < 0, gathered, zero)
+    run = add(run, torch.where(lr < 0, gathered, zero))
 
     glr = lr[-1]
     post = torch.arange(rows, dtype=torch.int32, device=contrib.device) > glr
@@ -299,7 +303,7 @@ def keyed_running_sum_ref(contrib, grp: Groups, reset, carry, slot):
     slot_s, post_s = slot[order], post[order]
     writer = seg_end & post_s & (slot_s < g)
     base_s = torch.where(slot_s < g, base[slot_s.clamp(0, g - 1).long()], zero)
-    newval = (base_s + run_s).to(carry.dtype)
+    newval = add(base_s, run_s).to(carry.dtype)
     new_carry = set_at(base, torch.where(writer, slot_s, g), newval)
     return run, new_carry
 
@@ -352,19 +356,20 @@ def keyed_running_extreme_ref(values, active, grp: Groups, reset, carry, slot, i
     """Plain version of `keyed_running_extreme`: the JAX package's keyed
     running min/max over the rows sorted by segment, the carry folded in
     where no reset came before, and the final era's segment ends written
-    into the new carry."""
+    into the new carry; a float32 subnormal value reads as a zero of its
+    sign (XLA's CPU code)."""
     g = carry.shape[0]
     rows = values.shape[0]
     ident = extreme_identity(values.dtype, is_min).to(values.device)
-    op = torch.minimum if is_min else torch.maximum
-    masked = torch.where(active, values, ident)
+    op = extreme_op(values.dtype, is_min)
+    masked = torch.where(active, flush_subnormal(values), ident)
     order, seg_start = _sorted_view(grp)
     run_s = segmented_cum_extreme(masked[order], seg_start, is_min)
     run = torch.empty_like(run_s)
     run[order] = run_s
     lr = last_reset_index(reset)
     sl = slot.clamp(0, g - 1).long()
-    run = op(run, torch.where((slot < g) & (lr < 0), carry[sl], ident))
+    run = op(run, torch.where((slot < g) & (lr < 0), flush_subnormal(carry)[sl], ident))
 
     post = torch.arange(rows, dtype=torch.int32, device=values.device) > lr[-1]
     base = torch.where(reset.any(), ident.expand(g), carry)
@@ -379,7 +384,7 @@ def keyed_running_extreme_ref(values, active, grp: Groups, reset, carry, slot, i
     last = torch.full((g + 1,), -1, dtype=torch.int64, device=values.device).scatter_reduce(
         0, torch.where(writer, slot_s, g).long(), at, reduce="amax")
     writer = writer & (last[slot_s.clamp(0, g).long()] == at)
-    base_s = torch.where(slot_s < g, base[slot_s.clamp(0, g - 1).long()], ident)
+    base_s = torch.where(slot_s < g, flush_subnormal(base)[slot_s.clamp(0, g - 1).long()], ident)
     new_carry = set_at(base, torch.where(writer, slot_s, g), op(base_s, run_s))
     return run, new_carry
 

@@ -35,6 +35,7 @@ independently of the kernel's closed forms.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
@@ -43,7 +44,7 @@ import torch
 from siddhi_tpu_torch import kernels
 from siddhi_tpu_torch.core.event import EventBatch, KIND_CURRENT, KIND_TIMER
 from siddhi_tpu_torch.core.join import JoinRows
-from siddhi_tpu_torch.core.types import AttrType, null_value
+from siddhi_tpu_torch.core.types import AttrType, flush_subnormal, null_value
 from siddhi_tpu_torch.core.windows import (
     BIG,
     NO_TIMER,
@@ -790,6 +791,7 @@ def partition_window_extreme_ref(vals, birth_pos, death_pos, row_slot, rowlist, 
     n_rows = row_slot.shape[0]
     ident = extreme_identity(vals.dtype, is_min).to(dev)
     null = torch.tensor(null_value(t), dtype=vals.dtype, device=dev)
+    vals = flush_subnormal(vals)  # a float32 subnormal as a zero (XLA's CPU code)
     counts = (slot_start[1:] - slot_start[:-1]).long()
     maxc = int(counts.max()) if p else 0
     k = torch.arange(maxc, device=dev)
@@ -1109,46 +1111,50 @@ def partition_ring_view_ref(state: dict):
     return cols, torch.gather(state["ts"], 1, perm), torch.gather(mask, 1, perm)
 
 
+def _pj_view_scratch(w: int) -> bool:
+    """Whether K38 keeps its slots' `slot_at` rows in a global scratch: a
+    block's rows past kViewSharedSlots (csrc/partition_join.cu; a group of
+    G threads a slot, G the least power of two from 32 to 1,024 at or past
+    W, blocks of max(G, 256) threads)."""
+    g = 32
+    while g < w and g < 1024:
+        g *= 2
+    return max(g, 256) // g * w > 56 * 1024
+
+
 def partition_ring_view(state: dict):
     """Every partition's sliding ring in insertion order, for a join side's
     probe inside a partition: (cols {name: [P, W]}, ts [P, W], mask
     [P, W]); row q holds slot q's live elements first by seq, then its
     empty ring slots in slot order (the JAX package's `view` under the
     vmap). A slot's live seqs lie in [total[q] - W, total[q]), so the order
-    is a rank over that dense range: one block a slot
-    (csrc/partition_join.cu `pj_view`)."""
+    is a rank over that dense range, and one launch places every lane and
+    the mask (csrc/partition_join.cu `pj_view`)."""
     if state["seq"].device.type == "cpu":
         return partition_ring_view_ref(state)
-    lanes = [state["ts"], state["seq"], state["total"], *state["cols"].values()]
-    kernels.require_cuda("partition_ring_view", *lanes)
+    names = list(state["cols"])
+    lanes = [state["cols"][n] for n in names] + [state["ts"]]
+    kernels.require_cuda("partition_ring_view", state["seq"], state["total"], *lanes)
     p, w = state["seq"].shape
     if state["seq"].dtype != torch.int64 or state["total"].dtype != torch.int64 or \
-            state["total"].shape != (p,) or any(
-            x.shape != (p, w) for x in (state["ts"], *state["cols"].values())):
+            state["total"].shape != (p,) or any(x.shape != (p, w) for x in lanes):
         raise ValueError(f"partition_ring_view: int64 seq/total, [{p}, {w}] ring lanes and "
                          f"[{p}] totals expected")
     if p * w >= 2**31:
         raise ValueError(f"partition_ring_view: P {p} x W {w} out of range")
     dev = state["seq"].device
-    perm = _i32((p, w), dev)
+    outs = [torch.empty((p, w), dtype=x.dtype, device=dev) for x in lanes]
     mask = torch.empty((p, w), dtype=torch.bool, device=dev)
-    scratch = _i32(p * w, dev)
-    stream = kernels.stream()
+    args = [x.data_ptr() for x in lanes] + [x.data_ptr() for x in outs] + [
+        x.element_size() for x in lanes]
+    c_args = (ctypes.c_longlong * len(args))(*args)
+    scratch = _i32(p * w, dev) if _pj_view_scratch(w) else None
     kernels.check(kernels.function("pj_view")(
-        state["seq"].data_ptr(), state["total"].data_ptr(), p, w, scratch.data_ptr(),
-        perm.data_ptr(), mask.data_ptr(), stream), "partition_ring_view")
-
-    def gather(lane):
-        out = torch.empty((p, w), dtype=lane.dtype, device=dev)
-        kernels.check(kernels.function(f"jp_partner_{lane.element_size()}")(
-            lane.data_ptr(), perm.data_ptr(), -1, out.data_ptr(), p * w, p * w, stream),
-            "partition_ring_view")
-        return out
-
-    cols = {n: gather(c) for n, c in state["cols"].items()}
-    ts = gather(state["ts"])
+        state["seq"].data_ptr(), state["total"].data_ptr(), p, w,
+        None if scratch is None else scratch.data_ptr(), len(lanes), ctypes.addressof(c_args),
+        mask.data_ptr(), kernels.stream()), "partition_ring_view")
     kernels.launches["partition_ring_view"] += 1
-    return cols, ts, mask
+    return dict(zip(names, outs[:-1])), outs[-1], mask
 
 
 def _null_fill(t: AttrType, dtype, dev):

@@ -18,15 +18,11 @@ import numpy as np
 import torch
 
 from siddhi_tpu_torch import kernels
+from siddhi_tpu_torch.core.types import float_arith, float_extreme, flush_subnormal, flushed_cumsum
 
 # rows per scan tile of csrc/running_sum.cu and csrc/running_extreme.cu (kTile)
 _SCAN_TILE = 32768
 _EXTREME_SUFFIX = {torch.float32: "f32", torch.int32: "i32", torch.int64: "i64"}
-
-
-def cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive running sum in the input's dtype."""
-    return torch.cumsum(x, 0, dtype=x.dtype)
 
 
 def last_reset_index(reset: torch.Tensor) -> torch.Tensor:
@@ -36,16 +32,27 @@ def last_reset_index(reset: torch.Tensor) -> torch.Tensor:
     return torch.cummax(marked, 0).values
 
 
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b; on float32 as XLA's CPU code adds (core/types.py float_arith)."""
+    return float_arith("add", a, b) if a.dtype == torch.float32 else a + b
+
+
 def running_sum_ref(
     contrib: torch.Tensor, reset: torch.Tensor, base: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of `running_sum`:
-    run_i = csum_i - csum[last_reset_i] (+ base before the first reset)."""
-    csum = cumsum(contrib)
+    run_i = csum_i - csum[last_reset_i] (+ base before the first reset), a
+    float32 contribution or partial sum that is subnormal taken as a zero of
+    its sign (XLA's CPU code, the JAX package's: core/types.py)."""
+    csum = flushed_cumsum(flush_subnormal(contrib))
     lr = last_reset_index(reset)
     zero = torch.zeros((), dtype=csum.dtype, device=csum.device)
     at_lr = torch.where(lr >= 0, csum[lr.clamp(min=0).long()], zero)
-    run = csum - at_lr + torch.where(lr < 0, base, zero)
+    if csum.dtype == torch.float32:
+        run = float_arith("sub", csum, at_lr, False, False)
+    else:
+        run = csum - at_lr
+    run = add(run, torch.where(lr < 0, base, zero))
     return run, run[-1]
 
 
@@ -103,12 +110,13 @@ def extreme_identity(dtype: torch.dtype, is_min: bool) -> torch.Tensor:
 def running_extreme_ref(values, active, reset, base, is_min):
     """Plain version of `running_extreme`, in the JAX package's formulation:
     inactive rows masked to the identity, a segmented scan that restarts at
-    each reset, and the carry folded in before the first reset."""
+    each reset, and the carry folded in before the first reset; a float32
+    subnormal value reads as a zero of its sign (XLA's CPU code)."""
     ident = extreme_identity(values.dtype, is_min).to(values.device)
-    op = torch.minimum if is_min else torch.maximum
-    masked = torch.where(active, values, ident)
+    op = extreme_op(values.dtype, is_min)
+    masked = torch.where(active, flush_subnormal(values), ident)
     red = segmented_cum_extreme(masked, reset, is_min)
-    base_eff = torch.where(last_reset_index(reset) < 0, base, ident)
+    base_eff = torch.where(last_reset_index(reset) < 0, flush_subnormal(base), ident)
     run = op(red, base_eff)
     return run, run[-1]
 
@@ -176,15 +184,24 @@ def _segmented_scan(vals: torch.Tensor, seg_start: torch.Tensor, op) -> torch.Te
 
 
 def segmented_cumsum(vals: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
-    """Inclusive segment-wise running sum."""
-    return _segmented_scan(vals, seg_start, torch.add)
+    """Inclusive segment-wise running sum (float32 adds as `add`'s)."""
+    return _segmented_scan(vals, seg_start, add)
+
+
+def extreme_op(dtype: torch.dtype, is_min: bool):
+    """The min or max of two lanes: on float32 XLA's (core/types.py
+    float_extreme: NaN wins, of zeros of both signs the minimum -0.0 and
+    the maximum 0.0, in any order) over values that hold no subnormal."""
+    if dtype == torch.float32:
+        return lambda a, b: float_extreme(a, b, is_min, False, False)
+    return torch.minimum if is_min else torch.maximum
 
 
 def segmented_cum_extreme(
     vals: torch.Tensor, seg_start: torch.Tensor, is_min: bool
 ) -> torch.Tensor:
-    """Inclusive segment-wise running min/max."""
-    return _segmented_scan(vals, seg_start, torch.minimum if is_min else torch.maximum)
+    """Inclusive segment-wise running min/max (`extreme_op`'s)."""
+    return _segmented_scan(vals, seg_start, extreme_op(vals.dtype, is_min))
 
 
 def segmented_carry(vals: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,7 @@ log = logging.getLogger(__name__)
 
 KEY_AXIS = "keys"
 _MAX_FOLD_LANES = 32  # kMaxLanes of csrc/keyshard.cu
+_FOLD_TABLE_BY_VALUE = 384  # kTableByValue of csrc/keyshard.cu
 
 # splitmix64 finalizer constants: single-column group keys pass through
 # `mix_keys` un-mixed, so the owner hash scrambles low bits itself
@@ -115,15 +116,18 @@ def owner_of(keys: torch.Tensor, n_devices: int) -> torch.Tensor:
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
-def fold_rows_ref(lanes: dict, owner: torch.Tensor, valid: torch.Tensor):
+def fold_rows_ref(lanes: dict, owner: torch.Tensor, valid):
     """Plain version of `fold_rows`, in the JAX package's formulation: per
     shard the lanes masked to the rows it owns (floats as their integer
-    bits, bools as int32), summed over the shards; `valid` ORed."""
+    bits, bools as int32), summed over the shards; `valid` ORed. Takes the
+    shards' lanes as `fold_rows` does (or stacked [D, B]) and stacks them."""
+    valid = torch.stack([v.to(owner.device) for v in valid])
     n_dev = valid.shape[0]
     devs = torch.arange(n_dev, dtype=owner.dtype, device=owner.device)
     mine = owner[None, :] == devs[:, None]
     out = {}
-    for name, x in lanes.items():
+    for name, shards in lanes.items():
+        x = torch.stack([v.to(owner.device) for v in shards])
         if x.dtype == torch.bool:
             out[name] = torch.where(mine, x, False).to(torch.int32).sum(0) > 0
             continue
@@ -134,30 +138,48 @@ def fold_rows_ref(lanes: dict, owner: torch.Tensor, valid: torch.Tensor):
     return out, valid.any(0)
 
 
-def fold_rows(lanes: dict, owner: torch.Tensor, valid: torch.Tensor):
-    """Fold D shards' positional outputs into one: lanes {name: [D, B]},
-    owner [B] int32 (each row's owner shard), valid [D, B] bool. Returns
-    ({name: [B]}, valid [B]): each lane's element from the owner's row, bit
-    for bit; valid the OR over shards (K49's fold on the card)."""
+def fold_rows(lanes: dict, owner: torch.Tensor, valid):
+    """Fold D shards' positional outputs into one: lanes {name: D [B]
+    tensors, shard by shard}, owner [B] int32 (each row's owner shard),
+    valid D [B] bool tensors. Returns ({name: [B]}, valid [B]): each lane's
+    element from the owner's row, bit for bit; valid the OR over shards
+    (K49's fold on the card: one launch reading the shards in place; a
+    shard on another device is moved to the owner's first)."""
     if owner.device.type == "cpu":
         return fold_rows_ref(lanes, owner, valid)
     names = list(lanes)
-    srcs = [lanes[n].contiguous() for n in names]
-    owner, valid = owner.contiguous(), valid.contiguous()
-    kernels.require_cuda("fold_rows", owner, valid, *srcs)
-    if len(srcs) > _MAX_FOLD_LANES:
-        raise ValueError(f"fold_rows: at most {_MAX_FOLD_LANES} lanes, got {len(srcs)}")
-    n_dev, b = valid.shape
-    outs = [torch.empty((b,), dtype=x.dtype, device=x.device) for x in srcs]
-    v_out = torch.empty((b,), dtype=torch.bool, device=valid.device)
-    nl = len(srcs)
-    c_ins = (ctypes.c_void_p * max(nl, 1))(*[x.data_ptr() for x in srcs])
-    c_outs = (ctypes.c_void_p * max(nl, 1))(*[x.data_ptr() for x in outs])
-    c_sizes = (ctypes.c_int * max(nl, 1))(*[x.element_size() for x in srcs])
+    if len(names) > _MAX_FOLD_LANES:
+        raise ValueError(f"fold_rows: at most {_MAX_FOLD_LANES} lanes, got {len(names)}")
+    kernels.require_cuda("fold_rows", owner)
+    dev, di, b, n_dev = owner.device, owner.get_device(), owner.shape[0], len(valid)
+    if owner.dtype != torch.int32 or owner.dim() != 1:
+        raise ValueError("fold_rows: an int32 [B] owner lane")
+    # one pass a tensor, the host work of a call: a shard on another card
+    # is moved to the owner's (kept alive until the launch is queued)
+    table, moved, shp = [], [], owner.shape
+    for shards in [lanes[n] for n in names] + [valid]:
+        dt = shards[0].dtype
+        if len(shards) != n_dev:
+            raise ValueError(f"fold_rows: {n_dev} shards a lane, got {len(shards)}")
+        for x in shards:
+            if x.get_device() != di:
+                x = x.to(dev)
+                moved.append(x)
+            if x.dtype != dt or x.shape != shp or not x.is_contiguous():
+                raise ValueError(f"fold_rows: contiguous [{b}] lanes of one dtype a lane")
+            table.append(x.data_ptr())
+    if valid[0].dtype != torch.bool:
+        raise ValueError("fold_rows: bool valid lanes")
+    outs = [torch.empty((b,), dtype=lanes[n][0].dtype, device=dev) for n in names]
+    v_out = torch.empty((b,), dtype=torch.bool, device=dev)
+    args = [x.data_ptr() for x in outs] + [x.element_size() for x in outs] + table
+    c_args = (ctypes.c_longlong * len(args))(*args)
+    table_g = None
+    if len(table) > _FOLD_TABLE_BY_VALUE:
+        table_g = torch.tensor(table, dtype=torch.int64).to(dev)
     kernels.check(kernels.function("ks_fold")(
-        nl, n_dev, b, ctypes.addressof(c_ins), ctypes.addressof(c_outs),
-        ctypes.addressof(c_sizes), owner.data_ptr(), valid.data_ptr(), v_out.data_ptr(),
-        kernels.stream()), "fold_rows")
+        len(names), n_dev, b, ctypes.addressof(c_args), owner.data_ptr(), v_out.data_ptr(),
+        None if table_g is None else table_g.data_ptr(), kernels.stream()), "fold_rows")
     kernels.launches["shard_fold"] += 1
     return dict(zip(names, outs)), v_out
 
@@ -270,8 +292,8 @@ class KeyShardedGroupExec:
             blocks.append({"chain": chain_state, "sel": sel_state})
             outs.append(out)
             auxs.append(flow.aux)
-        lanes = {"c." + n: torch.stack([o.cols[n].to(dev) for o in outs]) for n in outs[0].cols}
-        folded, valid = fold_rows(lanes, owner, torch.stack([o.valid.to(dev) for o in outs]))
+        lanes = {"c." + n: [o.cols[n] for o in outs] for n in outs[0].cols}
+        folded, valid = fold_rows(lanes, owner, [o.valid for o in outs])
         # ts and kind: JAX's replicated out_specs=P() hands on shard 0's copy
         out = EventBatch(outs[0].ts.to(dev), outs[0].kind.to(dev), valid,
                          {n: folded["c." + n] for n in outs[0].cols})

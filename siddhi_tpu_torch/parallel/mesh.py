@@ -217,11 +217,9 @@ def _merge_positional(outs: list, owner: torch.Tensor) -> EventBatch:
     fold; `valid` the OR over shards, true only on the owner)."""
     from siddhi_tpu_torch.parallel.keyshard import fold_rows
 
-    dev = owner.device
-    stacked = {n: torch.stack([_lanes(o)[n].to(dev) for o in outs])
-               for n in _lanes(outs[0]) if n != "valid"}
-    valid = torch.stack([o.valid.to(dev) for o in outs])
-    lanes, v = fold_rows(stacked, owner, valid)
+    shards = [_lanes(o) for o in outs]
+    lanes, v = fold_rows({n: [sh[n] for sh in shards] for n in shards[0] if n != "valid"},
+                         owner, [o.valid for o in outs])
     lanes["valid"] = v
     return _from_lanes(lanes, outs[0].cols)
 

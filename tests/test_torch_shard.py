@@ -9,8 +9,9 @@ with inputs made from a seed with numpy (8 host devices, tests/conftest.py):
   sharded step and the port's, the same [D]-stacked state carried in, over
   batches with -0.0 and NaN payloads in a float lane, a bool lane, invalid
   and TIMER rows: every output lane and every state leaf bit for bit (ts
-  and kind are shard 0's copy, JAX's replicated `out_specs=P()`); and the
-  plain `fold_rows_ref` against a gather of the owner's bits.
+  and kind are shard 0's copy, JAX's replicated `out_specs=P()`); and
+  `fold_rows` (its plain version on the CPU) over each shard's own lanes
+  against a gather of the owner's bits.
 - K50 through the routed step: JAX's `shard_partitioned_query(routed=True)`
   and the port's on the same batches (B 1/33/64, keys past the partition
   capacity, TIMER rows) at D 4 and 8: each step's rows set-equal, sorted
@@ -90,7 +91,9 @@ def test_fold_rows_ref_is_the_owners_bits():
              "i32": torch.from_numpy(f32.copy()),
              "b": torch.from_numpy(rng.random((d, b)) < 0.5)}
     valid = torch.from_numpy(rng.random((d, b)) < 0.3)
-    out, v = pks.fold_rows_ref(lanes, torch.from_numpy(owner), valid)
+    # fold_rows' interface: each shard's [B] lane, shard by shard
+    out, v = pks.fold_rows({k: list(x) for k, x in lanes.items()}, torch.from_numpy(owner),
+                           list(valid))
     rows = np.arange(b)
     assert np.array_equal(out["i64"].numpy(), bits[owner, rows])
     assert np.array_equal(out["f32"].view(torch.int32).numpy(), f32[owner, rows])

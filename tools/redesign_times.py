@@ -1,14 +1,20 @@
 """Times the ring view (K11 `ring_view`, with K48's seq lane at LIN's shape),
-the row lists (`partition_rows`, which K31, K32 and K37 share) and the main
-path (chip_smoke.py's filter_window_avg and filter_window_minmax apps, fused
-and per batch) of one checkout of the port on the card. The kernels are timed
-three ways each: `ms` the whole call, `device_ms` its device work alone,
-`kernel_ms` torch.profiler's sum of every kernel the call launches; each the
-median of five runs. The main path gives events/s, the median of three runs.
-The yardstick, the shapes and the inputs are this checkout's chip_smoke.py
-(`time_ms`, `device_all_ms`, `device_ms`, `view_timing_rings`,
-`rows_timing_batches`, `run_app`), so two checkouts are timed alike on the
-same work.
+the row lists (`partition_rows`, which K31, K32 and K37 share), the keyed
+ring view (K38 `partition_ring_view` at path PJ's P=1,024, W=50), K49's fold
+(`fold_rows` at SH-KEYS' B=32,768, D=8, given each shard's own lanes: a
+checkout whose fold takes them stacked is given them stacked) and its
+caller's whole merge (`parallel/mesh.py` `_merge_positional` over the
+shards' output batches, the stacks included where a checkout stacks), and
+the main path (chip_smoke.py's filter_window_avg and filter_window_minmax
+apps, fused and per batch) and paths PJ and SH-KEYS of one checkout of the
+port on the card. The kernels are timed three ways each: `ms` the whole
+call, `device_ms` its device work alone, `kernel_ms` torch.profiler's sum of
+every kernel the call launches; each the median of five runs. The paths
+give events/s, the median of three runs. The yardstick, the shapes and the
+inputs are this checkout's chip_smoke.py (`time_ms`, `device_all_ms`,
+`device_ms`, `view_timing_rings`, `rows_timing_batches`, `keyed_ring`,
+`fold_timing_inputs`, `run_app`, `run_streams`, `run_sh`), so two checkouts
+are timed alike on the same work.
 
 Run on the card from the repository root, once a checkout, in turns (two
 checkouts compare only within one call):
@@ -30,6 +36,30 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPS = 200
 
 
+def fold_one_buffer(torch, kernels, lanes: dict, owner, valid):
+    """`fold_rows`' launch (csrc/keyshard.cu `ks_fold`) with every output
+    lane and `valid` carved from one uint8 allocation, 8-byte aligned."""
+    import ctypes
+
+    b = owner.shape[0]
+    names = list(lanes)
+    dtypes = [lanes[n][0].dtype for n in names] + [torch.bool]
+    sizes = [torch.empty(0, dtype=dt).element_size() for dt in dtypes]
+    offs, at = [], 0
+    for sz in sizes:
+        offs.append(at)
+        at += -(-b * sz // 8) * 8
+    buf = torch.empty(at, dtype=torch.uint8, device=owner.device)
+    outs = [buf[o:o + b * sz].view(dt) for o, sz, dt in zip(offs, sizes, dtypes)]
+    table = [x.data_ptr() for n in names for x in lanes[n]] + [v.data_ptr() for v in valid]
+    args = [x.data_ptr() for x in outs[:-1]] + sizes[:-1] + table
+    c_args = (ctypes.c_longlong * len(args))(*args)
+    kernels.check(kernels.function("ks_fold")(
+        len(names), len(valid), b, ctypes.addressof(c_args), owner.data_ptr(),
+        outs[-1].data_ptr(), None, kernels.stream()), "fold_rows")
+    return dict(zip(names, outs[:-1])), outs[-1]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE, help="the checkout whose port is timed")
@@ -45,8 +75,10 @@ def main() -> int:
         print("redesign_times: no card", file=sys.stderr)
         return 1
     from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.core.event import EventBatch
     from siddhi_tpu_torch.core.windows import ring_view
-    from siddhi_tpu_torch.ops.partition import partition_rows
+    from siddhi_tpu_torch.ops.partition import partition_ring_view, partition_rows
+    from siddhi_tpu_torch.parallel import keyshard, mesh
 
     kernels.build_all()
 
@@ -66,6 +98,24 @@ def main() -> int:
            "LIN": three(lambda: ring_view(j_ring, with_seq=True))}
     for label, (bt, slot) in cs.rows_timing_batches(torch, "cuda", 1024).items():
         out[f"rows_{label}"] = three(lambda: partition_rows(bt, slot, 1024))
+    pj_ring = cs.keyed_ring(torch, np.random.default_rng(cs.PJ_VIEW_SEED), "cuda", cs.PT_CAP,
+                            cs.PJ_W)
+    out["K38"] = three(lambda: partition_ring_view(pj_ring))
+    lanes, valid, owner = cs.fold_timing_inputs(torch, "cuda")
+    if not hasattr(keyshard, "_FOLD_TABLE_BY_VALUE"):  # a fold of [D, B] stacks
+        lanes = {k: torch.stack(v) for k, v in lanes.items()}
+        valid = torch.stack(valid)
+    out["fold"] = three(lambda: keyshard.fold_rows(lanes, owner, valid))
+    if hasattr(keyshard, "_FOLD_TABLE_BY_VALUE"):
+        # the same launch with the outputs carved from one allocation: the
+        # wrapper keeps the faster of the two layouts
+        out["fold_one_buffer"] = three(lambda: fold_one_buffer(torch, kernels, lanes, owner,
+                                                               valid))
+    shards = cs.fold_timing_inputs(torch, "cuda")
+    outs = [EventBatch(ts=shards[0]["n"][d], kind=shards[0]["symbol"][d].to(torch.int8),
+                       valid=shards[1][d], cols={k: v[d] for k, v in shards[0].items()})
+            for d in range(cs.SH_SHARDS)]
+    out["merge"] = three(lambda: mesh._merge_positional(outs, shards[2]))
 
     b, data = cs.MAIN_BATCH, cs.stock_data(cs.MAIN_EVENTS, seed=7)
     cs.run_app("cuda", cs.main_app(cs.MINMAX), data, 4 * b, 2 * b, 2 * b)  # warm-up
@@ -78,6 +128,27 @@ def main() -> int:
         out[name] = {"events_per_s": float(np.median(fused)), "runs": fused,
                      "per_batch_events_per_s": float(np.median(per_batch)),
                      "per_batch_runs": per_batch}
+
+    # path PJ: PJ_CALLS calls of a batch a stream, events over both streams
+    trades, names = cs.pp_data(cs.PJ_CALLS * b)
+    quotes = cs.stock_data(cs.PJ_CALLS * b, seed=8)
+    quotes["symbol"] = np.random.default_rng(8).integers(
+        1, cs.PT_SYMBOLS + 1, size=cs.PJ_CALLS * b).astype(np.int32)
+    app = cs.partition_join_app("PJ", b, cs.PT_CAP)
+    feeds = [("Trades", trades), ("Quotes", quotes)]
+    cs.run_streams("cuda", app, feeds, b, 1, names)  # warm-up
+    pj = [2 * cs.PJ_CALLS * b / cs.run_streams("cuda", app, feeds, b, cs.PJ_CALLS, names)[2]
+          for _ in range(3)]
+    out["PJ"] = {"events_per_s": float(np.median(pj)), "runs": pj}
+    # path SH-KEYS: 8 shards on the card, SH_BATCHES calls of a batch
+    data, names = cs.sh_data(cs.SH_BATCHES * b)
+    os.environ["XLA_FLAGS"] = cs.SH_FLAG
+    keys = cs.SH_KEYS_APP.format(batch=b, head="{head}").replace("{head}", cs.sh_head("keys"))
+    calls = [(i * b, (i + 1) * b) for i in range(cs.SH_BATCHES)]
+    cs.run_sh("cuda", keys, data, names, calls[:1])  # warm-up
+    sh = [cs.SH_BATCHES * b / sum(cs.run_sh("cuda", keys, data, names, calls)["seconds"])
+          for _ in range(3)]
+    out["SH-KEYS"] = {"events_per_s": float(np.median(sh)), "runs": sh}
     print(json.dumps(out), flush=True)
     return 0
 
