@@ -1703,6 +1703,31 @@ SCAN_KIND_APPS = {
 }
 
 
+# K16's redesign traps: (label, app, T, stream, share of rows not
+# quiet, ts step ms, ts disorder ms, exact live lanes or None)
+SCAN_TRAP_APPS = {
+    "hoisted_nulls": "from every e1=S[price > 60] -> e2=S[volume > 100 and symbol == e1.symbol "
+                     "and price < e1.price and not (volume is null)] within 1 sec "
+                     "select e1.price as p1, e2.price as p2, e2.volume as v2",
+}
+SCAN_TRAPS = [
+    ("absent_for skipped stretches, deadlines inside", "absent_for", 64, "S", 0.03, 6, 0, None),
+    ("both_absent_or_1 skipped stretches", "both_absent_or_1", 64, "S", 0.03, 6, 0, None),
+    ("absent_for T=1024 skipped stretches", "absent_for", 1024, "S", 0.05, 4, 0, None),
+    ("logical_and disordered ts across within kills", "logical_and", 64, "S", 0.05, 8, 1500,
+     None),
+    ("every_block disordered ts", "every_block", 64, "S", 0.05, 5, 300, None),
+    ("seq_count_fwd long batch", "seq_count_fwd", 64, "S", 0.1, 3, 0, None),
+    ("seq_two_streams long batch", "seq_two_streams", 64, "S", 0.1, 3, 0, None),
+    ("logical_and T=1024 1 live lane", "logical_and", 1024, "S", 0.1, 4, 0, 1),
+    ("logical_and T=1024 32 live lanes", "logical_and", 1024, "S", 0.1, 4, 0, 32),
+    ("logical_and T=1024 33 live lanes", "logical_and", 1024, "S", 0.1, 4, 0, 33),
+    ("logical_and T=1024 1024 live lanes", "logical_and", 1024, "S", 0.1, 4, 0, 1024),
+    ("every_block T=1024 33 live lanes", "every_block", 1024, "S", 0.3, 2, 0, 33),
+    ("hoisted conjuncts over nulls", "hoisted_nulls", 64, "S", 0.3, 5, 0, None),
+]
+
+
 def scan_step_bytes(prog, tok, batch, ev, rmask, regs, n_out) -> int:
     """Bytes one scan step must move: the token table read and written,
     the step's rows (ts, kind, valid, row masks, registers, the captured
@@ -1721,6 +1746,44 @@ def scan_step_bytes(prog, tok, batch, ev, rmask, regs, n_out) -> int:
         + sum(c.element_size() * a.cap for c in tok["caps"][a.ref_idx]["cols"].values())
         for a in prog.refs)
     return 2 * table + rows + n_out * row_out
+
+
+def scan_timing_inputs(torch, dev) -> dict:
+    """K16's inputs at paths L's and A's data steps, as the kernel phase
+    builds them: the first 32,768 rows of seed-7 stock data against each
+    app's initial table. {"L"|"A": (call, args)}: call(args) runs one step
+    on fresh emission lanes (`tools/redesign_times.py`)."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.core.pattern import pattern_scan
+
+    b = MAIN_BATCH
+    d = stock_data(b, seed=7)
+    sdata = EventBatch(
+        ts=torch.from_numpy(d["ts"]).to(dev),
+        kind=torch.zeros(b, dtype=torch.int8, device=dev),
+        valid=torch.ones(b, dtype=torch.bool, device=dev),
+        cols={k: torch.from_numpy(d[k]).to(dev) for k in ("symbol", "price", "volume")})
+    out = {}
+    for label, app in (("L", LOGICAL_APP), ("A", ABSENT_APP)):
+        prog = SiddhiManager(device=dev).create_siddhi_app_runtime(
+            app.format(batch=b)).queries["q"].prog
+        prog.compile_scan()
+        ev, rmask, regs = prog.scan_inputs("StockStream", sdata)
+        args = [prog, prog.init_state(int(d["ts"][0])), "StockStream", sdata.ts, sdata.kind,
+                sdata.valid, ev, rmask, regs, prog.init_out(b),
+                torch.zeros((), dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.bool, device=dev),
+                torch.tensor(-(1 << 40), dtype=torch.int64, device=dev)]
+
+        def call(a=args):
+            a = list(a)
+            a[9] = {k: v.clone() for k, v in a[9].items()}
+            a[10] = a[10].clone()
+            return pattern_scan(*a)
+
+        out[label] = call
+    return out
 
 
 def pattern_scan_kernel_phase(torch, dev) -> dict:
@@ -1797,6 +1860,23 @@ def pattern_scan_kernel_phase(torch, dev) -> dict:
                 cols[name] = column(name, dtype, (B,))
         return EventBatch(ts=torch.from_numpy(ts).to(dev), kind=torch.from_numpy(kind).to(dev),
                           valid=torch.from_numpy(valid).to(dev), cols=cols)
+
+    def quiet_batch(prog, sid, B, hot, step, disorder):
+        """random_batch's rows, most of them quiet (price 50 and volume 1,
+        no row mask set, CURRENT), `hot` of them random; ts rising by 0..step
+        ms, each moved by up to +-disorder ms."""
+        b = random_batch(prog, sid, B)
+        quiet = torch.from_numpy(rng.random(B) >= hot).to(dev)
+        ts = t0 + np.cumsum(rng.integers(0, step + 1, B))
+        if disorder:
+            ts = ts + rng.integers(-disorder, disorder + 1, B)
+        cols = dict(b.cols)
+        for name, fill in (("price", 50), ("volume", 1)):
+            if name in cols:
+                cols[name] = torch.where(quiet, torch.full_like(cols[name], fill), cols[name])
+        kind = torch.where(quiet, torch.zeros_like(b.kind), b.kind)
+        return EventBatch(ts=torch.from_numpy(ts.astype(np.int64)).to(dev), kind=kind,
+                          valid=b.valid, cols=cols)
 
     def args_of(prog, tok, sid, batch, cap=64, n0=0, seen=-(1 << 40)):
         ev, rmask, regs = prog.scan_inputs(sid, batch)
@@ -1878,6 +1958,23 @@ def pattern_scan_kernel_phase(torch, dev) -> dict:
     k16("overflowing emission buffer", args_of(prog, random_tok(prog, 0.9), "S",
                                                random_batch(prog, "S", 200), cap=16, n0=10,
                                                seen=2000), want_overflow=True)
+    n_before = checks[0]
+    for label, name, T, sid, hot, step, disorder, live in SCAN_TRAPS:
+        app = kind_app(name, T) if name in SCAN_KIND_APPS else (
+            f"@app:patternCapacity(size='{T}')\n" + SCAN_HEAD
+            + f"@info(name='q') {SCAN_TRAP_APPS[name]} insert into Out;")
+        prog = prog_of(app)
+        tok = random_tok(prog, 0.3)
+        if live is not None:  # exactly `live` active lanes
+            act = np.zeros(T, bool)
+            act[rng.permutation(T)[:live]] = True
+            tok["active"] = torch.from_numpy(act).to(dev)
+        k16(label, args_of(prog, tok, sid, quiet_batch(prog, sid, 600, hot, step, disorder),
+                           cap=256), quiet=True)
+    print(f"kernel check pattern_scan: {checks[0] - n_before} redesign traps (skipped "
+          f"stretches with deadlines inside, disordered ts across within kills, a sequence "
+          f"and a fwd pattern, live counts 1/32/33/1024 at T=1024, hoisted conjuncts over "
+          f"nulls): ok", flush=True)
 
     # times at the paths' shapes (the plain version's: its one run in the
     # check, a Python loop over the rows)
@@ -2666,8 +2763,8 @@ def table_kernel_phase(torch, dev, index_only: bool = False) -> dict:
     # ---- K24: the sequential update and the update-or-insert --------------
     r24 = res["table_scan"]
 
-    def scan_case(t, st, on, sets, guard, cols, ts, rows, upsert):
-        scope = output_scope(t, out_schema, interner, dev)
+    def scan_case(t, st, on, sets, guard, cols, ts, rows, upsert, schema=None):
+        scope = output_scope(t, schema or out_schema, interner, dev)
         set_attrs = [UpdateSetAttribute(Variable(n), SiddhiCompiler.parse_expression(x))
                      for n, x in sets] if sets else None
         sp = build_scan_programs(t, scope, SiddhiCompiler.parse_expression(on), set_attrs,
@@ -2719,6 +2816,38 @@ def table_kernel_phase(torch, dev, index_only: bool = False) -> dict:
         scan_case(t, st, "T.v == v or T.v == v + 10", [("k", "k"), ("v", "T.v + 1")], "k", cols2,
                   ts, rows, False)
         scan_case(t, st, "T.v == v", [("k", "k")], "k", cols2, ts, rows, False)
+    # the update-or-insert by key groups: a non-unique key, repeated
+    # new keys in one batch, null keys, tables filling mid-batch, an
+    # accumulating set, every column set (the key with the row's own key),
+    # and set clauses writing another key (the walk: found on the card, or
+    # known on the host)
+    n_before = res["table_scan"]["checks"]
+    for b, c, n in ((513, 1000, 0), (2049, 4097, 3900), (33, 64, 60), (TAB_BATCH, TAB_ROWS,
+                                                                       TAB_ROWS // 2)):
+        t = make_table("", "", c)
+        st = fill_state(t, n, keys=rng.integers(0, max(n // 2, 1), n))
+        cols, ts, rows = batch_cols(b, 0, max(n, 64), nulls=0.1, dup=0.4)
+        scan_case(t, st, "T.k == k", [("v", "T.v + v")], None, cols, ts, rows, True)
+        if c == TAB_ROWS:  # the plain version walks the rows on the host: ~2 s a call here
+            continue
+        scan_case(t, st, "T.k == k", None, None, cols, ts, rows, True)
+        scan_case(t, st, "T.k == k", [("k", "v"), ("v", "T.v - 1")], None, cols, ts, rows, True)
+        scan_case(t, st, "T.k == k", [("k", "k + 1")], None, cols, ts, rows, True)
+    # float keys: NaN, both zeros, subnormals and infinities
+    pool = np.array([0.0, -0.0, 1.5, 2.5, -3.0, np.nan, 1e-40, -1e-40, np.inf, 7.25],
+                    np.float32)
+    t = make_table("", "", 4097, cols="k float, v long")
+    st = fill_state(t, 2000)
+    kf = rng.choice(pool, 4097)
+    st["cols"]["k"] = torch.from_numpy(kf).to(dev)
+    cols, ts, rows = batch_cols(1024, 0, 100)
+    cols["k"] = torch.from_numpy(rng.choice(pool, 1024)).to(dev)
+    schema_f = StreamSchema("__out__", [("k", AttrType.FLOAT), ("v", AttrType.LONG)])
+    scan_case(t, st, "T.k == k", [("v", "T.v + v")], None, cols, ts, rows, True, schema_f)
+    scan_case(t, st, "T.k == k", None, None, cols, ts, rows, True, schema_f)
+    print(f"kernel check table_scan: {res['table_scan']['checks'] - n_before} key-group "
+          f"upserts (non-unique and float keys, nulls, NaN, tables filling mid-batch, the "
+          f"walk): exact", flush=True)
     for name in names:
         r = res[name]
         lib = "None" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -3420,7 +3549,7 @@ PP_DEVICE_NAMES = {
     "partition_pattern_advance": ("advance_kernel(", "fork_kernel("),
     "partition_pattern_count": ("count_kernel(",),
     "partition_pattern_emit": ("emit_kernel(",),
-    "partition_pattern_scan": ("scan_kernel(",),
+    "partition_pattern_scan": ("scan_kernel<",),
     "pattern_chunks": ("chunks_kernel(",),
     "pattern_place": ("place_stretch_kernel(", "place_rows_kernel(", "gather_kernel("),
     "partition_rows": ROWS_KERNEL_NAMES,
@@ -3432,7 +3561,8 @@ def device_ms(torch, setup, fn, reps: int, names) -> float:
     one of `names` (None: every kernel), from torch.profiler over `reps`
     calls, each after setup() (whose kernels are not counted unless names
     is None): the kernels alone, without the wrapper's host work or the
-    gaps between them. Raises when the profiler records none of them.
+    gaps between them. Raises when the profiler records none of them in
+    three tries.
     torch.profiler can lose device events late in a long run of this
     script; `device_all_ms` does not use it."""
     from torch.profiler import ProfilerActivity, profile
@@ -3440,19 +3570,20 @@ def device_ms(torch, setup, fn, reps: int, names) -> float:
     setup()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            setup()
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if names is None or any(n in e.key for n in names):
-            dev_us = getattr(e, "self_device_time_total", None)
-            us += e.self_cuda_time_total if dev_us is None else dev_us
-    if us <= 0:
-        raise AssertionError(f"torch.profiler recorded no device time for {names}")
-    return us / 1e3 / reps
+    for _attempt in range(3):  # now and then the profiler records no device event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                setup()
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            if names is None or any(n in e.key for n in names):
+                dev_us = getattr(e, "self_device_time_total", None)
+                us += e.self_cuda_time_total if dev_us is None else dev_us
+        if us > 0:
+            return us / 1e3 / reps
+    raise AssertionError(f"torch.profiler recorded no device time for {names}")
 
 
 def device_all_ms(torch, fn, reps: int) -> float:
@@ -8659,6 +8790,154 @@ def subnormal_path_phase(torch) -> dict:
     return res
 
 
+# two repaired faults: float to int as XLA converts, and a
+# partitioned batch window's sums leaking past a RESET as the JAX package's
+CONVERT_VALUES = [float("nan"), float("inf"), float("-inf"), 3e9, -3e9, 1e19, -1e19, 2.0**31,
+                  -(2.0**31), 2.0**63, -(2.0**63), 2147483520.0, 9.2233715e18, 0.0, -0.0, 1e-40,
+                  -1e-40, 0.5, -0.5, 2.9, -2.9, 123456.78]
+CONVERT_HEAD = "define stream S (f float, d double, i int);\n"
+CONVERT_APPS = {
+    "four events": CONVERT_HEAD + "from S select i, convert(f, 'int') as a, convert(d, 'long') "
+                                  "as b insert into Out;",
+    "filter": CONVERT_HEAD + "from S[convert(f, 'int') > 0] select i insert into Out;",
+    "sum": CONVERT_HEAD + "from S select i, sum(convert(f, 'int')) as s insert into Out;",
+    "script": CONVERT_HEAD + "define function toLong[python] return long { return data[0] };\n"
+                             "from S select i, toLong(f) as a insert into Out;",
+    "table": CONVERT_HEAD + "define table T (a int, b long, i int);\nfrom S select convert(f, "
+                            "'int') as a, cast(d, 'long') as b, i insert into T;",
+}
+LEAK_HEAD = ("@app:playback @app:batch(size='{batch}') @app:partitionCapacity(size='64')\n"
+             "define stream S (sym string, p float, v int, ets long);\n")
+LEAK_APPS = {
+    "lengthBatch sum/count": "from S#window.lengthBatch(2) select sym, sum(p) as s, count() as n "
+                             "insert into Out;",
+    "lengthBatch avg, all events": "from S#window.lengthBatch(3) select sym, avg(p) as a, "
+                                   "sum(v) as t insert all events into Out;",
+    "lengthBatch having": "from S#window.lengthBatch(2) select sym, sum(p) as s having s > 2.5 "
+                          "insert into Out;",
+    "externalTimeBatch": "from S#window.externalTimeBatch(ets, 20 milliseconds) select sym, "
+                         "sum(p) as s, avg(p) as a insert all events into Out;",
+}
+
+
+def fault_repair_phase(torch) -> dict:
+    """Two repaired faults on the card. The conversion: `convert_to` over
+    CONVERT_VALUES on the card against the host, bit for bit; K24's set
+    values through `csrc/prog.cuh` `convert` (`set T.a = f, T.b = f`, a
+    float into int and long lanes, the update's and the key groups'
+    upsert's) against their plain versions; the CONVERT_APPS on the card
+    against device="cpu". The leak: the LEAK_APPS (partitioned batch
+    windows, 24 symbols; timeBatch's TIMER steps would take minutes here, the
+    CPU tests hold it against JAX) at batch 16 and 33 on the card against
+    device="cpu", rows equal in order (NaN as NaN), each launching K8
+    (`keyed_running_sum`). The prices are NaN, +inf and multiples of 1e8,
+    whose sums are exact in any order: K8 adds a key's rows in another
+    order than the plain running sum (they agree within RTOL), and 1e8
+    beside small values rounds apart by order."""
+    from siddhi_tpu_torch import SiddhiManager, kernels
+    from siddhi_tpu_torch.compiler.siddhi_compiler import SiddhiCompiler
+    from siddhi_tpu_torch.core.event import StreamSchema
+    from siddhi_tpu_torch.core.executor import TS_ATTR, Env
+    from siddhi_tpu_torch.core.table import (InMemoryTable, build_scan_programs, eval_regs,
+                                              output_scope)
+    from siddhi_tpu_torch.core.types import AttrType, InternTable, convert_to
+    from siddhi_tpu_torch.ops import table as K
+    from siddhi_tpu_torch.query_api.execution import UpdateSetAttribute
+    from siddhi_tpu_torch.query_api.expression import Variable
+
+    dev = "cuda"
+    checks = 0
+    x = torch.tensor(CONVERT_VALUES, dtype=torch.float32)
+    for dt in (torch.int32, torch.int64):
+        got = convert_to(x.to(dev), dt).cpu()
+        if not torch.equal(got, convert_to(x, dt)):
+            raise AssertionError(f"convert_to {dt} on the card: {got.tolist()}")
+        checks += 1
+    # K24's set values: a float into an int and a long lane
+    n = len(CONVERT_VALUES)
+    interner = InternTable()
+    table = InMemoryTable(SiddhiCompiler.parse("define table T (k long, a int, b long);")
+                          .table_definitions["T"], interner, dev, capacity=2 * n)
+    scope = output_scope(table, StreamSchema("__out__", [("k", AttrType.LONG),
+                                                          ("f", AttrType.FLOAT)]), interner, dev)
+    sets = [UpdateSetAttribute(Variable(c), SiddhiCompiler.parse_expression("f")) for c in "ab"]
+    for upsert in (False, True):
+        sp = build_scan_programs(table, scope, SiddhiCompiler.parse_expression("T.k == k"), sets,
+                                 ["a", "b"])
+        st = table.init_state()
+        st["cols"]["k"] = torch.arange(2 * n, dtype=torch.int64, device=dev)
+        st["valid"] = torch.arange(2 * n, device=dev) < n
+        st["seq"] = torch.arange(2 * n, dtype=torch.int64, device=dev)
+        st["next"] = torch.tensor(n, dtype=torch.int64, device=dev)
+        cols = {"k": torch.arange(n, dtype=torch.int64, device=dev), "f": x.to(dev)}
+        ts = torch.arange(n, dtype=torch.int64, device=dev)
+        env = {("__out__", None, c): v for c, v in cols.items()}
+        env[("__out__", None, TS_ATTR)] = ts
+        regs = eval_regs(sp.on.regs, Env(env, now=torch.zeros((), dtype=torch.int64,
+                                                               device=dev)), n)
+        rows = torch.ones(n, dtype=torch.bool, device=dev)
+        if upsert:
+            ins = {"k": cols["k"], "a": convert_to(cols["f"], torch.int32),
+                   "b": convert_to(cols["f"], torch.int64)}
+            got = K.table_upsert_scan(sp, regs, st, rows, ins, ts)
+            want = K.table_upsert_scan_ref(sp, regs, st, rows, ins, ts)
+        else:
+            got = K.table_update_scan(sp, regs, st, rows)
+            want = K.table_update_scan_ref(sp, regs, st, rows)
+        same_bits(torch, got, want)
+        checks += 1
+    print(f"fault check conversion: convert_to and K24's set values (prog.cuh convert) over "
+          f"{n} values = plain, bit for bit ({checks} checks)", flush=True)
+    res = {"conversion_checks": checks}
+
+    def run(dev, app, rows, chunk):
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(app)
+        out = []
+        if "Out" in rt.junctions:
+            rt.add_callback("Out", lambda evs: out.extend(tuple(e.data) for e in evs))
+        rt.start()
+        h = rt.get_input_handler("S")
+        for lo in range(0, len(rows), chunk):
+            part = rows[lo:lo + chunk]
+            if chunk == 1:
+                h.send(part[0])
+            else:
+                h.send_many(part, [r[3] for r in part])
+        table = [r[1] for r in rt.query("from T select a, b, i")] if "table T" in app else None
+        rt.shutdown()
+        return repr(out).replace("nan", "NaN"), repr(table)
+
+    sends = [(v, v, i) for i, v in enumerate(CONVERT_VALUES)]
+    for label, app in CONVERT_APPS.items():
+        if run("cuda", app, sends, 1) != run("cpu", app, sends, 1):
+            raise AssertionError(f"conversion app {label}: card rows differ from the cpu's")
+        print(f"fault check conversion app {label}: rows = device=\"cpu\"", flush=True)
+    rng = np.random.default_rng(2121)
+    pool = [float("nan"), float("inf"), 1e8, 2e8, 3e8]
+    rows = [(f"K{int(rng.integers(0, 24))}", float(rng.choice(pool)), int(rng.integers(1, 5)),
+             100 + 3 * i) for i in range(240)]
+    res["leak_launches"] = {}
+    for label, body in LEAK_APPS.items():
+        for batch in (16, 33):
+            app = LEAK_HEAD.format(batch=batch) + f"partition with (sym of S) begin\n{body}\nend;"
+            kernels.launches.clear()
+            got = run("cuda", app, rows, 50)
+            torch.cuda.synchronize()
+            launches = kernels.launches.get("keyed_running_sum", 0)
+            want = run("cpu", app, rows, 50)
+            if got != want:
+                at = next(i for i, (x, y) in enumerate(zip(got[0], want[0])) if x != y)
+                raise AssertionError(f"leak app {label} at batch {batch}: card rows differ from "
+                                     f"character {at}: {got[0][at - 80:at + 80]} vs "
+                                     f"{want[0][at - 80:at + 80]}")
+            if not launches:
+                raise AssertionError(f"leak app {label}: keyed_running_sum never launched")
+            res["leak_launches"][f"{label} B={batch}"] = launches
+            print(f"fault check leak app {label} at batch {batch}: rows = device=\"cpu\"; "
+                  f"keyed_running_sum launches {launches}", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -8779,6 +9058,10 @@ def main() -> int:
         with open(os.path.join(ROOT, "chiprun_out", "redesign.json"), "w") as f:
             json.dump(out, f, indent=1)
         return 0
+    if "--faults" in sys.argv[1:]:
+        fault_repair_phase(torch)
+        lap("fault_repair_phase")
+        return 0
     if "--partition-joins" in sys.argv[1:]:
         partition_join_kernel_phase(torch, "cuda")
         lap("partition_join_kernel_phase")
@@ -8850,6 +9133,8 @@ def main() -> int:
     lap("path SH")
     redesign["subnormal_path"] = subnormal_path_phase(torch)
     lap("path SUB")
+    redesign["fault_repairs"] = fault_repair_phase(torch)
+    lap("fault_repair_phase")
 
     src = {"length_window_step": ("siddhi_tpu_torch/csrc/length_window.cu",
                                   "siddhi_tpu/core/windows.py:352"),

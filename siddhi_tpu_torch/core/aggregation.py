@@ -53,7 +53,7 @@ from siddhi_tpu_torch.core.executor import (
     is_aggregator,
 )
 from siddhi_tpu_torch.core.table import InMemoryTable
-from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType, float_arith
+from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType, convert_to, float_arith
 from siddhi_tpu_torch.observability.lineage import AggregationLineage
 from siddhi_tpu_torch.ops.aggregation import (
     SPILLS_PER_BATCH,
@@ -379,7 +379,7 @@ class AggregationRuntime:
                     cols[f"AGG_{bname}"] = sp["vals"][bname][di].reshape(-1)
             batch = EventBatch(
                 ts=ts_flat, kind=torch.zeros_like(ts_flat, dtype=torch.int8), valid=rows_used,
-                cols={n: cols[n].to(PHYSICAL_DTYPE[t]) for n, t in table.schema.attrs})
+                cols={n: convert_to(cols[n], PHYSICAL_DTYPE[t]) for n, t in table.schema.attrs})
             with table.lock:
                 table.state = table.insert(table.state, batch, {})
 

@@ -49,11 +49,13 @@ from siddhi_tpu_torch.core.types import (
 )
 from siddhi_tpu_torch.ops.group import keyed_running_extreme, keyed_running_sum
 from siddhi_tpu_torch.ops.prefix import (
+    add,
     extreme_identity,
     running_extreme,
     running_sum,
     segmented_cum_extreme,
 )
+from siddhi_tpu_torch.ops.scatter import set_at
 
 
 @dataclasses.dataclass
@@ -105,11 +107,40 @@ class CompiledAggregator:
         """(run, carry): keyed over the group's segments, else flat."""
         if flow.group is not None:
             g = flow.group
+            if g.reset_head is not None:
+                return _leaky_sum(state, contrib, g)
             if g.carry_slot is not None:
                 return _per_partition(state, torch.zeros_like(state), g, lambda r, c, sl: (
                     keyed_running_sum(contrib.contiguous(), g.groups, r, c, sl)))
             return keyed_running_sum(contrib.contiguous(), g.groups, flow.reset, state, g.slot)
         return running_sum(contrib, flow.reset, state)
+
+
+def _leaky_sum(state, contrib, g: GroupCtx):
+    """An ungrouped partition's running sum after a batch window, as the
+    JAX package's flat `running_sum` (ops/prefix.py `running_sum_ref`'s
+    formula) gives it in each partition under its vmap: the partition's
+    running sum in row order (K8 keyed by partition, no RESET rows), less
+    that sum at the partition's last RESET row at or before the row, plus
+    the carry before the partition's first RESET. So a NaN, an inf or a
+    large earlier bucket of the batch leaks past a RESET, as in the
+    reference (ROADMAP section 3). The new carry is each partition's run
+    at its last row."""
+    p = state.shape[0]
+    zero = torch.zeros((), dtype=state.dtype, device=state.device)
+    no_reset = torch.zeros(contrib.shape[0], dtype=torch.bool, device=contrib.device)
+    csum, _ = keyed_running_sum(contrib.contiguous(), g.forever_groups, no_reset,
+                                torch.zeros_like(state), g.slot)
+    lr = g.reset_head
+    at_lr = torch.where(lr >= 0, csum[lr.clamp(min=0).long()], zero)
+    if csum.dtype == torch.float32:
+        run = float_arith("sub", csum, at_lr, False, False)
+    else:
+        run = csum - at_lr
+    member = g.slot < p
+    base = torch.where(member, state[g.slot.clamp(0, p - 1).long()], zero)
+    run = add(run, torch.where(lr < 0, base, zero))
+    return run, set_at(state, torch.where(g.tail, g.slot, p), run)
 
 
 def _per_partition(state, fresh, g: GroupCtx, call):

@@ -24,6 +24,7 @@ from siddhi_tpu_torch.core.types import (
     PHYSICAL_DTYPE,
     AttrType,
     InternTable,
+    convert_to,
     float_arith,
     float_extreme,
     flush_needed,
@@ -215,7 +216,7 @@ class Scope:
 
 
 def _cast(x: torch.Tensor, t: AttrType) -> torch.Tensor:
-    return x.to(PHYSICAL_DTYPE[t])
+    return convert_to(x, PHYSICAL_DTYPE[t])
 
 
 def _const_expr(value, t: AttrType, scope: Scope) -> CompiledExpr:

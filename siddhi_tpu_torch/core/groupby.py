@@ -58,6 +58,13 @@ class GroupCtx:
     forever_groups: Optional[Groups] = None
     # the group key each row hands a per-group rate limiter, else `key`
     emit_key: Optional[torch.Tensor] = None
+    # an ungrouped partition after a batch window, whose sums follow the
+    # JAX package's flat running sum a partition (core/aggregators.py
+    # `_leaky_sum`): reset_head [rows] int32, each member row's last RESET
+    # row of its partition at or before it (-1: none); tail [rows] bool,
+    # the last member row of each partition
+    reset_head: Optional[torch.Tensor] = None
+    tail: Optional[torch.Tensor] = None
 
 
 # the member env's lane of each window element's partition slot
@@ -146,9 +153,16 @@ def partition_era_ctx(pctx: GroupCtx, reset: torch.Tensor) -> GroupCtx:
     first = first_of(pslot.to(torch.int64) * (rows + 1) + era, member)
     carry_slot = torch.where(member & (era == 0), pslot,
                              torch.where(member & post, p + pslot, 2 * p)).to(torch.int32)
+    # a RESET row opens its era, so an era's first row is its RESET row
+    reset_head = torch.where(member & (era > 0), first, -1).to(torch.int32)
+    key = torch.where(member, pslot, p).to(torch.int64)
+    idx = torch.arange(rows, device=pslot.device)
+    last = torch.full((p + 1,), -1, dtype=torch.int64, device=pslot.device).scatter_reduce(
+        0, key, idx, reduce="amax")
     return dataclasses.replace(pctx, groups=Groups(first, _no_reset(rows, pslot.device)),
                                carry_slot=carry_slot, had_reset=had,
-                               forever_groups=pctx.groups)
+                               forever_groups=pctx.groups, reset_head=reset_head,
+                               tail=member & (last[key] == idx))
 
 
 class CompiledGroupBy:

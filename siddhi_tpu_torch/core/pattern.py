@@ -1017,12 +1017,27 @@ def pattern_scan(prog: "PatternProgram", tok: dict, stream_id: Optional[str], ba
 # the kernel's limits (csrc/pattern_scan.cu)
 _SCAN_MAX_REFS, _SCAN_MAX_CAP_LANES, _SCAN_MAX_REGS, _SCAN_MAX_DESC = 16, 32, 16, 1024
 _SCAN_SMEM_BYTES = 200 * 1024  # per-lane arrays above this go to global scratch
+# K16's and K37's design steps (csrc/pattern_scan.cu OPT_*): 1 the passes
+# over the live-lane list, 2 the row group sized to the live count, 4 the
+# rows that cannot change the table skipped. Every subset gives the same
+# result; all are on, and a timing tool may clear some to time each alone.
+SCAN_OPT = 7
+
+
+def _conjuncts(e):
+    """The top-level operands of a chain of `and`s (the expression itself
+    when it is no `and`)."""
+    if isinstance(e, And):
+        yield from _conjuncts(e.left)
+        yield from _conjuncts(e.right)
+    else:
+        yield e
 
 
 def scan_lane_bytes(T: int, R: int) -> int:
     """Bytes of the kernel's per-lane working arrays (its lane_bytes)."""
     t8 = (T + 7) // 8 * 8
-    return t8 * (5 * 8 + (3 + 2 * R) * 4 + 10)
+    return t8 * (5 * 8 + (3 + 2 * R) * 4 + 10) + 4 * (3 * ((T + 31) // 32) + 2)
 
 
 def _scan_launch(prog: "PatternProgram", tok: dict, stream_id: Optional[str], batch_ts, batch_kind,
@@ -1108,13 +1123,14 @@ def _scan_launch(prog: "PatternProgram", tok: dict, stream_id: Optional[str], ba
     if keyed is None:
         kernels.check(fn(*args, out["valid"].shape[0], out_n.data_ptr(), overflow.data_ptr(),
                          ovf.data_ptr(), timer_seen.data_ptr(), scratch.data_ptr(), int(smem),
-                         stream), "pattern_scan")
+                         SCAN_OPT, stream), "pattern_scan")
     else:
         p, used, rows, emis, seen, _new = keyed
         kernels.check(fn(*args, emis.out_cap, overflow.data_ptr(), scratch.data_ptr(), int(smem),
                          p, used.data_ptr(), rows.rowlist.data_ptr(), rows.slot_start.data_ptr(),
                          rows.timers.data_ptr(), rows.info.data_ptr(), emis.off.data_ptr(),
-                         emis.cap.data_ptr(), emis.n.data_ptr(), seen.data_ptr(), stream),
+                         emis.cap.data_ptr(), emis.n.data_ptr(), seen.data_ptr(), SCAN_OPT,
+                         stream),
                       "partition_pattern_scan")
     return {**new, "caps": caps}, ovf
 
@@ -1872,11 +1888,14 @@ class PatternProgram:
         return self._cap_lanes
 
     def compile_scan(self) -> None:
-        """Split every atom's filters for the scan route: a filter that reads
-        only the atom's own un-indexed keys (its event) is row-only and
-        stays a compiled closure; any other becomes a CondProgram whose
-        capture-free subtrees are row registers. A token-dependent subtree
-        outside the program's operations raises here, at app creation."""
+        """Split every atom's filters for the scan route: each top-level
+        conjunct of a filter that reads only the atom's own un-indexed keys
+        (its event) is row-only and stays a compiled closure, so it lands in
+        the ref's row mask (exact: a false conjunct, a null comparison
+        among them, makes the whole filter false); any other becomes a
+        CondProgram whose capture-free subtrees are row registers. A
+        token-dependent subtree outside the program's operations raises
+        here, at app creation."""
         if self._row_conds is not None:
             return
         self._row_conds, self._progs, self._regs = {}, {}, []
@@ -1884,7 +1903,7 @@ class PatternProgram:
         for slot in self.slots:
             for atom in slot.atoms:
                 rows, progs = [], []
-                for f in atom.filters:
+                for f in (part for f in atom.filters for part in _conjuncts(f)):
                     c, free = self._compile_at(f, atom)
                     if free:
                         rows.append(c)

@@ -24,7 +24,7 @@ from siddhi_tpu_torch.core.errors import SiddhiAppCreationError
 from siddhi_tpu_torch.core.executor import CompiledExpr, Env, Scope, compile_expression
 from siddhi_tpu_torch.core.extension import lookup
 from siddhi_tpu_torch.core.flow import Flow
-from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType, float_arith
+from siddhi_tpu_torch.core.types import PHYSICAL_DTYPE, AttrType, convert_to, float_arith
 from siddhi_tpu_torch.query_api.expression import Constant
 
 # degrees to radians in float32, as jnp.deg2rad multiplies (a 0-d scalar)
@@ -46,7 +46,7 @@ class StreamFunctionStage:
         cols = dict(flow.batch.cols)
         shape = flow.batch.valid.shape
         for name, t in self.new_attrs:
-            cols[name] = new_cols[name].to(PHYSICAL_DTYPE[t]).expand(shape).contiguous()
+            cols[name] = convert_to(new_cols[name], PHYSICAL_DTYPE[t]).expand(shape).contiguous()
         return dataclasses.replace(flow, batch=dataclasses.replace(flow.batch, cols=cols))
 
 
@@ -153,7 +153,7 @@ def make_script_function(fdef):
     def factory(params: list[CompiledExpr], scope: Scope) -> CompiledExpr:
         def fn(env: Env) -> torch.Tensor:
             vals = [p(env) for p in params]
-            return torch.as_tensor(raw(vals), device=scope.device).to(PHYSICAL_DTYPE[rt])
+            return convert_to(torch.as_tensor(raw(vals), device=scope.device), PHYSICAL_DTYPE[rt])
 
         return CompiledExpr(rt, fn)
 

@@ -69,10 +69,17 @@ from siddhi_tpu_torch.core.pattern import (
     OP_NOT,
     OP_OR,
     OP_REG,
+    _conjuncts,
     _const_bits,
     arith_code,
 )
-from siddhi_tpu_torch.core.types import NUMERIC_TYPES, PHYSICAL_DTYPE, AttrType, promote
+from siddhi_tpu_torch.core.types import (
+    NUMERIC_TYPES,
+    PHYSICAL_DTYPE,
+    AttrType,
+    convert_to,
+    promote,
+)
 from siddhi_tpu_torch.ops import table as K
 from siddhi_tpu_torch.ops.scatter import set_at
 from siddhi_tpu_torch.query_api.annotation import find_all, find_annotation
@@ -376,7 +383,8 @@ class InMemoryTable:
         env = Env(env_cols, now=now)
         new_cols = dict(state["cols"])
         for name, fn in set_fns:
-            new_cols[name] = set_at(state["cols"][name], target, fn(env).to(state["cols"][name].dtype))
+            new_cols[name] = set_at(state["cols"][name], target,
+                                    convert_to(fn(env), state["cols"][name].dtype))
         return {**state, "cols": new_cols}
 
     def winner_scratch(self, col: str, device) -> torch.Tensor:
@@ -401,7 +409,7 @@ class InMemoryTable:
         env = Env(env_cols, now=now)
         new_cols = dict(state["cols"])
         for name, fn in set_fns:
-            new_cols[name] = torch.where(has, fn(env).to(state["cols"][name].dtype),
+            new_cols[name] = torch.where(has, convert_to(fn(env), state["cols"][name].dtype),
                                          state["cols"][name])
         return {**state, "cols": new_cols}
 
@@ -412,7 +420,7 @@ class InMemoryTable:
         the table's by position (selector output order)."""
         rows = batch.valid & (batch.kind == KIND_CURRENT)
         regs = eval_regs(op.scan.on.regs, _probe_env(batch, now), rows.shape[0])
-        ins_cols = {n: batch.cols[src].to(state["cols"][n].dtype)
+        ins_cols = {n: convert_to(batch.cols[src], state["cols"][n].dtype)
                     for n, src in op.src_of.items()}
         out, ovf = K.table_upsert_scan(op.scan, regs, state, rows, ins_cols, batch.ts)
         _or_flag(aux, "table_overflow", ovf)
@@ -758,14 +766,6 @@ def _set_expr(set_attributes, name: str):
             if sa.table_variable.attribute == name:
                 return sa.expression
     return Variable(name)
-
-
-def _conjuncts(e):
-    if isinstance(e, And):
-        yield from _conjuncts(e.left)
-        yield from _conjuncts(e.right)
-    else:
-        yield e
 
 
 def _eq_probe_expr(on_expr, table: InMemoryTable, out_schema: StreamSchema):

@@ -174,6 +174,24 @@ def flushed_cumsum(x: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(cs).to(x.device)
 
 
+def convert_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x as `dtype`, converted as XLA converts (the JAX package's
+    `astype`): a float to an integer type maps NaN to 0, saturates at the
+    type's range (so a value at or below its minimum is that type's null)
+    and truncates toward zero within it. Every other conversion is
+    Tensor.to's."""
+    if not x.is_floating_point() or dtype.is_floating_point or dtype == torch.bool:
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    # -min is 2^31 / 2^63, exact in every float type (float32 rounds max up to it)
+    hi, lo = -float(info.min), float(info.min)
+    big, small = x >= hi, x <= lo
+    safe = torch.where(big | small | torch.isnan(x), torch.zeros_like(x), x)
+    out = safe.to(dtype)
+    out = torch.where(big, torch.full_like(out, info.max), out)
+    return torch.where(small, torch.full_like(out, info.min), out)
+
+
 def flush_needed(const) -> bool:
     """Whether a comparison must flush an operand whose other side is the
     constant `const` (a number; None: not a constant). Only against a zero

@@ -70,8 +70,24 @@ __device__ __forceinline__ void store_elem(void* base, long long i, int ty, Val 
   }
 }
 
-// a value of type `from` as type `to`, as torch's Tensor.to(dtype) on the
-// card (float to int truncates; bool is value != 0)
+// a float as int32 (to_long false) or int64, as XLA converts (core/types.py
+// convert_to): NaN is 0, a value at or past the type's range its max or min,
+// else truncated toward zero. The bounds -2^31 and -2^63 are exact floats
+// (float32 rounds INT_MAX and INT64_MAX up to their negations).
+__device__ __forceinline__ long long float_to_int(float f, bool to_long) {
+  if (isnan(f)) return 0;
+  if (to_long) {
+    if (f >= 9223372036854775808.0f) return 0x7fffffffffffffffLL;
+    if (f <= -9223372036854775808.0f) return (long long)0x8000000000000000ULL;
+    return __float2ll_rz(f);
+  }
+  if (f >= 2147483648.0f) return 0x7fffffff;
+  if (f <= -2147483648.0f) return -0x7fffffff - 1;
+  return __float2int_rz(f);
+}
+
+// a value of type `from` as type `to`, as core/types.py convert_to (float to
+// int saturates, NaN to 0; bool is value != 0)
 __device__ __forceinline__ Val convert(Val v, int from, int to) {
   Val r;
   r.i = 0;
@@ -81,9 +97,9 @@ __device__ __forceinline__ Val convert(Val v, int from, int to) {
   } else if (to == TY_BOOL) {
     r.i = from == TY_FLOAT ? (v.f != 0.0f) : (v.i != 0);
   } else if (to == TY_LONG) {
-    r.i = from == TY_FLOAT ? (long long)v.f : v.i;
+    r.i = from == TY_FLOAT ? float_to_int(v.f, true) : v.i;
   } else {  // TY_INT, TY_ID: int32
-    r.i = from == TY_FLOAT ? (long long)(int)v.f : (long long)(int)v.i;
+    r.i = from == TY_FLOAT ? float_to_int(v.f, false) : (long long)(int)v.i;
   }
   return r;
 }

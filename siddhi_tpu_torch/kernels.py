@@ -94,7 +94,7 @@ SIGNATURES = {
     "pe_emit": ("pattern_emit", [P] * 4 + [I, I, P, P, I] + [P] * 3 + [I] + [P] * 4 + [I, P, I, P, I]
                 + [P] * 4 + [P]),
     "ps_scan": ("pattern_scan", [P, I, I, I, I] + [P] * 13 + [I] + [P] * 9 + [P] * 4 + [I, P]
-                + [P, P, I] + [P] * 5 + [I, P]),
+                + [P, P, I] + [P] * 5 + [I, I, P]),
     "tb_prepare": ("batch_window", [P] * 10 + [I, I, I, I, LL, I, LL, I, LL] + [P] * 20 + [P]),
     "running_extreme_f32": ("running_extreme", _RUNNING_EXTREME),
     "running_extreme_i32": ("running_extreme", _RUNNING_EXTREME),
@@ -112,7 +112,8 @@ SIGNATURES = {
     "ti_probe": ("table_index", [P, I, P, P, P, I, P, P, I, P, I, P, P, P]),
     "tm_match": ("table_match", [P, I, I, P, P, I, P, P, P, P, P, I, I, I, P, P]),
     "tsc_scan": ("table_scan", [I, P, P, P, P, I, I, P, P, I, P, P, P, I, I, I, I, P, I, I]
-                 + [P] * 8),
+                 + [P] * 8 + [I, P]),
+    "tsc_workspace": ("table_scan", [I, I]),
     "sw_sort": ("special_window", [I] * 3 + [P] * 21 + [P]),
     "sw_frequent": ("special_window", [I, I] + [P] * 18 + [P]),
     "sw_lossy": ("special_window", [I, I, LL, ctypes.c_float] + [P] * 22 + [P]),
@@ -143,7 +144,7 @@ SIGNATURES = {
     "pb_gather_8": ("partition_batch", _PB_GATHER),
     "pg_assign": ("group_assign", [P] * 7 + [I] * 3 + [P] * 15 + [P]),
     "pps_scan": ("pattern_scan", [P, I, I, I, I] + [P] * 13 + [I] + [P] * 9 + [P] * 4 + [I, P]
-                 + [P, P, I] + [P, P, I, I] + [P] * 9 + [P]),
+                 + [P, P, I] + [P, P, I, I] + [P] * 9 + [I, P]),
     "pp_chunks": ("partition_pattern", [P, P, I, I, I] + [P] * 7 + [P]),
     "pp_advance": ("partition_pattern", [P] * 8 + [LL, LL] + [I] * 8 + [LL] + [P] * 5 + [I]
                    + [P] * 2 + [I] + [P] * 4 + [P]),
@@ -172,7 +173,8 @@ SIGNATURES = {
 }
 
 # entry points that return a size (long long) instead of a cudaError_t
-RESTYPES = {"ti_build_workspace": LL, "ol_workspace": LL, "pt_rows_workspace": LL}
+RESTYPES = {"ti_build_workspace": LL, "ol_workspace": LL, "pt_rows_workspace": LL,
+            "tsc_workspace": LL}
 
 launches: collections.Counter = collections.Counter()
 

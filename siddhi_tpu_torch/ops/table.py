@@ -61,7 +61,7 @@ from siddhi_tpu_torch.core.pattern import (
     TY_LONG,
     run_program,
 )
-from siddhi_tpu_torch.core.types import flush_subnormal
+from siddhi_tpu_torch.core.types import convert_to, flush_subnormal
 from siddhi_tpu_torch.ops.prefix import first_indices
 
 OP_TAB = 3  # (OP_TAB, lane, ty): table lane `lane` at the slot (prog.cuh OP_OPERAND)
@@ -187,7 +187,7 @@ def table_write_ref(state: dict, cols: dict, ts, rows, pk_cols: list):
 
     def put(lane, src):
         out = lane.clone()
-        out[dst] = src[ok].to(lane.dtype)
+        out[dst] = convert_to(src[ok], lane.dtype)
         return out
 
     new_seq = state["next"] + rank.to(torch.int64)
@@ -545,8 +545,8 @@ def table_update_scan_ref(scan: ScanPrograms, regs: list, state: dict, rows):
             & valid
         vals = {}
         for name, sp in sets:
-            vals[name] = torch.broadcast_to(
-                program_ref(sp.code, rv, lane_tensors(sp, cols, ts)), (c,)).to(cols[name].dtype)
+            vals[name] = convert_to(torch.broadcast_to(
+                program_ref(sp.code, rv, lane_tensors(sp, cols, ts)), (c,)), cols[name].dtype)
         if guard is not None:
             name = sets[guard][0]
             kcol = cols[name]
@@ -592,8 +592,8 @@ def table_upsert_scan_ref(scan: ScanPrograms, regs: list, state: dict, rows, ins
         m = torch.broadcast_to(program_ref(on.code, rv, lane_tensors(on, cols, lts)), (c,)) \
             & valid
         if bool(m.any()):
-            vals = {name: torch.broadcast_to(
-                program_ref(sp.code, rv, lane_tensors(sp, cols, lts)), (c,)).to(cols[name].dtype)
+            vals = {name: convert_to(torch.broadcast_to(
+                program_ref(sp.code, rv, lane_tensors(sp, cols, lts)), (c,)), cols[name].dtype)
                 for name, sp in sets}
             for name, _sp in sets:
                 cols[name] = torch.where(m, vals[name], cols[name])
@@ -614,6 +614,93 @@ def table_upsert_scan_ref(scan: ScanPrograms, regs: list, state: dict, rows, ins
     return {**state, "cols": cols, "ts": lts, "valid": valid, "seq": seq, "next": nxt}, ovf
 
 
+def _key_of(x: torch.Tensor, ty: int):
+    """(key, matchable) of a key lane as K24's groups read it: a float
+    flushed with -0.0 as 0.0, as raw_eq compares; a null (NaN) key matches
+    nothing."""
+    if ty == TY_FLOAT:
+        return (flush_subnormal(x) + 0.0).view(torch.int32).to(torch.int64), ~torch.isnan(x)
+    if ty == TY_BOOL:
+        return x.to(torch.int64), torch.ones_like(x, dtype=torch.bool)
+    null = 0 if ty == TY_ID else torch.iinfo(x.dtype).min
+    return x.to(torch.int64), x != null
+
+
+def table_upsert_groups_ref(scan: ScanPrograms, regs: list, state: dict, rows, ins_cols: dict,
+                            ts):
+    """The update-or-insert by key groups, as K24 decomposes it on the card
+    (csrc/table_scan.cu tg_*), in plain PyTorch: a test aid that the CPU
+    tests hold against the JAX package (`table_upsert_scan_ref` stays the
+    plain version the kernel is held against). The rows are grouped by key
+    in row order; each slot held at step start walks its group's rows; the
+    first row of each group with no such slot inserts (rank k in row order
+    takes the k-th free slot in ascending order, seq = next + k; a rank at
+    or past the free count sets the overflow flag) and its slot walks the
+    group's later rows. Only for the equality form with no set clause
+    writing the key lane; where a row's insert does not hold its own key,
+    the serial walk's result."""
+    lane, reg, ty = scan.eq
+    name = scan.names[lane]
+    x, v = regs[reg], ins_cols[name]
+    kx, mx = _key_of(x, ty)
+    kv, mv = _key_of(v, ty)
+    bad = (mx != mv) | (mx & (kx != kv))
+    key_reg = key_set_reg(scan)
+    if key_reg is None:
+        raise ValueError("the key groups need the equality form, its key lane written by "
+                         "no set clause or by the row's own key")
+    if key_reg >= 0:
+        kr, mr = _key_of(regs[key_reg], ty)
+        bad = bad | (mx & ~(mr & (kr == kx)))
+    if bool((rows & bad).any()):
+        return table_upsert_scan_ref(scan, regs, state, rows, ins_cols, ts)
+    cols = {n: c.clone() for n, c in state["cols"].items()}
+    lts, valid, seq = state["ts"].clone(), state["valid"].clone(), state["seq"].clone()
+    c = valid.shape[0]
+    sel = torch.nonzero(rows).flatten().tolist()
+    groups: dict = {}
+    for b in sel:
+        if bool(mx[b]):
+            groups.setdefault(int(kx[b]), []).append(b)
+
+    def walk(slots, group_rows):
+        for b in group_rows:
+            rv = _row(regs, b)
+            vals = {n: convert_to(torch.broadcast_to(
+                program_ref(sp.code, rv, lane_tensors(sp, cols, lts)), (c,)), cols[n].dtype)
+                for n, sp in scan.sets}
+            for n, _sp in scan.sets:
+                cols[n] = torch.where(slots, vals[n], cols[n])
+
+    kc, mc = _key_of(cols[name], ty)
+    held = valid & mc
+    has = set()
+    for k, group_rows in groups.items():
+        slots = held & (kc == k)
+        if bool(slots.any()):
+            has.add(k)
+            walk(slots, group_rows)
+    free = torch.nonzero(~valid).flatten().tolist()
+    nxt = int(state["next"])
+    inserting = [b for b in sel if not bool(mx[b])
+                 or (groups[int(kx[b])][0] == b and int(kx[b]) not in has)]
+    for k, b in enumerate(inserting[:len(free)]):
+        s = free[k]
+        for n in cols:
+            cols[n][s] = ins_cols[n][b]
+        lts[s] = ts[b]
+        valid[s] = True
+        seq[s] = nxt + k
+        if bool(mx[b]):
+            one = torch.zeros(c, dtype=torch.bool, device=valid.device)
+            one[s] = True
+            walk(one, groups[int(kx[b])][1:])
+    ovf = torch.tensor(len(inserting) > len(free), device=valid.device)
+    n_ins = min(len(inserting), len(free))
+    return {**state, "cols": cols, "ts": lts, "valid": valid, "seq": seq,
+            "next": state["next"] + n_ins}, ovf
+
+
 def table_upsert_scan(scan: ScanPrograms, regs: list, state: dict, rows, ins_cols: dict, ts):
     """The update-or-insert: each valid probe row in order updates the
     slots `scan.on` matches (as the earlier rows left the table) with the
@@ -623,6 +710,36 @@ def table_upsert_scan(scan: ScanPrograms, regs: list, state: dict, rows, ins_col
     if rows.device.type == "cpu":
         return table_upsert_scan_ref(scan, regs, state, rows, ins_cols, ts)
     return _scan_launch(scan, regs, state, rows, upsert=True, ins_cols=ins_cols, ts=ts)
+
+
+# rows a step of the key-group update-or-insert may hold (csrc/table_scan.cu
+# kGroupMaxRows)
+GROUP_MAX_ROWS = 1 << 14
+
+
+def key_set_reg(scan: ScanPrograms) -> Optional[int]:
+    """For the equality form (`scan.eq`): -1 when no set clause writes the
+    key lane, the register when one writes a register of the lane's type
+    into it unchanged (the row's own key, which the kernel checks), else
+    None (and with no equality form)."""
+    if scan.eq is None:
+        return None
+    lane, _reg, ty = scan.eq
+    if lane not in scan.set_lane:
+        return -1
+    k = 1 + scan.set_lane.index(lane)
+    code = scan._rows[scan.starts[k]:scan.starts[k] + scan.lens[k]]
+    if len(code) == 1 and code[0][0] == OP_REG and code[0][2] == ty and scan.tys[k] == ty:
+        return code[0][1]
+    return None
+
+
+def by_key_groups(scan: ScanPrograms, b: int, c: int) -> bool:
+    """Whether K24 runs an update-or-insert of b rows into c slots by key
+    groups (its condition one equality of a table lane and a row register,
+    no set clause writing that lane but with the row's own key), else as
+    the one-block walk."""
+    return key_set_reg(scan) is not None and 1 <= b <= GROUP_MAX_ROWS and c >= 1
 
 
 def _scan_launch(scan: ScanPrograms, regs, state, rows, upsert: bool, ins_cols=None, ts=None):
@@ -646,6 +763,10 @@ def _scan_launch(scan: ScanPrograms, regs, state, rows, upsert: bool, ins_cols=N
     A = _Args()
     scratch = torch.empty(max(c, 1), dtype=torch.uint8, device=dev)
     ins = [ins_cols[n] for n in names] if upsert else []
+    work = None
+    if upsert and by_key_groups(scan, b, c):
+        work = torch.empty(kernels.function("tsc_workspace")(b, c), dtype=torch.uint8,
+                           device=dev)
     kernels.check(kernels.function("tsc_scan")(
         int(upsert), code.data_ptr(), A.ints(scan.starts), A.ints(scan.lens), A.ints(scan.tys),
         len(scan.lens), len(regs), A.ptrs(regs), A.ints([_ty_of(r.dtype) for r in regs]),
@@ -653,7 +774,8 @@ def _scan_launch(scan: ScanPrograms, regs, state, rows, upsert: bool, ins_cols=N
         A.ints(scan.set_lane), -1 if scan.guard is None else scan.guard,
         *(scan.eq if scan.eq is not None else (-1, -1, -1)), rows.data_ptr(), b, c, valid.data_ptr(), seq.data_ptr(), nxt.data_ptr(),
         A.ptrs(ins) if upsert else None, ts.data_ptr() if upsert else None,
-        scratch.data_ptr(), flag.data_ptr(), kernels.stream()), "table_scan")
+        scratch.data_ptr(), flag.data_ptr(), None if work is None else work.data_ptr(),
+        -1 if work is None else key_set_reg(scan), kernels.stream()), "table_scan")
     kernels.launches["table_scan"] += 1
     out = {**state, "cols": dict(zip(names, new[:-1]))}
     if upsert:

@@ -166,6 +166,16 @@ SCAN_APPS = {
                        "select e1[0].volume as v0, e1[last].volume as vl, e2.volume as vb"),
     "every_block": ("from every (e1=S[price > 70] -> e2=S[price < 30]) -> e3=S[volume > 90] "
                     "select e1.price as p1, e2.price as p2, e3.volume as v3"),
+    # conditions mixing capture-free conjuncts (hoisted into the row masks)
+    # with capture reads
+    "mixed_conjuncts": ("from every e1=S[price > 70] -> e2=S[price < 40 and sym == e1.sym and "
+                        "volume > 20] within 200 milliseconds "
+                        "select e1.price as p1, e2.price as p2, e2.volume as v2"),
+    "mixed_nested": ("from every e1=S[price > 60] -> e2=S[(price < 50 and volume > 10) and "
+                     "(sym == e1.sym and price < e1.price - 15)] or e3=S[volume > 95 and "
+                     "price > e1.price] select e1.volume as v1, e2.price as p2, e3.price as p3"),
+    "mixed_absent": ("from every e1=S[price > 80] -> not S[price < 20 and sym == e1.sym and "
+                     "volume > 5] for 15 milliseconds select e1.volume as v, e1.price as p"),
 }
 
 
@@ -180,6 +190,39 @@ def test_scan_app_against_jax(app, batch):
     want = _run_columns(siddhi_tpu.SiddhiManager(), ql, data, batch)
     assert len(want) > 2
     assert bench._rows_match([list(r) for r in got], [list(r) for r in want])
+
+
+HOIST_APP = ("@app:playback\n" + DIFF_SCHEMA +
+             "@info(name='q') from every e1=S[price > 50] -> e2=S[volume > 10 and "
+             "sym == e1.sym and price * 2.0 < e1.price + 100.0 and not (price is null)] "
+             "select e1.volume as v1, e2.volume as v2, e2.price as p2 insert into Out;")
+HOIST_ROWS = [("A", 60.0, 1), ("A", 30.0, None), ("B", 55.0, 2), ("A", None, 30),
+              ("A", 20.0, 40), ("B", 10.0, None), ("B", 40.0, 12), ("A", 70.0, 3),
+              ("A", float("nan"), 50), ("A", 35.0, 11)]
+
+
+def test_hoisted_conjuncts_over_nulls_match_jax():
+    """A condition whose capture-free conjuncts, null volumes and prices
+    among their operands, land in the row mask (two of its four conjuncts),
+    one event a send: the rows equal JAX's."""
+    outs = []
+    for mgr in (siddhi_tpu.SiddhiManager(), _port()):
+        rt = mgr.create_siddhi_app_runtime(HOIST_APP)
+        out = []
+        rt.add_callback("Out", lambda evs, _o=out: _o.extend(tuple(e.data) for e in evs))
+        rt.start()
+        for i, row in enumerate(HOIST_ROWS):
+            rt.get_input_handler("S").send(row, 1_000 + 5 * i)
+        if mgr.__class__.__module__.startswith("siddhi_tpu_torch"):
+            prog = rt.queries["q"].prog
+            prog.compile_scan()
+            e2 = prog.slots[1].atoms[0]
+            assert len(prog._row_conds[(1, e2.ref_idx)]) == 2
+            assert len(prog._progs[(1, e2.ref_idx)]) == 2
+        rt.shutdown()
+        outs.append(out)
+    assert outs[0] and bench._rows_match([list(r) for r in outs[1]],
+                                         [list(r) for r in outs[0]])
 
 
 # ---------------------------------------------------------------------------

@@ -466,3 +466,64 @@ def test_table_programs_raise_outside_their_operations():
 
     with pytest.raises(SiddhiAppCreationError, match="not ported yet"):
         emit_program(SiddhiCompiler.parse_expression("convert(T.v, 'int') > 1"), ps, "T")
+
+
+# the update-or-insert by key groups (K24's decomposition on the card):
+# (on, set clause or None, primary key, whether the rows' inserts hold their
+# own keys, so the groups route runs rather than the walk)
+GROUPS = {
+    "pk": ("T.k == k", None, "@PrimaryKey('k')", True),
+    "pk_accumulate": ("T.k == k", "set T.v = T.v + v", "@PrimaryKey('k')", True),
+    "non_unique": ("T.k == k", "set T.v = T.v + v, T.p = p", "", True),
+    "float_key": ("T.p == p", "set T.v = T.v - v", "", True),
+    "string_key": ("T.s == s", "set T.v = T.v * 2 + v", "", True),
+    "other_key": ("T.k == v", "set T.v = T.v + 1", "", False),
+    "key_rewritten": ("T.k == k", "set T.k = v, T.v = v", "", False),
+}
+
+
+@pytest.mark.parametrize("b,c", [(1, 1), (33, 33), (513, 33), (513, 4097)])
+@pytest.mark.parametrize("fill", ["empty", "half", "nearly_full"])
+@pytest.mark.parametrize("case", sorted(GROUPS))
+def test_update_or_insert_by_key_groups(b, c, fill, case, monkeypatch):
+    """`table_upsert_groups_ref` (rows grouped by key, each slot held at
+    step start walking its group's rows, the first row of a group with no
+    slot inserting at the k-th free slot by rank) through
+    `InMemoryTable.update_or_insert` against the JAX package's serial
+    `update_or_insert`: repeated new keys in one batch, null and NaN keys,
+    a table filling up mid-batch, a non-unique key, a key set clause, every
+    lane exact; the rows whose inserts do not hold their own keys take the
+    walk."""
+    on_ql, set_ql, ann, grouped = GROUPS[case]
+    rng = np.random.default_rng(b * 19 + c + len(case) + len(fill))
+    jt, pt = _tables(ann, c)
+    n_valid = {"empty": 0, "half": c // 2, "nearly_full": max(c - 3, 0)}[fill]
+    st = _state(rng, jt, n_valid, max(c // 2, 2), dup=not ann)
+    bt = _batch(rng, b, max(c // 2, 2))
+    # repeated keys within the batch, and keys the table holds
+    bt["cols"]["k"][::3] = bt["cols"]["k"][0]
+    bt["cols"]["p"][1::4] = st["cols"]["p"][rng.integers(0, c, len(bt["cols"]["p"][1::4]))]
+    sq = f"from T select k, v, p, s update or insert into T {set_ql or ''} on {on_ql}"
+    jout = JaxCompiler.parse_store_query(sq).output_stream
+    pout = SiddhiCompiler.parse_store_query(sq).output_stream
+    js, ps = _scopes(jt, pt)
+    jsets = jax_sets(jt, jout.set_attributes, js)
+    psets = compile_set_attributes(pt, pout.set_attributes, ps)
+    jaux, paux = {}, {}
+    want = jt.update_or_insert(_jstate(st), _jax_batch(bt), jax_compile(jout.on, js), jsets,
+                               "__out__", jnp.asarray(0, jnp.int64), jaux,
+                               insert_names=["k", "v", "p", "s"])
+    op = _UpsertOp(build_scan_programs(pt, ps, pout.on, pout.set_attributes,
+                                       [n for n, _ in psets]),
+                   dict(zip(pt.schema.attr_names, ["k", "v", "p", "s"])))
+    walks = []
+    walk = K.table_upsert_scan_ref
+    monkeypatch.setattr(K, "table_upsert_scan", K.table_upsert_groups_ref)
+    monkeypatch.setattr(K, "table_upsert_scan_ref", lambda *a: walks.append(1) or walk(*a))
+    got = pt.update_or_insert(state_from_numpy(st, "cpu"), _port_batch(bt), op,
+                              torch.zeros((), dtype=torch.int64), paux)
+    _same(_np(got), _np(want))
+    _same(_flags(paux), _flags(jaux))
+    assert K.key_set_reg(op.scan) is not None
+    if grouped:
+        assert not walks

@@ -1,4 +1,13 @@
-"""Times the ring view (K11 `ring_view`, with K48's seq lane at LIN's shape),
+"""Times, with `--sets pr21` (the default), K16 (`pattern_scan`) at paths L's
+and A's data steps, K37 (`partition_pattern_scan`) at path PPA's data step,
+K24 (`table_upsert_scan`) at path TAB-UPSERT's step, and the events/s of
+paths L, A, PPA and TAB-UPSERT; in a checkout whose K16 takes its design
+steps apart (`core/pattern.py` SCAN_OPT), K16 with each subset of them too.
+K16's inputs are chip_smoke.py's `scan_timing_inputs`; K37's and K24's are
+the first full-width step of their path, caught by a hook on the wrapper
+and timed inside it (the call is pure but for its emission lanes, which
+each call rewrites alike). With `--sets pr20` it times the ring view
+(K11 `ring_view`, with K48's seq lane at LIN's shape),
 the row lists (`partition_rows`, which K31, K32 and K37 share), the keyed
 ring view (K38 `partition_ring_view` at path PJ's P=1,024, W=50), K49's fold
 (`fold_rows` at SH-KEYS' B=32,768, D=8, given each shard's own lanes: a
@@ -19,10 +28,11 @@ are timed alike on the same work.
 Run on the card from the repository root, once a checkout, in turns (two
 checkouts compare only within one call):
 
-    python3 tools/redesign_times.py --root DIR --label parent
+    python3 tools/redesign_times.py --root DIR --label parent [--sets pr21|pr20]
 
 It builds the checkout's kernels (its own `kernels.build_all`) and prints one
-JSON line.
+JSON line. A slow call is timed fewer times (REPS, down to two a run, about
+0.3 s a run).
 """
 
 import argparse
@@ -60,10 +70,99 @@ def fold_one_buffer(torch, kernels, lanes: dict, owner, valid):
     return dict(zip(names, outs[:-1])), outs[-1]
 
 
+def caught(module, name: str, when, timed) -> dict:
+    """Runs `timed(fn, args, kwargs)` inside the first call of module.name
+    whose arguments satisfy `when(args)`; returns what it gave ({} until
+    then). The hook stays until restored by the caller."""
+    orig = getattr(module, name)
+    got = {}
+
+    def hook(*a, **kw):
+        r = orig(*a, **kw)
+        if not got and when(a):
+            got.update(timed(orig, a, kw))
+        return r
+
+    setattr(module, name, hook)
+    return got
+
+
+def pr21_times(cs, torch, three) -> dict:
+    """K16 at L's and A's data steps (each subset of its design steps where
+    the checkout has them), K37 at PPA's data step, K24 at TAB-UPSERT's step,
+    and paths L, A, PPA and TAB-UPSERT's events/s (medians of 3)."""
+    from siddhi_tpu_torch.core import pattern as PM
+    from siddhi_tpu_torch.core import pattern_runtime
+    from siddhi_tpu_torch.ops import table as TK
+
+    out = {}
+    steps = cs.scan_timing_inputs(torch, "cuda")
+    opts = (7, 0, 1, 2, 4, 3, 5) if hasattr(PM, "SCAN_OPT") else (None,)
+    for label, call in steps.items():
+        for opt in opts:
+            if opt is not None:
+                PM.SCAN_OPT = opt
+            key = f"K16_{label}" + ("" if opt in (None, 7) else f"_opt{opt}")
+            out[key] = three(call)
+            print(f"{key}: {out[key]['ms']:.4f} ms", flush=True)
+        if opt is not None:
+            PM.SCAN_OPT = 7
+    b = cs.MAIN_BATCH
+
+    # path L: 1,000,000 events fused, calls of 8 batches (the first of 4)
+    data = cs.stock_data(cs.LOGICAL_EVENTS, seed=7)
+    app = cs.LOGICAL_APP.format(batch=b)
+    cs.run_app("cuda", app, data, 4 * b, 2 * b, 2 * b)  # warm-up
+    runs = [cs.LOGICAL_EVENTS / cs.run_app("cuda", app, data, cs.LOGICAL_EVENTS, 8 * b, 4 * b)[2]
+            for _ in range(3)]
+    out["path_L"] = {"events_per_s": float(np.median(runs)), "runs": runs}
+    # path A: ABSENT_BATCHES batches under playback, one a call, with their TIMER steps
+    n = cs.ABSENT_BATCHES * b
+    data = cs.stock_data(n, seed=7)
+    app = cs.ABSENT_APP.format(batch=b)
+    cs.run_app("cuda", app, data, 2 * b, b, b, fused=False)  # warm-up
+    runs = [n / cs.run_app("cuda", app, data, n, b, b, fused=False)[2] for _ in range(3)]
+    out["path_A"] = {"events_per_s": float(np.median(runs)), "runs": runs}
+    # path PPA, and K37 at its first full-width data step
+    data, names = cs.pp_data(cs.PP_EVENTS)
+    app = cs.partition_pattern_app("PPA", b, cs.PT_CAP)
+    got = caught(pattern_runtime, "partition_pattern_scan",
+                 lambda a: a[3].shape[0] == b and bool((a[4] == 0).any()),
+                 lambda fn, a, kw: {"K37_PPA": three(lambda: fn(*a, **kw))})
+    try:
+        cs.run_app("cuda", app, data, b, b, b, fused=False, symbols=names)  # warm-up
+    finally:
+        pattern_runtime.partition_pattern_scan = PM.partition_pattern_scan
+    out.update(got)
+    n = cs.PPA_BATCHES * b
+    runs = [n / cs.run_app("cuda", app, data, n, b, b, fused=False, symbols=names)[2]
+            for _ in range(3)]
+    out["path_PPA"] = {"events_per_s": float(np.median(runs)), "runs": runs}
+    # path TAB-UPSERT, and K24 at its first step (the table half full)
+    orig = TK.table_upsert_scan
+    got = caught(TK, "table_upsert_scan",
+                 lambda a: a[3].shape[0] == cs.TAB_BATCH,
+                 lambda fn, a, kw: {"K24_TAB-UPSERT": three(lambda: fn(*a, **kw))})
+    try:
+        cs.run_table_path("cuda", "TAB-UPSERT", cs.TAB_N["TAB-UPSERT"], cs.TAB_BATCH, 2)
+    finally:
+        TK.table_upsert_scan = orig
+    out.update(got)
+    runs = []
+    for _ in range(3):
+        r = cs.run_table_path("cuda", "TAB-UPSERT", cs.TAB_N["TAB-UPSERT"], cs.TAB_BATCH,
+                              cs.TAB_BATCHES)
+        runs.append(cs.TAB_BATCH * cs.TAB_BATCHES / r["seconds"])
+    out["path_TAB-UPSERT"] = {"events_per_s": float(np.median(runs)), "runs": runs}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE, help="the checkout whose port is timed")
     ap.add_argument("--label", default="")
+    ap.add_argument("--sets", default="pr21", help="pr21 (K16, K37, K24 and their paths) or "
+                    "pr20 (K11, the row lists, K38, K49's fold and their paths)")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import chip_smoke as cs  # the yardstick: this checkout's, whatever --root is
@@ -82,20 +181,34 @@ def main() -> int:
 
     kernels.build_all()
 
+    def kernel_ms(fn, reps):
+        # torch.profiler records no device time now and then on the card:
+        # such a run counts for nothing
+        try:
+            return cs.device_ms(torch, lambda: None, fn, reps, None)
+        except AssertionError:
+            return None
+
     def three(fn) -> dict:
-        runs = {"ms": [cs.time_ms(torch, fn, REPS) for _ in range(5)],
-                "device_ms": [cs.device_all_ms(torch, fn, REPS) for _ in range(5)],
-                "kernel_ms": [cs.device_ms(torch, lambda: None, fn, REPS // 4, None)
-                              for _ in range(5)]}
-        out = {k: float(np.median(v)) for k, v in runs.items()}
+        reps = max(2, min(REPS, int(300 / max(cs.time_ms(torch, fn, 1), 1e-3))))
+        runs = {"ms": [cs.time_ms(torch, fn, reps) for _ in range(5)],
+                "device_ms": [cs.device_all_ms(torch, fn, reps) for _ in range(5)]}
+        runs["kernel_ms"] = [x for x in (kernel_ms(fn, max(1, reps // 4)) for _ in range(5))
+                             if x is not None]
+        out = {k: float(np.median(v)) if v else None for k, v in runs.items()}
         out["ms_runs"] = runs["ms"]  # the whole call, on the host's clock, spreads the most
         return out
 
+    out = {"label": args.label, "root": args.root, "card": cs.card_line()}
+    if args.sets == "pr21":
+        out.update(pr21_times(cs, torch, three))
+        print(json.dumps(out), flush=True)
+        return 0
     j_ring, t_ring = cs.view_timing_rings(torch, np.random.default_rng(cs.VIEW_SEED), "cuda")
-    out = {"label": args.label, "root": args.root, "card": cs.card_line(),
+    out.update({
            "J": three(lambda: ring_view(j_ring)),
            "T": three(lambda: ring_view(t_ring)),
-           "LIN": three(lambda: ring_view(j_ring, with_seq=True))}
+           "LIN": three(lambda: ring_view(j_ring, with_seq=True))})
     for label, (bt, slot) in cs.rows_timing_batches(torch, "cuda", 1024).items():
         out[f"rows_{label}"] = three(lambda: partition_rows(bt, slot, 1024))
     pj_ring = cs.keyed_ring(torch, np.random.default_rng(cs.PJ_VIEW_SEED), "cuda", cs.PT_CAP,
